@@ -1,0 +1,178 @@
+"""The port's brain service: the ``/parse`` contract on CPU engines, its env
+factory, and the rule that the port imports neither JAX nor the JAX package.
+
+The contract is the JAX service's (services/brain.py ``_parse_inner``):
+``{text, context, session_id?}`` in; 200 with the ParseResponse dict; 400
+``invalid_request``; 422 ``schema_validation_failed`` when the decode runs
+out of budget before EOS; 500 ``llm_error`` when the engine fails; errors as
+``{"error", "detail"}``. The 200 body is held equal to the JAX package's
+``model_dump()`` through the recorded golden parses of the distilled
+checkpoint.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+
+import pytest
+import torch
+
+from tpu_voice_agent_torch import distilled
+from tpu_voice_agent_torch.serve.engine import DecodeEngine
+from tpu_voice_agent_torch.services import brain
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _short_prompt(text, context):
+    return f"<|user|>\n{text}\n<|assistant|>\n"
+
+
+@pytest.fixture(scope="module")
+def distilled_app():
+    return brain.BrainApp(distilled.intent_engine_from(*distilled.load_distilled(device="cpu"),
+                                                       device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def tiny_engine():
+    return DecodeEngine(preset="test-tiny", max_len=256, prefill_buckets=(64, 128),
+                        fast_forward=8, device="cpu")
+
+
+def _post(app, body):
+    raw = body if isinstance(body, bytes) else json.dumps(body).encode()
+    return app.parse(raw)
+
+
+def test_parse_200_is_the_recorded_model_dump(distilled_app):
+    rec = distilled.golden_records()[0]
+    status, body, headers = _post(distilled_app, {"text": rec["text"],
+                                                  "context": rec["context"],
+                                                  "session_id": "s1"})
+    assert status == 200
+    assert body == rec["response"]  # the JAX package's model_dump() of this parse
+    assert int(headers["x-prompt-tokens"]) > 0 and "x-trace-id" in headers
+
+
+@pytest.mark.parametrize("raw", [
+    b"not json",
+    b"[1, 2]",
+    json.dumps({"context": {}}).encode(),  # text missing
+    json.dumps({"text": ""}).encode(),  # too short
+    json.dumps({"text": "go back", "bogus": 1}).encode(),  # extra field
+    json.dumps({"text": "go back", "context": []}).encode(),
+])
+def test_parse_400_invalid_request(distilled_app, raw):
+    status, body, _ = _post(distilled_app, raw)
+    assert status == 400 and body["error"] == "invalid_request" and body["detail"]
+
+
+def test_parse_409_prefix_feed_is_refused(distilled_app):
+    status, body, _ = _post(distilled_app, {"text": "go", "prefix_feed": True})
+    assert (status, body["error"]) == (409, "prefix_feed_unsupported")
+
+
+def test_parse_422_when_the_decode_is_truncated(tiny_engine):
+    app = brain.BrainApp(brain.EngineParser(tiny_engine, max_new_tokens=6,
+                                            render=_short_prompt))
+    status, body, _ = _post(app, {"text": "search for headphones"})
+    assert status == 422
+    assert body == {"error": "schema_validation_failed",
+                    "detail": "decode truncated after 6 tokens (no EOS)"}
+
+
+def test_parse_500_when_the_prompt_does_not_fit(tiny_engine):
+    # the few-shot prompt (~880 tokens) exceeds this engine's 128 bucket
+    app = brain.BrainApp(brain.EngineParser(tiny_engine, max_new_tokens=6))
+    status, body, _ = _post(app, {"text": "search for headphones"})
+    assert status == 500 and body["error"] == "llm_error"
+    assert "exceeds max bucket" in body["detail"]
+
+
+def test_parse_500_on_a_poisoned_row():
+    eng = DecodeEngine(preset="test-tiny", max_len=256, prefill_buckets=(64, 128),
+                       fast_forward=8, device="cpu")
+    eng.params["final_norm"] = torch.full_like(eng.params["final_norm"], float("nan"))
+    app = brain.BrainApp(brain.EngineParser(eng, max_new_tokens=6, render=_short_prompt))
+    status, body, _ = _post(app, {"text": "go back"})
+    assert status == 500
+    assert body == {"error": "llm_error", "detail": "poisoned: non-finite logits"}
+
+
+def test_http_server_round_trip(distilled_app):
+    server = brain.make_server(distilled_app, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["ok"] and health["device"] == "cpu" and health["kernels"] == "kernels"
+        rec = distilled.golden_records()[5]
+        req = urllib.request.Request(base + "/parse", method="POST",
+                                     data=json.dumps({"text": rec["text"]}).encode(),
+                                     headers={"Content-Type": "application/json",
+                                              "x-trace-id": "abc"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200 and r.headers["x-trace-id"] == "abc"
+            assert json.loads(r.read()) == rec["response"]
+        bad = urllib.request.Request(base + "/parse", method="POST", data=b"{")
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(bad, timeout=30)
+        assert e.value.code == 400
+        assert json.loads(e.value.read())["error"] == "invalid_request"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def test_env_factory_reads_the_jax_service_names(monkeypatch):
+    monkeypatch.setenv("BRAIN_BACKEND", "engine:test-tiny")
+    monkeypatch.setenv("BRAIN_QUANT", "int8")
+    monkeypatch.setenv("BRAIN_DEVICE", "cpu")
+    monkeypatch.delenv("BRAIN_FF", raising=False)
+    monkeypatch.delenv("BRAIN_PREFIX", raising=False)
+    parser = brain.make_parser_from_env()
+    eng = parser.engine
+    assert (eng.fast_forward, eng.quant, eng.max_len) == (8, "int8", 2048)
+    assert isinstance(eng.params["lm_head"], dict)  # int8 {"q", "s"}
+    assert len(eng.prefix_ids) > 800  # the few-shot head is cached at boot
+    monkeypatch.setenv("BRAIN_FF", "0")
+    monkeypatch.setenv("BRAIN_PREFIX", "0")
+    monkeypatch.delenv("BRAIN_QUANT")
+    eng = brain.make_parser_from_env().engine
+    assert (eng.fast_forward, eng.quant, eng.prefix_ids) == (0, None, [])
+
+
+def test_env_factory_without_a_card_raises(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device resolves")
+    monkeypatch.setenv("BRAIN_BACKEND", "engine:test-tiny")
+    monkeypatch.delenv("BRAIN_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        brain.make_parser_from_env()
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tpu_voice_agent_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import tpu_voice_agent_torch.services.brain\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent')\n"
+        "       or k.startswith(('jax.', 'jaxlib.', 'tpu_voice_agent.'))]\n"
+        "print(len([k for k in sys.modules if k.startswith('tpu_voice_agent_torch')]), bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 15 and bad.strip() == "[]"

@@ -1,0 +1,59 @@
+"""The distilled intent checkpoint, carried into the port as plain numpy.
+
+``data/intent-tiny-distilled.npz`` holds the JAX package's
+``checkpoints/intent-tiny-distilled`` parameter tree (dim 192, 3 layers, 4/2
+heads, head dim 48, the in-tree 619-token vocabulary) flattened with
+``/``-joined keys, and ``data/intent_golden.json`` the JAX package's
+``EngineParser`` output for golden utterances on it. Both are written by
+``python tests/test_torch_golden.py --write``. With real weights the card
+can prove its tokens right, not just show that they run.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import replace
+
+from . import PACKAGE_DIR
+
+DATA_DIR = PACKAGE_DIR / "data"
+DISTILLED_NPZ = DATA_DIR / "intent-tiny-distilled.npz"
+DISTILLED_META = DATA_DIR / "intent-tiny-distilled.json"
+GOLDEN_JSON = DATA_DIR / "intent_golden.json"
+
+
+def distilled_prompt(text: str, context: dict) -> str:
+    """The short serving prompt of distilled checkpoints (the task lives in
+    the weights, so no few-shot prefix)."""
+    user = json.dumps({"text": text, "context": context}, separators=(",", ":"))
+    return f"<|user|>\n{user}\n<|assistant|>\n"
+
+
+def load_distilled(device=None):
+    """(LlamaConfig, params on ``device``) of the committed checkpoint."""
+    from .bridge import load_npz
+    from .models.llama import LlamaConfig
+    from .serve.engine import resolve_device
+
+    cfg = LlamaConfig(**json.loads(DISTILLED_META.read_text())["config"])
+    return cfg, load_npz(DISTILLED_NPZ, device=resolve_device(device))
+
+
+def intent_engine_from(cfg, params, max_new_tokens: int = 300, device=None, **engine_kw):
+    """The serving engine + parser over distilled weights, configured as the
+    JAX package's ``train.distill.intent_engine_from``: cache 512, prefill
+    buckets (64, 128), no prefix, fast-forward off."""
+    from .serve.engine import DecodeEngine
+    from .services.brain import EngineParser
+
+    eng = DecodeEngine(cfg=replace(cfg, max_seq_len=512), max_len=512,
+                       prefill_buckets=(64, 128), init_weights=False, device=device,
+                       **engine_kw)
+    eng.load_params(params)
+    return EngineParser(eng, max_new_tokens=max_new_tokens, render=distilled_prompt)
+
+
+def golden_records() -> list[dict]:
+    """The recorded JAX parses: [{"text", "context", "token_ids",
+    "output", "response"}, ...]."""
+    return json.loads(GOLDEN_JSON.read_text())["cases"]

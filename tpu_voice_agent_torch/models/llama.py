@@ -1,0 +1,289 @@
+"""Llama-family decoder in PyTorch (dense path).
+
+Port of ``tpu_voice_agent/models/llama.py``: the same parameter tree (layers
+stacked on a leading axis), the same int8 weight-only scheme, the same
+``forward`` branch split between the attention kernels and the plain cache
+attention. Plain functions on tensors; the caller picks the device.
+
+Differences from the JAX module, all deliberate:
+- ``forward`` writes the new k/v into the stacked cache IN PLACE and returns
+  the same dict (JAX returns an updated copy); the layer loop is a Python
+  loop over per-layer views, not a ``lax.scan``.
+- a bf16 product rounds its output to bf16 before the int8 scale multiplies
+  it (XLA kept that output in f32). fp32 weights have no such step.
+Left out: ``forward_paged`` and the MoE feed-forward.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import (
+    decode_attention_layer,
+    decode_block_attention_layer,
+    flash_attention,
+)
+
+# ---------------------------------------------------------------- config
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 4096
+    dim: int = 2048
+    n_layers: int = 22
+    n_heads: int = 32
+    n_kv_heads: int = 4
+    ffn_dim: int = 5632
+    max_seq_len: int = 2048
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    # MoE fields kept so checkpoint configs load unchanged; this port serves
+    # dense models only (n_experts == 0)
+    n_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    moe_impl: str = "dense"
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+
+# widest mid-sequence block the block-decode kernel (K3) serves; wider
+# blocks (suffix prefill buckets) take the plain cache attention
+MAX_BLOCK_DECODE_T = 16
+
+PRESETS: dict[str, LlamaConfig] = {
+    "test-tiny": LlamaConfig(dim=128, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=256,
+                             max_seq_len=256),
+    "draft-tiny": LlamaConfig(dim=64, n_layers=1, n_heads=2, n_kv_heads=1, ffn_dim=128,
+                              max_seq_len=256),
+    "tinyllama-1.1b": LlamaConfig(dim=2048, n_layers=22, n_heads=32, n_kv_heads=4,
+                                  ffn_dim=5632),
+    "llama3-8b": LlamaConfig(dim=4096, n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336,
+                             rope_theta=500_000.0, max_seq_len=8192),
+    "llama3-70b": LlamaConfig(dim=8192, n_layers=80, n_heads=64, n_kv_heads=8, ffn_dim=28672,
+                              rope_theta=500_000.0, max_seq_len=8192),
+}
+
+
+# ---------------------------------------------------------------- params
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.bfloat16,
+                device: str | torch.device | None = None) -> dict:
+    """Random init with the JAX module's shapes and scales (normal draws in
+    fp32, scaled by fan-in ** -0.5, cast to ``dtype``). The numbers differ
+    from ``jax.random``'s; tests share weights through ``bridge`` instead.
+    ``device`` defaults to the generator's."""
+    if cfg.n_experts:
+        raise NotImplementedError("MoE configs are not ported")
+    device = device if device is not None else generator.device
+    d, f, hd = cfg.dim, cfg.ffn_dim, cfg.head_dim
+    nq, nkv, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+
+    def w(*shape, scale=None):
+        scale = scale if scale is not None else shape[-2] ** -0.5
+        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (x * scale).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+
+    embed = w(cfg.vocab_size, d, scale=d**-0.5)
+    layers = {
+        "attn_norm": ones(L, d),
+        "wq": w(L, d, nq * hd),
+        "wk": w(L, d, nkv * hd),
+        "wv": w(L, d, nkv * hd),
+        "wo": w(L, nq * hd, d),
+        "mlp_norm": ones(L, d),
+        "w_gate": w(L, d, f),
+        "w_up": w(L, d, f),
+        "w_down": w(L, f, d),
+    }
+    return {"embed": embed, "layers": layers, "final_norm": ones(d),
+            "lm_head": w(d, cfg.vocab_size)}
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device: str | torch.device = "cpu") -> dict:
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def unstack_layers(layers: dict) -> list[dict]:
+    """Per-layer views of a stacked layer dict (no copies): the layer loop
+    indexes these instead of re-slicing every leaf on every forward."""
+    L = next(iter(layers.values()))
+    L = (L["q"] if isinstance(L, dict) else L).shape[0]
+
+    def pick(leaf, i):
+        return {k: v[i] for k, v in leaf.items()} if isinstance(leaf, dict) else leaf[i]
+
+    return [{k: pick(v, i) for k, v in layers.items()} for i in range(L)]
+
+
+# ---------------------------------------------------------------- quantization
+
+
+def _qe(x: torch.Tensor, leaf) -> torch.Tensor:
+    """``x @ W`` as float32, where W may be an int8 ``{"q", "s"}`` leaf.
+    The per-out-channel scale multiplies the OUTPUT, ``(x @ q) * s``
+    (llama.py:169-182): ``s`` is constant along the contraction axis. The
+    int8 weight is converted to x's dtype on every call (about 5 bytes of
+    traffic per weight against the 1-byte floor; a fused int8 GEMV is later
+    work)."""
+    if isinstance(leaf, dict):
+        return torch.matmul(x, leaf["q"].to(x.dtype)).float() * leaf["s"].float()
+    return torch.matmul(x, leaf).float()
+
+
+def quantize_leaf(w: torch.Tensor) -> dict:
+    """One weight -> {"q": int8, "s": f32 per-out-channel}: the same
+    float32 arithmetic as llama.py:185-196 (round half to even), so the
+    result is bit-identical to the JAX package's."""
+    wf = w.float()
+    s = torch.amax(torch.abs(wf), dim=-2, keepdim=True) / 127.0
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def quantize_params(params: dict) -> dict:
+    """Weight-only symmetric int8, per-output-channel scales. Norms and the
+    embedding table keep their dtype; every matmul weight becomes
+    {"q": int8, "s": f32}."""
+    layers = params["layers"]
+    return {
+        "embed": params["embed"],
+        "layers": {k: (quantize_leaf(v) if k.startswith("w") and not isinstance(v, dict) else v)
+                   for k, v in layers.items()},
+        "final_norm": params["final_norm"],
+        "lm_head": (params["lm_head"] if isinstance(params["lm_head"], dict)
+                    else quantize_leaf(params["lm_head"])),
+    }
+
+
+# ---------------------------------------------------------------- ops
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype) * w
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos/sin for rotary embedding; positions (B, T) -> (B, T, hd//2)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    inv_freq = 1.0 / (theta ** exps)
+    angles = positions[..., None].float() * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, H, hd); rotate pairs (split-half convention)."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def _attend(q, k_cache, v_cache, q_positions, kv_len_mask):
+    """GQA attention of q (B,T,nq,hd) against the full cache (B,S,nkv,hd),
+    plain torch as XLA had it: bf16 operands with f32 scores, probabilities
+    rounded to the cache dtype before the value product. kv_len_mask
+    (B, S) marks valid slots; slot i holds the token at position i."""
+    B, T, nq, hd = q.shape
+    S, nkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, T, nkv, nq // nkv, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg.float(), k_cache.float()) * (hd**-0.5)
+    causal = torch.arange(S, device=q.device)[None, None, :] <= q_positions[:, :, None]
+    mask = (causal & kv_len_mask[:, None, :])[:, None, None, :, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgts,bskh->btkgh", probs.float(), v_cache.float())
+    return out.reshape(B, T, nq * hd).to(q.dtype)
+
+
+def _layer_qkv(p, x, cfg: LlamaConfig, cos, sin):
+    """attn-norm -> q/k/v projections -> head reshape -> RoPE."""
+    B, T = x.shape[:2]
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q = _qe(h, p["wq"]).to(x.dtype).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = _qe(h, p["wk"]).to(x.dtype).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = _qe(h, p["wv"]).to(x.dtype).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _layer_out(p, x, attn, cfg: LlamaConfig):
+    """Output projection + residual, then the SwiGLU MLP + residual.
+    ``attn`` is (B, T, n_heads * head_dim)."""
+    x = x + _qe(attn, p["wo"]).to(x.dtype)
+    h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    act = (F.silu(_qe(h, p["w_gate"])) * _qe(h, p["w_up"])).to(x.dtype)
+    return x + _qe(act, p["w_down"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------- forward
+
+
+@torch.no_grad()
+def forward(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # (B, T) int32
+    positions: torch.Tensor,  # (B, T) int32 — absolute positions of `tokens`
+    kv_cache: dict,  # (L, B, S, nkv, hd), updated in place
+    attn_impl: str = "kernels",  # "kernels" | "torch"
+    fresh_block: bool = False,  # caller asserts this T>1 block starts a sequence at pos 0
+) -> tuple[torch.Tensor, dict]:
+    """Unified prefill/decode forward; returns logits (B, T, V) f32 and the
+    cache dict (the same tensors, written in place).
+
+    Writes k/v for ``tokens`` into cache slots ``positions``, then attends.
+    ``attn_impl="kernels"`` takes the branch split of llama.py:475-511:
+    T == 1 -> K2 against the cache with per-row frontiers; a mid-sequence
+    block of T <= 16 -> K3; a fresh block (``fresh_block=True``, the
+    caller's promise that it starts at position 0) -> K1 over the block's own
+    k/v; anything else (a suffix block after a cached prefix) -> the plain
+    cache attention ``_attend``. ``attn_impl="torch"`` takes ``_attend``
+    everywhere. Each kernel wrapper runs its plain version on CPU tensors.
+    """
+    B, T = tokens.shape
+    S = kv_cache["k"].shape[2]
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        layers = unstack_layers(layers)
+    x = params["embed"][tokens.long()]
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    # slot s is valid if s <= the max written position of its row
+    frontier = torch.amax(positions, dim=1)  # (B,)
+    kv_len_mask = torch.arange(S, device=tokens.device)[None, :] <= frontier[:, None]
+    kv_len = (frontier + 1).to(torch.int32)
+    rows = torch.arange(B, device=tokens.device)[:, None]
+    pos_l = positions.long()
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    kernels = attn_impl == "kernels"
+    for li, p in enumerate(layers):
+        q, k, v = _layer_qkv(p, x, cfg, cos, sin)
+        # write-then-attend, in place: duplicate (row, position) writes in a
+        # padded fast-forward block carry identical values
+        kc[li][rows, pos_l] = k.to(kc.dtype)
+        vc[li][rows, pos_l] = v.to(vc.dtype)
+        if kernels and T == 1:
+            attn = decode_attention_layer(q[:, 0], kc, vc, kv_len, li)
+        elif kernels and not fresh_block and T <= MAX_BLOCK_DECODE_T:
+            attn = decode_block_attention_layer(q, kc, vc, positions, li)
+        elif kernels and fresh_block:
+            attn = flash_attention(q, k, v, causal=True)
+        else:
+            attn = _attend(q, kc[li], vc[li], positions, kv_len_mask)
+        x = _layer_out(p, x, attn.reshape(B, T, -1), cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _qe(x, params["lm_head"]), kv_cache

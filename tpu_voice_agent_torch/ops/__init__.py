@@ -1,0 +1,53 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+| kernel | wrapper | plain version | replaces (JAX package) |
+|---|---|---|---|
+| K1 | ``flash_attention`` | ``attention_reference`` | ``ops/flash_attention.py flash_attention`` |
+| K2 | ``decode_attention_layer`` | ``decode_attention_reference`` | ``ops/decode_attention.py decode_attention_layer`` |
+| K3 | ``decode_block_attention_layer`` | ``decode_block_attention_reference`` | ``ops/decode_attention.py decode_block_attention_layer`` |
+| K4 | ``masked_argmax_advance`` | ``masked_argmax_advance_reference`` | ``ops/grammar_mask.py masked_argmax_advance`` |
+
+Each wrapper counts its kernel launches in a plain integer attribute,
+``wrapper.launches``; ``launch_counts`` reads them all and
+``reset_launch_counts`` sets them to 0.
+"""
+
+from .decode_attention import (
+    decode_attention_layer,
+    decode_attention_reference,
+    decode_block_attention_layer,
+    decode_block_attention_reference,
+)
+from .flash_attention import attention_reference, flash_attention
+from .grammar_mask import masked_argmax_advance, masked_argmax_advance_reference
+
+KERNELS = {
+    "flash_attention": flash_attention,
+    "decode_attention_layer": decode_attention_layer,
+    "decode_block_attention_layer": decode_block_attention_layer,
+    "masked_argmax_advance": masked_argmax_advance,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "KERNELS",
+    "attention_reference",
+    "decode_attention_layer",
+    "decode_attention_reference",
+    "decode_block_attention_layer",
+    "decode_block_attention_reference",
+    "flash_attention",
+    "launch_counts",
+    "masked_argmax_advance",
+    "masked_argmax_advance_reference",
+    "reset_launch_counts",
+]

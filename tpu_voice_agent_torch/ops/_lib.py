@@ -1,0 +1,161 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels expose a plain C interface, so they are compiled by ``nvcc``
+straight into one shared library and loaded with ``ctypes``: no PyTorch
+headers, seconds per build instead of minutes. Each source compiles in its own
+``nvcc`` process, all started together, and one link step joins the objects.
+The library is keyed by a hash of the sources and flags and lands in
+``cache_dir()`` (``_build/`` in the package unless ``TPU_VOICE_CACHE_DIR`` is
+set), so a checkout builds once at first use and never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+from .. import PACKAGE_DIR, cache_dir
+
+CSRC = PACKAGE_DIR / "csrc"
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "grammar_mask.cu")
+HEADERS = ("common.cuh",)
+ARCH = "arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+HEAD_DIMS = (32, 48, 64, 128)
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+# filled by build(): {"seconds": float, "cached": bool, "path": str, "log": str}
+BUILD_INFO: dict = {}
+
+
+def nvcc() -> str:
+    path = os.environ.get("NVCC") or shutil.which("nvcc")
+    if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: set NVCC or put the CUDA toolkit on PATH")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/`` into the keyed shared library (no-op when it
+    exists). ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and
+    spills per kernel) and keeps the compiler output in ``BUILD_INFO["log"]``."""
+    out_dir = cache_dir()
+    lib = out_dir / f"libtva_kernels_{_digest()}.so"
+    t0 = time.perf_counter()
+    if lib.exists():
+        BUILD_INFO.update(seconds=0.0, cached=True, path=str(lib), log="")
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=out_dir, prefix="build_"))
+    extra = ("-Xptxas", "-v") if verbose else ()
+    try:
+        procs = []
+        for name in SOURCES:
+            obj = tmp / (Path(name).stem + ".o")
+            cmd = [nvcc(), *NVCC_FLAGS, *extra, "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, _obj, p in procs:
+            text, _ = p.communicate()
+            logs.append(f"== {name}\n{text}")
+            if p.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n" + "\n".join(logs))
+        so = tmp / "lib.so"
+        link = subprocess.run(
+            [nvcc(), "-shared", "-gencode", ARCH, "-o", str(so), *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed\n" + link.stdout)
+        os.replace(so, lib)  # atomic: concurrent builds race safely
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False, path=str(lib),
+                      log="\n".join(logs))
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sigs = {
+        # q, k, v, o, B, T, S, nq, nkv, hd, kv_len, causal, scale, dtype, stream
+        "tva_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
+        # q, k plane, v plane, kv_len, o, B, S, nq, nkv, hd, scale, dtype, stream
+        "tva_decode_attention_layer": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+        # q, k plane, v plane, q_positions, o, B, T, S, nq, nkv, hd, scale, dtype, stream
+        "tva_decode_block_attention_layer": [P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+        # logits, state, mask, table, col_id, tok, next, B, V, C, stream
+        "tva_masked_argmax_advance": [P, P, P, P, P, P, P, I, I, I, P],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = I
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use. A failed build raises;
+    nothing falls back."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _bind(ctypes.CDLL(str(build())))
+        return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` from a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(cond: bool, name: str, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Every operand on one CUDA device and contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        require(t.device.type == "cuda" and t.device == dev, name,
+                f"operands must share one CUDA device (got {t.device})")
+        require(t.is_contiguous(), name, "operands must be contiguous")
+
+
+def dtype_code(name: str, t) -> int:
+    """The attention kernels' activation type flag (``TVA_DTYPE_*`` in
+    ``csrc/common.cuh``): 0 for bfloat16, 1 for float32; anything else
+    raises."""
+    import torch
+
+    codes = {torch.bfloat16: 0, torch.float32: 1}
+    require(t.dtype in codes, name, f"activations must be bfloat16 or float32, got {t.dtype}")
+    return codes[t.dtype]

@@ -1,0 +1,65 @@
+"""K4: fused grammar mask -> argmax -> FSM advance (CUDA, ``csrc/grammar_mask.cu``).
+
+Port of ``masked_argmax_advance`` from ``tpu_voice_agent/ops/grammar_mask.py``:
+for each row, mask the logits with its FSM state's row of the dense (S, V)
+mask, take the argmax (ties to the first index), and advance the state
+through the compressed table — nothing V-sized is written back.
+
+The wrapper launches the kernel for CUDA tensors and runs
+``masked_argmax_advance_reference`` for CPU tensors, and only then.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._lib import check, library, require, require_cuda, stream_of
+
+_NEG_INF = -1e30
+
+
+def masked_argmax_advance(
+    logits: torch.Tensor,  # (B, V) float32
+    fsm_state: torch.Tensor,  # (B,) int32
+    mask_table: torch.Tensor,  # (n_states, V) bool
+    table: torch.Tensor,  # (n_states, C) int32 compressed transitions; -1 dead
+    col_id: torch.Tensor,  # (V,) int32 token -> class
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (tok, next_state), both (B,) int32. Negative (dead) states
+    are clamped to 0; the engine's poison gate fences their results."""
+    if logits.device.type == "cpu":
+        return masked_argmax_advance_reference(logits, fsm_state, mask_table, table, col_id)
+    name = "masked_argmax_advance"
+    require_cuda(name, logits, fsm_state, mask_table, table, col_id)
+    B, V = logits.shape
+    S, C = table.shape
+    require(logits.dtype == torch.float32, name, "logits must be float32")
+    require(fsm_state.dtype == table.dtype == col_id.dtype == torch.int32, name,
+            "state, table and col_id must be int32")
+    require(mask_table.dtype == torch.bool and mask_table.shape == (S, V), name,
+            f"mask must be ({S}, {V}) bool, got {tuple(mask_table.shape)}")
+    require(fsm_state.shape == (B,) and col_id.shape == (V,), name,
+            "state must be (B,) and col_id (V,)")
+    tok = torch.empty((B,), dtype=torch.int32, device=logits.device)
+    nxt = torch.empty_like(tok)
+    err = library().tva_masked_argmax_advance(
+        logits.data_ptr(), fsm_state.data_ptr(), mask_table.data_ptr(), table.data_ptr(),
+        col_id.data_ptr(), tok.data_ptr(), nxt.data_ptr(), B, V, C, stream_of(logits))
+    check(err, name)
+    masked_argmax_advance.launches += 1
+    return tok, nxt
+
+
+masked_argmax_advance.launches = 0
+
+
+def masked_argmax_advance_reference(logits, fsm_state, mask_table, table, col_id):
+    """Plain PyTorch version of ``masked_argmax_advance``: masked entries
+    score -1e30 as in the kernel, so a fully masked row yields token 0 and
+    ``table[state, col_id[0]]``."""
+    state = torch.clamp(fsm_state, min=0).long()
+    masked = torch.where(mask_table[state], logits.float(),
+                         torch.full_like(logits, _NEG_INF, dtype=torch.float32))
+    tok = torch.argmax(masked, dim=-1)  # first index among ties
+    nxt = table[state, col_id[tok].long()]
+    return tok.to(torch.int32), nxt.to(torch.int32)
