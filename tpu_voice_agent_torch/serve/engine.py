@@ -75,13 +75,13 @@ class GenerationResult:
 
 
 def _mask_sample_advance(logits, fsm_state, tables: DeviceFSM, generator, temperature: float,
-                         greedy: bool, constrained: bool, kernels: str = "kernels"):
+                         greedy: bool, constrained: bool):
     """The one sampling block: grammar-mask logits, pick a token, advance
     the FSM. Greedy constrained decoding with a dense mask is ONE kernel
     (K4: mask + argmax + advance); otherwise the compressed two-gather row.
     Sampling is Gumbel-max over ``torch.Generator`` noise (categorical
     sampling that never faults on a fully masked row)."""
-    if constrained and greedy and kernels == "kernels" and tables.dense_mask is not None:
+    if constrained and greedy and tables.dense_mask is not None:
         return masked_argmax_advance(logits, fsm_state, tables.dense_mask, tables.table,
                                      tables.col_id)
     row = None
@@ -118,17 +118,16 @@ _first_token = _mask_sample_advance  # the prefill's first pick is the same bloc
 
 
 def prefill_row(params, cfg: LlamaConfig, cache: dict, tokens, positions, slot: int,
-                kernels: str = "kernels", fresh: bool = True):
+                fresh: bool = True):
     """Admission prefill for ONE batch slot, written in place into that
     slot's cache line. Returns logits (1, T, V)."""
     row = {"k": cache["k"][:, slot:slot + 1], "v": cache["v"][:, slot:slot + 1]}
-    logits, _ = forward(params, cfg, tokens, positions, row, attn_impl=kernels,
-                        fresh_block=fresh)
+    logits, _ = forward(params, cfg, tokens, positions, row, fresh_block=fresh)
     return logits
 
 
 def prefill_row_with_prefix(params, cfg: LlamaConfig, cache: dict, prefix_k, prefix_v,
-                            tokens, positions, slot: int, kernels: str = "kernels"):
+                            tokens, positions, slot: int):
     """Admission prefill reusing the cached shared prefix: copy its KV
     (L, 1, P, nkv, hd) into the slot's line, then run the forward over ONLY
     the user suffix (positions start at P)."""
@@ -136,8 +135,7 @@ def prefill_row_with_prefix(params, cfg: LlamaConfig, cache: dict, prefix_k, pre
     row = {"k": cache["k"][:, slot:slot + 1], "v": cache["v"][:, slot:slot + 1]}
     row["k"][:, :, :P] = prefix_k
     row["v"][:, :, :P] = prefix_v
-    logits, _ = forward(params, cfg, tokens, positions, row, attn_impl=kernels,
-                        fresh_block=False)
+    logits, _ = forward(params, cfg, tokens, positions, row, fresh_block=False)
     return logits
 
 
@@ -170,7 +168,7 @@ def chain_byte_cap(k, chain, cur_tok, nbytes, byte_len_table, byte_budget: int):
 def chunk_decode_loop(params, cfg: LlamaConfig, cache: dict, cur, pos, fsm_state, active,
                       nbytes, tokens_left, tables: DeviceFSM, byte_len_table, generator,
                       temperature: float, byte_budget: int, chunk_steps: int = 32,
-                      greedy: bool = True, constrained: bool = True, kernels: str = "kernels",
+                      greedy: bool = True, constrained: bool = True,
                       eos_id: int = 2, pad_id: int = 0):
     """THE decode loop: advance every active row by up to ``chunk_steps``
     steps on the device (engine.py:367-589).
@@ -229,10 +227,10 @@ def chunk_decode_loop(params, cfg: LlamaConfig, cache: dict, cur, pos, fsm_state
                 s2 = fsm_advance(tables, s_end, torch.clamp(chain[:, i], min=0))
                 s_end = torch.where(i < k, s2, s_end)
 
-            logits, cache = forward(params, cfg, blk_tok, blk_pos, cache, attn_impl=kernels)
+            logits, cache = forward(params, cfg, blk_tok, blk_pos, cache)
             raw = logits[ar, k.long()]  # (B, V): logits at the chain's end
             nxt, state_next = _mask_sample_advance(raw, s_end, tables, generator, temperature,
-                                                   greedy, constrained, kernels)
+                                                   greedy, constrained)
             ok, poison = _poison_gate(raw, s_end, state_next, active, poison, constrained)
             pos = torch.where(ok, pos + 1 + k, pos)
         else:
@@ -245,11 +243,10 @@ def chunk_decode_loop(params, cfg: LlamaConfig, cache: dict, cur, pos, fsm_state
             # idle rows park their writes at slot 0 of their own line
             write_pos = torch.where(active, pos, 0)
             step_tok = torch.where(active, cur, pad_id)
-            logits, cache = forward(params, cfg, step_tok[:, None], write_pos[:, None], cache,
-                                    attn_impl=kernels)
+            logits, cache = forward(params, cfg, step_tok[:, None], write_pos[:, None], cache)
             raw = logits[:, 0, :]
             nxt, state_next = _mask_sample_advance(raw, state, tables, generator, temperature,
-                                                   greedy, constrained, kernels)
+                                                   greedy, constrained)
             ok, poison = _poison_gate(raw, state, state_next, active, poison, constrained)
             pos = torch.where(ok, pos + 1, pos)
         state = torch.where(ok, state_next, state)
@@ -277,7 +274,7 @@ class DecodeEngine:
         max_len: int = 2048,
         batch_slots: int = 1,
         prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048),
-        kernels: str = "auto",  # "auto" | "kernels" | "torch"
+        kernels: str = "auto",  # "auto" | "kernels"
         quant: str | None = None,  # None | "int8" — weight-only quantization
         init_weights: bool = True,  # False: the caller loads weights next
         fast_forward: int = 0,  # grammar fast-forward chain width (0 = off)
@@ -286,14 +283,12 @@ class DecodeEngine:
         self.device = resolve_device(device)
         if batch_slots != 1:
             raise ValueError("the port serves one slot; the continuous batcher is not ported")
-        # "auto": the kernel branch split everywhere — the wrappers launch
-        # the CUDA kernels on cuda tensors and their plain versions on CPU
-        # tensors. "torch": plain cache attention and the two-gather mask.
-        if kernels == "auto":
-            kernels = "kernels"
-        if kernels not in ("kernels", "torch"):
+        # "auto" and "kernels" both take the kernel branch split: the
+        # wrappers launch the CUDA kernels on cuda tensors and their plain
+        # versions on CPU tensors.
+        if kernels not in ("auto", "kernels"):
             raise ValueError(f"unknown kernels {kernels!r}")
-        self.kernels = kernels
+        self.kernels = "kernels"
         self.tokenizer, self.fsm = build_intent_fsm()
         vocab = self.tokenizer.vocab_size
         self.cfg = replace(cfg or PRESETS[preset], vocab_size=vocab, max_seq_len=max_len)
@@ -388,8 +383,7 @@ class DecodeEngine:
         """Prefill the prefix (a fresh block: K1) into a scratch cache and
         return its KV (L, 1, P, nkv, hd)."""
         scratch = init_kv_cache(self.cfg, 1, bucket, device=self.device)
-        _, kv = forward(self.params, self.cfg, tokens, positions, scratch,
-                        attn_impl=self.kernels, fresh_block=True)
+        _, kv = forward(self.params, self.cfg, tokens, positions, scratch, fresh_block=True)
         return {"k": kv["k"][:, :, :P].clone(), "v": kv["v"][:, :, :P].clone()}
 
     def _split_prefix(self, ids: list[int]) -> list[int] | None:
@@ -422,7 +416,7 @@ class DecodeEngine:
             positions = (P + np.arange(bucket, dtype=np.int32))[None, :]
             logits = prefill_row_with_prefix(
                 self.params, self.cfg, self.cache, self.prefix_kv["k"], self.prefix_kv["v"],
-                self._ids(tokens), self._ids(positions), slot, kernels=self.kernels)
+                self._ids(tokens), self._ids(positions), slot)
             last, cached = logits[:, m - 1, :], P
         else:
             bucket = self._bucket(n)
@@ -430,7 +424,7 @@ class DecodeEngine:
             tokens[0, :n] = ids
             positions = np.arange(bucket, dtype=np.int32)[None, :]
             logits = prefill_row(self.params, self.cfg, self.cache, self._ids(tokens),
-                                 self._ids(positions), slot, kernels=self.kernels, fresh=True)
+                                 self._ids(positions), slot, fresh=True)
             last, cached = logits[:, n - 1, :], 0
         _sync(self.device)
         self._last_prefill_compute_ms = (time.perf_counter() - t0) * 1e3
@@ -446,7 +440,7 @@ class DecodeEngine:
         last_logits = self.prefill_slot(ids, 0)
         fsm_state = torch.full((1,), self.fsm.start, dtype=torch.int32, device=self.device)
         tok0, fsm0 = _first_token(last_logits, fsm_state, self.tables, self._gen, temperature,
-                                  greedy, constrained, self.kernels)
+                                  greedy, constrained)
         _sync(self.device)
         return tok0, fsm0, len(ids), (time.perf_counter() - t0) * 1e3
 
@@ -459,7 +453,6 @@ class DecodeEngine:
         greedy: bool = True,
         temperature: float = 0.7,
         byte_budget: int = 3900,
-        ignore_eos: bool = False,  # benchmarking: never stop at EOS
     ) -> GenerationResult:
         """Generate a completion; with ``constrained`` the text matches the
         intent grammar, and ``byte_budget`` keeps strings inside the
@@ -468,18 +461,17 @@ class DecodeEngine:
             prompt, temperature, greedy=greedy, constrained=constrained)
         t1 = time.perf_counter()
         tables = self.tables_ff if (constrained and self.tables_ff is not None) else self.tables
-        eos_id = -1 if ignore_eos else self.eos_id
         i32 = dict(dtype=torch.int32, device=self.device)
         (buf, count, eos, _cache, _cur, _pos, _fsm, _act, _nb, _left, fwds,
          pois) = chunk_decode_loop(
             self.params, self.cfg, self.cache,
             tok0, torch.full((1,), n, **i32), fsm0,
-            tok0 != eos_id,  # active
+            tok0 != self.eos_id,  # active
             torch.zeros((1,), **i32),  # nbytes
             torch.full((1,), max_new_tokens, **i32),  # tokens_left
             tables, self.byte_len_table, self._gen, temperature, byte_budget,
             chunk_steps=max_new_tokens, greedy=greedy, constrained=constrained,
-            kernels=self.kernels, eos_id=eos_id, pad_id=self.pad_id,
+            eos_id=self.eos_id, pad_id=self.pad_id,
         )
         count_h = int(count[0])
         out_ids = [int(t) for t in buf[0, :count_h].tolist()]

@@ -19,8 +19,7 @@ standard library's ``ThreadingHTTPServer``.
         python -m tpu_voice_agent_torch.services.brain
 
 Environment (the JAX service's names): ``BRAIN_BACKEND`` (``engine[:preset]``,
-default ``engine:tinyllama-1.1b``, or ``distilled`` for the committed intent
-checkpoint), ``BRAIN_QUANT`` (``int8``), ``BRAIN_FF`` (fast-forward width,
+default ``engine:tinyllama-1.1b``), ``BRAIN_QUANT`` (``int8``), ``BRAIN_FF`` (fast-forward width,
 default 8), ``BRAIN_PREFIX`` (``0`` skips the cached prompt prefix),
 ``BRAIN_PORT`` (default 8090), ``BRAIN_BATCH`` (only 1 is ported), and
 ``BRAIN_DEVICE`` (default ``cuda``; ``cpu`` runs the plain versions).
@@ -105,26 +104,20 @@ def _wrap_engine(engine) -> EngineParser:
 
 def make_parser_from_env() -> EngineParser:
     """``BRAIN_BACKEND=engine[:preset]`` (default ``engine:tinyllama-1.1b``)
-    with ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``, or
-    ``BRAIN_BACKEND=distilled`` for the committed intent checkpoint. The
-    engine runs on ``BRAIN_DEVICE`` (default ``cuda``: with no card it
-    raises)."""
+    with ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``. The engine runs
+    on ``BRAIN_DEVICE`` (default ``cuda``: with no card it raises)."""
     from ..serve.engine import DecodeEngine
 
     if int(os.environ.get("BRAIN_BATCH", "1")) != 1:
         raise ValueError("BRAIN_BATCH > 1: the continuous batcher is not ported")
     device = os.environ.get("BRAIN_DEVICE") or None
     backend = os.environ.get("BRAIN_BACKEND", "engine:tinyllama-1.1b")
-    if backend == "distilled":
-        from ..distilled import intent_engine_from, load_distilled
-
-        return intent_engine_from(*load_distilled(device=device), device=device)
     if backend.startswith("engine"):
         preset = backend.split(":", 1)[1] if ":" in backend else "tinyllama-1.1b"
         return _wrap_engine(DecodeEngine(
             preset=preset, quant=os.environ.get("BRAIN_QUANT") or None,
             fast_forward=int(os.environ.get("BRAIN_FF", "8")), device=device))
-    raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported (engine[:preset] or distilled)")
+    raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported (engine[:preset])")
 
 
 # ---------------------------------------------------------------- app
