@@ -22,13 +22,27 @@ Phases, in order (any failure exits nonzero and prints no result line):
 6. golden   - the distilled intent checkpoint parses the golden utterances and
               must reproduce the JAX package's recorded outputs token for
               token, through K1, K2 and K4.
-7. the kernels JSON line, the card line, and the final JSON line.
+7. stt      - SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000),
+              max_new_tokens=32), bf16 random weights: per bucket the
+              transcribe p50 over 5 runs split into encode and decode ms,
+              tokens and forwards; one incremental feed + decode; the first
+              decoder step through K5 held against the same step through its
+              plain version (fp32 copies of the weights). K1 and K5 must
+              launch.
+8. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
+              transcribe the 10 eval texts and must reproduce the JAX
+              package's recorded token ids, through K1 and K5.
+9. voice    - the voice→intent loop (``voicebench``, bench.py's definition)
+              at full width: whisper-large-v3 STT and the tinyllama-1.1b int8
+              ff=8 parse colocated on the card, 9 utterances; K1, K3, K4 and
+              K5 must launch.
+10. the kernels JSON line, the card line, and the final JSON line.
 
-Every launch counter is set to 0 just before each of phases 4-6 and read just
+Every launch counter is set to 0 just before each of phases 4-9 and read just
 after; a kernel's ``launches`` is the sum over those runs (the kernel-alone
 comparisons of phase 3 are not counted). The port imports no JAX. Weights are
-random from a seed (phases 3-5) or the committed distilled checkpoint (phase
-6). A JSON report also goes to ``chiprun_out/chip_smoke.json``.
+random from a seed (phases 3-5, 7, 9) or committed checkpoints (phases 6, 8).
+A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
 from __future__ import annotations
@@ -55,12 +69,14 @@ FP32_FLOPS = 67e12  # CUDA cores: K4's compares
 # Where each ported kernel's TPU original reaches pl.pallas_call
 REPLACES = {
     "flash_attention": "tpu_voice_agent/ops/flash_attention.py:158",
+    "decode_attention": "tpu_voice_agent/ops/decode_attention.py:133",
     "decode_attention_layer": "tpu_voice_agent/ops/decode_attention.py:223",
     "decode_block_attention_layer": "tpu_voice_agent/ops/decode_attention.py:542",
     "masked_argmax_advance": "tpu_voice_agent/ops/grammar_mask.py:268",
 }
 SOURCES = {
     "flash_attention": "tpu_voice_agent_torch/csrc/flash_attention.cu",
+    "decode_attention": "tpu_voice_agent_torch/csrc/decode_attention.cu",
     "decode_attention_layer": "tpu_voice_agent_torch/csrc/decode_attention.cu",
     "decode_block_attention_layer": "tpu_voice_agent_torch/csrc/decode_attention.cu",
     "masked_argmax_advance": "tpu_voice_agent_torch/csrc/grammar_mask.cu",
@@ -73,6 +89,11 @@ SOURCES = {
 # (weight ~1/900 at the main path's lengths) moves outputs by several percent.
 ATTN_RTOL, ATTN_ATOL = 2.0 ** -6, 1e-4
 ATTN_TOL = f"{ATTN_RTOL:g}*|ref|+{ATTN_ATOL:g}"
+# fp32 attention outputs (the in-repo Whisper checkpoints): no rounding on
+# either side, only fp32 sums and exponentials taken in another order, each
+# within a few ulp (~1e-7 relative) of the exact value
+F32_RTOL, F32_ATOL = 1e-5, 1e-6
+F32_TOL = f"{F32_RTOL:g}*|ref|+{F32_ATOL:g}"
 
 # bench.py's utterances (its synthetic voice traffic, bench.py:238-244)
 UTTERANCES = [
@@ -181,14 +202,18 @@ def phase_build() -> float:
 
 def attn_err(pairs) -> tuple[float, float]:
     """(max abs error, max of error / allowed error) over (out, ref) pairs,
-    the allowed error being ATTN_RTOL * |ref| + ATTN_ATOL element by
-    element: the check passes when the second number is <= 1."""
+    the allowed error being ATTN_RTOL * |ref| + ATTN_ATOL element by element
+    for bf16 outputs and F32_RTOL * |ref| + F32_ATOL for fp32 ones: the check
+    passes when the second number is <= 1."""
+    import torch
+
     worst_abs = worst_ratio = 0.0
     for out, ref in pairs:
+        rtol, atol = ((F32_RTOL, F32_ATOL) if out.dtype == torch.float32
+                      else (ATTN_RTOL, ATTN_ATOL))
         d = (out.float() - ref.float()).abs()
         worst_abs = max(worst_abs, float(d.max()))
-        worst_ratio = max(worst_ratio,
-                          float((d / (ATTN_RTOL * ref.float().abs() + ATTN_ATOL)).max()))
+        worst_ratio = max(worst_ratio, float((d / (rtol * ref.float().abs() + atol)).max()))
     return worst_abs, worst_ratio
 
 
@@ -208,10 +233,21 @@ def _kernel_row(name, ref_err, ratio, tol, ms, plain_ms, bound_ms, bound_by, lib
     return row
 
 
+def _extra_shape(label, ms, plain_ms, bound_ms, bound_by, library_ms) -> dict:
+    """A kernel's timing at a second main-path shape (kept beside its row)."""
+    log(f"[kernels]   {label}: kernel {ms:.5f} ms plain {plain_ms:.5f} ms library "
+        f"{library_ms:.5f} ms bound {bound_ms:.5f} ms ({bound_by})")
+    return {"shape": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def phase_kernels(fsm, prefix_len: int) -> dict:
-    """K1-K4 alone at the main path's shapes (tinyllama-1.1b: 32 q heads,
-    4 kv heads, hd 64, 22 layers; service cache S = 2048; the prefix bucket
-    T = 1024; fast-forward blocks of 9; the intent grammar's tables)."""
+    """K1-K5 alone at the main path's shapes. The parse (tinyllama-1.1b: 32
+    q heads, 4 kv heads, hd 64, 22 layers; service cache S = 2048; the prefix
+    bucket T = 1024; fast-forward blocks of 9; the intent grammar's tables)
+    and the STT (whisper-large-v3: 20 heads, hd 64, bf16, MHA; encoder
+    T = S = 500 at the 1000-frame bucket; decoder self cache S = 448 and
+    cross-KV S = 500; the in-repo checkpoints: 4 heads, hd 16, fp32)."""
     import torch
     import torch.nn.functional as F
 
@@ -230,29 +266,87 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     bf = torch.bfloat16
     rows = {}
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(bf)
+    def randn(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
 
     # K1: the prefix prefill bucket, causal
     T = 1024
     q, k, v = randn(1, T, nq, hd), randn(1, T, nkv, hd), randn(1, T, nkv, hd)
     out = ops.flash_attention(q, k, v, causal=True)
     ref = attention_reference(q, k, v, causal=True)
-    # and the encoder's non-causal mode with a ragged kv_len
+    # the Whisper encoder's non-causal mode: large-v3 at the 1000-frame
+    # bucket (T = S = 500, 20 heads) and at an incremental block with its
+    # lookback (T = S = 35), and the checkpoints (T = S = 100, 4 heads of
+    # 16, fp32); a ragged kv_len too
+    nh, Te = 20, 500
+    qe, ke, ve = (randn(1, Te, nh, hd) for _ in range(3))
+    qb, kb, vb = (randn(1, 35, nh, hd) for _ in range(3))
+    q16, k16, v16 = (randn(1, 100, 4, 16, dtype=torch.float32) for _ in range(3))
     k1_err = attn_err([(out, ref),
                        (ops.flash_attention(q, k, v, causal=False, kv_len=1000),
-                        attention_reference(q, k, v, causal=False, kv_len=1000))])
+                        attention_reference(q, k, v, causal=False, kv_len=1000)),
+                       (ops.flash_attention(qe, ke, ve, causal=False),
+                        attention_reference(qe, ke, ve, causal=False)),
+                       (ops.flash_attention(qb, kb, vb, causal=False),
+                        attention_reference(qb, kb, vb, causal=False)),
+                       (ops.flash_attention(q16, k16, v16, causal=False),
+                        attention_reference(q16, k16, v16, causal=False))])
     torch.cuda.synchronize()
     qh, kh, vh = (q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(group, 1),
                   v.transpose(1, 2).repeat_interleave(group, 1))
     pairs = T * (T + 1) / 2
     b_ms, b_by = bound(2 * (2 * T * nq * hd + 2 * T * nkv * hd), 4 * nq * hd * pairs)
     rows["flash_attention"] = _kernel_row(
-        "flash_attention", *k1_err, ATTN_TOL,
+        "flash_attention", *k1_err, f"{ATTN_TOL} (bf16); {F32_TOL} (fp32)",
         cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
         cuda_ms(lambda: attention_reference(q, k, v, causal=True), iters=5),
         b_ms, b_by,
         cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)))
+    qeh, keh, veh = (x.transpose(1, 2) for x in (qe, ke, ve))
+    rows["flash_attention"]["encoder"] = _extra_shape(
+        "whisper-large-v3 encoder, non-causal T = S = 500, 20 heads, hd 64, bf16",
+        cuda_ms(lambda: ops.flash_attention(qe, ke, ve, causal=False)),
+        cuda_ms(lambda: attention_reference(qe, ke, ve, causal=False), iters=5),
+        *bound(2 * 4 * Te * nh * hd, 4 * nh * hd * Te * Te),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qeh, keh, veh)))
+
+    # K5: one large-v3 decoder step's cross-attention (S = kv_len = 500, the
+    # 1000-frame bucket; S = 1500, kv_len 75, the incremental buffer after
+    # three blocks) and self-attention (S = 448, kv_len 33: the prompt and
+    # 32 tokens); the checkpoints' fp32 hd-16 cache
+    ck, cv = randn(1, Te, nh, hd), randn(1, Te, nh, hd)
+    ik, iv = randn(1, 1500, nh, hd), randn(1, 1500, nh, hd)
+    inc_len = torch.tensor([75], dtype=torch.int32, device=dev)
+    sk, sv = randn(1, 448, nh, hd), randn(1, 448, nh, hd)
+    q5 = randn(1, nh, hd)
+    cross_len = torch.tensor([Te], dtype=torch.int32, device=dev)
+    self_len = torch.tensor([33], dtype=torch.int32, device=dev)
+    k16c, v16c = (randn(2, 100, 4, 16, dtype=torch.float32) for _ in range(2))
+    q16d = randn(2, 4, 16, dtype=torch.float32)
+    len16 = torch.tensor([37, 100], dtype=torch.int32, device=dev)
+    k5_err = attn_err([
+        (ops.decode_attention(q5, ck, cv, cross_len),
+         decode_attention_reference(q5, ck, cv, cross_len)),
+        (ops.decode_attention(q5, ik, iv, inc_len),
+         decode_attention_reference(q5, ik, iv, inc_len)),
+        (ops.decode_attention(q5, sk, sv, self_len),
+         decode_attention_reference(q5, sk, sv, self_len)),
+        (ops.decode_attention(q16d, k16c, v16c, len16),
+         decode_attention_reference(q16d, k16c, v16c, len16))])
+    ckh, cvh = ck.transpose(1, 2), cv.transpose(1, 2)
+    skh, svh = sk[:, :33].transpose(1, 2), sv[:, :33].transpose(1, 2)
+    rows["decode_attention"] = _kernel_row(
+        "decode_attention", *k5_err, f"{ATTN_TOL} (bf16); {F32_TOL} (fp32)",
+        cuda_ms(lambda: ops.decode_attention(q5, ck, cv, cross_len), iters=100),
+        cuda_ms(lambda: decode_attention_reference(q5, ck, cv, cross_len)),
+        *bound(2 * (2 * nh * hd + 2 * Te * nh * hd) + 4, 4 * nh * hd * Te),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q5[:, :, None], ckh, cvh), iters=100))
+    rows["decode_attention"]["self"] = _extra_shape(
+        "whisper-large-v3 decoder self-attention, S = 448, kv_len 33, 20 heads, hd 64, bf16",
+        cuda_ms(lambda: ops.decode_attention(q5, sk, sv, self_len), iters=100),
+        cuda_ms(lambda: decode_attention_reference(q5, sk, sv, self_len)),
+        *bound(2 * (2 * nh * hd + 2 * 33 * nh * hd) + 4, 4 * nh * hd * 33),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q5[:, :, None], skh, svh), iters=100))
 
     # K2: one T=1 decode step of one layer at a prefix-sized frontier
     n = prefix_len + 64
@@ -584,6 +678,190 @@ def phase_golden(totals: dict, report: dict) -> None:
                         "launches": c.counts}
 
 
+def _to_float(tree):
+    """A float32 copy of a (nested dict / list) param tree."""
+    if isinstance(tree, dict):
+        return {k: _to_float(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_float(v) for v in tree]
+    return tree.float()
+
+
+def phase_stt(totals: dict, report: dict):
+    """whisper-large-v3 as bench.py builds it (buckets 300 and 1000, 32 new
+    tokens, random bf16 weights, the in-tree 619-token vocabulary) on the
+    card: per bucket the transcribe p50 over 5 runs, split into encode (to
+    the encoder's completion) and decode ms, with tokens and forwards; one
+    incremental feed + decode; the first decoder step through K5 held
+    against the same step through K5's plain version (fp32 weights)."""
+    import numpy as np
+    import torch
+
+    from tpu_voice_agent_torch.models.whisper import decoder_forward, init_self_cache, param_count
+    from tpu_voice_agent_torch.serve.stt import SpeechEngine
+    from tpu_voice_agent_torch.voicebench import synth_utterance
+
+    t0 = time.perf_counter()
+    eng = SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000), max_new_tokens=32)
+    torch.cuda.synchronize()
+    cfg = eng.cfg
+    log(f"[stt] boot {time.perf_counter() - t0:.2f} s: whisper-large-v3 d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, {cfg.enc_layers}+{cfg.dec_layers} layers, "
+        f"{cfg.n_mels} mels, V {cfg.vocab_size}, {param_count(cfg) / 1e9:.3f} B params "
+        f"{eng._param_dtype}, device {eng.device}")
+    fail_if(eng.device.type != "cuda", "speech engine not on the card")
+    hop, sr = eng.mel_cfg.hop, eng.mel_cfg.sample_rate
+    out = {"params": param_count(cfg), "buckets": {}}
+    with Counted("stt", totals) as c:
+        for bucket in eng.frame_buckets:
+            audio = synth_utterance((bucket - 10) * hop / sr)  # fills the bucket
+            eng.transcribe(audio)  # warm
+            rs, walls = [], []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                rs.append(eng.transcribe(audio))
+                walls.append((time.perf_counter() - t1) * 1e3)
+            for r in rs:
+                fail_if(not (0 < len(r.token_ids) <= 32
+                             and all(0 <= t < cfg.vocab_size for t in r.token_ids)),
+                        f"stt: bad token ids {r.token_ids}")
+            fail_if(len({tuple(r.token_ids) for r in rs}) != 1, "stt: runs disagree")
+            enc = [r.encode_ms for r in rs]
+            dec = [r.decode_ms for r in rs]
+            row = {"p50_ms": statistics.median(walls), "walls_ms": walls,
+                   "encode_p50_ms": statistics.median(enc), "decode_p50_ms": statistics.median(dec),
+                   "tokens": len(rs[0].token_ids), "forwards": rs[0].forwards,
+                   "ms_per_forward": statistics.median(dec) / rs[0].forwards,
+                   "n_frames": rs[0].n_frames}
+            out["buckets"][bucket] = row
+            log(f"[stt] bucket {bucket} ({rs[0].n_frames} frames): transcribe p50 "
+                f"{row['p50_ms']:.2f} ms (walls {[round(w, 2) for w in walls]}), encode p50 "
+                f"{row['encode_p50_ms']:.2f} ms, decode p50 {row['decode_p50_ms']:.2f} ms, "
+                f"tokens {row['tokens']}, forwards {row['forwards']}, "
+                f"{row['ms_per_forward']:.3f} ms/forward")
+        audio = synth_utterance(1.6)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st = eng.incremental_feed(eng.incremental_init(), audio)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        r = eng.incremental_decode(st)
+        out["incremental"] = {"blocks": st.consumed_frames // eng.INC_STEP,
+                              "enc_len": st.enc_len, "feed_ms": (t2 - t1) * 1e3,
+                              "decode_ms": r.decode_ms, "tokens": len(r.token_ids)}
+        log(f"[stt] incremental: {out['incremental']['blocks']} blocks (enc_len {st.enc_len}) "
+            f"fed in {(t2 - t1) * 1e3:.2f} ms, decode {r.decode_ms:.2f} ms, "
+            f"{len(r.token_ids)} tokens")
+    c.require("flash_attention", "decode_attention")
+
+    # the prompt step (T = 1) at full width through K5 against the same step
+    # with K5's plain version in its place, on fp32 copies of the weights
+    # (in bf16 an attention output one ulp apart compounds over 32 random
+    # layers): fp32 sums in another order only, so 1e-4 of the largest
+    # logit, the CPU parity tests' fp32 bound
+    from tpu_voice_agent_torch.models import whisper as whisper_mod
+    from tpu_voice_agent_torch.models.whisper import compute_cross_kv, encoder_forward
+    from tpu_voice_agent_torch.ops import decode_attention_reference
+
+    p32 = _to_float(eng.params)
+    audio = synth_utterance(2.9)
+    padded = np.zeros(300 * hop, np.float32)
+    padded[:len(audio)] = audio
+    mel = eng._mel(padded)[None, :300]
+    ckv = compute_cross_kv(p32, cfg, encoder_forward(p32, cfg, mel))
+    enc_len = torch.tensor([len(audio) // hop // 2], dtype=torch.int32, device=eng.device)
+    bos = torch.tensor([[eng.bos_ids[0]]], dtype=torch.int32, device=eng.device)
+    pos = torch.zeros((1, 1), dtype=torch.int32, device=eng.device)
+    logits = {}
+    kernel = whisper_mod.decode_attention
+    for impl, attend in (("kernel", kernel), ("plain", decode_attention_reference)):
+        whisper_mod.decode_attention = attend
+        try:
+            cache = init_self_cache(cfg, 1, dtype=torch.float32, device=eng.device)
+            logits[impl], _ = decoder_forward(p32, cfg, bos, pos, cache, ckv, enc_len)
+        finally:
+            whisper_mod.decode_attention = kernel
+    del p32, ckv
+    err = float((logits["kernel"] - logits["plain"]).abs().max())
+    scale = float(logits["plain"].abs().max())
+    log(f"[stt] first step (fp32 weights) through K5 vs its plain version: max|d logits| "
+        f"{err:.4g} of max|logit| {scale:.4g} (tolerance 1e-4 of it)")
+    fail_if(not (bool(torch.isfinite(logits["kernel"]).all()) and err <= 1e-4 * scale),
+            "stt: the decoder step through K5 disagrees with its plain version")
+    out["first_step_logit_err"] = err
+    out["launches"] = c.counts
+    report["stt"] = out
+    return eng
+
+
+def phase_stt_golden(totals: dict, report: dict) -> None:
+    """Both in-repo Whisper checkpoints on the card must reproduce the
+    recorded JAX transcripts token for token (fp32, head dim 16: K1 and K5
+    in fp32)."""
+    import torch
+
+    from tpu_voice_agent_torch import whisper_ckpt
+
+    # float32 checkpoints: full-precision products, as the recording had
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs = whisper_ckpt.golden_records()
+    bad, n, t0 = [], 0, time.perf_counter()
+    with Counted("stt_golden", totals) as c:
+        for name in whisper_ckpt.CHECKPOINTS:
+            eng = whisper_ckpt.whisper_engine_from(
+                *whisper_ckpt.load_whisper(name, device="cuda"), device="cuda")
+            fail_if(eng._param_dtype != torch.float32 or eng.cfg.head_dim != 16,
+                    f"{name}: expected fp32 weights of head dim 16")
+            for rec in recs[name]:
+                res = eng.transcribe(whisper_ckpt.render_speech(rec["text"]))
+                n += 1
+                if res.token_ids != rec["token_ids"]:
+                    bad.append((name, rec["text"], res.token_ids, rec["token_ids"]))
+    c.require("flash_attention", "decode_attention")
+    for name, text, got, want in bad:
+        log(f"[stt_golden] MISMATCH {name} {text!r}: got {got}, recorded {want}")
+    fail_if(bool(bad), f"stt_golden: {len(bad)} of {n} transcripts differ from the recording")
+    wall = time.perf_counter() - t0
+    log(f"[stt_golden] {n} of {n} transcripts equal the recorded JAX token ids "
+        f"({', '.join(whisper_ckpt.CHECKPOINTS)}; {wall:.2f} s)")
+    report["stt_golden"] = {"cases": n, "seconds": wall, "launches": c.counts}
+
+
+def phase_voice(stt_engine, totals: dict, report: dict) -> None:
+    """bench.py's voice→intent loop on the port at full width:
+    whisper-large-v3 STT (buckets 300 and 1000, 32 tokens) and the
+    tinyllama-1.1b int8 ff=8 parse behind the cached prefix (cache 1024),
+    colocated on the card, 9 utterances of synth_utterance(2.0) fed in 60 ms
+    frames at real-time deadlines."""
+    import math
+
+    from tpu_voice_agent_torch import voicebench
+
+    if stt_engine is None:
+        stt_engine = voicebench.make_stt_engine()
+    # built before the counts are zeroed: its prefix prefill runs K1, which
+    # must come from the loop's own encoder and parse prefills below
+    parse = voicebench.make_parse_engine()
+    fail_if(parse.device.type != "cuda" or parse.quant != "int8" or parse.fast_forward != 8,
+            "voice: parse engine not at int8 ff=8 on the card")
+    with Counted("voice", totals) as c:
+        res = voicebench.run_voice_bench(parse, stt_engine, runs=9)
+    c.require("flash_attention", "decode_block_attention_layer", "masked_argmax_advance",
+              "decode_attention")
+    for key in ("p50_ms", "p95_ms", "stt_p50_ms", "parse_p50_ms"):
+        fail_if(not (math.isfinite(res[key]) and res[key] > 0), f"voice: {key} {res[key]}")
+    log(f"[voice] e2e runs (ms): {[round(x, 1) for x in res['e2e_ms']]}")
+    log(f"[voice] voice->intent p50 {res['p50_ms']:.2f} ms, p95 {res['p95_ms']:.2f} ms over "
+        f"{res['runs']} runs; STT (end of speech -> final) p50 {res['stt_p50_ms']:.2f} ms; "
+        f"post-endpoint parse p50 {res['parse_p50_ms']:.2f} ms; spec hit rate "
+        f"{res['spec_hit_rate']:.3f}; early close rate {res['early_close_rate']:.3f} "
+        f"({res['early_closes']} early / {res['window_closes']} full window); feed lag at "
+        f"end of speech {[round(x, 3) for x in res['feed_lag_at_end_of_speech_s']]} s; parse "
+        f"tokens {res['parse_tokens']}")
+    report["voice"] = {**res, "launches": c.counts}
+
+
 def _device_us(evt) -> float:
     """A profiler entry's own device time in us (the attribute's name
     changed across PyTorch versions)."""
@@ -593,16 +871,48 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def phase_profile(params, report: dict) -> None:
-    """Where one bench parse's time goes (``--profile``): ``torch.profiler``
-    over one generate(64) at ff=8 on bench.py's engine shape. Reports the
-    device time of every kernel, the kernels launched, and the device's idle
-    share: 1 - device busy time / the wall time of the same parse timed
-    without the profiler (which slows the host down)."""
+def _profile(label: str, fn, key: str, report: dict) -> None:
+    """Where one call's time goes: ``torch.profiler`` over ``fn()`` (after
+    one warm call and one unprofiled timed call). Reports the device time
+    of every kernel, the kernels launched, and the device's idle share:
+    1 - device busy time / the wall time of the same call timed without the
+    profiler (which slows the host down). Returns nothing; fills
+    ``report[key]`` and ``profile_<key>.txt`` in ``OUT_DIR``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    busy_us = sum(_device_us(e) for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    top = sorted(kernels, key=_device_us, reverse=True)[:20]
+    lines = [f"{_device_us(e):12.1f} us {e.count:7d}x  {e.key[:110]}" for e in top]
+    log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms (unprofiled), device busy "
+        f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}; {n_launch} kernels; "
+        f"{res}")
+    for ln in lines:
+        log(f"[profile] {ln}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"profile_{key}.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
+    report[f"profile_{key}"] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                                "idle_share": 1 - busy_us / wall_us,
+                                "kernels_launched": n_launch, "result": str(res),
+                                "top": lines}
+
+
+def phase_profile(params, report: dict) -> None:
+    """One bench parse (generate(64) at ff=8 on bench.py's engine shape)
+    under the profiler."""
     from tpu_voice_agent_torch.serve.engine import DecodeEngine
     from tpu_voice_agent_torch.services.brain import install_prompt_prefix
 
@@ -611,31 +921,27 @@ def phase_profile(params, report: dict) -> None:
     eng.load_params(params)
     install_prompt_prefix(eng)
     prompt = _bench_prompt(eng, UTTERANCES[1])
-    eng.generate(prompt, max_new_tokens=64)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.generate(prompt, max_new_tokens=64)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def parse():
         res = eng.generate(prompt, max_new_tokens=64)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
-    busy_us = sum(_device_us(e) for e in kernels)
-    n_launch = sum(e.count for e in kernels)
-    top = sorted(kernels, key=_device_us, reverse=True)[:20]
-    lines = [f"{_device_us(e):12.1f} us {e.count:7d}x  {e.key[:110]}" for e in top]
-    log(f"[profile] ff=8 generate(64): wall {wall_us / 1e3:.2f} ms (unprofiled), device busy "
-        f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}; {n_launch} kernels "
-        f"over {res.steps} tokens, {res.forwards} forwards + prefill")
-    for ln in lines:
-        log(f"[profile] {ln}")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile_ff8.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
-    report["profile"] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-                         "idle_share": 1 - busy_us / wall_us, "kernels_launched": n_launch,
-                         "tokens": res.steps, "forwards": res.forwards, "top": lines}
+        return f"{res.steps} tokens, {res.forwards} forwards + prefill"
+
+    _profile("ff=8 generate(64)", parse, "ff8", report)
+
+
+def phase_profile_stt(stt_engine, report: dict) -> None:
+    """One whisper-large-v3 transcribe at the 1000-frame bucket under the
+    profiler."""
+    from tpu_voice_agent_torch.voicebench import synth_utterance
+
+    audio = synth_utterance(9.8)
+
+    def transcribe():
+        r = stt_engine.transcribe(audio)
+        return (f"{len(r.token_ids)} tokens, {r.forwards} forwards, encode "
+                f"{r.encode_ms:.2f} ms, decode {r.decode_ms:.2f} ms")
+
+    _profile("whisper-large-v3 transcribe (1000-frame bucket)", transcribe, "stt", report)
 
 
 # ------------------------------------------------------------------ main
@@ -644,12 +950,14 @@ def phase_profile(params, report: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of card,build,kernels,service,parse,golden (default all)")
+                    help="comma list of card,build,kernels,service,parse,golden,stt,stt_golden,"
+                         "voice (default all)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one bench parse (torch.profiler) after the service")
+                    help="also profile (torch.profiler) one bench parse when the service phase "
+                         "runs and one whisper-large-v3 transcribe when the stt phase runs")
     args = ap.parse_args()
-    phases = (["card", "build", "kernels", "service", "parse", "golden"]
-              if args.phases == "all" else args.phases.split(","))
+    phases = (["card", "build", "kernels", "service", "parse", "golden", "stt", "stt_golden",
+               "voice"] if args.phases == "all" else args.phases.split(","))
 
     import torch
 
@@ -681,12 +989,19 @@ def main() -> int:
     if "parse" in phases:
         fail_if(eng is None, "the parse phase reuses the service's weights")
         phase_parse(eng.params, totals, report)
-    if args.profile:
-        fail_if(eng is None, "the profile phase reuses the service's weights")
+    if args.profile and eng is not None:  # the parse profile reuses the service's weights
         phase_profile(eng.params, report)
     del eng
     if "golden" in phases:
         phase_golden(totals, report)
+    stt_eng = phase_stt(totals, report) if "stt" in phases else None
+    if args.profile and stt_eng is not None:
+        phase_profile_stt(stt_eng, report)
+    if "voice" in phases:
+        phase_voice(stt_eng, totals, report)
+    del stt_eng
+    if "stt_golden" in phases:
+        phase_stt_golden(totals, report)
     for name, r in rows.items():
         r["launches"] = totals.get(name, 0)
     report["kernels"] = list(rows.values())

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions, on
 the card. Every test here is marked ``gpu`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -10,7 +10,8 @@ machine that has only PyTorch and the CUDA toolkit:
 Tolerances: bfloat16 outputs 2^-6 * |ref| + 1e-4, element by element (the
 kernel and its plain version each round an fp32 result to bf16, at most one
 ulp <= 2^-7 |x| each, on top of fp32 sums taken in another order); float32
-outputs 1e-5 absolute; the grammar kernel's token ids and states exactly.
+outputs 1e-5 absolute (sums of ~1-sized terms taken in another order); the
+grammar kernel's token ids and states exactly.
 """
 
 import numpy as np
@@ -39,7 +40,7 @@ def _rnd(g, dev, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)])
-@pytest.mark.parametrize("hd", [32, 48, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 128])
 def test_attention_kernels_match_plain(cuda, hd, dtype, tol):
     """``tol``: assert_close's |out - ref| <= atol + rtol * |ref|."""
     rnd = _rnd(torch.Generator(device=cuda).manual_seed(hd), cuda, dtype)
@@ -61,6 +62,39 @@ def test_attention_kernels_match_plain(cuda, hd, dtype, tol):
     out = ops.decode_block_attention_layer(q9, kc, vc, pos, 0)
     ref = ops.decode_block_attention_reference(q9, kc[0], vc[0], pos)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,nq,nkv", [(16, 4, 4), (64, 20, 20), (64, 8, 2)])
+def test_flat_decode_attention_matches_plain(cuda, hd, nq, nkv, dtype):
+    """K5 on a flat cache: S not a multiple of the 32-key tile, kv_len 0
+    (zeros), 1, ragged and S; MHA (the Whisper decoder) and GQA."""
+    g = torch.Generator(device=cuda).manual_seed(hd + nq)
+    S = 300
+    kc = torch.randn(4, S, nkv, hd, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(4, S, nkv, hd, generator=g, device=cuda).to(dtype)
+    q = torch.randn(4, nq, hd, generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([0, 1, 177, S], dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, kc, vc, kv_len)
+    ref = ops.decode_attention_reference(q, kc, vc, kv_len)
+    assert out.dtype == dtype and bool((out[0] == 0).all())
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **(BF16_TOL if dtype == torch.bfloat16 else F32_TOL))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [25, 35, 150, 500])
+def test_flash_attention_at_the_whisper_encoder_shapes(cuda, T):
+    """K1 non-causal, T = S: the incremental blocks (25, 35) and the 300 and
+    1000 frame buckets (150, 500); large-v3 (20 heads, hd 64, bf16) and the
+    in-repo checkpoints (4 heads, hd 16, fp32)."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    for nh, hd, dtype, tol in ((20, 64, torch.bfloat16, BF16_TOL), (4, 16, torch.float32, F32_TOL)):
+        q, k, v = (torch.randn(1, T, nh, hd, generator=g, device=cuda).to(dtype) for _ in range(3))
+        out = ops.flash_attention(q, k, v, causal=False)
+        ref = ops.attention_reference(q, k, v, causal=False)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
 @pytest.mark.gpu
@@ -107,3 +141,13 @@ def test_wrappers_count_launches_and_refuse_bad_operands(cuda):
         z = torch.zeros(1, 4, 2, 40, dtype=torch.bfloat16, device=cuda)
         ops.flash_attention(z, z, z)
     assert ops.launch_counts()["flash_attention"] == 1
+    kc = torch.zeros(1, 8, 2, 64, dtype=torch.float32, device=cuda)
+    kv_len = torch.ones(1, dtype=torch.int32, device=cuda)
+    ops.decode_attention(q[:, 0].float().contiguous(), kc, kc, kv_len)
+    assert ops.launch_counts()["decode_attention"] == 1
+    for qq, cc in ((q[:, 0].contiguous(), kc), (q[:, 0].float().contiguous(), kc.bfloat16())):
+        with pytest.raises(ValueError, match="share one dtype"):
+            ops.decode_attention(qq, cc, cc, kv_len)
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_attention(q[:, 0].float().contiguous(), kc, kc, kv_len.long())
+    assert ops.launch_counts()["decode_attention"] == 1

@@ -92,6 +92,30 @@ def test_decode_attention_layer_matches_pallas(hd):
     _close(ref, out_t, F32_TOL)
 
 
+# ---------------------------------------------------------------- K5
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("hd,nq,nkv", [(16, 4, 4), (64, 4, 2)])
+def test_decode_attention_matches_pallas(dtype, hd, nq, nkv):
+    """The flat cache: S = 300 (the JAX wrapper pads it to its 256-key
+    block), kv_len 0 (zeros, as the kernel's ``acc / (l or 1)``), 1, ragged
+    and S; MHA at the in-repo Whisper checkpoints' head dim 16, GQA at 64."""
+    rng = np.random.default_rng(hd + nkv)
+    B, S = 4, 300
+    kc, vc = (_pair(_np(rng, B, S, nkv, hd), dtype) for _ in range(2))
+    q = _pair(_np(rng, B, nq, hd), dtype)
+    kv_len = np.array([0, 1, 137, S], np.int32)
+    out_j = jops.decode_attention(q[0], kc[0], vc[0], jnp.asarray(kv_len))
+    out_t = ops.decode_attention(q[1], kc[1], vc[1], torch.from_numpy(kv_len))
+    assert out_t.dtype == q[1].dtype and bool((out_t[0] == 0).all())
+    if dtype == "f32":
+        _close(out_j, out_t, F32_TOL)
+    else:
+        _close(out_j, out_t, BF16_ATOL, BF16_RTOL)
+    assert ops.decode_attention.launches == 0
+
+
 # ---------------------------------------------------------------- K3
 
 

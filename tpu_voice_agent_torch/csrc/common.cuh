@@ -13,6 +13,7 @@
 
 #define TVA_DISPATCH_HD(hd, ...)                         \
   switch (hd) {                                          \
+    case 16: { constexpr int HD = 16; __VA_ARGS__; break; }   \
     case 32: { constexpr int HD = 32; __VA_ARGS__; break; }   \
     case 48: { constexpr int HD = 48; __VA_ARGS__; break; }   \
     case 64: { constexpr int HD = 64; __VA_ARGS__; break; }   \
@@ -20,8 +21,9 @@
     default: return (int)cudaErrorInvalidValue;          \
   }
 
-// Activations arrive as bf16 (a bf16 model) or fp32 (an fp32 model such as
-// the distilled intent checkpoint); the kernels compute in fp32 either way.
+// Activations (and the flat decode kernel's cache) arrive as bf16 (a bf16
+// model) or fp32 (an fp32 model such as the distilled intent checkpoint or
+// the in-repo Whisper checkpoints); the kernels compute in fp32 either way.
 #define TVA_DTYPE_BF16 0
 #define TVA_DTYPE_F32 1
 

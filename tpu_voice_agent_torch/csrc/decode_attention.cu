@@ -1,25 +1,36 @@
-// K2 and K3: decode attention against one layer plane of the stacked KV
-// cache: bf16 cache, q/o bf16 or fp32 (TQ), arithmetic in fp32.
+// K2, K3 and K5: decode attention against a KV cache; q/o bf16 or fp32 (TQ),
+// the cache bf16 or fp32 (TC), arithmetic in fp32.
 //
 // Replaces: tpu_voice_agent/ops/decode_attention.py
+//   K5 `decode_attention` (`_decode_kernel`, stacked=False; pallas_call at
+//      :133): one query token per row over a flat (B, S, nkv, hd) cache, keys
+//      [0, kv_len[b]). The Whisper decoder's self-attention (kv_len =
+//      frontier + 1) and cross-attention (kv_len = encoder frames) on every
+//      T = 1 step.
 //   K2 `decode_attention_layer` (`_decode_kernel`, stacked=True; pallas_call
-//      at :223): one query token per row, keys [0, kv_len[b]).
+//      at :223): the same on one layer plane of the stacked cache.
 //   K3 `decode_block_attention_layer` (`_decode_block_kernel`; pallas_call at
 //      :542): T <= 16 queries per row, query i sees slots [0, q_positions[b,i]].
 //      Positions may be unordered and may repeat (chain_block pads with
 //      duplicates), so each query row carries its own frontier and the tile
 //      loop runs to the block's true maximum.
-// The TPU picked the layer plane by a scalar-prefetched index; in eager
-// PyTorch the wrapper passes the plane's own pointer (`cache[layer]` is a free
-// contiguous view), so nothing is copied.
+// The JAX package serves K5 and K2 from one kernel body (`stacked=`); here
+// one template body serves all three. The TPU picked K2/K3's layer plane by a
+// scalar-prefetched index; in eager PyTorch the wrapper passes the plane's own
+// pointer (`cache[layer]` is a free contiguous view), so nothing is copied.
+// K5 needs no padding of S to a tile multiple: the loop stops at kv_len, keys
+// past S load as zeros and are masked, and a row with kv_len 0 writes zeros
+// (the TPU kernel's `acc / (l or 1)`).
 //
 // What bounds it on an H100: at B = 1 the grid is one block per (kv head,
-// batch row), 4 blocks on 132 SMs at tinyllama-1.1b, so neither the card's
-// memory rate nor its FLOP rate is reachable; each block is bound by its own
-// SM's fp32 FMA rate and by load latency. A row at context n reads
-// 2 * n * hd * 2 bytes of K/V per kv head (~0.24 MB at n = 950, hd 64) and
-// the fast-forward block (T = 9, group 8: 72 query rows) does
-// 72 * n * hd * 2 FMAs on it (~8.8 M, ~38 us of one SM's 128 fp32 lanes).
+// batch row), 4 blocks on 132 SMs at tinyllama-1.1b and 20 at Whisper
+// large-v3 (MHA), so neither the card's memory rate nor its FLOP rate is
+// reachable; each block is bound by its own SM's fp32 FMA rate and by load
+// latency. A row at context n reads 2 * n * hd * sizeof(TC) bytes of K/V per
+// kv head (~0.24 MB at n = 950, hd 64, bf16) and the fast-forward block
+// (T = 9, group 8: 72 query rows) does 72 * n * hd * 2 FMAs on it (~8.8 M,
+// ~38 us of one SM's 128 fp32 lanes). Whisper's group of 1 leaves one query
+// row per block: one warp computes while all 16 stage tiles.
 // Its design: the `group * T` query rows of one kv head share every K/V tile,
 // which is read once from device memory into shared memory (fp32, 32 keys per
 // tile); the next tile's loads are issued into registers before the current
@@ -37,21 +48,48 @@ constexpr int BK = 32;  // keys per tile: one per lane
 constexpr int NWARPS = 16;
 constexpr int THREADS = NWARPS * 32;
 constexpr int MAX_T = 16;
-constexpr int LOADS = 2;  // uint4 (8 x bf16) loads per thread per tile, hd <= 128
+
+// One 16-byte load of a cache row (8 bf16 or 4 fp32 values), widened to fp32
+// into 16-byte-aligned shared memory.
+template <typename TC>
+struct Chunk;
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // bf16 -> fp32 is the high half of the fp32 bit pattern; each 32-bit word
+  // holds two bf16, the lower address in the low half
+  __device__ static void widen(const uint4& u, float* dst) {
+    float4* d = reinterpret_cast<float4*>(dst);
+    d[0] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+    d[1] = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
+                       __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
+  }
+};
+template <>
+struct Chunk<float> {
+  static constexpr int N = 4;
+  __device__ static void widen(const uint4& u, float* dst) {
+    *reinterpret_cast<float4*>(dst) = make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
+                                                  __uint_as_float(u.z), __uint_as_float(u.w));
+  }
+};
 
 // The (T * group) query rows of one (kv head, batch row); row r is query
 // r / group of q head kvh * group + r % group. Warp w owns rows w + 16 i for
 // i < RW.
-template <int HD, int RW, typename TQ>
+template <int HD, int RW, typename TQ, typename TC>
 __global__ void __launch_bounds__(THREADS)
-decode_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-              const __nv_bfloat16* __restrict__ vc, const int* __restrict__ kv_len,
+decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
+              const TC* __restrict__ vc, const int* __restrict__ kv_len,
               const int* __restrict__ qpos, TQ* __restrict__ o, int T, int S, int nq,
               int nkv, float scale) {
   constexpr int KP = HD + 4;          // padded K pitch: float4 rows on distinct banks
   constexpr int NC = (HD + 31) / 32;  // output dims per lane
   constexpr int D4 = HD / 4;
-  constexpr int CHUNKS = HD / 8;      // uint4 chunks per key row
+  constexpr int EPC = Chunk<TC>::N;   // cache values per 16-byte chunk
+  constexpr int CHUNKS = HD / EPC;    // chunks per key row
+  constexpr int LOADS = (2 * BK * CHUNKS + THREADS - 1) / THREADS;  // per thread per tile
   const int group = nq / nkv;
   const int rows = T * group;
   extern __shared__ __align__(16) float smem[];
@@ -73,7 +111,8 @@ decode_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
 #pragma unroll
   for (int t = 0; t < MAX_T; ++t) {
     pos[t] = -1;
-    if (t < T) pos[t] = kv_len != nullptr ? kv_len[b] - 1 : qpos[b * T + t];
+    // a frontier past the cache means every slot (keys >= S are never valid)
+    if (t < T) pos[t] = min(kv_len != nullptr ? kv_len[b] - 1 : qpos[b * T + t], S - 1);
     max_pos = max(max_pos, pos[t]);
   }
   const int kend = min(max_pos + 1, S);
@@ -97,8 +136,8 @@ decode_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
 
   // K/V tile loads, staged in registers one tile ahead
   const size_t row_stride = (size_t)nkv * HD;
-  const __nv_bfloat16* kbase = kc + ((size_t)b * S * nkv + kvh) * HD;
-  const __nv_bfloat16* vbase = vc + ((size_t)b * S * nkv + kvh) * HD;
+  const TC* kbase = kc + ((size_t)b * S * nkv + kvh) * HD;
+  const TC* vbase = vc + ((size_t)b * S * nkv + kvh) * HD;
   uint4 pre[LOADS];
   auto load_tile = [&](int k0) {
 #pragma unroll
@@ -110,7 +149,7 @@ decode_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
         const int s = k0 + rem / CHUNKS, ch = rem % CHUNKS;
         if (s < S)
           pre[j] = *reinterpret_cast<const uint4*>((kv ? vbase : kbase) + s * row_stride +
-                                                   ch * 8);
+                                                   ch * EPC);
       }
     }
   };
@@ -121,15 +160,7 @@ decode_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
       if (i < 2 * BK * CHUNKS) {
         const int kv = i / (BK * CHUNKS), rem = i % (BK * CHUNKS);
         const int key = rem / CHUNKS, ch = rem % CHUNKS;
-        // bf16 -> fp32 is the high half of the fp32 bit pattern; each
-        // 32-bit word holds two bf16, the lower address in the low half
-        const unsigned w[4] = {pre[j].x, pre[j].y, pre[j].z, pre[j].w};
-        float4* dst = reinterpret_cast<float4*>(kv ? Vs + key * HD + ch * 8
-                                                   : Ks + key * KP + ch * 8);
-        dst[0] = make_float4(__uint_as_float(w[0] << 16), __uint_as_float(w[0] & 0xffff0000u),
-                             __uint_as_float(w[1] << 16), __uint_as_float(w[1] & 0xffff0000u));
-        dst[1] = make_float4(__uint_as_float(w[2] << 16), __uint_as_float(w[2] & 0xffff0000u),
-                             __uint_as_float(w[3] << 16), __uint_as_float(w[3] & 0xffff0000u));
+        Chunk<TC>::widen(pre[j], kv ? Vs + key * HD + ch * EPC : Ks + key * KP + ch * EPC);
       }
     }
   };
@@ -222,18 +253,17 @@ decode_kernel(const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
   }
 }
 
-template <int HD, int RW, typename TQ>
+template <int HD, int RW, typename TQ, typename TC>
 int launch(const void* q, const void* kc, const void* vc, const int* kv_len, const int* qpos,
            void* o, int B, int T, int S, int nq, int nkv, float scale, cudaStream_t stream) {
   const int rows = T * (nq / nkv);
   const size_t smem =
       sizeof(float) * (rows * HD + BK * (HD + 4) + BK * HD + NWARPS * RW * BK);
-  cudaError_t err = tva_allow_smem(decode_kernel<HD, RW, TQ>, smem);
+  cudaError_t err = tva_allow_smem(decode_kernel<HD, RW, TQ, TC>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nkv, B);
-  decode_kernel<HD, RW, TQ><<<grid, THREADS, smem, stream>>>(
-      (const TQ*)q, (const __nv_bfloat16*)kc, (const __nv_bfloat16*)vc, kv_len, qpos, (TQ*)o,
-      T, S, nq, nkv, scale);
+  decode_kernel<HD, RW, TQ, TC><<<grid, THREADS, smem, stream>>>(
+      (const TQ*)q, (const TC*)kc, (const TC*)vc, kv_len, qpos, (TQ*)o, T, S, nq, nkv, scale);
   return (int)cudaGetLastError();
 }
 
@@ -242,12 +272,13 @@ template <int HD, typename TQ>
 int launch_rows(const void* q, const void* kc, const void* vc, const int* kv_len,
                 const int* qpos, void* o, int B, int T, int S, int nq, int nkv, float scale,
                 cudaStream_t st) {
+  using BF = __nv_bfloat16;
   const int rw = (T * (nq / nkv) + NWARPS - 1) / NWARPS;
-  if (rw <= 1) return launch<HD, 1, TQ>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
-  if (rw <= 2) return launch<HD, 2, TQ>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
-  if (rw <= 4) return launch<HD, 4, TQ>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
-  if (rw <= 8) return launch<HD, 8, TQ>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
-  return launch<HD, 16, TQ>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
+  if (rw <= 1) return launch<HD, 1, TQ, BF>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
+  if (rw <= 2) return launch<HD, 2, TQ, BF>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
+  if (rw <= 4) return launch<HD, 4, TQ, BF>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
+  if (rw <= 8) return launch<HD, 8, TQ, BF>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
+  return launch<HD, 16, TQ, BF>(q, kc, vc, kv_len, qpos, o, B, T, S, nq, nkv, scale, st);
 }
 
 bool bad_shape(int B, int T, int S, int nq, int nkv) {
@@ -255,6 +286,7 @@ bool bad_shape(int B, int T, int S, int nq, int nkv) {
          nq / nkv > 16;
 }
 
+// K2/K3: the stacked cache's layer plane, always bf16.
 int dispatch(const void* q, const void* kc, const void* vc, const int* kv_len, const int* qpos,
              void* o, int B, int T, int S, int nq, int nkv, int hd, float scale, int dtype,
              void* stream) {
@@ -271,6 +303,26 @@ int dispatch(const void* q, const void* kc, const void* vc, const int* kv_len, c
 }
 
 }  // namespace
+
+// K5: q (B,nq,hd), flat k/v cache (B,S,nkv,hd), kv_len (B,) int32; q, the
+// cache and o all of one dtype (TVA_DTYPE_*). T = 1 and a group of at most
+// 16 leave one query row per warp at most (RW = 1).
+extern "C" int tva_decode_attention(const void* q, const void* kc, const void* vc,
+                                    const int* kv_len, void* o, int B, int S, int nq, int nkv,
+                                    int hd, float scale, int dtype, void* stream) {
+  if (bad_shape(B, 1, S, nq, nkv)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  using BF = __nv_bfloat16;
+  if (dtype == TVA_DTYPE_F32) {
+    TVA_DISPATCH_HD(hd, return launch<HD, 1, float, float>(q, kc, vc, kv_len, nullptr, o, B, 1,
+                                                           S, nq, nkv, scale, st));
+  }
+  if (dtype == TVA_DTYPE_BF16) {
+    TVA_DISPATCH_HD(hd, return launch<HD, 1, BF, BF>(q, kc, vc, kv_len, nullptr, o, B, 1, S, nq,
+                                                     nkv, scale, st));
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // K2: q (B,nq,hd), k/v plane (B,S,nkv,hd) of the layer, kv_len (B,) int32;
 // q and o of one dtype (TVA_DTYPE_*).

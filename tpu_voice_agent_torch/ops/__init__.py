@@ -3,6 +3,7 @@
 | kernel | wrapper | plain version | replaces (JAX package) |
 |---|---|---|---|
 | K1 | ``flash_attention`` | ``attention_reference`` | ``ops/flash_attention.py flash_attention`` |
+| K5 | ``decode_attention`` | ``decode_attention_reference`` | ``ops/decode_attention.py decode_attention`` |
 | K2 | ``decode_attention_layer`` | ``decode_attention_reference`` | ``ops/decode_attention.py decode_attention_layer`` |
 | K3 | ``decode_block_attention_layer`` | ``decode_block_attention_reference`` | ``ops/decode_attention.py decode_block_attention_layer`` |
 | K4 | ``masked_argmax_advance`` | ``masked_argmax_advance_reference`` | ``ops/grammar_mask.py masked_argmax_advance`` |
@@ -13,6 +14,7 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 """
 
 from .decode_attention import (
+    decode_attention,
     decode_attention_layer,
     decode_attention_reference,
     decode_block_attention_layer,
@@ -24,6 +26,7 @@ from .grammar_mask import masked_argmax_advance, masked_argmax_advance_reference
 KERNELS = {
     "flash_attention": flash_attention,
     "decode_attention_layer": decode_attention_layer,
+    "decode_attention": decode_attention,
     "decode_block_attention_layer": decode_block_attention_layer,
     "masked_argmax_advance": masked_argmax_advance,
 }
@@ -41,6 +44,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNELS",
     "attention_reference",
+    "decode_attention",
     "decode_attention_layer",
     "decode_attention_reference",
     "decode_block_attention_layer",

@@ -28,7 +28,7 @@ SOURCES = ("flash_attention.cu", "decode_attention.cu", "grammar_mask.cu")
 HEADERS = ("common.cuh",)
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
-HEAD_DIMS = (32, 48, 64, 128)
+HEAD_DIMS = (16, 32, 48, 64, 128)
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -100,6 +100,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     sigs = {
         # q, k, v, o, B, T, S, nq, nkv, hd, kv_len, causal, scale, dtype, stream
         "tva_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
+        # q, k cache, v cache, kv_len, o, B, S, nq, nkv, hd, scale, dtype, stream
+        "tva_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, kv_len, o, B, S, nq, nkv, hd, scale, dtype, stream
         "tva_decode_attention_layer": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, q_positions, o, B, T, S, nq, nkv, hd, scale, dtype, stream
@@ -150,12 +152,12 @@ def require_cuda(name: str, *tensors) -> None:
         require(t.is_contiguous(), name, "operands must be contiguous")
 
 
-def dtype_code(name: str, t) -> int:
-    """The attention kernels' activation type flag (``TVA_DTYPE_*`` in
+def dtype_code(name: str, t, what: str = "activations") -> int:
+    """The attention kernels' type flag (``TVA_DTYPE_*`` in
     ``csrc/common.cuh``): 0 for bfloat16, 1 for float32; anything else
     raises."""
     import torch
 
     codes = {torch.bfloat16: 0, torch.float32: 1}
-    require(t.dtype in codes, name, f"activations must be bfloat16 or float32, got {t.dtype}")
+    require(t.dtype in codes, name, f"{what} must be bfloat16 or float32, got {t.dtype}")
     return codes[t.dtype]

@@ -1,13 +1,16 @@
-"""K2 / K3: decode attention against one layer plane of the stacked KV cache
-(CUDA, ``csrc/decode_attention.cu``).
+"""K5 / K2 / K3: decode attention against a KV cache (CUDA,
+``csrc/decode_attention.cu``).
 
-Port of ``decode_attention_layer`` and ``decode_block_attention_layer`` from
-``tpu_voice_agent/ops/decode_attention.py``. Both keep the JAX signature
-``(q, k_cache, v_cache, kv_len | q_positions, layer)`` over the stacked
-``(L, B, S, nkv, hd)`` cache. The layer is a Python int: ``k_cache[layer]`` is
-a free contiguous view, so the kernel gets that plane's pointer.
+Port of ``decode_attention``, ``decode_attention_layer`` and
+``decode_block_attention_layer`` from ``tpu_voice_agent/ops/decode_attention.py``,
+with the JAX signatures.
 
-- K2 (T = 1): query b attends slots ``[0, kv_len[b])``.
+- K5 (T = 1, flat ``(B, S, nkv, hd)`` cache, bf16 or fp32): query b attends
+  slots ``[0, kv_len[b])``; the Whisper decoder's self- and cross-attention.
+  S needs no padding to a tile multiple; a row with kv_len 0 gets zeros.
+- K2 (T = 1) on the stacked ``(L, B, S, nkv, hd)`` bf16 cache: the same on
+  layer plane ``layer``, a Python int (``k_cache[layer]`` is a free
+  contiguous view, so the kernel gets that plane's pointer).
 - K3 (T <= 16, the grammar fast-forward block): query i of row b attends
   slots ``[0, q_positions[b, i]]``; positions may be unordered or repeat.
 
@@ -39,6 +42,44 @@ def _check_common(name, q, k_cache, v_cache, layer, nq, hd):
             f"need nq % nkv == 0 and a group of at most {MAX_GROUP}")
     require(hd in HEAD_DIMS, name, f"head dim {hd} not in {HEAD_DIMS}")
     return B, S, nkv
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, nq, hd) — one query token per row
+    k_cache: torch.Tensor,  # (B, S, nkv, hd)
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,  # (B,) int32 valid keys per row
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Returns (B, nq, hd) in q.dtype. q and the cache are all bfloat16 or
+    all float32."""
+    B, nq, hd = q.shape
+    scale = scale if scale is not None else hd**-0.5
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k_cache, v_cache, kv_len, scale=scale)
+    name = "decode_attention"
+    require_cuda(name, q, k_cache, v_cache, kv_len)
+    require(k_cache.dim() == 4 and k_cache.shape == v_cache.shape, name,
+            f"cache must be (B, S, nkv, hd), got {tuple(k_cache.shape)}")
+    _, S, nkv, khd = k_cache.shape
+    require(khd == hd and k_cache.shape[0] == B, name, "q and cache disagree on B or hd")
+    require(nq % nkv == 0 and nq // nkv <= MAX_GROUP, name,
+            f"need nq % nkv == 0 and a group of at most {MAX_GROUP}")
+    require(hd in HEAD_DIMS, name, f"head dim {hd} not in {HEAD_DIMS}")
+    require(q.dtype == k_cache.dtype == v_cache.dtype, name, "q, k and v must share one dtype")
+    require(kv_len.dtype == torch.int32 and kv_len.shape == (B,), name,
+            "kv_len must be (B,) int32")
+    out = torch.empty_like(q)
+    err = library().tva_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), B, S, nq, nkv, hd, float(scale), dtype_code(name, q), stream_of(q))
+    check(err, name)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
 
 
 def decode_attention_layer(
@@ -115,8 +156,10 @@ def _softmax_pv(scores, valid, v, eq: str):
 
 
 def decode_attention_reference(q, k_cache, v_cache, kv_len, *, scale=None) -> torch.Tensor:
-    """Plain PyTorch version of K2 on one flat (B, S, nkv, hd) plane: the
-    kernel's arithmetic (fp32 throughout, -1e30 masking)."""
+    """Plain PyTorch version of K5, and of K2 on one layer plane: the
+    kernels' arithmetic on a flat (B, S, nkv, hd) cache (fp32 throughout,
+    -1e30 masking, a row with kv_len 0 gets zeros as the kernels'
+    ``acc / (l or 1)`` gives)."""
     B, nq, hd = q.shape
     S, nkv = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else hd**-0.5
@@ -124,6 +167,7 @@ def decode_attention_reference(q, k_cache, v_cache, kv_len, *, scale=None) -> to
     scores = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.float()) * scale
     valid = (torch.arange(S, device=q.device)[None, :] < kv_len[:, None])[:, None, None, :]
     out = _softmax_pv(scores, valid, v_cache, "bkgs,bskh->bkgh")
+    out = torch.where((kv_len > 0)[:, None, None, None], out, torch.zeros_like(out))
     return out.reshape(B, nq, hd).to(q.dtype)
 
 
