@@ -19,29 +19,47 @@ Phases, in order (any failure exits nonzero and prints no result line):
               definition (to EOS or 64 tokens), p50 over 5 runs at ff=8 and
               at ff=0 on the same weights, with tokens and forwards beside;
               K3's counter must grow at ff=8 and K2's at ff=0.
-6. golden   - the distilled intent checkpoint parses the golden utterances and
+6. batch    - bench_batch.py's paged run_one on the port: a 32-slot paged
+              engine (513 blocks of 128) behind the cached prefix, 32 sessions
+              submitted at once and drained (128 new tokens), at ff=8 (K7)
+              and ff=0 (K6): intents/s, tokens/s, chunks, peak pool blocks;
+              all 32 must be ok and in the grammar, and the pool must return
+              to the prefix's blocks.
+7. batch_dense - the dense batched engine (8 dense cache lines, no pool)
+              drains 8 sessions at ff=8 (K3) and ff=0 (K2) and must decode
+              what the paged engine decodes (or part only at a near tie), in
+              bf16 and in fp32 activations.
+8. radix    - RADIX_ENABLE's paged engine behind a BatchedEngineParser, 4
+              sessions x 4 turns through its transcripts: turns >= 2 must be
+              served from more cache than the prefix, and a radix-off engine
+              must decode the same ids (or part only at a near tie).
+9. service_batched - a second in-process brain with BRAIN_BATCH=8
+              BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
+10. golden  - the distilled intent checkpoint parses the golden utterances and
               must reproduce the JAX package's recorded outputs token for
               token, through K1, K2 and K4.
-7. stt      - SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000),
+11. batch_golden - the same checkpoint in a 15-slot paged engine, every
+              golden utterance at once, through K1, K6 and K4.
+12. stt     - SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000),
               max_new_tokens=32), bf16 random weights: per bucket the
               transcribe p50 over 5 runs split into encode and decode ms,
               tokens and forwards; one incremental feed + decode; the first
               decoder step through K5 held against the same step through its
               plain version (fp32 copies of the weights). K1 and K5 must
               launch.
-8. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
-              transcribe the 10 eval texts and must reproduce the JAX
-              package's recorded token ids, through K1 and K5.
-9. voice    - the voice→intent loop (``voicebench``, bench.py's definition)
+13. voice   - the voice→intent loop (``voicebench``, bench.py's definition)
               at full width: whisper-large-v3 STT and the tinyllama-1.1b int8
               ff=8 parse colocated on the card, 9 utterances; K1, K3, K4 and
               K5 must launch.
-10. the kernels JSON line, the card line, and the final JSON line.
+14. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
+              transcribe the 10 eval texts and must reproduce the JAX
+              package's recorded token ids, through K1 and K5.
+15. the kernels JSON line, the card line, and the final JSON line.
 
-Every launch counter is set to 0 just before each of phases 4-9 and read just
+Every launch counter is set to 0 just before each of phases 4-14 and read just
 after; a kernel's ``launches`` is the sum over those runs (the kernel-alone
 comparisons of phase 3 are not counted). The port imports no JAX. Weights are
-random from a seed (phases 3-5, 7, 9) or committed checkpoints (phases 6, 8).
+random from a seed (phases 3-9, 12, 13) or committed checkpoints (10, 11, 14).
 A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
@@ -73,6 +91,8 @@ REPLACES = {
     "decode_attention_layer": "tpu_voice_agent/ops/decode_attention.py:223",
     "decode_block_attention_layer": "tpu_voice_agent/ops/decode_attention.py:542",
     "masked_argmax_advance": "tpu_voice_agent/ops/grammar_mask.py:268",
+    "paged_attention": "tpu_voice_agent/ops/paged_attention.py:147",
+    "paged_block_attention": "tpu_voice_agent/ops/paged_attention.py:644",
 }
 SOURCES = {
     "flash_attention": "tpu_voice_agent_torch/csrc/flash_attention.cu",
@@ -80,6 +100,8 @@ SOURCES = {
     "decode_attention_layer": "tpu_voice_agent_torch/csrc/decode_attention.cu",
     "decode_block_attention_layer": "tpu_voice_agent_torch/csrc/decode_attention.cu",
     "masked_argmax_advance": "tpu_voice_agent_torch/csrc/grammar_mask.cu",
+    "paged_attention": "tpu_voice_agent_torch/csrc/paged_attention.cu",
+    "paged_block_attention": "tpu_voice_agent_torch/csrc/paged_attention.cu",
 }
 # bf16 attention outputs, held element by element to the reference's own
 # size: |out - ref| <= ATTN_RTOL * |ref| + ATTN_ATOL. The kernel and its
@@ -392,6 +414,8 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
         cuda_ms(lambda: F.scaled_dot_product_attention(q9.transpose(1, 2), kh, vh,
                                                        attn_mask=amask), iters=100))
 
+    rows.update(_paged_kernel_rows(g, randn))
+
     # K4: the real intent-grammar tables, live and edge states, random
     # logits. Exact: token ids and states must be equal (tolerance 0).
     tables = fsm.device_tables(device=dev)
@@ -418,6 +442,113 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
                                                         tables.table, tables.col_id)),
         b_ms, b_by, None)
     torch.cuda.synchronize()
+    return rows
+
+
+def _paged_tables(g, B: int, prefix_blocks: int, kv_len, bs: int, max_blocks: int):
+    """Block tables as the paged engine lays them out: every row shares the
+    prefix's blocks 1..prefix_blocks, then owns enough blocks (handed out
+    in a shuffled order) to cover its kv_len; unused entries hold 0."""
+    import torch
+
+    own = [-(-int(n) // bs) - prefix_blocks for n in kv_len]
+    n_blocks = 1 + prefix_blocks + sum(own)
+    ids = (torch.randperm(sum(own), generator=torch.Generator().manual_seed(B + bs))
+           + 1 + prefix_blocks).tolist()
+    tables = torch.zeros((B, max_blocks), dtype=torch.int32)
+    for b in range(B):
+        row = list(range(1, 1 + prefix_blocks)) + ids[:own[b]]
+        ids = ids[own[b]:]
+        tables[b, :len(row)] = torch.tensor(row, dtype=torch.int32)
+    return tables.to(g.device), n_blocks
+
+
+def _paged_kernel_rows(g, randn) -> dict:
+    """K6 and K7 at the batch phase's shapes: 32 rows over the full-width
+    pool (22 layers, 513 blocks of 128, 4 kv heads of 64, bf16), the cached
+    prefix's 6 full blocks shared by every row, ragged kv_len 900-1050 for
+    K6; K7 a (32, 9) fast-forward block per row with its own chain length
+    (positions padded with duplicates, as chain_block pads them). Also block
+    sizes 16, 32 and 64 on a 2-layer pool. The library yardstick is SDPA on a
+    pre-gathered contiguous copy (the gather is not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import (
+        paged_attention_reference,
+        paged_block_attention_reference,
+    )
+    from tpu_voice_agent_torch.ops.paged_attention import gather_pages
+
+    dev = torch.device("cuda")
+    L, N, bs, nq, nkv, hd, B = 22, 513, 128, 32, 4, 64, 32
+    group, li = nq // nkv, L - 1
+    kp, vp = randn(L, N, bs, nkv, hd), randn(L, N, bs, nkv, hd)
+    lens = torch.randint(900, 1051, (B,), generator=torch.Generator().manual_seed(3))
+    tables, _ = _paged_tables(g, B, 6, lens, bs, 16)
+    kv_len = lens.to(torch.int32).to(dev)
+    q = randn(B, nq, hd)
+    chain = torch.randint(0, 9, (B,), generator=torch.Generator().manual_seed(4)).to(dev)
+    iw = torch.arange(9, device=dev)[None, :]
+    qpos = (kv_len[:, None] - 10 + torch.minimum(iw, chain[:, None])).to(torch.int32)
+    q9 = randn(B, 9, nq, hd)
+    pairs6 = [(ops.paged_attention(q, kp, vp, tables, kv_len, li),
+               paged_attention_reference(q, kp, vp, tables, kv_len, li))]
+    pairs7 = [(ops.paged_block_attention(q9, kp, vp, tables, qpos, li),
+               paged_block_attention_reference(q9, kp, vp, tables, qpos, li))]
+    for sbs in (16, 32, 64):
+        mb = -(-1100 // sbs)
+        t_s, n_s = _paged_tables(g, B, 768 // sbs, lens, sbs, mb)
+        ks, vs = randn(2, n_s, sbs, nkv, hd), randn(2, n_s, sbs, nkv, hd)
+        pairs6.append((ops.paged_attention(q, ks, vs, t_s, kv_len, 1),
+                       paged_attention_reference(q, ks, vs, t_s, kv_len, 1)))
+        pairs7.append((ops.paged_block_attention(q9, ks, vs, t_s, qpos, 1),
+                       paged_block_attention_reference(q9, ks, vs, t_s, qpos, 1)))
+    torch.cuda.synchronize()
+
+    # library yardstick inputs: each row's blocks gathered, GQA heads repeated
+    S = tables.shape[1] * bs
+    kh = gather_pages(kp, tables, li).transpose(1, 2).repeat_interleave(group, 1)
+    vh = gather_pages(vp, tables, li).transpose(1, 2).repeat_interleave(group, 1)
+    s_idx = torch.arange(S, device=dev)
+    mask6 = (s_idx[None, :] < kv_len[:, None])[:, None, None, :]
+    mask7 = (s_idx[None, None, :] <= qpos[:, :, None])[:, None]
+    kv_row = 2 * nkv * hd * 2  # K and V bytes per key position (bf16)
+    shared = 6 * bs  # prefix positions every row reads
+    uniq6 = shared + float((kv_len - shared).sum())
+    per_row6 = float(kv_len.sum())
+    io6 = 2 * 2 * B * nq * hd + 4 * B + 4 * tables.numel()
+    b6 = bound(io6 + uniq6 * kv_row, 4 * nq * hd * per_row6)
+    keys7 = qpos.amax(dim=1) + 1
+    uniq7 = shared + float((keys7 - shared).sum())
+    io7 = 2 * 2 * B * 9 * nq * hd + 4 * qpos.numel() + 4 * tables.numel()
+    b7 = bound(io7 + uniq7 * kv_row, 4 * nq * hd * float((qpos + 1).sum()))
+    rows = {}
+    rows["paged_attention"] = _kernel_row(
+        "paged_attention", *attn_err(pairs6), ATTN_TOL,
+        cuda_ms(lambda: ops.paged_attention(q, kp, vp, tables, kv_len, li), iters=100),
+        cuda_ms(lambda: paged_attention_reference(q, kp, vp, tables, kv_len, li)),
+        *b6,
+        cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kh, vh,
+                                                       attn_mask=mask6), iters=100))
+    rows["paged_attention"]["bound_ms_prefix_per_row"] = bound(
+        io6 + per_row6 * kv_row, 4 * nq * hd * per_row6)[0]
+    rows["paged_attention"]["shape"] = (
+        "B 32, pool (22, 513, 128, 4, 64) bf16, 6 shared prefix blocks, kv_len "
+        f"{int(kv_len.min())}-{int(kv_len.max())}; bs 16/32/64 checked on a 2-layer pool")
+    rows["paged_block_attention"] = _kernel_row(
+        "paged_block_attention", *attn_err(pairs7), ATTN_TOL,
+        cuda_ms(lambda: ops.paged_block_attention(q9, kp, vp, tables, qpos, li), iters=100),
+        cuda_ms(lambda: paged_block_attention_reference(q9, kp, vp, tables, qpos, li)),
+        *b7,
+        cuda_ms(lambda: F.scaled_dot_product_attention(q9.transpose(1, 2), kh, vh,
+                                                       attn_mask=mask7), iters=100))
+    rows["paged_block_attention"]["bound_ms_prefix_per_row"] = bound(
+        io7 + float(keys7.sum()) * kv_row, 4 * nq * hd * float((qpos + 1).sum()))[0]
+    rows["paged_block_attention"]["shape"] = (
+        "(32, 9) blocks, chains of 0-8 padded with duplicates, over the same pool and tables")
+    del kp, vp, kh, vh
     return rows
 
 
@@ -539,8 +670,8 @@ def _bench_prompt(engine, text: str) -> str:
 
 def _plain_top2(eng, prompt_ids: list[int], tokens: list[int]) -> dict:
     """The two best legal next tokens after ``prompt_ids + tokens`` under a
-    plain teacher-forced forward (plain cache attention, no kernel), and
-    their logit margin."""
+    plain teacher-forced forward (plain cache attention, no kernel), their
+    logit margin, and the best one's logit."""
     import torch
 
     from tpu_voice_agent_torch.models.llama import forward, init_kv_cache
@@ -553,7 +684,7 @@ def _plain_top2(eng, prompt_ids: list[int], tokens: list[int]) -> dict:
     legal = torch.from_numpy(eng.fsm.mask[max(eng.fsm.walk(tokens), 0)]).to(eng.device)
     top = torch.topk(torch.where(legal, logits[0, -1].float(), -1e30), 2)
     v, i = top.values.tolist(), top.indices.tolist()
-    return {"top2": i, "margin": v[0] - v[1]}
+    return {"top2": i, "margin": v[0] - v[1], "top_logit": v[0]}
 
 
 def phase_parse(params, totals: dict, report: dict) -> None:
@@ -862,6 +993,432 @@ def phase_voice(stt_engine, totals: dict, report: dict) -> None:
     report["voice"] = {**res, "launches": c.counts}
 
 
+# ------------------------------------------------------------------ batched /parse
+
+BATCH_SLOTS = 32
+BATCH_NEW_TOKENS = 128  # bench_batch.py's fallback plan budget (the p95 it names)
+
+
+def _batch_prompt(i: int) -> str:
+    """bench_batch.py's traffic: one command per session."""
+    from tpu_voice_agent_torch.services.prompts import render_prompt
+
+    return render_prompt(f"search for item {i} and sort by price", {})
+
+
+def _paged_engine(params, ff: int, **kw):
+    """bench_batch.py's paged shape: tinyllama-1.1b int8, 32 slots, max_len
+    2048, prefill bucket 1024, block 128, the default 513-block pool."""
+    from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+
+    kw = {"batch_slots": BATCH_SLOTS, "prefill_buckets": (1024,), **kw}
+    eng = PagedDecodeEngine(preset="tinyllama-1.1b", quant="int8", fast_forward=ff,
+                            max_len=2048, init_weights=False, **kw)
+    eng.load_params(params)
+    return eng
+
+
+def phase_batch(params, totals: dict, report: dict, profile: bool = False) -> None:
+    """bench_batch.py's ``run_one`` on the port (bench_batch.py:72-144): the
+    paged engine behind the cached prefix and a ContinuousBatcher (chunk 16,
+    128 new tokens); one warm-up request, then 32 sessions submitted at once
+    and drained, stepping by hand to sample the pool's peak occupancy; at
+    ff=8 (every step a (32, 9) block through K7) and ff=0 (T=1 steps through
+    K6)."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    out = {}
+    for ff, kernel in ((8, "paged_block_attention"), (0, "paged_attention")):
+        eng = _paged_engine(params, ff, radix_enable=False)
+        P = install_prompt_prefix(eng)
+        prefix_blocks = eng.allocator.blocks_in_use
+        fail_if(prefix_blocks != P // eng.block_size, "batch: prefix blocks not installed once")
+        batcher = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
+        batcher.submit(_batch_prompt(0))  # warm-up
+        batcher.run_until_done()
+        batcher.results.clear()
+        chunks0, fwd0 = batcher.chunks, batcher.forwards
+        with Counted(f"batch ff={ff}", totals) as c:
+            torch.cuda.synchronize()
+            peak = 0
+            t0 = time.perf_counter()
+            rids = [batcher.submit(_batch_prompt(i)) for i in range(BATCH_SLOTS)]
+            while batcher.busy():
+                batcher.step()
+                peak = max(peak, eng.allocator.blocks_in_use)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        c.require(kernel, "masked_argmax_advance")
+        res = [batcher.results.pop(r) for r in rids]
+        ok = sum(r.error is None for r in res)
+        walks = [eng.fsm.walk(r.token_ids) for r in res]
+        tokens = sum(r.steps for r in res)
+        row = {"prefix_tokens": P, "sessions": BATCH_SLOTS, "ok": ok, "wall_s": wall,
+               "intents_per_s": BATCH_SLOTS / wall, "tokens_per_s": tokens / wall,
+               "tokens": tokens, "finished": sum(r.finished for r in res),
+               "chunks": batcher.chunks - chunks0, "forwards": batcher.forwards - fwd0,
+               "peak_pool_blocks": peak, "pool_blocks": eng.allocator.n_blocks,
+               "blocks_after_drain": eng.allocator.blocks_in_use,
+               "prefill_ms_p50": statistics.median(r.prefill_ms for r in res),
+               "cached_tokens": sorted({r.cached_tokens for r in res}), "launches": c.counts}
+        out[f"ff{ff}"] = row
+        log(f"[batch] ff={ff}: {ok}/{BATCH_SLOTS} ok ({row['finished']} reached EOS), "
+            f"{tokens} tokens in {wall:.3f} s: {row['intents_per_s']:.3f} intents/s, "
+            f"{row['tokens_per_s']:.1f} tokens/s; {row['chunks']} chunks, {row['forwards']} "
+            f"forwards ({1e3 * wall / max(row['forwards'], 1):.2f} ms each with admissions); "
+            f"peak pool {peak}/{eng.allocator.n_blocks} blocks, {row['blocks_after_drain']} "
+            f"after the drain; suffix prefill p50 {row['prefill_ms_p50']:.2f} ms, cached "
+            f"{row['cached_tokens']}")
+        fail_if(ok != BATCH_SLOTS, f"batch ff={ff}: {BATCH_SLOTS - ok} failed: "
+                f"{[r.error for r in res if r.error][:3]}")
+        fail_if(min(walks) < 0, f"batch ff={ff}: a token stream left the grammar")
+        fail_if(eng.allocator.blocks_in_use != prefix_blocks,
+                f"batch ff={ff}: {eng.allocator.blocks_in_use} blocks in use after the drain, "
+                f"want the prefix's {prefix_blocks}")
+        if profile and ff == 8:
+            _profile_batch_chunk(eng, report)
+        del eng, batcher
+    report["batch"] = out
+
+
+DENSE_SLOTS = 8
+
+
+def phase_batch_dense(params, totals: dict, report: dict) -> None:
+    """The dense batched engine (BRAIN_BATCH > 1 without BRAIN_PAGED): 8
+    dense cache lines behind a ContinuousBatcher drain 8 sessions of the
+    batch traffic at ff=8 (K3 at B = 8, idle rows writing slot 0 of their
+    own line) and ff=0 (K2), and must decode what the paged engine (K7 /
+    K6) decodes from the same prompts on the same weights. As in the radix
+    phase, a parting in bf16 activations is reported with its margin and
+    fails past ``BF16_PART_ULPS``; with fp32 activations on the same int8
+    weights it fails past one bf16 ulp."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.engine import DecodeEngine
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompts = [_batch_prompt(i) for i in range(DENSE_SLOTS)]
+    out = {}
+    for dtype, p in (("bf16", params), ("fp32", _fp32_activations(params))):
+        for ff, kernel in ((8, "decode_block_attention_layer"), (0, "decode_attention_layer")):
+            label = f"batch_dense {dtype} ff={ff}"
+            dense = DecodeEngine(preset="tinyllama-1.1b", quant="int8", fast_forward=ff,
+                                 max_len=2048, batch_slots=DENSE_SLOTS, prefill_buckets=(1024,),
+                                 init_weights=False)
+            dense.load_params(p)
+            install_prompt_prefix(dense)
+            b = ContinuousBatcher(dense, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
+            with Counted(label, totals) as c:
+                t0 = time.perf_counter()
+                res = b.generate_many(prompts)
+                wall = time.perf_counter() - t0
+            c.require(kernel, "masked_argmax_advance")
+            fail_if(any(r.error is not None for r in res),
+                    f"{label}: {[r.error for r in res if r.error][:3]}")
+            fail_if(min(dense.fsm.walk(r.token_ids) for r in res) < 0,
+                    f"{label}: a token stream left the grammar")
+            del dense, b
+            paged = _paged_engine(p, ff, radix_enable=False, batch_slots=DENSE_SLOTS)
+            install_prompt_prefix(paged)
+            res_p = ContinuousBatcher(paged, chunk_steps=16,
+                                      max_new_tokens=BATCH_NEW_TOKENS).generate_many(prompts)
+            ids = [paged.tokenizer.encode(pr, bos=True) for pr in prompts]
+            diverged = _partings(paged, ids, [r.token_ids for r in res],
+                                 [r.token_ids for r in res_p], label, "dense and paged")
+            _check_partings(diverged, label, 1 if dtype == "fp32" else BF16_PART_ULPS)
+            tokens = sum(r.steps for r in res)
+            log(f"[{label}] {DENSE_SLOTS}/{DENSE_SLOTS} ok, {tokens} tokens in {wall:.3f} s "
+                f"({DENSE_SLOTS / wall:.3f} intents/s); the paged engine decoded the same ids "
+                f"for {DENSE_SLOTS - len(diverged)} of {DENSE_SLOTS}")
+            out[f"{dtype}_ff{ff}"] = {"wall_s": wall, "tokens": tokens, "diverged": diverged,
+                                      "launches": c.counts}
+            del paged
+        del p
+    report["batch_dense"] = out
+
+
+def _profile_batch_chunk(eng, report: dict) -> None:
+    """The first ff=8 decode chunk after 32 admissions under the profiler:
+    before each call (untimed) the batcher drains and admits 32 fresh
+    sessions, so the chunk starts with every row live."""
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
+
+    def admit():
+        b.run_until_done()
+        b.results.clear()
+        for i in range(BATCH_SLOTS):
+            b.submit(_batch_prompt(i))
+        b._admit_pending(b._active_h)
+
+    def chunk():
+        live = int(b._active_h.sum())
+        b.step()
+        return f"{live} live rows at its start, {eng._last_fwds} forwards"
+
+    _profile("ff=8 batch chunk (32 rows, 16 steps)", chunk, "batch_ff8", report, setup=admit)
+    b.run_until_done()
+
+
+def phase_batch_golden(totals: dict, report: dict) -> None:
+    """The distilled checkpoint (fp32) in a PagedDecodeEngine with 15 slots:
+    every golden utterance submitted at once must reproduce the recorded JAX
+    parse token for token, through K1 (fresh prefills), K6 and K4."""
+    import torch
+
+    from tpu_voice_agent_torch import distilled
+    from tpu_voice_agent_torch.schemas import parse_response_from_json
+    from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs = distilled.golden_records()
+    cfg, params = distilled.load_distilled(device="cuda")
+    from dataclasses import replace
+
+    eng = PagedDecodeEngine(cfg=replace(cfg, max_seq_len=512), max_len=512,
+                            prefill_buckets=(64, 128), init_weights=False, device="cuda",
+                            batch_slots=15)
+    eng.load_params(params)
+    b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=300)
+    with Counted("batch_golden", totals) as c:
+        t0 = time.perf_counter()
+        res = b.generate_many([distilled.distilled_prompt(r["text"], r["context"])
+                               for r in recs])
+        wall = time.perf_counter() - t0
+    c.require("flash_attention", "paged_attention", "masked_argmax_advance")
+    bad = [(rec, r) for rec, r in zip(recs, res)
+           if r.token_ids != rec["token_ids"]
+           or parse_response_from_json(r.text)[0] != rec["response"]]
+    for rec, r in bad:
+        i = next((j for j, (x, y) in enumerate(zip(r.token_ids, rec["token_ids"])) if x != y),
+                 min(len(r.token_ids), len(rec["token_ids"])))
+        log(f"[batch_golden] MISMATCH {rec['text']!r} at step {i} ({r.error})")
+    fail_if(bool(bad), f"batch_golden: {len(bad)} of {len(recs)} parses differ")
+    fail_if(eng.allocator.blocks_in_use != 0, "batch_golden: blocks leaked")
+    log(f"[batch_golden] {len(recs)} of {len(recs)} batched paged parses equal the recorded "
+        f"JAX output ({sum(r.steps for r in res)} tokens, {b.chunks} chunks, {wall:.2f} s)")
+    report["batch_golden"] = {"cases": len(recs), "chunks": b.chunks, "seconds": wall,
+                              "launches": c.counts}
+
+
+RADIX_TURNS = ["search for wireless headphones", "sort them by price", "open the second one",
+               "add it to the cart"]
+
+
+def _radix_sessions(params, label: str, totals: dict):
+    """4 sessions x 4 turns through a radix-on BatchedEngineParser's
+    transcripts (32 slots, ff=8, buckets up to 2048, 128 new tokens); every
+    turn is recorded whether or not it reached EOS. Returns (per-turn rows,
+    [(prompt ids, generated ids)], tree hits, lookups, launch counts,
+    seconds, prefix length)."""
+    from tpu_voice_agent_torch.services.brain import BatchedEngineParser, install_prompt_prefix
+
+    on = _paged_engine(params, 8, radix_enable=True, prefill_buckets=RADIX_BUCKETS)
+    P = install_prompt_prefix(on)
+    parser = BatchedEngineParser(on, max_new_tokens=BATCH_NEW_TOKENS, session_aware=True)
+    sids = [f"session-{i}" for i in range(4)]
+    rows, prompts = [], []
+    try:
+        with Counted(label, totals) as c:
+            t0 = time.perf_counter()
+            for t, text in enumerate(RADIX_TURNS):
+                futs = []
+                for sid in sids:
+                    prompt = parser.transcripts.prompt_for(sid, f"{text} ({sid})", {})
+                    futs.append((sid, prompt, parser.loop.submit(prompt)))
+                for sid, prompt, fut in futs:
+                    res = fut.result(timeout=600)
+                    fail_if(res.error is not None, f"{label}: {sid} turn {t + 1}: {res.error}")
+                    parser.transcripts.record(sid, prompt, res.token_ids)
+                    ids = (on.tokenizer.encode(prompt, bos=True) if isinstance(prompt, str)
+                           else list(prompt))
+                    prompts.append((ids, res.token_ids))
+                    rows.append({"session": sid, "turn": t + 1,
+                                 "prompt_tokens": res.prompt_tokens,
+                                 "cached_tokens": res.cached_tokens,
+                                 "prefill_ms": res.prefill_ms, "tokens": res.steps})
+            wall = time.perf_counter() - t0
+        c.require("paged_block_attention", "masked_argmax_advance")
+    finally:
+        parser.close()
+    for r in rows:
+        fail_if(r["turn"] >= 2 and r["cached_tokens"] <= P,
+                f"{label}: {r['session']} turn {r['turn']} cached only {r['cached_tokens']} "
+                f"tokens (prefix {P})")
+    return rows, prompts, on.radix.hits, on.radix.lookups, c.counts, wall, P
+
+
+def _partings(eng, ids_list, gen_a, gen_b, label: str, what: str) -> list[dict]:
+    """For each prompt whose two token streams differ: the first differing
+    step and the plain forward's top-2 margin there, under ``eng``'s
+    weights."""
+    diverged = []
+    for ids, a, b in zip(ids_list, gen_a, gen_b):
+        if a == b:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        d = {"prompt_tokens": len(ids), "step": i, **_plain_top2(eng, ids, b[:i])}
+        diverged.append(d)
+        log(f"[{label}] {what} part at step {i} of a {len(ids)}-token prompt: plain top-2 "
+            f"{d['top2']}, margin {d['margin']:.6f} against top logit {d['top_logit']:.4f}")
+    return diverged
+
+
+# The widest bf16 parting read so far is 11.6 bf16 ulps (2^-8 of the top
+# logit) of the plain forward's top-2 margin (radix phase, PERF.md); a
+# bf16 parting past this many ulps fails. With fp32 activations the limit
+# is one ulp.
+BF16_PART_ULPS = 32
+
+
+def _check_partings(diverged: list[dict], label: str, ulps: float) -> None:
+    for d in diverged:
+        fail_if(d["margin"] > ulps * 2.0 ** -8 * abs(d["top_logit"]),
+                f"{label}: the streams part at step {d['step']} where the plain forward's "
+                f"margin is {d['margin']:.6f} (top logit {d['top_logit']:.4f}), over {ulps} "
+                f"bf16 ulps")
+
+
+def _radix_off_divergence(params, prompts, label: str) -> list[dict]:
+    """The same prompt ids through a radix-off engine on the same weights:
+    for each turn whose ids differ, the first differing step and the plain
+    forward's top-2 margin there."""
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    off = _paged_engine(params, 8, radix_enable=False, prefill_buckets=RADIX_BUCKETS)
+    install_prompt_prefix(off)
+    res_off = ContinuousBatcher(off, chunk_steps=16,
+                                max_new_tokens=BATCH_NEW_TOKENS).generate_many(
+        [ids for ids, _ in prompts])
+    return _partings(off, [ids for ids, _ in prompts], [gen for _, gen in prompts],
+                     [r.token_ids for r in res_off], label, "radix on and off")
+
+
+def _fp32_activations(params: dict) -> dict:
+    """The same weights with fp32 activations: the embedding and the norms
+    in fp32 (so every product and the residual stream run in fp32), the
+    int8 leaves unchanged."""
+    def conv(leaf):
+        return leaf if isinstance(leaf, dict) else leaf.float()
+
+    layers = params["layers"]
+    layers = ({k: conv(v) for k, v in layers.items()} if isinstance(layers, dict)
+              else [{k: conv(v) for k, v in layer.items()} for layer in layers])
+    return {"embed": params["embed"].float(), "final_norm": params["final_norm"].float(),
+            "lm_head": conv(params["lm_head"]), "layers": layers}
+
+
+RADIX_BUCKETS = (128, 256, 512, 1024, 2048)
+
+
+def phase_radix(params, totals: dict, report: dict) -> None:
+    """Session KV reuse at full width (RADIX_ENABLE's paged engine behind a
+    BatchedEngineParser, 4 sessions x 4 turns through its transcripts).
+    Turns >= 2 must be served from more cache than the 879-token prefix.
+    Radix on must decode what radix off decodes from the same prompt ids.
+    In bf16 activations (the serving dtype) the two attend KV written by
+    different kernels (decode steps against one suffix prefill), each
+    rounded to bf16, and random weights leave near-ties everywhere (top-2
+    margins of ~0.01 on logits of ~1), so a divergence there is reported
+    with its margin and fails past ``BF16_PART_ULPS``. The identity is held
+    with fp32 activations on the same int8 weights: there a divergence fails
+    unless the plain forward's margin is below one bf16 ulp of the top
+    logit (2^-8 of it)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dtype, p in (("bf16", params), ("fp32", _fp32_activations(params))):
+        label = f"radix {dtype}"
+        rows, prompts, hits, lookups, counts, wall, P = _radix_sessions(p, label, totals)
+        diverged = _radix_off_divergence(p, prompts, label)
+        _check_partings(diverged, label, 1 if dtype == "fp32" else BF16_PART_ULPS)
+        cached = [r["cached_tokens"] for r in rows]
+        log(f"[{label}] 4 sessions x 4 turns in {wall:.2f} s: cached tokens per turn {cached} "
+            f"(prefix {P}); tree hits {hits} of {lookups} lookups; radix off decoded the same "
+            f"ids for {len(prompts) - len(diverged)} of {len(prompts)} turns")
+        out[dtype] = {"prefix_tokens": P, "turns": rows, "seconds": wall, "hits": hits,
+                      "lookups": lookups, "diverged": diverged, "launches": counts}
+        del p
+    report["radix"] = out
+
+
+def phase_service_batched(totals: dict, report: dict) -> None:
+    """A second in-process brain: BRAIN_BATCH=8 BRAIN_PAGED=1
+    RADIX_ENABLE=1 at tinyllama-1.1b int8, answering 8 concurrent /parse
+    requests (random weights: 422 truncation, or a valid 200)."""
+    from tpu_voice_agent_torch.schemas import validate_parse_response
+    from tpu_voice_agent_torch.services import brain
+
+    os.environ.update(BRAIN_BACKEND="engine:tinyllama-1.1b", BRAIN_QUANT="int8",
+                      BRAIN_BATCH="8", BRAIN_PAGED="1", RADIX_ENABLE="1")
+    for k in ("BRAIN_FF", "BRAIN_PREFIX", "BRAIN_DEVICE", "BRAIN_POOL_BLOCKS", "BRAIN_CHUNK"):
+        os.environ.pop(k, None)
+    try:
+        t0 = time.perf_counter()
+        parser = brain.make_parser_from_env()
+    finally:
+        for k in ("BRAIN_BATCH", "BRAIN_PAGED", "RADIX_ENABLE"):
+            os.environ.pop(k, None)
+    eng = parser.engine
+    fail_if(not (isinstance(parser, brain.BatchedEngineParser) and parser.wants_session
+                 and eng.batch_slots == 8 and eng.radix is not None
+                 and eng.device.type == "cuda"),
+            "service_batched: not a session-aware batched paged parser on the card")
+    log(f"[service_batched] boot {time.perf_counter() - t0:.2f} s: 8 slots, pool "
+        f"{eng.allocator.n_blocks} blocks, prefix {len(eng.prefix_ids)} tokens")
+    server = brain.make_server(brain.BrainApp(parser), port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    results = [None] * 8
+
+    def one(i):
+        t1 = time.perf_counter()
+        text = UTTERANCES[i % len(UTTERANCES)]
+        results[i] = (*_post(base, {"text": text, "session_id": f"s{i}", "context": {}}),
+                      (time.perf_counter() - t1) * 1e3)
+
+    try:
+        with Counted("service_batched", totals) as c:
+            t0 = time.perf_counter()
+            workers = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=900)
+            wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        parser.close()
+    c.require("paged_block_attention", "masked_argmax_advance")
+    for i, r in enumerate(results):
+        fail_if(r is None, f"service_batched: request {i} got no answer")
+        status, body, _ms = r
+        truncated = (status == 422 and body.get("detail", "").startswith("decode truncated"))
+        complete = status == 200 and validate_parse_response(body) == (body, None)
+        fail_if(not (truncated or complete), f"service_batched: request {i}: {status} {body}")
+    walls = [r[2] for r in results]
+    log(f"[service_batched] 8 concurrent /parse answered in {wall:.2f} s (each "
+        f"{min(walls):.0f}-{max(walls):.0f} ms): statuses {[r[0] for r in results]}; "
+        f"{parser.batcher.chunks} chunks")
+    report["service_batched"] = {"seconds": wall, "walls_ms": walls,
+                                 "statuses": [r[0] for r in results],
+                                 "chunks": parser.batcher.chunks, "launches": c.counts}
+
+
 def _device_us(evt) -> float:
     """A profiler entry's own device time in us (the attribute's name
     changed across PyTorch versions)."""
@@ -871,23 +1428,31 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile(label: str, fn, key: str, report: dict) -> None:
+def _profile(label: str, fn, key: str, report: dict, setup=None) -> None:
     """Where one call's time goes: ``torch.profiler`` over ``fn()`` (after
-    one warm call and one unprofiled timed call). Reports the device time
-    of every kernel, the kernels launched, and the device's idle share:
-    1 - device busy time / the wall time of the same call timed without the
-    profiler (which slows the host down). Returns nothing; fills
-    ``report[key]`` and ``profile_<key>.txt`` in ``OUT_DIR``."""
+    one warm call and one unprofiled timed call; ``setup()``, if given,
+    runs untimed before each). Reports the device time of every kernel, the
+    kernels launched, and the device's idle share: 1 - device busy time /
+    the wall time of the same call timed without the profiler (which slows
+    the host down). Returns nothing; fills ``report[key]`` and
+    ``profile_<key>.txt`` in ``OUT_DIR``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def prepare():
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+
+    prepare()
     fn()
-    torch.cuda.synchronize()
+    prepare()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
+    prepare()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = fn()
         torch.cuda.synchronize()
@@ -950,14 +1515,17 @@ def phase_profile_stt(stt_engine, report: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of card,build,kernels,service,parse,golden,stt,stt_golden,"
-                         "voice (default all)")
+                    help="comma list of card,build,kernels,service,parse,batch,batch_dense,radix,"
+                         "service_batched,golden,batch_golden,stt,stt_golden,voice "
+                         "(default all)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile (torch.profiler) one bench parse when the service phase "
-                         "runs and one whisper-large-v3 transcribe when the stt phase runs")
+                         "runs, one ff=8 batch chunk when the batch phase runs, and one "
+                         "whisper-large-v3 transcribe when the stt phase runs")
     args = ap.parse_args()
-    phases = (["card", "build", "kernels", "service", "parse", "golden", "stt", "stt_golden",
-               "voice"] if args.phases == "all" else args.phases.split(","))
+    phases = (["card", "build", "kernels", "service", "parse", "batch", "batch_dense", "radix",
+               "service_batched", "golden", "batch_golden", "stt", "stt_golden", "voice"]
+              if args.phases == "all" else args.phases.split(","))
 
     import torch
 
@@ -983,25 +1551,44 @@ def main() -> int:
     _tok, fsm = build_intent_fsm()
     log(f"[grammar] intent FSM: {fsm.num_states} states, {fsm.num_classes} classes, "
         f"V {fsm.vocab_size} ({time.perf_counter() - t1:.2f} s)")
-    rows = phase_kernels(fsm, prefix_len=880) if "kernels" in phases else {}
+    rows = {}
+    if "kernels" in phases:
+        t1 = time.perf_counter()
+        rows = phase_kernels(fsm, prefix_len=880)
+        log(f"[kernels] phase {time.perf_counter() - t1:.1f} s")
     totals: dict = {}
-    eng = phase_service(totals, report) if "service" in phases else None
-    if "parse" in phases:
-        fail_if(eng is None, "the parse phase reuses the service's weights")
-        phase_parse(eng.params, totals, report)
+
+    def timed(name, fn, *a, **kw):
+        t1 = time.perf_counter()
+        out = fn(*a, **kw)
+        report.setdefault("phase_seconds", {})[name] = time.perf_counter() - t1
+        log(f"[{name}] phase {time.perf_counter() - t1:.1f} s")
+        return out
+
+    eng = timed("service", phase_service, totals, report) if "service" in phases else None
+    for name, fn in (("parse", phase_parse), ("batch", phase_batch),
+                     ("batch_dense", phase_batch_dense), ("radix", phase_radix)):
+        if name in phases:
+            fail_if(eng is None, f"the {name} phase reuses the service's weights")
+            kw = {"profile": args.profile} if name == "batch" else {}
+            timed(name, fn, eng.params, totals, report, **kw)
     if args.profile and eng is not None:  # the parse profile reuses the service's weights
         phase_profile(eng.params, report)
     del eng
+    if "service_batched" in phases:
+        timed("service_batched", phase_service_batched, totals, report)
     if "golden" in phases:
-        phase_golden(totals, report)
-    stt_eng = phase_stt(totals, report) if "stt" in phases else None
+        timed("golden", phase_golden, totals, report)
+    if "batch_golden" in phases:
+        timed("batch_golden", phase_batch_golden, totals, report)
+    stt_eng = timed("stt", phase_stt, totals, report) if "stt" in phases else None
     if args.profile and stt_eng is not None:
         phase_profile_stt(stt_eng, report)
     if "voice" in phases:
-        phase_voice(stt_eng, totals, report)
+        timed("voice", phase_voice, stt_eng, totals, report)
     del stt_eng
     if "stt_golden" in phases:
-        phase_stt_golden(totals, report)
+        timed("stt_golden", phase_stt_golden, totals, report)
     for name, r in rows.items():
         r["launches"] = totals.get(name, 0)
     report["kernels"] = list(rows.values())

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1-K7) against their plain PyTorch versions, on
 the card. Every test here is marked ``gpu`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -151,3 +151,71 @@ def test_wrappers_count_launches_and_refuse_bad_operands(cuda):
     with pytest.raises(ValueError, match="int32"):
         ops.decode_attention(q[:, 0].float().contiguous(), kc, kc, kv_len.long())
     assert ops.launch_counts()["decode_attention"] == 1
+
+
+def _paged_tables(B, kv_len, bs, max_blocks, shared, seed):
+    """Rows share ``shared`` leading blocks (a prefix), then own shuffled
+    blocks; unused entries hold 0. Returns (tables, pool blocks needed)."""
+    own = [-(-int(n) // bs) - shared for n in kv_len]
+    ids = (torch.randperm(sum(own), generator=torch.Generator().manual_seed(seed))
+           + 1 + shared).tolist()
+    tables = torch.zeros((B, max_blocks), dtype=torch.int32)
+    for b in range(B):
+        row = list(range(1, 1 + shared)) + ids[:own[b]]
+        ids = ids[own[b]:]
+        tables[b, :len(row)] = torch.tensor(row, dtype=torch.int32)
+    return tables, 1 + shared + sum(own)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+def test_paged_kernels_match_plain(cuda, bs, dtype, tol):
+    """K6 and K7 at the batch phase's shapes (32 rows, 32/4 heads of 64,
+    ragged kv_len 900-1050 over a shared 768-token prefix) at every block
+    size the engine or the JAX tests use; q bf16 or fp32, the pool bf16.
+    A row with kv_len 0 (K6) or no valid position (K7) gets zeros."""
+    g = torch.Generator(device=cuda).manual_seed(bs)
+    B, nq, nkv, hd = 32, 32, 4, 64
+    lens = torch.randint(900, 1051, (B,), generator=torch.Generator().manual_seed(bs))
+    tables, n = _paged_tables(B, lens, bs, -(-1100 // bs), 768 // bs, bs)
+    tables = tables.to(cuda)
+    kp = torch.randn(2, n, bs, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    vp = torch.randn(2, n, bs, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    kv_len = lens.to(torch.int32).to(cuda)
+    kv_len[5] = 0
+    q = torch.randn(B, nq, hd, generator=g, device=cuda).to(dtype)
+    out = ops.paged_attention(q, kp, vp, tables, kv_len, 1)
+    ref = ops.paged_attention_reference(q, kp, vp, tables, kv_len, 1)
+    assert out.dtype == dtype and bool((out[5] == 0).all())
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    chain = torch.randint(0, 9, (B,), generator=g, device=cuda)
+    iw = torch.arange(9, device=cuda)[None, :]
+    qpos = (lens.to(cuda)[:, None] - 10 + torch.minimum(iw, chain[:, None])).to(torch.int32)
+    qpos[7] = torch.tensor([300, 2, 900, 900, 0, 1040, 13, 128, 127], device=cuda)
+    qpos[9] = -1
+    q9 = torch.randn(B, 9, nq, hd, generator=g, device=cuda).to(dtype)
+    out = ops.paged_block_attention(q9, kp, vp, tables, qpos, 0)
+    ref = ops.paged_block_attention_reference(q9, kp, vp, tables, qpos, 0)
+    assert bool((out[9] == 0).all())
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_paged_wrappers_count_launches_and_refuse_bad_operands(cuda):
+    ops.reset_launch_counts()
+    kp = torch.zeros(1, 4, 16, 2, 64, dtype=torch.bfloat16, device=cuda)
+    tables = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    q = torch.zeros(1, 8, 64, dtype=torch.bfloat16, device=cuda)
+    kv_len = torch.tensor([20], dtype=torch.int32, device=cuda)
+    ops.paged_attention(q, kp, kp, tables, kv_len, 0)
+    ops.paged_block_attention(q[:, None].contiguous(), kp, kp, tables, kv_len[:, None], 0)
+    assert ops.launch_counts()["paged_attention"] == 1
+    assert ops.launch_counts()["paged_block_attention"] == 1
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.paged_attention(q, kp.float(), kp.float(), tables, kv_len, 0)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_attention(q, kp, kp, tables.long(), kv_len, 0)
+    with pytest.raises(ValueError, match="layer"):
+        ops.paged_attention(q, kp, kp, tables, kv_len, 1)
+    assert ops.launch_counts()["paged_attention"] == 1

@@ -10,6 +10,7 @@ out of budget before EOS; 500 ``llm_error`` when the engine fails; errors as
 checkpoint.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -23,6 +24,7 @@ import torch
 
 from tpu_voice_agent_torch import distilled
 from tpu_voice_agent_torch.serve.engine import DecodeEngine
+from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
 from tpu_voice_agent_torch.services import brain
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -166,10 +168,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import tpu_voice_agent_torch.services.brain\n"
-        # the STT slice and the GPU smoke script (namespace subpackages are
-        # not walked, so name them)
+        # the STT slice, the batched paged serving slice and the GPU smoke
+        # script (namespace subpackages are not walked, so name them)
         "for m in ('audio.mel', 'audio.endpoint', 'models.whisper', 'serve.stt',\n"
-        "          'whisper_ckpt', 'voicebench'):\n"
+        "          'whisper_ckpt', 'voicebench', 'models.llama', 'ops.paged_attention',\n"
+        "          'serve.engine', 'serve.paged', 'serve.radix', 'serve.scheduler'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent')\n"
@@ -181,4 +184,151 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 21 and bad.strip() == "[]"
+    assert int(n) >= 26 and bad.strip() == "[]"
+
+
+# ---------------------------------------------------------------- batched
+
+
+def _distilled_paged(**kw):
+    """The distilled checkpoint in a paged engine (block 16, so short
+    transcripts fill blocks the radix tree can share)."""
+    cfg, params = distilled.load_distilled(device="cpu")
+    eng = PagedDecodeEngine(cfg=dataclasses.replace(cfg, max_seq_len=512), max_len=512,
+                            prefill_buckets=(64, 128, 256), init_weights=False, device="cpu",
+                            block_size=16, **kw)
+    eng.load_params(params)
+    return eng
+
+
+def test_batched_parser_answers_concurrent_requests():
+    parser = brain.BatchedEngineParser(_distilled_paged(batch_slots=4), max_new_tokens=300,
+                                       render=distilled.distilled_prompt)
+    app = brain.BrainApp(parser)
+    recs = distilled.golden_records()[:6]
+    out = [None] * len(recs)
+
+    def one(i):
+        out[i] = _post(app, {"text": recs[i]["text"], "context": recs[i]["context"]})
+
+    try:
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(recs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        for rec, (status, body, headers) in zip(recs, out):
+            assert status == 200 and body == rec["response"]
+            assert headers["x-cached-tokens"] == "0" and int(headers["x-prompt-tokens"]) > 0
+        # the six requests shared decode chunks on four slots
+        assert parser.batcher.chunks < sum(-(-len(r["token_ids"]) // 16) for r in recs)
+        assert app.health()[1]["batch_slots"] == 4
+    finally:
+        parser.close()
+    assert parser.engine.allocator.blocks_in_use == 0
+
+
+def test_timed_out_requests_leave_no_batcher_state():
+    """Abandoned parses leave the queue (or decode on unread), and the
+    batcher keeps no bookkeeping for any of them."""
+    parser = brain.BatchedEngineParser(_distilled_paged(batch_slots=1), max_new_tokens=300,
+                                       timeout_s=0.05, render=distilled.distilled_prompt)
+    recs = distilled.golden_records()[:3]
+    errs = []
+
+    def one(rec):
+        try:
+            parser.parse(rec["text"], rec["context"])
+        except brain.ParserError as e:
+            errs.append(e)
+
+    try:
+        threads = [threading.Thread(target=one, args=(r,)) for r in recs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert len(errs) == 3
+        b = parser.batcher
+        for _ in range(600):
+            with parser.loop._cv:
+                idle = not (b.busy() or parser.loop._futures or parser.loop._abandoned)
+            if idle:
+                break
+            threading.Event().wait(0.1)
+        assert idle and parser.loop.healthy()
+        assert not (b.pending or b.results or b._enqueued_at or b._pool_wait or b._requeues)
+    finally:
+        parser.close()
+    assert parser.engine.allocator.blocks_in_use == 0
+
+
+def test_session_parser_extends_the_transcript_and_commits_speculation():
+    parser = brain.BatchedEngineParser(_distilled_paged(batch_slots=2, radix_enable=True),
+                                       max_new_tokens=200, session_aware=True,
+                                       render=distilled.distilled_prompt)
+    app = brain.BrainApp(parser)
+    recs = distilled.golden_records()
+    try:
+        status, body, h = _post(app, {"text": recs[0]["text"], "session_id": "a",
+                                      "context": recs[0]["context"]})
+        assert status == 200 and body == recs[0]["response"]
+        assert h["x-cached-tokens"] == "0"
+        # turn 2 extends turn 1's ids: the radix tree serves its full blocks
+        req = {"text": recs[2]["text"], "session_id": "a", "context": recs[2]["context"]}
+        status, body, h = _post(app, {**req, "speculative": True})
+        assert status == 200 and h["x-speculation-pending"] == "1"
+        cached = int(h["x-cached-tokens"])
+        assert 0 < cached < int(h["x-prompt-tokens"])
+        chunks = parser.batcher.chunks
+        status2, body2, h2 = _post(app, req)  # the final commits the pending turn
+        assert (status2, body2) == (status, body) and parser.batcher.chunks == chunks
+        assert "x-cached-tokens" not in h2  # answered without a decode
+        status, body, h = _post(app, {"text": recs[4]["text"], "session_id": "a",
+                                      "context": recs[4]["context"]})
+        assert status == 200 and int(h["x-cached-tokens"]) > cached
+        # a session-less request stays stateless
+        status, body, h = _post(app, {"text": recs[0]["text"], "context": recs[0]["context"]})
+        assert status == 200 and body == recs[0]["response"]
+    finally:
+        parser.close()
+
+
+def test_batched_parser_sheds_with_503_when_the_pool_stays_exhausted(monkeypatch):
+    monkeypatch.setenv("SCHED_POOL_WAIT_S", "0")
+    parser = brain.BatchedEngineParser(_distilled_paged(batch_slots=2, pool_blocks=3),
+                                       render=distilled.distilled_prompt)
+    try:
+        status, body, headers = _post(brain.BrainApp(parser), {"text": "go back"})
+    finally:
+        parser.close()
+    assert status == 503 and body["error"] == "overloaded" and headers["Retry-After"] == "1"
+    assert body["detail"].startswith("shed: KV pool exhausted")
+
+
+def test_env_factory_builds_the_batched_paged_brain(monkeypatch):
+    monkeypatch.setenv("BRAIN_BACKEND", "engine:test-tiny")
+    monkeypatch.setenv("BRAIN_DEVICE", "cpu")
+    monkeypatch.setenv("BRAIN_BATCH", "3")
+    monkeypatch.setenv("BRAIN_PAGED", "1")
+    monkeypatch.setenv("RADIX_ENABLE", "1")
+    monkeypatch.setenv("BRAIN_POOL_BLOCKS", "40")
+    parser = brain.make_parser_from_env()
+    try:
+        eng = parser.engine
+        assert isinstance(parser, brain.BatchedEngineParser) and parser.wants_session
+        assert isinstance(eng, PagedDecodeEngine) and eng.radix is not None
+        assert (eng.batch_slots, eng.allocator.n_blocks, eng.fast_forward) == (3, 40, 8)
+        assert eng.allocator.blocks_in_use == len(eng.prefix_ids) // eng.block_size > 0
+        health = brain.BrainApp(parser).health()[1]
+        assert health["ok"] and health["paged"] and health["radix"]
+    finally:
+        parser.close()
+    monkeypatch.delenv("BRAIN_PAGED")
+    monkeypatch.setenv("BRAIN_BATCH", "2")
+    parser = brain.make_parser_from_env()
+    try:
+        assert isinstance(parser, brain.BatchedEngineParser) and not parser.wants_session
+        assert type(parser.engine) is DecodeEngine and parser.engine.batch_slots == 2
+    finally:
+        parser.close()

@@ -11,7 +11,9 @@ Differences from the JAX module, all deliberate:
   loop over per-layer views, not a ``lax.scan``.
 - a bf16 product rounds its output to bf16 before the int8 scale multiplies
   it (XLA kept that output in f32). fp32 weights have no such step.
-Left out: ``forward_paged`` and the MoE feed-forward.
+- ``forward_paged`` scatters into the paged pool IN PLACE (JAX donates the
+  pools and returns new ones) and returns only the logits.
+Left out: the MoE feed-forward and KV_QUANT pools.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from ..ops import (
     decode_attention_layer,
     decode_block_attention_layer,
     flash_attention,
+    paged_attention,
+    paged_block_attention,
 )
 
 # ---------------------------------------------------------------- config
@@ -287,3 +291,86 @@ def forward(
         x = _layer_out(p, x, attn.reshape(B, T, -1), cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _qe(x, params["lm_head"]), kv_cache
+
+
+@torch.no_grad()
+def forward_paged(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # (B, T) int32
+    positions: torch.Tensor,  # (B, T) int32 — absolute positions of `tokens`
+    k_pool: torch.Tensor,  # (L, N, bs, nkv, hd) — the global paged pool, updated in place
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, max_blocks) int32 pool-block ids
+    attn_impl: str = "kernels",  # "kernels" | "torch"
+    write_mask: torch.Tensor | None = None,  # (B,) bool; False rows park their writes
+    trash_idx: torch.Tensor | None = None,  # (B,) int32 flat pool index for parked writes
+    fresh_block: bool = False,  # caller asserts this T>1 block starts a sequence at pos 0
+    gather_blocks: int | None = None,  # T>1 suffix path: gather only the first N entries
+    kv_quant: str | None = None,
+) -> torch.Tensor:
+    """The paged twin of ``forward`` (llama.py:533-726); returns logits
+    (B, T, V) f32.
+
+    Writes k/v for ``tokens`` into the flat pool IN PLACE at
+    ``table[b, pos // bs] * bs + pos % bs``; rows with ``write_mask`` False
+    park every write at ``trash_idx`` (default 0: block 0, which the
+    allocator never hands out), so an idle row never scribbles on another
+    sequence's blocks or the shared prefix's. Then attends, with
+    ``attn_impl="kernels"``: T == 1 -> K6 with ``kv_len = frontier + 1``; a
+    mid-sequence block of T <= 16 -> K7; a fresh T > 1 block -> K1 over the
+    block's own k/v rounded to the pool's dtype (what the scatter persisted);
+    any other suffix block -> the row's first ``gather_blocks`` table
+    entries gathered to a contiguous cache and the plain ``_attend``.
+    ``attn_impl="torch"`` takes the last two branches only, as the JAX
+    engine's suffix prefill does under ``attn_impl="xla"``."""
+    if kv_quant is not None:
+        raise NotImplementedError(
+            "KV_QUANT pools (paged_*_quant kernels) are not ported yet: ROADMAP Queue 2")
+    B, T = tokens.shape
+    L, N, bs, nkv, hd = k_pool.shape
+    nb = gather_blocks if gather_blocks is not None else block_tables.shape[1]
+    S = nb * bs
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        layers = unstack_layers(layers)
+    dev = tokens.device
+    x = params["embed"][tokens.long()]
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    frontier = torch.amax(positions, dim=1)  # (B,)
+    kv_len = (frontier + 1).to(torch.int32)
+    pos_l = positions.long()
+    blk = torch.gather(block_tables.long(), 1, pos_l // bs)
+    flat_idx = blk * bs + pos_l % bs  # (B, T) into the (N * bs,) flat pool
+    if write_mask is not None:
+        park = (torch.zeros((B,), dtype=torch.long, device=dev) if trash_idx is None
+                else trash_idx.long())
+        flat_idx = torch.where(write_mask[:, None], flat_idx, park[:, None])
+    kflat = k_pool.view(L, N * bs, nkv, hd)
+    vflat = v_pool.view(L, N * bs, nkv, hd)
+    kernels = attn_impl == "kernels"
+    tbl = block_tables[:, :nb].long()  # the gather branch's covered blocks
+    kv_len_mask = torch.arange(S, device=dev)[None, :] <= frontier[:, None]
+    for li, p in enumerate(layers):
+        q, k, v = _layer_qkv(p, x, cfg, cos, sin)
+        kflat[li][flat_idx] = k.to(k_pool.dtype)
+        vflat[li][flat_idx] = v.to(v_pool.dtype)
+        if kernels and T == 1:
+            attn = paged_attention(q[:, 0], k_pool, v_pool, block_tables, kv_len, li)
+        elif kernels and not fresh_block and T <= MAX_BLOCK_DECODE_T:
+            attn = paged_block_attention(q, k_pool, v_pool, block_tables, positions, li)
+        elif fresh_block and T > 1:
+            k_at, v_at = k.to(k_pool.dtype), v.to(v_pool.dtype)
+            if kernels:
+                # the kernel takes one dtype: the pool-rounded values, widened
+                attn = flash_attention(q, k_at.to(q.dtype), v_at.to(q.dtype), causal=True)
+            else:
+                attn = _attend(q, k_at, v_at, positions,
+                               torch.ones((B, T), dtype=torch.bool, device=dev))
+        else:
+            kl = k_pool[li][tbl].reshape(B, S, nkv, hd)
+            vl = v_pool[li][tbl].reshape(B, S, nkv, hd)
+            attn = _attend(q, kl, vl, positions, kv_len_mask)
+        x = _layer_out(p, x, attn.reshape(B, T, -1), cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _qe(x, params["lm_head"])

@@ -7,6 +7,8 @@
 | K2 | ``decode_attention_layer`` | ``decode_attention_reference`` | ``ops/decode_attention.py decode_attention_layer`` |
 | K3 | ``decode_block_attention_layer`` | ``decode_block_attention_reference`` | ``ops/decode_attention.py decode_block_attention_layer`` |
 | K4 | ``masked_argmax_advance`` | ``masked_argmax_advance_reference`` | ``ops/grammar_mask.py masked_argmax_advance`` |
+| K6 | ``paged_attention`` | ``paged_attention_reference`` | ``ops/paged_attention.py paged_attention`` |
+| K7 | ``paged_block_attention`` | ``paged_block_attention_reference`` | ``ops/paged_attention.py paged_block_attention`` |
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``wrapper.launches``; ``launch_counts`` reads them all and
@@ -22,6 +24,12 @@ from .decode_attention import (
 )
 from .flash_attention import attention_reference, flash_attention
 from .grammar_mask import masked_argmax_advance, masked_argmax_advance_reference
+from .paged_attention import (
+    paged_attention,
+    paged_attention_reference,
+    paged_block_attention,
+    paged_block_attention_reference,
+)
 
 KERNELS = {
     "flash_attention": flash_attention,
@@ -29,6 +37,8 @@ KERNELS = {
     "decode_attention": decode_attention,
     "decode_block_attention_layer": decode_block_attention_layer,
     "masked_argmax_advance": masked_argmax_advance,
+    "paged_attention": paged_attention,
+    "paged_block_attention": paged_block_attention,
 }
 
 
@@ -53,5 +63,9 @@ __all__ = [
     "launch_counts",
     "masked_argmax_advance",
     "masked_argmax_advance_reference",
+    "paged_attention",
+    "paged_attention_reference",
+    "paged_block_attention",
+    "paged_block_attention_reference",
     "reset_launch_counts",
 ]

@@ -24,8 +24,8 @@ from pathlib import Path
 from .. import PACKAGE_DIR, cache_dir
 
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "grammar_mask.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "grammar_mask.cu")
+HEADERS = ("common.cuh", "decode_attention.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 48, 64, 128)
@@ -106,6 +106,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tva_decode_attention_layer": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, q_positions, o, B, T, S, nq, nkv, hd, scale, dtype, stream
         "tva_decode_block_attention_layer": [P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+        # q, k plane, v plane, table, kv_len, o, B, max_blocks, bs, nq, nkv, hd, scale,
+        # dtype, stream
+        "tva_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+        # q, k plane, v plane, table, q_positions, o, B, T, max_blocks, bs, nq, nkv, hd,
+        # scale, dtype, stream
+        "tva_paged_block_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
         # logits, state, mask, table, col_id, tok, next, B, V, C, stream
         "tva_masked_argmax_advance": [P, P, P, P, P, P, P, I, I, I, P],
     }

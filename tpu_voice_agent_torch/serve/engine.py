@@ -1,4 +1,4 @@
-"""Grammar-constrained decode engine (single slot), PyTorch.
+"""Grammar-constrained decode engine, PyTorch.
 
 Port of ``tpu_voice_agent/serve/engine.py``: prompt prefill at bucketed
 lengths (with a cached shared prefix), then a decode loop whose every step is
@@ -6,12 +6,17 @@ lengths (with a cached shared prefix), then a decode loop whose every step is
 tables in device memory and indexed by the row's state. Greedy constrained
 decoding on a dense-mask grammar takes the fused kernel K4
 (``ops.masked_argmax_advance``); grammar fast-forward turns each step into a
-(1, 1 + W) block that appends the state's forced token chain.
+(B, 1 + W) block that appends the state's forced token chain.
+
+``generate`` serves one request on a one-slot engine; with more slots the
+continuous batcher (``serve.scheduler``) drives ``prefill_slot`` /
+``decode_chunk`` / ``release_slot``, and the paged engine (``serve.paged``)
+overrides the layout hooks ``_prefill_suffix`` / ``_prefill_full``.
 
 The JAX ``lax.while_loop`` is a Python loop here: its ``any(active)`` test
 reads one bool back from the device on every step. Left out (still JAX-only):
 speculative decoding, the quality lanes, chaos injection, ``from_hf``,
-meshes and the continuous batcher (``batch_slots`` must be 1).
+meshes and ``warm_restart``.
 """
 
 from __future__ import annotations
@@ -165,24 +170,26 @@ def chain_byte_cap(k, chain, cur_tok, nbytes, byte_len_table, byte_budget: int):
 
 
 @torch.no_grad()
-def chunk_decode_loop(params, cfg: LlamaConfig, cache: dict, cur, pos, fsm_state, active,
-                      nbytes, tokens_left, tables: DeviceFSM, byte_len_table, generator,
-                      temperature: float, byte_budget: int, chunk_steps: int = 32,
-                      greedy: bool = True, constrained: bool = True,
-                      eos_id: int = 2, pad_id: int = 0):
-    """THE decode loop: advance every active row by up to ``chunk_steps``
-    steps on the device (engine.py:367-589).
+def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes, tokens_left,
+                tables: DeviceFSM, byte_len_table, generator, temperature: float,
+                byte_budget: int, chunk_steps: int = 32, greedy: bool = True,
+                constrained: bool = True, eos_id: int = 2, pad_id: int = 0):
+    """THE decode loop, for every KV layout: advance every active row by up
+    to ``chunk_steps`` steps on the device (engine.py:367-589, and its paged
+    twin paged.py:287-492). ``forward_step(tokens, positions, active)``
+    writes the block's k/v and returns its logits (B, T, V); ``max_pos``
+    bounds positions (rows stop at ``max_pos - 1``).
 
     With fast-forward chains in ``tables`` (and constrained decoding) each
     step is a (B, 1+W) forward of [cur, forced chain...] and emits up to 1+W
-    tokens; otherwise a T=1 step. A poisoned row (non-finite logits or a dead
-    FSM state) deactivates without committing its sample.
+    tokens; otherwise a T=1 step. Idle rows run at position 0 (the layout
+    parks or confines their writes). A poisoned row (non-finite logits or a
+    dead FSM state) deactivates without committing its sample.
 
-    Returns (emitted (B, chunk_steps*(1+W)), counts, eos, cache, cur, pos,
+    Returns (emitted (B, chunk_steps*(1+W)), counts, eos, cur, pos,
     fsm_state, active, nbytes, tokens_left, forwards, poison)."""
     B = cur.shape[0]
     dev = cur.device
-    max_len = cache["k"].shape[2]
     use_ff = constrained and tables.ff_tokens is not None
     W = tables.ff_tokens.shape[1] if use_ff else 0
     cap = chunk_steps * (1 + W)
@@ -203,7 +210,7 @@ def chunk_decode_loop(params, cfg: LlamaConfig, cache: dict, cur, pos, fsm_state
             poison = torch.maximum(poison, torch.where(dead_in, 2, 0).to(torch.int32))
             sl = torch.clamp(state, min=0).long()
             chain = tables.ff_tokens[sl]  # (B, W); -1 pads
-            k = torch.minimum(torch.minimum(tables.ff_len[sl], left - 1), max_len - 1 - pos)
+            k = torch.minimum(torch.minimum(tables.ff_len[sl], left - 1), max_pos - 1 - pos)
             k, _ = chain_byte_cap(k, chain, cur, nbytes, byte_len_table, byte_budget)
             k = torch.where(active, torch.clamp(k, min=0), 0).to(torch.int32)
             step_tok, blk_tok, blk_pos = chain_block(iw, cur, chain, k, active, pad_id, pos)
@@ -227,7 +234,7 @@ def chunk_decode_loop(params, cfg: LlamaConfig, cache: dict, cur, pos, fsm_state
                 s2 = fsm_advance(tables, s_end, torch.clamp(chain[:, i], min=0))
                 s_end = torch.where(i < k, s2, s_end)
 
-            logits, cache = forward(params, cfg, blk_tok, blk_pos, cache)
+            logits = forward_step(blk_tok, blk_pos, active)
             raw = logits[ar, k.long()]  # (B, V): logits at the chain's end
             nxt, state_next = _mask_sample_advance(raw, s_end, tables, generator, temperature,
                                                    greedy, constrained)
@@ -240,10 +247,9 @@ def chunk_decode_loop(params, cfg: LlamaConfig, cache: dict, cur, pos, fsm_state
             nbytes = nbytes + torch.where(active, byte_len_table[cur.long()], 0)
             left = left - active.to(torch.int32)
 
-            # idle rows park their writes at slot 0 of their own line
             write_pos = torch.where(active, pos, 0)
             step_tok = torch.where(active, cur, pad_id)
-            logits, cache = forward(params, cfg, step_tok[:, None], write_pos[:, None], cache)
+            logits = forward_step(step_tok[:, None], write_pos[:, None], active)
             raw = logits[:, 0, :]
             nxt, state_next = _mask_sample_advance(raw, state, tables, generator, temperature,
                                                    greedy, constrained)
@@ -252,10 +258,10 @@ def chunk_decode_loop(params, cfg: LlamaConfig, cache: dict, cur, pos, fsm_state
         state = torch.where(ok, state_next, state)
         cur = torch.where(ok, nxt, cur)
         eos = eos | (ok & (cur == eos_id))
-        stop = (cur == eos_id) | (nbytes >= byte_budget) | (pos >= max_len - 1) | (left <= 0)
+        stop = (cur == eos_id) | (nbytes >= byte_budget) | (pos >= max_pos - 1) | (left <= 0)
         active = ok & ~stop
         step += 1
-    return (out[:, :cap], n, eos, cache, cur, pos, state, active, nbytes, left, step, poison)
+    return (out[:, :cap], n, eos, cur, pos, state, active, nbytes, left, step, poison)
 
 
 def _sync(device: torch.device) -> None:
@@ -264,7 +270,9 @@ def _sync(device: torch.device) -> None:
 
 
 class DecodeEngine:
-    """Single-slot grammar-constrained decode engine on one device."""
+    """Grammar-constrained decode engine on one device: ``generate`` with
+    one slot, or ``batch_slots`` dense cache lines behind the continuous
+    batcher."""
 
     def __init__(
         self,
@@ -281,8 +289,8 @@ class DecodeEngine:
         device: str | torch.device | None = None,  # None = cuda, or raise
     ):
         self.device = resolve_device(device)
-        if batch_slots != 1:
-            raise ValueError("the port serves one slot; the continuous batcher is not ported")
+        if batch_slots < 1:
+            raise ValueError("need at least one batch slot")
         # "auto" and "kernels" both take the kernel branch split: the
         # wrappers launch the CUDA kernels on cuda tensors and their plain
         # versions on CPU tensors.
@@ -304,7 +312,7 @@ class DecodeEngine:
         if init_weights:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.load_params(init_params(self.cfg, gen, device=self.device))
-        self.cache = init_kv_cache(self.cfg, batch_slots, max_len, device=self.device)
+        self.cache = self._init_kv_cache()
 
         self.tables = self.fsm.device_tables(device=self.device)
         self.fast_forward = fast_forward
@@ -323,8 +331,15 @@ class DecodeEngine:
         self.prefix_kv: dict | None = None
         self._last_prefill_compute_ms = 0.0
         self._last_cached_tokens = 0
+        self._last_fwds = 0  # the last decode_chunk's forward count
+        self._last_poison = None  # its per-row fault codes (B,) int32
 
     # ------------------------------------------------------------ helpers
+
+    def _init_kv_cache(self):
+        """Layout hook: one dense cache line per slot (the paged engine
+        holds a block pool instead)."""
+        return init_kv_cache(self.cfg, self.batch_slots, self.max_len, device=self.device)
 
     def load_params(self, params: dict) -> None:
         """Install weights (stacked-layer tree on this engine's device),
@@ -399,9 +414,12 @@ class DecodeEngine:
     # ------------------------------------------------------------ generate
 
     def prefill_slot(self, ids: list[int], slot: int) -> torch.Tensor:
-        """Prefill token ids into one slot's cache line, reusing the
-        shared-prefix KV when ``ids`` starts with it. Returns the last real
-        token's logits (1, V)."""
+        """Prefill token ids into one batch slot, reusing the shared-prefix
+        KV when ``ids`` starts with it (exact token match). Returns the last
+        real token's logits (1, V). The one decision tree of every layout:
+        the dense and paged engines override only the ``_prefill_suffix`` /
+        ``_prefill_full`` hooks."""
+        self.release_slot(slot)  # a finished request may still own resources
         n = len(ids)
         suffix = self._split_prefix(ids)
         if suffix is not None:
@@ -414,27 +432,65 @@ class DecodeEngine:
             tokens = np.full((1, bucket), self.pad_id, dtype=np.int32)
             tokens[0, :m] = suffix
             positions = (P + np.arange(bucket, dtype=np.int32))[None, :]
-            logits = prefill_row_with_prefix(
-                self.params, self.cfg, self.cache, self.prefix_kv["k"], self.prefix_kv["v"],
-                self._ids(tokens), self._ids(positions), slot)
+            logits = self._prefill_suffix(self._ids(tokens), self._ids(positions), slot, P,
+                                          bucket, n)
             last, cached = logits[:, m - 1, :], P
         else:
             bucket = self._bucket(n)
             tokens = np.full((1, bucket), self.pad_id, dtype=np.int32)
             tokens[0, :n] = ids
             positions = np.arange(bucket, dtype=np.int32)[None, :]
-            logits = prefill_row(self.params, self.cfg, self.cache, self._ids(tokens),
-                                 self._ids(positions), slot, fresh=True)
+            logits = self._prefill_full(self._ids(tokens), self._ids(positions), slot, bucket, n)
             last, cached = logits[:, n - 1, :], 0
         _sync(self.device)
         self._last_prefill_compute_ms = (time.perf_counter() - t0) * 1e3
         self._last_cached_tokens = cached
         return last.contiguous()
 
+    def _prefill_suffix(self, tokens, positions, slot: int, P: int, bucket: int, n: int):
+        """Layout hook: admit a prefix-cached suffix into ``slot``."""
+        return prefill_row_with_prefix(self.params, self.cfg, self.cache, self.prefix_kv["k"],
+                                       self.prefix_kv["v"], tokens, positions, slot)
+
+    def _prefill_full(self, tokens, positions, slot: int, bucket: int, n: int):
+        """Layout hook: admit a fresh full prompt into ``slot``."""
+        return prefill_row(self.params, self.cfg, self.cache, tokens, positions, slot, fresh=True)
+
+    def _decode_step(self, tokens, positions, active):
+        """Layout hook: one decode forward, k/v written in place (idle rows
+        write slot 0 of their own line). Returns logits (B, T, V)."""
+        return forward(self.params, self.cfg, tokens, positions, self.cache)[0]
+
+    def decode_chunk(self, cur, pos, fsm, active, nbytes, tokens_left, generator,
+                     temperature: float, byte_budget: int, chunk_steps: int, greedy: bool):
+        """Advance all slots by one decode chunk (the batcher's device-work
+        entry point; the KV layout stays the engine's business). Sets
+        ``_last_fwds`` (forward count) and ``_last_poison`` (per-row fault
+        codes). Returns (emitted, counts, eos, cur, pos, fsm, active, nbytes,
+        tokens_left)."""
+        tables = self.tables_ff if self.tables_ff is not None else self.tables
+        (out, n, eos, cur, pos, fsm, active, nbytes, left, fwds, pois) = decode_loop(
+            self._decode_step, self.max_len, cur, pos, fsm, active, nbytes, tokens_left,
+            tables, self.byte_len_table, generator, temperature, byte_budget,
+            chunk_steps=chunk_steps, greedy=greedy, constrained=True,
+            eos_id=self.eos_id, pad_id=self.pad_id)
+        self._last_fwds, self._last_poison = fwds, pois
+        return out, n, eos, cur, pos, fsm, active, nbytes, left
+
+    def release_slot(self, slot: int, generated_ids: list[int] | None = None,
+                     ok: bool = True) -> None:
+        """A batch slot finished. Dense cache lines are reused in place; the
+        paged engine returns the slot's blocks (and, with radix reuse on,
+        caches the prompt + ``generated_ids`` chain first unless ``ok`` is
+        False)."""
+
     def _admit_first_token(self, prompt: str, temperature: float, greedy: bool = True,
                            constrained: bool = True):
         """Prefill slot 0 + pick the first token. Returns (tok0, fsm0,
         prompt_len, prefill_ms)."""
+        if self.batch_slots != 1:
+            raise ValueError("single-request generate() needs batch_slots=1; batched decode "
+                             "is driven by the continuous batcher (serve.scheduler)")
         t0 = time.perf_counter()
         ids = self.tokenizer.encode(prompt, bos=True)
         last_logits = self.prefill_slot(ids, 0)
@@ -462,9 +518,9 @@ class DecodeEngine:
         t1 = time.perf_counter()
         tables = self.tables_ff if (constrained and self.tables_ff is not None) else self.tables
         i32 = dict(dtype=torch.int32, device=self.device)
-        (buf, count, eos, _cache, _cur, _pos, _fsm, _act, _nb, _left, fwds,
-         pois) = chunk_decode_loop(
-            self.params, self.cfg, self.cache,
+        (buf, count, eos, _cur, _pos, _fsm, _act, _nb, _left, fwds,
+         pois) = decode_loop(
+            self._decode_step, self.max_len,
             tok0, torch.full((1,), n, **i32), fsm0,
             tok0 != self.eos_id,  # active
             torch.zeros((1,), **i32),  # nbytes

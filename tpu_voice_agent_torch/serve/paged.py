@@ -1,0 +1,412 @@
+"""Paged KV serving: block pool + allocator + paged decode engine.
+
+Port of ``tpu_voice_agent/serve/paged.py`` on one device (dp = 1).
+Sequences own fixed-size blocks of one global pool ``(L, N, bs, nkv, hd)``
+through per-slot block tables, so the card holds the context each request
+actually has, and the shared prompt prefix is ONE set of refcounted blocks
+referenced by every slot's table: admission writes only the sub-block tail
+of the prefix and the user suffix. Decode attends through K6 / K7
+(``ops.paged_attention`` / ``ops.paged_block_attention``), which resolve the
+block tables themselves; tables grow at chunk boundaries. With
+``radix_enable`` (``RADIX_ENABLE=1``) released chains are cached in a
+``RadixCache`` and admission reuses the longest cached block chain.
+
+``PagedDecodeEngine`` serves through the continuous batcher
+(``serve.scheduler``) via ``prefill_slot`` / ``decode_chunk`` /
+``release_slot``; ``generate`` is refused. The pool is updated in place.
+Left for later: chunked prefill, speculative decoding (``spec_grow``),
+the warm-state handoff (``gather_chain_kv`` / ``adopt_chain_kv``),
+``warm_restart``, chaos injection, the quality lanes, meshes, KV_QUANT.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..models.llama import forward_paged
+from .engine import DecodeEngine, _sync
+from .radix import RadixCache
+
+# the radix tree's node cap (one node per cached block)
+RADIX_MAX_NODES = 4096
+# after a PoolExhausted, released chains stay out of the tree this long
+PRESSURE_WINDOW_S = 2.0
+
+
+class PoolExhausted(RuntimeError):
+    """The KV pool has no free blocks. Its own class, so the scheduler can
+    fail or requeue one request without swallowing device faults."""
+
+
+class BlockAllocator:
+    """Host-side free-list allocator with refcounts (prefix blocks are
+    shared across slots). Block 0 is the trash block (idle batcher rows
+    park their writes there) and is never handed out. One device, so one
+    group: the JAX allocator's per-dp-shard groups are not ported."""
+
+    def __init__(self, n_blocks: int):
+        if n_blocks < 2:
+            raise ValueError("the pool needs >= 2 blocks (block 0 is reserved)")
+        self.n_blocks = n_blocks
+        self._free = list(range(n_blocks - 1, 0, -1))
+        self._refs: dict[int, int] = {}
+
+    def alloc(self, k: int) -> list[int]:
+        if len(self._free) < k:
+            raise PoolExhausted(
+                f"KV pool exhausted: need {k} blocks, {len(self._free)} free of "
+                f"{self.usable_blocks} (size the pool to the live-token working set, not "
+                "per-slot budgets)")
+        out = [self._free.pop() for _ in range(k)]
+        for b in out:
+            self._refs[b] = 1
+        return out
+
+    def ref(self, blocks: list[int]) -> None:
+        """One more ref on each block; all-or-nothing."""
+        for b in blocks:
+            if b not in self._refs:
+                raise ValueError(f"ref of untracked block {b}: not allocated, or already "
+                                 "fully freed (use-after-free)")
+        for b in blocks:
+            self._refs[b] += 1
+
+    def free(self, blocks: list[int]) -> None:
+        """Drop one ref per listed block (a block listed twice drops two);
+        all-or-nothing."""
+        need: dict[int, int] = {}
+        for b in blocks:
+            need[b] = need.get(b, 0) + 1
+        for b, k in need.items():
+            if self._refs.get(b, 0) < k:
+                raise ValueError(f"double free of block {b}: no live refcount (freed more "
+                                 "times than alloc'd + ref'd)")
+        for b in blocks:
+            r = self._refs[b] - 1
+            if r == 0:
+                del self._refs[b]
+                self._free.append(b)
+            else:
+                self._refs[b] = r
+
+    def refcount(self, block: int) -> int:
+        return self._refs.get(block, 0)
+
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def usable_blocks(self) -> int:
+        return self.n_blocks - 1
+
+    @property
+    def blocks_in_use(self) -> int:
+        return self.usable_blocks - len(self._free)
+
+    @property
+    def blocks_shared(self) -> int:
+        """Blocks with more than one live ref."""
+        return sum(1 for r in self._refs.values() if r > 1)
+
+    @property
+    def utilization(self) -> float:
+        return self.blocks_in_use / self.usable_blocks
+
+
+class PagedDecodeEngine(DecodeEngine):
+    """``DecodeEngine`` with a paged KV pool in place of dense per-slot
+    lines. ``pool_blocks`` sizes device memory to the expected LIVE token
+    count (default: the dense worst case, ``batch_slots * max_blocks``,
+    plus the trash block). On a CUDA device the pool is read by K6 / K7,
+    which take any block size."""
+
+    def __init__(self, *args, block_size: int = 128, pool_blocks: int | None = None,
+                 radix_enable: bool | None = None, kv_quant: str | None = None, **kw):
+        if kv_quant is None:
+            kv_quant = os.environ.get("KV_QUANT") or None
+        if kv_quant not in (None, "", "off"):
+            raise NotImplementedError(
+                f"KV_QUANT={kv_quant!r}: the quantized pool (paged_*_quant kernels) is not "
+                "ported yet: ROADMAP Queue 2")
+        super().__init__(*args, **kw)
+        bs = block_size
+        self.block_size = bs
+        self.max_blocks = -(-self.max_len // bs)
+        if pool_blocks is None:
+            pool_blocks = self.batch_slots * self.max_blocks + 1
+        shape = (self.cfg.n_layers, pool_blocks, bs, self.cfg.n_kv_heads, self.cfg.head_dim)
+        self.k_pool = torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
+        self.allocator = BlockAllocator(pool_blocks)
+        self.block_tables = torch.zeros((self.batch_slots, self.max_blocks), dtype=torch.int32,
+                                        device=self.device)
+        self._slot_shared: list[list[int]] = [[] for _ in range(self.batch_slots)]
+        self._slot_owned: list[list[int]] = [[] for _ in range(self.batch_slots)]
+        self._covered = [0] * self.batch_slots  # positions with blocks
+        self._next_pos = [0] * self.batch_slots  # growth target (upper bound)
+        # parked writes land in block 0, the allocator's reserved trash block
+        self._trash_idx = torch.zeros((self.batch_slots,), dtype=torch.int32,
+                                      device=self.device)
+        self._prefix_blocks: list[int] = []
+        self._prefix_tail: dict | None = None  # (L, R, nkv, hd) sub-block rest
+        if radix_enable is None:
+            radix_enable = os.environ.get("RADIX_ENABLE") == "1"
+        self.radix: RadixCache | None = (
+            RadixCache(self.allocator, bs, max_nodes=RADIX_MAX_NODES) if radix_enable else None)
+        # pool-pressure gate on caching released chains: while a recent
+        # allocation hit PoolExhausted, release does not adopt into the tree
+        self._pressure_until = 0.0
+        # host token ids of each slot's request (the radix insert at release)
+        self._slot_ids: list[list[int] | None] = [None] * self.batch_slots
+
+    def _init_kv_cache(self):
+        return None  # the block pool, built in __init__, holds the KV
+
+    def _scatter_pool(self, src_k, src_v, dst_idx) -> None:
+        """Write (L, n, nkv, hd) rows into the flat pool at ``dst_idx`` (n,)."""
+        L, N, bs = self.k_pool.shape[:3]
+        idx = torch.as_tensor(dst_idx, dtype=torch.long, device=self.device)
+        self.k_pool.view(L, N * bs, *self.k_pool.shape[3:])[:, idx] = src_k.to(self.k_pool.dtype)
+        self.v_pool.view(L, N * bs, *self.v_pool.shape[3:])[:, idx] = src_v.to(self.v_pool.dtype)
+
+    # ------------------------------------------------------------ prefix
+
+    def set_prompt_prefix(self, *sample_prompts: str) -> int:
+        """Install the shared prefix: its FULL blocks into the pool once
+        (and, with radix on, as the tree's pinned root chain), its
+        sub-block remainder kept aside to be scattered into each slot's
+        first owned block."""
+        P = super().set_prompt_prefix(*sample_prompts)
+        if self.radix is not None:  # cached chains over the old prefix never match again
+            self.radix.clear()
+        if self._prefix_blocks:
+            self.allocator.free(self._prefix_blocks)
+            self._prefix_blocks = []
+        self._prefix_tail = None
+        if P == 0:
+            return 0
+        bs = self.block_size
+        full = P // bs
+        pk = self.prefix_kv["k"][:, 0]  # (L, P, nkv, hd)
+        pv = self.prefix_kv["v"][:, 0]
+        if full:
+            self._prefix_blocks = self.allocator.alloc(full)
+            blocks = np.asarray(self._prefix_blocks, np.int64)
+            dst = (blocks[:, None] * bs + np.arange(bs)[None, :]).reshape(-1)
+            self._scatter_pool(pk[:, :full * bs], pv[:, :full * bs], dst)
+        if P % bs:
+            self._prefix_tail = {"k": pk[:, full * bs:], "v": pv[:, full * bs:]}
+        if full and self.radix is not None:
+            self.radix.pin_root_chain(self.prefix_ids[:full * bs], self._prefix_blocks)
+        # the prefix KV now lives in the pool + the tail; _split_prefix only
+        # needs a non-None sentinel
+        self.prefix_kv = {}
+        return P
+
+    # ------------------------------------------------------------ admission
+
+    def _set_table_row(self, slot: int, blocks: list[int]) -> None:
+        row = np.zeros(self.max_blocks, np.int32)  # unused entries: block 0
+        row[:len(blocks)] = blocks
+        self.block_tables[slot] = torch.from_numpy(row).to(self.device)
+
+    def _alloc(self, k: int) -> list[int]:
+        """``allocator.alloc`` with radix backpressure: when the pool is
+        out, evict LRU unreferenced radix leaves and retry once. Either way
+        the PoolExhausted marks pool pressure, which stops caching released
+        chains for ``PRESSURE_WINDOW_S``. Without a tree, or with nothing
+        evictable, PoolExhausted propagates to the scheduler."""
+        try:
+            return self.allocator.alloc(k)
+        except PoolExhausted:
+            self._pressure_until = time.monotonic() + PRESSURE_WINDOW_S
+            if self.radix is None:
+                raise
+            need = k - self.allocator.free_blocks()
+            if self.radix.evict(need) < need:
+                raise
+            return self.allocator.alloc(k)
+
+    def _prefill_suffix(self, tokens, positions, slot: int, P: int, bucket: int, n: int):
+        """The static-prefix case of ``_prefill_chain``: the chain is the
+        prefix's full blocks, the tail its sub-block remainder."""
+        shared = self._prefix_blocks[:P // self.block_size]
+        self.allocator.ref(shared)
+        return self._prefill_chain(tokens, positions, slot, list(shared), P, bucket, n,
+                                   tail=self._prefix_tail)
+
+    def _prefill_chain(self, tokens, positions, slot: int, chain: list[int], P: int,
+                       bucket: int, n: int, tail: dict | None = None):
+        """Chain admission (static prefix AND radix hits): ``chain`` blocks,
+        already ref'd for this slot, cover positions [0, len(chain) * bs)
+        read-only; ``tail`` supplies KV for [len(chain) * bs, P); the
+        (1, bucket) suffix forward computes [P, n). New tokens land only in
+        freshly allocated owned blocks (the suffix starts at P >= the
+        chain's end)."""
+        bs = self.block_size
+        full = len(chain)
+        n_owned = -(-(P + bucket) // bs) - full
+        try:
+            owned = self._alloc(n_owned)
+        except PoolExhausted:
+            self.allocator.free(chain)  # don't leak the chain refs
+            raise
+        self._slot_shared[slot], self._slot_owned[slot] = list(chain), owned
+        self._set_table_row(slot, list(chain) + owned)
+        self._covered[slot] = (full + n_owned) * bs
+        if tail is not None:
+            R = P - full * bs
+            self._scatter_pool(tail["k"], tail["v"], owned[0] * bs + np.arange(R))
+        # gather only the covered blocks, bucketed to a power of two (with
+        # radix on also 3/4 of one), exactly as the JAX engine does
+        need = -(-(P + bucket) // bs)
+        gb = 1
+        while gb < need:
+            gb *= 2
+        if self.radix is not None and gb >= 4 and need <= gb * 3 // 4:
+            gb = gb * 3 // 4
+        gb = min(gb, self.max_blocks)
+        self._next_pos[slot] = n
+        return forward_paged(self.params, self.cfg, tokens, positions, self.k_pool, self.v_pool,
+                             self.block_tables[slot:slot + 1], attn_impl="torch",
+                             fresh_block=False, gather_blocks=gb)
+
+    def prefill_slot(self, ids: list[int], slot: int):
+        """Radix-aware admission: the longest cached block chain first, else
+        the static-prefix / full-prefill decision tree. With radix off this
+        is the parent's path."""
+        if self.radix is None:
+            return super().prefill_slot(ids, slot)
+        self.release_slot(slot)
+        ids = list(ids)
+        chain, matched = self.radix.match(ids)
+        P, tail, bucket = matched, None, None
+        if matched:
+            P0 = len(self.prefix_ids)
+            if (self._prefix_tail is not None and P0 > matched and len(ids) > P0
+                    and chain == self._prefix_blocks[:len(chain)]
+                    and ids[:P0] == self.prefix_ids):
+                # the match stopped at the pinned root chain and the prompt
+                # extends the whole static prefix: keep the tail scatter
+                P, tail = P0, self._prefix_tail
+            suffix = ids[P:]
+            bucket = self._suffix_bucket(len(suffix), self.max_len - P)
+            if bucket is None:
+                self.allocator.free(chain)  # no suffix bucket fits: cold path
+                matched = 0
+        if not matched:
+            logits = super().prefill_slot(ids, slot)
+            self._slot_ids[slot] = ids
+            return logits
+        self.radix.record_hit(P)
+        m = len(suffix)
+        tokens = np.full((1, bucket), self.pad_id, dtype=np.int32)
+        tokens[0, :m] = suffix
+        positions = (P + np.arange(bucket, dtype=np.int32))[None, :]
+        t0 = time.perf_counter()
+        logits = self._prefill_chain(self._ids(tokens), self._ids(positions), slot, chain, P,
+                                     bucket, len(ids), tail=tail)
+        _sync(self.device)
+        self._last_prefill_compute_ms = (time.perf_counter() - t0) * 1e3
+        self._last_cached_tokens = P
+        self._slot_ids[slot] = ids
+        return logits[:, m - 1, :].contiguous()
+
+    def _prefill_full(self, tokens, positions, slot: int, bucket: int, n: int):
+        """A fresh prompt from position 0: block-local attention (K1), no
+        pool gather."""
+        bs = self.block_size
+        owned = self._alloc(-(-bucket // bs))
+        self._slot_shared[slot], self._slot_owned[slot] = [], owned
+        self._set_table_row(slot, owned)
+        self._covered[slot] = len(owned) * bs
+        self._next_pos[slot] = n
+        return forward_paged(self.params, self.cfg, tokens, positions, self.k_pool, self.v_pool,
+                             self.block_tables[slot:slot + 1], attn_impl=self.kernels,
+                             fresh_block=True)
+
+    # ------------------------------------------------------------ decode
+
+    def reconcile_coverage(self, pos_h) -> None:
+        """Post-chunk hook (the scheduler calls it with the chunk's host
+        positions): clamp each live slot's growth target to its ACTUAL
+        frontier, so the worst-case claim below never compounds."""
+        for b in range(self.batch_slots):
+            if self._slot_owned[b]:
+                self._next_pos[b] = min(self._next_pos[b], int(pos_h[b]))
+
+    def _grow(self, slot: int, upto: int) -> None:
+        """Extend a slot's table so positions < upto have blocks."""
+        bs = self.block_size
+        upto = min(upto, self.max_len)
+        if upto <= self._covered[slot]:
+            return
+        extra = self._alloc(-(-(upto - self._covered[slot]) // bs))
+        self._slot_owned[slot].extend(extra)
+        self._set_table_row(slot, self._slot_shared[slot] + self._slot_owned[slot])
+        self._covered[slot] += len(extra) * bs
+
+    def _decode_step(self, tokens, positions, active):
+        """One decode forward through the block tables; idle rows' writes
+        park at the trash block via the write mask."""
+        return forward_paged(self.params, self.cfg, tokens, positions, self.k_pool, self.v_pool,
+                             self.block_tables, attn_impl=self.kernels, write_mask=active,
+                             trash_idx=self._trash_idx)
+
+    def decode_chunk(self, cur, pos, fsm, active, nbytes, tokens_left, generator,
+                     temperature: float, byte_budget: int, chunk_steps: int, greedy: bool):
+        """One chunk of up to ``chunk_steps`` constrained decode steps.
+
+        Before dispatch every live table grows to cover the chunk's worst
+        case, ``chunk_steps * (1 + W)`` positions past the row's growth
+        target (a write past the covered blocks would land in another
+        sequence's block). A slot that cannot grow gets ``tokens_left`` 0
+        and truncates at its covered frontier; the batch lives on.
+        CALLER OBLIGATION: pass the chunk's host positions to
+        ``reconcile_coverage`` afterwards."""
+        W = self.tables_ff.ff_tokens.shape[1] if self.tables_ff is not None else 0
+        span = chunk_steps * (1 + W)
+        for b in range(self.batch_slots):
+            if self._slot_owned[b]:  # request in flight on this slot
+                try:
+                    self._grow(b, self._next_pos[b] + span + 1)
+                except PoolExhausted:
+                    tokens_left = tokens_left.clone()
+                    tokens_left[b] = 0
+                    continue
+                self._next_pos[b] = min(self._next_pos[b] + span, self.max_len)
+        return super().decode_chunk(cur, pos, fsm, active, nbytes, tokens_left, generator,
+                                    temperature, byte_budget, chunk_steps, greedy)
+
+    def release_slot(self, slot: int, generated_ids: list[int] | None = None,
+                     ok: bool = True) -> None:
+        """Return the slot's blocks. With radix on, a finished request
+        (``ok``, ``generated_ids`` given, no recent pool pressure) first has
+        its prompt + generated chain adopted by the tree, whose own refs
+        keep those blocks alive. An errored request never inserts."""
+        if self._slot_owned[slot] or self._slot_shared[slot]:
+            if (ok and self.radix is not None and generated_ids is not None
+                    and self._slot_ids[slot] is not None and self._radix_may_admit()):
+                ids = self._slot_ids[slot] + [int(t) for t in generated_ids]
+                self.radix.insert(ids, self._slot_shared[slot] + self._slot_owned[slot])
+            self.allocator.free(self._slot_owned[slot])
+            self.allocator.free(self._slot_shared[slot])
+            self._slot_owned[slot] = []
+            self._slot_shared[slot] = []
+            self._covered[slot] = 0
+            self._next_pos[slot] = 0
+        self._slot_ids[slot] = None
+
+    def _radix_may_admit(self) -> bool:
+        """False while a recent allocation hit PoolExhausted: caching yields
+        to live admissions before live admissions shed."""
+        return time.monotonic() >= self._pressure_until
+
+    def generate(self, *a, **kw):
+        raise ValueError("PagedDecodeEngine serves through the continuous batcher "
+                         "(serve.scheduler.ContinuousBatcher); use the dense DecodeEngine "
+                         "for single-request generate()")
