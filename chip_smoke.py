@@ -33,34 +33,45 @@ Phases, in order (any failure exits nonzero and prints no result line):
               sessions x 4 turns through its transcripts: turns >= 2 must be
               served from more cache than the prefix, and a radix-off engine
               must decode the same ids (or part only at a near tie).
-9. service_batched - a second in-process brain with BRAIN_BATCH=8
+9. kvquant  - the batch phase's drain with KV_QUANT=int8 and int4, the pool at
+              the bf16 cell's byte budget (994 and 1,931 blocks), at ff=8 (K9)
+              and ff=0 (K8), K6 and K7 never launched: intents/s, tokens/s,
+              peak pool blocks and bytes, and how many sessions decode the
+              bf16 drain's ids; then radix on against off at int8 with fp32
+              activations, and one /parse of a BRAIN_PAGED=1 KV_QUANT=int8
+              brain, which must answer 200.
+10. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
-10. golden  - the distilled intent checkpoint parses the golden utterances and
+11. golden  - the distilled intent checkpoint parses the golden utterances and
               must reproduce the JAX package's recorded outputs token for
               token, through K1, K2 and K4.
-11. batch_golden - the same checkpoint in a 15-slot paged engine, every
+12. batch_golden - the same checkpoint in a 15-slot paged engine, every
               golden utterance at once, through K1, K6 and K4.
-12. stt     - SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000),
+13. kvquant_golden - the same on the int8 and on the int4 pool, each equal
+              to the JAX package's recording for that tier, through K1, K8
+              and K4; then ``kv_quant_differential`` on 6 golden cases must
+              hold the JAX test's floors.
+14. stt     - SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000),
               max_new_tokens=32), bf16 random weights: per bucket the
               transcribe p50 over 5 runs split into encode and decode ms,
               tokens and forwards; one incremental feed + decode; the first
               decoder step through K5 held against the same step through its
               plain version (fp32 copies of the weights). K1 and K5 must
               launch.
-13. voice   - the voice→intent loop (``voicebench``, bench.py's definition)
+15. voice   - the voice→intent loop (``voicebench``, bench.py's definition)
               at full width: whisper-large-v3 STT and the tinyllama-1.1b int8
               ff=8 parse colocated on the card, 9 utterances; K1, K3, K4 and
               K5 must launch.
-14. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
+16. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
               transcribe the 10 eval texts and must reproduce the JAX
               package's recorded token ids, through K1 and K5.
-15. the kernels JSON line, the card line, and the final JSON line.
+17. the kernels JSON line, the card line, and the final JSON line.
 
-Every launch counter is set to 0 just before each of phases 4-14 and read just
+Every launch counter is set to 0 just before each of phases 4-16 and read just
 after; a kernel's ``launches`` is the sum over those runs (the kernel-alone
 comparisons of phase 3 are not counted). The port imports no JAX. Weights are
-random from a seed (phases 3-9, 12, 13) or committed checkpoints (10, 11, 14).
-A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
+random from a seed (phases 3-10, 14, 15) or committed checkpoints (11-13,
+16). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
 from __future__ import annotations
@@ -93,6 +104,9 @@ REPLACES = {
     "masked_argmax_advance": "tpu_voice_agent/ops/grammar_mask.py:268",
     "paged_attention": "tpu_voice_agent/ops/paged_attention.py:147",
     "paged_block_attention": "tpu_voice_agent/ops/paged_attention.py:644",
+    "paged_attention_quant": "tpu_voice_agent/ops/paged_attention.py:333",
+    "paged_block_attention_quant": "tpu_voice_agent/ops/paged_attention.py:834",
+    "decode_attention_quant": "tpu_voice_agent/ops/decode_attention.py:722",
 }
 SOURCES = {
     "flash_attention": "tpu_voice_agent_torch/csrc/flash_attention.cu",
@@ -102,6 +116,9 @@ SOURCES = {
     "masked_argmax_advance": "tpu_voice_agent_torch/csrc/grammar_mask.cu",
     "paged_attention": "tpu_voice_agent_torch/csrc/paged_attention.cu",
     "paged_block_attention": "tpu_voice_agent_torch/csrc/paged_attention.cu",
+    "paged_attention_quant": "tpu_voice_agent_torch/csrc/paged_attention_quant.cu",
+    "paged_block_attention_quant": "tpu_voice_agent_torch/csrc/paged_attention_quant.cu",
+    "decode_attention_quant": "tpu_voice_agent_torch/csrc/decode_attention_quant.cu",
 }
 # bf16 attention outputs, held element by element to the reference's own
 # size: |out - ref| <= ATTN_RTOL * |ref| + ATTN_ATOL. The kernel and its
@@ -415,6 +432,7 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
                                                        attn_mask=amask), iters=100))
 
     rows.update(_paged_kernel_rows(g, randn))
+    rows.update(_quant_kernel_rows(g, randn, n))
 
     # K4: the real intent-grammar tables, live and edge states, random
     # logits. Exact: token ids and states must be equal (tolerance 0).
@@ -549,6 +567,168 @@ def _paged_kernel_rows(g, randn) -> dict:
     rows["paged_block_attention"]["shape"] = (
         "(32, 9) blocks, chains of 0-8 padded with duplicates, over the same pool and tables")
     del kp, vp, kh, vh
+    return rows
+
+
+def _quant_values(g, shape, tier: str):
+    """Stored values and bf16 scales as the engine writes them: unit-normal
+    k or v rows through ``ops.kvquant.quantize_kv``, one leading slice
+    (a layer of a pool) at a time."""
+    import torch
+
+    from tpu_voice_agent_torch.ops.kvquant import kv_store_dim, quantize_kv
+
+    vals = torch.empty((*shape[:-1], kv_store_dim(shape[-1], tier)), dtype=torch.int8,
+                       device=g.device)
+    scales = torch.empty(shape[:-1], dtype=torch.bfloat16, device=g.device)
+    for i in range(shape[0]):
+        vals[i], scales[i] = quantize_kv(
+            torch.randn(shape[1:], generator=g, device=g.device), tier)
+    return vals, scales
+
+
+def _quant_kernel_rows(g, randn, n: int) -> dict:
+    """K8 and K9 at the kvquant phase's shapes: the batch rows of K6 / K7
+    (32 rows, 22 layers, blocks of 128, 4 kv heads of 64, the prefix's 6
+    blocks shared, kv_len 905-1044, a (32, 9) block) over a pool of the bf16
+    cell's byte budget, 994 blocks at int8 and 1,931 at int4; the int8
+    timings make the row and the int4 ones sit beside it. K10 at K2's shape:
+    a dense (1, 2048, 4, 64) cache at kv_len ``n``. Each is also held at the
+    distilled checkpoint's head dim 48 at int4, whose 24-byte rows start
+    off a 16-byte boundary (4 heads, 2 kv heads, blocks of 16 and 128). The
+    library yardstick is SDPA on a pre-gathered, pre-dequantized bf16 copy
+    (neither timed), as the K6 / K7 rows have it."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import (
+        decode_attention_quant_reference,
+        paged_attention_quant_reference,
+        paged_block_attention_quant_reference,
+    )
+    from tpu_voice_agent_torch.ops.kvquant import (
+        KV_QUANT_VBYTES,
+        KV_SCALE_BYTES,
+        dequantize_kv,
+        kv_block_bytes,
+    )
+    from tpu_voice_agent_torch.ops.paged_attention import gather_pages_dequant
+
+    dev = torch.device("cuda")
+    L, bs, nq, nkv, hd, B = 22, 128, 32, 4, 64, 32
+    group, li = nq // nkv, L - 1
+    budget = 513 * kv_block_bytes(L, bs, nkv, hd, None)
+    lens = torch.randint(900, 1051, (B,), generator=torch.Generator().manual_seed(3))
+    tables, _ = _paged_tables(g, B, 6, lens, bs, 16)
+    kv_len = lens.to(torch.int32).to(dev)
+    chain = torch.randint(0, 9, (B,), generator=torch.Generator().manual_seed(4)).to(dev)
+    iw = torch.arange(9, device=dev)[None, :]
+    qpos = (kv_len[:, None] - 10 + torch.minimum(iw, chain[:, None])).to(torch.int32)
+    q, q9 = randn(B, nq, hd), randn(B, 9, nq, hd)
+    S = tables.shape[1] * bs
+    s_idx = torch.arange(S, device=dev)
+    mask8 = (s_idx[None, :] < kv_len[:, None])[:, None, None, :]
+    mask9 = (s_idx[None, None, :] <= qpos[:, :, None])[:, None]
+    shared = 6 * bs
+    keys9 = qpos.amax(dim=1) + 1
+    io8 = 2 * 2 * B * nq * hd + 4 * B + 4 * tables.numel()
+    io9 = 2 * 2 * B * 9 * nq * hd + 4 * qpos.numel() + 4 * tables.numel()
+
+    # K10 at K2's shape, and the hd-48 int4 checks on small pools
+    kv10 = torch.tensor([n], dtype=torch.int32, device=dev)
+    q1 = randn(1, nq, hd)
+    g48 = torch.Generator(device=dev).manual_seed(48)
+    q48, q48_9 = randn(15, 4, 48, dtype=torch.float32), randn(15, 9, 4, 48, dtype=torch.float32)
+    lens48 = torch.randint(60, 300, (15,), generator=torch.Generator().manual_seed(48))
+
+    timings, errs = {}, {"8": [], "9": [], "10": []}
+    for tier, bits in (("int8", 8), ("int4", 4)):
+        N = budget // kv_block_bytes(L, bs, nkv, hd, tier)
+        kp, ks = _quant_values(g, (L, N, bs, nkv, hd), tier)
+        vp, vs = _quant_values(g, (L, N, bs, nkv, hd), tier)
+        k8 = lambda: ops.paged_attention_quant(q, kp, vp, ks, vs, tables, kv_len, li, bits=bits)
+        k9 = lambda: ops.paged_block_attention_quant(q9, kp, vp, ks, vs, tables, qpos, li,
+                                                     bits=bits)
+        p8 = lambda: paged_attention_quant_reference(q, kp, vp, ks, vs, tables, kv_len, li,
+                                                     bits=bits)
+        p9 = lambda: paged_block_attention_quant_reference(q9, kp, vp, ks, vs, tables, qpos, li,
+                                                           bits=bits)
+        errs["8"].append((k8(), p8()))
+        errs["9"].append((k9(), p9()))
+        kh = gather_pages_dequant(kp, ks, tables, li, bits).to(torch.bfloat16)
+        vh = gather_pages_dequant(vp, vs, tables, li, bits).to(torch.bfloat16)
+        kh = kh.transpose(1, 2).repeat_interleave(group, 1)
+        vh = vh.transpose(1, 2).repeat_interleave(group, 1)
+        kv_row = 2 * nkv * (hd * KV_QUANT_VBYTES[tier] + KV_SCALE_BYTES[tier])
+        t = {"pool_blocks": N, "kv_bytes_per_position": kv_row,
+             "8": (cuda_ms(k8, iters=100), cuda_ms(p8, iters=5),
+                   *bound(io8 + (shared + float((kv_len - shared).sum())) * kv_row,
+                          4 * nq * hd * float(kv_len.sum())),
+                   cuda_ms(lambda: F.scaled_dot_product_attention(
+                       q[:, :, None], kh, vh, attn_mask=mask8), iters=100)),
+             "9": (cuda_ms(k9, iters=100), cuda_ms(p9, iters=5),
+                   *bound(io9 + (shared + float((keys9 - shared).sum())) * kv_row,
+                          4 * nq * hd * float((qpos + 1).sum())),
+                   cuda_ms(lambda: F.scaled_dot_product_attention(
+                       q9.transpose(1, 2), kh, vh, attn_mask=mask9), iters=100))}
+        del kp, vp, ks, vs, kh, vh
+        # K10: a dense (1, 2048, 4, 64) cache
+        kc, kcs = _quant_values(g, (1, 2048, nkv, hd), tier)
+        vc, vcs = _quant_values(g, (1, 2048, nkv, hd), tier)
+        k10 = lambda: ops.decode_attention_quant(q1, kc, vc, kcs, vcs, kv10, bits=bits)
+        p10 = lambda: decode_attention_quant_reference(q1, kc, vc, kcs, vcs, kv10, bits=bits)
+        errs["10"].append((k10(), p10()))
+        kd = dequantize_kv(kc[:, :n], kcs[:, :n], tier).transpose(1, 2).repeat_interleave(group, 1)
+        vd = dequantize_kv(vc[:, :n], vcs[:, :n], tier).transpose(1, 2).repeat_interleave(group, 1)
+        t["10"] = (cuda_ms(k10, iters=100), cuda_ms(p10, iters=5),
+                   *bound(2 * 2 * nq * hd + 4 + n * kv_row, 4 * nq * hd * n),
+                   cuda_ms(lambda: F.scaled_dot_product_attention(q1[:, :, None], kd, vd),
+                           iters=100))
+        timings[tier] = t
+        # the distilled checkpoint's widths (hd 48, fp32 queries) at this tier
+        for sbs in (16, 128):
+            t48, n48 = _paged_tables(g48, 15, 0, lens48, sbs, -(-300 // sbs))
+            kp48, ks48 = _quant_values(g48, (3, n48, sbs, 2, 48), tier)
+            vp48, vs48 = _quant_values(g48, (3, n48, sbs, 2, 48), tier)
+            kl48 = lens48.to(torch.int32).to(dev)
+            qp48 = (kl48[:, None] - 9 + iw).to(torch.int32)
+            errs["8"].append((
+                ops.paged_attention_quant(q48, kp48, vp48, ks48, vs48, t48, kl48, 2, bits=bits),
+                paged_attention_quant_reference(q48, kp48, vp48, ks48, vs48, t48, kl48, 2,
+                                                bits=bits)))
+            errs["9"].append((
+                ops.paged_block_attention_quant(q48_9, kp48, vp48, ks48, vs48, t48, qp48, 1,
+                                                bits=bits),
+                paged_block_attention_quant_reference(q48_9, kp48, vp48, ks48, vs48, t48, qp48,
+                                                      1, bits=bits)))
+        kc48, kcs48 = _quant_values(g48, (15, 300, 2, 48), tier)
+        vc48, vcs48 = _quant_values(g48, (15, 300, 2, 48), tier)
+        errs["10"].append((
+            ops.decode_attention_quant(q48, kc48, vc48, kcs48, vcs48, kl48, bits=bits),
+            decode_attention_quant_reference(q48, kc48, vc48, kcs48, vcs48, kl48, bits=bits)))
+    torch.cuda.synchronize()
+    for key, pairs in errs.items():  # each pair's (max abs error, share of its tolerance)
+        log(f"[kernels]   K{key} pairs: " + ", ".join(
+            f"{e:.3g} ({r:.3g})" for e, r in (attn_err([pr]) for pr in pairs)))
+
+    rows = {}
+    shapes = {
+        "8": "B 32 at kv_len {lo}-{hi} over a (22, N, 128, 4, hdp) pool, 6 shared prefix "
+             "blocks, N = {N} (the bf16 cell's bytes)",
+        "9": "(32, 9) blocks, chains of 0-8 padded with duplicates, over the same pool",
+        "10": "a dense (1, 2048, 4, hdp) cache at kv_len {n}",
+    }
+    for key, name in (("8", "paged_attention_quant"), ("9", "paged_block_attention_quant"),
+                      ("10", "decode_attention_quant")):
+        i8, i4 = timings["int8"], timings["int4"]
+        rows[name] = _kernel_row(name, *attn_err(errs[key]),
+                                 f"{ATTN_TOL} (bf16); {F32_TOL} (fp32, hd 48)", *i8[key])
+        fmt = dict(lo=int(kv_len.min()), hi=int(kv_len.max()), n=n)
+        rows[name]["shape"] = (shapes[key].format(N=i8["pool_blocks"], **fmt)
+                               + ", int8; hd 48 int4 and int8 checked on small pools")
+        rows[name]["int4"] = _extra_shape(
+            shapes[key].format(N=i4["pool_blocks"], **fmt) + ", int4", *i4[key])
     return rows
 
 
@@ -1008,80 +1188,214 @@ def _batch_prompt(i: int) -> str:
 
 def _paged_engine(params, ff: int, **kw):
     """bench_batch.py's paged shape: tinyllama-1.1b int8, 32 slots, max_len
-    2048, prefill bucket 1024, block 128, the default 513-block pool."""
+    2048, prefill bucket 1024, block 128, the default 513-block pool, the
+    bf16 pool unless ``kv_quant`` names a tier."""
     from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
 
-    kw = {"batch_slots": BATCH_SLOTS, "prefill_buckets": (1024,), **kw}
+    kw = {"batch_slots": BATCH_SLOTS, "prefill_buckets": (1024,), "kv_quant": "off", **kw}
     eng = PagedDecodeEngine(preset="tinyllama-1.1b", quant="int8", fast_forward=ff,
                             max_len=2048, init_weights=False, **kw)
     eng.load_params(params)
     return eng
 
 
-def phase_batch(params, totals: dict, report: dict, profile: bool = False) -> None:
-    """bench_batch.py's ``run_one`` on the port (bench_batch.py:72-144): the
-    paged engine behind the cached prefix and a ContinuousBatcher (chunk 16,
-    128 new tokens); one warm-up request, then 32 sessions submitted at once
-    and drained, stepping by hand to sample the pool's peak occupancy; at
-    ff=8 (every step a (32, 9) block through K7) and ff=0 (T=1 steps through
-    K6)."""
+def _drain(eng, label: str, totals: dict):
+    """bench_batch.py's ``run_one`` on ``eng``: the cached prefix, a
+    ContinuousBatcher (chunk 16, 128 new tokens), one warm-up request, then
+    32 sessions submitted at once and drained, stepping by hand to sample
+    the pool's peak occupancy. Fails unless every session is ok and in the
+    grammar and the pool is back to the prefix's blocks. Returns (row,
+    results, launch counts)."""
     import torch
 
     from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
     from tpu_voice_agent_torch.services.brain import install_prompt_prefix
 
+    P = install_prompt_prefix(eng)
+    prefix_blocks = eng.allocator.blocks_in_use
+    fail_if(prefix_blocks != P // eng.block_size, f"{label}: prefix blocks not installed once")
+    batcher = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
+    batcher.submit(_batch_prompt(0))  # warm-up
+    batcher.run_until_done()
+    batcher.results.clear()
+    chunks0, fwd0 = batcher.chunks, batcher.forwards
+    with Counted(label, totals) as c:
+        torch.cuda.synchronize()
+        peak = 0
+        t0 = time.perf_counter()
+        rids = [batcher.submit(_batch_prompt(i)) for i in range(BATCH_SLOTS)]
+        while batcher.busy():
+            batcher.step()
+            peak = max(peak, eng.allocator.blocks_in_use)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res = [batcher.results.pop(r) for r in rids]
+    ok = sum(r.error is None for r in res)
+    walks = [eng.fsm.walk(r.token_ids) for r in res]
+    tokens = sum(r.steps for r in res)
+    row = {"prefix_tokens": P, "sessions": BATCH_SLOTS, "ok": ok, "wall_s": wall,
+           "intents_per_s": BATCH_SLOTS / wall, "tokens_per_s": tokens / wall,
+           "tokens": tokens, "finished": sum(r.finished for r in res),
+           "chunks": batcher.chunks - chunks0, "forwards": batcher.forwards - fwd0,
+           "peak_pool_blocks": peak, "pool_blocks": eng.allocator.n_blocks,
+           "blocks_after_drain": eng.allocator.blocks_in_use,
+           "prefill_ms_p50": statistics.median(r.prefill_ms for r in res),
+           "cached_tokens": sorted({r.cached_tokens for r in res}), "launches": c.counts}
+    log(f"[{label}] {ok}/{BATCH_SLOTS} ok ({row['finished']} reached EOS), "
+        f"{tokens} tokens in {wall:.3f} s: {row['intents_per_s']:.3f} intents/s, "
+        f"{row['tokens_per_s']:.1f} tokens/s; {row['chunks']} chunks, {row['forwards']} "
+        f"forwards ({1e3 * wall / max(row['forwards'], 1):.2f} ms each with admissions); "
+        f"peak pool {peak}/{eng.allocator.n_blocks} blocks, {row['blocks_after_drain']} "
+        f"after the drain; suffix prefill p50 {row['prefill_ms_p50']:.2f} ms, cached "
+        f"{row['cached_tokens']}")
+    fail_if(ok != BATCH_SLOTS, f"{label}: {BATCH_SLOTS - ok} failed: "
+            f"{[r.error for r in res if r.error][:3]}")
+    fail_if(min(walks) < 0, f"{label}: a token stream left the grammar")
+    fail_if(eng.allocator.blocks_in_use != prefix_blocks,
+            f"{label}: {eng.allocator.blocks_in_use} blocks in use after the drain, "
+            f"want the prefix's {prefix_blocks}")
+    return row, res, c
+
+
+def phase_batch(params, totals: dict, report: dict, profile: bool = False) -> None:
+    """bench_batch.py's ``run_one`` on the port (bench_batch.py:72-144): the
+    paged engine behind the cached prefix (``_drain``), at ff=8 (every step
+    a (32, 9) block through K7) and ff=0 (T=1 steps through K6). Each
+    session's token ids stay in the report for the kvquant phase."""
     out = {}
     for ff, kernel in ((8, "paged_block_attention"), (0, "paged_attention")):
         eng = _paged_engine(params, ff, radix_enable=False)
-        P = install_prompt_prefix(eng)
-        prefix_blocks = eng.allocator.blocks_in_use
-        fail_if(prefix_blocks != P // eng.block_size, "batch: prefix blocks not installed once")
-        batcher = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
-        batcher.submit(_batch_prompt(0))  # warm-up
-        batcher.run_until_done()
-        batcher.results.clear()
-        chunks0, fwd0 = batcher.chunks, batcher.forwards
-        with Counted(f"batch ff={ff}", totals) as c:
-            torch.cuda.synchronize()
-            peak = 0
-            t0 = time.perf_counter()
-            rids = [batcher.submit(_batch_prompt(i)) for i in range(BATCH_SLOTS)]
-            while batcher.busy():
-                batcher.step()
-                peak = max(peak, eng.allocator.blocks_in_use)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        row, res, c = _drain(eng, f"batch ff={ff}", totals)
         c.require(kernel, "masked_argmax_advance")
-        res = [batcher.results.pop(r) for r in rids]
-        ok = sum(r.error is None for r in res)
-        walks = [eng.fsm.walk(r.token_ids) for r in res]
-        tokens = sum(r.steps for r in res)
-        row = {"prefix_tokens": P, "sessions": BATCH_SLOTS, "ok": ok, "wall_s": wall,
-               "intents_per_s": BATCH_SLOTS / wall, "tokens_per_s": tokens / wall,
-               "tokens": tokens, "finished": sum(r.finished for r in res),
-               "chunks": batcher.chunks - chunks0, "forwards": batcher.forwards - fwd0,
-               "peak_pool_blocks": peak, "pool_blocks": eng.allocator.n_blocks,
-               "blocks_after_drain": eng.allocator.blocks_in_use,
-               "prefill_ms_p50": statistics.median(r.prefill_ms for r in res),
-               "cached_tokens": sorted({r.cached_tokens for r in res}), "launches": c.counts}
+        row["token_ids"] = [r.token_ids for r in res]
         out[f"ff{ff}"] = row
-        log(f"[batch] ff={ff}: {ok}/{BATCH_SLOTS} ok ({row['finished']} reached EOS), "
-            f"{tokens} tokens in {wall:.3f} s: {row['intents_per_s']:.3f} intents/s, "
-            f"{row['tokens_per_s']:.1f} tokens/s; {row['chunks']} chunks, {row['forwards']} "
-            f"forwards ({1e3 * wall / max(row['forwards'], 1):.2f} ms each with admissions); "
-            f"peak pool {peak}/{eng.allocator.n_blocks} blocks, {row['blocks_after_drain']} "
-            f"after the drain; suffix prefill p50 {row['prefill_ms_p50']:.2f} ms, cached "
-            f"{row['cached_tokens']}")
-        fail_if(ok != BATCH_SLOTS, f"batch ff={ff}: {BATCH_SLOTS - ok} failed: "
-                f"{[r.error for r in res if r.error][:3]}")
-        fail_if(min(walks) < 0, f"batch ff={ff}: a token stream left the grammar")
-        fail_if(eng.allocator.blocks_in_use != prefix_blocks,
-                f"batch ff={ff}: {eng.allocator.blocks_in_use} blocks in use after the drain, "
-                f"want the prefix's {prefix_blocks}")
         if profile and ff == 8:
             _profile_batch_chunk(eng, report)
-        del eng, batcher
+        del eng
     report["batch"] = out
+
+
+def phase_kvquant(params, totals: dict, report: dict, profile: bool = False) -> None:
+    """The KV_QUANT tiers of the batch cell: for int8 and int4, at ff=8
+    (every chain step a (32, 9) block through K9) and ff=0 (T=1 steps
+    through K8), ``_drain`` with the pool at the bf16 cell's byte budget
+    (513 bf16 blocks: 994 int8, 1,931 int4). K6 and K7 must not launch. The
+    sessions whose ids equal the bf16 drain's on the same weights are
+    counted, with each parting step, and do not gate: random weights leave
+    near-ties that a quantum of KV moves. Then the radix contract at int8
+    with fp32 activations (4 sessions x 4 turns: radix on decodes what
+    radix off decodes, within one bf16 ulp of the plain margin), and one
+    ``/parse`` of a BRAIN_BATCH=32 BRAIN_PAGED=1 KV_QUANT=int8 brain, which
+    must answer 200. ``profile``: one ff=8 chunk per tier under the
+    profiler."""
+    import torch
+
+    from tpu_voice_agent_torch.models.llama import PRESETS
+    from tpu_voice_agent_torch.ops.kvquant import kv_block_bytes
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS["tinyllama-1.1b"]
+    base = report.get("batch", {})
+    out = {}
+    for ff, kernel in ((8, "paged_block_attention_quant"), (0, "paged_attention_quant")):
+        bf16_ids = base.get(f"ff{ff}", {}).get("token_ids")
+        if bf16_ids is None:  # the batch phase did not run: the same drain, untimed
+            eng = _paged_engine(params, ff, radix_enable=False)
+            install_prompt_prefix(eng)
+            bf16_ids = [r.token_ids for r in ContinuousBatcher(
+                eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS).generate_many(
+                [_batch_prompt(i) for i in range(BATCH_SLOTS)])]
+            del eng
+        for tier in ("int8", "int4"):
+            label = f"kvquant {tier} ff={ff}"
+            widths = (cfg.n_layers, 128, cfg.n_kv_heads, cfg.head_dim)
+            blocks = 513 * kv_block_bytes(*widths, None) // kv_block_bytes(*widths, tier)
+            eng = _paged_engine(params, ff, radix_enable=False, kv_quant=tier,
+                                pool_blocks=blocks)
+            row, res, c = _drain(eng, label, totals)
+            c.require(kernel, "masked_argmax_advance")
+            for bf in ("paged_attention", "paged_block_attention"):
+                fail_if(c.counts.get(bf, 0) > 0, f"{label}: the bf16 kernel {bf} launched")
+            parts = []
+            for r, ids in zip(res, bf16_ids):
+                if r.token_ids != ids:
+                    parts.append(next((j for j, (x, y) in enumerate(zip(r.token_ids, ids))
+                                       if x != y), min(len(ids), len(r.token_ids))))
+            row.update(kv_bytes_per_block=eng.kv_bytes_per_block,
+                       peak_pool_bytes=row["peak_pool_blocks"] * eng.kv_bytes_per_block,
+                       pool_bytes=blocks * eng.kv_bytes_per_block,
+                       same_as_bf16=BATCH_SLOTS - len(parts), parting_steps=parts)
+            log(f"[{label}] {eng.kv_bytes_per_block} bytes a block, peak "
+                f"{row['peak_pool_bytes']} of {row['pool_bytes']} pool bytes; "
+                f"{row['same_as_bf16']} of {BATCH_SLOTS} sessions decode the bf16 drain's ids "
+                f"(parting steps {parts})")
+            out[f"{tier}_ff{ff}"] = row
+            if profile and ff == 8:
+                _profile_batch_chunk(eng, report, tier)
+            del eng
+    # the radix contract on the int8 pool, fp32 activations
+    p = _fp32_activations(params)
+    label = "kvquant radix int8 fp32"
+    rows, prompts, hits, lookups, counts, wall, P = _radix_sessions(p, label, totals, "int8")
+    diverged = _radix_off_divergence(p, prompts, label, "int8")
+    _check_partings(diverged, label, 1)
+    cached = [r["cached_tokens"] for r in rows]
+    log(f"[{label}] 4 sessions x 4 turns in {wall:.2f} s: cached tokens per turn {cached} "
+        f"(prefix {P}); tree hits {hits} of {lookups}; radix off decoded the same ids for "
+        f"{len(prompts) - len(diverged)} of {len(prompts)} turns")
+    out["radix_int8_fp32"] = {"prefix_tokens": P, "turns": rows, "seconds": wall, "hits": hits,
+                              "lookups": lookups, "diverged": diverged, "launches": counts}
+    del p
+    out["service"] = _kvquant_service(totals)
+    report["kvquant"] = out
+
+
+def _kvquant_service(totals: dict) -> dict:
+    """A BRAIN_BATCH=32 BRAIN_PAGED=1 KV_QUANT=int8 brain from the
+    environment, in-process on an ephemeral port: one /parse must answer
+    200 with a valid plan."""
+    from tpu_voice_agent_torch.schemas import validate_parse_response
+    from tpu_voice_agent_torch.services import brain
+
+    env = dict(BRAIN_BACKEND="engine:tinyllama-1.1b", BRAIN_QUANT="int8", BRAIN_BATCH="32",
+               BRAIN_PAGED="1", KV_QUANT="int8")
+    os.environ.update(env)
+    for k in ("BRAIN_FF", "BRAIN_PREFIX", "BRAIN_DEVICE", "BRAIN_POOL_BLOCKS", "BRAIN_CHUNK",
+              "RADIX_ENABLE"):
+        os.environ.pop(k, None)
+    try:
+        t0 = time.perf_counter()
+        parser = brain.make_parser_from_env()
+    finally:
+        for k in ("BRAIN_BATCH", "BRAIN_PAGED", "KV_QUANT"):
+            os.environ.pop(k, None)
+    eng = parser.engine
+    boot = time.perf_counter() - t0
+    server = brain.make_server(brain.BrainApp(parser), port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        fail_if(not (isinstance(parser, brain.BatchedEngineParser) and eng.kv_quant == "int8"
+                     and eng.batch_slots == 32 and eng.device.type == "cuda"),
+                "kvquant service: not a batched int8-KV paged parser on the card")
+        with Counted("kvquant service", totals) as c:
+            t1 = time.perf_counter()
+            status, body = _post(f"http://127.0.0.1:{server.server_address[1]}",
+                                 {"text": UTTERANCES[0], "context": {}})
+            wall = time.perf_counter() - t1
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        parser.close()
+    c.require("paged_block_attention_quant", "masked_argmax_advance")
+    fail_if(status != 200 or validate_parse_response(body) != (body, None),
+            f"kvquant service: /parse answered {status} {body}")
+    log(f"[kvquant service] boot {boot:.2f} s ({eng.allocator.n_blocks} int8 blocks of "
+        f"{eng.kv_bytes_per_block} bytes); /parse 200 in {1e3 * wall:.1f} ms")
+    return {"boot_s": boot, "wall_ms": 1e3 * wall, "status": status, "launches": c.counts}
 
 
 DENSE_SLOTS = 8
@@ -1143,10 +1457,11 @@ def phase_batch_dense(params, totals: dict, report: dict) -> None:
     report["batch_dense"] = out
 
 
-def _profile_batch_chunk(eng, report: dict) -> None:
+def _profile_batch_chunk(eng, report: dict, tier: str = "bf16") -> None:
     """The first ff=8 decode chunk after 32 admissions under the profiler:
     before each call (untimed) the batcher drains and admits 32 fresh
-    sessions, so the chunk starts with every row live."""
+    sessions, so the chunk starts with every row live. ``tier`` names the
+    engine's KV pool in the label and the report key."""
     from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
 
     b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
@@ -1163,7 +1478,9 @@ def _profile_batch_chunk(eng, report: dict) -> None:
         b.step()
         return f"{live} live rows at its start, {eng._last_fwds} forwards"
 
-    _profile("ff=8 batch chunk (32 rows, 16 steps)", chunk, "batch_ff8", report, setup=admit)
+    key = "batch_ff8" if tier == "bf16" else f"kvquant_{tier}_ff8"
+    _profile(f"ff=8 batch chunk (32 rows, 16 steps, {tier} KV)", chunk, key, report,
+             setup=admit)
     b.run_until_done()
 
 
@@ -1210,19 +1527,96 @@ def phase_batch_golden(totals: dict, report: dict) -> None:
                               "launches": c.counts}
 
 
+def phase_kvquant_golden(totals: dict, report: dict) -> None:
+    """The distilled checkpoint (fp32) in a 15-slot PagedDecodeEngine set up
+    as in batch_golden, once per KV tier: every golden utterance must equal
+    the JAX package's recording for that tier token for token
+    (``data/intent_golden_kvquant.json``), through K1, K8 and K4. Then
+    ``kv_quant_differential`` on ``GOLDEN_INTENT_CASES[:6]`` as the JAX test
+    sets it up (the few-shot prefix, cache 2048, two slots) must hold that
+    test's floors (tests/test_kv_quant.py:482-507): int8 token-identical and
+    type-agreeing on every case, int4 grammar-valid on every case and
+    type-agreeing on at least half."""
+    import torch
+
+    from tpu_voice_agent_torch import distilled
+    from tpu_voice_agent_torch.evals.golden import GOLDEN_INTENT_CASES, kv_quant_differential
+    from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recording = distilled.kvquant_golden_records()
+    cfg, params = distilled.load_distilled(device="cuda")
+    from dataclasses import replace
+
+    out = {}
+    for tier in ("int8", "int4"):
+        recs = recording["tiers"][tier]
+        eng = PagedDecodeEngine(cfg=replace(cfg, max_seq_len=512), max_len=512,
+                                prefill_buckets=(64, 128), init_weights=False, device="cuda",
+                                batch_slots=15, kv_quant=tier)
+        eng.load_params(params)
+        b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=300)
+        with Counted(f"kvquant_golden {tier}", totals) as c:
+            t0 = time.perf_counter()
+            res = b.generate_many([distilled.distilled_prompt(r["text"], r["context"])
+                                   for r in recs])
+            wall = time.perf_counter() - t0
+        c.require("flash_attention", "paged_attention_quant", "masked_argmax_advance")
+        fail_if(c.counts.get("paged_attention", 0) > 0, f"kvquant_golden {tier}: K6 launched")
+        bad = [(rec, r) for rec, r in zip(recs, res) if r.token_ids != rec["token_ids"]]
+        for rec, r in bad:
+            i = next((j for j, (x, y) in enumerate(zip(r.token_ids, rec["token_ids"]))
+                      if x != y), min(len(r.token_ids), len(rec["token_ids"])))
+            log(f"[kvquant_golden {tier}] MISMATCH {rec['text']!r} at step {i} ({r.error})")
+        fail_if(bool(bad), f"kvquant_golden {tier}: {len(bad)} of {len(recs)} parses differ")
+        fail_if(eng.allocator.blocks_in_use != 0, f"kvquant_golden {tier}: blocks leaked")
+        log(f"[kvquant_golden {tier}] {len(recs)} of {len(recs)} batched parses equal the JAX "
+            f"recording ({sum(r.steps for r in res)} tokens, {b.chunks} chunks, {wall:.2f} s)")
+        out[tier] = {"cases": len(recs), "chunks": b.chunks, "seconds": wall,
+                     "launches": c.counts}
+        del eng, b
+
+    def make_engine(tier):
+        eng = PagedDecodeEngine(cfg=cfg, max_len=2048, batch_slots=2,
+                                prefill_buckets=(256, 512, 1024), kv_quant=tier,
+                                init_weights=False, device="cuda")
+        eng.load_params(params)
+        install_prompt_prefix(eng)
+        return eng
+
+    with Counted("kvquant_golden differential", totals) as c:
+        t0 = time.perf_counter()
+        diff = kv_quant_differential(make_engine, GOLDEN_INTENT_CASES[:6])
+        wall = time.perf_counter() - t0
+    i8, i4 = diff["tiers"]["int8"], diff["tiers"]["int4"]
+    log(f"[kvquant_golden] differential on 6 cases in {wall:.2f} s: int8 {i8}, int4 {i4}; "
+        f"the JAX recording's: {recording['differential']['tiers']}")
+    fail_if(not (i8["token_identical"] == i8["type_agreement"] == i8["grammar_valid"] == 1.0),
+            f"kvquant_golden: int8 under its floors: {i8}")
+    fail_if(not (i4["grammar_valid"] == 1.0 and i4["type_agreement"] >= 0.5),
+            f"kvquant_golden: int4 under its floors: {i4}")
+    out["differential"] = {**diff, "equals_jax": diff == recording["differential"],
+                           "seconds": wall, "launches": c.counts}
+    report["kvquant_golden"] = out
+
+
 RADIX_TURNS = ["search for wireless headphones", "sort them by price", "open the second one",
                "add it to the cart"]
 
 
-def _radix_sessions(params, label: str, totals: dict):
+def _radix_sessions(params, label: str, totals: dict, kv_quant: str = "off"):
     """4 sessions x 4 turns through a radix-on BatchedEngineParser's
-    transcripts (32 slots, ff=8, buckets up to 2048, 128 new tokens); every
-    turn is recorded whether or not it reached EOS. Returns (per-turn rows,
-    [(prompt ids, generated ids)], tree hits, lookups, launch counts,
-    seconds, prefix length)."""
+    transcripts (32 slots, ff=8, buckets up to 2048, 128 new tokens, the
+    pool at ``kv_quant``); every turn is recorded whether or not it reached
+    EOS. Returns (per-turn rows, [(prompt ids, generated ids)], tree hits,
+    lookups, launch counts, seconds, prefix length)."""
     from tpu_voice_agent_torch.services.brain import BatchedEngineParser, install_prompt_prefix
 
-    on = _paged_engine(params, 8, radix_enable=True, prefill_buckets=RADIX_BUCKETS)
+    on = _paged_engine(params, 8, radix_enable=True, prefill_buckets=RADIX_BUCKETS,
+                       kv_quant=kv_quant)
     P = install_prompt_prefix(on)
     parser = BatchedEngineParser(on, max_new_tokens=BATCH_NEW_TOKENS, session_aware=True)
     sids = [f"session-{i}" for i in range(4)]
@@ -1247,7 +1641,8 @@ def _radix_sessions(params, label: str, totals: dict):
                                  "cached_tokens": res.cached_tokens,
                                  "prefill_ms": res.prefill_ms, "tokens": res.steps})
             wall = time.perf_counter() - t0
-        c.require("paged_block_attention", "masked_argmax_advance")
+        c.require("paged_block_attention" if kv_quant == "off" else "paged_block_attention_quant",
+                  "masked_argmax_advance")
     finally:
         parser.close()
     for r in rows:
@@ -1288,14 +1683,15 @@ def _check_partings(diverged: list[dict], label: str, ulps: float) -> None:
                 f"bf16 ulps")
 
 
-def _radix_off_divergence(params, prompts, label: str) -> list[dict]:
-    """The same prompt ids through a radix-off engine on the same weights:
-    for each turn whose ids differ, the first differing step and the plain
-    forward's top-2 margin there."""
+def _radix_off_divergence(params, prompts, label: str, kv_quant: str = "off") -> list[dict]:
+    """The same prompt ids through a radix-off engine on the same weights and
+    pool tier: for each turn whose ids differ, the first differing step and
+    the plain forward's top-2 margin there."""
     from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
     from tpu_voice_agent_torch.services.brain import install_prompt_prefix
 
-    off = _paged_engine(params, 8, radix_enable=False, prefill_buckets=RADIX_BUCKETS)
+    off = _paged_engine(params, 8, radix_enable=False, prefill_buckets=RADIX_BUCKETS,
+                        kv_quant=kv_quant)
     install_prompt_prefix(off)
     res_off = ContinuousBatcher(off, chunk_steps=16,
                                 max_new_tokens=BATCH_NEW_TOKENS).generate_many(
@@ -1362,7 +1758,8 @@ def phase_service_batched(totals: dict, report: dict) -> None:
 
     os.environ.update(BRAIN_BACKEND="engine:tinyllama-1.1b", BRAIN_QUANT="int8",
                       BRAIN_BATCH="8", BRAIN_PAGED="1", RADIX_ENABLE="1")
-    for k in ("BRAIN_FF", "BRAIN_PREFIX", "BRAIN_DEVICE", "BRAIN_POOL_BLOCKS", "BRAIN_CHUNK"):
+    for k in ("BRAIN_FF", "BRAIN_PREFIX", "BRAIN_DEVICE", "BRAIN_POOL_BLOCKS", "BRAIN_CHUNK",
+              "KV_QUANT"):
         os.environ.pop(k, None)
     try:
         t0 = time.perf_counter()
@@ -1516,15 +1913,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,kernels,service,parse,batch,batch_dense,radix,"
-                         "service_batched,golden,batch_golden,stt,stt_golden,voice "
-                         "(default all)")
+                         "kvquant,service_batched,golden,batch_golden,kvquant_golden,stt,"
+                         "stt_golden,voice (default all)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile (torch.profiler) one bench parse when the service phase "
-                         "runs, one ff=8 batch chunk when the batch phase runs, and one "
-                         "whisper-large-v3 transcribe when the stt phase runs")
+                         "runs, one ff=8 batch chunk when the batch phase runs (one per KV "
+                         "tier when the kvquant phase runs), and one whisper-large-v3 "
+                         "transcribe when the stt phase runs")
     args = ap.parse_args()
     phases = (["card", "build", "kernels", "service", "parse", "batch", "batch_dense", "radix",
-               "service_batched", "golden", "batch_golden", "stt", "stt_golden", "voice"]
+               "kvquant", "service_batched", "golden", "batch_golden", "kvquant_golden", "stt",
+               "stt_golden", "voice"]
               if args.phases == "all" else args.phases.split(","))
 
     import torch
@@ -1567,10 +1966,11 @@ def main() -> int:
 
     eng = timed("service", phase_service, totals, report) if "service" in phases else None
     for name, fn in (("parse", phase_parse), ("batch", phase_batch),
-                     ("batch_dense", phase_batch_dense), ("radix", phase_radix)):
+                     ("batch_dense", phase_batch_dense), ("radix", phase_radix),
+                     ("kvquant", phase_kvquant)):
         if name in phases:
             fail_if(eng is None, f"the {name} phase reuses the service's weights")
-            kw = {"profile": args.profile} if name == "batch" else {}
+            kw = {"profile": args.profile} if name in ("batch", "kvquant") else {}
             timed(name, fn, eng.params, totals, report, **kw)
     if args.profile and eng is not None:  # the parse profile reuses the service's weights
         phase_profile(eng.params, report)
@@ -1581,6 +1981,8 @@ def main() -> int:
         timed("golden", phase_golden, totals, report)
     if "batch_golden" in phases:
         timed("batch_golden", phase_batch_golden, totals, report)
+    if "kvquant_golden" in phases:
+        timed("kvquant_golden", phase_kvquant_golden, totals, report)
     stt_eng = timed("stt", phase_stt, totals, report) if "stt" in phases else None
     if args.profile and stt_eng is not None:
         phase_profile_stt(stt_eng, report)

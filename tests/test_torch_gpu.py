@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K7) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1-K10) against their plain PyTorch versions, on
 the card. Every test here is marked ``gpu`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from tpu_voice_agent_torch import ops
+from tpu_voice_agent_torch.ops.kvquant import quantize_kv
 
 BF16_TOL = {"atol": 1e-4, "rtol": 2.0 ** -6}
 F32_TOL = {"atol": 1e-5, "rtol": 0.0}
@@ -219,3 +220,104 @@ def test_paged_wrappers_count_launches_and_refuse_bad_operands(cuda):
     with pytest.raises(ValueError, match="layer"):
         ops.paged_attention(q, kp, kp, tables, kv_len, 1)
     assert ops.launch_counts()["paged_attention"] == 1
+
+
+# ---------------------------------------------------------------- quantized KV
+
+# the head dims the engines use, each with its own heads: test-tiny,
+# the distilled checkpoint (an int4 head row of 24 bytes) and tinyllama-1.1b
+QUANT_SHAPES = [(32, 4, 2), (48, 4, 2), (64, 32, 4)]
+
+
+def _quant_pool(g, shape, tier):
+    """Random float32 k and v quantized as the engine stores them:
+    (values, scales) each."""
+    kv = [quantize_kv(torch.randn(*shape, generator=g, device=g.device), tier) for _ in range(2)]
+    return kv[0][0], kv[1][0], kv[0][1], kv[1][1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)])
+@pytest.mark.parametrize("hd,nq,nkv", QUANT_SHAPES)
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+def test_quant_paged_kernels_match_plain(cuda, tier, hd, nq, nkv, dtype, tol):
+    """K8 and K9 over the quantized pool (blocks of 16 and 128, a shared
+    prefix, ragged kv_len) against their plain versions, which dequantize to
+    fp32: the kernels' tiles hold the same exact products, so only the sums'
+    order and the output rounding differ."""
+    bits = 8 if tier == "int8" else 4
+    for bs in (16, 128):
+        g = torch.Generator(device=cuda).manual_seed(hd + bs)
+        B = 8
+        lens = torch.randint(200, 400, (B,), generator=torch.Generator().manual_seed(bs))
+        tables, n = _paged_tables(B, lens, bs, -(-420 // bs), 128 // bs, bs)
+        tables = tables.to(cuda)
+        kp, vp, ks, vs = _quant_pool(g, (2, n, bs, nkv, hd), tier)
+        kv_len = lens.to(torch.int32).to(cuda)
+        kv_len[3] = 0
+        q = torch.randn(B, nq, hd, generator=g, device=cuda).to(dtype)
+        out = ops.paged_attention_quant(q, kp, vp, ks, vs, tables, kv_len, 1, bits=bits)
+        ref = ops.paged_attention_quant_reference(q, kp, vp, ks, vs, tables, kv_len, 1,
+                                                  bits=bits)
+        assert out.dtype == dtype and bool((out[3] == 0).all())
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        chain = torch.randint(0, 9, (B,), generator=g, device=cuda)
+        iw = torch.arange(9, device=cuda)[None, :]
+        qpos = (lens.to(cuda)[:, None] - 10 + torch.minimum(iw, chain[:, None])).to(torch.int32)
+        qpos[2] = torch.tensor([150, 2, 190, 190, 0, 199, 13, 128, 127], device=cuda)
+        qpos[5] = -1
+        q9 = torch.randn(B, 9, nq, hd, generator=g, device=cuda).to(dtype)
+        out = ops.paged_block_attention_quant(q9, kp, vp, ks, vs, tables, qpos, 0, bits=bits)
+        ref = ops.paged_block_attention_quant_reference(q9, kp, vp, ks, vs, tables, qpos, 0,
+                                                        bits=bits)
+        assert bool((out[5] == 0).all())
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)])
+@pytest.mark.parametrize("hd,nq,nkv", QUANT_SHAPES)
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+def test_decode_attention_quant_matches_plain(cuda, tier, hd, nq, nkv, dtype, tol):
+    """K10 on a dense quantized cache: S not a multiple of the tile, kv_len
+    0 (zeros), 1, ragged and S."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    S = 300
+    kc, vc, ks, vs = _quant_pool(g, (4, S, nkv, hd), tier)
+    q = torch.randn(4, nq, hd, generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([0, 1, 177, S], dtype=torch.int32, device=cuda)
+    bits = 8 if tier == "int8" else 4
+    out = ops.decode_attention_quant(q, kc, vc, ks, vs, kv_len, bits=bits)
+    ref = ops.decode_attention_quant_reference(q, kc, vc, ks, vs, kv_len, bits=bits)
+    assert bool((out[0] == 0).all())
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_quant_wrappers_count_launches_and_refuse_bad_operands(cuda):
+    ops.reset_launch_counts()
+    kp = torch.zeros(1, 4, 16, 2, 32, dtype=torch.int8, device=cuda)
+    ks = torch.ones(1, 4, 16, 2, dtype=torch.bfloat16, device=cuda)
+    tables = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    q = torch.zeros(1, 8, 64, dtype=torch.bfloat16, device=cuda)
+    kv_len = torch.tensor([20], dtype=torch.int32, device=cuda)
+    ops.paged_attention_quant(q, kp, kp, ks, ks, tables, kv_len, 0, bits=4)
+    ops.paged_block_attention_quant(q[:, None].contiguous(), kp, kp, ks, ks, tables,
+                                    kv_len[:, None], 0, bits=4)
+    kc = torch.zeros(1, 40, 2, 32, dtype=torch.int8, device=cuda)
+    kcs = torch.ones(1, 40, 2, dtype=torch.bfloat16, device=cuda)
+    ops.decode_attention_quant(q, kc, kc, kcs, kcs, kv_len, bits=4)
+    assert ops.launch_counts()["paged_attention_quant"] == 1
+    assert ops.launch_counts()["paged_block_attention_quant"] == 1
+    assert ops.launch_counts()["decode_attention_quant"] == 1
+    with pytest.raises(ValueError, match="stored width"):
+        ops.paged_attention_quant(q, kp, kp, ks, ks, tables, kv_len, 0, bits=8)
+    with pytest.raises(ValueError, match="int8"):
+        ops.paged_attention_quant(q, kp.bfloat16(), kp.bfloat16(), ks, ks, tables, kv_len, 0,
+                                  bits=4)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.paged_attention_quant(q[..., :16].contiguous(), kp[..., :8].contiguous(),
+                                  kp[..., :8].contiguous(), ks, ks, tables, kv_len, 0, bits=4)
+    with pytest.raises(ValueError, match="scales"):
+        ops.paged_attention_quant(q, kp, kp, ks.float(), ks.float(), tables, kv_len, 0, bits=4)
+    assert ops.launch_counts()["paged_attention_quant"] == 1

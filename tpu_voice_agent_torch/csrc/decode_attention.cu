@@ -42,12 +42,14 @@ extern "C" int tva_decode_attention(const void* q, const void* kc, const void* v
   cudaStream_t st = (cudaStream_t)stream;
   using BF = __nv_bfloat16;
   if (dtype == TVA_DTYPE_F32) {
-    TVA_DISPATCH_HD(hd, return launch<HD, 1, false, float, float>(
-                           q, kc, vc, kv_len, nullptr, nullptr, 1, o, B, 1, S, nq, nkv, scale, st));
+    TVA_DISPATCH_HD(hd, return launch<HD, 1, false, float, float>(q, kc, vc, nullptr, nullptr,
+                                                                  kv_len, nullptr, nullptr, 1, o,
+                                                                  B, 1, S, nq, nkv, scale, st));
   }
   if (dtype == TVA_DTYPE_BF16) {
-    TVA_DISPATCH_HD(hd, return launch<HD, 1, false, BF, BF>(
-                           q, kc, vc, kv_len, nullptr, nullptr, 1, o, B, 1, S, nq, nkv, scale, st));
+    TVA_DISPATCH_HD(hd, return launch<HD, 1, false, BF, BF>(q, kc, vc, nullptr, nullptr, kv_len,
+                                                            nullptr, nullptr, 1, o, B, 1, S, nq,
+                                                            nkv, scale, st));
   }
   return (int)cudaErrorInvalidValue;
 }

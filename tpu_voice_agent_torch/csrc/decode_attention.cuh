@@ -1,8 +1,9 @@
-// The decode-attention template body shared by K2, K3, K5 (decode_attention.cu)
-// and K6, K7 (paged_attention.cu): T <= 16 query tokens per batch row against
-// a KV cache, or a paged KV pool read through block tables; q/o bf16 or fp32
-// (TQ), the cache bf16 or fp32 (TC), arithmetic in fp32. Each source
-// instantiates only its own half (PAGED false or true), so the two compile in
+// The decode-attention template body shared by K2, K3, K5 (decode_attention.cu),
+// K6, K7 (paged_attention.cu), K8, K9 (paged_attention_quant.cu) and K10
+// (decode_attention_quant.cu): T <= 16 query tokens per batch row against a
+// KV cache, or a paged KV pool read through block tables; q/o bf16 or fp32
+// (TQ), the cache bf16, fp32 or quantized (TC: QInt8, QInt4), arithmetic in
+// fp32. Each source instantiates only its own part, so they compile in
 // parallel.
 //
 // Its design: one block per (kv head, batch row). The `group * T` query rows
@@ -18,6 +19,15 @@
 // through the row's block table (pool row table[b, s / bs] * bs + s % bs of
 // the layer plane), so any block size works and a 32-key tile may straddle
 // two pool blocks; the dense instantiations keep a plain row stride.
+// A quantized cache (the KV_QUANT pool, ops/kvquant.py) is widened by the
+// same loader: it reads the int8 chunk (or the packed int4 chunk) and the
+// key row's bf16 scale from the layer's scale plane, at key_row(s) * nkv +
+// kvh, and writes int * scale into the fp32 tile. That product is exact
+// (|int| <= 127 times a bf16 scale has at most 15 significant bits), so the
+// tile equals the plain version's fp32 dequantization and the rest of the
+// body is the same for every cache type. The TPU kernels fold the scales
+// into the score and probability tiles instead, `(q . k_int) * ks`, which
+// differs from this only by fp32 summation order.
 // Splitting the key range across blocks (flash-decoding), tensor-core
 // products and reading a shared prefix block once per kv head across rows
 // are later work.
@@ -32,17 +42,28 @@ constexpr int NWARPS = 16;
 constexpr int THREADS = NWARPS * 32;
 constexpr int MAX_T = 16;
 
-// One 16-byte load of a cache row (8 bf16 or 4 fp32 values), widened to fp32
-// into 16-byte-aligned shared memory.
+// Quantized cache tags (the KV_QUANT pool): int8 values, or two int4 values
+// per byte, the low nibble holding dims [0, hd/2) and the high nibble dims
+// [hd/2, hd); either way a bf16 scale per (key row, kv head).
+struct QInt8 {};
+struct QInt4 {};
+
+// One vector load of a cache row (Raw: N stored elements of type Store),
+// widened to fp32 into 16-byte-aligned shared memory. A head's row holds
+// HD / PACK stored elements; chunk ch covers stored elements [ch N, ch N + N).
 template <typename TC>
 struct Chunk;
 template <>
 struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
+  using Store = __nv_bfloat16;
+  using Raw = uint4;
+  static constexpr bool QUANT = false;
+  static constexpr int N = 8, PACK = 1;
   // bf16 -> fp32 is the high half of the fp32 bit pattern; each 32-bit word
   // holds two bf16, the lower address in the low half
-  __device__ static void widen(const uint4& u, float* dst) {
-    float4* d = reinterpret_cast<float4*>(dst);
+  template <int HD>
+  __device__ static void widen(const Raw& u, float, float* row, int ch) {
+    float4* d = reinterpret_cast<float4*>(row + ch * N);
     d[0] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                        __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
     d[1] = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
@@ -51,28 +72,93 @@ struct Chunk<__nv_bfloat16> {
 };
 template <>
 struct Chunk<float> {
-  static constexpr int N = 4;
-  __device__ static void widen(const uint4& u, float* dst) {
-    *reinterpret_cast<float4*>(dst) = make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
-                                                  __uint_as_float(u.z), __uint_as_float(u.w));
+  using Store = float;
+  using Raw = uint4;
+  static constexpr bool QUANT = false;
+  static constexpr int N = 4, PACK = 1;
+  template <int HD>
+  __device__ static void widen(const Raw& u, float, float* row, int ch) {
+    *reinterpret_cast<float4*>(row + ch * N) = make_float4(
+        __uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z), __uint_as_float(u.w));
+  }
+};
+
+// the four signed bytes of a word (lowest address first), times the scale
+__device__ __forceinline__ float4 tva_i8x4(unsigned w, float sc) {
+  return make_float4((float)((int)(w << 24) >> 24) * sc, (float)((int)(w << 16) >> 24) * sc,
+                     (float)((int)(w << 8) >> 24) * sc, (float)((int)w >> 24) * sc);
+}
+// the sign-extended low (or high) nibbles of a word's four bytes, times the scale
+__device__ __forceinline__ float4 tva_lo4x4(unsigned w, float sc) {
+  return make_float4((float)((int)(w << 28) >> 28) * sc, (float)((int)(w << 20) >> 28) * sc,
+                     (float)((int)(w << 12) >> 28) * sc, (float)((int)(w << 4) >> 28) * sc);
+}
+__device__ __forceinline__ float4 tva_hi4x4(unsigned w, float sc) {
+  return make_float4((float)((int)(w << 24) >> 28) * sc, (float)((int)(w << 16) >> 28) * sc,
+                     (float)((int)(w << 8) >> 28) * sc, (float)((int)w >> 28) * sc);
+}
+
+// int8: 16 bytes, 16 values. A head's row is HD bytes, a multiple of 16 at
+// every head dim the quantized kernels take, so the load is aligned.
+template <>
+struct Chunk<QInt8> {
+  using Store = int8_t;
+  using Raw = uint4;
+  static constexpr bool QUANT = true;
+  static constexpr int N = 16, PACK = 1;
+  template <int HD>
+  __device__ static void widen(const Raw& u, float sc, float* row, int ch) {
+    float4* d = reinterpret_cast<float4*>(row + ch * N);
+    d[0] = tva_i8x4(u.x, sc);
+    d[1] = tva_i8x4(u.y, sc);
+    d[2] = tva_i8x4(u.z, sc);
+    d[3] = tva_i8x4(u.w, sc);
+  }
+};
+// int4: 8 bytes, 16 values. A head's row is HD / 2 bytes (24 at hd 48, so a
+// head starts at any multiple of 8 bytes): 8-byte loads stay aligned. Byte j
+// of chunk ch holds dim 8 ch + j in its low nibble and dim HD / 2 + 8 ch + j
+// in its high nibble.
+template <>
+struct Chunk<QInt4> {
+  using Store = int8_t;
+  using Raw = uint2;
+  static constexpr bool QUANT = true;
+  static constexpr int N = 8, PACK = 2;
+  template <int HD>
+  __device__ static void widen(const Raw& u, float sc, float* row, int ch) {
+    float4* lo = reinterpret_cast<float4*>(row + ch * N);
+    float4* hi = reinterpret_cast<float4*>(row + HD / 2 + ch * N);
+    lo[0] = tva_lo4x4(u.x, sc);
+    lo[1] = tva_lo4x4(u.y, sc);
+    hi[0] = tva_hi4x4(u.x, sc);
+    hi[1] = tva_hi4x4(u.y, sc);
   }
 };
 
 // The (T * group) query rows of one (kv head, batch row); row r is query
 // r / group of q head kvh * group + r % group. Warp w owns rows w + 16 i for
-// i < RW. PAGED: keys are read through a block table (K6/K7); the dense
-// instantiations (K2/K3/K5) keep a plain row stride, free of the lookup.
+// i < RW. PAGED: keys are read through a block table (K6-K9); the dense
+// instantiations (K2/K3/K5/K10) keep a plain row stride, free of the lookup.
+// ksc/vsc: the scale planes of a quantized cache (null otherwise), one bf16
+// per (cache row, kv head).
 template <int HD, int RW, bool PAGED, typename TQ, typename TC>
 __global__ void __launch_bounds__(THREADS)
-decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
-              const TC* __restrict__ vc, const int* __restrict__ kv_len,
+decode_kernel(const TQ* __restrict__ q, const typename Chunk<TC>::Store* __restrict__ kc,
+              const typename Chunk<TC>::Store* __restrict__ vc,
+              const __nv_bfloat16* __restrict__ ksc, const __nv_bfloat16* __restrict__ vsc,
+              const int* __restrict__ kv_len,
               const int* __restrict__ qpos, const int* __restrict__ table, int bs,
               TQ* __restrict__ o, int T, int S, int nq, int nkv, float scale) {
   constexpr int KP = HD + 4;          // padded K pitch: float4 rows on distinct banks
   constexpr int NC = (HD + 31) / 32;  // output dims per lane
   constexpr int D4 = HD / 4;
-  constexpr int EPC = Chunk<TC>::N;   // cache values per 16-byte chunk
-  constexpr int CHUNKS = HD / EPC;    // chunks per key row
+  using CK = Chunk<TC>;
+  using Store = typename CK::Store;
+  constexpr int EPC = CK::N;          // stored elements per chunk
+  constexpr int HDP = HD / CK::PACK;  // stored elements per head row
+  constexpr int CHUNKS = HDP / EPC;   // chunks per key row
+  static_assert(HDP % EPC == 0, "a head's cache row must split into whole chunks");
   constexpr int LOADS = (2 * BK * CHUNKS + THREADS - 1) / THREADS;  // per thread per tile
   const int group = nq / nkv;
   const int rows = T * group;
@@ -120,27 +206,36 @@ decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
 
   // K/V tile loads, staged in registers one tile ahead. Key s of row b is
   // cache row b * S + s, or (paged) pool row table[b, s / bs] * bs + s % bs
-  // of the layer plane.
-  const size_t row_stride = (size_t)nkv * HD;
-  const TC* kbase = kc + ((PAGED ? 0 : (size_t)b * S) * nkv + kvh) * HD;
-  const TC* vbase = vc + ((PAGED ? 0 : (size_t)b * S) * nkv + kvh) * HD;
+  // of the layer plane; a quantized row's scale is at that row * nkv + kvh
+  // of the scale plane.
+  const size_t row0 = PAGED ? 0 : (size_t)b * S;
+  const size_t row_stride = (size_t)nkv * HDP;
+  const Store* kbase = kc + (row0 * nkv + kvh) * HDP;
+  const Store* vbase = vc + (row0 * nkv + kvh) * HDP;
+  const __nv_bfloat16* ksbase = CK::QUANT ? ksc + row0 * nkv + kvh : nullptr;
+  const __nv_bfloat16* vsbase = CK::QUANT ? vsc + row0 * nkv + kvh : nullptr;
   const int* trow = PAGED ? table + (size_t)b * (S / bs) : nullptr;
   auto key_row = [&](int s) -> size_t {
     if constexpr (PAGED) return (size_t)trow[s / bs] * bs + s % bs;
     else return (size_t)s;
   };
-  uint4 pre[LOADS];
+  typename CK::Raw pre[LOADS];
+  float pre_s[LOADS];  // the chunk's row scale (quantized caches only)
   auto load_tile = [&](int k0) {
 #pragma unroll
     for (int j = 0; j < LOADS; ++j) {
       const int i = tid + THREADS * j;  // chunk id over [K rows | V rows]
-      pre[j] = make_uint4(0, 0, 0, 0);
+      pre[j] = typename CK::Raw{};
+      pre_s[j] = 0.f;
       if (i < 2 * BK * CHUNKS) {
         const int kv = i / (BK * CHUNKS), rem = i % (BK * CHUNKS);
         const int s = k0 + rem / CHUNKS, ch = rem % CHUNKS;
-        if (s < S)
-          pre[j] = *reinterpret_cast<const uint4*>((kv ? vbase : kbase) +
-                                                   key_row(s) * row_stride + ch * EPC);
+        if (s < S) {
+          const size_t r = key_row(s);
+          pre[j] = *reinterpret_cast<const typename CK::Raw*>((kv ? vbase : kbase) +
+                                                              r * row_stride + ch * EPC);
+          if constexpr (CK::QUANT) pre_s[j] = __bfloat162float((kv ? vsbase : ksbase)[r * nkv]);
+        }
       }
     }
   };
@@ -151,7 +246,7 @@ decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
       if (i < 2 * BK * CHUNKS) {
         const int kv = i / (BK * CHUNKS), rem = i % (BK * CHUNKS);
         const int key = rem / CHUNKS, ch = rem % CHUNKS;
-        Chunk<TC>::widen(pre[j], kv ? Vs + key * HD + ch * EPC : Ks + key * KP + ch * EPC);
+        CK::template widen<HD>(pre[j], pre_s[j], kv ? Vs + key * HD : Ks + key * KP, ch);
       }
     }
   };
@@ -245,9 +340,10 @@ decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
 }
 
 template <int HD, int RW, bool PAGED, typename TQ, typename TC>
-int launch(const void* q, const void* kc, const void* vc, const int* kv_len, const int* qpos,
-           const int* table, int bs, void* o, int B, int T, int S, int nq, int nkv,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* kc, const void* vc, const void* ksc, const void* vsc,
+           const int* kv_len, const int* qpos, const int* table, int bs, void* o, int B, int T,
+           int S, int nq, int nkv, float scale, cudaStream_t stream) {
+  using Store = typename Chunk<TC>::Store;
   const int rows = T * (nq / nkv);
   const size_t smem =
       sizeof(float) * (rows * HD + BK * (HD + 4) + BK * HD + NWARPS * RW * BK);
@@ -255,21 +351,20 @@ int launch(const void* q, const void* kc, const void* vc, const int* kv_len, con
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nkv, B);
   decode_kernel<HD, RW, PAGED, TQ, TC><<<grid, THREADS, smem, stream>>>(
-      (const TQ*)q, (const TC*)kc, (const TC*)vc, kv_len, qpos, table, bs, (TQ*)o, T, S, nq,
-      nkv, scale);
+      (const TQ*)q, (const Store*)kc, (const Store*)vc, (const __nv_bfloat16*)ksc,
+      (const __nv_bfloat16*)vsc, kv_len, qpos, table, bs, (TQ*)o, T, S, nq, nkv, scale);
   return (int)cudaGetLastError();
 }
 
 // rows per warp: the smallest of 1, 2, 4, 8, 16 that covers T * group rows
-template <int HD, bool PAGED, typename TQ>
-int launch_rows(const void* q, const void* kc, const void* vc, const int* kv_len,
-                const int* qpos, const int* tb, int bs, void* o, int B, int T, int S, int nq,
-                int nkv, float scale, cudaStream_t st) {
-  using BF = __nv_bfloat16;
+template <int HD, bool PAGED, typename TQ, typename TC>
+int launch_rows(const void* q, const void* kc, const void* vc, const void* ksc,
+                const void* vsc, const int* kv_len, const int* qpos, const int* tb, int bs,
+                void* o, int B, int T, int S, int nq, int nkv, float scale, cudaStream_t st) {
   const int rw = (T * (nq / nkv) + NWARPS - 1) / NWARPS;
-#define TVA_LAUNCH(R) \
-  return launch<HD, R, PAGED, TQ, BF>(q, kc, vc, kv_len, qpos, tb, bs, o, B, T, S, nq, nkv, \
-                                     scale, st)
+#define TVA_LAUNCH(R)                                                                    \
+  return launch<HD, R, PAGED, TQ, TC>(q, kc, vc, ksc, vsc, kv_len, qpos, tb, bs, o, B, T, S, \
+                                      nq, nkv, scale, st)
   if (rw <= 1) TVA_LAUNCH(1);
   if (rw <= 2) TVA_LAUNCH(2);
   if (rw <= 4) TVA_LAUNCH(4);
@@ -292,13 +387,65 @@ int dispatch(const void* q, const void* kc, const void* vc, const int* kv_len, c
   if (bad_shape(B, T, S, nq, nkv) || bs <= 0 || PAGED != (table != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  using BF = __nv_bfloat16;
   if (dtype == TVA_DTYPE_F32) {
-    TVA_DISPATCH_HD(hd, return launch_rows<HD, PAGED, float>(q, kc, vc, kv_len, qpos, table, bs,
-                                                             o, B, T, S, nq, nkv, scale, st));
+    TVA_DISPATCH_HD(hd, return launch_rows<HD, PAGED, float, BF>(
+                           q, kc, vc, nullptr, nullptr, kv_len, qpos, table, bs, o, B, T, S, nq,
+                           nkv, scale, st));
   }
   if (dtype != TVA_DTYPE_BF16) return (int)cudaErrorInvalidValue;
-  TVA_DISPATCH_HD(hd, return launch_rows<HD, PAGED, __nv_bfloat16>(
-                           q, kc, vc, kv_len, qpos, table, bs, o, B, T, S, nq, nkv, scale, st));
+  TVA_DISPATCH_HD(hd, return launch_rows<HD, PAGED, BF, BF>(q, kc, vc, nullptr, nullptr, kv_len,
+                                                            qpos, table, bs, o, B, T, S, nq, nkv,
+                                                            scale, st));
+  return (int)cudaErrorInvalidValue;
+}
+
+// K8/K9 (PAGED true) and K10 (PAGED false, T = 1): a quantized cache of
+// `bits` 8 (int8) or 4 (packed int4) with its bf16 scale planes, built for
+// the engines' head dims 32 (test-tiny), 48 (the distilled checkpoint) and
+// 64 (tinyllama-1.1b). ONE_ROW: T * group <= 16 rows, one per warp, so only
+// that instantiation is built (K10).
+template <bool PAGED, bool ONE_ROW, typename TQ, typename TC>
+int dispatch_quant_hd(const void* q, const void* kc, const void* vc, const void* ksc,
+                      const void* vsc, const int* kv_len, const int* qpos, const int* table,
+                      int bs, void* o, int B, int T, int S, int nq, int nkv, int hd, float scale,
+                      cudaStream_t st) {
+#define TVA_QUANT_HD(H)                                                                         \
+  case H:                                                                                      \
+    if constexpr (ONE_ROW)                                                                     \
+      return launch<H, 1, PAGED, TQ, TC>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, o, B, T, \
+                                         S, nq, nkv, scale, st);                               \
+    else                                                                                       \
+      return launch_rows<H, PAGED, TQ, TC>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, o, B,  \
+                                           T, S, nq, nkv, scale, st);
+  switch (hd) {
+    TVA_QUANT_HD(32)
+    TVA_QUANT_HD(48)
+    TVA_QUANT_HD(64)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef TVA_QUANT_HD
+}
+
+template <bool PAGED, bool ONE_ROW>
+int dispatch_quant(const void* q, const void* kc, const void* vc, const void* ksc,
+                   const void* vsc, const int* kv_len, const int* qpos, const int* table, int bs,
+                   void* o, int B, int T, int S, int nq, int nkv, int hd, float scale, int bits,
+                   int dtype, void* stream) {
+  if (bad_shape(B, T, S, nq, nkv) || bs <= 0 || PAGED != (table != nullptr) ||
+      ksc == nullptr || vsc == nullptr || (ONE_ROW && T * (nq / nkv) > NWARPS))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  using BF = __nv_bfloat16;
+#define TVA_QUANT_CALL(TQ, TC)                                                                 \
+  return dispatch_quant_hd<PAGED, ONE_ROW, TQ, TC>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, \
+                                                   o, B, T, S, nq, nkv, hd, scale, st)
+  if (bits == 8 && dtype == TVA_DTYPE_F32) TVA_QUANT_CALL(float, QInt8);
+  if (bits == 8 && dtype == TVA_DTYPE_BF16) TVA_QUANT_CALL(BF, QInt8);
+  if (bits == 4 && dtype == TVA_DTYPE_F32) TVA_QUANT_CALL(float, QInt4);
+  if (bits == 4 && dtype == TVA_DTYPE_BF16) TVA_QUANT_CALL(BF, QInt4);
+#undef TVA_QUANT_CALL
   return (int)cudaErrorInvalidValue;
 }
 

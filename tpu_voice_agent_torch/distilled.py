@@ -5,7 +5,10 @@
 heads, head dim 48, the in-tree 619-token vocabulary) flattened with
 ``/``-joined keys, and ``data/intent_golden.json`` the JAX package's
 ``EngineParser`` output for golden utterances on it. Both are written by
-``python tests/test_torch_golden.py --write``. With real weights the card
+``python tests/test_torch_golden.py --write``. ``data/intent_golden_kvquant.json``
+holds the JAX package's batched paged parses of the same utterances under
+``KV_QUANT=int8`` and ``int4`` and its ``kv_quant_differential`` (written by
+``python tests/test_torch_kvquant_golden.py --write``). With real weights the card
 can prove its tokens right, not just show that they run.
 """
 
@@ -20,6 +23,7 @@ DATA_DIR = PACKAGE_DIR / "data"
 DISTILLED_NPZ = DATA_DIR / "intent-tiny-distilled.npz"
 DISTILLED_META = DATA_DIR / "intent-tiny-distilled.json"
 GOLDEN_JSON = DATA_DIR / "intent_golden.json"
+KVQUANT_GOLDEN_JSON = DATA_DIR / "intent_golden_kvquant.json"
 
 
 def distilled_prompt(text: str, context: dict) -> str:
@@ -57,3 +61,10 @@ def golden_records() -> list[dict]:
     """The recorded JAX parses: [{"text", "context", "token_ids",
     "output", "response"}, ...]."""
     return json.loads(GOLDEN_JSON.read_text())["cases"]
+
+
+def kvquant_golden_records() -> dict:
+    """The recorded JAX KV_QUANT parses: {"tiers": {"int8" | "int4": [{"text",
+    "context", "token_ids", "output", "finished"}, ...]}, "differential":
+    kv_quant_differential's dict}."""
+    return json.loads(KVQUANT_GOLDEN_JSON.read_text())

@@ -11,9 +11,10 @@ Differences from the JAX module, all deliberate:
   loop over per-layer views, not a ``lax.scan``.
 - a bf16 product rounds its output to bf16 before the int8 scale multiplies
   it (XLA kept that output in f32). fp32 weights have no such step.
-- ``forward_paged`` scatters into the paged pool IN PLACE (JAX donates the
-  pools and returns new ones) and returns only the logits.
-Left out: the MoE feed-forward and KV_QUANT pools.
+- ``forward_paged`` scatters into the paged pool (and, under KV_QUANT, its
+  scale planes) IN PLACE (JAX donates them and returns new ones) and
+  returns only the logits.
+Left out: the MoE feed-forward.
 """
 
 from __future__ import annotations
@@ -28,8 +29,11 @@ from ..ops import (
     decode_block_attention_layer,
     flash_attention,
     paged_attention,
+    paged_attention_quant,
     paged_block_attention,
+    paged_block_attention_quant,
 )
+from ..ops.kvquant import dequantize_kv, kv_quant_bits, quantize_kv
 
 # ---------------------------------------------------------------- config
 
@@ -299,7 +303,7 @@ def forward_paged(
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # (B, T) int32
     positions: torch.Tensor,  # (B, T) int32 — absolute positions of `tokens`
-    k_pool: torch.Tensor,  # (L, N, bs, nkv, hd) — the global paged pool, updated in place
+    k_pool: torch.Tensor,  # (L, N, bs, nkv, hdp) — the global paged pool, updated in place
     v_pool: torch.Tensor,
     block_tables: torch.Tensor,  # (B, max_blocks) int32 pool-block ids
     attn_impl: str = "kernels",  # "kernels" | "torch"
@@ -307,7 +311,9 @@ def forward_paged(
     trash_idx: torch.Tensor | None = None,  # (B,) int32 flat pool index for parked writes
     fresh_block: bool = False,  # caller asserts this T>1 block starts a sequence at pos 0
     gather_blocks: int | None = None,  # T>1 suffix path: gather only the first N entries
-    kv_quant: str | None = None,
+    k_scale: torch.Tensor | None = None,  # (L, N, bs, nkv) bf16 under KV_QUANT, in place
+    v_scale: torch.Tensor | None = None,
+    kv_quant: str | None = None,  # None | "int8" | "int4"
 ) -> torch.Tensor:
     """The paged twin of ``forward`` (llama.py:533-726); returns logits
     (B, T, V) f32.
@@ -323,14 +329,23 @@ def forward_paged(
     any other suffix block -> the row's first ``gather_blocks`` table
     entries gathered to a contiguous cache and the plain ``_attend``.
     ``attn_impl="torch"`` takes the last two branches only, as the JAX
-    engine's suffix prefill does under ``attn_impl="xla"``."""
-    if kv_quant is not None:
-        raise NotImplementedError(
-            "KV_QUANT pools (paged_*_quant kernels) are not ported yet: ROADMAP Queue 2")
+    engine's suffix prefill does under ``attn_impl="xla"``.
+
+    With ``kv_quant`` ("int8" | "int4") the pool holds ``ops.kvquant``'s
+    stored values and ``k_scale`` / ``v_scale`` their bf16 scales: writes
+    quantize, values and scales landing at the same flat index (parked rows
+    too), and each read takes the stored values: T == 1 -> K8, a
+    mid-sequence block -> K9 (each widens int * scale exactly in fp32); a
+    fresh block -> K1 over ``dequantize_kv`` of what was stored, rounded to
+    bf16 as the JAX module's ``dequantize_kv`` default gives; a gathered
+    suffix -> ``dequantize_kv`` (bf16) and the plain ``_attend``."""
     B, T = tokens.shape
-    L, N, bs, nkv, hd = k_pool.shape
+    L, N, bs, nkv, hdp = k_pool.shape
     nb = gather_blocks if gather_blocks is not None else block_tables.shape[1]
     S = nb * bs
+    if kv_quant is not None and (k_scale is None or v_scale is None):
+        raise ValueError(f"kv_quant={kv_quant!r} needs the k_scale / v_scale planes")
+    bits = kv_quant_bits(kv_quant)
     layers = params["layers"]
     if isinstance(layers, dict):
         layers = unstack_layers(layers)
@@ -346,30 +361,57 @@ def forward_paged(
         park = (torch.zeros((B,), dtype=torch.long, device=dev) if trash_idx is None
                 else trash_idx.long())
         flat_idx = torch.where(write_mask[:, None], flat_idx, park[:, None])
-    kflat = k_pool.view(L, N * bs, nkv, hd)
-    vflat = v_pool.view(L, N * bs, nkv, hd)
+    kflat = k_pool.view(L, N * bs, nkv, hdp)
+    vflat = v_pool.view(L, N * bs, nkv, hdp)
+    if kv_quant is not None:
+        ksflat = k_scale.view(L, N * bs, nkv)
+        vsflat = v_scale.view(L, N * bs, nkv)
     kernels = attn_impl == "kernels"
     tbl = block_tables[:, :nb].long()  # the gather branch's covered blocks
     kv_len_mask = torch.arange(S, device=dev)[None, :] <= frontier[:, None]
     for li, p in enumerate(layers):
         q, k, v = _layer_qkv(p, x, cfg, cos, sin)
-        kflat[li][flat_idx] = k.to(k_pool.dtype)
-        vflat[li][flat_idx] = v.to(v_pool.dtype)
+        if kv_quant is None:
+            kflat[li][flat_idx] = k.to(k_pool.dtype)
+            vflat[li][flat_idx] = v.to(v_pool.dtype)
+        else:
+            # quantize-on-write: one rowwise quantization at the scatter,
+            # values and their scales at the same flat index
+            qk, sk = quantize_kv(k, kv_quant)
+            qv, sv = quantize_kv(v, kv_quant)
+            kflat[li][flat_idx] = qk
+            vflat[li][flat_idx] = qv
+            ksflat[li][flat_idx] = sk
+            vsflat[li][flat_idx] = sv
         if kernels and T == 1:
-            attn = paged_attention(q[:, 0], k_pool, v_pool, block_tables, kv_len, li)
+            if kv_quant is None:
+                attn = paged_attention(q[:, 0], k_pool, v_pool, block_tables, kv_len, li)
+            else:
+                attn = paged_attention_quant(q[:, 0], k_pool, v_pool, k_scale, v_scale,
+                                             block_tables, kv_len, li, bits=bits)
         elif kernels and not fresh_block and T <= MAX_BLOCK_DECODE_T:
-            attn = paged_block_attention(q, k_pool, v_pool, block_tables, positions, li)
+            if kv_quant is None:
+                attn = paged_block_attention(q, k_pool, v_pool, block_tables, positions, li)
+            else:
+                attn = paged_block_attention_quant(q, k_pool, v_pool, k_scale, v_scale,
+                                                   block_tables, positions, li, bits=bits)
         elif fresh_block and T > 1:
-            k_at, v_at = k.to(k_pool.dtype), v.to(v_pool.dtype)
+            if kv_quant is None:
+                k_at, v_at = k.to(k_pool.dtype), v.to(v_pool.dtype)
+            else:  # what the pool stores, as a later read dequantizes it
+                k_at, v_at = dequantize_kv(qk, sk, kv_quant), dequantize_kv(qv, sv, kv_quant)
             if kernels:
-                # the kernel takes one dtype: the pool-rounded values, widened
+                # the kernel takes one dtype: the stored values, widened
                 attn = flash_attention(q, k_at.to(q.dtype), v_at.to(q.dtype), causal=True)
             else:
                 attn = _attend(q, k_at, v_at, positions,
                                torch.ones((B, T), dtype=torch.bool, device=dev))
         else:
-            kl = k_pool[li][tbl].reshape(B, S, nkv, hd)
-            vl = v_pool[li][tbl].reshape(B, S, nkv, hd)
+            kl = k_pool[li][tbl].reshape(B, S, nkv, hdp)
+            vl = v_pool[li][tbl].reshape(B, S, nkv, hdp)
+            if kv_quant is not None:
+                kl = dequantize_kv(kl, k_scale[li][tbl].reshape(B, S, nkv), kv_quant)
+                vl = dequantize_kv(vl, v_scale[li][tbl].reshape(B, S, nkv), kv_quant)
             attn = _attend(q, kl, vl, positions, kv_len_mask)
         x = _layer_out(p, x, attn.reshape(B, T, -1), cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -9,6 +9,9 @@
 | K4 | ``masked_argmax_advance`` | ``masked_argmax_advance_reference`` | ``ops/grammar_mask.py masked_argmax_advance`` |
 | K6 | ``paged_attention`` | ``paged_attention_reference`` | ``ops/paged_attention.py paged_attention`` |
 | K7 | ``paged_block_attention`` | ``paged_block_attention_reference`` | ``ops/paged_attention.py paged_block_attention`` |
+| K8 | ``paged_attention_quant`` | ``paged_attention_quant_reference`` | ``ops/paged_attention.py paged_attention_quant`` |
+| K9 | ``paged_block_attention_quant`` | ``paged_block_attention_quant_reference`` | ``ops/paged_attention.py paged_block_attention_quant`` |
+| K10 | ``decode_attention_quant`` | ``decode_attention_quant_reference`` | ``ops/decode_attention.py decode_attention_quant`` |
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``wrapper.launches``; ``launch_counts`` reads them all and
@@ -18,6 +21,8 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 from .decode_attention import (
     decode_attention,
     decode_attention_layer,
+    decode_attention_quant,
+    decode_attention_quant_reference,
     decode_attention_reference,
     decode_block_attention_layer,
     decode_block_attention_reference,
@@ -26,8 +31,12 @@ from .flash_attention import attention_reference, flash_attention
 from .grammar_mask import masked_argmax_advance, masked_argmax_advance_reference
 from .paged_attention import (
     paged_attention,
+    paged_attention_quant,
+    paged_attention_quant_reference,
     paged_attention_reference,
     paged_block_attention,
+    paged_block_attention_quant,
+    paged_block_attention_quant_reference,
     paged_block_attention_reference,
 )
 
@@ -39,6 +48,9 @@ KERNELS = {
     "masked_argmax_advance": masked_argmax_advance,
     "paged_attention": paged_attention,
     "paged_block_attention": paged_block_attention,
+    "paged_attention_quant": paged_attention_quant,
+    "paged_block_attention_quant": paged_block_attention_quant,
+    "decode_attention_quant": decode_attention_quant,
 }
 
 
@@ -56,6 +68,8 @@ __all__ = [
     "attention_reference",
     "decode_attention",
     "decode_attention_layer",
+    "decode_attention_quant",
+    "decode_attention_quant_reference",
     "decode_attention_reference",
     "decode_block_attention_layer",
     "decode_block_attention_reference",
@@ -64,8 +78,12 @@ __all__ = [
     "masked_argmax_advance",
     "masked_argmax_advance_reference",
     "paged_attention",
+    "paged_attention_quant",
+    "paged_attention_quant_reference",
     "paged_attention_reference",
     "paged_block_attention",
+    "paged_block_attention_quant",
+    "paged_block_attention_quant_reference",
     "paged_block_attention_reference",
     "reset_launch_counts",
 ]

@@ -24,11 +24,15 @@ from pathlib import Path
 from .. import PACKAGE_DIR, cache_dir
 
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "grammar_mask.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "grammar_mask.cu",
+           "paged_attention_quant.cu", "decode_attention_quant.cu")
 HEADERS = ("common.cuh", "decode_attention.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 48, 64, 128)
+# the quantized-cache kernels (K8-K10) are built for the engines' head dims:
+# test-tiny 32, the distilled checkpoint 48, tinyllama-1.1b 64
+QUANT_HEAD_DIMS = (32, 48, 64)
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -112,6 +116,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # q, k plane, v plane, table, q_positions, o, B, T, max_blocks, bs, nq, nkv, hd,
         # scale, dtype, stream
         "tva_paged_block_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
+        # q, k plane, v plane, k scales, v scales, table, kv_len, o, B, max_blocks, bs, nq,
+        # nkv, hd, scale, bits, dtype, stream
+        "tva_paged_attention_quant": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P],
+        # q, k plane, v plane, k scales, v scales, table, q_positions, o, B, T, max_blocks,
+        # bs, nq, nkv, hd, scale, bits, dtype, stream
+        "tva_paged_block_attention_quant": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
+                                            P],
+        # q, k cache, v cache, k scales, v scales, kv_len, o, B, S, nq, nkv, hd, scale, bits,
+        # dtype, stream
+        "tva_decode_attention_quant": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, I, P],
         # logits, state, mask, table, col_id, tok, next, B, V, C, stream
         "tva_masked_argmax_advance": [P, P, P, P, P, P, P, I, I, I, P],
     }

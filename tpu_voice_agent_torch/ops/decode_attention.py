@@ -1,9 +1,11 @@
 """K5 / K2 / K3: decode attention against a KV cache (CUDA,
-``csrc/decode_attention.cu``).
+``csrc/decode_attention.cu``); K10: against a quantized cache
+(``csrc/decode_attention_quant.cu``).
 
-Port of ``decode_attention``, ``decode_attention_layer`` and
-``decode_block_attention_layer`` from ``tpu_voice_agent/ops/decode_attention.py``,
-with the JAX signatures.
+Port of ``decode_attention``, ``decode_attention_layer``,
+``decode_block_attention_layer`` and ``decode_attention_quant`` from
+``tpu_voice_agent/ops/decode_attention.py``, with the JAX signatures (the
+Pallas tile size ``block_k`` and ``interpret`` dropped).
 
 - K5 (T = 1, flat ``(B, S, nkv, hd)`` cache, bf16 or fp32): query b attends
   slots ``[0, kv_len[b])``; the Whisper decoder's self- and cross-attention.
@@ -13,6 +15,10 @@ with the JAX signatures.
   contiguous view, so the kernel gets that plane's pointer).
 - K3 (T <= 16, the grammar fast-forward block): query i of row b attends
   slots ``[0, q_positions[b, i]]``; positions may be unordered or repeat.
+- K10 (T = 1, a flat ``(B, S, nkv, hdp)`` int8 cache with ``(B, S, nkv)``
+  bf16 scales, int8 or packed int4 as ``ops.kvquant`` stores them): K5 over
+  the quantized cache. No engine calls it (none in the JAX package either);
+  it is the dense instantiation of K8's tile loader.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors, and only then.
@@ -22,7 +28,17 @@ from __future__ import annotations
 
 import torch
 
-from ._lib import HEAD_DIMS, check, dtype_code, library, require, require_cuda, stream_of
+from ._lib import (
+    HEAD_DIMS,
+    QUANT_HEAD_DIMS,
+    check,
+    dtype_code,
+    library,
+    require,
+    require_cuda,
+    stream_of,
+)
+from .kvquant import dequantize_kv, kv_quant_of_bits
 
 _NEG_INF = -1e30
 MAX_BLOCK_T = 16
@@ -149,6 +165,61 @@ def decode_block_attention_layer(
 decode_block_attention_layer.launches = 0
 
 
+def check_quant_cache(name, k, v, k_scale, v_scale, hd: int, bits: int) -> None:
+    """A quantized cache or pool: int8 values of width ``hd`` (bits 8) or
+    ``hd / 2`` (bits 4) and bf16 scales shaped like the values minus their
+    last axis, at a head dim the kernels are built for."""
+    require(bits in (8, 4), name, f"bits must be 8 or 4, got {bits}")
+    require(k.dtype == v.dtype == torch.int8, name, "quantized values must be int8")
+    require(k_scale.dtype == v_scale.dtype == torch.bfloat16, name, "scales must be bfloat16")
+    require(k.shape == v.shape and k_scale.shape == v_scale.shape == k.shape[:-1], name,
+            f"values {tuple(k.shape)} and scales {tuple(k_scale.shape)} disagree")
+    require(k.shape[-1] == (hd if bits == 8 else hd // 2), name,
+            f"stored width {k.shape[-1]} does not fit hd {hd} at {bits} bits")
+    require(hd in QUANT_HEAD_DIMS, name, f"head dim {hd} not in {QUANT_HEAD_DIMS}")
+
+
+def decode_attention_quant(
+    q: torch.Tensor,  # (B, nq, hd)
+    k_cache: torch.Tensor,  # (B, S, nkv, hdp) int8 stored values
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # (B, S, nkv) bf16
+    v_scale: torch.Tensor,
+    kv_len: torch.Tensor,  # (B,) int32
+    *,
+    bits: int = 8,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """K5 against a quantized dense cache; any S. Returns (B, nq, hd) in
+    q.dtype."""
+    B, nq, hd = q.shape
+    scale = scale if scale is not None else hd**-0.5
+    if q.device.type == "cpu":
+        return decode_attention_quant_reference(q, k_cache, v_cache, k_scale, v_scale, kv_len,
+                                                bits=bits, scale=scale)
+    name = "decode_attention_quant"
+    require_cuda(name, q, k_cache, v_cache, k_scale, v_scale, kv_len)
+    require(k_cache.dim() == 4, name, f"cache must be (B, S, nkv, hdp), got {tuple(k_cache.shape)}")
+    check_quant_cache(name, k_cache, v_cache, k_scale, v_scale, hd, bits)
+    _, S, nkv, _ = k_cache.shape
+    require(k_cache.shape[0] == B, name, "q and cache disagree on B")
+    require(nq % nkv == 0 and nq // nkv <= MAX_GROUP, name,
+            f"need nq % nkv == 0 and a group of at most {MAX_GROUP}")
+    require(kv_len.dtype == torch.int32 and kv_len.shape == (B,), name,
+            "kv_len must be (B,) int32")
+    out = torch.empty_like(q)
+    err = library().tva_decode_attention_quant(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), kv_len.data_ptr(), out.data_ptr(), B, S, nq, nkv, hd, float(scale),
+        bits, dtype_code(name, q), stream_of(q))
+    check(err, name)
+    decode_attention_quant.launches += 1
+    return out
+
+
+decode_attention_quant.launches = 0
+
+
 def _softmax_pv(scores, valid, v, eq: str):
     """-1e30 mask -> softmax -> fp32 probabilities times fp32 values."""
     scores = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
@@ -183,3 +254,13 @@ def decode_block_attention_reference(q, k_cache, v_cache, q_positions, *,
              <= q_positions[:, :, None])[:, :, None, None, :]
     out = _softmax_pv(scores, valid, v_cache, "btkgs,bskh->btkgh")
     return out.reshape(B, T, nq, hd).to(q.dtype)
+
+
+def decode_attention_quant_reference(q, k_cache, v_cache, k_scale, v_scale, kv_len, *, bits=8,
+                                     scale=None) -> torch.Tensor:
+    """Plain PyTorch version of K10: the cache dequantized to fp32, then
+    K5's plain version."""
+    tier = kv_quant_of_bits(bits)
+    return decode_attention_reference(q, dequantize_kv(k_cache, k_scale, tier, torch.float32),
+                                      dequantize_kv(v_cache, v_scale, tier, torch.float32),
+                                      kv_len, scale=scale)

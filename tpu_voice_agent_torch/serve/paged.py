@@ -9,14 +9,19 @@ of the prefix and the user suffix. Decode attends through K6 / K7
 (``ops.paged_attention`` / ``ops.paged_block_attention``), which resolve the
 block tables themselves; tables grow at chunk boundaries. With
 ``radix_enable`` (``RADIX_ENABLE=1``) released chains are cached in a
-``RadixCache`` and admission reuses the longest cached block chain.
+``RadixCache`` and admission reuses the longest cached block chain. With
+``kv_quant`` (``KV_QUANT=int8|int4``) the pool stores ``ops.kvquant``'s int8
+or packed int4 values beside two bf16 scale planes indexed like it, so a
+block's scales travel with it through radix chains; decode reads it through
+K8 / K9.
 
 ``PagedDecodeEngine`` serves through the continuous batcher
 (``serve.scheduler``) via ``prefill_slot`` / ``decode_chunk`` /
 ``release_slot``; ``generate`` is refused. The pool is updated in place.
 Left for later: chunked prefill, speculative decoding (``spec_grow``),
 the warm-state handoff (``gather_chain_kv`` / ``adopt_chain_kv``),
-``warm_restart``, chaos injection, the quality lanes, meshes, KV_QUANT.
+``warm_restart``, chaos injection, the quality lanes, meshes, the
+``paged.kv_*`` pool gauges.
 """
 
 from __future__ import annotations
@@ -28,6 +33,14 @@ import numpy as np
 import torch
 
 from ..models.llama import forward_paged
+from ..ops._lib import QUANT_HEAD_DIMS
+from ..ops.kvquant import (
+    kv_block_bytes,
+    kv_quant_bits,
+    kv_store_dim,
+    kv_store_dtype,
+    quantize_kv,
+)
 from .engine import DecodeEngine, _sync
 from .radix import RadixCache
 
@@ -117,30 +130,49 @@ class BlockAllocator:
         return self.blocks_in_use / self.usable_blocks
 
 
+def check_kv_quant_head_dim(kv_quant: str | None, head_dim: int, device: torch.device) -> None:
+    """Refuse at boot a quantized pool that the card's kernels cannot read:
+    K8 / K9 are built for ``QUANT_HEAD_DIMS`` only (their plain versions on
+    the CPU take any head dim)."""
+    if kv_quant is not None and device.type == "cuda" and head_dim not in QUANT_HEAD_DIMS:
+        raise ValueError(f"KV_QUANT={kv_quant} on the card needs a head dim in "
+                         f"{QUANT_HEAD_DIMS}, got {head_dim}")
+
+
 class PagedDecodeEngine(DecodeEngine):
     """``DecodeEngine`` with a paged KV pool in place of dense per-slot
     lines. ``pool_blocks`` sizes device memory to the expected LIVE token
     count (default: the dense worst case, ``batch_slots * max_blocks``,
     plus the trash block). On a CUDA device the pool is read by K6 / K7,
-    which take any block size."""
+    which take any block size, or under ``kv_quant`` by K8 / K9.
+    ``kv_quant`` None reads ``KV_QUANT``; "" and "off" mean the bf16 pool."""
 
     def __init__(self, *args, block_size: int = 128, pool_blocks: int | None = None,
                  radix_enable: bool | None = None, kv_quant: str | None = None, **kw):
         if kv_quant is None:
             kv_quant = os.environ.get("KV_QUANT") or None
-        if kv_quant not in (None, "", "off"):
-            raise NotImplementedError(
-                f"KV_QUANT={kv_quant!r}: the quantized pool (paged_*_quant kernels) is not "
-                "ported yet: ROADMAP Queue 2")
+        if kv_quant in ("", "off"):
+            kv_quant = None
+        if kv_quant not in (None, "int8", "int4"):
+            raise ValueError(f"KV_QUANT must be int8 or int4, got {kv_quant!r}")
+        self.kv_quant = kv_quant
         super().__init__(*args, **kw)
+        check_kv_quant_head_dim(kv_quant, self.cfg.head_dim, self.device)
         bs = block_size
         self.block_size = bs
         self.max_blocks = -(-self.max_len // bs)
         if pool_blocks is None:
             pool_blocks = self.batch_slots * self.max_blocks + 1
-        shape = (self.cfg.n_layers, pool_blocks, bs, self.cfg.n_kv_heads, self.cfg.head_dim)
-        self.k_pool = torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
+        L, nkv = self.cfg.n_layers, self.cfg.n_kv_heads
+        shape = (L, pool_blocks, bs, nkv, kv_store_dim(self.cfg.head_dim, kv_quant))
+        dtype = kv_store_dtype(kv_quant)
+        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.k_scale = self.v_scale = None
+        if kv_quant is not None:
+            sshape = (L, pool_blocks, bs, nkv)
+            self.k_scale = torch.zeros(sshape, dtype=torch.bfloat16, device=self.device)
+            self.v_scale = torch.zeros(sshape, dtype=torch.bfloat16, device=self.device)
         self.allocator = BlockAllocator(pool_blocks)
         self.block_tables = torch.zeros((self.batch_slots, self.max_blocks), dtype=torch.int32,
                                         device=self.device)
@@ -166,12 +198,42 @@ class PagedDecodeEngine(DecodeEngine):
     def _init_kv_cache(self):
         return None  # the block pool, built in __init__, holds the KV
 
+    @property
+    def kv_quant_bits(self) -> int:
+        """Stored bits per KV element (16 bf16 / 8 / 4)."""
+        return kv_quant_bits(self.kv_quant)
+
+    @property
+    def kv_bytes_per_block(self) -> int:
+        """Device bytes one pool block occupies under the engine's KV tier
+        (values and scale planes; ``ops.kvquant.kv_block_bytes``)."""
+        return kv_block_bytes(self.cfg.n_layers, self.block_size, self.cfg.n_kv_heads,
+                              self.cfg.head_dim, self.kv_quant)
+
     def _scatter_pool(self, src_k, src_v, dst_idx) -> None:
-        """Write (L, n, nkv, hd) rows into the flat pool at ``dst_idx`` (n,)."""
+        """Write (L, n, nkv, hd) rows into the flat pool at ``dst_idx`` (n,):
+        as they are, or under KV_QUANT quantized on write with their scales
+        at the same flat indices (the prefix install and the per-slot tail
+        go through here, so they store what a decode write would)."""
         L, N, bs = self.k_pool.shape[:3]
         idx = torch.as_tensor(dst_idx, dtype=torch.long, device=self.device)
-        self.k_pool.view(L, N * bs, *self.k_pool.shape[3:])[:, idx] = src_k.to(self.k_pool.dtype)
-        self.v_pool.view(L, N * bs, *self.v_pool.shape[3:])[:, idx] = src_v.to(self.v_pool.dtype)
+        kflat = self.k_pool.view(L, N * bs, *self.k_pool.shape[3:])
+        vflat = self.v_pool.view(L, N * bs, *self.v_pool.shape[3:])
+        if self.kv_quant is None:
+            kflat[:, idx] = src_k.to(self.k_pool.dtype)
+            vflat[:, idx] = src_v.to(self.v_pool.dtype)
+            return
+        (qk, sk), (qv, sv) = quantize_kv(src_k, self.kv_quant), quantize_kv(src_v, self.kv_quant)
+        kflat[:, idx] = qk
+        vflat[:, idx] = qv
+        self.k_scale.view(L, N * bs, -1)[:, idx] = sk
+        self.v_scale.view(L, N * bs, -1)[:, idx] = sv
+
+    def _forward(self, tokens, positions, tables, **kw):
+        """``forward_paged`` on this engine's pool, scale planes and tier."""
+        return forward_paged(self.params, self.cfg, tokens, positions, self.k_pool, self.v_pool,
+                             tables, k_scale=self.k_scale, v_scale=self.v_scale,
+                             kv_quant=self.kv_quant, **kw)
 
     # ------------------------------------------------------------ prefix
 
@@ -271,9 +333,8 @@ class PagedDecodeEngine(DecodeEngine):
             gb = gb * 3 // 4
         gb = min(gb, self.max_blocks)
         self._next_pos[slot] = n
-        return forward_paged(self.params, self.cfg, tokens, positions, self.k_pool, self.v_pool,
-                             self.block_tables[slot:slot + 1], attn_impl="torch",
-                             fresh_block=False, gather_blocks=gb)
+        return self._forward(tokens, positions, self.block_tables[slot:slot + 1],
+                             attn_impl="torch", fresh_block=False, gather_blocks=gb)
 
     def prefill_slot(self, ids: list[int], slot: int):
         """Radix-aware admission: the longest cached block chain first, else
@@ -325,9 +386,8 @@ class PagedDecodeEngine(DecodeEngine):
         self._set_table_row(slot, owned)
         self._covered[slot] = len(owned) * bs
         self._next_pos[slot] = n
-        return forward_paged(self.params, self.cfg, tokens, positions, self.k_pool, self.v_pool,
-                             self.block_tables[slot:slot + 1], attn_impl=self.kernels,
-                             fresh_block=True)
+        return self._forward(tokens, positions, self.block_tables[slot:slot + 1],
+                             attn_impl=self.kernels, fresh_block=True)
 
     # ------------------------------------------------------------ decode
 
@@ -353,9 +413,8 @@ class PagedDecodeEngine(DecodeEngine):
     def _decode_step(self, tokens, positions, active):
         """One decode forward through the block tables; idle rows' writes
         park at the trash block via the write mask."""
-        return forward_paged(self.params, self.cfg, tokens, positions, self.k_pool, self.v_pool,
-                             self.block_tables, attn_impl=self.kernels, write_mask=active,
-                             trash_idx=self._trash_idx)
+        return self._forward(tokens, positions, self.block_tables, attn_impl=self.kernels,
+                             write_mask=active, trash_idx=self._trash_idx)
 
     def decode_chunk(self, cur, pos, fsm, active, nbytes, tokens_left, generator,
                      temperature: float, byte_budget: int, chunk_steps: int, greedy: bool):

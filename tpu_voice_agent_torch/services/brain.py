@@ -30,7 +30,8 @@ prompt prefix), ``BRAIN_PORT`` (default 8090), ``BRAIN_BATCH`` (slots,
 default 1), ``BRAIN_PAGED`` (``1``: the paged KV pool), ``BRAIN_POOL_BLOCKS``
 (pool size, default the dense worst case), ``BRAIN_CHUNK`` (decode steps per
 chunk, default 16), ``RADIX_ENABLE`` (``1``: session KV reuse on the paged
-pool), and ``BRAIN_DEVICE`` (default ``cuda``; ``cpu`` runs the plain
+pool), ``KV_QUANT`` (``int8`` / ``int4``: the quantized paged pool), and
+``BRAIN_DEVICE`` (default ``cuda``; ``cpu`` runs the plain
 versions).
 """
 
@@ -369,8 +370,9 @@ def make_parser_from_env():
     """``BRAIN_BACKEND=engine[:preset]`` (default ``engine:tinyllama-1.1b``)
     with ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``; ``BRAIN_BATCH``
     slots behind the continuous batcher; ``BRAIN_PAGED=1`` the paged pool
-    (``BRAIN_POOL_BLOCKS``), with ``RADIX_ENABLE=1`` session KV reuse (read
-    at engine construction). The engine runs on ``BRAIN_DEVICE`` (default
+    (``BRAIN_POOL_BLOCKS``), with ``RADIX_ENABLE=1`` session KV reuse and
+    ``KV_QUANT=int8|int4`` the quantized pool (both read at engine
+    construction). The engine runs on ``BRAIN_DEVICE`` (default
     ``cuda``: with no card it raises)."""
     from ..serve.engine import DecodeEngine
     from ..serve.paged import PagedDecodeEngine
@@ -411,7 +413,8 @@ class BrainApp:
                         prefix_tokens=len(engine.prefix_ids),
                         batch_slots=engine.batch_slots,
                         paged=getattr(engine, "allocator", None) is not None,
-                        radix=getattr(engine, "radix", None) is not None)
+                        radix=getattr(engine, "radix", None) is not None,
+                        kv_quant=getattr(engine, "kv_quant", None))
         return (200 if healthy else 503), body, {}
 
     def parse(self, raw: bytes, trace_id: str | None = None) -> tuple[int, dict, dict]:
