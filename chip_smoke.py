@@ -40,38 +40,50 @@ Phases, in order (any failure exits nonzero and prints no result line):
               bf16 drain's ids; then radix on against off at int8 with fp32
               activations, and one /parse of a BRAIN_PAGED=1 KV_QUANT=int8
               brain, which must answer 200.
-10. service_batched - a second in-process brain with BRAIN_BATCH=8
+10. spec    - speculative decoding (SPEC_ENABLE, K = 4): the parse phase's
+              engine with the fsm,prompt drafters and with the self-draft
+              (p50, verify forwards, accept rate, tokens per forward); the
+              batch phase's drain on the bf16 pool (K7) and the int8 pool
+              (K9), every verify tail one K11 launch, K6 / K8 never inside
+              the decoder; each stream must equal the ff=0 stream or part
+              only at a near tie; and a BRAIN_BATCH=8 BRAIN_PAGED=1
+              RADIX_ENABLE=1 SPEC_ENABLE=1 brain answering two /parse turns
+              of one session with 200.
+11. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
-11. golden  - the distilled intent checkpoint parses the golden utterances and
+12. golden  - the distilled intent checkpoint parses the golden utterances and
               must reproduce the JAX package's recorded outputs token for
               token, through K1, K2 and K4.
-12. batch_golden - the same checkpoint in a 15-slot paged engine, every
+13. batch_golden - the same checkpoint in a 15-slot paged engine, every
               golden utterance at once, through K1, K6 and K4.
-13. kvquant_golden - the same on the int8 and on the int4 pool, each equal
+14. kvquant_golden - the same on the int8 and on the int4 pool, each equal
               to the JAX package's recording for that tier, through K1, K8
               and K4; then ``kv_quant_differential`` on 6 golden cases must
               hold the JAX test's floors.
-14. stt     - SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000),
+15. spec_golden - the same recordings under speculation: single slot (K3,
+              K11), 15-slot paged at bf16 (K7), int8 and int4 (K9), and the
+              self-draft, which must accept > 0.9 at > 2 tokens a forward.
+16. stt     - SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000),
               max_new_tokens=32), bf16 random weights: per bucket the
               transcribe p50 over 5 runs split into encode and decode ms,
               tokens and forwards; one incremental feed + decode; the first
               decoder step through K5 held against the same step through its
               plain version (fp32 copies of the weights). K1 and K5 must
               launch.
-15. voice   - the voice→intent loop (``voicebench``, bench.py's definition)
+17. voice   - the voice→intent loop (``voicebench``, bench.py's definition)
               at full width: whisper-large-v3 STT and the tinyllama-1.1b int8
               ff=8 parse colocated on the card, 9 utterances; K1, K3, K4 and
               K5 must launch.
-16. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
+18. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
               transcribe the 10 eval texts and must reproduce the JAX
               package's recorded token ids, through K1 and K5.
-17. the kernels JSON line, the card line, and the final JSON line.
+19. the kernels JSON line, the card line, and the final JSON line.
 
-Every launch counter is set to 0 just before each of phases 4-16 and read just
+Every launch counter is set to 0 just before each of phases 4-18 and read just
 after; a kernel's ``launches`` is the sum over those runs (the kernel-alone
 comparisons of phase 3 are not counted). The port imports no JAX. Weights are
-random from a seed (phases 3-10, 14, 15) or committed checkpoints (11-13,
-16). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
+random from a seed (phases 3-11, 16, 17) or committed checkpoints (12-15,
+18). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
 from __future__ import annotations
@@ -107,6 +119,8 @@ REPLACES = {
     "paged_attention_quant": "tpu_voice_agent/ops/paged_attention.py:333",
     "paged_block_attention_quant": "tpu_voice_agent/ops/paged_attention.py:834",
     "decode_attention_quant": "tpu_voice_agent/ops/decode_attention.py:722",
+    "masked_argmax": "tpu_voice_agent/ops/grammar_mask.py:107",
+    "decode_block_attention": "tpu_voice_agent/ops/decode_attention.py:458",
 }
 SOURCES = {
     "flash_attention": "tpu_voice_agent_torch/csrc/flash_attention.cu",
@@ -119,6 +133,8 @@ SOURCES = {
     "paged_attention_quant": "tpu_voice_agent_torch/csrc/paged_attention_quant.cu",
     "paged_block_attention_quant": "tpu_voice_agent_torch/csrc/paged_attention_quant.cu",
     "decode_attention_quant": "tpu_voice_agent_torch/csrc/decode_attention_quant.cu",
+    "masked_argmax": "tpu_voice_agent_torch/csrc/grammar_mask.cu",
+    "decode_block_attention": "tpu_voice_agent_torch/csrc/decode_attention.cu",
 }
 # bf16 attention outputs, held element by element to the reference's own
 # size: |out - ref| <= ATTN_RTOL * |ref| + ATTN_ATOL. The kernel and its
@@ -274,16 +290,18 @@ def _kernel_row(name, ref_err, ratio, tol, ms, plain_ms, bound_ms, bound_by, lib
 
 def _extra_shape(label, ms, plain_ms, bound_ms, bound_by, library_ms) -> dict:
     """A kernel's timing at a second main-path shape (kept beside its row)."""
-    log(f"[kernels]   {label}: kernel {ms:.5f} ms plain {plain_ms:.5f} ms library "
-        f"{library_ms:.5f} ms bound {bound_ms:.5f} ms ({bound_by})")
+    lib = "none" if library_ms is None else f"{library_ms:.5f} ms"
+    log(f"[kernels]   {label}: kernel {ms:.5f} ms plain {plain_ms:.5f} ms library {lib} "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
     return {"shape": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
 def phase_kernels(fsm, prefix_len: int) -> dict:
-    """K1-K5 alone at the main path's shapes. The parse (tinyllama-1.1b: 32
+    """K1-K12 alone at the main path's shapes. The parse (tinyllama-1.1b: 32
     q heads, 4 kv heads, hd 64, 22 layers; service cache S = 2048; the prefix
-    bucket T = 1024; fast-forward blocks of 9; the intent grammar's tables)
+    bucket T = 1024; fast-forward blocks of 9, speculative verify blocks of
+    5; the intent grammar's tables)
     and the STT (whisper-large-v3: 20 heads, hd 64, bf16, MHA; encoder
     T = S = 500 at the 1000-frame bucket; decoder self cache S = 448 and
     cross-KV S = 500; the in-repo checkpoints: 4 heads, hd 16, fp32)."""
@@ -296,6 +314,7 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
         decode_attention_reference,
         decode_block_attention_reference,
         masked_argmax_advance_reference,
+        masked_argmax_reference,
     )
 
     dev = torch.device("cuda")
@@ -430,6 +449,56 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
         b_ms, b_by,
         cuda_ms(lambda: F.scaled_dot_product_attention(q9.transpose(1, 2), kh, vh,
                                                        attn_mask=amask), iters=100))
+    # K3 at the dense verify step's shape: [cur, 4 drafts], all real
+    pos5 = torch.tensor([[n + i for i in range(5)]], dtype=torch.int32, device=dev)
+    q5b = randn(1, 5, nq, hd)
+    m5 = n + 5
+    kh5 = kc[li, :, :m5].transpose(1, 2).repeat_interleave(group, 1)
+    vh5 = vc[li, :, :m5].transpose(1, 2).repeat_interleave(group, 1)
+    amask5 = torch.arange(m5, device=dev)[None, :] <= pos5[0][:, None]
+    rows["decode_block_attention_layer"]["verify"] = _extra_shape(
+        "the (1, 5) speculative verify block at the same frontier",
+        cuda_ms(lambda: ops.decode_block_attention_layer(q5b, kc, vc, pos5, li), iters=100),
+        cuda_ms(lambda: decode_block_attention_reference(q5b, kc[li], vc[li], pos5)),
+        *bound(2 * (2 * 5 * nq * hd + 2 * m5 * nkv * hd), 4 * nq * hd * float((pos5 + 1).sum())),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q5b.transpose(1, 2), kh5, vh5,
+                                                       attn_mask=amask5), iters=100))
+
+    # K12: K3's function on a flat (1, 2048, 4, 64) bf16 cache (the layer
+    # plane above) at the same frontier, the (1, 5) verify block and the
+    # (1, 9) chain block; and fp32 queries at the distilled checkpoint's
+    # widths (4 q / 2 kv heads of 48) over a flat bf16 (2, 300) cache
+    fk, fv = kc[li].contiguous(), vc[li].contiguous()
+    q48 = randn(2, 5, 4, 48, dtype=torch.float32)
+    k48, v48 = randn(2, 300, 2, 48), randn(2, 300, 2, 48)
+    pos48 = torch.tensor([[120, 121, 122, 123, 124], [299, 3, 150, 150, 77]],
+                         dtype=torch.int32, device=dev)
+    k12_err = attn_err([
+        (ops.decode_block_attention(q5b, fk, fv, pos5),
+         decode_block_attention_reference(q5b, fk, fv, pos5)),
+        (ops.decode_block_attention(q9, fk, fv, pos),
+         decode_block_attention_reference(q9, fk, fv, pos)),
+        (ops.decode_block_attention(q9, fk, fv, pos_u),
+         decode_block_attention_reference(q9, fk, fv, pos_u)),
+        (ops.decode_block_attention(q48, k48, v48, pos48),
+         decode_block_attention_reference(q48, k48, v48, pos48))])
+    rows["decode_block_attention"] = _kernel_row(
+        "decode_block_attention", *k12_err, f"{ATTN_TOL} (bf16); {F32_TOL} (fp32, hd 48)",
+        cuda_ms(lambda: ops.decode_block_attention(q5b, fk, fv, pos5), iters=100),
+        cuda_ms(lambda: decode_block_attention_reference(q5b, fk, fv, pos5)),
+        *bound(2 * (2 * 5 * nq * hd + 2 * m5 * nkv * hd), 4 * nq * hd * float((pos5 + 1).sum())),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q5b.transpose(1, 2), kh5, vh5,
+                                                       attn_mask=amask5), iters=100))
+    rows["decode_block_attention"]["shape"] = (
+        f"a (1, 5) block at positions {n}-{n + 4} over a flat (1, 2048, 4, 64) bf16 cache; "
+        "(1, 9) chain blocks and fp32 hd-48 queries checked")
+    rows["decode_block_attention"]["chain"] = _extra_shape(
+        "the (1, 9) chain block", cuda_ms(lambda: ops.decode_block_attention(q9, fk, fv, pos),
+                                          iters=100),
+        cuda_ms(lambda: decode_block_attention_reference(q9, fk, fv, pos)),
+        *bound(2 * (2 * 9 * nq * hd + 2 * m * nkv * hd), 4 * nq * hd * float((pos + 1).sum())),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q9.transpose(1, 2), kh, vh,
+                                                       attn_mask=amask), iters=100))
 
     rows.update(_paged_kernel_rows(g, randn))
     rows.update(_quant_kernel_rows(g, randn, n))
@@ -459,6 +528,38 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
         cuda_ms(lambda: masked_argmax_advance_reference(l1, s1, tables.dense_mask,
                                                         tables.table, tables.col_id)),
         b_ms, b_by, None)
+
+    # K11: the verify tail's masked argmax, one row per (slot, block
+    # position): 5 rows (B = 1, 1+K = 5) and 160 (B = 32), states drawn
+    # from the grammar's states with some dead (-1, clamped to 0), a tied
+    # row. Exact: token ids must be equal (tolerance 0).
+    def verify_rows(R: int, seed: int):
+        gen = torch.Generator().manual_seed(seed)
+        st = torch.randint(0, fsm.num_states, (R,), generator=gen, dtype=torch.int32)
+        st[0] = fsm.start
+        st[torch.randperm(R, generator=gen)[:max(1, R // 10)]] = -1
+        lg = torch.randn(R, V, generator=gen)
+        lg[R // 2] = 0.5
+        return lg.to(dev), st.to(dev)
+
+    mism, timings = 0, {}
+    for R in (5, 160):
+        lg, st = verify_rows(R, R)
+        blk = ops.masked_argmax_block(lg.reshape(R // 5, 5, V), st.reshape(R // 5, 5),
+                                      tables.dense_mask)
+        ref = masked_argmax_reference(lg, st, tables.dense_mask)
+        mism += int((blk.flatten() != ref).sum())
+        stc = torch.clamp(st, min=0)  # what masked_argmax_block hands the kernel
+        # R rows of V logits (4 B) and V mask bytes, a state in, a token out
+        timings[R] = (cuda_ms(lambda: ops.masked_argmax(lg, stc, tables.dense_mask), iters=200),
+                      cuda_ms(lambda: masked_argmax_reference(lg, stc, tables.dense_mask)),
+                      *bound(R * V * 5 + 2 * 4 * R, R * V, FP32_FLOPS), None)
+    rows["masked_argmax"] = _kernel_row("masked_argmax", float(mism), float(mism > 0), 0.0,
+                                        *timings[5])
+    rows["masked_argmax"]["shape"] = (f"the (1, 5) verify block: 5 rows of V {V} fp32 logits "
+                                      "and the (S, V) grammar mask; 160 rows checked and timed")
+    rows["masked_argmax"]["batch"] = _extra_shape("the (32, 5) verify block: 160 rows",
+                                                  *timings[160])
     torch.cuda.synchronize()
     return rows
 
@@ -762,13 +863,18 @@ class Counted:
             fail_if(self.counts.get(n, 0) <= 0, f"{self.name}: {n} never launched")
 
 
-def _post(base: str, body: dict) -> tuple[int, dict]:
+def _post(base: str, body: dict, headers: dict | None = None) -> tuple[int, dict]:
+    """POST /parse; the response headers go into ``headers`` when given."""
     req = urllib.request.Request(base + "/parse", data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"}, method="POST")
     try:
         with urllib.request.urlopen(req, timeout=600) as r:
+            if headers is not None:
+                headers.update(r.headers)
             return r.status, json.loads(r.read())
     except urllib.error.HTTPError as e:
+        if headers is not None:
+            headers.update(e.headers)
         return e.code, json.loads(e.read())
 
 
@@ -851,20 +957,46 @@ def _bench_prompt(engine, text: str) -> str:
 def _plain_top2(eng, prompt_ids: list[int], tokens: list[int]) -> dict:
     """The two best legal next tokens after ``prompt_ids + tokens`` under a
     plain teacher-forced forward (plain cache attention, no kernel), their
-    logit margin, and the best one's logit."""
+    logit margin, and the best one's logit. On a quantized pool the forward
+    stores its k/v at the engine's tier and attends them dequantized
+    (``forward_paged``'s plain gather path), so the margin is that tier's;
+    the bf16 cache's reading rides along under ``bf16``."""
     import torch
 
-    from tpu_voice_agent_torch.models.llama import forward, init_kv_cache
+    from tpu_voice_agent_torch.models.llama import forward, forward_paged, init_kv_cache
+    from tpu_voice_agent_torch.ops.kvquant import kv_store_dim, kv_store_dtype
 
     seq = prompt_ids + tokens
-    toks = torch.tensor([seq], dtype=torch.int32, device=eng.device)
-    pos = torch.arange(len(seq), dtype=torch.int32, device=eng.device)[None]
-    cache = init_kv_cache(eng.cfg, 1, len(seq), device=eng.device)
-    logits, _ = forward(eng.params, eng.cfg, toks, pos, cache, attn_impl="torch")
+    dev = eng.device
+    toks = torch.tensor([seq], dtype=torch.int32, device=dev)
+    pos = torch.arange(len(seq), dtype=torch.int32, device=dev)[None]
     legal = torch.from_numpy(eng.fsm.mask[max(eng.fsm.walk(tokens), 0)]).to(eng.device)
-    top = torch.topk(torch.where(legal, logits[0, -1].float(), -1e30), 2)
-    v, i = top.values.tolist(), top.indices.tolist()
-    return {"top2": i, "margin": v[0] - v[1], "top_logit": v[0]}
+
+    def top2(logits) -> dict:
+        top = torch.topk(torch.where(legal, logits[0, -1].float(), -1e30), 2)
+        v, i = top.values.tolist(), top.indices.tolist()
+        return {"top2": i, "margin": v[0] - v[1], "top_logit": v[0]}
+
+    cache = init_kv_cache(eng.cfg, 1, len(seq), device=dev)
+    bf16 = top2(forward(eng.params, eng.cfg, toks, pos, cache, attn_impl="torch")[0])
+    tier = getattr(eng, "kv_quant", None)
+    if tier is None:
+        return bf16
+    cfg, bs = eng.cfg, eng.block_size
+    nb = -(-len(seq) // bs)
+    shape = (cfg.n_layers, nb + 1, bs, cfg.n_kv_heads)
+    pools = [torch.zeros((*shape, kv_store_dim(cfg.head_dim, tier)),
+                         dtype=kv_store_dtype(tier), device=dev) for _ in range(2)]
+    scales = [torch.zeros(shape, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)[None]
+    logits = forward_paged(eng.params, cfg, toks, pos, *pools, table, attn_impl="torch",
+                           k_scale=scales[0], v_scale=scales[1], kv_quant=tier)
+    return {**top2(logits), "bf16": bf16}
+
+
+def _ulps(d: dict) -> float:
+    """A top-2 margin in bf16 ulps (2^-8) of the top logit."""
+    return d["margin"] / max(2.0 ** -8 * abs(d["top_logit"]), 1e-30)
 
 
 def phase_parse(params, totals: dict, report: dict) -> None:
@@ -911,7 +1043,8 @@ def phase_parse(params, totals: dict, report: dict) -> None:
                           "tokens": toks, "forwards": fwd,
                           "finished": [r.finished for r in results], "launches": c.counts,
                           "ms_per_forward": [d / f for d, f in zip(dec, fwd)],
-                          "ms_per_token": [w / t for w, t in zip(walls, toks)]}
+                          "ms_per_token": [w / t for w, t in zip(walls, toks)],
+                          "token_ids": ids[ff]}
         log(f"[parse] ff={ff}: p50 {statistics.median(walls):.2f} ms over {len(walls)} "
             f"(walls {[round(w, 2) for w in walls]}), prefill p50 "
             f"{statistics.median(pre):.2f} ms, decode p50 {statistics.median(dec):.2f} ms, "
@@ -1199,13 +1332,14 @@ def _paged_engine(params, ff: int, **kw):
     return eng
 
 
-def _drain(eng, label: str, totals: dict):
+def _drain(eng, label: str, totals: dict, on_start=None):
     """bench_batch.py's ``run_one`` on ``eng``: the cached prefix, a
     ContinuousBatcher (chunk 16, 128 new tokens), one warm-up request, then
     32 sessions submitted at once and drained, stepping by hand to sample
     the pool's peak occupancy. Fails unless every session is ok and in the
-    grammar and the pool is back to the prefix's blocks. Returns (row,
-    results, launch counts)."""
+    grammar and the pool is back to the prefix's blocks. ``on_start()``, if
+    given, runs after the warm-up, just before the counted drain. Returns
+    (row, results, launch counts)."""
     import torch
 
     from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
@@ -1219,6 +1353,8 @@ def _drain(eng, label: str, totals: dict):
     batcher.run_until_done()
     batcher.results.clear()
     chunks0, fwd0 = batcher.chunks, batcher.forwards
+    if on_start is not None:
+        on_start()
     with Counted(label, totals) as c:
         torch.cuda.synchronize()
         peak = 0
@@ -1326,7 +1462,8 @@ def phase_kvquant(params, totals: dict, report: dict, profile: bool = False) -> 
             row.update(kv_bytes_per_block=eng.kv_bytes_per_block,
                        peak_pool_bytes=row["peak_pool_blocks"] * eng.kv_bytes_per_block,
                        pool_bytes=blocks * eng.kv_bytes_per_block,
-                       same_as_bf16=BATCH_SLOTS - len(parts), parting_steps=parts)
+                       same_as_bf16=BATCH_SLOTS - len(parts), parting_steps=parts,
+                       token_ids=[r.token_ids for r in res])
             log(f"[{label}] {eng.kv_bytes_per_block} bytes a block, peak "
                 f"{row['peak_pool_bytes']} of {row['pool_bytes']} pool bytes; "
                 f"{row['same_as_bf16']} of {BATCH_SLOTS} sessions decode the bf16 drain's ids "
@@ -1457,11 +1594,12 @@ def phase_batch_dense(params, totals: dict, report: dict) -> None:
     report["batch_dense"] = out
 
 
-def _profile_batch_chunk(eng, report: dict, tier: str = "bf16") -> None:
-    """The first ff=8 decode chunk after 32 admissions under the profiler:
+def _profile_batch_chunk(eng, report: dict, tier: str = "bf16", kind: str = "ff8") -> None:
+    """The first decode chunk after 32 admissions under the profiler:
     before each call (untimed) the batcher drains and admits 32 fresh
     sessions, so the chunk starts with every row live. ``tier`` names the
-    engine's KV pool in the label and the report key."""
+    engine's KV pool and ``kind`` its decode (ff8, or spec for verify
+    steps) in the label and the report key."""
     from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
 
     b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
@@ -1478,8 +1616,8 @@ def _profile_batch_chunk(eng, report: dict, tier: str = "bf16") -> None:
         b.step()
         return f"{live} live rows at its start, {eng._last_fwds} forwards"
 
-    key = "batch_ff8" if tier == "bf16" else f"kvquant_{tier}_ff8"
-    _profile(f"ff=8 batch chunk (32 rows, 16 steps, {tier} KV)", chunk, key, report,
+    key = f"batch_{kind}" if tier == "bf16" else f"kvquant_{tier}_{kind}"
+    _profile(f"{kind} batch chunk (32 rows, 16 steps, {tier} KV)", chunk, key, report,
              setup=admit)
     b.run_until_done()
 
@@ -1661,10 +1799,16 @@ def _partings(eng, ids_list, gen_a, gen_b, label: str, what: str) -> list[dict]:
         if a == b:
             continue
         i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
-        d = {"prompt_tokens": len(ids), "step": i, **_plain_top2(eng, ids, b[:i])}
+        d = {"prompt_tokens": len(ids), "step": i,
+             "picks": [a[i] if i < len(a) else None, b[i] if i < len(b) else None],
+             **_plain_top2(eng, ids, b[:i])}
         diverged.append(d)
-        log(f"[{label}] {what} part at step {i} of a {len(ids)}-token prompt: plain top-2 "
-            f"{d['top2']}, margin {d['margin']:.6f} against top logit {d['top_logit']:.4f}")
+        also = "" if "bf16" not in d else (
+            f"; on a bf16 cache top-2 {d['bf16']['top2']}, margin {d['bf16']['margin']:.6f} "
+            f"against {d['bf16']['top_logit']:.4f} ({_ulps(d['bf16']):.2f} ulps)")
+        log(f"[{label}] {what} part at step {i} of a {len(ids)}-token prompt (picks "
+            f"{d['picks']}): plain top-2 {d['top2']}, margin {d['margin']:.6f} against top "
+            f"logit {d['top_logit']:.4f} ({_ulps(d):.2f} bf16 ulps){also}")
     return diverged
 
 
@@ -1816,6 +1960,374 @@ def phase_service_batched(totals: dict, report: dict) -> None:
                                  "chunks": parser.batcher.chunks, "launches": c.counts}
 
 
+# ------------------------------------------------------------------ speculation
+
+SPEC_K = 4  # the JAX default draft width: verify blocks of 1 + 4
+
+
+def _count_inside(spec) -> dict:
+    """Launch counts taken inside ``spec.decode_chunk`` only (the verify
+    steps and their drafting), apart from admissions: the returned dict
+    fills as the decoder runs."""
+    from tpu_voice_agent_torch import ops
+
+    inside: dict = {}
+    chunk = spec.decode_chunk
+
+    def counted(*a, **kw):
+        before = ops.launch_counts()
+        try:
+            return chunk(*a, **kw)
+        finally:
+            for k, v in ops.launch_counts().items():
+                inside[k] = inside.get(k, 0) + v - before[k]
+
+    spec.decode_chunk = counted
+    return inside
+
+
+def _spec_delta(s0: dict, s1: dict) -> dict:
+    """The speculation counters between two ``stats()`` readings."""
+    d = {k: s1[k] - s0[k] for k in ("drafted", "accepted", "verify_steps", "emitted")}
+    d["accept_rate"] = d["accepted"] / d["drafted"] if d["drafted"] else 0.0
+    d["tokens_per_forward"] = d["emitted"] / d["verify_steps"] if d["verify_steps"] else 0.0
+    return d
+
+
+def _spec_parse(params, label: str, totals: dict, self_draft: bool = False):
+    """The parse phase's engine (tinyllama-1.1b int8, cache 1024, bucket
+    1024, the cached prefix) with ``SpecConfig(k=4)`` (``fsm,prompt``), or
+    with the target as its own draft model: generate(64) p50 over bench.py's
+    5 utterances after one warm-up. Returns (engine, row, results, counts,
+    launches inside the decoder's chunks)."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.engine import DecodeEngine
+    from tpu_voice_agent_torch.serve.spec import DraftModelDrafter, SpecConfig, SpecDecoder
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    eng = DecodeEngine(preset="tinyllama-1.1b", quant="int8", max_len=1024,
+                       prefill_buckets=(1024,), init_weights=False, spec=SpecConfig(k=SPEC_K))
+    eng.load_params(params)
+    if self_draft:
+        eng.spec = SpecDecoder(eng, SpecConfig(k=SPEC_K), drafter=DraftModelDrafter(
+            eng, SPEC_K, cfg=eng.cfg, params=eng.params))
+    install_prompt_prefix(eng)
+    eng.generate(_bench_prompt(eng, UTTERANCES[0]), max_new_tokens=64)
+    inside = _count_inside(eng.spec)
+    s0 = eng.spec.stats()
+    walls, results = [], []
+    with Counted(label, totals) as c:
+        for text in UTTERANCES:
+            prompt = _bench_prompt(eng, text)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.generate(prompt, max_new_tokens=64)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            results.append(res)
+            fail_if(res.error is not None, f"{label}: {res.error}")
+            fail_if(not (res.finished or res.steps == 64),
+                    f"{label}: stopped after {res.steps} tokens without EOS")
+    row = {"p50_ms": statistics.median(walls), "walls_ms": walls,
+           "prefill_ms": [r.prefill_ms for r in results],
+           "decode_ms": [r.decode_ms for r in results], "tokens": [r.steps for r in results],
+           "forwards": [r.forwards for r in results], "launches": c.counts,
+           "launches_in_decoder": dict(inside), "draft_ms": eng.spec.draft_ms,
+           **_spec_delta(s0, eng.spec.stats())}
+    return eng, row, results, c, inside
+
+
+def phase_spec(params, totals: dict, report: dict, profile: bool = False) -> None:
+    """Speculative decoding (``SPEC_ENABLE``) at full width, random weights:
+    (a) the spec parse beside the parse phase's ff=8 and ff=0 numbers; (b)
+    the same with the self-draft; (c) the batch cell's 32-session drain on
+    the bf16 pool (K7) and the int8 pool (K9), speculation on; (d) a
+    BRAIN_BATCH=8 BRAIN_PAGED=1 RADIX_ENABLE=1 SPEC_ENABLE=1 brain answering
+    two /parse turns of one session. Spec output is plain greedy output, so
+    every stream must equal the fast-forward-0 stream on the same weights,
+    or part from it only at a near tie (``BF16_PART_ULPS``): the verify
+    block's attention (K3 / K7 / K9 at T = 5) sums in another order than
+    the T = 1 step's (K2 / K6 / K8). Each drain's ff=0 run and spec run
+    are also repeated, to show whether their ids repeat from run to run.
+    ``profile``: one spec parse and one spec batch chunk (bf16) under the
+    profiler."""
+    import torch
+
+    from tpu_voice_agent_torch.models.llama import PRESETS
+    from tpu_voice_agent_torch.ops.kvquant import kv_block_bytes
+    from tpu_voice_agent_torch.serve.engine import DecodeEngine
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.serve.spec import SpecConfig
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out: dict = {}
+    parse = report.get("parse", {})
+    ids0 = parse.get("ff0", {}).get("token_ids")
+    if ids0 is None:  # the parse phase did not run: the ff=0 parse, untimed
+        plain = DecodeEngine(preset="tinyllama-1.1b", quant="int8", max_len=1024,
+                             prefill_buckets=(1024,), init_weights=False)
+        plain.load_params(params)
+        install_prompt_prefix(plain)
+        ids0 = [plain.generate(_bench_prompt(plain, t), max_new_tokens=64).token_ids
+                for t in UTTERANCES]
+        del plain
+    for key, self_draft in (("parse", False), ("parse_self_draft", True)):
+        label = f"spec {key.replace('_', ' ')}"
+        eng, row, results, c, inside = _spec_parse(params, label, totals, self_draft)
+        c.require("decode_block_attention_layer", "masked_argmax", "masked_argmax_advance")
+        if not self_draft:
+            fail_if(inside.get("decode_attention_layer", 0) > 0,
+                    f"{label}: K2 launched inside the decoder's chunks")
+        prompts = [eng.tokenizer.encode(_bench_prompt(eng, t), bos=True) for t in UTTERANCES]
+        diverged = _partings(eng, prompts, [r.token_ids for r in results], ids0, label,
+                             "spec and ff=0")
+        _check_partings(diverged, label, BF16_PART_ULPS)
+        row["diverged"] = diverged
+        beside = {f"ff{ff}_p50_ms": parse.get(f"ff{ff}", {}).get("p50_ms") for ff in (8, 0)}
+        row.update(beside)
+        ff8, ff0 = (("not run" if v is None else f"{v:.2f} ms") for v in beside.values())
+        log(f"[{label}] p50 {row['p50_ms']:.2f} ms over 5 (walls "
+            f"{[round(w, 2) for w in row['walls_ms']]}; the parse phase's ff=8 {ff8}, ff=0 "
+            f"{ff0}); tokens {row['tokens']}, "
+            f"verify forwards {row['forwards']}; drafted {row['drafted']}, accepted "
+            f"{row['accepted']}, accept rate {row['accept_rate']:.4f}, tokens per forward "
+            f"{row['tokens_per_forward']:.4f}; host drafting {row['draft_ms']:.2f} ms in all; "
+            f"{len(UTTERANCES) - len(diverged)} of {len(UTTERANCES)} equal the ff=0 ids")
+        out[key] = row
+        if profile and not self_draft:
+            prompt = _bench_prompt(eng, UTTERANCES[1])
+
+            def spec_parse(eng=eng, prompt=prompt):
+                res = eng.generate(prompt, max_new_tokens=64)
+                return f"{res.steps} tokens, {res.forwards} verify forwards + prefill"
+
+            _profile("spec (fsm,prompt) generate(64)", spec_parse, "spec_parse", report)
+        del eng
+
+    cfg = PRESETS["tinyllama-1.1b"]
+    widths = (cfg.n_layers, 128, cfg.n_kv_heads, cfg.head_dim)
+    prompts = [_batch_prompt(i) for i in range(BATCH_SLOTS)]
+    for tier, kernel, t1_kernel, plain_key in (
+            ("off", "paged_block_attention", "paged_attention", ("batch", "ff0")),
+            ("int8", "paged_block_attention_quant", "paged_attention_quant",
+             ("kvquant", "int8_ff0"))):
+        label = f"spec batch {'bf16' if tier == 'off' else tier}"
+        kw = {} if tier == "off" else {
+            "pool_blocks": 513 * kv_block_bytes(*widths, None) // kv_block_bytes(*widths, tier)}
+        # the ff=0 drain twice (the earlier phase's, where it ran, and this
+        # one's, untimed): do its ids repeat from run to run?
+        ff0_runs = [report.get(plain_key[0], {}).get(plain_key[1], {}).get("token_ids")]
+        ff0_runs = [r for r in ff0_runs if r is not None]
+        while len(ff0_runs) < 2:
+            plain = _paged_engine(params, 0, radix_enable=False, kv_quant=tier, **kw)
+            install_prompt_prefix(plain)
+            ff0_runs.append([r.token_ids for r in ContinuousBatcher(
+                plain, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS).generate_many(prompts)])
+            del plain
+        ids_plain = ff0_runs[0]
+        eng = _paged_engine(params, 0, radix_enable=False, kv_quant=tier,
+                            spec=SpecConfig(k=SPEC_K), **kw)
+        hold: dict = {}
+
+        def start(eng=eng, hold=hold):
+            hold["s0"] = eng.spec.stats()
+            hold["inside"] = _count_inside(eng.spec)
+            hold["peak"] = 0
+            grow = eng._claim
+
+            def sampled(*a, **kw):  # a spec drain may end inside one chunk
+                starved = grow(*a, **kw)
+                hold["peak"] = max(hold["peak"], eng.allocator.blocks_in_use)
+                return starved
+
+            eng._claim = sampled
+
+        row, res, c = _drain(eng, label, totals, on_start=start)
+        c.require(kernel, "masked_argmax", "masked_argmax_advance")
+        inside = hold["inside"]
+        fail_if(inside.get(t1_kernel, 0) > 0,
+                f"{label}: the T = 1 kernel {t1_kernel} launched inside the decoder's chunks")
+        fail_if(inside.get(kernel, 0) <= 0 or inside.get("masked_argmax", 0) <= 0,
+                f"{label}: the verify steps did not launch {kernel} and masked_argmax")
+        ids = [eng.tokenizer.encode(p, bos=True) for p in prompts]
+        diverged = _partings(eng, ids, [r.token_ids for r in res], ids_plain, label,
+                             "spec and ff=0")
+        _check_partings(diverged, label, BF16_PART_ULPS)
+        sd = _spec_delta(hold["s0"], eng.spec.stats())
+        row_fwds = sum(r.forwards for r in res)
+        row["peak_pool_blocks"] = max(row["peak_pool_blocks"], hold["peak"])
+        row.update(sd, diverged=diverged, launches_in_decoder=dict(inside),
+                   row_forwards=row_fwds, tokens_per_forward_per_row=row["tokens"] / row_fwds,
+                   spec_accepted=sum(r.spec_accepted for r in res), draft_ms=eng.spec.draft_ms)
+        log(f"[{label}] {row['intents_per_s']:.3f} intents/s, {row['tokens_per_s']:.1f} "
+            f"tokens/s; {row['forwards']} verify forwards; accepted/drafted {sd['accepted']}/"
+            f"{sd['drafted']} ({sd['accept_rate']:.4f}); tokens per forward per row "
+            f"{row['tokens_per_forward_per_row']:.4f}; peak pool {row['peak_pool_blocks']} "
+            f"blocks; {BATCH_SLOTS - len(diverged)} of {BATCH_SLOTS} equal the ff=0 drain")
+        out[f"batch_{'bf16' if tier == 'off' else tier}"] = row
+        # the spec drain again on the same engine: do its ids repeat?
+        again = [r.token_ids for r in ContinuousBatcher(
+            eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS).generate_many(prompts)]
+        repeat = {"ff0_sessions_differ": [i for i, (a, b) in enumerate(zip(*ff0_runs))
+                                          if a != b],
+                  "spec_sessions_differ": [i for i, (a, b) in enumerate(
+                      zip([r.token_ids for r in res], again)) if a != b],
+                  "parting_sessions": [i for i, (a, b) in enumerate(
+                      zip([r.token_ids for r in res], ids_plain)) if a != b]}
+        row["repeat"] = repeat
+        log(f"[{label}] run to run: the ff=0 drain's ids differ on sessions "
+            f"{repeat['ff0_sessions_differ']} between two runs, the spec drain's on "
+            f"{repeat['spec_sessions_differ']}; spec parts from ff=0 on "
+            f"{repeat['parting_sessions']}")
+        if profile and tier == "off":
+            _profile_batch_chunk(eng, report, kind="spec")
+        del eng
+    out["service"] = _spec_service(totals)
+    report["spec"] = out
+
+
+def _spec_service(totals: dict) -> dict:
+    """A BRAIN_BATCH=8 BRAIN_PAGED=1 RADIX_ENABLE=1 SPEC_ENABLE=1 brain from
+    the environment, in-process on an ephemeral port: two /parse turns of
+    one session must answer 200, turn 2 served from more cache than the
+    prefix."""
+    from tpu_voice_agent_torch.schemas import validate_parse_response
+    from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+    from tpu_voice_agent_torch.services import brain
+
+    env = dict(BRAIN_BACKEND="engine:tinyllama-1.1b", BRAIN_QUANT="int8", BRAIN_BATCH="8",
+               BRAIN_PAGED="1", RADIX_ENABLE="1", SPEC_ENABLE="1")
+    os.environ.update(env)
+    for k in ("BRAIN_FF", "BRAIN_PREFIX", "BRAIN_DEVICE", "BRAIN_POOL_BLOCKS", "BRAIN_CHUNK",
+              "KV_QUANT", "SPEC_K", "SPEC_DRAFTER", "SPEC_DRAFT_MODEL", "SPEC_TRACE_SINK"):
+        os.environ.pop(k, None)
+    try:
+        t0 = time.perf_counter()
+        parser = brain.make_parser_from_env()
+    finally:
+        for k in ("BRAIN_BATCH", "BRAIN_PAGED", "RADIX_ENABLE", "SPEC_ENABLE"):
+            os.environ.pop(k, None)
+    eng = parser.engine
+    boot = time.perf_counter() - t0
+    server = brain.make_server(brain.BrainApp(parser), port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    turns = []
+    try:
+        fail_if(not (isinstance(parser, brain.BatchedEngineParser) and parser.wants_session
+                     and eng.spec is not None and isinstance(eng, PagedDecodeEngine)
+                     and eng.device.type == "cuda"),
+                "spec service: not a session-aware speculative paged parser on the card")
+        with Counted("spec service", totals) as c:
+            for text in UTTERANCES[:2]:
+                headers: dict = {}
+                t1 = time.perf_counter()
+                status, body = _post(f"http://127.0.0.1:{server.server_address[1]}",
+                                     {"text": text, "session_id": "spec-session",
+                                      "context": {}}, headers)
+                turns.append({"text": text, "status": status, "wall_ms":
+                              (time.perf_counter() - t1) * 1e3, "body": body,
+                              "cached_tokens": int(headers.get("x-cached-tokens", -1))})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        parser.close()
+    c.require("paged_block_attention", "masked_argmax")
+    P = len(eng.prefix_ids)
+    for t in turns:
+        fail_if(t["status"] != 200 or validate_parse_response(t["body"]) != (t["body"], None),
+                f"spec service: /parse {t['text']!r} answered {t['status']} {t['body']}")
+    fail_if(turns[1]["cached_tokens"] <= P,
+            f"spec service: turn 2 cached {turns[1]['cached_tokens']} tokens (prefix {P})")
+    log(f"[spec service] boot {boot:.2f} s; two turns of one session answered "
+        f"{[t['status'] for t in turns]} in {[round(t['wall_ms'], 1) for t in turns]} ms, "
+        f"cached tokens {[t['cached_tokens'] for t in turns]} (prefix {P})")
+    return {"boot_s": boot, "prefix_tokens": P, "launches": c.counts,
+            "turns": [{k: v for k, v in t.items() if k != "body"} for t in turns]}
+
+
+def phase_spec_golden(totals: dict, report: dict) -> None:
+    """The distilled checkpoint (fp32) under speculation must reproduce the
+    recorded parses (spec output is plain greedy output; the distilled
+    engine runs fast-forward 0): the single-slot spec engine (``fsm,prompt``;
+    K1, K3, K11, K4) and the 15-slot paged spec engine at bf16 (K7), int8
+    and int4 (K9), each against its recording; then the self-draft on the
+    single-slot engine, which must also accept more than 0.9 of its drafts
+    at more than 2 tokens per verify step."""
+    import torch
+    from dataclasses import replace
+
+    from tpu_voice_agent_torch import distilled
+    from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.serve.spec import DraftModelDrafter, SpecConfig, SpecDecoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params = distilled.load_distilled(device="cuda")
+    recs = distilled.golden_records()
+    out = {}
+
+    def single(label, self_draft):
+        parser = distilled.intent_engine_from(cfg, params, device="cuda",
+                                              spec=SpecConfig(k=SPEC_K))
+        eng = parser.engine
+        if self_draft:
+            eng.spec = SpecDecoder(eng, SpecConfig(k=SPEC_K), drafter=DraftModelDrafter(
+                eng, SPEC_K, cfg=eng.cfg, params=eng.params))
+        bad = []
+        with Counted(label, totals) as c:
+            t0 = time.perf_counter()
+            for rec in recs:
+                resp = parser.parse(rec["text"], rec["context"])
+                if parser.last_result.token_ids != rec["token_ids"] or resp != rec["response"]:
+                    bad.append(rec["text"])
+            wall = time.perf_counter() - t0
+        c.require("flash_attention", "decode_block_attention_layer", "masked_argmax",
+                  "masked_argmax_advance")
+        s = eng.spec.stats()
+        fail_if(bool(bad), f"{label}: {len(bad)} of {len(recs)} parses differ: {bad[:3]}")
+        log(f"[{label}] {len(recs)} of {len(recs)} parses equal the recording ({wall:.2f} s); "
+            f"accept rate {s['accept_rate']:.4f}, tokens per forward {s['tokens_per_step']:.4f}")
+        return {"cases": len(recs), "seconds": wall, "launches": c.counts, **s}
+
+    out["single"] = single("spec_golden single", False)
+    out["self_draft"] = sd = single("spec_golden self-draft", True)
+    fail_if(not (sd["accept_rate"] > 0.9 and sd["tokens_per_step"] > 2.0),
+            f"spec_golden: the self-draft accepts {sd['accept_rate']:.4f} at "
+            f"{sd['tokens_per_step']:.4f} tokens per forward (want > 0.9 and > 2)")
+    for tier in ("off", "int8", "int4"):
+        label = f"spec_golden paged {'bf16' if tier == 'off' else tier}"
+        trecs = recs if tier == "off" else distilled.kvquant_golden_records()["tiers"][tier]
+        eng = PagedDecodeEngine(cfg=replace(cfg, max_seq_len=512), max_len=512,
+                                prefill_buckets=(64, 128), init_weights=False, device="cuda",
+                                batch_slots=15, kv_quant=tier, spec=SpecConfig(k=SPEC_K))
+        eng.load_params(params)
+        b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=300)
+        with Counted(label, totals) as c:
+            t0 = time.perf_counter()
+            res = b.generate_many([distilled.distilled_prompt(r["text"], r["context"])
+                                   for r in trecs])
+            wall = time.perf_counter() - t0
+        c.require("flash_attention", "masked_argmax", "masked_argmax_advance",
+                  "paged_block_attention" if tier == "off" else "paged_block_attention_quant")
+        bad = [rec["text"] for rec, r in zip(trecs, res) if r.token_ids != rec["token_ids"]]
+        fail_if(bool(bad), f"{label}: {len(bad)} of {len(trecs)} parses differ: {bad[:3]}")
+        fail_if(eng.allocator.blocks_in_use != 0, f"{label}: blocks leaked")
+        s = eng.spec.stats()
+        log(f"[{label}] {len(trecs)} of {len(trecs)} batched parses equal the recording "
+            f"({sum(r.steps for r in res)} tokens, {b.forwards} verify forwards, {wall:.2f} s); "
+            f"accept rate {s['accept_rate']:.4f}")
+        out[f"paged_{'bf16' if tier == 'off' else tier}"] = {
+            "cases": len(trecs), "seconds": wall, "verify_forwards": b.forwards,
+            "launches": c.counts, **s}
+        del eng, b
+    report["spec_golden"] = out
+
+
 def _device_us(evt) -> float:
     """A profiler entry's own device time in us (the attribute's name
     changed across PyTorch versions)."""
@@ -1913,17 +2425,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,kernels,service,parse,batch,batch_dense,radix,"
-                         "kvquant,service_batched,golden,batch_golden,kvquant_golden,stt,"
-                         "stt_golden,voice (default all)")
+                         "kvquant,spec,service_batched,golden,batch_golden,kvquant_golden,"
+                         "spec_golden,stt,stt_golden,voice (default all)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile (torch.profiler) one bench parse when the service phase "
                          "runs, one ff=8 batch chunk when the batch phase runs (one per KV "
-                         "tier when the kvquant phase runs), and one whisper-large-v3 "
+                         "tier when the kvquant phase runs), one spec parse and one spec batch "
+                         "chunk when the spec phase runs, and one whisper-large-v3 "
                          "transcribe when the stt phase runs")
     args = ap.parse_args()
     phases = (["card", "build", "kernels", "service", "parse", "batch", "batch_dense", "radix",
-               "kvquant", "service_batched", "golden", "batch_golden", "kvquant_golden", "stt",
-               "stt_golden", "voice"]
+               "kvquant", "spec", "service_batched", "golden", "batch_golden", "kvquant_golden",
+               "spec_golden", "stt", "stt_golden", "voice"]
               if args.phases == "all" else args.phases.split(","))
 
     import torch
@@ -1967,10 +2480,10 @@ def main() -> int:
     eng = timed("service", phase_service, totals, report) if "service" in phases else None
     for name, fn in (("parse", phase_parse), ("batch", phase_batch),
                      ("batch_dense", phase_batch_dense), ("radix", phase_radix),
-                     ("kvquant", phase_kvquant)):
+                     ("kvquant", phase_kvquant), ("spec", phase_spec)):
         if name in phases:
             fail_if(eng is None, f"the {name} phase reuses the service's weights")
-            kw = {"profile": args.profile} if name in ("batch", "kvquant") else {}
+            kw = {"profile": args.profile} if name in ("batch", "kvquant", "spec") else {}
             timed(name, fn, eng.params, totals, report, **kw)
     if args.profile and eng is not None:  # the parse profile reuses the service's weights
         phase_profile(eng.params, report)
@@ -1983,6 +2496,8 @@ def main() -> int:
         timed("batch_golden", phase_batch_golden, totals, report)
     if "kvquant_golden" in phases:
         timed("kvquant_golden", phase_kvquant_golden, totals, report)
+    if "spec_golden" in phases:
+        timed("spec_golden", phase_spec_golden, totals, report)
     stt_eng = timed("stt", phase_stt, totals, report) if "stt" in phases else None
     if args.profile and stt_eng is not None:
         phase_profile_stt(stt_eng, report)

@@ -23,6 +23,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from tpu_voice_agent.evals.golden import GOLDEN_INTENT_CASES  # noqa: E402
 from tpu_voice_agent.models.llama import LlamaConfig  # noqa: E402
@@ -30,6 +31,17 @@ from tpu_voice_agent.serve import DecodeEngine as JEngine  # noqa: E402
 from tpu_voice_agent.services.brain import EngineParser as JParser  # noqa: E402
 from tpu_voice_agent.train import distill  # noqa: E402
 from tpu_voice_agent_torch import bridge, distilled  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These models are tiny: intra-op threads buy nothing, and under the
+    suite's parallel workers every process's threads contend for the same
+    cores (a file that takes 20 s alone took 15 minutes so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_parser():

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K10) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1-K12) against their plain PyTorch versions, on
 the card. Every test here is marked ``gpu`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -128,6 +128,45 @@ def test_masked_argmax_advance_matches_plain(cuda):
     keep = torch.arange(6, device=cuda) != 4  # a NaN row's pick is the poison gate's
     assert torch.equal(tok[keep], rtok[keep]) and torch.equal(nxt[keep], rnxt[keep])
     assert 0 <= int(tok[4]) < V
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [300, 619, 1500])
+def test_masked_argmax_matches_plain(cuda, V):
+    """K11 exactly: ties, an all-masked state (token 0), dead states clamped
+    to 0; and a (B, 1+K) verify block in one launch."""
+    rng = np.random.default_rng(V)
+    S = 40
+    mask = rng.random((S, V)) < 0.3
+    mask[7] = False
+    logits = rng.standard_normal((10, V)).astype(np.float32)
+    logits[1, :] = 0.5
+    state = np.array([0, 3, 7, -1, 39, 12, 5, 5, 0, 7], np.int32)
+    lg, st, mk = (torch.from_numpy(a).to(cuda) for a in (logits, state, mask))
+    ops.reset_launch_counts()
+    tok = ops.masked_argmax(lg, st, mk)
+    assert torch.equal(tok, ops.masked_argmax_reference(lg, st, mk)) and int(tok[2]) == 0
+    blk = ops.masked_argmax_block(lg.reshape(2, 5, V), st.reshape(2, 5), mk)
+    assert torch.equal(blk.flatten(), ops.masked_argmax_reference(lg, st, mk))
+    assert ops.launch_counts()["masked_argmax"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)])
+@pytest.mark.parametrize("hd,nq,nkv", [(48, 4, 2), (64, 32, 4)])
+def test_flat_decode_block_attention_matches_plain(cuda, hd, nq, nkv, dtype, tol):
+    """K12 over a flat bf16 cache: a chain padded with duplicates, an idle
+    row at slot 0, unordered positions with repeats; bf16 and fp32 queries."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    kc = torch.randn(3, 300, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(3, 300, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randn(3, 5, nq, hd, generator=g, device=cuda).to(dtype)
+    pos = torch.tensor([[200, 201, 202, 202, 202], [0, 0, 0, 0, 0], [299, 3, 150, 150, 77]],
+                       dtype=torch.int32, device=cuda)
+    out = ops.decode_block_attention(q, kc, vc, pos)
+    ref = ops.decode_block_attention_reference(q, kc, vc, pos)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
 @pytest.mark.gpu

@@ -30,6 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 from tpu_voice_agent.evals import golden as jgolden  # noqa: E402
 from tpu_voice_agent.models.llama import LlamaConfig  # noqa: E402
@@ -51,6 +52,17 @@ TIERS = ("int8", "int4")
 SLOTS, BUCKETS, MAX_NEW = 15, (64, 128), 300
 # the differential, as tests/test_kv_quant.py sets it up
 DIFF_CASES, DIFF_BUCKETS = 6, (256, 512, 1024)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These models are tiny: intra-op threads buy nothing, and under the
+    suite's parallel workers every process's threads contend for the same
+    cores (a file that takes 20 s alone took 15 minutes so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_batched(cfg, params, tier):

@@ -172,7 +172,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         # script (namespace subpackages are not walked, so name them)
         "for m in ('audio.mel', 'audio.endpoint', 'models.whisper', 'serve.stt',\n"
         "          'whisper_ckpt', 'voicebench', 'models.llama', 'ops.paged_attention',\n"
-        "          'serve.engine', 'serve.paged', 'serve.radix', 'serve.scheduler'):\n"
+        "          'serve.engine', 'serve.paged', 'serve.radix', 'serve.scheduler',\n"
+        "          'serve.spec'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent')\n"

@@ -120,6 +120,8 @@ class TokenFSM:
         self.accepting = dfa.accepting.copy()
         self._trans_b = trans_b
         self._trie = trie
+        # lookahead(): canonical forced chain per state, tiled on demand
+        self._lookahead_cache: dict[int, list[int]] = {}
         self._forced_arr: tuple[np.ndarray, np.ndarray] | None = None
 
     @property
@@ -196,6 +198,22 @@ class TokenFSM:
             ff_tokens[s, : len(toks)] = toks
             ff_len[s] = len(toks)
         return ff_tokens, ff_len
+
+    def lookahead(self, state: int, width: int) -> list[int]:
+        """Up to ``width`` draft tokens along the forced byte path from
+        ``state`` (speculative decoding's ``FSMDrafter``): the same canonical
+        tiling as ``forced_tables``, but only proposed, so the verify pass may
+        reject it for another tiling of the same bytes. [] when ``state`` is
+        not byte-forced, dead or accepting. The whole run's tiling is cached
+        per state and sliced per call."""
+        if state < 0 or state >= self.num_states or width <= 0:
+            return []
+        chain = self._lookahead_cache.get(state)
+        if chain is None:
+            run = self._forced_run(state)
+            chain = self._tile_run(run, len(run))
+            self._lookahead_cache[state] = chain
+        return chain[:width]
 
     # ------------------------------------------------------------ device tables
 

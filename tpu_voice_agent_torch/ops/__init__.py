@@ -12,6 +12,8 @@
 | K8 | ``paged_attention_quant`` | ``paged_attention_quant_reference`` | ``ops/paged_attention.py paged_attention_quant`` |
 | K9 | ``paged_block_attention_quant`` | ``paged_block_attention_quant_reference`` | ``ops/paged_attention.py paged_block_attention_quant`` |
 | K10 | ``decode_attention_quant`` | ``decode_attention_quant_reference`` | ``ops/decode_attention.py decode_attention_quant`` |
+| K11 | ``masked_argmax`` (``masked_argmax_block``) | ``masked_argmax_reference`` | ``ops/grammar_mask.py masked_argmax`` |
+| K12 | ``decode_block_attention`` | ``decode_block_attention_reference`` | ``ops/decode_attention.py decode_block_attention`` |
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``wrapper.launches``; ``launch_counts`` reads them all and
@@ -24,11 +26,18 @@ from .decode_attention import (
     decode_attention_quant,
     decode_attention_quant_reference,
     decode_attention_reference,
+    decode_block_attention,
     decode_block_attention_layer,
     decode_block_attention_reference,
 )
 from .flash_attention import attention_reference, flash_attention
-from .grammar_mask import masked_argmax_advance, masked_argmax_advance_reference
+from .grammar_mask import (
+    masked_argmax,
+    masked_argmax_advance,
+    masked_argmax_advance_reference,
+    masked_argmax_block,
+    masked_argmax_reference,
+)
 from .paged_attention import (
     paged_attention,
     paged_attention_quant,
@@ -51,6 +60,8 @@ KERNELS = {
     "paged_attention_quant": paged_attention_quant,
     "paged_block_attention_quant": paged_block_attention_quant,
     "decode_attention_quant": decode_attention_quant,
+    "masked_argmax": masked_argmax,
+    "decode_block_attention": decode_block_attention,
 }
 
 
@@ -71,12 +82,16 @@ __all__ = [
     "decode_attention_quant",
     "decode_attention_quant_reference",
     "decode_attention_reference",
+    "decode_block_attention",
     "decode_block_attention_layer",
     "decode_block_attention_reference",
     "flash_attention",
     "launch_counts",
+    "masked_argmax",
     "masked_argmax_advance",
     "masked_argmax_advance_reference",
+    "masked_argmax_block",
+    "masked_argmax_reference",
     "paged_attention",
     "paged_attention_quant",
     "paged_attention_quant_reference",

@@ -110,6 +110,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tva_decode_attention_layer": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, q_positions, o, B, T, S, nq, nkv, hd, scale, dtype, stream
         "tva_decode_block_attention_layer": [P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+        # q, flat k cache, flat v cache, q_positions, o, B, T, S, nq, nkv, hd, scale, dtype,
+        # stream
+        "tva_decode_block_attention": [P, P, P, P, P, I, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, table, kv_len, o, B, max_blocks, bs, nq, nkv, hd, scale,
         # dtype, stream
         "tva_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
@@ -128,6 +131,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tva_decode_attention_quant": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, I, P],
         # logits, state, mask, table, col_id, tok, next, B, V, C, stream
         "tva_masked_argmax_advance": [P, P, P, P, P, P, P, I, I, I, P],
+        # logits, state, mask, tok, R, V, stream
+        "tva_masked_argmax": [P, P, P, P, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

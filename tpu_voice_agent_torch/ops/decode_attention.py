@@ -1,9 +1,10 @@
-"""K5 / K2 / K3: decode attention against a KV cache (CUDA,
+"""K5 / K2 / K3 / K12: decode attention against a KV cache (CUDA,
 ``csrc/decode_attention.cu``); K10: against a quantized cache
 (``csrc/decode_attention_quant.cu``).
 
 Port of ``decode_attention``, ``decode_attention_layer``,
-``decode_block_attention_layer`` and ``decode_attention_quant`` from
+``decode_block_attention_layer``, ``decode_block_attention`` and
+``decode_attention_quant`` from
 ``tpu_voice_agent/ops/decode_attention.py``, with the JAX signatures (the
 Pallas tile size ``block_k`` and ``interpret`` dropped).
 
@@ -15,6 +16,9 @@ Pallas tile size ``block_k`` and ``interpret`` dropped).
   contiguous view, so the kernel gets that plane's pointer).
 - K3 (T <= 16, the grammar fast-forward block): query i of row b attends
   slots ``[0, q_positions[b, i]]``; positions may be unordered or repeat.
+- K12 (T <= 16) on a flat ``(B, S, nkv, hd)`` bf16 cache: K3's function and
+  body on one cache, as the JAX package's ``decode_block_attention`` (which
+  only its tests call; no engine here calls it either).
 - K10 (T = 1, a flat ``(B, S, nkv, hdp)`` int8 cache with ``(B, S, nkv)``
   bf16 scales, int8 or packed int4 as ``ops.kvquant`` stores them): K5 over
   the quantized cache. No engine calls it (none in the JAX package either);
@@ -165,6 +169,39 @@ def decode_block_attention_layer(
 decode_block_attention_layer.launches = 0
 
 
+def decode_block_attention(
+    q: torch.Tensor,  # (B, T, nq, hd)
+    k_cache: torch.Tensor,  # (B, S, nkv, hd)
+    v_cache: torch.Tensor,
+    q_positions: torch.Tensor,  # (B, T) int32
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Returns (B, T, nq, hd) in q.dtype: query i of row b attends slots
+    ``[0, q_positions[b, i]]``, the block's own k/v already written there."""
+    B, T, nq, hd = q.shape
+    scale = scale if scale is not None else hd**-0.5
+    if q.device.type == "cpu":
+        return decode_block_attention_reference(q, k_cache, v_cache, q_positions, scale=scale)
+    name = "decode_block_attention"
+    require(k_cache.dim() == 4, name, f"cache must be (B, S, nkv, hd), got {tuple(k_cache.shape)}")
+    _, S, nkv = _check_common(name, q, k_cache[None], v_cache[None], 0, nq, hd)
+    require_cuda(name, q_positions)
+    require(1 <= T <= MAX_BLOCK_T, name, f"block of {T} queries (max {MAX_BLOCK_T})")
+    require(q_positions.dtype == torch.int32 and q_positions.shape == (B, T), name,
+            "q_positions must be (B, T) int32")
+    out = torch.empty_like(q)
+    err = library().tva_decode_block_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), q_positions.data_ptr(),
+        out.data_ptr(), B, T, S, nq, nkv, hd, float(scale), dtype_code(name, q), stream_of(q))
+    check(err, name)
+    decode_block_attention.launches += 1
+    return out
+
+
+decode_block_attention.launches = 0
+
+
 def check_quant_cache(name, k, v, k_scale, v_scale, hd: int, bits: int) -> None:
     """A quantized cache or pool: int8 values of width ``hd`` (bits 8) or
     ``hd / 2`` (bits 4) and bf16 scales shaped like the values minus their
@@ -244,7 +281,8 @@ def decode_attention_reference(q, k_cache, v_cache, kv_len, *, scale=None) -> to
 
 def decode_block_attention_reference(q, k_cache, v_cache, q_positions, *,
                                      scale=None) -> torch.Tensor:
-    """Plain PyTorch version of K3 on one flat (B, S, nkv, hd) plane."""
+    """Plain PyTorch version of K12, and of K3 on one layer plane: a flat
+    (B, S, nkv, hd) cache."""
     B, T, nq, hd = q.shape
     S, nkv = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else hd**-0.5

@@ -1,12 +1,17 @@
-"""K4: fused grammar mask -> argmax -> FSM advance (CUDA, ``csrc/grammar_mask.cu``).
+"""K4: fused grammar mask -> argmax -> FSM advance, and K11: grammar mask ->
+argmax (CUDA, ``csrc/grammar_mask.cu``).
 
-Port of ``masked_argmax_advance`` from ``tpu_voice_agent/ops/grammar_mask.py``:
-for each row, mask the logits with its FSM state's row of the dense (S, V)
-mask, take the argmax (ties to the first index), and advance the state
-through the compressed table — nothing V-sized is written back.
+Port of ``masked_argmax_advance``, ``masked_argmax`` and
+``masked_argmax_block`` from ``tpu_voice_agent/ops/grammar_mask.py``: for
+each row, mask the logits with its FSM state's row of the dense (S, V) mask
+and take the argmax (ties to the first index); K4 also advances the state
+through the compressed table. Nothing V-sized is written back.
+``masked_argmax_block`` is the speculative verify tail: a (B, T) block of
+positions, each at its own state, folded into B * T kernel rows of one K11
+launch.
 
-The wrapper launches the kernel for CUDA tensors and runs
-``masked_argmax_advance_reference`` for CPU tensors, and only then.
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+(``*_reference``) for CPU tensors, and only then.
 """
 
 from __future__ import annotations
@@ -63,3 +68,57 @@ def masked_argmax_advance_reference(logits, fsm_state, mask_table, table, col_id
     tok = torch.argmax(masked, dim=-1)  # first index among ties
     nxt = table[state, col_id[tok].long()]
     return tok.to(torch.int32), nxt.to(torch.int32)
+
+
+def masked_argmax(
+    logits: torch.Tensor,  # (R, V) float32
+    fsm_state: torch.Tensor,  # (R,) int32
+    mask_table: torch.Tensor,  # (n_states, V) bool
+) -> torch.Tensor:
+    """Returns (R,) int32: argmax of each row's logits where its state's mask
+    row allows, masked entries scoring -1e30. Negative states are clamped
+    to 0."""
+    if logits.device.type == "cpu":
+        return masked_argmax_reference(logits, fsm_state, mask_table)
+    name = "masked_argmax"
+    require_cuda(name, logits, fsm_state, mask_table)
+    R, V = logits.shape
+    require(logits.dtype == torch.float32, name, "logits must be float32")
+    require(fsm_state.dtype == torch.int32 and fsm_state.shape == (R,), name,
+            "state must be (R,) int32")
+    require(mask_table.dtype == torch.bool and mask_table.dim() == 2
+            and mask_table.shape[1] == V, name,
+            f"mask must be (S, {V}) bool, got {tuple(mask_table.shape)}")
+    tok = torch.empty((R,), dtype=torch.int32, device=logits.device)
+    err = library().tva_masked_argmax(logits.data_ptr(), fsm_state.data_ptr(),
+                                      mask_table.data_ptr(), tok.data_ptr(), R, V,
+                                      stream_of(logits))
+    check(err, name)
+    masked_argmax.launches += 1
+    return tok
+
+
+masked_argmax.launches = 0
+
+
+def masked_argmax_reference(logits, fsm_state, mask_table):
+    """Plain PyTorch version of ``masked_argmax``: K4's pick without the
+    advance (the same -1e30 masking and first-index ties)."""
+    state = torch.clamp(fsm_state, min=0).long()
+    masked = torch.where(mask_table[state], logits.float(),
+                         torch.full_like(logits, _NEG_INF, dtype=torch.float32))
+    return torch.argmax(masked, dim=-1).to(torch.int32)
+
+
+def masked_argmax_block(
+    logits: torch.Tensor,  # (B, T, V) float32: one verify block per row
+    fsm_state: torch.Tensor,  # (B, T) int32: each position's own state
+    mask_table: torch.Tensor,  # (n_states, V) bool
+) -> torch.Tensor:
+    """Per-position masked argmax of a whole verify block in ONE K11 launch
+    (positions fold into rows). Returns (B, T) int32. Dead (negative)
+    states are clamped to 0 (by the kernel, or its plain version):
+    ``serve.spec._verify_commit`` discards their picks."""
+    B, T, V = logits.shape
+    return masked_argmax(logits.reshape(B * T, V), fsm_state.reshape(B * T),
+                         mask_table).reshape(B, T)

@@ -11,12 +11,13 @@ decoding on a dense-mask grammar takes the fused kernel K4
 ``generate`` serves one request on a one-slot engine; with more slots the
 continuous batcher (``serve.scheduler``) drives ``prefill_slot`` /
 ``decode_chunk`` / ``release_slot``, and the paged engine (``serve.paged``)
-overrides the layout hooks ``_prefill_suffix`` / ``_prefill_full``.
+overrides the layout hooks ``_prefill_suffix`` / ``_prefill_full``. With
+``spec`` (``serve.spec.SpecConfig``) greedy constrained decoding runs
+draft-K / verify-once steps instead (speculation supersedes fast-forward).
 
 The JAX ``lax.while_loop`` is a Python loop here: its ``any(active)`` test
 reads one bool back from the device on every step. Left out (still JAX-only):
-speculative decoding, the quality lanes, chaos injection, ``from_hf``,
-meshes and ``warm_restart``.
+the quality lanes, chaos injection, ``from_hf``, meshes and ``warm_restart``.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ class GenerationResult:
     forwards: int = 0  # decode forward dispatches (< steps under fast-forward)
     cached_tokens: int = 0  # prompt tokens served from the cached prefix
     prompt_tokens: int = 0
+    spec_accepted: int = 0  # draft tokens the verify steps accepted (batched)
 
     @property
     def tokens_per_s(self) -> float:
@@ -287,6 +289,7 @@ class DecodeEngine:
         init_weights: bool = True,  # False: the caller loads weights next
         fast_forward: int = 0,  # grammar fast-forward chain width (0 = off)
         device: str | torch.device | None = None,  # None = cuda, or raise
+        spec=None,  # serve.spec.SpecConfig | None: speculative decoding
     ):
         self.device = resolve_device(device)
         if batch_slots < 1:
@@ -333,6 +336,17 @@ class DecodeEngine:
         self._last_cached_tokens = 0
         self._last_fwds = 0  # the last decode_chunk's forward count
         self._last_poison = None  # its per-row fault codes (B,) int32
+        # speculative decoding, built last: the decoder reads the engine's
+        # surface; the paged engine builds it once its pool exists
+        self.spec = None
+        self._spec_cfg = spec
+        if self._spec_cfg is not None and self.cache is not None:
+            self._build_spec()
+
+    def _build_spec(self) -> None:
+        from .spec import SpecDecoder
+
+        self.spec = SpecDecoder(self, self._spec_cfg)
 
     # ------------------------------------------------------------ helpers
 
@@ -420,6 +434,9 @@ class DecodeEngine:
         the dense and paged engines override only the ``_prefill_suffix`` /
         ``_prefill_full`` hooks."""
         self.release_slot(slot)  # a finished request may still own resources
+        if self.spec is not None:
+            # the drafters' host context (and the draft model's own prefill)
+            self.spec.on_admit(slot, list(ids))
         n = len(ids)
         suffix = self._split_prefix(ids)
         if suffix is not None:
@@ -461,13 +478,38 @@ class DecodeEngine:
         write slot 0 of their own line). Returns logits (B, T, V)."""
         return forward(self.params, self.cfg, tokens, positions, self.cache)[0]
 
+    def _claim(self, span: int, active=None) -> list[int]:
+        """Layout hook before a dispatch: room for ``span`` more positions on
+        every live row (``active``: host bools; default every slot in use).
+        Returns the slots that could not get it. The dense cache already
+        holds every position."""
+        return []
+
+    def reconcile_coverage(self, pos_h) -> None:
+        """Layout hook after a dispatch, with the rows' host positions. The
+        dense cache has nothing to settle."""
+
     def decode_chunk(self, cur, pos, fsm, active, nbytes, tokens_left, generator,
                      temperature: float, byte_budget: int, chunk_steps: int, greedy: bool):
         """Advance all slots by one decode chunk (the batcher's device-work
         entry point; the KV layout stays the engine's business). Sets
         ``_last_fwds`` (forward count) and ``_last_poison`` (per-row fault
         codes). Returns (emitted, counts, eos, cur, pos, fsm, active, nbytes,
-        tokens_left)."""
+        tokens_left). With speculation on, greedy chunks are the
+        ``SpecDecoder``'s verify steps, each claiming its own room; a plain
+        chunk first claims its worst case, ``chunk_steps * (1 + W)``
+        positions, and a slot that cannot get it gets ``tokens_left`` 0 and
+        truncates at its covered frontier (the batch lives on). CALLER
+        OBLIGATION: pass the chunk's host positions to
+        ``reconcile_coverage`` afterwards."""
+        if self.spec is not None and greedy:
+            return self.spec.decode_chunk(cur, pos, fsm, active, nbytes, tokens_left,
+                                          byte_budget, chunk_steps)
+        W = self.tables_ff.ff_tokens.shape[1] if self.tables_ff is not None else 0
+        starved = self._claim(chunk_steps * (1 + W))
+        if starved:
+            tokens_left = tokens_left.clone()
+            tokens_left[starved] = 0
         tables = self.tables_ff if self.tables_ff is not None else self.tables
         (out, n, eos, cur, pos, fsm, active, nbytes, left, fwds, pois) = decode_loop(
             self._decode_step, self.max_len, cur, pos, fsm, active, nbytes, tokens_left,
@@ -482,7 +524,9 @@ class DecodeEngine:
         """A batch slot finished. Dense cache lines are reused in place; the
         paged engine returns the slot's blocks (and, with radix reuse on,
         caches the prompt + ``generated_ids`` chain first unless ``ok`` is
-        False)."""
+        False). The spec decoder drops the slot's context."""
+        if self.spec is not None:
+            self.spec.on_release(slot)
 
     def _admit_first_token(self, prompt: str, temperature: float, greedy: bool = True,
                            constrained: bool = True):
@@ -512,23 +556,32 @@ class DecodeEngine:
     ) -> GenerationResult:
         """Generate a completion; with ``constrained`` the text matches the
         intent grammar, and ``byte_budget`` keeps strings inside the
-        schema's caps."""
+        schema's caps. With speculation on, a constrained greedy request
+        runs verify steps (``steps`` counts its tokens, ``forwards`` its
+        verify steps)."""
         tok0, fsm0, n, prefill_ms = self._admit_first_token(
             prompt, temperature, greedy=greedy, constrained=constrained)
         t1 = time.perf_counter()
-        tables = self.tables_ff if (constrained and self.tables_ff is not None) else self.tables
         i32 = dict(dtype=torch.int32, device=self.device)
-        (buf, count, eos, _cur, _pos, _fsm, _act, _nb, _left, fwds,
-         pois) = decode_loop(
-            self._decode_step, self.max_len,
-            tok0, torch.full((1,), n, **i32), fsm0,
-            tok0 != self.eos_id,  # active
-            torch.zeros((1,), **i32),  # nbytes
-            torch.full((1,), max_new_tokens, **i32),  # tokens_left
-            tables, self.byte_len_table, self._gen, temperature, byte_budget,
-            chunk_steps=max_new_tokens, greedy=greedy, constrained=constrained,
-            eos_id=self.eos_id, pad_id=self.pad_id,
-        )
+        state = (tok0, torch.full((1,), n, **i32), fsm0,
+                 tok0 != self.eos_id,  # active
+                 torch.zeros((1,), **i32),  # nbytes
+                 torch.full((1,), max_new_tokens, **i32))  # tokens_left
+        if self.spec is not None and constrained and greedy:
+            # every verify step emits a token or stops the row: one chunk
+            # of max_new_tokens steps finishes the request
+            buf, count, eos = self.spec.decode_chunk(*state, byte_budget,
+                                                     chunk_steps=max_new_tokens)[:3]
+            fwds, pois = self._last_fwds, self._last_poison
+        else:
+            tables = (self.tables_ff if (constrained and self.tables_ff is not None)
+                      else self.tables)
+            (buf, count, eos, _cur, _pos, _fsm, _act, _nb, _left, fwds, pois) = decode_loop(
+                self._decode_step, self.max_len, *state,
+                tables, self.byte_len_table, self._gen, temperature, byte_budget,
+                chunk_steps=max_new_tokens, greedy=greedy, constrained=constrained,
+                eos_id=self.eos_id, pad_id=self.pad_id,
+            )
         count_h = int(count[0])
         out_ids = [int(t) for t in buf[0, :count_h].tolist()]
         finished = bool(eos[0])

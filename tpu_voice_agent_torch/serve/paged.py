@@ -18,8 +18,9 @@ K8 / K9.
 ``PagedDecodeEngine`` serves through the continuous batcher
 (``serve.scheduler``) via ``prefill_slot`` / ``decode_chunk`` /
 ``release_slot``; ``generate`` is refused. The pool is updated in place.
-Left for later: chunked prefill, speculative decoding (``spec_grow``),
-the warm-state handoff (``gather_chain_kv`` / ``adopt_chain_kv``),
+With ``spec`` greedy chunks are ``serve.spec`` verify steps, each growing
+the tables by its own worst case (``_claim``). Left for later: chunked
+prefill, the warm-state handoff (``gather_chain_kv`` / ``adopt_chain_kv``),
 ``warm_restart``, chaos injection, the quality lanes, meshes, the
 ``paged.kv_*`` pool gauges.
 """
@@ -194,6 +195,10 @@ class PagedDecodeEngine(DecodeEngine):
         self._pressure_until = 0.0
         # host token ids of each slot's request (the radix insert at release)
         self._slot_ids: list[list[int] | None] = [None] * self.batch_slots
+        # speculative decoding, deferred from the parent: the decoder reads
+        # the pool, tables and trash index that exist only now
+        if self._spec_cfg is not None:
+            self._build_spec()
 
     def _init_kv_cache(self):
         return None  # the block pool, built in __init__, holds the KV
@@ -364,6 +369,10 @@ class PagedDecodeEngine(DecodeEngine):
             self._slot_ids[slot] = ids
             return logits
         self.radix.record_hit(P)
+        if self.spec is not None:
+            # the warm path seeds the drafters with the FULL cached ids (the
+            # cold path does so inside the parent's prefill_slot)
+            self.spec.on_admit(slot, ids)
         m = len(suffix)
         tokens = np.full((1, bucket), self.pad_id, dtype=np.int32)
         tokens[0, :m] = suffix
@@ -394,7 +403,7 @@ class PagedDecodeEngine(DecodeEngine):
     def reconcile_coverage(self, pos_h) -> None:
         """Post-chunk hook (the scheduler calls it with the chunk's host
         positions): clamp each live slot's growth target to its ACTUAL
-        frontier, so the worst-case claim below never compounds."""
+        frontier, so the worst-case claims of ``_claim`` never compound."""
         for b in range(self.batch_slots):
             if self._slot_owned[b]:
                 self._next_pos[b] = min(self._next_pos[b], int(pos_h[b]))
@@ -416,37 +425,34 @@ class PagedDecodeEngine(DecodeEngine):
         return self._forward(tokens, positions, self.block_tables, attn_impl=self.kernels,
                              write_mask=active, trash_idx=self._trash_idx)
 
-    def decode_chunk(self, cur, pos, fsm, active, nbytes, tokens_left, generator,
-                     temperature: float, byte_budget: int, chunk_steps: int, greedy: bool):
-        """One chunk of up to ``chunk_steps`` constrained decode steps.
-
-        Before dispatch every live table grows to cover the chunk's worst
-        case, ``chunk_steps * (1 + W)`` positions past the row's growth
-        target (a write past the covered blocks would land in another
-        sequence's block). A slot that cannot grow gets ``tokens_left`` 0
-        and truncates at its covered frontier; the batch lives on.
-        CALLER OBLIGATION: pass the chunk's host positions to
-        ``reconcile_coverage`` afterwards."""
-        W = self.tables_ff.ff_tokens.shape[1] if self.tables_ff is not None else 0
-        span = chunk_steps * (1 + W)
+    def _claim(self, span: int, active=None) -> list[int]:
+        """Grow every live table (``active``: host bools; default every slot
+        in use) to cover ``span`` positions past the row's growth target: a
+        write past the covered blocks would land in another sequence's
+        block. A plain chunk claims its worst case, ``chunk_steps * (1 +
+        W)``, before dispatch; a speculative verify step claims its own 1 +
+        K. Returns the slots whose claim failed: each truncates alone at its
+        covered frontier. ``reconcile_coverage`` clamps the targets back to
+        the actual frontiers after the dispatch."""
+        starved = []
         for b in range(self.batch_slots):
-            if self._slot_owned[b]:  # request in flight on this slot
+            if self._slot_owned[b] and (active is None or active[b]):
                 try:
                     self._grow(b, self._next_pos[b] + span + 1)
                 except PoolExhausted:
-                    tokens_left = tokens_left.clone()
-                    tokens_left[b] = 0
+                    starved.append(b)
                     continue
                 self._next_pos[b] = min(self._next_pos[b] + span, self.max_len)
-        return super().decode_chunk(cur, pos, fsm, active, nbytes, tokens_left, generator,
-                                    temperature, byte_budget, chunk_steps, greedy)
+        return starved
 
     def release_slot(self, slot: int, generated_ids: list[int] | None = None,
                      ok: bool = True) -> None:
         """Return the slot's blocks. With radix on, a finished request
         (``ok``, ``generated_ids`` given, no recent pool pressure) first has
         its prompt + generated chain adopted by the tree, whose own refs
-        keep those blocks alive. An errored request never inserts."""
+        keep those blocks alive. An errored request never inserts. The
+        inserted ids are the accepted stream: a rejected draft's KV lies past
+        it, in the partial tail block the tree does not adopt."""
         if self._slot_owned[slot] or self._slot_shared[slot]:
             if (ok and self.radix is not None and generated_ids is not None
                     and self._slot_ids[slot] is not None and self._radix_may_admit()):
@@ -459,6 +465,7 @@ class PagedDecodeEngine(DecodeEngine):
             self._covered[slot] = 0
             self._next_pos[slot] = 0
         self._slot_ids[slot] = None
+        super().release_slot(slot, generated_ids, ok=ok)
 
     def _radix_may_admit(self) -> bool:
         """False while a recent allocation hit PoolExhausted: caching yields

@@ -60,6 +60,8 @@ class _Slot:
     prefill_ms: float = 0.0  # computed prefill only (cached KV costs no forward)
     prompt_len: int = 0
     cached_tokens: int = 0  # prompt tokens served from cached KV at admission
+    forwards: int = 0  # verify steps this request rode (speculation only)
+    spec_accepts: int = 0  # draft tokens its verify steps accepted
 
 
 class ContinuousBatcher:
@@ -223,6 +225,11 @@ class ContinuousBatcher:
         if not act.any():
             return
         eng = self.engine
+        # stale-readback fence: only a speculative chunk publishes per-row
+        # accept / participation counts, and a plain chunk must not re-serve
+        # an earlier one's
+        eng._last_accepts = None
+        eng._last_row_fwds = None
         (out, n, eos, cur, pos, fsm, active, nbytes, tokens_left) = eng.decode_chunk(
             self.cur, self.pos, self.fsm, self.active, self.nbytes, self.tokens_left,
             self.generator, self.temperature, self.byte_budget, self.chunk_steps, self.greedy)
@@ -237,12 +244,11 @@ class ContinuousBatcher:
         (self.cur, self.pos, self.fsm, self.active, self.nbytes,
          self.tokens_left) = cur, pos, fsm, active, nbytes, tokens_left
         self._active_h = act_h.copy()
-        reconcile = getattr(eng, "reconcile_coverage", None)
-        if reconcile is not None:
-            reconcile(pos_h)
+        eng.reconcile_coverage(pos_h)
         self.chunks += 1
         self.tokens_generated += int(n_h.sum())
         self.forwards += int(eng._last_fwds)
+        row_fwds, row_accepts = eng._last_row_fwds, eng._last_accepts
 
         for b in range(self.B):
             sl = self.slots[b]
@@ -257,6 +263,9 @@ class ContinuousBatcher:
                 self._evict(b)
                 continue
             sl.token_ids.extend(int(t) for t in out_h[b, :n_h[b]])
+            if row_fwds is not None:
+                sl.forwards += int(row_fwds[b])
+                sl.spec_accepts += int(row_accepts[b])
             if not act_h[b]:
                 # stopped this chunk: EOS, or a byte / token / length budget
                 self.results[sl.request_id] = GenerationResult(
@@ -265,7 +274,8 @@ class ContinuousBatcher:
                     decode_ms=max(0.0, (time.perf_counter() - sl.start_s) * 1e3
                                   - sl.prefill_ms),
                     steps=len(sl.token_ids), finished=bool(eos_h[b]),
-                    cached_tokens=sl.cached_tokens, prompt_tokens=sl.prompt_len)
+                    cached_tokens=sl.cached_tokens, prompt_tokens=sl.prompt_len,
+                    forwards=sl.forwards, spec_accepted=sl.spec_accepts)
                 self._cleanup(sl.request_id)
                 self.slots[b] = _Slot()
                 # with radix reuse on, release caches prompt + generated first

@@ -372,10 +372,14 @@ def make_parser_from_env():
     slots behind the continuous batcher; ``BRAIN_PAGED=1`` the paged pool
     (``BRAIN_POOL_BLOCKS``), with ``RADIX_ENABLE=1`` session KV reuse and
     ``KV_QUANT=int8|int4`` the quantized pool (both read at engine
-    construction). The engine runs on ``BRAIN_DEVICE`` (default
-    ``cuda``: with no card it raises)."""
+    construction); ``SPEC_ENABLE=1`` speculative decoding on either engine
+    (``serve.spec.spec_from_env``: ``SPEC_K``, ``SPEC_DRAFTER``; the
+    variables the port does not serve, and an unknown drafter, raise
+    ``ValueError`` here, at boot). The engine runs on ``BRAIN_DEVICE``
+    (default ``cuda``: with no card it raises)."""
     from ..serve.engine import DecodeEngine
     from ..serve.paged import PagedDecodeEngine
+    from ..serve.spec import spec_from_env
 
     slots = int(os.environ.get("BRAIN_BATCH", "1"))
     device = os.environ.get("BRAIN_DEVICE") or None
@@ -384,7 +388,8 @@ def make_parser_from_env():
         raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported (engine[:preset])")
     preset = backend.split(":", 1)[1] if ":" in backend else "tinyllama-1.1b"
     kw = dict(preset=preset, quant=os.environ.get("BRAIN_QUANT") or None,
-              fast_forward=int(os.environ.get("BRAIN_FF", "8")), device=device)
+              fast_forward=int(os.environ.get("BRAIN_FF", "8")), device=device,
+              spec=spec_from_env())
     if os.environ.get("BRAIN_PAGED") == "1":
         pool = int(os.environ.get("BRAIN_POOL_BLOCKS", "0")) or None
         return _wrap_batched(PagedDecodeEngine(batch_slots=max(slots, 1), pool_blocks=pool,
@@ -414,7 +419,9 @@ class BrainApp:
                         batch_slots=engine.batch_slots,
                         paged=getattr(engine, "allocator", None) is not None,
                         radix=getattr(engine, "radix", None) is not None,
-                        kv_quant=getattr(engine, "kv_quant", None))
+                        kv_quant=getattr(engine, "kv_quant", None),
+                        spec=(None if getattr(engine, "spec", None) is None else
+                              {"k": engine.spec.K, "drafter": engine.spec.drafter.name}))
         return (200 if healthy else 503), body, {}
 
     def parse(self, raw: bytes, trace_id: str | None = None) -> tuple[int, dict, dict]:
