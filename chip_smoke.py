@@ -77,12 +77,22 @@ Phases, in order (any failure exits nonzero and prints no result line):
 18. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
               transcribe the 10 eval texts and must reproduce the JAX
               package's recorded token ids, through K1 and K5.
-19. the kernels JSON line, the card line, and the final JSON line.
+19. moe     - the MoE decoder, last (its engines take 46 GB each): the
+              mixtral-test engine in fp32 on one weight set, grouped (K13) on
+              the card against dense on the card and grouped on the CPU, 16
+              prompts token-identical or parted at a near tie; then
+              BRAIN_BACKEND=engine:mixtral-8x7b BRAIN_QUANT=int8 behind
+              BrainApp, BRAIN_MOE=grouped and then dense: 3 /parse each, 200
+              and grammar-valid, K13 exactly 3 x 32 launches a forward (0 on
+              the dense dispatch), the peak allocation under the card's
+              memory; then BRAIN_PAGED=1 BRAIN_BATCH=8 grouped, an 8-session
+              drain through K7 and K13.
+20. the kernels JSON line, the card line, and the final JSON line.
 
-Every launch counter is set to 0 just before each of phases 4-18 and read just
+Every launch counter is set to 0 just before each of phases 4-19 and read just
 after; a kernel's ``launches`` is the sum over those runs (the kernel-alone
 comparisons of phase 3 are not counted). The port imports no JAX. Weights are
-random from a seed (phases 3-11, 16, 17) or committed checkpoints (12-15,
+random from a seed (phases 3-11, 16, 17, 19) or committed checkpoints (12-15,
 18). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
@@ -121,6 +131,7 @@ REPLACES = {
     "decode_attention_quant": "tpu_voice_agent/ops/decode_attention.py:722",
     "masked_argmax": "tpu_voice_agent/ops/grammar_mask.py:107",
     "decode_block_attention": "tpu_voice_agent/ops/decode_attention.py:458",
+    "grouped_matmul": "tpu_voice_agent/ops/grouped_matmul.py:97",
 }
 SOURCES = {
     "flash_attention": "tpu_voice_agent_torch/csrc/flash_attention.cu",
@@ -135,6 +146,7 @@ SOURCES = {
     "decode_attention_quant": "tpu_voice_agent_torch/csrc/decode_attention_quant.cu",
     "masked_argmax": "tpu_voice_agent_torch/csrc/grammar_mask.cu",
     "decode_block_attention": "tpu_voice_agent_torch/csrc/decode_attention.cu",
+    "grouped_matmul": "tpu_voice_agent_torch/csrc/grouped_matmul.cu",
 }
 # bf16 attention outputs, held element by element to the reference's own
 # size: |out - ref| <= ATTN_RTOL * |ref| + ATTN_ATOL. The kernel and its
@@ -149,6 +161,15 @@ ATTN_TOL = f"{ATTN_RTOL:g}*|ref|+{ATTN_ATOL:g}"
 # within a few ulp (~1e-7 relative) of the exact value
 F32_RTOL, F32_ATOL = 1e-5, 1e-6
 F32_TOL = f"{F32_RTOL:g}*|ref|+{F32_ATOL:g}"
+# K13 (grouped matmul) sums d = 4096 or 14336 products per output, in another
+# order than its plain version (the tensor-core path adds 16-wide partial
+# products): that error scales with the sum of |terms|, so on top of each
+# side's one rounding (the bf16 rule above, or 1e-5 in fp32) an output may
+# differ by GMM_SUM_TOL * sum_k |x_ik| * |w_kj|. A row gathered from the
+# wrong expert or tile moves an output by ~1e-2 of that sum.
+GMM_SUM_TOL = 2.0 ** -16
+GMM_TOL = (f"bf16 {ATTN_TOL}+2^-16*sum|x||w|; fp32 {F32_RTOL:g}*|ref|+2^-16*sum|x||w|; "
+           "int8 leaf == dense on its dequantized values, bit for bit")
 
 # bench.py's utterances (its synthetic voice traffic, bench.py:238-244)
 UTTERANCES = [
@@ -298,13 +319,14 @@ def _extra_shape(label, ms, plain_ms, bound_ms, bound_by, library_ms) -> dict:
 
 
 def phase_kernels(fsm, prefix_len: int) -> dict:
-    """K1-K12 alone at the main path's shapes. The parse (tinyllama-1.1b: 32
+    """K1-K13 alone at the main path's shapes. The parse (tinyllama-1.1b: 32
     q heads, 4 kv heads, hd 64, 22 layers; service cache S = 2048; the prefix
     bucket T = 1024; fast-forward blocks of 9, speculative verify blocks of
     5; the intent grammar's tables)
     and the STT (whisper-large-v3: 20 heads, hd 64, bf16, MHA; encoder
     T = S = 500 at the 1000-frame bucket; decoder self cache S = 448 and
-    cross-KV S = 500; the in-repo checkpoints: 4 heads, hd 16, fp32)."""
+    cross-KV S = 500; the in-repo checkpoints: 4 heads, hd 16, fp32); the
+    MoE feed-forward (``_gmm_kernel_rows``: mixtral-8x7b's experts)."""
     import torch
     import torch.nn.functional as F
 
@@ -502,6 +524,7 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
 
     rows.update(_paged_kernel_rows(g, randn))
     rows.update(_quant_kernel_rows(g, randn, n))
+    rows.update(_gmm_kernel_rows(g))
 
     # K4: the real intent-grammar tables, live and edge states, random
     # logits. Exact: token ids and states must be equal (tolerance 0).
@@ -669,6 +692,131 @@ def _paged_kernel_rows(g, randn) -> dict:
         "(32, 9) blocks, chains of 0-8 padded with duplicates, over the same pool and tables")
     del kp, vp, kh, vh
     return rows
+
+
+# K13 at mixtral-8x7b's widths (8 experts, top-2, dim 4096, ffn 14336): the
+# rows of one T = 1 decode step, of an ff=8 (1, 9) block and of the 1024-token
+# prefix prefill bucket, laid out by the path's own grouped_layout
+GMM_SHAPES = (("decode", 1), ("ff=8 block", 9), ("prefix prefill", 1024))
+
+
+def _gmm_operands(g, Tt: int, d: int, f: int, E: int, dtype):
+    """The grouped dispatch's rows for Tt tokens routed top-2 by a random
+    router: x (M_pad, d) with each expert's run zero-padded, the per-tile
+    expert ids, tm, and the distinct experts the tiles name."""
+    import torch
+
+    from tpu_voice_agent_torch.models.llama import grouped_layout
+    from tpu_voice_agent_torch.models.moe import route_topk_flat
+
+    dev = torch.device("cuda")
+    h = torch.randn(Tt, d, generator=g, device=dev)
+    router = torch.randn(d, E, generator=g, device=dev) * d ** -0.5
+    eids, _ = route_topk_flat(router, h, E, 2)
+    order, pos, tm, M_pad, te = grouped_layout(eids.reshape(-1).long(), E)
+    x = torch.zeros(M_pad, d, dtype=dtype, device=dev)
+    x[pos] = h[order // 2].to(dtype)
+    return x, te, tm, len(set(te.tolist()))
+
+
+def _gmm_kernel_rows(g) -> dict:
+    """K13 against its plain version at the MoE path's shapes (GMM_SHAPES),
+    both orientations (gate/up: x (M, 4096) by (8, 4096, 14336); down: x
+    (M, 14336) by (8, 14336, 4096)), bf16, each with a dense bf16 w and with
+    the int8 leaf, which must equal the dense form on its dequantized values
+    bit for bit; and fp32 at mixtral-test's widths (4 experts, 128 x 256).
+    Bounds count every tile the kernel is given: x and the output at M_pad
+    rows, each distinct expert plane the tiles name read once, 2 M_pad d f
+    operations. Library: ``torch._grouped_mm`` on the dense bf16 operands
+    (groups from the padded runs, the tail in expert E-1), where the
+    installed PyTorch has it and takes them."""
+    import torch
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.models.llama import quantize_leaf
+    from tpu_voice_agent_torch.ops import dequantize_leaf, grouped_matmul_reference
+
+    dev = torch.device("cuda")
+    E, dm, fm = 8, 4096, 14336
+    worst = [0.0, 0.0]
+    lib_note = []
+
+    def check(x, w, te, tm):
+        dense = dequantize_leaf(w)
+        out = ops.grouped_matmul(x, w, te, tm)
+        ref = grouped_matmul_reference(x, dense, te, tm)
+        mag = grouped_matmul_reference(x.abs().float(), dense.abs(), te, tm)
+        rtol = ATTN_RTOL if x.dtype == torch.bfloat16 else F32_RTOL
+        atol = ATTN_ATOL if x.dtype == torch.bfloat16 else 0.0
+        err = (out.float() - ref.float()).abs()
+        worst[0] = max(worst[0], float(err.max()))
+        worst[1] = max(worst[1], float((err / (rtol * ref.float().abs() + atol
+                                               + GMM_SUM_TOL * mag)).max()))
+        if isinstance(w, dict):
+            fail_if(not torch.equal(out, ops.grouped_matmul(x, dense, te, tm)),
+                    "grouped_matmul: the int8 leaf differs from the dense form on its "
+                    "dequantized values")
+
+    def library(x, w, te, tm):
+        if not hasattr(torch, "_grouped_mm"):
+            lib_note.append(f"torch {torch.__version__} has no torch._grouped_mm")
+            return None
+        counts = torch.bincount(te.long(), minlength=E) * tm
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+        try:
+            torch._grouped_mm(x, w, offs=offs)
+        except (RuntimeError, TypeError) as e:  # a yardstick only: the port never calls it
+            lib_note.append(f"torch._grouped_mm refused the operands: {str(e)[:160]}")
+            return None
+        return cuda_ms(lambda: torch._grouped_mm(x, w, offs=offs))
+
+    timings = {}
+    for orient, (d, f) in (("gate/up", (dm, fm)), ("down", (fm, dm))):
+        w = (torch.randn(E, d, f, generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
+        leaf = quantize_leaf(w)
+        for label, Tt in GMM_SHAPES:
+            x, te, tm, planes = _gmm_operands(g, Tt, d, f, E, torch.bfloat16)
+            M = x.shape[0]
+            check(x, w, te, tm)
+            check(x, leaf, te, tm)
+            io = 2 * M * d + 2 * M * f + 4 * te.numel()
+            ops_n = 2 * M * d * f
+            key = f"{label} {orient}"
+            timings[key] = {
+                "int8": (cuda_ms(lambda: ops.grouped_matmul(x, leaf, te, tm)),
+                         *bound(io + planes * (d * f + 4 * f), ops_n)),
+                "bf16": (cuda_ms(lambda: ops.grouped_matmul(x, w, te, tm)),
+                         *bound(io + planes * 2 * d * f, ops_n)),
+                "plain_ms": cuda_ms(lambda: grouped_matmul_reference(x, w, te, tm), iters=3,
+                                    warmup=1),
+                "library_ms": library(x, w, te, tm),
+                "shape": (f"{label}: {Tt} token(s), top-2 of 8, tm {tm}, x ({M}, {d}) bf16 "
+                          f"({M // tm} tiles, {planes} distinct experts), w (8, {d}, {f})")}
+            del x
+        del w, leaf
+    torch.cuda.empty_cache()
+    # fp32 activations at mixtral-test's widths (the identity check's engine):
+    # an fp32 w and the int8 leaf, both orientations, an ff=8 block's rows
+    for d, f in ((128, 256), (256, 128)):
+        w32 = torch.randn(4, d, f, generator=g, device=dev) * d ** -0.5
+        x, te, tm, _ = _gmm_operands(g, 9, d, f, 4, torch.float32)
+        check(x, w32, te, tm)
+        check(x, quantize_leaf(w32.bfloat16()), te, tm)
+    torch.cuda.synchronize()
+    main = timings["decode gate/up"]
+    row = _kernel_row("grouped_matmul", worst[0], worst[1], GMM_TOL, main["int8"][0],
+                      main["plain_ms"], main["int8"][1], main["int8"][2], main["library_ms"])
+    row["shape"] = main["shape"] + ", the int8 leaf (the main path's); library and plain on " \
+        "the dense bf16 w"
+    for key, t in timings.items():
+        for form in ("int8", "bf16"):
+            row[f"{key}, {form}"] = _extra_shape(
+                f"{t['shape']}, {'int8 leaf' if form == 'int8' else 'dense bf16 w'}",
+                *t[form][:1], t["plain_ms"], *t[form][1:], t["library_ms"])
+    if lib_note:
+        row["library_note"] = sorted(set(lib_note))
+        log(f"[kernels]   grouped_matmul library: {row['library_note']}")
+    return {"grouped_matmul": row}
 
 
 def _quant_values(g, shape, tier: str):
@@ -1332,10 +1480,11 @@ def _paged_engine(params, ff: int, **kw):
     return eng
 
 
-def _drain(eng, label: str, totals: dict, on_start=None):
-    """bench_batch.py's ``run_one`` on ``eng``: the cached prefix, a
-    ContinuousBatcher (chunk 16, 128 new tokens), one warm-up request, then
-    32 sessions submitted at once and drained, stepping by hand to sample
+def _drain(eng, label: str, totals: dict, on_start=None, sessions: int = BATCH_SLOTS):
+    """bench_batch.py's ``run_one`` on ``eng``: the cached prefix (installed
+    here unless the engine has one), a ContinuousBatcher (chunk 16, 128 new
+    tokens), one warm-up request, then ``sessions`` (32) sessions submitted
+    at once and drained, stepping by hand to sample
     the pool's peak occupancy. Fails unless every session is ok and in the
     grammar and the pool is back to the prefix's blocks. ``on_start()``, if
     given, runs after the warm-up, just before the counted drain. Returns
@@ -1345,7 +1494,7 @@ def _drain(eng, label: str, totals: dict, on_start=None):
     from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
     from tpu_voice_agent_torch.services.brain import install_prompt_prefix
 
-    P = install_prompt_prefix(eng)
+    P = len(eng.prefix_ids) or install_prompt_prefix(eng)
     prefix_blocks = eng.allocator.blocks_in_use
     fail_if(prefix_blocks != P // eng.block_size, f"{label}: prefix blocks not installed once")
     batcher = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
@@ -1359,7 +1508,7 @@ def _drain(eng, label: str, totals: dict, on_start=None):
         torch.cuda.synchronize()
         peak = 0
         t0 = time.perf_counter()
-        rids = [batcher.submit(_batch_prompt(i)) for i in range(BATCH_SLOTS)]
+        rids = [batcher.submit(_batch_prompt(i)) for i in range(sessions)]
         while batcher.busy():
             batcher.step()
             peak = max(peak, eng.allocator.blocks_in_use)
@@ -1369,22 +1518,22 @@ def _drain(eng, label: str, totals: dict, on_start=None):
     ok = sum(r.error is None for r in res)
     walks = [eng.fsm.walk(r.token_ids) for r in res]
     tokens = sum(r.steps for r in res)
-    row = {"prefix_tokens": P, "sessions": BATCH_SLOTS, "ok": ok, "wall_s": wall,
-           "intents_per_s": BATCH_SLOTS / wall, "tokens_per_s": tokens / wall,
+    row = {"prefix_tokens": P, "sessions": sessions, "ok": ok, "wall_s": wall,
+           "intents_per_s": sessions / wall, "tokens_per_s": tokens / wall,
            "tokens": tokens, "finished": sum(r.finished for r in res),
            "chunks": batcher.chunks - chunks0, "forwards": batcher.forwards - fwd0,
            "peak_pool_blocks": peak, "pool_blocks": eng.allocator.n_blocks,
            "blocks_after_drain": eng.allocator.blocks_in_use,
            "prefill_ms_p50": statistics.median(r.prefill_ms for r in res),
            "cached_tokens": sorted({r.cached_tokens for r in res}), "launches": c.counts}
-    log(f"[{label}] {ok}/{BATCH_SLOTS} ok ({row['finished']} reached EOS), "
+    log(f"[{label}] {ok}/{sessions} ok ({row['finished']} reached EOS), "
         f"{tokens} tokens in {wall:.3f} s: {row['intents_per_s']:.3f} intents/s, "
         f"{row['tokens_per_s']:.1f} tokens/s; {row['chunks']} chunks, {row['forwards']} "
         f"forwards ({1e3 * wall / max(row['forwards'], 1):.2f} ms each with admissions); "
         f"peak pool {peak}/{eng.allocator.n_blocks} blocks, {row['blocks_after_drain']} "
         f"after the drain; suffix prefill p50 {row['prefill_ms_p50']:.2f} ms, cached "
         f"{row['cached_tokens']}")
-    fail_if(ok != BATCH_SLOTS, f"{label}: {BATCH_SLOTS - ok} failed: "
+    fail_if(ok != sessions, f"{label}: {sessions - ok} failed: "
             f"{[r.error for r in res if r.error][:3]}")
     fail_if(min(walks) < 0, f"{label}: a token stream left the grammar")
     fail_if(eng.allocator.blocks_in_use != prefix_blocks,
@@ -2328,6 +2477,218 @@ def phase_spec_golden(totals: dict, report: dict) -> None:
     report["spec_golden"] = out
 
 
+# ------------------------------------------------------------------ MoE
+
+MOE_LAYERS = 32  # mixtral-8x7b: K13 runs gate, up and down in every layer
+MOE_IDENTITY_PROMPTS = 16
+
+
+def _moved(tree, device):
+    """A copy of a (nested dict) param tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _moe_identity(totals: dict) -> dict:
+    """The mixtral-test engine (4 experts, top-2) in fp32 on ONE weight set,
+    ff=8 behind the cached prefix, 16 prompts of 64 new tokens: the grouped
+    dispatch on the card (K13) against the dense dispatch on the card (no
+    K13), and against the grouped engine on the CPU (the plain versions).
+    Token-identical, or parted only where the plain forward's top-2 margin
+    is below one bf16 ulp of the top logit (``_check_partings`` at 1)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_voice_agent_torch.grammar import build_intent_fsm
+    from tpu_voice_agent_torch.models.llama import PRESETS, init_params
+    from tpu_voice_agent_torch.serve.engine import DecodeEngine
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = PRESETS["mixtral-test"]
+    kw = dict(max_len=1024, prefill_buckets=(1024,), fast_forward=8, init_weights=False)
+
+    def engine(impl, device, params):
+        eng = DecodeEngine(cfg=dataclasses.replace(base, moe_impl=impl), device=device, **kw)
+        eng.load_params(params)
+        install_prompt_prefix(eng)
+        return eng
+
+    vocab = build_intent_fsm()[0].vocab_size
+    params = init_params(dataclasses.replace(base, vocab_size=vocab),
+                         torch.Generator().manual_seed(0), dtype=torch.float32, device="cpu")
+    cpu = engine("grouped", "cpu", params)
+    card = _moved(params, "cuda")
+    grouped, dense = engine("grouped", None, card), engine("dense", None, card)
+    prompts = [_batch_prompt(i) for i in range(MOE_IDENTITY_PROMPTS)]
+    ids = {}
+    for label, eng in (("grouped", grouped), ("dense", dense)):
+        with Counted(f"moe identity {label}", totals) as c:
+            ids[label] = [eng.generate(p, max_new_tokens=64).token_ids for p in prompts]
+        fail_if((c.counts["grouped_matmul"] > 0) != (label == "grouped"),
+                f"moe identity: K13 launched {c.counts['grouped_matmul']} times on the "
+                f"{label} dispatch")
+    ids["cpu"] = [cpu.generate(p, max_new_tokens=64).token_ids for p in prompts]
+    prompt_ids = [grouped.tokenizer.encode(p, bos=True) for p in prompts]
+    out = {"prompts": len(prompts), "tokens": [len(t) for t in ids["grouped"]]}
+    for other, what in (("dense", "grouped and dense on the card"),
+                        ("cpu", "grouped on the card and on the CPU")):
+        parted = _partings(grouped, prompt_ids, ids["grouped"], ids[other], "moe identity",
+                           what)
+        _check_partings(parted, f"moe identity ({what})", 1)
+        out[f"parted_{other}"] = parted
+        log(f"[moe identity] {what}: {len(prompts) - len(parted)} of {len(prompts)} prompts "
+            f"token-identical ({sum(out['tokens'])} tokens)")
+    return out
+
+
+def _moe_boot(impl: str, totals: dict, **env):
+    """make_parser_from_env() at BRAIN_BACKEND=engine:mixtral-8x7b
+    BRAIN_QUANT=int8 (ff 8, the cached prefix), ``BRAIN_MOE=grouped`` for the
+    grouped dispatch, plus ``env``. Returns (parser, boot seconds, launch
+    counts of the boot)."""
+    from tpu_voice_agent_torch.services import brain
+
+    for k in ("BRAIN_FF", "BRAIN_PREFIX", "BRAIN_DEVICE", "BRAIN_BATCH", "BRAIN_PAGED",
+              "BRAIN_POOL_BLOCKS", "RADIX_ENABLE", "KV_QUANT", "SPEC_ENABLE", "BRAIN_MOE"):
+        os.environ.pop(k, None)
+    os.environ.update(BRAIN_BACKEND="engine:mixtral-8x7b", BRAIN_QUANT="int8", **env)
+    if impl == "grouped":
+        os.environ["BRAIN_MOE"] = "grouped"
+    try:
+        with Counted(f"moe {impl} boot", totals) as c:
+            t0 = time.perf_counter()
+            parser = brain.make_parser_from_env()
+            boot = time.perf_counter() - t0
+    finally:
+        for k in ("BRAIN_MOE", *env):
+            os.environ.pop(k, None)
+    eng = parser.engine
+    fail_if(eng.device.type != "cuda" or eng.quant != "int8" or eng.cfg.n_experts != 8
+            or eng.cfg.moe_impl != impl or not eng.prefix_ids,
+            f"moe {impl}: not a mixtral-8x7b int8 {impl} engine on the card behind the prefix")
+    return parser, boot, c.counts
+
+
+def _free_cuda() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(totals: dict, report: dict, profile: bool = False) -> None:
+    """The MoE decoder behind /parse at full width: mixtral-8x7b (32 layers,
+    dim 4096, 8 experts of ffn 14336, top-2), int8 weights drawn and
+    quantized layer by layer on the card (the bf16 tree, ~93 GB, never
+    exists), ff 8 behind the cached prefix. First the fp32 identity check at
+    mixtral-test (``_moe_identity``). Then BRAIN_MOE=grouped behind BrainApp:
+    3 /parse requests, each a 200 with a grammar-valid intent, K13 launched
+    exactly 3 x 32 times per forward (the prefix install, and each request's
+    suffix prefill and decode forwards), the peak allocation under the card's
+    memory. Then the same parses on the dense dispatch (BRAIN_MOE unset, the
+    same seed, so the same weights): K13 never launches; token agreement
+    with the grouped parses is reported, not gated (bf16). Then
+    BRAIN_PAGED=1 BRAIN_BATCH=8 grouped: an 8-session drain through K7 and
+    K13. Each 46 GB engine is freed before the next is built. ``profile``
+    adds one parse of each dispatch under the profiler."""
+    import torch
+
+    from tpu_voice_agent_torch.schemas import validate_parse_response
+    from tpu_voice_agent_torch.services import brain
+
+    _free_cuda()
+    out = {"identity": _moe_identity(totals)}
+    _free_cuda()
+    cap = torch.cuda.get_device_properties(0).total_memory
+    per_forward = 3 * MOE_LAYERS
+    for impl in ("grouped", "dense"):
+        torch.cuda.reset_peak_memory_stats()
+        parser, boot, boot_counts = _moe_boot(impl, totals)
+        eng = parser.engine
+        layers = eng.params["layers"]
+        weights = (int(layers[-1]["moe_down"]["q"][-1].sum()),
+                   float(eng.params["lm_head"]["s"].double().sum()))
+        app = brain.BrainApp(parser)
+        log(f"[moe {impl}] boot {boot:.2f} s (init, quantize, prefix prefill): "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; /health "
+            f"{app.health()[1]}")
+        fail_if(boot_counts["grouped_matmul"] != (per_forward if impl == "grouped" else 0),
+                f"moe {impl}: the prefix prefill launched K13 "
+                f"{boot_counts['grouped_matmul']} times")
+        rows = []
+        with Counted(f"moe {impl}", totals) as c:
+            for text in UTTERANCES[:3]:
+                t1 = time.perf_counter()
+                status, body, _ = app.parse(json.dumps({"text": text, "context": {}}).encode())
+                wall = (time.perf_counter() - t1) * 1e3
+                res = parser.last_result
+                fail_if(status != 200 or validate_parse_response(body) != (body, None)
+                        or res is None or eng.fsm.walk(res.token_ids) < 0,
+                        f"moe {impl}: /parse {text!r} answered {status} {body}")
+                rows.append({"text": text, "status": status, "wall_ms": wall,
+                             "prompt_tokens": res.prompt_tokens,
+                             "cached_tokens": res.cached_tokens, "prefill_ms": res.prefill_ms,
+                             "decode_ms": res.decode_ms, "tokens": res.steps,
+                             "forwards": res.forwards,
+                             "ms_per_forward": res.decode_ms / max(res.forwards, 1),
+                             "token_ids": res.token_ids})
+                log(f"[moe {impl}] /parse 200: prompt {res.prompt_tokens} (cached "
+                    f"{res.cached_tokens}) prefill {res.prefill_ms:.2f} ms decode "
+                    f"{res.decode_ms:.2f} ms, {res.steps} tokens in {res.forwards} forwards "
+                    f"({rows[-1]['ms_per_forward']:.2f} ms each), wall {wall:.1f} ms")
+        peak = torch.cuda.max_memory_allocated()
+        forwards = sum(1 + r["forwards"] for r in rows)  # a suffix prefill + decode forwards
+        want = per_forward * forwards if impl == "grouped" else 0
+        fail_if(c.counts["grouped_matmul"] != want,
+                f"moe {impl}: K13 launched {c.counts['grouped_matmul']} times over {forwards} "
+                f"forwards, want {want}")
+        fail_if(peak >= cap, f"moe {impl}: peak {peak} bytes over the card's {cap}")
+        out[impl] = {"boot_s": boot, "peak_bytes": peak, "card_bytes": cap, "requests": rows,
+                     "forwards": forwards, "launches": c.counts, "weights": weights}
+        log(f"[moe {impl}] peak allocation {peak / 2**30:.2f} of {cap / 2**30:.2f} GiB; "
+            f"K13 launches {c.counts['grouped_matmul']} over {forwards} forwards")
+        if profile:
+            def parse():
+                app.parse(json.dumps({"text": UTTERANCES[0], "context": {}}).encode())
+                r = parser.last_result
+                return f"{r.steps} tokens, {r.forwards} forwards + a suffix prefill"
+
+            _profile(f"mixtral-8x7b int8 {impl} /parse", parse, f"moe_{impl}", report)
+        del app, parser, eng, layers
+        _free_cuda()
+    fail_if(out["grouped"]["weights"] != out["dense"]["weights"],
+            "moe: the grouped and dense engines drew different weights from one seed")
+    agree = []
+    for a, b in zip(out["grouped"]["requests"], out["dense"]["requests"]):
+        ta, tb = a["token_ids"], b["token_ids"]
+        same = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), min(len(ta), len(tb)))
+        agree.append({"text": a["text"], "identical": ta == tb, "first_parting": same,
+                      "tokens": [len(ta), len(tb)]})
+    out["dense_agreement"] = agree
+    log(f"[moe] grouped and dense dispatch, same weights: {agree}")
+
+    torch.cuda.reset_peak_memory_stats()
+    parser, boot, _ = _moe_boot("grouped", totals, BRAIN_PAGED="1", BRAIN_BATCH="8")
+    parser.close()  # the drain steps its own batcher on the engine
+    eng = parser.engine
+    fail_if(eng.batch_slots != 8 or eng.allocator is None, "moe paged: not an 8-slot paged engine")
+    row, _res, c = _drain(eng, "moe paged", totals, sessions=8)
+    c.require("paged_block_attention", "grouped_matmul", "masked_argmax_advance")
+    fail_if(c.counts["grouped_matmul"] % per_forward,
+            f"moe paged: {c.counts['grouped_matmul']} K13 launches, not whole forwards")
+    row.update(boot_s=boot, peak_bytes=torch.cuda.max_memory_allocated())
+    out["paged"] = row
+    del parser, eng
+    _free_cuda()
+    report["moe"] = out
+
+
 def _device_us(evt) -> float:
     """A profiler entry's own device time in us (the attribute's name
     changed across PyTorch versions)."""
@@ -2426,17 +2787,18 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,kernels,service,parse,batch,batch_dense,radix,"
                          "kvquant,spec,service_batched,golden,batch_golden,kvquant_golden,"
-                         "spec_golden,stt,stt_golden,voice (default all)")
+                         "spec_golden,stt,stt_golden,voice,moe (default all)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile (torch.profiler) one bench parse when the service phase "
                          "runs, one ff=8 batch chunk when the batch phase runs (one per KV "
                          "tier when the kvquant phase runs), one spec parse and one spec batch "
-                         "chunk when the spec phase runs, and one whisper-large-v3 "
-                         "transcribe when the stt phase runs")
+                         "chunk when the spec phase runs, one whisper-large-v3 "
+                         "transcribe when the stt phase runs, and one mixtral-8x7b parse of "
+                         "each MoE dispatch when the moe phase runs")
     args = ap.parse_args()
     phases = (["card", "build", "kernels", "service", "parse", "batch", "batch_dense", "radix",
                "kvquant", "spec", "service_batched", "golden", "batch_golden", "kvquant_golden",
-               "spec_golden", "stt", "stt_golden", "voice"]
+               "spec_golden", "stt", "stt_golden", "voice", "moe"]
               if args.phases == "all" else args.phases.split(","))
 
     import torch
@@ -2506,6 +2868,8 @@ def main() -> int:
     del stt_eng
     if "stt_golden" in phases:
         timed("stt_golden", phase_stt_golden, totals, report)
+    if "moe" in phases:  # last: its 46 GB engines need the card to themselves
+        timed("moe", phase_moe, totals, report, profile=args.profile)
     for name, r in rows.items():
         r["launches"] = totals.get(name, 0)
     report["kernels"] = list(rows.values())

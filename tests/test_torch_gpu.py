@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K12) against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1-K13) against their plain PyTorch versions, on
 the card. Every test here is marked ``gpu`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -360,3 +360,64 @@ def test_quant_wrappers_count_launches_and_refuse_bad_operands(cuda):
     with pytest.raises(ValueError, match="scales"):
         ops.paged_attention_quant(q, kp, kp, ks.float(), ks.float(), tables, kv_len, 0, bits=4)
     assert ops.launch_counts()["paged_attention_quant"] == 1
+
+
+# K13: |out - ref| <= rtol * |ref| + 2^-16 * sum_k |x_ik| * |w_kj|: each side
+# rounds its fp32 sum once (rtol 2^-6 in bf16, 1e-5 in fp32), and the two
+# fp32 sums over d run in another order (the tensor-core path adds 16-wide
+# partial products), an error that scales with the sum of |terms|
+GMM_RTOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+GMM_SUM_TOL = 2.0 ** -16
+
+
+def _gmm_check(out, ref, x, w_dense, te, tm):
+    row_e = torch.repeat_interleave(te.long(), tm)
+    mag = torch.stack([x[i].float().abs() @ w_dense[e].float().abs()
+                       for i, e in enumerate(row_e.tolist())])
+    err = (out.float() - ref.float()).abs()
+    allowed = GMM_RTOL[x.dtype] * ref.float().abs() + GMM_SUM_TOL * mag
+    assert bool((err <= allowed).all()), float((err / allowed).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tm", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,f", [(256, 384), (72, 96), (68, 100)])
+def test_grouped_matmul_matches_plain(cuda, tm, xdt, d, f):
+    """Dense bf16 / fp32 weights and the int8 leaf; d and f ragged against
+    the 32-deep stage and the 128-column tile, and (68, 100) off the
+    16-byte vector width; the int8 leaf bit for bit the dense form on its
+    dequantized values."""
+    g = torch.Generator(device=cuda).manual_seed(tm + d)
+    E, M = 4, 2 * max(tm, 64)
+    x = torch.randn(M, d, generator=g, device=cuda).to(xdt)
+    te = torch.randint(0, E, (M // tm,), generator=g, device=cuda, dtype=torch.int32)
+    w32 = torch.randn(E, d, f, generator=g, device=cuda) * d ** -0.5
+    leaf = {"q": torch.randint(-127, 128, (E, d, f), generator=g, device=cuda,
+                               dtype=torch.int8),
+            "s": torch.rand(E, 1, f, generator=g, device=cuda) * 0.01 + 1e-3}
+    for w in (w32.bfloat16(), w32, leaf):
+        dense = ops.dequantize_leaf(w)
+        out = ops.grouped_matmul(x, w, te, tm)
+        ref = ops.grouped_matmul_reference(x, dense, te, tm)
+        assert out.dtype == xdt and out.shape == (M, f)
+        _gmm_check(out, ref, x, dense, te, tm)
+        if isinstance(w, dict):
+            assert torch.equal(out, ops.grouped_matmul(x, dense, te, tm))
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_counts_launches_and_refuses_bad_operands(cuda):
+    ops.reset_launch_counts()
+    x = torch.zeros(16, 32, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(2, 32, 64, dtype=torch.bfloat16, device=cuda)
+    te = torch.zeros(2, dtype=torch.int32, device=cuda)
+    ops.grouped_matmul(x, w, te, 8)
+    assert ops.launch_counts()["grouped_matmul"] == 1
+    with pytest.raises(ValueError, match="power of two"):
+        ops.grouped_matmul(x, w, te, 12)
+    with pytest.raises(ValueError, match="tile_expert"):
+        ops.grouped_matmul(x, w, te.long(), 8)
+    with pytest.raises(ValueError, match="leaf"):
+        ops.grouped_matmul(x, w.to(torch.int8), te, 8)
+    assert ops.launch_counts()["grouped_matmul"] == 1

@@ -152,6 +152,74 @@ def test_env_factory_reads_the_jax_service_names(monkeypatch):
     assert (eng.fast_forward, eng.quant, eng.prefix_ids) == (0, None, [])
 
 
+UNSERVED = ("BRAIN_MODEL", "RADIX_SESSIONS", "RADIX_MAX_NODES", "RADIX_PRESSURE_S",
+            "PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "TENANT_PREEMPT", "BRAIN_MAX_INFLIGHT")
+
+
+def _tiny_env(monkeypatch):
+    monkeypatch.setenv("BRAIN_BACKEND", "engine:test-tiny")
+    monkeypatch.setenv("BRAIN_DEVICE", "cpu")
+    monkeypatch.setenv("BRAIN_PREFIX", "0")
+    for name in UNSERVED + ("BRAIN_MOE", "BRAIN_QUANT", "BRAIN_BATCH", "BRAIN_PAGED"):
+        monkeypatch.delenv(name, raising=False)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("BRAIN_MODEL", "/models/intent-8b"),
+    ("RADIX_SESSIONS", "512"), ("RADIX_SESSIONS", "lots"),
+    ("RADIX_MAX_NODES", "1024"), ("RADIX_PRESSURE_S", "0.5"),
+    ("PREFILL_CHUNK_TOKENS", "256"), ("QUARANTINE_AFTER", "2"),
+    ("TENANT_PREEMPT", "0"), ("BRAIN_MAX_INFLIGHT", "32"),
+])
+def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
+    """Each knob the JAX brain honours and the port does not serve (or serves
+    at one fixed value only) raises at boot, before any engine is built, and
+    names the knob and the ROADMAP item that will serve it."""
+    _tiny_env(monkeypatch)
+    monkeypatch.setenv(name, value)
+    built = []
+    monkeypatch.setattr(DecodeEngine, "__init__", lambda *a, **k: built.append(1))
+    with pytest.raises(ValueError, match=name) as e:
+        brain.make_parser_from_env()
+    assert "ROADMAP.md Queue 1 item" in str(e.value) and not built
+
+
+@pytest.mark.parametrize("name,value", [
+    ("RADIX_SESSIONS", "256"), ("RADIX_MAX_NODES", "4096"), ("RADIX_PRESSURE_S", "2"),
+    ("PREFILL_CHUNK_TOKENS", ""), ("QUARANTINE_AFTER", ""), ("TENANT_PREEMPT", " "),
+    ("BRAIN_MAX_INFLIGHT", ""), ("BRAIN_MODEL", ""),
+])
+def test_env_factory_passes_the_values_it_serves(monkeypatch, name, value):
+    """The radix knobs at the port's constants, and the unported knobs unset
+    or empty (the JAX defaults), boot."""
+    _tiny_env(monkeypatch)
+    monkeypatch.setenv(name, value)
+    assert brain.make_parser_from_env().engine.cfg.n_experts == 0
+
+
+def test_env_factory_serves_brain_moe(monkeypatch):
+    """``BRAIN_MOE=grouped`` picks the grouped dispatch on an MoE preset and
+    is a no-op on a dense one, as in the JAX service; /health says which."""
+    _tiny_env(monkeypatch)
+    monkeypatch.setenv("BRAIN_BACKEND", "engine:mixtral-test")
+    monkeypatch.setenv("BRAIN_QUANT", "int8")
+    eng = brain.make_parser_from_env().engine
+    assert (eng.cfg.n_experts, eng.cfg.moe_impl) == (4, "dense")
+    monkeypatch.setenv("BRAIN_MOE", "grouped")
+    parser = brain.make_parser_from_env()
+    eng = parser.engine
+    assert (eng.cfg.n_experts, eng.cfg.moe_impl, eng.quant) == (4, "grouped", "int8")
+    assert eng.params["layers"][0]["moe_gate"]["q"].dtype == torch.int8
+    assert not isinstance(eng.params["layers"][0]["router"], dict)
+    status, body, _ = brain.BrainApp(parser).health()
+    assert status == 200 and (body["moe_impl"], body["n_experts"]) == ("grouped", 4)
+    res = eng.generate(_short_prompt("go back", {}), max_new_tokens=8)
+    assert res.error is None and res.steps == 8
+    monkeypatch.setenv("BRAIN_BACKEND", "engine:test-tiny")
+    eng = brain.make_parser_from_env().engine
+    assert (eng.cfg.n_experts, eng.cfg.moe_impl) == (0, "grouped")  # dense FFN all the same
+
+
 def test_env_factory_without_a_card_raises(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device resolves")
@@ -173,7 +241,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in ('audio.mel', 'audio.endpoint', 'models.whisper', 'serve.stt',\n"
         "          'whisper_ckpt', 'voicebench', 'models.llama', 'ops.paged_attention',\n"
         "          'serve.engine', 'serve.paged', 'serve.radix', 'serve.scheduler',\n"
-        "          'serve.spec'):\n"
+        "          'serve.spec', 'models.moe', 'ops.grouped_matmul'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent')\n"
@@ -185,7 +253,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 26 and bad.strip() == "[]"
+    assert int(n) >= 39 and bad.strip() == "[]"
 
 
 # ---------------------------------------------------------------- batched

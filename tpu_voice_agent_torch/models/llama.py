@@ -1,4 +1,4 @@
-"""Llama-family decoder in PyTorch (dense path).
+"""Llama-family decoder in PyTorch (dense and MoE feed-forward).
 
 Port of ``tpu_voice_agent/models/llama.py``: the same parameter tree (layers
 stacked on a leading axis), the same int8 weight-only scheme, the same
@@ -14,11 +14,17 @@ Differences from the JAX module, all deliberate:
 - ``forward_paged`` scatters into the paged pool (and, under KV_QUANT, its
   scale planes) IN PLACE (JAX donates them and returns new ones) and
   returns only the logits.
-Left out: the MoE feed-forward.
+- ``init_params(quant="int8")`` quantizes each leaf as it is drawn, and
+  draws the stacked expert leaves one layer at a time, so a mixtral-8x7b
+  engine never holds its bf16 tree (about 93 GB).
+The MoE feed-forward (``n_experts > 0``) has both dispatch layouts: the
+dense one-hot ``_moe_ffn`` through ``_qe``, and ``_moe_ffn_grouped``
+(``moe_impl="grouped"``) through K13 (``ops.grouped_matmul``).
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import torch
@@ -28,12 +34,14 @@ from ..ops import (
     decode_attention_layer,
     decode_block_attention_layer,
     flash_attention,
+    grouped_matmul,
     paged_attention,
     paged_attention_quant,
     paged_block_attention,
     paged_block_attention_quant,
 )
 from ..ops.kvquant import dequantize_kv, kv_quant_bits, quantize_kv
+from .moe import moe_capacity, route_topk, route_topk_flat
 
 # ---------------------------------------------------------------- config
 
@@ -49,9 +57,7 @@ class LlamaConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
-    # MoE fields kept so checkpoint configs load unchanged; this port serves
-    # dense models only (n_experts == 0)
-    n_experts: int = 0
+    n_experts: int = 0  # > 0: the MoE feed-forward replaces the dense SwiGLU
     top_k: int = 2
     capacity_factor: float = 1.25
     moe_impl: str = "dense"
@@ -76,6 +82,13 @@ PRESETS: dict[str, LlamaConfig] = {
                              rope_theta=500_000.0, max_seq_len=8192),
     "llama3-70b": LlamaConfig(dim=8192, n_layers=80, n_heads=64, n_kv_heads=8, ffn_dim=28672,
                               rope_theta=500_000.0, max_seq_len=8192),
+    # capacity_factor = E / K keeps the dense dispatch drop-free (capacity ==
+    # token count), so chunked prefill equals per-token decode
+    "mixtral-test": LlamaConfig(dim=128, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=256,
+                                max_seq_len=256, n_experts=4, top_k=2, capacity_factor=2.0),
+    "mixtral-8x7b": LlamaConfig(dim=4096, n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336,
+                                rope_theta=1_000_000.0, max_seq_len=8192, n_experts=8, top_k=2,
+                                capacity_factor=4.0),
 }
 
 
@@ -83,26 +96,53 @@ PRESETS: dict[str, LlamaConfig] = {
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.bfloat16,
-                device: str | torch.device | None = None) -> dict:
+                device: str | torch.device | None = None, quant: str | None = None) -> dict:
     """Random init with the JAX module's shapes and scales (normal draws in
     fp32, scaled by fan-in ** -0.5, cast to ``dtype``). The numbers differ
     from ``jax.random``'s; tests share weights through ``bridge`` instead.
-    ``device`` defaults to the generator's."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE configs are not ported")
+    ``device`` defaults to the generator's.
+
+    The stacked expert leaves (L, E, ...) are drawn one layer at a time;
+    every other leaf whole, in the dense presets' order. With
+    ``quant="int8"`` each matmul weight is quantized as soon as it is drawn
+    (an expert layer straight into a preallocated stacked int8 leaf), so the
+    tree at ``dtype`` is never held whole; the result equals
+    ``quantize_params(init_params(...))`` bit for bit, since a leaf's
+    per-out-channel max lies inside one layer's plane."""
+    if quant not in (None, "int8"):
+        raise ValueError(f"unknown quant {quant!r}")
     device = device if device is not None else generator.device
     d, f, hd = cfg.dim, cfg.ffn_dim, cfg.head_dim
-    nq, nkv, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    nq, nkv, L, E = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers, cfg.n_experts
 
-    def w(*shape, scale=None):
-        scale = scale if scale is not None else shape[-2] ** -0.5
+    def draw(shape, scale):
         x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (x * scale).to(dtype)
+
+    def w(*shape, scale=None, raw=False):
+        x = draw(shape, scale if scale is not None else shape[-2] ** -0.5)
+        return x if raw or quant is None else quantize_leaf(x)
+
+    def stacked(*shape):
+        """An (L, *shape) leaf drawn layer by layer, quantized per layer."""
+        scale = shape[-2] ** -0.5
+        if quant is None:
+            out = torch.empty((L, *shape), device=device, dtype=dtype)
+            for i in range(L):
+                out[i] = draw(shape, scale)
+            return out
+        out = {"q": torch.empty((L, *shape), device=device, dtype=torch.int8),
+               "s": torch.empty((L, *shape[:-2], 1, shape[-1]), device=device,
+                                dtype=torch.float32)}
+        for i in range(L):
+            leaf = quantize_leaf(draw(shape, scale))
+            out["q"][i], out["s"][i] = leaf["q"], leaf["s"]
+        return out
 
     def ones(*shape):
         return torch.ones(shape, device=device, dtype=dtype)
 
-    embed = w(cfg.vocab_size, d, scale=d**-0.5)
+    embed = w(cfg.vocab_size, d, scale=d**-0.5, raw=True)
     layers = {
         "attn_norm": ones(L, d),
         "wq": w(L, d, nq * hd),
@@ -110,10 +150,17 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.bfloat
         "wv": w(L, d, nkv * hd),
         "wo": w(L, nq * hd, d),
         "mlp_norm": ones(L, d),
-        "w_gate": w(L, d, f),
-        "w_up": w(L, d, f),
-        "w_down": w(L, f, d),
     }
+    if E > 0:
+        layers.update({
+            # the router stays small and in full precision
+            "router": w(L, d, E, raw=True),
+            "moe_gate": stacked(E, d, f),
+            "moe_up": stacked(E, d, f),
+            "moe_down": stacked(E, f, d),
+        })
+    else:
+        layers.update({"w_gate": w(L, d, f), "w_up": w(L, d, f), "w_down": w(L, f, d)})
     return {"embed": embed, "layers": layers, "final_norm": ones(d),
             "lm_head": w(d, cfg.vocab_size)}
 
@@ -164,13 +211,14 @@ def quantize_leaf(w: torch.Tensor) -> dict:
 
 
 def quantize_params(params: dict) -> dict:
-    """Weight-only symmetric int8, per-output-channel scales. Norms and the
-    embedding table keep their dtype; every matmul weight becomes
-    {"q": int8, "s": f32}."""
+    """Weight-only symmetric int8, per-output-channel scales. Norms, the
+    embedding table and the MoE router keep their dtype; every matmul weight
+    (dense ``w*`` and stacked-expert ``moe_*``) becomes {"q": int8, "s": f32}."""
     layers = params["layers"]
     return {
         "embed": params["embed"],
-        "layers": {k: (quantize_leaf(v) if k.startswith("w") and not isinstance(v, dict) else v)
+        "layers": {k: (quantize_leaf(v) if k.startswith(("w", "moe_"))
+                       and not isinstance(v, dict) else v)
                    for k, v in layers.items()},
         "final_norm": params["final_norm"],
         "lm_head": (params["lm_head"] if isinstance(params["lm_head"], dict)
@@ -229,11 +277,97 @@ def _layer_qkv(p, x, cfg: LlamaConfig, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def grouped_layout(flat_e: torch.Tensor, n_experts: int):
+    """The grouped dispatch's row layout (llama.py:311-341) for the
+    expert ids of N assignments: ``order`` sorts them expert-major and
+    token-stable; sorted assignment i lands on row ``pos[i]`` of an
+    (``M_pad``, .) buffer where each expert's run is zero-padded to a
+    multiple of the row tile ``tm``; ``tile_expert`` (M_pad // tm,) int32
+    names each tile's expert. ``tm`` and ``M_pad`` are the JAX module's
+    exactly (``tile_expert``'s meaning depends on them) and follow from N
+    alone, so nothing is read back from the device."""
+    E, N, dev = n_experts, flat_e.shape[0], flat_e.device
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    tm = min(128, max(8, 1 << (max(N, 1) - 1).bit_length()))
+    counts = (flat_e[:, None] == torch.arange(E, device=dev)).sum(0)  # bincount would sync
+    padded = (counts + tm - 1) // tm * tm
+    ends = torch.cumsum(padded, 0)
+    starts = torch.cumsum(counts, 0) - counts
+    # its expert's padded offset plus its rank within the expert's run
+    pos = (ends - padded)[sorted_e] + torch.arange(N, device=dev) - starts[sorted_e]
+    M_pad = -(-N // tm) * tm + E * tm
+    # tail tiles past sum(padded) clip to expert E-1: their rows stay zero
+    # and are never gathered back
+    tile_expert = torch.clamp(
+        torch.searchsorted(ends, torch.arange(M_pad // tm, device=dev) * tm, right=True),
+        0, E - 1).to(torch.int32)
+    return order, pos, tm, M_pad, tile_expert
+
+
+def _moe_ffn_grouped(p, h, cfg: LlamaConfig):
+    """The grouped MoE dispatch (llama.py:296-350): assignments sorted by
+    expert into tile-padded runs (``grouped_layout``), and K13 multiplies
+    each row tile by its expert's plane (gate, up, down: three launches), so
+    FFN work goes with T * K, not T * E. The int8 expert leaves go to the
+    kernel as they are: it forms the JAX module's ``_w`` values
+    (``ops.dequantize_leaf``) per tile instead of a bf16 copy."""
+    B, T, d = h.shape
+    Tt = B * T
+    x2 = h.reshape(Tt, d)
+    eids, gates = route_topk_flat(p["router"], x2, cfg.n_experts, cfg.top_k)  # (Tt, K)
+    order, pos, tm, M_pad, tile_expert = grouped_layout(eids.reshape(-1).long(), cfg.n_experts)
+    tok = order // cfg.top_k  # assignment j = t * K + k belongs to token t
+    xs = torch.zeros((M_pad, d), dtype=h.dtype, device=h.device)
+    xs[pos] = x2[tok]
+    gate_s = grouped_matmul(xs, p["moe_gate"], tile_expert, tm)
+    up_s = grouped_matmul(xs, p["moe_up"], tile_expert, tm)
+    act = (F.silu(gate_s.float()) * up_s.float()).to(h.dtype)
+    down = grouped_matmul(act, p["moe_down"], tile_expert, tm)  # (M_pad, d)
+    # the combine in fp32, gates unrounded: each row receives K addends onto
+    # zero, exact in any order for K = 2 (CUDA's index_add_ adds by atomics,
+    # so K > 2 would make the sum's order, and its last bit, vary)
+    out = torch.zeros((Tt, d), dtype=torch.float32, device=h.device)
+    out.index_add_(0, tok, gates.reshape(-1)[order][:, None] * down[pos].float())
+    return out.to(h.dtype).reshape(B, T, d)
+
+
+def _moe_ffn(p, h, cfg: LlamaConfig):
+    """Top-k routed expert FFN over (B, T, d) hidden states
+    (llama.py:353-393): the dense one-hot dispatch through ``_qe``, or with
+    ``moe_impl="grouped"`` the grouped one. Serving is drop-free: a
+    capacity factor below E / K is clamped up to it, with a warning, so pad
+    tokens of a bucketed prefill never crowd out real ones."""
+    if cfg.moe_impl == "grouped":
+        return _moe_ffn_grouped(p, h, cfg)
+    B, T, d = h.shape
+    x2 = h.reshape(B * T, d)
+    cf = max(cfg.capacity_factor, cfg.n_experts / cfg.top_k)
+    if cf != cfg.capacity_factor:
+        warnings.warn(
+            f"MoE serving path clamped capacity_factor {cfg.capacity_factor} -> "
+            f"{cf} (= E/K) to stay drop-free; set capacity_factor >= "
+            f"{cfg.n_experts}/{cfg.top_k} in the config to silence this",
+            stacklevel=2,
+        )
+    C = moe_capacity(B * T, cfg.n_experts, cfg.top_k, cf)
+    dispatch, combine = route_topk(p["router"], x2, cfg.n_experts, cfg.top_k, C)
+    xe = torch.einsum("tec,td->ecd", dispatch.to(h.dtype), x2)  # (E, C, d)
+    gate = _qe(xe, p["moe_gate"])
+    up = _qe(xe, p["moe_up"])
+    a = (F.silu(gate) * up).to(h.dtype)
+    down = _qe(a, p["moe_down"]).to(h.dtype)  # (E, C, d)
+    return torch.einsum("tec,ecd->td", combine.to(h.dtype), down).reshape(B, T, d)
+
+
 def _layer_out(p, x, attn, cfg: LlamaConfig):
-    """Output projection + residual, then the SwiGLU MLP + residual.
-    ``attn`` is (B, T, n_heads * head_dim)."""
+    """Output projection + residual, then the MLP (dense SwiGLU, or the
+    routed MoE when ``cfg.n_experts > 0``) + residual. ``attn`` is
+    (B, T, n_heads * head_dim)."""
     x = x + _qe(attn, p["wo"]).to(x.dtype)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if cfg.n_experts > 0:
+        return x + _moe_ffn(p, h, cfg)
     act = (F.silu(_qe(h, p["w_gate"])) * _qe(h, p["w_up"])).to(x.dtype)
     return x + _qe(act, p["w_down"]).to(x.dtype)
 
@@ -416,3 +550,13 @@ def forward_paged(
         x = _layer_out(p, x, attn.reshape(B, T, -1), cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _qe(x, params["lm_head"])
+
+
+def param_count(cfg: LlamaConfig) -> int:
+    d, f, hd = cfg.dim, cfg.ffn_dim, cfg.head_dim
+    per_layer = d * (cfg.n_heads * hd) + 2 * d * (cfg.n_kv_heads * hd) + (cfg.n_heads * hd) * d
+    if cfg.n_experts > 0:
+        per_layer += cfg.n_experts * 3 * d * f + d * cfg.n_experts + 2 * d
+    else:
+        per_layer += 3 * d * f + 2 * d
+    return cfg.vocab_size * d * 2 + cfg.n_layers * per_layer + d

@@ -14,6 +14,7 @@
 | K10 | ``decode_attention_quant`` | ``decode_attention_quant_reference`` | ``ops/decode_attention.py decode_attention_quant`` |
 | K11 | ``masked_argmax`` (``masked_argmax_block``) | ``masked_argmax_reference`` | ``ops/grammar_mask.py masked_argmax`` |
 | K12 | ``decode_block_attention`` | ``decode_block_attention_reference`` | ``ops/decode_attention.py decode_block_attention`` |
+| K13 | ``grouped_matmul`` | ``grouped_matmul_reference`` | ``ops/grouped_matmul.py grouped_matmul`` |
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``wrapper.launches``; ``launch_counts`` reads them all and
@@ -31,6 +32,7 @@ from .decode_attention import (
     decode_block_attention_reference,
 )
 from .flash_attention import attention_reference, flash_attention
+from .grouped_matmul import dequantize_leaf, grouped_matmul, grouped_matmul_reference
 from .grammar_mask import (
     masked_argmax,
     masked_argmax_advance,
@@ -62,6 +64,7 @@ KERNELS = {
     "decode_attention_quant": decode_attention_quant,
     "masked_argmax": masked_argmax,
     "decode_block_attention": decode_block_attention,
+    "grouped_matmul": grouped_matmul,
 }
 
 
@@ -85,7 +88,10 @@ __all__ = [
     "decode_block_attention",
     "decode_block_attention_layer",
     "decode_block_attention_reference",
+    "dequantize_leaf",
     "flash_attention",
+    "grouped_matmul",
+    "grouped_matmul_reference",
     "launch_counts",
     "masked_argmax",
     "masked_argmax_advance",

@@ -25,7 +25,7 @@ from .. import PACKAGE_DIR, cache_dir
 
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "grammar_mask.cu",
-           "paged_attention_quant.cu", "decode_attention_quant.cu")
+           "paged_attention_quant.cu", "decode_attention_quant.cu", "grouped_matmul.cu")
 HEADERS = ("common.cuh", "decode_attention.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -133,6 +133,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tva_masked_argmax_advance": [P, P, P, P, P, P, P, I, I, I, P],
         # logits, state, mask, tok, R, V, stream
         "tva_masked_argmax": [P, P, P, P, I, I, P],
+        # x, w (or int8 q), scales (int8 only, else 0), tile_expert, out, M, d, f, tm,
+        # x dtype, w dtype, stream
+        "tva_grouped_matmul": [P, P, P, P, P, I, I, I, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -314,7 +314,9 @@ class DecodeEngine:
         self.params = None
         if init_weights:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            self.load_params(init_params(self.cfg, gen, device=self.device))
+            # int8 quantizes as it draws: a mixtral-8x7b tree fits the card
+            # only that way
+            self.load_params(init_params(self.cfg, gen, device=self.device, quant=quant))
         self.cache = self._init_kv_cache()
 
         self.tables = self.fsm.device_tables(device=self.device)

@@ -30,9 +30,11 @@ prompt prefix), ``BRAIN_PORT`` (default 8090), ``BRAIN_BATCH`` (slots,
 default 1), ``BRAIN_PAGED`` (``1``: the paged KV pool), ``BRAIN_POOL_BLOCKS``
 (pool size, default the dense worst case), ``BRAIN_CHUNK`` (decode steps per
 chunk, default 16), ``RADIX_ENABLE`` (``1``: session KV reuse on the paged
-pool), ``KV_QUANT`` (``int8`` / ``int4``: the quantized paged pool), and
-``BRAIN_DEVICE`` (default ``cuda``; ``cpu`` runs the plain
-versions).
+pool), ``KV_QUANT`` (``int8`` / ``int4``: the quantized paged pool),
+``BRAIN_MOE`` (``grouped``: the grouped-matmul MoE dispatch on an MoE
+preset such as ``mixtral-8x7b``), and ``BRAIN_DEVICE`` (default ``cuda``;
+``cpu`` runs the plain versions). The JAX service's knobs that the port
+does not serve raise ``ValueError`` at boot (``check_unserved_knobs``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import os
 import threading
 import uuid
 from collections import OrderedDict
+from dataclasses import replace
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeout
 from contextlib import nullcontext
@@ -366,6 +369,45 @@ def _wrap_engine(engine):
     return EngineParser(engine)
 
 
+# Knobs of features the port lacks: any set, non-empty value is refused.
+# Unset or empty is the JAX default (one-shot prefill, no quarantine list,
+# no tenant preemption, no admission cap).
+UNSERVED_KNOBS = ("PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "TENANT_PREEMPT",
+                  "BRAIN_MAX_INFLIGHT")
+
+
+def check_unserved_knobs() -> None:
+    """Refuse at boot what the JAX brain would honour and the port would
+    silently ignore: ``BRAIN_MODEL`` (no checkpoint import yet), a radix knob
+    at another value than the port's constant, and the knobs of features the
+    port lacks. The radix knobs stay fixed until ROADMAP.md Queue 1 item 4
+    (the rest of continuous batching) lands."""
+    from ..serve.paged import PRESSURE_WINDOW_S, RADIX_MAX_NODES
+
+    if os.environ.get("BRAIN_MODEL"):
+        raise ValueError("BRAIN_MODEL is not ported yet (the PyTorch port has no checkpoint "
+                         "import: ROADMAP.md Queue 1 item 8); unset it")
+    fixed_knobs = {"RADIX_SESSIONS": (int, SessionTranscripts.MAX_SESSIONS),
+                   "RADIX_MAX_NODES": (int, RADIX_MAX_NODES),
+                   "RADIX_PRESSURE_S": (float, PRESSURE_WINDOW_S)}
+    for name, (kind, fixed) in fixed_knobs.items():
+        raw = os.environ.get(name, "").strip()
+        if not raw:
+            continue
+        try:
+            ok = kind(raw) == fixed
+        except ValueError:
+            ok = False
+        if not ok:
+            raise ValueError(f"{name}={raw!r}: the port serves {name} at {fixed} only "
+                             "(configurable with ROADMAP.md Queue 1 item 4); unset it")
+    for name in UNSERVED_KNOBS:
+        raw = os.environ.get(name, "").strip()
+        if raw:
+            raise ValueError(f"{name}={raw!r} is not ported yet (ROADMAP.md Queue 1 item 4, "
+                             "the rest of continuous batching); unset it")
+
+
 def make_parser_from_env():
     """``BRAIN_BACKEND=engine[:preset]`` (default ``engine:tinyllama-1.1b``)
     with ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``; ``BRAIN_BATCH``
@@ -375,19 +417,28 @@ def make_parser_from_env():
     construction); ``SPEC_ENABLE=1`` speculative decoding on either engine
     (``serve.spec.spec_from_env``: ``SPEC_K``, ``SPEC_DRAFTER``; the
     variables the port does not serve, and an unknown drafter, raise
-    ``ValueError`` here, at boot). The engine runs on ``BRAIN_DEVICE``
-    (default ``cuda``: with no card it raises)."""
+    ``ValueError`` here, at boot); ``BRAIN_MOE=grouped`` the grouped-matmul
+    MoE dispatch (a no-op on a dense preset, as in the JAX service). The
+    engine runs on ``BRAIN_DEVICE`` (default ``cuda``: with no card it
+    raises). ``check_unserved_knobs`` runs first, before any engine."""
     from ..serve.engine import DecodeEngine
     from ..serve.paged import PagedDecodeEngine
+    from ..models.llama import PRESETS
     from ..serve.spec import spec_from_env
 
+    check_unserved_knobs()
     slots = int(os.environ.get("BRAIN_BATCH", "1"))
     device = os.environ.get("BRAIN_DEVICE") or None
     backend = os.environ.get("BRAIN_BACKEND", "engine:tinyllama-1.1b")
     if not backend.startswith("engine"):
         raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported (engine[:preset])")
     preset = backend.split(":", 1)[1] if ":" in backend else "tinyllama-1.1b"
-    kw = dict(preset=preset, quant=os.environ.get("BRAIN_QUANT") or None,
+    if preset not in PRESETS:
+        raise ValueError(f"BRAIN_BACKEND {backend!r}: unknown preset {preset!r}")
+    cfg = None
+    if os.environ.get("BRAIN_MOE") == "grouped":
+        cfg = replace(PRESETS[preset], moe_impl="grouped")
+    kw = dict(preset=preset, cfg=cfg, quant=os.environ.get("BRAIN_QUANT") or None,
               fast_forward=int(os.environ.get("BRAIN_FF", "8")), device=device,
               spec=spec_from_env())
     if os.environ.get("BRAIN_PAGED") == "1":
@@ -420,6 +471,7 @@ class BrainApp:
                         paged=getattr(engine, "allocator", None) is not None,
                         radix=getattr(engine, "radix", None) is not None,
                         kv_quant=getattr(engine, "kv_quant", None),
+                        moe_impl=engine.cfg.moe_impl, n_experts=engine.cfg.n_experts,
                         spec=(None if getattr(engine, "spec", None) is None else
                               {"k": engine.spec.K, "drafter": engine.spec.drafter.name}))
         return (200 if healthy else 503), body, {}
