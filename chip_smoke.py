@@ -137,7 +137,7 @@ SOURCES = {
     "flash_attention": "tpu_voice_agent_torch/csrc/flash_attention.cu",
     "decode_attention": "tpu_voice_agent_torch/csrc/decode_attention.cu",
     "decode_attention_layer": "tpu_voice_agent_torch/csrc/decode_attention.cu",
-    "decode_block_attention_layer": "tpu_voice_agent_torch/csrc/decode_attention.cu",
+    "decode_block_attention_layer": "tpu_voice_agent_torch/csrc/decode_block_attention.cu",
     "masked_argmax_advance": "tpu_voice_agent_torch/csrc/grammar_mask.cu",
     "paged_attention": "tpu_voice_agent_torch/csrc/paged_attention.cu",
     "paged_block_attention": "tpu_voice_agent_torch/csrc/paged_attention.cu",
@@ -145,7 +145,7 @@ SOURCES = {
     "paged_block_attention_quant": "tpu_voice_agent_torch/csrc/paged_attention_quant.cu",
     "decode_attention_quant": "tpu_voice_agent_torch/csrc/decode_attention_quant.cu",
     "masked_argmax": "tpu_voice_agent_torch/csrc/grammar_mask.cu",
-    "decode_block_attention": "tpu_voice_agent_torch/csrc/decode_attention.cu",
+    "decode_block_attention": "tpu_voice_agent_torch/csrc/decode_block_attention.cu",
     "grouped_matmul": "tpu_voice_agent_torch/csrc/grouped_matmul.cu",
 }
 # bf16 attention outputs, held element by element to the reference's own
@@ -362,7 +362,11 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     qe, ke, ve = (randn(1, Te, nh, hd) for _ in range(3))
     qb, kb, vb = (randn(1, 35, nh, hd) for _ in range(3))
     q16, k16, v16 = (randn(1, 100, 4, 16, dtype=torch.float32) for _ in range(3))
+    # mixtral-8x7b's causal prefix prefill: 32 q / 8 kv heads of 128
+    qx, kx, vx = randn(1, T, 32, 128), randn(1, T, 8, 128), randn(1, T, 8, 128)
     k1_err = attn_err([(out, ref),
+                       (ops.flash_attention(qx, kx, vx, causal=True),
+                        attention_reference(qx, kx, vx, causal=True)),
                        (ops.flash_attention(q, k, v, causal=False, kv_len=1000),
                         attention_reference(q, k, v, causal=False, kv_len=1000)),
                        (ops.flash_attention(qe, ke, ve, causal=False),
@@ -382,6 +386,11 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
         cuda_ms(lambda: attention_reference(q, k, v, causal=True), iters=5),
         b_ms, b_by,
         cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)))
+    # how often the bf16 outputs at the prefix shape round to the plain
+    # version's bits: the prefix's k/v feed every later decode step
+    rows["flash_attention"]["equal_to_plain"] = float((out == ref).float().mean())
+    log(f"[kernels]   bf16 outputs equal to the plain version's: "
+        f"{rows['flash_attention']['equal_to_plain']:.6f}")
     qeh, keh, veh = (x.transpose(1, 2) for x in (qe, ke, ve))
     rows["flash_attention"]["encoder"] = _extra_shape(
         "whisper-large-v3 encoder, non-causal T = S = 500, 20 heads, hd 64, bf16",
@@ -389,6 +398,15 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
         cuda_ms(lambda: attention_reference(qe, ke, ve, causal=False), iters=5),
         *bound(2 * 4 * Te * nh * hd, 4 * nh * hd * Te * Te),
         cuda_ms(lambda: F.scaled_dot_product_attention(qeh, keh, veh)))
+    qxh, kxh, vxh = (qx.transpose(1, 2), kx.transpose(1, 2).repeat_interleave(4, 1),
+                     vx.transpose(1, 2).repeat_interleave(4, 1))
+    rows["flash_attention"]["mixtral"] = _extra_shape(
+        "mixtral-8x7b prefix prefill, causal T = S = 1024, 32/8 heads, hd 128, bf16",
+        cuda_ms(lambda: ops.flash_attention(qx, kx, vx, causal=True)),
+        cuda_ms(lambda: attention_reference(qx, kx, vx, causal=True), iters=5),
+        *bound(2 * (2 * T * 32 * 128 + 2 * T * 8 * 128), 4 * 32 * 128 * pairs),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qxh, kxh, vxh, is_causal=True)))
+    del qxh, kxh, vxh
 
     # K5: one large-v3 decoder step's cross-attention (S = kv_len = 500, the
     # 1000-frame bucket; S = 1500, kv_len 75, the incremental buffer after
@@ -455,9 +473,18 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     # unordered positions hold too
     perm = torch.tensor([[3, 8, 0, 5, 1, 7, 2, 6, 4]], device=dev)
     pos_u = torch.gather(pos, 1, perm)
+    # the key range is split across blocks and merged in a fixed order: the
+    # same bits from run to run
+    fail_if(not torch.equal(out, ops.decode_block_attention_layer(q9, kc, vc, pos, li)),
+            "decode_block_attention_layer: two calls on the same inputs differ")
+    k3x = _k3_extra_operands(randn, dev, n)
     k3_err = attn_err([(out, ref),
                        (ops.decode_block_attention_layer(q9, kc, vc, pos_u, li),
-                        decode_block_attention_reference(q9, kc[li], vc[li], pos_u))])
+                        decode_block_attention_reference(q9, kc[li], vc[li], pos_u)),
+                       *[(ops.decode_block_attention_layer(x["q"], x["k"], x["v"], x["pos"], 0),
+                          decode_block_attention_reference(x["q"], x["k"][0], x["v"][0],
+                                                           x["pos"]))
+                         for x in k3x.values()]])
     m = n + 6
     kh = kc[li, :, :m].transpose(1, 2).repeat_interleave(group, 1)
     vh = vc[li, :, :m].transpose(1, 2).repeat_interleave(group, 1)
@@ -485,6 +512,10 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
         *bound(2 * (2 * 5 * nq * hd + 2 * m5 * nkv * hd), 4 * nq * hd * float((pos5 + 1).sum())),
         cuda_ms(lambda: F.scaled_dot_product_attention(q5b.transpose(1, 2), kh5, vh5,
                                                        attn_mask=amask5), iters=100))
+    for key, x in k3x.items():
+        rows["decode_block_attention_layer"][key] = _k3_extra_row(x)
+    rows["decode_block_attention_layer"]["deterministic"] = True
+    del k3x
 
     # K12: K3's function on a flat (1, 2048, 4, 64) bf16 cache (the layer
     # plane above) at the same frontier, the (1, 5) verify block and the
@@ -585,6 +616,66 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
                                                   *timings[160])
     torch.cuda.synchronize()
     return rows
+
+
+def _k3_extra_operands(randn, dev, n: int) -> dict:
+    """K3 at the other shapes it serves, each a one-layer (1, B, 2048, nkv,
+    hd) bf16 cache: mixtral-8x7b's (1, 9) chain block (32/8 heads of 128);
+    the dense batcher's (8, 9) blocks, one row per frontier with row 0 idle
+    at frontier 0; the widest block (T = 16, a group of 16); fp32 queries
+    at the distilled checkpoint's widths (4/2 heads of 48), a (2, 5) verify
+    block."""
+    import torch
+
+    S = 2048
+
+    def chain(front: int, T: int = 9, chain_len: int = 5):
+        return [front + min(i, chain_len) for i in range(T)]
+
+    def operands(label, B, T, nq, nkv, hd, pos, qdtype=torch.bfloat16):
+        return {"label": label, "q": randn(B, T, nq, hd, dtype=qdtype),
+                "k": randn(1, B, S, nkv, hd), "v": randn(1, B, S, nkv, hd),
+                "pos": torch.tensor(pos, dtype=torch.int32, device=dev)}
+
+    fronts = [0, 37, 300, 511, 700, n, 1500, 2030]
+    return {
+        "mixtral": operands("mixtral-8x7b (1, 9) chain block, 32/8 heads, hd 128, frontier "
+                            f"{n}", 1, 9, 32, 8, 128, [chain(n)]),
+        "batch": operands(f"the dense batcher's (8, 9) blocks, frontiers {fronts}", 8, 9, 32, 4,
+                          64, [[0] * 9] + [chain(f) for f in fronts[1:]]),
+        "widest": operands(f"the widest block: T = 16, 32/2 heads (group 16), frontier {n}", 1,
+                           16, 32, 2, 64, [[n + i for i in range(16)]]),
+        "fp32": operands("fp32 queries at the distilled widths, (2, 5), 4/2 heads of 48", 2, 5,
+                         4, 2, 48, [[120, 121, 122, 123, 124], [299, 3, 150, 150, 77]],
+                         torch.float32),
+    }
+
+
+def _k3_extra_row(x: dict) -> dict:
+    """Time K3 at one of ``_k3_extra_operands``'s shapes beside its plain
+    version and SDPA (each row's mask over the keys up to the largest
+    frontier, the GQA heads repeated)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import decode_block_attention_reference
+
+    q, k, v, pos = x["q"], x["k"], x["v"], x["pos"]
+    B, T, nq, hd = q.shape
+    nkv = k.shape[3]
+    m = int(pos.max()) + 1
+    kh = k[0, :, :m].transpose(1, 2).repeat_interleave(nq // nkv, 1).to(q.dtype)
+    vh = v[0, :, :m].transpose(1, 2).repeat_interleave(nq // nkv, 1).to(q.dtype)
+    amask = (torch.arange(m, device=q.device)[None, None, :] <= pos[:, :, None])[:, None]
+    qh = q.transpose(1, 2)
+    kv_bytes = 2 * 2 * float((pos.max(dim=1).values + 1).sum()) * nkv * hd
+    return _extra_shape(
+        x["label"], cuda_ms(lambda: ops.decode_block_attention_layer(q, k, v, pos, 0), iters=100),
+        cuda_ms(lambda: decode_block_attention_reference(q, k[0], v[0], pos)),
+        *bound(2 * q.element_size() * q.numel() + kv_bytes + 4 * pos.numel(),
+               4 * nq * hd * float((pos + 1).sum())),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask), iters=100))
 
 
 def _paged_tables(g, B: int, prefix_blocks: int, kv_len, bs: int, max_blocks: int):

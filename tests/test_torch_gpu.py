@@ -421,3 +421,95 @@ def test_grouped_matmul_counts_launches_and_refuses_bad_operands(cuda):
     with pytest.raises(ValueError, match="leaf"):
         ops.grouped_matmul(x, w.to(torch.int8), te, 8)
     assert ops.launch_counts()["grouped_matmul"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("T", [1, 17, 127, 129, 1000])
+def test_flash_attention_bf16_off_the_tile(cuda, T, hd):
+    """K1's tensor-core body (bf16): T and S off the 64-row tile, B = 2,
+    groups 1, 4 and 8; causal and not, kv_len < S in both modes, and a
+    non-causal S longer than T."""
+    rnd = _rnd(torch.Generator(device=cuda).manual_seed(1000 * hd + T), cuda, torch.bfloat16)
+    for nq, nkv in ((2, 2), (8, 2), (8, 1)):
+        q, k, v = rnd(2, T, nq, hd), rnd(2, T, nkv, hd), rnd(2, T, nkv, hd)
+        for causal, kv_len in ((True, None), (False, None), (True, max(1, T - 5)),
+                               (False, (T + 1) // 2)):
+            out = ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+            ref = ops.attention_reference(q, k, v, causal=causal, kv_len=kv_len)
+            assert out.dtype == torch.bfloat16
+            torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        kl, vl = rnd(2, T + 70, nkv, hd), rnd(2, T + 70, nkv, hd)
+        out = ops.flash_attention(q, kl, vl, causal=False, kv_len=T + 66)
+        ref = ops.attention_reference(q, kl, vl, causal=False, kv_len=T + 66)
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+def _block_positions(B, T, S, chunk, seed):
+    """(B, T) positions over [0, S): row 0 holds frontier 0, the last slot
+    S - 1, a frontier one short of the first chunk edge and one on it, and
+    a repeat; row 1 (when B > 1) is idle at frontier 0; the rest random,
+    unordered, with repeats."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, S, size=(B, T))
+    pos[:, T // 2] = pos[:, 0]
+    pos[0, 0] = 0
+    pos[0, -1] = S - 1
+    if T > 2:
+        pos[0, 1], pos[0, 2] = chunk - 1, chunk
+    if B > 1:
+        pos[1] = 0
+    return torch.from_numpy(pos.astype(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype,tol", [(torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)])
+@pytest.mark.parametrize("hd,nq,nkv", [(32, 4, 2), (48, 4, 2), (64, 32, 4), (128, 32, 8)])
+def test_split_block_attention_matches_plain(cuda, hd, nq, nkv, qdtype, tol):
+    """K3's split key range (and K12 through the same body): B 1-8, T 1-16,
+    frontiers at 0, at S - 1 and at a chunk edge, unordered and repeated
+    positions; the same bits on a second call, the tickets back at 0."""
+    from tpu_voice_agent_torch.ops.decode_attention import _TICKETS, key_chunk
+
+    g = torch.Generator(device=cuda).manual_seed(hd + nq)
+    S = 700
+    for B, T in ((1, 1), (1, 9), (3, 5), (8, 16)):
+        kc = torch.randn(2, B, S, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+        vc = torch.randn(2, B, S, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+        q = torch.randn(B, T, nq, hd, generator=g, device=cuda).to(qdtype)
+        pos = _block_positions(B, T, S, key_chunk(B, S, nkv), hd * B + T).to(cuda)
+        out = ops.decode_block_attention_layer(q, kc, vc, pos, 1)
+        ref = ops.decode_block_attention_reference(q, kc[1], vc[1], pos)
+        assert out.dtype == qdtype
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        assert torch.equal(out, ops.decode_block_attention_layer(q, kc, vc, pos, 1))
+        flat = ops.decode_block_attention(q, kc[1].contiguous(), vc[1].contiguous(), pos)
+        assert torch.equal(flat, out)
+        assert int(_TICKETS[q.device].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_split_block_attention_counts_launches_and_refuses_bad_operands(cuda):
+    ops.reset_launch_counts()
+    kc = torch.zeros(1, 1, 64, 2, 64, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(1, 3, 8, 64, dtype=torch.bfloat16, device=cuda)
+    pos = torch.tensor([[5, 6, 7]], dtype=torch.int32, device=cuda)
+    ops.decode_block_attention_layer(q, kc, kc, pos, 0)
+    ops.decode_block_attention(q, kc[0], kc[0], pos)
+    assert ops.launch_counts()["decode_block_attention_layer"] == 1
+    assert ops.launch_counts()["decode_block_attention"] == 1
+    with pytest.raises(ValueError, match="block of 17"):
+        ops.decode_block_attention_layer(q.repeat(1, 6, 1, 1)[:, :17].contiguous(), kc, kc,
+                                         pos.repeat(1, 6)[:, :17].contiguous(), 0)
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_block_attention_layer(q, kc, kc, pos.long(), 0)
+    with pytest.raises(ValueError, match="group"):
+        wide = torch.zeros(1, 3, 34, 64, dtype=torch.bfloat16, device=cuda)
+        ops.decode_block_attention_layer(wide, kc, kc, pos, 0)
+    assert ops.launch_counts()["decode_block_attention_layer"] == 1
+    # the tensor-core flash body takes 16-byte-aligned bf16 operands
+    buf = torch.zeros(1 + 4 * 2 * 64, dtype=torch.bfloat16, device=cuda)
+    odd = buf[1:].view(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(odd, odd, odd)
+    assert ops.launch_counts()["flash_attention"] == 0

@@ -1,5 +1,7 @@
-// K2, K3, K5 and K12: decode attention against a dense KV cache; the template
-// body is in decode_attention.cuh.
+// K2 and K5: decode attention against a dense KV cache, one query token per
+// row; the template body is in decode_attention.cuh. K3 and K12 (a block of
+// T <= 16 queries) moved to decode_block_attention.cu, which splits the key
+// range across the card.
 //
 // Replaces: tpu_voice_agent/ops/decode_attention.py
 //   K5 `decode_attention` (`_decode_kernel`, stacked=False; pallas_call at
@@ -9,20 +11,10 @@
 //      T = 1 step.
 //   K2 `decode_attention_layer` (`_decode_kernel`, stacked=True; pallas_call
 //      at :223): the same on one layer plane of the stacked cache.
-//   K3 `decode_block_attention_layer` (`_decode_block_kernel`; pallas_call at
-//      :542): T <= 16 queries per row, query i sees slots [0, q_positions[b,i]].
-//      Positions may be unordered and may repeat (chain_block pads with
-//      duplicates), so each query row carries its own frontier and the tile
-//      loop runs to the block's true maximum.
-//   K12 `decode_block_attention` (`_decode_block_kernel` over a flat cache;
-//      pallas_call at :458): K3's function on one flat (B, S, nkv, hd) cache.
-//      The JAX package calls it only from its tests; here it is K3's body
-//      with the cache's own pointer in place of a layer plane's.
 // The JAX package serves K5 and K2 from one kernel body (`stacked=`); here one
-// template body serves all three. The TPU picked K2/K3's layer plane by a
+// template body serves both. The TPU picked K2's layer plane by a
 // scalar-prefetched index; in eager PyTorch the wrapper passes the plane's own
-// pointer (`cache[layer]` is a free contiguous view), so nothing is copied,
-// and K12's flat cache is such a plane already.
+// pointer (`cache[layer]` is a free contiguous view), so nothing is copied.
 //
 // What bounds it on an H100: at B = 1 the grid is one block per (kv head,
 // batch row), 4 blocks on 132 SMs at tinyllama-1.1b and 20 at Whisper
@@ -34,7 +26,7 @@
 // ~38 us of one SM's 128 fp32 lanes). Whisper's group of 1 leaves one query
 // row per block: one warp computes while all 16 stage tiles. What the design
 // does about it is in decode_attention.cuh; splitting the key range across
-// blocks is the next step.
+// blocks, as decode_block_attention.cu does for K3, is the next step here.
 #include "decode_attention.cuh"
 
 // K5: q (B,nq,hd), flat k/v cache (B,S,nkv,hd), kv_len (B,) int32; q, the
@@ -66,22 +58,4 @@ extern "C" int tva_decode_attention_layer(const void* q, const void* kc, const v
                                           int nkv, int hd, float scale, int dtype, void* stream) {
   return dispatch<false>(q, kc, vc, kv_len, nullptr, nullptr, 1, o, B, 1, S, nq, nkv, hd, scale,
                          dtype, stream);
-}
-
-// K3: q (B,T,nq,hd), k/v plane (B,S,nkv,hd) of the layer, q_positions (B,T) int32.
-extern "C" int tva_decode_block_attention_layer(const void* q, const void* kc, const void* vc,
-                                                const int* q_positions, void* o, int B, int T,
-                                                int S, int nq, int nkv, int hd, float scale,
-                                                int dtype, void* stream) {
-  return dispatch<false>(q, kc, vc, nullptr, q_positions, nullptr, 1, o, B, T, S, nq, nkv, hd,
-                         scale, dtype, stream);
-}
-
-// K12: q (B,T,nq,hd), flat k/v cache (B,S,nkv,hd) bf16, q_positions (B,T) int32.
-extern "C" int tva_decode_block_attention(const void* q, const void* kc, const void* vc,
-                                          const int* q_positions, void* o, int B, int T, int S,
-                                          int nq, int nkv, int hd, float scale, int dtype,
-                                          void* stream) {
-  return dispatch<false>(q, kc, vc, nullptr, q_positions, nullptr, 1, o, B, T, S, nq, nkv, hd,
-                         scale, dtype, stream);
 }

@@ -24,8 +24,9 @@ from pathlib import Path
 from .. import PACKAGE_DIR, cache_dir
 
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "paged_attention.cu", "grammar_mask.cu",
-           "paged_attention_quant.cu", "decode_attention_quant.cu", "grouped_matmul.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "decode_block_attention.cu",
+           "paged_attention.cu", "grammar_mask.cu", "paged_attention_quant.cu",
+           "decode_attention_quant.cu", "grouped_matmul.cu")
 HEADERS = ("common.cuh", "decode_attention.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -108,11 +109,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tva_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, kv_len, o, B, S, nq, nkv, hd, scale, dtype, stream
         "tva_decode_attention_layer": [P, P, P, P, P, I, I, I, I, I, F, I, P],
-        # q, k plane, v plane, q_positions, o, B, T, S, nq, nkv, hd, scale, dtype, stream
-        "tva_decode_block_attention_layer": [P, P, P, P, P, I, I, I, I, I, I, F, I, P],
-        # q, flat k cache, flat v cache, q_positions, o, B, T, S, nq, nkv, hd, scale, dtype,
-        # stream
-        "tva_decode_block_attention": [P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+        # q, k plane, v plane, q_positions, o, partials, tickets, B, T, S, nq, nkv, hd, chunk,
+        # scale, dtype, stream
+        "tva_decode_block_attention_layer": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
+        # q, flat k cache, flat v cache, q_positions, o, partials, tickets, B, T, S, nq, nkv,
+        # hd, chunk, scale, dtype, stream
+        "tva_decode_block_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, table, kv_len, o, B, max_blocks, bs, nq, nkv, hd, scale,
         # dtype, stream
         "tva_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],

@@ -1,5 +1,6 @@
-"""K5 / K2 / K3 / K12: decode attention against a KV cache (CUDA,
-``csrc/decode_attention.cu``); K10: against a quantized cache
+"""K5 / K2 / K3 / K12: decode attention against a KV cache (CUDA: K5 and K2
+in ``csrc/decode_attention.cu``, K3 and K12 in
+``csrc/decode_block_attention.cu``); K10: against a quantized cache
 (``csrc/decode_attention_quant.cu``).
 
 Port of ``decode_attention``, ``decode_attention_layer``,
@@ -16,6 +17,12 @@ Pallas tile size ``block_k`` and ``interpret`` dropped).
   contiguous view, so the kernel gets that plane's pointer).
 - K3 (T <= 16, the grammar fast-forward block): query i of row b attends
   slots ``[0, q_positions[b, i]]``; positions may be unordered or repeat.
+  The kernel splits the key range into chunks of ``key_chunk(B, S, nkv)``
+  keys, one block each; the last block of each group of 8 splits to finish
+  merges the group, and the last group merger merges the groups, each in
+  a fixed order: one launch, the same bits run to run. The wrapper hands
+  it fp32 scratch (``torch.empty``) and the device's ticket counters,
+  which the kernel leaves at 0.
 - K12 (T <= 16) on a flat ``(B, S, nkv, hd)`` bf16 cache: K3's function and
   body on one cache, as the JAX package's ``decode_block_attention`` (which
   only its tests call; no engine here calls it either).
@@ -47,6 +54,59 @@ from .kvquant import dequantize_kv, kv_quant_of_bits
 _NEG_INF = -1e30
 MAX_BLOCK_T = 16
 MAX_GROUP = 16
+# K3 / K12 split the key range into chunks of whole 32-key tiles: about two
+# blocks per SM of the H100's 132 when every key of the cache is live. The
+# merge runs in groups of 8 splits, at most 8 groups; scratch entries and
+# ticket counters per (row, kv head) follow (csrc/decode_block_attention.cu
+# GROUP, MAX_SPLITS, TICKETS_PER_SLOT).
+SPLIT_BLOCKS = 264
+MERGE_GROUP = 8
+MAX_SPLITS = MERGE_GROUP * MERGE_GROUP
+TICKETS_PER_SLOT = 1 + MERGE_GROUP
+_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def key_chunk(B: int, S: int, nkv: int) -> int:
+    """Keys per split of K3 / K12, from the shapes alone (no device read):
+    32 at one tinyllama-1.1b row (S 2048, 4 kv heads: 64 splits), 64 at
+    mixtral-8x7b's 8 kv heads, 256 at 8 rows."""
+    splits = max(1, min(MAX_SPLITS, SPLIT_BLOCKS // (B * nkv)))
+    chunk = -(-S // splits)
+    return -(-chunk // 32) * 32
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The device's int32 ticket counters for K3 / K12's merge, at least n,
+    all 0 between launches (each launch sets back what it counted).
+    Launches on one stream at a time share them."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+def _block_attention(name, entry, q, k_plane, v_plane, q_positions, S, nkv, scale):
+    """Launch K3 or K12 on one (B, S, nkv, hd) bf16 plane."""
+    B, T, nq, hd = q.shape
+    require_cuda(name, q_positions)
+    require(1 <= T <= MAX_BLOCK_T, name, f"block of {T} queries (max {MAX_BLOCK_T})")
+    require(q_positions.dtype == torch.int32 and q_positions.shape == (B, T), name,
+            "q_positions must be (B, T) int32")
+    require(all(t.data_ptr() % 16 == 0 for t in (q, k_plane, v_plane)), name,
+            "q and the cache must be 16-byte aligned")
+    chunk = key_chunk(B, S, nkv)
+    splits = -(-S // chunk)
+    entries = splits + -(-splits // MERGE_GROUP)
+    part = torch.empty(B * nkv * entries * T * (nq // nkv) * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    tickets = _tickets(q.device, B * nkv * TICKETS_PER_SLOT)
+    out = torch.empty_like(q)
+    err = entry(q.data_ptr(), k_plane.data_ptr(), v_plane.data_ptr(), q_positions.data_ptr(),
+                out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, T, S, nq, nkv, hd, chunk,
+                float(scale), dtype_code(name, q), stream_of(q))
+    check(err, name)
+    return out
 
 
 def _check_common(name, q, k_cache, v_cache, layer, nq, hd):
@@ -152,16 +212,8 @@ def decode_block_attention_layer(
                                                 q_positions, scale=scale)
     name = "decode_block_attention_layer"
     _, S, nkv = _check_common(name, q, k_cache, v_cache, layer, nq, hd)
-    require_cuda(name, q, q_positions)
-    require(1 <= T <= MAX_BLOCK_T, name, f"block of {T} queries (max {MAX_BLOCK_T})")
-    require(q_positions.dtype == torch.int32 and q_positions.shape == (B, T), name,
-            "q_positions must be (B, T) int32")
-    out = torch.empty_like(q)
-    err = library().tva_decode_block_attention_layer(
-        q.data_ptr(), k_cache[layer].data_ptr(), v_cache[layer].data_ptr(),
-        q_positions.data_ptr(), out.data_ptr(), B, T, S, nq, nkv, hd, float(scale),
-        dtype_code(name, q), stream_of(q))
-    check(err, name)
+    out = _block_attention(name, library().tva_decode_block_attention_layer, q, k_cache[layer],
+                           v_cache[layer], q_positions, S, nkv, scale)
     decode_block_attention_layer.launches += 1
     return out
 
@@ -186,15 +238,8 @@ def decode_block_attention(
     name = "decode_block_attention"
     require(k_cache.dim() == 4, name, f"cache must be (B, S, nkv, hd), got {tuple(k_cache.shape)}")
     _, S, nkv = _check_common(name, q, k_cache[None], v_cache[None], 0, nq, hd)
-    require_cuda(name, q_positions)
-    require(1 <= T <= MAX_BLOCK_T, name, f"block of {T} queries (max {MAX_BLOCK_T})")
-    require(q_positions.dtype == torch.int32 and q_positions.shape == (B, T), name,
-            "q_positions must be (B, T) int32")
-    out = torch.empty_like(q)
-    err = library().tva_decode_block_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), q_positions.data_ptr(),
-        out.data_ptr(), B, T, S, nq, nkv, hd, float(scale), dtype_code(name, q), stream_of(q))
-    check(err, name)
+    out = _block_attention(name, library().tva_decode_block_attention, q, k_cache, v_cache,
+                           q_positions, S, nkv, scale)
     decode_block_attention.launches += 1
     return out
 

@@ -3,8 +3,9 @@
 Port of ``tpu_voice_agent/ops/flash_attention.py``. Online-softmax GQA
 attention, causal or non-causal with a static ``kv_len``; scores never reach
 device memory. Used for the Llama fresh-block prefill (the cached prompt
-prefix and full-prompt prefill) and, in a later slice, the Whisper encoder
-(non-causal).
+prefix and full-prompt prefill) and the Whisper encoder (non-causal). bf16
+operands run both products on the tensor cores (they must be 16-byte
+aligned, as every fresh tensor is); fp32 ones on the CUDA cores.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs
 ``attention_reference`` (the plain PyTorch version) for CPU tensors, and only
@@ -45,6 +46,8 @@ def flash_attention(
     require(hd in HEAD_DIMS, name, f"head dim {hd} not in {HEAD_DIMS}")
     require(0 <= kv_len <= S, name, f"kv_len {kv_len} outside [0, {S}]")
     require(q.dtype == k.dtype == v.dtype, name, "q, k and v must share one dtype")
+    require(q.dtype != torch.bfloat16 or all(t.data_ptr() % 16 == 0 for t in (q, k, v)), name,
+            "bfloat16 operands must be 16-byte aligned")
     out = torch.empty_like(q)
     err = library().tva_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, nq, nkv, hd,
