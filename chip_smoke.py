@@ -10,7 +10,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
               per source, started together) into the kernel library.
 3. kernels  - each kernel at the main path's shapes against its plain PyTorch
               version on the card: max abs error vs a stated tolerance, kernel
-              / plain / library ms, and the least time the card could take.
+              / plain / library ms, and the least time the card could take;
+              first (``digest``) the SHA-256 of K5's, K3's and K1's outputs on
+              seeded inputs, so two builds can be held to the same bits.
 4. service  - the port's brain service in-process on an ephemeral port with
               BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 (ff 8, the
               cached prompt prefix), answering /parse requests with bench.py's
@@ -136,7 +138,7 @@ REPLACES = {
 SOURCES = {
     "flash_attention": "tpu_voice_agent_torch/csrc/flash_attention.cu",
     "decode_attention": "tpu_voice_agent_torch/csrc/decode_attention.cu",
-    "decode_attention_layer": "tpu_voice_agent_torch/csrc/decode_attention.cu",
+    "decode_attention_layer": "tpu_voice_agent_torch/csrc/decode_block_attention.cu",
     "decode_block_attention_layer": "tpu_voice_agent_torch/csrc/decode_block_attention.cu",
     "masked_argmax_advance": "tpu_voice_agent_torch/csrc/grammar_mask.cu",
     "paged_attention": "tpu_voice_agent_torch/csrc/paged_attention.cu",
@@ -457,12 +459,35 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     kh = kc[li, :, :n].transpose(1, 2).repeat_interleave(group, 1)
     vh = vc[li, :, :n].transpose(1, 2).repeat_interleave(group, 1)
     b_ms, b_by = bound(2 * (2 * nq * hd + 2 * n * nkv * hd), 4 * nq * hd * n)
+    # the key range is split across blocks and merged in a fixed order: the
+    # same bits from run to run
+    fail_if(not torch.equal(out, ops.decode_attention_layer(q1, kc, vc, kv_len, li)),
+            "decode_attention_layer: two calls on the same inputs differ")
+    k2x = _k2_extra_operands(randn, dev, n)
+    k2_pairs = [(out, ref)]
+    for x in k2x.values():
+        o2 = ops.decode_attention_layer(x["q"], x["k"], x["v"], x["kv_len"], 0)
+        fail_if(not torch.equal(o2, ops.decode_attention_layer(x["q"], x["k"], x["v"],
+                                                               x["kv_len"], 0)),
+                f"decode_attention_layer ({x['label']}): two calls on the same inputs differ")
+        fail_if(not bool((o2[x["kv_len"] == 0] == 0).all()),
+                f"decode_attention_layer ({x['label']}): a row with kv_len 0 is not zeros")
+        k2_pairs.append((o2, decode_attention_reference(x["q"], x["k"][0], x["v"][0],
+                                                        x["kv_len"])))
     rows["decode_attention_layer"] = _kernel_row(
-        "decode_attention_layer", *attn_err([(out, ref)]), ATTN_TOL,
+        "decode_attention_layer", *attn_err(k2_pairs), f"{ATTN_TOL} (bf16); {F32_TOL} (fp32)",
         cuda_ms(lambda: ops.decode_attention_layer(q1, kc, vc, kv_len, li), iters=100),
         cuda_ms(lambda: decode_attention_reference(q1, kc[li], vc[li], kv_len)),
         b_ms, b_by,
         cuda_ms(lambda: F.scaled_dot_product_attention(q1[:, :, None], kh, vh), iters=100))
+    rows["decode_attention_layer"]["shape"] = (
+        f"tinyllama-1.1b, 1 row at kv_len {n} of a (22, 1, 2048, 4, 64) bf16 cache; "
+        + "; ".join(x["label"] for x in k2x.values()) + " checked")
+    for key, x in k2x.items():
+        if x["timed"]:
+            rows["decode_attention_layer"][key] = _k2_extra_row(x)
+    rows["decode_attention_layer"]["deterministic"] = True
+    del k2x
 
     # K3: a fast-forward block [cur, chain...] padded with duplicates
     # (chain_block), here with a 5-token chain
@@ -616,6 +641,108 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
                                                   *timings[160])
     torch.cuda.synchronize()
     return rows
+
+
+def phase_digest(report: dict) -> dict:
+    """SHA-256 of the outputs of the kernels whose bodies a redesign of
+    another kernel must leave as they are, on seeded inputs at the main
+    path's shapes: K5 (large-v3's cross-attention in bf16, the checkpoints'
+    fp32 hd-16 cache), K3 (tinyllama's (1, 9) chain block) and K1 (a causal
+    bf16 prefix block, the checkpoints' fp32 encoder block). The same
+    digests from two builds mean the same bits. Only wrappers with the same
+    signature in every slice are called, so the script runs against an
+    earlier checkout of the package too."""
+    import hashlib
+
+    import torch
+
+    from tpu_voice_agent_torch import ops
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    def digest(t) -> str:
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+    q5, k5, v5 = randn(1, 20, 64), randn(1, 500, 20, 64), randn(1, 500, 20, 64)
+    f32 = torch.float32
+    q16, k16, v16 = randn(2, 4, 16, dtype=f32), randn(2, 100, 4, 16, dtype=f32), randn(
+        2, 100, 4, 16, dtype=f32)
+    kc, vc = randn(2, 1, 2048, 4, 64), randn(2, 1, 2048, 4, 64)
+    q9 = randn(1, 9, 32, 64)
+    pos = torch.tensor([[943 + min(i, 5) for i in range(9)]], dtype=torch.int32, device=dev)
+    out = {
+        "decode_attention bf16": digest(ops.decode_attention(
+            q5, k5, v5, torch.tensor([500], dtype=torch.int32, device=dev))),
+        "decode_attention fp32": digest(ops.decode_attention(
+            q16, k16, v16, torch.tensor([37, 100], dtype=torch.int32, device=dev))),
+        "decode_block_attention_layer (1, 9)": digest(
+            ops.decode_block_attention_layer(q9, kc, vc, pos, 1)),
+        "flash_attention bf16 causal": digest(ops.flash_attention(
+            randn(1, 256, 32, 64), randn(1, 256, 4, 64), randn(1, 256, 4, 64), causal=True)),
+        "flash_attention fp32": digest(ops.flash_attention(
+            *(randn(1, 100, 4, 16, dtype=torch.float32) for _ in range(3)), causal=False)),
+    }
+    for key, d in out.items():
+        log(f"[digest] {key}: {d}")
+    report["digest"] = out
+    return out
+
+
+def _k2_extra_operands(randn, dev, n: int) -> dict:
+    """K2 at the other shapes it serves, each a one-layer (1, B, 2048, nkv,
+    hd) bf16 cache: mixtral-8x7b's decode step (32/8 heads of 128); the dense
+    batcher's 8 rows at ragged kv_len, one at 0 (zeros), one ending mid-tile;
+    fp32 queries at the distilled checkpoint's widths (4/2 heads of 48).
+    ``timed``: the path's shapes, timed beside the plain version and SDPA."""
+    import torch
+
+    S = 2048
+
+    def operands(label, B, nq, nkv, hd, kv_len, timed, qdtype=torch.bfloat16):
+        return {"label": label, "q": randn(B, nq, hd, dtype=qdtype),
+                "k": randn(1, B, S, nkv, hd), "v": randn(1, B, S, nkv, hd),
+                "kv_len": torch.tensor(kv_len, dtype=torch.int32, device=dev), "timed": timed}
+
+    lens = [0, 37, 300, 511, 700, n, 1500, 2048]
+    return {
+        "mixtral": operands(f"mixtral-8x7b decode step, 32/8 heads of 128, kv_len {n}", 1, 32,
+                            8, 128, [n], True),
+        "batch": operands(f"the dense batcher's 8 rows, kv_len {lens}", 8, 32, 4, 64, lens, True),
+        "fp32": operands("fp32 queries at the distilled widths, 2 rows, 4/2 heads of 48, "
+                         "kv_len [0, 77]", 2, 4, 2, 48, [0, 77], False, torch.float32),
+    }
+
+
+def _k2_extra_row(x: dict) -> dict:
+    """Time K2 at one of ``_k2_extra_operands``'s shapes beside its plain
+    version and SDPA (each row's keys masked at its kv_len, the GQA heads
+    repeated)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import decode_attention_reference
+
+    q, k, v, kv_len = x["q"], x["k"], x["v"], x["kv_len"]
+    B, nq, hd = q.shape
+    nkv = k.shape[3]
+    m = int(kv_len.max())
+    kh = k[0, :, :m].transpose(1, 2).repeat_interleave(nq // nkv, 1)
+    vh = v[0, :, :m].transpose(1, 2).repeat_interleave(nq // nkv, 1)
+    amask = (torch.arange(m, device=q.device)[None, :] < kv_len[:, None])[:, None, None, :]
+    qh = q[:, :, None]
+    kv_bytes = 2 * 2 * float(kv_len.sum()) * nkv * hd
+    return _extra_shape(
+        x["label"],
+        cuda_ms(lambda: ops.decode_attention_layer(q, k, v, kv_len, 0), iters=100),
+        cuda_ms(lambda: decode_attention_reference(q, k[0], v[0], kv_len)),
+        *bound(2 * q.element_size() * q.numel() + kv_bytes + 4 * B,
+               4 * nq * hd * float(kv_len.sum())),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask), iters=100))
 
 
 def _k3_extra_operands(randn, dev, n: int) -> dict:
@@ -793,8 +920,10 @@ GMM_SHAPES = (("decode", 1), ("ff=8 block", 9), ("prefix prefill", 1024))
 
 def _gmm_operands(g, Tt: int, d: int, f: int, E: int, dtype):
     """The grouped dispatch's rows for Tt tokens routed top-2 by a random
-    router: x (M_pad, d) with each expert's run zero-padded, the per-tile
-    expert ids, tm, and the distinct experts the tiles name."""
+    router: x (M_pad, d) with each expert's run zero-padded and random rows
+    in the tail past the live rows (the kernel must write zeros there
+    without reading them), the per-tile expert ids, tm, the live row count,
+    and the distinct experts named by every tile and by the live ones."""
     import torch
 
     from tpu_voice_agent_torch.models.llama import grouped_layout
@@ -804,10 +933,13 @@ def _gmm_operands(g, Tt: int, d: int, f: int, E: int, dtype):
     h = torch.randn(Tt, d, generator=g, device=dev)
     router = torch.randn(d, E, generator=g, device=dev) * d ** -0.5
     eids, _ = route_topk_flat(router, h, E, 2)
-    order, pos, tm, M_pad, te = grouped_layout(eids.reshape(-1).long(), E)
+    order, pos, tm, M_pad, te, live = grouped_layout(eids.reshape(-1).long(), E)
     x = torch.zeros(M_pad, d, dtype=dtype, device=dev)
+    n_live = int(live)
+    x[n_live:] = torch.randn(M_pad - n_live, d, generator=g, device=dev).to(dtype)
     x[pos] = h[order // 2].to(dtype)
-    return x, te, tm, len(set(te.tolist()))
+    tiles = te.tolist()
+    return x, te, tm, live, len(set(tiles)), len(set(tiles[:n_live // tm]))
 
 
 def _gmm_kernel_rows(g) -> dict:
@@ -816,11 +948,15 @@ def _gmm_kernel_rows(g) -> dict:
     (M, 14336) by (8, 14336, 4096)), bf16, each with a dense bf16 w and with
     the int8 leaf, which must equal the dense form on its dequantized values
     bit for bit; and fp32 at mixtral-test's widths (4 experts, 128 x 256).
-    Bounds count every tile the kernel is given: x and the output at M_pad
-    rows, each distinct expert plane the tiles name read once, 2 M_pad d f
-    operations. Library: ``torch._grouped_mm`` on the dense bf16 operands
-    (groups from the padded runs, the tail in expert E-1), where the
-    installed PyTorch has it and takes them."""
+    Every call passes the layout's ``live_rows``: the tail tiles must come
+    out as zeros (their x rows are random), and two calls must give the same
+    bits. Bounds count what these inputs need: x's live rows read and the
+    output's M_pad rows written, each distinct expert plane the live tiles
+    name read once, 2 live d f operations; ``bound_all_tiles`` keeps the
+    count over every tile (x at M_pad rows, every tile's plane). Library:
+    ``torch._grouped_mm`` on the dense bf16 operands (groups from the padded
+    runs, the tail in expert E-1), where the installed PyTorch has it and
+    takes them; ``library_live_ms`` the same call on the live rows alone."""
     import torch
 
     from tpu_voice_agent_torch import ops
@@ -832,11 +968,15 @@ def _gmm_kernel_rows(g) -> dict:
     worst = [0.0, 0.0]
     lib_note = []
 
-    def check(x, w, te, tm):
+    def check(x, w, te, tm, live):
         dense = dequantize_leaf(w)
-        out = ops.grouped_matmul(x, w, te, tm)
-        ref = grouped_matmul_reference(x, dense, te, tm)
-        mag = grouped_matmul_reference(x.abs().float(), dense.abs(), te, tm)
+        out = ops.grouped_matmul(x, w, te, tm, live_rows=live)
+        fail_if(not torch.equal(out, ops.grouped_matmul(x, w, te, tm, live_rows=live)),
+                "grouped_matmul: two calls on the same inputs differ")
+        fail_if(not bool((out[int(live):] == 0).all()),
+                "grouped_matmul: the tail tiles past live_rows are not zeros")
+        ref = grouped_matmul_reference(x, dense, te, tm, live_rows=live)
+        mag = grouped_matmul_reference(x.abs().float(), dense.abs(), te, tm, live_rows=live)
         rtol = ATTN_RTOL if x.dtype == torch.bfloat16 else F32_RTOL
         atol = ATTN_ATOL if x.dtype == torch.bfloat16 else 0.0
         err = (out.float() - ref.float()).abs()
@@ -844,7 +984,7 @@ def _gmm_kernel_rows(g) -> dict:
         worst[1] = max(worst[1], float((err / (rtol * ref.float().abs() + atol
                                                + GMM_SUM_TOL * mag)).max()))
         if isinstance(w, dict):
-            fail_if(not torch.equal(out, ops.grouped_matmul(x, dense, te, tm)),
+            fail_if(not torch.equal(out, ops.grouped_matmul(x, dense, te, tm, live_rows=live)),
                     "grouped_matmul: the int8 leaf differs from the dense form on its "
                     "dequantized values")
 
@@ -866,23 +1006,29 @@ def _gmm_kernel_rows(g) -> dict:
         w = (torch.randn(E, d, f, generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
         leaf = quantize_leaf(w)
         for label, Tt in GMM_SHAPES:
-            x, te, tm, planes = _gmm_operands(g, Tt, d, f, E, torch.bfloat16)
-            M = x.shape[0]
-            check(x, w, te, tm)
-            check(x, leaf, te, tm)
-            io = 2 * M * d + 2 * M * f + 4 * te.numel()
-            ops_n = 2 * M * d * f
+            x, te, tm, live, planes, live_planes = _gmm_operands(g, Tt, d, f, E, torch.bfloat16)
+            M, n_live = x.shape[0], int(live)
+            check(x, w, te, tm, live)
+            check(x, leaf, te, tm, live)
+            io = 2 * n_live * d + 2 * M * f + 4 * te.numel() + 4
+            io_all = 2 * M * d + 2 * M * f + 4 * te.numel()
+            ops_n, ops_all = 2 * n_live * d * f, 2 * M * d * f
             key = f"{label} {orient}"
             timings[key] = {
-                "int8": (cuda_ms(lambda: ops.grouped_matmul(x, leaf, te, tm)),
-                         *bound(io + planes * (d * f + 4 * f), ops_n)),
-                "bf16": (cuda_ms(lambda: ops.grouped_matmul(x, w, te, tm)),
-                         *bound(io + planes * 2 * d * f, ops_n)),
-                "plain_ms": cuda_ms(lambda: grouped_matmul_reference(x, w, te, tm), iters=3,
-                                    warmup=1),
+                "int8": (cuda_ms(lambda: ops.grouped_matmul(x, leaf, te, tm, live_rows=live)),
+                         *bound(io + live_planes * (d * f + 4 * f), ops_n),
+                         bound(io_all + planes * (d * f + 4 * f), ops_all)[0]),
+                "bf16": (cuda_ms(lambda: ops.grouped_matmul(x, w, te, tm, live_rows=live)),
+                         *bound(io + live_planes * 2 * d * f, ops_n),
+                         bound(io_all + planes * 2 * d * f, ops_all)[0]),
+                "plain_ms": cuda_ms(lambda: grouped_matmul_reference(x, w, te, tm,
+                                                                     live_rows=live),
+                                    iters=3, warmup=1),
                 "library_ms": library(x, w, te, tm),
+                "library_live_ms": library(x[:n_live], w, te[:n_live // tm], tm),
                 "shape": (f"{label}: {Tt} token(s), top-2 of 8, tm {tm}, x ({M}, {d}) bf16 "
-                          f"({M // tm} tiles, {planes} distinct experts), w (8, {d}, {f})")}
+                          f"({M // tm} tiles, {n_live // tm} live, {live_planes} distinct "
+                          f"experts live), w (8, {d}, {f})")}
             del x
         del w, leaf
     torch.cuda.empty_cache()
@@ -890,20 +1036,25 @@ def _gmm_kernel_rows(g) -> dict:
     # an fp32 w and the int8 leaf, both orientations, an ff=8 block's rows
     for d, f in ((128, 256), (256, 128)):
         w32 = torch.randn(4, d, f, generator=g, device=dev) * d ** -0.5
-        x, te, tm, _ = _gmm_operands(g, 9, d, f, 4, torch.float32)
-        check(x, w32, te, tm)
-        check(x, quantize_leaf(w32.bfloat16()), te, tm)
+        x, te, tm, live, _, _ = _gmm_operands(g, 9, d, f, 4, torch.float32)
+        check(x, w32, te, tm, live)
+        check(x, quantize_leaf(w32.bfloat16()), te, tm, live)
     torch.cuda.synchronize()
     main = timings["decode gate/up"]
     row = _kernel_row("grouped_matmul", worst[0], worst[1], GMM_TOL, main["int8"][0],
                       main["plain_ms"], main["int8"][1], main["int8"][2], main["library_ms"])
+    row["bound_all_tiles"] = main["int8"][3]
+    row["deterministic"] = True
     row["shape"] = main["shape"] + ", the int8 leaf (the main path's); library and plain on " \
         "the dense bf16 w"
     for key, t in timings.items():
         for form in ("int8", "bf16"):
-            row[f"{key}, {form}"] = _extra_shape(
+            extra = _extra_shape(
                 f"{t['shape']}, {'int8 leaf' if form == 'int8' else 'dense bf16 w'}",
-                *t[form][:1], t["plain_ms"], *t[form][1:], t["library_ms"])
+                t[form][0], t["plain_ms"], t[form][1], t[form][2], t["library_ms"])
+            extra["bound_all_tiles"] = t[form][3]
+            extra["library_live_ms"] = t["library_live_ms"]
+            row[f"{key}, {form}"] = extra
     if lib_note:
         row["library_note"] = sorted(set(lib_note))
         log(f"[kernels]   grouped_matmul library: {row['library_note']}")
@@ -2837,22 +2988,25 @@ def _profile(label: str, fn, key: str, report: dict, setup=None) -> None:
 
 
 def phase_profile(params, report: dict) -> None:
-    """One bench parse (generate(64) at ff=8 on bench.py's engine shape)
-    under the profiler."""
+    """One bench parse (generate(64) on bench.py's engine shape) at ff=8 and
+    one at ff=0 (every step a T = 1 forward through K2) under the
+    profiler."""
     from tpu_voice_agent_torch.serve.engine import DecodeEngine
     from tpu_voice_agent_torch.services.brain import install_prompt_prefix
 
-    eng = DecodeEngine(preset="tinyllama-1.1b", quant="int8", fast_forward=8, max_len=1024,
-                       prefill_buckets=(1024,), init_weights=False)
-    eng.load_params(params)
-    install_prompt_prefix(eng)
-    prompt = _bench_prompt(eng, UTTERANCES[1])
+    for ff in (8, 0):
+        eng = DecodeEngine(preset="tinyllama-1.1b", quant="int8", fast_forward=ff, max_len=1024,
+                           prefill_buckets=(1024,), init_weights=False)
+        eng.load_params(params)
+        install_prompt_prefix(eng)
+        prompt = _bench_prompt(eng, UTTERANCES[1])
 
-    def parse():
-        res = eng.generate(prompt, max_new_tokens=64)
-        return f"{res.steps} tokens, {res.forwards} forwards + prefill"
+        def parse(eng=eng, prompt=prompt):
+            res = eng.generate(prompt, max_new_tokens=64)
+            return f"{res.steps} tokens, {res.forwards} forwards + prefill"
 
-    _profile("ff=8 generate(64)", parse, "ff8", report)
+        _profile(f"ff={ff} generate(64)", parse, f"ff{ff}", report)
+        del eng
 
 
 def phase_profile_stt(stt_engine, report: dict) -> None:
@@ -2876,20 +3030,22 @@ def phase_profile_stt(stt_engine, report: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of card,build,kernels,service,parse,batch,batch_dense,radix,"
+                    help="comma list of card,build,digest,kernels,service,parse,batch,"
+                         "batch_dense,radix,"
                          "kvquant,spec,service_batched,golden,batch_golden,kvquant_golden,"
                          "spec_golden,stt,stt_golden,voice,moe (default all)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile (torch.profiler) one bench parse when the service phase "
+                    help="also profile (torch.profiler) one bench parse at ff=8 and one at "
+                         "ff=0 when the service phase "
                          "runs, one ff=8 batch chunk when the batch phase runs (one per KV "
                          "tier when the kvquant phase runs), one spec parse and one spec batch "
                          "chunk when the spec phase runs, one whisper-large-v3 "
                          "transcribe when the stt phase runs, and one mixtral-8x7b parse of "
                          "each MoE dispatch when the moe phase runs")
     args = ap.parse_args()
-    phases = (["card", "build", "kernels", "service", "parse", "batch", "batch_dense", "radix",
-               "kvquant", "spec", "service_batched", "golden", "batch_golden", "kvquant_golden",
-               "spec_golden", "stt", "stt_golden", "voice", "moe"]
+    phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
+               "radix", "kvquant", "spec", "service_batched", "golden", "batch_golden",
+               "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "moe"]
               if args.phases == "all" else args.phases.split(","))
 
     import torch
@@ -2917,6 +3073,8 @@ def main() -> int:
     log(f"[grammar] intent FSM: {fsm.num_states} states, {fsm.num_classes} classes, "
         f"V {fsm.vocab_size} ({time.perf_counter() - t1:.2f} s)")
     rows = {}
+    if "digest" in phases:
+        phase_digest(report)
     if "kernels" in phases:
         t1 = time.perf_counter()
         rows = phase_kernels(fsm, prefix_len=880)

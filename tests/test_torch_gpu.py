@@ -406,6 +406,104 @@ def test_grouped_matmul_matches_plain(cuda, tm, xdt, d, f):
             assert torch.equal(out, ops.grouped_matmul(x, dense, te, tm))
 
 
+def _tailed_operands(g, dev, tm, d, f, E, live_tiles, tiles, xdt):
+    """x with random rows everywhere, the tail past ``live_tiles`` tiles
+    included; tile_expert with the tail clipped to expert E - 1; an fp32
+    w and an int8 leaf."""
+    M = tiles * tm
+    x = torch.randn(M, d, generator=g, device=dev).to(xdt)
+    te = torch.randint(0, E, (tiles,), generator=g, device=dev, dtype=torch.int32)
+    te[live_tiles:] = E - 1
+    w32 = torch.randn(E, d, f, generator=g, device=dev) * d ** -0.5
+    leaf = {"q": torch.randint(-127, 128, (E, d, f), generator=g, device=dev, dtype=torch.int8),
+            "s": torch.rand(E, 1, f, generator=g, device=dev) * 0.01 + 1e-3}
+    live = torch.tensor([live_tiles * tm], dtype=torch.int32, device=dev)
+    return x, te, w32, leaf, live
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tm", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("d,f", [(512, 384), (384, 512), (200, 136)])
+def test_grouped_matmul_live_rows_zeroes_the_tail(cuda, tm, d, f):
+    """K13 with ``live_rows``, both orientations (and one ragged, off the
+    16-byte grid at int8), bf16 x with bf16 and int8 weights: the tail tiles
+    come out as zeros though their x rows are random, the live tiles equal
+    the plain version within the tolerance, the int8 leaf equals the dense
+    form bit for bit, and two calls give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(tm * 7 + d)
+    x, te, w32, leaf, live = _tailed_operands(g, cuda, tm, d, f, 8, 3, 9, torch.bfloat16)
+    n = int(live)
+    for w in (w32.bfloat16(), leaf):
+        dense = ops.dequantize_leaf(w)
+        out = ops.grouped_matmul(x, w, te, tm, live_rows=live)
+        assert bool((out[n:] == 0).all())
+        ref = ops.grouped_matmul_reference(x, dense, te, tm, live_rows=live)
+        _gmm_check(out[:n], ref[:n], x[:n], dense, te[:n // tm], tm)
+        assert torch.equal(out, ops.grouped_matmul(x, w, te, tm, live_rows=live))
+        if isinstance(w, dict):
+            assert torch.equal(out, ops.grouped_matmul(x, dense, te, tm, live_rows=live))
+    # fp32 activations (the FMA body) honour the tail too
+    x32 = x.float()
+    out = ops.grouped_matmul(x32, w32, te, tm, live_rows=live)
+    assert bool((out[n:] == 0).all())
+    ref = ops.grouped_matmul_reference(x32, w32, te, tm, live_rows=live)
+    _gmm_check(out[:n], ref[:n], x32[:n], w32, te[:n // tm], tm)
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_split_depth_same_bits(cuda):
+    """The decode step's split-K (tm 8, 8 splits of a 1024-deep down
+    projection at mixtral's 8 experts): equal to the plain version within
+    the tolerance, the same bits on a second call, the ticket counters back
+    at 0."""
+    from tpu_voice_agent_torch.ops._lib import TICKETS
+    from tpu_voice_agent_torch.ops.grouped_matmul import split_depth
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    d, f, tm = 1024, 256, 8
+    x, te, w32, leaf, live = _tailed_operands(g, cuda, tm, d, f, 8, 2, 9, torch.bfloat16)
+    assert -(-d // split_depth(x.shape[0], d, f, tm, 8)) == 8
+    n = int(live)
+    for w in (w32.bfloat16(), leaf):
+        dense = ops.dequantize_leaf(w)
+        out = ops.grouped_matmul(x, w, te, tm, live_rows=live)
+        ref = ops.grouped_matmul_reference(x, dense, te, tm, live_rows=live)
+        _gmm_check(out[:n], ref[:n], x[:n], dense, te[:n // tm], tm)
+        assert bool((out[n:] == 0).all())
+        assert torch.equal(out, ops.grouped_matmul(x, w, te, tm, live_rows=live))
+        assert int(TICKETS[x.device].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype,tol", [(torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)])
+@pytest.mark.parametrize("hd,nq,nkv", [(48, 4, 2), (64, 32, 4), (128, 32, 8)])
+@pytest.mark.parametrize("B", [1, 8])
+def test_decode_attention_layer_split_matches_plain(cuda, B, hd, nq, nkv, qdtype, tol):
+    """K2 on the split body (T = 1): a row with kv_len 0 gives zeros, rows
+    end mid-tile, on a chunk edge and at S; the same bits on a second call,
+    the tickets back at 0."""
+    from tpu_voice_agent_torch.ops._lib import TICKETS
+    from tpu_voice_agent_torch.ops.decode_attention import key_chunk
+
+    g = torch.Generator(device=cuda).manual_seed(B * hd + nq)
+    S = 2048
+    kc = torch.randn(2, B, S, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(2, B, S, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randn(B, nq, hd, generator=g, device=cuda).to(qdtype)
+    chunk = key_chunk(B, S, nkv)
+    lens = [0, 943, chunk, S, 37, 2 * chunk + 1, 1, 1500][:B] if B > 1 else [943]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = ops.decode_attention_layer(q, kc, vc, kv_len, 1)
+    ref = ops.decode_attention_reference(q, kc[1], vc[1], kv_len)
+    assert out.dtype == qdtype
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert bool((out[kv_len == 0] == 0).all())
+    assert torch.equal(out, ops.decode_attention_layer(q, kc, vc, kv_len, 1))
+    assert int(TICKETS[q.device].abs().sum()) == 0
+    zero = torch.zeros_like(kv_len)
+    assert bool((ops.decode_attention_layer(q, kc, vc, zero, 0) == 0).all())
+
+
 @pytest.mark.gpu
 def test_grouped_matmul_counts_launches_and_refuses_bad_operands(cuda):
     ops.reset_launch_counts()
@@ -420,6 +518,11 @@ def test_grouped_matmul_counts_launches_and_refuses_bad_operands(cuda):
         ops.grouped_matmul(x, w, te.long(), 8)
     with pytest.raises(ValueError, match="leaf"):
         ops.grouped_matmul(x, w.to(torch.int8), te, 8)
+    for bad in (torch.tensor([8], device=cuda), torch.tensor([8, 8], dtype=torch.int32,
+                                                             device=cuda),
+                torch.tensor([8], dtype=torch.int32)):
+        with pytest.raises(ValueError, match="live_rows|CUDA device"):
+            ops.grouped_matmul(x, w, te, 8, live_rows=bad)
     assert ops.launch_counts()["grouped_matmul"] == 1
 
 
@@ -469,7 +572,8 @@ def test_split_block_attention_matches_plain(cuda, hd, nq, nkv, qdtype, tol):
     """K3's split key range (and K12 through the same body): B 1-8, T 1-16,
     frontiers at 0, at S - 1 and at a chunk edge, unordered and repeated
     positions; the same bits on a second call, the tickets back at 0."""
-    from tpu_voice_agent_torch.ops.decode_attention import _TICKETS, key_chunk
+    from tpu_voice_agent_torch.ops._lib import TICKETS
+    from tpu_voice_agent_torch.ops.decode_attention import key_chunk
 
     g = torch.Generator(device=cuda).manual_seed(hd + nq)
     S = 700
@@ -485,7 +589,7 @@ def test_split_block_attention_matches_plain(cuda, hd, nq, nkv, qdtype, tol):
         assert torch.equal(out, ops.decode_block_attention_layer(q, kc, vc, pos, 1))
         flat = ops.decode_block_attention(q, kc[1].contiguous(), vc[1].contiguous(), pos)
         assert torch.equal(flat, out)
-        assert int(_TICKETS[q.device].abs().sum()) == 0
+        assert int(TICKETS[q.device].abs().sum()) == 0
 
 
 @pytest.mark.gpu

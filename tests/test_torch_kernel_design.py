@@ -1,9 +1,14 @@
-"""Design choices of the redesigned K1 and K3, checked on the CPU.
+"""Design choices of the redesigned K1, K2, K3 and K13, checked on the CPU.
 
-- K3 (``decode_block_attention_layer``) splits the key range into chunks
-  picked on the host from the shapes alone (``key_chunk``): whole 32-key
-  tiles, at most 64 splits, and about two blocks per SM of the H100's 132
-  when every key is live.
+- K3 (``decode_block_attention_layer``) and K2 (``decode_attention_layer``,
+  the same body at T = 1) split the key range into chunks picked on the
+  host from the shapes alone (``key_chunk``): whole 32-key tiles, at most
+  64 splits, and about two blocks per SM of the H100's 132 when every key
+  is live.
+- K13 (``grouped_matmul``) splits the depth of the decode step's product
+  (tm 8) across blocks, by a count picked on the host from the shapes alone
+  (``split_depth``): whole 64-deep stages, at most 8 splits, none at wider
+  row tiles.
 - K1 (``flash_attention``) runs P.V on bf16 tensor cores. Its probabilities
   enter as three bf16 fragments (hi, mid, lo), together the fp32 p up to
   fp32 rounding. One bf16 rounding of p misses the bf16 tolerance where a
@@ -23,6 +28,7 @@ from tpu_voice_agent_torch.ops.decode_attention import (
     SPLIT_BLOCKS,
     key_chunk,
 )
+from tpu_voice_agent_torch.ops.grouped_matmul import MAX_SPLITK, STAGE_DEPTH, split_depth
 
 # chip_smoke.py's bf16 attention tolerance: |out - ref| <= 2^-6 |ref| + 1e-4
 ATTN_RTOL, ATTN_ATOL = 2.0 ** -6, 1e-4
@@ -46,6 +52,45 @@ def test_key_chunk_fills_the_card_at_the_main_path_frontier(nkv, chunk, live):
     2048 cache at the parse's frontier (~943): at least 100 live blocks."""
     assert key_chunk(1, 2048, nkv) == chunk
     assert -(-944 // chunk) * nkv == live >= 100
+
+
+@pytest.mark.parametrize("B,nkv,kv_len,chunk,live", [
+    (1, 4, 944, 32, 120),  # tinyllama-1.1b's T = 1 step at the parse's frontier
+    (1, 8, 944, 64, 120),  # mixtral-8x7b's
+    (8, 4, 2048, 256, 256),  # the dense batcher's 8 rows, every key live
+])
+def test_key_chunk_at_t1_fills_the_card(B, nkv, kv_len, chunk, live):
+    """K2 takes K3's chunk at T = 1: whole tiles, and the live blocks
+    (splits holding a key below kv_len, times kv heads and rows) number at
+    least 100 on the main path's shapes."""
+    assert key_chunk(B, 2048, nkv) == chunk
+    assert -(-kv_len // chunk) * nkv * B == live >= 100
+
+
+@pytest.mark.parametrize("M,d,f,tm,E", [
+    (72, 14336, 4096, 8, 8),  # mixtral-8x7b decode, down
+    (72, 4096, 14336, 8, 8),  # decode, gate / up
+    (288, 14336, 4096, 32, 8),  # an ff=8 block, down
+    (3072, 4096, 14336, 128, 8),  # the prefix prefill
+    (128, 256, 384, 8, 4), (64, 68, 100, 8, 4), (8, 1, 1, 8, 1), (72, 100_000, 128, 8, 8),
+    (256, 256, 384, 16, 4),
+])
+def test_split_depth_is_whole_stages_and_bounded(M, d, f, tm, E):
+    chunk = split_depth(M, d, f, tm, E)
+    splits = -(-d // chunk)
+    assert chunk % STAGE_DEPTH == 0 and chunk >= d / MAX_SPLITK
+    assert 1 <= splits <= MAX_SPLITK and (tm == 8 or splits == 1)
+    # no split is empty: every one starts below d
+    assert (splits - 1) * chunk < d
+
+
+def test_split_depth_on_the_mixtral_decode_step():
+    """The down projection (32 column tiles, 2 live row tiles) runs 8
+    splits of 1792: 512 live blocks; gate and up (112 column tiles) 2 of
+    2048: 448."""
+    assert split_depth(72, 14336, 4096, 8, 8) == 1792
+    assert split_depth(72, 4096, 14336, 8, 8) == 2048
+    assert split_depth(288, 14336, 4096, 32, 8) == 14336
 
 
 def _split(p: torch.Tensor, parts: int) -> torch.Tensor:

@@ -166,6 +166,76 @@ def test_int8_leaf_is_the_reference_on_w_of_the_leaf():
                        ops.grouped_matmul_reference(x, dense, te, 16))
 
 
+def _jax_layout(flat_e: np.ndarray, E: int):
+    """The JAX module's grouped layout (tpu_voice_agent/models/llama.py
+    ``_moe_ffn_grouped``) for N assignments' expert ids: order, destination
+    rows, tm, M_pad, tile_expert, and the rows of the padded runs."""
+    e = jnp.asarray(flat_e, jnp.int32)
+    N = e.shape[0]
+    order = jnp.argsort(e, stable=True)
+    sorted_e = e[order]
+    tm = min(128, max(8, 1 << (max(N, 1) - 1).bit_length()))
+    counts = jnp.zeros((E,), jnp.int32).at[e].add(1)
+    padded = ((counts + tm - 1) // tm) * tm
+    offsets = jnp.concatenate([jnp.zeros((1,), jnp.int32), jnp.cumsum(padded)[:-1]])
+    starts = jnp.concatenate([jnp.zeros((1,), jnp.int32), jnp.cumsum(counts)[:-1]])
+    pos = offsets[sorted_e] + jnp.arange(N, dtype=jnp.int32) - starts[sorted_e]
+    M_pad = -(-N // tm) * tm + E * tm
+    ends = jnp.cumsum(padded)
+    tile_expert = jnp.clip(jnp.searchsorted(ends, jnp.arange(M_pad // tm, dtype=jnp.int32) * tm,
+                                            side="right"), 0, E - 1).astype(jnp.int32)
+    return (np.asarray(order), np.asarray(pos), tm, M_pad, np.asarray(tile_expert),
+            int(padded.sum()))
+
+
+@pytest.mark.parametrize("N,E,seed", [(2, 8, 0), (2, 8, 1), (18, 8, 2), (16, 8, 3), (2048, 8, 4),
+                                      (24, 4, 5), (1, 4, 6), (96, 4, 7)])
+def test_grouped_layout_matches_jax_and_counts_live_rows(N, E, seed):
+    """The first five values are JAX's layout exactly; the sixth, the live
+    row count on the device, is the sum of JAX's padded runs, and every row
+    the layout places lies below it."""
+    flat_e = np.random.default_rng(seed).integers(0, E, N).astype(np.int64)
+    if seed == 1:
+        flat_e[:] = 3  # both assignments on one expert
+    jorder, jpos, jtm, jM, jte, jlive = _jax_layout(flat_e, E)
+    order, pos, tm, M_pad, te, live = tl.grouped_layout(torch.from_numpy(flat_e), E)
+    np.testing.assert_array_equal(order.numpy(), jorder)
+    np.testing.assert_array_equal(pos.numpy(), jpos)
+    assert (tm, M_pad) == (jtm, jM)
+    assert te.dtype == torch.int32
+    np.testing.assert_array_equal(te.numpy(), jte)
+    assert live.dtype == torch.int32 and tuple(live.shape) == (1,)
+    assert int(live) == jlive and int(pos.max()) < jlive <= M_pad and jlive % tm == 0
+
+
+@pytest.mark.parametrize("tm", [8, 32, 128])
+def test_grouped_matmul_live_rows_matches_jax_and_zeroes_the_tail(tm):
+    """On zero-tailed rows the plain version with ``live_rows`` equals the
+    JAX kernel (interpret mode), which computes every tile; with non-zero
+    rows in the tail it writes zeros there and leaves the live tiles as
+    they were."""
+    rng = np.random.default_rng(tm + 1)
+    E, d, f, tiles, live_tiles = 4, 32, 96, 6, 3
+    M = tiles * tm
+    te = np.array([0, 1, 3, 3, 3, 3], np.int32)
+    x = rng.standard_normal((M, d)).astype(np.float32)
+    x[live_tiles * tm:] = 0.0
+    w = rng.standard_normal((E, d, f)).astype(np.float32)
+    ref = np.asarray(j_gmm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(te), tm=tm))
+    live = torch.tensor([live_tiles * tm], dtype=torch.int32)
+    tx, tw, tte = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(te)
+    out = ops.grouped_matmul(tx, tw, tte, tm, live_rows=live)
+    np.testing.assert_allclose(out.numpy(), ref, **F32)
+    tx[live_tiles * tm:] = torch.from_numpy(rng.standard_normal((M - live_tiles * tm, d))
+                                            .astype(np.float32))
+    dirty = ops.grouped_matmul_reference(tx, tw, tte, tm, live_rows=live)
+    assert bool((dirty[live_tiles * tm:] == 0).all())
+    assert torch.equal(dirty[:live_tiles * tm], out[:live_tiles * tm])
+    # None: every tile is live, the JAX signature
+    full = ops.grouped_matmul(tx, tw, tte, tm)
+    assert bool((full[live_tiles * tm:] != 0).any())
+
+
 # ---------------------------------------------------------------- MoE layers
 
 

@@ -1,4 +1,4 @@
-// The decode-attention template body shared by K2, K3, K5 (decode_attention.cu),
+// The decode-attention template body shared by K5 (decode_attention.cu),
 // K6, K7 (paged_attention.cu), K8, K9 (paged_attention_quant.cu) and K10
 // (decode_attention_quant.cu): T <= 16 query tokens per batch row against a
 // KV cache, or a paged KV pool read through block tables; q/o bf16 or fp32
@@ -139,7 +139,7 @@ struct Chunk<QInt4> {
 // The (T * group) query rows of one (kv head, batch row); row r is query
 // r / group of q head kvh * group + r % group. Warp w owns rows w + 16 i for
 // i < RW. PAGED: keys are read through a block table (K6-K9); the dense
-// instantiations (K2/K3/K5/K10) keep a plain row stride, free of the lookup.
+// instantiations (K5/K10) keep a plain row stride, free of the lookup.
 // ksc/vsc: the scale planes of a quantized cache (null otherwise), one bf16
 // per (cache row, kv head).
 template <int HD, int RW, bool PAGED, typename TQ, typename TC>
@@ -378,8 +378,7 @@ bool bad_shape(int B, int T, int S, int nq, int nkv) {
          nq / nkv > 16;
 }
 
-// K2/K3 (PAGED false) and K6/K7 (PAGED true): the stacked cache's or the
-// pool's layer plane, always bf16.
+// K6/K7 (PAGED true): the pool's layer plane, always bf16.
 template <bool PAGED>
 int dispatch(const void* q, const void* kc, const void* vc, const int* kv_len, const int* qpos,
              const int* table, int bs, void* o, int B, int T, int S, int nq, int nkv, int hd,

@@ -10,7 +10,7 @@
 // body shares the packed-dot arithmetic of the paged kernels, and here it
 // is the dense instantiation of their loader.
 //
-// What bounds it on an H100: as K2 at B = 1, one block per (kv head, row),
+// What bounds it on an H100: as K5 at B = 1, one block per (kv head, row),
 // so load latency and one SM's fp32 lanes, not the card's memory rate; the
 // cache moves 66 (int8) or 34 (int4) bytes per (position, kv head) in place
 // of bf16's 128.

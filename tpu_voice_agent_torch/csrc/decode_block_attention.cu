@@ -1,5 +1,6 @@
-// K3 and K12: a block of T <= 16 query tokens per batch row against a dense
-// bf16 KV cache, with the key range split across the card (flash-decoding).
+// K3, K12 and K2: T <= 16 query tokens per batch row (K2: one) against a
+// dense bf16 KV cache, with the key range split across the card
+// (flash-decoding).
 //
 // Replaces: tpu_voice_agent/ops/decode_attention.py
 //   K3 `decode_block_attention_layer` (`_decode_block_kernel`; pallas_call at
@@ -11,18 +12,26 @@
 //   K12 `decode_block_attention` (`_decode_block_kernel` over a flat cache;
 //      pallas_call at :458): K3's function on one flat (B, S, nkv, hd) cache,
 //      here the same body with the cache's own pointer.
+//   K2 `decode_attention_layer` (`_decode_kernel`, stacked=True; pallas_call
+//      at :223): one query token per row over one layer plane, keys
+//      [0, kv_len[b]); the ff=0 steps, the dense batcher's T = 1 steps and
+//      mixtral's decode. The same body at T = 1 (KVLEN): it reads kv_len
+//      itself, so the wrapper builds no position array (one launch a layer),
+//      and a row's group of at most 16 query rows gives one row per warp.
 //
 // What bounds it on an H100: bytes. A (1, 9) block at frontier ~950 of
 // tinyllama-1.1b reads ~1 MB of K/V (0.3 us at 3.35 TB/s) and does ~70
-// MFLOP. One block per (kv head, batch row) leaves 4 blocks on 132 SMs at
-// B = 1, each doing its 72 query rows x ~950 keys on one SM's fp32 FMAs;
-// so the keys are split across the card.
+// MFLOP; K2's T = 1 step reads the same K/V for 8 query rows a kv head.
+// One block per (kv head, batch row) leaves 4 blocks on 132 SMs at B = 1,
+// each doing its query rows x ~950 keys on one SM's fp32 FMAs; so the keys
+// are split across the card.
 //
 // The design: the grid is (key splits, kv head, batch row). The wrapper
 // picks the chunk of keys a split covers from S, B and nkv alone (no device
 // read), so that about two blocks per SM exist when every key is live.
 // - A block reads its row's positions (its frontier: the largest of them,
-//   clamped to S - 1). Splits wholly past the frontier return at once.
+//   clamped to S - 1; K2: kv_len - 1). Splits wholly past the frontier
+//   return at once.
 // - A live block computes, for every T * group query row of its kv head
 //   whose frontier reaches its chunk, the partial (m, l, acc[hd]) over the
 //   chunk's keys: K/V tiles of 32 keys widened to fp32 in shared memory
@@ -44,7 +53,8 @@
 //   read, so one launch a call needs no second kernel and no memset.
 // The counters are the wrapper's, TICKETS_PER_SLOT per (batch row, kv
 // head), and serve launches on one stream at a time. A row with no valid
-// key (a negative position) writes zeros, as `acc / (l or 1)` gives.
+// key (a negative position; K2: kv_len 0) writes zeros, as `acc / (l or 1)`
+// gives.
 #include "common.cuh"
 
 namespace {
@@ -80,10 +90,19 @@ __device__ __forceinline__ void widen<float>(const uint4& u, float* dst) {
                                                 __uint_as_float(u.z), __uint_as_float(u.w));
 }
 
+// Query row t of batch row b sees keys [0, frontier]; a frontier past the
+// cache means every slot (keys >= S are never valid). KVLEN (K2, T = 1):
+// `pos` is kv_len (B,), so the frontier is kv_len[b] - 1; otherwise it is
+// q_positions (B, T).
+template <bool KVLEN>
+__device__ __forceinline__ int frontier(const int* __restrict__ pos, int b, int T, int t, int S) {
+  return min(KVLEN ? pos[b] - 1 : pos[b * T + t], S - 1);
+}
+
 // Scratch of one launch, fp32: acc [B * nkv][entries][rows][HD], then (m, l)
 // [B * nkv][entries][rows]; the entries of a (batch row, kv head) are its
 // splits, then one per group of GROUP splits.
-template <int HD, int RW, typename TQ>
+template <int HD, int RW, typename TQ, bool KVLEN>
 __global__ void __launch_bounds__(THREADS)
 split_kernel(const TQ* __restrict__ q, const bf16* __restrict__ kc, const bf16* __restrict__ vc,
              const int* __restrict__ qpos, TQ* __restrict__ o, float* __restrict__ part,
@@ -106,11 +125,10 @@ split_kernel(const TQ* __restrict__ q, const bf16* __restrict__ kc, const bf16* 
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
-  // a frontier past the cache means every slot (keys >= S are never valid)
   int max_pos = -1;
 #pragma unroll
   for (int t = 0; t < MAX_T; ++t)
-    if (t < T) max_pos = max(max_pos, min(qpos[b * T + t], S - 1));
+    if (t < T) max_pos = max(max_pos, frontier<KVLEN>(qpos, b, T, t, S));
   // splits that hold a key some row sees; split 0 always runs, so that a
   // (row, kv head) whose rows see no key still gets its zeros
   const int live = max(max_pos, 0) / chunk + 1;
@@ -125,7 +143,7 @@ split_kernel(const TQ* __restrict__ q, const bf16* __restrict__ kc, const bf16* 
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
     const int r = warp + NWARPS * i;
-    const int p = r < rows ? min(qpos[b * T + r / group], S - 1) : -1;
+    const int p = r < rows ? frontier<KVLEN>(qpos, b, T, r / group, S) : -1;
     rpos[i] = p;
     // a row is active in this split when its frontier reaches the chunk
     active[i] = r < rows && p >= c0;
@@ -314,7 +332,7 @@ split_kernel(const TQ* __restrict__ q, const bf16* __restrict__ kc, const bf16* 
   auto merge = [&](int first, int g, bool into_group) {
     for (int item = tid; item < rows * D4; item += THREADS) {
       const int r = item / D4, d4 = item % D4;
-      const int p = min(qpos[b * T + r / group], S - 1);
+      const int p = frontier<KVLEN>(qpos, b, T, r / group, S);
       const int nr = p >= 0 ? p / chunk + 1 : 0;  // splits holding keys row r sees
       const int n = into_group ? min(max(nr - first, 0), GROUP)
                                : (first == nsplit ? (nr + GROUP - 1) / GROUP : nr);
@@ -392,7 +410,7 @@ split_kernel(const TQ* __restrict__ q, const bf16* __restrict__ kc, const bf16* 
   if (tid == 0) tk[0] = 0;
 }
 
-template <int HD, int RW, typename TQ>
+template <int HD, int RW, typename TQ, bool KVLEN>
 int launch(const void* q, const void* kc, const void* vc, const int* qpos, void* o, float* part,
            int* tickets, int B, int T, int S, int nq, int nkv, int chunk, float scale,
            cudaStream_t stream) {
@@ -400,50 +418,57 @@ int launch(const void* q, const void* kc, const void* vc, const int* qpos, void*
   const int nsplit = (S + chunk - 1) / chunk;
   const size_t smem =
       sizeof(float) * (rows * HD + TILE * (HD + 4) + TILE * HD + NWARPS * RW * TILE);
-  cudaError_t err = tva_allow_smem(split_kernel<HD, RW, TQ>, smem);
+  cudaError_t err = tva_allow_smem(split_kernel<HD, RW, TQ, KVLEN>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nsplit, nkv, B);
-  split_kernel<HD, RW, TQ><<<grid, THREADS, smem, stream>>>(
+  split_kernel<HD, RW, TQ, KVLEN><<<grid, THREADS, smem, stream>>>(
       (const TQ*)q, (const bf16*)kc, (const bf16*)vc, qpos, (TQ*)o, part, tickets, T, S, nq, nkv,
       chunk, scale);
   return (int)cudaGetLastError();
 }
 
 // rows per warp: the smallest of 1, 2, 3, 5, 8, 16 that covers T * group
-// rows (5: the (1, 9) and (8, 9) blocks' 72 rows at tinyllama's group of 8)
-template <int HD, typename TQ>
+// rows (5: the (1, 9) and (8, 9) blocks' 72 rows at tinyllama's group of 8).
+// KVLEN (K2): T = 1 and a group of at most 16, so one row per warp.
+template <int HD, typename TQ, bool KVLEN>
 int launch_rows(const void* q, const void* kc, const void* vc, const int* qpos, void* o,
                 float* part, int* tickets, int B, int T, int S, int nq, int nkv, int chunk,
                 float scale, cudaStream_t st) {
-  const int rw = (T * (nq / nkv) + NWARPS - 1) / NWARPS;
-#define TVA_LAUNCH(R) \
-  return launch<HD, R, TQ>(q, kc, vc, qpos, o, part, tickets, B, T, S, nq, nkv, chunk, scale, st)
-  if (rw <= 1) TVA_LAUNCH(1);
-  if (rw <= 2) TVA_LAUNCH(2);
-  if (rw <= 3) TVA_LAUNCH(3);
-  if (rw <= 5) TVA_LAUNCH(5);
-  if (rw <= 8) TVA_LAUNCH(8);
-  TVA_LAUNCH(16);
+#define TVA_LAUNCH(R)                                                                          \
+  return launch<HD, R, TQ, KVLEN>(q, kc, vc, qpos, o, part, tickets, B, T, S, nq, nkv, chunk, \
+                                  scale, st)
+  if constexpr (KVLEN) {
+    TVA_LAUNCH(1);
+  } else {
+    const int rw = (T * (nq / nkv) + NWARPS - 1) / NWARPS;
+    if (rw <= 1) TVA_LAUNCH(1);
+    if (rw <= 2) TVA_LAUNCH(2);
+    if (rw <= 3) TVA_LAUNCH(3);
+    if (rw <= 5) TVA_LAUNCH(5);
+    if (rw <= 8) TVA_LAUNCH(8);
+    TVA_LAUNCH(16);
+  }
 #undef TVA_LAUNCH
 }
 
+template <bool KVLEN>
 int dispatch(const void* q, const void* kc, const void* vc, const int* qpos, void* o, void* part,
              void* tickets, int B, int T, int S, int nq, int nkv, int hd, int chunk, float scale,
              int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || T > MAX_T || S <= 0 || nkv <= 0 || nq % nkv != 0 ||
-      nq / nkv > MAX_GROUP || chunk <= 0 || chunk % TILE != 0 ||
+  if (B <= 0 || T <= 0 || T > MAX_T || (KVLEN && T != 1) || S <= 0 || nkv <= 0 ||
+      nq % nkv != 0 || nq / nkv > MAX_GROUP || chunk <= 0 || chunk % TILE != 0 ||
       (S + chunk - 1) / chunk > MAX_SPLITS || part == nullptr || tickets == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* pp = (float*)part;
   int* tk = (int*)tickets;
   if (dtype == TVA_DTYPE_F32) {
-    TVA_DISPATCH_HD(hd, return launch_rows<HD, float>(q, kc, vc, qpos, o, pp, tk, B, T, S, nq,
-                                                      nkv, chunk, scale, st));
+    TVA_DISPATCH_HD(hd, return launch_rows<HD, float, KVLEN>(q, kc, vc, qpos, o, pp, tk, B, T, S,
+                                                             nq, nkv, chunk, scale, st));
   }
   if (dtype != TVA_DTYPE_BF16) return (int)cudaErrorInvalidValue;
-  TVA_DISPATCH_HD(hd, return launch_rows<HD, bf16>(q, kc, vc, qpos, o, pp, tk, B, T, S, nq, nkv,
-                                                   chunk, scale, st));
+  TVA_DISPATCH_HD(hd, return launch_rows<HD, bf16, KVLEN>(q, kc, vc, qpos, o, pp, tk, B, T, S, nq,
+                                                          nkv, chunk, scale, st));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -459,8 +484,8 @@ extern "C" int tva_decode_block_attention_layer(const void* q, const void* kc, c
                                                 void* tickets, int B, int T, int S, int nq,
                                                 int nkv, int hd, int chunk, float scale,
                                                 int dtype, void* stream) {
-  return dispatch(q, kc, vc, q_positions, o, part, tickets, B, T, S, nq, nkv, hd, chunk, scale,
-                  dtype, stream);
+  return dispatch<false>(q, kc, vc, q_positions, o, part, tickets, B, T, S, nq, nkv, hd, chunk,
+                         scale, dtype, stream);
 }
 
 // K12: the same over a flat k/v cache (B,S,nkv,hd) bf16.
@@ -469,6 +494,17 @@ extern "C" int tva_decode_block_attention(const void* q, const void* kc, const v
                                           void* tickets, int B, int T, int S, int nq, int nkv,
                                           int hd, int chunk, float scale, int dtype,
                                           void* stream) {
-  return dispatch(q, kc, vc, q_positions, o, part, tickets, B, T, S, nq, nkv, hd, chunk, scale,
-                  dtype, stream);
+  return dispatch<false>(q, kc, vc, q_positions, o, part, tickets, B, T, S, nq, nkv, hd, chunk,
+                         scale, dtype, stream);
+}
+
+// K2: q (B,nq,hd) bf16 or fp32, k/v plane (B,S,nkv,hd) bf16 of the layer,
+// kv_len (B,) int32 (query b sees keys [0, kv_len[b])); o like q. `chunk`,
+// `part` and `tickets` as K3's at T = 1.
+extern "C" int tva_decode_attention_layer(const void* q, const void* kc, const void* vc,
+                                          const int* kv_len, void* o, void* part, void* tickets,
+                                          int B, int S, int nq, int nkv, int hd, int chunk,
+                                          float scale, int dtype, void* stream) {
+  return dispatch<true>(q, kc, vc, kv_len, o, part, tickets, B, 1, S, nq, nkv, hd, chunk, scale,
+                        dtype, stream);
 }

@@ -285,7 +285,9 @@ def grouped_layout(flat_e: torch.Tensor, n_experts: int):
     multiple of the row tile ``tm``; ``tile_expert`` (M_pad // tm,) int32
     names each tile's expert. ``tm`` and ``M_pad`` are the JAX module's
     exactly (``tile_expert``'s meaning depends on them) and follow from N
-    alone, so nothing is read back from the device."""
+    alone, so nothing is read back from the device. ``live_rows`` (1,)
+    int32, on the device: ``sum(padded)``, the rows of the padded runs; the
+    tiles from there on are the zero tail, which K13 skips."""
     E, N, dev = n_experts, flat_e.shape[0], flat_e.device
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
@@ -302,28 +304,30 @@ def grouped_layout(flat_e: torch.Tensor, n_experts: int):
     tile_expert = torch.clamp(
         torch.searchsorted(ends, torch.arange(M_pad // tm, device=dev) * tm, right=True),
         0, E - 1).to(torch.int32)
-    return order, pos, tm, M_pad, tile_expert
+    return order, pos, tm, M_pad, tile_expert, ends[-1:].to(torch.int32)
 
 
 def _moe_ffn_grouped(p, h, cfg: LlamaConfig):
     """The grouped MoE dispatch (llama.py:296-350): assignments sorted by
     expert into tile-padded runs (``grouped_layout``), and K13 multiplies
     each row tile by its expert's plane (gate, up, down: three launches), so
-    FFN work goes with T * K, not T * E. The int8 expert leaves go to the
+    FFN work goes with T * K, not T * E; the tail tiles past the padded runs
+    (``live_rows``) are zeros that it skips. The int8 expert leaves go to the
     kernel as they are: it forms the JAX module's ``_w`` values
     (``ops.dequantize_leaf``) per tile instead of a bf16 copy."""
     B, T, d = h.shape
     Tt = B * T
     x2 = h.reshape(Tt, d)
     eids, gates = route_topk_flat(p["router"], x2, cfg.n_experts, cfg.top_k)  # (Tt, K)
-    order, pos, tm, M_pad, tile_expert = grouped_layout(eids.reshape(-1).long(), cfg.n_experts)
+    order, pos, tm, M_pad, tile_expert, live = grouped_layout(eids.reshape(-1).long(),
+                                                              cfg.n_experts)
     tok = order // cfg.top_k  # assignment j = t * K + k belongs to token t
     xs = torch.zeros((M_pad, d), dtype=h.dtype, device=h.device)
     xs[pos] = x2[tok]
-    gate_s = grouped_matmul(xs, p["moe_gate"], tile_expert, tm)
-    up_s = grouped_matmul(xs, p["moe_up"], tile_expert, tm)
+    gate_s = grouped_matmul(xs, p["moe_gate"], tile_expert, tm, live_rows=live)
+    up_s = grouped_matmul(xs, p["moe_up"], tile_expert, tm, live_rows=live)
     act = (F.silu(gate_s.float()) * up_s.float()).to(h.dtype)
-    down = grouped_matmul(act, p["moe_down"], tile_expert, tm)  # (M_pad, d)
+    down = grouped_matmul(act, p["moe_down"], tile_expert, tm, live_rows=live)  # (M_pad, d)
     # the combine in fp32, gates unrounded: each row receives K addends onto
     # zero, exact in any order for K = 2 (CUDA's index_add_ adds by atomics,
     # so K > 2 would make the sum's order, and its last bit, vary)

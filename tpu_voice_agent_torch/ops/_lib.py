@@ -27,7 +27,7 @@ CSRC = PACKAGE_DIR / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "decode_block_attention.cu",
            "paged_attention.cu", "grammar_mask.cu", "paged_attention_quant.cu",
            "decode_attention_quant.cu", "grouped_matmul.cu")
-HEADERS = ("common.cuh", "decode_attention.cuh")
+HEADERS = ("common.cuh", "decode_attention.cuh", "mma.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 48, 64, 128)
@@ -37,6 +37,9 @@ QUANT_HEAD_DIMS = (32, 48, 64)
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+# per device: the int32 ticket counters of the kernels whose last block
+# merges the others' partials (K2 / K3 / K12, K13's split-K)
+TICKETS: dict = {}
 # filled by build(): {"seconds": float, "cached": bool, "path": str, "log": str}
 BUILD_INFO: dict = {}
 
@@ -107,8 +110,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tva_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
         # q, k cache, v cache, kv_len, o, B, S, nq, nkv, hd, scale, dtype, stream
         "tva_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
-        # q, k plane, v plane, kv_len, o, B, S, nq, nkv, hd, scale, dtype, stream
-        "tva_decode_attention_layer": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+        # q, k plane, v plane, kv_len, o, partials, tickets, B, S, nq, nkv, hd, chunk, scale,
+        # dtype, stream
+        "tva_decode_attention_layer": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, q_positions, o, partials, tickets, B, T, S, nq, nkv, hd, chunk,
         # scale, dtype, stream
         "tva_decode_block_attention_layer": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
@@ -135,9 +139,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tva_masked_argmax_advance": [P, P, P, P, P, P, P, I, I, I, P],
         # logits, state, mask, tok, R, V, stream
         "tva_masked_argmax": [P, P, P, P, I, I, P],
-        # x, w (or int8 q), scales (int8 only, else 0), tile_expert, out, M, d, f, tm,
-        # x dtype, w dtype, stream
-        "tva_grouped_matmul": [P, P, P, P, P, I, I, I, I, I, I, P],
+        # x, w (or int8 q), scales (int8 only, else 0), tile_expert, live_rows (or 0), out,
+        # split-K partials, tickets (or 0), M, d, f, tm, chunk, x dtype, w dtype, stream
+        "tva_grouped_matmul": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -154,6 +158,19 @@ def library() -> ctypes.CDLL:
         if _LIB is None:
             _LIB = _bind(ctypes.CDLL(str(build())))
         return _LIB
+
+
+def tickets(device, n: int):
+    """The device's int32 ticket counters, at least n, all 0 between
+    launches (each launch sets back what it counted). Launches on one
+    stream at a time share them."""
+    import torch
+
+    t = TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        TICKETS[device] = t
+    return t
 
 
 def check(err: int, name: str) -> None:

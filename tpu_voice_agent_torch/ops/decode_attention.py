@@ -1,5 +1,5 @@
-"""K5 / K2 / K3 / K12: decode attention against a KV cache (CUDA: K5 and K2
-in ``csrc/decode_attention.cu``, K3 and K12 in
+"""K5 / K2 / K3 / K12: decode attention against a KV cache (CUDA: K5 in
+``csrc/decode_attention.cu``, K2, K3 and K12 in
 ``csrc/decode_block_attention.cu``); K10: against a quantized cache
 (``csrc/decode_attention_quant.cu``).
 
@@ -14,15 +14,16 @@ Pallas tile size ``block_k`` and ``interpret`` dropped).
   S needs no padding to a tile multiple; a row with kv_len 0 gets zeros.
 - K2 (T = 1) on the stacked ``(L, B, S, nkv, hd)`` bf16 cache: the same on
   layer plane ``layer``, a Python int (``k_cache[layer]`` is a free
-  contiguous view, so the kernel gets that plane's pointer).
+  contiguous view, so the kernel gets that plane's pointer). K3's split body
+  at T = 1, reading ``kv_len`` itself: one launch a layer.
 - K3 (T <= 16, the grammar fast-forward block): query i of row b attends
   slots ``[0, q_positions[b, i]]``; positions may be unordered or repeat.
   The kernel splits the key range into chunks of ``key_chunk(B, S, nkv)``
   keys, one block each; the last block of each group of 8 splits to finish
   merges the group, and the last group merger merges the groups, each in
   a fixed order: one launch, the same bits run to run. The wrapper hands
-  it fp32 scratch (``torch.empty``) and the device's ticket counters,
-  which the kernel leaves at 0.
+  it fp32 scratch (``torch.empty``) and the device's ticket counters
+  (``_lib.tickets``), which the kernel leaves at 0.
 - K12 (T <= 16) on a flat ``(B, S, nkv, hd)`` bf16 cache: K3's function and
   body on one cache, as the JAX package's ``decode_block_attention`` (which
   only its tests call; no engine here calls it either).
@@ -48,13 +49,14 @@ from ._lib import (
     require,
     require_cuda,
     stream_of,
+    tickets,
 )
 from .kvquant import dequantize_kv, kv_quant_of_bits
 
 _NEG_INF = -1e30
 MAX_BLOCK_T = 16
 MAX_GROUP = 16
-# K3 / K12 split the key range into chunks of whole 32-key tiles: about two
+# K3 / K12 (and K2 at T = 1) split the key range into chunks of whole 32-key tiles: about two
 # blocks per SM of the H100's 132 when every key of the cache is live. The
 # merge runs in groups of 8 splits, at most 8 groups; scratch entries and
 # ticket counters per (row, kv head) follow (csrc/decode_block_attention.cu
@@ -63,11 +65,10 @@ SPLIT_BLOCKS = 264
 MERGE_GROUP = 8
 MAX_SPLITS = MERGE_GROUP * MERGE_GROUP
 TICKETS_PER_SLOT = 1 + MERGE_GROUP
-_TICKETS: dict[torch.device, torch.Tensor] = {}
 
 
 def key_chunk(B: int, S: int, nkv: int) -> int:
-    """Keys per split of K3 / K12, from the shapes alone (no device read):
+    """Keys per split of K3 / K12 / K2, from the shapes alone (no device read):
     32 at one tinyllama-1.1b row (S 2048, 4 kv heads: 64 splits), 64 at
     mixtral-8x7b's 8 kv heads, 256 at 8 rows."""
     splits = max(1, min(MAX_SPLITS, SPLIT_BLOCKS // (B * nkv)))
@@ -75,15 +76,17 @@ def key_chunk(B: int, S: int, nkv: int) -> int:
     return -(-chunk // 32) * 32
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The device's int32 ticket counters for K3 / K12's merge, at least n,
-    all 0 between launches (each launch sets back what it counted).
-    Launches on one stream at a time share them."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
+def _split_scratch(name, q, k_plane, v_plane, B, T, S, nq, nkv, hd):
+    """The split body's chunk, fp32 scratch and ticket counters for a
+    (B, T) block of queries over one (B, S, nkv, hd) bf16 plane."""
+    require(all(t.data_ptr() % 16 == 0 for t in (q, k_plane, v_plane)), name,
+            "q and the cache must be 16-byte aligned")
+    chunk = key_chunk(B, S, nkv)
+    splits = -(-S // chunk)
+    entries = splits + -(-splits // MERGE_GROUP)
+    part = torch.empty(B * nkv * entries * T * (nq // nkv) * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    return chunk, part, tickets(q.device, B * nkv * TICKETS_PER_SLOT)
 
 
 def _block_attention(name, entry, q, k_plane, v_plane, q_positions, S, nkv, scale):
@@ -93,17 +96,10 @@ def _block_attention(name, entry, q, k_plane, v_plane, q_positions, S, nkv, scal
     require(1 <= T <= MAX_BLOCK_T, name, f"block of {T} queries (max {MAX_BLOCK_T})")
     require(q_positions.dtype == torch.int32 and q_positions.shape == (B, T), name,
             "q_positions must be (B, T) int32")
-    require(all(t.data_ptr() % 16 == 0 for t in (q, k_plane, v_plane)), name,
-            "q and the cache must be 16-byte aligned")
-    chunk = key_chunk(B, S, nkv)
-    splits = -(-S // chunk)
-    entries = splits + -(-splits // MERGE_GROUP)
-    part = torch.empty(B * nkv * entries * T * (nq // nkv) * (hd + 2), dtype=torch.float32,
-                       device=q.device)
-    tickets = _tickets(q.device, B * nkv * TICKETS_PER_SLOT)
+    chunk, part, counters = _split_scratch(name, q, k_plane, v_plane, B, T, S, nq, nkv, hd)
     out = torch.empty_like(q)
     err = entry(q.data_ptr(), k_plane.data_ptr(), v_plane.data_ptr(), q_positions.data_ptr(),
-                out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, T, S, nq, nkv, hd, chunk,
+                out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, T, S, nq, nkv, hd, chunk,
                 float(scale), dtype_code(name, q), stream_of(q))
     check(err, name)
     return out
@@ -182,10 +178,13 @@ def decode_attention_layer(
     require_cuda(name, q, kv_len)
     require(kv_len.dtype == torch.int32 and kv_len.shape == (B,), name,
             "kv_len must be (B,) int32")
+    kp, vp = k_cache[layer], v_cache[layer]
+    chunk, part, counters = _split_scratch(name, q, kp, vp, B, 1, S, nq, nkv, hd)
     out = torch.empty_like(q)
     err = library().tva_decode_attention_layer(
-        q.data_ptr(), k_cache[layer].data_ptr(), v_cache[layer].data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), B, S, nq, nkv, hd, float(scale), dtype_code(name, q), stream_of(q))
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        part.data_ptr(), counters.data_ptr(), B, S, nq, nkv, hd, chunk, float(scale),
+        dtype_code(name, q), stream_of(q))
     check(err, name)
     decode_attention_layer.launches += 1
     return out
