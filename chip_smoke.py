@@ -413,7 +413,8 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     # K5: one large-v3 decoder step's cross-attention (S = kv_len = 500, the
     # 1000-frame bucket; S = 1500, kv_len 75, the incremental buffer after
     # three blocks) and self-attention (S = 448, kv_len 33: the prompt and
-    # 32 tokens); the checkpoints' fp32 hd-16 cache
+    # 32 tokens); the checkpoints' fp32 hd-16 cache; ragged rows with one at
+    # kv_len 0 (zeros)
     ck, cv = randn(1, Te, nh, hd), randn(1, Te, nh, hd)
     ik, iv = randn(1, 1500, nh, hd), randn(1, 1500, nh, hd)
     inc_len = torch.tensor([75], dtype=torch.int32, device=dev)
@@ -424,29 +425,51 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     k16c, v16c = (randn(2, 100, 4, 16, dtype=torch.float32) for _ in range(2))
     q16d = randn(2, 4, 16, dtype=torch.float32)
     len16 = torch.tensor([37, 100], dtype=torch.int32, device=dev)
-    k5_err = attn_err([
-        (ops.decode_attention(q5, ck, cv, cross_len),
-         decode_attention_reference(q5, ck, cv, cross_len)),
-        (ops.decode_attention(q5, ik, iv, inc_len),
-         decode_attention_reference(q5, ik, iv, inc_len)),
-        (ops.decode_attention(q5, sk, sv, self_len),
-         decode_attention_reference(q5, sk, sv, self_len)),
-        (ops.decode_attention(q16d, k16c, v16c, len16),
-         decode_attention_reference(q16d, k16c, v16c, len16))])
+    kr, vr, qr = randn(4, 448, nh, hd), randn(4, 448, nh, hd), randn(4, nh, hd)
+    len_r = torch.tensor([0, 1, 33, 448], dtype=torch.int32, device=dev)
+    k5_cases = {"cross": (q5, ck, cv, cross_len), "incremental": (q5, ik, iv, inc_len),
+                "self": (q5, sk, sv, self_len), "fp32": (q16d, k16c, v16c, len16),
+                "ragged": (qr, kr, vr, len_r)}
+    k5_pairs = []
+    for label, args in k5_cases.items():
+        out = ops.decode_attention(*args)
+        # the key range is split across blocks (and, at Whisper's group of
+        # 1, across warp sets) and merged in a fixed order: the same bits
+        # from run to run
+        fail_if(not torch.equal(out, ops.decode_attention(*args)),
+                f"decode_attention ({label}): two calls on the same inputs differ")
+        fail_if(not bool((out[args[3] == 0] == 0).all()),
+                f"decode_attention ({label}): a row with kv_len 0 is not zeros")
+        k5_pairs.append((out, decode_attention_reference(*args)))
     ckh, cvh = ck.transpose(1, 2), cv.transpose(1, 2)
-    skh, svh = sk[:, :33].transpose(1, 2), sv[:, :33].transpose(1, 2)
     rows["decode_attention"] = _kernel_row(
-        "decode_attention", *k5_err, f"{ATTN_TOL} (bf16); {F32_TOL} (fp32)",
+        "decode_attention", *attn_err(k5_pairs), f"{ATTN_TOL} (bf16); {F32_TOL} (fp32)",
         cuda_ms(lambda: ops.decode_attention(q5, ck, cv, cross_len), iters=100),
         cuda_ms(lambda: decode_attention_reference(q5, ck, cv, cross_len)),
         *bound(2 * (2 * nh * hd + 2 * Te * nh * hd) + 4, 4 * nh * hd * Te),
         cuda_ms(lambda: F.scaled_dot_product_attention(q5[:, :, None], ckh, cvh), iters=100))
-    rows["decode_attention"]["self"] = _extra_shape(
-        "whisper-large-v3 decoder self-attention, S = 448, kv_len 33, 20 heads, hd 64, bf16",
-        cuda_ms(lambda: ops.decode_attention(q5, sk, sv, self_len), iters=100),
-        cuda_ms(lambda: decode_attention_reference(q5, sk, sv, self_len)),
-        *bound(2 * (2 * nh * hd + 2 * 33 * nh * hd) + 4, 4 * nh * hd * 33),
-        cuda_ms(lambda: F.scaled_dot_product_attention(q5[:, :, None], skh, svh), iters=100))
+    rows["decode_attention"]["shape"] = (
+        "whisper-large-v3 decoder cross-attention, S = kv_len = 500, 20 heads, hd 64, bf16; "
+        "fp32 hd 16 and ragged rows (kv_len 0, 1, 33, 448) checked")
+    rows["decode_attention"]["deterministic"] = True
+    for label, n_keys in (("self", 33), ("incremental", 75)):
+        qq, kk, vv, ll = k5_cases[label]
+        kkh, vvh = kk[:, :n_keys].transpose(1, 2), vv[:, :n_keys].transpose(1, 2)
+        rows["decode_attention"][label] = _extra_shape(
+            f"whisper-large-v3 decoder {label} attention, S = {kk.shape[1]}, kv_len {n_keys}, "
+            "20 heads, hd 64, bf16",
+            cuda_ms(lambda: ops.decode_attention(qq, kk, vv, ll), iters=100),
+            cuda_ms(lambda: decode_attention_reference(qq, kk, vv, ll)),
+            *bound(2 * (2 * nh * hd + 2 * n_keys * nh * hd) + 4, 4 * nh * hd * n_keys),
+            cuda_ms(lambda: F.scaled_dot_product_attention(qq[:, :, None], kkh, vvh), iters=100))
+    rows["decode_attention"]["one_key_set_ms"] = _one_key_set_ms(
+        {label: k5_cases[label] for label in ("cross", "self", "incremental")})
+    # the host's time a call (checks, scratch, one launch): the STT decode
+    # step makes 64 of them and is host-bound
+    rows["decode_attention"]["host_us"] = _host_us(
+        lambda: ops.decode_attention(q5, ck, cv, cross_len))
+    log(f"[kernels]   decode_attention host time a call: "
+        f"{rows['decode_attention']['host_us']:.2f} us")
 
     # K2: one T=1 decode step of one layer at a prefix-sized frontier
     n = prefix_len + 64
@@ -643,15 +666,62 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     return rows
 
 
+def _host_us(fn, iters: int = 500) -> float:
+    """Mean host time of ``fn()`` a call over ``iters`` back-to-back calls
+    whose kernels take less device time than their launches take host time
+    (the queue never fills), so the wall is the host's."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def _one_key_set_ms(cases: dict) -> dict:
+    """K5 timed with one warp set a split (one query row per warp, K2's
+    instantiation: the split body without warps on keys), beside the key
+    sets the wrapper picks, at Whisper's shapes; the outputs of both are
+    held to the plain version in the kernels phase's tolerance."""
+    import importlib
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import decode_attention_reference
+
+    da = importlib.import_module("tpu_voice_agent_torch.ops.decode_attention")
+    picked, out = getattr(da, "key_sets", None), {}
+    if picked is None:  # an earlier checkout of the package: one body only
+        return out
+    da.key_sets = lambda *a: 1
+    try:
+        for label, args in cases.items():
+            _, ratio = attn_err([(ops.decode_attention(*args), decode_attention_reference(*args))])
+            fail_if(not ratio <= 1.0, f"decode_attention ({label}, one key set): error {ratio:.3g}x "
+                    "its tolerance")
+            out[label] = cuda_ms(lambda: ops.decode_attention(*args), iters=100)
+    finally:
+        da.key_sets = picked
+    log("[kernels]   decode_attention with one key set: " + ", ".join(
+        f"{label} {ms:.5f} ms" for label, ms in out.items()))
+    return out
+
+
 def phase_digest(report: dict) -> dict:
     """SHA-256 of the outputs of the kernels whose bodies a redesign of
     another kernel must leave as they are, on seeded inputs at the main
     path's shapes: K5 (large-v3's cross-attention in bf16, the checkpoints'
-    fp32 hd-16 cache), K3 (tinyllama's (1, 9) chain block) and K1 (a causal
-    bf16 prefix block, the checkpoints' fp32 encoder block). The same
-    digests from two builds mean the same bits. Only wrappers with the same
-    signature in every slice are called, so the script runs against an
-    earlier checkout of the package too."""
+    fp32 hd-16 cache), K3 (tinyllama's (1, 9) chain block), K1 (a causal
+    bf16 prefix block, the checkpoints' fp32 encoder block), K2 (tinyllama's
+    T = 1 step at frontier 943) and K7 (a (4, 9) fast-forward block over a
+    paged pool with a shared prefix). The same digests from two builds mean
+    the same bits; K5's must also be the same from two calls. Only wrappers
+    with the same signature in every slice are called, so the script runs
+    against an earlier checkout of the package too."""
     import hashlib
 
     import torch
@@ -686,6 +756,21 @@ def phase_digest(report: dict) -> dict:
         "flash_attention fp32": digest(ops.flash_attention(
             *(randn(1, 100, 4, 16, dtype=torch.float32) for _ in range(3)), causal=False)),
     }
+    for key, args in (("decode_attention bf16", (q5, k5, v5, torch.tensor(
+            [500], dtype=torch.int32, device=dev))), ("decode_attention fp32", (
+            q16, k16, v16, torch.tensor([37, 100], dtype=torch.int32, device=dev)))):
+        fail_if(digest(ops.decode_attention(*args)) != out[key],
+                f"digest: {key} differs between two calls")
+    q1 = randn(1, 32, 64)
+    out["decode_attention_layer T = 1"] = digest(ops.decode_attention_layer(
+        q1, kc, vc, torch.tensor([944], dtype=torch.int32, device=dev), 1))
+    lens = [900, 944, 1000, 1050]
+    tables, n_blocks = _paged_tables(g, 4, 6, lens, 128, 16)
+    kp, vp = randn(2, n_blocks, 128, 4, 64), randn(2, n_blocks, 128, 4, 64)
+    qpos = torch.tensor([[n - 10 + min(i, c) for i in range(9)] for n, c in
+                         zip(lens, (0, 3, 5, 8))], dtype=torch.int32, device=dev)
+    out["paged_block_attention (4, 9)"] = digest(ops.paged_block_attention(
+        randn(4, 9, 32, 64), kp, vp, tables, qpos, 1))
     for key, d in out.items():
         log(f"[digest] {key}: {d}")
     report["digest"] = out
@@ -1170,6 +1255,9 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
         k10 = lambda: ops.decode_attention_quant(q1, kc, vc, kcs, vcs, kv10, bits=bits)
         p10 = lambda: decode_attention_quant_reference(q1, kc, vc, kcs, vcs, kv10, bits=bits)
         errs["10"].append((k10(), p10()))
+        # split across blocks and merged in a fixed order: the same bits run to run
+        fail_if(not torch.equal(k10(), k10()),
+                f"decode_attention_quant ({tier}): two calls on the same inputs differ")
         kd = dequantize_kv(kc[:, :n], kcs[:, :n], tier).transpose(1, 2).repeat_interleave(group, 1)
         vd = dequantize_kv(vc[:, :n], vcs[:, :n], tier).transpose(1, 2).repeat_interleave(group, 1)
         t["10"] = (cuda_ms(k10, iters=100), cuda_ms(p10, iters=5),
@@ -1195,9 +1283,18 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
                                                       1, bits=bits)))
         kc48, kcs48 = _quant_values(g48, (15, 300, 2, 48), tier)
         vc48, vcs48 = _quant_values(g48, (15, 300, 2, 48), tier)
-        errs["10"].append((
-            ops.decode_attention_quant(q48, kc48, vc48, kcs48, vcs48, kl48, bits=bits),
-            decode_attention_quant_reference(q48, kc48, vc48, kcs48, vcs48, kl48, bits=bits)))
+        # the distilled widths (a group of 2, splits of 64 keys: the
+        # warps-on-keys body), also with row 0 at kv_len 0 (zeros)
+        kz48 = kl48.clone()
+        kz48[0] = 0
+        for lens in (kl48, kz48):
+            o10, again = (ops.decode_attention_quant(q48, kc48, vc48, kcs48, vcs48, lens,
+                                                     bits=bits) for _ in range(2))
+            fail_if(not bool((o10[lens == 0] == 0).all()) or not torch.equal(o10, again),
+                    f"decode_attention_quant ({tier}, hd 48): a kv_len-0 row is not zeros, or "
+                    "two calls differ")
+            errs["10"].append((o10, decode_attention_quant_reference(
+                q48, kc48, vc48, kcs48, vcs48, lens, bits=bits)))
     torch.cuda.synchronize()
     for key, pairs in errs.items():  # each pair's (max abs error, share of its tolerance)
         log(f"[kernels]   K{key} pairs: " + ", ".join(

@@ -65,23 +65,52 @@ def test_attention_kernels_match_plain(cuda, hd, dtype, tol):
     torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
+# K5's and K10's (B, S, kv_len): whisper-large-v3's cross-attention (S =
+# kv_len = 500), self-attention (33 of 448) and incremental buffer (75 of
+# 1500); ragged rows on a cache off the 32-key tile (kv_len 0, 1 and S);
+# 8 rows whose splits hold two tiles each
+SPLIT_T1_SHAPES = [(1, 500, [500]), (1, 448, [33]), (1, 1500, [75]), (4, 300, [0, 1, 177, 300]),
+                   (8, 1000, [0, 1, 31, 32, 33, 500, 999, 1000])]
+
+
+def _check_split_t1(call, wrapper, ref, kv_len, tol, monkeypatch):
+    """``call()`` runs one T = 1 wrapper of the split body, with the key sets
+    it picks and then with one set: the plain version's values ``ref`` in
+    its dtype, zeros at kv_len 0, the same bits on a second call, one
+    launch of ``wrapper`` a call, the ticket counters back at 0."""
+    import importlib
+
+    from tpu_voice_agent_torch.ops._lib import TICKETS
+
+    da = importlib.import_module("tpu_voice_agent_torch.ops.decode_attention")
+    for one_set in (False, True):
+        if one_set:
+            monkeypatch.setattr(da, "key_sets", lambda *a: 1)
+        before = wrapper.launches
+        out = call()
+        assert wrapper.launches == before + 1
+        assert out.dtype == ref.dtype and bool((out[kv_len == 0] == 0).all())
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        assert torch.equal(out, call())
+        assert int(TICKETS[out.device].abs().sum()) == 0
+    monkeypatch.undo()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("hd,nq,nkv", [(16, 4, 4), (64, 20, 20), (64, 8, 2)])
-def test_flat_decode_attention_matches_plain(cuda, hd, nq, nkv, dtype):
-    """K5 on a flat cache: S not a multiple of the 32-key tile, kv_len 0
-    (zeros), 1, ragged and S; MHA (the Whisper decoder) and GQA."""
+def test_flat_decode_attention_matches_plain(cuda, hd, nq, nkv, dtype, monkeypatch):
+    """K5 on a flat cache at ``SPLIT_T1_SHAPES``: MHA (the Whisper decoder
+    at large-v3's hd 64, the in-repo checkpoints' fp32 hd 16) and GQA."""
     g = torch.Generator(device=cuda).manual_seed(hd + nq)
-    S = 300
-    kc = torch.randn(4, S, nkv, hd, generator=g, device=cuda).to(dtype)
-    vc = torch.randn(4, S, nkv, hd, generator=g, device=cuda).to(dtype)
-    q = torch.randn(4, nq, hd, generator=g, device=cuda).to(dtype)
-    kv_len = torch.tensor([0, 1, 177, S], dtype=torch.int32, device=cuda)
-    out = ops.decode_attention(q, kc, vc, kv_len)
-    ref = ops.decode_attention_reference(q, kc, vc, kv_len)
-    assert out.dtype == dtype and bool((out[0] == 0).all())
-    torch.testing.assert_close(out.float(), ref.float(),
-                               **(BF16_TOL if dtype == torch.bfloat16 else F32_TOL))
+    for B, S, lens in SPLIT_T1_SHAPES:
+        kc = torch.randn(B, S, nkv, hd, generator=g, device=cuda).to(dtype)
+        vc = torch.randn(B, S, nkv, hd, generator=g, device=cuda).to(dtype)
+        q = torch.randn(B, nq, hd, generator=g, device=cuda).to(dtype)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        _check_split_t1(lambda: ops.decode_attention(q, kc, vc, kv_len), ops.decode_attention,
+                        ops.decode_attention_reference(q, kc, vc, kv_len), kv_len,
+                        BF16_TOL if dtype == torch.bfloat16 else F32_TOL, monkeypatch)
 
 
 @pytest.mark.gpu
@@ -317,19 +346,19 @@ def test_quant_paged_kernels_match_plain(cuda, tier, hd, nq, nkv, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)])
 @pytest.mark.parametrize("hd,nq,nkv", QUANT_SHAPES)
 @pytest.mark.parametrize("tier", ["int8", "int4"])
-def test_decode_attention_quant_matches_plain(cuda, tier, hd, nq, nkv, dtype, tol):
-    """K10 on a dense quantized cache: S not a multiple of the tile, kv_len
-    0 (zeros), 1, ragged and S."""
+def test_decode_attention_quant_matches_plain(cuda, tier, hd, nq, nkv, dtype, tol, monkeypatch):
+    """K10 on a dense quantized cache at ``SPLIT_T1_SHAPES`` and at
+    tinyllama-1.1b's (1, 2048) cache at kv_len 944."""
     g = torch.Generator(device=cuda).manual_seed(hd)
-    S = 300
-    kc, vc, ks, vs = _quant_pool(g, (4, S, nkv, hd), tier)
-    q = torch.randn(4, nq, hd, generator=g, device=cuda).to(dtype)
-    kv_len = torch.tensor([0, 1, 177, S], dtype=torch.int32, device=cuda)
     bits = 8 if tier == "int8" else 4
-    out = ops.decode_attention_quant(q, kc, vc, ks, vs, kv_len, bits=bits)
-    ref = ops.decode_attention_quant_reference(q, kc, vc, ks, vs, kv_len, bits=bits)
-    assert bool((out[0] == 0).all())
-    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    for B, S, lens in SPLIT_T1_SHAPES + [(1, 2048, [944])]:
+        kc, vc, ks, vs = _quant_pool(g, (B, S, nkv, hd), tier)
+        q = torch.randn(B, nq, hd, generator=g, device=cuda).to(dtype)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        _check_split_t1(lambda: ops.decode_attention_quant(q, kc, vc, ks, vs, kv_len, bits=bits),
+                        ops.decode_attention_quant,
+                        ops.decode_attention_quant_reference(q, kc, vc, ks, vs, kv_len, bits=bits),
+                        kv_len, tol, monkeypatch)
 
 
 @pytest.mark.gpu

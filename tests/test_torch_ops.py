@@ -96,16 +96,18 @@ def test_decode_attention_layer_matches_pallas(hd):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("hd,nq,nkv", [(16, 4, 4), (64, 4, 2)])
+@pytest.mark.parametrize("hd,nq,nkv", [(16, 4, 4), (64, 4, 2), (64, 20, 20)])
 def test_decode_attention_matches_pallas(dtype, hd, nq, nkv):
     """The flat cache: S = 300 (the JAX wrapper pads it to its 256-key
     block), kv_len 0 (zeros, as the kernel's ``acc / (l or 1)``), 1, ragged
-    and S; MHA at the in-repo Whisper checkpoints' head dim 16, GQA at 64."""
+    and S; MHA at the in-repo Whisper checkpoints' head dim 16, GQA at 64;
+    and whisper-large-v3's 20 heads of 64 over its 500 encoder frames, at
+    the decoder's self-attention length 33 and the full cross-attention."""
     rng = np.random.default_rng(hd + nkv)
-    B, S = 4, 300
+    B, S = 4, (500 if nq == 20 else 300)
     kc, vc = (_pair(_np(rng, B, S, nkv, hd), dtype) for _ in range(2))
     q = _pair(_np(rng, B, nq, hd), dtype)
-    kv_len = np.array([0, 1, 137, S], np.int32)
+    kv_len = np.array([0, 33 if nq == 20 else 1, 137, S], np.int32)
     out_j = jops.decode_attention(q[0], kc[0], vc[0], jnp.asarray(kv_len))
     out_t = ops.decode_attention(q[1], kc[1], vc[1], torch.from_numpy(kv_len))
     assert out_t.dtype == q[1].dtype and bool((out_t[0] == 0).all())

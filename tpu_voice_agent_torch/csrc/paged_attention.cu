@@ -1,6 +1,6 @@
 // K6 and K7: decode attention through block tables into a paged KV pool
 // (L, N, bs, nkv, hd) bf16; q/o bf16 or fp32, arithmetic in fp32. The template
-// body is in decode_attention.cuh (PAGED = true).
+// body is in decode_attention.cuh.
 //
 // Replaces: tpu_voice_agent/ops/paged_attention.py
 //   K6 `paged_attention` (`_paged_kernel`; pallas_call at :147): one query
@@ -37,7 +37,7 @@ extern "C" int tva_paged_attention(const void* q, const void* kc, const void* vc
                                    int max_blocks, int bs, int nq, int nkv, int hd, float scale,
                                    int dtype, void* stream) {
   if (max_blocks <= 0 || table == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(q, kc, vc, kv_len, nullptr, table, bs, o, B, 1, max_blocks * bs, nq, nkv,
+  return dispatch(q, kc, vc, kv_len, nullptr, table, bs, o, B, 1, max_blocks * bs, nq, nkv,
                         hd, scale, dtype, stream);
 }
 
@@ -48,6 +48,6 @@ extern "C" int tva_paged_block_attention(const void* q, const void* kc, const vo
                                          int B, int T, int max_blocks, int bs, int nq, int nkv,
                                          int hd, float scale, int dtype, void* stream) {
   if (max_blocks <= 0 || table == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(q, kc, vc, nullptr, q_positions, table, bs, o, B, T, max_blocks * bs, nq,
+  return dispatch(q, kc, vc, nullptr, q_positions, table, bs, o, B, T, max_blocks * bs, nq,
                         nkv, hd, scale, dtype, stream);
 }

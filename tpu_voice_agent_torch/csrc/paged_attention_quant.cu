@@ -2,8 +2,8 @@
 // KV pool (KV_QUANT=int8|int4): values (L, N, bs, nkv, hdp) int8, hdp = hd
 // (int8) or hd / 2 (two int4 values a byte), with bf16 scale planes
 // (L, N, bs, nkv) indexed like the pool; q/o bf16 or fp32, arithmetic in
-// fp32. The template body is in decode_attention.cuh (PAGED = true, the
-// quantized tile loader).
+// fp32. The template body is in decode_attention.cuh (the quantized
+// tile loader of kv_chunk.cuh).
 //
 // Replaces: tpu_voice_agent/ops/paged_attention.py
 //   K8 `paged_attention_quant` (`_paged_kernel_quant`; pallas_call at :333):
@@ -38,7 +38,7 @@ extern "C" int tva_paged_attention_quant(const void* q, const void* kc, const vo
                                          int bs, int nq, int nkv, int hd, float scale, int bits,
                                          int dtype, void* stream) {
   if (max_blocks <= 0 || table == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch_quant<true, false>(q, kc, vc, ksc, vsc, kv_len, nullptr, table, bs, o, B, 1,
+  return dispatch_quant(q, kc, vc, ksc, vsc, kv_len, nullptr, table, bs, o, B, 1,
                                      max_blocks * bs, nq, nkv, hd, scale, bits, dtype, stream);
 }
 
@@ -51,6 +51,6 @@ extern "C" int tva_paged_block_attention_quant(const void* q, const void* kc, co
                                                int nkv, int hd, float scale, int bits, int dtype,
                                                void* stream) {
   if (max_blocks <= 0 || table == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch_quant<true, false>(q, kc, vc, ksc, vsc, nullptr, q_positions, table, bs, o, B,
+  return dispatch_quant(q, kc, vc, ksc, vsc, nullptr, q_positions, table, bs, o, B,
                                      T, max_blocks * bs, nq, nkv, hd, scale, bits, dtype, stream);
 }

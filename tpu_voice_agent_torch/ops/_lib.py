@@ -27,7 +27,7 @@ CSRC = PACKAGE_DIR / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "decode_block_attention.cu",
            "paged_attention.cu", "grammar_mask.cu", "paged_attention_quant.cu",
            "decode_attention_quant.cu", "grouped_matmul.cu")
-HEADERS = ("common.cuh", "decode_attention.cuh", "mma.cuh")
+HEADERS = ("common.cuh", "kv_chunk.cuh", "decode_split.cuh", "decode_attention.cuh", "mma.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 48, 64, 128)
@@ -38,8 +38,10 @@ QUANT_HEAD_DIMS = (32, 48, 64)
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 # per device: the int32 ticket counters of the kernels whose last block
-# merges the others' partials (K2 / K3 / K12, K13's split-K)
+# merges the others' partials (K2 / K3 / K5 / K10 / K12, K13's split-K), and
+# the fp32 scratch the split-key attention kernels write those partials to
 TICKETS: dict = {}
+SCRATCH: dict = {}
 # filled by build(): {"seconds": float, "cached": bool, "path": str, "log": str}
 BUILD_INFO: dict = {}
 
@@ -108,8 +110,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     sigs = {
         # q, k, v, o, B, T, S, nq, nkv, hd, kv_len, causal, scale, dtype, stream
         "tva_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
-        # q, k cache, v cache, kv_len, o, B, S, nq, nkv, hd, scale, dtype, stream
-        "tva_decode_attention": [P, P, P, P, P, I, I, I, I, I, F, I, P],
+        # q, k cache, v cache, kv_len, o, partials, tickets, B, S, nq, nkv, hd, chunk,
+        # key_sets, scale, dtype, stream
+        "tva_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, kv_len, o, partials, tickets, B, S, nq, nkv, hd, chunk, scale,
         # dtype, stream
         "tva_decode_attention_layer": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
@@ -132,9 +135,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # bs, nq, nkv, hd, scale, bits, dtype, stream
         "tva_paged_block_attention_quant": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
                                             P],
-        # q, k cache, v cache, k scales, v scales, kv_len, o, B, S, nq, nkv, hd, scale, bits,
-        # dtype, stream
-        "tva_decode_attention_quant": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, I, P],
+        # q, k cache, v cache, k scales, v scales, kv_len, o, partials, tickets, B, S, nq,
+        # nkv, hd, chunk, key_sets, scale, bits, dtype, stream
+        "tva_decode_attention_quant": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
+                                       P],
         # logits, state, mask, table, col_id, tok, next, B, V, C, stream
         "tva_masked_argmax_advance": [P, P, P, P, P, P, P, I, I, I, P],
         # logits, state, mask, tok, R, V, stream
@@ -170,6 +174,19 @@ def tickets(device, n: int):
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         TICKETS[device] = t
+    return t
+
+
+def scratch(device, n: int):
+    """The device's fp32 scratch, at least n floats, grown on demand and
+    reused by every launch: a launch writes and reads back its partials
+    before it ends, so launches on one stream at a time share it."""
+    import torch
+
+    t = SCRATCH.get(device)
+    if t is None or t.numel() < n:
+        t = torch.empty(max(n, 1 << 16), dtype=torch.float32, device=device)
+        SCRATCH[device] = t
     return t
 
 

@@ -1,7 +1,8 @@
 """K5 / K2 / K3 / K12: decode attention against a KV cache (CUDA: K5 in
 ``csrc/decode_attention.cu``, K2, K3 and K12 in
 ``csrc/decode_block_attention.cu``); K10: against a quantized cache
-(``csrc/decode_attention_quant.cu``).
+(``csrc/decode_attention_quant.cu``). All five run one split-key body,
+``csrc/decode_split.cuh``.
 
 Port of ``decode_attention``, ``decode_attention_layer``,
 ``decode_block_attention_layer``, ``decode_block_attention`` and
@@ -12,6 +13,8 @@ Pallas tile size ``block_k`` and ``interpret`` dropped).
 - K5 (T = 1, flat ``(B, S, nkv, hd)`` cache, bf16 or fp32): query b attends
   slots ``[0, kv_len[b])``; the Whisper decoder's self- and cross-attention.
   S needs no padding to a tile multiple; a row with kv_len 0 gets zeros.
+  K2's split body on the flat cache; at a group of at most 2 (Whisper's
+  is 1) warp sets take key tiles side by side (``key_sets``).
 - K2 (T = 1) on the stacked ``(L, B, S, nkv, hd)`` bf16 cache: the same on
   layer plane ``layer``, a Python int (``k_cache[layer]`` is a free
   contiguous view, so the kernel gets that plane's pointer). K3's split body
@@ -22,21 +25,24 @@ Pallas tile size ``block_k`` and ``interpret`` dropped).
   keys, one block each; the last block of each group of 8 splits to finish
   merges the group, and the last group merger merges the groups, each in
   a fixed order: one launch, the same bits run to run. The wrapper hands
-  it fp32 scratch (``torch.empty``) and the device's ticket counters
-  (``_lib.tickets``), which the kernel leaves at 0.
+  it the device's fp32 scratch (``_lib.scratch``, grown on demand) and
+  ticket counters (``_lib.tickets``, which the kernel leaves at 0), so a
+  call allocates nothing beyond its output.
 - K12 (T <= 16) on a flat ``(B, S, nkv, hd)`` bf16 cache: K3's function and
   body on one cache, as the JAX package's ``decode_block_attention`` (which
   only its tests call; no engine here calls it either).
 - K10 (T = 1, a flat ``(B, S, nkv, hdp)`` int8 cache with ``(B, S, nkv)``
   bf16 scales, int8 or packed int4 as ``ops.kvquant`` stores them): K5 over
   the quantized cache. No engine calls it (none in the JAX package either);
-  it is the dense instantiation of K8's tile loader.
+  K5's split body with K8's quantized tile loader.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors, and only then.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -48,6 +54,7 @@ from ._lib import (
     library,
     require,
     require_cuda,
+    scratch,
     stream_of,
     tickets,
 )
@@ -56,37 +63,62 @@ from .kvquant import dequantize_kv, kv_quant_of_bits
 _NEG_INF = -1e30
 MAX_BLOCK_T = 16
 MAX_GROUP = 16
-# K3 / K12 (and K2 at T = 1) split the key range into chunks of whole 32-key tiles: about two
-# blocks per SM of the H100's 132 when every key of the cache is live. The
-# merge runs in groups of 8 splits, at most 8 groups; scratch entries and
-# ticket counters per (row, kv head) follow (csrc/decode_block_attention.cu
-# GROUP, MAX_SPLITS, TICKETS_PER_SLOT).
+# The split body (K2, K3, K5, K10, K12) splits the key range into chunks of
+# whole 32-key tiles: about two blocks per SM of the H100's 132 when every
+# key of the cache is live. The merge runs in groups of 8 splits, at most 8
+# groups; scratch entries and ticket counters per (row, kv head) follow
+# (csrc/decode_split.cuh GROUP, MAX_SPLITS, TICKETS_PER_SLOT).
 SPLIT_BLOCKS = 264
 MERGE_GROUP = 8
 MAX_SPLITS = MERGE_GROUP * MERGE_GROUP
 TICKETS_PER_SLOT = 1 + MERGE_GROUP
+# K5 / K10's warps-on-keys instantiation (csrc/decode_split.cuh KEY_SETS,
+# KEY_SET_WARPS, KEY_SETS_MAX_HD): a block of 8 warps in 4 sets of 2, each
+# set taking every 4th tile of a split, for at most 2 query rows and a head
+# dim of at most 64
+KEY_SETS = 4
+KEY_SET_WARPS = 8
+KEY_SETS_MAX_HD = 64
 
 
 def key_chunk(B: int, S: int, nkv: int) -> int:
-    """Keys per split of K3 / K12 / K2, from the shapes alone (no device read):
-    32 at one tinyllama-1.1b row (S 2048, 4 kv heads: 64 splits), 64 at
-    mixtral-8x7b's 8 kv heads, 256 at 8 rows."""
+    """Keys per split of the split body, from the shapes alone (no device
+    read): 32 at one tinyllama-1.1b row (S 2048, 4 kv heads: 64 splits), 64
+    at mixtral-8x7b's 8 kv heads and at whisper-large-v3's 20 heads over 500
+    encoder frames, 256 at 8 rows."""
     splits = max(1, min(MAX_SPLITS, SPLIT_BLOCKS // (B * nkv)))
     chunk = -(-S // splits)
     return -(-chunk // 32) * 32
 
 
-def _split_scratch(name, q, k_plane, v_plane, B, T, S, nq, nkv, hd):
-    """The split body's chunk, fp32 scratch and ticket counters for a
-    (B, T) block of queries over one (B, S, nkv, hd) bf16 plane."""
-    require(all(t.data_ptr() % 16 == 0 for t in (q, k_plane, v_plane)), name,
-            "q and the cache must be 16-byte aligned")
+def key_sets(group: int, chunk: int, hd: int) -> int:
+    """Warp sets of a T = 1 launch of K5 / K10: ``KEY_SETS`` where a split
+    holds more than one tile and a kv head has at most KEY_SET_WARPS /
+    KEY_SETS query rows (Whisper's group of 1 leaves 15 of K2's 16 warps
+    without a row), else 1, the one-row-per-warp body K2 runs."""
+    if group * KEY_SETS <= KEY_SET_WARPS and chunk > 32 and hd <= KEY_SETS_MAX_HD:
+        return KEY_SETS
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(B: int, T: int, S: int, nq: int, nkv: int, hd: int) -> tuple[int, int, int]:
+    """The chunk, the fp32 scratch floats and the ticket counters of one
+    launch of the split body."""
     chunk = key_chunk(B, S, nkv)
     splits = -(-S // chunk)
     entries = splits + -(-splits // MERGE_GROUP)
-    part = torch.empty(B * nkv * entries * T * (nq // nkv) * (hd + 2), dtype=torch.float32,
-                       device=q.device)
-    return chunk, part, tickets(q.device, B * nkv * TICKETS_PER_SLOT)
+    return chunk, B * nkv * entries * T * (nq // nkv) * (hd + 2), B * nkv * TICKETS_PER_SLOT
+
+
+def _split_scratch(name, q, k_plane, v_plane, B, T, S, nq, nkv, hd):
+    """The split body's chunk, fp32 scratch and ticket counters for a
+    (B, T) block of queries over one (B, S, nkv, hd) plane: the device's
+    shared buffers, no allocation per call."""
+    require(all(t.data_ptr() % 16 == 0 for t in (q, k_plane, v_plane)), name,
+            "q and the cache must be 16-byte aligned")
+    chunk, floats, counters = _split_plan(B, T, S, nq, nkv, hd)
+    return chunk, scratch(q.device, floats), tickets(q.device, counters)
 
 
 def _block_attention(name, entry, q, k_plane, v_plane, q_positions, S, nkv, scale):
@@ -146,10 +178,12 @@ def decode_attention(
     require(q.dtype == k_cache.dtype == v_cache.dtype, name, "q, k and v must share one dtype")
     require(kv_len.dtype == torch.int32 and kv_len.shape == (B,), name,
             "kv_len must be (B,) int32")
+    chunk, part, counters = _split_scratch(name, q, k_cache, v_cache, B, 1, S, nq, nkv, hd)
     out = torch.empty_like(q)
     err = library().tva_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), B, S, nq, nkv, hd, float(scale), dtype_code(name, q), stream_of(q))
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, S, nq, nkv, hd, chunk,
+        key_sets(nq // nkv, chunk, hd), float(scale), dtype_code(name, q), stream_of(q))
     check(err, name)
     decode_attention.launches += 1
     return out
@@ -288,11 +322,13 @@ def decode_attention_quant(
             f"need nq % nkv == 0 and a group of at most {MAX_GROUP}")
     require(kv_len.dtype == torch.int32 and kv_len.shape == (B,), name,
             "kv_len must be (B,) int32")
+    chunk, part, counters = _split_scratch(name, q, k_cache, v_cache, B, 1, S, nq, nkv, hd)
     out = torch.empty_like(q)
     err = library().tva_decode_attention_quant(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), kv_len.data_ptr(), out.data_ptr(), B, S, nq, nkv, hd, float(scale),
-        bits, dtype_code(name, q), stream_of(q))
+        v_scale.data_ptr(), kv_len.data_ptr(), out.data_ptr(), part.data_ptr(),
+        counters.data_ptr(), B, S, nq, nkv, hd, chunk, key_sets(nq // nkv, chunk, hd),
+        float(scale), bits, dtype_code(name, q), stream_of(q))
     check(err, name)
     decode_attention_quant.launches += 1
     return out
