@@ -11,8 +11,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
 3. kernels  - each kernel at the main path's shapes against its plain PyTorch
               version on the card: max abs error vs a stated tolerance, kernel
               / plain / library ms, and the least time the card could take;
-              first (``digest``) the SHA-256 of K5's, K3's and K1's outputs on
-              seeded inputs, so two builds can be held to the same bits.
+              first (``digest``) the SHA-256 of K1's, K2's, K3's, K5's, K6's,
+              K8's and (fp32 queries) K7's and K9's outputs on seeded inputs,
+              so two builds can be held to the same bits, and K5's, K7's and
+              K9's bf16 outputs held equal over two calls.
 4. service  - the port's brain service in-process on an ephemeral port with
               BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 (ff 8, the
               cached prompt prefix), answering /parse requests with bench.py's
@@ -717,11 +719,13 @@ def phase_digest(report: dict) -> dict:
     path's shapes: K5 (large-v3's cross-attention in bf16, the checkpoints'
     fp32 hd-16 cache), K3 (tinyllama's (1, 9) chain block), K1 (a causal
     bf16 prefix block, the checkpoints' fp32 encoder block), K2 (tinyllama's
-    T = 1 step at frontier 943) and K7 (a (4, 9) fast-forward block over a
-    paged pool with a shared prefix). The same digests from two builds mean
-    the same bits; K5's must also be the same from two calls. Only wrappers
-    with the same signature in every slice are called, so the script runs
-    against an earlier checkout of the package too."""
+    T = 1 step at frontier 943), and over a paged pool with a shared prefix
+    K6 and K8 (int8, int4) at T = 1 and K7 / K9 with fp32 queries on a
+    (4, 9) fast-forward block. The same digests from two builds mean the
+    same bits. K5's, and K7's and K9's bf16 (4, 9) outputs (their split
+    bodies), must be the same from two calls. Only wrappers with the same
+    signature in every slice are called, so the script runs against an
+    earlier checkout of the package too."""
     import hashlib
 
     import torch
@@ -769,8 +773,31 @@ def phase_digest(report: dict) -> dict:
     kp, vp = randn(2, n_blocks, 128, 4, 64), randn(2, n_blocks, 128, 4, 64)
     qpos = torch.tensor([[n - 10 + min(i, c) for i in range(9)] for n, c in
                          zip(lens, (0, 3, 5, 8))], dtype=torch.int32, device=dev)
+    q9p = randn(4, 9, 32, 64)
     out["paged_block_attention (4, 9)"] = digest(ops.paged_block_attention(
-        randn(4, 9, 32, 64), kp, vp, tables, qpos, 1))
+        q9p, kp, vp, tables, qpos, 1))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q1p = randn(4, 32, 64)
+    out["paged_attention (4,)"] = digest(ops.paged_attention(q1p, kp, vp, tables, kv_len, 1))
+    out["paged_block_attention fp32 (4, 9)"] = digest(ops.paged_block_attention(
+        q9p.float(), kp, vp, tables, qpos, 1))
+    twice = {"paged_block_attention (4, 9)": lambda: ops.paged_block_attention(
+        q9p, kp, vp, tables, qpos, 1)}
+    for tier, bits in (("int8", 8), ("int4", 4)):
+        kq, ks = _quant_values(g, (2, n_blocks, 128, 4, 64), tier)
+        vq, vs = _quant_values(g, (2, n_blocks, 128, 4, 64), tier)
+        out[f"paged_attention_quant {tier} (4,)"] = digest(ops.paged_attention_quant(
+            q1p, kq, vq, ks, vs, tables, kv_len, 1, bits=bits))
+        out[f"paged_block_attention_quant {tier} fp32 (4, 9)"] = digest(
+            ops.paged_block_attention_quant(q9p.float(), kq, vq, ks, vs, tables, qpos, 1,
+                                            bits=bits))
+        key = f"paged_block_attention_quant {tier} (4, 9)"
+        twice[key] = (lambda kq=kq, vq=vq, ks=ks, vs=vs, bits=bits:
+                      ops.paged_block_attention_quant(q9p, kq, vq, ks, vs, tables, qpos, 1,
+                                                      bits=bits))
+        out[key] = digest(twice[key]())
+    for key, fn in twice.items():
+        fail_if(digest(fn()) != out[key], f"digest: {key} differs between two calls")
     for key, d in out.items():
         log(f"[digest] {key}: {d}")
     report["digest"] = out
@@ -913,9 +940,11 @@ def _paged_kernel_rows(g, randn) -> dict:
     pool (22 layers, 513 blocks of 128, 4 kv heads of 64, bf16), the cached
     prefix's 6 full blocks shared by every row, ragged kv_len 900-1050 for
     K6; K7 a (32, 9) fast-forward block per row with its own chain length
-    (positions padded with duplicates, as chain_block pads them). Also block
-    sizes 16, 32 and 64 on a 2-layer pool. The library yardstick is SDPA on a
-    pre-gathered contiguous copy (the gather is not timed)."""
+    (positions padded with duplicates, as chain_block pads them), also the
+    (32, 5) spec verify block, mixtral-8x7b's (8, 9) drain block
+    (``_paged_moe_row``) and one split a (row, kv head) (``one_split_ms``).
+    Also block sizes 16, 32 and 64 on a 2-layer pool. The library yardstick
+    is SDPA on a pre-gathered contiguous copy (the gather is not timed)."""
     import torch
     import torch.nn.functional as F
 
@@ -993,8 +1022,103 @@ def _paged_kernel_rows(g, randn) -> dict:
         io7 + float(keys7.sum()) * kv_row, 4 * nq * hd * float((qpos + 1).sum()))[0]
     rows["paged_block_attention"]["shape"] = (
         "(32, 9) blocks, chains of 0-8 padded with duplicates, over the same pool and tables")
+    # bf16 queries run the split body, merged in a fixed order: the same bits
+    # from run to run
+    fail_if(not torch.equal(pairs7[0][0], ops.paged_block_attention(q9, kp, vp, tables, qpos, li)),
+            "paged_block_attention: two calls on the same inputs differ")
+    rows["paged_block_attention"]["deterministic"] = True
+    # the spec verify step: [cur, 4 drafts] over the same pool
+    q5, qpos5 = q9[:, :5].contiguous(), (kv_len[:, None] - 5 + iw[:, :5]).to(torch.int32)
+    mask5 = (s_idx[None, None, :] <= qpos5[:, :, None])[:, None]
+    keys5 = qpos5.amax(dim=1) + 1
+    rows["paged_block_attention"]["spec"] = _extra_shape(
+        "the (32, 5) spec verify block over the same pool",
+        cuda_ms(lambda: ops.paged_block_attention(q5, kp, vp, tables, qpos5, li), iters=100),
+        cuda_ms(lambda: paged_block_attention_reference(q5, kp, vp, tables, qpos5, li)),
+        *bound(2 * 2 * B * 5 * nq * hd + 4 * qpos5.numel() + 4 * tables.numel()
+               + (shared + float((keys5 - shared).sum())) * kv_row,
+               4 * nq * hd * float((qpos5 + 1).sum())),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q5.transpose(1, 2), kh, vh,
+                                                       attn_mask=mask5), iters=100))
+    extra = [attn_err([(ops.paged_block_attention(q5, kp, vp, tables, qpos5, li),
+                        paged_block_attention_reference(q5, kp, vp, tables, qpos5, li))])]
+    rows["paged_block_attention"]["one_split_ms"] = _one_split_ms(
+        lambda: ops.paged_block_attention(q9, kp, vp, tables, qpos, li), pairs7[0][1])
     del kp, vp, kh, vh
+    rows["paged_block_attention"]["mixtral"], moe_err = _paged_moe_row(g, randn, lens)
+    extra.append(moe_err)
+    k7 = rows["paged_block_attention"]
+    for err, ratio in extra:
+        fail_if(not ratio <= 1.0, f"paged_block_attention: error {ratio:.3g}x its tolerance "
+                f"{ATTN_TOL} (max abs err {err})")
+        k7["max_abs_err"], k7["err_over_tol"] = (max(k7["max_abs_err"], err),
+                                                 max(k7["err_over_tol"], ratio))
     return rows
+
+
+def _one_split_ms(fn, ref) -> float | None:
+    """K7 / K9 timed with one split a (batch row, kv head), the whole key
+    range in one block, beside the split body's chunks: what splitting the
+    keys across the card buys. The output is held to the plain version."""
+    import importlib
+
+    pa = importlib.import_module("tpu_voice_agent_torch.ops.paged_attention")
+    picked = getattr(pa, "paged_key_chunk", None)
+    if picked is None:  # an earlier checkout of the package: one body only
+        return None
+    pa.paged_key_chunk = lambda B, S, nkv: -(-S // 64) * 64
+    pa._paged_plan.cache_clear()
+    try:
+        _, ratio = attn_err([(fn(), ref)])
+        fail_if(not ratio <= 1.0, f"one split: error {ratio:.3g}x its tolerance")
+        ms = cuda_ms(fn, iters=100)
+    finally:
+        pa.paged_key_chunk = picked
+        pa._paged_plan.cache_clear()
+    log(f"[kernels]   with one split a (row, kv head): {ms:.5f} ms")
+    return ms
+
+
+def _paged_moe_row(g, randn, lens) -> tuple[dict, tuple[float, float]]:
+    """K7 at mixtral-8x7b's 8-slot paged drain: (8, 9) chain blocks, 32/8
+    heads of 128, bf16, over a one-layer pool of blocks of 128 with the
+    prefix's 6 blocks shared, the batch rows' first 8 lengths. Returns the
+    timing row and the (max abs error, share of tolerance) pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import paged_block_attention_reference
+    from tpu_voice_agent_torch.ops.paged_attention import gather_pages
+
+    dev = torch.device("cuda")
+    B, nq, nkv, hd, bs = 8, 32, 8, 128, 128
+    lens8 = lens[:B]
+    tables, N = _paged_tables(g, B, 6, lens8, bs, 16)
+    kp, vp = randn(1, N, bs, nkv, hd), randn(1, N, bs, nkv, hd)
+    kv_len = lens8.to(torch.int32).to(dev)
+    chain = torch.randint(0, 9, (B,), generator=torch.Generator().manual_seed(8)).to(dev)
+    iw = torch.arange(9, device=dev)[None, :]
+    qpos = (kv_len[:, None] - 10 + torch.minimum(iw, chain[:, None])).to(torch.int32)
+    q = randn(B, 9, nq, hd)
+    out = ops.paged_block_attention(q, kp, vp, tables, qpos, 0)
+    ref = paged_block_attention_reference(q, kp, vp, tables, qpos, 0)
+    S = tables.shape[1] * bs
+    kh = gather_pages(kp, tables, 0).transpose(1, 2).repeat_interleave(nq // nkv, 1)
+    vh = gather_pages(vp, tables, 0).transpose(1, 2).repeat_interleave(nq // nkv, 1)
+    mask = (torch.arange(S, device=dev)[None, None, :] <= qpos[:, :, None])[:, None]
+    keys = qpos.amax(dim=1) + 1
+    shared = 6 * bs
+    row = _extra_shape(
+        "mixtral-8x7b's 8-slot drain: (8, 9) blocks, 32/8 heads of 128, one pool layer",
+        cuda_ms(lambda: ops.paged_block_attention(q, kp, vp, tables, qpos, 0), iters=100),
+        cuda_ms(lambda: paged_block_attention_reference(q, kp, vp, tables, qpos, 0)),
+        *bound(2 * 2 * B * 9 * nq * hd + 4 * qpos.numel() + 4 * tables.numel()
+               + (shared + float((keys - shared).sum())) * 2 * nkv * hd * 2,
+               4 * nq * hd * float((qpos + 1).sum())),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kh, vh,
+                                                       attn_mask=mask), iters=100))
+    return row, attn_err([(out, ref)])
 
 
 # K13 at mixtral-8x7b's widths (8 experts, top-2, dim 4096, ffn 14336): the
@@ -1173,7 +1297,8 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
     distilled checkpoint's head dim 48 at int4, whose 24-byte rows start
     off a 16-byte boundary (4 heads, 2 kv heads, blocks of 16 and 128). The
     library yardstick is SDPA on a pre-gathered, pre-dequantized bf16 copy
-    (neither timed), as the K6 / K7 rows have it."""
+    (neither timed), as the K6 / K7 rows have it. K9 also at the (32, 5) spec
+    verify block and with one split a (row, kv head) (``one_split_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1202,12 +1327,17 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
     iw = torch.arange(9, device=dev)[None, :]
     qpos = (kv_len[:, None] - 10 + torch.minimum(iw, chain[:, None])).to(torch.int32)
     q, q9 = randn(B, nq, hd), randn(B, 9, nq, hd)
+    # the spec verify step: [cur, 4 drafts]
+    q5, qpos5 = q9[:, :5].contiguous(), (kv_len[:, None] - 5 + iw[:, :5]).to(torch.int32)
     S = tables.shape[1] * bs
     s_idx = torch.arange(S, device=dev)
     mask8 = (s_idx[None, :] < kv_len[:, None])[:, None, None, :]
     mask9 = (s_idx[None, None, :] <= qpos[:, :, None])[:, None]
+    mask5 = (s_idx[None, None, :] <= qpos5[:, :, None])[:, None]
     shared = 6 * bs
     keys9 = qpos.amax(dim=1) + 1
+    keys5 = qpos5.amax(dim=1) + 1
+    io5 = 2 * 2 * B * 5 * nq * hd + 4 * qpos5.numel() + 4 * tables.numel()
     io8 = 2 * 2 * B * nq * hd + 4 * B + 4 * tables.numel()
     io9 = 2 * 2 * B * 9 * nq * hd + 4 * qpos.numel() + 4 * tables.numel()
 
@@ -1231,7 +1361,16 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
         p9 = lambda: paged_block_attention_quant_reference(q9, kp, vp, ks, vs, tables, qpos, li,
                                                            bits=bits)
         errs["8"].append((k8(), p8()))
-        errs["9"].append((k9(), p9()))
+        ref9 = p9()
+        errs["9"].append((k9(), ref9))
+        # bf16 queries run the split body: the same bits from run to run
+        fail_if(not torch.equal(k9(), k9()),
+                f"paged_block_attention_quant ({tier}): two calls on the same inputs differ")
+        k9s = lambda: ops.paged_block_attention_quant(q5, kp, vp, ks, vs, tables, qpos5, li,
+                                                      bits=bits)
+        p9s = lambda: paged_block_attention_quant_reference(q5, kp, vp, ks, vs, tables, qpos5,
+                                                            li, bits=bits)
+        errs["9"].append((k9s(), p9s()))
         kh = gather_pages_dequant(kp, ks, tables, li, bits).to(torch.bfloat16)
         vh = gather_pages_dequant(vp, vs, tables, li, bits).to(torch.bfloat16)
         kh = kh.transpose(1, 2).repeat_interleave(group, 1)
@@ -1247,7 +1386,13 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
                    *bound(io9 + (shared + float((keys9 - shared).sum())) * kv_row,
                           4 * nq * hd * float((qpos + 1).sum())),
                    cuda_ms(lambda: F.scaled_dot_product_attention(
-                       q9.transpose(1, 2), kh, vh, attn_mask=mask9), iters=100))}
+                       q9.transpose(1, 2), kh, vh, attn_mask=mask9), iters=100)),
+             "9s": (cuda_ms(k9s, iters=100), cuda_ms(p9s, iters=5),
+                    *bound(io5 + (shared + float((keys5 - shared).sum())) * kv_row,
+                           4 * nq * hd * float((qpos5 + 1).sum())),
+                    cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q5.transpose(1, 2), kh, vh, attn_mask=mask5), iters=100)),
+             "one_split": _one_split_ms(k9, ref9)}
         del kp, vp, ks, vs, kh, vh
         # K10: a dense (1, 2048, 4, 64) cache
         kc, kcs = _quant_values(g, (1, 2048, nkv, hd), tier)
@@ -1317,6 +1462,12 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
                                + ", int8; hd 48 int4 and int8 checked on small pools")
         rows[name]["int4"] = _extra_shape(
             shapes[key].format(N=i4["pool_blocks"], **fmt) + ", int4", *i4[key])
+    k9 = rows["paged_block_attention_quant"]
+    k9["deterministic"] = True
+    for tier in ("int8", "int4"):
+        k9[f"spec_{tier}"] = _extra_shape(
+            f"the (32, 5) spec verify block over the same pool, {tier}", *timings[tier]["9s"])
+        k9[f"one_split_ms_{tier}"] = timings[tier]["one_split"]
     return rows
 
 

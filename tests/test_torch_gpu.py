@@ -646,3 +646,93 @@ def test_split_block_attention_counts_launches_and_refuses_bad_operands(cuda):
     with pytest.raises(ValueError, match="aligned"):
         ops.flash_attention(odd, odd, odd)
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+# ------------------------------------------------- K7 / K9's paged split body
+
+# (T, group) blocks: the spec step (1 + 4) and the ff=8 chain (9) at
+# tinyllama's group of 8, mixtral-8x7b's group of 4, a single query, and the
+# widest (T 16 at a group of 16: two launches of 128 rows)
+PAGED_BLOCKS = [(1, 1), (5, 8), (9, 8), (9, 4), (16, 16), (3, 16), (16, 1)]
+
+
+def _paged_split_case(cuda, B, T, group, nkv, hd, bs, seed):
+    """A pool of 2 layers over rows whose frontiers leave whole splits dead:
+    row 0 keyless (every position -1), row 1 at frontier 0, row 2 one key
+    short of a split edge, row 3 on it, the others ragged chains past a
+    shared prefix of 3 blocks' worth of keys; the positions of a row
+    unordered, with repeats. Returns (q, tables, positions, pool blocks)."""
+    from tpu_voice_agent_torch.ops.decode_attention import paged_key_chunk
+
+    S_max = 420
+    max_blocks = -(-S_max // bs)
+    S = max_blocks * bs
+    chunk = paged_key_chunk(B, S, nkv)
+    rng = np.random.default_rng(seed)
+    fronts = rng.integers(3 * 16, S_max, size=B)
+    for b, f in enumerate([0, chunk - 1, chunk]):
+        if b + 1 < B:
+            fronts[b + 1] = min(f, S_max - 1)
+    lens = torch.from_numpy(np.maximum(fronts + 1, 48))
+    shared = min(48 // bs, int(lens.min()) // bs)
+    tables, n = _paged_tables(B, lens, bs, max_blocks, shared, seed)
+    pos = np.stack([f - rng.permutation(np.minimum(np.arange(T), rng.integers(0, T)))
+                    for f in fronts]).astype(np.int32)
+    pos = np.maximum(pos, 0)
+    pos[0] = -1
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, T, group * nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    return q, tables.to(cuda), torch.from_numpy(pos).to(cuda), n, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+@pytest.mark.parametrize("T,group", PAGED_BLOCKS)
+def test_paged_block_split_matches_plain(cuda, T, group, bs):
+    """K7 with bf16 queries (the tensor-core split body) against its plain
+    version: T 1-16, groups 1-16, every block size the engine or the JAX
+    tests use, head dims 64 and (at groups up to 4) 128, with a keyless row
+    and frontiers that leave whole splits dead; the same bits on a second
+    call and the tickets back at 0."""
+    from tpu_voice_agent_torch.ops._lib import TICKETS
+
+    for hd, nkv in ((64, 2), (128, 2)) if group <= 4 else ((64, 2),):
+        B = 6
+        q, tables, pos, n, g = _paged_split_case(cuda, B, T, group, nkv, hd, bs,
+                                                 1000 * T + 10 * group + bs + hd)
+        kp = torch.randn(2, n, bs, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+        vp = torch.randn(2, n, bs, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+        out = ops.paged_block_attention(q, kp, vp, tables, pos, 1)
+        ref = ops.paged_block_attention_reference(q, kp, vp, tables, pos, 1)
+        assert out.dtype == torch.bfloat16 and bool((out[0] == 0).all())
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        assert torch.equal(out, ops.paged_block_attention(q, kp, vp, tables, pos, 1))
+        assert int(TICKETS[q.device].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+@pytest.mark.parametrize("hd", [32, 48, 64])
+def test_paged_block_quant_split_matches_plain(cuda, hd, tier, bs):
+    """K9 with bf16 queries (the split body, the stored integers widened to
+    bf16 and the scales folded after Q.K^T and before P.V) against its plain
+    version, which dequantizes to fp32: the (5, 8), (9, 8), (9, 4) and
+    (16, 16) blocks at every block size, a keyless row, dead splits; the
+    same bits on a second call and the tickets back at 0."""
+    from tpu_voice_agent_torch.ops._lib import TICKETS
+
+    bits = 8 if tier == "int8" else 4
+    for T, group in ((5, 8), (9, 8), (9, 4), (16, 16)):
+        B, nkv = 5, 2
+        q, tables, pos, n, g = _paged_split_case(cuda, B, T, group, nkv, hd, bs,
+                                                 100 * T + group + bs + hd + bits)
+        kp, vp, ks, vs = _quant_pool(g, (2, n, bs, nkv, hd), tier)
+        out = ops.paged_block_attention_quant(q, kp, vp, ks, vs, tables, pos, 1, bits=bits)
+        ref = ops.paged_block_attention_quant_reference(q, kp, vp, ks, vs, tables, pos, 1,
+                                                        bits=bits)
+        assert bool((out[0] == 0).all())
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        assert torch.equal(out, ops.paged_block_attention_quant(q, kp, vp, ks, vs, tables, pos,
+                                                                1, bits=bits))
+        assert int(TICKETS[q.device].abs().sum()) == 0

@@ -1,5 +1,5 @@
-"""Design choices of the redesigned K1, K2, K3, K5, K10 and K13, checked on
-the CPU.
+"""Design choices of the redesigned K1, K2, K3, K5, K7, K9, K10 and K13,
+checked on the CPU.
 
 - K3 (``decode_block_attention_layer``), K2 (``decode_attention_layer``),
   K5 (``decode_attention``) and K10 (``decode_attention_quant``) run one
@@ -22,6 +22,13 @@ the CPU.
   fp32 arithmetic does, which is enough to move bf16 decoding that reads
   the prefix. The emulation below repeats the kernel's rounding of P in
   float64 sums; the card's own check is ``chip_smoke.py``'s kernels phase.
+- K7 (``paged_block_attention``) and K9 (``paged_block_attention_quant``)
+  with bf16 queries run the paged split body: chunks of whole 64-key tiles
+  picked from the shapes (``paged_key_chunk``) so that the engines' rows
+  leave at least two live blocks an SM, products on bf16 tensor cores (K9:
+  the stored integers, the scales after Q.K^T and before P.V), P in three
+  bf16 parts, and the dense bodies' merge. The emulation below repeats that
+  arithmetic in float32 with exact products.
 """
 
 import numpy as np
@@ -32,10 +39,13 @@ from tpu_voice_agent_torch.ops.decode_attention import (
     KEY_SETS,
     MAX_SPLITS,
     MERGE_GROUP,
+    PAGED_LIVE_BLOCKS,
+    PAGED_TILE,
     SPLIT_BLOCKS,
     decode_attention_reference,
     key_chunk,
     key_sets,
+    paged_key_chunk,
 )
 from tpu_voice_agent_torch.ops.grouped_matmul import MAX_SPLITK, STAGE_DEPTH, split_depth
 
@@ -270,3 +280,180 @@ def test_flash_attention_p_in_three_bf16_parts():
     # three parts leave no more outputs off the plain version's than exact
     # fp32 p does; two parts leave several times as many
     assert off[3] <= 1.5 * off[0] + 5 and off[2] > 3 * off[0]
+
+
+# ------------------------------------------------- K7 / K9's paged split body
+
+# frontiers of the paged engines' rows: the 879-token prompt prefix plus up to
+# ~170 tokens of a parse, in tables of 2,048 positions (16 blocks of 128)
+PAGED_FRONTIERS = (880, 1050)
+
+
+@pytest.mark.parametrize("B,nkv", [
+    (32, 4),  # the 32-slot batch drains (ff=8 and spec): tinyllama-1.1b
+    (15, 4),  # the 15-slot paged spec engine
+    (8, 8),  # mixtral-8x7b's 8-slot paged drain
+])
+def test_paged_key_chunk_fills_the_card_at_the_path_frontiers(B, nkv):
+    """The paged picker, from the shapes alone: whole 64-key tiles, at most
+    64 splits, and at least two live blocks an SM (splits holding a key the
+    row sees, times kv heads and rows) wherever the rows' frontiers lie in
+    the engines' range, the lowest frontier included."""
+    S = 2048
+    chunk = paged_key_chunk(B, S, nkv)
+    splits = -(-S // chunk)
+    assert chunk % PAGED_TILE == 0 and 1 <= splits <= MAX_SPLITS
+    for front in PAGED_FRONTIERS:
+        assert B * nkv * (front // chunk + 1) >= PAGED_LIVE_BLOCKS
+    # the split-key picker of the dense bodies left 128 live blocks at the
+    # batch's frontiers: one wave of 132 SMs
+    if B == 32:
+        assert B * nkv * (PAGED_FRONTIERS[0] // key_chunk(B, S, nkv) + 1) == 128
+        assert chunk == 320 and splits == 7
+
+
+@pytest.mark.parametrize("B,S,nkv", [(1, 32, 2), (4, 320, 2), (4, 1280, 2), (1, 100_000, 1),
+                                     (8, 1, 1), (64, 2048, 4), (1, 2048, 4)])
+def test_paged_key_chunk_is_whole_tiles_and_bounded(B, S, nkv):
+    chunk = paged_key_chunk(B, S, nkv)
+    assert chunk % PAGED_TILE == 0 and chunk >= PAGED_TILE
+    assert -(-S // chunk) <= MAX_SPLITS
+
+
+def _bf16_parts(x: np.ndarray, parts: int = 3) -> np.ndarray:
+    """float32 ``x`` as the sum of ``parts`` bf16 values, each the rounding
+    of what the ones before it left (csrc/mma.cuh split3_bf16), in float64."""
+    out, rest = np.zeros(x.shape, np.float64), torch.from_numpy(x.astype(np.float32))
+    for _ in range(parts):
+        part = rest.bfloat16().float()
+        out, rest = out + part.double().numpy(), rest - part
+    return out
+
+
+def _paged_split_emulation(q, k_rows, v_rows, k_scale, v_scale, tables, qpos, bs):
+    """The paged split body's arithmetic (csrc/paged_split.cuh), one
+    (batch row, kv head) at a time: q (B, T, nq, hd) bf16 values; k_rows /
+    v_rows (N * bs, nkv, hd) the pool plane as the products take it (bf16
+    values, or the stored integers of a quantized pool), k_scale / v_scale
+    (N * bs, nkv) or None. Per split of ``paged_key_chunk`` keys and 64-key
+    tile: S = Q K^T (exact products, float32 sum), times the key's scale
+    after the sum and the softmax scale; the online softmax in float32; P (K9:
+    p * vs) as three bf16 parts against V, the tile's P.V summed from 0 and
+    added to the running output; the splits' partials merged in index order
+    (groups of 8, then the groups), A / (L or 1)."""
+    B, T, nq, hd = q.shape
+    nkv = k_rows.shape[1]
+    group, rows = nq // nkv, T * q.shape[2] // nkv
+    S = tables.shape[1] * bs
+    chunk = paged_key_chunk(B, S, nkv)
+    scale = np.float32(hd ** -0.5)
+    out = np.zeros((B, T, nq, hd), np.float32)
+    for b in range(B):
+        pool_row = [int(tables[b, s // bs]) * bs + s % bs for s in range(S)]
+        for kvh in range(nkv):
+            qh = np.stack([q[b, r // group, kvh * group + r % group] for r in range(rows)])
+            fr = np.array([min(int(qpos[b, r // group]), S - 1) for r in range(rows)])
+            max_pos = int(fr.max())
+            live = max(max_pos, 0) // chunk + 1
+            partials = []
+            for split in range(live):
+                c0 = split * chunk
+                kend = min(c0 + chunk, S, max_pos + 1)
+                m = np.full(rows, -1e30, np.float32)
+                l = np.zeros(rows, np.float32)
+                acc = np.zeros((rows, hd), np.float32)
+                for k0 in range(c0, kend, 64):
+                    keys = np.arange(k0, min(k0 + 64, kend))
+                    pr = [pool_row[s] for s in keys]
+                    kt, vt = k_rows[pr, kvh].astype(np.float64), v_rows[pr, kvh].astype(np.float64)
+                    s = (qh.astype(np.float64) @ kt.T).astype(np.float32)
+                    if k_scale is not None:
+                        s = s * k_scale[pr, kvh][None, :]
+                    s = np.where(keys[None, :] <= fr[:, None], s * scale, np.float32(-1e30))
+                    m_new = np.maximum(m, s.max(axis=1))
+                    p = np.exp(s - m_new[:, None], dtype=np.float32)
+                    alpha = np.exp(m - m_new, dtype=np.float32)
+                    l = (alpha * l + p.sum(axis=1, dtype=np.float32)).astype(np.float32)
+                    if v_scale is not None:
+                        p = (p * v_scale[pr, kvh][None, :]).astype(np.float32)
+                    tile = (_bf16_parts(p) @ vt).astype(np.float32)
+                    acc = (acc.astype(np.float64) * alpha[:, None] + tile).astype(np.float32)
+                    m = m_new
+                partials.append((m, l, acc, fr >= c0))
+            for r in range(rows):
+                mine = [(pm[r], pl[r], pa[r]) for pm, pl, pa, act in partials if act[r]]
+                if len(mine) > MERGE_GROUP:
+                    mine = [_merge(mine[i:i + MERGE_GROUP])
+                            for i in range(0, len(mine), MERGE_GROUP)]
+                _, L, A = _merge(mine) if mine else (0, np.float32(0), np.zeros(hd, np.float32))
+                out[b, r // group, kvh * group + r % group] = A / (L if L != 0 else np.float32(1))
+    return out
+
+
+def _paged_case(rng, bs: int, max_blocks: int, B: int = 4, T: int = 9):
+    """A pool plane shared by B rows: a 64-key prefix every row shares, then
+    ragged own blocks in a shuffled order; the positions [cur, chain...]
+    padded with duplicates (chain_block), row 0 keyless (-1)."""
+    S = max_blocks * bs
+    fronts = rng.integers(70, S - 1, size=B)
+    shared = 64 // bs if bs <= 64 else 0
+    own = [-(-(int(f) + 1) // bs) - shared for f in fronts]
+    ids = list(1 + shared + rng.permutation(sum(own)))
+    tables = np.zeros((B, max_blocks), np.int32)
+    for b in range(B):
+        row = list(range(1, 1 + shared)) + ids[:own[b]]
+        ids = ids[own[b]:]
+        tables[b, :len(row)] = row
+    n_blocks = 1 + shared + sum(own)
+    chains = rng.integers(0, T, size=B)
+    qpos = np.array([[f - chains[b] + min(i, chains[b]) for i in range(T)]
+                     for b, f in enumerate(fronts)], np.int32)
+    qpos[0] = -1
+    return tables, qpos, n_blocks
+
+
+@pytest.mark.parametrize("bs,max_blocks", [(16, 20), (128, 3), (128, 10)])
+@pytest.mark.parametrize("tier", [None, "int8", "int4"])
+def test_paged_split_emulation_matches_plain(bs, max_blocks, tier):
+    """K7 (bf16 pool) and K9 (int8 / int4 pools) with bf16 queries: the
+    split body's arithmetic, emulated in float32 with exact products, holds
+    chip_smoke.py's bf16 tolerance against paged_block_attention_reference
+    and paged_block_attention_quant_reference on small pools at bs 16 and
+    128 (5 to 20 splits, so the two-level merge too), a shared prefix, ragged
+    chains and a keyless row, which gets zeros."""
+    from tpu_voice_agent_torch.ops import (
+        paged_block_attention_quant_reference,
+        paged_block_attention_reference,
+    )
+    from tpu_voice_agent_torch.ops.kvquant import dequantize_kv, quantize_kv
+
+    rng = np.random.default_rng(bs + max_blocks + (0 if tier is None else len(tier)))
+    B, T, nq, nkv, hd = 4, 9, 8, 2, 64
+    tables, qpos, N = _paged_case(rng, bs, max_blocks, B, T)
+    q = torch.from_numpy(rng.standard_normal((B, T, nq, hd)).astype(np.float32)).bfloat16()
+    kv = [torch.from_numpy(rng.standard_normal((1, N, bs, nkv, hd)).astype(np.float32))
+          for _ in range(2)]
+    t_tables, t_qpos = torch.from_numpy(tables), torch.from_numpy(qpos)
+    if tier is None:
+        kp, vp = (x.bfloat16() for x in kv)
+        ref = paged_block_attention_reference(q, kp, vp, t_tables, t_qpos, 0)
+        rows = [x[0].reshape(N * bs, nkv, hd).float().numpy() for x in (kp, vp)]
+        scales = [None, None]
+    else:
+        (kp, ks), (vp, vs) = (quantize_kv(x, tier) for x in kv)
+        ref = paged_block_attention_quant_reference(q, kp, vp, ks, vs, t_tables, t_qpos, 0,
+                                                    bits=8 if tier == "int8" else 4)
+        # the products take the stored integers; the scales come after
+        ones = torch.ones(1, N, bs, nkv)
+        rows = [dequantize_kv(x, ones, tier, torch.float32)[0].reshape(N * bs, nkv, hd).numpy()
+                for x in (kp, vp)]
+        assert all(np.array_equal(r, np.round(r)) and np.abs(r).max() <= 127 for r in rows)
+        scales = [x[0].reshape(N * bs, nkv).float().numpy() for x in (ks, vs)]
+    out = _paged_split_emulation(q.float().numpy(), *rows, *scales, tables, qpos, bs)
+    out = torch.from_numpy(out).bfloat16().float().numpy()
+    ref = ref.float().numpy()
+    assert not out[0].any() and not ref[0].any()
+    assert np.all(np.abs(out - ref) <= ATTN_RTOL * np.abs(ref) + ATTN_ATOL)
+    # far inside it: the emulation's float32 sums round a few bf16 outputs
+    # one ulp off the plain version's, not more
+    assert float(np.mean(out != ref)) < 0.02

@@ -1,10 +1,12 @@
-// The paged decode-attention template body shared by K6, K7
-// (paged_attention.cu), K8 and K9 (paged_attention_quant.cu): T <= 16 query
-// tokens per batch row against a paged KV pool read through block tables;
-// q/o bf16 or fp32 (TQ), the pool bf16 or quantized (TC: QInt8, QInt4, the
-// loaders of kv_chunk.cuh), arithmetic in fp32. Each source instantiates
-// only its own part, so they compile in parallel. The dense caches' kernels
-// (K2, K3, K5, K10, K12) run the split-key body of decode_split.cuh.
+// The paged decode-attention fp32 body of K6 (paged_attention.cu), K8
+// (paged_attention_quant.cu) and the fp32-query launches of K7 and K9 (the
+// distilled checkpoint's golden phases): T <= 16 query tokens per batch row
+// against a paged KV pool read through block tables; q/o bf16 or fp32 (TQ),
+// the pool bf16 or quantized (TC: QInt8, QInt4, the loaders of kv_chunk.cuh),
+// arithmetic in fp32. Each source instantiates only its own part, so they
+// compile in parallel. K7 and K9 with bf16 queries run the tensor-core split
+// body of paged_split.cuh; the dense caches' kernels (K2, K3, K5, K10, K12)
+// the split-key body of decode_split.cuh.
 //
 // Its design: one block per (kv head, batch row). The `group * T` query rows
 // of one kv head share every K/V tile, which is read once from device memory
@@ -23,9 +25,8 @@
 // layer's scale plane, at the pool row * nkv + kvh. The TPU kernels fold the
 // scales into the score and probability tiles instead, `(q . k_int) * ks`,
 // which differs from this only by fp32 summation order.
-// Splitting the key range across blocks, reading a shared prefix block once
-// per kv head across rows and resolving the table once per tile are later
-// work here.
+// Splitting the key range across blocks (K6, K8 at T = 1) and reading a
+// shared prefix block once per kv head across rows are later work here.
 #pragma once
 
 #include "kv_chunk.cuh"

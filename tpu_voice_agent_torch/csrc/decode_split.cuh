@@ -30,18 +30,11 @@
 //   frontier.
 // - KS > 1: a block whose (batch row, kv head) has one live split (a short
 //   context) writes the output itself. Otherwise a block writes its partial to
-//   fp32 scratch and takes a ticket on its group's int32 counter (groups of 8
-//   splits; __threadfence first). The last split of a group to arrive merges
-//   the group's partials into one (M = max m_c, L = sum_c e^(m_c - M) l_c, A =
-//   sum_c e^(m_c - M) acc_c, over c in order) and takes a ticket on the (batch
-//   row, kv head)'s counter; the last group merger merges the groups the same
-//   way and writes A / L. With one group, its merger writes the output. The
-//   order of every sum is fixed, so the output is the same bits whichever
-//   blocks merge and from run to run; outputs take no atomics. Two levels
-//   spread the merge's reads over the groups' SMs: one block reading every
-//   split's partials took longer than the splits' own work. Each merging block
-//   sets back the counter it read, so one launch a call needs no second kernel
-//   and no memset.
+//   fp32 scratch and the two-level, fixed-order ticket merge of
+//   split_merge.cuh (shared with the paged body, paged_split.cuh) merges the
+//   splits: the output is the same bits from run to run, with no atomics on
+//   it. Two levels spread the merge's reads over the groups' SMs: one block
+//   reading every split's partials took longer than the splits' own work.
 // The counters are the wrapper's, TICKETS_PER_SLOT per (batch row, kv
 // head), and serve launches on one stream at a time, as does the scratch. A
 // row with no valid key (a negative position; KVLEN: kv_len 0) writes zeros,
@@ -49,6 +42,7 @@
 #pragma once
 
 #include "kv_chunk.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -58,11 +52,6 @@ constexpr int NWARPS = 16;
 constexpr int THREADS = NWARPS * 32;
 constexpr int MAX_T = 16;
 constexpr int MAX_GROUP = 16;
-constexpr int GROUP = 8;  // splits merged by one block, then groups merged by one
-// a merge holds at most GROUP entries of an item in registers, so at most
-// GROUP groups of GROUP splits
-constexpr int MAX_SPLITS = GROUP * GROUP;
-constexpr int TICKETS_PER_SLOT = 1 + GROUP;
 // The warps-on-keys instantiation: 4 sets of 2 warps (so at most 2 rows) in
 // a block of 8 warps, two blocks an SM at 128 registers a thread (a
 // 16-warp block fits once: the cross-attention's 160 blocks ran in two
@@ -71,15 +60,6 @@ constexpr int TICKETS_PER_SLOT = 1 + GROUP;
 constexpr int KEY_SETS = 4;
 constexpr int KEY_SET_WARPS = 8;
 constexpr int KEY_SETS_MAX_HD = 64;
-
-// Query row t of batch row b sees keys [0, frontier]; a frontier past the
-// cache means every slot (keys >= S are never valid). KVLEN (T = 1): `pos`
-// is kv_len (B,), so the frontier is kv_len[b] - 1; otherwise it is
-// q_positions (B, T).
-template <bool KVLEN>
-__device__ __forceinline__ int frontier(const int* __restrict__ pos, int b, int T, int t, int S) {
-  return min(KVLEN ? pos[b] - 1 : pos[b * T + t], S - 1);
-}
 
 // Scratch of one launch, fp32: acc [B * nkv][entries][rows][HD], then (m, l)
 // [B * nkv][entries][rows]; the entries of a (batch row, kv head) are its
@@ -119,7 +99,6 @@ __device__ __forceinline__ void split_body(
   float* Ks = Qs + rows * HD;       // [KS][TILE][KP]
   float* Vs = Ks + KS * TILE * KP;  // [KS][TILE][HD]
   float* Ps = Vs + KS * TILE * HD;  // [NW][RW][TILE]
-  __shared__ int last;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int set = KS > 1 ? warp / WPS : 0, wrow = KS > 1 ? warp % WPS : warp;
@@ -422,90 +401,8 @@ __device__ __forceinline__ void split_body(
     if (live == 1) return;
   }
 
-  // The merge of row r's entries first .. first + n - 1, in that order:
-  // M = max m, L = sum e^(m - M) l, A = sum e^(m - M) acc. Every thread
-  // takes float4s of outputs (item = row, dims 4 d4 .. 4 d4 + 3) and loads
-  // an item's (m, l) and acc of all n entries at once. INTO_GROUP writes
-  // (M, L, A) to entry nsplit + g; otherwise the output, A / (L or 1).
-  auto merge = [&](int first, int g, bool into_group) {
-    for (int item = tid; item < rows * D4; item += TH) {
-      const int r = item / D4, d4 = item % D4;
-      const int p = frontier<KVLEN>(qpos, b, T, r / group, S);
-      const int nr = p >= 0 ? p / chunk + 1 : 0;  // splits holding keys row r sees
-      const int n = into_group ? min(max(nr - first, 0), GROUP)
-                               : (first == nsplit ? (nr + GROUP - 1) / GROUP : nr);
-      float2 mlv[GROUP];
-      float4 av[GROUP];
-#pragma unroll
-      for (int j = 0; j < GROUP; ++j) {
-        if (j < n) {
-          const size_t at = base + (size_t)(first + j) * rows + r;
-          mlv[j] = __ldcg(part_ml + at);
-          av[j] = __ldcg(reinterpret_cast<const float4*>(part_acc + at * HD) + d4);
-        }
-      }
-      float M = TVA_NEG_INF, L = 0.f;
-      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int j = 0; j < GROUP; ++j)
-        if (j < n) M = fmaxf(M, mlv[j].x);
-#pragma unroll
-      for (int j = 0; j < GROUP; ++j) {
-        if (j < n) {
-          const float e = __expf(mlv[j].x - M);
-          L = fmaf(e, mlv[j].y, L);
-          A.x = fmaf(e, av[j].x, A.x);
-          A.y = fmaf(e, av[j].y, A.y);
-          A.z = fmaf(e, av[j].z, A.z);
-          A.w = fmaf(e, av[j].w, A.w);
-        }
-      }
-      if (into_group) {
-        if (n > 0) {
-          const size_t at = base + (size_t)(nsplit + g) * rows + r;
-          reinterpret_cast<float4*>(part_acc + at * HD)[d4] = A;
-          if (d4 == 0) part_ml[at] = make_float2(M, L);
-        }
-      } else {
-        const float inv = 1.f / (L == 0.f ? 1.f : L);
-        TQ* orow = out_row(r) + 4 * d4;
-        tva_st(orow + 0, A.x * inv);
-        tva_st(orow + 1, A.y * inv);
-        tva_st(orow + 2, A.z * inv);
-        tva_st(orow + 3, A.w * inv);
-      }
-    }
-  };
-
-  // Tickets of this (batch row, kv head): [0] groups merged, [1 + g] splits
-  // of group g done. The last split of a group to arrive merges the group;
-  // the last group merger merges the groups. Each resets what it counted.
-  int* tk = tickets + (size_t)slot * TICKETS_PER_SLOT;
-  const int g = split / GROUP;
-  const int ngroups = (live + GROUP - 1) / GROUP;
-  __threadfence();  // this block's partials are visible before its ticket
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(tk + 1 + g, 1) == min(GROUP, live - g * GROUP) - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (ngroups == 1) {  // one group: its merger writes the output
-    merge(0, 0, false);
-    if (tid == 0) tk[1] = 0;
-    return;
-  }
-  merge(g * GROUP, g, true);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    tk[1 + g] = 0;
-    last = atomicAdd(tk, 1) == ngroups - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  merge(nsplit, 0, false);
-  if (tid == 0) tk[0] = 0;
+  merge_splits<HD, KVLEN>(qpos, o, part_acc, part_ml, base, tickets, tid, TH, b, T, S, nq, kvh,
+                          group, rows, chunk, split, nsplit, live, slot);
 }
 
 template <int HD, int RW, typename TQ, typename TC, bool KVLEN>

@@ -195,19 +195,6 @@ struct Cfg {
   static constexpr size_t SMEM = sizeof(bf16) * P * (BQ + 2 * BKV * STAGES);
 };
 
-// Two fp32 values as register j of three bf16 fragments, part[0][j] +
-// part[1][j] + part[2][j]: each part is the bf16 rounding of what the parts
-// before it left (every remainder is exact in fp32), so together they carry
-// ~24 significant bits.
-__device__ __forceinline__ void split3_bf16(float lo, float hi, uint32_t (&part)[3][4], int j) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    part[k][j] = pack_bf16(lo, hi);
-    lo -= __uint_as_float(part[k][j] << 16);
-    hi -= __uint_as_float(part[k][j] & 0xffff0000u);
-  }
-}
-
 // Thread layout of an m16n8 fragment: lane = 4 g + t holds rows g and g + 8,
 // columns 2t and 2t + 1 (accumulator e: row g + 8 (e / 2), column 2t + e % 2).
 template <int HD>

@@ -1,6 +1,7 @@
-// The cache loaders shared by the decode-attention bodies: the split-key
+// The cache loaders shared by the fp32 decode-attention bodies: the split-key
 // body (decode_split.cuh: K2, K3, K5, K10, K12) and the paged body
-// (decode_attention.cuh: K6-K9). One vector load of a cache row's chunk
+// (decode_attention.cuh: K6, K8, and K7 / K9 with fp32 queries); the
+// quantized tags also name the pools of paged_split.cuh. One vector load of a cache row's chunk
 // (`Chunk<TC>::Raw`) is widened to fp32 into shared memory: bf16 and fp32
 // caches as they are, a quantized cache (the KV_QUANT tiers, ops/kvquant.py)
 // as int * its key row's bf16 scale. That product is exact (|int| <= 127

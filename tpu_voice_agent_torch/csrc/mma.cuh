@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy helpers shared by the kernels that use
-// them (K1 flash_attention.cu, K13 grouped_matmul.cu): inline PTX for
-// cp.async, ldmatrix and mma.sync m16n8k16 (bf16 operands, fp32 sums).
+// them (K1 flash_attention.cu, K13 grouped_matmul.cu, K7 / K9's paged body
+// paged_split.cuh): inline PTX for cp.async, ldmatrix and mma.sync m16n8k16
+// (bf16 operands, fp32 sums).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,4 +56,17 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two fp32 values as register j of three bf16 fragments, part[0][j] +
+// part[1][j] + part[2][j]: each part is the bf16 rounding of what the parts
+// before it left (every remainder is exact in fp32), so together they carry
+// ~24 significant bits.
+__device__ __forceinline__ void split3_bf16(float lo, float hi, uint32_t (&part)[3][4], int j) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    part[k][j] = pack_bf16(lo, hi);
+    lo -= __uint_as_float(part[k][j] << 16);
+    hi -= __uint_as_float(part[k][j] & 0xffff0000u);
+  }
 }

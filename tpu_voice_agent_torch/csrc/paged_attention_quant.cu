@@ -1,9 +1,9 @@
 // K8 and K9: decode attention through block tables into the quantized paged
 // KV pool (KV_QUANT=int8|int4): values (L, N, bs, nkv, hdp) int8, hdp = hd
 // (int8) or hd / 2 (two int4 values a byte), with bf16 scale planes
-// (L, N, bs, nkv) indexed like the pool; q/o bf16 or fp32, arithmetic in
-// fp32. The template body is in decode_attention.cuh (the quantized
-// tile loader of kv_chunk.cuh).
+// (L, N, bs, nkv) indexed like the pool; q/o bf16 or fp32, sums in fp32. The
+// bodies: paged_split.cuh (K9, bf16 q) and decode_attention.cuh with the
+// quantized tile loader of kv_chunk.cuh (K8; K9, fp32 q).
 //
 // Replaces: tpu_voice_agent/ops/paged_attention.py
 //   K8 `paged_attention_quant` (`_paged_kernel_quant`; pallas_call at :333):
@@ -16,18 +16,22 @@
 // The TPU kernels keep the stored integers in the dots and fold each key
 // row's scale into the score tile (after q . k_int) and the probability tile
 // (before p . v_int), splitting an int4 row's dots into its two nibble
-// halves (`_qk_dot` / `_pv_dot`, :168-207). Here the loader widens int *
-// scale into the fp32 tile, which is exact, so the kernels equal the plain
-// versions' fp32 dequantization up to fp32 summation order; the int4 loader
-// writes the low nibbles of a byte run to dims [0, hd/2) and the high
-// nibbles to [hd/2, hd).
-//
-// What bounds it on an H100: as K6 / K7, whose design this is. The pool
-// moves 66 (int8) or 34 (int4) bytes per (position, kv head) in place of
-// bf16's 128, so the bytes bound falls by those ratios; the kernels stay
-// bound by load latency (K8) and by one SM's fp32 FMA rate (K9), as K6 and
-// K7 are. Reading the scales costs one 2-byte load per 16-value chunk.
+// halves (`_qk_dot` / `_pv_dot`, :168-207).
+// - K9 with bf16 queries (the bf16 engines under KV_QUANT) runs the
+//   tensor-core split body of paged_split.cuh, which keeps that fold: the
+//   stored integers widened to bf16 (exact) in the products, each key's
+//   scale on its score column after Q.K^T and on its probability column
+//   before P.V. What bounds it on an H100 is arithmetic, as K7's; the pool
+//   moves 66 (int8) or 34 (int4) bytes per (position, kv head) in place of
+//   bf16's 128.
+// - K8 (T = 1) and K9 with fp32 queries run the fp32 body of
+//   decode_attention.cuh: its loader widens int * scale into the fp32 tile,
+//   which is exact, so they equal the plain versions' fp32 dequantization up
+//   to fp32 summation order; the int4 loader writes the low nibbles of a byte
+//   run to dims [0, hd/2) and the high nibbles to [hd/2, hd). K8 is bound by
+//   load latency, as K6 is.
 #include "decode_attention.cuh"
+#include "paged_split.cuh"
 
 // K8: q (B,nq,hd), the layer's pool planes (N*bs,nkv,hdp) int8 for k and v
 // and their scale planes (N*bs,nkv) bf16, block tables (B,max_blocks)
@@ -43,14 +47,40 @@ extern "C" int tva_paged_attention_quant(const void* q, const void* kc, const vo
 }
 
 // K9: q (B,T,nq,hd), the layer's pool and scale planes, block tables
-// (B,max_blocks), q_positions (B,T) int32; bits 8 or 4.
+// (B,max_blocks), q_positions (B,T) int32; bits 8 or 4. bf16 q: `chunk`,
+// `part` and `tickets` as K7's; the scale planes 4-byte aligned.
 extern "C" int tva_paged_block_attention_quant(const void* q, const void* kc, const void* vc,
                                                const void* ksc, const void* vsc,
                                                const int* table, const int* q_positions, void* o,
-                                               int B, int T, int max_blocks, int bs, int nq,
-                                               int nkv, int hd, float scale, int bits, int dtype,
+                                               void* part, void* tickets, int B, int T,
+                                               int max_blocks, int bs, int nq, int nkv, int hd,
+                                               int chunk, float scale, int bits, int dtype,
                                                void* stream) {
   if (max_blocks <= 0 || table == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch_quant(q, kc, vc, ksc, vsc, nullptr, q_positions, table, bs, o, B,
-                                     T, max_blocks * bs, nq, nkv, hd, scale, bits, dtype, stream);
+  if (dtype == TVA_DTYPE_F32)
+    return dispatch_quant(q, kc, vc, ksc, vsc, nullptr, q_positions, table, bs, o, B, T,
+                          max_blocks * bs, nq, nkv, hd, scale, bits, dtype, stream);
+  if (dtype != TVA_DTYPE_BF16 || ksc == nullptr || vsc == nullptr ||
+      paged::bad_shape(B, T, max_blocks, bs, nq, nkv, chunk, table, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define TVA_PAGED_QUANT(H, TC)                                                                  \
+  return paged::launch<H, TC>(q, kc, vc, ksc, vsc, q_positions, table, o, (float*)part,         \
+                              (int*)tickets, B, T, max_blocks, bs, nq, nkv, chunk, scale, st)
+#define TVA_PAGED_QUANT_HD(TC)   \
+  switch (hd) {                  \
+    case 32:                     \
+      TVA_PAGED_QUANT(32, TC);   \
+    case 48:                     \
+      TVA_PAGED_QUANT(48, TC);   \
+    case 64:                     \
+      TVA_PAGED_QUANT(64, TC);   \
+    default:                     \
+      return (int)cudaErrorInvalidValue; \
+  }
+  if (bits == 8) TVA_PAGED_QUANT_HD(QInt8);
+  if (bits == 4) TVA_PAGED_QUANT_HD(QInt4);
+#undef TVA_PAGED_QUANT_HD
+#undef TVA_PAGED_QUANT
+  return (int)cudaErrorInvalidValue;
 }

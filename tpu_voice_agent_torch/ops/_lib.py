@@ -27,7 +27,8 @@ CSRC = PACKAGE_DIR / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "decode_block_attention.cu",
            "paged_attention.cu", "grammar_mask.cu", "paged_attention_quant.cu",
            "decode_attention_quant.cu", "grouped_matmul.cu")
-HEADERS = ("common.cuh", "kv_chunk.cuh", "decode_split.cuh", "decode_attention.cuh", "mma.cuh")
+HEADERS = ("common.cuh", "kv_chunk.cuh", "split_merge.cuh", "decode_split.cuh",
+           "decode_attention.cuh", "paged_split.cuh", "mma.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 48, 64, 128)
@@ -38,8 +39,9 @@ QUANT_HEAD_DIMS = (32, 48, 64)
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 # per device: the int32 ticket counters of the kernels whose last block
-# merges the others' partials (K2 / K3 / K5 / K10 / K12, K13's split-K), and
-# the fp32 scratch the split-key attention kernels write those partials to
+# merges the others' partials (K2 / K3 / K5 / K7 / K9 / K10 / K12, K13's
+# split-K), and the fp32 scratch the split-key attention kernels write those
+# partials to
 TICKETS: dict = {}
 SCRATCH: dict = {}
 # filled by build(): {"seconds": float, "cached": bool, "path": str, "log": str}
@@ -125,16 +127,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # q, k plane, v plane, table, kv_len, o, B, max_blocks, bs, nq, nkv, hd, scale,
         # dtype, stream
         "tva_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
-        # q, k plane, v plane, table, q_positions, o, B, T, max_blocks, bs, nq, nkv, hd,
-        # scale, dtype, stream
-        "tva_paged_block_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
+        # q, k plane, v plane, table, q_positions, o, partials, tickets, B, T, max_blocks, bs,
+        # nq, nkv, hd, chunk, scale, dtype, stream
+        "tva_paged_block_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, k scales, v scales, table, kv_len, o, B, max_blocks, bs, nq,
         # nkv, hd, scale, bits, dtype, stream
         "tva_paged_attention_quant": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P],
-        # q, k plane, v plane, k scales, v scales, table, q_positions, o, B, T, max_blocks,
-        # bs, nq, nkv, hd, scale, bits, dtype, stream
-        "tva_paged_block_attention_quant": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
-                                            P],
+        # q, k plane, v plane, k scales, v scales, table, q_positions, o, partials, tickets,
+        # B, T, max_blocks, bs, nq, nkv, hd, chunk, scale, bits, dtype, stream
+        "tva_paged_block_attention_quant": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                            F, I, I, P],
         # q, k cache, v cache, k scales, v scales, kv_len, o, partials, tickets, B, S, nq,
         # nkv, hd, chunk, key_sets, scale, bits, dtype, stream
         "tva_decode_attention_quant": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,

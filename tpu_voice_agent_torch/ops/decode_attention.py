@@ -67,7 +67,7 @@ MAX_GROUP = 16
 # whole 32-key tiles: about two blocks per SM of the H100's 132 when every
 # key of the cache is live. The merge runs in groups of 8 splits, at most 8
 # groups; scratch entries and ticket counters per (row, kv head) follow
-# (csrc/decode_split.cuh GROUP, MAX_SPLITS, TICKETS_PER_SLOT).
+# (csrc/split_merge.cuh GROUP, MAX_SPLITS, TICKETS_PER_SLOT).
 SPLIT_BLOCKS = 264
 MERGE_GROUP = 8
 MAX_SPLITS = MERGE_GROUP * MERGE_GROUP
@@ -89,6 +89,29 @@ def key_chunk(B: int, S: int, nkv: int) -> int:
     splits = max(1, min(MAX_SPLITS, SPLIT_BLOCKS // (B * nkv)))
     chunk = -(-S // splits)
     return -(-chunk // 32) * 32
+
+
+# The paged tensor-core body of K7 / K9 with bf16 queries
+# (csrc/paged_split.cuh TILE, MAX_ROWS): 64-key tiles, at most 128 query rows
+# a launch; its picker aims at PAGED_LIVE_BLOCKS live blocks, two an SM, when
+# every row's tables are half full.
+PAGED_TILE = 64
+PAGED_MAX_ROWS = 128
+PAGED_LIVE_BLOCKS = 264
+
+
+def paged_key_chunk(B: int, S: int, nkv: int) -> int:
+    """Keys per split of the paged split body, from the shapes alone (no
+    device read): whole 64-key tiles, at most ``MAX_SPLITS`` splits, and
+    short enough that rows whose frontiers sit halfway into their tables
+    (S / 2, the batched engines' ~1,000 of 2,048) leave at least
+    ``PAGED_LIVE_BLOCKS`` live blocks: splits past a row's frontier return at
+    once. 320 at the 32-slot batch (7 splits, 3-4 live), 192 at the 15-slot
+    spec engine and at mixtral-8x7b's 8-slot drain."""
+    per_row = -(-PAGED_LIVE_BLOCKS // (B * nkv))  # live splits a (row, kv head) needs
+    chunk = (S // 2) // per_row // PAGED_TILE * PAGED_TILE
+    fewest = -(-S // MAX_SPLITS)  # the widest splits MAX_SPLITS allow
+    return max(chunk, -(-fewest // PAGED_TILE) * PAGED_TILE, PAGED_TILE)
 
 
 def key_sets(group: int, chunk: int, hd: int) -> int:

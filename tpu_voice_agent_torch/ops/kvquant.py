@@ -103,7 +103,9 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor, kv_quant: str,
                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Stored values + scales -> (..., hd) in ``dtype``. The plain read
     paths (suffix gather, fresh-block attention) use this; the kernels K8,
-    K9 and K10 widen ``int * scale`` in fp32 inside their tile loader."""
+    K10 and K9 with fp32 queries widen ``int * scale`` in fp32 inside their
+    tile loader, and K9 with bf16 queries keeps the stored integers in its
+    products and applies the scales after Q.K^T and before P.V."""
     if kv_quant == "int4":
         q = unpack_int4(q)
     return (q.float() * s.float()[..., None]).to(dtype)

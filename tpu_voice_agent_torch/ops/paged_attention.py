@@ -1,6 +1,5 @@
 """K6 / K7: decode attention through block tables into a paged KV pool (CUDA,
-``csrc/paged_attention.cu`` over the template body in
-``csrc/decode_attention.cuh``); K8 / K9: the same over the quantized pool
+``csrc/paged_attention.cu``); K8 / K9: the same over the quantized pool
 (``csrc/paged_attention_quant.cu``).
 
 Port of ``paged_attention``, ``paged_block_attention``,
@@ -19,9 +18,24 @@ pool block ``block_tables[b, p // bs]``, offset ``p % bs``, of layer plane
 - K8 / K9 (``KV_QUANT=int8|int4``): K6 / K7 over an int8 pool
   ``(L, N, bs, nkv, hdp)`` (``hdp = hd`` at ``bits=8``, ``hd / 2`` packed
   int4 at ``bits=4``, ``ops.kvquant``) with bf16 scale planes
-  ``(L, N, bs, nkv)`` indexed like the pool. The kernels widen
-  ``int * scale`` into their fp32 tiles, which is exact, so they equal the
-  plain versions' fp32 dequantization up to fp32 summation order.
+  ``(L, N, bs, nkv)`` indexed like the pool.
+
+Two bodies, picked by the query dtype alone:
+
+- bf16 queries (every bf16 engine's chain steps) run K7 / K9 on the
+  tensor-core split body (``csrc/paged_split.cuh``): the key range split
+  into chunks of ``paged_key_chunk(B, S, nkv)`` keys across the card, merged
+  in a fixed order through the device's scratch and ticket counters (the
+  same bits run to run), Q.K^T and P.V on bf16 tensor cores with fp32 sums
+  and P in three bf16 parts. K9 keeps the TPU kernel's fold: the stored
+  integers in the products, each key's scale on its score after Q.K^T and
+  on its probability before P.V.
+- fp32 queries (the distilled checkpoint) and K6 / K8 run the fp32 body
+  (``csrc/decode_attention.cuh``); its loader widens ``int * scale`` into
+  fp32 tiles, which is exact.
+
+Either way the kernels equal the plain versions' fp32 arithmetic up to the
+order of fp32 sums (and the bf16 output rounding).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors, and only then. The plain versions gather each row's
@@ -32,6 +46,8 @@ Not ported: the ``sharded_*`` wrappers (on one card they are the kernel).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ._lib import (
@@ -41,14 +57,20 @@ from ._lib import (
     library,
     require,
     require_cuda,
+    scratch,
     stream_of,
+    tickets,
 )
 from .decode_attention import (
     MAX_BLOCK_T,
     MAX_GROUP,
+    MERGE_GROUP,
+    PAGED_MAX_ROWS,
+    TICKETS_PER_SLOT,
     check_quant_cache,
     decode_attention_reference,
     decode_block_attention_reference,
+    paged_key_chunk,
 )
 from .kvquant import dequantize_kv, kv_quant_of_bits
 
@@ -73,6 +95,35 @@ def _check_pool(name, q, k_pool, v_pool, block_tables, layer, nq, hd, *,
     require(block_tables.dtype == torch.int32 and block_tables.dim() == 2
             and block_tables.shape[0] == B, name, "block_tables must be (B, max_blocks) int32")
     return B, bs, nkv, block_tables.shape[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_plan(B: int, T: int, S: int, nq: int, nkv: int, hd: int) -> tuple[int, int, int]:
+    """The chunk, the fp32 scratch floats and the ticket counters of a
+    launch of the paged split body; a block of more than PAGED_MAX_ROWS
+    query rows runs in parts of whole queries, one after another, that share
+    them."""
+    chunk = paged_key_chunk(B, S, nkv)
+    splits = -(-S // chunk)
+    entries = splits + -(-splits // MERGE_GROUP)
+    group = nq // nkv
+    rows = min(T, max(1, PAGED_MAX_ROWS // group)) * group
+    return chunk, B * nkv * entries * rows * (hd + 2), B * nkv * TICKETS_PER_SLOT
+
+
+def _split_operands(name, q, planes, B, T, S, nq, nkv, hd, scale_planes=()):
+    """(chunk, scratch pointer, counters pointer) of a bf16-query launch,
+    zeros for fp32 queries (the fp32 body takes none). The split body copies
+    q and the pool planes in 16-byte units and a scale plane's 4-byte words."""
+    if q.dtype != torch.bfloat16:
+        return 0, 0, 0
+    require(all(t.data_ptr() % 16 == 0 for t in (q, *planes)), name,
+            "q and the pool must be 16-byte aligned")
+    require(all(t.data_ptr() % 4 == 0 for t in scale_planes), name,
+            "the scale planes must be 4-byte aligned")
+    chunk, floats, counters = _paged_plan(B, T, S, nq, nkv, hd)
+    return (chunk, scratch(q.device, floats).data_ptr(),
+            tickets(q.device, counters).data_ptr())
 
 
 def paged_attention(
@@ -132,11 +183,15 @@ def paged_block_attention(
     require(1 <= T <= MAX_BLOCK_T, name, f"block of {T} queries (max {MAX_BLOCK_T})")
     require(q_positions.dtype == torch.int32 and q_positions.shape == (B, T), name,
             "q_positions must be (B, T) int32")
+    code = dtype_code(name, q)
+    kp, vp = k_pool[layer], v_pool[layer]
+    chunk, part, counters = _split_operands(name, q, (kp, vp), B, T, max_blocks * bs, nq, nkv,
+                                            hd)
     out = torch.empty_like(q)
     err = library().tva_paged_block_attention(
-        q.data_ptr(), k_pool[layer].data_ptr(), v_pool[layer].data_ptr(),
-        block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(), B, T, max_blocks, bs,
-        nq, nkv, hd, float(scale), dtype_code(name, q), stream_of(q))
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), block_tables.data_ptr(),
+        q_positions.data_ptr(), out.data_ptr(), part, counters, B, T, max_blocks, bs, nq, nkv,
+        hd, chunk, float(scale), code, stream_of(q))
     check(err, name)
     paged_block_attention.launches += 1
     return out
@@ -259,12 +314,15 @@ def paged_block_attention_quant(
     require(1 <= T <= MAX_BLOCK_T, name, f"block of {T} queries (max {MAX_BLOCK_T})")
     require(q_positions.dtype == torch.int32 and q_positions.shape == (B, T), name,
             "q_positions must be (B, T) int32")
+    code = dtype_code(name, q)
+    kp, vp, ks, vs = k_pool[layer], v_pool[layer], k_scale[layer], v_scale[layer]
+    chunk, part, counters = _split_operands(name, q, (kp, vp), B, T, max_blocks * bs, nq, nkv,
+                                            hd, (ks, vs))
     out = torch.empty_like(q)
     err = library().tva_paged_block_attention_quant(
-        q.data_ptr(), k_pool[layer].data_ptr(), v_pool[layer].data_ptr(),
-        k_scale[layer].data_ptr(), v_scale[layer].data_ptr(), block_tables.data_ptr(),
-        q_positions.data_ptr(), out.data_ptr(), B, T, max_blocks, bs, nq, nkv, hd,
-        float(scale), bits, dtype_code(name, q), stream_of(q))
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(), part, counters, B, T,
+        max_blocks, bs, nq, nkv, hd, chunk, float(scale), bits, code, stream_of(q))
     check(err, name)
     paged_block_attention_quant.launches += 1
     return out
