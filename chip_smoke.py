@@ -11,10 +11,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
 3. kernels  - each kernel at the main path's shapes against its plain PyTorch
               version on the card: max abs error vs a stated tolerance, kernel
               / plain / library ms, and the least time the card could take;
-              first (``digest``) the SHA-256 of K1's, K2's, K3's, K5's, K6's,
-              K8's and (fp32 queries) K7's and K9's outputs on seeded inputs,
-              so two builds can be held to the same bits, and K5's, K7's and
-              K9's bf16 outputs held equal over two calls.
+              first (``digest``) the SHA-256 of K1's, K2's, K3's, K5's and
+              (bf16 and fp32 queries) K6's to K9's outputs on seeded inputs,
+              so two builds can be held to the same bits, and K5's and K6's
+              to K9's bf16 outputs held equal over two calls.
 4. service  - the port's brain service in-process on an ephemeral port with
               BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 (ff 8, the
               cached prompt prefix), answering /parse requests with bench.py's
@@ -720,10 +720,10 @@ def phase_digest(report: dict) -> dict:
     fp32 hd-16 cache), K3 (tinyllama's (1, 9) chain block), K1 (a causal
     bf16 prefix block, the checkpoints' fp32 encoder block), K2 (tinyllama's
     T = 1 step at frontier 943), and over a paged pool with a shared prefix
-    K6 and K8 (int8, int4) at T = 1 and K7 / K9 with fp32 queries on a
-    (4, 9) fast-forward block. The same digests from two builds mean the
-    same bits. K5's, and K7's and K9's bf16 (4, 9) outputs (their split
-    bodies), must be the same from two calls. Only wrappers with the same
+    K6 and K8 (int8, int4) at T = 1 and K7 / K9 on a (4, 9) fast-forward
+    block, each with bf16 and with fp32 queries. The same digests from two
+    builds mean the same bits. K5's, and K6's to K9's bf16 outputs (their
+    split bodies), must be the same from two calls. Only wrappers with the same
     signature in every slice are called, so the script runs against an
     earlier checkout of the package too."""
     import hashlib
@@ -778,16 +778,24 @@ def phase_digest(report: dict) -> dict:
         q9p, kp, vp, tables, qpos, 1))
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     q1p = randn(4, 32, 64)
-    out["paged_attention (4,)"] = digest(ops.paged_attention(q1p, kp, vp, tables, kv_len, 1))
+    out["paged_attention fp32 (4,)"] = digest(ops.paged_attention(
+        q1p.float(), kp, vp, tables, kv_len, 1))
     out["paged_block_attention fp32 (4, 9)"] = digest(ops.paged_block_attention(
         q9p.float(), kp, vp, tables, qpos, 1))
     twice = {"paged_block_attention (4, 9)": lambda: ops.paged_block_attention(
-        q9p, kp, vp, tables, qpos, 1)}
+        q9p, kp, vp, tables, qpos, 1),
+        "paged_attention (4,)": lambda: ops.paged_attention(q1p, kp, vp, tables, kv_len, 1)}
+    out["paged_attention (4,)"] = digest(twice["paged_attention (4,)"]())
     for tier, bits in (("int8", 8), ("int4", 4)):
         kq, ks = _quant_values(g, (2, n_blocks, 128, 4, 64), tier)
         vq, vs = _quant_values(g, (2, n_blocks, 128, 4, 64), tier)
-        out[f"paged_attention_quant {tier} (4,)"] = digest(ops.paged_attention_quant(
-            q1p, kq, vq, ks, vs, tables, kv_len, 1, bits=bits))
+        key = f"paged_attention_quant {tier} (4,)"
+        twice[key] = (lambda kq=kq, vq=vq, ks=ks, vs=vs, bits=bits:
+                      ops.paged_attention_quant(q1p, kq, vq, ks, vs, tables, kv_len, 1,
+                                                bits=bits))
+        out[key] = digest(twice[key]())
+        out[f"paged_attention_quant {tier} fp32 (4,)"] = digest(ops.paged_attention_quant(
+            q1p.float(), kq, vq, ks, vs, tables, kv_len, 1, bits=bits))
         out[f"paged_block_attention_quant {tier} fp32 (4, 9)"] = digest(
             ops.paged_block_attention_quant(q9p.float(), kq, vq, ks, vs, tables, qpos, 1,
                                             bits=bits))
@@ -941,8 +949,10 @@ def _paged_kernel_rows(g, randn) -> dict:
     prefix's 6 full blocks shared by every row, ragged kv_len 900-1050 for
     K6; K7 a (32, 9) fast-forward block per row with its own chain length
     (positions padded with duplicates, as chain_block pads them), also the
-    (32, 5) spec verify block, mixtral-8x7b's (8, 9) drain block
-    (``_paged_moe_row``) and one split a (row, kv head) (``one_split_ms``).
+    (32, 5) spec verify block, mixtral-8x7b's (8, 9) drain block and T = 1
+    step (``_paged_moe_row``) and one split a (row, kv head)
+    (``one_split_ms``); K6 also with rows at kv_len 0, 1 and off the 64-key
+    tiles, and two calls bit-equal.
     Also block sizes 16, 32 and 64 on a 2-layer pool. The library yardstick
     is SDPA on a pre-gathered contiguous copy (the gather is not timed)."""
     import torch
@@ -969,6 +979,13 @@ def _paged_kernel_rows(g, randn) -> dict:
     q9 = randn(B, 9, nq, hd)
     pairs6 = [(ops.paged_attention(q, kp, vp, tables, kv_len, li),
                paged_attention_reference(q, kp, vp, tables, kv_len, li))]
+    # rows at kv_len 0 (zeros), 1, and lengths off the 64-key tiles
+    kz = kv_len.clone()
+    kz[:4] = torch.tensor([0, 1, 77, 129], dtype=torch.int32)
+    pairs6.append((ops.paged_attention(q, kp, vp, tables, kz, li),
+                   paged_attention_reference(q, kp, vp, tables, kz, li)))
+    fail_if(not bool((pairs6[-1][0][0] == 0).all()), "paged_attention: a kv_len-0 row is not "
+            "zeros")
     pairs7 = [(ops.paged_block_attention(q9, kp, vp, tables, qpos, li),
                paged_block_attention_reference(q9, kp, vp, tables, qpos, li))]
     for sbs in (16, 32, 64):
@@ -1010,7 +1027,15 @@ def _paged_kernel_rows(g, randn) -> dict:
         io6 + per_row6 * kv_row, 4 * nq * hd * per_row6)[0]
     rows["paged_attention"]["shape"] = (
         "B 32, pool (22, 513, 128, 4, 64) bf16, 6 shared prefix blocks, kv_len "
-        f"{int(kv_len.min())}-{int(kv_len.max())}; bs 16/32/64 checked on a 2-layer pool")
+        f"{int(kv_len.min())}-{int(kv_len.max())}; bs 16/32/64 checked on a 2-layer pool, "
+        "and rows at kv_len 0, 1, 77, 129")
+    # bf16 queries run the split body, merged in a fixed order: the same bits
+    # from run to run
+    fail_if(not torch.equal(pairs6[0][0], ops.paged_attention(q, kp, vp, tables, kv_len, li)),
+            "paged_attention: two calls on the same inputs differ")
+    rows["paged_attention"]["deterministic"] = True
+    k6 = lambda: ops.paged_attention(q, kp, vp, tables, kv_len, li)
+    rows["paged_attention"]["one_split_ms"] = _one_split_ms(k6, pairs6[0][1], "paged_t1_chunk")
     rows["paged_block_attention"] = _kernel_row(
         "paged_block_attention", *attn_err(pairs7), ATTN_TOL,
         cuda_ms(lambda: ops.paged_block_attention(q9, kp, vp, tables, qpos, li), iters=100),
@@ -1045,8 +1070,14 @@ def _paged_kernel_rows(g, randn) -> dict:
     rows["paged_block_attention"]["one_split_ms"] = _one_split_ms(
         lambda: ops.paged_block_attention(q9, kp, vp, tables, qpos, li), pairs7[0][1])
     del kp, vp, kh, vh
-    rows["paged_block_attention"]["mixtral"], moe_err = _paged_moe_row(g, randn, lens)
+    moe7, moe6, moe_err, moe_err6 = _paged_moe_row(g, randn, lens)
+    rows["paged_block_attention"]["mixtral"], rows["paged_attention"]["mixtral"] = moe7, moe6
     extra.append(moe_err)
+    fail_if(not moe_err6[1] <= 1.0, f"paged_attention (mixtral-8x7b): error {moe_err6[1]:.3g}x "
+            f"its tolerance {ATTN_TOL}")
+    k6r = rows["paged_attention"]
+    k6r["max_abs_err"], k6r["err_over_tol"] = (max(k6r["max_abs_err"], moe_err6[0]),
+                                               max(k6r["err_over_tol"], moe_err6[1]))
     k7 = rows["paged_block_attention"]
     for err, ratio in extra:
         fail_if(not ratio <= 1.0, f"paged_block_attention: error {ratio:.3g}x its tolerance "
@@ -1056,39 +1087,44 @@ def _paged_kernel_rows(g, randn) -> dict:
     return rows
 
 
-def _one_split_ms(fn, ref) -> float | None:
-    """K7 / K9 timed with one split a (batch row, kv head), the whole key
-    range in one block, beside the split body's chunks: what splitting the
-    keys across the card buys. The output is held to the plain version."""
+def _one_split_ms(fn, ref, picker: str = "paged_key_chunk") -> float | None:
+    """K7 / K9 (``picker`` paged_key_chunk) or K6 / K8 (paged_t1_chunk)
+    timed with one split a (batch row, kv head), the whole key range in one
+    block, beside the split body's chunks: what splitting the keys across
+    the card buys. The output is held to the plain version."""
     import importlib
 
     pa = importlib.import_module("tpu_voice_agent_torch.ops.paged_attention")
-    picked = getattr(pa, "paged_key_chunk", None)
+    picked = getattr(pa, picker, None)
     if picked is None:  # an earlier checkout of the package: one body only
         return None
-    pa.paged_key_chunk = lambda B, S, nkv: -(-S // 64) * 64
+    setattr(pa, picker, lambda B, S, nkv, *rest: -(-S // 128) * 128)
     pa._paged_plan.cache_clear()
     try:
         _, ratio = attn_err([(fn(), ref)])
         fail_if(not ratio <= 1.0, f"one split: error {ratio:.3g}x its tolerance")
         ms = cuda_ms(fn, iters=100)
     finally:
-        pa.paged_key_chunk = picked
+        setattr(pa, picker, picked)
         pa._paged_plan.cache_clear()
     log(f"[kernels]   with one split a (row, kv head): {ms:.5f} ms")
     return ms
 
 
-def _paged_moe_row(g, randn, lens) -> tuple[dict, tuple[float, float]]:
-    """K7 at mixtral-8x7b's 8-slot paged drain: (8, 9) chain blocks, 32/8
-    heads of 128, bf16, over a one-layer pool of blocks of 128 with the
-    prefix's 6 blocks shared, the batch rows' first 8 lengths. Returns the
-    timing row and the (max abs error, share of tolerance) pair."""
+def _paged_moe_row(g, randn, lens):
+    """K7 and K6 at mixtral-8x7b's 8-slot paged drain: (8, 9) chain blocks
+    and the T = 1 step, 32/8 heads of 128, bf16, over a one-layer pool of
+    blocks of 128 with the prefix's 6 blocks shared, the batch rows' first
+    8 lengths. Returns K7's and K6's timing rows and their (max abs error,
+    share of tolerance) pairs."""
     import torch
     import torch.nn.functional as F
 
     from tpu_voice_agent_torch import ops
-    from tpu_voice_agent_torch.ops import paged_block_attention_reference
+    from tpu_voice_agent_torch.ops import (
+        paged_attention_reference,
+        paged_block_attention_reference,
+    )
     from tpu_voice_agent_torch.ops.paged_attention import gather_pages
 
     dev = torch.device("cuda")
@@ -1118,7 +1154,22 @@ def _paged_moe_row(g, randn, lens) -> tuple[dict, tuple[float, float]]:
                4 * nq * hd * float((qpos + 1).sum())),
         cuda_ms(lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kh, vh,
                                                        attn_mask=mask), iters=100))
-    return row, attn_err([(out, ref)])
+    q1 = q[:, 0].contiguous()
+    out6 = ops.paged_attention(q1, kp, vp, tables, kv_len, 0)
+    ref6 = paged_attention_reference(q1, kp, vp, tables, kv_len, 0)
+    fail_if(not torch.equal(out6, ops.paged_attention(q1, kp, vp, tables, kv_len, 0)),
+            "paged_attention (mixtral-8x7b): two calls on the same inputs differ")
+    mask6 = (torch.arange(S, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
+    row6 = _extra_shape(
+        "mixtral-8x7b's 8-slot drain: the T = 1 step, 32/8 heads of 128, one pool layer",
+        cuda_ms(lambda: ops.paged_attention(q1, kp, vp, tables, kv_len, 0), iters=100),
+        cuda_ms(lambda: paged_attention_reference(q1, kp, vp, tables, kv_len, 0)),
+        *bound(2 * 2 * B * nq * hd + 4 * B + 4 * tables.numel()
+               + (shared + float((kv_len - shared).sum())) * 2 * nkv * hd * 2,
+               4 * nq * hd * float(kv_len.sum())),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q1[:, :, None], kh, vh,
+                                                       attn_mask=mask6), iters=100))
+    return row, row6, attn_err([(out, ref)]), attn_err([(out6, ref6)])
 
 
 # K13 at mixtral-8x7b's widths (8 experts, top-2, dim 4096, ffn 14336): the
@@ -1298,7 +1349,10 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
     off a 16-byte boundary (4 heads, 2 kv heads, blocks of 16 and 128). The
     library yardstick is SDPA on a pre-gathered, pre-dequantized bf16 copy
     (neither timed), as the K6 / K7 rows have it. K9 also at the (32, 5) spec
-    verify block and with one split a (row, kv head) (``one_split_ms``)."""
+    verify block; K8 and K9 with one split a (row, kv head)
+    (``one_split_ms``), K8 also with rows at kv_len 0, 1 and off the 64-key
+    tiles, and at block sizes 16, 32
+    and 64 (bf16 queries, 2-layer pools); both two calls bit-equal."""
     import torch
     import torch.nn.functional as F
 
@@ -1360,7 +1414,18 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
                                                      bits=bits)
         p9 = lambda: paged_block_attention_quant_reference(q9, kp, vp, ks, vs, tables, qpos, li,
                                                            bits=bits)
-        errs["8"].append((k8(), p8()))
+        ref8 = p8()
+        errs["8"].append((k8(), ref8))
+        fail_if(not torch.equal(k8(), k8()),
+                f"paged_attention_quant ({tier}): two calls on the same inputs differ")
+        # rows at kv_len 0 (zeros), 1, and lengths off the 64-key tiles
+        kz = kv_len.clone()
+        kz[:4] = torch.tensor([0, 1, 77, 129], dtype=torch.int32)
+        o8z = ops.paged_attention_quant(q, kp, vp, ks, vs, tables, kz, li, bits=bits)
+        fail_if(not bool((o8z[0] == 0).all()),
+                f"paged_attention_quant ({tier}): a kv_len-0 row is not zeros")
+        errs["8"].append((o8z, paged_attention_quant_reference(q, kp, vp, ks, vs, tables, kz, li,
+                                                               bits=bits)))
         ref9 = p9()
         errs["9"].append((k9(), ref9))
         # bf16 queries run the split body: the same bits from run to run
@@ -1392,8 +1457,18 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
                            4 * nq * hd * float((qpos5 + 1).sum())),
                     cuda_ms(lambda: F.scaled_dot_product_attention(
                         q5.transpose(1, 2), kh, vh, attn_mask=mask5), iters=100)),
-             "one_split": _one_split_ms(k9, ref9)}
+             "one_split": _one_split_ms(k9, ref9),
+             "one_split8": _one_split_ms(k8, ref8, "paged_t1_chunk")}
         del kp, vp, ks, vs, kh, vh
+        for sbs in (16, 32, 64):  # K8 with bf16 queries at the other block sizes
+            t_s, n_s = _paged_tables(g, B, 768 // sbs, kv_len.tolist(), sbs, -(-1100 // sbs))
+            kps, kss = _quant_values(g, (2, n_s, sbs, nkv, hd), tier)
+            vps, vss = _quant_values(g, (2, n_s, sbs, nkv, hd), tier)
+            errs["8"].append((
+                ops.paged_attention_quant(q, kps, vps, kss, vss, t_s, kv_len, 1, bits=bits),
+                paged_attention_quant_reference(q, kps, vps, kss, vss, t_s, kv_len, 1,
+                                                bits=bits)))
+            del kps, vps, kss, vss
         # K10: a dense (1, 2048, 4, 64) cache
         kc, kcs = _quant_values(g, (1, 2048, nkv, hd), tier)
         vc, vcs = _quant_values(g, (1, 2048, nkv, hd), tier)
@@ -1463,11 +1538,12 @@ def _quant_kernel_rows(g, randn, n: int) -> dict:
         rows[name]["int4"] = _extra_shape(
             shapes[key].format(N=i4["pool_blocks"], **fmt) + ", int4", *i4[key])
     k9 = rows["paged_block_attention_quant"]
-    k9["deterministic"] = True
+    k9["deterministic"] = rows["paged_attention_quant"]["deterministic"] = True
     for tier in ("int8", "int4"):
         k9[f"spec_{tier}"] = _extra_shape(
             f"the (32, 5) spec verify block over the same pool, {tier}", *timings[tier]["9s"])
         k9[f"one_split_ms_{tier}"] = timings[tier]["one_split"]
+        rows["paged_attention_quant"][f"one_split_ms_{tier}"] = timings[tier]["one_split8"]
     return rows
 
 
@@ -2044,8 +2120,8 @@ def phase_batch(params, totals: dict, report: dict, profile: bool = False) -> No
         c.require(kernel, "masked_argmax_advance")
         row["token_ids"] = [r.token_ids for r in res]
         out[f"ff{ff}"] = row
-        if profile and ff == 8:
-            _profile_batch_chunk(eng, report)
+        if profile:
+            _profile_batch_chunk(eng, report, kind=f"ff{ff}")
         del eng
     report["batch"] = out
 
@@ -2061,8 +2137,8 @@ def phase_kvquant(params, totals: dict, report: dict, profile: bool = False) -> 
     with fp32 activations (4 sessions x 4 turns: radix on decodes what
     radix off decodes, within one bf16 ulp of the plain margin), and one
     ``/parse`` of a BRAIN_BATCH=32 BRAIN_PAGED=1 KV_QUANT=int8 brain, which
-    must answer 200. ``profile``: one ff=8 chunk per tier under the
-    profiler."""
+    must answer 200. ``profile``: one ff=8 and one ff=0 chunk per tier
+    under the profiler."""
     import torch
 
     from tpu_voice_agent_torch.models.llama import PRESETS
@@ -2108,8 +2184,8 @@ def phase_kvquant(params, totals: dict, report: dict, profile: bool = False) -> 
                 f"{row['same_as_bf16']} of {BATCH_SLOTS} sessions decode the bf16 drain's ids "
                 f"(parting steps {parts})")
             out[f"{tier}_ff{ff}"] = row
-            if profile and ff == 8:
-                _profile_batch_chunk(eng, report, tier)
+            if profile:
+                _profile_batch_chunk(eng, report, tier, kind=f"ff{ff}")
             del eng
     # the radix contract on the int8 pool, fp32 activations
     p = _fp32_activations(params)
@@ -3285,9 +3361,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile (torch.profiler) one bench parse at ff=8 and one at "
                          "ff=0 when the service phase "
-                         "runs, one ff=8 batch chunk when the batch phase runs (one per KV "
-                         "tier when the kvquant phase runs), one spec parse and one spec batch "
-                         "chunk when the spec phase runs, one whisper-large-v3 "
+                         "runs, one ff=8 and one ff=0 batch chunk when the batch phase runs "
+                         "(the same per KV tier when the kvquant phase runs), one spec parse "
+                         "and one spec batch chunk when the spec phase runs, one whisper-large-v3 "
                          "transcribe when the stt phase runs, and one mixtral-8x7b parse of "
                          "each MoE dispatch when the moe phase runs")
     args = ap.parse_args()

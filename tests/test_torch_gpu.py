@@ -14,6 +14,8 @@ outputs 1e-5 absolute (sums of ~1-sized terms taken in another order); the
 grammar kernel's token ids and states exactly.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -736,3 +738,109 @@ def test_paged_block_quant_split_matches_plain(cuda, hd, tier, bs):
         assert torch.equal(out, ops.paged_block_attention_quant(q, kp, vp, ks, vs, tables, pos,
                                                                 1, bits=bits))
         assert int(TICKETS[q.device].abs().sum()) == 0
+
+
+# ------------------------------------------------- K6 / K8's T = 1 split body
+
+# (hd, nq, nkv): test-tiny, the distilled checkpoint's widths, tinyllama-1.1b
+# (a group of 8: P's parts packed), a group of 16 (three P fragments) and
+# mixtral-8x7b (K6 only: the quantized kernels stop at hd 64)
+T1_SHAPES = [(32, 4, 2), (48, 4, 2), (64, 32, 4), (64, 32, 2), (128, 32, 8)]
+
+
+class _Spy:
+    """The kernel library, recording each entry point's arguments."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return fn(*args)
+
+        return call
+
+
+def _t1_case(cuda, hd, nq, nkv, bs, seed):
+    """8 rows over a 2-layer pool: kv_len 0 (zeros), 1, one key short of the
+    T = 1 chunk, on it, one past it, and ragged lengths over a shared prefix
+    of 48 keys; the tables' entries past each frontier hold the trash block
+    0. Returns (q bf16, tables, kv_len, pool blocks, generator)."""
+    from tpu_voice_agent_torch.ops.decode_attention import paged_t1_chunk
+
+    S_max, B = 420, 8
+    max_blocks = -(-S_max // bs)
+    chunk = paged_t1_chunk(B, max_blocks * bs, nkv, hd)
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(49, S_max, size=B)
+    lens[:5] = [0, 1, chunk - 1, chunk, chunk + 1]
+    lens = np.minimum(lens, S_max)
+    shared = 48 // bs
+    tables, n = _paged_tables(B, np.maximum(lens, 48), bs, max_blocks, shared, seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, nq, hd, generator=g, device=cuda).to(torch.bfloat16)
+    return q, tables.to(cuda), torch.from_numpy(lens.astype(np.int32)).to(cuda), n, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd,nq,nkv", T1_SHAPES)
+def test_paged_t1_split_matches_plain(cuda, hd, nq, nkv, bs, monkeypatch):
+    """K6 with bf16 queries (the T = 1 split body: four warps a block on
+    keys) against its plain version: rows at kv_len 0 (zeros), 1 and at the
+    chunk's edges; the same bits on
+    a second call and the tickets back at 0. fp32 queries take the fp32
+    body: the entry point gets no chunk and no scratch."""
+    from tpu_voice_agent_torch.ops._lib import TICKETS
+
+    pa = importlib.import_module("tpu_voice_agent_torch.ops.paged_attention")
+    q, tables, kv_len, n, g = _t1_case(cuda, hd, nq, nkv, bs, hd + nq + bs)
+    kp = torch.randn(2, n, bs, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    vp = torch.randn(2, n, bs, nkv, hd, generator=g, device=cuda).to(torch.bfloat16)
+    ref = ops.paged_attention_reference(q, kp, vp, tables, kv_len, 1)
+    out = ops.paged_attention(q, kp, vp, tables, kv_len, 1)
+    assert out.dtype == torch.bfloat16 and bool((out[0] == 0).all())
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    assert torch.equal(out, ops.paged_attention(q, kp, vp, tables, kv_len, 1))
+    assert int(TICKETS[q.device].abs().sum()) == 0
+    spy = _Spy(pa.library())
+    monkeypatch.setattr(pa, "library", lambda: spy)
+    q32 = q.float()
+    out = ops.paged_attention(q32, kp, vp, tables, kv_len, 1)
+    torch.testing.assert_close(out, ops.paged_attention_reference(q32, kp, vp, tables, kv_len, 1),
+                               **F32_TOL)
+    (name, args), = spy.calls
+    assert name == "tva_paged_attention" and args[6:8] == (0, 0) and args[14] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd,nq,nkv", QUANT_SHAPES)
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+def test_quant_paged_t1_split_matches_plain(cuda, tier, hd, nq, nkv, bs, monkeypatch):
+    """K8 with bf16 queries on the T = 1 split body, as K6's test holds
+    it; fp32 queries take the fp32 body."""
+    from tpu_voice_agent_torch.ops._lib import TICKETS
+
+    pa = importlib.import_module("tpu_voice_agent_torch.ops.paged_attention")
+    bits = 8 if tier == "int8" else 4
+    q, tables, kv_len, n, g = _t1_case(cuda, hd, nq, nkv, bs, hd + nq + bs + bits)
+    kp, vp, ks, vs = _quant_pool(g, (2, n, bs, nkv, hd), tier)
+    ref = ops.paged_attention_quant_reference(q, kp, vp, ks, vs, tables, kv_len, 1, bits=bits)
+    out = ops.paged_attention_quant(q, kp, vp, ks, vs, tables, kv_len, 1, bits=bits)
+    assert bool((out[0] == 0).all())
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    assert torch.equal(out, ops.paged_attention_quant(q, kp, vp, ks, vs, tables, kv_len, 1,
+                                                      bits=bits))
+    assert int(TICKETS[q.device].abs().sum()) == 0
+    spy = _Spy(pa.library())
+    monkeypatch.setattr(pa, "library", lambda: spy)
+    q32 = q.float()
+    out = ops.paged_attention_quant(q32, kp, vp, ks, vs, tables, kv_len, 1, bits=bits)
+    torch.testing.assert_close(out, ops.paged_attention_quant_reference(
+        q32, kp, vp, ks, vs, tables, kv_len, 1, bits=bits), **F32_TOL)
+    (name, args), = spy.calls
+    assert name == "tva_paged_attention_quant" and args[8:10] == (0, 0) and args[16] == 0

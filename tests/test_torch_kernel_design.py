@@ -29,6 +29,13 @@ checked on the CPU.
   the stored integers, the scales after Q.K^T and before P.V), P in three
   bf16 parts, and the dense bodies' merge. The emulation below repeats that
   arithmetic in float32 with exact products.
+- K6 (``paged_attention``) and K8 (``paged_attention_quant``) with bf16
+  queries run that body's T = 1 kernel: chunks of whole block steps
+  (``paged_t1_chunk``: four warps of 32-key tiles) sized so that the
+  engines' rows leave about as many live blocks as fit the card at once,
+  each warp taking every 4th tile of its split with its own (m, l, acc),
+  the warps merged in order, and at a group of at most 8 P's high and
+  middle parts in one 16-row fragment. Its emulation repeats that order.
 """
 
 import numpy as np
@@ -39,13 +46,18 @@ from tpu_voice_agent_torch.ops.decode_attention import (
     KEY_SETS,
     MAX_SPLITS,
     MERGE_GROUP,
+    H100_SMS,
+    PAGED_KEY_SETS,
     PAGED_LIVE_BLOCKS,
+    PAGED_T1_TILE,
     PAGED_TILE,
     SPLIT_BLOCKS,
     decode_attention_reference,
     key_chunk,
     key_sets,
     paged_key_chunk,
+    paged_t1_blocks_per_sm,
+    paged_t1_chunk,
 )
 from tpu_voice_agent_torch.ops.grouped_matmul import MAX_SPLITK, STAGE_DEPTH, split_depth
 
@@ -456,4 +468,167 @@ def test_paged_split_emulation_matches_plain(bs, max_blocks, tier):
     assert np.all(np.abs(out - ref) <= ATTN_RTOL * np.abs(ref) + ATTN_ATOL)
     # far inside it: the emulation's float32 sums round a few bf16 outputs
     # one ulp off the plain version's, not more
+    assert float(np.mean(out != ref)) < 0.02
+
+
+# ------------------------------------------------- K6 / K8's T = 1 body
+
+
+@pytest.mark.parametrize("B,nkv,hd", [
+    (32, 4, 64),  # the 32-slot fast-forward-0 drains: tinyllama-1.1b
+    (15, 4, 64),  # the 15-slot paged spec engine's T = 1 steps
+    (8, 8, 128),  # mixtral-8x7b's 8-slot paged drain
+])
+def test_paged_t1_chunk_fills_the_card_at_the_path_frontiers(B, nkv, hd):
+    """The T = 1 picker, from the shapes alone: whole block steps (four
+    warps of 32-key tiles), at most 64 splits, and at the engines'
+    frontiers at least one live block an SM; at half-full tables, and (at
+    the 32-slot batch) at every frontier, no more blocks than fit the card
+    at once at this head dim, so that a step runs in one wave."""
+    S = 2048
+    chunk = paged_t1_chunk(B, S, nkv, hd)
+    assert chunk % (PAGED_KEY_SETS * PAGED_T1_TILE) == 0 and chunk % PAGED_TILE == 0
+    assert -(-S // chunk) <= MAX_SPLITS
+    fits = paged_t1_blocks_per_sm(hd) * H100_SMS
+    assert B * nkv * ((S // 2 - 1) // chunk + 1) <= fits
+    for front in PAGED_FRONTIERS:
+        live = B * nkv * (front // chunk + 1)
+        assert live >= H100_SMS
+        if B == 32:
+            assert live <= fits
+    # the T = 1 step has 1/9 of the (32, 9) step's arithmetic: its splits
+    # are wider than K7's at the batch, and far more blocks live than K6's
+    # old one block a (row, kv head)
+    if B == 32:
+        assert chunk == 384 and chunk > paged_key_chunk(B, S, nkv)
+
+
+@pytest.mark.parametrize("B,S,nkv,hd", [(1, 32, 2, 64), (4, 320, 2, 32), (4, 1280, 2, 48),
+                                        (1, 100_000, 1, 64), (8, 1, 1, 16),
+                                        (64, 2048, 4, 64), (32, 8192, 8, 128)])
+def test_paged_t1_chunk_is_whole_steps_and_bounded(B, S, nkv, hd):
+    chunk = paged_t1_chunk(B, S, nkv, hd)
+    assert chunk % (PAGED_KEY_SETS * PAGED_T1_TILE) == 0 and chunk % PAGED_TILE == 0
+    assert -(-S // chunk) <= MAX_SPLITS
+
+
+def _paged_t1_emulation(q, k_rows, v_rows, k_scale, v_scale, tables, kv_len, bs):
+    """The T = 1 body's arithmetic (csrc/paged_split.cuh paged_t1_kernel),
+    one (batch row, kv head) at a time: q (B, nq, hd) bf16 values, the pool
+    plane and scales as ``_paged_split_emulation`` takes them. Per split of
+    ``paged_t1_chunk`` keys, warp w of PAGED_KEY_SETS takes the 32-key tiles
+    w, w + 4, ... with its own online softmax (float32, exact products);
+    a tile's P.V: at a group of at most 8 the low and high parts in one
+    accumulator and the middle part in the other (the 16-row fragment's
+    upper rows), the two summed after the last tile; otherwise the three
+    parts in one. The warps merge in order, then the splits (groups of 8,
+    then the groups), A / (L or 1); one live split writes the output."""
+    B, nq, hd = q.shape
+    nkv = k_rows.shape[1]
+    group = nq // nkv
+    pack = group <= 8
+    S = tables.shape[1] * bs
+    chunk = paged_t1_chunk(B, S, nkv, hd)
+    scale = np.float32(hd ** -0.5)
+    out = np.zeros((B, nq, hd), np.float32)
+    for b in range(B):
+        pool_row = [int(tables[b, s // bs]) * bs + s % bs for s in range(S)]
+        fr = min(int(kv_len[b]) - 1, S - 1)
+        live = max(fr, 0) // chunk + 1
+        for kvh in range(nkv):
+            qh = q[b, kvh * group:(kvh + 1) * group].astype(np.float64)
+            splits = []
+            for split in range(live):
+                c0 = split * chunk
+                kend = min(c0 + chunk, S, fr + 1)
+                tiles = list(range(c0, kend, PAGED_T1_TILE))
+                warps = []
+                for w in range(PAGED_KEY_SETS):
+                    m = np.full(group, -1e30, np.float32)
+                    l = np.zeros(group, np.float32)
+                    acc = [np.zeros((group, hd), np.float32) for _ in range(2)]
+                    for k0 in tiles[w::PAGED_KEY_SETS]:
+                        keys = np.arange(k0, min(k0 + PAGED_T1_TILE, kend))
+                        pr = [pool_row[s] for s in keys]
+                        kt, vt = (k_rows[pr, kvh].astype(np.float64),
+                                  v_rows[pr, kvh].astype(np.float64))
+                        s = (qh @ kt.T).astype(np.float32)
+                        if k_scale is not None:
+                            s = s * k_scale[pr, kvh][None, :]
+                        s = (s * scale).astype(np.float32)
+                        m_new = np.maximum(m, s.max(axis=1))
+                        p = np.exp(s - m_new[:, None], dtype=np.float32)
+                        alpha = np.exp(m - m_new, dtype=np.float32)
+                        l = (alpha * l + p.sum(axis=1, dtype=np.float32)).astype(np.float32)
+                        if v_scale is not None:
+                            p = (p * v_scale[pr, kvh][None, :]).astype(np.float32)
+                        if pack:
+                            hi = _bf16_parts(p, 1)
+                            mid = _bf16_parts(p, 2) - hi
+                            lo = _bf16_parts(p, 3) - hi - mid
+                            tiles_pv = [((lo @ vt).astype(np.float32) + hi @ vt).astype(
+                                np.float32), (mid @ vt).astype(np.float32)]
+                        else:
+                            tiles_pv = [(_bf16_parts(p) @ vt).astype(np.float32),
+                                        np.zeros((group, hd), np.float32)]
+                        acc = [(a.astype(np.float64) * alpha[:, None] + t).astype(np.float32)
+                               for a, t in zip(acc, tiles_pv)]
+                        m = m_new
+                    warps.append((m, l, (acc[0] + acc[1]).astype(np.float32)))
+                merged = [_merge([(wm[r], wl[r], wa[r]) for wm, wl, wa in warps])
+                          for r in range(group)]
+                splits.append(merged)
+            for r in range(group):
+                mine = [sp[r] for sp in splits]
+                if len(mine) > MERGE_GROUP:
+                    mine = [_merge(mine[i:i + MERGE_GROUP])
+                            for i in range(0, len(mine), MERGE_GROUP)]
+                _, L, A = _merge(mine) if len(mine) > 1 else mine[0]
+                out[b, kvh * group + r] = A / (L if L != 0 else np.float32(1))
+    return out
+
+
+@pytest.mark.parametrize("bs,max_blocks,nq", [(16, 20, 8), (128, 10, 8), (16, 20, 32)])
+@pytest.mark.parametrize("tier", [None, "int8", "int4"])
+def test_paged_t1_emulation_matches_plain(bs, max_blocks, nq, tier):
+    """K6 (bf16 pool) and K8 (int8 / int4 pools) with bf16 queries: the T = 1
+    body's arithmetic, emulated in float32 with exact products, holds
+    chip_smoke.py's bf16 tolerance against paged_attention_reference and
+    paged_attention_quant_reference at bs 16 and 128 (up to 10 splits of
+    128 keys, so the two-level merge too), groups of 4 (P's parts packed)
+    and 16, a shared prefix, ragged kv_len, a row at kv_len 0 (zeros) and
+    one at kv_len 1."""
+    from tpu_voice_agent_torch.ops import (
+        paged_attention_quant_reference,
+        paged_attention_reference,
+    )
+    from tpu_voice_agent_torch.ops.kvquant import dequantize_kv, quantize_kv
+
+    rng = np.random.default_rng(7 * bs + max_blocks + nq + (0 if tier is None else len(tier)))
+    B, nkv, hd = 4, 2, 64
+    tables, qpos, N = _paged_case(rng, bs, max_blocks, B, 1)
+    kv_len = qpos[:, 0] + 1
+    kv_len[0], kv_len[1] = 0, 1
+    q = torch.from_numpy(rng.standard_normal((B, nq, hd)).astype(np.float32)).bfloat16()
+    kv = [torch.from_numpy(rng.standard_normal((1, N, bs, nkv, hd)).astype(np.float32))
+          for _ in range(2)]
+    t_tables, t_len = torch.from_numpy(tables), torch.from_numpy(kv_len.astype(np.int32))
+    if tier is None:
+        kp, vp = (x.bfloat16() for x in kv)
+        ref = paged_attention_reference(q, kp, vp, t_tables, t_len, 0)
+        rows = [x[0].reshape(N * bs, nkv, hd).float().numpy() for x in (kp, vp)]
+        scales = [None, None]
+    else:
+        (kp, ks), (vp, vs) = (quantize_kv(x, tier) for x in kv)
+        ref = paged_attention_quant_reference(q, kp, vp, ks, vs, t_tables, t_len, 0,
+                                              bits=8 if tier == "int8" else 4)
+        ones = torch.ones(1, N, bs, nkv)
+        rows = [dequantize_kv(x, ones, tier, torch.float32)[0].reshape(N * bs, nkv, hd).numpy()
+                for x in (kp, vp)]
+        scales = [x[0].reshape(N * bs, nkv).float().numpy() for x in (ks, vs)]
+    out = _paged_t1_emulation(q.float().numpy(), *rows, *scales, tables, kv_len, bs)
+    out = torch.from_numpy(out).bfloat16().float().numpy()
+    ref = ref.float().numpy()
+    assert not out[0].any() and not ref[0].any()
+    assert np.all(np.abs(out - ref) <= ATTN_RTOL * np.abs(ref) + ATTN_ATOL)
     assert float(np.mean(out != ref)) < 0.02

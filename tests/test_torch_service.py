@@ -153,7 +153,8 @@ def test_env_factory_reads_the_jax_service_names(monkeypatch):
 
 
 UNSERVED = ("BRAIN_MODEL", "RADIX_SESSIONS", "RADIX_MAX_NODES", "RADIX_PRESSURE_S",
-            "PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "TENANT_PREEMPT", "BRAIN_MAX_INFLIGHT")
+            "PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "TENANT_PREEMPT", "BRAIN_MAX_INFLIGHT",
+            "TENANT_CLASSES", "CHAOS_FAULTS", "ENGINE_STALL_S")
 
 
 def _tiny_env(monkeypatch):
@@ -170,6 +171,8 @@ def _tiny_env(monkeypatch):
     ("RADIX_MAX_NODES", "1024"), ("RADIX_PRESSURE_S", "0.5"),
     ("PREFILL_CHUNK_TOKENS", "256"), ("QUARANTINE_AFTER", "2"),
     ("TENANT_PREEMPT", "0"), ("BRAIN_MAX_INFLIGHT", "32"),
+    ("TENANT_CLASSES", "gold:4:0.5,free:1:0.1"), ("CHAOS_FAULTS", "nan_inject:0.5"),
+    ("ENGINE_STALL_S", "30"),
 ])
 def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
     """Each knob the JAX brain honours and the port does not serve (or serves
@@ -188,6 +191,7 @@ def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
     ("RADIX_SESSIONS", "256"), ("RADIX_MAX_NODES", "4096"), ("RADIX_PRESSURE_S", "2"),
     ("PREFILL_CHUNK_TOKENS", ""), ("QUARANTINE_AFTER", ""), ("TENANT_PREEMPT", " "),
     ("BRAIN_MAX_INFLIGHT", ""), ("BRAIN_MODEL", ""),
+    ("TENANT_CLASSES", ""), ("CHAOS_FAULTS", " "), ("ENGINE_STALL_S", ""),
 ])
 def test_env_factory_passes_the_values_it_serves(monkeypatch, name, value):
     """The radix knobs at the port's constants, and the unported knobs unset

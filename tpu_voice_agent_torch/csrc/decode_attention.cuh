@@ -1,12 +1,12 @@
-// The paged decode-attention fp32 body of K6 (paged_attention.cu), K8
-// (paged_attention_quant.cu) and the fp32-query launches of K7 and K9 (the
-// distilled checkpoint's golden phases): T <= 16 query tokens per batch row
-// against a paged KV pool read through block tables; q/o bf16 or fp32 (TQ),
-// the pool bf16 or quantized (TC: QInt8, QInt4, the loaders of kv_chunk.cuh),
-// arithmetic in fp32. Each source instantiates only its own part, so they
-// compile in parallel. K7 and K9 with bf16 queries run the tensor-core split
-// body of paged_split.cuh; the dense caches' kernels (K2, K3, K5, K10, K12)
-// the split-key body of decode_split.cuh.
+// The paged decode-attention fp32 body: the fp32-query launches of K6, K7
+// (paged_attention.cu), K8 and K9 (paged_attention_quant.cu), the distilled
+// checkpoint's golden phases. T <= 16 query tokens per batch row against a
+// paged KV pool read through block tables; q/o fp32, the pool bf16 or
+// quantized (TC: QInt8, QInt4, the loaders of kv_chunk.cuh), arithmetic in
+// fp32. Each source instantiates only its own part, so they compile in
+// parallel. bf16 queries run the tensor-core split body of paged_split.cuh;
+// the dense caches' kernels (K2, K3, K5, K10, K12) the split-key body of
+// decode_split.cuh.
 //
 // Its design: one block per (kv head, batch row). The `group * T` query rows
 // of one kv head share every K/V tile, which is read once from device memory
@@ -25,8 +25,6 @@
 // layer's scale plane, at the pool row * nkv + kvh. The TPU kernels fold the
 // scales into the score and probability tiles instead, `(q . k_int) * ks`,
 // which differs from this only by fp32 summation order.
-// Splitting the key range across blocks (K6, K8 at T = 1) and reading a
-// shared prefix block once per kv head across rows are later work here.
 #pragma once
 
 #include "kv_chunk.cuh"
@@ -274,36 +272,30 @@ bool bad_shape(int B, int T, int S, int nq, int nkv, int bs, const int* table) {
          nq / nkv > 16 || bs <= 0 || table == nullptr;
 }
 
-// K6/K7: the pool's layer plane, always bf16.
+// K6/K7 with fp32 queries: the pool's layer plane, always bf16.
 int dispatch(const void* q, const void* kc, const void* vc, const int* kv_len, const int* qpos,
              const int* table, int bs, void* o, int B, int T, int S, int nq, int nkv, int hd,
-             float scale, int dtype, void* stream) {
+             float scale, void* stream) {
   if (bad_shape(B, T, S, nq, nkv, bs, table)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  using BF = __nv_bfloat16;
-  if (dtype == TVA_DTYPE_F32) {
-    TVA_DISPATCH_HD(hd, return launch_rows<HD, float, BF>(q, kc, vc, nullptr, nullptr, kv_len,
-                                                          qpos, table, bs, o, B, T, S, nq, nkv,
-                                                          scale, st));
-  }
-  if (dtype != TVA_DTYPE_BF16) return (int)cudaErrorInvalidValue;
-  TVA_DISPATCH_HD(hd, return launch_rows<HD, BF, BF>(q, kc, vc, nullptr, nullptr, kv_len, qpos,
-                                                     table, bs, o, B, T, S, nq, nkv, scale, st));
+  TVA_DISPATCH_HD(hd, return launch_rows<HD, float, __nv_bfloat16>(
+                             q, kc, vc, nullptr, nullptr, kv_len, qpos, table, bs, o, B, T, S, nq,
+                             nkv, scale, st));
   return (int)cudaErrorInvalidValue;
 }
 
-// K8/K9: a quantized pool of `bits` 8 (int8) or 4 (packed int4) with its bf16
-// scale planes, built for the engines' head dims 32 (test-tiny), 48 (the
-// distilled checkpoint) and 64 (tinyllama-1.1b).
-template <typename TQ, typename TC>
+// K8/K9 with fp32 queries: a quantized pool of `bits` 8 (int8) or 4 (packed
+// int4) with its bf16 scale planes, built for the engines' head dims 32
+// (test-tiny), 48 (the distilled checkpoint) and 64 (tinyllama-1.1b).
+template <typename TC>
 int dispatch_quant_hd(const void* q, const void* kc, const void* vc, const void* ksc,
                       const void* vsc, const int* kv_len, const int* qpos, const int* table,
                       int bs, void* o, int B, int T, int S, int nq, int nkv, int hd, float scale,
                       cudaStream_t st) {
 #define TVA_QUANT_HD(H)                                                                       \
   case H:                                                                                    \
-    return launch_rows<H, TQ, TC>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, o, B, T, S, \
-                                  nq, nkv, scale, st);
+    return launch_rows<H, float, TC>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, o, B, T, \
+                                     S, nq, nkv, scale, st);
   switch (hd) {
     TVA_QUANT_HD(32)
     TVA_QUANT_HD(48)
@@ -317,19 +309,16 @@ int dispatch_quant_hd(const void* q, const void* kc, const void* vc, const void*
 int dispatch_quant(const void* q, const void* kc, const void* vc, const void* ksc,
                    const void* vsc, const int* kv_len, const int* qpos, const int* table, int bs,
                    void* o, int B, int T, int S, int nq, int nkv, int hd, float scale, int bits,
-                   int dtype, void* stream) {
+                   void* stream) {
   if (bad_shape(B, T, S, nq, nkv, bs, table) || ksc == nullptr || vsc == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  using BF = __nv_bfloat16;
-#define TVA_QUANT_CALL(TQ, TC)                                                                  \
-  return dispatch_quant_hd<TQ, TC>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, o, B, T, S, nq, \
-                                   nkv, hd, scale, st)
-  if (bits == 8 && dtype == TVA_DTYPE_F32) TVA_QUANT_CALL(float, QInt8);
-  if (bits == 8 && dtype == TVA_DTYPE_BF16) TVA_QUANT_CALL(BF, QInt8);
-  if (bits == 4 && dtype == TVA_DTYPE_F32) TVA_QUANT_CALL(float, QInt4);
-  if (bits == 4 && dtype == TVA_DTYPE_BF16) TVA_QUANT_CALL(BF, QInt4);
-#undef TVA_QUANT_CALL
+  if (bits == 8)
+    return dispatch_quant_hd<QInt8>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, o, B, T, S, nq,
+                                    nkv, hd, scale, st);
+  if (bits == 4)
+    return dispatch_quant_hd<QInt4>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, o, B, T, S, nq,
+                                    nkv, hd, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

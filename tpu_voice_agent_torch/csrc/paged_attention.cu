@@ -1,6 +1,6 @@
 // K6 and K7: decode attention through block tables into a paged KV pool
 // (L, N, bs, nkv, hd) bf16; q/o bf16 or fp32, arithmetic (sums) in fp32. The
-// bodies: paged_split.cuh (K7, bf16 q) and decode_attention.cuh (K6; K7, fp32 q).
+// bodies: paged_split.cuh (bf16 q) and decode_attention.cuh (fp32 q).
 //
 // Replaces: tpu_voice_agent/ops/paged_attention.py
 //   K6 `paged_attention` (`_paged_kernel`; pallas_call at :147): one query
@@ -25,23 +25,39 @@
 //   where the whole call's K/V bytes take ~3 us at the HBM rate. It runs the
 //   tensor-core split body of paged_split.cuh: Q.K^T and P.V on mma.sync, the
 //   key range split across the card, the table read once a split.
-// - K6 (T = 1) and K7 with fp32 queries (the distilled checkpoint): the fp32
-//   body of decode_attention.cuh, one block per (kv head, batch row) sharing
-//   each K/V tile across the kv head's query rows; K6's ~900-key rows are
-//   bound by load latency. Splitting its key range, and reading a shared
-//   prefix block once per kv head across rows, are later work.
+// - K6 with bf16 queries (every fast-forward-0 step of a bf16 engine): the
+//   same bytes, 1/9 of the arithmetic, so what bounds it is bringing the
+//   tiles in. It runs paged_split.cuh's T = 1 body: the key range split
+//   finer across the card (`paged_t1_chunk`), each split's tiles spread
+//   over the four warps of a block, the warps' partials merged in order.
+// - fp32 queries (the distilled checkpoint's golden phases): the fp32 body of
+//   decode_attention.cuh, one block per (kv head, batch row) sharing each K/V
+//   tile across the kv head's query rows.
 #include "decode_attention.cuh"
 #include "paged_split.cuh"
 
 // K6: q (B,nq,hd), the layer's pool plane (N*bs,nkv,hd) for k and v, block
-// tables (B,max_blocks) int32, kv_len (B,) int32; q and o of one dtype.
+// tables (B,max_blocks) int32, kv_len (B,) int32; q and o of one dtype. bf16
+// q: the split body at T = 1, `chunk` keys a split (a multiple of 64, at most
+// 64 splits), `part` fp32 scratch of B * nkv * (splits + ceil(splits / 8)) *
+// group * (hd + 2) floats and `tickets` B * nkv * 9 int32 counters, all 0
+// (left 0); fp32 q takes none of them.
 extern "C" int tva_paged_attention(const void* q, const void* kc, const void* vc,
-                                   const int* table, const int* kv_len, void* o, int B,
-                                   int max_blocks, int bs, int nq, int nkv, int hd, float scale,
-                                   int dtype, void* stream) {
+                                   const int* table, const int* kv_len, void* o, void* part,
+                                   void* tickets, int B, int max_blocks, int bs, int nq, int nkv,
+                                   int hd, int chunk, float scale, int dtype, void* stream) {
   if (max_blocks <= 0 || table == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch(q, kc, vc, kv_len, nullptr, table, bs, o, B, 1, max_blocks * bs, nq, nkv,
-                        hd, scale, dtype, stream);
+  if (dtype == TVA_DTYPE_F32)
+    return dispatch(q, kc, vc, kv_len, nullptr, table, bs, o, B, 1, max_blocks * bs, nq, nkv,
+                    hd, scale, stream);
+  if (dtype != TVA_DTYPE_BF16 ||
+      paged::bad_shape(B, 1, max_blocks, bs, nq, nkv, chunk, table, part, tickets))
+    return (int)cudaErrorInvalidValue;
+  TVA_DISPATCH_HD(hd, return paged::launch_t1<HD, __nv_bfloat16>(
+                             q, kc, vc, nullptr, nullptr, kv_len, table, o, (float*)part,
+                             (int*)tickets, B, max_blocks, bs, nq, nkv, chunk, scale,
+                             (cudaStream_t)stream));
+  return (int)cudaErrorInvalidValue;
 }
 
 // K7: q (B,T,nq,hd), the layer's pool plane, block tables (B,max_blocks),
@@ -58,7 +74,7 @@ extern "C" int tva_paged_block_attention(const void* q, const void* kc, const vo
   if (max_blocks <= 0 || table == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == TVA_DTYPE_F32)
     return dispatch(q, kc, vc, nullptr, q_positions, table, bs, o, B, T, max_blocks * bs, nq,
-                    nkv, hd, scale, dtype, stream);
+                    nkv, hd, scale, stream);
   if (dtype != TVA_DTYPE_BF16 ||
       paged::bad_shape(B, T, max_blocks, bs, nq, nkv, chunk, table, part, tickets))
     return (int)cudaErrorInvalidValue;

@@ -39,7 +39,7 @@ QUANT_HEAD_DIMS = (32, 48, 64)
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 # per device: the int32 ticket counters of the kernels whose last block
-# merges the others' partials (K2 / K3 / K5 / K7 / K9 / K10 / K12, K13's
+# merges the others' partials (K2 / K3 / K5 to K10 / K12, K13's
 # split-K), and the fp32 scratch the split-key attention kernels write those
 # partials to
 TICKETS: dict = {}
@@ -124,15 +124,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # q, flat k cache, flat v cache, q_positions, o, partials, tickets, B, T, S, nq, nkv,
         # hd, chunk, scale, dtype, stream
         "tva_decode_block_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
-        # q, k plane, v plane, table, kv_len, o, B, max_blocks, bs, nq, nkv, hd, scale,
-        # dtype, stream
-        "tva_paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+        # q, k plane, v plane, table, kv_len, o, partials, tickets, B, max_blocks, bs, nq,
+        # nkv, hd, chunk, scale, dtype, stream
+        "tva_paged_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, table, q_positions, o, partials, tickets, B, T, max_blocks, bs,
         # nq, nkv, hd, chunk, scale, dtype, stream
         "tva_paged_block_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
-        # q, k plane, v plane, k scales, v scales, table, kv_len, o, B, max_blocks, bs, nq,
-        # nkv, hd, scale, bits, dtype, stream
-        "tva_paged_attention_quant": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P],
+        # q, k plane, v plane, k scales, v scales, table, kv_len, o, partials, tickets, B,
+        # max_blocks, bs, nq, nkv, hd, chunk, scale, bits, dtype, stream
+        "tva_paged_attention_quant": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I,
+                                      I, P],
         # q, k plane, v plane, k scales, v scales, table, q_positions, o, partials, tickets,
         # B, T, max_blocks, bs, nq, nkv, hd, chunk, scale, bits, dtype, stream
         "tva_paged_block_attention_quant": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,

@@ -98,6 +98,13 @@ def key_chunk(B: int, S: int, nkv: int) -> int:
 PAGED_TILE = 64
 PAGED_MAX_ROWS = 128
 PAGED_LIVE_BLOCKS = 264
+# Its T = 1 body (K6 / K8 with bf16 queries; paged_split.cuh KEY_SETS,
+# T1_TILE): a block of PAGED_KEY_SETS warps, each taking every 4th 32-key
+# tile of a split. The picker aims at as many live blocks as fit the H100's
+# 132 SMs at once (``paged_t1_blocks_per_sm``).
+PAGED_KEY_SETS = 4
+PAGED_T1_TILE = 32
+H100_SMS = 132
 
 
 def paged_key_chunk(B: int, S: int, nkv: int) -> int:
@@ -112,6 +119,31 @@ def paged_key_chunk(B: int, S: int, nkv: int) -> int:
     chunk = (S // 2) // per_row // PAGED_TILE * PAGED_TILE
     fewest = -(-S // MAX_SPLITS)  # the widest splits MAX_SPLITS allow
     return max(chunk, -(-fewest // PAGED_TILE) * PAGED_TILE, PAGED_TILE)
+
+
+def paged_t1_blocks_per_sm(hd: int) -> int:
+    """T = 1 blocks that fit an SM: three at hd <= 64 (held to 128 registers,
+    room for four; their shared memory, 76 KB at hd 64, fits three), two at
+    hd 128 (229-247 registers a thread, ptxas: two 128-thread blocks fill the
+    SM's 64K registers)."""
+    return 3 if hd <= 64 else 2
+
+
+def paged_t1_chunk(B: int, S: int, nkv: int, hd: int) -> int:
+    """Keys per split of the paged T = 1 body (K6 / K8 with bf16 queries),
+    from the shapes alone: whole steps of the block (one 32-key tile a warp),
+    at most ``MAX_SPLITS`` splits, and as short as leaves rows whose kv_len
+    sits halfway into their tables (S / 2) with no more live blocks than fit
+    the card at once: a step's blocks run in one wave. 384 at the 32-slot
+    batch (S 2048, 4 kv heads, hd 64: 3 live splits a (row, kv head), 384
+    blocks of the 396 that fit), 256 at the 15-slot spec engine and at
+    mixtral-8x7b's 8-slot drain (hd 128: 256 of 264), 128 at one row."""
+    unit = PAGED_KEY_SETS * PAGED_T1_TILE  # a multiple of PAGED_TILE
+    blocks = paged_t1_blocks_per_sm(hd) * H100_SMS
+    per_row = max(1, blocks // (B * nkv))  # live splits a (row, kv head) may have
+    chunk = -(-(S // 2) // (per_row * unit)) * unit
+    fewest = -(-S // MAX_SPLITS)  # the widest splits MAX_SPLITS allow
+    return max(chunk, -(-fewest // unit) * unit)
 
 
 def key_sets(group: int, chunk: int, hd: int) -> int:

@@ -22,15 +22,16 @@ pool block ``block_tables[b, p // bs]``, offset ``p % bs``, of layer plane
 
 Two bodies, picked by the query dtype alone:
 
-- bf16 queries (every bf16 engine's chain steps) run K7 / K9 on the
-  tensor-core split body (``csrc/paged_split.cuh``): the key range split
-  into chunks of ``paged_key_chunk(B, S, nkv)`` keys across the card, merged
-  in a fixed order through the device's scratch and ticket counters (the
-  same bits run to run), Q.K^T and P.V on bf16 tensor cores with fp32 sums
-  and P in three bf16 parts. K9 keeps the TPU kernel's fold: the stored
-  integers in the products, each key's scale on its score after Q.K^T and
-  on its probability before P.V.
-- fp32 queries (the distilled checkpoint) and K6 / K8 run the fp32 body
+- bf16 queries (every bf16 engine's steps) run the tensor-core split body
+  (``csrc/paged_split.cuh``): the key range split into chunks across the
+  card (K7 / K9: ``paged_key_chunk(B, S, nkv)`` keys; K6 / K8:
+  ``paged_t1_chunk``, a split's tiles spread over the four warps of a
+  block), merged in a fixed order through the device's scratch and ticket
+  counters (the same bits run to run), Q.K^T and P.V on bf16 tensor cores
+  with fp32 sums and P in three bf16 parts. K8 / K9 keep the TPU kernel's
+  fold: the stored integers in the products, each key's scale
+  on its score after Q.K^T and on its probability before P.V.
+- fp32 queries (the distilled checkpoint) run the fp32 body
   (``csrc/decode_attention.cuh``); its loader widens ``int * scale`` into
   fp32 tiles, which is exact.
 
@@ -71,6 +72,7 @@ from .decode_attention import (
     decode_attention_reference,
     decode_block_attention_reference,
     paged_key_chunk,
+    paged_t1_chunk,
 )
 from .kvquant import dequantize_kv, kv_quant_of_bits
 
@@ -98,12 +100,13 @@ def _check_pool(name, q, k_pool, v_pool, block_tables, layer, nq, hd, *,
 
 
 @functools.lru_cache(maxsize=None)
-def _paged_plan(B: int, T: int, S: int, nq: int, nkv: int, hd: int) -> tuple[int, int, int]:
+def _paged_plan(B: int, T: int, S: int, nq: int, nkv: int, hd: int,
+                t1: bool = False) -> tuple[int, int, int]:
     """The chunk, the fp32 scratch floats and the ticket counters of a
-    launch of the paged split body; a block of more than PAGED_MAX_ROWS
-    query rows runs in parts of whole queries, one after another, that share
-    them."""
-    chunk = paged_key_chunk(B, S, nkv)
+    launch of the paged split body (K7 / K9, or ``t1`` the T = 1 body of
+    K6 / K8); a block of more than PAGED_MAX_ROWS query rows runs in parts
+    of whole queries, one after another, that share them."""
+    chunk = paged_t1_chunk(B, S, nkv, hd) if t1 else paged_key_chunk(B, S, nkv)
     splits = -(-S // chunk)
     entries = splits + -(-splits // MERGE_GROUP)
     group = nq // nkv
@@ -111,7 +114,7 @@ def _paged_plan(B: int, T: int, S: int, nq: int, nkv: int, hd: int) -> tuple[int
     return chunk, B * nkv * entries * rows * (hd + 2), B * nkv * TICKETS_PER_SLOT
 
 
-def _split_operands(name, q, planes, B, T, S, nq, nkv, hd, scale_planes=()):
+def _split_operands(name, q, planes, B, T, S, nq, nkv, hd, scale_planes=(), t1=False):
     """(chunk, scratch pointer, counters pointer) of a bf16-query launch,
     zeros for fp32 queries (the fp32 body takes none). The split body copies
     q and the pool planes in 16-byte units and a scale plane's 4-byte words."""
@@ -121,7 +124,7 @@ def _split_operands(name, q, planes, B, T, S, nq, nkv, hd, scale_planes=()):
             "q and the pool must be 16-byte aligned")
     require(all(t.data_ptr() % 4 == 0 for t in scale_planes), name,
             "the scale planes must be 4-byte aligned")
-    chunk, floats, counters = _paged_plan(B, T, S, nq, nkv, hd)
+    chunk, floats, counters = _paged_plan(B, T, S, nq, nkv, hd, t1)
     return (chunk, scratch(q.device, floats).data_ptr(),
             tickets(q.device, counters).data_ptr())
 
@@ -147,11 +150,15 @@ def paged_attention(
     require_cuda(name, q, kv_len)
     require(kv_len.dtype == torch.int32 and kv_len.shape == (B,), name,
             "kv_len must be (B,) int32")
+    code = dtype_code(name, q)
+    kp, vp = k_pool[layer], v_pool[layer]
+    chunk, part, counters = _split_operands(name, q, (kp, vp), B, 1, max_blocks * bs, nq, nkv,
+                                            hd, t1=True)
     out = torch.empty_like(q)
     err = library().tva_paged_attention(
-        q.data_ptr(), k_pool[layer].data_ptr(), v_pool[layer].data_ptr(),
-        block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(), B, max_blocks, bs, nq,
-        nkv, hd, float(scale), dtype_code(name, q), stream_of(q))
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), block_tables.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), part, counters, B, max_blocks, bs, nq, nkv, hd, chunk, float(scale),
+        code, stream_of(q))
     check(err, name)
     paged_attention.launches += 1
     return out
@@ -272,12 +279,15 @@ def paged_attention_quant(
     require_cuda(name, q, kv_len)
     require(kv_len.dtype == torch.int32 and kv_len.shape == (B,), name,
             "kv_len must be (B,) int32")
+    code = dtype_code(name, q)
+    kp, vp, ks, vs = k_pool[layer], v_pool[layer], k_scale[layer], v_scale[layer]
+    chunk, part, counters = _split_operands(name, q, (kp, vp), B, 1, max_blocks * bs, nq, nkv,
+                                            hd, (ks, vs), t1=True)
     out = torch.empty_like(q)
     err = library().tva_paged_attention_quant(
-        q.data_ptr(), k_pool[layer].data_ptr(), v_pool[layer].data_ptr(),
-        k_scale[layer].data_ptr(), v_scale[layer].data_ptr(), block_tables.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), B, max_blocks, bs, nq, nkv, hd, float(scale), bits,
-        dtype_code(name, q), stream_of(q))
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(), part, counters, B,
+        max_blocks, bs, nq, nkv, hd, chunk, float(scale), bits, code, stream_of(q))
     check(err, name)
     paged_attention_quant.launches += 1
     return out

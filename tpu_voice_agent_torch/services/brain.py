@@ -1,6 +1,6 @@
-"""Brain service: text + context -> validated intent plan, on the port's engine.
+"""Brain service: text + context -> validated intent plan.
 
-Port of the engine path of ``tpu_voice_agent/services/brain.py``.
+Port of the rule and engine paths of ``tpu_voice_agent/services/brain.py``.
 ``POST /parse`` takes ``{text, session_id?, context, speculative?}`` and
 answers with the ParseResponse dict (every default field filled, as
 pydantic's ``model_dump()`` fills it); errors come back as
@@ -9,8 +9,9 @@ pydantic's ``model_dump()`` fills it); errors come back as
 - 400 ``invalid_request``: the body is not JSON or not a ParseRequest;
 - 409 ``prefix_feed_unsupported``: no prefill-only admission path is ported;
 - 422 ``schema_validation_failed``: the decode ran out of budget before EOS;
-- 503 ``overloaded`` (with ``Retry-After``): the batcher shed the request
-  (the KV pool stayed exhausted);
+- 503 ``overloaded`` (with ``Retry-After``): the request's ``x-deadline-ms``
+  budget had run out on arrival (``deadline_expired``, ``Retry-After: 0``),
+  or the batcher shed it (the KV pool stayed exhausted);
 - 500 ``llm_error``: the engine failed (poisoned row, prompt too long, ...).
 
 A single-slot parser is serialized by one lock (one KV cache); the batched
@@ -23,8 +24,9 @@ standard library's ``ThreadingHTTPServer``.
     BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 \\
         python -m tpu_voice_agent_torch.services.brain
 
-Environment (the JAX service's names): ``BRAIN_BACKEND`` (``engine[:preset]``,
-default ``engine:tinyllama-1.1b``), ``BRAIN_QUANT`` (``int8``), ``BRAIN_FF``
+Environment (the JAX service's names): ``BRAIN_BACKEND`` (``rule``, the
+default: ``RuleBasedParser``, no model and no device; or
+``engine[:preset]``, preset default ``tinyllama-1.1b``), ``BRAIN_QUANT`` (``int8``), ``BRAIN_FF``
 (fast-forward width, default 8), ``BRAIN_PREFIX`` (``0`` skips the cached
 prompt prefix), ``BRAIN_PORT`` (default 8090), ``BRAIN_BATCH`` (slots,
 default 1), ``BRAIN_PAGED`` (``1``: the paged KV pool), ``BRAIN_POOL_BLOCKS``
@@ -40,7 +42,9 @@ does not serve raise ``ValueError`` at boot (``check_unserved_knobs``).
 from __future__ import annotations
 
 import json
+import logging
 import os
+import re
 import threading
 import uuid
 from collections import OrderedDict
@@ -50,8 +54,16 @@ from concurrent.futures import TimeoutError as FutureTimeout
 from contextlib import nullcontext
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from ..schemas import ValidationError, parse_response_from_json, validate_parse_request
+from ..schemas import (
+    ValidationError,
+    parse_response_from_json,
+    validate_parse_request,
+    validate_parse_response,
+)
 from .prompts import render_prompt
+from .resilience import Deadline
+
+log = logging.getLogger("tpu_voice_agent_torch.brain")
 
 
 class ParserError(Exception):
@@ -347,6 +359,89 @@ class BatchedEngineParser:
         self.loop.stop()
 
 
+class RuleBasedParser:
+    """Deterministic heuristic parser: the service's default backend (no
+    model, no device), and its test fake.
+
+    Port of the JAX service's ``RuleBasedParser``: the same command families
+    as the prompt's few-shots, the same intents, context updates, confidence,
+    ``tts_summary`` and ``follow_up_question``, returned as the validated
+    ParseResponse dict (every default field filled). Stateless, so requests
+    need not serialize."""
+
+    concurrent_safe = True
+    _URL = re.compile(r"(https?://\S+|\b[\w-]+\.(?:com|org|net|io|dev)\b)", re.I)
+
+    def parse(self, text: str, context: dict) -> dict:
+        t = text.strip().lower()
+        intents: list[dict] = []
+        ctx_updates: dict = {}
+        tts = None
+        follow_up = None
+        confidence = 0.9
+
+        def add(type_: str, **kw):
+            intents.append({"type": type_, **kw})
+
+        m = re.search(r"(?:search(?: for)?|find|look for)\s+(.+)", t)
+        url = self._URL.search(text)
+        if m:
+            q = m.group(1).strip(" .!?")
+            add("search", args={"query": q})
+            ctx_updates["last_query"] = q
+            tts = f"Searching for {q}"
+        elif url and ("open" in t or "navigate" in t or "go to" in t):
+            u = url.group(0)
+            if not u.startswith("http"):
+                u = "https://" + u
+            add("navigate", args={"url": u})
+            tts = f"Opening {u}"
+        elif "upload" in t:
+            add("upload", args={"fileRef": None}, requires_confirmation=True)
+            if "submit" in t:
+                add("click", target={"strategy": "text", "value": "Submit"},
+                    requires_confirmation=True)
+            tts = "I will upload after you confirm"
+        elif (m := re.search(r"sort(?:ed)?(?: these)?(?: by)?\s+(\w+)", t)):
+            direction = "desc" if ("high to low" in t or "descending" in t) else "asc"
+            add("sort", args={"field": m.group(1), "direction": direction})
+            tts = f"Sorting by {m.group(1)}"
+        elif (m := re.search(r"open the (first|second|third|\d+\w*) (?:result|item|link)", t)):
+            idx = {"first": 1, "second": 2, "third": 3}.get(m.group(1))
+            if idx is None:
+                idx = int(re.sub(r"\D", "", m.group(1)) or 1)
+            add("click", target={"strategy": "auto", "role": "link"}, args={"index": idx})
+            tts = f"Opening result {idx}"
+        elif (m := re.search(r"click(?: on)?(?: the)?\s+(.+?)(?: button| link)?$", t)):
+            add("click", target={"strategy": "text", "value": m.group(1).strip(" .!?")})
+            tts = f"Clicking {m.group(1).strip(' .!?')}"
+        elif "screenshot" in t:
+            add("screenshot")
+            tts = "Taking a screenshot"
+        elif "scroll" in t:
+            add("scroll", args={"direction": "up" if "up" in t else "down"})
+        elif re.search(r"\bgo back\b|\bback\b", t):
+            add("back")
+        elif "extract" in t and "table" in t:
+            add("extract_table", args={"format": "csv"})
+            tts = "Extracting the table"
+        elif "summarize" in t or "summary" in t:
+            add("summarize")
+        elif "cancel" in t:
+            add("cancel")
+        else:
+            add("unknown")
+            confidence = 0.3
+            follow_up = "I did not catch a browser action - could you rephrase?"
+
+        resp, err = validate_parse_response({
+            "intents": intents, "context_updates": ctx_updates, "confidence": confidence,
+            "tts_summary": tts, "follow_up_question": follow_up})
+        if resp is None:  # unreachable: every branch builds a valid plan
+            raise ParserError("schema_validation_failed", err)
+        return resp
+
+
 def _wrap_batched(engine) -> BatchedEngineParser:
     """The batched serving shape (``BRAIN_PREFIX`` / ``BRAIN_CHUNK``): an
     engine carrying a radix tree gets the session-aware transcripts; dense
@@ -371,9 +466,11 @@ def _wrap_engine(engine):
 
 # Knobs of features the port lacks: any set, non-empty value is refused.
 # Unset or empty is the JAX default (one-shot prefill, no quarantine list,
-# no tenant preemption, no admission cap).
+# no tenant preemption, no admission cap, no tenant classes, no injected
+# faults) or, for ENGINE_STALL_S, what the port has instead of the JAX
+# serving loop's watchdog: none.
 UNSERVED_KNOBS = ("PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "TENANT_PREEMPT",
-                  "BRAIN_MAX_INFLIGHT")
+                  "BRAIN_MAX_INFLIGHT", "TENANT_CLASSES", "CHAOS_FAULTS", "ENGINE_STALL_S")
 
 
 def check_unserved_knobs() -> None:
@@ -409,9 +506,10 @@ def check_unserved_knobs() -> None:
 
 
 def make_parser_from_env():
-    """``BRAIN_BACKEND=engine[:preset]`` (default ``engine:tinyllama-1.1b``)
-    with ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``; ``BRAIN_BATCH``
-    slots behind the continuous batcher; ``BRAIN_PAGED=1`` the paged pool
+    """``BRAIN_BACKEND=rule`` (the default: ``RuleBasedParser``, no model, no
+    device) or ``engine[:preset]`` (preset default ``tinyllama-1.1b``) with
+    ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``; ``BRAIN_BATCH`` slots
+    behind the continuous batcher; ``BRAIN_PAGED=1`` the paged pool
     (``BRAIN_POOL_BLOCKS``), with ``RADIX_ENABLE=1`` session KV reuse and
     ``KV_QUANT=int8|int4`` the quantized pool (both read at engine
     construction); ``SPEC_ENABLE=1`` speculative decoding on either engine
@@ -420,28 +518,38 @@ def make_parser_from_env():
     ``ValueError`` here, at boot); ``BRAIN_MOE=grouped`` the grouped-matmul
     MoE dispatch (a no-op on a dense preset, as in the JAX service). The
     engine runs on ``BRAIN_DEVICE`` (default ``cuda``: with no card it
-    raises). ``check_unserved_knobs`` runs first, before any engine."""
-    from ..serve.engine import DecodeEngine
-    from ..serve.paged import PagedDecodeEngine
-    from ..models.llama import PRESETS
+    raises). ``check_unserved_knobs`` runs first, before any engine; the
+    rule backend logs a warning for each engine knob set, as the JAX
+    service does, and ignores it."""
     from ..serve.spec import spec_from_env
 
     check_unserved_knobs()
     slots = int(os.environ.get("BRAIN_BATCH", "1"))
     device = os.environ.get("BRAIN_DEVICE") or None
-    backend = os.environ.get("BRAIN_BACKEND", "engine:tinyllama-1.1b")
+    paged = os.environ.get("BRAIN_PAGED") == "1"
+    quant = os.environ.get("BRAIN_QUANT") or None
+    moe = os.environ.get("BRAIN_MOE") == "grouped"
+    spec = spec_from_env()  # None unless SPEC_ENABLE=1
+    backend = os.environ.get("BRAIN_BACKEND", "rule")
+    if backend == "rule":
+        for name, val in (("BRAIN_PAGED", paged), ("BRAIN_QUANT", quant), ("BRAIN_MOE", moe),
+                          ("SPEC_ENABLE", spec)):
+            if val:
+                log.warning("%s is not supported by the rule backend; ignoring", name)
+        return RuleBasedParser()
     if not backend.startswith("engine"):
-        raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported (engine[:preset])")
+        raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported (rule, engine[:preset])")
+    from ..models.llama import PRESETS
+    from ..serve.engine import DecodeEngine
+    from ..serve.paged import PagedDecodeEngine
+
     preset = backend.split(":", 1)[1] if ":" in backend else "tinyllama-1.1b"
     if preset not in PRESETS:
         raise ValueError(f"BRAIN_BACKEND {backend!r}: unknown preset {preset!r}")
-    cfg = None
-    if os.environ.get("BRAIN_MOE") == "grouped":
-        cfg = replace(PRESETS[preset], moe_impl="grouped")
-    kw = dict(preset=preset, cfg=cfg, quant=os.environ.get("BRAIN_QUANT") or None,
-              fast_forward=int(os.environ.get("BRAIN_FF", "8")), device=device,
-              spec=spec_from_env())
-    if os.environ.get("BRAIN_PAGED") == "1":
+    cfg = replace(PRESETS[preset], moe_impl="grouped") if moe else None
+    kw = dict(preset=preset, cfg=cfg, quant=quant,
+              fast_forward=int(os.environ.get("BRAIN_FF", "8")), device=device, spec=spec)
+    if paged:
         pool = int(os.environ.get("BRAIN_POOL_BLOCKS", "0")) or None
         return _wrap_batched(PagedDecodeEngine(batch_slots=max(slots, 1), pool_blocks=pool,
                                                **kw))
@@ -476,8 +584,12 @@ class BrainApp:
                               {"k": engine.spec.K, "drafter": engine.spec.drafter.name}))
         return (200 if healthy else 503), body, {}
 
-    def parse(self, raw: bytes, trace_id: str | None = None) -> tuple[int, dict, dict]:
-        headers = {"x-trace-id": trace_id or uuid.uuid4().hex[:16]}
+    def parse(self, raw: bytes, req_headers=None) -> tuple[int, dict, dict]:
+        """``req_headers``: the request's headers (any mapping with
+        ``items()``, names in any case): ``x-trace-id`` and
+        ``x-deadline-ms``."""
+        req_headers = {k.lower(): v for k, v in (req_headers or {}).items()}
+        headers = {"x-trace-id": req_headers.get("x-trace-id") or uuid.uuid4().hex[:16]}
 
         def error(status: int, kind: str, detail: str):
             return status, {"error": kind, "detail": detail[:500]}, headers
@@ -493,6 +605,12 @@ class BrainApp:
         if preq["prefix_feed"]:
             return error(409, "prefix_feed_unsupported",
                          "backend has no prefill-only admission path")
+        deadline = Deadline.from_headers(req_headers)
+        if deadline is not None and deadline.expired:
+            # the caller already gave up: answering with work would burn a
+            # decode on a response nobody reads
+            return 503, {"error": "overloaded", "detail": "deadline_expired"}, {
+                **headers, "Retry-After": "0"}
         session = getattr(self.parser, "wants_session", False)
         # a single-slot engine owns one KV cache: its parses serialize
         guard = nullcontext() if getattr(self.parser, "concurrent_safe", False) else self.lock
@@ -548,7 +666,7 @@ def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> Thr
         def do_POST(self):
             raw = self.rfile.read(int(self.headers.get("Content-Length") or 0))
             if self.path == "/parse":
-                self._send(*app.parse(raw, self.headers.get("x-trace-id")))
+                self._send(*app.parse(raw, self.headers))
             else:
                 self._send(404, {"error": "not_found", "detail": self.path}, {})
 
