@@ -14,7 +14,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
               first (``digest``) the SHA-256 of K1's, K2's, K3's, K5's and
               (bf16 and fp32 queries) K6's to K9's outputs on seeded inputs,
               so two builds can be held to the same bits, and K5's and K6's
-              to K9's bf16 outputs held equal over two calls.
+              to K9's bf16 outputs held equal over two calls. K4 and K11 are
+              held exactly over every state of the intent grammar and timed
+              warm and cold (L2 flushed, new states each launch) at the
+              path's rows, beside the launch floor.
 4. service  - the port's brain service in-process on an ephemeral port with
               BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 (ff 8, the
               cached prompt prefix), answering /parse requests with bench.py's
@@ -330,7 +333,8 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     and the STT (whisper-large-v3: 20 heads, hd 64, bf16, MHA; encoder
     T = S = 500 at the 1000-frame bucket; decoder self cache S = 448 and
     cross-KV S = 500; the in-repo checkpoints: 4 heads, hd 16, fp32); the
-    MoE feed-forward (``_gmm_kernel_rows``: mixtral-8x7b's experts)."""
+    MoE feed-forward (``_gmm_kernel_rows``: mixtral-8x7b's experts); K4 and
+    K11 (``_grammar_kernel_rows``)."""
     import torch
     import torch.nn.functional as F
 
@@ -339,8 +343,6 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
         attention_reference,
         decode_attention_reference,
         decode_block_attention_reference,
-        masked_argmax_advance_reference,
-        masked_argmax_reference,
     )
 
     dev = torch.device("cuda")
@@ -607,65 +609,204 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     rows.update(_quant_kernel_rows(g, randn, n))
     rows.update(_gmm_kernel_rows(g))
 
-    # K4: the real intent-grammar tables, live and edge states, random
-    # logits. Exact: token ids and states must be equal (tolerance 0).
+    rows.update(_grammar_kernel_rows(fsm, g))
+    torch.cuda.synchronize()
+    return rows
+
+
+# K4 / K11's whole-grammar sweep: rows a launch
+SWEEP_ROWS = 4096
+
+
+def _grammar_kernel_rows(fsm, g) -> dict:
+    """K4 and K11 on the intent grammar's tables, exact (tolerance 0: every
+    token id and next state equal to the plain version's): live and edge
+    states, ties and dead states, then every state 0 .. S - 1 (``_argmax_sweep``).
+    Timed at the path's shapes, K4 at B = 1 (the one-slot parse), 8 (the MoE
+    drain) and 32 (the batch chunks), K11 at 5 and 160 rows (the (1, 5) and
+    (32, 5) verify blocks): warm, the same states every launch; and cold,
+    each launch the next (R,) slice of a seeded permutation of all the
+    states after the L2 is flushed, so the states' mask and table rows come
+    from HBM as a decoding row's new state's do. Beside them the launch
+    floor (an in-place add on one element) and, where the package picks the
+    rows a block (``argmax_geometry``), each choice timed."""
+    import importlib
+    import itertools
+
+    import torch
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import masked_argmax_advance_reference, masked_argmax_reference
+
+    dev = torch.device("cuda")
     tables = fsm.device_tables(device=dev)
-    V = fsm.vocab_size
+    mk, tb, cid = tables.dense_mask, tables.table, tables.col_id
+    S, V = fsm.num_states, fsm.vocab_size
+    # live and edge states, random logits, a tied row
     states = torch.tensor([fsm.start, 5, 100, 1000, 20000, -1, 35000, 777],
                           dtype=torch.int32, device=dev)
-    states = torch.clamp(states, max=fsm.num_states - 1)
+    states = torch.clamp(states, max=S - 1)
     logits = torch.randn(states.shape[0], V, generator=g, device=dev)
     logits[3, :] = 0.25  # ties: the first legal index must win
-    tok, nxt = ops.masked_argmax_advance(logits, states, tables.dense_mask, tables.table,
-                                         tables.col_id)
-    rtok, rnxt = masked_argmax_advance_reference(logits, states, tables.dense_mask,
-                                                 tables.table, tables.col_id)
+    tok, nxt = ops.masked_argmax_advance(logits, states, mk, tb, cid)
+    rtok, rnxt = masked_argmax_advance_reference(logits, states, mk, tb, cid)
     mismatch = int((tok != rtok).sum() + (nxt != rnxt).sum())
-    s1, l1 = states[:1].contiguous(), logits[:1].contiguous()
-    # one row: V logits (4 B) + its V-byte mask row + state, table entry and
-    # col_id entry in, token and state out; V compares
-    b_ms, b_by = bound(V * 4 + V + 3 * 4 + 2 * 4, V, FP32_FLOPS)
-    rows["masked_argmax_advance"] = _kernel_row(
-        "masked_argmax_advance", float(mismatch), float(mismatch > 0), 0.0,
-        cuda_ms(lambda: ops.masked_argmax_advance(l1, s1, tables.dense_mask, tables.table,
-                                                  tables.col_id), iters=200),
-        cuda_ms(lambda: masked_argmax_advance_reference(l1, s1, tables.dense_mask,
-                                                        tables.table, tables.col_id)),
-        b_ms, b_by, None)
 
-    # K11: the verify tail's masked argmax, one row per (slot, block
-    # position): 5 rows (B = 1, 1+K = 5) and 160 (B = 32), states drawn
-    # from the grammar's states with some dead (-1, clamped to 0), a tied
-    # row. Exact: token ids must be equal (tolerance 0).
+    # K11's verify blocks: states drawn from the grammar's with some dead (-1,
+    # clamped to 0), a tied row
     def verify_rows(R: int, seed: int):
         gen = torch.Generator().manual_seed(seed)
-        st = torch.randint(0, fsm.num_states, (R,), generator=gen, dtype=torch.int32)
+        st = torch.randint(0, S, (R,), generator=gen, dtype=torch.int32)
         st[0] = fsm.start
         st[torch.randperm(R, generator=gen)[:max(1, R // 10)]] = -1
         lg = torch.randn(R, V, generator=gen)
         lg[R // 2] = 0.5
         return lg.to(dev), st.to(dev)
 
-    mism, timings = 0, {}
+    mism, vrows = 0, {}
     for R in (5, 160):
         lg, st = verify_rows(R, R)
-        blk = ops.masked_argmax_block(lg.reshape(R // 5, 5, V), st.reshape(R // 5, 5),
-                                      tables.dense_mask)
-        ref = masked_argmax_reference(lg, st, tables.dense_mask)
-        mism += int((blk.flatten() != ref).sum())
-        stc = torch.clamp(st, min=0)  # what masked_argmax_block hands the kernel
-        # R rows of V logits (4 B) and V mask bytes, a state in, a token out
-        timings[R] = (cuda_ms(lambda: ops.masked_argmax(lg, stc, tables.dense_mask), iters=200),
-                      cuda_ms(lambda: masked_argmax_reference(lg, stc, tables.dense_mask)),
-                      *bound(R * V * 5 + 2 * 4 * R, R * V, FP32_FLOPS), None)
-    rows["masked_argmax"] = _kernel_row("masked_argmax", float(mism), float(mism > 0), 0.0,
-                                        *timings[5])
-    rows["masked_argmax"]["shape"] = (f"the (1, 5) verify block: 5 rows of V {V} fp32 logits "
-                                      "and the (S, V) grammar mask; 160 rows checked and timed")
-    rows["masked_argmax"]["batch"] = _extra_shape("the (32, 5) verify block: 160 rows",
-                                                  *timings[160])
+        blk = ops.masked_argmax_block(lg.reshape(R // 5, 5, V), st.reshape(R // 5, 5), mk)
+        mism += int((blk.flatten() != masked_argmax_reference(lg, st, mk)).sum())
+        vrows[R] = (lg, torch.clamp(st, min=0))  # what masked_argmax_block hands the kernel
+    sweep = _argmax_sweep(tables, S, V)
+    mismatch += sweep
+    mism += sweep
+    log(f"[kernels] K4 / K11 over all {S} states: {sweep} mismatches")
     torch.cuda.synchronize()
+
+    perm = torch.randperm(S, generator=torch.Generator().manual_seed(12)).to(
+        dev, torch.int32)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB > the 50 MB L2
+    one = torch.zeros(1, device=dev)
+    floor_ms = cuda_ms(lambda: one.add_(1), iters=200)
+    log(f"[kernels] launch floor (an in-place add on one element): {floor_ms:.5f} ms")
+
+    def k4(lg):
+        return lambda st: ops.masked_argmax_advance(lg, st, mk, tb, cid)
+
+    def k4_plain(lg):
+        return lambda st: masked_argmax_advance_reference(lg, st, mk, tb, cid)
+
+    def k11(lg):
+        return lambda st: ops.masked_argmax(lg, st, mk)
+
+    def k11_plain(lg):
+        return lambda st: masked_argmax_reference(lg, st, mk)
+
+    def warm_ms(fn, st, iters=200):
+        return cuda_ms(lambda: fn(st), iters=iters)
+
+    def cold_ms(fn, R, iters=200):
+        """Each launch the next (R,) slice of ``perm``, no slice twice in a
+        run, after the L2 is flushed."""
+        iters = min(iters, (S // R - 3) // 2)
+        slices = itertools.cycle([perm[i:i + R] for i in range(0, S - R + 1, R)])
+        flush.fill_(0)
+        return cuda_ms(lambda: fn(next(slices)), iters=iters)
+
+    def k4_bound(B):
+        # a row: V logits (4 B) + its V-byte mask row + state, table entry and
+        # col_id entry in, token and state out; V compares
+        return bound(B * (V * 4 + V + 3 * 4 + 2 * 4), B * V, FP32_FLOPS)
+
+    def k11_bound(R):
+        # R rows of V logits (4 B) and V mask bytes, a state in, a token out
+        return bound(R * V * 5 + 2 * 4 * R, R * V, FP32_FLOPS)
+
+    lg32 = torch.randn(32, V, generator=g, device=dev)
+    lgs = {1: logits[:1].contiguous(), 8: lg32[:8].contiguous(), 32: lg32}
+    fixed = {1: states[:1].contiguous(), 8: perm[:8].contiguous(), 32: perm[:32].contiguous()}
+    rows = {"masked_argmax_advance": _kernel_row(
+        "masked_argmax_advance", float(mismatch), float(mismatch > 0), 0.0,
+        warm_ms(k4(lgs[1]), fixed[1]), warm_ms(k4_plain(lgs[1]), fixed[1], iters=20),
+        *k4_bound(1), None)}
+    k4row = rows["masked_argmax_advance"]
+    k4row["shape"] = (f"B rows of V {V} fp32 logits over the intent grammar's ({S}, {V}) mask "
+                      f"and ({S}, {tb.shape[1]}) table: B = 1 warm at the start state (ms); "
+                      "B = 8 and 32 warm, and B = 1, 8, 32 cold; all states checked")
+    for B in (1, 8, 32):
+        if B > 1:
+            k4row[f"b{B}"] = _extra_shape(
+                f"B = {B}, warm", warm_ms(k4(lgs[B]), fixed[B]),
+                warm_ms(k4_plain(lgs[B]), fixed[B], iters=20), *k4_bound(B), None)
+        k4row[f"cold_b{B}"] = _extra_shape(
+            f"B = {B}, cold", cold_ms(k4(lgs[B]), B), cold_ms(k4_plain(lgs[B]), B, iters=20),
+            *k4_bound(B), None)
+    lg5, st5 = vrows[5]
+    lg160, st160 = vrows[160]
+    rows["masked_argmax"] = _kernel_row(
+        "masked_argmax", float(mism), float(mism > 0), 0.0, warm_ms(k11(lg5), st5),
+        warm_ms(k11_plain(lg5), st5, iters=20), *k11_bound(5), None)
+    k11row = rows["masked_argmax"]
+    k11row["shape"] = (f"the (1, 5) verify block: 5 rows of V {V} fp32 logits and the (S, V) "
+                       "grammar mask, warm (ms); 160 rows warm, 5 and 160 cold; all states "
+                       "checked")
+    k11row["batch"] = _extra_shape("the (32, 5) verify block: 160 rows",
+                                   warm_ms(k11(lg160), st160),
+                                   warm_ms(k11_plain(lg160), st160, iters=20),
+                                   *k11_bound(160), None)
+    for R, lg in ((5, lg5), (160, lg160)):
+        k11row[f"cold_r{R}"] = _extra_shape(f"{R} rows, cold", cold_ms(k11(lg), R),
+                                            cold_ms(k11_plain(lg), R, iters=20),
+                                            *k11_bound(R), None)
+    k4row["launch_floor_ms"] = k11row["launch_floor_ms"] = floor_ms
+
+    gm = importlib.import_module("tpu_voice_agent_torch.ops.grammar_mask")
+    picked = getattr(gm, "argmax_geometry", None)
+    if picked is not None:  # the warp-a-row body: time each rows-a-block choice
+        sweep_ms = {}
+        try:
+            for rpb in (1, 2, 4, 8):
+                gm.argmax_geometry = lambda R, V, rpb=rpb: (rpb, picked(R, V)[1])
+                for label, fn, st, R in (("k4_b8", k4(lgs[8]), fixed[8], 8),
+                                         ("k4_b32", k4(lgs[32]), fixed[32], 32),
+                                         ("k11_r5", k11(lg5), st5, 5),
+                                         ("k11_r160", k11(lg160), st160, 160)):
+                    sweep_ms[f"{label}_rows{rpb}"] = (warm_ms(fn, st), cold_ms(fn, R))
+        finally:
+            gm.argmax_geometry = picked
+        k4row["rows_per_block_ms"] = {k: v for k, v in sweep_ms.items() if k.startswith("k4")}
+        k11row["rows_per_block_ms"] = {k: v for k, v in sweep_ms.items()
+                                       if k.startswith("k11")}
+        log("[kernels]   rows a block (warm, cold ms): " + ", ".join(
+            f"{k} {w:.5f} {c:.5f}" for k, (w, c) in sweep_ms.items()))
     return rows
+
+
+def _argmax_sweep(tables, S: int, V: int) -> int:
+    """K4 and K11 over every state 0 .. S - 1 in chunks of ``SWEEP_ROWS``
+    rows, seeded logits, per chunk a tied row (first legal index) and a NaN
+    row: the number of tokens and next states that differ from the plain
+    versions' outside the NaN rows (whose picks must lie in range). The last
+    state's mask row ends its allocation: an overrun shows there as a
+    mismatch or a fault."""
+    import torch
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import masked_argmax_advance_reference
+
+    dev = tables.table.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bad = 0
+    for lo in range(0, S, SWEEP_ROWS):
+        st = torch.arange(lo, min(lo + SWEEP_ROWS, S), dtype=torch.int32, device=dev)
+        n = st.numel()
+        lg = torch.randn(n, V, generator=gen, device=dev)
+        lg[0] = 0.5
+        lg[n // 2, ::3] = float("nan")
+        keep = torch.arange(n, device=dev) != n // 2
+        tok, nxt = ops.masked_argmax_advance(lg, st, tables.dense_mask, tables.table,
+                                             tables.col_id)
+        tok11 = ops.masked_argmax(lg, st, tables.dense_mask)
+        rtok, rnxt = masked_argmax_advance_reference(lg, st, tables.dense_mask, tables.table,
+                                                     tables.col_id)
+        bad += int(((tok != rtok) | (nxt != rnxt) | (tok11 != rtok))[keep].sum())
+        for t in (tok, tok11):
+            fail_if(not 0 <= int(t[n // 2]) < V, f"a NaN row's pick {int(t[n // 2])} is out "
+                    f"of range")
+    torch.cuda.synchronize()
+    return bad
 
 
 def _host_us(fn, iters: int = 500) -> float:

@@ -141,45 +141,88 @@ def test_widest_decode_block(cuda):
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
 
 
-@pytest.mark.gpu
-def test_masked_argmax_advance_matches_plain(cuda):
-    rng = np.random.default_rng(5)
-    S, V, C = 40, 300, 24
+def _grammar_rows(V: int, R: int, seed: int):
+    """R rows over a random (S, V) grammar with C = 310 classes (the intent
+    grammar's count). Row i takes case i % 11: state S - 1 (its mask row
+    ends the allocation), state 0, a dead state (-1), the all-masked state
+    (token 0), all legal and every logit -inf (token 0), legal logits -inf
+    beside masked ones (the first masked index), ties at lane boundaries
+    (indices 31 / 32, 0 / V - 1, 255 / 256), a constant row (the first legal
+    index), and a NaN row. Returns numpy arrays and the NaN rows."""
+    rng = np.random.default_rng(seed)
+    S, C = 40, 310
     mask = rng.random((S, V)) < 0.3
-    mask[7] = False  # an all-masked state
+    mask[7] = False  # all masked
+    mask[9] = True  # all legal
     table = rng.integers(-1, S, size=(S, C)).astype(np.int32)
     col_id = rng.integers(0, C, size=(V,)).astype(np.int32)
-    logits = rng.standard_normal((6, V)).astype(np.float32)
-    logits[1, :] = 0.5  # ties: the first legal index wins
-    logits[4, :] = np.nan  # must not fault
-    state = np.array([0, 3, 7, -1, 39, 12], np.int32)
-    args = [torch.from_numpy(a).to(cuda) for a in (logits, state, mask, table, col_id)]
-    tok, nxt = ops.masked_argmax_advance(*args)
-    rtok, rnxt = ops.masked_argmax_advance_reference(*args)
-    keep = torch.arange(6, device=cuda) != 4  # a NaN row's pick is the poison gate's
-    assert torch.equal(tok[keep], rtok[keep]) and torch.equal(nxt[keep], rnxt[keep])
-    assert 0 <= int(tok[4]) < V
+    logits = rng.standard_normal((R, V)).astype(np.float32)
+    state = rng.integers(0, S, size=(R,)).astype(np.int32)
+    nan = np.zeros(R, bool)
+    for i in range(R):
+        case = i % 11
+        if case == 0:
+            state[i] = S - 1
+        elif case == 1:
+            state[i] = 0
+        elif case == 2:
+            state[i] = -1
+        elif case == 3:
+            state[i] = 7
+        elif case == 4:
+            state[i], logits[i] = 9, -np.inf
+        elif case == 5:
+            state[i], logits[i] = 3, -np.inf
+        elif case in (6, 7, 8):
+            a, b = {6: (31, 32), 7: (0, V - 1), 8: (255, 256)}[case]
+            state[i] = 9
+            logits[i, [a, b]] = 9.0
+        elif case == 9:
+            logits[i] = 0.5
+        else:
+            logits[i, ::3] = np.nan
+            nan[i] = True
+    return logits, state, mask, table, col_id, nan
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("V", [300, 619, 1500])
-def test_masked_argmax_matches_plain(cuda, V):
-    """K11 exactly: ties, an all-masked state (token 0), dead states clamped
-    to 0; and a (B, 1+K) verify block in one launch."""
-    rng = np.random.default_rng(V)
-    S = 40
-    mask = rng.random((S, V)) < 0.3
-    mask[7] = False
-    logits = rng.standard_normal((10, V)).astype(np.float32)
-    logits[1, :] = 0.5
-    state = np.array([0, 3, 7, -1, 39, 12, 5, 5, 0, 7], np.int32)
+@pytest.mark.parametrize("R", [1, 8, 32, 160])
+@pytest.mark.parametrize("V", [300, 619, 1500, 4096])
+def test_masked_argmax_advance_matches_plain(cuda, V, R):
+    """K4 exactly, outside the NaN rows (whose pick lies in range): every
+    row case of ``_grammar_rows``, at the unrolled (V <= 768) and the strided
+    geometry; two calls give the same bits."""
+    *case, nan = _grammar_rows(V, R, seed=V + R)
+    args = [torch.from_numpy(a).to(cuda) for a in case]
+    tok, nxt = ops.masked_argmax_advance(*args)
+    tok2, nxt2 = ops.masked_argmax_advance(*args)
+    assert torch.equal(tok, tok2) and torch.equal(nxt, nxt2)
+    rtok, rnxt = ops.masked_argmax_advance_reference(*args)
+    keep = ~torch.from_numpy(nan).to(cuda)
+    assert torch.equal(tok[keep], rtok[keep]) and torch.equal(nxt[keep], rnxt[keep])
+    assert bool(((tok >= 0) & (tok < V)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 8, 32, 160])
+@pytest.mark.parametrize("V", [300, 619, 1500, 4096])
+def test_masked_argmax_matches_plain(cuda, V, R):
+    """K11 exactly over the same row cases, and a (B, T) verify block in one
+    launch; two calls give the same bits."""
+    logits, state, mask, _table, _col_id, nan = _grammar_rows(V, R, seed=V * R)
     lg, st, mk = (torch.from_numpy(a).to(cuda) for a in (logits, state, mask))
+    keep = ~torch.from_numpy(nan).to(cuda)
     ops.reset_launch_counts()
     tok = ops.masked_argmax(lg, st, mk)
-    assert torch.equal(tok, ops.masked_argmax_reference(lg, st, mk)) and int(tok[2]) == 0
-    blk = ops.masked_argmax_block(lg.reshape(2, 5, V), st.reshape(2, 5), mk)
-    assert torch.equal(blk.flatten(), ops.masked_argmax_reference(lg, st, mk))
-    assert ops.launch_counts()["masked_argmax"] == 2
+    assert torch.equal(tok, ops.masked_argmax(lg, st, mk))
+    ref = ops.masked_argmax_reference(lg, st, mk)
+    assert torch.equal(tok[keep], ref[keep]) and bool(((tok >= 0) & (tok < V)).all())
+    if R > 3:
+        assert int(tok[3]) == 0  # the all-masked state
+    T = 5 if R % 5 == 0 else 1
+    blk = ops.masked_argmax_block(lg.reshape(R // T, T, V), st.reshape(R // T, T), mk)
+    assert torch.equal(blk.flatten(), tok)
+    assert ops.launch_counts()["masked_argmax"] == 3
 
 
 @pytest.mark.gpu

@@ -59,6 +59,14 @@ from tpu_voice_agent_torch.ops.decode_attention import (
     paged_t1_blocks_per_sm,
     paged_t1_chunk,
 )
+from tpu_voice_agent_torch.ops.grammar_mask import (
+    ARGMAX_MAX_PER_LANE,
+    ARGMAX_MAX_ROWS,
+    SMEM_PER_BLOCK,
+    argmax_geometry,
+    masked_argmax_advance_reference,
+    masked_argmax_reference,
+)
 from tpu_voice_agent_torch.ops.grouped_matmul import MAX_SPLITK, STAGE_DEPTH, split_depth
 
 # chip_smoke.py's bf16 attention tolerance: |out - ref| <= 2^-6 |ref| + 1e-4
@@ -632,3 +640,142 @@ def test_paged_t1_emulation_matches_plain(bs, max_blocks, nq, tier):
     assert not out[0].any() and not ref[0].any()
     assert np.all(np.abs(out - ref) <= ATTN_RTOL * np.abs(ref) + ATTN_ATOL)
     assert float(np.mean(out != ref)) < 0.02
+
+
+# ------------------------------------------------- K4 / K11's warp-a-row body
+
+
+@pytest.mark.parametrize("V", [1, 32, 33, 128, 129, 300, 619, 640, 768, 769, 1500, 4096])
+@pytest.mark.parametrize("R", [1, 5, 8, 32, 160])
+def test_argmax_geometry_covers_v_and_bounds_the_block(R, V):
+    """Elements a lane: the least multiple of 4 whose 32 lanes cover V, or
+    the strided loop (0) past the unrolled cap; rows a block within the
+    kernel's 8 warps, and K4's table rows at the intent grammar's 310
+    classes within a block's shared memory."""
+    rows, per_lane = argmax_geometry(R, V)
+    assert 1 <= rows <= ARGMAX_MAX_ROWS and 4 * 310 * rows <= SMEM_PER_BLOCK
+    if V <= 32 * ARGMAX_MAX_PER_LANE:
+        assert per_lane % 4 == 0 and 32 * (per_lane - 4) < V <= 32 * per_lane
+    else:
+        assert per_lane == 0
+
+
+@pytest.mark.parametrize("R", [1, 5, 8, 32, 160])
+def test_argmax_geometry_fills_the_card(R):
+    """The path's row counts (the one-slot parse, the (1, 5) verify block,
+    the MoE drain, the batch chunk, the (32, 5) verify block) at the intent
+    grammar's V and C: every row its own warp in one wave, no SM given two
+    blocks; 2 rows a block up to 8 rows, 4 above (the timed best)."""
+    rows, per_lane = argmax_geometry(R, 619)
+    blocks = -(-R // rows)
+    assert per_lane == 20 and blocks * rows >= R and blocks <= H100_SMS
+    assert rows == (2 if R <= 8 else 4)
+
+
+def _warp_argmax_emulation(logits, state, mask, table, col_id, tie_by_lane=False):
+    """The warp-a-row body (csrc/grammar_mask.cu argmax_warp_kernel) in
+    numpy, over all rows at once: lane l takes elements l, l + 32, ... in
+    index order and keeps its first best (strict >, from (-inf, INT_MAX));
+    then the xor-shuffle tree on (value, index, class), a pair beating
+    another by (value desc, index asc); lane 0's pick, token 0 with its
+    class where nothing beat -inf; the next state from the state's table
+    row. ``tie_by_lane`` breaks equal values by lane instead (a slip the
+    tests must catch). Returns (tok, next)."""
+    R, V = logits.shape
+    st = np.maximum(state, 0)
+    N = -(-V // 32)
+    mrows = mask[st]
+    lanes = np.arange(32)
+    best = np.full((R, 32), -np.inf, np.float32)
+    idx = np.full((R, 32), np.iinfo(np.int32).max, np.int64)
+    cls = np.zeros((R, 32), np.int64)
+    for k in range(N):
+        v = lanes + 32 * k
+        ok = v < V
+        vc = np.minimum(v, V - 1)
+        s = np.where(mrows[:, vc], logits[:, vc], np.float32(-1e30))
+        take = ok & (s > best)
+        best = np.where(take, s, best)
+        idx = np.where(take, v, idx)
+        cls = np.where(take, col_id[vc], cls)
+    for o in (16, 8, 4, 2, 1):
+        p = lanes ^ o
+        ov, oi, oc = best[:, p], idx[:, p], cls[:, p]
+        tie = (p < lanes) if tie_by_lane else (oi < idx)
+        win = (ov > best) | ((ov == best) & tie)
+        best, idx, cls = (np.where(win, a, b) for a, b in ((ov, best), (oi, idx), (oc, cls)))
+    none = idx[:, 0] == np.iinfo(np.int32).max
+    tok = np.where(none, 0, idx[:, 0])
+    nxt = table[st, np.where(none, col_id[0], cls[:, 0])]
+    return tok.astype(np.int32), nxt.astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def intent_tables():
+    from tpu_voice_agent_torch.grammar import build_intent_fsm
+
+    fsm = build_intent_fsm()[1]
+    t = fsm.device_tables()
+    return t.dense_mask.numpy(), t.table.numpy(), t.col_id.numpy()
+
+
+def _intent_rows(mask, rng, states):
+    """Seeded logits over the intent grammar's states, every 8th row a case:
+    a tie of two legal tokens in different lanes, the later lane holding the
+    lower index (a lane-order slip picks the other), a constant row, a row of
+    -inf logits, a NaN row, a dead state (-1), an all-masked state."""
+    R, V = len(states), mask.shape[1]
+    logits = rng.standard_normal((R, V)).astype(np.float32)
+    state = np.array(states, np.int32)
+    nan = np.zeros(R, bool)
+    empty = np.flatnonzero(~mask.any(axis=1))
+    for i in range(0, R, 8):
+        case = (i // 8) % 6
+        legal = np.flatnonzero(mask[max(state[i], 0)])
+        pair = [(a, b) for a in legal[:64] for b in legal[:64] if a < b and a % 32 > b % 32]
+        if case == 0 and pair:
+            logits[i, list(pair[0])] = 9.0
+        elif case == 1:
+            logits[i] = 0.5
+        elif case == 2:
+            logits[i] = -np.inf
+        elif case == 3:
+            logits[i, ::3] = np.nan
+            nan[i] = True
+        elif case == 4:
+            state[i] = -1
+        elif case == 5 and len(empty):
+            state[i] = empty[0]
+    return logits, state, nan
+
+
+def test_warp_argmax_emulation_matches_plain_on_the_intent_grammar(intent_tables):
+    """The warp-a-row order equals K4's and K11's plain versions on every
+    state of the real grammar (35,449 states, V 619, C 310): ties, -inf, dead
+    and all-masked rows included; on NaN rows it equals the plain version
+    with NaN read as -inf (a NaN never wins)."""
+    mask, table, col_id = intent_tables
+    S = mask.shape[0]
+    rng = np.random.default_rng(12)
+    logits, state, nan = _intent_rows(mask, rng, range(S))
+    tok, nxt = _warp_argmax_emulation(logits, state, mask, table, col_id)
+    args = [torch.from_numpy(a) for a in (logits, state, mask, table, col_id)]
+    rtok, rnxt = masked_argmax_advance_reference(*args)
+    keep = ~nan
+    np.testing.assert_array_equal(tok[keep], rtok.numpy()[keep])
+    np.testing.assert_array_equal(nxt[keep], rnxt.numpy()[keep])
+    np.testing.assert_array_equal(tok[keep], masked_argmax_reference(*args[:3]).numpy()[keep])
+    args[0] = torch.from_numpy(np.where(np.isnan(logits), -np.inf, logits).astype(np.float32))
+    ntok, nnxt = masked_argmax_advance_reference(*args)
+    np.testing.assert_array_equal(tok[nan], ntok.numpy()[nan])
+    np.testing.assert_array_equal(nxt[nan], nnxt.numpy()[nan])
+
+
+def test_warp_argmax_emulation_catches_a_lane_order_tie_slip(intent_tables):
+    """The tied rows above have the power to catch a tie broken by lane."""
+    mask, table, col_id = intent_tables
+    rng = np.random.default_rng(13)
+    logits, state, _ = _intent_rows(mask, rng, range(0, 4096))
+    tok, _ = _warp_argmax_emulation(logits, state, mask, table, col_id)
+    slip, _ = _warp_argmax_emulation(logits, state, mask, table, col_id, tie_by_lane=True)
+    assert (tok != slip).sum() > 0

@@ -142,10 +142,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # nkv, hd, chunk, key_sets, scale, bits, dtype, stream
         "tva_decode_attention_quant": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
                                        P],
-        # logits, state, mask, table, col_id, tok, next, B, V, C, stream
-        "tva_masked_argmax_advance": [P, P, P, P, P, P, P, I, I, I, P],
-        # logits, state, mask, tok, R, V, stream
-        "tva_masked_argmax": [P, P, P, P, I, I, P],
+        # logits, state, mask, table, col_id, tok, next, B, V, C, rows a block, elements
+        # a lane, stream
+        "tva_masked_argmax_advance": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+        # logits, state, mask, tok, R, V, rows a block, elements a lane, stream
+        "tva_masked_argmax": [P, P, P, P, I, I, I, I, P],
         # x, w (or int8 q), scales (int8 only, else 0), tile_expert, live_rows (or 0), out,
         # split-K partials, tickets (or 0), M, d, f, tm, chunk, x dtype, w dtype, stream
         "tva_grouped_matmul": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],

@@ -8,7 +8,8 @@ and take the argmax (ties to the first index); K4 also advances the state
 through the compressed table. Nothing V-sized is written back.
 ``masked_argmax_block`` is the speculative verify tail: a (B, T) block of
 positions, each at its own state, folded into B * T kernel rows of one K11
-launch.
+launch. Both kernels run one warp a row; ``argmax_geometry`` picks the rows
+a block and the elements a lane on the host.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 (``*_reference``) for CPU tensors, and only then.
@@ -21,6 +22,28 @@ import torch
 from ._lib import check, library, require, require_cuda, stream_of
 
 _NEG_INF = -1e30
+# the kernel's geometry (csrc/grammar_mask.cu): at most 8 warps (rows) a
+# block; up to 24 elements a lane (V <= 768) unrolled, in steps of 4
+ARGMAX_MAX_ROWS = 8
+ARGMAX_MAX_PER_LANE = 24
+# the H100's shared memory a block (K4 keeps one C-int table row a warp)
+SMEM_PER_BLOCK = 232_448
+
+
+def argmax_geometry(R: int, V: int) -> tuple[int, int]:
+    """(rows a block, elements a lane) of K4 / K11 over R rows of V logits.
+
+    Rows a block from R alone: 2 up to 8 rows, 4 above (the batch chunk's
+    32 rows: 8 blocks; the (32, 5) verify block's 160: 40), so every row
+    runs at once, one block an SM. Timed on the H100 at 5,
+    8, 32 and 160 rows (``chip_smoke.py``'s ``rows_per_block_ms``): 1, 2
+    and 4 rows a block lie within a few percent of each other, 2 best up
+    to 8 rows and 4 at 32; 8 was the slowest everywhere. Elements a lane:
+    the least multiple of 4 with 32 of them covering V, or 0 (the strided
+    loop) past ARGMAX_MAX_PER_LANE."""
+    rows = 2 if R <= 8 else 4
+    per_lane = -(-V // 128) * 4
+    return rows, (per_lane if per_lane <= ARGMAX_MAX_PER_LANE else 0)
 
 
 def masked_argmax_advance(
@@ -45,11 +68,15 @@ def masked_argmax_advance(
             f"mask must be ({S}, {V}) bool, got {tuple(mask_table.shape)}")
     require(fsm_state.shape == (B,) and col_id.shape == (V,), name,
             "state must be (B,) and col_id (V,)")
+    rows, per_lane = argmax_geometry(B, V)
+    require(4 * C * rows <= SMEM_PER_BLOCK, name,
+            f"{C} classes: {rows} table rows exceed a block's shared memory")
     tok = torch.empty((B,), dtype=torch.int32, device=logits.device)
     nxt = torch.empty_like(tok)
     err = library().tva_masked_argmax_advance(
         logits.data_ptr(), fsm_state.data_ptr(), mask_table.data_ptr(), table.data_ptr(),
-        col_id.data_ptr(), tok.data_ptr(), nxt.data_ptr(), B, V, C, stream_of(logits))
+        col_id.data_ptr(), tok.data_ptr(), nxt.data_ptr(), B, V, C, rows, per_lane,
+        stream_of(logits))
     check(err, name)
     masked_argmax_advance.launches += 1
     return tok, nxt
@@ -92,7 +119,7 @@ def masked_argmax(
     tok = torch.empty((R,), dtype=torch.int32, device=logits.device)
     err = library().tva_masked_argmax(logits.data_ptr(), fsm_state.data_ptr(),
                                       mask_table.data_ptr(), tok.data_ptr(), R, V,
-                                      stream_of(logits))
+                                      *argmax_geometry(R, V), stream_of(logits))
     check(err, name)
     masked_argmax.launches += 1
     return tok
