@@ -81,10 +81,32 @@ Phases, in order (any failure exits nonzero and prints no result line):
               at full width: whisper-large-v3 STT and the tinyllama-1.1b int8
               ff=8 parse colocated on the card, 9 utterances; K1, K3, K4 and
               K5 must launch.
-18. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
+18. voice_service - the port's voice WS service (``services/voice.py``)
+              driven through its own client (``services/ws.py``): the
+              service phase's brain and a stub executor in-process, the voice
+              service at VOICE_STT=whisper:whisper-large-v3 (random weights,
+              SpeechEngine's defaults), all on ephemeral ports. 3 utterances
+              of synth_utterance(2.0) + 1 s of silence as 60 ms PCM16 frames
+              at real-time pace (K1 and K5 must launch; every frame in the
+              vocabulary; no error or execution_error frame, every
+              transcript_final followed by its intent; finals and
+              latency_budget stages reported); the five
+              utterances above as typed commands, each transcript_final then
+              a valid, non-degraded intent, confirmation_required for exactly
+              its risky intents, execution_result for its safe ones, which the
+              stub must receive, the first session id threaded into every
+              later /execute, /health ok (K3, K4: the prompt suffix behind the
+              cached prefix takes the plain cache attention, as in JAX); then
+              VOICE_STT=whisper-ckpt:checkpoints/whisper-tiny-overfit and
+              the distilled brain on the card must read "search for red
+              shoes" as a search for "red shoes" and execute it (K1, K2, K4,
+              K5), then answer two typed commands with their recorded
+              intents: "scroll down" executed, "upload my cover letter and
+              submit it" held for confirmation (K1, K2, K4).
+19. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
               transcribe the 10 eval texts and must reproduce the JAX
               package's recorded token ids, through K1 and K5.
-19. moe     - the MoE decoder, last (its engines take 46 GB each): the
+20. moe     - the MoE decoder, last (its engines take 46 GB each): the
               mixtral-test engine in fp32 on one weight set, grouped (K13) on
               the card against dense on the card and grouped on the CPU, 16
               prompts token-identical or parted at a near tie; then
@@ -94,18 +116,20 @@ Phases, in order (any failure exits nonzero and prints no result line):
               the dense dispatch), the peak allocation under the card's
               memory; then BRAIN_PAGED=1 BRAIN_BATCH=8 grouped, an 8-session
               drain through K7 and K13.
-20. the kernels JSON line, the card line, and the final JSON line.
+21. the kernels JSON line, the card line, and the final JSON line.
 
-Every launch counter is set to 0 just before each of phases 4-19 and read just
-after; a kernel's ``launches`` is the sum over those runs (the kernel-alone
-comparisons of phase 3 are not counted). The port imports no JAX. Weights are
-random from a seed (phases 3-11, 16, 17, 19) or committed checkpoints (12-15,
-18). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
+Every launch counter is set to 0 just before each of phases 4-20 (each of the
+voice_service phase's four runs) and read just after; a kernel's
+``launches`` is the sum over those runs (the kernel-alone comparisons of
+phase 3 are not counted). The port imports no JAX. Weights are random from a
+seed (phases 3-11, 16, 17, 18's first two runs, 20) or committed checkpoints
+(12-15, 18's last two runs, 19). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import os
 import statistics
@@ -1733,6 +1757,26 @@ def _post(base: str, body: dict, headers: dict | None = None) -> tuple[int, dict
         return e.code, json.loads(e.read())
 
 
+def _serve(server):
+    """Run an http.server on a daemon thread: (server, thread, base URL)."""
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _serve_brain(app):
+    """The port's brain service for ``app`` on an ephemeral port."""
+    from tpu_voice_agent_torch.services import brain
+
+    return _serve(brain.make_server(app, port=0))
+
+
+def _stop(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=30)
+
+
 def phase_service(totals: dict, report: dict):
     """Boot the port's brain service on an ephemeral port and POST /parse."""
     from tpu_voice_agent_torch.schemas import validate_parse_response
@@ -1751,11 +1795,7 @@ def phase_service(totals: dict, report: dict):
         fail_if(eng.device.type != "cuda" or eng.kernels != "kernels", "engine not on the card")
         fail_if(eng.fast_forward != 8 or eng.quant != "int8" or not eng.prefix_ids,
                 "service not at ff 8 / int8 / cached prefix")
-        app = brain.BrainApp(parser)
-        server = brain.make_server(app, port=0)
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        base = f"http://127.0.0.1:{server.server_address[1]}"
+        server, thread, base = _serve_brain(brain.BrainApp(parser))
         rows = []
         try:
             with urllib.request.urlopen(base + "/health", timeout=60) as r:
@@ -1788,9 +1828,7 @@ def phase_service(totals: dict, report: dict):
                     f"{res.decode_ms:.2f} ms tokens {res.steps} forwards {res.forwards} "
                     f"{row['ms_per_forward']:.3f} ms/forward wall {wall:.1f} ms")
         finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=30)
+            _stop(server, thread)
     c.require("flash_attention", "decode_block_attention_layer", "masked_argmax_advance")
     report["service"] = {"prefix_tokens": len(eng.prefix_ids), "requests": rows,
                          "launches": c.counts}
@@ -2161,6 +2199,398 @@ def phase_voice(stt_engine, totals: dict, report: dict) -> None:
     report["voice"] = {**res, "launches": c.counts}
 
 
+# ------------------------------------------------------------------ voice service
+
+# the JAX service's event vocabulary (tpu_voice_agent/services/voice.py)
+VOICE_EVENTS = {"transcript_partial", "transcript_final", "intent", "tts", "execution_result",
+                "execution_error", "confirmation_required", "latency_budget", "info", "warn",
+                "error"}
+# synth_utterance(2.0) + 1 s of silence each. voicebench runs 9, but at
+# SpeechEngine's defaults (64 new tokens) random large-v3 weights decode every
+# partial to the budget and the service falls ~16 s behind an utterance (PR
+# 13's 9-utterance run drained 146.7 s after the last frame): 3 keep the phase
+# near a minute and a half
+VOICE_AUDIO_UTTERANCES = 3
+# typed behind the distilled brain, whose intents are recorded
+# (intent_golden.json): one safe command, and one whose upload and click both
+# need confirmation
+VOICE_TRAINED_COMMANDS = ("scroll down", "upload my cover letter and submit it")
+
+
+def _stub_executor():
+    """A stdlib /execute: a session id (the caller's, or a new one) and one
+    {"ok": true} result an intent. Returns (server, thread, url, log)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    received: list[dict] = []
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers.get("Content-Length") or 0)))
+            if self.path != "/execute":
+                status, out = 404, {"error": "not_found"}
+            else:
+                received.append(body)
+                status = 200
+                out = {"session_id": body.get("session_id") or f"stub-session-{len(received)}",
+                       "results": [{"ok": True} for _ in body.get("intents") or []]}
+            data = json.dumps(out).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, fmt, *args):
+            pass
+
+    return (*_serve(ThreadingHTTPServer(("127.0.0.1", 0), Handler)), received)
+
+
+def _check_vocabulary(events: list, label: str) -> None:
+    bad = [e for e in events if e.get("type") not in VOICE_EVENTS]
+    fail_if(bool(bad), f"{label}: frames outside the vocabulary: {bad[:3]}")
+    degraded = [e for e in events if e.get("degraded")]
+    fail_if(bool(degraded), f"{label}: degraded frames (a brain 5xx or transport fault "
+                            f"served by the rule fallback): {degraded[:3]}")
+
+
+def _check_finals(events: list, label: str) -> None:
+    """No error or execution_error frame, and every transcript_final has its
+    intent before the next final (handle_final sends both in turn)."""
+    errors = [e for e in events if e["type"] in ("error", "execution_error")]
+    fail_if(bool(errors), f"{label}: {errors[:3]}")
+    kinds = [e["type"] for e in events if e["type"] in ("transcript_final", "intent")]
+    fail_if(kinds != ["transcript_final", "intent"] * (len(kinds) // 2),
+            f"{label}: finals and intents out of turn: {kinds}")
+
+
+def _check_command(text: str, fr: list, label: str) -> tuple[dict, list]:
+    """One typed command's frames: its transcript_final, then a non-degraded
+    intent that passes ParseResponse validation; confirmation_required for
+    exactly its risky intents; one execution_result, every result ok, when
+    it has safe intents that are not ``unknown``; no error; latency_budget
+    last. Returns (the plan, its safe intents)."""
+    from tpu_voice_agent_torch.schemas import is_risky, validate_parse_response
+
+    _check_vocabulary(fr, f"{label} {text!r}")
+    types = [f["type"] for f in fr]
+    fail_if(fr[0] != {"type": "transcript_final", "text": text} or types[1:2] != ["intent"],
+            f"{label} {text!r}: expected transcript_final then intent, got {fr[:2]}")
+    plan = fr[1]["data"]
+    fail_if(validate_parse_response(plan) != (plan, None),
+            f"{label} {text!r}: intent fails ParseResponse validation: {plan}")
+    risky = [i for i in plan["intents"] if is_risky(i)]
+    safe = [i for i in plan["intents"] if not is_risky(i) and i["type"] != "unknown"]
+    confs = [f for f in fr if f["type"] == "confirmation_required"]
+    fail_if([f["intents"] for f in confs] != ([risky] if risky else []),
+            f"{label} {text!r}: confirmation_required {confs} for risky {risky}")
+    execs = [f for f in fr if f["type"] == "execution_result"]
+    fail_if(len(execs) != (1 if safe else 0)
+            or any(len(f["data"]["results"]) != len(safe)
+                   or not all(r.get("ok") for r in f["data"]["results"]) for f in execs),
+            f"{label} {text!r}: execution_result {execs} for safe {safe}")
+    fail_if(types[-1] != "latency_budget" or "error" in types or "execution_error" in types,
+            f"{label} {text!r}: frames {types}")
+    return plan, safe
+
+
+def _pcm_frames(audio, frame_ms: int = 60) -> list[bytes]:
+    import numpy as np
+
+    pcm = (np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes()
+    step = 16_000 * frame_ms // 1000 * 2
+    return [pcm[i:i + step] for i in range(0, len(pcm), step)]
+
+
+async def _stream_paced(url: str, frames: list[bytes], timeout_s: float = 600.0) -> dict:
+    """Send 60 ms frames at their real-time deadlines on one /stream while a
+    reader collects every frame; then a context_update marks the end of the
+    audio (frames are handled in order), and the read goes on until every
+    transcript_final has its latency_budget."""
+    from tpu_voice_agent_torch.services import ws
+
+    c = await ws.connect(url + "/stream")
+    events: list = []
+
+    async def reader():
+        while True:
+            msg = await c.receive()
+            if msg.type != ws.TEXT:
+                return
+            events.append(msg.json())
+
+    task = asyncio.ensure_future(reader())
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        await asyncio.sleep(max(0.0, t0 + i * 0.06 - time.perf_counter()))
+        await c.send_bytes(f)
+    t_sent = time.perf_counter()
+    await c.send_json({"type": "context_update", "data": {}})
+    end = time.monotonic() + timeout_s
+    while True:
+        marked = any(e.get("message") == "context updated" for e in events)
+        finals = sum(e["type"] == "transcript_final" for e in events)
+        budgets = sum(e["type"] == "latency_budget" for e in events)
+        if marked and budgets >= finals:
+            break
+        fail_if(task.done() or time.monotonic() > end,
+                f"voice_service: stream ended or stalled ({finals} finals, {budgets} budgets)")
+        await asyncio.sleep(0.05)
+    t_done = time.perf_counter()
+    await c.close()
+    task.cancel()
+    return {"events": events, "audio_s": t_sent - t0, "drained_s": t_done - t_sent}
+
+
+async def _typed_commands(url: str, texts: list[str], min_execs: int = 2) -> tuple:
+    """One /stream: each text frame, read to its latency_budget (the last
+    frame of a command); then, if fewer than ``min_execs`` commands were
+    executed, confirm_execute frames of a screenshot on the same stream, each
+    read to its execution_result, so the session threading is still seen."""
+    from tpu_voice_agent_torch.services import ws
+
+    c = await ws.connect(url + "/stream")
+    greeting = (await c.receive(timeout=60)).json()
+    per, confirms = [], []
+
+    async def read_until(kind: str) -> list:
+        got = []
+        while not any(f["type"] == kind for f in got):
+            msg = await c.receive(timeout=600)
+            fail_if(msg.type != ws.TEXT, f"voice_service: the stream closed: {msg}")
+            got.append(msg.json())
+        return got
+
+    for text in texts:
+        await c.send_json({"type": "text", "text": text})
+        per.append(await read_until("latency_budget"))
+    execs = sum(f["type"] == "execution_result" for fr in per for f in fr)
+    for _ in range(max(0, min_execs - execs)):
+        await c.send_json({"type": "confirm_execute", "intents": [{"type": "screenshot"}]})
+        confirms.append(await read_until("execution_result"))
+    await c.close()
+    return greeting, per, confirms
+
+
+def _p(xs: list, q: float):
+    """voicebench's percentile (numpy's, interpolated); None for no samples."""
+    import numpy as np
+
+    return float(np.percentile(xs, q * 100)) if xs else None
+
+
+def _voice_boot(brain_url: str, exec_url: str):
+    """The port's voice service from the environment (VOICE_STT), on an
+    ephemeral port; fails if its STT engine did not land on the card."""
+    from tpu_voice_agent_torch.services import voice, ws
+
+    cfg = voice.VoiceConfig(brain_url=brain_url, executor_url=exec_url)
+    probe = cfg.stt_factory()
+    fail_if(probe.engine.device.type != "cuda",
+            f"voice_service: the STT engine booted on {probe.engine.device}")
+    return ws.ServerThread(voice.build_app(cfg)).__enter__(), probe.engine
+
+
+def _health(url: str) -> dict:
+    with urllib.request.urlopen(url + "/health", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def phase_voice_service(totals: dict, report: dict) -> None:
+    """The port's voice WS service on the card, driven through its own
+    client (``services/ws.py``): the tinyllama-1.1b int8 ff 8 brain behind
+    the cached prefix and a stub executor in-process, the voice service at
+    VOICE_STT=whisper:whisper-large-v3 (random weights, SpeechEngine's
+    defaults). Real-time paced audio (K1, K5), the five typed commands (K3,
+    K4) through the confirmation gate and the executor's session, then
+    the trained checkpoints (whisper-tiny-overfit STT, the distilled brain)
+    reading "search for red shoes" (K1, K2, K4, K5) to its executed search,
+    and two typed commands whose recorded intents take one through the
+    executor and one through confirmation_required. Any error or
+    execution_error frame, a final without its intent, or a degraded frame
+    fails the phase."""
+    import numpy as np
+    import torch
+
+    from tpu_voice_agent_torch import distilled, voicebench, whisper_ckpt
+    from tpu_voice_agent_torch.schemas import is_risky, validate_intent
+    from tpu_voice_agent_torch.services import brain
+
+    out: dict = {}
+    os.environ.update(BRAIN_BACKEND="engine:tinyllama-1.1b", BRAIN_QUANT="int8",
+                      VOICE_STT="whisper:whisper-large-v3")
+    for k in ("BRAIN_FF", "BRAIN_PREFIX", "BRAIN_DEVICE", "BRAIN_BATCH", "VOICE_DEVICE",
+              "QUALITY_ENABLE", "STT_BATCH_ENABLE", "STT_BATCH_SLOTS", "STT_REPLICAS",
+              "CHAOS_FAULTS"):
+        os.environ.pop(k, None)
+    t0 = time.perf_counter()
+    parser = brain.make_parser_from_env()
+    eng = parser.engine
+    fail_if(eng.device.type != "cuda" or eng.kernels != "kernels" or eng.fast_forward != 8
+            or eng.quant != "int8" or not eng.prefix_ids,
+            "voice_service: brain not on the card at int8 / ff 8 / cached prefix")
+    bsrv, bthread, brain_url = _serve_brain(brain.BrainApp(parser))
+    xsrv, xthread, exec_url, received = _stub_executor()
+    vsrv, stt = _voice_boot(brain_url, exec_url)
+    out["boot_s"] = time.perf_counter() - t0
+    log(f"[voice_service] boot {out['boot_s']:.2f} s: brain {eng.cfg.n_layers} layers int8 ff 8 "
+        f"on {eng.device}, STT {stt.cfg.d_model} wide, {stt.cfg.enc_layers}+"
+        f"{stt.cfg.dec_layers} layers, {stt._param_dtype} on {stt.device}, buckets "
+        f"{stt.frame_buckets}, {stt.max_new_tokens} new tokens")
+    try:
+        # 1. audio at real-time pace
+        sil = np.zeros(16_000, dtype=np.float32)
+        audio = np.concatenate([x for _ in range(VOICE_AUDIO_UTTERANCES)
+                                for x in (voicebench.synth_utterance(2.0), sil)])
+        with Counted("voice_service_audio", totals) as c:
+            res = asyncio.run(_stream_paced(vsrv.url, _pcm_frames(audio)))
+        c.require("flash_attention", "decode_attention")
+        events = res["events"]
+        _check_vocabulary(events, "voice_service audio")
+        _check_finals(events, "voice_service audio")
+        budgets = [e["stages"] for e in events if e["type"] == "latency_budget"]
+        finals = [e["text"] for e in events if e["type"] == "transcript_final"]
+        stages = {k: [b[k] for b in budgets if k in b]
+                  for k in ("stt_finalize_ms", "parse_ms", "total_ms")}
+        out["audio"] = {
+            "utterances": VOICE_AUDIO_UTTERANCES, "finals": len(finals),
+            "partials": sum(e["type"] == "transcript_partial" for e in events),
+            "audio_s": res["audio_s"], "drained_after_audio_s": res["drained_s"],
+            **{f"{k[:-3]}_p{q}_ms": _p(v, q / 100) for k, v in stages.items()
+               for q in (50, 95)},
+            "launches": c.counts}
+        log(f"[voice_service] audio: {len(finals)} finals of {VOICE_AUDIO_UTTERANCES} "
+            f"utterances ({out['audio']['partials']} partials), audio sent over "
+            f"{res['audio_s']:.2f} s, drained {res['drained_s']:.2f} s later; finals "
+            f"{[f[:40] for f in finals]}; stages p50/p95 (ms): " + ", ".join(
+                f"{k} {_p(v, 0.5)} / {_p(v, 0.95)}" for k, v in stages.items()))
+
+        # 2. typed commands through the gate
+        received.clear()
+        with Counted("voice_service_typed", totals) as c:
+            greeting, per, confirms = asyncio.run(_typed_commands(vsrv.url, UTTERANCES))
+        # the brain's prompt is a suffix behind the cached prefix: the plain
+        # cache attention prefills it, as in JAX, so K1 runs here only in the
+        # prefix's own prefill at boot (and in the audio's Whisper encoder)
+        c.require("decode_block_attention_layer", "masked_argmax_advance")
+        fail_if(greeting != {"type": "info", "message": "listening"},
+                f"voice_service: greeting {greeting}")
+        parse_ms, kinds, want = [], [], []
+        for text, fr in zip(UTTERANCES, per):
+            plan, safe = _check_command(text, fr, "voice_service")
+            parse_ms.append(fr[-1]["stages"]["parse_ms"])
+            kinds.append([i["type"] for i in plan["intents"]])
+            if safe:
+                want.append(safe)
+        for fr in confirms:
+            execs = [f for f in fr if f["type"] == "execution_result"]
+            fail_if(any(f["type"] in ("error", "execution_error", "warn") for f in fr)
+                    or [r.get("ok") for r in execs[0]["data"]["results"]] != [True],
+                    f"voice_service confirm_execute: frames {fr}")
+        want += [[validate_intent({"type": "screenshot"})]] * len(confirms)
+        got = [b["intents"] for b in received]
+        fail_if(got != want, f"voice_service: the executor received {got}, the gate let "
+                             f"through {want}")
+        sids = [b["session_id"] for b in received]
+        fail_if(len(sids) < 2 or sids[0] is not None
+                or any(s != "stub-session-1" for s in sids[1:]),
+                f"voice_service: session ids sent to /execute {sids} (the first answer, "
+                "stub-session-1, must be threaded into every later call)")
+        health = _health(vsrv.url)
+        fail_if(health["status"] != "ok" or set(health["breakers"].values()) != {"closed"},
+                f"voice_service: /health {health}")
+        voice_parse = report.get("voice", {}).get("parse_p50_ms")
+        out["typed"] = {"intent_types": kinds, "executions": len(received),
+                        "confirm_screenshots": len(confirms), "session_ids": sids,
+                        "parse_p50_ms": _p(parse_ms, 0.5), "parse_ms": parse_ms,
+                        "voice_phase_parse_p50_ms": voice_parse, "health": health,
+                        "launches": c.counts}
+        log(f"[voice_service] typed: intents {kinds}; {len(received)} executions "
+            f"({len(confirms)} confirmed screenshots), session ids {sids}; parse ms "
+            f"{[round(x, 1) for x in parse_ms]}, p50 {_p(parse_ms, 0.5)} (the voice phase's "
+            f"in-process parse p50: {voice_parse}); /health {health['status']} "
+            f"{health['breakers']}")
+    finally:
+        vsrv.__exit__(None, None, None)
+        _stop(bsrv, bthread)
+    del parser, eng, stt, vsrv, bsrv
+    _free_cuda()
+
+    # 3. trained weights: whisper-tiny-overfit and the distilled brain (fp32):
+    # the spoken search, then typed commands with recorded intents through
+    # the confirmation gate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["VOICE_STT"] = "whisper-ckpt:checkpoints/whisper-tiny-overfit"
+    text = "search for red shoes"
+    bsrv, bthread, brain_url = _serve_brain(
+        brain.BrainApp(distilled.intent_engine_from(*distilled.load_distilled())))
+    vsrv, _stt = _voice_boot(brain_url, exec_url)
+    try:
+        audio = np.concatenate([whisper_ckpt.render_speech(text), np.zeros(16_000, np.float32)])
+        received.clear()
+        with Counted("voice_service_trained", totals) as c:
+            res = asyncio.run(_stream_paced(vsrv.url, _pcm_frames(audio)))
+        c.require("flash_attention", "decode_attention_layer", "masked_argmax_advance",
+                  "decode_attention")
+        events = res["events"]
+        _check_vocabulary(events, "voice_service trained")
+        _check_finals(events, "voice_service trained")
+        finals = [e["text"] for e in events if e["type"] == "transcript_final"]
+        intents = [e["data"]["intents"] for e in events if e["type"] == "intent"]
+        fail_if(finals != [text], f"voice_service trained: finals {finals}")
+        fail_if(not intents or intents[0][0]["type"] != "search"
+                or intents[0][0]["args"].get("query") != "red shoes",
+                f"voice_service trained: intents {intents}")
+        safe = [i for i in intents[0] if not is_risky(i) and i["type"] != "unknown"]
+        execs = [e["data"]["results"] for e in events if e["type"] == "execution_result"]
+        fail_if(execs != [[{"ok": True}] * len(safe)],
+                f"voice_service trained: execution results {execs} for safe {safe}")
+        fail_if([b["intents"] for b in received] != [safe],
+                f"voice_service trained: the executor received {received}, want {[safe]}")
+        budget = next(e["stages"] for e in events if e["type"] == "latency_budget")
+
+        recs = {r["text"]: r for r in distilled.golden_records()}
+        received.clear()
+        with Counted("voice_service_trained_typed", totals) as c2:
+            greeting, per, _ = asyncio.run(
+                _typed_commands(vsrv.url, list(VOICE_TRAINED_COMMANDS), min_execs=0))
+        c2.require("flash_attention", "decode_attention_layer", "masked_argmax_advance")
+        fail_if(greeting != {"type": "info", "message": "listening"},
+                f"voice_service trained: greeting {greeting}")
+        want, confirmed = [], []
+        for cmd, fr in zip(VOICE_TRAINED_COMMANDS, per):
+            plan, cmd_safe = _check_command(cmd, fr, "voice_service trained")
+            fail_if(plan["intents"] != recs[cmd]["response"]["intents"],
+                    f"voice_service trained {cmd!r}: intents {plan['intents']}, recorded "
+                    f"{recs[cmd]['response']['intents']}")
+            if cmd_safe:
+                want.append(cmd_safe)
+            confirmed += [f["intents"] for f in fr if f["type"] == "confirmation_required"]
+        # the recordings hold one safe command and one risky one: both gates ran
+        fail_if(not want or not confirmed,
+                f"voice_service trained: executed {want}, confirmations {confirmed}")
+        fail_if([b["intents"] for b in received] != want,
+                f"voice_service trained: the executor received {received}, the gate let "
+                f"through {want}")
+        out["trained"] = {"final": finals[0], "intent": intents[0], "stages": budget,
+                          "launches": c.counts, "typed": {
+                              cmd: [f["type"] for f in fr]
+                              for cmd, fr in zip(VOICE_TRAINED_COMMANDS, per)},
+                          "typed_launches": c2.counts}
+        log(f"[voice_service] trained: final {finals[0]!r} -> {intents[0]}; stages {budget}; "
+            f"typed {out['trained']['typed']}")
+    finally:
+        vsrv.__exit__(None, None, None)
+        _stop(bsrv, bthread)
+        _stop(xsrv, xthread)
+        os.environ.pop("VOICE_STT", None)
+    report["voice_service"] = out
+
+
 # ------------------------------------------------------------------ batched /parse
 
 BATCH_SLOTS = 32
@@ -2366,22 +2796,17 @@ def _kvquant_service(totals: dict) -> dict:
             os.environ.pop(k, None)
     eng = parser.engine
     boot = time.perf_counter() - t0
-    server = brain.make_server(brain.BrainApp(parser), port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
+    server, thread, base = _serve_brain(brain.BrainApp(parser))
     try:
         fail_if(not (isinstance(parser, brain.BatchedEngineParser) and eng.kv_quant == "int8"
                      and eng.batch_slots == 32 and eng.device.type == "cuda"),
                 "kvquant service: not a batched int8-KV paged parser on the card")
         with Counted("kvquant service", totals) as c:
             t1 = time.perf_counter()
-            status, body = _post(f"http://127.0.0.1:{server.server_address[1]}",
-                                 {"text": UTTERANCES[0], "context": {}})
+            status, body = _post(base, {"text": UTTERANCES[0], "context": {}})
             wall = time.perf_counter() - t1
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
+        _stop(server, thread)
         parser.close()
     c.require("paged_block_attention_quant", "masked_argmax_advance")
     fail_if(status != 200 or validate_parse_response(body) != (body, None),
@@ -2774,10 +3199,7 @@ def phase_service_batched(totals: dict, report: dict) -> None:
             "service_batched: not a session-aware batched paged parser on the card")
     log(f"[service_batched] boot {time.perf_counter() - t0:.2f} s: 8 slots, pool "
         f"{eng.allocator.n_blocks} blocks, prefix {len(eng.prefix_ids)} tokens")
-    server = brain.make_server(brain.BrainApp(parser), port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
+    server, thread, base = _serve_brain(brain.BrainApp(parser))
     results = [None] * 8
 
     def one(i):
@@ -2796,9 +3218,7 @@ def phase_service_batched(totals: dict, report: dict) -> None:
                 w.join(timeout=900)
             wall = time.perf_counter() - t0
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
+        _stop(server, thread)
         parser.close()
     c.require("paged_block_attention", "masked_argmax_advance")
     for i, r in enumerate(results):
@@ -3067,9 +3487,7 @@ def _spec_service(totals: dict) -> dict:
             os.environ.pop(k, None)
     eng = parser.engine
     boot = time.perf_counter() - t0
-    server = brain.make_server(brain.BrainApp(parser), port=0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
+    server, thread, base = _serve_brain(brain.BrainApp(parser))
     turns = []
     try:
         fail_if(not (isinstance(parser, brain.BatchedEngineParser) and parser.wants_session
@@ -3080,16 +3498,13 @@ def _spec_service(totals: dict) -> dict:
             for text in UTTERANCES[:2]:
                 headers: dict = {}
                 t1 = time.perf_counter()
-                status, body = _post(f"http://127.0.0.1:{server.server_address[1]}",
-                                     {"text": text, "session_id": "spec-session",
-                                      "context": {}}, headers)
+                status, body = _post(base, {"text": text, "session_id": "spec-session",
+                                            "context": {}}, headers)
                 turns.append({"text": text, "status": status, "wall_ms":
                               (time.perf_counter() - t1) * 1e3, "body": body,
                               "cached_tokens": int(headers.get("x-cached-tokens", -1))})
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
+        _stop(server, thread)
         parser.close()
     c.require("paged_block_attention", "masked_argmax")
     P = len(eng.prefix_ids)
@@ -3498,7 +3913,7 @@ def main() -> int:
                     help="comma list of card,build,digest,kernels,service,parse,batch,"
                          "batch_dense,radix,"
                          "kvquant,spec,service_batched,golden,batch_golden,kvquant_golden,"
-                         "spec_golden,stt,stt_golden,voice,moe (default all)")
+                         "spec_golden,stt,stt_golden,voice,voice_service,moe (default all)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile (torch.profiler) one bench parse at ff=8 and one at "
                          "ff=0 when the service phase "
@@ -3510,7 +3925,8 @@ def main() -> int:
     args = ap.parse_args()
     phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
                "radix", "kvquant", "spec", "service_batched", "golden", "batch_golden",
-               "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "moe"]
+               "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
+               "moe"]
               if args.phases == "all" else args.phases.split(","))
 
     import torch
@@ -3580,6 +3996,9 @@ def main() -> int:
     if "voice" in phases:
         timed("voice", phase_voice, stt_eng, totals, report)
     del stt_eng
+    if "voice_service" in phases:
+        _free_cuda()
+        timed("voice_service", phase_voice_service, totals, report)
     if "stt_golden" in phases:
         timed("stt_golden", phase_stt_golden, totals, report)
     if "moe" in phases:  # last: its 46 GB engines need the card to themselves

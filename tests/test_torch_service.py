@@ -240,16 +240,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import tpu_voice_agent_torch.services.brain\n"
-        # the STT slice, the batched paged serving slice and the GPU smoke
-        # script (namespace subpackages are not walked, so name them)
+        # the STT slice, the batched paged serving slice, the voice service
+        # and the GPU smoke script (namespace subpackages are not walked, so
+        # name them)
         "for m in ('audio.mel', 'audio.endpoint', 'models.whisper', 'serve.stt',\n"
         "          'whisper_ckpt', 'voicebench', 'models.llama', 'ops.paged_attention',\n"
         "          'serve.engine', 'serve.paged', 'serve.radix', 'serve.scheduler',\n"
-        "          'serve.spec', 'models.moe', 'ops.grouped_matmul'):\n"
+        "          'serve.spec', 'models.moe', 'ops.grouped_matmul', 'services.voice',\n"
+        "          'services.ws', 'services.slo', 'services.resilience'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
-        "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent')\n"
-        "       or k.startswith(('jax.', 'jaxlib.', 'tpu_voice_agent.'))]\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent', 'aiohttp',\n"
+        "                                       'httpx')\n"
+        "       or k.startswith(('jax.', 'jaxlib.', 'tpu_voice_agent.', 'aiohttp.', 'httpx.'))]\n"
         "print(len([k for k in sys.modules if k.startswith('tpu_voice_agent_torch')]), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -257,7 +260,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 39 and bad.strip() == "[]"
+    assert int(n) >= 43 and bad.strip() == "[]"
 
 
 # ---------------------------------------------------------------- batched

@@ -42,6 +42,10 @@ INTENT_TYPES: tuple[str, ...] = (
     "unknown",
 )
 
+# Intents that never auto-execute without the user's confirmation: the
+# model's requires_confirmation bit, plus this server-side floor.
+RISKY_INTENT_TYPES: frozenset[str] = frozenset({"upload", "confirm"})
+
 TARGET_STRATEGIES: tuple[str, ...] = ("auto", "css", "text", "role", "aria", "xpath")
 
 SCHEMA_PATH = Path(__file__).with_name("parse_response.schema.json")
@@ -145,6 +149,18 @@ def _intent(v, name: str) -> dict:
                                  0, 120_000),
         "retries": _int_field(v.get("retries", 0), f"{name}.retries", 0, 3),
     }
+
+
+def validate_intent(obj: Any) -> dict:
+    """One Intent (the voice service's ``confirm_execute`` frame) -> the
+    ``Intent.model_validate(obj).model_dump()``-equal dict; raises
+    ValidationError."""
+    return _intent(obj, "Intent")
+
+
+def is_risky(intent: dict) -> bool:
+    """``Intent.is_risky``: the requires_confirmation bit or a risky type."""
+    return bool(intent.get("requires_confirmation")) or intent["type"] in RISKY_INTENT_TYPES
 
 
 def validate_parse_response(obj: Any) -> tuple[dict | None, str | None]:

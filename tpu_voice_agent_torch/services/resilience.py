@@ -1,19 +1,53 @@
-"""The request's time budget, as the JAX package's services carry it.
+"""Deadlines, retries and circuit breakers, as the JAX package's services carry them.
 
-Port of ``Deadline`` and ``DEADLINE_HEADER`` from
-``tpu_voice_agent/utils/resilience.py``: the remaining milliseconds travel
-in the ``x-deadline-ms`` header, and a service answers a budget that has run
-out with 503 ``{"error": "overloaded", "detail": "deadline_expired"}`` and
-``Retry-After: 0`` before doing any work (the brain's ``/parse`` gate).
-Carrying the deadline into the scheduler is not ported yet.
+Port of ``tpu_voice_agent/utils/resilience.py`` without its metrics gauges and
+flight-recorder trigger (the port has neither plane yet, ROADMAP.md Queue 1
+items 3 and 7):
+
+- ``Deadline``: a request's remaining time budget. The remaining
+  milliseconds travel in the ``x-deadline-ms`` header, and a service answers
+  a budget that has run out with 503 ``{"error": "overloaded", "detail":
+  "deadline_expired"}`` and ``Retry-After: 0`` before doing any work (the
+  brain's ``/parse`` gate). Carrying the deadline into the scheduler is not
+  ported yet.
+- ``RetryPolicy``: jittered exponential backoff, clipped to the deadline.
+- ``CircuitBreaker``: closed -> open after ``failure_threshold`` consecutive
+  failures -> half-open after ``reset_after_s`` (one probe call passes).
+- ``post_with_resilience``: the budgeted, breaker-guarded POST of the voice
+  service's two hops, over ``ws.HTTPClient``.
+
+Everything takes an injectable ``clock`` / ``rng`` / ``sleep``, so tests
+drive the state machines deterministically.
 """
 
 from __future__ import annotations
 
+import asyncio
+import random
+import threading
 import time
+from dataclasses import dataclass
+
+from .ws import ConnectError, HTTPError
 
 # remaining-budget propagation header: milliseconds left, clamped at 0
 DEADLINE_HEADER = "x-deadline-ms"
+
+
+class ResilienceError(Exception):
+    """Base for the kit's own failures (callers can catch the family)."""
+
+
+class DeadlineExpired(ResilienceError):
+    """The request's time budget ran out before a usable response."""
+
+
+class BreakerOpenError(ResilienceError):
+    """The dependency's circuit is open; the call was not attempted."""
+
+    def __init__(self, name: str):
+        super().__init__(f"circuit for {name!r} is open")
+        self.name = name
 
 
 class Deadline:
@@ -28,6 +62,10 @@ class Deadline:
         self._expires_at = clock() + max(0.0, budget_s)
 
     @classmethod
+    def after(cls, budget_s: float, clock=time.monotonic) -> "Deadline":
+        return cls(budget_s, clock=clock)
+
+    @classmethod
     def from_headers(cls, headers, clock=time.monotonic) -> "Deadline | None":
         """Parse the propagated budget; None when the caller sent none or a
         value that is not a number (the caller then opts out of shedding)."""
@@ -40,6 +78,183 @@ class Deadline:
             return None
         return cls(ms / 1e3, clock=clock)
 
+    def remaining_s(self) -> float:
+        return max(0.0, self._expires_at - self._clock())
+
     @property
     def expired(self) -> bool:
         return self._clock() >= self._expires_at
+
+    def header_value(self) -> str:
+        return str(int(self.remaining_s() * 1e3))
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Jittered exponential backoff: delay_n = base * mult^n, capped, with
+    ``jitter`` fraction of the delay re-rolled uniformly so synchronized
+    clients don't retry in lockstep."""
+
+    max_attempts: int = 3
+    base_delay_s: float = 0.05
+    multiplier: float = 2.0
+    max_delay_s: float = 2.0
+    jitter: float = 0.5
+
+    def backoff_s(self, attempt: int, rng=random.random) -> float:
+        delay = min(self.max_delay_s, self.base_delay_s * self.multiplier ** attempt)
+        if self.jitter <= 0:
+            return delay
+        return delay * (1.0 - self.jitter) + delay * self.jitter * rng()
+
+
+class CircuitBreaker:
+    """Per-dependency circuit: ``closed`` -> ``open`` after
+    ``failure_threshold`` consecutive failures (calls fail fast, no socket
+    touch) -> ``half_open`` after ``reset_after_s`` (one trial call passes;
+    success closes, failure re-opens). Thread-safe."""
+
+    def __init__(self, name: str, failure_threshold: int = 3, reset_after_s: float = 2.0,
+                 clock=time.monotonic):
+        self.name = name
+        self.failure_threshold = max(1, failure_threshold)
+        self.reset_after_s = reset_after_s
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = "closed"
+        self._failures = 0
+        self._opened_at = 0.0
+        self._probe_at = 0.0  # when the last half-open probe was admitted
+
+    @property
+    def state(self) -> str:
+        """Advisory (a health label); ``allow()`` is the authoritative gate."""
+        with self._lock:
+            if self._state == "open" and self._clock() - self._opened_at >= self.reset_after_s:
+                return "half_open"  # the next allow() admits a probe
+            return self._state
+
+    def allow(self) -> bool:
+        """Admission check for ONE call attempt; open -> half_open once the
+        reset window has elapsed."""
+        with self._lock:
+            now = self._clock()
+            if self._state == "closed":
+                return True
+            if self._state == "open":
+                if now - self._opened_at < self.reset_after_s:
+                    return False
+                self._state = "half_open"
+            elif now - self._probe_at < self.reset_after_s:
+                # the probe is out. One a reset window: an abandoned probe
+                # (its caller was cancelled) must not wedge half_open forever
+                return False
+            self._probe_at = now
+            return True
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._state = "closed"
+            self._failures = 0
+
+    def record_failure(self) -> None:
+        with self._lock:
+            # past the reset window the breaker IS half-open, whichever label
+            # is stored: a failure then re-opens it (refreshing _opened_at)
+            half_open = (self._state == "half_open"
+                         or (self._state == "open"
+                             and self._clock() - self._opened_at >= self.reset_after_s))
+            if half_open:
+                self._trip()
+            else:
+                self._failures += 1
+                if self._state == "closed" and self._failures >= self.failure_threshold:
+                    self._trip()
+
+    def _trip(self) -> None:
+        self._state = "open"
+        self._failures = 0
+        self._opened_at = self._clock()
+
+
+async def post_with_resilience(http, url: str, *, json_body, deadline: Deadline,
+                               headers=None, policy: RetryPolicy | None = None,
+                               breaker: CircuitBreaker | None = None,
+                               sleep=None, rng=random.random):
+    """One budgeted, breaker-guarded, retrying POST over ``http``
+    (``ws.HTTPClient`` or anything with its ``post``).
+
+    Retries only what is safe or invited: ``ConnectError`` (the request
+    never reached the server) and 503 (the server refused before doing
+    work; its ``Retry-After`` is a backoff floor, capped at half the
+    remaining deadline). A failure after the request was
+    sent (``ReadError``) is not retried: the server may have acted on it,
+    and neither hop (/parse session turns, /execute browser actions) is
+    idempotent. Each attempt is bounded by the remaining budget and carries
+    it in ``x-deadline-ms``. A 5xx counts against the breaker, any other
+    status for it.
+
+    Returns the final response (a final 503 included). Raises
+    ``BreakerOpenError`` without touching the socket when the circuit is
+    open, ``DeadlineExpired`` when the budget ran out, or the last transport
+    error."""
+    policy = policy or RetryPolicy()
+    sleep = sleep or asyncio.sleep
+    name = breaker.name if breaker is not None else "call"
+    last_exc: Exception | None = None
+    resp = None
+    attempts = max(1, policy.max_attempts)
+    for attempt in range(attempts):
+        if deadline.expired:
+            break
+        if breaker is not None and not breaker.allow():
+            raise BreakerOpenError(name)
+        hdrs = dict(headers or {})
+        hdrs[DEADLINE_HEADER] = deadline.header_value()
+        retry_after_s = 0.0
+        try:
+            resp = await asyncio.wait_for(
+                http.post(url, json=json_body, headers=hdrs, timeout=deadline.remaining_s()),
+                timeout=deadline.remaining_s())
+            last_exc = None
+        except asyncio.TimeoutError:
+            if breaker is not None:
+                breaker.record_failure()
+            last_exc, resp = DeadlineExpired(
+                f"{name}: attempt exceeded the remaining budget"), None
+            break  # the budget is gone; a retry cannot fit
+        except ConnectError as e:
+            last_exc, resp = e, None
+            if breaker is not None:
+                breaker.record_failure()
+        except HTTPError:
+            if breaker is not None:
+                breaker.record_failure()
+            raise
+        else:
+            if resp.status_code != 503:
+                if breaker is not None:
+                    if resp.status_code >= 500:
+                        breaker.record_failure()
+                    else:
+                        breaker.record_success()
+                return resp
+            if breaker is not None:
+                breaker.record_failure()
+            try:
+                retry_after_s = float(resp.headers.get("Retry-After", 0))
+            except (TypeError, ValueError):
+                retry_after_s = 0.0
+        if attempt + 1 >= attempts:
+            break
+        delay = policy.backoff_s(attempt, rng)
+        if retry_after_s > 0:
+            delay = max(delay, min(retry_after_s, deadline.remaining_s() * 0.5))
+        if deadline.remaining_s() <= delay:
+            break  # the budget can't cover the wait, let alone the attempt
+        await sleep(delay)
+    if resp is not None:
+        return resp
+    if last_exc is not None:
+        raise last_exc
+    raise DeadlineExpired(f"{name}: deadline expired before any attempt")
