@@ -56,7 +56,16 @@ Phases, in order (any failure exits nonzero and prints no result line):
               only at a near tie; and a BRAIN_BATCH=8 BRAIN_PAGED=1
               RADIX_ENABLE=1 SPEC_ENABLE=1 brain answering two /parse turns
               of one session with 200.
-11. service_batched - a second in-process brain with BRAIN_BATCH=8
+11. quality - the quality lanes (QUALITY_ENABLE unset: on) at full width:
+              the batch phase's 32 sessions through the paged engine at ff=8
+              (K7) and through the paged spec engine (K7, K11), each
+              drained with the lanes on and then off on the same engine
+              object: equal tokens, ``quality`` on every result with the
+              lanes on and None off; the first recorded batch of lanes
+              against an fp64 recomputation on the CPU; one chunk's wall
+              and device kernels per forward (torch.profiler), lanes on
+              and off.
+11b. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
 12. golden  - the distilled intent checkpoint parses the golden utterances and
               must reproduce the JAX package's recorded outputs token for
@@ -76,11 +85,17 @@ Phases, in order (any failure exits nonzero and prints no result line):
               tokens and forwards; one incremental feed + decode; the first
               decoder step through K5 held against the same step through its
               plain version (fp32 copies of the weights). K1 and K5 must
-              launch.
+              launch. Then the STT lanes on one transcribe: equal tokens
+              with the lanes off, the lanes against an fp64 log-softmax of
+              the recorded step logits, walls and device kernels per
+              decoder forward, lanes on and off.
 17. voice   - the voice→intent loop (``voicebench``, bench.py's definition)
               at full width: whisper-large-v3 STT and the tinyllama-1.1b int8
               ff=8 parse colocated on the card, 9 utterances; K1, K3, K4 and
-              K5 must launch.
+              K5 must launch. Then bench.py's --neural loop
+              (``voicebench.run_neural_voice_bench``): the distilled parser
+              and whisper-tiny-heldout, 9 runs over five eval texts, p50 /
+              p95 and each run's WER (K1, K2, K4, K5).
 18. voice_service - the port's voice WS service (``services/voice.py``)
               driven through its own client (``services/ws.py``): the
               service phase's brain and a stub executor in-process, the voice
@@ -98,11 +113,17 @@ Phases, in order (any failure exits nonzero and prints no result line):
               later /execute, /health ok (K3, K4: the prompt suffix behind the
               cached prefix takes the plain cache attention, as in JAX); then
               VOICE_STT=whisper-ckpt:checkpoints/whisper-tiny-overfit and
-              the distilled brain on the card must read "search for red
-              shoes" as a search for "red shoes" and execute it (K1, K2, K4,
-              K5), then answer two typed commands with their recorded
-              intents: "scroll down" executed, "upload my cover letter and
-              submit it" held for confirmation (K1, K2, K4).
+              the brain booted from BRAIN_BACKEND=distilled on the card
+              must read "search for red shoes" as a search for "red shoes"
+              and execute it (K1, K2, K4, K5), then answer two typed
+              commands with their recorded intents: "scroll down"
+              executed, "upload my cover letter and submit it" held for
+              confirmation (K1, K2, K4). Every final carries JAX's
+              ``confidence`` and every parse its x-intent-margin (in the
+              latency_budget stages), each within 1e-3 of the same stack
+              run on the CPU; both services' /metrics (JSON and
+              Prometheus), /debug/quality and /debug/trace/<id> are
+              scraped and held to the run's counts.
 19. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
               transcribe the 10 eval texts and must reproduce the JAX
               package's recorded token ids, through K1 and K5.
@@ -2127,6 +2148,7 @@ def phase_stt(totals: dict, report: dict):
             "stt: the decoder step through K5 disagrees with its plain version")
     out["first_step_logit_err"] = err
     out["launches"] = c.counts
+    out["quality"] = _stt_lanes(eng)
     report["stt"] = out
     return eng
 
@@ -2170,8 +2192,13 @@ def phase_voice(stt_engine, totals: dict, report: dict) -> None:
     whisper-large-v3 STT (buckets 300 and 1000, 32 tokens) and the
     tinyllama-1.1b int8 ff=8 parse behind the cached prefix (cache 1024),
     colocated on the card, 9 utterances of synth_utterance(2.0) fed in 60 ms
-    frames at real-time deadlines."""
+    frames at real-time deadlines; then bench.py's --neural loop
+    (``voicebench.run_neural_voice_bench``): the distilled parser and
+    whisper-tiny-heldout, the acoustic-font renders of five eval texts, 9
+    runs, each run's WER against the text it spoke."""
     import math
+
+    import torch
 
     from tpu_voice_agent_torch import voicebench
 
@@ -2197,6 +2224,30 @@ def phase_voice(stt_engine, totals: dict, report: dict) -> None:
         f"end of speech {[round(x, 3) for x in res['feed_lag_at_end_of_speech_s']]} s; parse "
         f"tokens {res['parse_tokens']}")
     report["voice"] = {**res, "launches": c.counts}
+    del parse
+
+    # the trained checkpoints are fp32: no tf32 in their matmuls or convs
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        nparser, nstt, name = voicebench.make_neural_engines()
+        with Counted("voice_neural", totals) as c:
+            nres = voicebench.run_neural_voice_bench(nparser, nstt, runs=9)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    c.require("flash_attention", "decode_attention_layer", "masked_argmax_advance",
+              "decode_attention")
+    fail_if(not all(math.isfinite(nres[k]) and nres[k] > 0 for k in ("p50_ms", "p95_ms")),
+            f"voice neural: p50 {nres['p50_ms']} p95 {nres['p95_ms']}")
+    fail_if(len(nres["wer"]) != 9 or not all(0 <= w for w in nres["wer"]),
+            f"voice neural: WER {nres['wer']}")
+    log(f"[voice] neural ({name} + the distilled parser): voice->intent p50 "
+        f"{nres['p50_ms']:.2f} ms, p95 {nres['p95_ms']:.2f} ms over {nres['runs']} runs; "
+        f"STT p50 {nres['stt_p50_ms']:.2f} ms, parse p50 {nres['parse_p50_ms']:.2f} ms, spec "
+        f"hit rate {nres['spec_hit_rate']:.3f}; WER per run "
+        f"{[round(w, 4) for w in nres['wer']]}, mean {nres['wer_mean']:.4f}; finals "
+        f"{nres['finals']}")
+    report["voice"]["neural"] = {**nres, "stt_checkpoint": name, "launches": c.counts}
 
 
 # ------------------------------------------------------------------ voice service
@@ -2519,18 +2570,29 @@ def phase_voice_service(totals: dict, report: dict) -> None:
     del parser, eng, stt, vsrv, bsrv
     _free_cuda()
 
-    # 3. trained weights: whisper-tiny-overfit and the distilled brain (fp32):
-    # the spoken search, then typed commands with recorded intents through
-    # the confirmation gate
+    # 3. trained weights: whisper-tiny-overfit and the distilled brain booted
+    # from the environment (BRAIN_BACKEND=distilled, QUALITY_ENABLE unset:
+    # the lanes on), fp32: the spoken search, then typed commands with
+    # recorded intents through the confirmation gate; every final carries
+    # its confidence and every parse its x-intent-margin, each equal to the
+    # same stack run on the CPU; the metrics, trace and quality routes of
+    # both services scraped and held to the run's counts
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    os.environ["VOICE_STT"] = "whisper-ckpt:checkpoints/whisper-tiny-overfit"
+    os.environ.update(VOICE_STT="whisper-ckpt:checkpoints/whisper-tiny-overfit",
+                      BRAIN_BACKEND="distilled")
+    os.environ.pop("BRAIN_QUANT", None)
     text = "search for red shoes"
-    bsrv, bthread, brain_url = _serve_brain(
-        brain.BrainApp(distilled.intent_engine_from(*distilled.load_distilled())))
+    audio = np.concatenate([whisper_ckpt.render_speech(text), np.zeros(16_000, np.float32)])
+    parser = brain.make_parser_from_env()
+    fail_if(not isinstance(parser, brain.EngineParser) or parser.engine.device.type != "cuda"
+            or not parser.engine.quality_lanes,
+            "voice_service trained: BRAIN_BACKEND=distilled did not boot the distilled "
+            "engine on the card with the quality lanes on")
+    bsrv, bthread, brain_url = _serve_brain(brain.BrainApp(parser))
     vsrv, _stt = _voice_boot(brain_url, exec_url)
     try:
-        audio = np.concatenate([whisper_ckpt.render_speech(text), np.zeros(16_000, np.float32)])
+        before = {"brain": _scrape(brain_url), "voice": _scrape(vsrv.url)}
         received.clear()
         with Counted("voice_service_trained", totals) as c:
             res = asyncio.run(_stream_paced(vsrv.url, _pcm_frames(audio)))
@@ -2551,7 +2613,7 @@ def phase_voice_service(totals: dict, report: dict) -> None:
                 f"voice_service trained: execution results {execs} for safe {safe}")
         fail_if([b["intents"] for b in received] != [safe],
                 f"voice_service trained: the executor received {received}, want {[safe]}")
-        budget = next(e["stages"] for e in events if e["type"] == "latency_budget")
+        budget = next(e for e in events if e["type"] == "latency_budget")
 
         recs = {r["text"]: r for r in distilled.golden_records()}
         received.clear()
@@ -2576,19 +2638,134 @@ def phase_voice_service(totals: dict, report: dict) -> None:
         fail_if([b["intents"] for b in received] != want,
                 f"voice_service trained: the executor received {received}, the gate let "
                 f"through {want}")
-        out["trained"] = {"final": finals[0], "intent": intents[0], "stages": budget,
+        card = _confidence_and_margins(events, per, "voice_service trained")
+        scraped = _check_scrapes(brain_url, vsrv.url, before, budget["trace_id"],
+                                 n_audio=len(finals), n_typed=len(per))
+        out["trained"] = {"final": finals[0], "intent": intents[0], "stages": budget["stages"],
                           "launches": c.counts, "typed": {
                               cmd: [f["type"] for f in fr]
                               for cmd, fr in zip(VOICE_TRAINED_COMMANDS, per)},
-                          "typed_launches": c2.counts}
-        log(f"[voice_service] trained: final {finals[0]!r} -> {intents[0]}; stages {budget}; "
-            f"typed {out['trained']['typed']}")
+                          "typed_launches": c2.counts, "quality": card, "scraped": scraped}
+        log(f"[voice_service] trained: final {finals[0]!r} -> {intents[0]}; stages "
+            f"{budget['stages']}; typed {out['trained']['typed']}; confidence "
+            f"{card['confidence']}; intent margins {card['margins']}")
     finally:
         vsrv.__exit__(None, None, None)
         _stop(bsrv, bthread)
+    del parser
+
+    # the same stack on the CPU (the plain versions), the same audio and commands
+    os.environ.update(BRAIN_DEVICE="cpu", VOICE_DEVICE="cpu")
+    try:
+        from tpu_voice_agent_torch.services import voice, ws
+
+        cbsrv, cbthread, cbrain_url = _serve_brain(brain.BrainApp(brain.make_parser_from_env()))
+        cvsrv = ws.ServerThread(voice.build_app(voice.VoiceConfig(
+            brain_url=cbrain_url, executor_url=exec_url))).__enter__()
+    finally:
+        for k in ("BRAIN_DEVICE", "VOICE_DEVICE", "VOICE_STT", "BRAIN_BACKEND"):
+            os.environ.pop(k, None)
+    try:
+        cres = asyncio.run(_stream_paced(cvsrv.url, _pcm_frames(audio)))
+        _g, cper, _ = asyncio.run(
+            _typed_commands(cvsrv.url, list(VOICE_TRAINED_COMMANDS), min_execs=0))
+        cpu = _confidence_and_margins(cres["events"], cper, "voice_service trained (CPU)")
+    finally:
+        cvsrv.__exit__(None, None, None)
+        _stop(cbsrv, cbthread)
         _stop(xsrv, xthread)
-        os.environ.pop("VOICE_STT", None)
+    diffs = [abs(a[k] - b[k]) for a, b in zip(card["confidence"], cpu["confidence"])
+             for k in a] + [abs(a - b) for a, b in zip(card["margins"], cpu["margins"])]
+    fail_if(len(card["confidence"]) != len(cpu["confidence"])
+            or len(card["margins"]) != len(cpu["margins"])
+            or any(set(a) != set(b) for a, b in zip(card["confidence"], cpu["confidence"]))
+            or max(diffs) > QUALITY_CPU_TOL,
+            f"voice_service trained: the card's lanes {card} against the CPU's {cpu} "
+            f"(tolerance {QUALITY_CPU_TOL:g})")
+    out["trained"]["cpu"] = {**cpu, "max_abs_err": max(diffs)}
+    log(f"[voice_service] trained on the CPU: confidence {cpu['confidence']}, margins "
+        f"{cpu['margins']}; largest difference from the card {max(diffs):.3g} (tolerance "
+        f"{QUALITY_CPU_TOL:g})")
     report["voice_service"] = out
+
+
+def _confidence_and_margins(events: list, per: list, label: str) -> dict:
+    """Every transcript_final's ``confidence`` (JAX's four keys, none
+    missing with the lanes on) and every parse's ``intent_margin`` as the
+    voice service folds x-intent-margin into the latency_budget stages."""
+    confs = [e.get("confidence") for e in events if e["type"] == "transcript_final"]
+    fail_if(any(c is None or set(c) != {"logp_mean", "logp_min", "logp_first", "repetition"}
+                for c in confs), f"{label}: transcript_final confidence {confs}")
+    budgets = [e["stages"] for e in events if e["type"] == "latency_budget"]
+    budgets += [f["stages"] for fr in per for f in fr if f["type"] == "latency_budget"]
+    fail_if(any("intent_margin" not in b for b in budgets),
+            f"{label}: a parse without x-intent-margin: {budgets}")
+    return {"confidence": confs, "margins": [b["intent_margin"] for b in budgets]}
+
+
+def _scrape(url: str) -> dict:
+    """One service's ``/metrics`` (JSON) and ``/debug/quality``."""
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return json.loads(r.read())
+
+    return {"metrics": get("/metrics"), "quality": get("/debug/quality")}
+
+
+def _check_scrapes(brain_url: str, voice_url: str, before: dict, trace_id: str,
+                   n_audio: int, n_typed: int) -> dict:
+    """Both services' /metrics (JSON and Prometheus text), /debug/quality
+    and the audio utterance's /debug/trace/<id>, held to the run: one STT
+    quality record per final, one intent record per parse, the brain's
+    parses equal to the /parse calls the voice service made (its speculative
+    parses and its parse round trips), and the voice.spec_parse_* outcomes
+    adding up to the audio finals."""
+    after = {"brain": _scrape(brain_url), "voice": _scrape(voice_url)}
+
+    def delta(side, reg, kind, name):
+        def value(scrape):
+            v = scrape[side]["metrics"][reg][kind].get(name)
+            return (v or {"count": 0})["count"] if kind == "latency_ms" else (v or 0)
+
+        return value(after) - value(before)
+
+    vq = after["voice"]["quality"]["counts"]
+    bq = after["brain"]["quality"]["counts"]
+    spec = {k: delta("voice", "runtime", "counters", f"voice.spec_parse_{k}")
+            for k in ("started", "hit", "commit", "unsupported", "failed", "stale")}
+    roundtrips = delta("voice", "local", "latency_ms", "voice.parse_roundtrip")
+    brain_parses = spec["started"] + roundtrips
+    fail_if(vq.get("quality.stt_finals") != n_audio,
+            f"scrape: voice stt quality records {vq} for {n_audio} finals")
+    fail_if(vq.get("quality.parses") != n_audio + n_typed,
+            f"scrape: voice parse quality records {vq} for {n_audio + n_typed} finals")
+    fail_if(spec["hit"] + spec["unsupported"] + spec["failed"] + spec["stale"] != n_audio,
+            f"scrape: voice.spec_parse_* outcomes {spec} for {n_audio} audio finals")
+    fail_if(bq.get("quality.parses") != brain_parses
+            or delta("brain", "local", "latency_ms", "brain.parse") != brain_parses
+            or delta("brain", "runtime", "counters", "engine.requests") != brain_parses,
+            f"scrape: brain parses {bq}, brain.parse spans, engine.requests against "
+            f"{brain_parses} (spec {spec}, round trips {roundtrips})")
+    traces = {}
+    for side, url in (("brain", brain_url), ("voice", voice_url)):
+        with urllib.request.urlopen(f"{url}/debug/trace/{trace_id}", timeout=60) as r:
+            traces[side] = [s["span"] for s in json.loads(r.read())["spans"]]
+        req = urllib.request.Request(url + "/metrics", headers={"Accept": "text/plain"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            fail_if(not r.headers["Content-Type"].startswith("text/plain; version=0.0.4"),
+                    f"scrape: {side} Prometheus content type {r.headers['Content-Type']}")
+            prom = r.read().decode()
+        fail_if("# TYPE quality_parses_total counter" not in prom,
+                f"scrape: {side} Prometheus text without quality_parses_total")
+    fail_if("parse" not in traces["brain"]
+            or not {"audio_ingest", "stt_finalize"} <= set(traces["voice"]),
+            f"scrape: trace {trace_id}: {traces}")
+    log(f"[voice_service] scraped: voice quality counts {vq}, brain {bq}; spec outcomes "
+        f"{spec}, parse round trips {roundtrips}; trace {trace_id}: {traces}")
+    return {"voice_counts": vq, "brain_counts": bq, "spec": spec, "roundtrips": roundtrips,
+            "trace": traces,
+            "voice_quality_windows": after["voice"]["quality"]["windows"],
+            "brain_quality_windows": after["brain"]["quality"]["windows"]}
 
 
 # ------------------------------------------------------------------ batched /parse
@@ -3234,6 +3411,266 @@ def phase_service_batched(totals: dict, report: dict) -> None:
     report["service_batched"] = {"seconds": wall, "walls_ms": walls,
                                  "statuses": [r[0] for r in results],
                                  "chunks": parser.batcher.chunks, "launches": c.counts}
+
+
+# ------------------------------------------------------------------ quality lanes
+
+# one recorded batch of lanes (fp32 on the card) against an fp64
+# recomputation on the CPU over the same logits: an fp32 top-2 gap and
+# entropy sit a few ulp from the exact values
+QUALITY_FP64_TOL = 1e-4
+# the trained stack on the card against the same stack on the CPU (fp32,
+# tf32 off on the card): each confidence lane and x-intent-margin within
+QUALITY_CPU_TOL = 1e-3
+
+
+def _set_lanes(eng, on: bool) -> None:
+    """The quality lanes of one engine object, on or off (its spec decoder's
+    too)."""
+    eng.quality_lanes = on
+    if getattr(eng, "spec", None) is not None:
+        eng.spec.quality_lanes = on
+
+
+def _record_conf(modules):
+    """Wrap each module's ``_conf_stats`` so that the first call's inputs
+    and outputs are kept. Returns (record, restore)."""
+    rec: dict = {}
+    saved = [(m, m._conf_stats) for m in modules]
+
+    def wrap(real):
+        def recording(raw, state, tables, constrained):
+            out = real(raw, state, tables, constrained)
+            if not rec:
+                rec.update(raw=raw.detach().clone(), state=state.clone(), tables=tables,
+                           out=[o.clone() for o in out])
+            return out
+        return recording
+
+    for m, real in saved:
+        m._conf_stats = wrap(real)
+
+    def restore():
+        for m, real in saved:
+            m._conf_stats = real
+
+    return rec, restore
+
+
+def _conf_fp64_err(rec: dict) -> dict:
+    """The recorded lanes against ``_masked_conf`` in fp64 on the CPU, over
+    the same logits and the same legal rows."""
+    import torch
+
+    from tpu_voice_agent_torch.grammar.fsm import fsm_row
+    from tpu_voice_agent_torch.serve.engine import _masked_conf
+
+    state = rec["state"]
+    legal = ((fsm_row(rec["tables"], torch.clamp(state, min=0)) >= 0)
+             & (state >= 0)[:, None]).cpu()
+    m, e, f = _masked_conf(torch.where(legal, rec["raw"].double().cpu(), float("-inf")),
+                           legal.sum(-1))
+    mc, ec, fc = (o.cpu() for o in rec["out"])
+    return {"rows": int(state.numel()), "margin_err": float((mc.double() - m).abs().max()),
+            "entropy_err": float((ec.double() - e).abs().max()),
+            "forced_equal": bool(torch.equal(fc, f)), "forced_rows": int(fc.sum())}
+
+
+def _device_kernels(fn) -> int:
+    """Device kernels one call of ``fn`` launches (torch.profiler); 0 when
+    the profiler sees no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+
+
+def _chunk_lanes(eng, label: str) -> dict:
+    """One batch chunk after 32 admissions, lanes on and off on the same
+    engine: its wall (median of 4, unprofiled, the two modes in turns) and
+    the device kernels a 4-step chunk launches (profiled after its
+    admissions; a short chunk keeps the profiler's trace small)."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
+
+    def admit():
+        b.run_until_done()
+        b.results.clear()
+        for i in range(BATCH_SLOTS):
+            b.submit(_batch_prompt(i))
+        b._admit_pending(b._active_h)
+        torch.cuda.synchronize()
+
+    # the walls in turns (on, off, off, on, ...), so a drift of the host
+    # lands on both
+    walls = {True: [], False: []}
+    for lanes in (True, False, False, True, True, False, False, True):
+        _set_lanes(eng, lanes)
+        admit()
+        t0 = time.perf_counter()
+        b.step()
+        torch.cuda.synchronize()
+        walls[lanes].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for lanes in (True, False):
+        _set_lanes(eng, lanes)
+        admit()
+        b.chunk_steps = 4
+        try:
+            n = _device_kernels(b.step)
+        finally:
+            b.chunk_steps = 16
+        fwds = int(eng._last_fwds)
+        out["on" if lanes else "off"] = {
+            "chunk_ms_p50": statistics.median(walls[lanes]), "chunk_walls_ms": walls[lanes],
+            "profiled_kernels": n, "profiled_forwards": fwds,
+            "kernels_per_forward": n / fwds if n and fwds else None}
+    _set_lanes(eng, True)
+    b.run_until_done()
+    on, off = out["on"], out["off"]
+    added = ((on["profiled_kernels"] - off["profiled_kernels"]) / on["profiled_forwards"]
+             if on["kernels_per_forward"] and off["kernels_per_forward"]
+             and on["profiled_forwards"] == off["profiled_forwards"] else None)
+    out["kernels_added_per_forward"] = added
+    log(f"[{label}] chunk (32 rows, 16 steps) wall p50 lanes on {on['chunk_ms_p50']:.2f} ms, "
+        f"off {off['chunk_ms_p50']:.2f} ms; a 4-step chunk launches {on['profiled_kernels']} "
+        f"kernels in {on['profiled_forwards']} forwards lanes on, {off['profiled_kernels']} in "
+        f"{off['profiled_forwards']} off: {added} added per forward")
+    return out
+
+
+def phase_quality(params, totals: dict, report: dict) -> None:
+    """The quality lanes at full width (tinyllama-1.1b int8, random weights):
+    the batch phase's 32 sessions through the paged batched engine at ff 8
+    (K7) and through the paged spec engine (K7, K11), each drained with the
+    lanes on and then off on the same engine object: equal tokens,
+    ``quality`` on every result with the lanes on and None with them off;
+    the first recorded batch of lanes against an fp64 recomputation on the
+    CPU; one chunk's wall and device kernels per forward, lanes on and off."""
+    from tpu_voice_agent_torch.serve import engine as engine_mod
+    from tpu_voice_agent_torch.serve import spec as spec_mod
+    from tpu_voice_agent_torch.serve.spec import SpecConfig
+
+    out = {}
+    for kind, ff, kw, kernels in (
+            ("ff8", 8, {}, ("paged_block_attention", "masked_argmax_advance")),
+            ("spec", 0, {"spec": SpecConfig(k=SPEC_K)}, ("paged_block_attention",
+                                                         "masked_argmax"))):
+        label = f"quality {kind}"
+        eng = _paged_engine(params, ff, radix_enable=False, **kw)
+        fail_if(not eng.quality_lanes, f"{label}: QUALITY_ENABLE unset must turn the lanes on")
+        rec, restore = _record_conf([engine_mod, spec_mod])
+        try:
+            row_on, res_on, c = _drain(eng, f"{label} lanes on", totals)
+        finally:
+            restore()
+        c.require(*kernels)
+        _set_lanes(eng, False)
+        row_off, res_off, _c = _drain(eng, f"{label} lanes off", totals)
+        _set_lanes(eng, True)
+        fail_if([r.token_ids for r in res_on] != [r.token_ids for r in res_off],
+                f"{label}: the lanes changed a token")
+        fail_if(any(r.quality is None for r in res_on), f"{label}: a result without quality")
+        fail_if(any(r.quality is not None for r in res_off),
+                f"{label}: quality with the lanes off")
+        err = _conf_fp64_err(rec)
+        log(f"[{label}] one recorded batch ({err['rows']} rows, {err['forced_rows']} forced) "
+            f"against fp64: margin {err['margin_err']:.3g}, entropy {err['entropy_err']:.3g} "
+            f"(tolerance {QUALITY_FP64_TOL:g}), forced flags equal {err['forced_equal']}")
+        fail_if(err["margin_err"] > QUALITY_FP64_TOL or err["entropy_err"] > QUALITY_FP64_TOL
+                or not err["forced_equal"], f"{label}: the card's lanes disagree with fp64")
+        means = {k: statistics.mean(r.quality[k] for r in res_on)
+                 for k in ("margin_mean", "entropy_mean", "forced_frac")}
+        out[kind] = {"lanes_on": row_on, "lanes_off": row_off, "fp64": err,
+                     "quality_means": means, "chunk": _chunk_lanes(eng, label)}
+        log(f"[{label}] drain lanes on {row_on['wall_s']:.3f} s, off {row_off['wall_s']:.3f} s; "
+            f"mean over sessions: {json.dumps({k: round(v, 4) for k, v in means.items()})}")
+        del eng
+    report["quality"] = out
+
+
+def _stt_lanes(eng) -> dict:
+    """The STT lanes on one whisper-large-v3 transcribe (the 300-frame
+    bucket): the same tokens with the lanes off, the lanes against an fp64
+    log-softmax of the recorded step logits, and the transcribe's wall
+    (median of 4, the two modes in turns), and the device kernels an
+    8-token transcribe launches, lanes on and off."""
+    import torch
+
+    from tpu_voice_agent_torch.serve import stt as stt_mod
+    from tpu_voice_agent_torch.voicebench import synth_utterance
+
+    audio = synth_utterance(2.9)
+    steps = []
+    real = stt_mod.decoder_forward
+
+    def recording(*a, **kw):
+        lg, cache = real(*a, **kw)
+        steps.append(lg[0, -1].detach().clone())
+        return lg, cache
+
+    stt_mod.decoder_forward = recording
+    try:
+        on = eng.transcribe(audio)
+    finally:
+        stt_mod.decoder_forward = real
+    ids = on.token_ids
+    lp = [float(torch.log_softmax(steps[i].double(), -1)[t]) for i, t in enumerate(ids)]
+    fail_if([int(torch.argmax(s)) for s in steps[:len(ids)]] != ids,
+            "stt lanes: the recorded logits do not pick the emitted tokens")
+    ref = {"logp_mean": sum(lp) / len(lp), "logp_min": min(lp), "logp_first": lp[0]}
+    err = max(abs(getattr(on, k) - v) for k, v in ref.items())
+    out = {"tokens": len(ids), "fp64_err": err, "lanes": {k: getattr(on, k) for k in (
+        "logp_mean", "logp_min", "logp_first", "repetition")}}
+    # rounded to 4 decimals on the way out: half a step of that on top
+    fail_if(err > QUALITY_FP64_TOL + 5e-5, f"stt lanes: {out['lanes']} against fp64 {ref}")
+    runs = {True: [], False: []}
+    for lanes in (True, False, False, True, True, False, False, True):  # in turns
+        eng.quality_lanes = lanes
+        t0 = time.perf_counter()
+        r = eng.transcribe(audio)
+        runs[lanes].append((r, (time.perf_counter() - t0) * 1e3))
+    def profiled() -> tuple[int, int]:
+        """Kernels and forwards of one 8-token transcribe (a short one keeps
+        the profiler's trace small)."""
+        budget, eng.max_new_tokens = eng.max_new_tokens, 8
+        try:
+            got = []
+            n = _device_kernels(lambda: got.append(eng.transcribe(audio)))
+        finally:
+            eng.max_new_tokens = budget
+        return n, got[0].forwards
+
+    for lanes in (True, False):
+        eng.quality_lanes = lanes
+        rs, walls = [r for r, _ in runs[lanes]], [w for _, w in runs[lanes]]
+        n, fwds = profiled()
+        fail_if(any(r.token_ids != ids for r in rs), "stt lanes: the lanes changed a token")
+        fail_if(any((r.logp_mean is None) == lanes for r in rs),
+                f"stt lanes: logp_mean {rs[0].logp_mean} with the lanes "
+                f"{'on' if lanes else 'off'}")
+        out["on" if lanes else "off"] = {
+            "transcribe_ms_p50": statistics.median(walls), "walls_ms": walls,
+            "forwards": rs[0].forwards, "profiled_kernels": n, "profiled_forwards": fwds}
+    eng.quality_lanes = True
+    on_, off_ = out["on"], out["off"]
+    added = ((on_["profiled_kernels"] - off_["profiled_kernels"]) / on_["profiled_forwards"]
+             if on_["profiled_kernels"] and off_["profiled_kernels"] else None)
+    out["kernels_added_per_forward"] = added
+    log(f"[stt] lanes: {out['lanes']} ({len(ids)} tokens), fp64 error {err:.3g}; transcribe "
+        f"({on_['forwards']} forwards) p50 lanes on {on_['transcribe_ms_p50']:.2f} ms, off "
+        f"{off_['transcribe_ms_p50']:.2f} ms; an 8-token transcribe launches "
+        f"{on_['profiled_kernels']} kernels in {on_['profiled_forwards']} decoder forwards "
+        f"lanes on, {off_['profiled_kernels']} off: {added} added per forward")
+    return out
 
 
 # ------------------------------------------------------------------ speculation
@@ -3912,8 +4349,9 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,digest,kernels,service,parse,batch,"
                          "batch_dense,radix,"
-                         "kvquant,spec,service_batched,golden,batch_golden,kvquant_golden,"
-                         "spec_golden,stt,stt_golden,voice,voice_service,moe (default all)")
+                         "kvquant,spec,quality,service_batched,golden,batch_golden,"
+                         "kvquant_golden,spec_golden,stt,stt_golden,voice,voice_service,moe "
+                         "(default all)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile (torch.profiler) one bench parse at ff=8 and one at "
                          "ff=0 when the service phase "
@@ -3924,7 +4362,7 @@ def main() -> int:
                          "each MoE dispatch when the moe phase runs")
     args = ap.parse_args()
     phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
-               "radix", "kvquant", "spec", "service_batched", "golden", "batch_golden",
+               "radix", "kvquant", "spec", "quality", "service_batched", "golden", "batch_golden",
                "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
                "moe"]
               if args.phases == "all" else args.phases.split(","))
@@ -3972,7 +4410,8 @@ def main() -> int:
     eng = timed("service", phase_service, totals, report) if "service" in phases else None
     for name, fn in (("parse", phase_parse), ("batch", phase_batch),
                      ("batch_dense", phase_batch_dense), ("radix", phase_radix),
-                     ("kvquant", phase_kvquant), ("spec", phase_spec)):
+                     ("kvquant", phase_kvquant), ("spec", phase_spec),
+                     ("quality", phase_quality)):
         if name in phases:
             fail_if(eng is None, f"the {name} phase reuses the service's weights")
             kw = {"profile": args.profile} if name in ("batch", "kvquant", "spec") else {}

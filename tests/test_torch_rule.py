@@ -125,9 +125,12 @@ def test_unset_backend_boots_the_rule_parser(monkeypatch, caplog):
     assert warned == [f"{k} is not supported by the rule backend; ignoring"
                       for k in ("BRAIN_PAGED", "BRAIN_QUANT", "BRAIN_MOE")]
     app = brain.BrainApp(parser)
-    assert app.health() == (200, {"ok": True, "service": "brain"}, {})
+    assert app.health() == (200, {"ok": True, "service": "brain", "slo": "ok",
+                                  "quality": {"slo": "ok"}}, {})
     status, body, _ = app.parse(b'{"text": "take a screenshot"}')
     assert status == 200 and body["intents"][0]["type"] == "screenshot"
-    monkeypatch.setenv("BRAIN_BACKEND", "distilled")
+    # distilled is served since the trained brain boots from the environment;
+    # the planner backends are still refused
+    monkeypatch.setenv("BRAIN_BACKEND", "planner-distilled")
     with pytest.raises(ValueError, match="not ported"):
         brain.make_parser_from_env()

@@ -139,6 +139,9 @@ def test_finals_and_intents_match_the_jax_stack(stacks, scenario):
         events = stream(url, frames, n)
         out[side] = {
             "finals": [e["text"] for e in events if e["type"] == "transcript_final"],
+            # the STT confidence lanes (QUALITY_ENABLE defaults on in both)
+            "confidence": [e.get("confidence") for e in events
+                           if e["type"] == "transcript_final"],
             "intents": [e["data"]["intents"] for e in events if e["type"] == "intent"],
             "degraded": [e for e in events if e.get("degraded")],
             "results": [all(r.get("ok") for r in e["data"]["results"])
@@ -147,6 +150,8 @@ def test_finals_and_intents_match_the_jax_stack(stacks, scenario):
     assert out["port"] == out["jax"], json.dumps(out, indent=1)
     port = out["port"]
     assert not port["degraded"] and len(port["finals"]) == len(texts)
+    assert all(set(c) == {"logp_mean", "logp_min", "logp_first", "repetition"}
+               for c in port["confidence"])
     if name == "whisper-tiny-overfit":  # test_neural_e2e.py's assertions
         assert port["finals"] == texts
         if scenario == "search":

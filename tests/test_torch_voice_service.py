@@ -920,7 +920,6 @@ def test_intent_validation_and_risk_match_jax():
     ({"STT_BATCH_ENABLE": "1"}, 5),
     ({"STT_BATCH_SLOTS": "4"}, 5),
     ({"STT_REPLICAS": "2"}, 5),
-    ({"VOICE_STT": "whisper:whisper-test", "QUALITY_ENABLE": "1"}, 3),
 ])
 def test_stt_factory_refuses_what_it_would_ignore(monkeypatch, env, item):
     for k, v in env.items():
@@ -929,10 +928,39 @@ def test_stt_factory_refuses_what_it_would_ignore(monkeypatch, env, item):
         voice.stt_factory_from_env()
 
 
+def test_quality_enable_boots_whisper_whose_finals_carry_confidence(monkeypatch):
+    """``QUALITY_ENABLE=1`` (once refused) boots a Whisper STT with the
+    confidence lanes on: its final carries JAX's four keys."""
+    from tpu_voice_agent_torch import whisper_ckpt
+
+    monkeypatch.setenv("VOICE_STT", f"whisper-ckpt:{ROOT / 'checkpoints' / 'whisper-tiny-overfit'}")
+    monkeypatch.setenv("VOICE_DEVICE", "cpu")
+    monkeypatch.setenv("QUALITY_ENABLE", "1")
+    stt = voice.stt_factory_from_env()()
+    assert stt.engine.quality_lanes
+    audio = np.concatenate([whisper_ckpt.render_speech("scroll down"),
+                            np.zeros(16_000, np.float32)])
+    events = []
+    for i in range(0, len(audio), 960):
+        events += stt.feed(audio[i:i + 960])
+    assert [t for k, t in events if k == "final"] == ["scroll down"]
+    lf = stt.last_final
+    assert lf.logp_mean is not None and lf.logp_min <= lf.logp_mean <= 0
+    assert lf.logp_first is not None and 0 <= lf.repetition < 1
+
+
 def test_chaos_faults_refused_at_boot(monkeypatch):
     monkeypatch.setenv("CHAOS_FAULTS", "drop_frame:0.5")
     with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 4"):
         voice.build_app(voice.VoiceConfig(stt_factory=lambda: NullSTT()))
+
+
+def test_canary_refused_at_boot(monkeypatch):
+    monkeypatch.setenv("QUALITY_CANARY_S", "0.5")
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 3"):
+        voice.build_app(voice.VoiceConfig(stt_factory=lambda: NullSTT()))
+    monkeypatch.setenv("QUALITY_CANARY_S", "0")  # the JAX default: off
+    voice.build_app(voice.VoiceConfig(stt_factory=lambda: NullSTT()))
 
 
 def test_unknown_stt_spec_and_preset_raise(monkeypatch):
@@ -957,8 +985,7 @@ def test_whisper_stt_needs_a_card_or_voice_device_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("path,item", [
-    ("/metrics", 3), ("/debug/trace/abc123", 3), ("/debug/flightrecorder", 3),
-    ("/debug/quality", 3), ("/debug/costs", 7), ("/debug/timeseries", 7), ("/", 9),
+    ("/debug/flightrecorder", 3), ("/debug/costs", 7), ("/debug/timeseries", 7), ("/", 9),
     ("/static/app.js", 9),
 ])
 def test_unported_routes_answer_501(two_servers, path, item):
@@ -967,12 +994,36 @@ def test_unported_routes_answer_501(two_servers, path, item):
     assert r.json() == {"error": "not_ported", "detail": f"ROADMAP.md Queue 1 item {item}"}
 
 
+@pytest.mark.parametrize("path", ["/metrics", "/debug/trace/abc123", "/debug/quality"])
+def test_observability_routes_answer_with_the_jax_keys(two_servers, path):
+    """Once 501: the routes answer 200 with the JAX service's body keys."""
+    jax = httpx.get(two_servers["jax"] + path, timeout=5)
+    port = httpx.get(two_servers["port"] + path, timeout=5)
+    assert port.status_code == jax.status_code == 200
+    jb, pb = jax.json(), port.json()
+    assert set(pb) == set(jb) and pb["service"] == jb["service"] == "voice"
+    if path == "/metrics":
+        assert set(pb["local"]) == set(jb["local"]) and set(pb["slo"]) == set(jb["slo"])
+    elif path == "/debug/quality":
+        assert pb["counts"] == jb["counts"] and pb["lanes_enabled"] == jb["lanes_enabled"]
+        assert set(pb["slo"]) == set(jb["slo"])
+    else:
+        assert pb == jb == {"service": "voice", "trace_id": "abc123", "spans": []}
+    prom = httpx.get(two_servers["port"] + "/metrics", timeout=5,
+                     headers={"Accept": "text/plain"})
+    assert prom.headers["content-type"].startswith("text/plain; version=0.0.4")
+    assert "# TYPE voice_live_sessions gauge" in prom.text
+
+
 def test_health_keys_are_the_jax_services_but_quality(two_servers):
+    """The JAX service's /health keys, ``quality`` included since the quality
+    observatory was ported (no brain answers here, so neither forwards one)."""
     jax = httpx.get(two_servers["jax"] + "/health", timeout=5).json()
     port = httpx.get(two_servers["port"] + "/health", timeout=5).json()
-    assert set(port) == set(jax) - {"quality", "brain"} - {"stt_replicas"}
+    assert set(port) == set(jax) - {"brain"} - {"stt_replicas"}
     for k in ("ok", "status", "service", "breakers", "slo", "sessions", "capacity_sessions"):
         assert port[k] == jax[k], k
+    assert set(port["quality"]) == set(jax["quality"]) == {"slo"}
 
 
 def test_module_entry_point_serves_without_a_card(tmp_path):

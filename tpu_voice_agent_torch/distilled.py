@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import json
 from dataclasses import replace
+from pathlib import Path
 
 from . import PACKAGE_DIR
 
@@ -55,6 +56,25 @@ def intent_engine_from(cfg, params, max_new_tokens: int = 300, device=None, **en
                        **engine_kw)
     eng.load_params(params)
     return EngineParser(eng, max_new_tokens=max_new_tokens, render=distilled_prompt)
+
+
+# the checkpoint's name: the last path component a ``distilled:<dir>``
+# backend may name (the JAX package's ``checkpoints/intent-tiny-distilled``)
+INTENT_CKPT = "intent-tiny-distilled"
+
+
+def parser_from_env(backend: str, device=None, spec=None):
+    """``BRAIN_BACKEND=distilled[:<dir>]``: the committed checkpoint behind
+    ``intent_engine_from`` (``spec`` passed through, as JAX passes
+    ``SPEC_ENABLE``). A directory is served when its last component is
+    ``intent-tiny-distilled``, whose weights the port carries; any other is
+    refused (checkpoint import, ROADMAP.md Queue 1 item 8)."""
+    if ":" in backend:
+        path = backend.split(":", 1)[1]
+        if Path(path.rstrip("/")).name != INTENT_CKPT:
+            raise ValueError(f"BRAIN_BACKEND={backend!r}: the port carries only {INTENT_CKPT} "
+                             "(checkpoint import is ROADMAP.md Queue 1 item 8)")
+    return intent_engine_from(*load_distilled(device=device), device=device, spec=spec)
 
 
 def golden_records() -> list[dict]:

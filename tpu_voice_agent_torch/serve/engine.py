@@ -15,9 +15,16 @@ overrides the layout hooks ``_prefill_suffix`` / ``_prefill_full``. With
 ``spec`` (``serve.spec.SpecConfig``) greedy constrained decoding runs
 draft-K / verify-once steps instead (speculation supersedes fast-forward).
 
+The quality lanes (``quality_lanes``, read from ``QUALITY_ENABLE`` at
+construction) accumulate each decision's masked-logit margin and entropy and
+the grammar-forced count in the loop's carry on the device; they are read
+back once with the tokens and summarized into ``GenerationResult.quality``.
+They only read values the step computed, so the tokens are the same on or
+off.
+
 The JAX ``lax.while_loop`` is a Python loop here: its ``any(active)`` test
 reads one bool back from the device on every step. Left out (still JAX-only):
-the quality lanes, chaos injection, ``from_hf``, meshes and ``warm_restart``.
+chaos injection, ``from_hf``, meshes and ``warm_restart``.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from ..models.llama import (
     unstack_layers,
 )
 from ..ops import masked_argmax_advance
+from ..utils.quality import conf_summary, quality_lanes_enabled
+from ..utils.tracing import get_metrics
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,6 +84,10 @@ class GenerationResult:
     cached_tokens: int = 0  # prompt tokens served from the cached prefix
     prompt_tokens: int = 0
     spec_accepted: int = 0  # draft tokens the verify steps accepted (batched)
+    # per-request confidence vector (utils.quality.conf_summary): margin
+    # mean / min, entropy mean, forced fraction, decision count; None with
+    # the quality lanes off or no decision sampled
+    quality: dict | None = None
 
     @property
     def tokens_per_s(self) -> float:
@@ -122,6 +135,78 @@ def _poison_gate(raw, state, state_next, active, poison, constrained: bool):
 
 
 _first_token = _mask_sample_advance  # the prefill's first pick is the same block
+
+
+# margin of a forced decision (one legal token: the gap is +inf; the cap
+# keeps windowed means finite and comparable across grammars)
+QUALITY_MARGIN_CAP = 30.0
+
+
+def _conf_stats(raw, state, tables: DeviceFSM, constrained: bool):
+    """Masked-logit confidence of ONE sampling decision per row: the top1 -
+    top2 margin of the masked logits, the entropy of the masked softmax, and
+    the forced flag (the grammar leaves at most one legal token). The legal
+    row is rebuilt from the FSM table at ``max(state, 0)`` (K4 never returns
+    its masked logits), masked with -inf. Reads only: nothing feeds back
+    into sampling."""
+    lg = raw.float()
+    if constrained:
+        row = fsm_row(tables, torch.clamp(state, min=0))
+        legal = (row >= 0) & (state >= 0)[:, None]
+        lg = torch.where(legal, lg, float("-inf"))
+        nlegal = torch.sum(legal, dim=-1)
+    else:
+        nlegal = torch.sum(torch.isfinite(lg), dim=-1)
+    return _masked_conf(lg, nlegal)
+
+
+def _masked_conf(lg, nlegal):
+    """The reduction half of ``_conf_stats`` over already-masked fp32
+    logits (the spec verify tail calls it on each position's masked row).
+    A dead row (no legal token) carries no signal: margin and entropy 0."""
+    top2 = torch.topk(lg, 2, dim=-1).values
+    alive = torch.isfinite(top2[:, 0])
+    margin = torch.where(torch.isfinite(top2[:, 1]),
+                         torch.clamp(top2[:, 0] - top2[:, 1], max=QUALITY_MARGIN_CAP),
+                         QUALITY_MARGIN_CAP)
+    margin = torch.where(alive, margin, 0.0)
+    p = torch.softmax(lg, dim=-1)
+    ent = -torch.sum(torch.where(p > 0, p * torch.log(torch.clamp(p, min=1e-30)), 0.0), dim=-1)
+    ent = torch.where(alive, ent, 0.0)
+    return margin, ent, nlegal <= 1
+
+
+def _conf_accumulate(conf, ok, margin, ent, forced_one, forced_extra=None):
+    """Fold one decision into the per-row lanes ``(margin_sum, margin_min,
+    entropy_sum, forced, decisions)``; ``forced_extra`` adds the grammar-
+    forced chain tokens of a fast-forward step."""
+    msum, mmin, esum, forced, cnt = conf
+    msum = msum + torch.where(ok, margin, 0.0)
+    mmin = torch.where(ok, torch.minimum(mmin, margin), mmin)
+    esum = esum + torch.where(ok, ent, 0.0)
+    forced = forced + (ok & forced_one).to(torch.int32)
+    if forced_extra is not None:
+        forced = forced + forced_extra
+    cnt = cnt + ok.to(torch.int32)
+    return msum, mmin, esum, forced, cnt
+
+
+def _conf_init(B: int, device):
+    """Fresh per-row lanes (margin_min starts at +inf: no decision yet)."""
+    return (torch.zeros((B,), dtype=torch.float32, device=device),
+            torch.full((B,), float("inf"), dtype=torch.float32, device=device),
+            torch.zeros((B,), dtype=torch.float32, device=device),
+            torch.zeros((B,), dtype=torch.int32, device=device),
+            torch.zeros((B,), dtype=torch.int32, device=device))
+
+
+def conf_host(conf) -> list[np.ndarray] | None:
+    """The lanes as host arrays, in one transfer (None passes through)."""
+    if conf is None:
+        return None
+    packed = torch.stack([conf[0], conf[1], conf[2], conf[3].float(), conf[4].float()]).cpu()
+    a = packed.numpy()
+    return [a[0], a[1], a[2], a[3].astype(np.int64), a[4].astype(np.int64)]
 
 
 def prefill_row(params, cfg: LlamaConfig, cache: dict, tokens, positions, slot: int,
@@ -175,7 +260,8 @@ def chain_byte_cap(k, chain, cur_tok, nbytes, byte_len_table, byte_budget: int):
 def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes, tokens_left,
                 tables: DeviceFSM, byte_len_table, generator, temperature: float,
                 byte_budget: int, chunk_steps: int = 32, greedy: bool = True,
-                constrained: bool = True, eos_id: int = 2, pad_id: int = 0):
+                constrained: bool = True, eos_id: int = 2, pad_id: int = 0,
+                quality_lanes: bool = False):
     """THE decode loop, for every KV layout: advance every active row by up
     to ``chunk_steps`` steps on the device (engine.py:367-589, and its paged
     twin paged.py:287-492). ``forward_step(tokens, positions, active)``
@@ -188,8 +274,13 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
     parks or confines their writes). A poisoned row (non-finite logits or a
     dead FSM state) deactivates without committing its sample.
 
+    With ``quality_lanes`` every committed decision folds its confidence
+    into per-row device lanes (``_conf_accumulate``); a fast-forward step
+    also counts its chain tokens as forced, masked by ``active`` as in JAX.
+
     Returns (emitted (B, chunk_steps*(1+W)), counts, eos, cur, pos,
-    fsm_state, active, nbytes, tokens_left, forwards, poison)."""
+    fsm_state, active, nbytes, tokens_left, forwards, poison, conf): conf is
+    the five device lanes, or None with the lanes off."""
     B = cur.shape[0]
     dev = cur.device
     use_ff = constrained and tables.ff_tokens is not None
@@ -203,6 +294,7 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
     poison = torch.zeros((B,), dtype=torch.int32, device=dev)
     ar = torch.arange(B, device=dev)
     iw = torch.arange(1 + W, dtype=torch.int32, device=dev)[None, :]
+    conf = _conf_init(B, dev) if quality_lanes else None
     step = 0
     while step < chunk_steps and bool(active.any()):  # one host sync per step
         if use_ff:
@@ -241,6 +333,12 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
             nxt, state_next = _mask_sample_advance(raw, s_end, tables, generator, temperature,
                                                    greedy, constrained)
             ok, poison = _poison_gate(raw, s_end, state_next, active, poison, constrained)
+            if quality_lanes:
+                # the decision at the chain's end, plus the emitted chain
+                # tokens counted as forced (masked by active, not ok)
+                mg, en, f1 = _conf_stats(raw, s_end, tables, constrained)
+                conf = _conf_accumulate(conf, ok, mg, en, f1,
+                                        forced_extra=torch.where(active, k, 0))
             pos = torch.where(ok, pos + 1 + k, pos)
         else:
             idx = torch.clamp(n, max=cap - 1).long()
@@ -256,6 +354,9 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
             nxt, state_next = _mask_sample_advance(raw, state, tables, generator, temperature,
                                                    greedy, constrained)
             ok, poison = _poison_gate(raw, state, state_next, active, poison, constrained)
+            if quality_lanes:
+                mg, en, f1 = _conf_stats(raw, state, tables, constrained)
+                conf = _conf_accumulate(conf, ok, mg, en, f1)
             pos = torch.where(ok, pos + 1, pos)
         state = torch.where(ok, state_next, state)
         cur = torch.where(ok, nxt, cur)
@@ -263,7 +364,7 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
         stop = (cur == eos_id) | (nbytes >= byte_budget) | (pos >= max_pos - 1) | (left <= 0)
         active = ok & ~stop
         step += 1
-    return (out[:, :cap], n, eos, cur, pos, state, active, nbytes, left, step, poison)
+    return (out[:, :cap], n, eos, cur, pos, state, active, nbytes, left, step, poison, conf)
 
 
 def _sync(device: torch.device) -> None:
@@ -290,8 +391,11 @@ class DecodeEngine:
         fast_forward: int = 0,  # grammar fast-forward chain width (0 = off)
         device: str | torch.device | None = None,  # None = cuda, or raise
         spec=None,  # serve.spec.SpecConfig | None: speculative decoding
+        quality_lanes: bool | None = None,  # None: QUALITY_ENABLE (default on)
     ):
         self.device = resolve_device(device)
+        self.quality_lanes = (quality_lanes_enabled() if quality_lanes is None
+                              else bool(quality_lanes))
         if batch_slots < 1:
             raise ValueError("need at least one batch slot")
         # "auto" and "kernels" both take the kernel branch split: the
@@ -338,6 +442,7 @@ class DecodeEngine:
         self._last_cached_tokens = 0
         self._last_fwds = 0  # the last decode_chunk's forward count
         self._last_poison = None  # its per-row fault codes (B,) int32
+        self._last_conf = None  # its per-row quality lanes (device), or None
         # speculative decoding, built last: the decoder reads the engine's
         # surface; the paged engine builds it once its pool exists
         self.spec = None
@@ -435,7 +540,9 @@ class DecodeEngine:
         real token's logits (1, V). The one decision tree of every layout:
         the dense and paged engines override only the ``_prefill_suffix`` /
         ``_prefill_full`` hooks."""
-        self.release_slot(slot)  # a finished request may still own resources
+        # a finished request may still own resources; it is released as
+        # not ok: it was never handed back clean (no radix insert, no trace)
+        self.release_slot(slot, ok=False)
         if self.spec is not None:
             # the drafters' host context (and the draft model's own prefill)
             self.spec.on_admit(slot, list(ids))
@@ -495,8 +602,8 @@ class DecodeEngine:
                      temperature: float, byte_budget: int, chunk_steps: int, greedy: bool):
         """Advance all slots by one decode chunk (the batcher's device-work
         entry point; the KV layout stays the engine's business). Sets
-        ``_last_fwds`` (forward count) and ``_last_poison`` (per-row fault
-        codes). Returns (emitted, counts, eos, cur, pos, fsm, active, nbytes,
+        ``_last_fwds`` (forward count), ``_last_poison`` (per-row fault
+        codes) and ``_last_conf`` (the per-row quality lanes, or None). Returns (emitted, counts, eos, cur, pos, fsm, active, nbytes,
         tokens_left). With speculation on, greedy chunks are the
         ``SpecDecoder``'s verify steps, each claiming its own room; a plain
         chunk first claims its worst case, ``chunk_steps * (1 + W)``
@@ -513,12 +620,12 @@ class DecodeEngine:
             tokens_left = tokens_left.clone()
             tokens_left[starved] = 0
         tables = self.tables_ff if self.tables_ff is not None else self.tables
-        (out, n, eos, cur, pos, fsm, active, nbytes, left, fwds, pois) = decode_loop(
+        (out, n, eos, cur, pos, fsm, active, nbytes, left, fwds, pois, conf) = decode_loop(
             self._decode_step, self.max_len, cur, pos, fsm, active, nbytes, tokens_left,
             tables, self.byte_len_table, generator, temperature, byte_budget,
             chunk_steps=chunk_steps, greedy=greedy, constrained=True,
-            eos_id=self.eos_id, pad_id=self.pad_id)
-        self._last_fwds, self._last_poison = fwds, pois
+            eos_id=self.eos_id, pad_id=self.pad_id, quality_lanes=self.quality_lanes)
+        self._last_fwds, self._last_poison, self._last_conf = fwds, pois, conf
         return out, n, eos, cur, pos, fsm, active, nbytes, left
 
     def release_slot(self, slot: int, generated_ids: list[int] | None = None,
@@ -528,7 +635,7 @@ class DecodeEngine:
         caches the prompt + ``generated_ids`` chain first unless ``ok`` is
         False). The spec decoder drops the slot's context."""
         if self.spec is not None:
-            self.spec.on_release(slot)
+            self.spec.on_release(slot, ok=ok)
 
     def _admit_first_token(self, prompt: str, temperature: float, greedy: bool = True,
                            constrained: bool = True):
@@ -574,21 +681,30 @@ class DecodeEngine:
             # of max_new_tokens steps finishes the request
             buf, count, eos = self.spec.decode_chunk(*state, byte_budget,
                                                      chunk_steps=max_new_tokens)[:3]
-            fwds, pois = self._last_fwds, self._last_poison
+            fwds, pois, conf = self._last_fwds, self._last_poison, self._last_conf
         else:
             tables = (self.tables_ff if (constrained and self.tables_ff is not None)
                       else self.tables)
-            (buf, count, eos, _cur, _pos, _fsm, _act, _nb, _left, fwds, pois) = decode_loop(
+            (buf, count, eos, _cur, _pos, _fsm, _act, _nb, _left, fwds, pois,
+             conf) = decode_loop(
                 self._decode_step, self.max_len, *state,
                 tables, self.byte_len_table, self._gen, temperature, byte_budget,
                 chunk_steps=max_new_tokens, greedy=greedy, constrained=constrained,
-                eos_id=self.eos_id, pad_id=self.pad_id,
+                eos_id=self.eos_id, pad_id=self.pad_id, quality_lanes=self.quality_lanes,
             )
         count_h = int(count[0])
         out_ids = [int(t) for t in buf[0, :count_h].tolist()]
         finished = bool(eos[0])
         pois_h = int(pois[0])
+        conf_h = conf_host(conf)
         decode_ms = (time.perf_counter() - t1) * 1e3
+        quality = (conf_summary([x[0] for x in conf_h], count_h)
+                   if conf_h is not None else None)
+        m = get_metrics()
+        m.inc("engine.requests")
+        m.inc("engine.tokens_generated", count_h)
+        m.observe_ms("engine.prefill", prefill_ms)
+        m.observe_ms("engine.decode", decode_ms)
         return GenerationResult(
             text=self.tokenizer.decode(out_ids),
             token_ids=out_ids,
@@ -602,4 +718,5 @@ class DecodeEngine:
             forwards=fwds,
             cached_tokens=self._last_cached_tokens,
             prompt_tokens=n,
+            quality=quality,
         )

@@ -19,10 +19,12 @@ K8 / K9.
 (``serve.scheduler``) via ``prefill_slot`` / ``decode_chunk`` /
 ``release_slot``; ``generate`` is refused. The pool is updated in place.
 With ``spec`` greedy chunks are ``serve.spec`` verify steps, each growing
-the tables by its own worst case (``_claim``). Left for later: chunked
-prefill, the warm-state handoff (``gather_chain_kv`` / ``adopt_chain_kv``),
-``warm_restart``, chaos injection, the quality lanes, meshes, the
-``paged.kv_*`` pool gauges.
+the tables by its own worst case (``_claim``). The paged chunk shares the
+dense engine's ``decode_loop``, quality lanes included; the batcher exports
+the pool's occupancy each chunk (``record_pool_gauges``: ``paged.kv_*``,
+bytes per block under ``KV_QUANT``). Left for later: chunked prefill, the
+warm-state handoff (``gather_chain_kv`` / ``adopt_chain_kv``),
+``warm_restart``, chaos injection, meshes.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..ops.kvquant import (
     kv_store_dtype,
     quantize_kv,
 )
+from ..utils.tracing import get_metrics
 from .engine import DecodeEngine, _sync
 from .radix import RadixCache
 
@@ -129,6 +132,24 @@ class BlockAllocator:
     @property
     def utilization(self) -> float:
         return self.blocks_in_use / self.usable_blocks
+
+
+def record_pool_gauges(alloc: BlockAllocator, engine=None) -> None:
+    """Export one allocator's occupancy as runtime gauges (the batcher calls
+    it each chunk). With ``engine`` the bytes view rides along: under
+    KV_QUANT a block is fewer bytes, so block counts alone are no unit of
+    device memory."""
+    m = get_metrics()
+    m.set_gauge("paged.kv_blocks_used", float(alloc.blocks_in_use))
+    m.set_gauge("paged.kv_blocks_total", float(alloc.usable_blocks))
+    m.set_gauge("paged.kv_utilization", alloc.utilization)
+    m.set_gauge("paged.kv_blocks_shared", float(alloc.blocks_shared))
+    if engine is not None:
+        bpb = engine.kv_bytes_per_block
+        m.set_gauge("paged.kv_quant_bits", float(engine.kv_quant_bits))
+        m.set_gauge("paged.kv_bytes_per_block", float(bpb))
+        m.set_gauge("paged.kv_bytes_used", float(alloc.blocks_in_use * bpb))
+        m.set_gauge("paged.kv_bytes_total", float(alloc.usable_blocks * bpb))
 
 
 def check_kv_quant_head_dim(kv_quant: str | None, head_dim: int, device: torch.device) -> None:
@@ -470,7 +491,10 @@ class PagedDecodeEngine(DecodeEngine):
     def _radix_may_admit(self) -> bool:
         """False while a recent allocation hit PoolExhausted: caching yields
         to live admissions before live admissions shed."""
-        return time.monotonic() >= self._pressure_until
+        if time.monotonic() >= self._pressure_until:
+            return True
+        get_metrics().inc("radix.admission_denied")
+        return False
 
     def generate(self, *a, **kw):
         raise ValueError("PagedDecodeEngine serves through the continuous batcher "

@@ -10,15 +10,19 @@ root chain. When the pool runs out, LRU eviction frees leaves the tree alone
 references (the allocator's refcounts are the single source of truth).
 
 Plain host code, no tensors. Tenant namespaces stay as an ``ns`` parameter
-that defaults to None (salted keys; pinned nodes shared). Left out: the
-per-tenant block quota, the metrics gauges (``record_hit`` keeps the plain
-counters) and the ref-free ``cached_tokens`` probe.
+that defaults to None (salted keys; pinned nodes shared). The
+``radix.cached_tokens`` and ``radix.evictions`` counters count as JAX's do;
+the batcher exports ``radix.nodes`` and ``radix.hit_rate`` each chunk
+(``record_radix_gauges``). Left out: the per-tenant block quota and the
+ref-free ``cached_tokens`` probe.
 """
 
 from __future__ import annotations
 
 import heapq
 import itertools
+
+from ..utils.tracing import get_metrics
 
 
 class RadixNode:
@@ -100,6 +104,7 @@ class RadixCache:
         """Account a matched chain the engine committed to."""
         self.hits += 1
         self.matched_tokens += matched
+        get_metrics().inc("radix.cached_tokens", float(matched))
 
     # ------------------------------------------------------------ insertion
 
@@ -200,6 +205,8 @@ class RadixCache:
             freed += 1
             if self._evictable(parent) and (ns is None or parent.ns == ns):
                 heapq.heappush(heap, (parent.last_use, id(parent), parent))
+        if freed:
+            get_metrics().inc("radix.evictions", float(freed))
         return freed
 
     def clear(self) -> None:
@@ -241,3 +248,12 @@ class RadixCache:
     @property
     def hit_rate(self) -> float:
         return self.hits / self.lookups if self.lookups else 0.0
+
+
+def record_radix_gauges(trees: list[RadixCache]) -> None:
+    """Export the radix plane's occupancy and hit rate (summed over trees)."""
+    m = get_metrics()
+    lookups = sum(t.lookups for t in trees)
+    hits = sum(t.hits for t in trees)
+    m.set_gauge("radix.nodes", float(sum(t.nodes for t in trees)))
+    m.set_gauge("radix.hit_rate", hits / lookups if lookups else 0.0)

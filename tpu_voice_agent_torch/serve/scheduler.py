@@ -15,9 +15,15 @@ that request alone; a row the decode loop poisoned (non-finite logits, dead
 grammar state) is evicted with ``"poisoned: ..."``. A CUDA runtime fault is
 never per-request: it propagates out of ``step``.
 
+Each slot keeps the engine's per-row quality lanes across chunks (folded on
+the host from the chunk's one readback, reset at admission) and a finished
+request carries ``quality=conf_summary(...)``. The ``scheduler.*`` counters,
+gauges and histograms of these features are JAX's, and each chunk exports
+the paged pool's and the radix tree's gauges.
+
 Left for later: deadlines and cancellation, the quarantine list and chaos
-drills, tenancy, the cost meter, the step ledger, metrics gauges, prefix
-feeds and exports, chunked admissions.
+drills, tenancy, the cost meter, the step ledger, prefix feeds and exports,
+chunked admissions.
 """
 
 from __future__ import annotations
@@ -30,8 +36,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils.quality import conf_summary
+from ..utils.tracing import get_metrics
 from .engine import GenerationResult, _first_token
-from .paged import PoolExhausted
+from .paged import PoolExhausted, record_pool_gauges
+from .radix import record_radix_gauges
 
 
 def is_device_fault(e: BaseException) -> bool:
@@ -62,6 +71,12 @@ class _Slot:
     cached_tokens: int = 0  # prompt tokens served from cached KV at admission
     forwards: int = 0  # verify steps this request rode (speculation only)
     spec_accepts: int = 0  # draft tokens its verify steps accepted
+    # the quality lanes folded across chunks (margin_min starts at +inf)
+    conf_msum: float = 0.0
+    conf_mmin: float = float("inf")
+    conf_esum: float = 0.0
+    conf_forced: int = 0
+    conf_cnt: int = 0
 
 
 class ContinuousBatcher:
@@ -104,6 +119,11 @@ class ContinuousBatcher:
         self.chunks = 0
         self.tokens_generated = 0
         self.forwards = 0
+        self._tps_ema = 0.0
+        # the contract counters exist from construction, at zero
+        m = get_metrics()
+        m.inc("scheduler.slots_quarantined", 0.0)
+        m.inc("scheduler.requeue_rotations", 0.0)
 
     # ------------------------------------------------------------ submit
 
@@ -165,11 +185,17 @@ class ContinuousBatcher:
         sl = self.slots[slot]
         sl.request_id = rid
         sl.token_ids = []
+        # fresh lanes: a re-admitted slot (or a requeued request) never
+        # carries an earlier admission's
+        sl.conf_msum, sl.conf_mmin, sl.conf_esum = 0.0, float("inf"), 0.0
+        sl.conf_forced = sl.conf_cnt = 0
         sl.start_s = t0
         sl.prompt_len = n
         sl.prefill_ms = eng._last_prefill_compute_ms
         sl.cached_tokens = int(eng._last_cached_tokens)
-        self._enqueued_at.pop(rid, None)
+        # TTFT: enqueue through the first sampled token, queue wait included
+        t_enq = self._enqueued_at.pop(rid, t0)
+        get_metrics().observe_ms("scheduler.ttft", (time.perf_counter() - t_enq) * 1e3)
 
     def _release_quietly(self, slot: int) -> None:
         """Best-effort cleanup of a failed admission's partial state."""
@@ -195,6 +221,7 @@ class ContinuousBatcher:
                 if not act.any() or time.perf_counter() - first >= self._pool_wait_s:
                     # nothing live can free blocks, or the wait budget is spent
                     self.results[rid] = _err_result(f"shed: {e}")
+                    get_metrics().inc("scheduler.shed_pool")
                     self._cleanup(rid)
                     continue
                 n_req = self._requeues.get(rid, 0) + 1
@@ -203,6 +230,7 @@ class ContinuousBatcher:
                     # requests behind it get their attempt
                     self._requeues[rid] = 0
                     self.pending.append((rid, prompt))
+                    get_metrics().inc("scheduler.requeue_rotations")
                 else:
                     self._requeues[rid] = n_req
                     self.pending.insert(0, (rid, prompt))
@@ -212,6 +240,8 @@ class ContinuousBatcher:
                     raise
                 self._release_quietly(slot)
                 self.results[rid] = _err_result(str(e))
+                if not isinstance(e, ValueError):  # a prompt too long is no fault
+                    get_metrics().inc("scheduler.prefill_faults")
                 self._cleanup(rid)
                 continue
             self._pool_wait.pop(rid, None)
@@ -225,6 +255,7 @@ class ContinuousBatcher:
         if not act.any():
             return
         eng = self.engine
+        t_chunk0 = time.perf_counter()
         # stale-readback fence: only a speculative chunk publishes per-row
         # accept / participation counts, and a plain chunk must not re-serve
         # an earlier one's
@@ -233,13 +264,23 @@ class ContinuousBatcher:
         (out, n, eos, cur, pos, fsm, active, nbytes, tokens_left) = eng.decode_chunk(
             self.cur, self.pos, self.fsm, self.active, self.nbytes, self.tokens_left,
             self.generator, self.temperature, self.byte_budget, self.chunk_steps, self.greedy)
-        # one host readback for everything the host needs this chunk
-        packed = torch.cat([out, torch.stack([n, active.to(torch.int32), eos.to(torch.int32),
-                                              pos, eng._last_poison], dim=1)], dim=1).cpu()
-        packed = packed.numpy()
+        # one host readback for everything the host needs this chunk: the
+        # quality lanes ride it as float32 columns (the int lanes are counts
+        # far below 2**24, exact in float32)
+        cols = [n, active.to(torch.int32), eos.to(torch.int32), pos, eng._last_poison]
+        ints = torch.cat([out, torch.stack(cols, dim=1)], dim=1)
+        conf = eng._last_conf
+        if conf is not None:
+            lanes = torch.stack([conf[0], conf[1], conf[2], conf[3].float(), conf[4].float()],
+                                dim=1)
+            packed = torch.cat([ints.float(), lanes], dim=1).cpu().numpy()
+        else:
+            packed = ints.cpu().numpy()
         cap = out.shape[1]
-        out_h = packed[:, :cap]
-        n_h, act_h, eos_h, pos_h, pois_h = (packed[:, cap + i] for i in range(5))
+        out_h = packed[:, :cap].astype(np.int64)
+        n_h, act_h, eos_h, pos_h, pois_h = (packed[:, cap + i].astype(np.int64)
+                                            for i in range(5))
+        conf_arr = None if conf is None else [packed[:, cap + 5 + i] for i in range(5)]
         act_h = act_h.astype(bool)
         (self.cur, self.pos, self.fsm, self.active, self.nbytes,
          self.tokens_left) = cur, pos, fsm, active, nbytes, tokens_left
@@ -249,6 +290,7 @@ class ContinuousBatcher:
         self.tokens_generated += int(n_h.sum())
         self.forwards += int(eng._last_fwds)
         row_fwds, row_accepts = eng._last_row_fwds, eng._last_accepts
+        self._record_chunk_gauges(n_h, act_h, int(eng._last_fwds), t_chunk0)
 
         for b in range(self.B):
             sl = self.slots[b]
@@ -266,6 +308,12 @@ class ContinuousBatcher:
             if row_fwds is not None:
                 sl.forwards += int(row_fwds[b])
                 sl.spec_accepts += int(row_accepts[b])
+            if conf_arr is not None:
+                sl.conf_msum += float(conf_arr[0][b])
+                sl.conf_mmin = min(sl.conf_mmin, float(conf_arr[1][b]))
+                sl.conf_esum += float(conf_arr[2][b])
+                sl.conf_forced += int(conf_arr[3][b])
+                sl.conf_cnt += int(conf_arr[4][b])
             if not act_h[b]:
                 # stopped this chunk: EOS, or a byte / token / length budget
                 self.results[sl.request_id] = GenerationResult(
@@ -275,13 +323,45 @@ class ContinuousBatcher:
                                   - sl.prefill_ms),
                     steps=len(sl.token_ids), finished=bool(eos_h[b]),
                     cached_tokens=sl.cached_tokens, prompt_tokens=sl.prompt_len,
-                    forwards=sl.forwards, spec_accepted=sl.spec_accepts)
+                    forwards=sl.forwards, spec_accepted=sl.spec_accepts,
+                    quality=conf_summary((sl.conf_msum, sl.conf_mmin, sl.conf_esum,
+                                          sl.conf_forced, sl.conf_cnt), len(sl.token_ids)))
+                m = get_metrics()
+                m.inc("scheduler.requests_completed")
+                m.observe_ms("scheduler.request_total", (time.perf_counter() - sl.start_s) * 1e3)
                 self._cleanup(sl.request_id)
                 self.slots[b] = _Slot()
                 # with radix reuse on, release caches prompt + generated first
                 eng.release_slot(b, generated_ids=sl.token_ids)
 
+    def _record_chunk_gauges(self, n_h, act_h, fwds: int, t_chunk0: float) -> None:
+        """The chunk's counters and the saturation gauges continuous batching
+        is tuned by: backlog, occupancy, tokens per forward, throughput, and
+        the paged pool's and radix tree's occupancy."""
+        m = get_metrics()
+        emitted = float(n_h.sum())
+        m.inc("scheduler.tokens_generated", emitted)
+        m.inc("scheduler.chunks")
+        if fwds > 0:
+            m.inc("scheduler.forwards", float(fwds))
+            m.set_gauge("scheduler.tokens_per_forward", emitted / fwds)
+        m.set_gauge("scheduler.queue_depth", len(self.pending))
+        m.set_gauge("scheduler.active_slots", float(act_h.sum()))
+        m.set_gauge("scheduler.batch_slots", float(self.B))
+        m.set_gauge("scheduler.batch_occupancy", float(act_h.sum()) / self.B)
+        chunk_s = time.perf_counter() - t_chunk0
+        if chunk_s > 0:
+            inst = emitted / chunk_s
+            self._tps_ema = inst if self._tps_ema == 0.0 else 0.8 * self._tps_ema + 0.2 * inst
+            m.set_gauge("scheduler.tokens_per_s", self._tps_ema)
+        eng = self.engine
+        if getattr(eng, "allocator", None) is not None:
+            record_pool_gauges(eng.allocator, engine=eng)
+        if getattr(eng, "radix", None) is not None:
+            record_radix_gauges([eng.radix])
+
     def _evict(self, b: int) -> None:
+        get_metrics().inc("scheduler.slots_quarantined")
         self._cleanup(self.slots[b].request_id)
         self.slots[b] = _Slot()
         self.active[b] = False

@@ -28,16 +28,23 @@ Drafters (comma-chained, first non-empty proposal wins per row):
 small Llama greedy-drafting under the grammar with its own dense cache).
 
 Env contract (``spec_from_env``): ``SPEC_ENABLE=1`` turns it on, ``SPEC_K``
-sets K (default 4), ``SPEC_DRAFTER`` the chain (default ``fsm,prompt``).
-Not ported, and refused at boot when set: ``SPEC_DRAFT_MODEL`` (an orbax
-checkpoint) and ``SPEC_TRACE_SINK``. Also left out: the ``spec.*`` gauges,
-the quality lanes, chaos NaN injection, the warm-restart generation fence
+sets K (default 4), ``SPEC_DRAFTER`` the chain (default ``fsm,prompt``),
+``SPEC_TRACE_SINK=<path>`` appends one JSONL draft-trace record per cleanly
+released request (JAX's fields). Not ported, and refused at boot when set:
+``SPEC_DRAFT_MODEL`` (an orbax checkpoint).
+
+With the engine's quality lanes on, every verified decision (the accepted
+drafts and the bonus) folds its masked-logit confidence into per-row lanes
+on the device, read back with the chunk. The ``spec.*`` counters and gauges
+are JAX's. Left out: chaos NaN injection, the warm-restart generation fence
 and speculation under chunked prefill.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import threading
 import time
 from dataclasses import dataclass, replace
 
@@ -48,7 +55,8 @@ from ..grammar.fsm import DeviceFSM, fsm_advance, fsm_row
 from ..models.llama import (MAX_BLOCK_DECODE_T, PRESETS, forward, init_kv_cache, init_params,
                             unstack_layers)
 from ..ops import masked_argmax_block
-from .engine import chain_block, chain_byte_cap, prefill_row
+from ..utils.tracing import get_metrics
+from .engine import _conf_init, _conf_stats, chain_block, chain_byte_cap, prefill_row
 
 # ---------------------------------------------------------------- config
 
@@ -59,6 +67,7 @@ class SpecConfig:
 
     k: int = 4  # draft width per verify step (emits 1..k+1 tokens a step)
     drafter: str = "fsm,prompt"  # comma chain: fsm | prompt | model (random draft-tiny)
+    trace_sink: str | None = None  # JSONL path of per-request draft traces
 
 
 def spec_from_env() -> SpecConfig | None:
@@ -68,16 +77,16 @@ def spec_from_env() -> SpecConfig | None:
     unknowingly."""
     if os.environ.get("SPEC_ENABLE", "").strip().lower() not in ("1", "true", "yes", "on"):
         return None
-    for name in ("SPEC_DRAFT_MODEL", "SPEC_TRACE_SINK"):
-        if os.environ.get(name):
-            raise ValueError(f"{name} is not ported yet (the PyTorch port has no orbax "
-                             "checkpoint reader and no draft-trace sink); unset it")
+    if os.environ.get("SPEC_DRAFT_MODEL"):
+        raise ValueError("SPEC_DRAFT_MODEL is not ported yet (the PyTorch port has no orbax "
+                         "checkpoint reader: ROADMAP.md Queue 1 item 8); unset it")
     raw_k = os.environ.get("SPEC_K", "").strip()
     try:
         k = int(raw_k) if raw_k else 4
     except ValueError:
         raise ValueError(f"SPEC_K={raw_k!r} is not an integer") from None
-    return SpecConfig(k=k, drafter=os.environ.get("SPEC_DRAFTER", "fsm,prompt") or "fsm,prompt")
+    return SpecConfig(k=k, drafter=os.environ.get("SPEC_DRAFTER", "fsm,prompt") or "fsm,prompt",
+                      trace_sink=os.environ.get("SPEC_TRACE_SINK") or None)
 
 
 def check_spec_block(k: int, block_t: int, device: torch.device) -> None:
@@ -107,14 +116,18 @@ def _draft_cap(draft_len, tokens_left, pos, max_pos, active):
 
 def _verify_commit(logits, cur, pos, fsm_state, active, nbytes, tokens_left, draft_toks, dl,
                    step_tok, blk_tok, tables: DeviceFSM, byte_len_table, byte_budget: int,
-                   K: int, eos_id: int, pad_id: int, max_pos: int):
+                   K: int, eos_id: int, pad_id: int, max_pos: int, quality_lanes: bool = False):
     """The post-forward half of a verify step (spec.py:128-279): the FSM
     walk along each draft, every position's masked greedy pick, longest
     prefix acceptance plus the bonus token, the byte / token / cache caps,
     and the poison gate per verify position (non-finite logits at a real
     position, or a dead state at entry or on the bonus advance). A poisoned
-    row deactivates without committing anything. Returns (out, n_step, eos,
-    new_cur, new_pos, new_state, new_active, nbytes, left, a, dl, poison)."""
+    row deactivates without committing anything. With ``quality_lanes`` each
+    verified decision (positions 0..a of a row that commits) is scored at its
+    own FSM state over the position's masked logits, all positions in one
+    batched ``_conf_stats``. Returns (out, n_step, eos, new_cur, new_pos,
+    new_state, new_active, nbytes, left, a, dl, poison, conf): conf is the
+    step's five lanes, or None with the lanes off."""
     dev = logits.device
     iw = torch.arange(1 + K, device=dev)[None, :]  # (1, 1+K) block index
     # states[:, i] = state after cur, d_1..d_i (a dead or padded step pins -1)
@@ -178,13 +191,24 @@ def _verify_commit(logits, cur, pos, fsm_state, active, nbytes, tokens_left, dra
     stop = ((new_cur == eos_id) | (nbytes >= byte_budget) | (new_pos >= max_pos - 1)
             | (left <= 0))
     new_active = ok & ~stop
+    conf = None
+    if quality_lanes:
+        B, T, V = logits.shape
+        mg, en, f1 = _conf_stats(logits.reshape(B * T, V), states.reshape(B * T), tables, True)
+        sel = ok[:, None] & (iw <= a[:, None])  # (B, 1+K) verified decisions
+        mg, en, f1 = mg.view(B, T), en.view(B, T), f1.view(B, T)
+        conf = (torch.sum(torch.where(sel, mg, 0.0), dim=1),
+                torch.amin(torch.where(sel, mg, float("inf")), dim=1),  # +inf: none
+                torch.sum(torch.where(sel, en, 0.0), dim=1),
+                torch.sum(sel & f1, dim=1).to(torch.int32),
+                torch.sum(sel, dim=1).to(torch.int32))
     return (out, n_step, eos, new_cur, new_pos, new_state, new_active, nbytes, left, a, dl,
-            poison)
+            poison, conf)
 
 
 @torch.no_grad()
 def verify_step(engine, cur, pos, fsm_state, active, nbytes, tokens_left, draft_toks,
-                draft_len, byte_budget: int, K: int, max_pos: int):
+                draft_len, byte_budget: int, K: int, max_pos: int, quality_lanes: bool = False):
     """ONE speculative step for every row of ``engine``, dense or paged:
     the (B, 1+K) block ``[cur, d_1..d_dl]`` padded by repeating its last
     (token, position) (``engine.chain_block``: duplicate writes are
@@ -198,7 +222,8 @@ def verify_step(engine, cur, pos, fsm_state, active, nbytes, tokens_left, draft_
     logits = engine._decode_step(blk_tok, blk_pos, active)  # (B, 1+K, V)
     return _verify_commit(logits, cur, pos, fsm_state, active, nbytes, tokens_left, draft_toks,
                           dl, step_tok, blk_tok, engine.tables, engine.byte_len_table,
-                          byte_budget, K, engine.eos_id, engine.pad_id, max_pos)
+                          byte_budget, K, engine.eos_id, engine.pad_id, max_pos,
+                          quality_lanes=quality_lanes)
 
 
 # ---------------------------------------------------------------- drafters
@@ -500,35 +525,72 @@ class SpecDecoder:
     engine's layout hook ``_claim`` (a paged table grows; a slot whose claim
     fails truncates alone) and afterwards hands the actual frontiers to
     ``reconcile_coverage``; both are no-ops on the dense cache. Radix-hit
-    admissions seed the drafters with the full cached ids."""
+    admissions seed the drafters with the full cached ids. The verify
+    steps' quality lanes accumulate on the device across the chunk."""
 
     def __init__(self, engine, cfg: SpecConfig, drafter: Drafter | None = None):
         self.engine = engine
         self.K = int(cfg.k)
+        self.quality_lanes = bool(getattr(engine, "quality_lanes", False))
+        self.paged = getattr(engine, "allocator", None) is not None
         self.drafter = drafter if drafter is not None else build_drafter(cfg, engine)
         check_spec_block(self.K, self.drafter.block_t, engine.device)
-        self._ctx: list[list[int] | None] = [None] * engine.batch_slots
+        B = engine.batch_slots
+        self._ctx: list[list[int] | None] = [None] * B
+        self._prompt_len = [0] * B
         self.draft_ms = 0.0  # host drafting time, all chunks
         self._drafted = 0
         self._accepted = 0
         self._steps = 0
         self._emitted = 0
+        # per-slot accounting behind the draft-trace records
+        self._slot_drafted = np.zeros((B,), np.int64)
+        self._slot_accepted = np.zeros((B,), np.int64)
+        self._slot_fwds = np.zeros((B,), np.int64)
+        self._trace_path = cfg.trace_sink
+        self._trace_lock = threading.Lock()
 
     # ------------------------------------------------------------ hooks
 
     def on_admit(self, slot: int, ids: list[int]) -> None:
         self._ctx[slot] = list(ids)
+        self._prompt_len[slot] = len(ids)
+        self._slot_drafted[slot] = self._slot_accepted[slot] = self._slot_fwds[slot] = 0
         self.drafter.on_admit(slot, list(ids))
 
-    def on_release(self, slot: int) -> None:
+    def on_release(self, slot: int, ok: bool = True) -> None:
+        ctx = self._ctx[slot]
+        if ok and self._trace_path and ctx is not None and len(ctx) > self._prompt_len[slot]:
+            self._trace_record(slot, ctx)
         self._ctx[slot] = None
+        self._prompt_len[slot] = 0
         self.drafter.on_release(slot)
+
+    def _trace_record(self, slot: int, ctx: list[int]) -> None:
+        """Append one JSONL draft-trace record (cleanly released requests
+        only: an errored stream is no training data)."""
+        rec = {
+            "plane": "paged" if self.paged else "dense",
+            "drafter": self.drafter.name,
+            "k": self.K,
+            "prompt_ids": ctx[:self._prompt_len[slot]],
+            "generated_ids": ctx[self._prompt_len[slot]:],
+            "drafted": int(self._slot_drafted[slot]),
+            "accepted": int(self._slot_accepted[slot]),
+            "verify_steps": int(self._slot_fwds[slot]),
+        }
+        try:
+            with self._trace_lock, open(self._trace_path, "a") as f:
+                f.write(json.dumps(rec, separators=(",", ":")) + "\n")
+        except OSError:  # tracing never fails serving
+            return
+        get_metrics().inc("spec.trace_records")
 
     def reset(self) -> None:
         """Drop every slot's host context and drafter state."""
         for b in range(self.engine.batch_slots):
             if self._ctx[b] is not None:
-                self.on_release(b)
+                self.on_release(b, ok=False)
 
     # ------------------------------------------------------------ chunk
 
@@ -541,7 +603,9 @@ class SpecDecoder:
         nbytes, tokens_left). Sets the engine's ``_last_fwds`` (verify
         steps), ``_last_poison`` (per-row fault codes) and the per-row
         readbacks ``_last_accepts`` / ``_last_row_fwds`` the batcher folds
-        into per-request ``spec_accepted`` / ``forwards``."""
+        into per-request ``spec_accepted`` / ``forwards``, and
+        ``_last_conf``, the chunk's quality lanes on the device (None with
+        the lanes off)."""
         eng = self.engine
         dev = eng.device
         B, K = eng.batch_slots, self.K
@@ -554,6 +618,8 @@ class SpecDecoder:
         row_fwds = np.zeros((B,), np.int64)
         row_accepts = np.zeros((B,), np.int64)
         poison_h = np.zeros((B,), np.int32)
+        # the chunk's lanes, folded on the device (sums add, mins min)
+        conf_acc = _conf_init(B, dev) if self.quality_lanes else None
         for _ in range(chunk_steps):
             if not act_h.any():
                 break
@@ -569,10 +635,15 @@ class SpecDecoder:
                 tokens_left = tokens_left.clone()
                 tokens_left[starved] = 0
             (out, n, eosf, cur, pos, fsm, active, nbytes, tokens_left, a, dl,
-             pois) = verify_step(eng, cur, pos, fsm, active, nbytes, tokens_left,
-                                 torch.from_numpy(np.ascontiguousarray(dtoks)).to(dev),
-                                 torch.from_numpy(dlen).to(dev), byte_budget, K,
-                                 eng.max_len)  # the paged tables span max_len too
+             pois, conf) = verify_step(eng, cur, pos, fsm, active, nbytes, tokens_left,
+                                       torch.from_numpy(np.ascontiguousarray(dtoks)).to(dev),
+                                       torch.from_numpy(dlen).to(dev), byte_budget, K,
+                                       eng.max_len,  # the paged tables span max_len too
+                                       quality_lanes=self.quality_lanes)
+            if conf is not None:
+                conf_acc = (conf_acc[0] + conf[0], torch.minimum(conf_acc[1], conf[1]),
+                            conf_acc[2] + conf[2], conf_acc[3] + conf[3],
+                            conf_acc[4] + conf[4])
             # one combined readback per verify step
             packed = torch.cat([out, torch.stack(
                 [n, eosf.to(torch.int32), cur, fsm, active.to(torch.int32), a, dl, pois, pos],
@@ -586,6 +657,9 @@ class SpecDecoder:
             accepted += int(a_h.sum())
             row_fwds += prev_act
             row_accepts += a_h
+            self._slot_fwds += prev_act
+            self._slot_drafted += dl_h
+            self._slot_accepted += a_h
             poison_h = np.maximum(poison_h, pois_h)
             for b in range(B):
                 if n_h[b] > 0:
@@ -606,10 +680,20 @@ class SpecDecoder:
         eng._last_poison = torch.from_numpy(poison_h).to(dev)
         eng._last_accepts = row_accepts
         eng._last_row_fwds = row_fwds
+        eng._last_conf = conf_acc
         self._steps += fwds
         self._drafted += drafted
         self._accepted += accepted
         self._emitted += int(n_arr.sum())
+        if fwds:
+            m = get_metrics()
+            m.inc("spec.drafted_tokens", float(drafted))
+            m.inc("spec.accepted_tokens", float(accepted))
+            m.inc("spec.verify_steps", float(fwds))
+            if self._drafted > 0:
+                m.set_gauge("spec.accept_rate", self._accepted / self._drafted)
+            if self._steps > 0:
+                m.set_gauge("spec.tokens_per_step", self._emitted / self._steps)
         return (torch.from_numpy(out_arr).to(dev), torch.from_numpy(n_arr).to(dev),
                 torch.from_numpy(eos_total).to(dev), cur, pos, fsm, active, nbytes, tokens_left)
 

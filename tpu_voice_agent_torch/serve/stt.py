@@ -13,16 +13,22 @@ Port of ``tpu_voice_agent/serve/stt.py`` (the B = 1 per-connection plane):
 
 The JAX ``lax.while_loop`` decode is a Python loop here with the same carry
 semantics; its ``all(done)`` test reads one bool back from the device per
-step. Left out (still JAX-only): ``from_hf`` and checkpoint tokenizers (so
-no suppressed specials), the quality lanes and ``finalize_stt_ids``' chaos
-collapse, the cost lanes, the process-wide stream gauges, and the batched
-and replicated STT planes.
+step. With the quality lanes on (``QUALITY_ENABLE``, default on) the loop
+also accumulates the emitted tokens' log-probabilities (sum, min, first) on
+the device, read back once with the tokens; ``finalize_stt_ids`` turns them
+into the transcript's confidence. The endpoint counters and the process-wide
+``stt.feed_lag_s`` / ``stt.buffered_audio_s`` gauges are JAX's. Left out
+(still JAX-only): ``from_hf`` and checkpoint tokenizers (so no suppressed
+specials), ``finalize_stt_ids``' chaos collapse (``CHAOS_FAULTS`` is refused),
+the cost lanes, and the batched and replicated STT planes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
+import weakref
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -41,22 +47,42 @@ from ..models.whisper import (
     init_self_cache,
     with_unstacked_layers,
 )
+from ..utils.quality import quality_lanes_enabled, repetition_score
+from ..utils.tracing import get_metrics
 from .engine import _sync, resolve_device
 
 
 @torch.no_grad()
 def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dict,
                      enc_len: torch.Tensor, bos: torch.Tensor, max_new: int = 64,
-                     eos_id: int = 2, pad_id: int = 0):
+                     eos_id: int = 2, pad_id: int = 0, quality_lanes: bool = False):
     """Greedy decode until EOS. ``bos`` (B, P) is the decoder prompt; every
     row stops on its own EOS, at ``max_text_len - 1``, or after ``max_new``
-    tokens, and the loop runs until all rows are done. Returns ``(out (B,
-    max_new) int32 padded with pad_id, n (B,) emitted counts, self_cache)``."""
+    tokens, and the loop runs until all rows are done. With ``quality_lanes``
+    each emitted token's log-probability (an fp32 log-softmax of its step's
+    logits; the first from the prompt step) folds into per-row (sum, min,
+    first) lanes; EOS is not emitted and not counted. The lanes only read:
+    the argmax is the same. Returns ``(out (B, max_new) int32 padded with
+    pad_id, n (B,) emitted counts, self_cache, conf)``: conf is the three
+    lanes, or None with the lanes off."""
     B, P = bos.shape
     dev = bos.device
+
+    def pick(lg):
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        if not quality_lanes:
+            return tok, None
+        lsm = torch.log_softmax(lg.float(), dim=-1)
+        return tok, torch.gather(lsm, 1, tok[:, None].long())[:, 0]
+
     pos0 = torch.arange(P, dtype=torch.int32, device=dev)[None, :].expand(B, P)
     logits, self_cache = decoder_forward(params, cfg, bos, pos0, self_cache, cross_kv, enc_len)
-    cur = torch.argmax(logits[:, P - 1, :], dim=-1).to(torch.int32)
+    cur, cur_lp = pick(logits[:, P - 1, :])
+    conf = None
+    if quality_lanes:
+        conf = (torch.zeros((B,), dtype=torch.float32, device=dev),  # logprob sum
+                torch.full((B,), float("inf"), dtype=torch.float32, device=dev),  # min
+                torch.zeros((B,), dtype=torch.float32, device=dev))  # first emitted
     done = (cur == eos_id) | (max_new <= 0)
     out = torch.full((B, max_new), pad_id, dtype=torch.int32, device=dev)
     pos = torch.full((B,), P, dtype=torch.int32, device=dev)
@@ -67,15 +93,38 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
         live = ~done
         idx = torch.clamp(n, max=max_new - 1).long()
         out[ar, idx] = torch.where(live, cur, out[ar, idx])
+        if conf is not None:
+            conf = (conf[0] + torch.where(live, cur_lp, 0.0),
+                    torch.where(live, torch.minimum(conf[1], cur_lp), conf[1]),
+                    torch.where(live & (n == 0), cur_lp, conf[2]))
         n = n + live.to(torch.int32)
         logits, self_cache = decoder_forward(params, cfg, cur[:, None], pos[:, None], self_cache,
                                              cross_kv, enc_len)
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+        nxt, nxt_lp = pick(logits[:, 0, :])
         pos = torch.where(live, pos + 1, pos)
         done = done | (nxt == eos_id) | (pos >= cfg.max_text_len - 1) | (n >= max_new)
         cur = torch.where(live, nxt, cur)
+        if conf is not None:
+            cur_lp = torch.where(live, nxt_lp, cur_lp)
         step += 1
-    return out, n, self_cache
+    return out, n, self_cache, conf
+
+
+def finalize_stt_ids(ids: list[int], conf_row, quality_lanes: bool):
+    """THE post-decode tail: one row's lanes ``(sum, min, first)`` -> the
+    transcript's ``logp_mean`` / ``logp_min`` / ``logp_first`` (None with
+    the lanes off or nothing emitted), and the repetition score over the
+    ids. Returns ``(ids, logp_mean, logp_min, logp_first, repetition)``.
+    JAX's ``stt_garble`` chaos collapse is not here: ``CHAOS_FAULTS`` is
+    refused (ROADMAP.md Queue 1 item 4)."""
+    logp_mean = logp_min = logp_first = None
+    if quality_lanes and ids:
+        lp_sum, lp_min, lp_first = (float(x) for x in conf_row)
+        logp_mean = round(lp_sum / len(ids), 4)
+        logp_min = round(lp_min, 4) if lp_min != float("inf") else None
+        logp_first = round(lp_first, 4)
+    rep = round(repetition_score(ids), 4) if ids else None
+    return ids, logp_mean, logp_min, logp_first, rep
 
 
 @dataclass
@@ -86,6 +135,13 @@ class TranscribeResult:
     n_frames: int
     token_ids: list[int] = field(default_factory=list)
     forwards: int = 0  # decoder forwards (prompt step included)
+    # the confidence lanes (None with the lanes off or no token emitted):
+    # per-token logprob mean / min, the first token's logprob, and the
+    # host-side repetition score over the emitted ids
+    logp_mean: float | None = None
+    logp_min: float | None = None
+    logp_first: float | None = None
+    repetition: float | None = None
 
 
 @dataclass
@@ -124,6 +180,7 @@ class SpeechEngine:
         device: str | torch.device | None = None,  # None = cuda, or raise
     ):
         self.device = resolve_device(device)
+        self.quality_lanes = quality_lanes_enabled()  # read at each decode
         # "auto" and "kernels" both take K1 / K5: the wrappers launch the
         # CUDA kernels on cuda tensors and their plain versions on CPU ones
         if kernels not in ("auto", "kernels"):
@@ -241,15 +298,24 @@ class SpeechEngine:
         cache = init_self_cache(self.cfg, 1, dtype=self._param_dtype, device=self.device)
         bos = torch.tensor([list(self.bos_ids)], dtype=torch.int32, device=self.device)
         lens = torch.tensor([enc_len], dtype=torch.int32, device=self.device)
-        out, n, _ = _stt_decode_loop(self.params, self.cfg, cache, cross_kv, lens, bos,
-                                     max_new=self.max_new_tokens, eos_id=self.eos_id,
-                                     pad_id=self.pad_id)
-        n_h = int(n[0])
-        ids = [int(t) for t in out[0, :n_h].tolist()]
+        out, n, _, conf = _stt_decode_loop(self.params, self.cfg, cache, cross_kv, lens, bos,
+                                           max_new=self.max_new_tokens, eos_id=self.eos_id,
+                                           pad_id=self.pad_id, quality_lanes=self.quality_lanes)
+        # one readback: the tokens, the count and the lanes (token ids and
+        # counts are exact in float32)
+        cols = [out[0].float(), n.float()] + ([c.float() for c in conf] if conf else [])
+        h = torch.cat(cols).cpu().numpy()
+        W = out.shape[1]
+        n_h = int(h[W])
+        ids = [int(t) for t in h[:n_h]]
         decode_ms = (time.perf_counter() - t0) * 1e3
+        ids, logp_mean, logp_min, logp_first, rep = finalize_stt_ids(
+            ids, h[W + 1:W + 4], self.quality_lanes)
         return TranscribeResult(text=self.tokenizer.decode(ids).strip(), encode_ms=0.0,
                                 decode_ms=decode_ms, n_frames=n_frames, token_ids=ids,
-                                forwards=1 + min(n_h, self.max_new_tokens))
+                                forwards=1 + min(n_h, self.max_new_tokens),
+                                logp_mean=logp_mean, logp_min=logp_min,
+                                logp_first=logp_first, repetition=rep)
 
     def _encode_window(self, audio: np.ndarray):
         """Front half of transcribe(): bucket, pad, mel, encode, cross-KV.
@@ -278,6 +344,23 @@ class SpeechEngine:
         encode_ms = (time.perf_counter() - t0) * 1e3
         res = self._decode(cross_kv, enc_len, n_frames)
         return dataclasses.replace(res, encode_ms=encode_ms)
+
+
+# process-wide saturation aggregate: every live StreamingSTT deposits its
+# (feed_lag_s, buffered_audio_s) and the gauges export the max lag and the
+# summed buffered seconds across streams; a closed connection's entry goes
+# with its STT object (weak keys)
+_AGG_LOCK = threading.Lock()
+_LIVE_STREAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _record_stream_gauges(inst, feed_lag_s: float, buffered_s: float) -> None:
+    m = get_metrics()
+    with _AGG_LOCK:
+        _LIVE_STREAMS[inst] = (feed_lag_s, buffered_s)
+        vals = list(_LIVE_STREAMS.values())
+        m.set_gauge("stt.feed_lag_s", round(max(v[0] for v in vals), 4))
+        m.set_gauge("stt.buffered_audio_s", round(sum(v[1] for v in vals), 4))
 
 
 class StreamingSTT:
@@ -411,8 +494,10 @@ class StreamingSTT:
                 and self.endpointer.force_end()):
             ended = True
             self.early_closes += 1
+            get_metrics().inc("stt.endpoint_early_close")
         elif ended:
             self.window_closes += 1
+            get_metrics().inc("stt.endpoint_window_close")
 
         if ended:
             res = self._final_result(fresh, spoken)
@@ -435,6 +520,7 @@ class StreamingSTT:
 
         self.feed_lag_s = max(
             0.0, self.feed_lag_s + (time.perf_counter() - t_feed0) - len(samples) / sr)
+        _record_stream_gauges(self, self.feed_lag_s, len(self._buf) / sr)
         return events
 
 

@@ -18,15 +18,24 @@ A single-slot parser is serialized by one lock (one KV cache); the batched
 parser (``BRAIN_BATCH`` > 1) is ``concurrent_safe``: its requests share
 decode chunks on one serving thread. A session-aware parser (paged engine
 with ``RADIX_ENABLE=1``) receives ``session_id`` and ``speculative``.
-``GET /health`` reports the backend and its device. The HTTP layer is the
-standard library's ``ThreadingHTTPServer``.
+``GET /health`` reports the backend, its device, the SLO verdict and the
+``quality`` block. Every parse records a ``parse`` span (``Tracer("brain")``)
+carrying the decode split and the intent confidence as stage notes, an SLO
+sample and a quality record; a response from an engine backend carries
+``x-intent-margin`` beside the decode headers. ``GET /metrics`` (JSON, or
+Prometheus text under ``Accept: text/plain``), ``GET /debug/trace/{id}`` and
+``GET /debug/quality`` are served; the JAX brain's other routes answer 501
+``not_ported`` with the ROADMAP.md Queue 1 item that brings them
+(``UNPORTED_ROUTES``). The HTTP layer is the standard library's
+``ThreadingHTTPServer``.
 
     BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 \\
         python -m tpu_voice_agent_torch.services.brain
 
 Environment (the JAX service's names): ``BRAIN_BACKEND`` (``rule``, the
-default: ``RuleBasedParser``, no model and no device; or
-``engine[:preset]``, preset default ``tinyllama-1.1b``), ``BRAIN_QUANT`` (``int8``), ``BRAIN_FF``
+default: ``RuleBasedParser``, no model and no device; ``distilled[:<dir>]``,
+the in-repo trained checkpoint; or ``engine[:preset]``, preset default
+``tinyllama-1.1b``), ``BRAIN_QUANT`` (``int8``), ``BRAIN_FF``
 (fast-forward width, default 8), ``BRAIN_PREFIX`` (``0`` skips the cached
 prompt prefix), ``BRAIN_PORT`` (default 8090), ``BRAIN_BATCH`` (slots,
 default 1), ``BRAIN_PAGED`` (``1``: the paged KV pool), ``BRAIN_POOL_BLOCKS``
@@ -35,8 +44,10 @@ chunk, default 16), ``RADIX_ENABLE`` (``1``: session KV reuse on the paged
 pool), ``KV_QUANT`` (``int8`` / ``int4``: the quantized paged pool),
 ``BRAIN_MOE`` (``grouped``: the grouped-matmul MoE dispatch on an MoE
 preset such as ``mixtral-8x7b``), and ``BRAIN_DEVICE`` (default ``cuda``;
-``cpu`` runs the plain versions). The JAX service's knobs that the port
-does not serve raise ``ValueError`` at boot (``check_unserved_knobs``).
+``cpu`` runs the plain versions), ``QUALITY_ENABLE`` (the decode loops'
+quality lanes, default on), ``QUALITY_WINDOW`` / ``QUALITY_SLO_*``,
+``SLO_*`` and ``TRACE_SINK``. The JAX service's knobs that the port does not
+serve raise ``ValueError`` at boot (``check_unserved_knobs``).
 """
 
 from __future__ import annotations
@@ -46,7 +57,7 @@ import logging
 import os
 import re
 import threading
-import uuid
+import time
 from collections import OrderedDict
 from dataclasses import replace
 from concurrent.futures import Future
@@ -60,8 +71,22 @@ from ..schemas import (
     validate_parse_request,
     validate_parse_response,
 )
+from ..utils.quality import QualityMonitor, check_canary_knob
+from ..utils.tracing import (
+    TRACE_ROUTE,
+    Tracer,
+    get_metrics,
+    metrics_response,
+    new_trace_id,
+    note_stage,
+    peek_stage_notes,
+    pop_stage_notes,
+    trace_response,
+)
 from .prompts import render_prompt
 from .resilience import Deadline
+from .slo import SLOTracker
+from .ws import Headers, Request
 
 log = logging.getLogger("tpu_voice_agent_torch.brain")
 
@@ -77,7 +102,19 @@ def _result_to_response(res) -> dict:
     """GenerationResult -> the ParseResponse dict, with the service's
     error mapping: a shed request (``shed: ...``) is ``overloaded``, any
     other failure (a poisoned row) ``llm_error``, a decode that never
-    reached EOS ``schema_validation_failed``."""
+    reached EOS ``schema_validation_failed``. Deposits the request's decode
+    split and confidence (from its own result) as stage notes on the
+    calling thread: the handler's span, quality record and headers read
+    them there."""
+    note_stage("prefill_ms", round(res.prefill_ms, 3))
+    note_stage("decode_ms", round(res.decode_ms, 3))
+    note_stage("cached_tokens", int(res.cached_tokens))
+    note_stage("prompt_tokens", int(res.prompt_tokens))
+    q = res.quality
+    if q:
+        note_stage("intent_margin", q["margin_mean"])
+        note_stage("intent_entropy", q["entropy_mean"])
+        note_stage("intent_forced_frac", q["forced_frac"])
     if res.error:
         raise ParserError("overloaded" if res.error.startswith("shed:") else "llm_error",
                           res.error)
@@ -328,8 +365,12 @@ class BatchedEngineParser:
         with self._plock:
             pend = self._pending.pop(session_id, None)
         if pend is not None and not speculative and pend["user"] == user:
-            # commit: the speculative turn IS this turn
+            # commit: the speculative turn IS this turn; its decode split and
+            # confidence are replayed as this request's stage notes
             self.transcripts.record(session_id, pend["prompt"], pend["gen"])
+            get_metrics().inc("brain.session_spec_commits")
+            for k, v in pend["notes"].items():
+                note_stage(k, v)
             return pend["resp"]
         # a superseded speculation needs no rollback: the transcript never
         # advanced, and its chain stays in the radix tree as plain cache
@@ -344,7 +385,8 @@ class BatchedEngineParser:
         if speculative:
             with self._plock:
                 self._pending[session_id] = {"user": user, "resp": resp, "prompt": prompt,
-                                             "gen": list(res.token_ids)}
+                                             "gen": list(res.token_ids),
+                                             "notes": peek_stage_notes()}
                 self._pending.move_to_end(session_id)
                 while len(self._pending) > SessionTranscripts.MAX_SESSIONS:
                     self._pending.popitem(last=False)
@@ -505,9 +547,16 @@ def check_unserved_knobs() -> None:
                              "the rest of continuous batching); unset it")
 
 
+# Knobs JAX's distilled backend ignores without a word (its engine is fixed:
+# one slot, ff off, no prefix, the dense cache); the port logs each one set
+DISTILLED_IGNORED = ("BRAIN_FF", "BRAIN_BATCH", "BRAIN_PREFIX", "KV_QUANT", "RADIX_ENABLE")
+
+
 def make_parser_from_env():
     """``BRAIN_BACKEND=rule`` (the default: ``RuleBasedParser``, no model, no
-    device) or ``engine[:preset]`` (preset default ``tinyllama-1.1b``) with
+    device), ``distilled[:<dir>]`` (``distilled.parser_from_env``: the
+    in-repo trained checkpoint, ``SPEC_ENABLE`` passed through) or
+    ``engine[:preset]`` (preset default ``tinyllama-1.1b``) with
     ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``; ``BRAIN_BATCH`` slots
     behind the continuous batcher; ``BRAIN_PAGED=1`` the paged pool
     (``BRAIN_POOL_BLOCKS``), with ``RADIX_ENABLE=1`` session KV reuse and
@@ -524,6 +573,7 @@ def make_parser_from_env():
     from ..serve.spec import spec_from_env
 
     check_unserved_knobs()
+    check_canary_knob()
     slots = int(os.environ.get("BRAIN_BATCH", "1"))
     device = os.environ.get("BRAIN_DEVICE") or None
     paged = os.environ.get("BRAIN_PAGED") == "1"
@@ -537,8 +587,21 @@ def make_parser_from_env():
             if val:
                 log.warning("%s is not supported by the rule backend; ignoring", name)
         return RuleBasedParser()
+    if backend == "distilled" or backend.startswith("distilled:"):
+        from ..distilled import parser_from_env
+
+        for name, val in (("BRAIN_PAGED", paged), ("BRAIN_QUANT", quant), ("BRAIN_MOE", moe)):
+            if val:  # JAX's own warnings
+                log.warning("%s is not supported by the distilled backend; ignoring", name)
+        for name in DISTILLED_IGNORED:
+            if os.environ.get(name, "").strip():
+                log.warning("%s is ignored by the distilled backend (as in the JAX service)",
+                            name)
+        return parser_from_env(backend, device=device, spec=spec)
     if not backend.startswith("engine"):
-        raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported (rule, engine[:preset])")
+        raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported yet (the port serves rule, "
+                         "distilled and engine[:preset]; the planner, pp / tp / sp layouts "
+                         "and planner-distilled are ROADMAP.md Queue 1 item 8)")
     from ..models.llama import PRESETS
     from ..serve.engine import DecodeEngine
     from ..serve.paged import PagedDecodeEngine
@@ -559,18 +622,55 @@ def make_parser_from_env():
 # ---------------------------------------------------------------- app
 
 
-class BrainApp:
-    """The /parse and /health handlers, free of any HTTP machinery: each
-    returns (status, body dict, extra headers)."""
+# Routes of the JAX brain that the port does not serve: path (a prefix when
+# it ends in "/") -> the ROADMAP.md Queue 1 item that brings it
+UNPORTED_ROUTES = (
+    ("/debug/flightrecorder", 3), ("/debug/steplog", 4), ("/debug/costs", 7),
+    ("/debug/timeseries", 7), ("/admin/handoff", 6), ("/admin/handoff/", 6),
+    ("/admin/disagg/prefill", 6), ("/admin/disagg/adopt", 6), ("/admin/drain", 6),
+)
+# served routes: path (a prefix when it ends in "/") -> method
+SERVED_ROUTES = (("/health", "GET"), ("/parse", "POST"), ("/metrics", "GET"),
+                 (TRACE_ROUTE, "GET"), ("/debug/quality", "GET"))
 
-    def __init__(self, parser):
+
+def _match(path: str, table):
+    for prefix, v in table:
+        if prefix.endswith("/"):
+            if path.startswith(prefix) and len(path) > len(prefix):
+                return v
+        elif path == prefix:
+            return v
+    return None
+
+
+def shed_count(service: str, reason: str) -> None:
+    """The ``<service>.shed_<reason>`` counter of an overload answer."""
+    get_metrics().inc(f"{service}.shed_{reason}")
+
+
+class BrainApp:
+    """The brain's handlers, free of any HTTP machinery: ``parse`` and
+    ``health`` return (status, body, extra headers); ``handle`` routes any
+    request. One ``Tracer("brain")`` per app (its registry also holds the
+    quality monitor's gauges) and one ``SLOTracker("brain")``."""
+
+    def __init__(self, parser, tracer: Tracer | None = None):
+        check_canary_knob()
         self.parser = parser
         self.lock = threading.Lock()
+        self.tracer = tracer or Tracer("brain", emit=False)
+        self.slo = SLOTracker("brain")
+        self.qmon = QualityMonitor("brain", metrics=self.tracer.metrics)
+        # registered at zero, as in JAX (the downgrade latch is a chaos
+        # point, and CHAOS_FAULTS is refused)
+        self.qmon.metrics.inc("quality.intent_downgrades", 0.0)
 
     def health(self) -> tuple[int, dict, dict]:
         engine = getattr(self.parser, "engine", None)
         healthy = getattr(self.parser, "healthy", lambda: True)()
-        body = {"ok": healthy, "service": "brain"}
+        body = {"ok": healthy, "service": "brain", "slo": self.slo.state(),
+                "quality": self.qmon.health()}
         if engine is not None:
             body.update(device=str(engine.device), kernels=engine.kernels,
                         quant=engine.quant, fast_forward=engine.fast_forward,
@@ -587,9 +687,17 @@ class BrainApp:
     def parse(self, raw: bytes, req_headers=None) -> tuple[int, dict, dict]:
         """``req_headers``: the request's headers (any mapping with
         ``items()``, names in any case): ``x-trace-id`` and
-        ``x-deadline-ms``."""
+        ``x-deadline-ms``. The SLO sample covers the whole request; a 5xx
+        burns error budget, a 4xx is an answer about the request."""
+        t0 = time.perf_counter()
+        status, body, headers = self._parse(raw, req_headers)
+        self.slo.record((time.perf_counter() - t0) * 1e3, ok=status < 500)
+        return status, body, headers
+
+    def _parse(self, raw: bytes, req_headers) -> tuple[int, dict, dict]:
         req_headers = {k.lower(): v for k, v in (req_headers or {}).items()}
-        headers = {"x-trace-id": req_headers.get("x-trace-id") or uuid.uuid4().hex[:16]}
+        trace_id = req_headers.get("x-trace-id") or new_trace_id()
+        headers = {"x-trace-id": trace_id}
 
         def error(status: int, kind: str, detail: str):
             return status, {"error": kind, "detail": detail[:500]}, headers
@@ -609,12 +717,14 @@ class BrainApp:
         if deadline is not None and deadline.expired:
             # the caller already gave up: answering with work would burn a
             # decode on a response nobody reads
+            shed_count("brain", "deadline_expired")
             return 503, {"error": "overloaded", "detail": "deadline_expired"}, {
                 **headers, "Retry-After": "0"}
         session = getattr(self.parser, "wants_session", False)
         # a single-slot engine owns one KV cache: its parses serialize
         guard = nullcontext() if getattr(self.parser, "concurrent_safe", False) else self.lock
-        with guard:
+        pop_stage_notes()  # drop a stale note of an earlier request on this thread
+        with self.tracer.span("parse", trace_id=trace_id, chars=len(preq["text"])) as sp, guard:
             try:
                 if session:
                     resp = self.parser.parse(preq["text"], preq["context"], preq["session_id"],
@@ -623,22 +733,55 @@ class BrainApp:
                     resp = self.parser.parse(preq["text"], preq["context"])
             except ParserError as e:
                 if e.kind == "overloaded":
+                    shed_count("brain", "engine_overload")
                     headers["Retry-After"] = "1"
                     return error(503, e.kind, e.detail)
                 status = 422 if e.kind == "schema_validation_failed" else 500
                 return error(status, e.kind, e.detail)
             except Exception as e:  # engine crash etc.
                 return error(500, "llm_error", str(e))
-            res = getattr(self.parser, "last_result", None)
-        if res is not None:
-            headers.update({"x-prefill-ms": f"{res.prefill_ms:.3f}",
-                            "x-decode-ms": f"{res.decode_ms:.3f}",
-                            "x-cached-tokens": str(res.cached_tokens),
-                            "x-prompt-tokens": str(res.prompt_tokens)})
+            # the parser noted the split on THIS thread, from its own result
+            notes = pop_stage_notes()
+            sp.attrs.update(notes)
+        self.qmon.record_intent(margin=notes.get("intent_margin"),
+                                entropy=notes.get("intent_entropy"),
+                                forced_frac=notes.get("intent_forced_frac"), text=preq["text"])
+        for note, header in (("prefill_ms", "x-prefill-ms"), ("decode_ms", "x-decode-ms"),
+                             ("cached_tokens", "x-cached-tokens"),
+                             ("prompt_tokens", "x-prompt-tokens"),
+                             ("intent_margin", "x-intent-margin")):
+            if note in notes:
+                headers[header] = str(notes[note])
         if preq["speculative"] and session and preq["session_id"]:
             # a pending two-phase turn: the matching final parse commits it
             headers["x-speculation-pending"] = "1"
         return 200, resp, headers
+
+
+    def handle(self, req: Request) -> tuple[int, dict | str, dict]:
+        """Route one request: a served route, 405 for another method on it,
+        501 ``not_ported`` naming the item for a JAX route the port lacks,
+        and 404 only for a path the JAX brain does not route either."""
+        method = _match(req.path, SERVED_ROUTES)
+        if method is None:
+            item = _match(req.path, UNPORTED_ROUTES)
+            if item is not None:
+                return 501, {"error": "not_ported",
+                             "detail": f"ROADMAP.md Queue 1 item {item}"}, {}
+            return 404, {"error": "not_found", "detail": req.path}, {}
+        if req.method != method:
+            return 405, {"error": "method_not_allowed", "detail": req.method}, {}
+        if req.path == "/parse":
+            return self.parse(req.body, req.headers)
+        if req.path == "/health":
+            return self.health()
+        if req.path == "/metrics":
+            r = metrics_response("brain", self.tracer, req, slo=self.slo)
+        elif req.path == "/debug/quality":
+            r = self.qmon.response()
+        else:
+            r = trace_response("brain", self.tracer, req)
+        return r.status, r.body, r.headers
 
 
 def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> ThreadingHTTPServer:
@@ -647,28 +790,31 @@ def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> Thr
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
-        def _send(self, status: int, body: dict, headers: dict) -> None:
-            data = json.dumps(body).encode()
+        def _send(self, status: int, body: dict | str, headers: dict) -> None:
+            if isinstance(body, str):
+                data, ctype = body.encode(), "text/plain; charset=utf-8"
+            else:
+                data, ctype = json.dumps(body).encode(), "application/json"
+            headers = {"Content-Type": ctype, **headers}
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
             for k, v in headers.items():
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
 
+        def _route(self, method: str) -> None:
+            n = int(self.headers.get("Content-Length") or 0)
+            raw = self.rfile.read(n) if n else b""
+            path, _, query = self.path.partition("?")
+            self._send(*app.handle(Request(method, path, query, Headers(self.headers.items()),
+                                           raw)))
+
         def do_GET(self):
-            if self.path == "/health":
-                self._send(*app.health())
-            else:
-                self._send(404, {"error": "not_found", "detail": self.path}, {})
+            self._route("GET")
 
         def do_POST(self):
-            raw = self.rfile.read(int(self.headers.get("Content-Length") or 0))
-            if self.path == "/parse":
-                self._send(*app.parse(raw, self.headers))
-            else:
-                self._send(404, {"error": "not_found", "detail": self.path}, {})
+            self._route("POST")
 
         def log_message(self, fmt, *args):  # quiet: one line per request is noise
             pass
@@ -678,7 +824,8 @@ def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> Thr
 
 def main() -> None:
     port = int(os.environ.get("BRAIN_PORT", "8090"))
-    server = make_server(BrainApp(make_parser_from_env()), host="0.0.0.0", port=port)
+    server = make_server(BrainApp(make_parser_from_env(), tracer=Tracer("brain")),
+                         host="0.0.0.0", port=port)
     print(f"brain: serving /parse on :{server.server_address[1]}", flush=True)
     try:
         server.serve_forever()

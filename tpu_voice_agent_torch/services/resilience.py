@@ -1,8 +1,11 @@
 """Deadlines, retries and circuit breakers, as the JAX package's services carry them.
 
-Port of ``tpu_voice_agent/utils/resilience.py`` without its metrics gauges and
-flight-recorder trigger (the port has neither plane yet, ROADMAP.md Queue 1
-items 3 and 7):
+Port of ``tpu_voice_agent/utils/resilience.py`` with JAX's
+``resilience.<dep>.*`` series (the breaker's state gauge, registered at 0 from
+construction; its transition and rejection counters; the retry and
+transport-error counters). Not ported: the flight-recorder trigger on a
+breaker opening (ROADMAP.md Queue 1 item 3) and the admission controller
+(item 4).
 
 - ``Deadline``: a request's remaining time budget. The remaining
   milliseconds travel in the ``x-deadline-ms`` header, and a service answers
@@ -28,6 +31,7 @@ import threading
 import time
 from dataclasses import dataclass
 
+from ..utils.tracing import get_metrics
 from .ws import ConnectError, HTTPError
 
 # remaining-budget propagation header: milliseconds left, clamped at 0
@@ -125,6 +129,9 @@ class CircuitBreaker:
         self._failures = 0
         self._opened_at = 0.0
         self._probe_at = 0.0  # when the last half-open probe was admitted
+        # the state gauge exists from construction (0 = closed): a scraper
+        # sees every breaker, tripped or not
+        self._gauge(0)
 
     @property
     def state(self) -> str:
@@ -143,19 +150,26 @@ class CircuitBreaker:
                 return True
             if self._state == "open":
                 if now - self._opened_at < self.reset_after_s:
+                    get_metrics().inc(f"resilience.{self.name}.breaker_rejected")
                     return False
                 self._state = "half_open"
+                get_metrics().inc(f"resilience.{self.name}.breaker_half_open")
+                self._gauge(1)
             elif now - self._probe_at < self.reset_after_s:
                 # the probe is out. One a reset window: an abandoned probe
                 # (its caller was cancelled) must not wedge half_open forever
+                get_metrics().inc(f"resilience.{self.name}.breaker_rejected")
                 return False
             self._probe_at = now
             return True
 
     def record_success(self) -> None:
         with self._lock:
+            if self._state != "closed":
+                get_metrics().inc(f"resilience.{self.name}.breaker_closed")
             self._state = "closed"
             self._failures = 0
+            self._gauge(0)
 
     def record_failure(self) -> None:
         with self._lock:
@@ -175,6 +189,11 @@ class CircuitBreaker:
         self._state = "open"
         self._failures = 0
         self._opened_at = self._clock()
+        get_metrics().inc(f"resilience.{self.name}.breaker_opened")
+        self._gauge(2)
+
+    def _gauge(self, v: int) -> None:
+        get_metrics().set_gauge(f"resilience.{self.name}.breaker_state", v)
 
 
 async def post_with_resilience(http, url: str, *, json_body, deadline: Deadline,
@@ -220,6 +239,7 @@ async def post_with_resilience(http, url: str, *, json_body, deadline: Deadline,
         except asyncio.TimeoutError:
             if breaker is not None:
                 breaker.record_failure()
+            get_metrics().inc(f"resilience.{name}.transport_errors")
             last_exc, resp = DeadlineExpired(
                 f"{name}: attempt exceeded the remaining budget"), None
             break  # the budget is gone; a retry cannot fit
@@ -227,9 +247,11 @@ async def post_with_resilience(http, url: str, *, json_body, deadline: Deadline,
             last_exc, resp = e, None
             if breaker is not None:
                 breaker.record_failure()
+            get_metrics().inc(f"resilience.{name}.transport_errors")
         except HTTPError:
             if breaker is not None:
                 breaker.record_failure()
+            get_metrics().inc(f"resilience.{name}.transport_errors")
             raise
         else:
             if resp.status_code != 503:
@@ -252,6 +274,7 @@ async def post_with_resilience(http, url: str, *, json_body, deadline: Deadline,
             delay = max(delay, min(retry_after_s, deadline.remaining_s() * 0.5))
         if deadline.remaining_s() <= delay:
             break  # the budget can't cover the wait, let alone the attempt
+        get_metrics().inc(f"resilience.{name}.retries")
         await sleep(delay)
     if resp is not None:
         return resp

@@ -1,11 +1,17 @@
-"""Rolling-window SLO evaluation for the voice->intent latency budget.
+"""Rolling-window SLO evaluation: the latency budget and the quality floors.
 
-Port of ``SLOTracker`` from ``tpu_voice_agent/utils/slo.py``: the voice
-service records each utterance's end-of-speech processing latency and
-outcome, and ``/health`` reports the window's verdict, ``ok``, ``at_risk``
-(a percentile past ``SLO_AT_RISK_FRACTION`` of its target) or ``violated``.
-The port has no gauges and no flight recorder yet (ROADMAP.md Queue 1 items
-3 and 7), so nothing is exported and no edge is acted on.
+Port of ``tpu_voice_agent/utils/slo.py``:
+
+- ``SLOTracker``: a service records each request's latency and outcome, and
+  ``evaluate`` grades the window ``ok``, ``at_risk`` (a percentile past
+  ``SLO_AT_RISK_FRACTION`` of its target) or ``violated``, and exports it
+  as the ``slo.<name>.*`` gauges of the process-global registry.
+- ``QualityTracker``: bounded windows of per-utterance quality signals held
+  to floors and ceilings (``slo.<name>.state`` in the registry it is given).
+
+Not ported yet: the flight recorder that JAX freezes on an ok -> violated
+edge (ROADMAP.md Queue 1 item 3), so an edge is graded and exported but
+freezes nothing.
 """
 
 from __future__ import annotations
@@ -15,17 +21,13 @@ import threading
 import time
 from collections import deque
 
+from ..utils.tracing import get_metrics, nearest_rank
+
 STATES = ("ok", "at_risk", "violated")
 
-
-def nearest_rank(sorted_xs, q: float):
-    """Nearest-rank percentile on the interpolation index ``q * (n - 1)``,
-    half-up (the JAX package's ``utils.tracing.nearest_rank``)."""
-    n = len(sorted_xs)
-    if n == 0:
-        raise ValueError("no samples")
-    idx = int(q * (n - 1) + 0.5)
-    return sorted_xs[min(n - 1, max(0, idx))]
+# how often record() re-evaluates the window on its own (seconds), so the
+# gauges follow the sample stream, not only the scrapes
+AUTO_EVAL_S = 1.0
 
 
 class SLOTracker:
@@ -59,10 +61,16 @@ class SLOTracker:
         self._clock = clock
         self._lock = threading.Lock()
         self._samples: deque[tuple[float, float, bool]] = deque(maxlen=self.MAX_SAMPLES)
+        self._last_auto_eval = 0.0
 
     def record(self, latency_ms: float, ok: bool = True) -> None:
         with self._lock:
             self._samples.append((self._clock(), float(latency_ms), bool(ok)))
+            due = self._clock() - self._last_auto_eval >= AUTO_EVAL_S
+            if due:
+                self._last_auto_eval = self._clock()
+        if due:
+            self.evaluate()  # outside the lock: it takes the lock again
 
     def _windowed(self) -> list[tuple[float, float, bool]]:
         cutoff = self._clock() - self.window_s
@@ -98,6 +106,14 @@ class SLOTracker:
                     state = "at_risk"
                     reasons.append(f"{label} {value:.3g} > "
                                    f"{self.at_risk_fraction:.0%} of target {target:.3g}")
+        m = get_metrics()
+        m.set_gauge(f"slo.{self.name}.state", float(STATES.index(state)))
+        m.set_gauge(f"slo.{self.name}.window_samples", float(n))
+        m.set_gauge(f"slo.{self.name}.error_rate", error_rate)
+        if p50 is not None:
+            m.set_gauge(f"slo.{self.name}.p50_ms", p50)
+        if p99 is not None:
+            m.set_gauge(f"slo.{self.name}.p99_ms", p99)
         return {
             "name": self.name,
             "state": state,
@@ -111,3 +127,81 @@ class SLOTracker:
             "targets": {"p50_ms": self.target_p50_ms, "p99_ms": self.target_p99_ms,
                         "error_rate": self.error_rate_target},
         }
+
+
+class QualityTracker:
+    """The quality dimension of the SLO plane: rolling windows of
+    per-utterance quality signals held to floors / ceilings. Each signal
+    keeps a bounded window of (value, detail) samples; a windowed mean under
+    its floor (or over its ceiling), over at least ``min_samples`` samples,
+    grades the tracker ``violated``. A floor or ceiling of 0 (or None) is
+    disarmed. ``metrics`` defaults to the process-global registry."""
+
+    MAX_SAMPLES = 1024
+
+    def __init__(self, name: str = "quality", *, floors: dict[str, float] | None = None,
+                 ceilings: dict[str, float] | None = None, window: int | None = None,
+                 min_samples: int | None = None, metrics=None, clock=time.monotonic):
+        self.name = name
+        self.floors = {k: v for k, v in (floors or {}).items() if v is not None and v > 0}
+        self.ceilings = {k: v for k, v in (ceilings or {}).items() if v is not None and v > 0}
+        self.window = window if window is not None \
+            else int(os.environ.get("QUALITY_WINDOW", "64"))
+        self.min_samples = min_samples if min_samples is not None \
+            else int(os.environ.get("QUALITY_SLO_MIN_SAMPLES", "5"))
+        self._metrics = metrics if metrics is not None else get_metrics()
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._samples: dict[str, deque] = {}
+        self._last_auto_eval = 0.0
+
+    def record(self, signal: str, value: float, detail: dict | None = None) -> None:
+        """One utterance's reading for ``signal``; ``detail`` is its quality
+        vector (transcript preview, margins, scores), the evidence a violated
+        verdict lists."""
+        with self._lock:
+            dq = self._samples.get(signal)
+            if dq is None:
+                dq = self._samples[signal] = deque(maxlen=min(self.window, self.MAX_SAMPLES))
+            dq.append((float(value), detail))
+            due = self._clock() - self._last_auto_eval >= AUTO_EVAL_S
+            if due:
+                self._last_auto_eval = self._clock()
+        if due:
+            self.evaluate()
+
+    def means(self) -> dict[str, float]:
+        with self._lock:
+            return {sig: sum(v for v, _ in dq) / len(dq) for sig, dq in self._samples.items() if dq}
+
+    def state(self) -> str:
+        return self.evaluate()["state"]
+
+    def evaluate(self) -> dict:
+        """Grade every armed signal; export ``slo.<name>.state``."""
+        with self._lock:
+            snap = {sig: list(dq) for sig, dq in self._samples.items()}
+        state = "ok"
+        reasons: list[str] = []
+        signals: dict[str, dict] = {}
+        for sig, xs in snap.items():
+            mean = sum(v for v, _ in xs) / len(xs) if xs else None
+            entry = {"samples": len(xs), "mean": round(mean, 4) if mean is not None else None}
+            floor = self.floors.get(sig)
+            ceiling = self.ceilings.get(sig)
+            if floor is not None:
+                entry["floor"] = floor
+            if ceiling is not None:
+                entry["ceiling"] = ceiling
+            bad = None
+            if mean is not None and len(xs) >= self.min_samples:
+                if floor is not None and mean < floor:
+                    bad = f"{sig} {mean:.3g} < floor {floor:.3g}"
+                elif ceiling is not None and mean > ceiling:
+                    bad = f"{sig} {mean:.3g} > ceiling {ceiling:.3g}"
+            if bad is not None:
+                state = "violated"
+                reasons.append(bad)
+            signals[sig] = entry
+        self._metrics.set_gauge(f"slo.{self.name}.state", float(STATES.index(state)))
+        return {"name": self.name, "state": state, "reasons": reasons, "signals": signals}

@@ -26,6 +26,16 @@ service's event vocabulary: ``transcript_partial``, ``transcript_final``,
 - A control frame that is JSON but not an object gets the ``bad control
   frame`` warn of one that is not JSON (the JAX handler raises on it and
   drops the session).
+- Observability, as JAX's: a ``transcript_final`` from a Whisper STT carries
+  ``confidence`` (the final's logprob lanes and repetition score, with the
+  quality lanes on); a ``QualityMonitor("voice")`` records every final and
+  every parse (healthy or degraded); ``Tracer("voice")`` records the
+  ``audio_ingest``, ``stt_finalize``, ``parse_roundtrip`` and
+  ``execute_roundtrip`` spans; the ``voice.*`` counters, the
+  ``voice.live_sessions`` and ``engine.prefill_remaining_at_endpoint`` gauges
+  and the ``resilience.*`` series go to the process-global registry.
+  ``GET /metrics`` (JSON, or Prometheus text under ``Accept: text/plain``),
+  ``GET /debug/trace/{id}`` and ``GET /debug/quality`` are served.
 
 One card, one stream: the split kernels' scratch and ticket counters are
 per-device buffers that serve one stream at a time (``ops/_lib.py``
@@ -42,15 +52,15 @@ Environment (the JAX service's names): ``BRAIN_URL``, ``EXECUTOR_URL``,
 ``VOICE_EARLY_CLOSE_MS``, ``VOICE_RESPEC_AFTER``,
 ``VOICE_CAPACITY_SESSIONS``, ``VOICE_BRAIN_HEALTH_S``,
 ``PREFIX_FEED_ENABLE``, ``PREFIX_FEED_STABLE_K``, ``PREFIX_FEED_MIN_CHARS``,
-``SLO_*`` and ``VOICE_STT`` (``null``; ``whisper[:preset]``, random weights
-from seed 0; ``whisper-ckpt:<path>`` whose last component names one of the
-port's in-repo checkpoints). The port adds ``VOICE_DEVICE`` (default
+``SLO_*``, ``QUALITY_ENABLE`` / ``QUALITY_WINDOW`` / ``QUALITY_SLO_*``,
+``TRACE_SINK`` and ``VOICE_STT`` (``null``; ``whisper[:preset]``, random
+weights from seed 0; ``whisper-ckpt:<path>`` whose last component names one
+of the port's in-repo checkpoints). The port adds ``VOICE_DEVICE`` (default
 ``cuda``; ``cpu`` runs the plain versions). What the port does not serve is
 refused at boot (``check_unserved_knobs``, ``stt_factory_from_env``) or
 answered 501 (``UNPORTED_ROUTES``), each naming its ROADMAP.md Queue 1
-item. ``TRACE_SINK``, ``FLIGHT_*``, ``TS_*`` and ``COST_*`` are left unread:
-they only feed observability planes the port lacks, and the frames are the
-same on or off.
+item. ``FLIGHT_*``, ``TS_*`` and ``COST_*`` are left unread: they only feed
+observability planes the port lacks, and the frames are the same on or off.
 """
 
 from __future__ import annotations
@@ -61,11 +71,19 @@ import json
 import os
 import threading
 import time
-import uuid
 from pathlib import Path
 
 from ..audio.mel import pcm16_to_float
 from ..schemas import ValidationError, is_risky, validate_intent, validate_parse_response
+from ..utils.quality import QualityMonitor, check_canary_knob
+from ..utils.tracing import (
+    TRACE_ROUTE,
+    Tracer,
+    get_metrics,
+    metrics_response,
+    new_trace_id,
+    trace_response,
+)
 from . import ws as wslib
 from .resilience import (
     BreakerOpenError,
@@ -76,10 +94,6 @@ from .resilience import (
     post_with_resilience,
 )
 from .slo import SLOTracker
-
-
-def new_trace_id() -> str:
-    return uuid.uuid4().hex[:16]
 
 
 class VoiceConfig:
@@ -121,10 +135,12 @@ def _refuse(name: str, raw: str, item: int, what: str) -> None:
 def check_unserved_knobs() -> None:
     """Refuse at boot what the JAX voice service would honour and the port
     would silently ignore: ``CHAOS_FAULTS`` (it arms the ``drop_frame``
-    point; the chaos plane is Queue 1 item 4)."""
+    point; the chaos plane is Queue 1 item 4), and the golden-replay
+    canary's ``QUALITY_CANARY_S`` (item 3)."""
     raw = os.environ.get("CHAOS_FAULTS", "").strip()
     if raw:
         _refuse("CHAOS_FAULTS", raw, 4, "fault injection")
+    check_canary_knob()
 
 
 def stt_factory_from_env():
@@ -136,9 +152,9 @@ def stt_factory_from_env():
     in the JAX package). The engine runs on ``VOICE_DEVICE`` (default
     ``cuda``: with no card it raises). Refused at boot: ``whisper-hf:`` and any
     other checkpoint (Queue 1 item 8), the batched and replicated STT planes
-    (``STT_BATCH_ENABLE=1``, ``STT_BATCH_SLOTS``, ``STT_REPLICAS``: item 5),
-    and a Whisper engine under ``QUALITY_ENABLE`` other than ``0`` (the
-    confidence lanes on ``transcript_final``: item 3)."""
+    (``STT_BATCH_ENABLE=1``, ``STT_BATCH_SLOTS``, ``STT_REPLICAS``: item
+    5). ``QUALITY_ENABLE`` (default on) is read by the engine: its finals
+    carry the confidence lanes."""
     from ..serve.stt import NullSTT
 
     for name in ("STT_BATCH_SLOTS", "STT_REPLICAS"):
@@ -155,9 +171,6 @@ def stt_factory_from_env():
         raise ValueError(f"unknown VOICE_STT {spec!r}")
     if spec.startswith("whisper-hf:"):
         _refuse("VOICE_STT", spec, 8, "checkpoint import (SpeechEngine.from_hf)")
-    quality = os.environ.get("QUALITY_ENABLE", "").strip()
-    if quality not in ("", "0"):
-        _refuse("QUALITY_ENABLE", quality, 3, "the STT confidence lanes")
     from ..audio.endpoint import EnergyEndpointer
     from ..serve.stt import SpeechEngine, StreamingSTT
 
@@ -233,8 +246,6 @@ class ClientState:
         self.feed_tracker = None
         self.feed_task: asyncio.Task | None = None
         self.feed_pending: str | None = None
-        # un-prefilled prompt tokens when the last endpoint fired
-        self.prefill_remaining: float | None = None
 
     def drop_spec(self) -> None:
         if self.spec is not None:
@@ -249,6 +260,7 @@ class ClientState:
             task = self.feed_task
             self.feed_task = None
             _reap(task)
+            get_metrics().inc("voice.feeds_reaped")
 
 
 def _reap(task: "asyncio.Task") -> None:
@@ -329,8 +341,7 @@ def _prefill_remaining(stages: dict, spec_pre_parsed: bool, degraded: bool) -> f
 # Routes of the JAX service that the port does not serve: prefix -> the
 # ROADMAP.md Queue 1 item that brings them
 UNPORTED_ROUTES = (
-    ("/metrics", 3), ("/debug/trace/", 3), ("/debug/flightrecorder", 3),
-    ("/debug/quality", 3), ("/debug/costs", 7), ("/debug/timeseries", 7),
+    ("/debug/flightrecorder", 3), ("/debug/costs", 7), ("/debug/timeseries", 7),
     ("/static/", 9),
 )
 
@@ -344,9 +355,10 @@ def _unported_item(path: str) -> int | None:
     return None
 
 
-def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
+def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> wslib.App:
     check_unserved_knobs()
     cfg = cfg or VoiceConfig()
+    tracer = tracer or Tracer("voice", emit=False)
     from ..serve.stt import NullSTT
     from .brain import RuleBasedParser
 
@@ -362,8 +374,12 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
     # the north-star SLO: voice->intent (end-of-speech processing cost: STT
     # finalize + parse; the speaker's own talking time is not latency)
     slo = SLOTracker("voice")
+    # STT confidence per final, the parses' structure, and the voice-side
+    # quality verdict, on the tracer-local registry
+    qmon = QualityMonitor("voice", metrics=tracer.metrics)
     live_sessions = {"n": 0}
     capacity_sessions = int(os.environ.get("VOICE_CAPACITY_SESSIONS", "0"))
+    get_metrics().set_gauge("voice.live_sessions", 0)
 
     # the brain's /health keys forwarded into ours, refreshed in the
     # background at most every VOICE_BRAIN_HEALTH_S (fetch budget 1 s); only
@@ -376,7 +392,7 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
             h = (await wslib.HTTPClient().get(cfg.brain_url + "/health", timeout=1.0)).json()
             brain_fwd["body"] = {
                 k: h[k] for k in ("compile_sentinel", "last_step", "hbm", "replicas",
-                                  "home_replica")
+                                  "home_replica", "quality")
                 if h.get(k) is not None
             } or None
         except (wslib.HTTPError, ValueError, AttributeError):
@@ -403,6 +419,7 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
             "slo": slo.state(),
             "sessions": live_sessions["n"],
             "capacity_sessions": capacity_sessions,
+            "quality": qmon.health(),
         }
         fwd = await _brain_engine_health()
         if fwd is not None:
@@ -411,11 +428,19 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
         return wslib.Response(200, body)
 
     async def route(req: wslib.Request) -> wslib.Response:
-        if req.path == "/health":
+        served = req.path in ("/health", "/metrics", "/debug/quality") or (
+            req.path.startswith(TRACE_ROUTE) and len(req.path) > len(TRACE_ROUTE))
+        if served:
             if req.method != "GET":
                 return wslib.Response(405, {"error": "method_not_allowed",
                                             "detail": req.method})
-            return await health()
+            if req.path == "/health":
+                return await health()
+            if req.path == "/metrics":
+                return metrics_response("voice", tracer, req, slo=slo)
+            if req.path == "/debug/quality":
+                return qmon.response()
+            return trace_response("voice", tracer, req)
         item = _unported_item(req.path)
         if item is not None:
             return wslib.Response(501, {"error": "not_ported",
@@ -458,6 +483,9 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
     feed_min_chars = int(os.environ.get("PREFIX_FEED_MIN_CHARS", "8"))
     # sticky like spec_supported, with no re-probe
     feed_supported = {"ok": True}
+    if feed_enable:
+        get_metrics().inc("voice.feeds_sent", 0.0)
+        get_metrics().inc("voice.feeds_reaped", 0.0)
 
     async def feed_prefix_send(state: ClientState, text: str, http) -> None:
         """Fire one coalesced prefill-only feed: a raw post (never retried,
@@ -478,6 +506,7 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
             if state.tenant:
                 json_body["tenant"] = state.tenant
                 headers["x-tenant"] = state.tenant
+            get_metrics().inc("voice.feeds_sent")
             try:
                 r = await http.post(cfg.brain_url + "/parse", json=json_body, headers=headers,
                                     timeout=cfg.parse_timeout_s)
@@ -533,6 +562,7 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
                     notify(text)
             return r
 
+        get_metrics().inc("voice.spec_parse_started")
         state.spec = (text, asyncio.ensure_future(run()))
 
     executions: set[asyncio.Task] = set()  # fire-and-forget /execute tasks, kept alive
@@ -579,29 +609,42 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
                         and maybe.headers.get("x-speculation-pending") == "1"):
                     # two-phase backend: the speculative turn is PENDING; the
                     # normal parse below commits it (no decode)
+                    get_metrics().inc("voice.spec_parse_hit")
+                    get_metrics().inc("voice.spec_parse_commit")
                     spec_pre_parsed = was_done_at_endpoint
                 elif maybe is not None and maybe.status_code == 200:
                     r = maybe
+                    get_metrics().inc("voice.spec_parse_hit")
                     spec_pre_parsed = was_done_at_endpoint
+                elif maybe is not None and maybe.status_code == 409:
+                    get_metrics().inc("voice.spec_parse_unsupported")
+                else:
+                    get_metrics().inc("voice.spec_parse_failed")
             else:
                 _reap(task)
+                get_metrics().inc("voice.spec_parse_stale")
         degraded_reason = None
         if r is None:
-            try:
-                r = await post_parse(state, text, http)
-            except asyncio.CancelledError:
-                raise  # connection teardown mid-parse is not a brain fault
-            except (ResilienceError, wslib.HTTPError, OSError) as e:
-                degraded_reason = ("circuit open" if isinstance(e, BreakerOpenError)
-                                   else f"{type(e).__name__}: {e}")
+            with tracer.span("parse_roundtrip", trace_id=state.trace_id, chars=len(text)):
+                try:
+                    r = await post_parse(state, text, http)
+                except asyncio.CancelledError:
+                    raise  # connection teardown mid-parse is not a brain fault
+                except (ResilienceError, wslib.HTTPError, OSError) as e:
+                    degraded_reason = ("circuit open" if isinstance(e, BreakerOpenError)
+                                       else f"{type(e).__name__}: {e}")
         if degraded_reason is None and r.status_code >= 500:
             # shed (503) or failed server-side (500): a local degraded parse
             # beats a terminal error. 4xx stays terminal: those are answers
             # about THIS request, not brain-health signals
             degraded_reason = f"brain error {r.status_code}"
         if degraded_reason is not None:
+            get_metrics().inc("voice.degraded_parses")
             parsed = fallback_parser.parse(text, state.context)
             degraded = True
+            # a degraded-mode rule fallback is a quality event even though
+            # the session survived
+            qmon.record_intent(degraded=True, rule_fallback=True, text=text)
             await send(ws, "warn", degraded=True,
                        message=f"brain unavailable ({degraded_reason}); "
                                "serving rule-based parse")
@@ -635,11 +678,12 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
                         state.stages[key] = float(v)
                     except ValueError:
                         pass
+            # healthy parses feed the quality windows too
+            qmon.record_intent(margin=state.stages.get("intent_margin"), text=text)
         if degraded:
             state.stages["degraded"] = True
-        # JAX's engine.prefill_remaining_at_endpoint gauge; the port has no
-        # metrics plane yet (Queue 1 item 3), so the reading stays here
-        state.prefill_remaining = _prefill_remaining(state.stages, spec_pre_parsed, degraded)
+        get_metrics().set_gauge("engine.prefill_remaining_at_endpoint",
+                                _prefill_remaining(state.stages, spec_pre_parsed, degraded))
         slo.record(state.stages.get("stt_finalize_ms", 0.0) + state.stages["parse_ms"], ok=True)
         state.slo_open_t0 = None
 
@@ -694,15 +738,17 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
     async def _execute_locked(ws, state: ClientState, intents: list[dict], http,
                               trace_id: str) -> None:
         try:
-            r = await post_with_resilience(
-                http, cfg.executor_url + "/execute",
-                json_body={"session_id": state.session_id, "intents": intents},
-                headers={"x-trace-id": trace_id},
-                deadline=Deadline.after(cfg.exec_timeout_s),
-                policy=retry_policy, breaker=exec_breaker)
+            with tracer.span("execute_roundtrip", trace_id=trace_id, intents=len(intents)):
+                r = await post_with_resilience(
+                    http, cfg.executor_url + "/execute",
+                    json_body={"session_id": state.session_id, "intents": intents},
+                    headers={"x-trace-id": trace_id},
+                    deadline=Deadline.after(cfg.exec_timeout_s),
+                    policy=retry_policy, breaker=exec_breaker)
         except asyncio.CancelledError:
             raise
         except BreakerOpenError:
+            get_metrics().inc("voice.exec_shed")
             await send(ws, "execution_error", degraded=True,
                        message="executor unavailable (circuit open); "
                                "command dropped — try again shortly")
@@ -723,15 +769,18 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
         if feed_enable:
             state.feed_tracker = _PrefixFeedTracker(k=feed_k, min_chars=feed_min_chars)
         live_sessions["n"] += 1
+        get_metrics().set_gauge("voice.live_sessions", live_sessions["n"])
         try:
             await _stream_session(ws, state)
         finally:
             live_sessions["n"] = max(0, live_sessions["n"] - 1)
+            get_metrics().set_gauge("voice.live_sessions", live_sessions["n"])
             if state.slo_open_t0 is not None:
                 # the client went away mid-utterance: an aborted utterance is
                 # an error sample (the wall the speaker waited for nothing)
                 slo.record((time.perf_counter() - state.slo_open_t0) * 1e3, ok=False)
                 state.slo_open_t0 = None
+                get_metrics().inc("voice.utterances_aborted")
 
     async def _stream_session(ws: wslib.WebSocket, state: ClientState) -> None:
         if isinstance(state.stt, NullSTT):
@@ -774,6 +823,12 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
                             # transcript while the endpoint window runs out
                             await speculate(state, text, http)
                         else:
+                            # the waterfall's stage spans: the capture window
+                            # and the feed call that finalized the transcript
+                            tracer.record_span("audio_ingest", state.trace_id, state.utt_t0,
+                                               t_feed1)
+                            tracer.record_span("stt_finalize", state.trace_id, t_feed0,
+                                               t_feed1, chars=len(text))
                             state.stages.update(
                                 audio_ingest_ms=round((t_feed1 - state.utt_t0) * 1e3, 3),
                                 stt_finalize_ms=round((t_feed1 - t_feed0) * 1e3, 3),
@@ -782,7 +837,19 @@ def build_app(cfg: VoiceConfig | None = None) -> wslib.App:
                             if state.feed_tracker is not None:
                                 state.feed_tracker.reset()
                                 state.drop_feed()
-                            await send(ws, "transcript_final", text=text)
+                            # the STT published this final's full result on
+                            # the feed call that emitted it: its confidence
+                            # rides the event
+                            conf_payload = {}
+                            lf = getattr(state.stt, "last_final", None)
+                            if lf is not None and lf.repetition is not None:
+                                conf_payload["confidence"] = {
+                                    k: getattr(lf, k)
+                                    for k in ("logp_mean", "logp_min", "logp_first", "repetition")
+                                    if getattr(lf, k) is not None}
+                                qmon.record_stt(lf.logp_mean, lf.logp_min, lf.repetition,
+                                                text=text, logp_first=lf.logp_first)
+                            await send(ws, "transcript_final", text=text, **conf_payload)
                             await handle_final(ws, state, text, http)
                 elif msg.type == wslib.TEXT:
                     try:
@@ -859,7 +926,7 @@ async def _serve_forever(app: wslib.App, host: str, port: int) -> None:
 
 def main() -> None:
     port = int(os.environ.get("VOICE_PORT", "7072"))
-    asyncio.run(_serve_forever(build_app(), "0.0.0.0", port))
+    asyncio.run(_serve_forever(build_app(tracer=Tracer("voice")), "0.0.0.0", port))
 
 
 if __name__ == "__main__":

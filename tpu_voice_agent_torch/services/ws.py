@@ -368,8 +368,11 @@ class Request:
 
 @dataclass
 class Response:
+    """A plain response: a dict body goes out as JSON, a ``str`` body as
+    text (``Content-Type`` from ``headers``, default ``text/plain``)."""
+
     status: int
-    body: dict = field(default_factory=dict)
+    body: dict | str = field(default_factory=dict)
     headers: dict = field(default_factory=dict)
 
 
@@ -383,9 +386,12 @@ class App:
 
 
 async def _respond(writer: asyncio.StreamWriter, resp: Response) -> None:
-    data = json.dumps(resp.body).encode()
-    headers = {"Content-Type": "application/json; charset=utf-8",
-               "Content-Length": str(len(data)), "Connection": "close", **resp.headers}
+    if isinstance(resp.body, str):
+        data, ctype = resp.body.encode(), "text/plain; charset=utf-8"
+    else:
+        data, ctype = json.dumps(resp.body).encode(), "application/json; charset=utf-8"
+    headers = {"Content-Type": ctype, "Content-Length": str(len(data)), "Connection": "close",
+               **resp.headers}
     writer.write(_head_bytes(f"HTTP/1.1 {resp.status} {_REASONS.get(resp.status, '')}",
                              headers) + data)
     await writer.drain()

@@ -24,6 +24,15 @@ widths on the CPU; ``python -m tpu_voice_agent_torch.voicebench`` builds the
 full-width pair (``tinyllama-1.1b`` int8, fast-forward 8, cache 1024, and
 ``whisper-large-v3`` with buckets (300, 1000), 32 new tokens, random weights
 from a seed) on the card and prints the result as JSON.
+
+``run_neural_voice_bench`` is ``bench.py --neural`` (bench.py:136-160,
+:231): every model is an in-repo trained checkpoint (``make_neural_engines``:
+the distilled intent parser, and ``whisper-tiny-heldout``, or
+``whisper-tiny-overfit`` where the first is missing), the speech is the
+acoustic-font render of ``WHISPER_EVAL_TEXTS[:5]``, and the parse is the
+distilled parser's; the same timing loop, plus each run's word error rate
+against the text it spoke (``evals.wer``). ``python -m
+tpu_voice_agent_torch.voicebench --neural`` runs it on the card.
 """
 
 from __future__ import annotations
@@ -84,8 +93,6 @@ def run_voice_bench(parse_engine, stt_engine, runs: int = 9,
     returns the e2e, STT and parse times (ms) per run, their p50s, the e2e
     p95, the spec hit and early-close rates, the feed lag at each run's end
     of speech, and the tokens of the parse that ended each run."""
-    from .audio.endpoint import EnergyEndpointer
-    from .serve.stt import StreamingSTT
     from .services.prompts import render_prompt
 
     room = parse_engine.max_len - 66
@@ -100,16 +107,64 @@ def run_voice_bench(parse_engine, stt_engine, runs: int = 9,
                 break
         return parse_engine.generate(prompt, max_new_tokens=64, greedy=True).steps
 
+    speech = synth_utterance(2.0) if speech is None else speech
+    return _paced_runs(parse_text, stt_engine, [speech], UTTERANCES, runs)[0]
+
+
+def make_neural_engines(device=None):
+    """``bench.py --neural``'s pair: the distilled intent parser and the
+    trained Whisper (``whisper-tiny-heldout``, the generalizing checkpoint,
+    else ``whisper-tiny-overfit``). Returns (parser, stt_engine, name)."""
+    from . import distilled, whisper_ckpt
+
+    parser = distilled.intent_engine_from(*distilled.load_distilled(device=device),
+                                          device=device)
+    name = next(n for n in ("whisper-tiny-heldout", "whisper-tiny-overfit")
+                if whisper_ckpt.npz_path(n).exists())
+    stt_engine = whisper_ckpt.whisper_engine_from(*whisper_ckpt.load_whisper(name, device=device),
+                                                  device=device)
+    return parser, stt_engine, name
+
+
+def run_neural_voice_bench(parser, stt_engine, runs: int = 9) -> dict:
+    """``bench.py --neural``: the acoustic-font renders of
+    ``WHISPER_EVAL_TEXTS[:5]`` through the trained STT and the distilled
+    parser, timed as ``run_voice_bench`` times them, with each run's
+    reference, final transcript and word error rate."""
+    from .evals.wer import wer
+    from .whisper_ckpt import WHISPER_EVAL_TEXTS, render_speech
+
+    utterances = WHISPER_EVAL_TEXTS[:5]
+
+    def parse_text(text: str) -> int:
+        parser.parse(text, {})
+        return parser.last_result.steps
+
+    out, finals = _paced_runs(parse_text, stt_engine,
+                              [render_speech(u) for u in utterances], utterances, runs)
+    refs = [utterances[i % len(utterances)] for i in range(runs)]
+    out.update(references=refs, finals=finals,
+               wer=[wer(r, f or "") for r, f in zip(refs, finals)])
+    out["wer_mean"] = float(np.mean(out["wer"]))
+    return out
+
+
+def _paced_runs(parse_text, stt_engine, speeches: list, utterances: list, runs: int):
+    """The timing loop both modes share: run ``i`` speaks
+    ``speeches[i % len]`` in real time, then 1 s of silence. Returns (the
+    result dict, each run's final transcript or None)."""
+    from .audio.endpoint import EnergyEndpointer
+    from .serve.stt import StreamingSTT
+
     stt = StreamingSTT(stt_engine, endpointer=EnergyEndpointer(spec_silence_ms=120),
                        early_close_ms=240.0)
     sr = stt_engine.mel_cfg.sample_rate
     frame = sr * FRAME_MS // 1000
     silence = np.zeros(sr, dtype=np.float32)  # 1 s tail
-    speech = synth_utterance(2.0) if speech is None else speech
 
     # warmup: both prefill paths of the parse, every bucket, the incremental
     # path and one streaming feed
-    for u in (UTTERANCES[0], UTTERANCES[2] + " and also " + UTTERANCES[3]):
+    for u in (utterances[0], utterances[2] + " and also " + utterances[3]):
         parse_text(u)
     for b in stt_engine.frame_buckets:
         stt_engine.transcribe(np.zeros(b * stt_engine.mel_cfg.hop, np.float32))
@@ -117,7 +172,7 @@ def run_voice_bench(parse_engine, stt_engine, runs: int = 9,
     st = stt_engine.incremental_feed(
         st, np.zeros(stt_engine.INC_STEP * stt_engine.mel_cfg.hop * 3, np.float32))
     stt_engine.incremental_decode(st)
-    stt.feed(speech[:frame])
+    stt.feed(speeches[0][:frame])
     stt.reset()
 
     pool = ThreadPoolExecutor(1, thread_name_prefix="spec-parse")
@@ -154,7 +209,7 @@ def run_voice_bench(parse_engine, stt_engine, runs: int = 9,
                 break
         return final_text, deadline
 
-    e2e_ms, stt_ms, parse_ms, lag_s, tokens = [], [], [], [], []
+    e2e_ms, stt_ms, parse_ms, lag_s, tokens, finals = [], [], [], [], [], []
     spec_hits = 0
     try:
         for i in range(runs):
@@ -163,7 +218,7 @@ def run_voice_bench(parse_engine, stt_engine, runs: int = 9,
             spec["text"], spec["fut"] = None, None
             if old is not None:
                 old.result()  # drain any carryover before reusing the engine
-            _, t_end_speech = feed_paced(speech, time.perf_counter())
+            _, t_end_speech = feed_paced(speeches[i % len(speeches)], time.perf_counter())
             lag_s.append(stt.feed_lag_s)
             t0 = t_end_speech  # the real-time moment the speaker stopped
             final_text, _ = feed_paced(silence, t_end_speech)
@@ -177,12 +232,13 @@ def run_voice_bench(parse_engine, stt_engine, runs: int = 9,
             else:
                 if spec["fut"] is not None:
                     spec["fut"].result()  # wasted speculation; drain the slot
-                n = parse_text(final_text or UTTERANCES[i % len(UTTERANCES)])
+                n = parse_text(final_text or utterances[i % len(utterances)])
                 t2 = time.perf_counter()
             stt_ms.append((t1 - t0) * 1e3)
             parse_ms.append((t2 - t1) * 1e3)
             e2e_ms.append((t2 - t0) * 1e3)
             tokens.append(n)
+            finals.append(final_text)
     finally:
         if spec["fut"] is not None:
             spec["fut"].result()
@@ -204,10 +260,15 @@ def run_voice_bench(parse_engine, stt_engine, runs: int = 9,
         "window_closes": stt.window_closes,
         "feed_lag_at_end_of_speech_s": lag_s,
         "parse_tokens": tokens,
-    }
+    }, finals
 
 
 if __name__ == "__main__":
     import json
+    import sys
 
-    print(json.dumps(run_voice_bench(make_parse_engine(), make_stt_engine())))
+    if "--neural" in sys.argv[1:]:
+        parser, stt_engine, name = make_neural_engines()
+        print(json.dumps({"stt_checkpoint": name, **run_neural_voice_bench(parser, stt_engine)}))
+    else:
+        print(json.dumps(run_voice_bench(make_parse_engine(), make_stt_engine())))
