@@ -65,7 +65,33 @@ Phases, in order (any failure exits nonzero and prints no result line):
               against an fp64 recomputation on the CPU; one chunk's wall
               and device kernels per forward (torch.profiler), lanes on
               and off.
-11b. service_batched - a second in-process brain with BRAIN_BATCH=8
+11b. containment - fault containment and incident capture on the batch
+              phase's engines (tinyllama-1.1b int8, 32 paged slots): K4 on
+              a batch mixing NaN, dead-state and healthy rows against its
+              plain version (healthy and dead rows equal, NaN rows in
+              range) and the poison gate; the 32 requests clean, then under
+              chaos ``nan_logits@3,dead_fsm@7,prefill_exc@11,alloc_fail@5``
+              on the bf16 pool (K7), the int8 pool (K9) and the spec engine
+              (K7, K11): exactly the three drilled requests fail with JAX's
+              typed errors, the 29 others decode their clean tokens; one
+              prompt poisoned QUARANTINE_AFTER times is refused at submit,
+              the flight recorder froze with ``scheduler.quarantine`` and
+              the step ledger, the pool is back at its free blocks; a 1 ms
+              budget behind a full batch sheds at dequeue, a request
+              abandoned after one chunk is evicted at once, batch-mates
+              equal; PREFILL_CHUNK_TOKENS 16 and 256 (int8: 16) against
+              the barrier admission (equal, or parted at a near tie: in
+              bf16 activations within 32 bf16 ulps of the top-2 margin, in
+              a twin with fp32 activations within one); TTFT
+              of 8 short requests behind one 1000-token prompt, chunking
+              off / 256 / 16 (a reading); the step ledger over 3 drains at
+              ff 8 and ff 0 (every step's stages tile its wall within 5%;
+              the median stage split, admitting and decode-only steps); a
+              brain over HTTP at max_inflight 2 (4 concurrent parses: 503 +
+              Retry-After, ``resilience.brain.shed_overload``),
+              ``/debug/steplog`` and ``/debug/flightrecorder`` 200, and a
+              client socket closed mid-parse cancelling its decode.
+11c. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
 12. golden  - the distilled intent checkpoint parses the golden utterances and
               must reproduce the JAX package's recorded outputs token for
@@ -102,7 +128,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
               service at VOICE_STT=whisper:whisper-large-v3 (random weights,
               SpeechEngine's defaults), all on ephemeral ports. 3 utterances
               of synth_utterance(2.0) + 1 s of silence as 60 ms PCM16 frames
-              at real-time pace (K1 and K5 must launch; every frame in the
+              at real-time pace, chaos ``drop_frame@5`` armed (exactly one
+              frame dropped; K1 and K5 must launch; every frame in the
               vocabulary; no error or execution_error frame, every
               transcript_final followed by its intent; finals and
               latency_budget stages reported); the five
@@ -2496,9 +2523,22 @@ def phase_voice_service(totals: dict, report: dict) -> None:
         sil = np.zeros(16_000, dtype=np.float32)
         audio = np.concatenate([x for _ in range(VOICE_AUDIO_UTTERANCES)
                                 for x in (voicebench.synth_utterance(2.0), sil)])
-        with Counted("voice_service_audio", totals) as c:
-            res = asyncio.run(_stream_paced(vsrv.url, _pcm_frames(audio)))
+        from tpu_voice_agent_torch.utils import chaos
+        from tpu_voice_agent_torch.utils.tracing import get_metrics
+
+        def dropped():
+            return get_metrics().snapshot()["counters"].get("voice.frames_dropped_chaos", 0.0)
+
+        dropped0 = dropped()
+        chaos.configure("drop_frame@5")  # one frame lost: the transcript may differ
+        try:
+            with Counted("voice_service_audio", totals) as c:
+                res = asyncio.run(_stream_paced(vsrv.url, _pcm_frames(audio)))
+        finally:
+            chaos.reset()
         c.require("flash_attention", "decode_attention")
+        fail_if(dropped() - dropped0 != 1,
+                f"voice_service: drop_frame@5 dropped {dropped() - dropped0} frames, want 1")
         events = res["events"]
         _check_vocabulary(events, "voice_service audio")
         _check_finals(events, "voice_service audio")
@@ -2870,6 +2910,7 @@ def phase_batch(params, totals: dict, report: dict, profile: bool = False) -> No
         out[f"ff{ff}"] = row
         if profile:
             _profile_batch_chunk(eng, report, kind=f"ff{ff}")
+        _KEPT[f"ff{ff}"] = eng  # the containment phase drills these engines
         del eng
     report["batch"] = out
 
@@ -3595,6 +3636,433 @@ def phase_quality(params, totals: dict, report: dict) -> None:
             f"mean over sessions: {json.dumps({k: round(v, 4) for k, v in means.items()})}")
         del eng
     report["quality"] = out
+
+
+# ---------------------------------------------------------------- containment
+
+# the drill: the 3rd admission's logits turn NaN, the 7th's FSM state dead,
+# the 11th prefill_slot call raises, the 5th block allocation fails (its
+# request is requeued and admitted later, so it decodes its clean tokens)
+CONTAINMENT_SPEC = "nan_logits@3,dead_fsm@7,prefill_exc@11,alloc_fail@5"
+CONTAINMENT_ERRORS = sorted(["poisoned: non-finite logits", "poisoned: grammar dead state",
+                             "chaos: injected prefill exception"])
+TTFT_SHORT = 8  # short requests queued behind one long prompt
+_KEPT: dict = {}  # the batch phase's engines, reused by the containment phase
+
+
+def _k4_poison_rows(eng) -> dict:
+    """K4 on the card on a (32, V) batch that mixes healthy, NaN and dead
+    (-1 state) rows, against its plain version on the same inputs: healthy
+    and dead rows (a dead state is clamped to 0 on both sides) must pick
+    the same token and state; a NaN row must pick a token in range and a
+    state of its table row (no read out of bounds). The poison gate must
+    then keep exactly the healthy rows whose pick is live."""
+    import torch
+
+    from tpu_voice_agent_torch.ops.grammar_mask import (
+        masked_argmax_advance,
+        masked_argmax_advance_reference,
+    )
+    from tpu_voice_agent_torch.serve.engine import _poison_gate
+
+    t = eng.tables
+    B, V = BATCH_SLOTS, t.dense_mask.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(15)
+    logits = torch.randn((B, V), generator=g, device="cuda")
+    state = torch.randint(0, t.table.shape[0], (B,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    rows = torch.arange(B, device="cuda")
+    nan_rows, dead_rows = rows % 4 == 1, rows % 4 == 2
+    logits[nan_rows] = float("nan")
+    state = torch.where(dead_rows, -1, state).to(torch.int32)
+    tok, nxt = masked_argmax_advance(logits, state, t.dense_mask, t.table, t.col_id)
+    rtok, rnxt = masked_argmax_advance_reference(logits, state, t.dense_mask, t.table, t.col_id)
+    torch.cuda.synchronize()
+    keep = ~nan_rows
+    fail_if(not torch.equal(tok[keep], rtok[keep]) or not torch.equal(nxt[keep], rnxt[keep]),
+            "containment: K4 disagrees with its plain version on a healthy or dead row")
+    row_of = t.table[torch.clamp(state, min=0).long()]
+    in_row = (row_of == nxt[:, None]).any(dim=1)
+    fail_if(not bool(((tok >= 0) & (tok < V))[nan_rows].all())
+            or not bool(in_row[nan_rows].all()),
+            "containment: K4 on a NaN row left the token range or its table row")
+    ok, poison = _poison_gate(logits, state, nxt, torch.ones(B, dtype=torch.bool, device="cuda"),
+                              torch.zeros(B, dtype=torch.int32, device="cuda"), True)
+    want = ~nan_rows & ~dead_rows & (rnxt >= 0)
+    fail_if(not torch.equal(ok, want) or not bool((poison[nan_rows] == 1).all())
+            or not bool((poison[dead_rows] == 2).all()),
+            "containment: the poison gate kept a NaN or dead row")
+    out = {"rows": B, "nan_rows": int(nan_rows.sum()), "dead_rows": int(dead_rows.sum()),
+           "healthy_equal": True, "kept": int(ok.sum())}
+    log(f"[containment] K4 on {B} rows ({out['nan_rows']} NaN, {out['dead_rows']} dead): "
+        f"healthy and dead rows equal to the plain version, NaN rows in range, the gate "
+        f"keeps {out['kept']}")
+    return out
+
+
+def _run32(eng, prompts=None, batcher_cls=None, **kw):
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    if not eng.prefix_ids:
+        _install(eng)
+    cls = batcher_cls or ContinuousBatcher
+    b = cls(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS, **kw)
+    return b, b.generate_many(prompts or [_batch_prompt(i) for i in range(BATCH_SLOTS)])
+
+
+def _drill(eng, label: str, totals: dict, kernels) -> tuple[dict, list]:
+    """The batch phase's 32 requests clean, then under ``CONTAINMENT_SPEC``:
+    exactly the three drilled requests fail with JAX's typed errors and
+    every other one decodes its clean tokens; then one prompt poisoned
+    ``QUARANTINE_AFTER`` times is refused at submit and the flight recorder
+    froze with ``scheduler.quarantine`` and a step ledger; the pool ends at
+    its starting free blocks."""
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.utils import chaos
+    from tpu_voice_agent_torch.utils.tracing import get_flight_recorder
+
+    P = len(eng.prefix_ids) or _install(eng)
+    free0 = eng.allocator.free_blocks()
+    with Counted(label, totals) as c:
+        _b, clean = _run32(eng)
+        chaos.configure(CONTAINMENT_SPEC, seed=0)
+        try:
+            _b, drilled = _run32(eng)
+        finally:
+            chaos.reset()
+    c.require(*kernels)
+    fail_if(any(r.error for r in clean), f"{label}: the clean run failed")
+    errs = sorted(r.error for r in drilled if r.error)
+    same = sum(r.error is None and r.token_ids == k.token_ids for r, k in zip(drilled, clean))
+    log(f"[{label}] drill {CONTAINMENT_SPEC}: errors {errs}; {same}/{BATCH_SLOTS - 3} "
+        "batch-mates equal to the clean run")
+    fail_if(errs != CONTAINMENT_ERRORS, f"{label}: drilled errors {errs}")
+    fail_if(same != BATCH_SLOTS - 3, f"{label}: a batch-mate's tokens moved under the drill")
+    rec = get_flight_recorder()
+    rec.rearm()
+    with Counted(f"{label} quarantine", totals):
+        qb = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
+        for _ in range(qb.quarantine_after):
+            chaos.configure("nan_logits:1")
+            try:
+                r = qb.generate_many([_batch_prompt(0)])[0]
+            finally:
+                chaos.reset()
+            fail_if(r.error != "poisoned: non-finite logits", f"{label}: poison {r.error}")
+        rid = qb.submit(_batch_prompt(0))
+        refused = qb.results.pop(rid, None)
+    fail_if(refused is None or not (refused.error or "").startswith("quarantined:"),
+            f"{label}: a prompt poisoned {qb.quarantine_after} times was not refused at submit")
+    dump = rec.frozen_dump()
+    fail_if(dump is None or dump["reason"] != "scheduler.quarantine"
+            or not dump["steplog"]["steps"],
+            f"{label}: the flight recorder did not freeze with the step ledger")
+    rec.rearm()
+    fail_if(eng.allocator.free_blocks() != free0,
+            f"{label}: {free0 - eng.allocator.free_blocks()} blocks leaked")
+    log(f"[{label}] quarantine after {qb.quarantine_after}: {refused.error[:60]}...; flight "
+        f"recorder froze on {dump['reason']} with {len(dump['steplog']['steps'])} steps; "
+        f"{eng.allocator.free_blocks()} blocks free, as before (prefix {P} tokens)")
+    return {"errors": errs, "batch_mates_equal": same, "quarantined": refused.error,
+            "flight_reason": dump["reason"], "free_blocks": free0, "launches": c.counts}, clean
+
+
+def _install(eng) -> int:
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    return install_prompt_prefix(eng)
+
+
+def _deadline_and_cancel(eng, clean, totals: dict) -> dict:
+    """Behind a full batch: a request with a 1 ms budget sheds at dequeue,
+    and a request abandoned after its first chunk is evicted at once; the
+    30 others decode their clean tokens."""
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services.resilience import Deadline
+
+    free0 = eng.allocator.free_blocks()
+    b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
+    with Counted("containment deadlines", totals):
+        rids = [b.submit(_batch_prompt(i)) for i in range(BATCH_SLOTS)]
+        late = b.submit(_batch_prompt(BATCH_SLOTS), deadline=Deadline.after(0.001))
+        b.step()
+        fail_if(late in b.results, "containment: the late request was served before a slot freed")
+        b.cancel(rids[5], "client gone")
+        evicted = b.results.get(rids[5])
+        b.run_until_done()
+    res = [b.results.pop(r) for r in rids]
+    shed = b.results.pop(late)
+    fail_if(evicted is None or evicted.error != "cancelled: client gone",
+            f"containment: the abandoned request was not evicted at once: {evicted}")
+    fail_if(shed.error != "shed: deadline expired in queue", f"containment: late {shed.error}")
+    same = sum(r.token_ids == k.token_ids for i, (r, k) in enumerate(zip(res, clean)) if i != 5)
+    fail_if(same != BATCH_SLOTS - 1, "containment: a batch-mate moved under the cancel")
+    fail_if(eng.allocator.free_blocks() != free0, "containment: blocks leaked")
+    log(f"[containment] deadline: '{shed.error}'; cancel after one chunk: '{evicted.error}' at "
+        f"once; {same}/{BATCH_SLOTS - 1} batch-mates equal")
+    return {"shed": shed.error, "cancelled": evicted.error, "batch_mates_equal": same}
+
+
+def _chunked(eng, clean, label: str, totals: dict, chunks=(16, 256),
+             ulps: float = BF16_PART_ULPS) -> dict:
+    """The 32 requests admitted in ``PREFILL_CHUNK_TOKENS`` pieces: each
+    decodes the barrier admission's tokens, or parts from them only at a
+    near tie (``ulps`` bf16 ulps of the plain forward's top-2 margin): a
+    piece's products (16 or 256 rows, K7 / K9 at 16) round unlike the
+    barrier suffix's (its 32-row bucket, the plain attention). In bf16
+    activations the limit is ``BF16_PART_ULPS``; the fp32-activation twin
+    holds it at one ulp."""
+    ids = [eng.tokenizer.encode(_batch_prompt(i), bos=True) for i in range(BATCH_SLOTS)]
+    out = {}
+    try:
+        for C in chunks:
+            os.environ["PREFILL_CHUNK_TOKENS"] = str(C)
+            with Counted(f"{label} chunk {C}", totals):
+                b, res = _run32(eng)
+            fail_if(b._admitting or any(r.error for r in res), f"{label}: chunk {C} failed")
+            diverged = _partings(eng, ids, [r.token_ids for r in clean],
+                                 [r.token_ids for r in res], label, f"chunk {C} and barrier")
+            _check_partings(diverged, f"{label} chunk {C}", ulps)
+            out[C] = {"equal": BATCH_SLOTS - len(diverged),
+                      "partings_ulps": [round(_ulps(d), 3) for d in diverged]}
+            log(f"[{label}] chunked prefill at {C}: {out[C]['equal']}/{BATCH_SLOTS} equal to "
+                f"the barrier admission, partings at {out[C]['partings_ulps']} bf16 ulps")
+    finally:
+        os.environ.pop("PREFILL_CHUNK_TOKENS", None)
+    return out
+
+
+def _chunked_fp32(params, totals: dict) -> dict:
+    """Chunked prefill's identity with fp32 activations on the same int8
+    weights (TF32 off), as the radix and batch_dense phases hold theirs: at
+    16 (K7) and 256 the chunked admission parts from the barrier admission
+    only where the plain forward's top-2 margin is below one bf16 ulp."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng = _paged_engine(_fp32_activations(params), 8, radix_enable=False)
+    _b, clean = _run32(eng)
+    fail_if(any(r.error for r in clean), "containment fp32: a barrier admission failed")
+    return _chunked(eng, clean, "containment fp32", totals, ulps=1)
+
+
+def _ttft_behind_long(eng, totals: dict) -> dict:
+    """A reading, not a gate: one ~1000-token prompt that misses the cached
+    prefix, then 8 short ones; each request's time from submit to its first
+    token (synced), with chunking off and at 256 and 16."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    class Timed(ContinuousBatcher):
+        def _finish_admission(self, slot, rid, n, last_logits, t0, t_enq):
+            super()._finish_admission(slot, rid, n, last_logits, t0, t_enq)
+            torch.cuda.synchronize()
+            self.ttft[rid] = (time.perf_counter() - t_enq) * 1e3
+
+    long_ids = eng.tokenizer.encode(" ".join(UTTERANCES * 40), bos=True)[:1000]
+    out = {}
+    try:
+        for C in (None, 256, 16):
+            if C is None:
+                os.environ.pop("PREFILL_CHUNK_TOKENS", None)
+            else:
+                os.environ["PREFILL_CHUNK_TOKENS"] = str(C)
+            b = Timed(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
+            b.ttft = {}
+            with Counted(f"containment ttft chunk {C or 'off'}", totals) as c:
+                torch.cuda.synchronize()
+                long_rid = b.submit(long_ids)
+                short = [b.submit(_batch_prompt(i)) for i in range(1, TTFT_SHORT + 1)]
+                b.run_until_done()
+            ms = sorted(b.ttft[r] for r in short)
+            out[C or "off"] = {"short_p50_ms": _p(ms, 0.5), "short_p95_ms": _p(ms, 0.95),
+                               "long_ms": b.ttft[long_rid], "launches": c.counts}
+            if C is None or C == 16:
+                c.require("flash_attention")  # the long prompt's fresh first block
+            log(f"[containment] TTFT behind a {len(long_ids)}-token prompt, chunk "
+                f"{C or 'off'}: {TTFT_SHORT} short p50 {out[C or 'off']['short_p50_ms']:.2f} / "
+                f"p95 {out[C or 'off']['short_p95_ms']:.2f} ms, the long one "
+                f"{b.ttft[long_rid]:.2f} ms")
+    finally:
+        os.environ.pop("PREFILL_CHUNK_TOKENS", None)
+    return out
+
+
+def _stage_split(eng, label: str, totals: dict, drains: int = 3) -> dict:
+    """``drains`` clean 32-request drains with the step ledger on: every
+    step's stages must tile its wall within 5%. The median per-stage ms of
+    the full-batch steps, apart for the steps that admitted (their prefill
+    carved out of admit) and the decode-only chunks (a stage a step did not
+    have counts 0)."""
+    from tpu_voice_agent_torch.utils.steplog import get_steplog
+
+    log_ = get_steplog()
+    log_.clear()
+    with Counted(f"{label} steplog", totals):
+        for _ in range(drains):
+            _run32(eng)
+    steps = log_.steps()
+    for s in steps:
+        acct = sum(s["stages"].values())
+        fail_if(not 0.95 * s["wall_ms"] <= acct <= 1.05 * s["wall_ms"] + 1e-3,
+                f"{label}: stages {s['stages']} do not tile the step's {s['wall_ms']} ms")
+    live = [s for s in steps if s.get("occupancy")]
+    out = {"steps": len(steps)}
+    for kind, group in (("admitting", [s for s in live if s.get("admitted")]),
+                        ("decode_only", [s for s in live if not s.get("admitted")])):
+        fail_if(not group, f"{label}: no {kind} step in the ledger")
+        med = {k: statistics.median(s["stages"].get(k, 0.0) for s in group)
+               for k in ("admit", "prefill", "decode", "readback", "release", "draft")}
+        wall = statistics.median(s["wall_ms"] for s in group)
+        occ = statistics.median(s["occupancy"] for s in group)
+        out[kind] = {"n": len(group), "median_occupancy": occ, "median_wall_ms": wall,
+                     "median_stage_ms": med}
+        log(f"[{label}] step ledger, {len(group)} {kind} steps (median occupancy {occ}): "
+            f"median wall {wall:.3f} ms = " + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+    return out
+
+
+def _host_costs() -> dict:
+    """What the containment plane costs the host with chaos off: one
+    ``chaos_fire`` (a dict miss and a bool test) and one step ledger entry
+    (its laps, carves and record), each timed over many calls."""
+    from tpu_voice_agent_torch.utils import chaos
+    from tpu_voice_agent_torch.utils.steplog import StepLog
+
+    os.environ.pop("CHAOS_FAULTS", None)
+    chaos.reset()
+    n = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        chaos.chaos_fire("nan_logits")
+    fire_ns = (time.perf_counter() - t0) / n * 1e9
+    log_, m = StepLog(max_steps=256, enabled=True), 5_000
+    t0 = time.perf_counter()
+    for _ in range(m):
+        t = log_.timer()
+        t.lap("admit")
+        t.carve("admit", "prefill", 0.5)
+        t.lap("decode")
+        t.lap("readback")
+        t.lap("release")
+        t.carve("decode", "draft", 0.0)
+        t.finish(occupancy=BATCH_SLOTS, tokens=100, admitted=None, forwards=16, accepted=None)
+    step_us = (time.perf_counter() - t0) / m * 1e6
+    log(f"[containment] host cost with chaos off: chaos_fire {fire_ns:.1f} ns a call; one "
+        f"step ledger entry {step_us:.2f} us")
+    return {"chaos_fire_ns": fire_ns, "steplog_entry_us": step_us}
+
+
+def _containment_service(eng, totals: dict) -> dict:
+    """The brain over HTTP on the bf16 engine behind a BatchedEngineParser:
+    ``/debug/steplog`` and ``/debug/flightrecorder`` answer 200; with
+    ``max_inflight`` 2, 4 concurrent parses see 503 + Retry-After counted in
+    ``resilience.brain.shed_overload``; a client that closes its socket
+    mid-parse has its decode cancelled (``scheduler.cancelled``)."""
+    import socket
+
+    from tpu_voice_agent_torch.services import brain
+    from tpu_voice_agent_torch.utils.tracing import get_metrics
+
+    def counter(name):
+        return get_metrics().snapshot()["counters"].get(name, 0.0)
+
+    parser = brain.BatchedEngineParser(eng, chunk_steps=16)
+    app = brain.BrainApp(parser, max_inflight=2)
+    srv, th, url = _serve_brain(app)
+    out = {}
+    try:
+        with Counted("containment service", totals) as c:
+            shed0 = counter("resilience.brain.shed_overload")
+            got = []
+
+            def post(i):
+                hdr = {}
+                got.append((*_post(url, {"text": UTTERANCES[i], "context": {}}, hdr),
+                            hdr.get("Retry-After")))
+
+            ths = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(600)
+            shed = [g for g in got if g[0] == 503]
+            fail_if(not shed or any(g[1].get("detail") != "overload" or g[2] != "1"
+                                    for g in shed),
+                    f"containment: 4 parses at max_inflight 2 answered {[g[0] for g in got]}")
+            fail_if(counter("resilience.brain.shed_overload") - shed0 != len(shed),
+                    "containment: resilience.brain.shed_overload did not count the sheds")
+            for path in ("/debug/steplog?last=4", "/debug/flightrecorder"):
+                with urllib.request.urlopen(url + path, timeout=30) as r:
+                    body = json.loads(r.read())
+                fail_if(r.status != 200 or body.get("service") != "brain",
+                        f"containment: {path} answered {r.status}")
+                out[path.split("?")[0]] = sorted(body)
+            fail_if(not body.get("armed") and not body.get("frozen"),
+                    "containment: /debug/flightrecorder has no state")
+            cancelled0 = counter("scheduler.cancelled")
+            data = json.dumps({"text": UTTERANCES[0], "context": {}}).encode()
+            sock = socket.create_connection(("127.0.0.1", srv.server_address[1]))
+            sock.sendall(b"POST /parse HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n"
+                         b"Content-Length: " + str(len(data)).encode() + b"\r\n\r\n" + data)
+            end = time.monotonic() + 60
+            while not any(s.request_id >= 0 for s in parser.batcher.slots):
+                fail_if(time.monotonic() > end, "containment: the raw parse never admitted")
+                time.sleep(0.001)
+            sock.close()
+            end = time.monotonic() + 60
+            while counter("scheduler.cancelled") < cancelled0 + 1:
+                fail_if(time.monotonic() > end,
+                        "containment: a closed client socket did not cancel its decode")
+                time.sleep(0.01)
+        c.require("paged_block_attention", "masked_argmax_advance")
+        out.update(statuses=sorted(g[0] for g in got), sheds=len(shed), disconnect="cancelled")
+        log(f"[containment] service: 4 parses at max_inflight 2 -> {out['statuses']} "
+            f"(Retry-After 1), /debug/steplog and /debug/flightrecorder 200, a closed socket "
+            "cancelled its decode")
+    finally:
+        _stop(srv, th)
+        parser.close()
+        app.close()
+    return out
+
+
+def phase_containment(params, totals: dict, report: dict) -> None:
+    """Fault containment and incident capture on tinyllama-1.1b int8, paged
+    and batched, 32 slots: the drills on the bf16 pool (K7), the int8 pool
+    (K9) and the spec engine (K7, K11); K4 on NaN and dead rows; deadlines
+    and mid-decode cancel; chunked prefill at 16 and 256 against the barrier
+    admission; TTFT behind a long prompt; the step ledger's split of the
+    ff 8 and ff 0 chunks; the brain's admission cap, debug routes and
+    disconnect cancel over HTTP."""
+    from tpu_voice_agent_torch.serve.spec import SpecConfig
+
+    out = {}
+    eng = _KEPT.pop("ff8", None) or _paged_engine(params, 8, radix_enable=False)
+    eng0 = _KEPT.pop("ff0", None) or _paged_engine(params, 0, radix_enable=False)
+    out["host_costs"] = _host_costs()
+    out["k4_poison_rows"] = _k4_poison_rows(eng)
+    out["bf16"], clean = _drill(eng, "containment bf16", totals,
+                                ("paged_block_attention", "masked_argmax_advance"))
+    out["deadlines"] = _deadline_and_cancel(eng, clean, totals)
+    out["chunked_bf16"] = _chunked(eng, clean, "containment bf16", totals)
+    out["chunked_fp32"] = _chunked_fp32(params, totals)
+    out["ttft"] = _ttft_behind_long(eng, totals)
+    out["steps_ff8"] = _stage_split(eng, "containment ff=8", totals)
+    out["steps_ff0"] = _stage_split(eng0, "containment ff=0", totals)
+    out["service"] = _containment_service(eng, totals)
+    del eng, eng0
+    eng8 = _paged_engine(params, 8, radix_enable=False, kv_quant="int8")
+    out["int8"], clean8 = _drill(eng8, "containment int8", totals,
+                                 ("paged_block_attention_quant", "masked_argmax_advance"))
+    out["chunked_int8"] = _chunked(eng8, clean8, "containment int8", totals, chunks=(16,))
+    del eng8
+    engs = _paged_engine(params, 0, radix_enable=False, spec=SpecConfig(k=SPEC_K))
+    out["spec"], _ = _drill(engs, "containment spec", totals,
+                            ("paged_block_attention", "masked_argmax"))
+    del engs
+    report["containment"] = out
 
 
 def _stt_lanes(eng) -> dict:
@@ -4349,7 +4817,7 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,digest,kernels,service,parse,batch,"
                          "batch_dense,radix,"
-                         "kvquant,spec,quality,service_batched,golden,batch_golden,"
+                         "kvquant,spec,quality,containment,service_batched,golden,batch_golden,"
                          "kvquant_golden,spec_golden,stt,stt_golden,voice,voice_service,moe "
                          "(default all)")
     ap.add_argument("--profile", action="store_true",
@@ -4362,7 +4830,8 @@ def main() -> int:
                          "each MoE dispatch when the moe phase runs")
     args = ap.parse_args()
     phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
-               "radix", "kvquant", "spec", "quality", "service_batched", "golden", "batch_golden",
+               "radix", "kvquant", "spec", "quality", "containment", "service_batched", "golden",
+               "batch_golden",
                "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
                "moe"]
               if args.phases == "all" else args.phases.split(","))
@@ -4411,7 +4880,7 @@ def main() -> int:
     for name, fn in (("parse", phase_parse), ("batch", phase_batch),
                      ("batch_dense", phase_batch_dense), ("radix", phase_radix),
                      ("kvquant", phase_kvquant), ("spec", phase_spec),
-                     ("quality", phase_quality)):
+                     ("quality", phase_quality), ("containment", phase_containment)):
         if name in phases:
             fail_if(eng is None, f"the {name} phase reuses the service's weights")
             kw = {"profile": args.profile} if name in ("batch", "kvquant", "spec") else {}
@@ -4419,6 +4888,7 @@ def main() -> int:
     if args.profile and eng is not None:  # the parse profile reuses the service's weights
         phase_profile(eng.params, report)
     del eng
+    _KEPT.clear()
     if "service_batched" in phases:
         timed("service_batched", phase_service_batched, totals, report)
     if "golden" in phases:

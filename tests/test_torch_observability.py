@@ -17,14 +17,19 @@ package's, on the CPU.
   ``scan_source``): no collision, every port name a JAX name of the same
   kind, every JAX name ported or listed in ``NOT_PORTED_METRICS`` with the
   Queue 1 item that brings it.
-- The refusals: other ``distilled:`` directories, ``planner-distilled``,
-  ``QUALITY_CANARY_S``.
+- The refusals: other ``distilled:`` directories, ``planner-distilled``.
+- The golden-replay canary (``QUALITY_CANARY_S``): rounds on the served
+  brain's thread, and ``GoldenCanary.run_once`` against JAX's.
+- The flight recorder against JAX's: buffering, freeze and re-arm, the
+  freezes on a breaker trip and on SLO and quality violations, the sink,
+  bounded rings under concurrent writers.
 """
 
 import asyncio
 import json
 import sys
 import threading
+import time
 from pathlib import Path
 
 import httpx
@@ -39,6 +44,7 @@ from tpu_voice_agent.utils import resilience as jres
 from tpu_voice_agent.utils import slo as jslo
 from tpu_voice_agent.utils import tracing as jt
 from tpu_voice_agent_torch import distilled
+from tpu_voice_agent_torch.evals.golden import GOLDEN_INTENT_CASES, score_case
 from tpu_voice_agent_torch.services import brain, resilience, slo, ws
 from tpu_voice_agent_torch.utils import quality as tq
 from tpu_voice_agent_torch.utils import tracing as tt
@@ -52,15 +58,9 @@ import metrics_lint  # noqa: E402
 # ROADMAP.md Queue 1 item that brings them. This map is the observability
 # work still to do.
 NOT_PORTED_METRICS = {
-    "flight.": 3,  # the flight recorder
-    "quality.golden": 3,  # the golden-replay canary
     "quality.exec_success_rate": 9,  # record_exec, fed by the executor service
-    "brain.parses_cancelled": 4, "chaos.": 4, "colocate.": 4, "engine.restarts": 4,
-    "engine.step.": 4, "prefill.chunk": 4, "resilience.*.inflight": 4,
-    "resilience.*.max_inflight": 4, "resilience.*.shed_overload": 4,
-    "resilience.cancel_callback_errors": 4, "scheduler.cancelled": 4,
-    "scheduler.quarantine_rejected": 4, "scheduler.shed_expired": 4, "tenant.": 4,
-    "voice.frames_dropped_chaos": 4,
+    "colocate.": 4, "tenant.": 4,
+    "engine.restarts": 6,  # the stalled-step watchdog's warm restarts
     "stt.batch_": 5, "stt.finals_batched": 5, "stt.item_faults": 5,
     "stt.partials_coalesced": 5, "stt.queue_depth": 5, "stt.shed_overload": 5,
     "stt.replica": 5,
@@ -117,7 +117,8 @@ def test_every_jax_brain_route_is_served_or_501(method, path):
         assert body["error"] == "not_ported"
         assert body["detail"].startswith("ROADMAP.md Queue 1 item "), body
     else:
-        assert path in ("/health", "/parse", "/metrics", "/debug/quality") \
+        assert path in ("/health", "/parse", "/metrics", "/debug/quality", "/debug/steplog",
+                        "/debug/flightrecorder") \
             or path.startswith("/debug/trace/"), (path, status)
 
 
@@ -250,13 +251,56 @@ def test_distilled_dir_named_like_the_checkpoint_boots(monkeypatch, caplog):
 
 
 def test_canary_refused_in_the_brain(monkeypatch):
-    monkeypatch.setenv("QUALITY_CANARY_S", "0.5")
-    with pytest.raises(ValueError, match="QUALITY_CANARY_S.*item 3"):
-        brain.make_parser_from_env()
-    with pytest.raises(ValueError, match="item 3"):
-        brain.BrainApp(brain.RuleBasedParser())
-    monkeypatch.setenv("QUALITY_CANARY_S", "0")
-    brain.BrainApp(brain.RuleBasedParser())
+    """Once refused: ``QUALITY_CANARY_S=0.5`` boots the brain with its
+    golden-replay canary on, and the served brain runs rounds on its own
+    thread, each scoring ``QUALITY_CANARY_SLICE`` cases into the golden
+    window (the rule parser scores every case)."""
+    monkeypatch.setenv("QUALITY_CANARY_S", "0.05")
+    monkeypatch.setenv("QUALITY_CANARY_SLICE", "2")
+    for k in ("BRAIN_BACKEND", "CHAOS_FAULTS"):
+        monkeypatch.delenv(k, raising=False)
+    app = brain.BrainApp(brain.make_parser_from_env(), tracer=tt.Tracer("brain", emit=False))
+    assert app.canary.enabled and (app.canary.interval_s, app.canary.slice_n) == (0.05, 2)
+    srv = brain.make_server(app, port=0)  # starts the canary
+    try:
+        deadline = time.monotonic() + 30
+        while app.canary.rounds < 2 and time.monotonic() < deadline:
+            time.sleep(0.02)
+    finally:
+        srv.server_close()
+        app.close()
+    assert app.canary.rounds >= 2
+    q = app.qmon.state()
+    assert q["counts"]["quality.canary_runs"] == app.canary.rounds
+    n = 2 * app.canary.rounds
+    assert q["windows"]["golden"]["n"] == n
+    rule = brain.RuleBasedParser()
+    scores = [score_case(c, rule.parse(c.text, dict(c.context)))
+              for c in (GOLDEN_INTENT_CASES * 2)[:n]]
+    assert q["windows"]["golden"]["mean"] == round(
+        sum((0.5 if t else 0.0) + 0.5 * a for t, a in scores) / n, 4)
+
+
+def test_golden_canary_rounds_equal_jax_on_the_rule_parser():
+    """``GoldenCanary.run_once`` against JAX's on the rule parser: the same
+    rotating slice, the same scores and window means, the same counts; a
+    busy replica's round is skipped by both."""
+    jmon = jq.QualityMonitor("brain", metrics=jt.Metrics(), window=16)
+    tmon = tq.QualityMonitor("brain", metrics=tt.Metrics(), window=16)
+    busy = {"on": False}
+    jp, tp = jbrain.RuleBasedParser(), brain.RuleBasedParser()
+    jc = jq.GoldenCanary(lambda t, c: jp.parse(t, c), jmon, interval_s=1.0, slice_n=4,
+                         busy_fn=lambda: busy["on"])
+    tc = tq.GoldenCanary(lambda t, c: tp.parse(t, c), tmon, interval_s=1.0, slice_n=4,
+                         busy_fn=lambda: busy["on"])
+    for i in range(5):
+        busy["on"] = i == 2
+        assert tc.run_once() == jc.run_once() == (0 if busy["on"] else 4)
+        assert tmon.state()["windows"] == jmon.state()["windows"]
+    assert (tc.rounds, tc._idx) == (jc.rounds, jc._idx) == (4, 16)
+    assert tmon.state()["counts"] == jmon.state()["counts"]
+    assert tmon.health() == jmon.health()
+    assert tmon.metrics.snapshot() == jmon.metrics.snapshot()
 
 
 # ---------------------------------------------------------------- registry
@@ -453,5 +497,235 @@ def test_every_jax_metric_is_ported_or_listed_with_its_item(catalogs):
     for name in ("engine.requests", "paged.kv_bytes_per_block", "radix.hit_rate",
                  "scheduler.ttft", "spec.trace_records", "stt.confidence_mean",
                  "stt.feed_lag_s", "voice.live_sessions", "slo.*.p50_ms",
-                 "resilience.*.breaker_state", "quality.intent_margin", "*.shed_*"):
+                 "resilience.*.breaker_state", "quality.intent_margin", "*.shed_*",
+                 # the containment slice
+                 "chaos.*", "flight.freezes", "engine.step.*", "engine.step.wall",
+                 "prefill.chunks", "scheduler.cancelled", "scheduler.shed_expired",
+                 "scheduler.quarantine_rejected", "resilience.*.inflight",
+                 "resilience.*.shed_overload", "brain.parses_cancelled",
+                 "quality.golden_accuracy", "quality.intent_downgrades",
+                 "voice.frames_dropped_chaos"):
         assert name in port_reg, name
+
+
+# ---------------------------------------------------------------- flight recorder
+
+
+def _flight_dump_shape(d):
+    """The dump without its timestamps and gauge values (those differ run
+    to run and registry to registry)."""
+    return {"reason": d["reason"], "detail": d["detail"], "frozen": d["frozen"],
+            "traces": d["traces"], "config": d["config"],
+            "n_snapshots": len(d["metric_snapshots"]), "keys": sorted(d)}
+
+
+def test_flight_recorder_buffers_freezes_and_rearms_as_jax():
+    recs = [mod.FlightRecorder(max_traces=4, max_snapshots=8, snapshot_interval_s=999)
+            for mod in (jt, tt)]
+    for rec in recs:
+        for i in range(10):  # 10 traces through a 4-trace ring
+            rec.observe_span({"svc": "t", "span": "s", "trace": f"tr{i}", "ms": 1.0,
+                              "wall_start_s": float(i), "wall_end_s": float(i) + 0.1})
+    jrec, trec = recs
+    assert trec.state("svc") == jrec.state("svc") == {
+        "frozen": False, "armed": True, "traces_buffered": 4, "snapshots_buffered": 1,
+        "service": "svc"}
+    assert trec.trigger("slo.test.violated", detail="p50 blown") is True
+    assert jrec.trigger("slo.test.violated", detail="p50 blown") is True
+    td, jd = trec.frozen_dump(), jrec.frozen_dump()
+    assert _flight_dump_shape(td) == _flight_dump_shape(jd)
+    assert [t["trace_id"] for t in td["traces"]] == ["tr6", "tr7", "tr8", "tr9"]
+    # JAX's dump carries its cost meter's summary; the port has none
+    assert td["costs"] is None and set(td["steplog"]) == set(jd["steplog"])
+    # the first freeze wins; the dump is immutable under later spans and triggers
+    assert trec.trigger("breaker.x.open") is False
+    trec.observe_span({"svc": "t", "span": "s", "trace": "later", "ms": 1.0})
+    assert trec.frozen_dump()["reason"] == "slo.test.violated"
+    assert len(trec.frozen_dump()["traces"]) == 4
+    trec.rearm()
+    assert trec.state()["frozen"] is False
+    assert trec.trigger("second.incident") is True
+
+
+def test_flight_freeze_carries_the_step_ring():
+    from tpu_voice_agent_torch.utils.steplog import get_steplog
+
+    log = get_steplog()
+    log.clear()
+    log.timer().finish(occupancy=1, tokens=3)
+    rec = tt.FlightRecorder(max_traces=4)
+    assert rec.trigger("test.freeze", detail="steplog ride-along")
+    steps = rec.frozen_dump()["steplog"]["steps"]
+    assert steps and steps[-1]["tokens"] == 3
+    log.clear()
+
+
+def test_breaker_trip_and_slo_edges_freeze_the_global_recorder():
+    """A breaker opening, an SLO's ok -> violated edge and a quality
+    tracker's freeze the process-global recorder under JAX's reasons; a
+    passive tracker scores without freezing or exporting."""
+    rec = tt.get_flight_recorder()
+    clock = {"t": 0.0}
+    try:
+        rec.rearm()
+        resilience.CircuitBreaker("flighttestdep", failure_threshold=1,
+                                  reset_after_s=60.0).record_failure()
+        assert rec.frozen_dump()["reason"] == "breaker.flighttestdep.open"
+        rec.rearm()
+        s = slo.SLOTracker("flightslo", window_s=60.0, target_p50_ms=1.0, min_samples=2,
+                           clock=lambda: clock["t"])
+        for _ in range(5):
+            s.record(100.0)
+        assert s.state() == "violated"
+        dump = rec.frozen_dump()
+        assert dump["reason"] == "slo.flightslo.violated" and "p50_ms" in dump["detail"]
+        rec.rearm()
+        s.evaluate()  # still violated: no new edge, no new freeze
+        assert rec.frozen_dump() is None
+        q = slo.QualityTracker("qflight", floors={"golden_accuracy": 0.7}, min_samples=2,
+                               metrics=tt.Metrics())
+        for _ in range(3):
+            q.record("golden_accuracy", 0.25, {"text": "x"})
+        assert q.evaluate()["state"] == "violated"
+        dump = rec.frozen_dump()
+        assert dump["reason"] == "slo.qflight.violated"
+        assert dump["extra"]["quality"]["golden_accuracy"]["recent"][0]["text"] == "x"
+        rec.rearm()
+        p = slo.SLOTracker("passiveprobe", window_s=60.0, target_p50_ms=1.0, min_samples=2,
+                           passive=True)
+        for _ in range(5):
+            p.record(100.0)
+        assert p.state() == "violated" and rec.frozen_dump() is None
+        assert "slo.passiveprobe.state" not in tt.get_metrics().gauges()
+    finally:
+        rec.rearm()
+
+
+def test_flight_sink_writes_the_dump_on_the_triggering_thread(tmp_path, monkeypatch):
+    monkeypatch.setenv("FLIGHT_SINK", str(tmp_path / "fl"))
+    rec = tt.FlightRecorder(max_traces=4, snapshot_interval_s=999)
+    rec.observe_span({"svc": "t", "span": "s", "trace": "tr", "ms": 1.0})
+    t = threading.Thread(target=rec.trigger, args=("slo.sink.violated",))
+    t.start()
+    t.join()
+    files = list(tmp_path.glob("fl_slo.sink.violated_*.json"))
+    assert len(files) == 1
+    body = json.loads(files[0].read_text())
+    assert body["frozen"] and body["traces"][0]["trace_id"] == "tr"
+    monkeypatch.setenv("FLIGHT_SINK", str(tmp_path / "missing" / "fl"))
+    before = tt.get_metrics().snapshot()["counters"].get("flight.sink_write_errors", 0.0)
+    assert tt.FlightRecorder().trigger("x")  # a failed write never fails the freeze
+    assert tt.get_metrics().snapshot()["counters"]["flight.sink_write_errors"] == before + 1
+
+
+def test_trace_and_flight_rings_bounded_under_concurrent_writers():
+    """Threads finish spans of mostly unique trace ids through one tracer
+    while another triggers and re-arms: both rings stay at their bounds and
+    every span reached the recorder's ring or aged out of it."""
+    rec = tt.FlightRecorder(max_traces=16, max_snapshots=8, snapshot_interval_s=0.0)
+    tracer = tt.Tracer("hammer", emit=False)
+    errors = []
+
+    def writer(w):
+        try:
+            for i in range(200):
+                d = {"svc": "h", "span": "s", "trace": f"w{w}-{i % 50}", "ms": 1.0}
+                rec.observe_span(d)
+                with tracer.span("s", trace_id=f"w{w}-{i}"):
+                    pass
+        except Exception as e:  # pragma: no cover
+            errors.append(e)
+
+    def freezer():
+        for _ in range(50):
+            rec.trigger("hammer")
+            rec.rearm()
+
+    threads = [threading.Thread(target=writer, args=(w,)) for w in range(6)]
+    threads.append(threading.Thread(target=freezer))
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+        assert not th.is_alive()
+    assert not errors
+    st = rec.state()
+    assert st["traces_buffered"] == 16 and st["snapshots_buffered"] <= 8
+    assert len(tracer._ring) <= tt.Tracer.MAX_TRACES
+
+
+def test_flightrecorder_and_steplog_routes_answer_as_jax():
+    """``/debug/flightrecorder`` (armed, frozen, ``?rearm=1``) and
+    ``/debug/steplog?last=K`` on the port's brain, with the JAX brain's body
+    keys."""
+    from tpu_voice_agent.utils.steplog import get_steplog as jax_steplog
+    from tpu_voice_agent_torch.utils.steplog import get_steplog
+
+    def get(app, path, query=""):
+        return app.handle(ws.Request("GET", path, query, ws.Headers(), b""))
+
+    for log in (get_steplog(), jax_steplog()):
+        log.clear()
+        for i in range(5):
+            log.timer().finish(occupancy=i, tokens=i)
+    app = brain.BrainApp(brain.RuleBasedParser())
+    rec = tt.get_flight_recorder()
+    rec.rearm()
+    with AppServer(jbrain.build_app(jbrain.RuleBasedParser())) as srv:
+        jt.get_flight_recorder().rearm()
+        jarmed = httpx.get(srv.url + "/debug/flightrecorder", timeout=5).json()
+        jsteps = httpx.get(srv.url + "/debug/steplog?last=2", timeout=5).json()
+        jt.get_flight_recorder().trigger("test.route")
+        jfrozen = httpx.get(srv.url + "/debug/flightrecorder?rearm=1", timeout=5).json()
+    status, armed, _ = get(app, "/debug/flightrecorder")
+    assert status == 200 and set(armed) == set(jarmed) and armed["service"] == "brain"
+    status, steps, _ = get(app, "/debug/steplog", "last=2")
+    assert status == 200 and set(steps) == set(jsteps)
+    assert (len(steps["steps"]), steps["recorded"], steps["steps"][-1]["occupancy"]) == (2, 5, 4)
+    rec.trigger("test.route")
+    _, frozen, _ = get(app, "/debug/flightrecorder", "rearm=1")
+    assert frozen["reason"] == "test.route" and frozen["rearmed"] is True
+    assert set(frozen) == set(jfrozen)
+    assert rec.frozen_dump() is None
+    get_steplog().clear()
+    jax_steplog().clear()
+
+
+def test_steplog_units_match_jax():
+    """StepTimer tiling, ``carve`` clamping, ring bounds and sequence
+    numbers, and a disabled log, against JAX's ``utils.steplog``."""
+    from tpu_voice_agent.utils import steplog as js
+    from tpu_voice_agent_torch.utils import steplog as ts
+
+    assert ts.STAGES == js.STAGES
+    log = ts.StepLog(max_steps=8, enabled=True)
+    t = log.timer()
+    time.sleep(0.002)
+    t.lap("admit")
+    time.sleep(0.003)
+    t.lap("decode")
+    t.lap("readback")
+    t.lap("release")
+    rec = t.finish(occupancy=2, tokens=5, admitted=None)
+    assert rec["occupancy"] == 2 and "admitted" not in rec and rec["events"] == []
+    slack = 5e-4 * (len(rec["stages"]) + 1)
+    assert 0.95 * rec["wall_ms"] <= sum(rec["stages"].values()) <= rec["wall_ms"] + slack
+    for mod in (js, ts):
+        c = mod.StepLog(max_steps=8, enabled=True).timer()
+        c.lap("admit")
+        c.stages["admit"] = 10.0
+        c.carve("admit", "prefill", 4.0)
+        c.carve("admit", "prefill", 100.0)  # clamped: tiling kept
+        c.carve("decode", "draft", 0.0)  # nothing to carve
+        assert c.stages == {"admit": 0.0, "prefill": 10.0}
+    for mod in (js, ts):
+        ring = mod.StepLog(max_steps=4, enabled=True)
+        for _ in range(10):
+            ring.timer().finish()
+        d = ring.dump()
+        assert (len(d["steps"]), d["recorded"], [s["seq"] for s in d["steps"]]) == (
+            4, 10, [6, 7, 8, 9])
+        assert ring.last()["seq"] == 9 and len(ring.steps(last=2)) == 2
+        off = mod.StepLog(max_steps=4, enabled=False)
+        off.timer().finish()
+        assert off.dump()["steps"] == [] and off.last() is None

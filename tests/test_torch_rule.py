@@ -25,6 +25,7 @@ from tpu_voice_agent.services.brain import build_app
 from tpu_voice_agent_torch.serve.engine import DecodeEngine
 from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
 from tpu_voice_agent_torch.services import brain
+from tpu_voice_agent_torch.utils.steplog import get_steplog
 
 # every branch of the parser, in its order, and the ones that fall through
 UTTERANCES = [
@@ -125,8 +126,10 @@ def test_unset_backend_boots_the_rule_parser(monkeypatch, caplog):
     assert warned == [f"{k} is not supported by the rule backend; ignoring"
                       for k in ("BRAIN_PAGED", "BRAIN_QUANT", "BRAIN_MOE")]
     app = brain.BrainApp(parser)
+    get_steplog().clear()  # no step recorded: no last_step
     assert app.health() == (200, {"ok": True, "service": "brain", "slo": "ok",
-                                  "quality": {"slo": "ok"}}, {})
+                                  "quality": {"slo": "ok"}, "inflight": 0,
+                                  "max_inflight": 32}, {})
     status, body, _ = app.parse(b'{"text": "take a screenshot"}')
     assert status == 200 and body["intents"][0]["type"] == "screenshot"
     # distilled is served since the trained brain boots from the environment;

@@ -133,11 +133,11 @@ def test_cancel_drops_a_queued_request_and_its_bookkeeping(weights, monkeypatch)
     r1, r2 = b.submit(PROMPTS[0]), b.submit(PROMPTS[1])
     b.step()  # r1 decodes; r2 waits for blocks at the head of the queue
     assert b.slots[0].request_id == r1 and r2 in b._pool_wait and r2 in b._requeues
-    assert not b.cancel(r1)  # in a slot: it decodes on
     assert b.cancel(r2) and not b.cancel(r2)
     assert not b.pending and not (b._enqueued_at or b._pool_wait or b._requeues)
+    assert b.results[r2].error == "cancelled: client gone"
     b.run_until_done()
-    assert set(b.results) == {r1} and b.results[r1].error is None
+    assert set(b.results) == {r1, r2} and b.results[r1].error is None
     assert eng.allocator.blocks_in_use == 0
 
 

@@ -153,15 +153,18 @@ def test_env_factory_reads_the_jax_service_names(monkeypatch):
 
 
 UNSERVED = ("BRAIN_MODEL", "RADIX_SESSIONS", "RADIX_MAX_NODES", "RADIX_PRESSURE_S",
-            "PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "TENANT_PREEMPT", "BRAIN_MAX_INFLIGHT",
-            "TENANT_CLASSES", "CHAOS_FAULTS", "ENGINE_STALL_S")
+            "TENANT_PREEMPT", "TENANT_CLASSES", "ENGINE_STALL_S")
+# served since the containment slice
+SERVED_CONTAINMENT = ("PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "BRAIN_MAX_INFLIGHT",
+                      "CHAOS_FAULTS", "CHAOS_SEED")
 
 
 def _tiny_env(monkeypatch):
     monkeypatch.setenv("BRAIN_BACKEND", "engine:test-tiny")
     monkeypatch.setenv("BRAIN_DEVICE", "cpu")
     monkeypatch.setenv("BRAIN_PREFIX", "0")
-    for name in UNSERVED + ("BRAIN_MOE", "BRAIN_QUANT", "BRAIN_BATCH", "BRAIN_PAGED"):
+    for name in UNSERVED + SERVED_CONTAINMENT + ("BRAIN_MOE", "BRAIN_QUANT", "BRAIN_BATCH",
+                                                 "BRAIN_PAGED"):
         monkeypatch.delenv(name, raising=False)
 
 
@@ -169,9 +172,8 @@ def _tiny_env(monkeypatch):
     ("BRAIN_MODEL", "/models/intent-8b"),
     ("RADIX_SESSIONS", "512"), ("RADIX_SESSIONS", "lots"),
     ("RADIX_MAX_NODES", "1024"), ("RADIX_PRESSURE_S", "0.5"),
-    ("PREFILL_CHUNK_TOKENS", "256"), ("QUARANTINE_AFTER", "2"),
-    ("TENANT_PREEMPT", "0"), ("BRAIN_MAX_INFLIGHT", "32"),
-    ("TENANT_CLASSES", "gold:4:0.5,free:1:0.1"), ("CHAOS_FAULTS", "nan_inject:0.5"),
+    ("TENANT_PREEMPT", "0"),
+    ("TENANT_CLASSES", "gold:4:0.5,free:1:0.1"), ("CHAOS_FAULTS", "stall_step:1"),
     ("ENGINE_STALL_S", "30"),
 ])
 def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
@@ -185,6 +187,44 @@ def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
     with pytest.raises(ValueError, match=name) as e:
         brain.make_parser_from_env()
     assert "ROADMAP.md Queue 1 item" in str(e.value) and not built
+
+
+def test_env_factory_refuses_an_unknown_chaos_point_with_the_jax_message(monkeypatch):
+    """``nan_inject`` names no chaos point: both packages' ``Chaos`` refuse
+    the spec with the same message, and the port does so at boot."""
+    from tpu_voice_agent.utils import chaos as jchaos
+
+    _tiny_env(monkeypatch)
+    monkeypatch.setenv("CHAOS_FAULTS", "nan_inject:0.5")
+    built = []
+    monkeypatch.setattr(DecodeEngine, "__init__", lambda *a, **k: built.append(1))
+    with pytest.raises(ValueError) as jax_err:
+        jchaos.Chaos("nan_inject:0.5")
+    with pytest.raises(ValueError, match="unknown chaos point 'nan_inject'") as e:
+        brain.make_parser_from_env()
+    assert str(e.value) == str(jax_err.value) and not built
+
+
+@pytest.mark.parametrize("name,value", [
+    ("PREFILL_CHUNK_TOKENS", "256"), ("QUARANTINE_AFTER", "2"), ("BRAIN_MAX_INFLIGHT", "32"),
+])
+def test_env_factory_serves_the_containment_knobs(monkeypatch, name, value):
+    """The knobs once refused boot on a batched paged engine, and each
+    reaches what reads it: the batcher (chunk size, quarantine threshold)
+    or the app's admission controller (the in-flight cap)."""
+    _tiny_env(monkeypatch)
+    monkeypatch.setenv("BRAIN_BATCH", "2")
+    monkeypatch.setenv("BRAIN_PAGED", "1")
+    monkeypatch.setenv(name, value)
+    parser = brain.make_parser_from_env()
+    try:
+        b = parser.batcher
+        reached = {"PREFILL_CHUNK_TOKENS": lambda: b._prefill_chunk,
+                   "QUARANTINE_AFTER": lambda: b.quarantine_after,
+                   "BRAIN_MAX_INFLIGHT": lambda: brain.BrainApp(parser).admission.max_inflight}
+        assert reached[name]() == int(value)
+    finally:
+        parser.close()
 
 
 @pytest.mark.parametrize("name,value", [
@@ -248,7 +288,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'serve.engine', 'serve.paged', 'serve.radix', 'serve.scheduler',\n"
         "          'serve.spec', 'models.moe', 'ops.grouped_matmul', 'services.voice',\n"
         "          'services.ws', 'services.slo', 'services.resilience', 'utils',\n"
-        "          'utils.tracing', 'utils.quality', 'evals.wer', 'distilled'):\n"
+        "          'utils.tracing', 'utils.quality', 'utils.chaos', 'utils.steplog',\n"
+        "          'evals.wer', 'evals.golden', 'distilled'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent', 'aiohttp',\n"

@@ -950,17 +950,71 @@ def test_quality_enable_boots_whisper_whose_finals_carry_confidence(monkeypatch)
 
 
 def test_chaos_faults_refused_at_boot(monkeypatch):
-    monkeypatch.setenv("CHAOS_FAULTS", "drop_frame:0.5")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 4"):
+    """A chaos point the port does not serve yet is refused at boot, naming
+    its item; ``drop_frame`` (once refused with the whole plane) is served:
+    armed at its 2nd event, the 2nd binary frame never reaches the STT and
+    ``voice.frames_dropped_chaos`` counts it, while the session lives on."""
+    from tpu_voice_agent_torch.utils import chaos as tchaos
+    from tpu_voice_agent_torch.utils.tracing import get_metrics
+
+    monkeypatch.setenv("CHAOS_FAULTS", "stt_replica_kill:1")
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5"):
         voice.build_app(voice.VoiceConfig(stt_factory=lambda: NullSTT()))
+    monkeypatch.setenv("CHAOS_FAULTS", "drop_frame@2")
+    tchaos.reset()
+    fed = []
+
+    class CountingSTT(NullSTT):
+        def feed(self, samples):
+            fed.append(len(samples))
+            return super().feed(samples)
+
+    def dropped():
+        return get_metrics().snapshot()["counters"].get("voice.frames_dropped_chaos", 0.0)
+
+    async def run(url):
+        c = await ws.connect(url.replace("http", "ws") + "/stream")
+        await c.receive(timeout=5)  # the null-mode warn
+        for _ in range(3):
+            await c.send_bytes(np.zeros(160, np.int16).tobytes())
+        await c.send_json({"type": "reset"})
+        reply = (await c.receive(timeout=5)).json()
+        await c.close()
+        return reply
+
+    before = dropped()
+    try:
+        app = voice.build_app(voice.VoiceConfig(brain_url="http://127.0.0.1:9",
+                                                stt_factory=CountingSTT))
+        with ws.ServerThread(app) as srv:
+            reply = asyncio.run(run(srv.url))
+    finally:
+        tchaos.reset()
+    assert reply["type"] != "error"
+    assert dropped() == before + 1
+    assert fed == [160, 160]  # frames 1 and 3
 
 
-def test_canary_refused_at_boot(monkeypatch):
+def test_canary_refused_at_boot(monkeypatch, executor):
+    """Once refused: ``QUALITY_CANARY_S`` is the brain's knob, and the voice
+    service boots with it set and ignores it, as JAX's does; its /health
+    then has the JAX service's keys under the same environment."""
     monkeypatch.setenv("QUALITY_CANARY_S", "0.5")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 3"):
-        voice.build_app(voice.VoiceConfig(stt_factory=lambda: NullSTT()))
-    monkeypatch.setenv("QUALITY_CANARY_S", "0")  # the JAX default: off
-    voice.build_app(voice.VoiceConfig(stt_factory=lambda: NullSTT()))
+    no_brain = f"http://127.0.0.1:{free_port()}"
+    jax = AppServer(build_jax_voice(JaxVoiceConfig(
+        brain_url=no_brain, executor_url=executor.url,
+        stt_factory=lambda: JaxNullSTT()))).__enter__()
+    port = ws.ServerThread(voice.build_app(voice.VoiceConfig(
+        brain_url=no_brain, executor_url=executor.url,
+        stt_factory=lambda: NullSTT()))).__enter__()
+    try:
+        jh = httpx.get(jax.url + "/health", timeout=5).json()
+        ph = httpx.get(port.url + "/health", timeout=5).json()
+    finally:
+        port.__exit__(None, None, None)
+        jax.__exit__(None, None, None)
+    assert set(ph) == set(jh) - {"brain"} - {"stt_replicas"}
+    assert set(ph["quality"]) == set(jh["quality"])
 
 
 def test_unknown_stt_spec_and_preset_raise(monkeypatch):
@@ -985,8 +1039,7 @@ def test_whisper_stt_needs_a_card_or_voice_device_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("path,item", [
-    ("/debug/flightrecorder", 3), ("/debug/costs", 7), ("/debug/timeseries", 7), ("/", 9),
-    ("/static/app.js", 9),
+    ("/debug/costs", 7), ("/debug/timeseries", 7), ("/", 9), ("/static/app.js", 9),
 ])
 def test_unported_routes_answer_501(two_servers, path, item):
     r = httpx.get(two_servers["port"] + path, timeout=5)
@@ -994,9 +1047,17 @@ def test_unported_routes_answer_501(two_servers, path, item):
     assert r.json() == {"error": "not_ported", "detail": f"ROADMAP.md Queue 1 item {item}"}
 
 
-@pytest.mark.parametrize("path", ["/metrics", "/debug/trace/abc123", "/debug/quality"])
+@pytest.mark.parametrize("path", ["/metrics", "/debug/trace/abc123", "/debug/quality",
+                                  "/debug/flightrecorder"])
 def test_observability_routes_answer_with_the_jax_keys(two_servers, path):
     """Once 501: the routes answer 200 with the JAX service's body keys."""
+    if path == "/debug/flightrecorder":
+        # both recorders are process-global: compare them armed
+        from tpu_voice_agent.utils.tracing import get_flight_recorder as jax_flight
+        from tpu_voice_agent_torch.utils.tracing import get_flight_recorder
+
+        jax_flight().rearm()
+        get_flight_recorder().rearm()
     jax = httpx.get(two_servers["jax"] + path, timeout=5)
     port = httpx.get(two_servers["port"] + path, timeout=5)
     assert port.status_code == jax.status_code == 200
@@ -1007,6 +1068,8 @@ def test_observability_routes_answer_with_the_jax_keys(two_servers, path):
     elif path == "/debug/quality":
         assert pb["counts"] == jb["counts"] and pb["lanes_enabled"] == jb["lanes_enabled"]
         assert set(pb["slo"]) == set(jb["slo"])
+    elif path == "/debug/flightrecorder":
+        assert pb["frozen"] is jb["frozen"] is False and pb["armed"] is True
     else:
         assert pb == jb == {"service": "voice", "trace_id": "abc123", "spans": []}
     prom = httpx.get(two_servers["port"] + "/metrics", timeout=5,

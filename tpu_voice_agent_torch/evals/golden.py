@@ -1,10 +1,11 @@
 """The golden intent cases and the quantized-KV accuracy differential.
 
 Port of the parts of ``tpu_voice_agent/evals/golden.py`` that the KV_QUANT
-tier's accuracy gate needs: ``GoldenCase``, ``GOLDEN_INTENT_CASES`` (the
-held-out utterances with their expected intent types and argument facts),
-``intent_types`` and ``kv_quant_differential``. The parser scoring
-(``score_parser``) and the multi-turn dialogs are not ported.
+tier's accuracy gate and the golden-replay canary need: ``GoldenCase``,
+``GOLDEN_INTENT_CASES`` (the held-out utterances with their expected intent
+types and argument facts), ``score_case``, ``intent_types`` and
+``kv_quant_differential``. The parser scoring (``score_parser``) and the
+multi-turn dialogs are not ported.
 """
 
 from __future__ import annotations
@@ -105,6 +106,39 @@ GOLDEN_INTENT_CASES: list[GoldenCase] = [
         facts=((0, "args.url", "example.com"),),
     ),
 ]
+
+
+def _dig(obj: Any, path: str) -> Any:
+    cur = obj
+    for part in path.split("."):
+        cur = cur.get(part) if isinstance(cur, dict) else getattr(cur, part, None)
+        if cur is None:
+            return None
+    return cur
+
+
+def _fact_holds(intent: Any, path: str, want: Any) -> bool:
+    got = _dig(intent, path)
+    if isinstance(want, str):
+        return isinstance(got, str) and want.lower() in got.lower()
+    if isinstance(want, bool):
+        return got is want
+    return got == want
+
+
+def score_case(case: GoldenCase, resp: Any) -> tuple[bool, float]:
+    """``resp``: a ParseResponse dict (or anything with ``intents``).
+    Returns (type_match, args_score in [0, 1])."""
+    intents = (resp.get("intents") if isinstance(resp, dict)
+               else getattr(resp, "intents", None)) or []
+    types = tuple(i.get("type") if isinstance(i, dict) else getattr(i, "type", None)
+                  for i in intents)
+    type_match = types == case.expected_types
+    if not case.facts:
+        return type_match, 1.0 if type_match else 0.0
+    held = sum(1 for idx, path, want in case.facts
+               if idx < len(intents) and _fact_holds(intents[idx], path, want))
+    return type_match, held / len(case.facts)
 
 
 # ------------------------------------------------------ quantized-KV tiers

@@ -22,9 +22,15 @@ back once with the tokens and summarized into ``GenerationResult.quality``.
 They only read values the step computed, so the tokens are the same on or
 off.
 
+The chaos drills (``utils.chaos``): ``prefill_slot`` fires ``prefill_exc``
+before it touches any state and raises ``ChaosError``; a ``(B,)`` bool
+``nan_inject`` tensor, armed by the scheduler and handed over once by
+``_take_nan_inject``, turns a flagged active row's logits to NaN before the
+poison gate. With chaos off both are one test that fails.
+
 The JAX ``lax.while_loop`` is a Python loop here: its ``any(active)`` test
 reads one bool back from the device on every step. Left out (still JAX-only):
-chaos injection, ``from_hf``, meshes and ``warm_restart``.
+``from_hf``, meshes and ``warm_restart``.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from ..models.llama import (
     unstack_layers,
 )
 from ..ops import masked_argmax_advance
+from ..utils.chaos import ChaosError, chaos_fire
 from ..utils.quality import conf_summary, quality_lanes_enabled
 from ..utils.tracing import get_metrics
 
@@ -261,7 +268,7 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
                 tables: DeviceFSM, byte_len_table, generator, temperature: float,
                 byte_budget: int, chunk_steps: int = 32, greedy: bool = True,
                 constrained: bool = True, eos_id: int = 2, pad_id: int = 0,
-                quality_lanes: bool = False):
+                quality_lanes: bool = False, nan_inject=None):
     """THE decode loop, for every KV layout: advance every active row by up
     to ``chunk_steps`` steps on the device (engine.py:367-589, and its paged
     twin paged.py:287-492). ``forward_step(tokens, positions, active)``
@@ -273,6 +280,8 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
     tokens; otherwise a T=1 step. Idle rows run at position 0 (the layout
     parks or confines their writes). A poisoned row (non-finite logits or a
     dead FSM state) deactivates without committing its sample.
+    ``nan_inject`` ((B,) bool on the device, or None) is the chaos drill:
+    a flagged active row's logits become NaN before the poison gate.
 
     With ``quality_lanes`` every committed decision folds its confidence
     into per-row device lanes (``_conf_accumulate``); a fast-forward step
@@ -330,6 +339,8 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
 
             logits = forward_step(blk_tok, blk_pos, active)
             raw = logits[ar, k.long()]  # (B, V): logits at the chain's end
+            if nan_inject is not None:
+                raw = torch.where((nan_inject & active)[:, None], float("nan"), raw)
             nxt, state_next = _mask_sample_advance(raw, s_end, tables, generator, temperature,
                                                    greedy, constrained)
             ok, poison = _poison_gate(raw, s_end, state_next, active, poison, constrained)
@@ -351,6 +362,8 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
             step_tok = torch.where(active, cur, pad_id)
             logits = forward_step(step_tok[:, None], write_pos[:, None], active)
             raw = logits[:, 0, :]
+            if nan_inject is not None:
+                raw = torch.where((nan_inject & active)[:, None], float("nan"), raw)
             nxt, state_next = _mask_sample_advance(raw, state, tables, generator, temperature,
                                                    greedy, constrained)
             ok, poison = _poison_gate(raw, state, state_next, active, poison, constrained)
@@ -443,6 +456,8 @@ class DecodeEngine:
         self._last_fwds = 0  # the last decode_chunk's forward count
         self._last_poison = None  # its per-row fault codes (B,) int32
         self._last_conf = None  # its per-row quality lanes (device), or None
+        self._nan_inject = None  # the chaos drill's one-shot (B,) host mask
+        self._last_draft_ms = 0.0  # a speculative chunk's drafter share
         # speculative decoding, built last: the decoder reads the engine's
         # surface; the paged engine builds it once its pool exists
         self.spec = None
@@ -540,6 +555,9 @@ class DecodeEngine:
         real token's logits (1, V). The one decision tree of every layout:
         the dense and paged engines override only the ``_prefill_suffix`` /
         ``_prefill_full`` hooks."""
+        if chaos_fire("prefill_exc"):
+            # the admission fence's drill: fires before any state is touched
+            raise ChaosError("chaos: injected prefill exception")
         # a finished request may still own resources; it is released as
         # not ok: it was never handed back clean (no radix insert, no trace)
         self.release_slot(slot, ok=False)
@@ -624,9 +642,20 @@ class DecodeEngine:
             self._decode_step, self.max_len, cur, pos, fsm, active, nbytes, tokens_left,
             tables, self.byte_len_table, generator, temperature, byte_budget,
             chunk_steps=chunk_steps, greedy=greedy, constrained=True,
-            eos_id=self.eos_id, pad_id=self.pad_id, quality_lanes=self.quality_lanes)
+            eos_id=self.eos_id, pad_id=self.pad_id, quality_lanes=self.quality_lanes,
+            nan_inject=self._take_nan_inject())
         self._last_fwds, self._last_poison, self._last_conf = fwds, pois, conf
         return out, n, eos, cur, pos, fsm, active, nbytes, left
+
+    def _take_nan_inject(self):
+        """Hand over the chaos drill's one-shot NaN mask (the scheduler sets
+        it per admission) as a (B,) bool tensor on the device, once; None
+        when no drill is armed."""
+        ni = self._nan_inject
+        if ni is None:
+            return None
+        self._nan_inject = None
+        return torch.as_tensor(np.asarray(ni, dtype=bool), device=self.device)
 
     def release_slot(self, slot: int, generated_ids: list[int] | None = None,
                      ok: bool = True) -> None:

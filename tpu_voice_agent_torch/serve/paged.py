@@ -22,9 +22,17 @@ With ``spec`` greedy chunks are ``serve.spec`` verify steps, each growing
 the tables by its own worst case (``_claim``). The paged chunk shares the
 dense engine's ``decode_loop``, quality lanes included; the batcher exports
 the pool's occupancy each chunk (``record_pool_gauges``: ``paged.kv_*``,
-bytes per block under ``KV_QUANT``). Left for later: chunked prefill, the
-warm-state handoff (``gather_chain_kv`` / ``adopt_chain_kv``),
-``warm_restart``, chaos injection, meshes.
+bytes per block under ``KV_QUANT``).
+
+Chunked prefill (``PREFILL_CHUNK_TOKENS``, driven by the scheduler):
+``begin_chunked_prefill`` takes ``prefill_slot``'s decision tree (radix
+chain, static-prefix tail) and allocates every block up front;
+``chunked_prefill_step`` runs one (1, C) piece a step through the slot's
+table: K7 / K9 at C <= 16, the plain gathered attention past that, and K1
+for a first piece with nothing cached before it. The chain becomes
+insertable only at the final piece. The chaos point ``alloc_fail`` fires in
+``BlockAllocator.alloc``. Left for later: the warm-state handoff
+(``gather_chain_kv`` / ``adopt_chain_kv``), ``warm_restart``, meshes.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from ..ops.kvquant import (
     kv_store_dtype,
     quantize_kv,
 )
+from ..utils.chaos import chaos_fire
 from ..utils.tracing import get_metrics
 from .engine import DecodeEngine, _sync
 from .radix import RadixCache
@@ -57,6 +66,26 @@ PRESSURE_WINDOW_S = 2.0
 class PoolExhausted(RuntimeError):
     """The KV pool has no free blocks. Its own class, so the scheduler can
     fail or requeue one request without swallowing device faults."""
+
+
+class _ChunkedPrefill:
+    """Cursor of one chunked admission between ``begin_chunked_prefill``
+    and its final ``chunked_prefill_step``: every block is allocated and the
+    slot's table set; only the suffix pieces remain, one per step."""
+
+    __slots__ = ("slot", "ids", "suffix", "P", "C", "n_chunks", "j", "step_ms", "total_ms")
+
+    def __init__(self, slot: int, ids: list[int], suffix: list[int], P: int, C: int,
+                 n_chunks: int):
+        self.slot = slot
+        self.ids = ids
+        self.suffix = suffix
+        self.P = P  # tokens served from cached KV (chain / prefix)
+        self.C = C  # PREFILL_CHUNK_TOKENS
+        self.n_chunks = n_chunks
+        self.j = 0  # pieces done
+        self.step_ms = 0.0  # the last piece's dispatch wall (the step ledger's carve)
+        self.total_ms = 0.0  # summed (prefill_ms at the finish)
 
 
 class BlockAllocator:
@@ -73,6 +102,9 @@ class BlockAllocator:
         self._refs: dict[int, int] = {}
 
     def alloc(self, k: int) -> list[int]:
+        if chaos_fire("alloc_fail"):
+            # the pool-pressure ladder's drill: the type a full pool raises
+            raise PoolExhausted("chaos: injected allocation failure")
         if len(self._free) < k:
             raise PoolExhausted(
                 f"KV pool exhausted: need {k} blocks, {len(self._free)} free of "
@@ -216,6 +248,8 @@ class PagedDecodeEngine(DecodeEngine):
         self._pressure_until = 0.0
         # host token ids of each slot's request (the radix insert at release)
         self._slot_ids: list[list[int] | None] = [None] * self.batch_slots
+        # slots of a chunked admission underway: not decoding, fully covered
+        self._mid_prefill: set[int] = set()
         # speculative decoding, deferred from the parent: the decoder reads
         # the pool, tables and trash index that exist only now
         if self._spec_cfg is not None:
@@ -319,12 +353,53 @@ class PagedDecodeEngine(DecodeEngine):
                 raise
             return self.allocator.alloc(k)
 
+    def _prefix_chain(self) -> list[int]:
+        """The static prefix's full blocks, ref'd for one more slot (its
+        sub-block remainder is ``_prefix_tail``)."""
+        chain = list(self._prefix_blocks[:len(self.prefix_ids) // self.block_size])
+        self.allocator.ref(chain)
+        return chain
+
+    def _match_cached(self, ids: list[int]):
+        """The radix tree's longest cached chain for ``ids`` (its blocks
+        ref'd for the caller) and where the computed suffix starts: at the
+        match, or at the whole static prefix when the match stopped at the
+        pinned root chain and the prompt extends the prefix (the prefix's
+        sub-block tail is then scattered). Returns (chain, P, tail); P is 0
+        on a miss."""
+        chain, matched = self.radix.match(ids)
+        P, tail = matched, None
+        P0 = len(self.prefix_ids)
+        if (matched and self._prefix_tail is not None and P0 > matched and len(ids) > P0
+                and chain == self._prefix_blocks[:len(chain)] and ids[:P0] == self.prefix_ids):
+            P, tail = P0, self._prefix_tail
+        return chain, P, tail
+
+    def _seat(self, slot: int, chain: list[int], P: int, span: int,
+              tail: dict | None = None) -> None:
+        """Lay ``slot`` out for a chain admission: ``chain`` blocks, already
+        ref'd for this slot, cover positions [0, len(chain) * bs) read-only;
+        ``tail`` supplies KV for [len(chain) * bs, P); freshly allocated
+        owned blocks take [P, P + span). On PoolExhausted the chain's refs
+        are dropped."""
+        bs = self.block_size
+        full = len(chain)
+        n_owned = -(-(P + span) // bs) - full
+        try:
+            owned = self._alloc(n_owned)
+        except PoolExhausted:
+            self.allocator.free(chain)  # don't leak the chain refs
+            raise
+        self._slot_shared[slot], self._slot_owned[slot] = list(chain), owned
+        self._set_table_row(slot, list(chain) + owned)
+        self._covered[slot] = (full + n_owned) * bs
+        if tail is not None:
+            self._scatter_pool(tail["k"], tail["v"], owned[0] * bs + np.arange(P - full * bs))
+
     def _prefill_suffix(self, tokens, positions, slot: int, P: int, bucket: int, n: int):
         """The static-prefix case of ``_prefill_chain``: the chain is the
         prefix's full blocks, the tail its sub-block remainder."""
-        shared = self._prefix_blocks[:P // self.block_size]
-        self.allocator.ref(shared)
-        return self._prefill_chain(tokens, positions, slot, list(shared), P, bucket, n,
+        return self._prefill_chain(tokens, positions, slot, self._prefix_chain(), P, bucket, n,
                                    tail=self._prefix_tail)
 
     def _prefill_chain(self, tokens, positions, slot: int, chain: list[int], P: int,
@@ -335,20 +410,8 @@ class PagedDecodeEngine(DecodeEngine):
         (1, bucket) suffix forward computes [P, n). New tokens land only in
         freshly allocated owned blocks (the suffix starts at P >= the
         chain's end)."""
+        self._seat(slot, chain, P, bucket, tail)
         bs = self.block_size
-        full = len(chain)
-        n_owned = -(-(P + bucket) // bs) - full
-        try:
-            owned = self._alloc(n_owned)
-        except PoolExhausted:
-            self.allocator.free(chain)  # don't leak the chain refs
-            raise
-        self._slot_shared[slot], self._slot_owned[slot] = list(chain), owned
-        self._set_table_row(slot, list(chain) + owned)
-        self._covered[slot] = (full + n_owned) * bs
-        if tail is not None:
-            R = P - full * bs
-            self._scatter_pool(tail["k"], tail["v"], owned[0] * bs + np.arange(R))
         # gather only the covered blocks, bucketed to a power of two (with
         # radix on also 3/4 of one), exactly as the JAX engine does
         need = -(-(P + bucket) // bs)
@@ -370,22 +433,14 @@ class PagedDecodeEngine(DecodeEngine):
             return super().prefill_slot(ids, slot)
         self.release_slot(slot)
         ids = list(ids)
-        chain, matched = self.radix.match(ids)
-        P, tail, bucket = matched, None, None
-        if matched:
-            P0 = len(self.prefix_ids)
-            if (self._prefix_tail is not None and P0 > matched and len(ids) > P0
-                    and chain == self._prefix_blocks[:len(chain)]
-                    and ids[:P0] == self.prefix_ids):
-                # the match stopped at the pinned root chain and the prompt
-                # extends the whole static prefix: keep the tail scatter
-                P, tail = P0, self._prefix_tail
+        chain, P, tail = self._match_cached(ids)
+        if P:
             suffix = ids[P:]
             bucket = self._suffix_bucket(len(suffix), self.max_len - P)
             if bucket is None:
                 self.allocator.free(chain)  # no suffix bucket fits: cold path
-                matched = 0
-        if not matched:
+                P = 0
+        if not P:
             logits = super().prefill_slot(ids, slot)
             self._slot_ids[slot] = ids
             return logits
@@ -419,14 +474,82 @@ class PagedDecodeEngine(DecodeEngine):
         return self._forward(tokens, positions, self.block_tables[slot:slot + 1],
                              attn_impl=self.kernels, fresh_block=True)
 
+    # ------------------------------------------------------------ chunked prefill
+
+    def begin_chunked_prefill(self, ids: list[int], slot: int,
+                              chunk_tokens: int) -> _ChunkedPrefill | None:
+        """Start a chunked admission: ``prefill_slot``'s decision tree (radix
+        chain, static-prefix tail, block layout), but the suffix is split
+        into ``chunk_tokens`` pieces the scheduler runs one a step
+        (``chunked_prefill_step``). Every block is allocated here, so no
+        piece raises PoolExhausted; an evicted slot frees them through
+        ``release_slot(ok=False)``, and no half-computed chain is inserted
+        (``_slot_ids`` is set at the final piece only). None when chunking
+        cannot represent the prompt (nothing to compute, or the padded span
+        past ``max_len``): the caller takes ``prefill_slot``."""
+        self.release_slot(slot, ok=False)
+        ids = list(ids)
+        chain, P, tail = self._match_cached(ids) if self.radix is not None else ([], 0, None)
+        radix_hit = P > 0
+        if not P and self._split_prefix(ids) is not None and self.prefix_ids:
+            # the static prefix without a radix chain: _prefill_suffix's layout
+            P, tail, chain = len(self.prefix_ids), self._prefix_tail, self._prefix_chain()
+        suffix = ids[P:]
+        m, C = len(suffix), int(chunk_tokens)
+        n_chunks = -(-m // C) if C > 0 else 0
+        if m <= 0 or C <= 0 or P + n_chunks * C > self.max_len:
+            self.allocator.free(chain)
+            return None
+        self._seat(slot, chain, P, n_chunks * C, tail)
+        if radix_hit:
+            self.radix.record_hit(P)  # committed to the cached chain only now
+        self._next_pos[slot] = len(ids)
+        self._mid_prefill.add(slot)
+        return _ChunkedPrefill(slot, ids, suffix, P, C, n_chunks)
+
+    def chunked_prefill_step(self, cur: _ChunkedPrefill):
+        """Run ONE (1, C) piece of a chunked admission. Returns the last
+        prompt token's logits (1, V) when the final piece lands, else None.
+        Earlier pieces' KV is read through the slot's table, with
+        ``prefill_slot``'s pow2-bucketed gather past K7's 16 positions."""
+        slot, C, bs = cur.slot, cur.C, self.block_size
+        start = cur.j * C
+        seg = cur.suffix[start:start + C]
+        tokens = np.full((1, C), self.pad_id, dtype=np.int32)
+        tokens[0, :len(seg)] = seg
+        positions = (cur.P + start + np.arange(C, dtype=np.int32))[None, :]
+        need = -(-(cur.P + start + C) // bs)
+        gb = 1
+        while gb < need:
+            gb *= 2
+        fresh = cur.P + start == 0  # nothing before it: a fresh block (K1)
+        t0 = time.perf_counter()
+        logits = self._forward(self._ids(tokens), self._ids(positions),
+                               self.block_tables[slot:slot + 1], attn_impl=self.kernels,
+                               fresh_block=fresh,
+                               gather_blocks=None if fresh else min(gb, self.max_blocks))
+        cur.step_ms = (time.perf_counter() - t0) * 1e3
+        cur.total_ms += cur.step_ms
+        cur.j += 1
+        if cur.j < cur.n_chunks:
+            return None
+        self._mid_prefill.discard(slot)
+        self._last_prefill_compute_ms = cur.total_ms
+        self._last_cached_tokens = cur.P
+        self._slot_ids[slot] = cur.ids
+        if self.spec is not None:
+            self.spec.on_admit(slot, cur.ids)  # the one-shot paths' drafter hook
+        return logits[:, len(cur.suffix) - start - 1, :].contiguous()
+
     # ------------------------------------------------------------ decode
 
     def reconcile_coverage(self, pos_h) -> None:
         """Post-chunk hook (the scheduler calls it with the chunk's host
         positions): clamp each live slot's growth target to its ACTUAL
-        frontier, so the worst-case claims of ``_claim`` never compound."""
+        frontier, so the worst-case claims of ``_claim`` never compound. A
+        slot mid chunked admission is not decoding: its target stays."""
         for b in range(self.batch_slots):
-            if self._slot_owned[b]:
+            if self._slot_owned[b] and b not in self._mid_prefill:
                 self._next_pos[b] = min(self._next_pos[b], int(pos_h[b]))
 
     def _grow(self, slot: int, upto: int) -> None:
@@ -457,7 +580,9 @@ class PagedDecodeEngine(DecodeEngine):
         the actual frontiers after the dispatch."""
         starved = []
         for b in range(self.batch_slots):
-            if self._slot_owned[b] and (active is None or active[b]):
+            # a slot mid chunked admission holds every block it needs
+            if (self._slot_owned[b] and b not in self._mid_prefill
+                    and (active is None or active[b])):
                 try:
                     self._grow(b, self._next_pos[b] + span + 1)
                 except PoolExhausted:
@@ -471,9 +596,11 @@ class PagedDecodeEngine(DecodeEngine):
         """Return the slot's blocks. With radix on, a finished request
         (``ok``, ``generated_ids`` given, no recent pool pressure) first has
         its prompt + generated chain adopted by the tree, whose own refs
-        keep those blocks alive. An errored request never inserts. The
-        inserted ids are the accepted stream: a rejected draft's KV lies past
-        it, in the partial tail block the tree does not adopt."""
+        keep those blocks alive. An errored request never inserts, nor does
+        a chunked admission evicted before its final piece. The inserted ids
+        are the accepted stream: a rejected draft's KV lies past it, in the
+        partial tail block the tree does not adopt."""
+        self._mid_prefill.discard(slot)
         if self._slot_owned[slot] or self._slot_shared[slot]:
             if (ok and self.radix is not None and generated_ids is not None
                     and self._slot_ids[slot] is not None and self._radix_may_admit()):

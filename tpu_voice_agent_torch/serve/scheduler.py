@@ -7,13 +7,30 @@ batch width, the shared prefix reused), and decode advances every active
 slot together in chunks of ``chunk_steps`` steps, with one host readback per
 chunk. New arrivals join at chunk boundaries.
 
-Containment at the chunk boundaries: ``PoolExhausted`` at admission requeues
-the request at the head (after ``SCHED_REQUEUE_MAX`` head retries it rotates
-to the back) and sheds it with ``"shed: ..."`` once no live slot can free
-blocks or ``SCHED_POOL_WAIT_S`` has passed; any other admission error fails
-that request alone; a row the decode loop poisoned (non-finite logits, dead
-grammar state) is evicted with ``"poisoned: ..."``. A CUDA runtime fault is
-never per-request: it propagates out of ``step``.
+Containment at the chunk boundaries, with JAX's typed errors: a request
+whose ``deadline`` (``services.resilience.Deadline``) ran out sheds at
+dequeue (``"shed: deadline expired in queue"``) or is evicted between
+chunks (``"cancelled: deadline expired mid-decode"``); ``cancel`` drops a
+queued request or evicts a decoding one (``"cancelled: <reason>"``);
+``PoolExhausted`` at admission requeues the request at the head (after
+``SCHED_REQUEUE_MAX`` head retries it rotates to the back) and sheds it with
+``"shed: ..."`` once no live slot can free blocks or ``SCHED_POOL_WAIT_S``
+has passed; any other admission error fails that request alone; a row the
+decode loop poisoned (non-finite logits, dead grammar state) is evicted
+with ``"poisoned: ..."`` and freezes the flight recorder
+(``scheduler.quarantine``). A prompt that poisons or breaks its admission
+``QUARANTINE_AFTER`` times (default 2; a 64-entry LRU of fingerprints) is
+refused at submit (``"quarantined: ..."``). An evicted slot releases with
+``ok=False``: its chain never enters the radix tree. A CUDA runtime fault is
+never per-request: it propagates out of ``step``. The chaos points
+``nan_logits`` and ``dead_fsm`` arm at admission (``utils.chaos``).
+
+``PREFILL_CHUNK_TOKENS`` = C (paged engines, which have
+``begin_chunked_prefill``) admits a prompt longer than C in (1, C) pieces,
+one per step, between the batch-mates' decode chunks; unset, or on the
+dense engine, admission is the one barrier prefill. Each step records one
+step-ledger entry (``utils.steplog``): admit, prefill, draft, decode,
+readback and release tile its wall.
 
 Each slot keeps the engine's per-row quality lanes across chunks (folded on
 the host from the chunk's one readback, reset at admission) and a finished
@@ -21,9 +38,8 @@ request carries ``quality=conf_summary(...)``. The ``scheduler.*`` counters,
 gauges and histograms of these features are JAX's, and each chunk exports
 the paged pool's and the radix tree's gauges.
 
-Left for later: deadlines and cancellation, the quarantine list and chaos
-drills, tenancy, the cost meter, the step ledger, prefix feeds and exports,
-chunked admissions.
+Left for later: tenancy and the cost meter (ROADMAP.md Queue 1 item 4),
+prefix feeds and exports (item 6), the stalled-step watchdog (item 6).
 """
 
 from __future__ import annotations
@@ -31,13 +47,16 @@ from __future__ import annotations
 import math
 import os
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..utils.chaos import chaos_fire
 from ..utils.quality import conf_summary
-from ..utils.tracing import get_metrics
+from ..utils.steplog import get_steplog
+from ..utils.tracing import get_flight_recorder, get_metrics
 from .engine import GenerationResult, _first_token
 from .paged import PoolExhausted, record_pool_gauges
 from .radix import record_radix_gauges
@@ -56,7 +75,9 @@ def is_device_fault(e: BaseException) -> bool:
 
 def _err_result(error: str, steps: int = 0, prefill_ms: float = 0.0) -> GenerationResult:
     """The one spelling of a typed per-request failure. ``shed:`` prefixes
-    a retryable overload; ``poisoned:`` a fault of this request's row."""
+    a retryable overload (the brain answers 503 + Retry-After);
+    ``quarantined:`` / ``poisoned:`` / ``cancelled:`` are terminal for these
+    bytes."""
     return GenerationResult(text="", token_ids=[], prefill_ms=prefill_ms, decode_ms=0.0,
                             steps=steps, finished=False, error=error)
 
@@ -82,7 +103,7 @@ class _Slot:
 class ContinuousBatcher:
     """Slot-based continuous batching over a ``DecodeEngine`` (dense or
     paged). Synchronous core: ``submit`` / ``step`` / ``run_until_done``;
-    a service drives ``step`` from one thread."""
+    a service drives ``step`` and ``cancel`` from one thread."""
 
     def __init__(self, engine, chunk_steps: int = 32, greedy: bool = True,
                  temperature: float = 0.7, byte_budget: int = 3900,
@@ -116,6 +137,21 @@ class ContinuousBatcher:
         self._pool_wait_s = float(os.environ.get("SCHED_POOL_WAIT_S", "1.0"))
         self._requeues: dict[int, int] = {}
         self._requeue_max = int(os.environ.get("SCHED_REQUEUE_MAX", "8"))
+        # per-request deadlines: checked at dequeue and between chunks
+        self._deadline: dict[int, object] = {}
+        # repeat-offender quarantine: prompt fingerprint -> offence record
+        self.quarantine_after = int(os.environ.get("QUARANTINE_AFTER", "2"))
+        self._offenses: OrderedDict[object, dict] = OrderedDict()
+        self._prompt_fp: dict[int, object] = {}
+        # chaos-armed NaN slots, and the epoch a reset bumps: a step begun
+        # before the reset discards its commit
+        self._nan_slots: set[int] = set()
+        self._epoch = 0
+        # chunked admissions: slot -> (cursor, enqueue stamp); the slot is
+        # reserved (request_id set, device row inactive)
+        pc = os.environ.get("PREFILL_CHUNK_TOKENS")
+        self._prefill_chunk = int(pc) if pc else 0
+        self._admitting: dict[int, tuple[object, float]] = {}
         self.chunks = 0
         self.tokens_generated = 0
         self.forwards = 0
@@ -123,31 +159,132 @@ class ContinuousBatcher:
         # the contract counters exist from construction, at zero
         m = get_metrics()
         m.inc("scheduler.slots_quarantined", 0.0)
+        m.inc("scheduler.cancelled", 0.0)
+        m.inc("scheduler.shed_expired", 0.0)
+        m.inc("scheduler.quarantine_rejected", 0.0)
         m.inc("scheduler.requeue_rotations", 0.0)
+        if self._prefill_chunk:
+            m.inc("prefill.chunked_admissions", 0.0)
+            m.inc("prefill.chunks", 0.0)
 
     # ------------------------------------------------------------ submit
 
-    def submit(self, prompt) -> int:
+    def reset(self) -> None:
+        """Abandon all queued and in-flight work. Bumps the epoch, so a step
+        in flight discards its commit. The quarantine list survives."""
+        self._epoch += 1
+        self.pending.clear()
+        self._enqueued_at.clear()
+        self._deadline.clear()
+        self._prompt_fp.clear()
+        self._pool_wait.clear()
+        self._nan_slots.clear()
+        self._requeues.clear()
+        self._admitting.clear()
+        self.results.clear()
+        self.slots = [_Slot() for _ in range(self.B)]
+        self.active = torch.zeros_like(self.active)
+        self._active_h = np.zeros((self.B,), dtype=bool)
+        for b in range(self.B):
+            self.engine.release_slot(b, ok=False)
+
+    def submit(self, prompt, deadline=None) -> int:
         """Queue one request: a prompt string, or pre-tokenized ids (the
         session-aware parser's turn N is turn N-1's ids + generated ids +
         the new frame's ids, a strict token extension the radix tree
-        matches)."""
+        matches). ``deadline`` (``services.resilience.Deadline``) arms the
+        shed at dequeue and the eviction between chunks. A quarantined
+        prompt is refused here: its result is ready at once."""
         rid = self._next_id
         self._next_id += 1
+        fp = self._fingerprint(prompt)
+        off = self._offenses.get(fp)
+        if off is not None and off["count"] >= self.quarantine_after:
+            off["rejected"] += 1
+            get_metrics().inc("scheduler.quarantine_rejected")
+            self.results[rid] = _err_result(
+                f"quarantined: {off['reason']} x{off['count']} (prompt {off['preview']!r})")
+            return rid
+        self._prompt_fp[rid] = fp
+        if deadline is not None:
+            self._deadline[rid] = deadline
         self._enqueued_at[rid] = time.perf_counter()
         self.pending.append((rid, prompt))
         return rid
 
-    def cancel(self, rid: int) -> bool:
-        """Drop a request that is still queued. True if it was; a request
-        already in a slot decodes on and its result is left for the
-        caller."""
-        n = len(self.pending)
-        self.pending = [(r, p) for r, p in self.pending if r != rid]
-        if len(self.pending) == n:
-            return False
+    # ------------------------------------------------------------ containment
+
+    @staticmethod
+    def _fingerprint(prompt) -> object:
+        return prompt if isinstance(prompt, str) else tuple(prompt)
+
+    @staticmethod
+    def _preview(prompt) -> str:
+        return prompt[:60] if isinstance(prompt, str) else f"<{len(prompt)} token ids>"
+
+    def _record_offense(self, rid: int, reason: str) -> None:
+        """Count a poison event against the request's prompt fingerprint; at
+        ``quarantine_after`` the fingerprint is refused at submit."""
+        fp = self._prompt_fp.get(rid)
+        if fp is None:
+            return
+        off = self._offenses.get(fp)
+        if off is None:
+            off = self._offenses[fp] = {"count": 0, "rejected": 0, "reason": reason,
+                                        "preview": self._preview(fp)}
+        off["count"] += 1
+        off["reason"] = reason
+        self._offenses.move_to_end(fp)
+        while len(self._offenses) > 64:
+            self._offenses.popitem(last=False)
+
+    def quarantined(self) -> list[dict]:
+        """The active quarantine entries (the brain's ``/health``)."""
+        return [{"preview": off["preview"], "count": off["count"], "rejected": off["rejected"],
+                 "reason": off["reason"]}
+                for off in self._offenses.values() if off["count"] >= self.quarantine_after]
+
+    def _cleanup(self, rid: int) -> None:
+        """Drop every per-request map entry (terminal paths only)."""
+        self._enqueued_at.pop(rid, None)
+        self._deadline.pop(rid, None)
+        self._prompt_fp.pop(rid, None)
+        self._pool_wait.pop(rid, None)
+        self._requeues.pop(rid, None)
+
+    def _evict_slot(self, b: int, error: str, counter: str) -> None:
+        """Evict ONE in-flight slot with a typed error: deactivate its row,
+        free its KV without caching its chain (``ok=False``), resolve the
+        request. Batch-mates' rows are untouched."""
+        sl = self.slots[b]
+        rid = sl.request_id
+        self.results[rid] = _err_result(error, steps=len(sl.token_ids), prefill_ms=sl.prefill_ms)
+        get_metrics().inc(counter)
         self._cleanup(rid)
-        return True
+        self.slots[b] = _Slot()
+        self.active[b] = False
+        self._active_h[b] = False
+        self._nan_slots.discard(b)
+        self._admitting.pop(b, None)  # a chunked admission drops its cursor
+        self.engine.release_slot(b, ok=False)
+
+    def cancel(self, rid: int, reason: str = "client gone") -> bool:
+        """Cancel one request: a queued one is dropped, one in a slot is
+        evicted (its slot and KV blocks freed at once, not decoded on). Runs
+        on the thread that drives ``step``. True when the request was
+        live."""
+        for i, (r, _) in enumerate(self.pending):
+            if r == rid:
+                del self.pending[i]
+                self.results[rid] = _err_result(f"cancelled: {reason}")
+                get_metrics().inc("scheduler.cancelled")
+                self._cleanup(rid)
+                return True
+        for b in range(self.B):
+            if self.slots[b].request_id == rid:
+                self._evict_slot(b, f"cancelled: {reason}", "scheduler.cancelled")
+                return True
+        return False
 
     def _free_slot(self, act: np.ndarray) -> int | None:
         for b in range(self.B):
@@ -155,27 +292,50 @@ class ContinuousBatcher:
                 return b
         return None
 
-    def _cleanup(self, rid: int) -> None:
-        self._enqueued_at.pop(rid, None)
-        self._pool_wait.pop(rid, None)
-        self._requeues.pop(rid, None)
+    # ------------------------------------------------------------ admission
 
-    def _admit(self, slot: int, rid: int, prompt) -> None:
+    def _admit(self, slot: int, rid: int, prompt) -> bool:
         """Prefill ONE slot (reusing the engine's cached prefix or radix
         chain), then the first grammar-masked pick and the slot's device
-        state."""
+        state. Returns True when a chunked admission was started instead:
+        the slot is reserved and ``_advance_admissions`` runs its pieces."""
         eng = self.engine
         t0 = time.perf_counter()
         ids = (eng.tokenizer.encode(prompt, bos=True) if isinstance(prompt, str)
                else [int(t) for t in prompt])
+        n = len(ids)
+        C = self._prefill_chunk
+        if C > 0 and n > C:
+            begin = getattr(eng, "begin_chunked_prefill", None)
+            if begin is not None:
+                cursor = begin(ids, slot, C)
+                if cursor is not None:
+                    sl = self.slots[slot]
+                    sl.request_id = rid
+                    sl.token_ids = []
+                    sl.start_s = t0
+                    sl.prompt_len = n
+                    # TTFT still covers the queue wait and every piece
+                    self._admitting[slot] = (cursor, self._enqueued_at.pop(rid, t0))
+                    get_metrics().inc("prefill.chunked_admissions")
+                    return True
         last_logits = eng.prefill_slot(ids, slot)
-        self._finish_admission(slot, rid, len(ids), last_logits, t0)
+        self._finish_admission(slot, rid, n, last_logits, t0, self._enqueued_at.pop(rid, t0))
+        return False
 
-    def _finish_admission(self, slot: int, rid: int, n: int, last_logits, t0: float) -> None:
+    def _finish_admission(self, slot: int, rid: int, n: int, last_logits, t0: float,
+                          t_enq: float) -> None:
+        """The admission tail of one-shot and chunked prefills alike: the
+        first grammar-masked pick, the slot's device state and bookkeeping,
+        TTFT."""
         eng = self.engine
         start = torch.full((1,), eng.fsm.start, dtype=torch.int32, device=eng.device)
+        t_fm = time.perf_counter()
         tok0, fsm0 = _first_token(last_logits, start, eng.tables, self.generator,
                                   self.temperature, self.greedy, True)
+        # the host's dispatch of the one standalone mask -> pick tail (K4)
+        get_metrics().set_gauge("engine.step.fused_mask_sample_ms",
+                                (time.perf_counter() - t_fm) * 1e3)
         self.cur[slot] = tok0[0]
         self.fsm[slot] = fsm0[0]
         self.pos[slot] = n
@@ -194,8 +354,50 @@ class ContinuousBatcher:
         sl.prefill_ms = eng._last_prefill_compute_ms
         sl.cached_tokens = int(eng._last_cached_tokens)
         # TTFT: enqueue through the first sampled token, queue wait included
-        t_enq = self._enqueued_at.pop(rid, t0)
         get_metrics().observe_ms("scheduler.ttft", (time.perf_counter() - t_enq) * 1e3)
+
+    def _arm_chaos(self, slot: int) -> None:
+        """The admission's drills (no-ops with chaos off): NaN logits on the
+        slot's next chunk, its FSM state forced dead."""
+        if chaos_fire("nan_logits"):
+            self._nan_slots.add(slot)
+        if chaos_fire("dead_fsm"):
+            self.fsm[slot] = -1
+
+    def _advance_admissions(self, act: np.ndarray) -> tuple[int, int, float]:
+        """Run one piece of every chunked admission. A slot whose final
+        piece lands finishes admission and decodes in this step's chunk.
+        Returns (completed, pieces run, their dispatch ms) for the ledger."""
+        if not self._admitting:
+            return 0, 0, 0.0
+        m = get_metrics()
+        eng = self.engine
+        done, stepped, pf_ms = 0, 0, 0.0
+        for slot in sorted(self._admitting):
+            cursor, t_enq = self._admitting[slot]
+            rid = self.slots[slot].request_id
+            try:
+                last_logits = eng.chunked_prefill_step(cursor)
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
+                # the admission fails alone; its blocks free through eviction
+                if not isinstance(e, ValueError):
+                    self._record_offense(rid, f"prefill {type(e).__name__}")
+                self._evict_slot(slot, str(e), "scheduler.prefill_faults")
+                continue
+            stepped += 1
+            pf_ms += cursor.step_ms
+            m.inc("prefill.chunks")
+            if last_logits is None:
+                continue
+            self._admitting.pop(slot, None)
+            sl = self.slots[slot]
+            self._finish_admission(slot, rid, sl.prompt_len, last_logits, sl.start_s, t_enq)
+            act[slot] = True
+            done += 1
+            self._arm_chaos(slot)  # as the one-shot admission arms
+        return done, stepped, pf_ms
 
     def _release_quietly(self, slot: int) -> None:
         """Best-effort cleanup of a failed admission's partial state."""
@@ -205,23 +407,35 @@ class ContinuousBatcher:
             if is_device_fault(e):
                 raise
 
-    # ------------------------------------------------------------ step
-
-    def _admit_pending(self, act: np.ndarray) -> None:
+    def _admit_pending(self, act: np.ndarray) -> tuple[int, int, float]:
+        """Dequeue into free slots. Returns (admitted, attempted, the
+        admissions' prefill ms) for the ledger."""
+        m = get_metrics()
+        n_admitted = n_attempted = 0
+        prefill_ms = 0.0
         while self.pending:
             slot = self._free_slot(act)
             if slot is None:
-                return
+                break
             rid, prompt = self.pending.pop(0)
+            n_attempted += 1
+            dl = self._deadline.get(rid)
+            if dl is not None and dl.expired:
+                # the queue wait spent the budget: never occupy a slot
+                self.results[rid] = _err_result("shed: deadline expired in queue")
+                m.inc("scheduler.shed_expired")
+                self._cleanup(rid)
+                continue
             try:
-                self._admit(slot, rid, prompt)
+                chunked = self._admit(slot, rid, prompt)
             except PoolExhausted as e:
                 self._release_quietly(slot)
                 first = self._pool_wait.setdefault(rid, time.perf_counter())
-                if not act.any() or time.perf_counter() - first >= self._pool_wait_s:
+                if (not act.any() or time.perf_counter() - first >= self._pool_wait_s
+                        or (dl is not None and dl.expired)):
                     # nothing live can free blocks, or the wait budget is spent
                     self.results[rid] = _err_result(f"shed: {e}")
-                    get_metrics().inc("scheduler.shed_pool")
+                    m.inc("scheduler.shed_pool")
                     self._cleanup(rid)
                     continue
                 n_req = self._requeues.get(rid, 0) + 1
@@ -230,40 +444,79 @@ class ContinuousBatcher:
                     # requests behind it get their attempt
                     self._requeues[rid] = 0
                     self.pending.append((rid, prompt))
-                    get_metrics().inc("scheduler.requeue_rotations")
+                    m.inc("scheduler.requeue_rotations")
                 else:
                     self._requeues[rid] = n_req
                     self.pending.insert(0, (rid, prompt))
-                return  # let the live batch drain blocks
+                break  # let the live batch drain blocks
             except Exception as e:
                 if is_device_fault(e):
                     raise
+                # a prompt too long, a tokenizer fault, an injected prefill
+                # fault: fails alone; a non-ValueError counts an offence
                 self._release_quietly(slot)
                 self.results[rid] = _err_result(str(e))
-                if not isinstance(e, ValueError):  # a prompt too long is no fault
-                    get_metrics().inc("scheduler.prefill_faults")
+                if not isinstance(e, ValueError):
+                    m.inc("scheduler.prefill_faults")
+                    self._record_offense(rid, f"prefill {type(e).__name__}")
                 self._cleanup(rid)
                 continue
             self._pool_wait.pop(rid, None)
             self._requeues.pop(rid, None)
-            act[slot] = True
+            if not chunked:
+                act[slot] = True
+                n_admitted += 1
+                prefill_ms += self.slots[slot].prefill_ms
+                self._arm_chaos(slot)  # a chunked admission arms at its final piece
+        return n_admitted, n_attempted, prefill_ms
+
+    # ------------------------------------------------------------ step
 
     def step(self) -> None:
-        """Admit pending requests into free slots, then run one chunk."""
+        """Evict expired slots, admit pending requests into free slots,
+        advance chunked admissions, then run one chunk."""
+        epoch = self._epoch
+        # the step ledger: one timer a step, lapped at each stage boundary
+        # (perf_counter only; STEPLOG_ENABLE=0 records nothing)
+        timer = get_steplog().timer()
         act = self._active_h
-        self._admit_pending(act)
+        for b in range(self.B):
+            rid = self.slots[b].request_id
+            if rid >= 0:
+                dl = self._deadline.get(rid)
+                if dl is not None and dl.expired:
+                    self._evict_slot(b, "cancelled: deadline expired mid-decode",
+                                     "scheduler.cancelled")
+        n_admitted, n_attempted, admit_prefill_ms = self._admit_pending(act)
+        adm_done, adm_stepped, adm_pf_ms = self._advance_admissions(act)
+        n_admitted += adm_done
+        n_attempted += adm_stepped
+        timer.lap("admit")
+        # the prefill compute was measured inside the admission segment
+        timer.carve("admit", "prefill", admit_prefill_ms + adm_pf_ms)
         if not act.any():
+            if n_attempted:
+                # admissions were tried and none went live: still a step
+                timer.finish(occupancy=0, tokens=0, admitted=n_admitted)
             return
         eng = self.engine
+        if self._nan_slots:
+            mask = np.zeros((self.B,), dtype=bool)
+            mask[list(self._nan_slots)] = True
+            eng._nan_inject = mask
+            self._nan_slots.clear()
         t_chunk0 = time.perf_counter()
+        occupancy = int(act.sum())
         # stale-readback fence: only a speculative chunk publishes per-row
-        # accept / participation counts, and a plain chunk must not re-serve
-        # an earlier one's
+        # accept / participation counts and a drafter share, and a plain
+        # chunk must not re-serve an earlier one's
         eng._last_accepts = None
         eng._last_row_fwds = None
+        eng._last_draft_ms = 0.0
         (out, n, eos, cur, pos, fsm, active, nbytes, tokens_left) = eng.decode_chunk(
             self.cur, self.pos, self.fsm, self.active, self.nbytes, self.tokens_left,
             self.generator, self.temperature, self.byte_budget, self.chunk_steps, self.greedy)
+        timer.lap("decode")
         # one host readback for everything the host needs this chunk: the
         # quality lanes ride it as float32 columns (the int lanes are counts
         # far below 2**24, exact in float32)
@@ -276,6 +529,9 @@ class ContinuousBatcher:
             packed = torch.cat([ints.float(), lanes], dim=1).cpu().numpy()
         else:
             packed = ints.cpu().numpy()
+        timer.lap("readback")
+        if epoch != self._epoch:
+            return  # a reset happened while this step was in flight
         cap = out.shape[1]
         out_h = packed[:, :cap].astype(np.int64)
         n_h, act_h, eos_h, pos_h, pois_h = (packed[:, cap + i].astype(np.int64)
@@ -294,15 +550,18 @@ class ContinuousBatcher:
 
         for b in range(self.B):
             sl = self.slots[b]
-            if sl.request_id < 0:
+            if sl.request_id < 0 or b in self._admitting:
+                # mid chunked admission: its row did not decode, the
+                # readback holds nothing of it
                 continue
             if int(pois_h[b]) > 0:
                 # the loop fenced this row off mid-chunk without touching
-                # batch-mates: fail the request, free its KV without caching
+                # batch-mates: count the offence, evict without caching, and
+                # freeze the flight recorder
                 reason = "non-finite logits" if int(pois_h[b]) == 1 else "grammar dead state"
-                self.results[sl.request_id] = _err_result(
-                    f"poisoned: {reason}", steps=len(sl.token_ids), prefill_ms=sl.prefill_ms)
-                self._evict(b)
+                self._record_offense(sl.request_id, reason)
+                self._evict_slot(b, f"poisoned: {reason}", "scheduler.slots_quarantined")
+                get_flight_recorder().trigger("scheduler.quarantine", detail=reason)
                 continue
             sl.token_ids.extend(int(t) for t in out_h[b, :n_h[b]])
             if row_fwds is not None:
@@ -333,6 +592,13 @@ class ContinuousBatcher:
                 self.slots[b] = _Slot()
                 # with radix reuse on, release caches prompt + generated first
                 eng.release_slot(b, generated_ids=sl.token_ids)
+        # everything after the readback is release; the drafter's host share
+        # was measured inside decode
+        timer.lap("release")
+        timer.carve("decode", "draft", float(eng._last_draft_ms))
+        timer.finish(occupancy=occupancy, tokens=int(n_h.sum()), admitted=n_admitted or None,
+                     forwards=int(eng._last_fwds),
+                     accepted=int(np.sum(row_accepts)) if row_accepts is not None else None)
 
     def _record_chunk_gauges(self, n_h, act_h, fwds: int, t_chunk0: float) -> None:
         """The chunk's counters and the saturation gauges continuous batching
@@ -360,14 +626,6 @@ class ContinuousBatcher:
         if getattr(eng, "radix", None) is not None:
             record_radix_gauges([eng.radix])
 
-    def _evict(self, b: int) -> None:
-        get_metrics().inc("scheduler.slots_quarantined")
-        self._cleanup(self.slots[b].request_id)
-        self.slots[b] = _Slot()
-        self.active[b] = False
-        self._active_h[b] = False
-        self.engine.release_slot(b, ok=False)
-
     # ------------------------------------------------------------ drain
 
     def busy(self) -> bool:
@@ -377,6 +635,10 @@ class ContinuousBatcher:
         if max_chunks is None:
             # worst case: every request decodes its whole token budget
             per_req = math.ceil(self.max_new_tokens / self.chunk_steps) + 1
+            if self._prefill_chunk:
+                # a chunked admission spends up to ceil(max_len / C) steps
+                # on its pieces before its first decode chunk
+                per_req += math.ceil(self.engine.max_len / self._prefill_chunk)
             max_chunks = per_req * (len(self.pending) + self.B) + self.B
         for _ in range(max_chunks):
             if not self.busy():

@@ -208,18 +208,23 @@ def _verify_commit(logits, cur, pos, fsm_state, active, nbytes, tokens_left, dra
 
 @torch.no_grad()
 def verify_step(engine, cur, pos, fsm_state, active, nbytes, tokens_left, draft_toks,
-                draft_len, byte_budget: int, K: int, max_pos: int, quality_lanes: bool = False):
+                draft_len, byte_budget: int, K: int, max_pos: int, quality_lanes: bool = False,
+                nan_inject=None):
     """ONE speculative step for every row of ``engine``, dense or paged:
     the (B, 1+K) block ``[cur, d_1..d_dl]`` padded by repeating its last
     (token, position) (``engine.chain_block``: duplicate writes are
     idempotent), one forward through the engine's layout hook
     ``_decode_step`` (the dense cache, or the pool through block tables with
     idle rows parked), then ``_verify_commit``. One copy for both layouts:
-    the JAX package needs two twins only for jit's static arguments."""
+    the JAX package needs two twins only for jit's static arguments.
+    ``nan_inject`` ((B,) bool, or None): the chaos drill turns a flagged
+    active row's block logits to NaN before the poison gate."""
     dl = _draft_cap(draft_len, tokens_left, pos, max_pos, active)
     iw = torch.arange(1 + K, dtype=torch.int32, device=cur.device)[None, :]
     step_tok, blk_tok, blk_pos = chain_block(iw, cur, draft_toks, dl, active, engine.pad_id, pos)
     logits = engine._decode_step(blk_tok, blk_pos, active)  # (B, 1+K, V)
+    if nan_inject is not None:
+        logits = torch.where((nan_inject & active)[:, None, None], float("nan"), logits)
     return _verify_commit(logits, cur, pos, fsm_state, active, nbytes, tokens_left, draft_toks,
                           dl, step_tok, blk_tok, engine.tables, engine.byte_len_table,
                           byte_budget, K, engine.eos_id, engine.pad_id, max_pos,
@@ -609,6 +614,8 @@ class SpecDecoder:
         eng = self.engine
         dev = eng.device
         B, K = eng.batch_slots, self.K
+        # the chaos drill's one-shot mask rides the chunk's first verify step
+        nan_inject = eng._take_nan_inject()
         head = torch.stack([cur, fsm, active.to(torch.int32)], dim=1).cpu().numpy()
         cur_h, fsm_h, act_h = head[:, 0], head[:, 1], head[:, 2].astype(bool)
         eos_total = (~act_h) & (cur_h == eng.eos_id)
@@ -639,7 +646,9 @@ class SpecDecoder:
                                        torch.from_numpy(np.ascontiguousarray(dtoks)).to(dev),
                                        torch.from_numpy(dlen).to(dev), byte_budget, K,
                                        eng.max_len,  # the paged tables span max_len too
-                                       quality_lanes=self.quality_lanes)
+                                       quality_lanes=self.quality_lanes,
+                                       nan_inject=nan_inject)
+            nan_inject = None
             if conf is not None:
                 conf_acc = (conf_acc[0] + conf[0], torch.minimum(conf_acc[1], conf[1]),
                             conf_acc[2] + conf[2], conf_acc[3] + conf[3],
@@ -676,6 +685,7 @@ class SpecDecoder:
         n_arr = np.array([len(o) for o in outs], dtype=np.int32)
 
         self.draft_ms += draft_ms
+        eng._last_draft_ms = draft_ms  # the step ledger's drafter carve
         eng._last_fwds = fwds
         eng._last_poison = torch.from_numpy(poison_h).to(dev)
         eng._last_accepts = row_accepts

@@ -19,8 +19,7 @@ the device, read back once with the tokens; ``finalize_stt_ids`` turns them
 into the transcript's confidence. The endpoint counters and the process-wide
 ``stt.feed_lag_s`` / ``stt.buffered_audio_s`` gauges are JAX's. Left out
 (still JAX-only): ``from_hf`` and checkpoint tokenizers (so no suppressed
-specials), ``finalize_stt_ids``' chaos collapse (``CHAOS_FAULTS`` is refused),
-the cost lanes, and the batched and replicated STT planes.
+specials), the cost lanes, and the batched and replicated STT planes.
 """
 
 from __future__ import annotations
@@ -47,6 +46,7 @@ from ..models.whisper import (
     init_self_cache,
     with_unstacked_layers,
 )
+from ..utils.chaos import chaos_fire
 from ..utils.quality import quality_lanes_enabled, repetition_score
 from ..utils.tracing import get_metrics
 from .engine import _sync, resolve_device
@@ -110,13 +110,15 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
     return out, n, self_cache, conf
 
 
-def finalize_stt_ids(ids: list[int], conf_row, quality_lanes: bool):
-    """THE post-decode tail: one row's lanes ``(sum, min, first)`` -> the
-    transcript's ``logp_mean`` / ``logp_min`` / ``logp_first`` (None with
-    the lanes off or nothing emitted), and the repetition score over the
-    ids. Returns ``(ids, logp_mean, logp_min, logp_first, repetition)``.
-    JAX's ``stt_garble`` chaos collapse is not here: ``CHAOS_FAULTS`` is
-    refused (ROADMAP.md Queue 1 item 4)."""
+def finalize_stt_ids(ids: list[int], conf_row, quality_lanes: bool, final: bool = False):
+    """THE post-decode tail: on a ``final`` the ``stt_garble`` chaos collapse
+    (the ids become their first token repeated; the latency stays green),
+    then one row's lanes ``(sum, min, first)`` -> the transcript's
+    ``logp_mean`` / ``logp_min`` / ``logp_first`` (None with the lanes off
+    or nothing emitted), and the repetition score over the ids. Returns
+    ``(ids, logp_mean, logp_min, logp_first, repetition)``."""
+    if final and ids and chaos_fire("stt_garble"):
+        ids = [ids[0]] * len(ids)
     logp_mean = logp_min = logp_first = None
     if quality_lanes and ids:
         lp_sum, lp_min, lp_first = (float(x) for x in conf_row)
@@ -291,9 +293,11 @@ class SpeechEngine:
 
     # ------------------------------------------------------ transcribe
 
-    def _decode(self, cross_kv: dict, enc_len: int, n_frames: int) -> TranscribeResult:
+    def _decode(self, cross_kv: dict, enc_len: int, n_frames: int,
+                final: bool = False) -> TranscribeResult:
         """Shared decode tail of transcribe() and the streaming partials:
-        greedy loop over the cross-KV at its own length -> transcript."""
+        greedy loop over the cross-KV at its own length -> transcript.
+        ``final`` (transcribe) arms ``stt_garble`` in ``finalize_stt_ids``."""
         t0 = time.perf_counter()
         cache = init_self_cache(self.cfg, 1, dtype=self._param_dtype, device=self.device)
         bos = torch.tensor([list(self.bos_ids)], dtype=torch.int32, device=self.device)
@@ -310,7 +314,7 @@ class SpeechEngine:
         ids = [int(t) for t in h[:n_h]]
         decode_ms = (time.perf_counter() - t0) * 1e3
         ids, logp_mean, logp_min, logp_first, rep = finalize_stt_ids(
-            ids, h[W + 1:W + 4], self.quality_lanes)
+            ids, h[W + 1:W + 4], self.quality_lanes, final)
         return TranscribeResult(text=self.tokenizer.decode(ids).strip(), encode_ms=0.0,
                                 decode_ms=decode_ms, n_frames=n_frames, token_ids=ids,
                                 forwards=1 + min(n_h, self.max_new_tokens),
@@ -342,7 +346,7 @@ class SpeechEngine:
         cross_kv, enc_len, n_frames = self._encode_window(audio)
         _sync(self.device)
         encode_ms = (time.perf_counter() - t0) * 1e3
-        res = self._decode(cross_kv, enc_len, n_frames)
+        res = self._decode(cross_kv, enc_len, n_frames, final=True)
         return dataclasses.replace(res, encode_ms=encode_ms)
 
 

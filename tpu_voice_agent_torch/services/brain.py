@@ -11,20 +11,29 @@ pydantic's ``model_dump()`` fills it); errors come back as
 - 422 ``schema_validation_failed``: the decode ran out of budget before EOS;
 - 503 ``overloaded`` (with ``Retry-After``): the request's ``x-deadline-ms``
   budget had run out on arrival (``deadline_expired``, ``Retry-After: 0``),
-  or the batcher shed it (the KV pool stayed exhausted);
-- 500 ``llm_error``: the engine failed (poisoned row, prompt too long, ...).
+  ``BRAIN_MAX_INFLIGHT`` parses (default 32) were already in flight
+  (``overload``), or the batcher shed it (the KV pool stayed exhausted, or
+  the deadline ran out in the queue: ``engine_overload``);
+- 500 ``llm_error``: the engine failed (poisoned row, quarantined prompt,
+  prompt too long, ...).
 
 A single-slot parser is serialized by one lock (one KV cache); the batched
 parser (``BRAIN_BATCH`` > 1) is ``concurrent_safe``: its requests share
-decode chunks on one serving thread. A session-aware parser (paged engine
-with ``RADIX_ENABLE=1``) receives ``session_id`` and ``speculative``.
-``GET /health`` reports the backend, its device, the SLO verdict and the
-``quality`` block. Every parse records a ``parse`` span (``Tracer("brain")``)
-carrying the decode split and the intent confidence as stage notes, an SLO
-sample and a quality record; a response from an engine backend carries
+decode chunks on one serving thread. The batched parser carries the
+request's deadline into the scheduler (shed at dequeue, evicted between
+chunks), and a client that closes its socket mid-parse has its decode
+cancelled at the next chunk boundary (``brain.parses_cancelled``): the
+handler watches the socket while it waits. A session-aware parser (paged
+engine with ``RADIX_ENABLE=1``) receives ``session_id`` and
+``speculative``. ``GET /health`` reports the backend, its device, the SLO
+verdict, the ``quality`` block, the in-flight count and cap, the quarantine
+list and the last step-ledger entry. Every parse records a ``parse`` span
+(``Tracer("brain")``) carrying the decode split and the intent confidence
+as stage notes, an SLO sample and a quality record; a response from an engine backend carries
 ``x-intent-margin`` beside the decode headers. ``GET /metrics`` (JSON, or
-Prometheus text under ``Accept: text/plain``), ``GET /debug/trace/{id}`` and
-``GET /debug/quality`` are served; the JAX brain's other routes answer 501
+Prometheus text under ``Accept: text/plain``), ``GET /debug/trace/{id}``,
+``GET /debug/quality``, ``GET /debug/steplog`` and ``GET
+/debug/flightrecorder`` are served; the JAX brain's other routes answer 501
 ``not_ported`` with the ROADMAP.md Queue 1 item that brings them
 (``UNPORTED_ROUTES``). The HTTP layer is the standard library's
 ``ThreadingHTTPServer``.
@@ -46,8 +55,17 @@ pool), ``KV_QUANT`` (``int8`` / ``int4``: the quantized paged pool),
 preset such as ``mixtral-8x7b``), and ``BRAIN_DEVICE`` (default ``cuda``;
 ``cpu`` runs the plain versions), ``QUALITY_ENABLE`` (the decode loops'
 quality lanes, default on), ``QUALITY_WINDOW`` / ``QUALITY_SLO_*``,
-``SLO_*`` and ``TRACE_SINK``. The JAX service's knobs that the port does not
-serve raise ``ValueError`` at boot (``check_unserved_knobs``).
+``SLO_*``, ``TRACE_SINK``, ``BRAIN_MAX_INFLIGHT``, ``QUARANTINE_AFTER`` and
+``PREFILL_CHUNK_TOKENS`` (read by the batcher), ``STEPLOG_*``, ``FLIGHT_*``,
+``QUALITY_CANARY_S`` / ``QUALITY_CANARY_SLICE`` / ``QUALITY_CANARY_OCCUPANCY``
+(the golden-replay canary, started by ``make_server``), and ``CHAOS_FAULTS`` /
+``CHAOS_SEED`` with ``CHAOS_HANG_S`` / ``CHAOS_SLOW_S``: the replica points
+draw on ``POST /parse`` only (``replica_kill`` latches and closes every later
+connection without a response, ``replica_hang`` / ``replica_slow`` sleep,
+``replica_degrade`` latches slow), and ``intent_downgrade`` latches a
+rule-fallback "unknown" answer. The JAX service's knobs and chaos points
+that the port does not serve raise ``ValueError`` at boot
+(``check_unserved_knobs``).
 """
 
 from __future__ import annotations
@@ -56,11 +74,13 @@ import json
 import logging
 import os
 import re
+import select
+import socket
 import threading
 import time
 from collections import OrderedDict
 from dataclasses import replace
-from concurrent.futures import Future
+from concurrent.futures import CancelledError, Future, InvalidStateError
 from concurrent.futures import TimeoutError as FutureTimeout
 from contextlib import nullcontext
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -71,10 +91,13 @@ from ..schemas import (
     validate_parse_request,
     validate_parse_response,
 )
-from ..utils.quality import QualityMonitor, check_canary_knob
+from ..utils.chaos import chaos_fire, check_served_points
+from ..utils.quality import GoldenCanary, QualityMonitor
+from ..utils.steplog import get_steplog, steplog_response
 from ..utils.tracing import (
     TRACE_ROUTE,
     Tracer,
+    flightrecorder_response,
     get_metrics,
     metrics_response,
     new_trace_id,
@@ -84,7 +107,14 @@ from ..utils.tracing import (
     trace_response,
 )
 from .prompts import render_prompt
-from .resilience import Deadline
+from .resilience import (
+    AdmissionController,
+    Deadline,
+    RequestContext,
+    current_request_context,
+    pop_request_context,
+    push_request_context,
+)
 from .slo import SLOTracker
 from .ws import Headers, Request
 
@@ -101,7 +131,7 @@ class ParserError(Exception):
 def _result_to_response(res) -> dict:
     """GenerationResult -> the ParseResponse dict, with the service's
     error mapping: a shed request (``shed: ...``) is ``overloaded``, any
-    other failure (a poisoned row) ``llm_error``, a decode that never
+    other failure (poisoned, quarantined, cancelled) ``llm_error``, a decode that never
     reached EOS ``schema_validation_failed``. Deposits the request's decode
     split and confidence (from its own result) as stage notes on the
     calling thread: the handler's span, quality record and headers read
@@ -219,15 +249,18 @@ class SessionTranscripts:
 
 class ServingLoop:
     """One thread that steps a ``ContinuousBatcher``: ``submit`` queues a
-    prompt and returns a ``Future`` of its GenerationResult. New requests
-    join at chunk boundaries. A fault out of ``step`` (a CUDA error is never
-    handled per request) fails every in-flight future and stops the loop;
-    ``healthy`` turns False and later submits fail at once."""
+    prompt (with its ``Deadline``) and returns a ``Future`` of its
+    GenerationResult. New requests join at chunk boundaries; one the batcher
+    refuses at submit (a quarantined prompt) resolves before the next step.
+    Every batcher call runs on the loop's thread. A fault out of ``step`` (a
+    CUDA error is never handled per request) fails every in-flight future
+    and stops the loop; ``healthy`` turns False and later submits fail at
+    once."""
 
     def __init__(self, batcher):
         self.batcher = batcher
         self._cv = threading.Condition()
-        self._inbox: list[tuple[object, Future]] = []
+        self._inbox: list[tuple[object, object, Future]] = []
         self._abandoned: set[Future] = set()
         self._futures: dict[int, Future] = {}
         self._stop = False
@@ -235,19 +268,22 @@ class ServingLoop:
         self._thread = threading.Thread(target=self._run, name="brain-batcher", daemon=True)
         self._thread.start()
 
-    def submit(self, prompt) -> Future:
+    def submit(self, prompt, deadline=None) -> Future:
         fut: Future = Future()
         with self._cv:
             if self.error is not None or self._stop:
                 fut.set_exception(RuntimeError(f"serving loop stopped: {self.error}"))
                 return fut
-            self._inbox.append((prompt, fut))
+            self._inbox.append((prompt, deadline, fut))
             self._cv.notify()
         return fut
 
     def abandon(self, fut: Future) -> None:
-        """Drop a request nobody waits for: a queued one leaves the queue;
-        one already decoding finishes and its result is discarded."""
+        """Give up on a request (its caller timed out or disconnected): the
+        loop cancels it in the batcher, so a queued one leaves the queue and
+        one already decoding is evicted at the next chunk boundary, its slot
+        and KV blocks freed. The loop's thread then cancels the future: no
+        other thread changes a future's state."""
         with self._cv:
             self._abandoned.add(fut)
             self._cv.notify()
@@ -271,29 +307,43 @@ class ServingLoop:
                     return
                 inbox, self._inbox = self._inbox, []
                 gone, self._abandoned = self._abandoned, set()
-            for prompt, fut in inbox:
-                if fut not in gone:
-                    self._futures[b.submit(prompt)] = fut
-            for r in [r for r, f in self._futures.items() if f in gone]:
-                if b.cancel(r):  # still queued; a decoding one finishes unread
-                    self._futures.pop(r)
             try:
+                for prompt, deadline, fut in inbox:
+                    if fut not in gone:
+                        self._futures[b.submit(prompt, deadline=deadline)] = fut
+                for r in [r for r, f in self._futures.items() if f in gone]:
+                    b.cancel(r, "client gone")
+                    self._futures.pop(r)
+                    b.results.pop(r, None)  # nobody reads it
+                for fut in gone:
+                    fut.cancel()
+                self._resolve()  # refused at submit: answered before any step
                 b.step()
+                self._resolve()
             except BaseException as e:  # noqa: BLE001 - every waiter must hear of it
                 with self._cv:
                     self.error = e
-                    waiting = list(self._futures.values()) + [f for _, f in self._inbox]
+                    waiting = (list(self._futures.values())
+                               + [f for *_, f in inbox + self._inbox])
                     self._futures.clear()
                     self._inbox.clear()
                 for fut in waiting:
-                    if not fut.done():
-                        fut.set_exception(e)
+                    _settle(fut.set_exception, e)
                 return
-            for rid in [r for r in self._futures if r in b.results]:
-                fut = self._futures.pop(rid)
-                res = b.results.pop(rid)
-                if not fut.done():
-                    fut.set_result(res)
+
+    def _resolve(self) -> None:
+        b = self.batcher
+        for rid in [r for r in self._futures if r in b.results]:
+            _settle(self._futures.pop(rid).set_result, b.results.pop(rid))
+
+
+def _settle(setter, value) -> None:
+    """Resolve a future unless it is already done: one cancelled by some
+    other holder in the meantime stays cancelled (its setter raises)."""
+    try:
+        setter(value)
+    except InvalidStateError:
+        pass
 
 
 class BatchedEngineParser:
@@ -306,9 +356,16 @@ class BatchedEngineParser:
     of turn N-1's. Speculative turns run two-phase: the provisional turn
     decodes, but the transcript advances only when the matching final
     commits it (answered from the cached plan, no decode). ``render`` maps
-    (text, context) -> prompt, as ``EngineParser``'s does."""
+    (text, context) -> prompt, as ``EngineParser``'s does.
+
+    The request context on the calling thread (``RequestContext``, pushed by
+    ``BrainApp``) carries the deadline into the batcher, and registers the
+    abandon of this request as its cancel callback; while the parse waits,
+    its ``client_gone`` probe is asked every ``WATCH_S``, and a gone client
+    cancels the context."""
 
     concurrent_safe = True  # BrainApp skips the serialization lock
+    WATCH_S = 0.2  # how often a waiting parse asks whether its client is gone
 
     def __init__(self, engine, chunk_steps: int = 16, max_new_tokens: int = 512,
                  timeout_s: float = 120.0, session_aware: bool = False, render=None):
@@ -336,14 +393,28 @@ class BatchedEngineParser:
         return getattr(self._tls, "result", None)
 
     def _decode(self, prompt):
-        fut = self.loop.submit(prompt)
-        try:
-            res = fut.result(timeout=self.timeout_s)
-        except FutureTimeout as e:
-            self.loop.abandon(fut)
-            raise ParserError("llm_error", "batched decode timed out") from e
-        except Exception as e:
-            raise ParserError("llm_error", str(e)) from e
+        ctx = current_request_context()
+        fut = self.loop.submit(prompt, deadline=ctx.deadline if ctx is not None else None)
+        if ctx is not None:
+            ctx.on_cancel(lambda: self.loop.abandon(fut))
+        give_up = time.monotonic() + self.timeout_s
+        while True:
+            try:
+                res = fut.result(timeout=max(0.0, min(self.WATCH_S,
+                                                      give_up - time.monotonic())))
+                break
+            except FutureTimeout as e:
+                if ctx is not None and ctx.client_gone():
+                    ctx.cancel()  # abandons the request: evicted at the next chunk
+                    raise ParserError("llm_error", "cancelled: client disconnected") from e
+                if time.monotonic() >= give_up:
+                    # queued: dropped now; decoding: evicted at the next chunk
+                    self.loop.abandon(fut)
+                    raise ParserError("llm_error", "batched decode timed out") from e
+            except CancelledError as e:  # a BaseException: the broad catch misses it
+                raise ParserError("llm_error", "cancelled: client disconnected") from e
+            except Exception as e:
+                raise ParserError("llm_error", str(e)) from e
         self._tls.result = res
         return res
 
@@ -396,6 +467,27 @@ class BatchedEngineParser:
 
     def healthy(self) -> bool:
         return self.loop.healthy()
+
+    def quarantine_info(self) -> list[dict]:
+        """The active quarantine entries (``/health``)."""
+        return self.batcher.quarantined()
+
+    def pressure_fractions(self) -> dict:
+        """Live saturation fractions: slot occupancy and, on the paged pool,
+        the blocks in use net of what the radix tree could reclaim. Read
+        from the current state, unlocked: racy but monotone reads, enough
+        for a busy test."""
+        b = self.batcher
+        out = {"scheduler.batch_occupancy":
+               sum(1 for s in b.slots if s.request_id >= 0) / max(1, b.B)}
+        alloc = getattr(self.engine, "allocator", None)
+        if alloc is not None:
+            used = alloc.blocks_in_use
+            radix = getattr(self.engine, "radix", None)
+            if radix is not None:
+                used -= radix.reclaimable_blocks()
+            out["paged.kv_pressure"] = max(0, used) / max(1, alloc.usable_blocks)
+        return out
 
     def close(self) -> None:
         self.loop.stop()
@@ -506,21 +598,21 @@ def _wrap_engine(engine):
     return EngineParser(engine)
 
 
-# Knobs of features the port lacks: any set, non-empty value is refused.
-# Unset or empty is the JAX default (one-shot prefill, no quarantine list,
-# no tenant preemption, no admission cap, no tenant classes, no injected
-# faults) or, for ENGINE_STALL_S, what the port has instead of the JAX
-# serving loop's watchdog: none.
-UNSERVED_KNOBS = ("PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "TENANT_PREEMPT",
-                  "BRAIN_MAX_INFLIGHT", "TENANT_CLASSES", "CHAOS_FAULTS", "ENGINE_STALL_S")
+# Knobs of features the port lacks -> the ROADMAP.md Queue 1 item that
+# brings them: any set, non-empty value is refused. Unset or empty is the JAX
+# default (no tenant classes, so no preemption) or, for ENGINE_STALL_S, what
+# the port has instead of the JAX serving loop's watchdog: none.
+UNSERVED_KNOBS = {"TENANT_CLASSES": (4, "tenancy"), "TENANT_PREEMPT": (4, "tenancy"),
+                  "ENGINE_STALL_S": (6, "the stalled-step watchdog")}
 
 
 def check_unserved_knobs() -> None:
     """Refuse at boot what the JAX brain would honour and the port would
     silently ignore: ``BRAIN_MODEL`` (no checkpoint import yet), a radix knob
-    at another value than the port's constant, and the knobs of features the
-    port lacks. The radix knobs stay fixed until ROADMAP.md Queue 1 item 4
-    (the rest of continuous batching) lands."""
+    at another value than the port's constant, the knobs of features the
+    port lacks, and a ``CHAOS_FAULTS`` that names an unknown point or arms
+    one the port does not serve. The radix knobs stay fixed until ROADMAP.md
+    Queue 1 item 4 (the rest of continuous batching) lands."""
     from ..serve.paged import PRESSURE_WINDOW_S, RADIX_MAX_NODES
 
     if os.environ.get("BRAIN_MODEL"):
@@ -540,11 +632,12 @@ def check_unserved_knobs() -> None:
         if not ok:
             raise ValueError(f"{name}={raw!r}: the port serves {name} at {fixed} only "
                              "(configurable with ROADMAP.md Queue 1 item 4); unset it")
-    for name in UNSERVED_KNOBS:
+    for name, (item, what) in UNSERVED_KNOBS.items():
         raw = os.environ.get(name, "").strip()
         if raw:
-            raise ValueError(f"{name}={raw!r} is not ported yet (ROADMAP.md Queue 1 item 4, "
-                             "the rest of continuous batching); unset it")
+            raise ValueError(f"{name}={raw!r}: {what} is not ported yet (ROADMAP.md Queue 1 "
+                             f"item {item}); unset it")
+    check_served_points()
 
 
 # Knobs JAX's distilled backend ignores without a word (its engine is fixed:
@@ -573,7 +666,6 @@ def make_parser_from_env():
     from ..serve.spec import spec_from_env
 
     check_unserved_knobs()
-    check_canary_knob()
     slots = int(os.environ.get("BRAIN_BATCH", "1"))
     device = os.environ.get("BRAIN_DEVICE") or None
     paged = os.environ.get("BRAIN_PAGED") == "1"
@@ -625,13 +717,13 @@ def make_parser_from_env():
 # Routes of the JAX brain that the port does not serve: path (a prefix when
 # it ends in "/") -> the ROADMAP.md Queue 1 item that brings it
 UNPORTED_ROUTES = (
-    ("/debug/flightrecorder", 3), ("/debug/steplog", 4), ("/debug/costs", 7),
-    ("/debug/timeseries", 7), ("/admin/handoff", 6), ("/admin/handoff/", 6),
+    ("/debug/costs", 7), ("/debug/timeseries", 7), ("/admin/handoff", 6), ("/admin/handoff/", 6),
     ("/admin/disagg/prefill", 6), ("/admin/disagg/adopt", 6), ("/admin/drain", 6),
 )
 # served routes: path (a prefix when it ends in "/") -> method
 SERVED_ROUTES = (("/health", "GET"), ("/parse", "POST"), ("/metrics", "GET"),
-                 (TRACE_ROUTE, "GET"), ("/debug/quality", "GET"))
+                 (TRACE_ROUTE, "GET"), ("/debug/quality", "GET"), ("/debug/steplog", "GET"),
+                 ("/debug/flightrecorder", "GET"))
 
 
 def _match(path: str, table):
@@ -649,28 +741,80 @@ def shed_count(service: str, reason: str) -> None:
     get_metrics().inc(f"{service}.shed_{reason}")
 
 
+class ConnectionDropped(Exception):
+    """Close the connection without a response: a chaos-killed replica, or
+    a client that went away mid-parse."""
+
+
+# the degraded answer the intent_downgrade latch serves (JAX's)
+DOWNGRADED_RESPONSE = {"intents": [{"type": "unknown"}], "confidence": 0.1,
+                       "follow_up_question": "I did not catch a browser action - "
+                                             "could you rephrase?"}
+
+
 class BrainApp:
     """The brain's handlers, free of any HTTP machinery: ``parse`` and
     ``health`` return (status, body, extra headers); ``handle`` routes any
-    request. One ``Tracer("brain")`` per app (its registry also holds the
-    quality monitor's gauges) and one ``SLOTracker("brain")``."""
+    request and raises ``ConnectionDropped`` where no response may go out.
+    One ``Tracer("brain")`` per app (its registry also holds the quality
+    monitor's gauges), one ``SLOTracker("brain")``, one
+    ``AdmissionController("brain")`` (``max_inflight``, default
+    ``BRAIN_MAX_INFLIGHT`` or 32) and one ``GoldenCanary`` (``start`` /
+    ``close``: running only with ``QUALITY_CANARY_S`` > 0)."""
 
-    def __init__(self, parser, tracer: Tracer | None = None):
-        check_canary_knob()
+    def __init__(self, parser, tracer: Tracer | None = None, max_inflight: int | None = None):
         self.parser = parser
         self.lock = threading.Lock()
         self.tracer = tracer or Tracer("brain", emit=False)
         self.slo = SLOTracker("brain")
+        self.admission = AdmissionController(
+            "brain", max_inflight if max_inflight is not None
+            else int(os.environ.get("BRAIN_MAX_INFLIGHT", "32")))
         self.qmon = QualityMonitor("brain", metrics=self.tracer.metrics)
-        # registered at zero, as in JAX (the downgrade latch is a chaos
-        # point, and CHAOS_FAULTS is refused)
+        # registered at zero, as in JAX: the downgrade latch counts through
+        # the monitor's ledger
         self.qmon.metrics.inc("quality.intent_downgrades", 0.0)
+        self._downgraded = False
+        # the replica chaos latches: killed (every later request dropped),
+        # degraded (every later /parse slow)
+        self._dead = False
+        self._slow = False
+        occupancy = float(os.environ.get("QUALITY_CANARY_OCCUPANCY", "0.5"))
+
+        def busy() -> bool:
+            if self.admission.inflight > 0:
+                return True
+            live = getattr(parser, "pressure_fractions", None)
+            if live is None:
+                return False
+            try:
+                fr = live()
+            except Exception:  # noqa: BLE001 - a busy test never fails the canary
+                return False
+            return bool(fr) and max(fr.values()) >= occupancy
+
+        self.canary = GoldenCanary(lambda text, ctx: self._do_parse(text, ctx, None, False),
+                                   self.qmon, busy_fn=busy)
+
+    def start(self) -> None:
+        """The serving-side threads: the golden canary, when enabled."""
+        self.canary.start()
+
+    def close(self) -> None:
+        self.canary.stop()
 
     def health(self) -> tuple[int, dict, dict]:
         engine = getattr(self.parser, "engine", None)
         healthy = getattr(self.parser, "healthy", lambda: True)()
         body = {"ok": healthy, "service": "brain", "slo": self.slo.state(),
-                "quality": self.qmon.health()}
+                "quality": self.qmon.health(), "inflight": self.admission.inflight,
+                "max_inflight": self.admission.max_inflight}
+        qinfo = getattr(self.parser, "quarantine_info", None)
+        if qinfo is not None:
+            body["quarantine"] = qinfo()
+        last_step = get_steplog().last()
+        if last_step is not None:
+            body["last_step"] = last_step
         if engine is not None:
             body.update(device=str(engine.device), kernels=engine.kernels,
                         quant=engine.quant, fast_forward=engine.fast_forward,
@@ -684,23 +828,46 @@ class BrainApp:
                               {"k": engine.spec.K, "drafter": engine.spec.drafter.name}))
         return (200 if healthy else 503), body, {}
 
-    def parse(self, raw: bytes, req_headers=None) -> tuple[int, dict, dict]:
+    def _do_parse(self, text: str, context: dict, session_id, speculative: bool) -> dict:
+        """One parse through the downgrade latch and the parser (the
+        serialization lock for a single-slot engine): what traffic and the
+        canary both go through."""
+        if self._downgraded or chaos_fire("intent_downgrade"):
+            # the latch: fast, healthy-looking answers with quality on the floor
+            self._downgraded = True
+            self.qmon._count("quality.intent_downgrades")
+            resp, _ = validate_parse_response(DOWNGRADED_RESPONSE)
+            return resp
+        guard = nullcontext() if getattr(self.parser, "concurrent_safe", False) else self.lock
+        with guard:
+            if getattr(self.parser, "wants_session", False):
+                return self.parser.parse(text, context, session_id, speculative)
+            return self.parser.parse(text, context)
+
+    def parse(self, raw: bytes, req_headers=None, peer_gone=None) -> tuple[int, dict, dict]:
         """``req_headers``: the request's headers (any mapping with
         ``items()``, names in any case): ``x-trace-id`` and
-        ``x-deadline-ms``. The SLO sample covers the whole request; a 5xx
-        burns error budget, a 4xx is an answer about the request."""
+        ``x-deadline-ms``. ``peer_gone``: the transport's probe of its
+        client (``RequestContext``). The SLO sample covers the whole
+        request; a 5xx burns error budget, a 4xx is an answer about the
+        request. A client gone mid-parse raises ``ConnectionDropped``."""
         t0 = time.perf_counter()
-        status, body, headers = self._parse(raw, req_headers)
+        status, body, headers = self._parse(raw, req_headers, peer_gone)
         self.slo.record((time.perf_counter() - t0) * 1e3, ok=status < 500)
         return status, body, headers
 
-    def _parse(self, raw: bytes, req_headers) -> tuple[int, dict, dict]:
+    def _parse(self, raw: bytes, req_headers, peer_gone) -> tuple[int, dict, dict]:
         req_headers = {k.lower(): v for k, v in (req_headers or {}).items()}
         trace_id = req_headers.get("x-trace-id") or new_trace_id()
         headers = {"x-trace-id": trace_id}
 
         def error(status: int, kind: str, detail: str):
             return status, {"error": kind, "detail": detail[:500]}, headers
+
+        def shed(reason: str, retry_after: str):
+            shed_count("brain", reason)
+            return 503, {"error": "overloaded", "detail": reason}, {
+                **headers, "Retry-After": retry_after}
 
         try:
             body = json.loads(raw or b"")
@@ -717,51 +884,79 @@ class BrainApp:
         if deadline is not None and deadline.expired:
             # the caller already gave up: answering with work would burn a
             # decode on a response nobody reads
-            shed_count("brain", "deadline_expired")
-            return 503, {"error": "overloaded", "detail": "deadline_expired"}, {
-                **headers, "Retry-After": "0"}
-        session = getattr(self.parser, "wants_session", False)
-        # a single-slot engine owns one KV cache: its parses serialize
-        guard = nullcontext() if getattr(self.parser, "concurrent_safe", False) else self.lock
+            return shed("deadline_expired", "0")
+        if not self.admission.try_acquire():
+            return shed("overload", str(int(self.admission.retry_after_s)))
+        # the containment handle: the deadline into the scheduler, the
+        # disconnect probe for the waiting parse
+        ctx = RequestContext(deadline, peer_gone=peer_gone)
+        push_request_context(ctx)
         pop_stage_notes()  # drop a stale note of an earlier request on this thread
-        with self.tracer.span("parse", trace_id=trace_id, chars=len(preq["text"])) as sp, guard:
-            try:
-                if session:
-                    resp = self.parser.parse(preq["text"], preq["context"], preq["session_id"],
-                                             preq["speculative"])
-                else:
-                    resp = self.parser.parse(preq["text"], preq["context"])
-            except ParserError as e:
-                if e.kind == "overloaded":
-                    shed_count("brain", "engine_overload")
-                    headers["Retry-After"] = "1"
-                    return error(503, e.kind, e.detail)
-                status = 422 if e.kind == "schema_validation_failed" else 500
-                return error(status, e.kind, e.detail)
-            except Exception as e:  # engine crash etc.
-                return error(500, "llm_error", str(e))
-            # the parser noted the split on THIS thread, from its own result
-            notes = pop_stage_notes()
-            sp.attrs.update(notes)
+        try:
+            with self.tracer.span("parse", trace_id=trace_id, chars=len(preq["text"])) as sp:
+                try:
+                    resp = self._do_parse(preq["text"], preq["context"], preq["session_id"],
+                                          preq["speculative"])
+                except ParserError as e:
+                    if ctx.cancelled:
+                        get_metrics().inc("brain.parses_cancelled")
+                        raise ConnectionDropped("client disconnected mid-parse") from e
+                    if e.kind == "overloaded":
+                        shed_count("brain", "engine_overload")
+                        headers["Retry-After"] = "1"
+                        return error(503, e.kind, e.detail)
+                    status = 422 if e.kind == "schema_validation_failed" else 500
+                    return error(status, e.kind, e.detail)
+                except Exception as e:  # engine crash etc.
+                    return error(500, "llm_error", str(e))
+                # the parser noted the split on THIS thread, from its own result
+                notes = pop_stage_notes()
+                sp.attrs.update(notes)
+        finally:
+            pop_request_context()
+            self.admission.release()
         self.qmon.record_intent(margin=notes.get("intent_margin"),
                                 entropy=notes.get("intent_entropy"),
-                                forced_frac=notes.get("intent_forced_frac"), text=preq["text"])
+                                forced_frac=notes.get("intent_forced_frac"),
+                                downgraded=self._downgraded, text=preq["text"])
         for note, header in (("prefill_ms", "x-prefill-ms"), ("decode_ms", "x-decode-ms"),
                              ("cached_tokens", "x-cached-tokens"),
                              ("prompt_tokens", "x-prompt-tokens"),
                              ("intent_margin", "x-intent-margin")):
             if note in notes:
                 headers[header] = str(notes[note])
-        if preq["speculative"] and session and preq["session_id"]:
+        if (preq["speculative"] and getattr(self.parser, "wants_session", False)
+                and preq["session_id"]):
             # a pending two-phase turn: the matching final parse commits it
             headers["x-speculation-pending"] = "1"
         return 200, resp, headers
 
+    def _replica_chaos(self, req: Request) -> None:
+        """The replica chaos points, drawn on ``POST /parse`` only (a health
+        probe never consumes an ``@k`` count): ``replica_kill`` latches the
+        app dead and drops the connection; ``replica_degrade`` latches it
+        slow; ``replica_hang`` sleeps ``CHAOS_HANG_S`` (60), ``replica_slow``
+        ``CHAOS_SLOW_S`` (0.25). Chaos off: one dict miss a point."""
+        if self._dead:
+            raise ConnectionDropped("chaos: replica killed")
+        if req.method != "POST" or req.path != "/parse":
+            return
+        if chaos_fire("replica_kill"):
+            self._dead = True
+            raise ConnectionDropped("chaos: replica killed")
+        if chaos_fire("replica_degrade"):
+            self._slow = True
+        if chaos_fire("replica_hang"):
+            time.sleep(float(os.environ.get("CHAOS_HANG_S", "60")))
+        elif self._slow or chaos_fire("replica_slow"):
+            time.sleep(float(os.environ.get("CHAOS_SLOW_S", "0.25")))
 
-    def handle(self, req: Request) -> tuple[int, dict | str, dict]:
+    def handle(self, req: Request, peer_gone=None) -> tuple[int, dict | str, dict]:
         """Route one request: a served route, 405 for another method on it,
         501 ``not_ported`` naming the item for a JAX route the port lacks,
-        and 404 only for a path the JAX brain does not route either."""
+        and 404 only for a path the JAX brain does not route either.
+        ``peer_gone`` reaches ``parse``."""
+        self._replica_chaos(req)
         method = _match(req.path, SERVED_ROUTES)
         if method is None:
             item = _match(req.path, UNPORTED_ROUTES)
@@ -772,20 +967,43 @@ class BrainApp:
         if req.method != method:
             return 405, {"error": "method_not_allowed", "detail": req.method}, {}
         if req.path == "/parse":
-            return self.parse(req.body, req.headers)
+            return self.parse(req.body, req.headers, peer_gone)
         if req.path == "/health":
             return self.health()
         if req.path == "/metrics":
             r = metrics_response("brain", self.tracer, req, slo=self.slo)
         elif req.path == "/debug/quality":
             r = self.qmon.response()
+        elif req.path == "/debug/steplog":
+            r = steplog_response("brain", req)
+        elif req.path == "/debug/flightrecorder":
+            r = flightrecorder_response("brain", req)
         else:
             r = trace_response("brain", self.tracer, req)
         return r.status, r.body, r.headers
 
 
+def socket_gone(sock: socket.socket) -> bool:
+    """True when the peer of ``sock`` has closed it (a peek reads nothing)
+    or reset it. Peeks without waiting, so request bytes stay. ``poll``,
+    not ``select``: a busy server's descriptors pass FD_SETSIZE. A probe
+    that cannot tell says the peer is there: the parse then ends on its
+    result or its timeout."""
+    try:
+        p = select.poll()
+        p.register(sock, select.POLLIN)
+        if not p.poll(0):
+            return False
+        return sock.recv(1, socket.MSG_PEEK | socket.MSG_DONTWAIT) == b""
+    except ConnectionError:  # reset, aborted, broken pipe
+        return True
+    except (OSError, ValueError):  # would block, or no descriptor to ask
+        return False
+
+
 def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> ThreadingHTTPServer:
-    """An HTTP server over ``app`` (``port=0`` picks a free one)."""
+    """An HTTP server over ``app`` (``port=0`` picks a free one); starts
+    the app's canary (``app.close()`` stops it)."""
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -807,8 +1025,19 @@ def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> Thr
             n = int(self.headers.get("Content-Length") or 0)
             raw = self.rfile.read(n) if n else b""
             path, _, query = self.path.partition("?")
-            self._send(*app.handle(Request(method, path, query, Headers(self.headers.items()),
-                                           raw)))
+            sock = self.connection
+            try:
+                out = app.handle(Request(method, path, query, Headers(self.headers.items()), raw),
+                                 peer_gone=lambda: socket_gone(sock))
+            except ConnectionDropped:
+                # no response at all: the client sees the connection close
+                self.close_connection = True
+                try:
+                    sock.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                return
+            self._send(*out)
 
         def do_GET(self):
             self._route("GET")
@@ -819,18 +1048,21 @@ def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> Thr
         def log_message(self, fmt, *args):  # quiet: one line per request is noise
             pass
 
-    return ThreadingHTTPServer((host, port), Handler)
+    server = ThreadingHTTPServer((host, port), Handler)
+    app.start()
+    return server
 
 
 def main() -> None:
     port = int(os.environ.get("BRAIN_PORT", "8090"))
-    server = make_server(BrainApp(make_parser_from_env(), tracer=Tracer("brain")),
-                         host="0.0.0.0", port=port)
+    app = BrainApp(make_parser_from_env(), tracer=Tracer("brain"))
+    server = make_server(app, host="0.0.0.0", port=port)
     print(f"brain: serving /parse on :{server.server_address[1]}", flush=True)
     try:
         server.serve_forever()
     finally:
         server.server_close()
+        app.close()
 
 
 if __name__ == "__main__":

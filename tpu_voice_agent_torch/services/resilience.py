@@ -3,19 +3,25 @@
 Port of ``tpu_voice_agent/utils/resilience.py`` with JAX's
 ``resilience.<dep>.*`` series (the breaker's state gauge, registered at 0 from
 construction; its transition and rejection counters; the retry and
-transport-error counters). Not ported: the flight-recorder trigger on a
-breaker opening (ROADMAP.md Queue 1 item 3) and the admission controller
-(item 4).
+transport-error counters).
 
 - ``Deadline``: a request's remaining time budget. The remaining
   milliseconds travel in the ``x-deadline-ms`` header, and a service answers
   a budget that has run out with 503 ``{"error": "overloaded", "detail":
   "deadline_expired"}`` and ``Retry-After: 0`` before doing any work (the
-  brain's ``/parse`` gate). Carrying the deadline into the scheduler is not
-  ported yet.
+  brain's ``/parse`` gate). Inside the brain the deadline rides a
+  ``RequestContext`` into the scheduler: shed at dequeue, cancelled between
+  decode chunks.
+- ``RequestContext``: the per-request containment handle (the deadline, and
+  the cancel callbacks a client disconnect fires), installed on the thread
+  that runs the parse (``push_request_context``).
 - ``RetryPolicy``: jittered exponential backoff, clipped to the deadline.
 - ``CircuitBreaker``: closed -> open after ``failure_threshold`` consecutive
-  failures -> half-open after ``reset_after_s`` (one probe call passes).
+  failures -> half-open after ``reset_after_s`` (one probe call passes). An
+  opening freezes the flight recorder (``breaker.<name>.open``).
+- ``AdmissionController``: the in-flight cap behind the brain's
+  ``BRAIN_MAX_INFLIGHT`` (``resilience.<name>.inflight`` /
+  ``max_inflight`` gauges, ``shed_overload`` counter).
 - ``post_with_resilience``: the budgeted, breaker-guarded POST of the voice
   service's two hops, over ``ws.HTTPClient``.
 
@@ -31,7 +37,7 @@ import threading
 import time
 from dataclasses import dataclass
 
-from ..utils.tracing import get_metrics
+from ..utils.tracing import get_flight_recorder, get_metrics
 from .ws import ConnectError, HTTPError
 
 # remaining-budget propagation header: milliseconds left, clamped at 0
@@ -91,6 +97,66 @@ class Deadline:
 
     def header_value(self) -> str:
         return str(int(self.remaining_s() * 1e3))
+
+
+class RequestContext:
+    """Per-request containment handle from a service handler into the
+    inference plane: the propagated ``Deadline`` and the cancel callbacks a
+    client disconnect fires. ``cancel()`` is idempotent and thread-safe; a
+    callback registered after cancellation fires at once. ``peer_gone``
+    (optional, no arguments) is the transport's probe of its client: the
+    stdlib HTTP server cannot cancel a handler, so the waiting parse asks
+    ``client_gone`` between short waits."""
+
+    def __init__(self, deadline: "Deadline | None" = None, peer_gone=None):
+        self.deadline = deadline
+        self._peer_gone = peer_gone
+        self._lock = threading.Lock()
+        self._cancelled = False
+        self._cbs: list = []
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancelled
+
+    def client_gone(self) -> bool:
+        return self._peer_gone is not None and bool(self._peer_gone())
+
+    def on_cancel(self, cb) -> None:
+        with self._lock:
+            if not self._cancelled:
+                self._cbs.append(cb)
+                return
+        cb()  # already cancelled: fire now, outside the lock
+
+    def cancel(self) -> None:
+        with self._lock:
+            if self._cancelled:
+                return
+            self._cancelled = True
+            cbs, self._cbs = self._cbs, []
+        for cb in cbs:
+            try:
+                cb()
+            except Exception:
+                get_metrics().inc("resilience.cancel_callback_errors")
+
+
+_req_ctx = threading.local()
+
+
+def push_request_context(ctx: RequestContext | None) -> None:
+    """Install the context on THIS thread (the thread that runs the parse);
+    backends read it with ``current_request_context``."""
+    _req_ctx.ctx = ctx
+
+
+def pop_request_context() -> None:
+    _req_ctx.ctx = None
+
+
+def current_request_context() -> RequestContext | None:
+    return getattr(_req_ctx, "ctx", None)
 
 
 @dataclass(frozen=True)
@@ -172,6 +238,7 @@ class CircuitBreaker:
             self._gauge(0)
 
     def record_failure(self) -> None:
+        tripped = False
         with self._lock:
             # past the reset window the breaker IS half-open, whichever label
             # is stored: a failure then re-opens it (refreshing _opened_at)
@@ -180,10 +247,16 @@ class CircuitBreaker:
                              and self._clock() - self._opened_at >= self.reset_after_s))
             if half_open:
                 self._trip()
+                tripped = True
             else:
                 self._failures += 1
                 if self._state == "closed" and self._failures >= self.failure_threshold:
                     self._trip()
+                    tripped = True
+        if tripped:
+            # an opening is an incident: freeze the flight recorder, outside
+            # the breaker lock (the freeze copies rings and may write a file)
+            get_flight_recorder().trigger(f"breaker.{self.name}.open")
 
     def _trip(self) -> None:
         self._state = "open"
@@ -194,6 +267,40 @@ class CircuitBreaker:
 
     def _gauge(self, v: int) -> None:
         get_metrics().set_gauge(f"resilience.{self.name}.breaker_state", v)
+
+
+class AdmissionController:
+    """In-flight cap: past ``max_inflight`` a server answers 503 +
+    ``Retry-After`` instead of queueing without bound."""
+
+    def __init__(self, name: str, max_inflight: int, retry_after_s: float = 1.0):
+        self.name = name
+        self.max_inflight = max(1, max_inflight)
+        self.retry_after_s = retry_after_s
+        self._lock = threading.Lock()
+        self._inflight = 0
+        # scrape-visible from construction, like the breaker state gauge
+        get_metrics().set_gauge(f"resilience.{name}.inflight", 0)
+        get_metrics().set_gauge(f"resilience.{name}.max_inflight", self.max_inflight)
+
+    @property
+    def inflight(self) -> int:
+        with self._lock:
+            return self._inflight
+
+    def try_acquire(self) -> bool:
+        with self._lock:
+            if self._inflight >= self.max_inflight:
+                get_metrics().inc(f"resilience.{self.name}.shed_overload")
+                return False
+            self._inflight += 1
+            get_metrics().set_gauge(f"resilience.{self.name}.inflight", self._inflight)
+            return True
+
+    def release(self) -> None:
+        with self._lock:
+            self._inflight = max(0, self._inflight - 1)
+            get_metrics().set_gauge(f"resilience.{self.name}.inflight", self._inflight)
 
 
 async def post_with_resilience(http, url: str, *, json_body, deadline: Deadline,

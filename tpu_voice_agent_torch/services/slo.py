@@ -9,9 +9,10 @@ Port of ``tpu_voice_agent/utils/slo.py``:
 - ``QualityTracker``: bounded windows of per-utterance quality signals held
   to floors and ceilings (``slo.<name>.state`` in the registry it is given).
 
-Not ported yet: the flight recorder that JAX freezes on an ok -> violated
-edge (ROADMAP.md Queue 1 item 3), so an edge is graded and exported but
-freezes nothing.
+The ok -> violated edge of either kind of tracker freezes the flight
+recorder (``slo.<name>.violated``; a quality violation carries the failing
+samples' details under ``extra.quality``). A ``passive`` ``SLOTracker`` (a
+measurement-side verdict) exports nothing and freezes nothing.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import threading
 import time
 from collections import deque
 
-from ..utils.tracing import get_metrics, nearest_rank
+from ..utils.tracing import get_flight_recorder, get_metrics, nearest_rank
 
 STATES = ("ok", "at_risk", "violated")
 
@@ -36,7 +37,9 @@ class SLOTracker:
     Env defaults (overridable per instance): ``SLO_WINDOW_S`` (300),
     ``SLO_TARGET_P50_MS`` (800), ``SLO_TARGET_P99_MS`` (4x the p50 target),
     ``SLO_ERROR_RATE`` (0.05), ``SLO_AT_RISK_FRACTION`` (0.8),
-    ``SLO_MIN_SAMPLES`` (5: below it the verdict stays ``ok``)."""
+    ``SLO_MIN_SAMPLES`` (5: below it the verdict stays ``ok``).
+    ``passive=True``: a pure evaluator that exports no gauge and freezes
+    nothing (a scoring loop must not mutate the system it scores)."""
 
     MAX_SAMPLES = 8192  # hard cap independent of the window (memory bound)
 
@@ -44,9 +47,10 @@ class SLOTracker:
                  target_p50_ms: float | None = None, target_p99_ms: float | None = None,
                  error_rate_target: float | None = None,
                  at_risk_fraction: float | None = None, min_samples: int | None = None,
-                 clock=time.monotonic):
+                 clock=time.monotonic, passive: bool = False):
         env = os.environ.get
         self.name = name
+        self.passive = passive
         self.window_s = window_s if window_s is not None else float(env("SLO_WINDOW_S", "300"))
         self.target_p50_ms = target_p50_ms if target_p50_ms is not None \
             else float(env("SLO_TARGET_P50_MS", "800"))
@@ -61,6 +65,7 @@ class SLOTracker:
         self._clock = clock
         self._lock = threading.Lock()
         self._samples: deque[tuple[float, float, bool]] = deque(maxlen=self.MAX_SAMPLES)
+        self._last_state = "ok"
         self._last_auto_eval = 0.0
 
     def record(self, latency_ms: float, ok: bool = True) -> None:
@@ -106,14 +111,21 @@ class SLOTracker:
                     state = "at_risk"
                     reasons.append(f"{label} {value:.3g} > "
                                    f"{self.at_risk_fraction:.0%} of target {target:.3g}")
-        m = get_metrics()
-        m.set_gauge(f"slo.{self.name}.state", float(STATES.index(state)))
-        m.set_gauge(f"slo.{self.name}.window_samples", float(n))
-        m.set_gauge(f"slo.{self.name}.error_rate", error_rate)
-        if p50 is not None:
-            m.set_gauge(f"slo.{self.name}.p50_ms", p50)
-        if p99 is not None:
-            m.set_gauge(f"slo.{self.name}.p99_ms", p99)
+        if not self.passive:
+            # the ok / at_risk -> violated edge is the incident: freeze the
+            # flight recorder at its onset
+            prev, self._last_state = self._last_state, state
+            if state == "violated" and prev != "violated":
+                get_flight_recorder().trigger(f"slo.{self.name}.violated",
+                                              detail="; ".join(reasons))
+            m = get_metrics()
+            m.set_gauge(f"slo.{self.name}.state", float(STATES.index(state)))
+            m.set_gauge(f"slo.{self.name}.window_samples", float(n))
+            m.set_gauge(f"slo.{self.name}.error_rate", error_rate)
+            if p50 is not None:
+                m.set_gauge(f"slo.{self.name}.p50_ms", p50)
+            if p99 is not None:
+                m.set_gauge(f"slo.{self.name}.p99_ms", p99)
         return {
             "name": self.name,
             "state": state,
@@ -153,6 +165,7 @@ class QualityTracker:
         self._clock = clock
         self._lock = threading.Lock()
         self._samples: dict[str, deque] = {}
+        self._last_state = "ok"
         self._last_auto_eval = 0.0
 
     def record(self, signal: str, value: float, detail: dict | None = None) -> None:
@@ -183,6 +196,7 @@ class QualityTracker:
             snap = {sig: list(dq) for sig, dq in self._samples.items()}
         state = "ok"
         reasons: list[str] = []
+        evidence: dict[str, dict] = {}
         signals: dict[str, dict] = {}
         for sig, xs in snap.items():
             mean = sum(v for v, _ in xs) / len(xs) if xs else None
@@ -202,6 +216,14 @@ class QualityTracker:
             if bad is not None:
                 state = "violated"
                 reasons.append(bad)
+                # the failing utterances' quality vectors ride the freeze
+                evidence[sig] = {"mean": round(mean, 4), "floor": floor, "ceiling": ceiling,
+                                 "recent": [{"value": round(v, 4), **(d or {})}
+                                            for v, d in xs[-8:]]}
             signals[sig] = entry
+        prev, self._last_state = self._last_state, state
+        if state == "violated" and prev != "violated":
+            get_flight_recorder().trigger(f"slo.{self.name}.violated", detail="; ".join(reasons),
+                                          extra={"quality": evidence})
         self._metrics.set_gauge(f"slo.{self.name}.state", float(STATES.index(state)))
         return {"name": self.name, "state": state, "reasons": reasons, "signals": signals}

@@ -53,14 +53,18 @@ Environment (the JAX service's names): ``BRAIN_URL``, ``EXECUTOR_URL``,
 ``VOICE_CAPACITY_SESSIONS``, ``VOICE_BRAIN_HEALTH_S``,
 ``PREFIX_FEED_ENABLE``, ``PREFIX_FEED_STABLE_K``, ``PREFIX_FEED_MIN_CHARS``,
 ``SLO_*``, ``QUALITY_ENABLE`` / ``QUALITY_WINDOW`` / ``QUALITY_SLO_*``,
-``TRACE_SINK`` and ``VOICE_STT`` (``null``; ``whisper[:preset]``, random
+``TRACE_SINK``, ``FLIGHT_*`` (the flight recorder behind ``GET
+/debug/flightrecorder``), ``CHAOS_FAULTS`` / ``CHAOS_SEED`` (``drop_frame``
+drops an incoming binary frame and counts ``voice.frames_dropped_chaos``;
+``stt_garble`` collapses a final) and ``VOICE_STT`` (``null``; ``whisper[:preset]``, random
 weights from seed 0; ``whisper-ckpt:<path>`` whose last component names one
 of the port's in-repo checkpoints). The port adds ``VOICE_DEVICE`` (default
 ``cuda``; ``cpu`` runs the plain versions). What the port does not serve is
 refused at boot (``check_unserved_knobs``, ``stt_factory_from_env``) or
 answered 501 (``UNPORTED_ROUTES``), each naming its ROADMAP.md Queue 1
-item. ``FLIGHT_*``, ``TS_*`` and ``COST_*`` are left unread: they only feed
-observability planes the port lacks, and the frames are the same on or off.
+item. ``TS_*`` and ``COST_*`` are left unread: they only feed observability
+planes the port lacks, and the frames are the same on or off. Nor is
+``QUALITY_CANARY_S`` read: the canary is the brain's, as in JAX.
 """
 
 from __future__ import annotations
@@ -75,10 +79,12 @@ from pathlib import Path
 
 from ..audio.mel import pcm16_to_float
 from ..schemas import ValidationError, is_risky, validate_intent, validate_parse_response
-from ..utils.quality import QualityMonitor, check_canary_knob
+from ..utils.chaos import chaos_fire, check_served_points
+from ..utils.quality import QualityMonitor
 from ..utils.tracing import (
     TRACE_ROUTE,
     Tracer,
+    flightrecorder_response,
     get_metrics,
     metrics_response,
     new_trace_id,
@@ -134,13 +140,9 @@ def _refuse(name: str, raw: str, item: int, what: str) -> None:
 
 def check_unserved_knobs() -> None:
     """Refuse at boot what the JAX voice service would honour and the port
-    would silently ignore: ``CHAOS_FAULTS`` (it arms the ``drop_frame``
-    point; the chaos plane is Queue 1 item 4), and the golden-replay
-    canary's ``QUALITY_CANARY_S`` (item 3)."""
-    raw = os.environ.get("CHAOS_FAULTS", "").strip()
-    if raw:
-        _refuse("CHAOS_FAULTS", raw, 4, "fault injection")
-    check_canary_knob()
+    would silently ignore: a ``CHAOS_FAULTS`` that names an unknown point or
+    arms one the port does not serve yet (``utils.chaos.UNSERVED_POINTS``)."""
+    check_served_points()
 
 
 def stt_factory_from_env():
@@ -341,7 +343,7 @@ def _prefill_remaining(stages: dict, spec_pre_parsed: bool, degraded: bool) -> f
 # Routes of the JAX service that the port does not serve: prefix -> the
 # ROADMAP.md Queue 1 item that brings them
 UNPORTED_ROUTES = (
-    ("/debug/flightrecorder", 3), ("/debug/costs", 7), ("/debug/timeseries", 7),
+    ("/debug/costs", 7), ("/debug/timeseries", 7),
     ("/static/", 9),
 )
 
@@ -428,7 +430,8 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
         return wslib.Response(200, body)
 
     async def route(req: wslib.Request) -> wslib.Response:
-        served = req.path in ("/health", "/metrics", "/debug/quality") or (
+        served = req.path in ("/health", "/metrics", "/debug/quality",
+                              "/debug/flightrecorder") or (
             req.path.startswith(TRACE_ROUTE) and len(req.path) > len(TRACE_ROUTE))
         if served:
             if req.method != "GET":
@@ -440,6 +443,8 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
                 return metrics_response("voice", tracer, req, slo=slo)
             if req.path == "/debug/quality":
                 return qmon.response()
+            if req.path == "/debug/flightrecorder":
+                return flightrecorder_response("voice", req)
             return trace_response("voice", tracer, req)
         item = _unported_item(req.path)
         if item is not None:
@@ -792,6 +797,12 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
         try:
             async for msg in ws:
                 if msg.type == wslib.BINARY:
+                    if chaos_fire("drop_frame"):
+                        # the drill: a frame lost on the network; the
+                        # pipeline degrades (a later endpoint, a shorter
+                        # transcript), never wedges
+                        get_metrics().inc("voice.frames_dropped_chaos")
+                        continue
                     t_feed0 = time.perf_counter()
                     try:
                         samples = pcm16_to_float(msg.data)

@@ -1,2 +1,4 @@
-"""Observability of the port: the metrics registry and tracer
-(``utils.tracing``) and the quality observatory (``utils.quality``)."""
+"""Observability and fault injection of the port: the metrics registry,
+tracer and flight recorder (``utils.tracing``), the quality observatory and
+golden canary (``utils.quality``), the step ledger (``utils.steplog``) and
+the seeded chaos points (``utils.chaos``)."""

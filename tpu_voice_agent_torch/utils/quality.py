@@ -15,17 +15,17 @@ Port of ``tpu_voice_agent/utils/quality.py``, with JAX's names:
   and the brain answers its mean margin as ``x-intent-margin``.
 - ``QualityMonitor``: the bounded per-signal windows behind the
   ``quality.*`` / ``stt.confidence_*`` gauges, the ``QualityTracker``
-  verdict, ``GET /debug/quality`` and ``/health``'s ``quality`` block. Its
-  JAX twin's ``record_exec`` (fed by the executor service, ROADMAP.md Queue
-  1 item 9) and ``record_golden`` (fed by the canary) wait for their
-  callers.
+  verdict, ``GET /debug/quality`` and ``/health``'s ``quality`` block.
+  ``record_golden`` takes the canary's scores; its JAX twin's
+  ``record_exec`` (fed by the executor service, ROADMAP.md Queue 1 item 9)
+  waits for its caller.
+- ``GoldenCanary``: the golden-replay canary (``QUALITY_CANARY_S`` > 0, the
+  brain's knob): a daemon thread replays ``QUALITY_CANARY_SLICE`` rotating
+  golden cases through the live parser each interval unless the replica is
+  busy (``busy_fn``), and scores them into ``record_golden``.
 
 ``QUALITY_ENABLE=0`` removes the device lanes; the tokens are the same
 either way (the lanes only read values the step already computed).
-
-Not ported yet (ROADMAP.md Queue 1 item 3): ``GoldenCanary``, the golden-
-replay canary; ``QUALITY_CANARY_S`` set to anything but 0 is refused at boot
-(``check_canary_knob``).
 """
 
 from __future__ import annotations
@@ -42,20 +42,6 @@ def quality_lanes_enabled() -> bool:
     """THE one read of the device-lane switch (``QUALITY_ENABLE``, default
     on; engines read it at construction)."""
     return os.environ.get("QUALITY_ENABLE", "1").lower() in ("1", "true", "yes", "on")
-
-
-def check_canary_knob() -> None:
-    """Refuse at boot the golden-replay canary (``QUALITY_CANARY_S`` set to
-    anything but 0 or empty), which the port does not have yet."""
-    raw = os.environ.get("QUALITY_CANARY_S", "").strip()
-    if raw:
-        try:
-            off = float(raw) == 0
-        except ValueError:
-            off = False
-        if not off:
-            raise ValueError(f"QUALITY_CANARY_S={raw!r}: the golden-replay canary is not "
-                             "ported yet (ROADMAP.md Queue 1 item 3); unset it")
 
 
 def repetition_score(ids: list[int]) -> float:
@@ -162,6 +148,16 @@ class QualityMonitor:
         if rule_fallback:
             self._count("quality.rule_fallbacks")
 
+    def record_golden(self, type_match: bool, args_score: float, text: str = "") -> None:
+        """One golden-replay canary case scored against the live parser."""
+        score = (0.5 if type_match else 0.0) + 0.5 * float(args_score)
+        self.metrics.set_gauge("quality.golden_accuracy", self._push("golden", score))
+        trate = self._push("golden_type", 1.0 if type_match else 0.0)
+        self.metrics.set_gauge("quality.golden_type_accuracy", trate)
+        self.slo.record("golden_accuracy", score,
+                        {"signal": "golden", "text": text[:60], "type_match": type_match,
+                         "args_score": round(float(args_score), 4)})
+
     def state(self) -> dict:
         """The ``GET /debug/quality`` body."""
         with self._lock:
@@ -191,6 +187,85 @@ class QualityMonitor:
         from ..services.ws import Response
 
         return Response(200, self.state())
+
+
+class GoldenCanary:
+    """Per-replica golden-replay canary: a daemon loop replaying a rotating
+    slice of the held-out golden cases through the live parser in idle
+    cycles. ``busy_fn()`` is asked before every round and a busy replica's
+    round is skipped (``quality.canary_skipped_busy``): the canary never
+    takes decode steps from traffic. The rotation advances one case per
+    case scored, so two replicas at the same round count scored the same
+    slice."""
+
+    def __init__(self, parse_fn, monitor: QualityMonitor, *, interval_s: float | None = None,
+                 slice_n: int | None = None, busy_fn=None, cases=None):
+        from ..evals.golden import GOLDEN_INTENT_CASES
+
+        self.parse_fn = parse_fn  # (text, context) -> the ParseResponse dict
+        self.monitor = monitor
+        self.interval_s = interval_s if interval_s is not None \
+            else _knob_float("QUALITY_CANARY_S", "0")
+        self.slice_n = slice_n if slice_n is not None \
+            else int(os.environ.get("QUALITY_CANARY_SLICE", "3"))
+        self.busy_fn = busy_fn
+        self.cases = list(cases if cases is not None else GOLDEN_INTENT_CASES)
+        self._idx = 0
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.rounds = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.interval_s > 0 and bool(self.cases)
+
+    def run_once(self) -> int:
+        """One round: score the next ``slice_n`` cases unless the replica is
+        busy. Returns the cases scored."""
+        from ..evals.golden import score_case
+
+        if self.busy_fn is not None and self.busy_fn():
+            self.monitor._count("quality.canary_skipped_busy")
+            return 0
+        scored = 0
+        for _ in range(self.slice_n):
+            case = self.cases[self._idx % len(self.cases)]
+            self._idx += 1
+            try:
+                tm, ascore = score_case(case, self.parse_fn(case.text, dict(case.context)))
+            except Exception:
+                # a parser error on a golden input is a quality miss, not a
+                # canary crash
+                tm, ascore = False, 0.0
+                self.monitor._count("quality.canary_errors")
+            self.monitor.record_golden(tm, ascore, text=case.text)
+            scored += 1
+        self.rounds += 1
+        self.monitor._count("quality.canary_runs")
+        return scored
+
+    def start(self) -> None:
+        if not self.enabled or (self._thread is not None and self._thread.is_alive()):
+            return
+        self._stop.clear()
+
+        def _run() -> None:
+            while not self._stop.wait(self.interval_s):
+                try:
+                    self.run_once()
+                except Exception:  # noqa: BLE001 - the canary never kills the replica
+                    pass
+
+        self._thread = threading.Thread(target=_run, daemon=True,
+                                        name=f"quality-canary-{self.monitor.service}")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=5)
+            self._thread = None
 
 
 def conf_fold(acc, new):

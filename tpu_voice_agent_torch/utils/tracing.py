@@ -19,10 +19,18 @@ Port of ``tpu_voice_agent/utils/tracing.py``, with JAX's names:
   by default and Prometheus text (version 0.0.4) when the ``Accept`` header
   asks for ``text/plain`` or ``openmetrics``.
 
-Not ported yet (ROADMAP.md Queue 1 item 3): the flight recorder
-(``FlightRecorder``, ``/debug/flightrecorder``, the ``FLIGHT_*`` knobs), so
-no span feeds one and no SLO edge freezes one. ``counter_state`` feeds only
-the time-series ring (item 7).
+- ``FlightRecorder``: a bounded always-on ring of the last
+  ``FLIGHT_TRACES`` traces (every finished span of every ``Tracer`` feeds
+  it) and ``FLIGHT_SNAPSHOTS`` gauge snapshots (one per
+  ``FLIGHT_SNAPSHOT_S`` on the span stream), frozen into one dump, with the
+  step ledger's ring, at the first incident: an SLO's ok -> violated edge,
+  a breaker opening, the scheduler's quarantine. ``FLIGHT_SINK=<prefix>``
+  also writes the dump as JSON, on the triggering thread. ``GET
+  /debug/flightrecorder`` (``flightrecorder_response``) answers it, and
+  ``?rearm=1`` re-arms after answering.
+
+``counter_state`` feeds only the time-series ring (ROADMAP.md Queue 1 item
+7). A freeze's ``costs`` is None: the port has no cost meter (item 4).
 """
 
 from __future__ import annotations
@@ -257,6 +265,145 @@ def get_metrics() -> Metrics:
     return _GLOBAL_METRICS
 
 
+class FlightRecorder:
+    """The overload flight recorder: bounded rings of the last traces
+    (``observe_span``, fed by every ``Tracer``) and of periodic gauge
+    snapshots, frozen into an immutable dump by ``trigger``. The FIRST
+    trigger wins (later ones while frozen change nothing), so the dump shows
+    the onset of the incident; ``rearm`` clears it."""
+
+    def __init__(self, max_traces: int | None = None, max_snapshots: int | None = None,
+                 snapshot_interval_s: float | None = None):
+        env = os.environ.get
+        self.max_traces = max_traces if max_traces is not None \
+            else int(env("FLIGHT_TRACES", "32"))
+        self.max_snapshots = max_snapshots if max_snapshots is not None \
+            else int(env("FLIGHT_SNAPSHOTS", "120"))
+        self.snapshot_interval_s = snapshot_interval_s if snapshot_interval_s is not None \
+            else float(env("FLIGHT_SNAPSHOT_S", "1.0"))
+        self._lock = threading.Lock()
+        self._traces: OrderedDict[str, list[dict]] = OrderedDict()
+        self._snapshots: list[dict] = []
+        self._last_snapshot_s = 0.0
+        self._frozen: dict | None = None
+
+    def observe_span(self, span_dict: dict) -> None:
+        """Deposit one finished span; a gauge snapshot rides the span stream
+        once ``snapshot_interval_s`` has passed."""
+        trace_id = span_dict.get("trace")
+        if not trace_id:
+            return
+        with self._lock:
+            ring = self._traces.setdefault(trace_id, [])
+            if len(ring) < Tracer.MAX_SPANS_PER_TRACE:
+                ring.append(span_dict)
+            self._traces.move_to_end(trace_id)
+            while len(self._traces) > self.max_traces:
+                self._traces.popitem(last=False)
+            due = (time.time() - self._last_snapshot_s) >= self.snapshot_interval_s
+            if due:
+                self._last_snapshot_s = time.time()
+        if due:
+            self.snapshot_metrics()
+
+    def snapshot_metrics(self) -> None:
+        """Append one timestamped gauge snapshot to the bounded ring."""
+        entry = {"t_s": round(time.time(), 3), "gauges": get_metrics().gauges()}
+        with self._lock:
+            self._snapshots.append(entry)
+            if len(self._snapshots) > self.max_snapshots:
+                del self._snapshots[: len(self._snapshots) - self.max_snapshots]
+        m = get_metrics()
+        m.set_gauge("flight.traces_buffered", float(len(self._traces)))
+        m.set_gauge("flight.snapshots_buffered", float(len(self._snapshots)))
+
+    def trigger(self, reason: str, detail: str | None = None, extra: dict | None = None) -> bool:
+        """Freeze the rings under ``reason``; True when this call froze.
+        ``extra`` rides the dump under its own key."""
+        self.snapshot_metrics()  # the knee itself belongs in the timeline
+        from .steplog import get_steplog
+
+        steplog = get_steplog().dump()  # outside the ring lock: it has its own
+        with self._lock:
+            if self._frozen is not None:
+                return False
+            self._frozen = {
+                "frozen": True,
+                "reason": reason,
+                "detail": detail,
+                "frozen_at_s": round(time.time(), 3),
+                "traces": [{"trace_id": tid, "spans": list(spans)}
+                           for tid, spans in self._traces.items()],
+                "metric_snapshots": list(self._snapshots),
+                "steplog": steplog,
+                "costs": None,
+                "config": {"max_traces": self.max_traces,
+                           "max_snapshots": self.max_snapshots,
+                           "snapshot_interval_s": self.snapshot_interval_s},
+            }
+            if extra:
+                self._frozen["extra"] = dict(extra)
+            dump = self._frozen
+        get_metrics().inc("flight.freezes")
+        log_event("flight", "frozen", reason=reason, detail=detail,
+                  traces=len(dump["traces"]), snapshots=len(dump["metric_snapshots"]))
+        sink = os.environ.get("FLIGHT_SINK")
+        if sink:
+            try:
+                safe = re.sub(r"[^A-Za-z0-9_.-]", "_", reason)
+                with open(f"{sink}_{safe}_{int(dump['frozen_at_s'])}.json", "w") as f:
+                    json.dump(dump, f)
+            except OSError:
+                # a full disk must not take the overload path down with it
+                get_metrics().inc("flight.sink_write_errors")
+        return True
+
+    def rearm(self) -> None:
+        """Discard the frozen dump; the recorder is armed again."""
+        with self._lock:
+            self._frozen = None
+
+    def frozen_dump(self) -> dict | None:
+        with self._lock:
+            return self._frozen
+
+    def state(self, service: str | None = None) -> dict:
+        """The ``/debug/flightrecorder`` body: the frozen dump, else the
+        armed live counts."""
+        with self._lock:
+            if self._frozen is not None:
+                body = dict(self._frozen)
+            else:
+                body = {"frozen": False, "armed": True,
+                        "traces_buffered": len(self._traces),
+                        "snapshots_buffered": len(self._snapshots)}
+        if service is not None:
+            body["service"] = service
+        return body
+
+
+# process-global, like the metrics registry: SLO trackers, breakers and the
+# scheduler trigger it, every Tracer feeds it
+_GLOBAL_FLIGHT = FlightRecorder()
+
+
+def get_flight_recorder() -> FlightRecorder:
+    return _GLOBAL_FLIGHT
+
+
+def flightrecorder_response(service: str, request):
+    """``GET /debug/flightrecorder``: the frozen dump or the armed state;
+    ``?rearm=1`` re-arms after answering."""
+    from ..services.ws import Response
+
+    rec = get_flight_recorder()
+    body = rec.state(service)
+    if parse_qs(request.query or "").get("rearm") == ["1"]:
+        rec.rearm()
+        body["rearmed"] = True
+    return Response(200, body)
+
+
 def metrics_response(service: str, tracer: "Tracer", request, slo=None):
     """``GET /metrics`` (a ``services.ws.Request`` in, a ``Response`` out).
     ``?gauges=1`` is the cheap poll: gauge copies only. Otherwise JSON
@@ -389,6 +536,8 @@ class Tracer:
             while len(self._ring) > self.MAX_TRACES:
                 self._ring.popitem(last=False)
         self.metrics.observe_ms(f"{self.service}.{sp.name}", sp.duration_ms)
+        # every finished span lands in the flight recorder's ring too
+        _GLOBAL_FLIGHT.observe_span(d)
         if self._sink_path:
             try:
                 with self._sink_lock:
