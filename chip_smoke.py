@@ -14,7 +14,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
               first (``digest``) the SHA-256 of K1's, K2's, K3's, K5's and
               (bf16 and fp32 queries) K6's to K9's outputs on seeded inputs,
               so two builds can be held to the same bits, and K5's and K6's
-              to K9's bf16 outputs held equal over two calls. K4 and K11 are
+              to K9's bf16 outputs held equal over two calls. K5 also at the
+              batched STT plane's B = 4, kv_len (1500, 1000, 500, 0), with
+              NaN past each kv_len. K4 and K11 are
               held exactly over every state of the intent grammar and timed
               warm and cold (L2 flushed, new states each launch) at the
               path's rows, beside the launch floor.
@@ -91,6 +93,21 @@ Phases, in order (any failure exits nonzero and prints no result line):
               Retry-After, ``resilience.brain.shed_overload``),
               ``/debug/steplog`` and ``/debug/flightrecorder`` 200, and a
               client socket closed mid-parse cancelling its decode.
+11d. tenancy - the tenancy plane on the batch phase's engine (radix on,
+              TENANT_CLASSES=premium:4:slots=24,free:1:rps=4): with the knob
+              unset no plane and the requests' cost ledgers sum to the
+              meter's totals (==); on, the 32 prompts over premium (its
+              24-slot cap binding) and the default class decode the unset
+              run's tokens bit for bit (K7); 16 free requests at once: 4
+              decode, 12 shed with JAX's "shed: tenant free rate-limited";
+              at ff 0 (K6) two premium and two free requests behind 32
+              default ones preempt default slots (warm release into the
+              tenant's radix namespace), and every request decodes the
+              untenanted run's tokens or parts at a near tie (32 bf16 ulps;
+              one in a twin with fp32 activations), the tenant ledgers
+              summing to the totals; a batched brain over HTTP lanes an
+              ``x-tenant`` parse and a body ``tenant`` parse, and
+              ``/debug/costs`` reports MFU and MBU against the H100 entry.
 11c. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
 12. golden  - the distilled intent checkpoint parses the golden utterances and
@@ -151,6 +168,19 @@ Phases, in order (any failure exits nonzero and prints no result line):
               run on the CPU; both services' /metrics (JSON and
               Prometheus), /debug/quality and /debug/trace/<id> are
               scraped and held to the run's counts.
+18b. stt_batch - the batched STT plane (STT_BATCH_SLOTS=4) on
+              whisper-large-v3 at the stt phase's shape, bf16 random
+              weights: 11 work items over 3 ticks (4 ragged finals; two
+              partials, a spec_final, a final; the partials' slots again and
+              a final) each against the B = 1 path (transcribe, or an
+              IncrementalState fed the same audio): equal tokens, or a
+              parting within 32 bf16 ulps of the B = 1 decoder's top-2
+              margin; on fp32 copies of the weights within one (K1, K5 at
+              B = 4 with ragged kv_len). Then the voice service's 3 paced
+              utterances behind the rule brain and a stub executor on the
+              locked plane, on the batched plane, and on 3 connections at
+              once on the batched plane: the drain after the last frame,
+              partials, coalesced and shed partials, batched ticks.
 19. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
               transcribe the 10 eval texts and must reproduce the JAX
               package's recorded token ids, through K1 and K5.
@@ -170,7 +200,7 @@ Every launch counter is set to 0 just before each of phases 4-20 (each of the
 voice_service phase's four runs) and read just after; a kernel's
 ``launches`` is the sum over those runs (the kernel-alone comparisons of
 phase 3 are not counted). The port imports no JAX. Weights are random from a
-seed (phases 3-11, 16, 17, 18's first two runs, 20) or committed checkpoints
+seed (phases 3-11d, 16, 17, 18's first two runs, 18b, 20) or committed checkpoints
 (12-15, 18's last two runs, 19). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
@@ -538,6 +568,7 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
             cuda_ms(lambda: decode_attention_reference(qq, kk, vv, ll)),
             *bound(2 * (2 * nh * hd + 2 * n_keys * nh * hd) + 4, 4 * nh * hd * n_keys),
             cuda_ms(lambda: F.scaled_dot_product_attention(qq[:, :, None], kkh, vvh), iters=100))
+    rows["decode_attention"]["batched"] = _k5_batched_row(randn, dev)
     rows["decode_attention"]["one_key_set_ms"] = _one_key_set_ms(
         {label: k5_cases[label] for label in ("cross", "self", "incremental")})
     # the host's time a call (checks, scratch, one launch): the STT decode
@@ -879,6 +910,55 @@ def _argmax_sweep(tables, S: int, V: int) -> int:
                     f"of range")
     torch.cuda.synchronize()
     return bad
+
+
+def _k5_batched_row(randn, dev) -> dict:
+    """K5 at the batched STT plane's cross-attention (``serve/stt_batch.py``,
+    STT_BATCH_SLOTS = 4): B = 4 rows over the padded 1500-position pool,
+    kv_len (1500, 1000, 500, 0), every position past a row's kv_len NaN (a
+    stale slot's earlier utterance, a dead row's garbage). The kernel and its
+    plain version must agree, equal the kernel on the same inputs without the
+    NaN bit for bit, stay finite, and give the kv_len 0 row zeros. The bound
+    counts the live keys: 3,000 positions of K and V at 20 heads of 64."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import decode_attention_reference
+
+    B, S, nh, hd = 4, 1500, 20, 64
+    k, v, q = randn(B, S, nh, hd), randn(B, S, nh, hd), randn(B, nh, hd)
+    lens = [1500, 1000, 500, 0]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    clean = ops.decode_attention(q, k, v, kv_len)
+    kp, vp = k.clone(), v.clone()
+    for b, n in enumerate(lens):
+        kp[b, n:] = float("nan")
+        vp[b, n:] = float("nan")
+    out = ops.decode_attention(q, kp, vp, kv_len)
+    ref = decode_attention_reference(q, kp, vp, kv_len)
+    fail_if(not bool(torch.isfinite(out).all()), "decode_attention (batched): NaN in the sum")
+    fail_if(not torch.equal(out, clean),
+            "decode_attention (batched): NaN past kv_len changed the output")
+    fail_if(not bool((out[3] == 0).all()), "decode_attention (batched): kv_len 0 is not zeros")
+    err, ratio = attn_err([(out, ref)])
+    fail_if(not ratio <= 1.0, f"decode_attention (batched): error {ratio:.3g}x its tolerance "
+            f"{ATTN_TOL} (max abs err {err})")
+    live = sum(lens)
+    mask = (torch.arange(S, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    row = _extra_shape(
+        "batched STT plane cross-attention, B = 4 over the 1500-position pool, kv_len "
+        "(1500, 1000, 500, 0), NaN past each kv_len, 20 heads, hd 64, bf16",
+        cuda_ms(lambda: ops.decode_attention(q, kp, vp, kv_len), iters=100),
+        cuda_ms(lambda: decode_attention_reference(q, kp, vp, kv_len)),
+        *bound(2 * (2 * B * nh * hd + 2 * live * nh * hd) + 4 * B, 4 * nh * hd * live),
+        cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kh, vh, attn_mask=mask),
+                iters=100))
+    row.update(max_abs_err=err, err_over_tol=ratio, tol=ATTN_TOL)
+    log(f"[kernels]   decode_attention (batched): max_abs_err {err:.3g} ({ratio:.3g} of tol), "
+        "NaN-poisoned stale positions left out, kv_len 0 zeros")
+    return row
 
 
 def _host_us(fn, iters: int = 500) -> float:
@@ -1790,10 +1870,13 @@ class Counted:
             fail_if(self.counts.get(n, 0) <= 0, f"{self.name}: {n} never launched")
 
 
-def _post(base: str, body: dict, headers: dict | None = None) -> tuple[int, dict]:
-    """POST /parse; the response headers go into ``headers`` when given."""
+def _post(base: str, body: dict, headers: dict | None = None,
+          send: dict | None = None) -> tuple[int, dict]:
+    """POST /parse with the request headers ``send``; the response headers
+    go into ``headers`` when given."""
     req = urllib.request.Request(base + "/parse", data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"}, method="POST")
+                                 headers={"Content-Type": "application/json", **(send or {})},
+                                 method="POST")
     try:
         with urllib.request.urlopen(req, timeout=600) as r:
             if headers is not None:
@@ -4716,6 +4799,401 @@ def phase_moe(totals: dict, report: dict, profile: bool = False) -> None:
     report["moe"] = out
 
 
+# ------------------------------------------------------------ tenancy
+
+# two classes: premium with a slot cap, free with a rate limit (burst 4)
+TENANCY_CLASSES = "premium:4:slots=24,free:1:rps=4"
+TENANCY_FLOOD = 16  # free-tenant requests submitted at once
+
+
+def _tenant_run(eng, tenants: list, chunk_steps: int = 16):
+    """The batch phase's prompts through a ContinuousBatcher under
+    ``TENANCY_CLASSES``, prompt i tagged ``tenants[i]``, all submitted at
+    once. Returns (batcher, {prompt index: result})."""
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    b = ContinuousBatcher(eng, chunk_steps=chunk_steps, max_new_tokens=BATCH_NEW_TOKENS)
+    fail_if(b.tenancy is None, "tenancy: the plane was not built")
+    rids = {i: b.submit(_batch_prompt(i), tenant=t) for i, t in enumerate(tenants)}
+    b.run_until_done()
+    return b, {i: b.results.pop(r) for i, r in rids.items()}
+
+
+def _ledgers_conserved(results, totals_: dict, label: str) -> dict:
+    from tpu_voice_agent_torch.utils.costmodel import LEDGER_KEYS, zero_ledger
+
+    summed = zero_ledger()
+    for r in results:
+        fail_if(r.cost is None, f"{label}: a result has no cost ledger")
+        for k in LEDGER_KEYS:
+            summed[k] += r.cost[k]
+    fail_if(summed != totals_, f"{label}: sum of the ledgers {summed} != the totals {totals_}")
+    return summed
+
+
+def _tenancy_preempt(eng, clean: dict, label: str, totals: dict, ulps: float) -> dict:
+    """32 untagged (``default``) requests, then two premium and two free
+    ones, submitted at once: the first 32 fill the batch (every lane's clock
+    at 0, FIFO); at the next chunk boundaries (chunks of 4 steps, shorter
+    than any answer) a starved lane that is poorer preempts one default slot
+    each (warm release into its namespace, requeued at the head). Every
+    request, the preempted ones too, decodes the untenanted run's tokens
+    (chunks of 16), or parts at a near tie (``ulps``); the tenant ledgers
+    sum to the meter's totals."""
+    from tpu_voice_agent_torch.utils.costmodel import LEDGER_KEYS, zero_ledger
+
+    ids = [eng.tokenizer.encode(_batch_prompt(i), bos=True) for i in range(BATCH_SLOTS + 4)]
+    tenants = [None] * BATCH_SLOTS + ["premium", "premium", "free", "free"]
+    with Counted(label, totals) as c:
+        b, res = _tenant_run(eng, tenants, chunk_steps=4)
+    c.require("masked_argmax_advance")
+    fail_if(any(r.error for r in res.values()), f"{label}: {[r.error for r in res.values()]}")
+    snap = b.tenancy.snapshot()
+    pre = snap["lanes"]["default"]["preemptions"]
+    fail_if(pre < 2, f"{label}: {pre} requests preempted, want one a starved lane")
+    order = sorted(res)
+    diverged = _partings(eng, [ids[i] for i in order], [clean[i].token_ids for i in order],
+                         [res[i].token_ids for i in order], label, "preempted and clean")
+    _check_partings(diverged, label, ulps)
+    summed = zero_ledger()
+    for ent in snap["ledgers"].values():
+        for k in LEDGER_KEYS:
+            summed[k] += ent[k]
+    fail_if(summed != b.costs.totals, f"{label}: tenant ledgers {summed} != totals "
+            f"{b.costs.totals}")
+    resumed = [i for i in order if res[i].cached_tokens > clean[i].cached_tokens]
+    log(f"[{label}] {pre} preemptions; {len(order) - len(diverged)}/{len(order)} requests "
+        f"equal to the untenanted run (partings at {[round(_ulps(d), 3) for d in diverged]} "
+        f"bf16 ulps); {len(resumed)} re-admitted warm past the prefix; tenant ledgers == "
+        f"totals")
+    return {"preemptions": pre, "equal": len(order) - len(diverged),
+            "requests": len(order), "partings_ulps": [round(_ulps(d), 3) for d in diverged],
+            "resumed_warm": len(resumed), "launches": c.counts,
+            "lanes": {k: {f: v[f] for f in ("tokens", "preemptions", "throttled")}
+                      for k, v in snap["lanes"].items()}}
+
+
+def phase_tenancy(params, totals: dict, report: dict) -> None:
+    """The tenancy plane on the batch phase's engine (tinyllama-1.1b int8,
+    32 paged slots, radix on), ``TENANT_CLASSES`` = ``TENANCY_CLASSES``: with
+    the knob unset the batcher builds no plane and its per-request ledgers
+    sum to the meter's totals; on, the 32 prompts split over premium (its
+    24-slot cap binding) and the default class decode the unset run's
+    tokens bit for bit (K7, ff 8); a flood of 16 free requests admits the
+    bucket's 4 and sheds 12 with JAX's ``shed: tenant free rate-limited``;
+    preemption at ff 0 (K6) in bf16 and in a twin with fp32 activations
+    (``_tenancy_preempt``); then a batched brain over HTTP with the plane
+    on: ``x-tenant`` lanes a parse and ``/debug/costs`` reports
+    ``engine.mfu`` / ``engine.mbu`` against the card's data sheet peak."""
+    import torch
+
+    from tpu_voice_agent_torch.utils.tracing import get_metrics
+
+    out = {}
+    os.environ.pop("TENANT_CLASSES", None)
+    eng = _paged_engine(params, 8, radix_enable=True)
+    _install(eng)
+    with Counted("tenancy off", totals) as c:
+        b_off, off = _run32(eng)
+    c.require("paged_block_attention", "masked_argmax_advance")
+    fail_if(b_off.tenancy is not None or any(r.error for r in off), "tenancy off: failed")
+    out["off_ledgers"] = _ledgers_conserved(off, b_off.costs.totals, "tenancy off")
+    os.environ["TENANT_CLASSES"] = TENANCY_CLASSES
+    try:
+        tenants = ["premium" if i % 4 else None for i in range(BATCH_SLOTS)]
+        with Counted("tenancy on", totals) as c:
+            b_on, on = _tenant_run(eng, tenants)
+        c.require("paged_block_attention", "masked_argmax_advance")
+        same = sum(on[i].token_ids == off[i].token_ids for i in range(BATCH_SLOTS))
+        fail_if(same != BATCH_SLOTS, f"tenancy on: {same}/{BATCH_SLOTS} bit-equal to off")
+        _ledgers_conserved(list(on.values()), b_on.costs.totals, "tenancy on")
+        log(f"[tenancy] on ({TENANCY_CLASSES}, 24 premium + 8 default): {same}/{BATCH_SLOTS} "
+            "equal to the unset run; ledgers == totals")
+        thr0 = get_metrics().snapshot()["counters"].get("tenant.throttled", 0.0)
+        with Counted("tenancy flood", totals):
+            b_fl, flood = _tenant_run(eng, ["free"] * TENANCY_FLOOD)
+        shed = [r for r in flood.values() if r.error]
+        fail_if(len(shed) != TENANCY_FLOOD - 4 or any(
+            r.error != "shed: tenant free rate-limited" for r in shed),
+            f"tenancy flood: {len(shed)} shed: {[r.error for r in shed][:3]}")
+        fail_if(get_metrics().snapshot()["counters"]["tenant.throttled"] - thr0
+                != TENANCY_FLOOD - 4, "tenancy flood: tenant.throttled did not count the sheds")
+        log(f"[tenancy] flood: {TENANCY_FLOOD} free requests, 4 decoded, {len(shed)} shed "
+            f"'{shed[0].error}'")
+        out["on"] = {"equal": same, "flood_shed": len(shed), "flood_ok": len(flood) - len(shed)}
+        del eng
+        _free_cuda()
+        for dtype, p in (("bf16", params), ("fp32", None)):
+            if dtype == "fp32":
+                torch.backends.cuda.matmul.allow_tf32 = False
+                p = _fp32_activations(params)
+            eng0 = _paged_engine(p, 0, radix_enable=True)
+            _install(eng0)
+            os.environ.pop("TENANT_CLASSES", None)
+            _b, clean = _run32(eng0, [_batch_prompt(i) for i in range(BATCH_SLOTS + 4)])
+            fail_if(any(r.error for r in clean), f"tenancy {dtype}: the clean run failed")
+            os.environ["TENANT_CLASSES"] = TENANCY_CLASSES
+            out[f"preempt_{dtype}"] = _tenancy_preempt(
+                eng0, dict(enumerate(clean)), f"tenancy preempt {dtype}", totals,
+                1 if dtype == "fp32" else BF16_PART_ULPS)
+            del eng0, p
+            _free_cuda()
+        out["service"] = _tenancy_service(params, totals)
+    finally:
+        os.environ.pop("TENANT_CLASSES", None)
+    report["tenancy"] = out
+
+
+def _tenancy_service(params, totals: dict) -> dict:
+    """A BatchedEngineParser (8 paged slots) behind the brain with the plane
+    on: one parse tagged ``x-tenant: premium``, one with the body's
+    ``tenant: free``; ``/debug/costs`` answers the meter (the card's data
+    sheet peak, MFU and MBU above 0, integer totals) and the lanes."""
+    from tpu_voice_agent_torch.services import brain
+
+    eng = _paged_engine(params, 8, batch_slots=8, radix_enable=True)
+    _install(eng)
+    parser = brain.BatchedEngineParser(eng, chunk_steps=16)
+    srv, thread, url = _serve_brain(brain.BrainApp(parser))
+    try:
+        with Counted("tenancy service", totals) as c:
+            s1, _ = _post(url, {"text": UTTERANCES[0], "session_id": "t1"},
+                          send={"x-tenant": "premium"})
+            s2, _ = _post(url, {"text": UTTERANCES[1], "tenant": "free", "session_id": "t2"})
+        c.require("masked_argmax_advance")
+        fail_if(s1 not in (200, 422) or s2 not in (200, 422), f"tenancy service: {s1}, {s2}")
+        with urllib.request.urlopen(url + "/debug/costs", timeout=60) as r:
+            costs = json.loads(r.read())
+    finally:
+        _stop(srv, thread)
+        parser.close()
+    peak = costs.get("peak", {})
+    fail_if(not costs.get("enabled") or peak.get("source") != "table"
+            or "H100" not in str(peak.get("device")), f"tenancy service: /debug/costs {peak}")
+    fail_if(not (costs["mfu"] > 0 and costs["mbu"] > 0), "tenancy service: no MFU / MBU")
+    fail_if(not all(isinstance(v, int) for v in costs["totals"].values()),
+            "tenancy service: totals not ints")
+    lanes = costs["tenants"]["lanes"]
+    fail_if(lanes["premium"]["tokens"] <= 0 or lanes["free"]["tokens"] <= 0,
+            f"tenancy service: a tagged parse missed its lane: {lanes}")
+    log(f"[tenancy] /debug/costs: mfu {costs['mfu']}, mbu {costs['mbu']}, mfu_prefill "
+        f"{costs['mfu_prefill']} against {peak['device']} ({peak['flops_per_s']:.3g} FLOP/s, "
+        f"{peak['bytes_per_s']:.3g} B/s, {peak['source']}); lanes "
+        + json.dumps({k: v["tokens"] for k, v in lanes.items()}))
+    return {"status": [s1, s2], "mfu": costs["mfu"], "mbu": costs["mbu"],
+            "mfu_prefill": costs["mfu_prefill"], "peak": peak, "totals": costs["totals"],
+            "top_sessions": [t["session"] for t in costs.get("top_sessions", [])],
+            "launches": c.counts}
+
+
+# ------------------------------------------------------------ batched STT
+
+STT_BATCH_SLOTS = 4
+# the work items, one tick each: (kind, utterance key, seconds of synth audio)
+STT_BATCH_ROUNDS = (
+    (("final", 1, 2.0), ("final", 2, 5.5), ("final", 3, 9.8), ("final", 4, 1.2)),
+    (("partial", 5, 1.6), ("partial", 6, 2.7), ("spec_final", 7, 3.3), ("final", 8, 0.8)),
+    (("partial", 5, 3.1), ("partial", 6, 4.0), ("final", 9, 7.0)),
+)
+
+
+def _whisper_top2(eng, cross_kv: dict, enc_len: int, tokens: list[int]) -> dict:
+    """The B = 1 decoder's two best next tokens after ``tokens``, teacher
+    forced through the plain attention over ``cross_kv``: their margin and
+    the best one's logit."""
+    import torch
+
+    from tpu_voice_agent_torch.models.whisper import decoder_forward, init_self_cache
+
+    dev = eng.device
+    seq = list(eng.bos_ids) + list(tokens)
+    toks = torch.tensor([seq], dtype=torch.int32, device=dev)
+    pos = torch.arange(len(seq), dtype=torch.int32, device=dev)[None]
+    cache = init_self_cache(eng.cfg, 1, dtype=eng._param_dtype, device=dev)
+    logits, _ = decoder_forward(eng.params, eng.cfg, toks, pos, cache, cross_kv,
+                                torch.tensor([enc_len], dtype=torch.int32, device=dev),
+                                attn_impl="torch")
+    top = torch.topk(logits[0, -1].float(), 2)
+    v, i = top.values.tolist(), top.indices.tolist()
+    return {"top2": i, "margin": v[0] - v[1], "top_logit": v[0]}
+
+
+def _stt_batch_items(eng, label: str, totals: dict, ulps: float) -> dict:
+    """``STT_BATCH_ROUNDS`` through ``STTBatcher(slots=4)``, one tick a round,
+    each item against the B = 1 path on the same audio (``transcribe`` for
+    a final or spec_final, an ``IncrementalState`` fed the same buffers for
+    a partial): equal tokens, or a parting where the B = 1 decoder's plain
+    top-2 margin is at most ``ulps`` bf16 ulps of its top logit."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.stt_batch import STTBatcher
+    from tpu_voice_agent_torch.voicebench import synth_utterance
+
+    hop = eng.mel_cfg.hop
+    batcher = STTBatcher(eng, slots=STT_BATCH_SLOTS, autostart=False)
+    states: dict = {}
+    items, diverged = 0, []
+    b1_ms = tick_ms = 0.0
+    for rnd in STT_BATCH_ROUNDS:
+        work = [(kind, utt, synth_utterance(sec)) for kind, utt, sec in rnd]
+        refs = []
+        for kind, utt, audio in work:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "partial":
+                st = states.get(utt) or eng.incremental_init(len(audio) // hop)
+                st = states[utt] = eng.incremental_feed(st, audio)
+                res = eng.incremental_decode(st)
+            else:
+                res = eng.transcribe(audio)
+            torch.cuda.synchronize()
+            b1_ms += (time.perf_counter() - t0) * 1e3
+            refs.append(res.token_ids)
+        with Counted(label, totals) as c:
+            futs = [batcher.submit(kind, utt, audio) for kind, utt, audio in work]
+            t0 = time.perf_counter()
+            fail_if(batcher.tick() != len(work), f"{label}: a tick took another batch")
+            torch.cuda.synchronize()
+            tick_ms += (time.perf_counter() - t0) * 1e3
+        c.require("decode_attention", "flash_attention")
+        for (kind, utt, audio), fut, ref_ids in zip(work, futs, refs):
+            got = fut.result(timeout=5)
+            fail_if(got is None, f"{label}: the {kind} of utterance {utt} returned nothing")
+            items += 1
+            if got.token_ids == ref_ids:
+                continue
+            if kind == "partial":  # the B = 1 decode's own cross-KV
+                ckv, n = {"k": states[utt].cross_k, "v": states[utt].cross_v}, states[utt].enc_len
+            else:
+                ckv, n, _ = eng._encode_window(audio)
+            i = next((j for j, (x, y) in enumerate(zip(got.token_ids, ref_ids)) if x != y),
+                     min(len(got.token_ids), len(ref_ids)))
+            d = {"kind": kind, "step": i, **_whisper_top2(eng, ckv, n, ref_ids[:i])}
+            diverged.append(d)
+            log(f"[{label}] the {kind} of utterance {utt} parts from B = 1 at step {i}: top-2 "
+                f"{d['top2']}, margin {d['margin']:.6f} against {d['top_logit']:.4f} "
+                f"({_ulps(d):.2f} bf16 ulps)")
+    _check_partings(diverged, label, ulps)
+    log(f"[{label}] {items - len(diverged)}/{items} items equal to B = 1 over "
+        f"{len(STT_BATCH_ROUNDS)} ticks; B = 1 {b1_ms:.1f} ms, batched ticks {tick_ms:.1f} ms")
+    return {"items": items, "equal": items - len(diverged),
+            "partings_ulps": [round(_ulps(d), 3) for d in diverged],
+            "b1_ms": b1_ms, "ticks_ms": tick_ms, "slots_after": batcher.slot_of}
+
+
+def _stt_batch_service(totals: dict) -> dict:
+    """3 paced utterances (synth_utterance(2.0) + 1 s of silence each) on one
+    /stream, through the voice service at VOICE_STT=whisper:whisper-large-v3
+    (SpeechEngine's defaults) behind the rule brain and a stub executor:
+    first the per-connection ``LockedStreaming`` plane, then
+    ``STT_BATCH_ENABLE=1``, then 3 connections at once on the batched plane.
+    The drain after the last frame, partials, coalesced and shed partials;
+    every final has its intent and no frame is an error."""
+    import numpy as np
+
+    from tpu_voice_agent_torch import voicebench
+    from tpu_voice_agent_torch.services import brain, voice, ws
+    from tpu_voice_agent_torch.utils.tracing import get_metrics
+
+    def counters():
+        snap = get_metrics().snapshot()["counters"]
+        return {k: snap.get(k, 0.0) for k in ("stt.partials_coalesced", "stt.shed_overload",
+                                               "stt.batch_ticks", "stt.finals_batched")}
+
+    sil = np.zeros(16_000, dtype=np.float32)
+    audio = np.concatenate([x for _ in range(VOICE_AUDIO_UTTERANCES)
+                            for x in (voicebench.synth_utterance(2.0), sil)])
+    frames = _pcm_frames(audio)
+    bsrv, bthread, brain_url = _serve_brain(brain.BrainApp(brain.RuleBasedParser()))
+    xsrv, xthread, exec_url, _received = _stub_executor()
+    os.environ["VOICE_STT"] = "whisper:whisper-large-v3"
+    out = {}
+    try:
+        for mode in ("locked", "batched", "batched x3"):
+            if mode == "locked":
+                os.environ.pop("STT_BATCH_ENABLE", None)
+            else:
+                os.environ["STT_BATCH_ENABLE"] = "1"
+                os.environ["STT_BATCH_SLOTS"] = str(STT_BATCH_SLOTS)
+            cfg = voice.VoiceConfig(brain_url=brain_url, executor_url=exec_url)
+            probe = cfg.stt_factory()
+            fail_if(probe.engine.device.type != "cuda", f"stt_batch {mode}: STT not on the card")
+            fail_if((mode != "locked") != hasattr(probe, "batcher"),
+                    f"stt_batch {mode}: the wrong STT plane ({type(probe).__name__})")
+            srv = ws.ServerThread(voice.build_app(cfg)).__enter__()
+            c0 = counters()
+            n_conn = 3 if mode == "batched x3" else 1
+
+            async def run_all(url=srv.url, n_conn=n_conn):
+                return await asyncio.gather(*[_stream_paced(url, frames)
+                                              for _ in range(n_conn)])
+
+            try:
+                with Counted(f"stt_batch service {mode}", totals) as c:
+                    runs = asyncio.run(run_all())
+            finally:
+                srv.__exit__(None, None, None)
+                if hasattr(probe, "batcher"):
+                    probe.batcher.stop()
+            c.require("decode_attention", "flash_attention")
+            finals = 0
+            for res in runs:
+                _check_vocabulary(res["events"], f"stt_batch {mode}")
+                _check_finals(res["events"], f"stt_batch {mode}")
+                finals += sum(e["type"] == "transcript_final" for e in res["events"])
+            d = {k: v - c0[k] for k, v in counters().items()}
+            out[mode] = {
+                "connections": n_conn, "finals": finals,
+                "partials": sum(e["type"] == "transcript_partial"
+                                for res in runs for e in res["events"]),
+                "drained_after_audio_s": max(res["drained_s"] for res in runs),
+                "audio_s": max(res["audio_s"] for res in runs),
+                "partials_coalesced": d["stt.partials_coalesced"],
+                "shed_overload": d["stt.shed_overload"], "batch_ticks": d["stt.batch_ticks"],
+                "finals_batched": d["stt.finals_batched"], "launches": c.counts}
+            log(f"[stt_batch] service, {mode}: {n_conn} connection(s) x "
+                f"{VOICE_AUDIO_UTTERANCES} paced utterances: {finals} finals, "
+                f"{out[mode]['partials']} partials, drained "
+                f"{out[mode]['drained_after_audio_s']:.2f} s after the last frame; coalesced "
+                f"{d['stt.partials_coalesced']:.0f}, shed {d['stt.shed_overload']:.0f}, "
+                f"{d['stt.batch_ticks']:.0f} ticks")
+            del probe
+            _free_cuda()
+    finally:
+        for k in ("VOICE_STT", "STT_BATCH_ENABLE", "STT_BATCH_SLOTS"):
+            os.environ.pop(k, None)
+        _stop(bsrv, bthread)
+        _stop(xsrv, xthread)
+    return out
+
+
+def phase_stt_batch(totals: dict, report: dict) -> None:
+    """The batched STT plane (``serve/stt_batch.py``) on whisper-large-v3 at
+    bench.py's shape (buckets 300 and 1000, 32 new tokens), bf16 random
+    weights, ``STT_BATCH_SLOTS`` = 4: every work kind (ragged finals, a
+    spec_final, partials over persistent pool slots) against the B = 1 path
+    (``_stt_batch_items``; K5 at B = 4 with ragged kv_len), held to
+    ``BF16_PART_ULPS`` in bf16 and to one ulp in a twin on fp32 copies of
+    the weights; then the voice service's paced audio on the locked and the
+    batched planes (``_stt_batch_service``)."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.stt import SpeechEngine
+
+    out = {}
+    t0 = time.perf_counter()
+    eng = SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000), max_new_tokens=32)
+    log(f"[stt_batch] boot {time.perf_counter() - t0:.2f} s")
+    out["bf16"] = _stt_batch_items(eng, "stt_batch bf16", totals, BF16_PART_ULPS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eng.load_params(_to_float(eng.params))
+    out["fp32"] = _stt_batch_items(eng, "stt_batch fp32", totals, 1)
+    del eng
+    _free_cuda()
+    out["service"] = _stt_batch_service(totals)
+    report["stt_batch"] = out
+
+
 def _device_us(evt) -> float:
     """A profiler entry's own device time in us (the attribute's name
     changed across PyTorch versions)."""
@@ -4817,8 +5295,9 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,digest,kernels,service,parse,batch,"
                          "batch_dense,radix,"
-                         "kvquant,spec,quality,containment,service_batched,golden,batch_golden,"
-                         "kvquant_golden,spec_golden,stt,stt_golden,voice,voice_service,moe "
+                         "kvquant,spec,quality,containment,tenancy,service_batched,golden,"
+                         "batch_golden,kvquant_golden,spec_golden,stt,stt_golden,voice,"
+                         "voice_service,stt_batch,moe "
                          "(default all)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile (torch.profiler) one bench parse at ff=8 and one at "
@@ -4830,10 +5309,10 @@ def main() -> int:
                          "each MoE dispatch when the moe phase runs")
     args = ap.parse_args()
     phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
-               "radix", "kvquant", "spec", "quality", "containment", "service_batched", "golden",
-               "batch_golden",
+               "radix", "kvquant", "spec", "quality", "containment", "tenancy", "service_batched",
+               "golden", "batch_golden",
                "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
-               "moe"]
+               "stt_batch", "moe"]
               if args.phases == "all" else args.phases.split(","))
 
     import torch
@@ -4880,7 +5359,8 @@ def main() -> int:
     for name, fn in (("parse", phase_parse), ("batch", phase_batch),
                      ("batch_dense", phase_batch_dense), ("radix", phase_radix),
                      ("kvquant", phase_kvquant), ("spec", phase_spec),
-                     ("quality", phase_quality), ("containment", phase_containment)):
+                     ("quality", phase_quality), ("containment", phase_containment),
+                     ("tenancy", phase_tenancy)):
         if name in phases:
             fail_if(eng is None, f"the {name} phase reuses the service's weights")
             kw = {"profile": args.profile} if name in ("batch", "kvquant", "spec") else {}
@@ -4908,6 +5388,9 @@ def main() -> int:
     if "voice_service" in phases:
         _free_cuda()
         timed("voice_service", phase_voice_service, totals, report)
+    if "stt_batch" in phases:
+        _free_cuda()
+        timed("stt_batch", phase_stt_batch, totals, report)
     if "stt_golden" in phases:
         timed("stt_golden", phase_stt_golden, totals, report)
     if "moe" in phases:  # last: its 46 GB engines need the card to themselves

@@ -59,14 +59,13 @@ import metrics_lint  # noqa: E402
 # work still to do.
 NOT_PORTED_METRICS = {
     "quality.exec_success_rate": 9,  # record_exec, fed by the executor service
-    "colocate.": 4, "tenant.": 4,
     "engine.restarts": 6,  # the stalled-step watchdog's warm restarts
-    "stt.batch_": 5, "stt.finals_batched": 5, "stt.item_faults": 5,
-    "stt.partials_coalesced": 5, "stt.queue_depth": 5, "stt.shed_overload": 5,
-    "stt.replica": 5,
+    # the serving loop's drain latch and watchdog restarts
+    "colocate.drains_started": 6, "colocate.worker_restarts": 6,
+    "stt.replica": 5,  # the replicated STT tier
     "autopilot.": 6, "brain.drains_received": 6, "disagg.": 6, "fleet.": 6, "handoff.": 6,
     "prefill.feeds": 6, "router.": 6,
-    "cost.": 7, "engine.mbu": 7, "engine.mfu": 7, "hbm.": 7, "ts.": 7, "xla.": 7,
+    "hbm.": 7, "ts.": 7, "xla.": 7,
     "planner.": 8,
     "executor.": 9,
 }
@@ -118,8 +117,18 @@ def test_every_jax_brain_route_is_served_or_501(method, path):
         assert body["detail"].startswith("ROADMAP.md Queue 1 item "), body
     else:
         assert path in ("/health", "/parse", "/metrics", "/debug/quality", "/debug/steplog",
-                        "/debug/flightrecorder") \
+                        "/debug/flightrecorder", "/debug/costs") \
             or path.startswith("/debug/trace/"), (path, status)
+
+
+def test_debug_costs_of_a_meterless_backend_equals_jax():
+    """Once 501: the rule backend has no meter, and both brains say so in
+    the same body."""
+    app = brain.BrainApp(brain.RuleBasedParser())
+    status, body, _ = app.handle(ws.Request("GET", "/debug/costs", "", ws.Headers(), b""))
+    with AppServer(jbrain.build_app(jbrain.RuleBasedParser())) as srv:
+        jbody = httpx.get(srv.url + "/debug/costs", timeout=10).json()
+    assert status == 200 and body == jbody == {"service": "brain", "enabled": False}
 
 
 def test_unrouted_paths_stay_404_and_wrong_methods_405():
@@ -504,7 +513,14 @@ def test_every_jax_metric_is_ported_or_listed_with_its_item(catalogs):
                  "scheduler.quarantine_rejected", "resilience.*.inflight",
                  "resilience.*.shed_overload", "brain.parses_cancelled",
                  "quality.golden_accuracy", "quality.intent_downgrades",
-                 "voice.frames_dropped_chaos"):
+                 "voice.frames_dropped_chaos",
+                 # the cost meter, tenancy, the loop's STT lane, batched STT
+                 "engine.mfu", "engine.mbu", "engine.mfu_prefill", "cost.decode_flops",
+                 "cost.stt_encoder_flops", "tenant.throttled", "tenant.preemptions",
+                 "tenant.active_slots.*", "colocate.stt_queue", "colocate.parse_inflight",
+                 "stt.batch_ticks", "stt.batch_occupancy", "stt.partials_coalesced",
+                 "stt.shed_overload", "stt.queue_depth", "stt.finals_batched",
+                 "stt.item_faults"):
         assert name in port_reg, name
 
 

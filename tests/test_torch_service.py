@@ -153,7 +153,8 @@ def test_env_factory_reads_the_jax_service_names(monkeypatch):
 
 
 UNSERVED = ("BRAIN_MODEL", "RADIX_SESSIONS", "RADIX_MAX_NODES", "RADIX_PRESSURE_S",
-            "TENANT_PREEMPT", "TENANT_CLASSES", "ENGINE_STALL_S")
+            "TENANT_PREEMPT", "TENANT_CLASSES", "ENGINE_STALL_S", "COST_ENABLE", "COST_SESSIONS",
+            "COST_PEAK_TFLOPS", "COST_PEAK_GBPS")
 # served since the containment slice
 SERVED_CONTAINMENT = ("PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "BRAIN_MAX_INFLIGHT",
                       "CHAOS_FAULTS", "CHAOS_SEED")
@@ -169,17 +170,13 @@ def _tiny_env(monkeypatch):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("BRAIN_MODEL", "/models/intent-8b"),
-    ("RADIX_SESSIONS", "512"), ("RADIX_SESSIONS", "lots"),
-    ("RADIX_MAX_NODES", "1024"), ("RADIX_PRESSURE_S", "0.5"),
-    ("TENANT_PREEMPT", "0"),
-    ("TENANT_CLASSES", "gold:4:0.5,free:1:0.1"), ("CHAOS_FAULTS", "stall_step:1"),
-    ("ENGINE_STALL_S", "30"),
+    ("BRAIN_MODEL", "/models/intent-8b"), ("CHAOS_FAULTS", "stall_step:1"),
+    ("ENGINE_STALL_S", "30"), ("CHAOS_FAULTS", "stt_replica_kill:1"),
 ])
 def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
-    """Each knob the JAX brain honours and the port does not serve (or serves
-    at one fixed value only) raises at boot, before any engine is built, and
-    names the knob and the ROADMAP item that will serve it."""
+    """Each knob the JAX brain honours and the port does not serve raises at
+    boot, before any engine is built, and names the knob and the ROADMAP
+    item that will serve it."""
     _tiny_env(monkeypatch)
     monkeypatch.setenv(name, value)
     built = []
@@ -187,6 +184,54 @@ def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
     with pytest.raises(ValueError, match=name) as e:
         brain.make_parser_from_env()
     assert "ROADMAP.md Queue 1 item" in str(e.value) and not built
+
+
+@pytest.mark.parametrize("name,value", [
+    ("RADIX_SESSIONS", "lots"), ("RADIX_MAX_NODES", "1e3"), ("RADIX_PRESSURE_S", "soon"),
+    ("TENANT_CLASSES", "gold:4:0.5,free:1:0.1"), ("TENANT_CLASSES", "gold:0"),
+    ("COST_SESSIONS", "many"), ("COST_PEAK_TFLOPS", "fast"),
+])
+def test_env_factory_refuses_malformed_values(monkeypatch, name, value):
+    """A served knob whose value does not parse (the radix and cost knobs,
+    a malformed tenant registry) raises at boot naming the knob, before any
+    engine is built."""
+    _tiny_env(monkeypatch)
+    monkeypatch.setenv(name, value)
+    built = []
+    monkeypatch.setattr(DecodeEngine, "__init__", lambda *a, **k: built.append(1))
+    with pytest.raises(ValueError, match=name):
+        brain.make_parser_from_env()
+    assert not built
+
+
+@pytest.mark.parametrize("name,value", [
+    ("RADIX_SESSIONS", "512"), ("RADIX_MAX_NODES", "1024"), ("RADIX_PRESSURE_S", "0.5"),
+    ("TENANT_PREEMPT", "0"), ("TENANT_CLASSES", "gold:4:slots=1,free:1:rps=2"),
+    ("COST_ENABLE", "0"), ("COST_SESSIONS", "8"),
+])
+def test_env_factory_serves_the_tenancy_radix_and_cost_knobs(monkeypatch, name, value):
+    """The knobs refused until the rest of continuous batching was ported
+    boot on a batched paged radix engine and reach what reads them."""
+    _tiny_env(monkeypatch)
+    monkeypatch.setenv("BRAIN_BATCH", "2")
+    monkeypatch.setenv("BRAIN_PAGED", "1")
+    monkeypatch.setenv("RADIX_ENABLE", "1")
+    monkeypatch.setenv(name, value)
+    parser = brain.make_parser_from_env()
+    try:
+        b, eng = parser.batcher, parser.engine
+        reached = {"RADIX_SESSIONS": lambda: parser.transcripts.max_sessions == 512,
+                   "RADIX_MAX_NODES": lambda: eng.radix.max_nodes == 1024,
+                   "RADIX_PRESSURE_S": lambda: eng._pressure_window_s == 0.5,
+                   "TENANT_PREEMPT": lambda: b.tenancy is None and not b._preempt_on,
+                   "TENANT_CLASSES": lambda: (set(b.tenancy.classes) == {"gold", "free",
+                                                                         "default"}
+                                              and eng.radix.ns_quota is not None),
+                   "COST_ENABLE": lambda: b.costs is None and parser.session_costs is None,
+                   "COST_SESSIONS": lambda: parser.session_costs.cap == 8}
+        assert reached[name]()
+    finally:
+        parser.close()
 
 
 def test_env_factory_refuses_an_unknown_chaos_point_with_the_jax_message(monkeypatch):
@@ -289,7 +334,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'serve.spec', 'models.moe', 'ops.grouped_matmul', 'services.voice',\n"
         "          'services.ws', 'services.slo', 'services.resilience', 'utils',\n"
         "          'utils.tracing', 'utils.quality', 'utils.chaos', 'utils.steplog',\n"
-        "          'evals.wer', 'evals.golden', 'distilled'):\n"
+        "          'evals.wer', 'evals.golden', 'distilled', 'utils.envcfg',\n"
+        "          'utils.costmodel', 'serve.tenancy', 'serve.stt_batch'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent', 'aiohttp',\n"

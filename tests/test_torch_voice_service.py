@@ -917,8 +917,8 @@ def test_intent_validation_and_risk_match_jax():
 @pytest.mark.parametrize("env,item", [
     ({"VOICE_STT": "whisper-hf:/models/whisper"}, 8),
     ({"VOICE_STT": "whisper-ckpt:checkpoints/some-other-ckpt"}, 8),
-    ({"STT_BATCH_ENABLE": "1"}, 5),
-    ({"STT_BATCH_SLOTS": "4"}, 5),
+    ({"STT_BATCH_ENABLE": "1", "STT_REPLICAS": "2"}, 5),
+    ({"STT_REPLICAS": "3", "VOICE_STT": "whisper:whisper-test"}, 5),
     ({"STT_REPLICAS": "2"}, 5),
 ])
 def test_stt_factory_refuses_what_it_would_ignore(monkeypatch, env, item):
@@ -1039,7 +1039,7 @@ def test_whisper_stt_needs_a_card_or_voice_device_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("path,item", [
-    ("/debug/costs", 7), ("/debug/timeseries", 7), ("/", 9), ("/static/app.js", 9),
+    ("/debug/timeseries", 7), ("/", 9), ("/static/app.js", 9),
 ])
 def test_unported_routes_answer_501(two_servers, path, item):
     r = httpx.get(two_servers["port"] + path, timeout=5)
@@ -1118,3 +1118,92 @@ def test_module_entry_point_serves_without_a_card(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# ------------------------------------------------------ the batched STT plane
+
+
+def test_debug_costs_answers_the_jax_body(two_servers):
+    """Once 501: ``/debug/costs`` answers the STT share of the cost meter,
+    the JAX service's keys with the same ``enabled``."""
+    port = httpx.get(two_servers["port"] + "/debug/costs", timeout=5)
+    jax = httpx.get(two_servers["jax"] + "/debug/costs", timeout=5)
+    assert port.status_code == jax.status_code == 200
+    pb, jb = port.json(), jax.json()
+    assert set(pb) == set(jb) == {"service", "enabled", "stt"}
+    assert (pb["service"], pb["enabled"]) == (jb["service"], jb["enabled"]) == ("voice", True)
+
+
+@pytest.mark.parametrize("env", [{"STT_BATCH_ENABLE": "1", "STT_BATCH_SLOTS": "2"},
+                                 {"STT_BATCH_ENABLE": "1", "STT_REPLICAS": "1"}])
+def test_stt_factory_serves_the_batched_plane(monkeypatch, env):
+    """``STT_BATCH_ENABLE=1`` (``STT_BATCH_SLOTS``, ``STT_REPLICAS`` 1):
+    every connection shares one engine and one batcher."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("VOICE_STT", "whisper:whisper-test")
+    monkeypatch.setenv("VOICE_DEVICE", "cpu")
+    factory = voice.stt_factory_from_env()
+    a, b = factory(), factory()
+    try:
+        assert type(a).__name__ == "BatchedStreamingSTT"
+        assert a.batcher is b.batcher and a.engine is b.engine
+        assert a.batcher.S == int(env.get("STT_BATCH_SLOTS", "4"))
+    finally:
+        a.batcher.stop()
+
+
+def test_batched_stt_frames_match_the_jax_service(executor, monkeypatch):
+    """Both services under ``STT_BATCH_ENABLE=1`` on the trained
+    ``whisper-tiny-overfit`` (the port on the CPU), one rule brain, one
+    executor: a ``tenant`` control frame, then "search for red shoes" as
+    60 ms PCM16 frames and a second of silence. Every frame but the
+    partials (which the batcher delivers a feed later or a feed sooner, as
+    its worker's timing falls) is equal once masked, and the tenant rides
+    each /parse."""
+    from tpu_voice_agent_torch import whisper_ckpt
+
+    monkeypatch.setenv("STT_BATCH_ENABLE", "1")
+    monkeypatch.setenv("VOICE_STT", f"whisper-ckpt:{ROOT / 'checkpoints' / 'whisper-tiny-overfit'}")
+    monkeypatch.setenv("VOICE_DEVICE", "cpu")
+    audio = np.concatenate([whisper_ckpt.render_speech("search for red shoes"),
+                            np.zeros(16_000, np.float32)])
+    pcm = (np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes()
+    frames = [pcm[i:i + 1920] for i in range(0, len(pcm), 1920)]
+
+    def stream(url, calls):
+        async def run():
+            got: list = []
+            sock = await ws.connect(url.replace("http", "ws") + "/stream")
+            try:
+                await sock.send_json({"type": "tenant", "tenant": "gold"})
+                for f in frames:
+                    await sock.send_bytes(f)
+                await _collect(sock, got, until_type("latency_budget"), calls, 60.0)
+            finally:
+                await sock.close()
+            return got
+
+        return asyncio.run(run())
+
+    out = {}
+    for side in ("jax", "port"):
+        calls: list = []
+        brain_app = with_call_log(scripted_brain({}), calls)
+        with AppServer(brain_app) as b:
+            if side == "jax":
+                app = build_jax_voice(JaxVoiceConfig(brain_url=b.url, executor_url=executor.url))
+                with AppServer(app) as srv:
+                    got = stream(srv.url, calls)
+            else:
+                app = voice.build_app(voice.VoiceConfig(brain_url=b.url,
+                                                        executor_url=executor.url))
+                with ws.ServerThread(app) as srv:
+                    got = stream(srv.url, calls)
+        flat = [f for f in got if f.get("type") != "transcript_partial"]
+        out[side] = (masked([flat]), calls)
+    assert out["port"] == out["jax"]
+    frames_p, calls_p = out["port"]
+    finals = [f for f in frames_p[0] if f.get("type") == "transcript_final"]
+    assert [f["text"] for f in finals] == ["search for red shoes"]
+    assert calls_p and all(c["tenant"] == "gold" for c in calls_p)

@@ -269,6 +269,32 @@ def init_self_cache(cfg: WhisperConfig, batch: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_cross_kv_pool(cfg: WhisperConfig, slots: int, dtype=torch.bfloat16,
+                       device: str | torch.device = "cpu") -> dict:
+    """The batched STT plane's slotted cross-attention pool: one (L, S,
+    enc_positions, nh, hd) buffer whose slot axis is the batched decode's
+    batch axis. A live utterance owns one slot; its valid frames are a
+    host-side ``enc_len`` the decode passes as the slot's kv_len, so stale
+    positions past it are never read and a reused slot needs no zeroing."""
+    shape = (cfg.dec_layers, slots, cfg.enc_positions, cfg.n_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def pad_cross_kv(cross_kv: dict, total: int) -> dict:
+    """Zero-pad cross-KV along the encoder-position axis to ``total``, so
+    the batched plane mixes ragged buckets in one fixed-shape decode (the
+    padding lies past the row's kv_len and is never read)."""
+    T = cross_kv["k"].shape[2]
+    if T == total:
+        return cross_kv
+    if T > total:
+        raise ValueError(f"cross-KV length {T} exceeds pad target {total}")
+    pad = (0, 0, 0, 0, 0, total - T)
+    return {"k": torch.nn.functional.pad(cross_kv["k"], pad),
+            "v": torch.nn.functional.pad(cross_kv["v"], pad)}
+
+
 @torch.no_grad()
 def compute_cross_kv(params: dict, cfg: WhisperConfig, enc_out: torch.Tensor) -> dict:
     """Per-layer cross-attention K/V of the encoder output, (L, B, T_enc,

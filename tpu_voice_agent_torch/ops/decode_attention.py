@@ -402,13 +402,19 @@ def decode_attention_reference(q, k_cache, v_cache, kv_len, *, scale=None) -> to
     """Plain PyTorch version of K5, and of K2 on one layer plane: the
     kernels' arithmetic on a flat (B, S, nkv, hd) cache (fp32 throughout,
     -1e30 masking, a row with kv_len 0 gets zeros as the kernels'
-    ``acc / (l or 1)`` gives)."""
+    ``acc / (l or 1)`` gives). Keys and values past a row's kv_len never
+    reach the sum, whatever they hold: their scores are masked and their
+    values zeroed (a NaN there stays out, as the kernels load such keys as
+    zeros); with finite ones the bits are those of the masked softmax."""
     B, nq, hd = q.shape
     S, nkv = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else hd**-0.5
     qg = q.float().reshape(B, nkv, nq // nkv, hd)
+    live = torch.arange(S, device=q.device)[None, :] < kv_len[:, None]  # (B, S)
+    v_cache = torch.where(live[:, :, None, None], v_cache,
+                          torch.zeros((), dtype=v_cache.dtype, device=q.device))
     scores = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.float()) * scale
-    valid = (torch.arange(S, device=q.device)[None, :] < kv_len[:, None])[:, None, None, :]
+    valid = live[:, None, None, :]
     out = _softmax_pv(scores, valid, v_cache, "bkgs,bskh->bkgh")
     out = torch.where((kv_len > 0)[:, None, None, None], out, torch.zeros_like(out))
     return out.reshape(B, nq, hd).to(q.dtype)

@@ -95,6 +95,10 @@ class GenerationResult:
     # mean / min, entropy mean, forced fraction, decision count; None with
     # the quality lanes off or no decision sampled
     quality: dict | None = None
+    # per-request resource ledger (utils.costmodel.LEDGER_KEYS, all ints)
+    # from the batcher's cost meter; None with COST_ENABLE=0 or off the
+    # batcher. An evicted request carries what it spent before dying.
+    cost: dict | None = None
 
     @property
     def tokens_per_s(self) -> float:

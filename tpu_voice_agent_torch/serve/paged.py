@@ -9,7 +9,11 @@ of the prefix and the user suffix. Decode attends through K6 / K7
 (``ops.paged_attention`` / ``ops.paged_block_attention``), which resolve the
 block tables themselves; tables grow at chunk boundaries. With
 ``radix_enable`` (``RADIX_ENABLE=1``) released chains are cached in a
-``RadixCache`` and admission reuses the longest cached block chain. With
+``RadixCache`` (``RADIX_MAX_NODES`` nodes, default 4096; none adopted for
+``RADIX_PRESSURE_S``, default 2.0, after the pool ran out) and admission
+reuses the longest cached block chain; under tenancy the batcher names each
+slot's tenant namespace (``set_slot_ns``) and the chains are salted with
+it. With
 ``kv_quant`` (``KV_QUANT=int8|int4``) the pool stores ``ops.kvquant``'s int8
 or packed int4 values beside two bf16 scale planes indexed like it, so a
 block's scales travel with it through radix chains; decode reads it through
@@ -57,9 +61,10 @@ from ..utils.tracing import get_metrics
 from .engine import DecodeEngine, _sync
 from .radix import RadixCache
 
-# the radix tree's node cap (one node per cached block)
+# the radix tree's node cap (one node per cached block): RADIX_MAX_NODES
 RADIX_MAX_NODES = 4096
-# after a PoolExhausted, released chains stay out of the tree this long
+# after a PoolExhausted, released chains stay out of the tree this long:
+# RADIX_PRESSURE_S
 PRESSURE_WINDOW_S = 2.0
 
 
@@ -241,11 +246,17 @@ class PagedDecodeEngine(DecodeEngine):
         self._prefix_tail: dict | None = None  # (L, R, nkv, hd) sub-block rest
         if radix_enable is None:
             radix_enable = os.environ.get("RADIX_ENABLE") == "1"
+        max_nodes = int(os.environ.get("RADIX_MAX_NODES", str(RADIX_MAX_NODES)))
         self.radix: RadixCache | None = (
-            RadixCache(self.allocator, bs, max_nodes=RADIX_MAX_NODES) if radix_enable else None)
+            RadixCache(self.allocator, bs, max_nodes=max_nodes) if radix_enable else None)
         # pool-pressure gate on caching released chains: while a recent
         # allocation hit PoolExhausted, release does not adopt into the tree
+        self._pressure_window_s = float(os.environ.get("RADIX_PRESSURE_S",
+                                                       str(PRESSURE_WINDOW_S)))
         self._pressure_until = 0.0
+        # the tenant radix namespace of each slot's next admission (the
+        # batcher sets it under tenancy; empty keeps every path unsalted)
+        self._slot_ns: dict[int, str] = {}
         # host token ids of each slot's request (the radix insert at release)
         self._slot_ids: list[list[int] | None] = [None] * self.batch_slots
         # slots of a chunked admission underway: not decoding, fully covered
@@ -340,12 +351,12 @@ class PagedDecodeEngine(DecodeEngine):
         """``allocator.alloc`` with radix backpressure: when the pool is
         out, evict LRU unreferenced radix leaves and retry once. Either way
         the PoolExhausted marks pool pressure, which stops caching released
-        chains for ``PRESSURE_WINDOW_S``. Without a tree, or with nothing
+        chains for ``RADIX_PRESSURE_S``. Without a tree, or with nothing
         evictable, PoolExhausted propagates to the scheduler."""
         try:
             return self.allocator.alloc(k)
         except PoolExhausted:
-            self._pressure_until = time.monotonic() + PRESSURE_WINDOW_S
+            self._pressure_until = time.monotonic() + self._pressure_window_s
             if self.radix is None:
                 raise
             need = k - self.allocator.free_blocks()
@@ -360,14 +371,14 @@ class PagedDecodeEngine(DecodeEngine):
         self.allocator.ref(chain)
         return chain
 
-    def _match_cached(self, ids: list[int]):
+    def _match_cached(self, ids: list[int], ns: str | None = None):
         """The radix tree's longest cached chain for ``ids`` (its blocks
         ref'd for the caller) and where the computed suffix starts: at the
         match, or at the whole static prefix when the match stopped at the
         pinned root chain and the prompt extends the prefix (the prefix's
         sub-block tail is then scattered). Returns (chain, P, tail); P is 0
-        on a miss."""
-        chain, matched = self.radix.match(ids)
+        on a miss. ``ns``: the slot's tenant namespace."""
+        chain, matched = self.radix.match(ids, ns=ns)
         P, tail = matched, None
         P0 = len(self.prefix_ids)
         if (matched and self._prefix_tail is not None and P0 > matched and len(ids) > P0
@@ -431,9 +442,11 @@ class PagedDecodeEngine(DecodeEngine):
         is the parent's path."""
         if self.radix is None:
             return super().prefill_slot(ids, slot)
+        ns = self._slot_ns.get(slot)  # this occupant's; the release pops it
         self.release_slot(slot)
+        self.set_slot_ns(slot, ns)
         ids = list(ids)
-        chain, P, tail = self._match_cached(ids)
+        chain, P, tail = self._match_cached(ids, ns)
         if P:
             suffix = ids[P:]
             bucket = self._suffix_bucket(len(suffix), self.max_len - P)
@@ -442,6 +455,7 @@ class PagedDecodeEngine(DecodeEngine):
                 P = 0
         if not P:
             logits = super().prefill_slot(ids, slot)
+            self.set_slot_ns(slot, ns)  # the parent released the slot again
             self._slot_ids[slot] = ids
             return logits
         self.radix.record_hit(P)
@@ -487,9 +501,12 @@ class PagedDecodeEngine(DecodeEngine):
         (``_slot_ids`` is set at the final piece only). None when chunking
         cannot represent the prompt (nothing to compute, or the padded span
         past ``max_len``): the caller takes ``prefill_slot``."""
+        ns = self._slot_ns.get(slot)
         self.release_slot(slot, ok=False)
+        self.set_slot_ns(slot, ns)
         ids = list(ids)
-        chain, P, tail = self._match_cached(ids) if self.radix is not None else ([], 0, None)
+        chain, P, tail = (self._match_cached(ids, ns) if self.radix is not None
+                          else ([], 0, None))
         radix_hit = P > 0
         if not P and self._split_prefix(ids) is not None and self.prefix_ids:
             # the static prefix without a radix chain: _prefill_suffix's layout
@@ -601,11 +618,12 @@ class PagedDecodeEngine(DecodeEngine):
         are the accepted stream: a rejected draft's KV lies past it, in the
         partial tail block the tree does not adopt."""
         self._mid_prefill.discard(slot)
+        ns = self._slot_ns.pop(slot, None)
         if self._slot_owned[slot] or self._slot_shared[slot]:
             if (ok and self.radix is not None and generated_ids is not None
                     and self._slot_ids[slot] is not None and self._radix_may_admit()):
                 ids = self._slot_ids[slot] + [int(t) for t in generated_ids]
-                self.radix.insert(ids, self._slot_shared[slot] + self._slot_owned[slot])
+                self.radix.insert(ids, self._slot_shared[slot] + self._slot_owned[slot], ns=ns)
             self.allocator.free(self._slot_owned[slot])
             self.allocator.free(self._slot_shared[slot])
             self._slot_owned[slot] = []
@@ -614,6 +632,15 @@ class PagedDecodeEngine(DecodeEngine):
             self._next_pos[slot] = 0
         self._slot_ids[slot] = None
         super().release_slot(slot, generated_ids, ok=ok)
+
+    def set_slot_ns(self, slot: int, ns: str | None) -> None:
+        """The tenant radix namespace of the slot's NEXT admission: its
+        chains are matched and, at release, inserted salted with ``ns``
+        (None: unsalted). The release pops it."""
+        if ns is None:
+            self._slot_ns.pop(slot, None)
+        else:
+            self._slot_ns[slot] = ns
 
     def _radix_may_admit(self) -> bool:
         """False while a recent allocation hit PoolExhausted: caching yields

@@ -9,12 +9,16 @@ new utterance re-prefill. The static prompt prefix is the permanently pinned
 root chain. When the pool runs out, LRU eviction frees leaves the tree alone
 references (the allocator's refcounts are the single source of truth).
 
-Plain host code, no tensors. Tenant namespaces stay as an ``ns`` parameter
-that defaults to None (salted keys; pinned nodes shared). The
-``radix.cached_tokens`` and ``radix.evictions`` counters count as JAX's do;
-the batcher exports ``radix.nodes`` and ``radix.hit_rate`` each chunk
-(``record_radix_gauges``). Left out: the per-tenant block quota and the
-ref-free ``cached_tokens`` probe.
+Plain host code, no tensors. Tenant namespaces (``TENANT_CLASSES``): with
+``ns`` set, keys are salted ``(ns, ids)`` and the pinned static prefix stays
+one shared chain; ``ns_quota`` (the tenancy plane's ``block_quota``,
+installed by the batcher) caps a namespace's nodes, and a tenant over its
+quota evicts its own least-recent leaves first. With no namespace in play
+every path is the single-tenant one. The ``radix.cached_tokens`` and
+``radix.evictions`` counters count as JAX's do; the batcher exports
+``radix.nodes`` and ``radix.hit_rate`` each chunk
+(``record_radix_gauges``). Left out: the ref-free ``cached_tokens`` probe
+(item 6's stream adopter is its only caller).
 """
 
 from __future__ import annotations
@@ -61,6 +65,10 @@ class RadixCache:
         self.root = RadixNode(None, None, None, pinned=True)
         self._n_nodes = 0
         self._clock = itertools.count(1)
+        # tenant namespaces: adopted nodes per namespace, and the quota
+        # lookup ns -> blocks (0: none) the batcher installs under tenancy
+        self.ns_quota = None
+        self._ns_nodes: dict[str, int] = {}
         self.lookups = 0
         self.hits = 0
         self.matched_tokens = 0
@@ -115,8 +123,10 @@ class RadixCache:
         whoever re-prefills past it). Existing nodes are kept; new nodes
         take one tree ref. With ``ns`` new nodes are salted into that
         namespace and an overlap with the pinned static chain rides the
-        shared nodes. At ``max_nodes`` one batched eviction makes room, or
-        adoption stops. Returns the adopted count."""
+        shared nodes, and a namespace at its ``ns_quota`` evicts its own
+        least-recent leaf for each new node (nothing of its own evictable:
+        adoption stops). At ``max_nodes`` one batched eviction makes room,
+        or adoption stops. Returns the adopted count."""
         bs = self.block_size
         t = next(self._clock)
         node = self.root
@@ -136,6 +146,10 @@ class RadixCache:
                 key = kt
             child = node.children.get(key)
             if child is None:
+                if ns is not None and self.ns_quota is not None:
+                    q = self.ns_quota(ns)
+                    if q > 0 and self._ns_nodes.get(ns, 0) >= q and not self.evict(1, ns=ns):
+                        break  # over quota with nothing of its own evictable
                 if self._n_nodes >= self.max_nodes:
                     if evicted_for_capacity or not self.evict(full - i):
                         break  # at capacity with nothing evictable
@@ -145,6 +159,8 @@ class RadixCache:
                 self.allocator.ref([blocks[i]])
                 node.children[key] = child
                 self._n_nodes += 1
+                if ns is not None:
+                    self._ns_nodes[ns] = self._ns_nodes.get(ns, 0) + 1
                 self.inserts += 1
                 adopted += 1
             child.last_use = t
@@ -201,6 +217,8 @@ class RadixCache:
             del parent.children[n.key]
             self.allocator.free([n.block])
             self._n_nodes -= 1
+            if n.ns is not None:
+                self._ns_nodes[n.ns] = max(0, self._ns_nodes.get(n.ns, 1) - 1)
             self.evictions += 1
             freed += 1
             if self._evictable(parent) and (ns is None or parent.ns == ns):
@@ -215,6 +233,7 @@ class RadixCache:
             self.allocator.free([n.block])
         self.root.children.clear()
         self._n_nodes = 0
+        self._ns_nodes.clear()
 
     # ------------------------------------------------------------ stats
 

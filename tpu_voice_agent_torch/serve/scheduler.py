@@ -38,8 +38,27 @@ request carries ``quality=conf_summary(...)``. The ``scheduler.*`` counters,
 gauges and histograms of these features are JAX's, and each chunk exports
 the paged pool's and the radix tree's gauges.
 
-Left for later: tenancy and the cost meter (ROADMAP.md Queue 1 item 4),
-prefix feeds and exports (item 6), the stalled-step watchdog (item 6).
+The cost meter (``COST_ENABLE``, default on; ``utils.costmodel``): each
+admission folds its exact cached-vs-computed prefill split and each chunk
+one per-row ledger (positions computed: a spec row's verify forwards plus
+its drafts, else its emitted tokens; KV bytes; rejected drafts; KV
+block-microseconds) into the slot's ledger and the meter's totals as the
+same ints, so the finished requests' ``cost`` ledgers sum to the totals
+exactly; the chunk's wall gives ``engine.mfu`` / ``engine.mbu``. Host
+arithmetic on the chunk's one readback: tokens are the same on or off.
+
+Tenancy (``TENANT_CLASSES``; ``serve.tenancy``): ``submit(tenant=)`` sheds a
+rate-limited tenant with ``"shed: tenant <name> rate-limited"``, admission
+picks the waiter of the poorest lane with slot headroom, each slot's radix
+chains live in its tenant's namespace under the tenant's block quota, and
+with ``TENANT_PREEMPT`` (default 1) a chunk boundary at which a poorer lane
+waits with no slot free preempts one slot of the richest lane: its chain is
+released warm into its namespace and its prompt requeued at the head, once
+per request, so it resumes from the cache and finishes with the tokens it
+would have had. Unset, nothing of it is built.
+
+Left for later: prefix feeds and exports (ROADMAP.md Queue 1 item 6), the
+stalled-step watchdog (item 6).
 """
 
 from __future__ import annotations
@@ -54,12 +73,14 @@ import numpy as np
 import torch
 
 from ..utils.chaos import chaos_fire
+from ..utils.costmodel import CostMeter, cost_enabled
 from ..utils.quality import conf_summary
 from ..utils.steplog import get_steplog
 from ..utils.tracing import get_flight_recorder, get_metrics
 from .engine import GenerationResult, _first_token
 from .paged import PoolExhausted, record_pool_gauges
 from .radix import record_radix_gauges
+from .tenancy import TenancyPlane, tenancy_enabled
 
 
 def is_device_fault(e: BaseException) -> bool:
@@ -98,6 +119,10 @@ class _Slot:
     conf_esum: float = 0.0
     conf_forced: int = 0
     conf_cnt: int = 0
+    # the request's cost ledger (utils.costmodel.LEDGER_KEYS), set at
+    # admission with the meter on; folded per chunk with the same ints as
+    # the meter's totals
+    cost: dict | None = None
 
 
 class ContinuousBatcher:
@@ -166,6 +191,19 @@ class ContinuousBatcher:
         if self._prefill_chunk:
             m.inc("prefill.chunked_admissions", 0.0)
             m.inc("prefill.chunks", 0.0)
+        # the cost meter: host arithmetic over readbacks the chunk pays for
+        self.costs: CostMeter | None = CostMeter(engine) if cost_enabled() else None
+        # the tenancy plane, built only when TENANT_CLASSES is set
+        self.tenancy: TenancyPlane | None = TenancyPlane() if tenancy_enabled() else None
+        self._tenant: dict[int, str | None] = {}  # rid -> wire tenant tag
+        self._prompt_src: dict[int, object] = {}  # rid -> prompt (the preemption requeue)
+        self._preempted: dict[int, int] = {}  # rid -> preemptions
+        self._preempt_on = os.environ.get("TENANT_PREEMPT", "1") != "0"
+        if self.tenancy is not None:
+            m.inc("tenant.throttled", 0.0)
+            m.inc("tenant.preemptions", 0.0)
+            if getattr(engine, "radix", None) is not None:
+                engine.radix.ns_quota = self.tenancy.block_quota
 
     # ------------------------------------------------------------ submit
 
@@ -181,6 +219,11 @@ class ContinuousBatcher:
         self._nan_slots.clear()
         self._requeues.clear()
         self._admitting.clear()
+        self._tenant.clear()
+        self._prompt_src.clear()
+        self._preempted.clear()
+        if self.tenancy is not None:
+            self.tenancy.reset_occupancy()
         self.results.clear()
         self.slots = [_Slot() for _ in range(self.B)]
         self.active = torch.zeros_like(self.active)
@@ -188,13 +231,15 @@ class ContinuousBatcher:
         for b in range(self.B):
             self.engine.release_slot(b, ok=False)
 
-    def submit(self, prompt, deadline=None) -> int:
+    def submit(self, prompt, deadline=None, tenant=None) -> int:
         """Queue one request: a prompt string, or pre-tokenized ids (the
         session-aware parser's turn N is turn N-1's ids + generated ids +
         the new frame's ids, a strict token extension the radix tree
         matches). ``deadline`` (``services.resilience.Deadline``) arms the
-        shed at dequeue and the eviction between chunks. A quarantined
-        prompt is refused here: its result is ready at once."""
+        shed at dequeue and the eviction between chunks. ``tenant`` names
+        the request's lane under tenancy (ignored without it). A
+        quarantined prompt, or a rate-limited tenant's, is refused here: its
+        result is ready at once."""
         rid = self._next_id
         self._next_id += 1
         fp = self._fingerprint(prompt)
@@ -205,6 +250,15 @@ class ContinuousBatcher:
             self.results[rid] = _err_result(
                 f"quarantined: {off['reason']} x{off['count']} (prompt {off['preview']!r})")
             return rid
+        if self.tenancy is not None:
+            if not self.tenancy.admit(tenant):
+                get_metrics().inc("tenant.throttled")
+                self.results[rid] = _err_result(
+                    f"shed: tenant {self.tenancy.resolve(tenant)} rate-limited")
+                return rid
+            self._tenant[rid] = tenant
+            self._prompt_src[rid] = prompt
+            self.tenancy.on_queue(tenant)
         self._prompt_fp[rid] = fp
         if deadline is not None:
             self._deadline[rid] = deadline
@@ -251,6 +305,15 @@ class ContinuousBatcher:
         self._prompt_fp.pop(rid, None)
         self._pool_wait.pop(rid, None)
         self._requeues.pop(rid, None)
+        self._tenant.pop(rid, None)
+        self._prompt_src.pop(rid, None)
+        self._preempted.pop(rid, None)
+
+    def _dequeued(self, rid: int, admitted: bool) -> None:
+        """A waiter left the queue (admitted, shed or failed): its lane's
+        occupancy follows."""
+        if self.tenancy is not None:
+            self.tenancy.on_dequeue(self._tenant.get(rid), admitted=admitted)
 
     def _evict_slot(self, b: int, error: str, counter: str) -> None:
         """Evict ONE in-flight slot with a typed error: deactivate its row,
@@ -258,8 +321,15 @@ class ContinuousBatcher:
         request. Batch-mates' rows are untouched."""
         sl = self.slots[b]
         rid = sl.request_id
-        self.results[rid] = _err_result(error, steps=len(sl.token_ids), prefill_ms=sl.prefill_ms)
+        res = _err_result(error, steps=len(sl.token_ids), prefill_ms=sl.prefill_ms)
+        # an evicted row still accounts what it spent: the ledger conserves
+        res.cost = dict(sl.cost) if sl.cost is not None else None
+        self.results[rid] = res
         get_metrics().inc(counter)
+        if self.tenancy is not None:
+            t = self._tenant.get(rid)
+            self.tenancy.on_release(t)
+            self.tenancy.fold_cost(t, res.cost)
         self._cleanup(rid)
         self.slots[b] = _Slot()
         self.active[b] = False
@@ -278,6 +348,7 @@ class ContinuousBatcher:
                 del self.pending[i]
                 self.results[rid] = _err_result(f"cancelled: {reason}")
                 get_metrics().inc("scheduler.cancelled")
+                self._dequeued(rid, admitted=False)
                 self._cleanup(rid)
                 return True
         for b in range(self.B):
@@ -285,6 +356,51 @@ class ContinuousBatcher:
                 self._evict_slot(b, f"cancelled: {reason}", "scheduler.cancelled")
                 return True
         return False
+
+    def _preempt_slot(self, b: int) -> None:
+        """Vacate ONE over-budget slot for a starved lane at a chunk
+        boundary: its spent cost folds into its tenant's ledger, its prompt
+        + generated chain is released warm (``ok``) into the tenant's radix
+        namespace, and the original prompt requeues at the head. Greedy
+        decoding is deterministic, so the re-admission, warm from that
+        chain, replays the same stream: the result arrives late, not
+        failed. One preemption per request (the caller's filter)."""
+        sl = self.slots[b]
+        rid = sl.request_id
+        prompt = self._prompt_src.get(rid)
+        if prompt is None:
+            return  # no requeue source: leave the slot alone
+        t = self._tenant.get(rid)
+        self._preempted[rid] = self._preempted.get(rid, 0) + 1
+        plane = self.tenancy
+        plane.fold_cost(t, sl.cost)
+        plane.on_release(t)
+        plane.on_queue(t)
+        plane.note_preemption(t)
+        get_metrics().inc("tenant.preemptions")
+        self.engine.release_slot(b, generated_ids=sl.token_ids)
+        self.slots[b] = _Slot()
+        self.active[b] = False
+        self._active_h[b] = False
+        self._nan_slots.discard(b)
+        self._enqueued_at[rid] = time.perf_counter()
+        self.pending.insert(0, (rid, prompt))
+
+    def _maybe_preempt(self, act: np.ndarray) -> None:
+        """Every slot busy while a poorer lane waits: preempt the richest
+        lane's slot (at most one a step; see ``_preempt_slot``)."""
+        plane = self.tenancy
+        if plane is None or not self._preempt_on or not self.pending:
+            return
+        if self._free_slot(act) is not None:
+            return
+        victim = plane.over_budget_victim(
+            [(b, self._tenant.get(sl.request_id)) for b, sl in enumerate(self.slots)
+             if sl.request_id >= 0 and act[b] and sl.token_ids
+             and self._preempted.get(sl.request_id, 0) < 1],
+            [self._tenant.get(r) for r, _ in self.pending])
+        if victim is not None:
+            self._preempt_slot(victim)
 
     def _free_slot(self, act: np.ndarray) -> int | None:
         for b in range(self.B):
@@ -300,6 +416,9 @@ class ContinuousBatcher:
         state. Returns True when a chunked admission was started instead:
         the slot is reserved and ``_advance_admissions`` runs its pieces."""
         eng = self.engine
+        if self.tenancy is not None and hasattr(eng, "set_slot_ns"):
+            # the slot's chains live in its tenant's radix namespace
+            eng.set_slot_ns(slot, self.tenancy.resolve(self._tenant.get(rid)))
         t0 = time.perf_counter()
         ids = (eng.tokenizer.encode(prompt, bos=True) if isinstance(prompt, str)
                else [int(t) for t in prompt])
@@ -355,6 +474,17 @@ class ContinuousBatcher:
         sl.cached_tokens = int(eng._last_cached_tokens)
         # TTFT: enqueue through the first sampled token, queue wait included
         get_metrics().observe_ms("scheduler.ttft", (time.perf_counter() - t_enq) * 1e3)
+        if self.costs is not None:
+            # the prefill's exact cached-vs-computed partition of the cold
+            # prompt's cost, into the slot's ledger and the totals alike
+            computed, cached = self.costs.model.prefill_split(n, sl.cached_tokens)
+            sl.cost = dict.fromkeys(("decode_flops", "decode_bytes", "wasted_draft_flops",
+                                     "kv_block_us"), 0)
+            sl.cost["prefill_flops"] = computed
+            sl.cost["prefill_cached_flops"] = cached
+            self.costs.fold_prefill(computed, cached, sl.prefill_ms)
+        else:
+            sl.cost = None
 
     def _arm_chaos(self, slot: int) -> None:
         """The admission's drills (no-ops with chaos off): NaN logits on the
@@ -413,17 +543,26 @@ class ContinuousBatcher:
         m = get_metrics()
         n_admitted = n_attempted = 0
         prefill_ms = 0.0
+        plane = self.tenancy
         while self.pending:
             slot = self._free_slot(act)
             if slot is None:
                 break
-            rid, prompt = self.pending.pop(0)
+            if plane is None:
+                rid, prompt = self.pending.pop(0)
+            else:
+                # the poorest lane with slot headroom, FIFO within a lane
+                idx = plane.pick([self._tenant.get(r) for r, _ in self.pending])
+                if idx is None:
+                    break  # every waiter's lane is at its slot cap
+                rid, prompt = self.pending.pop(idx)
             n_attempted += 1
             dl = self._deadline.get(rid)
             if dl is not None and dl.expired:
                 # the queue wait spent the budget: never occupy a slot
                 self.results[rid] = _err_result("shed: deadline expired in queue")
                 m.inc("scheduler.shed_expired")
+                self._dequeued(rid, admitted=False)
                 self._cleanup(rid)
                 continue
             try:
@@ -436,6 +575,7 @@ class ContinuousBatcher:
                     # nothing live can free blocks, or the wait budget is spent
                     self.results[rid] = _err_result(f"shed: {e}")
                     m.inc("scheduler.shed_pool")
+                    self._dequeued(rid, admitted=False)
                     self._cleanup(rid)
                     continue
                 n_req = self._requeues.get(rid, 0) + 1
@@ -459,10 +599,12 @@ class ContinuousBatcher:
                 if not isinstance(e, ValueError):
                     m.inc("scheduler.prefill_faults")
                     self._record_offense(rid, f"prefill {type(e).__name__}")
+                self._dequeued(rid, admitted=False)
                 self._cleanup(rid)
                 continue
             self._pool_wait.pop(rid, None)
             self._requeues.pop(rid, None)
+            self._dequeued(rid, admitted=True)
             if not chunked:
                 act[slot] = True
                 n_admitted += 1
@@ -487,6 +629,7 @@ class ContinuousBatcher:
                 if dl is not None and dl.expired:
                     self._evict_slot(b, "cancelled: deadline expired mid-decode",
                                      "scheduler.cancelled")
+        self._maybe_preempt(act)
         n_admitted, n_attempted, admit_prefill_ms = self._admit_pending(act)
         adm_done, adm_stepped, adm_pf_ms = self._advance_admissions(act)
         n_admitted += adm_done
@@ -512,6 +655,7 @@ class ContinuousBatcher:
         # chunk must not re-serve an earlier one's
         eng._last_accepts = None
         eng._last_row_fwds = None
+        eng._last_row_drafted = None
         eng._last_draft_ms = 0.0
         (out, n, eos, cur, pos, fsm, active, nbytes, tokens_left) = eng.decode_chunk(
             self.cur, self.pos, self.fsm, self.active, self.nbytes, self.tokens_left,
@@ -546,7 +690,11 @@ class ContinuousBatcher:
         self.tokens_generated += int(n_h.sum())
         self.forwards += int(eng._last_fwds)
         row_fwds, row_accepts = eng._last_row_fwds, eng._last_accepts
-        self._record_chunk_gauges(n_h, act_h, int(eng._last_fwds), t_chunk0)
+        chunk_s = self._record_chunk_gauges(n_h, act_h, int(eng._last_fwds), t_chunk0)
+        plane = self.tenancy
+        if plane is not None:
+            plane.export_gauges()
+        chunk_cost = [0, 0]  # the chunk's analytic FLOPs and KV bytes
 
         for b in range(self.B):
             sl = self.slots[b]
@@ -554,6 +702,13 @@ class ContinuousBatcher:
                 # mid chunked admission: its row did not decode, the
                 # readback holds nothing of it
                 continue
+            if plane is not None:
+                # the lane's clock advances by the row's emitted tokens
+                plane.charge(self._tenant.get(sl.request_id), int(n_h[b]))
+            if self.costs is not None and sl.cost is not None:
+                # before the poison branch: an evicted row's spent chunk
+                # rides out on its error result
+                self._fold_row_cost(b, sl, int(n_h[b]), int(pos_h[b]), chunk_s, chunk_cost)
             if int(pois_h[b]) > 0:
                 # the loop fenced this row off mid-chunk without touching
                 # batch-mates: count the offence, evict without caching, and
@@ -585,13 +740,27 @@ class ContinuousBatcher:
                     forwards=sl.forwards, spec_accepted=sl.spec_accepts,
                     quality=conf_summary((sl.conf_msum, sl.conf_mmin, sl.conf_esum,
                                           sl.conf_forced, sl.conf_cnt), len(sl.token_ids)))
+                self.results[sl.request_id].cost = (dict(sl.cost) if sl.cost is not None
+                                                    else None)
                 m = get_metrics()
                 m.inc("scheduler.requests_completed")
-                m.observe_ms("scheduler.request_total", (time.perf_counter() - sl.start_s) * 1e3)
+                total_ms = (time.perf_counter() - sl.start_s) * 1e3
+                m.observe_ms("scheduler.request_total", total_ms)
+                if plane is not None:
+                    t = self._tenant.get(sl.request_id)
+                    plane.on_release(t)
+                    plane.fold_cost(t, sl.cost)
+                    plane.observe_latency(t, total_ms)
                 self._cleanup(sl.request_id)
                 self.slots[b] = _Slot()
                 # with radix reuse on, release caches prompt + generated first
                 eng.release_slot(b, generated_ids=sl.token_ids)
+        if self.costs is not None:
+            # the chunk's analytic work against its wall: engine.mfu / mbu
+            try:
+                self.costs.chunk(chunk_cost[0], chunk_cost[1], int(eng._last_fwds), chunk_s)
+            except Exception:  # noqa: BLE001 - metering never becomes a serving fault
+                pass
         # everything after the readback is release; the drafter's host share
         # was measured inside decode
         timer.lap("release")
@@ -600,10 +769,43 @@ class ContinuousBatcher:
                      forwards=int(eng._last_fwds),
                      accepted=int(np.sum(row_accepts)) if row_accepts is not None else None)
 
-    def _record_chunk_gauges(self, n_h, act_h, fwds: int, t_chunk0: float) -> None:
+    def _fold_row_cost(self, b: int, sl: _Slot, emitted: int, frontier: int, chunk_s: float,
+                       chunk_cost: list) -> None:
+        """One row's chunk ledger, folded into the slot's and the meter's
+        with the same ints. Positions computed: a spec row's verify forwards
+        plus its drafts (rejected ones included: the card did the work),
+        else one per emitted token; KV held: the paged slot's owned + shared
+        blocks, the dense slot's one line, for the chunk's wall."""
+        eng, costs = self.engine, self.costs
+        row_fwds = eng._last_row_fwds
+        row_drafted = eng._last_row_drafted
+        row_accepts = eng._last_accepts
+        if row_fwds is not None and row_drafted is not None:
+            positions = int(row_fwds[b]) + int(row_drafted[b])
+        else:
+            positions = emitted
+        fl, by = costs.model.decode_row(positions, frontier)
+        wasted = 0
+        if row_drafted is not None and row_accepts is not None:
+            w_pos = max(0, int(row_drafted[b]) - int(row_accepts[b]))
+            if w_pos:
+                wasted = costs.model.decode_row(w_pos, frontier)[0]
+        owned = getattr(eng, "_slot_owned", None)
+        blocks = len(owned[b]) + len(eng._slot_shared[b]) if owned is not None else 1
+        kv_us = int(round(chunk_s * 1e6)) * blocks
+        row = {"decode_flops": fl, "decode_bytes": by, "wasted_draft_flops": wasted,
+               "kv_block_us": kv_us}
+        for k, v in row.items():
+            sl.cost[k] += v
+        costs.fold_row(row)
+        chunk_cost[0] += fl
+        chunk_cost[1] += by
+
+    def _record_chunk_gauges(self, n_h, act_h, fwds: int, t_chunk0: float) -> float:
         """The chunk's counters and the saturation gauges continuous batching
         is tuned by: backlog, occupancy, tokens per forward, throughput, and
-        the paged pool's and radix tree's occupancy."""
+        the paged pool's and radix tree's occupancy. Returns the chunk's
+        wall in seconds."""
         m = get_metrics()
         emitted = float(n_h.sum())
         m.inc("scheduler.tokens_generated", emitted)
@@ -625,6 +827,7 @@ class ContinuousBatcher:
             record_pool_gauges(eng.allocator, engine=eng)
         if getattr(eng, "radix", None) is not None:
             record_radix_gauges([eng.radix])
+        return chunk_s
 
     # ------------------------------------------------------------ drain
 
@@ -639,6 +842,9 @@ class ContinuousBatcher:
                 # a chunked admission spends up to ceil(max_len / C) steps
                 # on its pieces before its first decode chunk
                 per_req += math.ceil(self.engine.max_len / self._prefill_chunk)
+            if self.tenancy is not None:
+                # a preempted request re-admits and may replay its budget once
+                per_req *= 2
             max_chunks = per_req * (len(self.pending) + self.B) + self.B
         for _ in range(max_chunks):
             if not self.busy():

@@ -608,7 +608,8 @@ class SpecDecoder:
         nbytes, tokens_left). Sets the engine's ``_last_fwds`` (verify
         steps), ``_last_poison`` (per-row fault codes) and the per-row
         readbacks ``_last_accepts`` / ``_last_row_fwds`` the batcher folds
-        into per-request ``spec_accepted`` / ``forwards``, and
+        into per-request ``spec_accepted`` / ``forwards`` (with
+        ``_last_row_drafted``, the cost ledger's rejected drafts), and
         ``_last_conf``, the chunk's quality lanes on the device (None with
         the lanes off)."""
         eng = self.engine
@@ -624,6 +625,7 @@ class SpecDecoder:
         draft_ms = 0.0
         row_fwds = np.zeros((B,), np.int64)
         row_accepts = np.zeros((B,), np.int64)
+        row_drafted = np.zeros((B,), np.int64)
         poison_h = np.zeros((B,), np.int32)
         # the chunk's lanes, folded on the device (sums add, mins min)
         conf_acc = _conf_init(B, dev) if self.quality_lanes else None
@@ -666,6 +668,7 @@ class SpecDecoder:
             accepted += int(a_h.sum())
             row_fwds += prev_act
             row_accepts += a_h
+            row_drafted += dl_h
             self._slot_fwds += prev_act
             self._slot_drafted += dl_h
             self._slot_accepted += a_h
@@ -690,6 +693,8 @@ class SpecDecoder:
         eng._last_poison = torch.from_numpy(poison_h).to(dev)
         eng._last_accepts = row_accepts
         eng._last_row_fwds = row_fwds
+        # the cost ledger's wasted-draft lane: (drafted - accepted) per row
+        eng._last_row_drafted = row_drafted
         eng._last_conf = conf_acc
         self._steps += fwds
         self._drafted += drafted

@@ -17,9 +17,14 @@ step. With the quality lanes on (``QUALITY_ENABLE``, default on) the loop
 also accumulates the emitted tokens' log-probabilities (sum, min, first) on
 the device, read back once with the tokens; ``finalize_stt_ids`` turns them
 into the transcript's confidence. The endpoint counters and the process-wide
-``stt.feed_lag_s`` / ``stt.buffered_audio_s`` gauges are JAX's. Left out
-(still JAX-only): ``from_hf`` and checkpoint tokenizers (so no suppressed
-specials), the cost lanes, and the batched and replicated STT planes.
+``stt.feed_lag_s`` / ``stt.buffered_audio_s`` gauges are JAX's. The cost
+lanes (``COST_ENABLE``, default on): each encode dispatch and each B = 1
+decode loop folds its analytic FLOPs into ``cost_totals`` (the voice
+service's ``/debug/costs``) and the ``cost.stt_*_flops`` counters. The
+decode loop also serves the batched plane (``serve.stt_batch``): a ``live``
+slot mask and a per-slot ``max_new_each`` budget. Left out (still
+JAX-only): ``from_hf`` and checkpoint tokenizers (so no suppressed
+specials), and the replicated STT plane (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -47,6 +52,12 @@ from ..models.whisper import (
     with_unstacked_layers,
 )
 from ..utils.chaos import chaos_fire
+from ..utils.costmodel import (
+    cost_enabled,
+    register_stt_engine,
+    whisper_decoder_flops,
+    whisper_encoder_flops,
+)
 from ..utils.quality import quality_lanes_enabled, repetition_score
 from ..utils.tracing import get_metrics
 from .engine import _sync, resolve_device
@@ -55,10 +66,18 @@ from .engine import _sync, resolve_device
 @torch.no_grad()
 def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dict,
                      enc_len: torch.Tensor, bos: torch.Tensor, max_new: int = 64,
-                     eos_id: int = 2, pad_id: int = 0, quality_lanes: bool = False):
+                     eos_id: int = 2, pad_id: int = 0, quality_lanes: bool = False,
+                     live: torch.Tensor | None = None,
+                     max_new_each: torch.Tensor | None = None):
     """Greedy decode until EOS. ``bos`` (B, P) is the decoder prompt; every
-    row stops on its own EOS, at ``max_text_len - 1``, or after ``max_new``
-    tokens, and the loop runs until all rows are done. With ``quality_lanes``
+    row stops on its own EOS, at ``max_text_len - 1``, or after its budget
+    (``max_new``, or the row's entry of ``max_new_each`` (B,) int32), and
+    the loop runs until all rows are done. The ONE loop of the B = 1 paths
+    and the batched plane (``serve.stt_batch``), which passes ``live`` (B,)
+    bool: a dead slot is done from the start (its cross-KV rows hold
+    garbage, and its ``enc_len`` is 0, so its attention reads nothing).
+    With ``live`` / ``max_new_each`` None the loop is the single-stream one.
+    With ``quality_lanes``
     each emitted token's log-probability (an fp32 log-softmax of its step's
     logits; the first from the prompt step) folds into per-row (sum, min,
     first) lanes; EOS is not emitted and not counted. The lanes only read:
@@ -83,7 +102,11 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
         conf = (torch.zeros((B,), dtype=torch.float32, device=dev),  # logprob sum
                 torch.full((B,), float("inf"), dtype=torch.float32, device=dev),  # min
                 torch.zeros((B,), dtype=torch.float32, device=dev))  # first emitted
-    done = (cur == eos_id) | (max_new <= 0)
+    budget = (torch.full((B,), max_new, dtype=torch.int32, device=dev) if max_new_each is None
+              else max_new_each.to(torch.int32))
+    done = (cur == eos_id) | (budget <= 0)
+    if live is not None:
+        done = done | ~live
     out = torch.full((B, max_new), pad_id, dtype=torch.int32, device=dev)
     pos = torch.full((B,), P, dtype=torch.int32, device=dev)
     n = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -102,7 +125,7 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
                                              cross_kv, enc_len)
         nxt, nxt_lp = pick(logits[:, 0, :])
         pos = torch.where(live, pos + 1, pos)
-        done = done | (nxt == eos_id) | (pos >= cfg.max_text_len - 1) | (n >= max_new)
+        done = done | (nxt == eos_id) | (pos >= cfg.max_text_len - 1) | (n >= budget)
         cur = torch.where(live, nxt, cur)
         if conf is not None:
             cur_lp = torch.where(live, nxt_lp, cur_lp)
@@ -144,6 +167,17 @@ class TranscribeResult:
     logp_min: float | None = None
     logp_first: float | None = None
     repetition: float | None = None
+
+
+def _append_cross_kv(buf_k: torch.Tensor, buf_v: torch.Tensor, new_k: torch.Tensor,
+                     new_v: torch.Tensor, offset: int, slot: int = 0) -> None:
+    """Write one encoded block's cross-KV (L, 1, keep, nh, hd) into an
+    (L, S, positions, nh, hd) buffer at encoder frame ``offset`` of batch
+    row ``slot``, in place: row 0 of a per-connection buffer, or a pool slot
+    of the batched plane (``serve.stt_batch``)."""
+    keep = new_k.shape[2]
+    buf_k[:, slot:slot + 1, offset:offset + keep] = new_k
+    buf_v[:, slot:slot + 1, offset:offset + keep] = new_v
 
 
 @dataclass
@@ -201,6 +235,13 @@ class SpeechEngine:
                 f"no frame bucket in {frame_buckets} fits this config's "
                 f"max_audio_frames ({self.cfg.max_audio_frames})")
         self.max_new_tokens = max_new_tokens
+        # the STT share of the cost meter: analytic encoder / decoder FLOPs
+        # per encode dispatch and decode loop, host ints only
+        self.cost_lanes = cost_enabled()
+        self.cost_totals = {"encoder_flops": 0, "decoder_flops": 0, "encoded_frames": 0,
+                            "decoded_tokens": 0}
+        if self.cost_lanes:
+            register_stt_engine(self)
         self.params = None
         if init_weights:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -222,6 +263,26 @@ class SpeechEngine:
             if n_frames <= b:
                 return b
         return self.frame_buckets[-1]
+
+    def _fold_encoder_cost(self, n_frames: int) -> None:
+        """One encode dispatch over ``n_frames`` mel frames (an incremental
+        block pays its lookback re-encode too)."""
+        if not self.cost_lanes:
+            return
+        fl = whisper_encoder_flops(self.cfg, n_frames)
+        self.cost_totals["encoder_flops"] += fl
+        self.cost_totals["encoded_frames"] += int(n_frames)
+        get_metrics().inc("cost.stt_encoder_flops", float(fl))
+
+    def _fold_decoder_cost(self, n_tokens: int, enc_len: int) -> None:
+        """One greedy decode loop: ``n_tokens`` forwards (emitted + the
+        prompt) cross-attending ``enc_len`` encoder positions."""
+        if not self.cost_lanes:
+            return
+        fl = whisper_decoder_flops(self.cfg, n_tokens, enc_len)
+        self.cost_totals["decoder_flops"] += fl
+        self.cost_totals["decoded_tokens"] += int(n_tokens)
+        get_metrics().inc("cost.stt_decoder_flops", float(fl))
 
     def _mel(self, audio: np.ndarray) -> torch.Tensor:
         return log_mel_spectrogram(torch.from_numpy(np.ascontiguousarray(audio, np.float32))
@@ -261,6 +322,7 @@ class SpeechEngine:
         kv = compute_cross_kv(self.params, self.cfg, enc)
         drop = (c - start) // 2  # lookback outputs: context only
         keep = step // 2
+        self._fold_encoder_cost(n_window)
         return kv["k"][:, :, drop:drop + keep], kv["v"][:, :, drop:drop + keep], keep
 
     def incremental_feed(self, state: IncrementalState, buf: np.ndarray) -> IncrementalState:
@@ -278,8 +340,7 @@ class SpeechEngine:
             c = state.consumed_frames
             new_k, new_v, keep = self._encode_block(buf, state.anchor_frames, c)
             e = state.enc_len
-            state.cross_k[:, :, e:e + keep] = new_k
-            state.cross_v[:, :, e:e + keep] = new_v
+            _append_cross_kv(state.cross_k, state.cross_v, new_k, new_v, e)
             state = IncrementalState(cross_k=state.cross_k, cross_v=state.cross_v,
                                      enc_len=e + keep, consumed_frames=c + step,
                                      anchor_frames=state.anchor_frames)
@@ -313,6 +374,7 @@ class SpeechEngine:
         n_h = int(h[W])
         ids = [int(t) for t in h[:n_h]]
         decode_ms = (time.perf_counter() - t0) * 1e3
+        self._fold_decoder_cost(n_h + len(self.bos_ids), max(1, int(n_frames) // 2))
         ids, logp_mean, logp_min, logp_first, rep = finalize_stt_ids(
             ids, h[W + 1:W + 4], self.quality_lanes, final)
         return TranscribeResult(text=self.tokenizer.decode(ids).strip(), encode_ms=0.0,
@@ -336,6 +398,7 @@ class SpeechEngine:
         mel = self._mel(padded)[None, :bucket]
         enc_out = encoder_forward(self.params, self.cfg, mel)
         cross_kv = compute_cross_kv(self.params, self.cfg, enc_out)
+        self._fold_encoder_cost(bucket)
         return cross_kv, max(1, n_frames // 2), n_frames
 
     def transcribe(self, audio: np.ndarray) -> TranscribeResult:

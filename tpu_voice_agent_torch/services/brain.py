@@ -32,11 +32,13 @@ list and the last step-ledger entry. Every parse records a ``parse`` span
 as stage notes, an SLO sample and a quality record; a response from an engine backend carries
 ``x-intent-margin`` beside the decode headers. ``GET /metrics`` (JSON, or
 Prometheus text under ``Accept: text/plain``), ``GET /debug/trace/{id}``,
-``GET /debug/quality``, ``GET /debug/steplog`` and ``GET
-/debug/flightrecorder`` are served; the JAX brain's other routes answer 501
-``not_ported`` with the ROADMAP.md Queue 1 item that brings them
-(``UNPORTED_ROUTES``). The HTTP layer is the standard library's
-``ThreadingHTTPServer``.
+``GET /debug/quality``, ``GET /debug/steplog``, ``GET
+/debug/flightrecorder`` and ``GET /debug/costs`` (the batcher's cost meter,
+the per-session rollup and, under tenancy, the lanes) are served; the JAX
+brain's other routes answer 501 ``not_ported`` with the ROADMAP.md Queue 1
+item that brings them (``UNPORTED_ROUTES``). A request's tenant (the body's
+``tenant``, else the ``x-tenant`` header) rides into the batcher. The HTTP
+layer is the standard library's ``ThreadingHTTPServer``.
 
     BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 \\
         python -m tpu_voice_agent_torch.services.brain
@@ -58,14 +60,20 @@ quality lanes, default on), ``QUALITY_WINDOW`` / ``QUALITY_SLO_*``,
 ``SLO_*``, ``TRACE_SINK``, ``BRAIN_MAX_INFLIGHT``, ``QUARANTINE_AFTER`` and
 ``PREFILL_CHUNK_TOKENS`` (read by the batcher), ``STEPLOG_*``, ``FLIGHT_*``,
 ``QUALITY_CANARY_S`` / ``QUALITY_CANARY_SLICE`` / ``QUALITY_CANARY_OCCUPANCY``
-(the golden-replay canary, started by ``make_server``), and ``CHAOS_FAULTS`` /
+(the golden-replay canary, started by ``make_server``), ``TENANT_CLASSES`` /
+``TENANT_PREEMPT`` (the batcher's tenancy plane), ``RADIX_SESSIONS`` (the
+session transcripts' LRU), ``RADIX_MAX_NODES`` / ``RADIX_PRESSURE_S`` (the
+paged engine's tree), ``COST_ENABLE`` / ``COST_SESSIONS`` /
+``COST_PEAK_TFLOPS`` / ``COST_PEAK_GBPS`` (the cost meter), and ``CHAOS_FAULTS`` /
 ``CHAOS_SEED`` with ``CHAOS_HANG_S`` / ``CHAOS_SLOW_S``: the replica points
 draw on ``POST /parse`` only (``replica_kill`` latches and closes every later
 connection without a response, ``replica_hang`` / ``replica_slow`` sleep,
 ``replica_degrade`` latches slow), and ``intent_downgrade`` latches a
 rule-fallback "unknown" answer. The JAX service's knobs and chaos points
 that the port does not serve raise ``ValueError`` at boot
-(``check_unserved_knobs``).
+(``check_unserved_knobs``). ``main`` merges the repo-root ``.env`` into the
+environment first (``utils.envcfg``), so its knobs are served or refused
+alike.
 """
 
 from __future__ import annotations
@@ -79,11 +87,12 @@ import socket
 import threading
 import time
 from collections import OrderedDict
-from dataclasses import replace
+from dataclasses import dataclass, field, replace
 from concurrent.futures import CancelledError, Future, InvalidStateError
 from concurrent.futures import TimeoutError as FutureTimeout
 from contextlib import nullcontext
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs
 
 from ..schemas import (
     ValidationError,
@@ -92,6 +101,8 @@ from ..schemas import (
     validate_parse_response,
 )
 from ..utils.chaos import chaos_fire, check_served_points
+from ..utils.costmodel import SessionCostLedger
+from ..utils.envcfg import load_env_cascade
 from ..utils.quality import GoldenCanary, QualityMonitor
 from ..utils.steplog import get_steplog, steplog_response
 from ..utils.tracing import (
@@ -203,14 +214,15 @@ class SessionTranscripts:
     O(new utterance) admission. Id space, not text space, because
     re-encoding generated text is not id-stable under grammar-constrained
     decoding. The frame serializes the payload with sorted keys, so the same
-    (text, context) always renders the same bytes. LRU over ``MAX_SESSIONS``
-    sessions."""
+    (text, context) always renders the same bytes. LRU over ``max_sessions``
+    sessions (``RADIX_SESSIONS``, default ``MAX_SESSIONS``)."""
 
     MAX_SESSIONS = 256
 
     def __init__(self, tokenizer, render=None):
         self.tokenizer = tokenizer
         self.render = render or render_prompt
+        self.max_sessions = int(os.environ.get("RADIX_SESSIONS", str(self.MAX_SESSIONS)))
         self._hist: OrderedDict[str, list[int]] = OrderedDict()
         self._lock = threading.Lock()
 
@@ -239,7 +251,7 @@ class SessionTranscripts:
         with self._lock:
             self._hist[session_id] = ids + [int(t) for t in generated_ids]
             self._hist.move_to_end(session_id)
-            while len(self._hist) > self.MAX_SESSIONS:
+            while len(self._hist) > self.max_sessions:
                 self._hist.popitem(last=False)
 
     def forget(self, session_id: str) -> None:
@@ -247,35 +259,91 @@ class SessionTranscripts:
             self._hist.pop(session_id, None)
 
 
-class ServingLoop:
-    """One thread that steps a ``ContinuousBatcher``: ``submit`` queues a
-    prompt (with its ``Deadline``) and returns a ``Future`` of its
-    GenerationResult. New requests join at chunk boundaries; one the batcher
-    refuses at submit (a quarantined prompt) resolves before the next step.
-    Every batcher call runs on the loop's thread. A fault out of ``step`` (a
-    CUDA error is never handled per request) fails every in-flight future
-    and stops the loop; ``healthy`` turns False and later submits fail at
-    once."""
+@dataclass
+class LoopStats:
+    """The serving loop's lanes, as JAX's ``ColocationStats`` counts them."""
 
-    def __init__(self, batcher):
+    stt_jobs: int = 0
+    parse_jobs: int = 0
+    stt_busy_ms: float = 0.0
+    decode_busy_ms: float = 0.0
+    decode_chunks: int = 0
+    max_stt_queue: int = 0
+    max_parse_inflight: int = 0
+    # the dispatch order, "stt" / "chunk" entries (the fairness tests read it)
+    trace: list = field(default_factory=list)
+
+
+class ServingLoop:
+    """One thread that steps a ``ContinuousBatcher`` and, given a
+    ``SpeechEngine`` (``stt``), serves transcriptions between its decode
+    chunks: the port of JAX's ``ColocatedServing`` lanes.
+
+    ``submit`` queues a prompt (with its ``Deadline`` and tenant) and
+    returns a ``Future`` of its GenerationResult; ``submit_stt`` queues
+    16 kHz float32 audio and returns a ``Future`` of its TranscribeResult
+    (a loop built without ``stt`` raises ``RuntimeError``). Each ``step``
+    runs every queued STT job first, then one decode chunk: an STT job waits
+    at most one chunk. New requests join at chunk boundaries; one the
+    batcher refuses at submit (a quarantined prompt, a rate-limited tenant)
+    resolves before the next step. Every engine call runs on the loop's
+    thread: the kernels' split scratch and tickets serve one stream at a
+    time, so K5 (the STT) and K6 / K7 (the batch) never launch from two
+    threads at once. An STT job's own error fails its future alone; a fault
+    out of the decode step, or a CUDA fault anywhere (never handled per
+    request), fails every waiting future and stops the loop: ``healthy``
+    turns False and later submits fail at once. ``autostart=False`` leaves
+    the thread unstarted, for a caller that drives ``step`` itself
+    (``start`` starts it). The ``colocate.stt_queue`` and
+    ``colocate.parse_inflight`` gauges read each step's lanes before it
+    runs them."""
+
+    def __init__(self, batcher, stt=None, autostart: bool = True):
         self.batcher = batcher
+        self.stt = stt
+        self.stats = LoopStats()
         self._cv = threading.Condition()
-        self._inbox: list[tuple[object, object, Future]] = []
+        self._inbox: list[tuple[object, object, object, Future]] = []
+        self._stt_q: list[tuple[object, Future]] = []
         self._abandoned: set[Future] = set()
         self._futures: dict[int, Future] = {}
         self._stop = False
         self.error: BaseException | None = None
-        self._thread = threading.Thread(target=self._run, name="brain-batcher", daemon=True)
-        self._thread.start()
+        self._thread: threading.Thread | None = None
+        if autostart:
+            self.start()
 
-    def submit(self, prompt, deadline=None) -> Future:
+    def start(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, name="brain-batcher", daemon=True)
+            self._thread.start()
+
+    def _refuse_if_stopped(self, fut: Future) -> bool:
+        if self.error is not None or self._stop:
+            fut.set_exception(RuntimeError(f"serving loop stopped: {self.error}"))
+            return True
+        return False
+
+    def submit(self, prompt, deadline=None, tenant=None) -> Future:
         fut: Future = Future()
         with self._cv:
-            if self.error is not None or self._stop:
-                fut.set_exception(RuntimeError(f"serving loop stopped: {self.error}"))
-                return fut
-            self._inbox.append((prompt, deadline, fut))
-            self._cv.notify()
+            if not self._refuse_if_stopped(fut):
+                self._inbox.append((prompt, deadline, tenant, fut))
+                self.stats.max_parse_inflight = max(self.stats.max_parse_inflight,
+                                                    len(self._futures) + len(self._inbox))
+                self._cv.notify()
+        return fut
+
+    def submit_stt(self, audio) -> Future:
+        """Queue one transcription (the STT lane runs first in each step)."""
+        if self.stt is None:
+            raise RuntimeError("this serving loop was built without an STT engine")
+        fut: Future = Future()
+        with self._cv:
+            if not self._refuse_if_stopped(fut):
+                self._stt_q.append((audio, fut))
+                self.stats.max_stt_queue = max(self.stats.max_stt_queue, len(self._stt_q))
+                self._cv.notify()
         return fut
 
     def abandon(self, fut: Future) -> None:
@@ -289,52 +357,117 @@ class ServingLoop:
             self._cv.notify()
 
     def healthy(self) -> bool:
-        return self.error is None and self._thread.is_alive()
+        return self.error is None and self._thread is not None and self._thread.is_alive()
 
     def stop(self) -> None:
         with self._cv:
             self._stop = True
             self._cv.notify()
-        self._thread.join(timeout=60)
+        if self._thread is not None:
+            self._thread.join(timeout=60)
+
+    def _has_work(self) -> bool:
+        return bool(self._inbox or self._abandoned or self._stt_q or self.batcher.busy())
+
+    def run_until_idle(self, timeout_s: float = 120.0) -> None:
+        """Block until both lanes are empty: steps inline when the thread is
+        not running, else waits for it. ``TimeoutError`` past
+        ``timeout_s``."""
+        give_up = time.monotonic() + timeout_s
+        while time.monotonic() < give_up:
+            with self._cv:
+                idle = not (self._has_work() or self._futures)
+            if idle:
+                return
+            if self._thread is not None and self._thread.is_alive():
+                time.sleep(0.005)
+            else:
+                self.step()
+        raise TimeoutError("serving loop did not go idle")
 
     def _run(self) -> None:
-        b = self.batcher
         while True:
             with self._cv:
-                while not (self._inbox or self._abandoned or b.busy() or self._stop):
+                while not (self._has_work() or self._stop):
                     self._cv.wait()
                 if self._stop:
                     return
-                inbox, self._inbox = self._inbox, []
-                gone, self._abandoned = self._abandoned, set()
             try:
-                for prompt, deadline, fut in inbox:
-                    if fut not in gone:
-                        self._futures[b.submit(prompt, deadline=deadline)] = fut
-                for r in [r for r, f in self._futures.items() if f in gone]:
-                    b.cancel(r, "client gone")
-                    self._futures.pop(r)
-                    b.results.pop(r, None)  # nobody reads it
-                for fut in gone:
-                    fut.cancel()
-                self._resolve()  # refused at submit: answered before any step
-                b.step()
-                self._resolve()
-            except BaseException as e:  # noqa: BLE001 - every waiter must hear of it
-                with self._cv:
-                    self.error = e
-                    waiting = (list(self._futures.values())
-                               + [f for *_, f in inbox + self._inbox])
-                    self._futures.clear()
-                    self._inbox.clear()
-                for fut in waiting:
-                    _settle(fut.set_exception, e)
+                self.step()
+            except BaseException:  # noqa: BLE001 - step already failed every waiter
                 return
+
+    def step(self) -> bool:
+        """One scheduling decision: queued submits and cancels into the
+        batcher, every queued STT job, then one decode chunk. True when any
+        work ran."""
+        from ..serve.scheduler import is_device_fault
+
+        b = self.batcher
+        m = get_metrics()
+        with self._cv:
+            inbox, self._inbox = self._inbox, []
+            gone, self._abandoned = self._abandoned, set()
+            stt_jobs, self._stt_q = self._stt_q, []
+            # the lanes' depths before this step runs them
+            m.set_gauge("colocate.stt_queue", len(stt_jobs))
+            m.set_gauge("colocate.parse_inflight", len(self._futures) + len(inbox))
+        did = False
+        try:
+            for prompt, deadline, tenant, fut in inbox:
+                if fut not in gone:
+                    kw = {"tenant": tenant} if tenant is not None else {}
+                    self._futures[b.submit(prompt, deadline=deadline, **kw)] = fut
+            for r in [r for r, f in self._futures.items() if f in gone]:
+                b.cancel(r, "client gone")
+                self._futures.pop(r)
+                b.results.pop(r, None)  # nobody reads it
+            for fut in gone:
+                fut.cancel()
+            self._resolve()  # refused at submit: answered before any step
+            while stt_jobs:  # the priority lane
+                audio, fut = stt_jobs.pop(0)
+                t0 = time.perf_counter()
+                try:
+                    res = self.stt.transcribe(audio)
+                except Exception as e:  # noqa: BLE001 - the job fails alone
+                    if is_device_fault(e):
+                        stt_jobs.insert(0, (audio, fut))
+                        raise
+                    _settle(fut.set_exception, e)
+                else:
+                    _settle(fut.set_result, res)
+                self.stats.stt_busy_ms += (time.perf_counter() - t0) * 1e3
+                self.stats.stt_jobs += 1
+                self.stats.trace.append("stt")
+                did = True
+            if b.busy():
+                t0 = time.perf_counter()
+                b.step()
+                self.stats.decode_busy_ms += (time.perf_counter() - t0) * 1e3
+                self.stats.decode_chunks += 1
+                self.stats.trace.append("chunk")
+                did = True
+                self._resolve()
+        except BaseException as e:  # every waiter must hear of it
+            with self._cv:
+                self.error = e
+                waiting = (list(self._futures.values())
+                           + [f for *_, f in inbox + self._inbox]
+                           + [f for _, f in stt_jobs + self._stt_q])
+                self._futures.clear()
+                self._inbox.clear()
+                self._stt_q.clear()
+            for fut in waiting:
+                _settle(fut.set_exception, e)
+            raise
+        return did
 
     def _resolve(self) -> None:
         b = self.batcher
         for rid in [r for r in self._futures if r in b.results]:
             _settle(self._futures.pop(rid).set_result, b.results.pop(rid))
+            self.stats.parse_jobs += 1
 
 
 def _settle(setter, value) -> None:
@@ -380,8 +513,16 @@ class BatchedEngineParser:
         self.wants_session = session_aware
         self.transcripts = (SessionTranscripts(engine.tokenizer, render=self.render)
                             if session_aware else None)
-        # sid -> the pending two-phase speculative turn, LRU-capped
+        # sid -> the pending two-phase speculative turn, LRU-capped as the
+        # transcripts are
         self._pending: OrderedDict[str, dict] = OrderedDict()
+        self._pending_cap = (self.transcripts.max_sessions if self.transcripts is not None
+                             else 64)
+        # every finished request's cost ledger, rolled up per session (the
+        # meter /debug/costs names the top sessions from); None with the
+        # meter off
+        self.session_costs = (SessionCostLedger() if self.batcher.costs is not None
+                              else None)
         self._plock = threading.Lock()
         self._tls = threading.local()
         self.loop = ServingLoop(self.batcher)
@@ -394,7 +535,8 @@ class BatchedEngineParser:
 
     def _decode(self, prompt):
         ctx = current_request_context()
-        fut = self.loop.submit(prompt, deadline=ctx.deadline if ctx is not None else None)
+        fut = self.loop.submit(prompt, deadline=ctx.deadline if ctx is not None else None,
+                               tenant=ctx.tenant if ctx is not None else None)
         if ctx is not None:
             ctx.on_cancel(lambda: self.loop.abandon(fut))
         give_up = time.monotonic() + self.timeout_s
@@ -427,11 +569,19 @@ class BatchedEngineParser:
              else len(prompt))
         return n > limit
 
+    def _fold_cost(self, session_id: str | None, res) -> None:
+        """The request's ledger into its session's (before the response
+        conversion: an errored result still spent what it spent)."""
+        if self.session_costs is not None and res.cost:
+            self.session_costs.fold(session_id, res.cost)
+
     def parse(self, text: str, context: dict, session_id: str | None = None,
               speculative: bool = False) -> dict:
         self._tls.result = None
         if self.transcripts is None or not session_id:
-            return _result_to_response(self._decode(self.render(text, context)))
+            res = self._decode(self.render(text, context))
+            self._fold_cost(session_id, res)
+            return _result_to_response(res)
         user = SessionTranscripts.user_frame(text, context)
         with self._plock:
             pend = self._pending.pop(session_id, None)
@@ -451,6 +601,7 @@ class BatchedEngineParser:
             self.transcripts.forget(session_id)
             prompt = self.transcripts.prompt_for(session_id, text, context)
         res = self._decode(prompt)
+        self._fold_cost(session_id, res)
         resp = _result_to_response(res)  # raises on truncation: the session
         # stays at its last committed turn
         if speculative:
@@ -459,7 +610,7 @@ class BatchedEngineParser:
                                              "gen": list(res.token_ids),
                                              "notes": peek_stage_notes()}
                 self._pending.move_to_end(session_id)
-                while len(self._pending) > SessionTranscripts.MAX_SESSIONS:
+                while len(self._pending) > self._pending_cap:
                     self._pending.popitem(last=False)
         else:
             self.transcripts.record(session_id, prompt, res.token_ids)
@@ -599,39 +750,37 @@ def _wrap_engine(engine):
 
 
 # Knobs of features the port lacks -> the ROADMAP.md Queue 1 item that
-# brings them: any set, non-empty value is refused. Unset or empty is the JAX
-# default (no tenant classes, so no preemption) or, for ENGINE_STALL_S, what
+# brings them: any set, non-empty value is refused. Unset or empty is what
 # the port has instead of the JAX serving loop's watchdog: none.
-UNSERVED_KNOBS = {"TENANT_CLASSES": (4, "tenancy"), "TENANT_PREEMPT": (4, "tenancy"),
-                  "ENGINE_STALL_S": (6, "the stalled-step watchdog")}
+UNSERVED_KNOBS = {"ENGINE_STALL_S": (6, "the stalled-step watchdog")}
+# Knobs whose value must parse: name -> its type. JAX reads them where
+# it builds the engine, the batcher or the session LRU; the port checks
+# them at boot, whatever the backend.
+PARSED_KNOBS = {"RADIX_SESSIONS": int, "RADIX_MAX_NODES": int, "RADIX_PRESSURE_S": float,
+                "COST_SESSIONS": int, "COST_PEAK_TFLOPS": float, "COST_PEAK_GBPS": float}
 
 
 def check_unserved_knobs() -> None:
     """Refuse at boot what the JAX brain would honour and the port would
-    silently ignore: ``BRAIN_MODEL`` (no checkpoint import yet), a radix knob
-    at another value than the port's constant, the knobs of features the
-    port lacks, and a ``CHAOS_FAULTS`` that names an unknown point or arms
-    one the port does not serve. The radix knobs stay fixed until ROADMAP.md
-    Queue 1 item 4 (the rest of continuous batching) lands."""
-    from ..serve.paged import PRESSURE_WINDOW_S, RADIX_MAX_NODES
+    silently ignore: ``BRAIN_MODEL`` (no checkpoint import yet), the knobs
+    of features the port lacks, and a ``CHAOS_FAULTS`` that names an
+    unknown point or arms one the port does not serve. A malformed
+    ``TENANT_CLASSES`` or a radix / cost knob that does not parse raises
+    here too, naming the knob."""
+    from ..serve.tenancy import parse_tenant_classes
 
     if os.environ.get("BRAIN_MODEL"):
         raise ValueError("BRAIN_MODEL is not ported yet (the PyTorch port has no checkpoint "
                          "import: ROADMAP.md Queue 1 item 8); unset it")
-    fixed_knobs = {"RADIX_SESSIONS": (int, SessionTranscripts.MAX_SESSIONS),
-                   "RADIX_MAX_NODES": (int, RADIX_MAX_NODES),
-                   "RADIX_PRESSURE_S": (float, PRESSURE_WINDOW_S)}
-    for name, (kind, fixed) in fixed_knobs.items():
+    for name, kind in PARSED_KNOBS.items():
         raw = os.environ.get(name, "").strip()
-        if not raw:
-            continue
-        try:
-            ok = kind(raw) == fixed
-        except ValueError:
-            ok = False
-        if not ok:
-            raise ValueError(f"{name}={raw!r}: the port serves {name} at {fixed} only "
-                             "(configurable with ROADMAP.md Queue 1 item 4); unset it")
+        if raw:
+            try:
+                kind(raw)
+            except ValueError as e:
+                raise ValueError(f"{name}={raw!r}: not a {kind.__name__}") from e
+    if os.environ.get("TENANT_CLASSES", "").strip():
+        parse_tenant_classes()  # a malformed entry names TENANT_CLASSES itself
     for name, (item, what) in UNSERVED_KNOBS.items():
         raw = os.environ.get(name, "").strip()
         if raw:
@@ -717,13 +866,13 @@ def make_parser_from_env():
 # Routes of the JAX brain that the port does not serve: path (a prefix when
 # it ends in "/") -> the ROADMAP.md Queue 1 item that brings it
 UNPORTED_ROUTES = (
-    ("/debug/costs", 7), ("/debug/timeseries", 7), ("/admin/handoff", 6), ("/admin/handoff/", 6),
+    ("/debug/timeseries", 7), ("/admin/handoff", 6), ("/admin/handoff/", 6),
     ("/admin/disagg/prefill", 6), ("/admin/disagg/adopt", 6), ("/admin/drain", 6),
 )
 # served routes: path (a prefix when it ends in "/") -> method
 SERVED_ROUTES = (("/health", "GET"), ("/parse", "POST"), ("/metrics", "GET"),
                  (TRACE_ROUTE, "GET"), ("/debug/quality", "GET"), ("/debug/steplog", "GET"),
-                 ("/debug/flightrecorder", "GET"))
+                 ("/debug/flightrecorder", "GET"), ("/debug/costs", "GET"))
 
 
 def _match(path: str, table):
@@ -812,6 +961,10 @@ class BrainApp:
         qinfo = getattr(self.parser, "quarantine_info", None)
         if qinfo is not None:
             body["quarantine"] = qinfo()
+        tenancy = getattr(getattr(self.parser, "batcher", None), "tenancy", None)
+        if tenancy is not None:
+            # the lanes' occupancy and ledgers (also in /debug/costs, as JAX)
+            body["tenants"] = tenancy.snapshot()
         last_step = get_steplog().last()
         if last_step is not None:
             body["last_step"] = last_step
@@ -842,7 +995,35 @@ class BrainApp:
         with guard:
             if getattr(self.parser, "wants_session", False):
                 return self.parser.parse(text, context, session_id, speculative)
+            if getattr(self.parser, "session_costs", None) is not None:
+                # a stateless engine parser still attributes spend per
+                # session: the id rides only into the cost fold
+                return self.parser.parse(text, context, session_id)
             return self.parser.parse(text, context)
+
+    def costs(self, req: Request) -> tuple[int, dict, dict]:
+        """``GET /debug/costs`` in JAX's shape: ``enabled`` (a batcher with
+        its cost meter), the meter's summary (integer ``totals``, ``mfu`` /
+        ``mbu`` / ``mfu_prefill``, ``peak``, ``model``), the session rollup
+        (``sessions``, ``top_sessions``; ``?top=N``, 1-64, default 8) and,
+        under tenancy, ``tenants``."""
+        batcher = getattr(self.parser, "batcher", None)
+        meter = getattr(batcher, "costs", None)
+        body: dict = {"service": "brain", "enabled": meter is not None}
+        if meter is not None:
+            body.update(meter.summary())
+        sessions = getattr(self.parser, "session_costs", None)
+        if sessions is not None:
+            try:
+                top_n = int(parse_qs(req.query or "").get("top", ["8"])[0])
+            except ValueError:
+                top_n = 8
+            body["sessions"] = len(sessions)
+            body["top_sessions"] = sessions.top(max(1, min(top_n, 64)))
+        tenancy = getattr(batcher, "tenancy", None)
+        if tenancy is not None:
+            body["tenants"] = tenancy.snapshot()
+        return 200, body, {}
 
     def parse(self, raw: bytes, req_headers=None, peer_gone=None) -> tuple[int, dict, dict]:
         """``req_headers``: the request's headers (any mapping with
@@ -889,7 +1070,9 @@ class BrainApp:
             return shed("overload", str(int(self.admission.retry_after_s)))
         # the containment handle: the deadline into the scheduler, the
         # disconnect probe for the waiting parse
-        ctx = RequestContext(deadline, peer_gone=peer_gone)
+        # the tenant tag: the body's field first, the x-tenant header next
+        ctx = RequestContext(deadline, peer_gone=peer_gone,
+                             tenant=preq["tenant"] or req_headers.get("x-tenant"))
         push_request_context(ctx)
         pop_stage_notes()  # drop a stale note of an earlier request on this thread
         try:
@@ -970,6 +1153,8 @@ class BrainApp:
             return self.parse(req.body, req.headers, peer_gone)
         if req.path == "/health":
             return self.health()
+        if req.path == "/debug/costs":
+            return self.costs(req)
         if req.path == "/metrics":
             r = metrics_response("brain", self.tracer, req, slo=self.slo)
         elif req.path == "/debug/quality":
@@ -1054,6 +1239,9 @@ def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> Thr
 
 
 def main() -> None:
+    # the repo-root .env first: its knobs are served or refused like the
+    # environment's
+    load_env_cascade()
     port = int(os.environ.get("BRAIN_PORT", "8090"))
     app = BrainApp(make_parser_from_env(), tracer=Tracer("brain"))
     server = make_server(app, host="0.0.0.0", port=port)

@@ -106,10 +106,13 @@ class RequestContext:
     callback registered after cancellation fires at once. ``peer_gone``
     (optional, no arguments) is the transport's probe of its client: the
     stdlib HTTP server cannot cancel a handler, so the waiting parse asks
-    ``client_gone`` between short waits."""
+    ``client_gone`` between short waits. ``tenant``: the request's QoS tag,
+    carried into the batcher on the same seam as the deadline."""
 
-    def __init__(self, deadline: "Deadline | None" = None, peer_gone=None):
+    def __init__(self, deadline: "Deadline | None" = None, peer_gone=None,
+                 tenant: str | None = None):
         self.deadline = deadline
+        self.tenant = tenant
         self._peer_gone = peer_gone
         self._lock = threading.Lock()
         self._cancelled = False

@@ -13,6 +13,10 @@ service's event vocabulary: ``transcript_partial``, ``transcript_final``,
 - STT: ``StreamingSTT`` on the port's Whisper (``VOICE_STT``), or the null
   mode (``NullSTT``, a ``warn`` frame first). ``feed`` runs Whisper inline,
   so the loop calls it on an executor thread, never on the loop thread.
+  Under ``STT_BATCH_ENABLE=1`` every connection's ``BatchedStreamingSTT``
+  shares one ``STTBatcher`` (``serve/stt_batch.py``): the loop awaits its
+  ``feed_async``, the ``tenant`` control frame lanes its work, and a
+  closing connection frees its pool slot.
 - The brain hop: ``POST /parse`` through the retry / breaker kit
   (``services/resilience.py``), speculatively on ``spec_final`` (the 409
   ``speculation_unsupported`` latch re-probes after ``VOICE_RESPEC_AFTER``
@@ -35,7 +39,8 @@ service's event vocabulary: ``transcript_partial``, ``transcript_final``,
   ``voice.live_sessions`` and ``engine.prefill_remaining_at_endpoint`` gauges
   and the ``resilience.*`` series go to the process-global registry.
   ``GET /metrics`` (JSON, or Prometheus text under ``Accept: text/plain``),
-  ``GET /debug/trace/{id}`` and ``GET /debug/quality`` are served.
+  ``GET /debug/trace/{id}``, ``GET /debug/quality`` and ``GET
+  /debug/costs`` (the STT share of the cost meter) are served.
 
 One card, one stream: the split kernels' scratch and ticket counters are
 per-device buffers that serve one stream at a time (``ops/_lib.py``
@@ -53,7 +58,8 @@ Environment (the JAX service's names): ``BRAIN_URL``, ``EXECUTOR_URL``,
 ``VOICE_CAPACITY_SESSIONS``, ``VOICE_BRAIN_HEALTH_S``,
 ``PREFIX_FEED_ENABLE``, ``PREFIX_FEED_STABLE_K``, ``PREFIX_FEED_MIN_CHARS``,
 ``SLO_*``, ``QUALITY_ENABLE`` / ``QUALITY_WINDOW`` / ``QUALITY_SLO_*``,
-``TRACE_SINK``, ``FLIGHT_*`` (the flight recorder behind ``GET
+``STT_BATCH_ENABLE`` / ``STT_BATCH_SLOTS``, ``STT_REPLICAS`` (unset or 1),
+``COST_ENABLE``, ``TRACE_SINK``, ``FLIGHT_*`` (the flight recorder behind ``GET
 /debug/flightrecorder``), ``CHAOS_FAULTS`` / ``CHAOS_SEED`` (``drop_frame``
 drops an incoming binary frame and counts ``voice.frames_dropped_chaos``;
 ``stt_garble`` collapses a final) and ``VOICE_STT`` (``null``; ``whisper[:preset]``, random
@@ -62,9 +68,10 @@ of the port's in-repo checkpoints). The port adds ``VOICE_DEVICE`` (default
 ``cuda``; ``cpu`` runs the plain versions). What the port does not serve is
 refused at boot (``check_unserved_knobs``, ``stt_factory_from_env``) or
 answered 501 (``UNPORTED_ROUTES``), each naming its ROADMAP.md Queue 1
-item. ``TS_*`` and ``COST_*`` are left unread: they only feed observability
-planes the port lacks, and the frames are the same on or off. Nor is
-``QUALITY_CANARY_S`` read: the canary is the brain's, as in JAX.
+item. ``TS_*`` is left unread: it only feeds an observability plane the
+port lacks, and the frames are the same on or off. Nor is
+``QUALITY_CANARY_S`` read: the canary is the brain's, as in JAX. ``main``
+merges the repo-root ``.env`` first (``utils.envcfg``).
 """
 
 from __future__ import annotations
@@ -80,6 +87,8 @@ from pathlib import Path
 from ..audio.mel import pcm16_to_float
 from ..schemas import ValidationError, is_risky, validate_intent, validate_parse_response
 from ..utils.chaos import chaos_fire, check_served_points
+from ..utils.costmodel import cost_enabled, stt_cost_summary
+from ..utils.envcfg import load_env_cascade
 from ..utils.quality import QualityMonitor
 from ..utils.tracing import (
     TRACE_ROUTE,
@@ -152,19 +161,21 @@ def stt_factory_from_env():
     path's last component: ``whisper-tiny-overfit`` or
     ``whisper-tiny-heldout``, as ``checkpoints/whisper-tiny-heldout`` names it
     in the JAX package). The engine runs on ``VOICE_DEVICE`` (default
-    ``cuda``: with no card it raises). Refused at boot: ``whisper-hf:`` and any
-    other checkpoint (Queue 1 item 8), the batched and replicated STT planes
-    (``STT_BATCH_ENABLE=1``, ``STT_BATCH_SLOTS``, ``STT_REPLICAS``: item
-    5). ``QUALITY_ENABLE`` (default on) is read by the engine: its finals
-    carry the confidence lanes."""
+    ``cuda``: with no card it raises). ``STT_BATCH_ENABLE=1``: one
+    process-wide engine and ``STTBatcher`` (``STT_BATCH_SLOTS`` slots,
+    default 4) serve every connection through ``BatchedStreamingSTT``;
+    unset, each connection's ``LockedStreaming`` decodes at B = 1 behind one
+    lock. Refused at boot: ``whisper-hf:`` and any other checkpoint (Queue 1
+    item 8), and ``STT_REPLICAS`` other than 1, the replicated STT tier
+    (item 5). ``QUALITY_ENABLE`` (default on) is read by the engine: its
+    finals carry the confidence lanes."""
     from ..serve.stt import NullSTT
 
-    for name in ("STT_BATCH_SLOTS", "STT_REPLICAS"):
-        raw = os.environ.get(name, "").strip()
-        if raw:
-            _refuse(name, raw, 5, "the batched and replicated STT plane")
-    if os.environ.get("STT_BATCH_ENABLE", "") == "1":
-        _refuse("STT_BATCH_ENABLE", "1", 5, "the batched and replicated STT plane")
+    replicas = os.environ.get("STT_REPLICAS", "").strip()
+    if replicas and replicas != "1":
+        _refuse("STT_REPLICAS", replicas, 5, "the replicated STT tier (STT_REPLICAS > 1)")
+    batched = os.environ.get("STT_BATCH_ENABLE", "") == "1"
+    slots = int(os.environ.get("STT_BATCH_SLOTS", "4"))
     spec = os.environ.get("VOICE_STT", "null")
     if spec == "null":
         return lambda: NullSTT()
@@ -194,13 +205,23 @@ def stt_factory_from_env():
         if preset not in PRESETS:
             raise ValueError(f"VOICE_STT {spec!r}: unknown preset {preset!r}")
         engine = SpeechEngine(preset=preset, device=device)
-    lock = threading.Lock()
     # adaptive endpointing knobs: VOICE_SPEC_SILENCE_MS, the silence before
     # the speculative final fires (default 120, on the web client's 60 ms
     # frame boundary); VOICE_EARLY_CLOSE_MS, the stable-silence floor of the
     # early close once the speculative parse lands (default 240; 0 disables)
     spec_ms = int(os.environ.get("VOICE_SPEC_SILENCE_MS", "120"))
     early_ms = float(os.environ.get("VOICE_EARLY_CLOSE_MS", "240"))
+
+    def make_endpointer():
+        return EnergyEndpointer(sample_rate=engine.mel_cfg.sample_rate, spec_silence_ms=spec_ms)
+
+    if batched:
+        from ..serve.stt_batch import BatchedStreamingSTT, STTBatcher
+
+        batcher = STTBatcher(engine, slots=slots)
+        return lambda: BatchedStreamingSTT(engine, batcher, endpointer=make_endpointer(),
+                                           early_close_ms=early_ms if early_ms > 0 else None)
+    lock = threading.Lock()
 
     class LockedStreaming(StreamingSTT):
         """One process-wide engine: every connection's feed takes the lock."""
@@ -209,12 +230,8 @@ def stt_factory_from_env():
             with lock:
                 return super().feed(samples)
 
-    return lambda: LockedStreaming(
-        engine,
-        endpointer=EnergyEndpointer(sample_rate=engine.mel_cfg.sample_rate,
-                                    spec_silence_ms=spec_ms),
-        early_close_ms=early_ms if early_ms > 0 else None,
-    )
+    return lambda: LockedStreaming(engine, endpointer=make_endpointer(),
+                                   early_close_ms=early_ms if early_ms > 0 else None)
 
 
 class ClientState:
@@ -343,7 +360,7 @@ def _prefill_remaining(stages: dict, spec_pre_parsed: bool, degraded: bool) -> f
 # Routes of the JAX service that the port does not serve: prefix -> the
 # ROADMAP.md Queue 1 item that brings them
 UNPORTED_ROUTES = (
-    ("/debug/costs", 7), ("/debug/timeseries", 7),
+    ("/debug/timeseries", 7),
     ("/static/", 9),
 )
 
@@ -431,7 +448,7 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
 
     async def route(req: wslib.Request) -> wslib.Response:
         served = req.path in ("/health", "/metrics", "/debug/quality",
-                              "/debug/flightrecorder") or (
+                              "/debug/flightrecorder", "/debug/costs") or (
             req.path.startswith(TRACE_ROUTE) and len(req.path) > len(TRACE_ROUTE))
         if served:
             if req.method != "GET":
@@ -445,6 +462,10 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
                 return qmon.response()
             if req.path == "/debug/flightrecorder":
                 return flightrecorder_response("voice", req)
+            if req.path == "/debug/costs":
+                # the STT share of the cost meter, over the live engines
+                return wslib.Response(200, {"service": "voice", "enabled": cost_enabled(),
+                                            "stt": stt_cost_summary()})
             return trace_response("voice", tracer, req)
         item = _unported_item(req.path)
         if item is not None:
@@ -778,6 +799,9 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
         try:
             await _stream_session(ws, state)
         finally:
+            close = getattr(state.stt, "close", None)
+            if close is not None:
+                close()  # the batched plane frees the utterance's slot
             live_sessions["n"] = max(0, live_sessions["n"] - 1)
             get_metrics().set_gauge("voice.live_sessions", live_sessions["n"])
             if state.slo_open_t0 is not None:
@@ -806,8 +830,14 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
                     t_feed0 = time.perf_counter()
                     try:
                         samples = pcm16_to_float(msg.data)
-                        # feed may run Whisper inline: keep it off the loop
-                        events = await loop.run_in_executor(None, state.stt.feed, samples)
+                        # the batched plane's feed is host work with awaited
+                        # futures; otherwise feed runs Whisper inline: keep
+                        # it off the loop
+                        afeed = getattr(state.stt, "feed_async", None)
+                        if afeed is not None:
+                            events = await afeed(samples)
+                        else:
+                            events = await loop.run_in_executor(None, state.stt.feed, samples)
                     except Exception as e:  # noqa: BLE001 - a bad packet must not end the session
                         await send(ws, "warn", message=f"bad audio frame: {e}")
                         continue
@@ -880,7 +910,11 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
                             state.feed_tracker.reset()
                         await send(ws, "info", message="context updated")
                     elif ctype == "tenant":
+                        # rides every /parse from here on and re-lanes this
+                        # connection's STT work (the batched plane's)
                         state.tenant = str(ctrl.get("tenant") or "") or None
+                        if hasattr(state.stt, "tenant"):
+                            state.stt.tenant = state.tenant
                         await send(ws, "info", message="tenant set")
                     elif ctype == "text":
                         # typed command path: the same pipeline minus STT
@@ -936,6 +970,9 @@ async def _serve_forever(app: wslib.App, host: str, port: int) -> None:
 
 
 def main() -> None:
+    # the repo-root .env first: its knobs are served or refused like the
+    # environment's
+    load_env_cascade()
     port = int(os.environ.get("VOICE_PORT", "7072"))
     asyncio.run(_serve_forever(build_app(tracer=Tracer("voice")), "0.0.0.0", port))
 

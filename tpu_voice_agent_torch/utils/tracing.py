@@ -30,7 +30,7 @@ Port of ``tpu_voice_agent/utils/tracing.py``, with JAX's names:
   ``?rearm=1`` re-arms after answering.
 
 ``counter_state`` feeds only the time-series ring (ROADMAP.md Queue 1 item
-7). A freeze's ``costs`` is None: the port has no cost meter (item 4).
+7). A freeze carries ``costs``, the cost meter's ``cost_snapshot``.
 """
 
 from __future__ import annotations
@@ -324,6 +324,14 @@ class FlightRecorder:
         from .steplog import get_steplog
 
         steplog = get_steplog().dump()  # outside the ring lock: it has its own
+        # the cost meter's summary rides the freeze too; metering never
+        # blocks a freeze
+        try:
+            from .costmodel import cost_snapshot
+
+            costs = cost_snapshot()
+        except Exception:  # noqa: BLE001
+            costs = None
         with self._lock:
             if self._frozen is not None:
                 return False
@@ -336,7 +344,7 @@ class FlightRecorder:
                            for tid, spans in self._traces.items()],
                 "metric_snapshots": list(self._snapshots),
                 "steplog": steplog,
-                "costs": None,
+                "costs": costs,
                 "config": {"max_traces": self.max_traces,
                            "max_snapshots": self.max_snapshots,
                            "snapshot_interval_s": self.snapshot_interval_s},
