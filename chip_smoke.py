@@ -108,6 +108,35 @@ Phases, in order (any failure exits nonzero and prints no result line):
               summing to the totals; a batched brain over HTTP lanes an
               ``x-tenant`` parse and a body ``tenant`` parse, and
               ``/debug/costs`` reports MFU and MBU against the H100 entry.
+11e. handoff - the brain's warm state at tinyllama-1.1b int8 (32 slots, 513
+              blocks of 128, radix on, the cached prefix): per pool tier
+              (bf16, int8, int4) 8 sessions play 2 turns on a donor engine,
+              each is exported and POSTed to ``/admin/handoff`` on a port
+              brain around a recipient engine, and turn 3 runs batched on
+              both: the recipient's tokens equal the donor's stay-home ones
+              or part at a near tie (32 bf16 ulps; one in an fp32-activation
+              twin on the bf16 pool), blob bytes, export and adopt ms, the
+              admitting step warm against ``HANDOFF_KV=0`` blobs on the same
+              recipient after its ``warm_restart``, no leaked block on
+              either engine (K7 / K9 read the adopted blocks). Then the
+              disagg stream: ``/admin/disagg/prefill`` on one brain runs a
+              prompt of ~1,000 tokens past the prefix with stream_blocks 4,
+              its frames read as they arrive and forwarded to
+              ``/admin/disagg/adopt`` on another; that brain's parse is warm
+              and equals a cold engine's (bf16 within 32 ulps, the fp32 twin
+              within one); time to the first frame against the export's
+              wall. Prefix feeds: 4 prompts fed as growing prefixes, then
+              parsed, against the same unfed (cached tokens, the admitting
+              step's prefill ms). The watchdog drill: CHAOS_FAULTS=
+              stall_step@2, CHAOS_STALL_S=8, ENGINE_STALL_S=5, 8 parses
+              decoding over HTTP when step 2 stalls: each fails with JAX's
+              text, one ``engine.restarts``, no kernel launch from the
+              stalled thread after the supersede, and the next 32 parses
+              over HTTP to the same brain token for token a fresh
+              engine's. Drain: ``POST /admin/drain`` on the distilled
+              checkpoint's batched brain with 4 parses in flight: all 200,
+              a later parse served, ``/health`` draining at once and
+              drained once both lanes are empty.
 11c. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
 12. golden  - the distilled intent checkpoint parses the golden utterances and
@@ -178,9 +207,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
               margin; on fp32 copies of the weights within one (K1, K5 at
               B = 4 with ragged kv_len). Then the voice service's 3 paced
               utterances behind the rule brain and a stub executor on the
-              locked plane, on the batched plane, and on 3 connections at
-              once on the batched plane: the drain after the last frame,
-              partials, coalesced and shed partials, batched ticks.
+              batched plane, on one connection and on 3 at once: the drain
+              after the last frame, partials, coalesced and shed partials,
+              batched ticks (the locked plane's run of the same audio is
+              voice_service's).
 19. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
               transcribe the 10 eval texts and must reproduce the JAX
               package's recorded token ids, through K1 and K5.
@@ -200,8 +230,8 @@ Every launch counter is set to 0 just before each of phases 4-20 (each of the
 voice_service phase's four runs) and read just after; a kernel's
 ``launches`` is the sum over those runs (the kernel-alone comparisons of
 phase 3 are not counted). The port imports no JAX. Weights are random from a
-seed (phases 3-11d, 16, 17, 18's first two runs, 18b, 20) or committed checkpoints
-(12-15, 18's last two runs, 19). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
+seed (phases 3-11e but 11e's drain, 16, 17, 18's first two runs, 18b, 20) or
+committed checkpoints (11e's drain, 12-15, 18's last two runs, 19). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
 from __future__ import annotations
@@ -3187,8 +3217,7 @@ def _profile_batch_chunk(eng, report: dict, tier: str = "bf16", kind: str = "ff8
     b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
 
     def admit():
-        b.run_until_done()
-        b.results.clear()
+        b.reset()  # drop the last measurement's rows undecoded: only its first chunk counts
         for i in range(BATCH_SLOTS):
             b.submit(_batch_prompt(i))
         b._admit_pending(b._active_h)
@@ -3626,8 +3655,7 @@ def _chunk_lanes(eng, label: str) -> dict:
     b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
 
     def admit():
-        b.run_until_done()
-        b.results.clear()
+        b.reset()  # drop the last measurement's rows undecoded: only its first chunk counts
         for i in range(BATCH_SLOTS):
             b.submit(_batch_prompt(i))
         b._admit_pending(b._active_h)
@@ -3658,7 +3686,7 @@ def _chunk_lanes(eng, label: str) -> dict:
             "profiled_kernels": n, "profiled_forwards": fwds,
             "kernels_per_forward": n / fwds if n and fwds else None}
     _set_lanes(eng, True)
-    b.run_until_done()
+    b.reset()
     on, off = out["on"], out["off"]
     added = ((on["profiled_kernels"] - off["profiled_kernels"]) / on["profiled_forwards"]
              if on["kernels_per_forward"] and off["kernels_per_forward"]
@@ -4988,6 +5016,602 @@ def _tenancy_service(params, totals: dict) -> dict:
 
 # ------------------------------------------------------------ batched STT
 
+# ------------------------------------------------------------------ handoff
+
+HANDOFF_SESSIONS = 8
+HANDOFF_NEW_TOKENS = 32
+HANDOFF_TURNS = [("search for wireless headphones", {}),
+                 ("open the second result", {"last_query": "wireless headphones"})]
+HANDOFF_TURN3 = ("sort these by price from low to high", {"last_query": "wireless headphones"})
+STALL_TEXT = "decode step stalled; engine warm-restarted, work failed fast"
+
+
+def _warm_engine(params, tier: str = "off"):
+    """The phase's engine: bench_batch.py's paged shape, radix on, buckets
+    up to 2048, the cached prefix installed."""
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    eng = _paged_engine(params, 8, radix_enable=True, prefill_buckets=RADIX_BUCKETS,
+                        kv_quant=tier)
+    install_prompt_prefix(eng)
+    return eng
+
+
+def _leaked(eng) -> int:
+    """Blocks held by neither the prefix nor the tree once every slot is
+    released (the prefix's blocks are the tree's pinned root)."""
+    return eng.allocator.blocks_in_use - eng.radix.nodes
+
+
+def _post_bytes(url: str, data: bytes, headers: dict | None = None) -> tuple[int, dict]:
+    req = urllib.request.Request(url, data=data, method="POST",
+                                 headers={"Content-Type": "application/octet-stream",
+                                          **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _admitting_step(eng, prompts: list, label: str, totals: dict):
+    """``prompts`` submitted at once to a fresh batcher, drained; returns
+    (results, the admitting step's ledger entry, launch counts). That step
+    admits every prompt (its first tokens picked): its wall is the batch's
+    time to the last first token."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.utils.steplog import get_steplog
+
+    b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=HANDOFF_NEW_TOKENS)
+    with Counted(label, totals) as c:
+        torch.cuda.synchronize()
+        get_steplog().clear()
+        rids = [b.submit(p) for p in prompts]
+        b.step()
+        first = get_steplog().last()
+        b.run_until_done()
+    res = [b.results.pop(r) for r in rids]
+    fail_if(any(r.error for r in res), f"{label}: {[r.error for r in res if r.error][:2]}")
+    fail_if(first is None or first.get("admitted") != len(prompts),
+            f"{label}: the first step admitted {first and first.get('admitted')}")
+    return res, first, c
+
+
+def _handoff_tier(params, tier: str, totals: dict, ulps: float, label: str) -> dict:
+    """8 sessions x 2 turns on a donor, each exported and POSTed to
+    ``/admin/handoff`` on a brain around the recipient, turn 3 batched on
+    both; then the same recipient warm-restarted, the ``HANDOFF_KV=0`` blobs
+    adopted, turn 3 again (the cold baseline)."""
+    import torch
+
+    from tpu_voice_agent_torch.serve import handoff
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services import brain
+    from tpu_voice_agent_torch.utils.tracing import get_metrics
+
+    def counters():
+        c = get_metrics().snapshot()["counters"]
+        return {k: c.get(k, 0.0) for k in ("handoff.sessions_exported", "handoff.sessions_adopted",
+                                            "handoff.adopt_fallbacks", "handoff.tokens_adopted")}
+
+    c0 = counters()
+    donor, recip = _warm_engine(params, tier), _warm_engine(params, tier)
+    P = len(donor.prefix_ids)
+    tr_d = brain.SessionTranscripts(donor.tokenizer)
+    sids = [f"handoff-{i}" for i in range(HANDOFF_SESSIONS)]
+    b = ContinuousBatcher(donor, chunk_steps=16, max_new_tokens=HANDOFF_NEW_TOKENS)
+    for t, (text, ctx) in enumerate(HANDOFF_TURNS):
+        prompts = [tr_d.prompt_for(sid, f"{text} ({sid})", ctx) for sid in sids]
+        for sid, p, r in zip(sids, prompts, b.generate_many(prompts)):
+            fail_if(r.error is not None, f"{label}: {sid} turn {t + 1}: {r.error}")
+            tr_d.record(sid, p, r.token_ids)
+    blobs, cold_blobs, export_ms = [], [], []
+    for sid in sids:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blobs.append(handoff.export_session(donor, tr_d, sid))
+        export_ms.append((time.perf_counter() - t0) * 1e3)
+        os.environ["HANDOFF_KV"] = "0"
+        try:
+            cold_blobs.append(handoff.export_session(donor, tr_d, sid))
+        finally:
+            os.environ.pop("HANDOFF_KV", None)
+    shipped = []
+    for blob in blobs:
+        arrays = handoff.unpack(blob)[1]
+        shipped.append(int(arrays["k"].shape[1]) if arrays else 0)
+    fail_if(min(shipped) < 1, f"{label}: a session shipped no block past the prefix")
+    text3, ctx3 = HANDOFF_TURN3
+    prompts3 = [tr_d.prompt_for(sid, f"{text3} ({sid})", ctx3) for sid in sids]
+    stay, stay_step, _ = _admitting_step(donor, prompts3, f"{label} donor turn 3", totals)
+
+    parser = brain.BatchedEngineParser(recip, max_new_tokens=HANDOFF_NEW_TOKENS,
+                                       session_aware=True)
+    srv, thread, url = _serve_brain(brain.BrainApp(parser))
+    adopt_ms, adopted = [], []
+    try:
+        for blob in blobs:
+            t0 = time.perf_counter()
+            status, body = _post_bytes(url + "/admin/handoff", blob)
+            adopt_ms.append((time.perf_counter() - t0) * 1e3)
+            fail_if(status != 200 or not body.get("ok"), f"{label}: adopt {status} {body}")
+            adopted.append(body["adopted_tokens"])
+    finally:
+        _stop(srv, thread)
+        parser.close()
+    fail_if(min(adopted) <= P, f"{label}: a session adopted cold ({adopted}, prefix {P})")
+    prompts_r = [parser.transcripts.prompt_for(sid, f"{text3} ({sid})", ctx3) for sid in sids]
+    fail_if(prompts_r != prompts3, f"{label}: the recipient renders another turn 3")
+    moved, moved_step, c = _admitting_step(recip, prompts_r, f"{label} recipient turn 3", totals)
+    c.require("paged_block_attention" if tier == "off" else "paged_block_attention_quant",
+              "masked_argmax_advance")
+    ids = [recip.tokenizer.encode(p, bos=True) if isinstance(p, str) else list(p)
+           for p in prompts3]
+    diverged = _partings(recip, ids, [r.token_ids for r in stay], [r.token_ids for r in moved],
+                         label, "donor and recipient turn 3")
+    _check_partings(diverged, label, ulps)
+    fail_if([r.cached_tokens for r in moved] != [r.cached_tokens for r in stay],
+            f"{label}: the recipient served other cached spans than the donor")
+    leaked = {"donor": _leaked(donor), "recipient": _leaked(recip)}
+    fail_if(any(leaked.values()), f"{label}: leaked blocks {leaked}")
+
+    # the cold baseline: the same recipient, warm-restarted, transcripts only
+    recip.warm_restart()
+    fail_if(recip.allocator.blocks_in_use != len(recip._prefix_blocks),
+            f"{label}: warm_restart kept {recip.allocator.blocks_in_use} blocks")
+    tr_c = brain.SessionTranscripts(recip.tokenizer)
+    for blob in cold_blobs:
+        fail_if(handoff.adopt_session(recip, tr_c, blob) != 0, f"{label}: a cold blob went warm")
+    cold, cold_step, _ = _admitting_step(recip, prompts3, f"{label} cold turn 3", totals)
+    cold_div = _partings(recip, ids, [r.token_ids for r in stay], [r.token_ids for r in cold],
+                         label, "donor and cold recipient turn 3")
+    _check_partings(cold_div, label, ulps)
+    fail_if(_leaked(recip), f"{label}: the cold run leaked blocks")
+    d = {k: v - c0[k] for k, v in counters().items()}
+    fail_if(d["handoff.sessions_exported"] != 2 * HANDOFF_SESSIONS
+            or d["handoff.sessions_adopted"] != 2 * HANDOFF_SESSIONS
+            or d["handoff.adopt_fallbacks"] != 0, f"{label}: counters {d}")
+    row = {
+        "tier": tier, "sessions": HANDOFF_SESSIONS, "prefix_tokens": P,
+        "blob_bytes": [len(x) for x in blobs], "blocks_shipped": shipped,
+        "bytes_per_block": sum(len(x) for x in blobs) / max(1, sum(shipped)),
+        "cold_blob_bytes": [len(x) for x in cold_blobs],
+        "export_ms": export_ms, "adopt_ms": adopt_ms, "adopted_tokens": adopted,
+        "turn3_cached_warm": [r.cached_tokens for r in moved],
+        "turn3_cached_cold": [r.cached_tokens for r in cold],
+        # every session's first token: the admitting step's admit + prefill stages
+        "ttft_ms": {k: st["stages"]["admit"] + st["stages"]["prefill"]
+                    for k, st in (("donor", stay_step), ("warm", moved_step), ("cold", cold_step))},
+        "admitting_stages_ms": {"donor": stay_step["stages"], "warm": moved_step["stages"],
+                                "cold": cold_step["stages"]},
+        "equal": HANDOFF_SESSIONS - len(diverged), "partings": diverged,
+        "cold_equal": HANDOFF_SESSIONS - len(cold_div), "counters": d, "leaked": leaked,
+        "launches": c.counts}
+    log(f"[{label}] {HANDOFF_SESSIONS} sessions: blob {statistics.median(row['blob_bytes']):.0f} "
+        f"bytes p50 ({row['bytes_per_block']:.0f} a shipped block, {sum(shipped)} blocks), "
+        f"export p50 {statistics.median(export_ms):.2f} ms, adopt over HTTP p50 "
+        f"{statistics.median(adopt_ms):.2f} ms; turn 3 equal {row['equal']}/{HANDOFF_SESSIONS} "
+        f"(cold {row['cold_equal']}), cached warm {sorted(set(row['turn3_cached_warm']))} cold "
+        f"{sorted(set(row['turn3_cached_cold']))}; the first tokens (admit + prefill) donor "
+        f"{row['ttft_ms']['donor']:.2f} / warm {row['ttft_ms']['warm']:.2f} / cold "
+        f"{row['ttft_ms']['cold']:.2f} ms, of it prefill "
+        f"{stay_step['stages']['prefill']:.2f} / {moved_step['stages']['prefill']:.2f} / "
+        f"{cold_step['stages']['prefill']:.2f}; counters {d}; leaked {leaked}")
+    del donor, recip
+    _free_cuda()
+    return row
+
+
+DISAGG_TEXT = "search for wireless noise cancelling headphones and sort by rating"
+# a long transcript in the context: the prompt runs ~1,000 tokens past the
+# cached prefix, so its export takes more than one 4-block chunk
+DISAGG_CONTEXT = {"last_query": "usb c hub", "page": "results",
+                  "history": [f"step {i}: compared item number {i} against the shortlist and "
+                              "kept the cheaper one" for i in range(17)]}
+
+
+def _read_frames(base: str, body: dict):
+    """POST /admin/disagg/prefill; each frame as it arrives: (status,
+    headers, [(seq, payload, final, seconds since the request)], wall)."""
+    import http.client
+    from urllib.parse import urlparse
+
+    from tpu_voice_agent_torch.serve import handoff
+
+    u = urlparse(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/admin/disagg/prefill", body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.getheader("Content-Type", "").startswith("application/json"):
+        body = resp.read()
+        conn.close()
+        raise SmokeFailure(f"disagg prefill answered {resp.status} JSON, no stream: {body[:300]}")
+    frames, buf = [], b""
+    while True:
+        chunk = resp.read1(1 << 20)
+        if not chunk:
+            break
+        buf += chunk
+        got, buf = handoff.frame_feed(buf)
+        frames.extend((s, p, f, time.perf_counter() - t0) for s, p, f in got)
+    conn.close()
+    return resp.status, dict(resp.headers), frames, time.perf_counter() - t0
+
+
+def _disagg(params, totals: dict, ulps: float, label: str) -> dict:
+    """The disagg stream between two port brains on the card, then the
+    decode brain's parse of the prompt against a cold engine's."""
+    from tpu_voice_agent_torch.serve import handoff
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services import brain
+
+    from tpu_voice_agent_torch.services.prompts import render_prompt
+
+    pf_eng, dec_eng = _warm_engine(params), _warm_engine(params)
+    prompt = render_prompt(DISAGG_TEXT, DISAGG_CONTEXT)
+    n_ids = len(pf_eng.tokenizer.encode(prompt, bos=True))
+    pf = brain.BatchedEngineParser(pf_eng, max_new_tokens=HANDOFF_NEW_TOKENS, session_aware=True)
+    dec = brain.BatchedEngineParser(dec_eng, max_new_tokens=HANDOFF_NEW_TOKENS,
+                                    session_aware=True)
+    psrv, pthread, purl = _serve_brain(brain.BrainApp(pf))
+    dsrv, dthread, durl = _serve_brain(brain.BrainApp(dec))
+    try:
+        with Counted(f"{label} export", totals) as c_pf:
+            status, headers, frames, wall = _read_frames(purl, {
+                "text": DISAGG_TEXT, "context": DISAGG_CONTEXT, "stream_blocks": 4,
+                "stream": "disagg-1"})
+        fail_if(status != 200 or not frames or not frames[-1][2],
+                f"{label}: stream {status}, {len(frames)} frames")
+        meta, _ = handoff.unpack(frames[-1][1])
+        fail_if(not meta.get("ok") or meta.get("segments") != len(frames) - 1,
+                f"{label}: the kv_end summary {meta}")
+        adopt_ms = []
+        with Counted(f"{label} adopt", totals):
+            for _, payload, final, _ in frames:
+                t0 = time.perf_counter()
+                st, out = _post_bytes(durl + "/admin/disagg/adopt", payload,
+                                      {"x-disagg-stream": "disagg-1"})
+                adopt_ms.append((time.perf_counter() - t0) * 1e3)
+                fail_if(st != 200 or not out.get("ok") or out.get("final") != final,
+                        f"{label}: adopt {st} {out}")
+        fail_if(out["adopted_tokens"] != meta["chain_tokens"],
+                f"{label}: adopted {out['adopted_tokens']} of {meta['chain_tokens']} tokens")
+        with Counted(f"{label} warm parse", totals) as c:
+            warm = dec.loop.submit(prompt).result(timeout=600)
+        c.require("paged_block_attention", "masked_argmax_advance")
+    finally:
+        _stop(psrv, pthread)
+        _stop(dsrv, dthread)
+        pf.close()
+        dec.close()
+    fail_if(warm.error is not None, f"{label}: {warm.error}")
+    fail_if(warm.cached_tokens < meta["chain_tokens"],
+            f"{label}: the parse cached {warm.cached_tokens} of {meta['chain_tokens']}")
+    leaked = {"prefill": _leaked(pf_eng), "decode": _leaked(dec_eng)}
+    fail_if(any(leaked.values()), f"{label}: leaked blocks {leaked}")
+    del pf_eng, dec_eng
+    cold_eng = _warm_engine(params)
+    cold = ContinuousBatcher(cold_eng, chunk_steps=16,
+                             max_new_tokens=HANDOFF_NEW_TOKENS).generate_many([prompt])[0]
+    ids = cold_eng.tokenizer.encode(prompt, bos=True)
+    diverged = _partings(cold_eng, [ids], [cold.token_ids], [warm.token_ids], label,
+                         "the adopted and the cold parse")
+    _check_partings(diverged, label, ulps)
+    row = {"prompt_tokens": n_ids, "frames": len(frames), "segments": meta["segments"],
+           "chain_tokens": meta["chain_tokens"], "frame_bytes": [len(p) for _, p, _, _ in frames],
+           "first_frame_s": frames[0][3], "export_wall_s": wall,
+           "frame_arrivals_s": [t for *_, t in frames], "adopt_ms": adopt_ms,
+           "warm_cached_tokens": warm.cached_tokens, "cold_cached_tokens": cold.cached_tokens,
+           "equal": not diverged, "partings": diverged, "leaked": leaked,
+           "launches": c_pf.counts}
+    log(f"[{label}] a {n_ids}-token prompt: {len(frames)} frames ({meta['segments']} segments, "
+        f"{meta['chain_tokens']} tokens), first frame at {frames[0][3] * 1e3:.1f} ms of the "
+        f"export's {wall * 1e3:.1f} ms; adopt p50 {statistics.median(adopt_ms):.2f} ms a frame; "
+        f"the parse cached {warm.cached_tokens} (cold {cold.cached_tokens}), "
+        f"{'equal' if not diverged else 'parted'}; leaked {leaked}")
+    del cold_eng
+    _free_cuda()
+    return row
+
+
+FEED_TEXTS = ["search for wireless noise cancelling headphones under two hundred dollars",
+              "open the second result and add it to the cart please",
+              "sort these results by customer rating from high to low",
+              "scroll down two pages and take a screenshot of the table"]
+
+
+def _feeds(params, totals: dict) -> dict:
+    """Each of 4 prompts fed as its growing word prefixes (``feed_prefix``),
+    then the 4 parsed at once; against the same 4 parsed unfed on another
+    engine: the tokens, the cached tokens and the admitting step."""
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services.prompts import render_prompt
+
+    fed_eng, cold_eng = _warm_engine(params), _warm_engine(params)
+    prompts = [render_prompt(t, {}) for t in FEED_TEXTS]
+    b = ContinuousBatcher(fed_eng, chunk_steps=16, max_new_tokens=HANDOFF_NEW_TOKENS)
+    feeds = []
+    with Counted("handoff feeds", totals):
+        for text in FEED_TEXTS:
+            words = text.split()
+            for k in range(3, len(words), 3):
+                feeds.append(b.feed_prefix(render_prompt(" ".join(words[:k]), {})))
+    fail_if(not all(f["ok"] for f in feeds), f"feeds: a feed shed {feeds}")
+    fed, fed_step, _ = _admitting_step(fed_eng, prompts, "handoff feeds parse", totals)
+    unfed, unfed_step, _ = _admitting_step(cold_eng, prompts, "handoff unfed parse", totals)
+    ids = [fed_eng.tokenizer.encode(p, bos=True) for p in prompts]
+    diverged = _partings(cold_eng, ids, [r.token_ids for r in unfed], [r.token_ids for r in fed],
+                         "feeds", "fed and unfed parses")
+    _check_partings(diverged, "feeds", BF16_PART_ULPS)
+    leaked = {"fed": _leaked(fed_eng), "unfed": _leaked(cold_eng)}
+    fail_if(any(leaked.values()), f"feeds: leaked blocks {leaked}")
+    row = {"feeds": len(feeds), "feed_cached_tokens": [f["cached_tokens"] for f in feeds],
+           "cached_fed": [r.cached_tokens for r in fed],
+           "cached_unfed": [r.cached_tokens for r in unfed],
+           "admitting_stages_ms": {"fed": fed_step["stages"], "unfed": unfed_step["stages"]},
+           "equal": len(prompts) - len(diverged), "partings": diverged, "leaked": leaked}
+    log(f"[handoff feeds] {len(feeds)} feeds; cached fed {row['cached_fed']} unfed "
+        f"{row['cached_unfed']}; the admitting step's prefill fed "
+        f"{fed_step['stages']['prefill']:.2f} / unfed {unfed_step['stages']['prefill']:.2f} ms "
+        f"(admit {fed_step['stages']['admit']:.2f} / {unfed_step['stages']['admit']:.2f}); "
+        f"equal {row['equal']}/{len(prompts)}")
+    del fed_eng, cold_eng
+    _free_cuda()
+    return row
+
+
+class _LaunchLog:
+    """A stand-in for the bound kernel library that records the thread and
+    time of every kernel launch before making it."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self.calls: list = []
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if not name.startswith("tva_"):
+            return fn
+
+        def launch(*a):
+            self.calls.append((threading.current_thread(), time.monotonic()))
+            return fn(*a)
+
+        return launch
+
+
+WATCHDOG_NEW_TOKENS = 160  # past one chunk's most (16 steps x (1 + ff 8)): no row ends in step 1
+
+
+def _gated_posts(parser, url: str, bodies: list, pool) -> list:
+    """POST ``bodies`` to /parse while the loop's thread is held in its call
+    lane, and let it go once every parse waits in its inbox: the next step
+    admits them together, as ``generate_many`` admits its prompts."""
+    gate = threading.Event()
+    parser.loop.submit_call(lambda: gate.wait(120))
+    futs = [pool.submit(_post, url, body) for body in bodies]
+    give_up = time.monotonic() + 120
+    while len(parser.loop._inbox) < len(bodies) and time.monotonic() < give_up:
+        time.sleep(0.005)
+    fail_if(len(parser.loop._inbox) != len(bodies), "watchdog: the parses never queued together")
+    gate.set()
+    return futs
+
+
+def _watchdog(params, totals: dict) -> dict:
+    """The stalled-step drill on a 32-slot brain over HTTP:
+    ``stall_step@2`` (the step after the 8 parses were admitted, so the
+    stalled thread holds live rows), ``CHAOS_STALL_S=8``,
+    ``ENGINE_STALL_S=5`` (above a 32-slot admitting step); then the next
+    32 parses through the same brain, token for token a fresh engine's."""
+    import concurrent.futures
+
+    from tpu_voice_agent_torch.ops import _lib
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services import brain
+    from tpu_voice_agent_torch.utils import chaos
+    from tpu_voice_agent_torch.utils.tracing import get_flight_recorder, get_metrics
+
+    def restarts():
+        return get_metrics().snapshot()["counters"].get("engine.restarts", 0.0)
+
+    eng = _warm_engine(params)
+    prompts = [_batch_prompt(i) for i in range(BATCH_SLOTS)]
+    fresh_eng = _warm_engine(params)
+    fresh = ContinuousBatcher(fresh_eng, chunk_steps=16,
+                              max_new_tokens=WATCHDOG_NEW_TOKENS).generate_many(prompts)
+    del fresh_eng
+    env = {"CHAOS_FAULTS": "stall_step@2", "CHAOS_STALL_S": "8", "ENGINE_STALL_S": "5"}
+    os.environ.update(env)
+    chaos.configure("stall_step@2")
+    get_flight_recorder().rearm()
+    real_lib = _lib.library()
+    spy = _LaunchLog(real_lib)
+    _lib._LIB = spy
+    forwards: list = []  # (thread, time) of every model forward on the engine
+    forward = eng._forward
+
+    def watched(*a, **kw):
+        forwards.append((threading.current_thread(), time.monotonic()))
+        return forward(*a, **kw)
+
+    eng._forward = watched
+    r0 = restarts()
+    superseded: list = []
+    decoded: dict = {}  # rendered prompt -> its GenerationResult, from the HTTP threads
+    try:
+        parser = brain.BatchedEngineParser(eng, max_new_tokens=WATCHDOG_NEW_TOKENS,
+                                           session_aware=True)
+        supersede, decode = parser.batcher.supersede, parser._decode
+
+        def watched_supersede():
+            superseded.append(time.monotonic())
+            supersede()
+
+        def recorded(prompt):
+            res = decode(prompt)
+            decoded[prompt] = res
+            return res
+
+        parser.batcher.supersede, parser._decode = watched_supersede, recorded
+        old = parser.loop._thread
+        srv, thread, url = _serve_brain(brain.BrainApp(parser))
+        with concurrent.futures.ThreadPoolExecutor(BATCH_SLOTS) as pool:
+            t0 = time.perf_counter()
+            futs = _gated_posts(parser, url, [{"text": f"search for item {i}", "context": {}}
+                                              for i in range(8)], pool)
+            answers = [f.result() for f in futs]
+            failed_s = time.perf_counter() - t0
+            fail_if(restarts() - r0 != 1, f"watchdog: engine.restarts moved {restarts() - r0}")
+            for status, body in answers:
+                fail_if(status != 500 or body.get("detail") != STALL_TEXT,
+                        f"watchdog: a stalled parse answered {status} {body}")
+            dump = get_flight_recorder().frozen_dump()
+            fail_if(dump is None or dump.get("reason") != "engine.stall",
+                    f"watchdog: flight recorder {dump and dump.get('reason')}")
+            chaos.reset()
+            for k in env:
+                os.environ.pop(k, None)
+            old.join(30)  # the stalled thread wakes from its 8 s sleep and exits
+            fail_if(old.is_alive(), "watchdog: the stalled loop thread did not exit")
+            # the next batch through the same brain, on the restarted loop
+            with Counted("handoff watchdog next batch", totals) as c:
+                t1 = time.perf_counter()
+                futs = _gated_posts(parser, url, [
+                    {"text": f"search for item {i} and sort by price", "context": {}}
+                    for i in range(BATCH_SLOTS)], pool)
+                statuses = [f.result()[0] for f in futs]
+                next_s = time.perf_counter() - t1
+            c.require("paged_block_attention", "masked_argmax_advance")
+        _stop(srv, thread)
+        restarted = parser.loop._thread is not old and parser.loop.healthy()
+        parser.close()
+    finally:
+        _lib._LIB = real_lib
+        eng._forward = forward
+        chaos.reset()
+        for k in env:
+            os.environ.pop(k, None)
+    fail_if(len(superseded) != 1, f"watchdog: {len(superseded)} supersedes")
+    t_sup = superseded[0]
+    live = [at for t, at in forwards if t is old]
+    stray = [at for t, at in spy.calls if t is old and at > t_sup]
+    stray_fwd = [at for at in live if at > t_sup]
+    after = [at for t, at in spy.calls if t is not old and at > t_sup]
+    fail_if(not live, "watchdog: the stalled thread never ran a forward (no live rows)")
+    fail_if(stray or stray_fwd, f"watchdog: {len(stray)} kernel launches and {len(stray_fwd)} "
+                                "forwards from the stalled thread after the supersede")
+    fail_if(not after or not restarted, "watchdog: the restarted loop served nothing")
+    fail_if(sorted(decoded) != sorted(prompts),
+            f"watchdog: {len(decoded)} of the next {BATCH_SLOTS} parses decoded")
+    equal = sum(decoded[p].token_ids == f.token_ids for p, f in zip(prompts, fresh))
+    fail_if(equal != BATCH_SLOTS, f"watchdog: the next batch equals a fresh engine's for "
+                                  f"{equal}/{BATCH_SLOTS} requests")
+    fail_if(_leaked(eng), "watchdog: leaked blocks after the next batch")
+    row = {"failed_fast_s": failed_s, "answers": [s for s, _ in answers],
+           "restarts": restarts() - r0, "forwards_before_stall": len(live),
+           "launches_from_stalled_after": len(stray), "forwards_from_stalled_after":
+           len(stray_fwd), "launches_after_restart": len(after), "next_batch_s": next_s,
+           "next_batch_statuses": sorted(set(statuses)), "next_batch_equal": equal}
+    log(f"[handoff watchdog] 8 live parses failed with JAX's text {failed_s:.2f} s after they "
+        f"were sent (stall 8 s at step 2, watchdog 5 s); engine.restarts +{row['restarts']}; "
+        f"the stalled thread ran {len(live)} forwards before the supersede and {len(stray)} "
+        f"launches after it; the next {BATCH_SLOTS} over HTTP in {next_s:.2f} s, equal to a "
+        f"fresh engine's {equal}/{BATCH_SLOTS} (statuses {row['next_batch_statuses']})")
+    del eng
+    _free_cuda()
+    return row
+
+
+def _drain_drill(totals: dict) -> dict:
+    """``POST /admin/drain`` on a batched brain (the distilled checkpoint on
+    a 4-slot paged radix pool, so parses answer real intents) with 4 parses
+    in flight, then one more after the drain began."""
+    import concurrent.futures
+    from dataclasses import replace
+
+    from tpu_voice_agent_torch import distilled
+    from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+    from tpu_voice_agent_torch.services import brain
+
+    cfg, params = distilled.load_distilled()
+    eng = PagedDecodeEngine(cfg=replace(cfg, max_seq_len=512), max_len=512,
+                            prefill_buckets=(64, 128), init_weights=False, batch_slots=4,
+                            block_size=16, radix_enable=True)
+    eng.load_params(params)
+    parser = brain.BatchedEngineParser(eng, max_new_tokens=300, session_aware=True,
+                                       render=distilled.distilled_prompt)
+    srv, thread, url = _serve_brain(brain.BrainApp(parser))
+    recs = distilled.golden_records()[:5]
+
+    def health():
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            return json.loads(r.read())
+
+    try:
+        with Counted("handoff drain", totals), concurrent.futures.ThreadPoolExecutor(5) as pool:
+            futs = [pool.submit(_post, url, {"text": r["text"], "context": r["context"]})
+                    for r in recs[:4]]
+            while not parser.batcher.busy() and not all(f.done() for f in futs):
+                time.sleep(0.001)
+            d = json.loads(urllib.request.urlopen(urllib.request.Request(
+                url + "/admin/drain", data=b"", method="POST"), timeout=60).read())
+            h0 = health()
+            late = pool.submit(_post, url, {"text": recs[4]["text"],
+                                            "context": recs[4]["context"]})
+            answers = [f.result() for f in futs] + [late.result()]
+        give_up = time.monotonic() + 30
+        while not health().get("drained") and time.monotonic() < give_up:
+            time.sleep(0.05)
+        h1 = health()
+    finally:
+        _stop(srv, thread)
+        parser.close()
+    fail_if(not (d["ok"] and d["draining"]), f"drain: {d}")
+    fail_if(not h0.get("draining"), f"drain: /health after the drain {h0}")
+    fail_if([s for s, _ in answers] != [200] * 5, f"drain: answers {[s for s, _ in answers]}")
+    fail_if(not h1.get("drained"), f"drain: never drained {h1}")
+    row = {"in_flight_at_drain": not h0.get("drained"), "answers": [s for s, _ in answers],
+           "equal_to_recording": sum(b == r["response"] for (_, b), r in zip(answers, recs)),
+           "health_after_drain": {k: h0.get(k) for k in ("draining", "drained")},
+           "health_at_end": {k: h1.get(k) for k in ("draining", "drained")}}
+    log(f"[handoff drain] 4 parses in flight + 1 after the drain: {row['answers']} "
+        f"({row['equal_to_recording']}/5 equal to the JAX recording); /health "
+        f"{row['health_after_drain']} at once, {row['health_at_end']} at the end")
+    del eng
+    _free_cuda()
+    return row
+
+
+def phase_handoff(params, totals: dict, report: dict) -> None:
+    """The brain's warm state (``serve/handoff.py``, the batcher's feeds and
+    exports, the serving loop's watchdog and drain latch, the
+    ``/admin/*`` routes) at full width; see the module docstring, 11e."""
+    import torch
+
+    out = {}
+    for tier in ("off", "int8", "int4"):
+        out[tier] = _handoff_tier(params, tier, totals, BF16_PART_ULPS, f"handoff {tier}")
+    out["disagg"] = _disagg(params, totals, BF16_PART_ULPS, "handoff disagg")
+    out["feeds"] = _feeds(params, totals)
+    out["watchdog"] = _watchdog(params, totals)
+    out["drain"] = _drain_drill(totals)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p32 = _fp32_activations(params)
+        out["off fp32"] = _handoff_tier(p32, "off", totals, 1, "handoff off fp32")
+        out["disagg fp32"] = _disagg(p32, totals, 1, "handoff disagg fp32")
+        del p32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    report["handoff"] = out
+
+
 STT_BATCH_SLOTS = 4
 # the work items, one tick each: (kind, utterance key, seconds of synth audio)
 STT_BATCH_ROUNDS = (
@@ -5082,13 +5706,13 @@ def _stt_batch_items(eng, label: str, totals: dict, ulps: float) -> dict:
 
 
 def _stt_batch_service(totals: dict) -> dict:
-    """3 paced utterances (synth_utterance(2.0) + 1 s of silence each) on one
-    /stream, through the voice service at VOICE_STT=whisper:whisper-large-v3
-    (SpeechEngine's defaults) behind the rule brain and a stub executor:
-    first the per-connection ``LockedStreaming`` plane, then
-    ``STT_BATCH_ENABLE=1``, then 3 connections at once on the batched plane.
+    """3 paced utterances (synth_utterance(2.0) + 1 s of silence each)
+    through the voice service at VOICE_STT=whisper:whisper-large-v3
+    (SpeechEngine's defaults) behind the rule brain and a stub executor,
+    ``STT_BATCH_ENABLE=1``: on one /stream, then on 3 connections at once.
     The drain after the last frame, partials, coalesced and shed partials;
-    every final has its intent and no frame is an error."""
+    every final has its intent and no frame is an error. (The locked
+    plane's run of the same paced audio is the voice_service phase's.)"""
     import numpy as np
 
     from tpu_voice_agent_torch import voicebench
@@ -5109,16 +5733,13 @@ def _stt_batch_service(totals: dict) -> dict:
     os.environ["VOICE_STT"] = "whisper:whisper-large-v3"
     out = {}
     try:
-        for mode in ("locked", "batched", "batched x3"):
-            if mode == "locked":
-                os.environ.pop("STT_BATCH_ENABLE", None)
-            else:
-                os.environ["STT_BATCH_ENABLE"] = "1"
-                os.environ["STT_BATCH_SLOTS"] = str(STT_BATCH_SLOTS)
+        for mode in ("batched", "batched x3"):
+            os.environ["STT_BATCH_ENABLE"] = "1"
+            os.environ["STT_BATCH_SLOTS"] = str(STT_BATCH_SLOTS)
             cfg = voice.VoiceConfig(brain_url=brain_url, executor_url=exec_url)
             probe = cfg.stt_factory()
             fail_if(probe.engine.device.type != "cuda", f"stt_batch {mode}: STT not on the card")
-            fail_if((mode != "locked") != hasattr(probe, "batcher"),
+            fail_if(not hasattr(probe, "batcher"),
                     f"stt_batch {mode}: the wrong STT plane ({type(probe).__name__})")
             srv = ws.ServerThread(voice.build_app(cfg)).__enter__()
             c0 = counters()
@@ -5174,8 +5795,8 @@ def phase_stt_batch(totals: dict, report: dict) -> None:
     spec_final, partials over persistent pool slots) against the B = 1 path
     (``_stt_batch_items``; K5 at B = 4 with ragged kv_len), held to
     ``BF16_PART_ULPS`` in bf16 and to one ulp in a twin on fp32 copies of
-    the weights; then the voice service's paced audio on the locked and the
-    batched planes (``_stt_batch_service``)."""
+    the weights; then the voice service's paced audio on the batched plane
+    (``_stt_batch_service``)."""
     import torch
 
     from tpu_voice_agent_torch.serve.stt import SpeechEngine
@@ -5295,7 +5916,7 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,digest,kernels,service,parse,batch,"
                          "batch_dense,radix,"
-                         "kvquant,spec,quality,containment,tenancy,service_batched,golden,"
+                         "kvquant,spec,quality,containment,tenancy,handoff,service_batched,golden,"
                          "batch_golden,kvquant_golden,spec_golden,stt,stt_golden,voice,"
                          "voice_service,stt_batch,moe "
                          "(default all)")
@@ -5309,7 +5930,8 @@ def main() -> int:
                          "each MoE dispatch when the moe phase runs")
     args = ap.parse_args()
     phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
-               "radix", "kvquant", "spec", "quality", "containment", "tenancy", "service_batched",
+               "radix", "kvquant", "spec", "quality", "containment", "tenancy", "handoff",
+               "service_batched",
                "golden", "batch_golden",
                "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
                "stt_batch", "moe"]
@@ -5360,7 +5982,7 @@ def main() -> int:
                      ("batch_dense", phase_batch_dense), ("radix", phase_radix),
                      ("kvquant", phase_kvquant), ("spec", phase_spec),
                      ("quality", phase_quality), ("containment", phase_containment),
-                     ("tenancy", phase_tenancy)):
+                     ("tenancy", phase_tenancy), ("handoff", phase_handoff)):
         if name in phases:
             fail_if(eng is None, f"the {name} phase reuses the service's weights")
             kw = {"profile": args.profile} if name in ("batch", "kvquant", "spec") else {}

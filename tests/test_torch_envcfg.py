@@ -69,7 +69,7 @@ def test_the_default_root_is_the_checkout():
 
 @pytest.mark.parametrize("name,value", [
     ("TENANT_CLASSES", "premium:0"),  # a zero weight: malformed
-    ("ENGINE_STALL_S", "30"),  # item 6
+    ("BRAIN_MODEL", "/models/intent-8b"),  # item 8
     ("RADIX_SESSIONS", "lots"),
 ])
 def test_a_knob_only_in_the_dotenv_is_refused_at_brain_boot(tmp_path, monkeypatch, name, value):

@@ -111,7 +111,7 @@ def test_deadline_gate_answers_before_any_decode():
 
 def test_unset_backend_boots_the_rule_parser(monkeypatch, caplog):
     for name in ("BRAIN_BACKEND", "BRAIN_DEVICE", "SPEC_ENABLE", "BRAIN_MODEL",
-                 *brain.UNSERVED_KNOBS):
+                 "ENGINE_STALL_S", "BRAIN_ROLE"):
         monkeypatch.delenv(name, raising=False)
     built = []
     for cls in (DecodeEngine, PagedDecodeEngine):
@@ -129,7 +129,7 @@ def test_unset_backend_boots_the_rule_parser(monkeypatch, caplog):
     get_steplog().clear()  # no step recorded: no last_step
     assert app.health() == (200, {"ok": True, "service": "brain", "slo": "ok",
                                   "quality": {"slo": "ok"}, "inflight": 0,
-                                  "max_inflight": 32}, {})
+                                  "max_inflight": 32, "role": "both", "disagg": False}, {})
     status, body, _ = app.parse(b'{"text": "take a screenshot"}')
     assert status == 200 and body["intents"][0]["type"] == "screenshot"
     # distilled is served since the trained brain boots from the environment;

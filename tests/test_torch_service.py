@@ -154,7 +154,7 @@ def test_env_factory_reads_the_jax_service_names(monkeypatch):
 
 UNSERVED = ("BRAIN_MODEL", "RADIX_SESSIONS", "RADIX_MAX_NODES", "RADIX_PRESSURE_S",
             "TENANT_PREEMPT", "TENANT_CLASSES", "ENGINE_STALL_S", "COST_ENABLE", "COST_SESSIONS",
-            "COST_PEAK_TFLOPS", "COST_PEAK_GBPS")
+            "COST_PEAK_TFLOPS", "COST_PEAK_GBPS", "CHAOS_STALL_S", "HANDOFF_KV", "BRAIN_ROLE")
 # served since the containment slice
 SERVED_CONTAINMENT = ("PREFILL_CHUNK_TOKENS", "QUARANTINE_AFTER", "BRAIN_MAX_INFLIGHT",
                       "CHAOS_FAULTS", "CHAOS_SEED")
@@ -170,8 +170,8 @@ def _tiny_env(monkeypatch):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("BRAIN_MODEL", "/models/intent-8b"), ("CHAOS_FAULTS", "stall_step:1"),
-    ("ENGINE_STALL_S", "30"), ("CHAOS_FAULTS", "stt_replica_kill:1"),
+    ("BRAIN_MODEL", "/models/intent-8b"), ("CHAOS_FAULTS", "stt_replica_hang:1"),
+    ("BRAIN_BACKEND", "planner-distilled"), ("CHAOS_FAULTS", "stt_replica_kill:1"),
 ])
 def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
     """Each knob the JAX brain honours and the port does not serve raises at
@@ -189,7 +189,8 @@ def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
 @pytest.mark.parametrize("name,value", [
     ("RADIX_SESSIONS", "lots"), ("RADIX_MAX_NODES", "1e3"), ("RADIX_PRESSURE_S", "soon"),
     ("TENANT_CLASSES", "gold:4:0.5,free:1:0.1"), ("TENANT_CLASSES", "gold:0"),
-    ("COST_SESSIONS", "many"), ("COST_PEAK_TFLOPS", "fast"),
+    ("COST_SESSIONS", "many"), ("COST_PEAK_TFLOPS", "fast"), ("ENGINE_STALL_S", "thirty"),
+    ("CHAOS_STALL_S", "long"),
 ])
 def test_env_factory_refuses_malformed_values(monkeypatch, name, value):
     """A served knob whose value does not parse (the radix and cost knobs,
@@ -277,6 +278,8 @@ def test_env_factory_serves_the_containment_knobs(monkeypatch, name, value):
     ("PREFILL_CHUNK_TOKENS", ""), ("QUARANTINE_AFTER", ""), ("TENANT_PREEMPT", " "),
     ("BRAIN_MAX_INFLIGHT", ""), ("BRAIN_MODEL", ""),
     ("TENANT_CLASSES", ""), ("CHAOS_FAULTS", " "), ("ENGINE_STALL_S", ""),
+    ("ENGINE_STALL_S", "30"), ("CHAOS_STALL_S", "3"), ("HANDOFF_KV", "0"),
+    ("BRAIN_ROLE", "prefill"),
 ])
 def test_env_factory_passes_the_values_it_serves(monkeypatch, name, value):
     """The radix knobs at the port's constants, and the unported knobs unset
@@ -335,11 +338,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'services.ws', 'services.slo', 'services.resilience', 'utils',\n"
         "          'utils.tracing', 'utils.quality', 'utils.chaos', 'utils.steplog',\n"
         "          'evals.wer', 'evals.golden', 'distilled', 'utils.envcfg',\n"
-        "          'utils.costmodel', 'serve.tenancy', 'serve.stt_batch'):\n"
+        "          'utils.costmodel', 'serve.tenancy', 'serve.stt_batch', 'serve.handoff'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent', 'aiohttp',\n"
-        "                                       'httpx')\n"
+        "                                       'httpx', 'ml_dtypes')\n"
         "       or k.startswith(('jax.', 'jaxlib.', 'tpu_voice_agent.', 'aiohttp.', 'httpx.'))]\n"
         "print(len([k for k in sys.modules if k.startswith('tpu_voice_agent_torch')]), bad)\n"
     )

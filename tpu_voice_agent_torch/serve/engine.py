@@ -29,8 +29,12 @@ before it touches any state and raises ``ChaosError``; a ``(B,)`` bool
 poison gate. With chaos off both are one test that fails.
 
 The JAX ``lax.while_loop`` is a Python loop here: its ``any(active)`` test
-reads one bool back from the device on every step. Left out (still JAX-only):
-``from_hf``, meshes and ``warm_restart``.
+reads one bool back from the device on every step. ``warm_restart`` (the
+serving loop's stall watchdog) rebuilds the KV cache and keeps the weights.
+``supersede`` comes first: from it until ``warm_restart``, every prefill,
+table claim and decode forward raises ``Superseded`` before it launches, so a
+step still running past the watchdog stops at its next launch.
+Left out (still JAX-only): ``from_hf`` and meshes.
 """
 
 from __future__ import annotations
@@ -56,6 +60,13 @@ from ..ops import masked_argmax_advance
 from ..utils.chaos import ChaosError, chaos_fire
 from ..utils.quality import conf_summary, quality_lanes_enabled
 from ..utils.tracing import get_metrics
+
+
+class Superseded(BaseException):
+    """The stall watchdog superseded the engine while this work ran: it
+    stops before its next launch and commits nothing. No request's fault,
+    so it passes every per-request handler (``except Exception``) up to
+    the serving loop, whose replaced thread then exits."""
 
 
 def resolve_device(device=None) -> torch.device:
@@ -461,6 +472,8 @@ class DecodeEngine:
         self._last_poison = None  # its per-row fault codes (B,) int32
         self._last_conf = None  # its per-row quality lanes (device), or None
         self._nan_inject = None  # the chaos drill's one-shot (B,) host mask
+        # set by supersede, cleared by warm_restart: no launch in between
+        self._superseded = False
         self._last_draft_ms = 0.0  # a speculative chunk's drafter share
         # speculative decoding, built last: the decoder reads the engine's
         # surface; the paged engine builds it once its pool exists
@@ -559,6 +572,7 @@ class DecodeEngine:
         real token's logits (1, V). The one decision tree of every layout:
         the dense and paged engines override only the ``_prefill_suffix`` /
         ``_prefill_full`` hooks."""
+        self._fence()
         if chaos_fire("prefill_exc"):
             # the admission fence's drill: fires before any state is touched
             raise ChaosError("chaos: injected prefill exception")
@@ -607,6 +621,7 @@ class DecodeEngine:
     def _decode_step(self, tokens, positions, active):
         """Layout hook: one decode forward, k/v written in place (idle rows
         write slot 0 of their own line). Returns logits (B, T, V)."""
+        self._fence()
         return forward(self.params, self.cfg, tokens, positions, self.cache)[0]
 
     def _claim(self, span: int, active=None) -> list[int]:
@@ -669,6 +684,35 @@ class DecodeEngine:
         False). The spec decoder drops the slot's context."""
         if self.spec is not None:
             self.spec.on_release(slot, ok=ok)
+
+    def supersede(self) -> None:
+        """The stall watchdog's first move, from its own thread while the
+        wedged step may still run: every later prefill, table claim, decode
+        forward and verify step raises ``Superseded`` (or, in a speculative
+        chunk, stops) before it launches, until ``warm_restart``. It touches
+        no other state."""
+        self._superseded = True
+        if self.spec is not None:
+            self.spec.supersede()
+
+    def _fence(self) -> None:
+        if self._superseded:
+            raise Superseded("engine superseded by a warm restart")
+
+    def warm_restart(self) -> None:
+        """Rebuild the mutable decode state after a wedged step, keeping the
+        loaded weights: a fresh dense KV cache (the shared prefix's KV lives
+        outside it and survives), no armed NaN drill, and the spec decoder's
+        contexts dropped behind its generation fence. The caller (the serving
+        loop's watchdog) fails the in-flight work and resets the batcher.
+        JAX also re-arms its recompilation sentinel here; the port compiles
+        no XLA programs, so it has no counterpart."""
+        if self.cache is not None:
+            self.cache = self._init_kv_cache()
+        self._nan_inject = None
+        if self.spec is not None:
+            self.spec.reset()
+        self._superseded = False
 
     def _admit_first_token(self, prompt: str, temperature: float, greedy: bool = True,
                            constrained: bool = True):

@@ -35,8 +35,15 @@ chain, static-prefix tail) and allocates every block up front;
 table: K7 / K9 at C <= 16, the plain gathered attention past that, and K1
 for a first piece with nothing cached before it. The chain becomes
 insertable only at the final piece. The chaos point ``alloc_fail`` fires in
-``BlockAllocator.alloc``. Left for later: the warm-state handoff
-(``gather_chain_kv`` / ``adopt_chain_kv``), ``warm_restart``, meshes.
+``BlockAllocator.alloc``.
+
+Warm state (``serve.handoff``): ``slot_chain_blocks`` lists a slot's block
+chain, ``gather_chain_kv`` copies blocks to the host in the stored format
+(bf16 values, or int8 / packed int4 bytes with their bf16 scale planes) and
+``adopt_chain_kv`` installs such bytes verbatim into fresh blocks (no
+re-quantize). ``warm_restart`` (the serving loop's stall watchdog) throws
+away the slot and allocator bookkeeping and keeps the pool tensors, the
+static prefix's blocks and the weights. Left for later: meshes.
 """
 
 from __future__ import annotations
@@ -146,6 +153,17 @@ class BlockAllocator:
                 self._free.append(b)
             else:
                 self._refs[b] = r
+
+    def reserve(self, blocks: list[int]) -> None:
+        """Take specific free blocks as allocated (refcount 1): a warm
+        restart's fresh allocator keeps the static prefix's blocks, whose
+        pool KV survives, where they are. All-or-nothing."""
+        for b in blocks:
+            if b in self._refs or b not in self._free:
+                raise ValueError(f"reserve of unavailable block {b}")
+        for b in blocks:
+            self._free.remove(b)
+            self._refs[b] = 1
 
     def refcount(self, block: int) -> int:
         return self._refs.get(block, 0)
@@ -440,6 +458,7 @@ class PagedDecodeEngine(DecodeEngine):
         """Radix-aware admission: the longest cached block chain first, else
         the static-prefix / full-prefill decision tree. With radix off this
         is the parent's path."""
+        self._fence()
         if self.radix is None:
             return super().prefill_slot(ids, slot)
         ns = self._slot_ns.get(slot)  # this occupant's; the release pops it
@@ -501,6 +520,7 @@ class PagedDecodeEngine(DecodeEngine):
         (``_slot_ids`` is set at the final piece only). None when chunking
         cannot represent the prompt (nothing to compute, or the padded span
         past ``max_len``): the caller takes ``prefill_slot``."""
+        self._fence()
         ns = self._slot_ns.get(slot)
         self.release_slot(slot, ok=False)
         self.set_slot_ns(slot, ns)
@@ -529,6 +549,7 @@ class PagedDecodeEngine(DecodeEngine):
         prompt token's logits (1, V) when the final piece lands, else None.
         Earlier pieces' KV is read through the slot's table, with
         ``prefill_slot``'s pow2-bucketed gather past K7's 16 positions."""
+        self._fence()
         slot, C, bs = cur.slot, cur.C, self.block_size
         start = cur.j * C
         seg = cur.suffix[start:start + C]
@@ -583,6 +604,7 @@ class PagedDecodeEngine(DecodeEngine):
     def _decode_step(self, tokens, positions, active):
         """One decode forward through the block tables; idle rows' writes
         park at the trash block via the write mask."""
+        self._fence()
         return self._forward(tokens, positions, self.block_tables, attn_impl=self.kernels,
                              write_mask=active, trash_idx=self._trash_idx)
 
@@ -595,6 +617,7 @@ class PagedDecodeEngine(DecodeEngine):
         K. Returns the slots whose claim failed: each truncates alone at its
         covered frontier. ``reconcile_coverage`` clamps the targets back to
         the actual frontiers after the dispatch."""
+        self._fence()
         starved = []
         for b in range(self.batch_slots):
             # a slot mid chunked admission holds every block it needs
@@ -649,6 +672,104 @@ class PagedDecodeEngine(DecodeEngine):
             return True
         get_metrics().inc("radix.admission_denied")
         return False
+
+    # ------------------------------------------------------------ warm state
+
+    def slot_chain_blocks(self, slot: int) -> list[int]:
+        """The in-order block chain covering ``slot``'s context: shared
+        (prefix / radix-matched) blocks first, then owned ones. Valid mid
+        chunked admission too: a block is fully written only once the
+        compute frontier has passed it, which the disagg exporter tracks.
+        Serving-loop thread only."""
+        return list(self._slot_shared[slot]) + list(self._slot_owned[slot])
+
+    def gather_chain_kv(self, blocks: list[int]):
+        """Host copies of ``blocks``' KV in the stored format: bf16 values,
+        or under ``KV_QUANT`` the int8 / packed int4 bytes and their bf16
+        scale planes (a block's scales travel with it). Returns CPU tensors
+        ``(k, v, k_scale | None, v_scale | None)`` shaped ``(L, n, bs, nkv,
+        hd_store)`` / ``(L, n, bs, nkv)``. Serving-loop thread only."""
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        k = self.k_pool[:, idx].cpu()
+        v = self.v_pool[:, idx].cpu()
+        if self.kv_quant is None:
+            return k, v, None, None
+        return k, v, self.k_scale[:, idx].cpu(), self.v_scale[:, idx].cpu()
+
+    def adopt_chain_kv(self, k, v, k_scale=None, v_scale=None) -> list[int]:
+        """Allocate ``k.shape[1]`` blocks and write already-stored KV into
+        them verbatim: the values by a plain scatter (re-quantizing
+        quantized bytes would change them), the scale planes by their own.
+        ``PoolExhausted`` propagates after ``_alloc``'s eviction retry; any
+        fault frees the claim before it propagates. Serving-loop thread
+        only."""
+        k, v = torch.as_tensor(k), torch.as_tensor(v)
+        n = int(k.shape[1])
+        if self.kv_quant is not None and (k_scale is None or v_scale is None):
+            raise ValueError("quantized pool adoption needs scale planes")
+        if tuple(v.shape) != tuple(k.shape):
+            raise ValueError("adopted v shape disagrees with k")
+        if k.dtype != self.k_pool.dtype or v.dtype != self.v_pool.dtype:
+            raise ValueError(f"adopted KV is {k.dtype}, the pool stores {self.k_pool.dtype}")
+        blocks = self._alloc(n)
+        try:
+            L, N, bs = self.k_pool.shape[:3]
+            arr = np.asarray(blocks, np.int64)
+            dst = torch.from_numpy((arr[:, None] * bs + np.arange(bs)[None, :]).reshape(-1)
+                                   ).to(self.device)
+            tail = tuple(self.k_pool.shape[3:])
+            self.k_pool.view(L, N * bs, *tail)[:, dst] = k.reshape(L, n * bs, *tail).to(
+                self.device)
+            self.v_pool.view(L, N * bs, *tail)[:, dst] = v.reshape(L, n * bs, *tail).to(
+                self.device)
+            if self.kv_quant is not None:
+                nkv = self.k_scale.shape[3]
+                self.k_scale.view(L, N * bs, nkv)[:, dst] = torch.as_tensor(k_scale).reshape(
+                    L, n * bs, nkv).to(self.device, torch.bfloat16)
+                self.v_scale.view(L, N * bs, nkv)[:, dst] = torch.as_tensor(v_scale).reshape(
+                    L, n * bs, nkv).to(self.device, torch.bfloat16)
+        except Exception:
+            # a skewed payload must not shrink the pool for good
+            self.allocator.free(blocks)
+            raise
+        return blocks
+
+    def warm_restart(self) -> None:
+        """Throw away every slot's state and the allocator and radix
+        bookkeeping after a wedged step, keeping the weights, the pool
+        tensors and the static prefix: its blocks are re-reserved in a fresh
+        allocator and re-pinned as the radix root (the pool's bytes were
+        never suspect, only the bookkeeping). The tree keeps its
+        ``max_nodes`` and tenant quotas. In-flight requests are the
+        caller's to fail."""
+        self.allocator = BlockAllocator(self.allocator.n_blocks)
+        if self._prefix_blocks:
+            self.allocator.reserve(self._prefix_blocks)
+        if self.radix is not None:
+            old = self.radix
+            self.radix = RadixCache(self.allocator, self.block_size, max_nodes=old.max_nodes)
+            self.radix.ns_quota = old.ns_quota
+            full = len(self.prefix_ids) // self.block_size
+            if full:
+                self.radix.pin_root_chain(self.prefix_ids[:full * self.block_size],
+                                          self._prefix_blocks)
+        self._slot_shared = [[] for _ in range(self.batch_slots)]
+        self._slot_owned = [[] for _ in range(self.batch_slots)]
+        self._covered = [0] * self.batch_slots
+        self._next_pos = [0] * self.batch_slots
+        self._slot_ids = [None] * self.batch_slots
+        self._slot_ns.clear()
+        self._mid_prefill.clear()
+        self.block_tables = torch.zeros_like(self.block_tables)
+        self._pressure_until = 0.0
+        self._nan_inject = None
+        if self.spec is not None:
+            # the generation fence: a verify loop wedged mid-chunk stops
+            # dispatching against the fresh tables
+            self.spec.reset()
+        self._superseded = False
+        # JAX re-arms its recompilation sentinel here; the port compiles no
+        # XLA programs, so there is nothing to re-arm
 
     def generate(self, *a, **kw):
         raise ValueError("PagedDecodeEngine serves through the continuous batcher "

@@ -17,8 +17,9 @@ quota evicts its own least-recent leaves first. With no namespace in play
 every path is the single-tenant one. The ``radix.cached_tokens`` and
 ``radix.evictions`` counters count as JAX's do; the batcher exports
 ``radix.nodes`` and ``radix.hit_rate`` each chunk
-(``record_radix_gauges``). Left out: the ref-free ``cached_tokens`` probe
-(item 6's stream adopter is its only caller).
+(``record_radix_gauges``). ``cached_tokens`` is the ref-free probe the
+disagg stream adopter (``serve.handoff.StreamAdopter``) verifies its commit
+with.
 """
 
 from __future__ import annotations
@@ -107,6 +108,19 @@ class RadixCache:
         if blocks:
             self.allocator.ref(blocks)
         return blocks, len(blocks) * bs
+
+    def cached_tokens(self, ids: list[int], ns: str | None = None) -> int:
+        """How many leading tokens of ``ids`` a ``match`` would serve now,
+        without its side effects: no allocator refs, no LRU clock, no
+        lookup counted (a probe must not perturb eviction order)."""
+        bs = self.block_size
+        node, matched = self.root, 0
+        for i in range(max(0, (len(ids) - 1) // bs)):
+            node = self._child(node, tuple(ids[i * bs:(i + 1) * bs]), ns)
+            if node is None:
+                break
+            matched += bs
+        return matched
 
     def record_hit(self, matched: int) -> None:
         """Account a matched chain the engine committed to."""

@@ -57,8 +57,18 @@ released warm into its namespace and its prompt requeued at the head, once
 per request, so it resumes from the cache and finishes with the tokens it
 would have had. Unset, nothing of it is built.
 
-Left for later: prefix feeds and exports (ROADMAP.md Queue 1 item 6), the
-stalled-step watchdog (item 6).
+Prefill-only admissions (the brain's warm-state surface): ``feed_prefix``
+prefills a prompt through a borrowed free slot and commits its chain to the
+radix tree (a prefix feed: the eventual parse admits warm);
+``prefill_export`` does the same in chunks of ``stream_blocks`` pool blocks
+and hands each newly complete block run behind the compute frontier to
+``emit`` as a packed ``kv_seg`` blob (the disagg KV stream). Both run on the
+serving-loop thread, shed with JAX's reasons (``radix_off``, ``busy``,
+``no_slot``, ``pool_exhausted``) and leave no block behind. The chaos point
+``stall_step`` sleeps ``CHAOS_STALL_S`` (default 2.0) at the top of
+``step``, before any launch; a step that wakes to a bumped epoch (the
+watchdog's ``supersede``) returns without touching the engine, and one
+superseded later stops at the engine's next launch (``Superseded``).
 """
 
 from __future__ import annotations
@@ -191,6 +201,9 @@ class ContinuousBatcher:
         if self._prefill_chunk:
             m.inc("prefill.chunked_admissions", 0.0)
             m.inc("prefill.chunks", 0.0)
+        m.inc("prefill.feeds", 0.0)
+        m.inc("prefill.feeds_committed", 0.0)
+        m.inc("prefill.feeds_shed", 0.0)
         # the cost meter: host arithmetic over readbacks the chunk pays for
         self.costs: CostMeter | None = CostMeter(engine) if cost_enabled() else None
         # the tenancy plane, built only when TENANT_CLASSES is set
@@ -206,6 +219,14 @@ class ContinuousBatcher:
                 engine.radix.ns_quota = self.tenancy.block_quota
 
     # ------------------------------------------------------------ submit
+
+    def supersede(self) -> None:
+        """The stall watchdog's fence, set from its own thread while a step
+        may still run: the epoch goes up (the step commits nothing) and the
+        engine refuses every launch until its ``warm_restart``. The full
+        ``reset`` follows on the serving loop's next thread."""
+        self._epoch += 1
+        self.engine.supersede()
 
     def reset(self) -> None:
         """Abandon all queued and in-flight work. Bumps the epoch, so a step
@@ -612,12 +633,144 @@ class ContinuousBatcher:
                 self._arm_chaos(slot)  # a chunked admission arms at its final piece
         return n_admitted, n_attempted, prefill_ms
 
+    # ------------------------------------------------------------ feeds
+
+    def _borrow_slot(self, tenant, shed_counter: str):
+        """A free slot for a prefill-only admission, or the shed answer:
+        live work always wins (``busy`` while requests wait, ``no_slot``
+        while every slot is taken). Names the slot's tenant namespace."""
+        eng = self.engine
+        if getattr(eng, "radix", None) is None:
+            return None, {"ok": False, "reason": "radix_off"}
+        m = get_metrics()
+        if self.pending:
+            m.inc(shed_counter)
+            return None, {"ok": False, "reason": "busy"}
+        slot = self._free_slot(self._active_h)
+        if slot is None:
+            m.inc(shed_counter)
+            return None, {"ok": False, "reason": "no_slot"}
+        if self.tenancy is not None:
+            eng.set_slot_ns(slot, self.tenancy.resolve(tenant))
+        return slot, None
+
+    def feed_prefix(self, prompt, tenant=None) -> dict:
+        """Prefill-only admission (a prefix feed): prefill ``prompt``
+        through a borrowed free slot, commit its chain to the radix tree
+        and release, all in this call on the serving-loop thread. Each feed
+        starts from the longest cached prefix (usually the last feed's), so
+        an incremental feed costs its new tokens, and the eventual parse
+        admits warm. Best-effort: sheds while live work waits, with no free
+        slot, or on an exhausted pool. ``tenant`` salts the chain into its
+        lane's namespace."""
+        m = get_metrics()
+        m.inc("prefill.feeds")
+        eng = self.engine
+        slot, shed = self._borrow_slot(tenant, "prefill.feeds_shed")
+        if shed is not None:
+            return shed
+        ids = (eng.tokenizer.encode(prompt, bos=True) if isinstance(prompt, str)
+               else [int(t) for t in prompt])
+        try:
+            eng.prefill_slot(ids, slot)
+        except PoolExhausted:
+            self._release_quietly(slot)
+            m.inc("prefill.feeds_shed")
+            return {"ok": False, "reason": "pool_exhausted"}
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            self._release_quietly(slot)
+            return {"ok": False, "reason": f"{type(e).__name__}: {e}"}
+        cached = int(getattr(eng, "_last_cached_tokens", 0))
+        # generated_ids=[]: the release's radix insert adopts the fed
+        # prompt's full blocks and frees the rest before this call returns
+        eng.release_slot(slot, generated_ids=[], ok=True)
+        m.inc("prefill.feeds_committed")
+        return {"ok": True, "prompt_tokens": len(ids), "cached_tokens": cached}
+
+    def prefill_export(self, prompt, *, stream_blocks: int = 4, emit=None, stream_id=None,
+                       tenant=None) -> dict:
+        """Prefill-only admission that exports the computed chain (the
+        disagg KV stream): ``feed_prefix`` run in chunks of ``stream_blocks``
+        pool blocks (``begin_chunked_prefill``); after each chunk every
+        newly complete block behind the compute frontier goes to ``emit`` as
+        one packed ``kv_seg`` blob (``serve.handoff.pack_kv_segment``), so
+        the first segments ship while later chunks still compute. Shipping
+        stops at ``(len(ids) - 1) // block_size`` blocks, the admission-side
+        match limit. The chain then commits to the local tree too. Sheds as
+        ``feed_prefix`` does; a shed or fault after segments went out leaves
+        the receiver a torn stream, which its adopter commits partially.
+        Serving-loop thread only."""
+        from .handoff import pack_kv_segment
+
+        m = get_metrics()
+        m.inc("disagg.exports")
+        eng = self.engine
+        slot, shed = self._borrow_slot(tenant, "disagg.exports_shed")
+        if shed is not None:
+            if shed["reason"] == "radix_off":
+                m.inc("disagg.exports_shed")
+            return shed
+        ids = (eng.tokenizer.encode(prompt, bos=True) if isinstance(prompt, str)
+               else [int(t) for t in prompt])
+        bs = eng.block_size
+        ship_cap = (len(ids) - 1) // bs
+        n_ship = max(1, int(stream_blocks))
+        sent = len(eng._prefix_blocks)
+        segments = 0
+
+        def ship(upto: int, final: bool) -> None:
+            nonlocal sent, segments
+            upto = min(int(upto), ship_cap)
+            if emit is None or upto <= sent or (not final and upto - sent < n_ship):
+                return  # nothing new, or less than a segment's worth yet
+            chain = eng.slot_chain_blocks(slot)
+            emit(pack_kv_segment(eng, ids, chain[sent:upto], sent, stream_id=stream_id))
+            m.inc("disagg.blocks_streamed", float(upto - sent))
+            sent = upto
+            segments += 1
+
+        try:
+            cur = eng.begin_chunked_prefill(ids, slot, n_ship * bs)
+            if cur is None:
+                eng.prefill_slot(ids, slot)  # mostly cached: one shot, one segment
+            else:
+                logits = None
+                while logits is None:
+                    logits = eng.chunked_prefill_step(cur)
+                    ship((cur.P + min(cur.j * cur.C, len(cur.suffix))) // bs, final=False)
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            self._release_quietly(slot)
+            m.inc("disagg.exports_shed")
+            reason = "pool_exhausted" if isinstance(e, PoolExhausted) else \
+                f"{type(e).__name__}: {e}"
+            return {"ok": False, "reason": reason, "segments": segments}
+        cached = int(getattr(eng, "_last_cached_tokens", 0))
+        try:
+            ship(ship_cap, final=True)
+        except Exception:  # noqa: BLE001 - a dead sink is the receiver's torn stream
+            pass
+        eng.release_slot(slot, generated_ids=[], ok=True)
+        return {"ok": True, "prompt_tokens": len(ids), "cached_tokens": cached,
+                "chain_tokens": sent * bs, "segments": segments}
+
     # ------------------------------------------------------------ step
 
     def step(self) -> None:
         """Evict expired slots, admit pending requests into free slots,
         advance chunked admissions, then run one chunk."""
         epoch = self._epoch
+        if chaos_fire("stall_step"):
+            # the stalled-step watchdog's drill: sleep as if the dispatch
+            # wedged. A bumped epoch on waking means the watchdog already
+            # warm-restarted the engine: this step vanishes before it
+            # launches anything
+            time.sleep(float(os.environ.get("CHAOS_STALL_S", "").strip() or "2.0"))
+            if epoch != self._epoch:
+                return
         # the step ledger: one timer a step, lapped at each stage boundary
         # (perf_counter only; STEPLOG_ENABLE=0 records nothing)
         timer = get_steplog().timer()

@@ -36,8 +36,9 @@ released request (JAX's fields). Not ported, and refused at boot when set:
 With the engine's quality lanes on, every verified decision (the accepted
 drafts and the bonus) folds its masked-logit confidence into per-row lanes
 on the device, read back with the chunk. The ``spec.*`` counters and gauges
-are JAX's. Left out: chaos NaN injection, the warm-restart generation fence
-and speculation under chunked prefill.
+are JAX's. A warm restart (``reset``) bumps the generation fence, which
+stops a verify loop wedged mid-chunk before its next claim or launch. Left
+out: speculation under chunked prefill.
 """
 
 from __future__ import annotations
@@ -554,6 +555,10 @@ class SpecDecoder:
         self._slot_fwds = np.zeros((B,), np.int64)
         self._trace_path = cfg.trace_sink
         self._trace_lock = threading.Lock()
+        # the generation fence: a warm restart bumps it, so a thread wedged
+        # inside decode_chunk stops dispatching verify steps (each writes
+        # the engine's KV) against the restarted engine
+        self._gen = 0
 
     # ------------------------------------------------------------ hooks
 
@@ -591,8 +596,15 @@ class SpecDecoder:
             return
         get_metrics().inc("spec.trace_records")
 
+    def supersede(self) -> None:
+        """Bump the generation fence: a verify loop in flight dispatches no
+        further step."""
+        self._gen += 1
+
     def reset(self) -> None:
-        """Drop every slot's host context and drafter state."""
+        """The warm restart's hook: bump the generation fence, then drop
+        every slot's host context and drafter state."""
+        self.supersede()
         for b in range(self.engine.batch_slots):
             if self._ctx[b] is not None:
                 self.on_release(b, ok=False)
@@ -615,6 +627,7 @@ class SpecDecoder:
         eng = self.engine
         dev = eng.device
         B, K = eng.batch_slots, self.K
+        gen0 = self._gen
         # the chaos drill's one-shot mask rides the chunk's first verify step
         nan_inject = eng._take_nan_inject()
         head = torch.stack([cur, fsm, active.to(torch.int32)], dim=1).cpu().numpy()
@@ -630,7 +643,7 @@ class SpecDecoder:
         # the chunk's lanes, folded on the device (sums add, mins min)
         conf_acc = _conf_init(B, dev) if self.quality_lanes else None
         for _ in range(chunk_steps):
-            if not act_h.any():
+            if not act_h.any() or self._gen != gen0:
                 break
             ctxs = [(self._ctx[b] + [int(cur_h[b])]) if act_h[b] and self._ctx[b] is not None
                     else None for b in range(B)]
@@ -638,6 +651,10 @@ class SpecDecoder:
             dtoks, dlen = self.drafter.draft_batch(ctxs, fsm_h, act_h, K)
             draft_ms += (time.perf_counter() - t0) * 1e3
             dlen = np.minimum(np.asarray(dlen, np.int32), K)
+            if self._gen != gen0:
+                # restarted while the drafters ran: stop before touching the
+                # fresh allocator or launching into its pool
+                break
             # claim this step's worst case (cur + K drafts) for live rows
             starved = eng._claim(1 + K, active=act_h)
             if starved:
@@ -661,6 +678,8 @@ class SpecDecoder:
                 dim=1)], dim=1).cpu().numpy()
             n_h, eos_h, cur_h, fsm_h, act_new, a_h, dl_h, pois_h, pos_h = (
                 packed[:, 1 + K + i] for i in range(9))
+            if self._gen != gen0:
+                break  # restarted mid-step: discard it, dispatch no more
             eng.reconcile_coverage(pos_h)
             prev_act, act_h = act_h, act_new.astype(bool)
             fwds += 1

@@ -38,7 +38,7 @@ and spec_finals are futures delivered by a later feed, and a final blocks
 The worker is the only thread that runs the model. Left out: the
 replicated tier over several batchers and its chaos points (``STT_REPLICAS``
 > 1, ``stt_replica_kill`` / ``stt_replica_hang``: ROADMAP.md Queue 1 item 5,
-with item 6's ``ReplicaSet``).
+with item 6b's ``ReplicaSet``).
 """
 
 from __future__ import annotations

@@ -7,7 +7,10 @@ pydantic's ``model_dump()`` fills it); errors come back as
 ``{"error", "detail"}``:
 
 - 400 ``invalid_request``: the body is not JSON or not a ParseRequest;
-- 409 ``prefix_feed_unsupported``: no prefill-only admission path is ported;
+- 409 ``prefix_feed_unsupported``: a ``prefix_feed`` to a backend without a
+  prefill-only admission path (the rule and one-slot parsers, as in JAX);
+- 413: a body past 1 MiB (aiohttp's default cap, which the JAX brain runs
+  with), answered without reading it; 411 a chunked body with no length;
 - 422 ``schema_validation_failed``: the decode ran out of budget before EOS;
 - 503 ``overloaded`` (with ``Retry-After``): the request's ``x-deadline-ms``
   budget had run out on arrival (``deadline_expired``, ``Retry-After: 0``),
@@ -34,11 +37,23 @@ as stage notes, an SLO sample and a quality record; a response from an engine ba
 Prometheus text under ``Accept: text/plain``), ``GET /debug/trace/{id}``,
 ``GET /debug/quality``, ``GET /debug/steplog``, ``GET
 /debug/flightrecorder`` and ``GET /debug/costs`` (the batcher's cost meter,
-the per-session rollup and, under tenancy, the lanes) are served; the JAX
-brain's other routes answer 501 ``not_ported`` with the ROADMAP.md Queue 1
-item that brings them (``UNPORTED_ROUTES``). A request's tenant (the body's
-``tenant``, else the ``x-tenant`` header) rides into the batcher. The HTTP
-layer is the standard library's ``ThreadingHTTPServer``.
+the per-session rollup and, under tenancy, the lanes) are served. So is the
+batched parser's warm state (``serve.handoff``): ``GET /admin/handoff/{id}``
+exports a session as one ``TVAH1`` blob, ``POST /admin/handoff`` adopts one
+(a ``TVAF1`` framed body is reassembled; both take up to 256 MiB and answer
+413 ``handoff_too_large`` past it), ``POST /admin/disagg/prefill`` streams a
+prompt's KV chain as chunked frames while it computes, ``POST
+/admin/disagg/adopt`` installs one forwarded frame payload
+(``x-disagg-stream`` names the stream), ``POST /admin/drain`` latches the
+drain (``/health`` then reads ``draining`` and ``drained``), and ``/parse``
+with ``prefix_feed: true`` warms the session's radix chain without a
+decode. A backend without that surface answers 404 ``handoff_unsupported``
+/ ``disagg_unsupported``, as JAX's does. ``/health`` also carries ``role``
+(``BRAIN_ROLE``, default ``both``) and ``disagg``. The JAX brain's other
+route, ``/debug/timeseries``, answers 501 ``not_ported`` with the ROADMAP.md
+Queue 1 item that brings it (``UNPORTED_ROUTES``). A request's tenant (the
+body's ``tenant``, else the ``x-tenant`` header) rides into the batcher. The
+HTTP layer is the standard library's ``ThreadingHTTPServer``.
 
     BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 \\
         python -m tpu_voice_agent_torch.services.brain
@@ -58,17 +73,22 @@ preset such as ``mixtral-8x7b``), and ``BRAIN_DEVICE`` (default ``cuda``;
 ``cpu`` runs the plain versions), ``QUALITY_ENABLE`` (the decode loops'
 quality lanes, default on), ``QUALITY_WINDOW`` / ``QUALITY_SLO_*``,
 ``SLO_*``, ``TRACE_SINK``, ``BRAIN_MAX_INFLIGHT``, ``QUARANTINE_AFTER`` and
-``PREFILL_CHUNK_TOKENS`` (read by the batcher), ``STEPLOG_*``, ``FLIGHT_*``,
+``PREFILL_CHUNK_TOKENS`` (read by the batcher), ``ENGINE_STALL_S`` (the
+serving loop's stall watchdog, default 30), ``HANDOFF_KV`` (``0`` exports
+the transcript alone), ``BRAIN_ROLE``, ``STEPLOG_*``, ``FLIGHT_*``,
 ``QUALITY_CANARY_S`` / ``QUALITY_CANARY_SLICE`` / ``QUALITY_CANARY_OCCUPANCY``
 (the golden-replay canary, started by ``make_server``), ``TENANT_CLASSES`` /
 ``TENANT_PREEMPT`` (the batcher's tenancy plane), ``RADIX_SESSIONS`` (the
 session transcripts' LRU), ``RADIX_MAX_NODES`` / ``RADIX_PRESSURE_S`` (the
 paged engine's tree), ``COST_ENABLE`` / ``COST_SESSIONS`` /
 ``COST_PEAK_TFLOPS`` / ``COST_PEAK_GBPS`` (the cost meter), and ``CHAOS_FAULTS`` /
-``CHAOS_SEED`` with ``CHAOS_HANG_S`` / ``CHAOS_SLOW_S``: the replica points
-draw on ``POST /parse`` only (``replica_kill`` latches and closes every later
-connection without a response, ``replica_hang`` / ``replica_slow`` sleep,
-``replica_degrade`` latches slow), and ``intent_downgrade`` latches a
+``CHAOS_SEED`` with ``CHAOS_HANG_S`` / ``CHAOS_SLOW_S`` / ``CHAOS_STALL_S``:
+the replica points draw on ``POST /parse`` only (``replica_kill`` latches and
+closes every later connection without a response, ``replica_hang`` /
+``replica_slow`` sleep, ``replica_degrade`` latches slow),
+``replica_join_stall`` sleeps one ``POST /admin/handoff``,
+``prefill_replica_kill`` drops a disagg stream between frames,
+``stall_step`` wedges a batcher step, and ``intent_downgrade`` latches a
 rule-fallback "unknown" answer. The JAX service's knobs and chaos points
 that the port does not serve raise ``ValueError`` at boot
 (``check_unserved_knobs``). ``main`` merges the repo-root ``.env`` into the
@@ -81,6 +101,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import queue
 import re
 import select
 import socket
@@ -109,6 +130,7 @@ from ..utils.tracing import (
     TRACE_ROUTE,
     Tracer,
     flightrecorder_response,
+    get_flight_recorder,
     get_metrics,
     metrics_response,
     new_trace_id,
@@ -254,6 +276,22 @@ class SessionTranscripts:
             while len(self._hist) > self.max_sessions:
                 self._hist.popitem(last=False)
 
+    def peek(self, session_id: str) -> list[int] | None:
+        """The session's committed transcript ids (a copy), LRU order
+        untouched: the warm-state export's read."""
+        with self._lock:
+            hist = self._hist.get(session_id)
+            return list(hist) if hist is not None else None
+
+    def adopt(self, session_id: str, ids: list[int]) -> None:
+        """Install a transcript shipped from another brain: the donor is
+        authoritative at re-home time, so a local entry is overwritten."""
+        with self._lock:
+            self._hist[session_id] = [int(t) for t in ids]
+            self._hist.move_to_end(session_id)
+            while len(self._hist) > self.max_sessions:
+                self._hist.popitem(last=False)
+
     def forget(self, session_id: str) -> None:
         with self._lock:
             self._hist.pop(session_id, None)
@@ -270,6 +308,7 @@ class LoopStats:
     decode_chunks: int = 0
     max_stt_queue: int = 0
     max_parse_inflight: int = 0
+    restarts: int = 0  # serving loops the watchdog replaced (dead or stalled)
     # the dispatch order, "stt" / "chunk" entries (the fairness tests read it)
     trace: list = field(default_factory=list)
 
@@ -282,21 +321,41 @@ class ServingLoop:
     ``submit`` queues a prompt (with its ``Deadline`` and tenant) and
     returns a ``Future`` of its GenerationResult; ``submit_stt`` queues
     16 kHz float32 audio and returns a ``Future`` of its TranscribeResult
-    (a loop built without ``stt`` raises ``RuntimeError``). Each ``step``
-    runs every queued STT job first, then one decode chunk: an STT job waits
-    at most one chunk. New requests join at chunk boundaries; one the
-    batcher refuses at submit (a quarantined prompt, a rate-limited tenant)
-    resolves before the next step. Every engine call runs on the loop's
-    thread: the kernels' split scratch and tickets serve one stream at a
-    time, so K5 (the STT) and K6 / K7 (the batch) never launch from two
-    threads at once. An STT job's own error fails its future alone; a fault
-    out of the decode step, or a CUDA fault anywhere (never handled per
-    request), fails every waiting future and stops the loop: ``healthy``
+    (a loop built without ``stt`` raises ``RuntimeError``); ``submit_call``
+    queues a function (the warm-state export and adoption, prefix feeds,
+    the disagg stream) and returns a ``Future`` of its result. Each ``step``
+    runs every queued STT job first, then the queued calls, then one decode
+    chunk: an STT job waits at most one chunk. New requests join at chunk
+    boundaries; one the batcher refuses at submit (a quarantined prompt, a
+    rate-limited tenant) resolves before the next step. Every engine call
+    runs on the loop's thread: the kernels' split scratch and tickets serve
+    one stream at a time, so K5 (the STT) and K6 / K7 (the batch) never
+    launch from two threads at once, and the allocator and radix tree have
+    one writer. An STT job's or a call's own error fails its future alone;
+    a fault out of the decode step, or a CUDA fault anywhere (never handled
+    per request), fails every waiting future and stops the loop: ``healthy``
     turns False and later submits fail at once. ``autostart=False`` leaves
     the thread unstarted, for a caller that drives ``step`` itself
     (``start`` starts it). The ``colocate.stt_queue`` and
     ``colocate.parse_inflight`` gauges read each step's lanes before it
-    runs them."""
+    runs them.
+
+    The drain latch (``begin_drain``, ``colocate.drains_started``) refuses
+    nothing: a request racing the router's decision to stop placing work
+    here is served (the zero-drop contract), and ``drained`` turns True once
+    the latch is set and both lanes are empty. ``start_watchdog`` watches
+    the thread: a loop that died of anything but a CUDA fault is replaced
+    (``colocate.worker_restarts``); a decode step running past
+    ``ENGINE_STALL_S`` (default 30) supersedes the batcher and its engine
+    (the epoch up, every later launch refused), fails the in-flight work
+    with "decode step stalled; engine warm-restarted, work failed fast" and
+    starts a fresh loop (``engine.restarts``, an ``engine.stall``
+    flight-recorder freeze). The stalled thread stops at its next prefill,
+    claim or forward and exits; it holds the engine lock for the whole of
+    its step, so the fresh thread's first act, ``batcher.reset()`` then
+    ``warm_restart()`` under that lock, waits for it, and one thread at a
+    time ever touches the engine. A kernel hung on the device blocks the
+    stream for every thread: no watchdog in the process recovers that."""
 
     def __init__(self, batcher, stt=None, autostart: bool = True):
         self.batcher = batcher
@@ -305,11 +364,22 @@ class ServingLoop:
         self._cv = threading.Condition()
         self._inbox: list[tuple[object, object, object, Future]] = []
         self._stt_q: list[tuple[object, Future]] = []
+        self._calls: list[tuple[object, Future]] = []
         self._abandoned: set[Future] = set()
         self._futures: dict[int, Future] = {}
         self._stop = False
+        self._draining = False
         self.error: BaseException | None = None
         self._thread: threading.Thread | None = None
+        self._watchdog: threading.Thread | None = None
+        # set while the live thread is inside batcher.step(): the stall
+        # watchdog's clock
+        self._step_t0: float | None = None
+        self._replaced: set[threading.Thread] = set()  # loop threads the watchdog replaced
+        # held by a loop thread for each batcher step and for a restart's
+        # reset: the engine has one writer even while a stalled step runs on
+        self._engine_lock = threading.Lock()
+        self._stopped = threading.Event()  # wakes the watchdog's poll at stop
         if autostart:
             self.start()
 
@@ -346,6 +416,17 @@ class ServingLoop:
                 self._cv.notify()
         return fut
 
+    def submit_call(self, fn) -> Future:
+        """Run ``fn()`` on the loop's thread between steps (after the STT
+        lane, before the decode chunk) and resolve the future with its
+        result: the engine's allocator, pool and radix tree have one writer."""
+        fut: Future = Future()
+        with self._cv:
+            if not self._refuse_if_stopped(fut):
+                self._calls.append((fn, fut))
+                self._cv.notify()
+        return fut
+
     def abandon(self, fut: Future) -> None:
         """Give up on a request (its caller timed out or disconnected): the
         loop cancels it in the batcher, so a queued one leaves the queue and
@@ -359,15 +440,48 @@ class ServingLoop:
     def healthy(self) -> bool:
         return self.error is None and self._thread is not None and self._thread.is_alive()
 
+    def begin_drain(self) -> None:
+        """Arm the drain latch. New submissions are still served."""
+        with self._cv:
+            self._draining = True
+        get_metrics().inc("colocate.drains_started")
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def drained(self) -> bool:
+        """The latch is set and both lanes are empty: nothing queued, no
+        future unresolved, no slot decoding."""
+        if not self._draining:
+            return False
+        with self._cv:
+            return not (self._has_work() or self._futures)
+
+    def drain(self, timeout_s: float = 120.0) -> None:
+        """Block until every queued job of both lanes has completed (JAX's
+        name for ``run_until_idle``)."""
+        self.run_until_idle(timeout_s)
+
     def stop(self) -> None:
         with self._cv:
             self._stop = True
-            self._cv.notify()
+            self._cv.notify_all()
+        self._stopped.set()
         if self._thread is not None:
             self._thread.join(timeout=60)
+        if self._watchdog is not None:
+            self._watchdog.join(timeout=60)
+            self._watchdog = None
 
     def _has_work(self) -> bool:
-        return bool(self._inbox or self._abandoned or self._stt_q or self.batcher.busy())
+        return bool(self._inbox or self._abandoned or self._stt_q or self._calls
+                    or self.batcher.busy())
+
+    def _abandoned_thread(self) -> bool:
+        """True on a loop thread the watchdog replaced: it must not touch
+        the batcher, the engine or a future again."""
+        return threading.current_thread() in self._replaced
 
     def run_until_idle(self, timeout_s: float = 120.0) -> None:
         """Block until both lanes are empty: steps inline when the thread is
@@ -385,13 +499,22 @@ class ServingLoop:
                 self.step()
         raise TimeoutError("serving loop did not go idle")
 
-    def _run(self) -> None:
+    def _run(self, restart: str | None = None) -> None:
+        """The loop thread. A replacement first resets the batcher and,
+        after a stall, warm-restarts the engine (``restart``: "reset" or
+        "warm"), once the step it replaces has let go of the engine."""
+        me = threading.current_thread()
+        if restart is not None:
+            with self._engine_lock:
+                self.batcher.reset()
+                if restart == "warm":
+                    self.batcher.engine.warm_restart()
         while True:
             with self._cv:
-                while not (self._has_work() or self._stop):
+                while not (self._has_work() or self._stop) and self._thread is me:
                     self._cv.wait()
-                if self._stop:
-                    return
+                if self._stop or self._thread is not me or me in self._replaced:
+                    return  # stopped, or replaced by the watchdog
             try:
                 self.step()
             except BaseException:  # noqa: BLE001 - step already failed every waiter
@@ -399,8 +522,8 @@ class ServingLoop:
 
     def step(self) -> bool:
         """One scheduling decision: queued submits and cancels into the
-        batcher, every queued STT job, then one decode chunk. True when any
-        work ran."""
+        batcher, every queued STT job, the queued calls, then one decode
+        chunk. True when any work ran."""
         from ..serve.scheduler import is_device_fault
 
         b = self.batcher
@@ -409,6 +532,7 @@ class ServingLoop:
             inbox, self._inbox = self._inbox, []
             gone, self._abandoned = self._abandoned, set()
             stt_jobs, self._stt_q = self._stt_q, []
+            calls, self._calls = self._calls, []
             # the lanes' depths before this step runs them
             m.set_gauge("colocate.stt_queue", len(stt_jobs))
             m.set_gauge("colocate.parse_inflight", len(self._futures) + len(inbox))
@@ -441,25 +565,58 @@ class ServingLoop:
                 self.stats.stt_jobs += 1
                 self.stats.trace.append("stt")
                 did = True
+            while calls:  # after the STT lane: a handoff must not delay a transcription
+                fn, fut = calls.pop(0)
+                if not fut.set_running_or_notify_cancel():
+                    continue  # its caller gave up before it started
+                try:
+                    res = fn()
+                except Exception as e:  # noqa: BLE001 - the call fails alone
+                    if is_device_fault(e):
+                        _settle(fut.set_exception, e)
+                        raise
+                    _settle(fut.set_exception, e)
+                else:
+                    _settle(fut.set_result, res)
+                did = True
             if b.busy():
                 t0 = time.perf_counter()
-                b.step()
+                with self._cv:
+                    self._step_t0 = t0
+                try:
+                    with self._engine_lock:
+                        b.step()
+                finally:
+                    with self._cv:
+                        # a replaced thread must not disarm its successor's clock
+                        if not self._abandoned_thread():
+                            self._step_t0 = None
+                if self._abandoned_thread():
+                    return did  # the watchdog restarted the world meanwhile
                 self.stats.decode_busy_ms += (time.perf_counter() - t0) * 1e3
                 self.stats.decode_chunks += 1
                 self.stats.trace.append("chunk")
                 did = True
                 self._resolve()
         except BaseException as e:  # every waiter must hear of it
+            if self._abandoned_thread():
+                raise  # the replacement loop owns the waiters now
+            # a thread killed outright (not an Exception) fails its waiters
+            # as JAX's watchdog does a dead worker's
+            exc = e if isinstance(e, Exception) else RuntimeError(
+                "serving worker died; work failed fast on restart")
             with self._cv:
                 self.error = e
                 waiting = (list(self._futures.values())
                            + [f for *_, f in inbox + self._inbox]
-                           + [f for _, f in stt_jobs + self._stt_q])
+                           + [f for _, f in stt_jobs + self._stt_q]
+                           + [f for _, f in calls + self._calls])
                 self._futures.clear()
                 self._inbox.clear()
                 self._stt_q.clear()
+                self._calls.clear()
             for fut in waiting:
-                _settle(fut.set_exception, e)
+                _settle(fut.set_exception, exc)
             raise
         return did
 
@@ -468,6 +625,88 @@ class ServingLoop:
         for rid in [r for r in self._futures if r in b.results]:
             _settle(self._futures.pop(rid).set_result, b.results.pop(rid))
             self.stats.parse_jobs += 1
+
+    # ------------------------------------------------------------ watchdog
+
+    def start_watchdog(self, interval_s: float = 0.5, stall_s: float | None = None) -> None:
+        """Watch the loop's thread every ``interval_s``: replace a dead one,
+        warm-restart a step stalled past ``stall_s`` (default
+        ``ENGINE_STALL_S``, 30 s). ``engine.restarts`` exists from here, at
+        0."""
+        if self._watchdog is not None:
+            return
+        if stall_s is None:
+            stall_s = float(os.environ.get("ENGINE_STALL_S", "").strip() or "30")
+        get_metrics().inc("engine.restarts", 0.0)
+        self._watchdog = threading.Thread(target=self._watch, args=(interval_s, stall_s),
+                                          name="brain-watchdog", daemon=True)
+        self._watchdog.start()
+
+    def _fail_inflight(self, exc: Exception) -> None:
+        """Fail every waiting future of both lanes: the parses submitted or
+        queued, the STT jobs and the calls."""
+        with self._cv:
+            futs = (list(self._futures.values()) + [f for *_, f in self._inbox]
+                    + [f for _, f in self._stt_q + self._calls])
+            self._futures.clear()
+            self._inbox.clear()
+            self._stt_q, self._calls = [], []
+        for fut in futs:
+            _settle(fut.set_exception, exc)
+
+    def _restart_worker(self, exc: Exception, restart: str) -> None:
+        """The dead and the stalled recovery alike: fail the waiting work,
+        then start a fresh loop thread that resets the batcher (and, on
+        ``restart="warm"``, the engine) before its first step."""
+        self._fail_inflight(exc)
+        with self._cv:
+            if self._stop:
+                return
+            self._step_t0 = None
+            self.error = None
+            self._thread = threading.Thread(target=self._run, args=(restart,),
+                                            name="brain-batcher", daemon=True)
+            self._thread.start()
+
+    def _watch(self, interval_s: float, stall_s: float) -> None:
+        from ..serve.scheduler import is_device_fault
+
+        while True:
+            with self._cv:
+                if self._stop:
+                    return
+                t = self._thread
+                dead = t is not None and not t.is_alive()
+                t0 = self._step_t0
+                stalled = not dead and t0 is not None and time.perf_counter() - t0 >= stall_s
+                err = self.error
+                if stalled:
+                    # in the same critical section as the reading: the step's
+                    # own exit (under this lock) sees it replaced and resolves
+                    # nothing; the epoch up and the engine fenced stop it at
+                    # its next launch
+                    self._replaced.add(t)
+                    self.batcher.supersede()
+            if dead and not (err is not None and is_device_fault(err)):
+                # a CUDA fault leaves the loop stopped: the device state is
+                # suspect and no restart in this process cures it
+                log.error("serving loop died; failing in-flight work and restarting it")
+                get_metrics().inc("colocate.worker_restarts")
+                self.stats.restarts += 1
+                self._restart_worker(RuntimeError(
+                    "serving worker died; work failed fast on restart"), "reset")
+            elif stalled:
+                log.error("decode step stalled >%.1fs; failing in-flight work and "
+                          "warm-restarting the engine", stall_s)
+                get_metrics().inc("engine.restarts")
+                self.stats.restarts += 1
+                get_flight_recorder().trigger(
+                    "engine.stall", detail=f"step stalled >{stall_s}s"
+                    + (" (speculative chunk)"
+                       if getattr(self.batcher.engine, "spec", None) is not None else ""))
+                self._restart_worker(RuntimeError(
+                    "decode step stalled; engine warm-restarted, work failed fast"), "warm")
+            self._stopped.wait(interval_s)
 
 
 def _settle(setter, value) -> None:
@@ -525,7 +764,13 @@ class BatchedEngineParser:
                               else None)
         self._plock = threading.Lock()
         self._tls = threading.local()
+        # disagg adopt streams: stream id -> StreamAdopter, touched only on
+        # the loop's thread (adopt_stream's calls run there)
+        self._disagg_adopt: OrderedDict[str, object] = OrderedDict()
         self.loop = ServingLoop(self.batcher)
+        # the watchdog: a dead loop restarts and a stalled step warm-restarts
+        # the engine, with the in-flight futures failed fast
+        self.loop.start_watchdog()
 
     @property
     def last_result(self):
@@ -618,6 +863,127 @@ class BatchedEngineParser:
 
     def healthy(self) -> bool:
         return self.loop.healthy()
+
+    def _prompt_for(self, text: str, context: dict, session_id: str | None):
+        """The prompt a parse of this turn would render: through the
+        session's transcript when this brain knows it."""
+        if self.transcripts is not None and session_id:
+            return self.transcripts.prompt_for(session_id, text, context)
+        return self.render(text, context)
+
+    def _call(self, fn, timeout_s: float | None = None):
+        """``fn()`` on the loop's thread; its result or its exception."""
+        return self.loop.submit_call(fn).result(
+            timeout=self.timeout_s if timeout_s is None else timeout_s)
+
+    # prefix feeds: a stabilized STT partial warms the session's radix chain
+    # through the same prompt_for a parse uses, taking no decode slot and
+    # advancing no transcript; best-effort, shed whenever live work waits
+    supports_prefix_feed = True
+
+    def feed_prefix(self, text: str, context: dict, session_id: str | None = None) -> dict:
+        prompt = self._prompt_for(text, context, session_id)
+        if self._too_long(prompt):
+            return {"ok": False, "reason": "too_long"}
+        ctx = current_request_context()
+        tenant = ctx.tenant if ctx is not None else None
+        fut = self.loop.submit_call(lambda: self.batcher.feed_prefix(prompt, tenant=tenant))
+        if ctx is not None:
+            # a torn-down client drops a feed that has not started; one
+            # already prefilling commits plain reusable cache
+            ctx.on_cancel(fut.cancel)
+        try:
+            return fut.result(timeout=self.timeout_s)
+        except CancelledError:
+            return {"ok": False, "reason": "cancelled"}
+        except FutureTimeout:
+            return {"ok": False, "reason": "timeout"}
+        except Exception as e:  # noqa: BLE001 - a feed never fails its caller
+            return {"ok": False, "reason": f"{type(e).__name__}: {e}"}
+
+    # prefill/decode disaggregation: a prefill brain exports a prompt's
+    # chain as it computes (``disagg_prefill``), a decode brain adopts the
+    # forwarded segments behind its pinned root (``adopt_stream``)
+    supports_disagg = True
+    _DISAGG_STREAMS_CAP = 4
+
+    def disagg_prefill(self, text: str, context: dict, session_id: str | None = None, *,
+                       stream_blocks: int = 4, emit=None, stream_id: str | None = None) -> dict:
+        """Run the prefill-only export on the loop's thread; ``emit(blob)``
+        gets each ``kv_seg`` blob as it is packed."""
+        prompt = self._prompt_for(text, context, session_id)
+        if self._too_long(prompt):
+            return {"ok": False, "reason": "too_long"}
+        try:
+            return self._call(lambda: self.batcher.prefill_export(
+                prompt, stream_blocks=stream_blocks, emit=emit, stream_id=stream_id))
+        except Exception as e:  # noqa: BLE001 - the caller answers it as a shed
+            return {"ok": False, "reason": f"{type(e).__name__}: {e}"}
+
+    def adopt_stream(self, stream_id: str, blob: bytes) -> dict:
+        """Install one forwarded stream blob (a ``kv_seg`` or the ``kv_end``)
+        into ``stream_id``'s ``StreamAdopter``. At most
+        ``_DISAGG_STREAMS_CAP`` streams stay open: the oldest past it is
+        abandoned (its partial chain committed, its refs freed)."""
+        from ..serve.handoff import StreamAdopter
+
+        def run() -> dict:
+            ad = self._disagg_adopt.get(stream_id)
+            if ad is None:
+                ad = self._disagg_adopt[stream_id] = StreamAdopter(self.engine)
+                while len(self._disagg_adopt) > self._DISAGG_STREAMS_CAP:
+                    self._disagg_adopt.popitem(last=False)[1].abandon()
+            else:
+                self._disagg_adopt.move_to_end(stream_id)
+            try:
+                out = ad.feed(blob)
+            except ValueError as e:
+                self._disagg_adopt.pop(stream_id, None)
+                return {"ok": False, "reason": str(e)}
+            if out.get("final"):
+                self._disagg_adopt.pop(stream_id, None)
+            return out
+
+        try:
+            return self._call(run)
+        except Exception as e:  # noqa: BLE001 - a torn stream is a cold fallback
+            return {"ok": False, "reason": f"{type(e).__name__}: {e}"}
+
+    # warm-state handoff: the session's transcript and radix-chain KV leave
+    # an old home and land on a new one, both halves on the loop's thread;
+    # any failure is a cold re-home, never an error
+    def export_session(self, session_id: str) -> bytes | None:
+        if self.transcripts is None:
+            return None
+        from ..serve import handoff
+
+        try:
+            return self._call(lambda: handoff.export_session(self.engine, self.transcripts,
+                                                             session_id))
+        except Exception:  # noqa: BLE001 - no warm state to ship
+            return None
+
+    def adopt_session(self, blob: bytes) -> int:
+        if self.transcripts is None:
+            return 0
+        from ..serve import handoff
+
+        try:
+            return int(self._call(lambda: handoff.adopt_session(self.engine, self.transcripts,
+                                                                blob)))
+        except Exception:  # noqa: BLE001 - a malformed blob is a counted cold fallback
+            get_metrics().inc("handoff.adopt_fallbacks")
+            log.warning("handoff adoption failed; the session will cold-prefill",
+                        exc_info=True)
+            return 0
+
+    # the drain latch: the router stops placing new sessions here, the
+    # in-flight work completes, and /health's ``drained`` says when
+    def begin_drain(self) -> None:
+        self.loop.begin_drain()
+
+    def drained(self) -> bool:
+        return self.loop.drained()
 
     def quarantine_info(self) -> list[dict]:
         """The active quarantine entries (``/health``)."""
@@ -749,24 +1115,20 @@ def _wrap_engine(engine):
     return EngineParser(engine)
 
 
-# Knobs of features the port lacks -> the ROADMAP.md Queue 1 item that
-# brings them: any set, non-empty value is refused. Unset or empty is what
-# the port has instead of the JAX serving loop's watchdog: none.
-UNSERVED_KNOBS = {"ENGINE_STALL_S": (6, "the stalled-step watchdog")}
 # Knobs whose value must parse: name -> its type. JAX reads them where
-# it builds the engine, the batcher or the session LRU; the port checks
-# them at boot, whatever the backend.
+# it builds the engine, the batcher, the session LRU or the watchdog; the
+# port checks them at boot, whatever the backend.
 PARSED_KNOBS = {"RADIX_SESSIONS": int, "RADIX_MAX_NODES": int, "RADIX_PRESSURE_S": float,
-                "COST_SESSIONS": int, "COST_PEAK_TFLOPS": float, "COST_PEAK_GBPS": float}
+                "COST_SESSIONS": int, "COST_PEAK_TFLOPS": float, "COST_PEAK_GBPS": float,
+                "ENGINE_STALL_S": float, "CHAOS_STALL_S": float}
 
 
 def check_unserved_knobs() -> None:
     """Refuse at boot what the JAX brain would honour and the port would
-    silently ignore: ``BRAIN_MODEL`` (no checkpoint import yet), the knobs
-    of features the port lacks, and a ``CHAOS_FAULTS`` that names an
-    unknown point or arms one the port does not serve. A malformed
-    ``TENANT_CLASSES`` or a radix / cost knob that does not parse raises
-    here too, naming the knob."""
+    silently ignore: ``BRAIN_MODEL`` (no checkpoint import yet) and a
+    ``CHAOS_FAULTS`` that names an unknown point or arms one the port does
+    not serve. A malformed ``TENANT_CLASSES`` or a radix / cost / watchdog
+    knob that does not parse raises here too, naming the knob."""
     from ..serve.tenancy import parse_tenant_classes
 
     if os.environ.get("BRAIN_MODEL"):
@@ -781,11 +1143,6 @@ def check_unserved_knobs() -> None:
                 raise ValueError(f"{name}={raw!r}: not a {kind.__name__}") from e
     if os.environ.get("TENANT_CLASSES", "").strip():
         parse_tenant_classes()  # a malformed entry names TENANT_CLASSES itself
-    for name, (item, what) in UNSERVED_KNOBS.items():
-        raw = os.environ.get(name, "").strip()
-        if raw:
-            raise ValueError(f"{name}={raw!r}: {what} is not ported yet (ROADMAP.md Queue 1 "
-                             f"item {item}); unset it")
     check_served_points()
 
 
@@ -865,14 +1222,51 @@ def make_parser_from_env():
 
 # Routes of the JAX brain that the port does not serve: path (a prefix when
 # it ends in "/") -> the ROADMAP.md Queue 1 item that brings it
-UNPORTED_ROUTES = (
-    ("/debug/timeseries", 7), ("/admin/handoff", 6), ("/admin/handoff/", 6),
-    ("/admin/disagg/prefill", 6), ("/admin/disagg/adopt", 6), ("/admin/drain", 6),
-)
+UNPORTED_ROUTES = (("/debug/timeseries", 7),)
 # served routes: path (a prefix when it ends in "/") -> method
 SERVED_ROUTES = (("/health", "GET"), ("/parse", "POST"), ("/metrics", "GET"),
                  (TRACE_ROUTE, "GET"), ("/debug/quality", "GET"), ("/debug/steplog", "GET"),
-                 ("/debug/flightrecorder", "GET"), ("/debug/costs", "GET"))
+                 ("/debug/flightrecorder", "GET"), ("/debug/costs", "GET"),
+                 ("/admin/handoff/", "GET"), ("/admin/handoff", "POST"),
+                 ("/admin/disagg/prefill", "POST"), ("/admin/disagg/adopt", "POST"),
+                 ("/admin/drain", "POST"))
+
+# request body caps: aiohttp's default client_max_size (1 MiB) everywhere,
+# as the JAX brain runs it, and the handoff bound on the two routes that
+# take a shipped session or a forwarded KV segment
+MAX_BODY_BYTES = 1024 * 1024
+HANDOFF_MAX_BYTES = 256 * 1024 * 1024
+HANDOFF_ROUTES = ("/admin/handoff", "/admin/disagg/adopt")
+
+
+def body_cap(method: str, path: str) -> int:
+    """The most body bytes the brain reads for this request."""
+    return HANDOFF_MAX_BYTES if method == "POST" and path in HANDOFF_ROUTES else MAX_BODY_BYTES
+
+
+def over_cap_response(method: str, path: str, nbytes: int | None) -> tuple[int, dict]:
+    """The answer to a body the brain will not read: 413 past the cap
+    (``handoff_too_large`` with ``limit_bytes`` on the handoff routes, as
+    JAX's), 411 for a chunked body with no ``Content-Length``."""
+    cap = body_cap(method, path)
+    if nbytes is None:
+        return 411, {"error": "length_required",
+                     "detail": "a request body needs a Content-Length"}
+    if cap == HANDOFF_MAX_BYTES:
+        return 413, {"error": "handoff_too_large", "limit_bytes": cap}
+    return 413, {"error": "request_too_large",
+                 "detail": f"body of {nbytes} bytes is past the {cap}-byte cap",
+                 "limit_bytes": cap}
+
+
+class StreamBody:
+    """A response body written as it is produced: an iterator of byte
+    chunks the HTTP layer sends with ``Transfer-Encoding: chunked``, each
+    flushed as it comes. An iterator raising ``ConnectionDropped`` closes
+    the connection with no final chunk (a torn stream)."""
+
+    def __init__(self, chunks):
+        self.chunks = chunks
 
 
 def _match(path: str, table):
@@ -928,6 +1322,8 @@ class BrainApp:
         # degraded (every later /parse slow)
         self._dead = False
         self._slow = False
+        # the drain latch /admin/drain sets (drained is computed, not latched)
+        self._draining = False
         occupancy = float(os.environ.get("QUALITY_CANARY_OCCUPANCY", "0.5"))
 
         def busy() -> bool:
@@ -957,7 +1353,14 @@ class BrainApp:
         healthy = getattr(self.parser, "healthy", lambda: True)()
         body = {"ok": healthy, "service": "brain", "slo": self.slo.state(),
                 "quality": self.qmon.health(), "inflight": self.admission.inflight,
-                "max_inflight": self.admission.max_inflight}
+                "max_inflight": self.admission.max_inflight,
+                # the disagg pool tag the router reads (BRAIN_ROLE), and
+                # whether this backend can export and adopt a KV stream
+                "role": os.environ.get("BRAIN_ROLE", "both"),
+                "disagg": bool(getattr(self.parser, "supports_disagg", False))}
+        if self._draining:
+            body["draining"] = True
+            body["drained"] = self._drained()
         qinfo = getattr(self.parser, "quarantine_info", None)
         if qinfo is not None:
             body["quarantine"] = qinfo()
@@ -1058,7 +1461,8 @@ class BrainApp:
             preq = validate_parse_request(body)
         except ValidationError as e:
             return error(400, "invalid_request", str(e))
-        if preq["prefix_feed"]:
+        if preq["prefix_feed"] and not getattr(self.parser, "supports_prefix_feed", False):
+            # the voice service latches its feeds off on this answer
             return error(409, "prefix_feed_unsupported",
                          "backend has no prefill-only admission path")
         deadline = Deadline.from_headers(req_headers)
@@ -1073,6 +1477,8 @@ class BrainApp:
         # the tenant tag: the body's field first, the x-tenant header next
         ctx = RequestContext(deadline, peer_gone=peer_gone,
                              tenant=preq["tenant"] or req_headers.get("x-tenant"))
+        if preq["prefix_feed"]:
+            return self._feed(preq, ctx, error, headers)
         push_request_context(ctx)
         pop_stage_notes()  # drop a stale note of an earlier request on this thread
         try:
@@ -1114,6 +1520,141 @@ class BrainApp:
             headers["x-speculation-pending"] = "1"
         return 200, resp, headers
 
+    def _feed(self, preq: dict, ctx, error, headers: dict) -> tuple[int, dict, dict]:
+        """A prefix feed: prefill-only admission, cache warming and not a
+        parse (no decode, no transcript commit, no quality record). A shed
+        is a 200 carrying ``ok: false``: feeds are best-effort and never
+        retried. Holds an admission slot as a parse does."""
+        push_request_context(ctx)
+        try:
+            out = self.parser.feed_prefix(preq["text"], preq["context"], preq["session_id"])
+        except Exception as e:  # noqa: BLE001 - the feed's engine fault
+            return error(500, "llm_error", str(e))
+        finally:
+            pop_request_context()
+            self.admission.release()
+        return 200, {"prefix_feed": True, **out}, headers
+
+    # ------------------------------------------------------------ admin
+
+    def _drained(self) -> bool:
+        if not self._draining:
+            return False
+        probe = getattr(self.parser, "drained", None)
+        if probe is not None:
+            return bool(probe())
+        return self.admission.inflight == 0
+
+    def drain(self) -> tuple[int, dict, dict]:
+        """``POST /admin/drain``: latch draining (``brain.drains_received``,
+        the parser's ``begin_drain``). Nothing is refused after it."""
+        if not self._draining:
+            self._draining = True
+            get_metrics().inc("brain.drains_received")
+            hook = getattr(self.parser, "begin_drain", None)
+            if hook is not None:
+                hook()
+        return 200, {"ok": True, "draining": True, "drained": self._drained()}, {}
+
+    def handoff_get(self, session_id: str) -> tuple[int, dict | bytes, dict]:
+        """``GET /admin/handoff/{id}``: the session's warm state as one
+        ``TVAH1`` blob, 404 ``no_warm_state`` for an unknown session, 404
+        ``handoff_unsupported`` on a backend without the surface."""
+        exporter = getattr(self.parser, "export_session", None)
+        if exporter is None:
+            return 404, {"error": "handoff_unsupported"}, {}
+        blob = exporter(session_id)
+        if not blob:
+            return 404, {"error": "no_warm_state", "session_id": session_id}, {}
+        return 200, blob, {"Content-Type": "application/octet-stream"}
+
+    def handoff_post(self, blob: bytes) -> tuple[int, dict, dict]:
+        """``POST /admin/handoff``: adopt a shipped session. A ``TVAF1``
+        framed body is reassembled first; bad frames are a counted cold
+        fallback answered 200, never an install of torn bytes."""
+        from ..serve import handoff
+
+        adopter = getattr(self.parser, "adopt_session", None)
+        if adopter is None:
+            return 404, {"error": "handoff_unsupported"}, {}
+        if blob.startswith(handoff.FRAME_MAGIC):
+            try:
+                blob = handoff.deframe(blob)
+            except ValueError as e:
+                get_metrics().inc("handoff.adopt_fallbacks")
+                return 200, {"ok": True, "adopted_tokens": 0, "reason": f"bad frames: {e}"}, {}
+        return 200, {"ok": True, "adopted_tokens": int(adopter(blob))}, {}
+
+    def disagg_prefill(self, raw: bytes) -> tuple[int, dict | StreamBody, dict]:
+        """``POST /admin/disagg/prefill``: run a prefill-only export and
+        answer a chunked body of ``TVAF1`` frames, one ``kv_seg`` blob each,
+        written while later chunks still compute, then the ``kv_end``
+        summary on the FINAL frame. A shed before any segment answers JSON
+        (no stream to tear). The chaos point ``prefill_replica_kill`` drops
+        the connection between frame writes."""
+        from ..serve import handoff
+
+        exporter = getattr(self.parser, "disagg_prefill", None)
+        if exporter is None:
+            return 404, {"error": "disagg_unsupported"}, {}
+        try:
+            body = json.loads(raw or b"")
+            if not isinstance(body, dict):
+                raise ValueError("not an object")
+            stream_blocks = max(1, int(body.get("stream_blocks") or 4))
+        except (ValueError, TypeError, UnicodeDecodeError):
+            return 400, {"error": "invalid_request", "detail": "body must be JSON"}, {}
+        text = str(body.get("text") or "")
+        context = body.get("context") or {}
+        sid = body.get("session_id") or None
+        stream_id = str(body.get("stream") or new_trace_id())
+        q: queue.Queue = queue.Queue()
+        done = object()
+        result: dict = {}
+
+        def run() -> None:
+            try:
+                result["out"] = exporter(text, context, sid, stream_blocks=stream_blocks,
+                                         emit=q.put, stream_id=stream_id)
+            except Exception as e:  # noqa: BLE001 - answered as a shed
+                result["out"] = {"ok": False, "reason": f"{type(e).__name__}: {e}"}
+            finally:
+                q.put(done)
+
+        threading.Thread(target=run, name="brain-disagg-export", daemon=True).start()
+        first = q.get()
+        if first is done:  # shed, too long, or nothing past the prefix to ship
+            return 200, {"disagg_prefill": True, **(result.get("out") or {})}, {}
+
+        def frames():
+            seq, item = 0, first
+            while item is not done:
+                if chaos_fire("prefill_replica_kill"):
+                    raise ConnectionDropped("chaos: prefill replica killed")
+                yield handoff.frame_pack(seq, item)
+                seq += 1
+                item = q.get()
+            out = result.get("out") or {}
+            summary = {k: v for k, v in out.items()
+                       if k in ("ok", "reason", "prompt_tokens", "cached_tokens",
+                                "chain_tokens", "segments")}
+            yield handoff.frame_pack(seq, handoff.pack_kv_end(stream_id, summary), final=True)
+
+        return 200, StreamBody(frames()), {"Content-Type": "application/x-tva-frames",
+                                           "x-disagg-stream": stream_id}
+
+    def disagg_adopt(self, req: Request) -> tuple[int, dict, dict]:
+        """``POST /admin/disagg/adopt``: one forwarded stream blob into the
+        adopter of the ``x-disagg-stream`` header's stream."""
+        adopter = getattr(self.parser, "adopt_stream", None)
+        if adopter is None:
+            return 404, {"error": "disagg_unsupported"}, {}
+        stream_id = req.headers.get("x-disagg-stream")
+        if not stream_id:
+            return 400, {"error": "invalid_request",
+                         "detail": "x-disagg-stream header required"}, {}
+        return 200, adopter(stream_id, req.body), {}
+
     def _replica_chaos(self, req: Request) -> None:
         """The replica chaos points, drawn on ``POST /parse`` only (a health
         probe never consumes an ``@k`` count): ``replica_kill`` latches the
@@ -1122,6 +1663,10 @@ class BrainApp:
         ``CHAOS_SLOW_S`` (0.25). Chaos off: one dict miss a point."""
         if self._dead:
             raise ConnectionDropped("chaos: replica killed")
+        if req.method == "POST" and req.path == "/admin/handoff":
+            # a joining brain wedged in its pre-warm adopt
+            if chaos_fire("replica_join_stall"):
+                time.sleep(float(os.environ.get("CHAOS_HANG_S", "60")))
         if req.method != "POST" or req.path != "/parse":
             return
         if chaos_fire("replica_kill"):
@@ -1134,7 +1679,7 @@ class BrainApp:
         elif self._slow or chaos_fire("replica_slow"):
             time.sleep(float(os.environ.get("CHAOS_SLOW_S", "0.25")))
 
-    def handle(self, req: Request, peer_gone=None) -> tuple[int, dict | str, dict]:
+    def handle(self, req: Request, peer_gone=None) -> tuple[int, object, dict]:
         """Route one request: a served route, 405 for another method on it,
         501 ``not_ported`` naming the item for a JAX route the port lacks,
         and 404 only for a path the JAX brain does not route either.
@@ -1155,6 +1700,16 @@ class BrainApp:
             return self.health()
         if req.path == "/debug/costs":
             return self.costs(req)
+        if req.path == "/admin/drain":
+            return self.drain()
+        if req.path == "/admin/handoff":
+            return self.handoff_post(req.body)
+        if req.path.startswith("/admin/handoff/"):
+            return self.handoff_get(req.path[len("/admin/handoff/"):])
+        if req.path == "/admin/disagg/prefill":
+            return self.disagg_prefill(req.body)
+        if req.path == "/admin/disagg/adopt":
+            return self.disagg_adopt(req)
         if req.path == "/metrics":
             r = metrics_response("brain", self.tracer, req, slo=self.slo)
         elif req.path == "/debug/quality":
@@ -1193,8 +1748,12 @@ def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> Thr
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
-        def _send(self, status: int, body: dict | str, headers: dict) -> None:
-            if isinstance(body, str):
+        def _send(self, status: int, body, headers: dict) -> None:
+            if isinstance(body, StreamBody):
+                return self._send_stream(status, body, headers)
+            if isinstance(body, bytes):
+                data, ctype = body, "application/octet-stream"
+            elif isinstance(body, str):
                 data, ctype = body.encode(), "text/plain; charset=utf-8"
             else:
                 data, ctype = json.dumps(body).encode(), "application/json"
@@ -1206,21 +1765,75 @@ def make_server(app: BrainApp, host: str = "127.0.0.1", port: int = 8090) -> Thr
             self.end_headers()
             self.wfile.write(data)
 
+        def _send_stream(self, status: int, body: StreamBody, headers: dict) -> None:
+            """Chunked transfer, one flushed chunk per item; a drop mid-way
+            closes the socket with no final chunk."""
+            self.send_response(status)
+            self.send_header("Transfer-Encoding", "chunked")
+            for k, v in headers.items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.flush()
+            try:
+                for chunk in body.chunks:
+                    if chunk:
+                        self.wfile.write(b"%x\r\n%s\r\n" % (len(chunk), chunk))
+                        self.wfile.flush()
+            except ConnectionDropped:
+                self._drop()
+                return
+            except OSError:  # the client went away mid-stream
+                self.close_connection = True
+                return
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+
+        def _drop(self) -> None:
+            """No (further) response: the client sees the connection close."""
+            self.close_connection = True
+            try:
+                self.connection.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+        def _refuse_body(self, status: int, body: dict) -> None:
+            """Answer without reading the body, then close: the unread bytes
+            are discarded in small pieces for at most a second, so the close
+            does not reset the connection under the client's read."""
+            self.close_connection = True
+            self._send(status, body, {"Connection": "close"})
+            self.wfile.flush()
+            sock = self.connection
+            try:
+                sock.shutdown(socket.SHUT_WR)
+                sock.settimeout(0.2)
+                give_up = time.monotonic() + 1.0
+                while time.monotonic() < give_up and sock.recv(65536):
+                    pass
+            except OSError:
+                pass
+
         def _route(self, method: str) -> None:
-            n = int(self.headers.get("Content-Length") or 0)
-            raw = self.rfile.read(n) if n else b""
             path, _, query = self.path.partition("?")
+            raw_len = self.headers.get("Content-Length")
+            chunked = "chunked" in (self.headers.get("Transfer-Encoding") or "").lower()
+            try:
+                n = int(raw_len) if raw_len is not None else (None if chunked else 0)
+            except ValueError:
+                n = -1
+            if n is not None and n < 0:
+                return self._refuse_body(400, {"error": "invalid_request",
+                                               "detail": "bad Content-Length"})
+            if n is None or n > body_cap(method, path):
+                # never read past the cap, nor a body of unknown length
+                return self._refuse_body(*over_cap_response(method, path, n))
+            raw = self.rfile.read(n) if n else b""
             sock = self.connection
             try:
                 out = app.handle(Request(method, path, query, Headers(self.headers.items()), raw),
                                  peer_gone=lambda: socket_gone(sock))
             except ConnectionDropped:
-                # no response at all: the client sees the connection close
-                self.close_connection = True
-                try:
-                    sock.shutdown(socket.SHUT_RDWR)
-                except OSError:
-                    pass
+                self._drop()
                 return
             self._send(*out)
 

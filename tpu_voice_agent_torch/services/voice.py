@@ -20,8 +20,10 @@ service's event vocabulary: ``transcript_partial``, ``transcript_final``,
 - The brain hop: ``POST /parse`` through the retry / breaker kit
   (``services/resilience.py``), speculatively on ``spec_final`` (the 409
   ``speculation_unsupported`` latch re-probes after ``VOICE_RESPEC_AFTER``
-  utterances), and prefix feeds under ``PREFIX_FEED_ENABLE=1`` (the port's
-  brain answers 409 ``prefix_feed_unsupported`` and the feeds latch off).
+  utterances), and prefix feeds under ``PREFIX_FEED_ENABLE=1`` (a batched
+  brain commits each stabilized partial's chain to its radix tree; a brain
+  that answers 409 ``prefix_feed_unsupported``, the rule or one-slot
+  backend, latches the connection's feeds off).
   A transport error or a 5xx degrades to the local ``RuleBasedParser``.
 - The safety gate: risky intents (``requires_confirmation`` or a type in
   ``schemas.RISKY_INTENT_TYPES``) emit ``confirmation_required``; safe ones

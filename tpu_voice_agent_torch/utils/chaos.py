@@ -18,10 +18,14 @@ Spec grammar (``CHAOS_FAULTS`` or ``configure()``), comma-separated:
 Where the port fires each point: ``nan_logits`` and ``dead_fsm`` at the
 scheduler's admission (NaN logits on the slot's next chunk, its FSM state
 forced to -1), ``prefill_exc`` at the top of ``DecodeEngine.prefill_slot``,
-``alloc_fail`` in ``BlockAllocator.alloc``, ``drop_frame`` on the voice
-service's binary frames, ``stt_garble`` in ``serve.stt.finalize_stt_ids``,
-and ``intent_downgrade``, ``replica_kill`` / ``replica_hang`` /
-``replica_slow`` / ``replica_degrade`` on the brain's ``POST /parse``.
+``alloc_fail`` in ``BlockAllocator.alloc``, ``stall_step`` at the top of
+``ContinuousBatcher.step`` (it sleeps ``CHAOS_STALL_S``), ``drop_frame`` on
+the voice service's binary frames, ``stt_garble`` in
+``serve.stt.finalize_stt_ids``, ``intent_downgrade``, ``replica_kill`` /
+``replica_hang`` / ``replica_slow`` / ``replica_degrade`` on the brain's
+``POST /parse``, ``replica_join_stall`` on its ``POST /admin/handoff``
+(it sleeps ``CHAOS_HANG_S``) and ``prefill_replica_kill`` between the frame
+writes of its ``POST /admin/disagg/prefill``.
 ``check_served_points`` refuses at boot a spec that arms a point the port
 does not serve yet (``UNSERVED_POINTS``, with the ROADMAP.md Queue 1 item
 that brings it).
@@ -41,8 +45,7 @@ KNOWN_POINTS = ("nan_logits", "dead_fsm", "prefill_exc", "alloc_fail",
 
 # points of JAX's plane whose code path the port does not have yet -> the
 # ROADMAP.md Queue 1 item that brings it
-UNSERVED_POINTS = {"stall_step": 6, "stt_replica_kill": 5, "stt_replica_hang": 5,
-                   "replica_join_stall": 6, "prefill_replica_kill": 6}
+UNSERVED_POINTS = {"stt_replica_kill": 5, "stt_replica_hang": 5}
 
 
 class ChaosError(RuntimeError):
