@@ -137,6 +137,34 @@ Phases, in order (any failure exits nonzero and prints no result line):
               checkpoint's batched brain with 4 parses in flight: all 200,
               a later parse served, ``/health`` draining at once and
               drained once both lanes are empty.
+11f. fleet   - the fleet at tinyllama-1.1b int8 on the service phase's weights:
+              three port brains (BRAIN_BATCH=8 BRAIN_PAGED=1 RADIX_ENABLE=1,
+              one weight set) on the card, each on its own port, behind the
+              port's router on its own port (HANDOFF_ENABLE=1; the drill
+              drives every probe sweep). Affinity: 12 sessions x 2 turns,
+              each on its rendezvous home, turn 2 cached past the prefix.
+              Drain: ``POST /admin/drain`` on the member with the most
+              sessions while 4 parses are in flight on it (all 200); its
+              sessions' turn 3 re-homes warm and equals their stay-home turn
+              3 on the drained member (32 bf16 ulps; a two-member
+              fp32-activation twin at one). Crash: ``replica_kill@1`` as 8
+              parses homed on a member arrive: all 200 inside
+              ``x-deadline-ms`` through the retry, moves counted cold, the
+              member ejected by two sweeps. Gray: ``replica_degrade@1``
+              (CHAOS_SLOW_S=3) on a fresh router at the default
+              FLEET_GRAY_MAD (4): gray within FLEET_GRAY_WINDOWS windows of
+              ``/debug/timeseries`` scrapes on ``fwd_ms``, no healthy member
+              gray; new sessions avoid it, a sticky one stays. The phase
+              lifts the SLO targets; the affinity and gray drills print what
+              each brain's pressure would read at the default ones.
+              Disagg: ROUTER_DISAGG=1 with one member ``#prefill``, a prompt
+              of ~1,000 tokens past the prefix: one admission, the decode
+              home's parse warm and equal to a cold engine's. Autopilot:
+              ``tick_once`` with a spawner over in-process port brains: a
+              scale-up pre-warmed through the handoff, a scale-down with 6
+              parses in flight (all 200), the retired brain's blocks back to
+              its tree. Each drill's wall, the router's counters and each
+              brain's K1 / K3 / K4 / K6 / K7 calls by its serving threads.
 11c. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
 12. golden  - the distilled intent checkpoint parses the golden utterances and
@@ -153,7 +181,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               self-draft, which must accept > 0.9 at > 2 tokens a forward.
 16. stt     - SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000),
               max_new_tokens=32), bf16 random weights: per bucket the
-              transcribe p50 over 5 runs split into encode and decode ms,
+              transcribe p50 over 3 runs split into encode and decode ms,
               tokens and forwards; one incremental feed + decode; the first
               decoder step through K5 held against the same step through its
               plain version (fp32 copies of the weights). K1 and K5 must
@@ -163,7 +191,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               decoder forward, lanes on and off.
 17. voice   - the voice→intent loop (``voicebench``, bench.py's definition)
               at full width: whisper-large-v3 STT and the tinyllama-1.1b int8
-              ff=8 parse colocated on the card, 9 utterances; K1, K3, K4 and
+              ff=8 parse colocated on the card, 3 utterances; K1, K3, K4 and
               K5 must launch. Then bench.py's --neural loop
               (``voicebench.run_neural_voice_bench``): the distilled parser
               and whisper-tiny-heldout, 9 runs over five eval texts, p50 /
@@ -172,7 +200,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               driven through its own client (``services/ws.py``): the
               service phase's brain and a stub executor in-process, the voice
               service at VOICE_STT=whisper:whisper-large-v3 (random weights,
-              SpeechEngine's defaults), all on ephemeral ports. 3 utterances
+              SpeechEngine's defaults), all on ephemeral ports. 2 utterances
               of synth_utterance(2.0) + 1 s of silence as 60 ms PCM16 frames
               at real-time pace, chaos ``drop_frame@5`` armed (exactly one
               frame dropped; K1 and K5 must launch; every frame in the
@@ -207,10 +235,17 @@ Phases, in order (any failure exits nonzero and prints no result line):
               margin; on fp32 copies of the weights within one (K1, K5 at
               B = 4 with ragged kv_len). Then the voice service's 3 paced
               utterances behind the rule brain and a stub executor on the
-              batched plane, on one connection and on 3 at once: the drain
+              batched plane on 3 connections at once (each the same
+              audio: a one-connection run repeated it, so it went): the drain
               after the last frame, partials, coalesced and shed partials,
               batched ticks (the locked plane's run of the same audio is
-              voice_service's).
+              voice_service's). Between the bf16 and fp32 items, the
+              replicated tier (``STTReplicaTier``, 2 replicas x 4 slots) on
+              the same 11 items, round by round: clean (equal to B = 1 or
+              within 32 ulps), with ``stt_replica_kill@1`` (no final lost,
+              finals equal, one warm restart), and one ``stt_replica_hang``
+              drill (the stalled-tick restart, the hung worker launching
+              nothing, round 1 then bit-equal to the clean run's).
 19. stt_golden - both in-repo Whisper checkpoints (fp32, head dim 16)
               transcribe the 10 eval texts and must reproduce the JAX
               package's recorded token ids, through K1 and K5.
@@ -230,7 +265,7 @@ Every launch counter is set to 0 just before each of phases 4-20 (each of the
 voice_service phase's four runs) and read just after; a kernel's
 ``launches`` is the sum over those runs (the kernel-alone comparisons of
 phase 3 are not counted). The port imports no JAX. Weights are random from a
-seed (phases 3-11e but 11e's drain, 16, 17, 18's first two runs, 18b, 20) or
+seed (phases 3-11f but 11e's drain, 16, 17, 18's first two runs, 18b, 20) or
 committed checkpoints (11e's drain, 12-15, 18's last two runs, 19). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
@@ -2185,6 +2220,12 @@ def _to_float(tree):
     return tree.float()
 
 
+# transcribes timed per bucket, few for the script's time limit: the B = 1
+# transcribe is timed again by the voice loop and by stt_batch's 11-item
+# reference
+STT_WALL_RUNS = 3
+
+
 def phase_stt(totals: dict, report: dict):
     """whisper-large-v3 as bench.py builds it (buckets 300 and 1000, 32 new
     tokens, random bf16 weights, the in-tree 619-token vocabulary) on the
@@ -2215,7 +2256,7 @@ def phase_stt(totals: dict, report: dict):
             audio = synth_utterance((bucket - 10) * hop / sr)  # fills the bucket
             eng.transcribe(audio)  # warm
             rs, walls = [], []
-            for _ in range(5):
+            for _ in range(STT_WALL_RUNS):
                 t1 = time.perf_counter()
                 rs.append(eng.transcribe(audio))
                 walls.append((time.perf_counter() - t1) * 1e3)
@@ -2327,11 +2368,18 @@ def phase_stt_golden(totals: dict, report: dict) -> None:
     report["stt_golden"] = {"cases": n, "seconds": wall, "launches": c.counts}
 
 
+# utterances of the random-weight voice loop, fewer than bench.py's 9 for the
+# script's time limit: each is ~5 s of random large-v3 partials, and
+# voice_service then drives the same loop through the service (the neural
+# loop keeps 9 runs)
+VOICE_LOOP_RUNS = 3
+
+
 def phase_voice(stt_engine, totals: dict, report: dict) -> None:
     """bench.py's voice→intent loop on the port at full width:
     whisper-large-v3 STT (buckets 300 and 1000, 32 tokens) and the
     tinyllama-1.1b int8 ff=8 parse behind the cached prefix (cache 1024),
-    colocated on the card, 9 utterances of synth_utterance(2.0) fed in 60 ms
+    colocated on the card, 3 utterances of synth_utterance(2.0) fed in 60 ms
     frames at real-time deadlines; then bench.py's --neural loop
     (``voicebench.run_neural_voice_bench``): the distilled parser and
     whisper-tiny-heldout, the acoustic-font renders of five eval texts, 9
@@ -2350,7 +2398,7 @@ def phase_voice(stt_engine, totals: dict, report: dict) -> None:
     fail_if(parse.device.type != "cuda" or parse.quant != "int8" or parse.fast_forward != 8,
             "voice: parse engine not at int8 ff=8 on the card")
     with Counted("voice", totals) as c:
-        res = voicebench.run_voice_bench(parse, stt_engine, runs=9)
+        res = voicebench.run_voice_bench(parse, stt_engine, runs=VOICE_LOOP_RUNS)
     c.require("flash_attention", "decode_block_attention_layer", "masked_argmax_advance",
               "decode_attention")
     for key in ("p50_ms", "p95_ms", "stt_p50_ms", "parse_p50_ms"):
@@ -2402,6 +2450,10 @@ VOICE_EVENTS = {"transcript_partial", "transcript_final", "intent", "tts", "exec
 # 13's 9-utterance run drained 146.7 s after the last frame): 3 keep the phase
 # near a minute and a half
 VOICE_AUDIO_UTTERANCES = 3
+# voice_service's locked plane takes 2 of them, for the script's time limit:
+# stt_batch's service run then drives the same paced audio through the
+# service on 3 connections x 3
+VOICE_LOCKED_UTTERANCES = 2
 # typed behind the distilled brain, whose intents are recorded
 # (intent_golden.json): one safe command, and one whose upload and click both
 # need confirmation
@@ -2634,7 +2686,7 @@ def phase_voice_service(totals: dict, report: dict) -> None:
     try:
         # 1. audio at real-time pace
         sil = np.zeros(16_000, dtype=np.float32)
-        audio = np.concatenate([x for _ in range(VOICE_AUDIO_UTTERANCES)
+        audio = np.concatenate([x for _ in range(VOICE_LOCKED_UTTERANCES)
                                 for x in (voicebench.synth_utterance(2.0), sil)])
         from tpu_voice_agent_torch.utils import chaos
         from tpu_voice_agent_torch.utils.tracing import get_metrics
@@ -2660,13 +2712,13 @@ def phase_voice_service(totals: dict, report: dict) -> None:
         stages = {k: [b[k] for b in budgets if k in b]
                   for k in ("stt_finalize_ms", "parse_ms", "total_ms")}
         out["audio"] = {
-            "utterances": VOICE_AUDIO_UTTERANCES, "finals": len(finals),
+            "utterances": VOICE_LOCKED_UTTERANCES, "finals": len(finals),
             "partials": sum(e["type"] == "transcript_partial" for e in events),
             "audio_s": res["audio_s"], "drained_after_audio_s": res["drained_s"],
             **{f"{k[:-3]}_p{q}_ms": _p(v, q / 100) for k, v in stages.items()
                for q in (50, 95)},
             "launches": c.counts}
-        log(f"[voice_service] audio: {len(finals)} finals of {VOICE_AUDIO_UTTERANCES} "
+        log(f"[voice_service] audio: {len(finals)} finals of {VOICE_LOCKED_UTTERANCES} "
             f"utterances ({out['audio']['partials']} partials), audio sent over "
             f"{res['audio_s']:.2f} s, drained {res['drained_s']:.2f} s later; finals "
             f"{[f[:40] for f in finals]}; stages p50/p95 (ms): " + ", ".join(
@@ -5365,23 +5417,35 @@ def _feeds(params, totals: dict) -> dict:
 
 
 class _LaunchLog:
-    """A stand-in for the bound kernel library that records the thread and
-    time of every kernel launch before making it."""
+    """A stand-in for the bound kernel library that records the thread,
+    time and kernel of every kernel call before making it: what tells one
+    thread's launches from another's (``ops`` keeps one process-wide
+    counter a kernel). A wrapper that launches a kernel in parts calls it
+    once a part."""
 
     def __init__(self, lib):
         self._lib = lib
-        self.calls: list = []
+        self.calls: list = []  # (thread, monotonic time, kernel)
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
         if not name.startswith("tva_"):
             return fn
+        kernel = name[len("tva_"):]
 
         def launch(*a):
-            self.calls.append((threading.current_thread(), time.monotonic()))
+            self.calls.append((threading.current_thread(), time.monotonic(), kernel))
             return fn(*a)
 
         return launch
+
+    def by_kernel(self, threads) -> dict:
+        """Calls a kernel made from ``threads``."""
+        out: dict = {}
+        for t, _, k in list(self.calls):
+            if t in threads:
+                out[k] = out.get(k, 0) + 1
+        return out
 
 
 WATCHDOG_NEW_TOKENS = 160  # past one chunk's most (16 steps x (1 + ff 8)): no row ends in step 1
@@ -5499,9 +5563,9 @@ def _watchdog(params, totals: dict) -> dict:
     fail_if(len(superseded) != 1, f"watchdog: {len(superseded)} supersedes")
     t_sup = superseded[0]
     live = [at for t, at in forwards if t is old]
-    stray = [at for t, at in spy.calls if t is old and at > t_sup]
+    stray = [at for t, at, _ in spy.calls if t is old and at > t_sup]
     stray_fwd = [at for at in live if at > t_sup]
-    after = [at for t, at in spy.calls if t is not old and at > t_sup]
+    after = [at for t, at, _ in spy.calls if t is not old and at > t_sup]
     fail_if(not live, "watchdog: the stalled thread never ran a forward (no live rows)")
     fail_if(stray or stray_fwd, f"watchdog: {len(stray)} kernel launches and {len(stray_fwd)} "
                                 "forwards from the stalled thread after the supersede")
@@ -5612,6 +5676,717 @@ def phase_handoff(params, totals: dict, report: dict) -> None:
     report["handoff"] = out
 
 
+# ------------------------------------------------------------------ fleet
+
+FLEET_SLOTS = 8  # BRAIN_BATCH of each fleet brain
+# each fleet parse's budget: a random-weight answer ends at EOS in ~30
+# tokens, a few run past 32 and would answer 422, recording no turn
+FLEET_NEW_TOKENS = BATCH_NEW_TOKENS
+FLEET_SESSIONS = 12
+FLEET_DEADLINE_MS = 120_000  # the x-deadline-ms every fleet parse carries
+FLEET_INFLIGHT = 4  # parses in flight on the member the drain drill drains
+FLEET_CRASH_PARSES = 8
+FLEET_FP32_SESSIONS = 4
+FLEET_GRAY_TEXT = "scroll down"  # one prompt for every gray window: equal walls but the chaos
+# CHAOS_SLOW_S of the gray drill's degraded member. The drill's router runs
+# at the default FLEET_GRAY_MAD (4): of three members the MAD is the gap
+# between the two healthy ones' forward walls, up to ~165 ms late in the
+# full script, so a forward 3 s slower scores past 4 while that gap stays
+# under ~500 ms
+FLEET_SLOW_S = "3.0"
+# the JAX defaults the phase lifts or reads against (SLO_TARGET_P50_MS, its
+# p99 4x, ROUTER_SHED_PRESSURE)
+DEFAULT_SLO_P50_MS = 800.0
+DEFAULT_SHED_PRESSURE = 0.9
+# the fleet kernels whose calls each brain's serving thread makes (K1, K3,
+# K4, K6, K7)
+FLEET_KERNELS = ("flash_attention", "decode_block_attention_layer", "masked_argmax_advance",
+                 "paged_attention", "paged_block_attention")
+
+
+class _FleetBrain:
+    """One brain of the fleet phase: a paged radix engine on the shared
+    weights (BRAIN_BATCH=8 BRAIN_PAGED=1 RADIX_ENABLE=1, the cached
+    prefix), its session-aware parser with every decode logged as (prompt,
+    result), and its ``BrainApp`` on a port of its own. ``restart`` is a
+    fresh process on the same engine and port (the engine warm-restarted:
+    the tree and the transcripts are gone, as after a real restart)."""
+
+    def __init__(self, name: str, params, port: int = 0):
+        from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+        self.name = name
+        self.eng = _paged_engine(params, 8, batch_slots=FLEET_SLOTS, radix_enable=True,
+                                 prefill_buckets=RADIX_BUCKETS)
+        install_prompt_prefix(self.eng)
+        self.decodes: list = []
+        self.threads: set = set()  # every serving thread this brain ever ran
+        self._boot(port)
+
+    def _boot(self, port: int) -> None:
+        from tpu_voice_agent_torch.services import brain
+
+        self.parser = brain.BatchedEngineParser(self.eng, max_new_tokens=FLEET_NEW_TOKENS,
+                                                session_aware=True)
+        inner = self.parser._decode
+
+        def logged(prompt):
+            res = inner(prompt)
+            self.decodes.append((prompt, res))
+            return res
+
+        self.parser._decode = logged
+        self.app = brain.BrainApp(self.parser)
+        self.srv, self.thread, self.url = _serve(brain.make_server(self.app, port=port))
+        self.threads.add(self.parser.loop._thread)
+
+    def loop_threads(self) -> set:
+        t = self.parser.loop._thread
+        if t is not None:
+            self.threads.add(t)
+        return self.threads
+
+    def stop(self) -> None:
+        self.loop_threads()
+        _stop(self.srv, self.thread)
+        self.app.close()
+        self.parser.close()
+
+    def restart(self) -> None:
+        port = self.srv.server_address[1]
+        self.stop()
+        self.eng.warm_restart()
+        self._boot(port)
+
+    def result_for(self, prompt):
+        """The logged decode of ``prompt`` (the last one)."""
+        for p, res in reversed(self.decodes):
+            if p == prompt:
+                return res
+        return None
+
+
+def _fleet_counters() -> dict:
+    from tpu_voice_agent_torch.utils.tracing import get_metrics
+
+    c = get_metrics().snapshot()["counters"]
+    return {k: v for k, v in c.items() if k.startswith(("router.", "fleet.", "disagg.",
+                                                         "autopilot."))}
+
+
+def _fleet_delta(c0: dict) -> dict:
+    return {k: v - c0.get(k, 0.0) for k, v in _fleet_counters().items() if v != c0.get(k, 0.0)}
+
+
+def _fleet_parse(url: str, sid: str | None, text: str, ctx: dict):
+    """One /parse through ``url`` with the fleet deadline: (status, response
+    headers, body, wall s)."""
+    headers: dict = {}
+    body = {"text": text, "context": ctx}
+    if sid is not None:
+        body["session_id"] = sid
+    t0 = time.perf_counter()
+    status, out = _post(url, body, headers, send={"x-deadline-ms": str(FLEET_DEADLINE_MS)})
+    return status, {k.lower(): v for k, v in headers.items()}, out, time.perf_counter() - t0
+
+
+def _homed_on(urls: list, url: str, prefix: str, n: int = 1) -> list:
+    """``n`` session ids whose rendezvous home over ``urls`` is ``url``."""
+    from tpu_voice_agent_torch.services.replicaset import rendezvous_weight
+
+    out, i = [], 0
+    while len(out) < n:
+        sid = f"{prefix}{i}"
+        if max(urls, key=lambda u: rendezvous_weight(u, sid)) == url:
+            out.append(sid)
+        i += 1
+    return out
+
+
+def _prompt_ids(eng, prompts: list) -> list:
+    return [eng.tokenizer.encode(p, bos=True) if isinstance(p, str) else list(p) for p in prompts]
+
+
+def _default_slo_reading(b) -> dict:
+    """What ``b``'s ``/health`` pressure would read at the default SLO
+    targets (800 ms p50, 3,200 ms p99) over the same parse walls: a
+    passive tracker over a copy of its SLO samples; ``shed`` is whether
+    that score reaches the default ``ROUTER_SHED_PRESSURE``."""
+    from tpu_voice_agent_torch.services.slo import SLOTracker
+
+    t = SLOTracker("brain", target_p50_ms=DEFAULT_SLO_P50_MS,
+                   target_p99_ms=4 * DEFAULT_SLO_P50_MS, passive=True)
+    with b.app.slo._lock:
+        t._samples.extend(b.app.slo._samples)
+    ev = t.evaluate()
+    score = b.app.pressure(ev["state"])["score"]
+    return {"slo": ev["state"], "samples": ev["samples"], "p50_ms": ev["p50_ms"],
+            "p99_ms": ev["p99_ms"], "pressure": score, "shed": score >= DEFAULT_SHED_PRESSURE}
+
+
+def _fleet_affinity(brains: list, router, totals: dict, pool) -> dict:
+    """12 sessions x 2 turns through the router, each turn's 12 at once:
+    every answer 200 on the session's rendezvous home, turn 2 reading
+    cached tokens past the prefix."""
+    from tpu_voice_agent_torch.services.replicaset import rendezvous_weight
+
+    urls = [b.url for b in brains]
+    P = len(brains[0].eng.prefix_ids)
+    sids = [f"fleet-{i}" for i in range(FLEET_SESSIONS)]
+    homes = {sid: max(urls, key=lambda u: rendezvous_weight(u, sid)) for sid in sids}
+    turns = []
+    with Counted("fleet affinity", totals) as c:
+        for text, ctx in HANDOFF_TURNS:
+            futs = {sid: pool.submit(_fleet_parse, router.url, sid, f"{text} ({sid})", ctx)
+                    for sid in sids}
+            turns.append({sid: f.result() for sid, f in futs.items()})
+    c.require("paged_block_attention", "masked_argmax_advance")
+    for t, answers in enumerate(turns):
+        for sid, (st, h, body, _) in answers.items():
+            fail_if(st != 200, f"fleet affinity: {sid} turn {t + 1}: {st} {body}")
+            fail_if(h.get("x-router-replica") != homes[sid],
+                    f"fleet affinity: {sid} turn {t + 1} served by {h.get('x-router-replica')}, "
+                    f"its home is {homes[sid]}")
+    cached2 = {sid: int(turns[1][sid][1].get("x-cached-tokens", 0)) for sid in sids}
+    fail_if(min(cached2.values()) <= P,
+            f"fleet affinity: turn 2 cached {sorted(cached2.values())}, prefix {P}")
+    per_home = {b.name: sum(homes[s] == b.url for s in sids) for b in brains}
+    slo = {b.name: _default_slo_reading(b) for b in brains}
+    tokens = sorted(r.steps for b in brains for _, r in b.decodes)
+    walls = [sorted(round(a[3], 2) for a in answers.values()) for answers in turns]
+    row = {"sessions": FLEET_SESSIONS, "per_home": per_home, "prefix_tokens": P,
+           "turn2_cached_tokens": sorted(cached2.values()),
+           "turn_walls_s": [max(a[3] for a in answers.values()) for answers in turns],
+           "parse_walls_s": walls, "decode_tokens": tokens, "default_slo": slo,
+           "launches": c.counts}
+    log(f"[fleet affinity] {FLEET_SESSIONS} sessions x 2 turns, homes {per_home} = rendezvous; "
+        f"turn 2 cached {min(cached2.values())}-{max(cached2.values())} tokens (prefix {P}); "
+        f"parse walls by turn {walls} s; decode tokens {tokens}")
+    log(f"[fleet affinity] at the default SLO: {json.dumps(slo)}")
+    return {"row": row, "homes": homes}
+
+
+def _fleet_rehome(brains: list, router, totals: dict, pool, ulps: float, label: str,
+                  sids: list) -> dict:
+    """Drain ``brains[0]`` through the router with ``FLEET_INFLIGHT`` parses
+    in flight on it (each answers 200), take the stay-home turn 3 of its
+    sessions ``sids`` on it, then turn 3 through the router: each re-homes
+    warm and equals the stay-home turn (or parts at a near tie within
+    ``ulps``)."""
+    text3, ctx3 = HANDOFF_TURN3
+    home = brains[0]
+    urls = [b.url for b in brains]
+    P = len(home.eng.prefix_ids)
+    inflight = _homed_on(urls, home.url, f"{label}-inflight-", FLEET_INFLIGHT)
+    futs = [pool.submit(_fleet_parse, router.url, sid, f"{HANDOFF_TURNS[0][0]} ({sid})", {})
+            for sid in inflight]
+    give_up = time.monotonic() + 120
+    while (router.member(home.url).inflight < FLEET_INFLIGHT and not all(f.done() for f in futs)
+           and time.monotonic() < give_up):
+        time.sleep(0.002)
+    busy_at_drain = router.member(home.url).inflight
+    req = urllib.request.Request(router.url + "/admin/drain", method="POST",
+                                 data=json.dumps({"replica": home.url}).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        ack = json.loads(r.read())
+    answers = [f.result() for f in futs]
+    fail_if(busy_at_drain == 0 or ack.get("state") != "draining",
+            f"{label}: the drain found {busy_at_drain} in flight ({ack})")
+    fail_if([a[0] for a in answers] != [200] * FLEET_INFLIGHT,
+            f"{label}: in-flight answers {[a[0] for a in answers]}")
+    fail_if(sum(a[1].get("x-router-replica") == home.url for a in answers) < busy_at_drain,
+            f"{label}: a parse in flight at the drain left its draining home")
+    fail_if(router.member(home.url).state != "drained",
+            f"{label}: {router.member(home.url).state} after the last in-flight answer")
+    prompts = [home.parser.transcripts.prompt_for(sid, f"{text3} ({sid})", ctx3) for sid in sids]
+    with Counted(f"{label} stay-home turn 3", totals):
+        stay = [f.result(timeout=600) for f in [home.parser.loop.submit(p) for p in prompts]]
+    fail_if(any(r.error for r in stay), f"{label}: stay-home {[r.error for r in stay]}")
+    c0 = _fleet_counters()
+    with Counted(f"{label} re-homed turn 3", totals) as c:
+        moved_ans = [f.result() for f in [pool.submit(_fleet_parse, router.url, sid,
+                                                      f"{text3} ({sid})", ctx3) for sid in sids]]
+    c.require("paged_block_attention", "masked_argmax_advance")
+    d = _fleet_delta(c0)
+    fail_if([a[0] for a in moved_ans] != [200] * len(sids),
+            f"{label}: turn 3 answers {[a[0] for a in moved_ans]}")
+    fail_if(d.get("router.sessions_rehomed_warm", 0) != len(sids)
+            or d.get("router.sessions_rehomed_cold", 0) != 0, f"{label}: counters {d}")
+    moved = []
+    for sid, p, (st, h, body, _) in zip(sids, prompts, moved_ans):
+        served = next(b for b in brains if b.url == h.get("x-router-replica"))
+        fail_if(served is home, f"{label}: {sid} stayed on its drained home")
+        res = served.result_for(p)
+        fail_if(res is None, f"{label}: {sid}'s turn 3 on {served.name} renders another prompt")
+        moved.append(res)
+    fail_if(any(int(a[1].get("x-cached-tokens", 0)) <= P for a in moved_ans),
+            f"{label}: a re-homed turn 3 read no warm span past the prefix")
+    diverged = _partings(home.eng, _prompt_ids(home.eng, prompts), [r.token_ids for r in stay],
+                         [r.token_ids for r in moved], label, "stay-home and re-homed turn 3")
+    _check_partings(diverged, label, ulps)
+    row = {"sessions": len(sids), "in_flight_at_drain": busy_at_drain,
+           "in_flight_answers": [a[0] for a in answers],
+           "turn3_cached_moved": [r.cached_tokens for r in moved],
+           "turn3_cached_stay": [r.cached_tokens for r in stay],
+           "equal": len(sids) - len(diverged), "partings": diverged, "counters": d,
+           "turn3_wall_s": max(a[3] for a in moved_ans)}
+    log(f"[{label}] drain with {busy_at_drain} in flight: {row['in_flight_answers']}; "
+        f"{len(sids)} sessions re-homed warm, turn 3 equal {row['equal']}/{len(sids)}, cached "
+        f"{sorted(set(row['turn3_cached_moved']))} (stay {sorted(set(row['turn3_cached_stay']))}); "
+        f"counters {d}")
+    return row
+
+
+def _fleet_fp32(params, totals: dict, pool) -> dict:
+    """The warm re-home gate on fp32 activations, a two-member ring: two
+    turns of ``FLEET_FP32_SESSIONS`` sessions on one member, its drain,
+    turn 3 re-homed, held at one ulp."""
+    import torch
+
+    from tpu_voice_agent_torch.services.router import RouterThread
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p32 = _fp32_activations(params)
+    brains = [_FleetBrain(f"fp32-{i}", p32) for i in range(2)]
+    router = RouterThread([b.url for b in brains], handoff_enable=True, fleet_detect=False)
+    try:
+        urls = [b.url for b in brains]
+        sids = _homed_on(urls, brains[0].url, "fleet-fp32-", FLEET_FP32_SESSIONS)
+        for text, ctx in HANDOFF_TURNS:
+            answers = [f.result() for f in [pool.submit(_fleet_parse, router.url, sid,
+                                                        f"{text} ({sid})", ctx) for sid in sids]]
+            fail_if([a[0] for a in answers] != [200] * len(sids),
+                    f"fleet fp32: turn answers {[a[0] for a in answers]}")
+        return _fleet_rehome(brains, router, totals, pool, 1, "fleet fp32", sids)
+    finally:
+        router.close()
+        for b in brains:
+            b.stop()
+        del brains, p32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        _free_cuda()
+
+
+def _fleet_crash(brains: list, router, totals: dict, pool) -> dict:
+    """``replica_kill@1`` on ``brains[1]`` as 8 parses homed on it arrive:
+    all 8 answer 200 inside their deadline through the retry, the moves
+    count cold, and two probe sweeps eject the member."""
+    from tpu_voice_agent_torch.utils import chaos
+
+    target = brains[1]
+    urls = [b.url for b in brains]
+    sids = _homed_on(urls, target.url, "fleet-crash-", FLEET_CRASH_PARSES)
+    c0 = _fleet_counters()
+    chaos.configure("replica_kill@1", seed=0)
+    try:
+        with Counted("fleet crash", totals):
+            answers = [f.result() for f in [pool.submit(_fleet_parse, router.url, sid,
+                                                        f"{HANDOFF_TURNS[0][0]} ({sid})", {})
+                                            for sid in sids]]
+        fail_if(not target.app._dead, "fleet crash: the kill never fired on its member")
+        router.probe(router.robj.probe_fails_limit)
+    finally:
+        chaos.reset()
+    d = _fleet_delta(c0)
+    fail_if([a[0] for a in answers] != [200] * FLEET_CRASH_PARSES,
+            f"fleet crash: answers {[a[0] for a in answers]}")
+    fail_if(max(a[3] for a in answers) * 1e3 >= FLEET_DEADLINE_MS,
+            "fleet crash: an answer came past its deadline")
+    fail_if(d.get("router.retries", 0) < 1 or d.get("router.sessions_rehomed_cold", 0) < 1,
+            f"fleet crash: counters {d}")
+    fail_if(router.member(target.url).state != "down" or d.get("router.replicas_ejected") != 1,
+            f"fleet crash: the prober left the member {router.member(target.url).state}")
+    row = {"parses": FLEET_CRASH_PARSES, "answers": [a[0] for a in answers],
+           "served_by": sorted({a[1].get("x-router-replica") for a in answers}),
+           "max_wall_s": max(a[3] for a in answers), "deadline_ms": FLEET_DEADLINE_MS,
+           "counters": d}
+    log(f"[fleet crash] {FLEET_CRASH_PARSES} parses to {target.name} as it dies: "
+        f"{row['answers']} (max wall {row['max_wall_s']:.2f} s of {FLEET_DEADLINE_MS} ms), "
+        f"served by {len(row['served_by'])} other member(s); ejected after "
+        f"{router.robj.probe_fails_limit} sweeps; counters {d}")
+    return row
+
+
+def _fleet_gray(brains: list, totals: dict) -> dict:
+    """A fresh router over the three brains (no streak carried from the
+    earlier drills), one sticky session placed on ``brains[2]``, then
+    ``replica_degrade@1`` latches that member slow (``CHAOS_SLOW_S``): one
+    identical parse a member a window (the victim's first), the three
+    rings sampled back to back, then a probe sweep and its
+    ``/debug/timeseries`` scrape. The victim is gray within
+    ``FLEET_GRAY_WINDOWS`` windows, on the router-observed ``fwd_ms``; a new
+    session homed on it goes elsewhere, the sticky one stays. (In one
+    process the rings share the global registry: sampled at their own
+    instants, its global series, the decode step histogram and the SLO
+    p99 gauge, would differ between the members by the sampling window
+    alone, which no separate processes would show.)"""
+
+    def window() -> None:
+        for b in brains:
+            b.app.ring.sample_once()
+        router.probe()
+
+    from tpu_voice_agent_torch.services.router import RouterThread
+    from tpu_voice_agent_torch.utils import chaos
+    from tpu_voice_agent_torch.utils.tracing import get_flight_recorder
+
+    victim = brains[2]
+    order = [victim] + [b for b in brains if b is not victim]
+    urls = [b.url for b in brains]
+    router = RouterThread(urls)
+    gray_mad = router.robj.gray_mad
+    fail_if(gray_mad != 4.0, f"fleet gray: the router's FLEET_GRAY_MAD is {gray_mad}, not 4")
+    windows = router.robj.gray_windows
+    (sticky,) = _homed_on(urls, victim.url, "fleet-gray-sticky-")
+    trace = []
+    try:
+        st, h, _, _ = _fleet_parse(router.url, sticky, f"{HANDOFF_TURNS[0][0]} ({sticky})", {})
+        fail_if(st != 200 or h.get("x-router-replica") != victim.url,
+                f"fleet gray: the sticky session's first turn {st} went to "
+                f"{h.get('x-router-replica')}")
+        for b in order[1:]:  # the sticky turn's twin on its peers: equal work a member
+            (sid,) = _homed_on(urls, b.url, f"fleet-gray-first-{b.name}-")
+            fail_if(_fleet_parse(router.url, sid, f"{HANDOFF_TURNS[0][0]} ({sid})", {})[0]
+                    != 200, "fleet gray: a warm-up parse failed")
+        for b in order:  # every member serves the drill's prompt once before it
+            (sid,) = _homed_on(urls, b.url, f"fleet-gray-warm-{b.name}-")
+            fail_if(_fleet_parse(router.url, sid, FLEET_GRAY_TEXT, {})[0] != 200,
+                    "fleet gray: a warm-up parse failed")
+        # a window of its own: these forwards are no drill reading, but the
+        # healthy fleet's scores at the default MAD (a streak may start here)
+        window()
+        baseline = [(m.url == victim.url, m.gray, m.outlier_signal, round(m.outlier_score, 2))
+                    for m in router.robj.replicas]
+        streak0 = router.member(victim.url).gray_streak
+        get_flight_recorder().rearm()
+        c0 = _fleet_counters()
+        os.environ["CHAOS_SLOW_S"] = FLEET_SLOW_S
+        chaos.configure("replica_degrade@1", seed=0)
+        with Counted("fleet gray", totals):
+            for w in range(windows + 2):
+                for b in order:
+                    (sid,) = _homed_on(urls, b.url, f"fleet-gray-{w}-{b.name}-")
+                    st, h, body, wall = _fleet_parse(router.url, sid, FLEET_GRAY_TEXT, {})
+                    fail_if(st != 200, f"fleet gray: {st} {body}")
+                window()
+                trace.append([(m.url == victim.url, m.gray, m.outlier_signal,
+                               round(m.outlier_score, 2)) for m in router.robj.replicas])
+                if any(m.gray for m in router.robj.replicas):
+                    break
+            fail_if(not victim.app._slow, "fleet gray: the degrade never latched its member")
+            gray = [m.url for m in router.robj.replicas if m.gray]
+            fail_if(gray != [victim.url], f"fleet gray: gray {gray}, victim {victim.url}: {trace}")
+            fail_if(len(trace) > windows,
+                    f"fleet gray: {len(trace)} windows, limit {windows}: {trace}")
+            (fresh,) = _homed_on(urls, victim.url, "fleet-gray-new-")
+            st, h, _, _ = _fleet_parse(router.url, fresh, FLEET_GRAY_TEXT, {})
+            fail_if(st != 200 or h.get("x-router-replica") == victim.url,
+                    f"fleet gray: a new session went to the gray member ({st})")
+            st, h, _, _ = _fleet_parse(router.url, sticky, f"{HANDOFF_TURNS[1][0]} ({sticky})",
+                                       HANDOFF_TURNS[1][1])
+            fail_if(st != 200 or h.get("x-router-replica") != victim.url,
+                    f"fleet gray: the sticky session left its gray home ({st})")
+        d = _fleet_delta(c0)
+    finally:
+        chaos.reset()
+        os.environ.pop("CHAOS_SLOW_S", None)
+        router.close()
+    fail_if(d.get("fleet.gray_entered") != 1 or d.get("fleet.shed_gray", 0) < 1,
+            f"fleet gray: counters {d}")
+    dump = get_flight_recorder().state("router")
+    ev = (dump.get("extra") or {}).get("fleet") or {}
+    fail_if(not dump.get("frozen") or dump.get("reason") != "fleet.gray"
+            or ev.get("replica") != victim.url, f"fleet gray: the dump {dump.get('reason')}")
+    get_flight_recorder().rearm()
+    healthy = [score for w in trace for is_victim, _, _, score in w if not is_victim]
+    slo = {b.name: _default_slo_reading(b) for b in brains}
+    row = {"windows": len(trace), "limit": windows, "gray_mad": gray_mad,
+           "slow_s": float(FLEET_SLOW_S), "signal": ev.get("signal"), "score": ev.get("score"),
+           "value": ev.get("value"), "fleet_median": ev.get("fleet_median"),
+           "mad": ev.get("mad"), "trace": trace, "baseline": baseline,
+           "victim_streak_before_chaos": streak0, "healthy_scores": healthy,
+           "healthy_over_mad": sum(x > gray_mad for x in healthy), "default_slo": slo,
+           "counters": d}
+    log(f"[fleet gray] {victim.name} gray after {len(trace)} window(s) (limit {windows}) on "
+        f"{ev.get('signal')}: {ev.get('value')} ms against the median {ev.get('fleet_median')} "
+        f"(MAD {ev.get('mad')}, score {ev.get('score')}, threshold {gray_mad}); healthy "
+        f"members' scores {healthy}; before the chaos (all healthy) {baseline}, the "
+        f"victim's streak {streak0}; a new session placed elsewhere, the sticky one kept; "
+        f"counters {d}")
+    log(f"[fleet gray] at the default SLO: {json.dumps(slo)}")
+    return row
+
+
+def _fleet_disagg(brains: list, params, totals: dict, ulps: float) -> dict:
+    """``ROUTER_DISAGG=1`` over ``brains[0]`` and ``brains[1]#prefill``: a
+    prompt of ~1,000 tokens past the prefix is exported on the prefill
+    member and pumped into the decode home; the home's parse is warm and
+    equals a cold engine's."""
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services.prompts import render_prompt
+    from tpu_voice_agent_torch.services.router import RouterThread
+
+    dec, pf = brains[0], brains[1]
+    router = RouterThread([dec.url, pf.url + "#prefill"], disagg=True, fleet_detect=False)
+    prompt_text = render_prompt(DISAGG_TEXT, DISAGG_CONTEXT)
+    n_ids = len(dec.eng.tokenizer.encode(prompt_text, bos=True))
+    P = len(dec.eng.prefix_ids)
+    try:
+        c0 = _fleet_counters()
+        n0 = len(dec.decodes)
+        with Counted("fleet disagg", totals) as c:
+            st, h, body, wall = _fleet_parse(router.url, "fleet-disagg", DISAGG_TEXT,
+                                             DISAGG_CONTEXT)
+        c.require("paged_block_attention", "masked_argmax_advance")
+        d = _fleet_delta(c0)
+    finally:
+        router.close()
+    fail_if(st != 200 or h.get("x-router-replica") != dec.url,
+            f"fleet disagg: {st} from {h.get('x-router-replica')}")
+    fail_if(d.get("disagg.admissions") != 1 or d.get("disagg.fallbacks", 0) != 0
+            or d.get("disagg.frames_streamed", 0) < 2, f"fleet disagg: counters {d}")
+    fail_if(len(dec.decodes) != n0 + 1, "fleet disagg: the home decoded another number of times")
+    prompt, warm = dec.decodes[-1]
+    fail_if(warm.error is not None or warm.cached_tokens < P + 512,
+            f"fleet disagg: the home's parse cached {warm.cached_tokens} ({warm.error})")
+    cold_eng = _warm_engine(params)
+    cold = ContinuousBatcher(cold_eng, chunk_steps=16,
+                             max_new_tokens=FLEET_NEW_TOKENS).generate_many([prompt])[0]
+    diverged = _partings(cold_eng, _prompt_ids(cold_eng, [prompt]), [cold.token_ids],
+                         [warm.token_ids], "fleet disagg", "the warm and the cold parse")
+    _check_partings(diverged, "fleet disagg", ulps)
+    del cold_eng
+    _free_cuda()
+    row = {"prompt_tokens": n_ids, "warm_cached_tokens": warm.cached_tokens,
+           "cold_cached_tokens": cold.cached_tokens, "equal": not diverged,
+           "partings": diverged, "wall_s": wall, "counters": d}
+    log(f"[fleet disagg] a {n_ids}-token prompt: exported on {pf.name}, "
+        f"{d.get('disagg.frames_streamed', 0):.0f} frames into {dec.name}, its parse cached "
+        f"{warm.cached_tokens} (cold {cold.cached_tokens}), "
+        f"{'equal' if not diverged else 'parted'}; wall {wall:.2f} s; counters {d}")
+    return row
+
+
+class _FleetSpawner:
+    """The autopilot's spawner over in-process port brains on the shared
+    weights: ``spawn`` boots a ``_FleetBrain`` off the event loop,
+    ``retire`` stops one (its blocks past the tree's counted first)."""
+
+    def __init__(self, params, known: dict):
+        self.params = params
+        self.brains = dict(known)  # url -> _FleetBrain, the seeds included
+        self.spawned: list = []
+        self.leaked: dict = {}
+
+    def _boot(self) -> str:
+        b = _FleetBrain(f"spawn-{len(self.spawned)}", self.params)
+        self.brains[b.url] = b
+        self.spawned.append(b)
+        return b.url
+
+    async def spawn(self) -> str:
+        return await asyncio.get_running_loop().run_in_executor(None, self._boot)
+
+    def _stop(self, url: str) -> None:
+        b = self.brains.pop(url)
+        self.leaked[url] = _leaked(b.eng)
+        b.stop()
+
+    async def retire(self, url: str) -> None:
+        if url in self.brains:
+            await asyncio.get_running_loop().run_in_executor(None, self._stop, url)
+
+
+def _fleet_autopilot(seed, params, totals: dict, pool) -> dict:
+    """``tick_once`` over a one-member ring: a scale-up (spawn -> pre-warm
+    through the handoff wire -> admit) and a scale-down with parses in
+    flight on both members (each answers 200; the retired brain's blocks
+    are back to its tree's when it stops)."""
+    from tpu_voice_agent_torch.services.autopilot import AutopilotController
+    from tpu_voice_agent_torch.services.router import RouterThread
+
+    router = RouterThread([seed.url], handoff_enable=True, fleet_detect=False)
+    spawner = _FleetSpawner(params, {seed.url: seed})
+    P = len(seed.eng.prefix_ids)
+    # the band never commits by itself here (100 windows): the drill sets
+    # the target and the reconcile follows it
+    ap = AutopilotController(router.robj, spawner, min_replicas=1, max_replicas=2,
+                             interval_s=1.0, target_util=0.6, up_windows=100, down_windows=100,
+                             cooldown_s=0.0, join_timeout_s=120.0, forecast_lead_s=5.0)
+    def tick() -> dict:
+        # the rings sample when the drill says (TS_INTERVAL_S): a fresh
+        # window each tick, or the controller holds as starved
+        for b in list(spawner.brains.values()):
+            b.app.ring.sample_once()
+        return router.on_loop(ap.tick_once())
+
+    try:
+        st, _, body, _ = _fleet_parse(router.url, "fleet-ap-0",
+                                      f"{HANDOFF_TURNS[0][0]} (fleet-ap-0)", {})
+        fail_if(st != 200, f"fleet autopilot: the donor session's parse {st} {body}")
+        c0 = _fleet_counters()
+        ap.target = 2
+        t0 = time.perf_counter()
+        with Counted("fleet autopilot up", totals):
+            up = tick()
+        up_s = time.perf_counter() - t0
+        join = [x for x in ap.decisions if x["action"] == "join"]
+        fail_if(up["brain"]["actual"] != 2 or not join or join[-1]["reason"] != "prewarmed"
+                or join[-1]["adopted_tokens"] <= P, f"fleet autopilot: the join {join}")
+        (new,) = spawner.spawned
+        futs = []
+        for b in (seed, new):
+            for sid in _homed_on([seed.url, new.url], b.url, f"fleet-ap-{b.name}-", 3):
+                futs.append(pool.submit(_fleet_parse, router.url, sid,
+                                        f"{HANDOFF_TURNS[0][0]} ({sid})", {}))
+        give_up = time.monotonic() + 120
+        while sum(m.inflight for m in router.robj.replicas) == 0 and time.monotonic() < give_up:
+            time.sleep(0.002)
+        ap.target = 1
+        t0 = time.perf_counter()
+        with Counted("fleet autopilot down", totals):
+            tick()
+            answers = [f.result() for f in futs]
+            for _ in range(20):
+                if len(router.robj.replicas) == 1:
+                    break
+                time.sleep(0.05)
+                tick()
+        down_s = time.perf_counter() - t0
+        d = _fleet_delta(c0)
+    finally:
+        router.close()
+    fail_if([a[0] for a in answers] != [200] * len(answers),
+            f"fleet autopilot: in-flight answers {[a[0] for a in answers]}")
+    fail_if(len(router.robj.replicas) != 1 or len(spawner.leaked) != 1,
+            f"fleet autopilot: {len(router.robj.replicas)} members, retired {spawner.leaked}")
+    (gone, leaked), = spawner.leaked.items()
+    fail_if(leaked != 0, f"fleet autopilot: the retired brain held {leaked} blocks past its tree")
+    fail_if(d.get("autopilot.joins_prewarmed") != 1 or d.get("autopilot.retired") != 1
+            or d.get("autopilot.holds_starved"), f"fleet autopilot: counters {d}")
+    row = {"join": join[-1], "scale_up_s": up_s, "scale_down_s": down_s,
+           "in_flight_answers": [a[0] for a in answers], "retired": gone,
+           "retired_leaked_blocks": leaked, "counters": d,
+           "decisions": [(x["action"], x["reason"]) for x in ap.decisions]}
+    log(f"[fleet autopilot] scale-up {up_s:.2f} s (joined pre-warmed, "
+        f"{join[-1]['adopted_tokens']} tokens adopted); scale-down {down_s:.2f} s with "
+        f"{len(answers)} parses in flight: {row['in_flight_answers']}, retired "
+        f"{'the spawned' if gone == new.url else 'the seed'} brain with {leaked} blocks past its "
+        f"tree; counters {d}")
+    return {"row": row, "spawned": spawner.spawned}
+
+
+def phase_fleet(params, totals: dict, report: dict) -> None:
+    """The fleet (``services/router.py``, ``replicaset.py``,
+    ``autopilot.py``, the brains' ``/debug/timeseries``) at full width:
+    three port brains on one weight set behind the port's router; see the
+    module docstring, 11f. Each drill's wall, the router's counters and
+    each brain's kernel calls (by its serving threads) are printed."""
+    import concurrent.futures
+
+    from tpu_voice_agent_torch.ops import _lib
+    from tpu_voice_agent_torch.services.router import RouterThread
+
+    out: dict = {}
+    walls: dict = {}
+    real_lib = _lib.library()
+    spy = _LaunchLog(real_lib)
+    _lib._LIB = spy
+    # the SLO targets lifted for the phase: at the default 800 ms p50 a
+    # full-width parse beside two other brains on the card reads as a
+    # violated SLO, whose pressure score (1.0) sheds new sessions off a
+    # member that reads it before its peers do (all of them at once falls
+    # back to rendezvous); the drills check placement, the gray drill the
+    # detector's demotion (and only it freezes the flight recorder), and
+    # ``_default_slo_reading`` prints what the defaults would read. The
+    # brains' time-series rings sample when the gray drill says
+    # (TS_INTERVAL_S: no sampler tick inside the phase)
+    slo_env = {k: os.environ.get(k) for k in ("SLO_TARGET_P50_MS", "SLO_TARGET_P99_MS",
+                                                "TS_INTERVAL_S")}
+    os.environ.update(SLO_TARGET_P50_MS="600000", SLO_TARGET_P99_MS="600000",
+                      TS_INTERVAL_S="3600")
+    brains = []
+    router = None
+    extra: list = []
+    try:
+        t0 = time.perf_counter()
+        brains = [_FleetBrain(name, params) for name in ("a", "b", "c")]
+        router = RouterThread([b.url for b in brains], handoff_enable=True, fleet_detect=False)
+        walls["boot"] = time.perf_counter() - t0
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            t0 = time.perf_counter()
+            aff = _fleet_affinity(brains, router, totals, pool)
+            out["affinity"] = aff["row"]
+            walls["affinity"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            # the drill drains the member with the most sessions
+            home = max(brains, key=lambda b: sum(u == b.url for u in aff["homes"].values()))
+            drained = [sid for sid, u in aff["homes"].items() if u == home.url]
+            out["drain"] = _fleet_rehome([home] + [b for b in brains if b is not home], router,
+                                         totals, pool, BF16_PART_ULPS, "fleet drain", drained)
+            router.probe()  # the prober reads the drained member's latch
+            home.restart()  # its rolling restart: the latch is gone
+            router.probe()
+            fail_if(router.member(home.url).state != "up",
+                    "fleet: the restarted member never rejoined")
+            walls["drain"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["drain_fp32"] = _fleet_fp32(params, totals, pool)
+            walls["drain_fp32"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["crash"] = _fleet_crash(brains, router, totals, pool)
+            brains[1].restart()
+            router.probe()
+            fail_if(router.member(brains[1].url).state != "up",
+                    "fleet: the crashed member's restart never rejoined")
+            out["router_counters"] = _fleet_counters()
+            router.close()
+            router = None
+            walls["crash"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["gray"] = _fleet_gray(brains, totals)
+            walls["gray"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["disagg"] = _fleet_disagg(brains, params, totals, BF16_PART_ULPS)
+            walls["disagg"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ap = _fleet_autopilot(brains[0], params, totals, pool)
+            out["autopilot"] = ap["row"]
+            extra = [b for b in ap["spawned"]]
+            walls["autopilot"] = time.perf_counter() - t0
+    finally:
+        if router is not None:
+            router.close()
+        for b in brains + extra:
+            try:
+                b.stop()
+            except Exception:  # noqa: BLE001 - one already stopped by its retire
+                pass
+        _lib._LIB = real_lib
+        for k, v in slo_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    per_brain = {}
+    for b in brains + extra:
+        calls = spy.by_kernel(b.loop_threads())
+        per_brain[b.name] = {k: calls.get(k, 0) for k in FLEET_KERNELS}
+    for name, calls in per_brain.items():
+        fail_if(calls["paged_block_attention"] <= 0 or calls["masked_argmax_advance"] <= 0,
+                f"fleet: brain {name}'s serving threads made no K7 / K4 call {calls}")
+    out["walls_s"] = walls
+    out["kernel_calls_by_brain"] = per_brain
+    log(f"[fleet] walls {json.dumps({k: round(v, 2) for k, v in walls.items()})}")
+    log(f"[fleet] kernel calls by brain (its serving threads): {json.dumps(per_brain)}")
+    log(f"[fleet] the three-member router's counters at its close "
+        f"{json.dumps(out['router_counters'])}")
+    del brains, extra
+    _free_cuda()
+    report["fleet"] = out
+
+
 STT_BATCH_SLOTS = 4
 # the work items, one tick each: (kind, utterance key, seconds of synth audio)
 STT_BATCH_ROUNDS = (
@@ -5657,6 +6432,7 @@ def _stt_batch_items(eng, label: str, totals: dict, ulps: float) -> dict:
     batcher = STTBatcher(eng, slots=STT_BATCH_SLOTS, autostart=False)
     states: dict = {}
     items, diverged = 0, []
+    b1_refs: list = []  # per round, per item: (kind, utt, B = 1 token ids, cross-KV, valid)
     b1_ms = tick_ms = 0.0
     for rnd in STT_BATCH_ROUNDS:
         work = [(kind, utt, synth_utterance(sec)) for kind, utt, sec in rnd]
@@ -5673,6 +6449,10 @@ def _stt_batch_items(eng, label: str, totals: dict, ulps: float) -> dict:
             torch.cuda.synchronize()
             b1_ms += (time.perf_counter() - t0) * 1e3
             refs.append(res.token_ids)
+        b1_refs.append([(kind, utt, ids, {"k": states[utt].cross_k, "v": states[utt].cross_v}
+                         if kind == "partial" else None,
+                         states[utt].enc_len if kind == "partial" else None)
+                        for (kind, utt, _), ids in zip(work, refs)])
         with Counted(label, totals) as c:
             futs = [batcher.submit(kind, utt, audio) for kind, utt, audio in work]
             t0 = time.perf_counter()
@@ -5702,17 +6482,214 @@ def _stt_batch_items(eng, label: str, totals: dict, ulps: float) -> dict:
         f"{len(STT_BATCH_ROUNDS)} ticks; B = 1 {b1_ms:.1f} ms, batched ticks {tick_ms:.1f} ms")
     return {"items": items, "equal": items - len(diverged),
             "partings_ulps": [round(_ulps(d), 3) for d in diverged],
-            "b1_ms": b1_ms, "ticks_ms": tick_ms, "slots_after": batcher.slot_of}
+            "b1_ms": b1_ms, "ticks_ms": tick_ms, "slots_after": batcher.slot_of,
+            "b1_refs": b1_refs}
+
+
+STT_REPLICAS = 2  # the replica drill's tier: 2 batchers of STT_BATCH_SLOTS over one engine
+STT_REPLICA_HANG_S = "3"  # CHAOS_HANG_S of the hang drill
+STT_REPLICA_STALL_S = 0.5  # the hang drill's stalled-tick limit
+
+
+def _tier_round(tier, work: list) -> list:
+    """One round of ``(kind, utt, audio)`` through ``tier``, submitted with
+    every replica's worker held off its queue, so each takes its whole
+    share as one batch (the same batches every run): the results, or the
+    exception an item failed with."""
+    import contextlib
+
+    with contextlib.ExitStack() as held:
+        for b in list(tier.batchers.values()):
+            held.enter_context(b._wake)
+        futs = [tier.submit(kind, utt, audio) for kind, utt, audio in work]
+    out = []
+    for f in futs:
+        try:
+            out.append(f.result(timeout=300))
+        except Exception as e:  # noqa: BLE001 - a lost partial, reported by the caller
+            out.append(e)
+    return out
+
+
+def _stt_tier_check(eng, work: list, b1_refs: list, results: list, label: str, ulps: float,
+                    finals_only: bool) -> dict:
+    """Each delivered item against its B = 1 tokens: equal, or parted where
+    the B = 1 decoder's plain top-2 margin is within ``ulps``. Every final
+    must be delivered (``finals_only``: the only kind checked)."""
+    from tpu_voice_agent_torch.serve.stt import TranscribeResult
+
+    checked, diverged, lost = 0, [], []
+    for rnd, (items, refs, got) in enumerate(zip(work, b1_refs, results)):
+        for (kind, utt, audio), (_, _, ref_ids, ckv, n), res in zip(items, refs, got):
+            if finals_only and kind != "final":
+                continue
+            if not isinstance(res, TranscribeResult):
+                lost.append((kind, utt, repr(res)[:80]))
+                continue
+            checked += 1
+            if res.token_ids == ref_ids:
+                continue
+            if ckv is None:
+                ckv, n, _ = eng._encode_window(audio)
+            i = next((j for j, (x, y) in enumerate(zip(res.token_ids, ref_ids)) if x != y),
+                     min(len(res.token_ids), len(ref_ids)))
+            d = {"kind": kind, "utt": utt, "step": i,
+                 **_whisper_top2(eng, ckv, n, ref_ids[:i])}
+            diverged.append(d)
+            log(f"[{label}] the {kind} of utterance {utt} parts from B = 1 at step {i} "
+                f"({_ulps(d):.2f} bf16 ulps)")
+    fail_if(lost, f"{label}: items lost {lost}")
+    _check_partings(diverged, label, ulps)
+    return {"checked": checked, "equal": checked - len(diverged),
+            "partings_ulps": [round(_ulps(d), 3) for d in diverged]}
+
+
+def _stt_replica_drill(eng, b1_refs: list, totals: dict, ulps: float) -> dict:
+    """``STTReplicaTier(replicas=2, slots=4)`` over the phase's engine on its
+    11 items, round by round: clean (every item equal to B = 1 or parted
+    within ``ulps``), then with ``stt_replica_kill@1`` (no final lost, the
+    finals equal again, two watchdog sweeps: ``stt.replica_restarts`` 1),
+    then one ``stt_replica_hang@1`` drill: the stalled-tick verdict
+    warm-restarts the hung replica, its finals fail over, the hung worker
+    launches nothing, and round 1 on the restarted tier is bit-equal to the
+    clean run's."""
+    from tpu_voice_agent_torch.ops import _lib
+    from tpu_voice_agent_torch.serve.stt_replicas import STTReplicaTier
+    from tpu_voice_agent_torch.utils import chaos
+    from tpu_voice_agent_torch.utils.tracing import get_metrics
+    from tpu_voice_agent_torch.voicebench import synth_utterance
+
+    def restarts():
+        return get_metrics().snapshot()["counters"].get("stt.replica_restarts", 0.0)
+
+    def tier(stall_s: float = 3600.0):
+        return STTReplicaTier(eng, replicas=STT_REPLICAS, slots=STT_BATCH_SLOTS, probe_s=3600.0,
+                              stall_s=stall_s, register=False)
+
+    work = [[(kind, utt, synth_utterance(sec)) for kind, utt, sec in rnd]
+            for rnd in STT_BATCH_ROUNDS]
+    out = {}
+    clean_round1 = None
+    for mode in ("clean", "kill"):
+        t = tier()
+        r0 = restarts()
+        try:
+            if mode == "kill":
+                chaos.configure("stt_replica_kill@1", seed=0)
+            t0 = time.perf_counter()
+            with Counted(f"stt replicas {mode}", totals) as c:
+                results = [_tier_round(t, rnd) for rnd in work]
+                if mode == "kill":
+                    t.sweep_once()
+                    t.sweep_once()  # ejected after 2 failed sweeps, warm-restarted
+                    t.sweep_once()  # and re-admitted
+            wall = time.perf_counter() - t0
+            dead = [r.url for r in t.replicas if not t.batchers[r.idx].healthy()]
+            health = t.tier_health()
+        finally:
+            chaos.reset()
+            t.stop()
+        c.require("decode_attention", "flash_attention")
+        row = _stt_tier_check(eng, work, b1_refs, results, f"stt replicas {mode}", ulps,
+                              finals_only=mode == "kill")
+        row.update(wall_s=wall, restarts=restarts() - r0, launches=c.counts, health=health,
+                   lost_best_effort=sum(not hasattr(x, "token_ids") for rnd in results
+                                        for x in rnd))
+        if mode == "clean":
+            clean_round1 = [x.token_ids for x in results[0]]
+            fail_if(row["restarts"] != 0, f"stt replicas clean: {row['restarts']} restarts")
+        else:
+            fail_if(row["restarts"] != 1 or dead or health["healthy"] != STT_REPLICAS,
+                    f"stt replicas kill: {row['restarts']} restarts, dead {dead}, {health}")
+        out[mode] = row
+        log(f"[stt replicas {mode}] {STT_REPLICAS} x {STT_BATCH_SLOTS} slots, "
+            f"{len(STT_BATCH_ROUNDS)} rounds: {row['equal']}/{row['checked']} "
+            f"{'finals' if mode == 'kill' else 'items'} equal to B = 1, "
+            f"{row['lost_best_effort']} best-effort items lost, {row['restarts']:.0f} restarts, "
+            f"{wall:.2f} s")
+    # the hang drill, with every kernel call's thread recorded
+    t = tier(STT_REPLICA_STALL_S)
+    real_lib = _lib.library()
+    spy = _LaunchLog(real_lib)
+    os.environ["CHAOS_HANG_S"] = STT_REPLICA_HANG_S
+    r0 = restarts()
+    try:
+        _lib._LIB = spy
+        chaos.configure("stt_replica_hang@1", seed=0)
+        t0 = time.perf_counter()
+        with Counted("stt replicas hang", totals) as c:
+            import contextlib
+
+            with contextlib.ExitStack() as held:
+                for b in list(t.batchers.values()):
+                    held.enter_context(b._wake)
+                futs = [t.submit(kind, utt, audio) for kind, utt, audio in work[0]]
+            give_up = time.monotonic() + 120
+            hung = None
+            while hung is None and time.monotonic() < give_up:
+                busy = [(r, t.batchers[r.idx]) for r in t.replicas if t.batchers[r.idx]._busy
+                        and any(not w.future.done() for w in t.batchers[r.idx]._inflight)]
+                others_done = all(f.done() for f, (_, utt, _) in zip(futs, work[0])
+                                  if not any(w.utt == utt for _, b in busy for w in b._inflight))
+                if len(busy) == 1 and others_done:
+                    hung = busy[0]
+                time.sleep(0.01)
+            fail_if(hung is None, "stt replicas hang: no replica hung")
+            hung_replica, old = hung
+            old_thread = old._thread
+            t.sweep_once()  # the stalled verdict's baseline
+            time.sleep(STT_REPLICA_STALL_S + 0.1)
+            t.sweep_once()
+            t.sweep_once()  # two stalled sweeps: ejected, warm-restarted
+            t_restart = time.monotonic()
+            hung_results = [f.result(timeout=300) for f in futs]
+            old_thread.join(timeout=float(STT_REPLICA_HANG_S) + 60)
+            fail_if(old_thread.is_alive(), "stt replicas hang: the hung worker never exited")
+            fresh = t.batchers[hung_replica.idx]
+            t.sweep_once()  # the restarted replica re-admits
+            chaos.reset()
+            for _, utt, _ in work[0]:
+                t.release(utt)  # re-placed by rendezvous: the clean run's batches
+            again = _tier_round(t, work[0])
+        wall = time.perf_counter() - t0
+    finally:
+        chaos.reset()
+        os.environ.pop("CHAOS_HANG_S", None)
+        _lib._LIB = real_lib
+        t.stop()
+    from_hung = [(k, ts - t_restart) for th, ts, k in spy.calls if th is old_thread]
+    fail_if(from_hung, f"stt replicas hang: the hung worker launched {from_hung[:4]}")
+    fail_if(restarts() - r0 != 1, f"stt replicas hang: {restarts() - r0} restarts")
+    fail_if(fresh is old or fresh.pool["k"].data_ptr() == old.pool["k"].data_ptr(),
+            "stt replicas hang: the restart kept the hung batcher's pool")
+    hung_row = _stt_tier_check(eng, [work[0]], [b1_refs[0]], [hung_results],
+                               "stt replicas hang", ulps, finals_only=True)
+    fail_if([getattr(x, "token_ids", None) for x in again] != clean_round1,
+            "stt replicas hang: round 1 on the restarted tier is not the clean run's bits")
+    fresh_calls = spy.by_kernel({fresh._thread})
+    fail_if(not fresh_calls.get("decode_attention"),
+            f"stt replicas hang: the fresh batcher launched no K5 ({fresh_calls})")
+    out["hang"] = {**hung_row, "wall_s": wall, "launches_from_hung_worker": len(from_hung),
+                   "fresh_batcher_kernel_calls": fresh_calls, "round1_bit_equal": True,
+                   "hang_s": float(STT_REPLICA_HANG_S), "stall_s": STT_REPLICA_STALL_S,
+                   "launches": c.counts}
+    log(f"[stt replicas hang] the hung replica warm-restarted ({STT_REPLICA_STALL_S} s stall "
+        f"limit, {STT_REPLICA_HANG_S} s hang): its finals failed over "
+        f"({hung_row['equal']}/{hung_row['checked']} equal to B = 1), 0 launches from the hung "
+        f"worker, the fresh batcher's calls {fresh_calls}, round 1 bit-equal to the clean run; "
+        f"{wall:.2f} s")
+    return out
 
 
 def _stt_batch_service(totals: dict) -> dict:
     """3 paced utterances (synth_utterance(2.0) + 1 s of silence each)
     through the voice service at VOICE_STT=whisper:whisper-large-v3
     (SpeechEngine's defaults) behind the rule brain and a stub executor,
-    ``STT_BATCH_ENABLE=1``: on one /stream, then on 3 connections at once.
-    The drain after the last frame, partials, coalesced and shed partials;
-    every final has its intent and no frame is an error. (The locked
-    plane's run of the same paced audio is the voice_service phase's.)"""
+    ``STT_BATCH_ENABLE=1``, on 3 connections at once (each the same
+    audio, so a one-connection run would repeat one of them). The drain
+    after the last frame, partials, coalesced and shed partials; every
+    final has its intent and no frame is an error. (The locked plane's run
+    of the same paced audio is the voice_service phase's.)"""
     import numpy as np
 
     from tpu_voice_agent_torch import voicebench
@@ -5732,54 +6709,53 @@ def _stt_batch_service(totals: dict) -> dict:
     xsrv, xthread, exec_url, _received = _stub_executor()
     os.environ["VOICE_STT"] = "whisper:whisper-large-v3"
     out = {}
+    mode, n_conn = "batched x3", 3
     try:
-        for mode in ("batched", "batched x3"):
-            os.environ["STT_BATCH_ENABLE"] = "1"
-            os.environ["STT_BATCH_SLOTS"] = str(STT_BATCH_SLOTS)
-            cfg = voice.VoiceConfig(brain_url=brain_url, executor_url=exec_url)
-            probe = cfg.stt_factory()
-            fail_if(probe.engine.device.type != "cuda", f"stt_batch {mode}: STT not on the card")
-            fail_if(not hasattr(probe, "batcher"),
-                    f"stt_batch {mode}: the wrong STT plane ({type(probe).__name__})")
-            srv = ws.ServerThread(voice.build_app(cfg)).__enter__()
-            c0 = counters()
-            n_conn = 3 if mode == "batched x3" else 1
+        os.environ["STT_BATCH_ENABLE"] = "1"
+        os.environ["STT_BATCH_SLOTS"] = str(STT_BATCH_SLOTS)
+        cfg = voice.VoiceConfig(brain_url=brain_url, executor_url=exec_url)
+        probe = cfg.stt_factory()
+        fail_if(probe.engine.device.type != "cuda", f"stt_batch {mode}: STT not on the card")
+        fail_if(not hasattr(probe, "batcher"),
+                f"stt_batch {mode}: the wrong STT plane ({type(probe).__name__})")
+        srv = ws.ServerThread(voice.build_app(cfg)).__enter__()
+        c0 = counters()
 
-            async def run_all(url=srv.url, n_conn=n_conn):
-                return await asyncio.gather(*[_stream_paced(url, frames)
-                                              for _ in range(n_conn)])
+        async def run_all(url=srv.url):
+            return await asyncio.gather(*[_stream_paced(url, frames)
+                                          for _ in range(n_conn)])
 
-            try:
-                with Counted(f"stt_batch service {mode}", totals) as c:
-                    runs = asyncio.run(run_all())
-            finally:
-                srv.__exit__(None, None, None)
-                if hasattr(probe, "batcher"):
-                    probe.batcher.stop()
-            c.require("decode_attention", "flash_attention")
-            finals = 0
-            for res in runs:
-                _check_vocabulary(res["events"], f"stt_batch {mode}")
-                _check_finals(res["events"], f"stt_batch {mode}")
-                finals += sum(e["type"] == "transcript_final" for e in res["events"])
-            d = {k: v - c0[k] for k, v in counters().items()}
-            out[mode] = {
-                "connections": n_conn, "finals": finals,
-                "partials": sum(e["type"] == "transcript_partial"
-                                for res in runs for e in res["events"]),
-                "drained_after_audio_s": max(res["drained_s"] for res in runs),
-                "audio_s": max(res["audio_s"] for res in runs),
-                "partials_coalesced": d["stt.partials_coalesced"],
-                "shed_overload": d["stt.shed_overload"], "batch_ticks": d["stt.batch_ticks"],
-                "finals_batched": d["stt.finals_batched"], "launches": c.counts}
-            log(f"[stt_batch] service, {mode}: {n_conn} connection(s) x "
-                f"{VOICE_AUDIO_UTTERANCES} paced utterances: {finals} finals, "
-                f"{out[mode]['partials']} partials, drained "
-                f"{out[mode]['drained_after_audio_s']:.2f} s after the last frame; coalesced "
-                f"{d['stt.partials_coalesced']:.0f}, shed {d['stt.shed_overload']:.0f}, "
-                f"{d['stt.batch_ticks']:.0f} ticks")
-            del probe
-            _free_cuda()
+        try:
+            with Counted(f"stt_batch service {mode}", totals) as c:
+                runs = asyncio.run(run_all())
+        finally:
+            srv.__exit__(None, None, None)
+            if hasattr(probe, "batcher"):
+                probe.batcher.stop()
+        c.require("decode_attention", "flash_attention")
+        finals = 0
+        for res in runs:
+            _check_vocabulary(res["events"], f"stt_batch {mode}")
+            _check_finals(res["events"], f"stt_batch {mode}")
+            finals += sum(e["type"] == "transcript_final" for e in res["events"])
+        d = {k: v - c0[k] for k, v in counters().items()}
+        out[mode] = {
+            "connections": n_conn, "finals": finals,
+            "partials": sum(e["type"] == "transcript_partial"
+                            for res in runs for e in res["events"]),
+            "drained_after_audio_s": max(res["drained_s"] for res in runs),
+            "audio_s": max(res["audio_s"] for res in runs),
+            "partials_coalesced": d["stt.partials_coalesced"],
+            "shed_overload": d["stt.shed_overload"], "batch_ticks": d["stt.batch_ticks"],
+            "finals_batched": d["stt.finals_batched"], "launches": c.counts}
+        log(f"[stt_batch] service, {mode}: {n_conn} connection(s) x "
+            f"{VOICE_AUDIO_UTTERANCES} paced utterances: {finals} finals, "
+            f"{out[mode]['partials']} partials, drained "
+            f"{out[mode]['drained_after_audio_s']:.2f} s after the last frame; coalesced "
+            f"{d['stt.partials_coalesced']:.0f}, shed {d['stt.shed_overload']:.0f}, "
+            f"{d['stt.batch_ticks']:.0f} ticks")
+        del probe
+        _free_cuda()
     finally:
         for k in ("VOICE_STT", "STT_BATCH_ENABLE", "STT_BATCH_SLOTS"):
             os.environ.pop(k, None)
@@ -5806,9 +6782,14 @@ def phase_stt_batch(totals: dict, report: dict) -> None:
     eng = SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000), max_new_tokens=32)
     log(f"[stt_batch] boot {time.perf_counter() - t0:.2f} s")
     out["bf16"] = _stt_batch_items(eng, "stt_batch bf16", totals, BF16_PART_ULPS)
+    t0 = time.perf_counter()
+    out["replicas"] = _stt_replica_drill(eng, out["bf16"].pop("b1_refs"), totals,
+                                         BF16_PART_ULPS)
+    log(f"[stt_batch] replica drill {time.perf_counter() - t0:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
     eng.load_params(_to_float(eng.params))
     out["fp32"] = _stt_batch_items(eng, "stt_batch fp32", totals, 1)
+    out["fp32"].pop("b1_refs")
     del eng
     _free_cuda()
     out["service"] = _stt_batch_service(totals)
@@ -5916,7 +6897,8 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,digest,kernels,service,parse,batch,"
                          "batch_dense,radix,"
-                         "kvquant,spec,quality,containment,tenancy,handoff,service_batched,golden,"
+                         "kvquant,spec,quality,containment,tenancy,handoff,fleet,service_batched,"
+                         "golden,"
                          "batch_golden,kvquant_golden,spec_golden,stt,stt_golden,voice,"
                          "voice_service,stt_batch,moe "
                          "(default all)")
@@ -5931,7 +6913,7 @@ def main() -> int:
     args = ap.parse_args()
     phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
                "radix", "kvquant", "spec", "quality", "containment", "tenancy", "handoff",
-               "service_batched",
+               "fleet", "service_batched",
                "golden", "batch_golden",
                "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
                "stt_batch", "moe"]
@@ -5982,7 +6964,8 @@ def main() -> int:
                      ("batch_dense", phase_batch_dense), ("radix", phase_radix),
                      ("kvquant", phase_kvquant), ("spec", phase_spec),
                      ("quality", phase_quality), ("containment", phase_containment),
-                     ("tenancy", phase_tenancy), ("handoff", phase_handoff)):
+                     ("tenancy", phase_tenancy), ("handoff", phase_handoff),
+                     ("fleet", phase_fleet)):
         if name in phases:
             fail_if(eng is None, f"the {name} phase reuses the service's weights")
             kw = {"profile": args.profile} if name in ("batch", "kvquant", "spec") else {}

@@ -174,8 +174,12 @@ def test_chaos_unknown_point_and_off_match_jax(monkeypatch):
     assert not tchaos.get_chaos().enabled and not tchaos.chaos_fire("nan_logits")
     c = tchaos.Chaos("alloc_fail@3")
     assert [c.fire("alloc_fail") for _ in range(6)] == [False, False, True, False, False, False]
+    # every point of JAX's plane is served now (the STT replica points came
+    # with the replicated tier); an unknown one is refused at boot
     monkeypatch.setenv("CHAOS_FAULTS", "stt_replica_hang:1")
-    with pytest.raises(ValueError, match="item 5"):
+    tchaos.check_served_points()
+    monkeypatch.setenv("CHAOS_FAULTS", "tyop_fault:1")
+    with pytest.raises(ValueError, match="unknown chaos point 'tyop_fault'"):
         tchaos.check_served_points()
 
 

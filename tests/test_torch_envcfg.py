@@ -115,8 +115,8 @@ def test_a_served_knob_only_in_the_dotenv_reaches_the_brain(tmp_path, monkeypatc
 
 
 def test_a_knob_only_in_the_dotenv_is_refused_at_voice_boot(tmp_path, monkeypatch):
-    (tmp_path / ".env").write_text("STT_REPLICAS=2\nVOICE_STT=whisper:whisper-test\n")
-    _fresh(monkeypatch, "STT_REPLICAS", "VOICE_STT")
+    (tmp_path / ".env").write_text("VOICE_STT=whisper-hf:x\n")
+    _fresh(monkeypatch, "VOICE_STT")
     monkeypatch.setattr(envcfg, "REPO_ROOT", tmp_path)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5"):
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 8"):
         voice.main()

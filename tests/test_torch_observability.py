@@ -59,15 +59,7 @@ import metrics_lint  # noqa: E402
 # work still to do.
 NOT_PORTED_METRICS = {
     "quality.exec_success_rate": 9,  # record_exec, fed by the executor service
-    "stt.replica": 5,  # the replicated STT tier
-    # the fleet's half of item 6: the router's disagg series, the
-    # autopilot, the fleet
-    "autopilot.": "6b", "fleet.": "6b", "router.": "6b",
-    "disagg.admissions": "6b", "disagg.decode_replicas": "6b", "disagg.fallbacks": "6b",
-    "disagg.feeds_routed": "6b", "disagg.frames_streamed": "6b",
-    "disagg.prefill_queue": "6b", "disagg.prefill_replicas": "6b",
-    "disagg.spec_routed": "6b", "disagg.tokens_prewarmed": "6b",
-    "hbm.": 7, "ts.": 7, "xla.": 7,
+    "hbm.": 7, "xla.": 7,
     "planner.": 8,
     "executor.": 9,
 }
@@ -122,7 +114,8 @@ def test_every_jax_brain_route_is_served_or_501(method, path):
         assert body["detail"].startswith("ROADMAP.md Queue 1 item "), body
     else:
         assert path in ("/health", "/parse", "/metrics", "/debug/quality", "/debug/steplog",
-                        "/debug/flightrecorder", "/debug/costs", "/admin/handoff",
+                        "/debug/flightrecorder", "/debug/costs", "/debug/timeseries",
+                        "/admin/handoff",
                         "/admin/disagg/prefill", "/admin/disagg/adopt", "/admin/drain") \
             or path.startswith(("/debug/trace/", "/admin/handoff/")), (path, status)
 

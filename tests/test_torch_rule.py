@@ -127,9 +127,12 @@ def test_unset_backend_boots_the_rule_parser(monkeypatch, caplog):
                       for k in ("BRAIN_PAGED", "BRAIN_QUANT", "BRAIN_MOE")]
     app = brain.BrainApp(parser)
     get_steplog().clear()  # no step recorded: no last_step
+    # the pressure block is the router's shed signal (JAX's, for the same backend)
     assert app.health() == (200, {"ok": True, "service": "brain", "slo": "ok",
                                   "quality": {"slo": "ok"}, "inflight": 0,
-                                  "max_inflight": 32, "role": "both", "disagg": False}, {})
+                                  "max_inflight": 32, "role": "both", "disagg": False,
+                                  "pressure": {"score": 0.0, "slo": "ok", "admission": 0.0}},
+                            {})
     status, body, _ = app.parse(b'{"text": "take a screenshot"}')
     assert status == 200 and body["intents"][0]["type"] == "screenshot"
     # distilled is served since the trained brain boots from the environment;

@@ -170,8 +170,8 @@ def _tiny_env(monkeypatch):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("BRAIN_MODEL", "/models/intent-8b"), ("CHAOS_FAULTS", "stt_replica_hang:1"),
-    ("BRAIN_BACKEND", "planner-distilled"), ("CHAOS_FAULTS", "stt_replica_kill:1"),
+    ("BRAIN_MODEL", "/models/intent-8b"), ("BRAIN_BACKEND", "pp:test-tiny"),
+    ("BRAIN_BACKEND", "planner-distilled"), ("BRAIN_BACKEND", "planner"),
 ])
 def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
     """Each knob the JAX brain honours and the port does not serve raises at
@@ -184,6 +184,19 @@ def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
     with pytest.raises(ValueError, match=name) as e:
         brain.make_parser_from_env()
     assert "ROADMAP.md Queue 1 item" in str(e.value) and not built
+
+
+@pytest.mark.parametrize("spec", ["stt_replica_hang:1", "stt_replica_kill:1"])
+def test_env_factory_serves_the_stt_replica_chaos_points(monkeypatch, spec):
+    """Once refused at brain boot (the replicated STT tier was missing):
+    every chaos point of JAX's plane is served, so the factory builds."""
+    _tiny_env(monkeypatch)
+    monkeypatch.setenv("CHAOS_FAULTS", spec)
+    built = []
+    monkeypatch.setattr(DecodeEngine, "__init__", lambda *a, **k: built.append(1))
+    with pytest.raises(Exception) as e:  # the stubbed engine has no attributes
+        brain.make_parser_from_env()
+    assert built == [1] and "CHAOS_FAULTS" not in str(e.value)
 
 
 @pytest.mark.parametrize("name,value", [

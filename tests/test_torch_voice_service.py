@@ -917,15 +917,46 @@ def test_intent_validation_and_risk_match_jax():
 @pytest.mark.parametrize("env,item", [
     ({"VOICE_STT": "whisper-hf:/models/whisper"}, 8),
     ({"VOICE_STT": "whisper-ckpt:checkpoints/some-other-ckpt"}, 8),
-    ({"STT_BATCH_ENABLE": "1", "STT_REPLICAS": "2"}, 5),
-    ({"STT_REPLICAS": "3", "VOICE_STT": "whisper:whisper-test"}, 5),
-    ({"STT_REPLICAS": "2"}, 5),
+    ({"STT_BATCH_ENABLE": "1", "STT_REPLICAS": "2", "VOICE_STT": "whisper-hf:x"}, 8),
+    ({"STT_REPLICAS": "3", "VOICE_STT": "whisper-ckpt:checkpoints/whisper-large"}, 8),
+    ({"STT_REPLICAS": "2", "VOICE_STT": "whisper-hf:openai/whisper-tiny"}, 8),
 ])
 def test_stt_factory_refuses_what_it_would_ignore(monkeypatch, env, item):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 item {item}"):
         voice.stt_factory_from_env()
+
+
+@pytest.mark.parametrize("env,kind", [
+    ({"STT_BATCH_ENABLE": "1", "STT_REPLICAS": "2"}, "tier"),
+    ({"STT_REPLICAS": "3"}, "locked"),
+    ({"STT_REPLICAS": "2", "VOICE_STT": "null"}, "null"),
+], ids=["tier", "no-batch", "null"])
+def test_stt_replicas_are_served(monkeypatch, env, kind):
+    """Once refused: ``STT_REPLICAS`` > 1 on the batched plane builds the
+    replicated tier over the one engine (``/health`` then reports it);
+    without the batched plane it is ignored, as JAX ignores it."""
+    from tpu_voice_agent_torch.serve.stt_replicas import STTReplicaTier, current_tier
+
+    monkeypatch.setenv("VOICE_STT", "whisper-ckpt:checkpoints/whisper-tiny-overfit")
+    monkeypatch.setenv("VOICE_DEVICE", "cpu")
+    monkeypatch.delenv("STT_BATCH_ENABLE", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    stt = voice.stt_factory_from_env()()
+    tier = current_tier()
+    try:
+        if kind == "tier":
+            assert isinstance(stt.batcher, STTReplicaTier) and tier is stt.batcher
+            assert len(tier.replicas) == 2 and tier.tier_health()["healthy"] == 2
+        elif kind == "locked":
+            assert type(stt).__name__ == "LockedStreaming" and tier is None
+        else:
+            assert isinstance(stt, NullSTT) and tier is None
+    finally:
+        if tier is not None:
+            tier.stop()
 
 
 def test_quality_enable_boots_whisper_whose_finals_carry_confidence(monkeypatch):
@@ -950,16 +981,19 @@ def test_quality_enable_boots_whisper_whose_finals_carry_confidence(monkeypatch)
 
 
 def test_chaos_faults_refused_at_boot(monkeypatch):
-    """A chaos point the port does not serve yet is refused at boot, naming
-    its item; ``drop_frame`` (once refused with the whole plane) is served:
+    """An unknown chaos point is refused at boot, and the STT replica points
+    (once refused) are served; ``drop_frame`` (once refused with the whole
+    plane) is served:
     armed at its 2nd event, the 2nd binary frame never reaches the STT and
     ``voice.frames_dropped_chaos`` counts it, while the session lives on."""
     from tpu_voice_agent_torch.utils import chaos as tchaos
     from tpu_voice_agent_torch.utils.tracing import get_metrics
 
-    monkeypatch.setenv("CHAOS_FAULTS", "stt_replica_kill:1")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5"):
+    monkeypatch.setenv("CHAOS_FAULTS", "tyop_fault:1")
+    with pytest.raises(ValueError, match="unknown chaos point 'tyop_fault'"):
         voice.build_app(voice.VoiceConfig(stt_factory=lambda: NullSTT()))
+    monkeypatch.setenv("CHAOS_FAULTS", "stt_replica_kill:1")  # served with the STT tier
+    voice.build_app(voice.VoiceConfig(stt_factory=lambda: NullSTT()))
     monkeypatch.setenv("CHAOS_FAULTS", "drop_frame@2")
     tchaos.reset()
     fed = []
@@ -1013,7 +1047,7 @@ def test_canary_refused_at_boot(monkeypatch, executor):
     finally:
         port.__exit__(None, None, None)
         jax.__exit__(None, None, None)
-    assert set(ph) == set(jh) - {"brain"} - {"stt_replicas"}
+    assert set(ph) == set(jh) - {"brain"}
     assert set(ph["quality"]) == set(jh["quality"])
 
 
@@ -1039,7 +1073,7 @@ def test_whisper_stt_needs_a_card_or_voice_device_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("path,item", [
-    ("/debug/timeseries", 7), ("/", 9), ("/static/app.js", 9),
+    ("/static/", 9), ("/", 9), ("/static/app.js", 9),
 ])
 def test_unported_routes_answer_501(two_servers, path, item):
     r = httpx.get(two_servers["port"] + path, timeout=5)
@@ -1048,7 +1082,7 @@ def test_unported_routes_answer_501(two_servers, path, item):
 
 
 @pytest.mark.parametrize("path", ["/metrics", "/debug/trace/abc123", "/debug/quality",
-                                  "/debug/flightrecorder"])
+                                  "/debug/flightrecorder", "/debug/timeseries"])
 def test_observability_routes_answer_with_the_jax_keys(two_servers, path):
     """Once 501: the routes answer 200 with the JAX service's body keys."""
     if path == "/debug/flightrecorder":
@@ -1070,6 +1104,8 @@ def test_observability_routes_answer_with_the_jax_keys(two_servers, path):
         assert set(pb["slo"]) == set(jb["slo"])
     elif path == "/debug/flightrecorder":
         assert pb["frozen"] is jb["frozen"] is False and pb["armed"] is True
+    elif path == "/debug/timeseries":
+        assert pb["interval_s"] == jb["interval_s"] and pb["max_samples"] == jb["max_samples"]
     else:
         assert pb == jb == {"service": "voice", "trace_id": "abc123", "spans": []}
     prom = httpx.get(two_servers["port"] + "/metrics", timeout=5,
@@ -1083,7 +1119,7 @@ def test_health_keys_are_the_jax_services_but_quality(two_servers):
     observatory was ported (no brain answers here, so neither forwards one)."""
     jax = httpx.get(two_servers["jax"] + "/health", timeout=5).json()
     port = httpx.get(two_servers["port"] + "/health", timeout=5).json()
-    assert set(port) == set(jax) - {"brain"} - {"stt_replicas"}
+    assert set(port) == set(jax) - {"brain"}
     for k in ("ok", "status", "service", "breakers", "slo", "sessions", "capacity_sessions"):
         assert port[k] == jax[k], k
     assert set(port["quality"]) == set(jax["quality"]) == {"slo"}

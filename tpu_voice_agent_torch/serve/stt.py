@@ -22,9 +22,10 @@ lanes (``COST_ENABLE``, default on): each encode dispatch and each B = 1
 decode loop folds its analytic FLOPs into ``cost_totals`` (the voice
 service's ``/debug/costs``) and the ``cost.stt_*_flops`` counters. The
 decode loop also serves the batched plane (``serve.stt_batch``): a ``live``
-slot mask and a per-slot ``max_new_each`` budget. Left out (still
-JAX-only): ``from_hf`` and checkpoint tokenizers (so no suppressed
-specials), and the replicated STT plane (ROADMAP.md Queue 1 item 5).
+slot mask and a per-slot ``max_new_each`` budget; the replicated tier
+(``serve.stt_replicas``) runs several batchers over one engine. Left out
+(still JAX-only): ``from_hf`` and checkpoint tokenizers (so no suppressed
+specials: ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
                      enc_len: torch.Tensor, bos: torch.Tensor, max_new: int = 64,
                      eos_id: int = 2, pad_id: int = 0, quality_lanes: bool = False,
                      live: torch.Tensor | None = None,
-                     max_new_each: torch.Tensor | None = None):
+                     max_new_each: torch.Tensor | None = None, fence=None):
     """Greedy decode until EOS. ``bos`` (B, P) is the decoder prompt; every
     row stops on its own EOS, at ``max_text_len - 1``, or after its budget
     (``max_new``, or the row's entry of ``max_new_each`` (B,) int32), and
@@ -77,6 +78,8 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
     bool: a dead slot is done from the start (its cross-KV rows hold
     garbage, and its ``enc_len`` is 0, so its attention reads nothing).
     With ``live`` / ``max_new_each`` None the loop is the single-stream one.
+    ``fence``, when given, is called before each decoder forward and may
+    raise to stop the loop (a killed batcher's worker).
     With ``quality_lanes``
     each emitted token's log-probability (an fp32 log-softmax of its step's
     logits; the first from the prompt step) folds into per-row (sum, min,
@@ -94,7 +97,9 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
         lsm = torch.log_softmax(lg.float(), dim=-1)
         return tok, torch.gather(lsm, 1, tok[:, None].long())[:, 0]
 
+    fence = fence or (lambda: None)
     pos0 = torch.arange(P, dtype=torch.int32, device=dev)[None, :].expand(B, P)
+    fence()
     logits, self_cache = decoder_forward(params, cfg, bos, pos0, self_cache, cross_kv, enc_len)
     cur, cur_lp = pick(logits[:, P - 1, :])
     conf = None
@@ -121,6 +126,7 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
                     torch.where(live, torch.minimum(conf[1], cur_lp), conf[1]),
                     torch.where(live & (n == 0), cur_lp, conf[2]))
         n = n + live.to(torch.int32)
+        fence()
         logits, self_cache = decoder_forward(params, cfg, cur[:, None], pos[:, None], self_cache,
                                              cross_kv, enc_len)
         nxt, nxt_lp = pick(logits[:, 0, :])

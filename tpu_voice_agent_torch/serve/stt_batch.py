@@ -35,17 +35,27 @@ hooks overridden: the same host-side utterance state machine, but partials
 and spec_finals are futures delivered by a later feed, and a final blocks
 (``feed``) or is awaited (``feed_async``, the voice service's event loop).
 
-The worker is the only thread that runs the model. Left out: the
-replicated tier over several batchers and its chaos points (``STT_REPLICAS``
-> 1, ``stt_replica_kill`` / ``stt_replica_hang``: ROADMAP.md Queue 1 item 5,
-with item 6b's ``ReplicaSet``).
+The worker is the only thread that runs the model. A batcher is one
+member of the replicated tier (``serve/stt_replicas.py``, ``STT_REPLICAS`` >
+1): ``kill`` retires it like a crashed process (the ``dead`` latch; its
+queued and in-flight futures fail, a later submit fails at once) and
+``healthy`` is its liveness. The chaos points ``stt_replica_kill`` (the
+worker kills its batcher as it takes a batch) and ``stt_replica_hang`` (it
+sleeps ``CHAOS_HANG_S`` before the batch) are drawn here. A killed
+batcher's worker starts no launch after the kill: it checks the latch before
+each slot feed, each final's encode and each decode step (``Killed``), so a
+worker that wakes from a hang, or was stalled inside its batch, stops there
+and a warm restart's fresh batcher, with its own pool, does not share the
+card with the corpse's work past the launch that was running.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import itertools
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -55,6 +65,7 @@ import numpy as np
 import torch
 
 from ..models.whisper import init_cross_kv_pool, init_self_cache, pad_cross_kv
+from ..utils.chaos import ChaosError, chaos_fire
 from ..utils.tracing import get_metrics
 from .stt import (
     SpeechEngine,
@@ -73,6 +84,13 @@ _PRIORITY = {"final": 0, "spec_final": 1, "partial": 2}
 # process-wide utterance keys: a late future can never be taken for the
 # next utterance's
 _UTT_IDS = itertools.count(1)
+
+
+class Killed(BaseException):
+    """The batcher was killed while its worker ran a batch: the worker
+    stops before its next launch. Its futures are failed already, so it is
+    no item's fault and passes every per-item handler (``except
+    Exception``) up to the worker, which exits."""
 
 
 def _resolve(fut: Future, value) -> None:
@@ -136,6 +154,10 @@ class STTBatcher:
         self._stop = False
         self._busy = False
         self.ticks = 0
+        # the dead latch: a killed batcher fails new work at submit
+        self.dead = False
+        # the batch being processed: kill() fails these futures too
+        self._inflight: list[_Work] = []
         # one blank row for dead slots (never written)
         self._blank_row = torch.zeros((cfg.dec_layers, 1, cfg.enc_positions, cfg.n_heads,
                                        cfg.head_dim), dtype=engine._param_dtype,
@@ -157,6 +179,11 @@ class STTBatcher:
         fut: Future = Future()
         m = get_metrics()
         with self._wake:
+            if self.dead:
+                # under the lock kill() takes: a submit racing the kill is
+                # failed here or lands in the queue kill() fails
+                _fail(fut, RuntimeError("stt replica is down"))
+                return fut
             if kind != "final":
                 # a newer buffer of the same (kind, utterance) supersedes
                 for w in self.queue:
@@ -217,8 +244,24 @@ class STTBatcher:
             self._thread.join(timeout=5.0)
 
     def healthy(self) -> bool:
-        """The worker runs (a manually ticked batcher counts healthy)."""
+        """Not dead-latched, and the worker runs (a manually ticked batcher
+        counts healthy: its caller is the worker)."""
+        if self.dead:
+            return False
         return self._thread is None or self._thread.is_alive()
+
+    def kill(self, exc: Exception) -> None:
+        """Retire this batcher like a crashed process: latch dead, fail
+        every queued and in-flight future with ``exc`` (their waiters fail
+        over instead of timing out) and stop the worker."""
+        with self._wake:
+            self.dead = True
+            self._stop = True
+            stale, self.queue = self.queue, []
+            inflight = list(self._inflight)
+            self._wake.notify_all()
+        for w in stale + inflight:
+            _fail(w.future, exc)
 
     # ------------------------------------------------------------ worker
 
@@ -233,14 +276,22 @@ class STTBatcher:
                     self.queue.clear()
                     return
                 batch = self._take_batch_locked()
+                self._inflight = batch
                 self._busy = True
             try:
+                if chaos_fire("stt_replica_kill"):
+                    # the drill: this replica crashes as it takes a batch
+                    self.kill(ChaosError("chaos: stt replica killed"))
+                    return
                 self._process(batch)
+            except Killed:
+                return  # kill failed the batch's futures and stopped this worker
             except Exception as e:  # noqa: BLE001 - the batch fails, not the worker
                 for w in batch:
                     _fail(w.future, e)
             finally:
                 with self._wake:
+                    self._inflight = []
                     self._busy = False
                     self._wake.notify_all()
 
@@ -250,7 +301,8 @@ class STTBatcher:
         with self._wake:
             batch = self._take_batch_locked()
         if batch:
-            self._process(batch)
+            with contextlib.suppress(Killed):
+                self._process(batch)
         return len(batch)
 
     def _take_batch_locked(self) -> list[_Work]:
@@ -309,6 +361,7 @@ class STTBatcher:
         eng = self.engine
         out: dict[int, tuple] = {}
         for w in works:
+            self._fence()
             try:
                 cross_kv, enc_len, n_frames = eng._encode_window(w.buf)
                 row = pad_cross_kv(cross_kv, eng.cfg.enc_positions)
@@ -319,8 +372,19 @@ class STTBatcher:
             out[id(w)] = (row, enc_len, n_frames)
         return out
 
+    def _fence(self) -> None:
+        """Called by the worker before each launch: a killed batcher's
+        worker launches nothing more."""
+        if self.dead:
+            raise Killed
+
     @torch.no_grad()
     def _process(self, batch: list[_Work]) -> None:
+        if chaos_fire("stt_replica_hang"):
+            # the drill: a wedged worker; the tier's stalled-tick watchdog
+            # warm-restarts the replica while it sleeps
+            time.sleep(float(os.environ.get("CHAOS_HANG_S", "60")))
+        self._fence()
         eng = self.engine
         finals = [w for w in batch if w.kind != "partial"]
         partials = [w for w in batch if w.kind == "partial"]
@@ -335,6 +399,7 @@ class STTBatcher:
             if st is None or st.utt != w.utt:
                 _resolve(w.future, None)
                 continue
+            self._fence()
             try:
                 self._feed_slot(s, st, w.buf)
             except Exception:  # noqa: BLE001 - a partial fails alone, as a shed
@@ -379,7 +444,7 @@ class STTBatcher:
         out, n, _, conf = _stt_decode_loop(eng.params, eng.cfg, cache, cross_kv, enc_len, bos,
                                            max_new=eng.max_new_tokens, eos_id=eng.eos_id,
                                            pad_id=eng.pad_id, quality_lanes=eng.quality_lanes,
-                                           live=live)
+                                           live=live, fence=self._fence)
         # one readback: tokens, counts and lanes (exact in float32)
         cols = [out.float(), n.float()[:, None]]
         if conf is not None:

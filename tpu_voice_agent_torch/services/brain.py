@@ -49,11 +49,15 @@ drain (``/health`` then reads ``draining`` and ``drained``), and ``/parse``
 with ``prefix_feed: true`` warms the session's radix chain without a
 decode. A backend without that surface answers 404 ``handoff_unsupported``
 / ``disagg_unsupported``, as JAX's does. ``/health`` also carries ``role``
-(``BRAIN_ROLE``, default ``both``) and ``disagg``. The JAX brain's other
-route, ``/debug/timeseries``, answers 501 ``not_ported`` with the ROADMAP.md
-Queue 1 item that brings it (``UNPORTED_ROUTES``). A request's tenant (the
-body's ``tenant``, else the ``x-tenant`` header) rides into the batcher. The
-HTTP layer is the standard library's ``ThreadingHTTPServer``.
+(``BRAIN_ROLE``, default ``both``), ``disagg`` and the ``pressure`` block
+the router's prober reads (``score``: the largest of the live saturation
+fractions, 1.0 under a violated SLO, at least 0.95 at risk). ``GET
+/debug/timeseries?since=`` serves the app's time-series ring
+(``utils.timeseries``: the global registry, then the tracer-local one, so
+the ``brain.parse`` window stays this replica's own in a process that holds
+several brains). A request's tenant (the body's ``tenant``, else the
+``x-tenant`` header) rides into the batcher. The HTTP layer is the standard
+library's ``ThreadingHTTPServer``.
 
     BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 \\
         python -m tpu_voice_agent_torch.services.brain
@@ -77,7 +81,8 @@ quality lanes, default on), ``QUALITY_WINDOW`` / ``QUALITY_SLO_*``,
 serving loop's stall watchdog, default 30), ``HANDOFF_KV`` (``0`` exports
 the transcript alone), ``BRAIN_ROLE``, ``STEPLOG_*``, ``FLIGHT_*``,
 ``QUALITY_CANARY_S`` / ``QUALITY_CANARY_SLICE`` / ``QUALITY_CANARY_OCCUPANCY``
-(the golden-replay canary, started by ``make_server``), ``TENANT_CLASSES`` /
+(the golden-replay canary, started by ``make_server``), ``TS_INTERVAL_S`` /
+``TS_SAMPLES`` / ``TS_GAUGES`` (the time-series ring), ``TENANT_CLASSES`` /
 ``TENANT_PREEMPT`` (the batcher's tenancy plane), ``RADIX_SESSIONS`` (the
 session transcripts' LRU), ``RADIX_MAX_NODES`` / ``RADIX_PRESSURE_S`` (the
 paged engine's tree), ``COST_ENABLE`` / ``COST_SESSIONS`` /
@@ -126,6 +131,7 @@ from ..utils.costmodel import SessionCostLedger
 from ..utils.envcfg import load_env_cascade
 from ..utils.quality import GoldenCanary, QualityMonitor
 from ..utils.steplog import get_steplog, steplog_response
+from ..utils.timeseries import TIMESERIES_ROUTE, service_ring, timeseries_response
 from ..utils.tracing import (
     TRACE_ROUTE,
     Tracer,
@@ -1220,13 +1226,11 @@ def make_parser_from_env():
 # ---------------------------------------------------------------- app
 
 
-# Routes of the JAX brain that the port does not serve: path (a prefix when
-# it ends in "/") -> the ROADMAP.md Queue 1 item that brings it
-UNPORTED_ROUTES = (("/debug/timeseries", 7),)
 # served routes: path (a prefix when it ends in "/") -> method
 SERVED_ROUTES = (("/health", "GET"), ("/parse", "POST"), ("/metrics", "GET"),
                  (TRACE_ROUTE, "GET"), ("/debug/quality", "GET"), ("/debug/steplog", "GET"),
                  ("/debug/flightrecorder", "GET"), ("/debug/costs", "GET"),
+                 (TIMESERIES_ROUTE, "GET"),
                  ("/admin/handoff/", "GET"), ("/admin/handoff", "POST"),
                  ("/admin/disagg/prefill", "POST"), ("/admin/disagg/adopt", "POST"),
                  ("/admin/drain", "POST"))
@@ -1302,8 +1306,9 @@ class BrainApp:
     One ``Tracer("brain")`` per app (its registry also holds the quality
     monitor's gauges), one ``SLOTracker("brain")``, one
     ``AdmissionController("brain")`` (``max_inflight``, default
-    ``BRAIN_MAX_INFLIGHT`` or 32) and one ``GoldenCanary`` (``start`` /
-    ``close``: running only with ``QUALITY_CANARY_S`` > 0)."""
+    ``BRAIN_MAX_INFLIGHT`` or 32), one ``GoldenCanary`` (running only with
+    ``QUALITY_CANARY_S`` > 0) and one time-series ring; ``start`` / ``close``
+    start and stop the canary and the ring's sampler."""
 
     def __init__(self, parser, tracer: Tracer | None = None, max_inflight: int | None = None):
         self.parser = parser
@@ -1340,13 +1345,37 @@ class BrainApp:
 
         self.canary = GoldenCanary(lambda text, ctx: self._do_parse(text, ctx, None, False),
                                    self.qmon, busy_fn=busy)
+        self.ring = service_ring("brain", self.tracer)
 
     def start(self) -> None:
-        """The serving-side threads: the golden canary, when enabled."""
+        """The serving-side threads: the golden canary, when enabled, and
+        the time-series sampler."""
         self.canary.start()
+        self.ring.start()
 
     def close(self) -> None:
         self.canary.stop()
+        self.ring.stop()
+
+    def pressure(self, slo_state: str) -> dict:
+        """The shed signal the router's prober reads: the parser's live
+        saturation fractions and the admission fraction, folded to one
+        ``score``; a violated SLO is full, one at risk at least 0.95."""
+        fracs = {}
+        live = getattr(self.parser, "pressure_fractions", None)
+        if live is not None:
+            try:
+                fracs = {k: round(float(v), 4) for k, v in live().items()}
+            except Exception:  # noqa: BLE001 - a failed read is no pressure
+                fracs = {}
+        fracs["admission"] = round(self.admission.inflight / max(1, self.admission.max_inflight),
+                                   4)
+        score = max(fracs.values())
+        if slo_state == "violated":
+            score = 1.0
+        elif slo_state == "at_risk":
+            score = max(score, 0.95)
+        return {"score": round(score, 4), "slo": slo_state, **fracs}
 
     def health(self) -> tuple[int, dict, dict]:
         engine = getattr(self.parser, "engine", None)
@@ -1371,6 +1400,7 @@ class BrainApp:
         last_step = get_steplog().last()
         if last_step is not None:
             body["last_step"] = last_step
+        body["pressure"] = self.pressure(body["slo"])
         if engine is not None:
             body.update(device=str(engine.device), kernels=engine.kernels,
                         quant=engine.quant, fast_forward=engine.fast_forward,
@@ -1680,17 +1710,12 @@ class BrainApp:
             time.sleep(float(os.environ.get("CHAOS_SLOW_S", "0.25")))
 
     def handle(self, req: Request, peer_gone=None) -> tuple[int, object, dict]:
-        """Route one request: a served route, 405 for another method on it,
-        501 ``not_ported`` naming the item for a JAX route the port lacks,
-        and 404 only for a path the JAX brain does not route either.
-        ``peer_gone`` reaches ``parse``."""
+        """Route one request: a served route (every route of the JAX
+        brain), 405 for another method on it, 404 for a path JAX does not
+        route either. ``peer_gone`` reaches ``parse``."""
         self._replica_chaos(req)
         method = _match(req.path, SERVED_ROUTES)
         if method is None:
-            item = _match(req.path, UNPORTED_ROUTES)
-            if item is not None:
-                return 501, {"error": "not_ported",
-                             "detail": f"ROADMAP.md Queue 1 item {item}"}, {}
             return 404, {"error": "not_found", "detail": req.path}, {}
         if req.method != method:
             return 405, {"error": "method_not_allowed", "detail": req.method}, {}
@@ -1718,6 +1743,8 @@ class BrainApp:
             r = steplog_response("brain", req)
         elif req.path == "/debug/flightrecorder":
             r = flightrecorder_response("brain", req)
+        elif req.path == TIMESERIES_ROUTE:
+            r = timeseries_response(self.ring, req)
         else:
             r = trace_response("brain", self.tracer, req)
         return r.status, r.body, r.headers

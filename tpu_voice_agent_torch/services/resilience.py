@@ -24,6 +24,8 @@ transport-error counters).
   ``max_inflight`` gauges, ``shed_overload`` counter).
 - ``post_with_resilience``: the budgeted, breaker-guarded POST of the voice
   service's two hops, over ``ws.HTTPClient``.
+- ``shed_response``: the one spelling of the overload answer (503,
+  ``Retry-After``, ``<service>.shed_<reason>``), the router's full outage.
 
 Everything takes an injectable ``clock`` / ``rng`` / ``sleep``, so tests
 drive the state machines deterministically.
@@ -38,7 +40,7 @@ import time
 from dataclasses import dataclass
 
 from ..utils.tracing import get_flight_recorder, get_metrics
-from .ws import ConnectError, HTTPError
+from .ws import ConnectError, HTTPError, Response
 
 # remaining-budget propagation header: milliseconds left, clamped at 0
 DEADLINE_HEADER = "x-deadline-ms"
@@ -304,6 +306,16 @@ class AdmissionController:
         with self._lock:
             self._inflight = max(0, self._inflight - 1)
             get_metrics().set_gauge(f"resilience.{self.name}.inflight", self._inflight)
+
+
+def shed_response(service: str, reason: str, *, headers=None,
+                  retry_after_s: float = 1.0) -> Response:
+    """503 ``{"error": "overloaded", "detail": reason}`` with
+    ``Retry-After`` and the ``<service>.shed_<reason>`` counter: the shed
+    contract the voice service's retry kit keys on."""
+    get_metrics().inc(f"{service}.shed_{reason}")
+    return Response(503, {"error": "overloaded", "detail": reason},
+                    {**(headers or {}), "Retry-After": str(int(retry_after_s))})
 
 
 async def post_with_resilience(http, url: str, *, json_body, deadline: Deadline,

@@ -16,7 +16,11 @@ service's event vocabulary: ``transcript_partial``, ``transcript_final``,
   Under ``STT_BATCH_ENABLE=1`` every connection's ``BatchedStreamingSTT``
   shares one ``STTBatcher`` (``serve/stt_batch.py``): the loop awaits its
   ``feed_async``, the ``tenant`` control frame lanes its work, and a
-  closing connection frees its pool slot.
+  closing connection frees its pool slot. ``STT_REPLICAS`` > 1 puts
+  that many batchers over the one engine behind the replicated tier
+  (``serve/stt_replicas.py``: utterance affinity, the stalled-tick
+  watchdog's warm restarts, final failover), and ``/health`` carries
+  ``stt_replicas``.
 - The brain hop: ``POST /parse`` through the retry / breaker kit
   (``services/resilience.py``), speculatively on ``spec_final`` (the 409
   ``speculation_unsupported`` latch re-probes after ``VOICE_RESPEC_AFTER``
@@ -41,8 +45,10 @@ service's event vocabulary: ``transcript_partial``, ``transcript_final``,
   ``voice.live_sessions`` and ``engine.prefill_remaining_at_endpoint`` gauges
   and the ``resilience.*`` series go to the process-global registry.
   ``GET /metrics`` (JSON, or Prometheus text under ``Accept: text/plain``),
-  ``GET /debug/trace/{id}``, ``GET /debug/quality`` and ``GET
-  /debug/costs`` (the STT share of the cost meter) are served.
+  ``GET /debug/trace/{id}``, ``GET /debug/quality``, ``GET
+  /debug/costs`` (the STT share of the cost meter) and ``GET
+  /debug/timeseries?since=`` (the service's time-series ring,
+  ``utils.timeseries``) are served.
 
 One card, one stream: the split kernels' scratch and ticket counters are
 per-device buffers that serve one stream at a time (``ops/_lib.py``
@@ -60,8 +66,11 @@ Environment (the JAX service's names): ``BRAIN_URL``, ``EXECUTOR_URL``,
 ``VOICE_CAPACITY_SESSIONS``, ``VOICE_BRAIN_HEALTH_S``,
 ``PREFIX_FEED_ENABLE``, ``PREFIX_FEED_STABLE_K``, ``PREFIX_FEED_MIN_CHARS``,
 ``SLO_*``, ``QUALITY_ENABLE`` / ``QUALITY_WINDOW`` / ``QUALITY_SLO_*``,
-``STT_BATCH_ENABLE`` / ``STT_BATCH_SLOTS``, ``STT_REPLICAS`` (unset or 1),
-``COST_ENABLE``, ``TRACE_SINK``, ``FLIGHT_*`` (the flight recorder behind ``GET
+``STT_BATCH_ENABLE`` / ``STT_BATCH_SLOTS``, ``STT_REPLICAS`` /
+``STT_REPLICA_PROBE_S`` / ``STT_REPLICA_STALL_S`` / ``STT_SHED_PRESSURE``
+(the replicated tier; ``STT_REPLICAS`` > 1 without the batched plane is
+logged and ignored, as JAX ignores it), ``TS_INTERVAL_S`` / ``TS_SAMPLES`` /
+``TS_GAUGES``, ``COST_ENABLE``, ``TRACE_SINK``, ``FLIGHT_*`` (the flight recorder behind ``GET
 /debug/flightrecorder``), ``CHAOS_FAULTS`` / ``CHAOS_SEED`` (``drop_frame``
 drops an incoming binary frame and counts ``voice.frames_dropped_chaos``;
 ``stt_garble`` collapses a final) and ``VOICE_STT`` (``null``; ``whisper[:preset]``, random
@@ -70,10 +79,8 @@ of the port's in-repo checkpoints). The port adds ``VOICE_DEVICE`` (default
 ``cuda``; ``cpu`` runs the plain versions). What the port does not serve is
 refused at boot (``check_unserved_knobs``, ``stt_factory_from_env``) or
 answered 501 (``UNPORTED_ROUTES``), each naming its ROADMAP.md Queue 1
-item. ``TS_*`` is left unread: it only feeds an observability plane the
-port lacks, and the frames are the same on or off. Nor is
-``QUALITY_CANARY_S`` read: the canary is the brain's, as in JAX. ``main``
-merges the repo-root ``.env`` first (``utils.envcfg``).
+item. ``QUALITY_CANARY_S`` is not read: the canary is the brain's, as in
+JAX. ``main`` merges the repo-root ``.env`` first (``utils.envcfg``).
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import logging
 import os
 import threading
 import time
@@ -92,6 +100,7 @@ from ..utils.chaos import chaos_fire, check_served_points
 from ..utils.costmodel import cost_enabled, stt_cost_summary
 from ..utils.envcfg import load_env_cascade
 from ..utils.quality import QualityMonitor
+from ..utils.timeseries import TIMESERIES_ROUTE, service_ring, timeseries_response
 from ..utils.tracing import (
     TRACE_ROUTE,
     Tracer,
@@ -111,6 +120,8 @@ from .resilience import (
     post_with_resilience,
 )
 from .slo import SLOTracker
+
+log = logging.getLogger("tpu_voice_agent_torch.voice")
 
 
 class VoiceConfig:
@@ -150,9 +161,7 @@ def _refuse(name: str, raw: str, item: int, what: str) -> None:
 
 
 def check_unserved_knobs() -> None:
-    """Refuse at boot what the JAX voice service would honour and the port
-    would silently ignore: a ``CHAOS_FAULTS`` that names an unknown point or
-    arms one the port does not serve yet (``utils.chaos.UNSERVED_POINTS``)."""
+    """Refuse at boot a ``CHAOS_FAULTS`` that names an unknown point."""
     check_served_points()
 
 
@@ -166,17 +175,20 @@ def stt_factory_from_env():
     ``cuda``: with no card it raises). ``STT_BATCH_ENABLE=1``: one
     process-wide engine and ``STTBatcher`` (``STT_BATCH_SLOTS`` slots,
     default 4) serve every connection through ``BatchedStreamingSTT``;
-    unset, each connection's ``LockedStreaming`` decodes at B = 1 behind one
-    lock. Refused at boot: ``whisper-hf:`` and any other checkpoint (Queue 1
-    item 8), and ``STT_REPLICAS`` other than 1, the replicated STT tier
-    (item 5). ``QUALITY_ENABLE`` (default on) is read by the engine: its
-    finals carry the confidence lanes."""
+    with ``STT_REPLICAS`` > 1, that many batchers over the one engine behind
+    ``STTReplicaTier`` (``STT_REPLICA_PROBE_S``, ``STT_REPLICA_STALL_S``,
+    ``STT_SHED_PRESSURE``); unset, each connection's ``LockedStreaming``
+    decodes at B = 1 behind one lock (``STT_REPLICAS`` is then logged and
+    ignored, as in JAX). Refused at boot: ``whisper-hf:`` and any other
+    checkpoint (Queue 1 item 8). ``QUALITY_ENABLE`` (default on) is read by
+    the engine: its finals carry the confidence lanes."""
     from ..serve.stt import NullSTT
 
-    replicas = os.environ.get("STT_REPLICAS", "").strip()
-    if replicas and replicas != "1":
-        _refuse("STT_REPLICAS", replicas, 5, "the replicated STT tier (STT_REPLICAS > 1)")
+    replicas = int(os.environ.get("STT_REPLICAS", "1") or "1")
     batched = os.environ.get("STT_BATCH_ENABLE", "") == "1"
+    if replicas > 1 and not batched:
+        log.warning("STT_REPLICAS=%d needs STT_BATCH_ENABLE=1 (the replicated tier is "
+                    "built over batchers); ignoring it, as the JAX service does", replicas)
     slots = int(os.environ.get("STT_BATCH_SLOTS", "4"))
     spec = os.environ.get("VOICE_STT", "null")
     if spec == "null":
@@ -220,7 +232,12 @@ def stt_factory_from_env():
     if batched:
         from ..serve.stt_batch import BatchedStreamingSTT, STTBatcher
 
-        batcher = STTBatcher(engine, slots=slots)
+        if replicas > 1:
+            from ..serve.stt_replicas import STTReplicaTier
+
+            batcher = STTReplicaTier(engine, replicas=replicas, slots=slots)
+        else:
+            batcher = STTBatcher(engine, slots=slots)
         return lambda: BatchedStreamingSTT(engine, batcher, endpointer=make_endpointer(),
                                            early_close_ms=early_ms if early_ms > 0 else None)
     lock = threading.Lock()
@@ -362,7 +379,6 @@ def _prefill_remaining(stages: dict, spec_pre_parsed: bool, degraded: bool) -> f
 # Routes of the JAX service that the port does not serve: prefix -> the
 # ROADMAP.md Queue 1 item that brings them
 UNPORTED_ROUTES = (
-    ("/debug/timeseries", 7),
     ("/static/", 9),
 )
 
@@ -400,6 +416,7 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
     qmon = QualityMonitor("voice", metrics=tracer.metrics)
     live_sessions = {"n": 0}
     capacity_sessions = int(os.environ.get("VOICE_CAPACITY_SESSIONS", "0"))
+    ring = service_ring("voice", tracer)
     get_metrics().set_gauge("voice.live_sessions", 0)
 
     # the brain's /health keys forwarded into ours, refreshed in the
@@ -445,12 +462,17 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
         fwd = await _brain_engine_health()
         if fwd is not None:
             body["brain"] = fwd
+        from ..serve.stt_replicas import current_tier
+
+        tier = current_tier()
+        if tier is not None:
+            body["stt_replicas"] = tier.tier_health()
         # degraded still serves (that is the point): 200 either way
         return wslib.Response(200, body)
 
     async def route(req: wslib.Request) -> wslib.Response:
         served = req.path in ("/health", "/metrics", "/debug/quality",
-                              "/debug/flightrecorder", "/debug/costs") or (
+                              "/debug/flightrecorder", "/debug/costs", TIMESERIES_ROUTE) or (
             req.path.startswith(TRACE_ROUTE) and len(req.path) > len(TRACE_ROUTE))
         if served:
             if req.method != "GET":
@@ -464,6 +486,8 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
                 return qmon.response()
             if req.path == "/debug/flightrecorder":
                 return flightrecorder_response("voice", req)
+            if req.path == TIMESERIES_ROUTE:
+                return timeseries_response(ring, req)
             if req.path == "/debug/costs":
                 # the STT share of the cost meter, over the live engines
                 return wslib.Response(200, {"service": "voice", "enabled": cost_enabled(),
@@ -958,7 +982,16 @@ def build_app(cfg: VoiceConfig | None = None, tracer: Tracer | None = None) -> w
             state.drop_spec()
             state.drop_feed()
 
-    return wslib.App(http=route, websockets={"/stream": stream})
+    async def start_ring() -> None:
+        ring.start()
+
+    async def stop_ring() -> None:
+        ring.stop()
+
+    app = wslib.App(http=route, websockets={"/stream": stream}, on_startup=[start_ring],
+                    on_cleanup=[stop_ring])
+    app.ring = ring
+    return app
 
 
 async def _serve_forever(app: wslib.App, host: str, port: int) -> None:

@@ -14,11 +14,19 @@ service uses:
   (aiohttp's 8 MiB in the voice service) is closed with 1009. Plain
   responses carry ``Connection: close``.
 - ``connect(url)``: the client side, with masked frames.
-- ``HTTPClient``: JSON ``POST`` / ``GET`` with ``Connection: close``, read to
-  ``Content-Length`` or EOF. It raises ``ConnectError`` when no connection
-  was made (the request never reached the server, so a retry is safe) and
-  ``ReadError`` when the exchange failed after the request was sent.
-  Cancelling the awaiting task closes the socket.
+- ``HTTPClient``: ``POST`` / ``GET`` with ``Connection: close``, a JSON
+  body or raw ``content`` bytes, the response read to ``Content-Length``,
+  through ``Transfer-Encoding: chunked`` or to EOF; ``stream`` yields a
+  response's body chunks as they arrive (the router pumps a brain's KV
+  frames while the export still computes). It raises ``ConnectError`` when
+  no connection was made (the request never reached the server, so a retry
+  is safe) and ``ReadError`` when the exchange failed after the request was
+  sent. Cancelling the awaiting task closes the socket.
+- Handler cancellation (aiohttp's ``handler_cancellation``, which every
+  JAX service turns on): an HTTP handler is cancelled when the client
+  closes the connection before the answer; a forward the handler awaits is
+  cancelled with it and closes its own socket, so the cancellation crosses
+  every hop.
 
 A ``WebSocket`` reads its peer on a task of its own, so pings and closes are
 answered while the handler awaits something else, and a connection lost
@@ -369,24 +377,32 @@ class Request:
 @dataclass
 class Response:
     """A plain response: a dict body goes out as JSON, a ``str`` body as
-    text (``Content-Type`` from ``headers``, default ``text/plain``)."""
+    text, a ``bytes`` body as it is (``Content-Type`` from ``headers``,
+    default ``text/plain`` or ``application/octet-stream``)."""
 
     status: int
-    body: dict | str = field(default_factory=dict)
+    body: dict | str | bytes = field(default_factory=dict)
     headers: dict = field(default_factory=dict)
 
 
 @dataclass
 class App:
     """What ``serve`` serves: ``http(Request) -> Response`` for plain
-    requests, and ``websockets[path](WebSocket, Request)`` for upgrades."""
+    requests, and ``websockets[path](WebSocket, Request)`` for upgrades.
+    ``on_startup`` / ``on_cleanup``: coroutine functions ``serve`` awaits
+    before listening and ``stop`` after closing. An HTTP handler whose
+    client closes the connection first is cancelled."""
 
     http: object
     websockets: dict
+    on_startup: list = field(default_factory=list)
+    on_cleanup: list = field(default_factory=list)
 
 
 async def _respond(writer: asyncio.StreamWriter, resp: Response) -> None:
-    if isinstance(resp.body, str):
+    if isinstance(resp.body, bytes):
+        data, ctype = resp.body, "application/octet-stream"
+    elif isinstance(resp.body, str):
         data, ctype = resp.body.encode(), "text/plain; charset=utf-8"
     else:
         data, ctype = json.dumps(resp.body).encode(), "application/json; charset=utf-8"
@@ -430,7 +446,9 @@ async def _serve_connection(app: App, reader, writer) -> None:
         handler = app.websockets.get(path)
         if handler is None:
             try:
-                resp = await app.http(req)
+                resp = await _cancellable(app.http(req), reader)
+                if resp is None:
+                    return  # the client is gone: nobody to answer
             except Exception as e:  # noqa: BLE001 - the listener must keep serving
                 log.exception("%s %s failed", method, path)
                 resp = Response(500, {"error": "internal", "detail": str(e)[:300]})
@@ -466,10 +484,42 @@ async def _serve_connection(app: App, reader, writer) -> None:
         writer.close()
 
 
+async def _cancellable(coro, reader: asyncio.StreamReader):
+    """Await an HTTP handler while watching its connection: a client that
+    closes it first (EOF or a reset on the read side) cancels the handler
+    and gets None. Bytes the client sends after its request are left
+    unread."""
+    task = asyncio.ensure_future(coro)
+    watch = asyncio.ensure_future(reader.read(1))
+    try:
+        while True:
+            done, _ = await asyncio.wait({task, watch}, return_when=asyncio.FIRST_COMPLETED)
+            if task in done:
+                return task.result()
+            try:
+                gone = watch.result() == b""
+            except (ConnectionError, OSError):
+                gone = True
+            if gone:
+                task.cancel()
+                await asyncio.wait({task})  # its cleanup runs; our own cancel still raises
+                if not task.cancelled():
+                    task.exception()  # retrieved: a handler's late fault is no answer
+                return None
+            await task  # a pipelined byte: stop watching, finish the request
+            return task.result()
+    finally:
+        watch.cancel()
+        task.cancel()
+
+
 async def serve(app: App, host: str = "127.0.0.1", port: int = 0) -> asyncio.base_events.Server:
-    """Start serving ``app``; ``port=0`` picks a free port
-    (``server.sockets[0].getsockname()[1]``). Closing the server and
-    cancelling the tasks in ``server.connections`` stops it."""
+    """Start serving ``app`` (its ``on_startup`` hooks first); ``port=0``
+    picks a free port (``server.sockets[0].getsockname()[1]``). ``stop``
+    closes the server, cancels the tasks in ``server.connections`` and runs
+    the app's ``on_cleanup`` hooks."""
+    for hook in app.on_startup:
+        await hook()
     conns: set[asyncio.Task] = set()
 
     async def on_connect(reader, writer):
@@ -482,6 +532,7 @@ async def serve(app: App, host: str = "127.0.0.1", port: int = 0) -> asyncio.bas
 
     server = await asyncio.start_server(on_connect, host, port, limit=MAX_HEAD)
     server.connections = conns
+    server.app = app
     return server
 
 
@@ -491,6 +542,11 @@ async def stop(server) -> None:
     for t in tasks:
         t.cancel()
     await asyncio.gather(*tasks, return_exceptions=True)
+    for hook in server.app.on_cleanup:
+        try:
+            await hook()
+        except Exception:  # noqa: BLE001 - every hook runs; a failed one is logged
+            log.exception("cleanup hook %r failed", hook)
 
 
 class ServerThread:
@@ -586,28 +642,26 @@ class HTTPResponse:
 
 
 class HTTPClient:
-    """JSON over HTTP/1.1, one connection a request (``Connection: close``).
-    ``timeout`` bounds the connect and, again, the exchange after it."""
+    """HTTP/1.1, one connection a request (``Connection: close``). A body
+    is ``json`` (sent as ``application/json``) or raw ``content`` bytes
+    (its ``Content-Type`` from ``headers``). ``timeout`` bounds the
+    connect and, again, the exchange after it."""
 
-    async def post(self, url: str, json=None, headers=None, timeout: float | None = None):
-        return await self.request("POST", url, json=json, headers=headers, timeout=timeout)
+    async def post(self, url: str, json=None, headers=None, timeout: float | None = None,
+                   content: bytes | None = None):
+        return await self.request("POST", url, json=json, headers=headers, timeout=timeout,
+                                  content=content)
 
     async def get(self, url: str, headers=None, timeout: float | None = None):
         return await self.request("GET", url, headers=headers, timeout=timeout)
 
     async def request(self, method: str, url: str, json=None, headers=None,
-                      timeout: float | None = None) -> HTTPResponse:
+                      timeout: float | None = None, content: bytes | None = None) -> HTTPResponse:
         u = urlsplit(url)
-        try:
-            reader, writer = await asyncio.wait_for(
-                asyncio.open_connection(u.hostname, u.port or 80, limit=MAX_HEAD), timeout)
-        except asyncio.TimeoutError as e:
-            raise ConnectTimeout("timed out connecting") from e
-        except OSError as e:
-            raise ConnectError("All connection attempts failed") from e
+        reader, writer = await _open(u, timeout)
         try:
             return await asyncio.wait_for(
-                self._exchange(reader, writer, method, u, json, headers), timeout)
+                self._exchange(reader, writer, method, u, json, content, headers), timeout)
         except asyncio.TimeoutError as e:
             raise ReadTimeout("timed out waiting for the response") from e
         except (OSError, ValueError, asyncio.IncompleteReadError,
@@ -616,22 +670,127 @@ class HTTPClient:
         finally:
             writer.close()  # also when the awaiting task is cancelled
 
+    def stream(self, method: str, url: str, json=None, headers=None,
+               timeout: float | None = None, content: bytes | None = None) -> "StreamedResponse":
+        """``async with client.stream(...) as resp``: the status and
+        headers on entry, then ``async for chunk in resp.aiter_bytes()``
+        yields the body as it arrives (each read bounded by ``timeout``).
+        Leaving the block closes the connection."""
+        return StreamedResponse(method, url, json, content, headers, timeout)
+
     @staticmethod
-    async def _exchange(reader, writer, method, u, body, headers) -> HTTPResponse:
-        data = b"" if body is None else json.dumps(body).encode()
+    async def _send_head(reader, writer, method, u, body, content, headers) -> tuple[int, Headers]:
+        if content is not None:
+            data = bytes(content)
+        else:
+            data = b"" if body is None else json.dumps(body).encode()
         head = {"Host": u.netloc, "Accept": "*/*", "Connection": "close"}
         if body is not None:
             head["Content-Type"] = "application/json"
-        if body is not None or method == "POST":
+        if body is not None or content is not None or method == "POST":
             head["Content-Length"] = str(len(data))
         head.update(headers or {})
         target = (u.path or "/") + (f"?{u.query}" if u.query else "")
         writer.write(_head_bytes(f"{method} {target} HTTP/1.1", head) + data)
         await writer.drain()
         first, rh = await _read_head(reader)
-        status = int(first.split(" ")[1])
-        if "chunked" in _tokens(rh.get("transfer-encoding")):
-            raise ValueError("chunked responses are not read (Content-Length or EOF only)")
-        n = rh.get("content-length")
-        content = await reader.readexactly(int(n)) if n is not None else await reader.read()
-        return HTTPResponse(status, rh, content)
+        return int(first.split(" ")[1]), rh
+
+    @classmethod
+    async def _exchange(cls, reader, writer, method, u, body, content, headers) -> HTTPResponse:
+        status, rh = await cls._send_head(reader, writer, method, u, body, content, headers)
+        parts = [chunk async for chunk in _body_chunks(reader, rh)]
+        return HTTPResponse(status, rh, b"".join(parts))
+
+
+async def _open(u, timeout: float | None):
+    try:
+        return await asyncio.wait_for(
+            asyncio.open_connection(u.hostname, u.port or 80, limit=MAX_HEAD), timeout)
+    except asyncio.TimeoutError as e:
+        raise ConnectTimeout("timed out connecting") from e
+    except OSError as e:
+        raise ConnectError("All connection attempts failed") from e
+
+
+async def _body_chunks(reader: asyncio.StreamReader, rh: Headers, timeout: float | None = None):
+    """A response body as it arrives: ``Transfer-Encoding: chunked`` one
+    chunk at a time (a connection closed before the last chunk raises
+    ``IncompleteReadError``), else to ``Content-Length``, else to EOF."""
+
+    async def within(aw):
+        return await (asyncio.wait_for(aw, timeout) if timeout is not None else aw)
+
+    if "chunked" in _tokens(rh.get("transfer-encoding")):
+        while True:
+            line = await within(reader.readuntil(b"\r\n"))
+            n = int(line.split(b";", 1)[0].strip() or b"0", 16)
+            if n == 0:
+                await within(reader.readuntil(b"\r\n"))  # the empty trailer
+                return
+            data = await within(reader.readexactly(n + 2))
+            yield data[:-2]
+        return
+    n = rh.get("content-length")
+    if n is not None:
+        left = int(n)
+        while left > 0:
+            data = await within(reader.read(min(left, 1 << 16)))
+            if not data:
+                raise asyncio.IncompleteReadError(b"", left)
+            left -= len(data)
+            yield data
+        return
+    while True:
+        data = await within(reader.read(1 << 16))
+        if not data:
+            return
+        yield data
+
+
+class StreamedResponse:
+    """``HTTPClient.stream``'s context: ``status_code`` and ``headers`` on
+    entry, ``aiter_bytes()`` / ``aread()`` for the body."""
+
+    def __init__(self, method, url, body, content, headers, timeout):
+        self._args = (method, urlsplit(url), body, content, headers)
+        self._timeout = timeout
+        self._writer = None
+        self.status_code = 0
+        self.headers = Headers()
+
+    async def __aenter__(self) -> "StreamedResponse":
+        method, u, body, content, headers = self._args
+        self._reader, self._writer = await _open(u, self._timeout)
+        try:
+            self.status_code, self.headers = await asyncio.wait_for(
+                HTTPClient._send_head(self._reader, self._writer, method, u, body, content,
+                                      headers), self._timeout)
+        except asyncio.TimeoutError as e:
+            self._writer.close()
+            raise ReadTimeout("timed out waiting for the response") from e
+        except (OSError, ValueError, asyncio.IncompleteReadError,
+                asyncio.LimitOverrunError) as e:
+            self._writer.close()
+            raise ReadError(f"{type(e).__name__}: {e}") from e
+        except BaseException:
+            self._writer.close()
+            raise
+        return self
+
+    async def __aexit__(self, *exc) -> bool:
+        self._writer.close()
+        return False
+
+    async def aiter_bytes(self):
+        try:
+            async for chunk in _body_chunks(self._reader, self.headers, self._timeout):
+                yield chunk
+        except asyncio.TimeoutError as e:
+            raise ReadTimeout("timed out reading the response") from e
+        except (OSError, ValueError, asyncio.IncompleteReadError,
+                asyncio.LimitOverrunError) as e:
+            raise ReadError(f"{type(e).__name__}: {e}") from e
+
+    async def aread(self) -> bytes:
+        return b"".join([c async for c in self.aiter_bytes()])

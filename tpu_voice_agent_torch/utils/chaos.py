@@ -24,11 +24,12 @@ the voice service's binary frames, ``stt_garble`` in
 ``serve.stt.finalize_stt_ids``, ``intent_downgrade``, ``replica_kill`` /
 ``replica_hang`` / ``replica_slow`` / ``replica_degrade`` on the brain's
 ``POST /parse``, ``replica_join_stall`` on its ``POST /admin/handoff``
-(it sleeps ``CHAOS_HANG_S``) and ``prefill_replica_kill`` between the frame
-writes of its ``POST /admin/disagg/prefill``.
-``check_served_points`` refuses at boot a spec that arms a point the port
-does not serve yet (``UNSERVED_POINTS``, with the ROADMAP.md Queue 1 item
-that brings it).
+(it sleeps ``CHAOS_HANG_S``), ``prefill_replica_kill`` between the frame
+writes of its ``POST /admin/disagg/prefill``, and ``stt_replica_kill`` /
+``stt_replica_hang`` in ``serve.stt_batch.STTBatcher``'s worker (a kill as
+it takes a batch, a ``CHAOS_HANG_S`` sleep before one).
+The port serves every point of JAX's plane; ``check_served_points`` refuses
+at boot a spec naming an unknown one.
 """
 
 from __future__ import annotations
@@ -42,10 +43,6 @@ KNOWN_POINTS = ("nan_logits", "dead_fsm", "prefill_exc", "alloc_fail",
                 "replica_slow", "replica_degrade", "stt_replica_kill",
                 "stt_replica_hang", "stt_garble", "intent_downgrade",
                 "replica_join_stall", "prefill_replica_kill")
-
-# points of JAX's plane whose code path the port does not have yet -> the
-# ROADMAP.md Queue 1 item that brings it
-UNSERVED_POINTS = {"stt_replica_kill": 5, "stt_replica_hang": 5}
 
 
 class ChaosError(RuntimeError):
@@ -154,13 +151,7 @@ def chaos_fire(point: str) -> bool:
 
 def check_served_points() -> None:
     """Refuse at boot a ``CHAOS_FAULTS`` that names an unknown point
-    (``Chaos``'s own ``ValueError``) or arms one the port does not serve
-    yet, naming its ROADMAP.md Queue 1 item."""
+    (``Chaos``'s own ``ValueError``)."""
     raw = os.environ.get("CHAOS_FAULTS", "").strip()
-    if not raw:
-        return
-    for point in Chaos(raw).rules:
-        item = UNSERVED_POINTS.get(point)
-        if item is not None:
-            raise ValueError(f"CHAOS_FAULTS={raw!r}: the chaos point {point!r} is not ported "
-                             f"yet (ROADMAP.md Queue 1 item {item}); unset it")
+    if raw:
+        Chaos(raw)

@@ -168,6 +168,16 @@ class Metrics:
         with self._lock:
             return dict(self._gauges)
 
+    def counter_state(self) -> tuple[dict[str, float], dict[str, tuple[float, int]]]:
+        """Cumulative copies for rate derivation (one lock hold, no
+        reservoir sorting): the counters and each histogram's running
+        ``(sum_ms, count)``. The time-series ring (``utils.timeseries``)
+        differences consecutive reads into per-second rates and window
+        means."""
+        with self._lock:
+            return (dict(self._counters),
+                    {k: (v["sum"], v["count"]) for k, v in self._hist.items()})
+
     def collisions(self) -> list[tuple[str, str, str]]:
         """(name, first_kind, other_kind) for every name registered as two
         different metric types."""
