@@ -5,9 +5,12 @@
 
 Phases, in order (any failure exits nonzero and prints no result line):
 
-1. card     - the card's name and power limit (nvidia-smi).
+1. card     - the card's first touch under the bring-up watchdog
+              (``utils.devinit.require_card``), its name and power limit
+              (nvidia-smi).
 2. build    - nvcc builds ``tpu_voice_agent_torch/csrc/*.cu`` (one process
-              per source, started together) into the kernel library.
+              per source, started together) into the kernel library; the
+              compile sentinel records it as one ``ops._lib.build`` event.
 3. kernels  - each kernel at the main path's shapes against its plain PyTorch
               version on the card: max abs error vs a stated tolerance, kernel
               / plain / library ms, and the least time the card could take;
@@ -16,7 +19,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
               so two builds can be held to the same bits, and K5's and K6's
               to K9's bf16 outputs held equal over two calls. K5 also at the
               batched STT plane's B = 4, kv_len (1500, 1000, 500, 0), with
-              NaN past each kv_len. K4 and K11 are
+              NaN past each kv_len. K8, K9 and K10 also at head dim 128,
+              mixtral-8x7b's 32/8 heads (K9 at its (8, 9) drain block, K8
+              at its T = 1 step, K10 at a dense (1, 2048, 8, 128) cache),
+              int8 and int4, bf16 and fp32 queries. K4 and K11 are
               held exactly over every state of the intent grammar and timed
               warm and cold (L2 flushed, new states each launch) at the
               path's rows, beside the launch floor.
@@ -86,7 +92,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               bf16 activations within 32 bf16 ulps of the top-2 margin, in
               a twin with fp32 activations within one); TTFT
               of 8 short requests behind one 1000-token prompt, chunking
-              off / 256 / 16 (a reading); the step ledger over 3 drains at
+              off / 256 / 16 (a reading); the step ledger over 2 drains at
               ff 8 and ff 0 (every step's stages tile its wall within 5%;
               the median stage split, admitting and decode-only steps); a
               brain over HTTP at max_inflight 2 (4 concurrent parses: 503 +
@@ -110,7 +116,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               ``/debug/costs`` reports MFU and MBU against the H100 entry.
 11e. handoff - the brain's warm state at tinyllama-1.1b int8 (32 slots, 513
               blocks of 128, radix on, the cached prefix): per pool tier
-              (bf16, int8, int4) 8 sessions play 2 turns on a donor engine,
+              (bf16, int8, int4) 4 sessions play 2 turns on a donor engine,
               each is exported and POSTed to ``/admin/handoff`` on a port
               brain around a recipient engine, and turn 3 runs batched on
               both: the recipient's tokens equal the donor's stay-home ones
@@ -128,7 +134,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
               wall. Prefix feeds: 4 prompts fed as growing prefixes, then
               parsed, against the same unfed (cached tokens, the admitting
               step's prefill ms). The watchdog drill: CHAOS_FAULTS=
-              stall_step@2, CHAOS_STALL_S=8, ENGINE_STALL_S=5, 8 parses
+              stall_step@2, ENGINE_STALL_S 5 s (or 3x a fresh run's
+              slowest step), CHAOS_STALL_S 3 s past it, 8 parses
               decoding over HTTP when step 2 stalls: each fails with JAX's
               text, one ``engine.restarts``, no kernel launch from the
               stalled thread after the supersede, and the next 32 parses
@@ -165,6 +172,17 @@ Phases, in order (any failure exits nonzero and prints no result line):
               parses in flight (all 200), the retired brain's blocks back to
               its tree. Each drill's wall, the router's counters and each
               brain's K1 / K3 / K4 / K6 / K7 calls by its serving threads.
+11g. devobs - device observability on the batch cell's brain (tinyllama
+              int8, ff 8, 8 paged slots, the service phase's weights): the
+              build's sentinel event; every site cold again, the warm-up
+              parses' events; the fence armed, a repeated parse pays no
+              event, a prompt in the cold 64-token suffix bucket exactly
+              one, named, in ``/health``'s warning, in
+              ``xla.compiles_post_fence`` and on its step in the ledger;
+              the HBM ledger's plan against the engine's tensors and
+              ``torch.cuda.memory_stats``; the ``_qe`` dequant audit of a
+              decode step (count, MB); a ``capture_profile`` Chrome trace
+              (``chiprun_out/devobs/trace.json``).
 11c. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
 12. golden  - the distilled intent checkpoint parses the golden utterances and
@@ -233,7 +251,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               IncrementalState fed the same audio): equal tokens, or a
               parting within 32 bf16 ulps of the B = 1 decoder's top-2
               margin; on fp32 copies of the weights within one (K1, K5 at
-              B = 4 with ragged kv_len). Then the voice service's 3 paced
+              B = 4 with ragged kv_len). Then the voice service's 2 paced
               utterances behind the rule brain and a stub executor on the
               batched plane on 3 connections at once (each the same
               audio: a one-connection run repeated it, so it went): the drain
@@ -251,21 +269,30 @@ Phases, in order (any failure exits nonzero and prints no result line):
               package's recorded token ids, through K1 and K5.
 20. moe     - the MoE decoder, last (its engines take 46 GB each): the
               mixtral-test engine in fp32 on one weight set, grouped (K13) on
-              the card against dense on the card and grouped on the CPU, 16
+              the card against dense on the card and grouped on the CPU, 8
               prompts token-identical or parted at a near tie; then
               BRAIN_BACKEND=engine:mixtral-8x7b BRAIN_QUANT=int8 behind
-              BrainApp, BRAIN_MOE=grouped and then dense: 3 /parse each, 200
+              BrainApp, BRAIN_MOE=grouped and then dense: 3 /parse (dense:
+              1), 200
               and grammar-valid, K13 exactly 3 x 32 launches a forward (0 on
               the dense dispatch), the peak allocation under the card's
               memory; then BRAIN_PAGED=1 BRAIN_BATCH=8 grouped, an 8-session
-              drain through K7 and K13.
+              drain through K7 and K13; then, over that engine's weight
+              tensors, the same drain under KV_QUANT=int8 and int4 (K9,
+              K13; K6 and K7 never) and int8 at ff 0 (K8), agreement with
+              the bf16 drain reported, and ``/health`` of each pool reading
+              256 / 130 / 66 bytes a (position, kv head) with the HBM plan's
+              drift within ``HBM_DRIFT_WARN``; last the fp32-activation twin
+              at mixtral-8x7b's attention widths cut to 2 layers and ffn 512
+              (int8 and int4, the card against the CPU, token-identical or
+              parted at a near tie).
 21. the kernels JSON line, the card line, and the final JSON line.
 
 Every launch counter is set to 0 just before each of phases 4-20 (each of the
 voice_service phase's four runs) and read just after; a kernel's
 ``launches`` is the sum over those runs (the kernel-alone comparisons of
 phase 3 are not counted). The port imports no JAX. Weights are random from a
-seed (phases 3-11f but 11e's drain, 16, 17, 18's first two runs, 18b, 20) or
+seed (phases 3-11g but 11e's drain, 16, 17, 18's first two runs, 18b, 20) or
 committed checkpoints (11e's drain, 12-15, 18's last two runs, 19). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 
@@ -274,6 +301,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -424,6 +452,12 @@ def bound(nbytes: float, flops: float, peak_flops: float = BF16_FLOPS) -> tuple[
 
 
 def phase_card() -> str:
+    """The card's first touch under the bring-up watchdog
+    (``utils.devinit.require_card``: a hang exits naming the card, a failure
+    raises), then its name and power limit from nvidia-smi."""
+    from tpu_voice_agent_torch.utils.devinit import require_card
+
+    log(f"[card] cuda:0 up: {require_card()}")
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -433,17 +467,25 @@ def phase_card() -> str:
     return line
 
 
-def phase_build() -> float:
+def phase_build(report: dict) -> float:
+    """nvcc over ``csrc/`` (ptxas's registers and spills to the log); the
+    compile sentinel's ``ops._lib.build`` event of a build that compiled
+    goes into the report for the devobs phase."""
     from tpu_voice_agent_torch.ops import _lib
+    from tpu_voice_agent_torch.utils.compilewatch import get_compile_watcher
 
     _lib.build(verbose=True)
     info = dict(_lib.BUILD_INFO)  # library() below re-checks the cache
+    report["build_event"] = next((e for e in get_compile_watcher().events()
+                                  if e["site"] == "ops._lib.build"), None)
+    fail_if(not info["cached"] and report["build_event"] is None,
+            "build: the compile sentinel recorded no ops._lib.build event")
     _lib.library()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as f:
         f.write(info["log"])
     for ln in info["log"].splitlines():
-        if "registers" in ln or "spill" in ln:
+        if "registers" in ln or "spill" in ln or ln.startswith("== "):
             log(f"[build] {ln.strip()}")
     log(f"[build] nvcc built {len(_lib.SOURCES)} sources in {info['seconds']:.2f} s "
         f"(cached={info['cached']})")
@@ -775,6 +817,7 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
 
     rows.update(_paged_kernel_rows(g, randn))
     rows.update(_quant_kernel_rows(g, randn, n))
+    _quant_moe_rows(g, randn, rows)
     rows.update(_gmm_kernel_rows(g))
 
     rows.update(_grammar_kernel_rows(fsm, g))
@@ -1528,6 +1571,114 @@ def _paged_moe_row(g, randn, lens):
         cuda_ms(lambda: F.scaled_dot_product_attention(q1[:, :, None], kh, vh,
                                                        attn_mask=mask6), iters=100))
     return row, row6, attn_err([(out, ref)]), attn_err([(out6, ref6)])
+
+
+def _quant_moe_rows(g, randn, rows: dict) -> None:
+    """K8, K9 and K10 at head dim 128: mixtral-8x7b's widths (32/8 heads of
+    128) under KV_QUANT int8 and int4. K9 at the 8-slot drain's (8, 9)
+    chain blocks and K8 at its T = 1 step, over a one-layer pool of blocks
+    of 128 with the prefix's 6 blocks shared (kv_len 900-1050); K10 at a
+    dense (1, 2048, 8, 128) cache at kv_len 944. bf16 queries (the main
+    path's) are timed; fp32 queries (the fp32 body) are held too. The
+    library yardstick is SDPA on a pre-gathered, pre-dequantized bf16 copy.
+    Each pair's error folds into its kernel's row; each is also held to two
+    calls giving the same bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import (
+        decode_attention_quant_reference,
+        paged_attention_quant_reference,
+        paged_block_attention_quant_reference,
+    )
+    from tpu_voice_agent_torch.ops.kvquant import KV_QUANT_VBYTES, KV_SCALE_BYTES, dequantize_kv
+    from tpu_voice_agent_torch.ops.paged_attention import gather_pages_dequant
+
+    dev = torch.device("cuda")
+    B, nq, nkv, hd, bs, n10 = 8, 32, 8, 128, 128, 944
+    group = nq // nkv
+    lens = torch.randint(900, 1051, (B,), generator=torch.Generator().manual_seed(3))
+    tables, N = _paged_tables(g, B, 6, lens, bs, 16)
+    kv_len = lens.to(torch.int32).to(dev)
+    chain = torch.randint(0, 9, (B,), generator=torch.Generator().manual_seed(8)).to(dev)
+    iw = torch.arange(9, device=dev)[None, :]
+    qpos = (kv_len[:, None] - 10 + torch.minimum(iw, chain[:, None])).to(torch.int32)
+    q = randn(B, 9, nq, hd)
+    q1 = q[:, 0].contiguous()
+    q10, kv10 = randn(1, nq, hd), torch.tensor([n10], dtype=torch.int32, device=dev)
+    S = tables.shape[1] * bs
+    s_idx = torch.arange(S, device=dev)
+    mask9 = (s_idx[None, None, :] <= qpos[:, :, None])[:, None]
+    mask8 = (s_idx[None, :] < kv_len[:, None])[:, None, None, :]
+    shared, keys9 = 6 * bs, qpos.amax(dim=1) + 1
+    io9 = 2 * 2 * B * 9 * nq * hd + 4 * qpos.numel() + 4 * tables.numel()
+    io8 = 2 * 2 * B * nq * hd + 4 * B + 4 * tables.numel()
+    names = {"8": "paged_attention_quant", "9": "paged_block_attention_quant",
+             "10": "decode_attention_quant"}
+    for tier, bits in (("int8", 8), ("int4", 4)):
+        kp, ks = _quant_values(g, (1, N, bs, nkv, hd), tier)
+        vp, vs = _quant_values(g, (1, N, bs, nkv, hd), tier)
+        kc, kcs = _quant_values(g, (1, 2048, nkv, hd), tier)
+        vc, vcs = _quant_values(g, (1, 2048, nkv, hd), tier)
+        k9 = lambda x: ops.paged_block_attention_quant(x, kp, vp, ks, vs, tables, qpos, 0,
+                                                       bits=bits)
+        p9 = lambda x: paged_block_attention_quant_reference(x, kp, vp, ks, vs, tables, qpos, 0,
+                                                             bits=bits)
+        k8 = lambda x: ops.paged_attention_quant(x, kp, vp, ks, vs, tables, kv_len, 0, bits=bits)
+        p8 = lambda x: paged_attention_quant_reference(x, kp, vp, ks, vs, tables, kv_len, 0,
+                                                       bits=bits)
+        k10 = lambda x: ops.decode_attention_quant(x, kc, vc, kcs, vcs, kv10, bits=bits)
+        p10 = lambda x: decode_attention_quant_reference(x, kc, vc, kcs, vcs, kv10, bits=bits)
+        pairs = {"9": [(k9(x), p9(x)) for x in (q, q.float())],
+                 "8": [(k8(x), p8(x)) for x in (q1, q1.float())],
+                 "10": [(k10(x), p10(x)) for x in (q10, q10.float())]}
+        for key, fn, x in (("9", k9, q), ("8", k8, q1), ("10", k10, q10)):
+            fail_if(not torch.equal(fn(x), fn(x)),
+                    f"{names[key]} (hd 128, {tier}): two calls on the same inputs differ")
+        kh = gather_pages_dequant(kp, ks, tables, 0, bits).to(torch.bfloat16)
+        vh = gather_pages_dequant(vp, vs, tables, 0, bits).to(torch.bfloat16)
+        kh = kh.transpose(1, 2).repeat_interleave(group, 1)
+        vh = vh.transpose(1, 2).repeat_interleave(group, 1)
+        kd = dequantize_kv(kc[:, :n10], kcs[:, :n10], tier).transpose(1, 2)
+        vd = dequantize_kv(vc[:, :n10], vcs[:, :n10], tier).transpose(1, 2)
+        kd, vd = kd.repeat_interleave(group, 1), vd.repeat_interleave(group, 1)
+        kv_row = 2 * nkv * (hd * KV_QUANT_VBYTES[tier] + KV_SCALE_BYTES[tier])
+        timed = {
+            "9": ("(8, 9) chain blocks", cuda_ms(lambda: k9(q), iters=100),
+                  cuda_ms(lambda: p9(q), iters=5),
+                  *bound(io9 + (shared + float((keys9 - shared).sum())) * kv_row,
+                         4 * nq * hd * float((qpos + 1).sum())),
+                  cuda_ms(lambda: F.scaled_dot_product_attention(
+                      q.transpose(1, 2), kh, vh, attn_mask=mask9), iters=100)),
+            "8": ("the T = 1 step", cuda_ms(lambda: k8(q1), iters=100),
+                  cuda_ms(lambda: p8(q1), iters=5),
+                  *bound(io8 + (shared + float((kv_len - shared).sum())) * kv_row,
+                         4 * nq * hd * float(kv_len.sum())),
+                  cuda_ms(lambda: F.scaled_dot_product_attention(
+                      q1[:, :, None], kh, vh, attn_mask=mask8), iters=100)),
+            "10": (f"a dense (1, 2048, 8, 128) cache at kv_len {n10}",
+                   cuda_ms(lambda: k10(q10), iters=100), cuda_ms(lambda: p10(q10), iters=5),
+                   *bound(2 * 2 * nq * hd + 4 + n10 * kv_row, 4 * nq * hd * n10),
+                   cuda_ms(lambda: F.scaled_dot_product_attention(q10[:, :, None], kd, vd),
+                           iters=100)),
+        }
+        for key, name in names.items():
+            err, ratio = attn_err(pairs[key])
+            log(f"[kernels]   {name} hd 128 {tier} pairs (bf16, fp32 q): " + ", ".join(
+                f"{e:.3g} ({r:.3g})" for e, r in (attn_err([pr]) for pr in pairs[key])))
+            fail_if(not ratio <= 1.0, f"{name} (hd 128, {tier}): error {ratio:.3g}x its "
+                    f"tolerance (max abs err {err})")
+            row = rows[name]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["err_over_tol"] = max(row["err_over_tol"], ratio)
+            label, *t = timed[key]
+            row[f"mixtral_{tier}"] = _extra_shape(
+                f"mixtral-8x7b, 32/8 heads of 128, {tier}: {label}"
+                + ("" if key == "10" else ", one pool layer of blocks of 128"), *t)
+        del kp, vp, ks, vs, kc, vc, kcs, vcs, kh, vh, kd, vd
+    for name in names.values():
+        rows[name]["tol"] = f"{ATTN_TOL} (bf16); {F32_TOL} (fp32, hd 48 and 128)"
 
 
 # K13 at mixtral-8x7b's widths (8 experts, top-2, dim 4096, ffn 14336): the
@@ -2384,8 +2535,6 @@ def phase_voice(stt_engine, totals: dict, report: dict) -> None:
     (``voicebench.run_neural_voice_bench``): the distilled parser and
     whisper-tiny-heldout, the acoustic-font renders of five eval texts, 9
     runs, each run's WER against the text it spoke."""
-    import math
-
     import torch
 
     from tpu_voice_agent_torch import voicebench
@@ -2446,13 +2595,12 @@ VOICE_EVENTS = {"transcript_partial", "transcript_final", "intent", "tts", "exec
                 "error"}
 # synth_utterance(2.0) + 1 s of silence each. voicebench runs 9, but at
 # SpeechEngine's defaults (64 new tokens) random large-v3 weights decode every
-# partial to the budget and the service falls ~16 s behind an utterance (PR
-# 13's 9-utterance run drained 146.7 s after the last frame): 3 keep the phase
-# near a minute and a half
-VOICE_AUDIO_UTTERANCES = 3
-# voice_service's locked plane takes 2 of them, for the script's time limit:
-# stt_batch's service run then drives the same paced audio through the
-# service on 3 connections x 3
+# partial to the budget and the service falls ~16 s behind an utterance (a
+# 9-utterance run drained 146.7 s after the last frame): 2, for the script's
+# time limit; stt_batch's service run drives them through the service on 3
+# connections
+VOICE_AUDIO_UTTERANCES = 2
+# voice_service's locked plane takes the same 2
 VOICE_LOCKED_UTTERANCES = 2
 # typed behind the distilled brain, whose intents are recorded
 # (intent_golden.json): one safe command, and one whose upload and click both
@@ -3697,7 +3845,7 @@ def _device_kernels(fn) -> int:
 
 def _chunk_lanes(eng, label: str) -> dict:
     """One batch chunk after 32 admissions, lanes on and off on the same
-    engine: its wall (median of 4, unprofiled, the two modes in turns) and
+    engine: its wall (median of 2, unprofiled, the two modes in turns) and
     the device kernels a 4-step chunk launches (profiled after its
     admissions; a short chunk keeps the profiler's trace small)."""
     import torch
@@ -3716,7 +3864,7 @@ def _chunk_lanes(eng, label: str) -> dict:
     # the walls in turns (on, off, off, on, ...), so a drift of the host
     # lands on both
     walls = {True: [], False: []}
-    for lanes in (True, False, False, True, True, False, False, True):
+    for lanes in (True, False, False, True):
         _set_lanes(eng, lanes)
         admit()
         t0 = time.perf_counter()
@@ -4052,7 +4200,7 @@ def _ttft_behind_long(eng, totals: dict) -> dict:
     return out
 
 
-def _stage_split(eng, label: str, totals: dict, drains: int = 3) -> dict:
+def _stage_split(eng, label: str, totals: dict, drains: int = 2) -> dict:
     """``drains`` clean 32-request drains with the step ledger on: every
     step's stages must tile its wall within 5%. The median per-stage ms of
     the full-batch steps, apart for the steps that admitted (their prefill
@@ -4232,7 +4380,7 @@ def _stt_lanes(eng) -> dict:
     """The STT lanes on one whisper-large-v3 transcribe (the 300-frame
     bucket): the same tokens with the lanes off, the lanes against an fp64
     log-softmax of the recorded step logits, and the transcribe's wall
-    (median of 4, the two modes in turns), and the device kernels an
+    (median of 2, the two modes in turns), and the device kernels an
     8-token transcribe launches, lanes on and off."""
     import torch
 
@@ -4264,7 +4412,7 @@ def _stt_lanes(eng) -> dict:
     # rounded to 4 decimals on the way out: half a step of that on top
     fail_if(err > QUALITY_FP64_TOL + 5e-5, f"stt lanes: {out['lanes']} against fp64 {ref}")
     runs = {True: [], False: []}
-    for lanes in (True, False, False, True, True, False, False, True):  # in turns
+    for lanes in (True, False, False, True):  # in turns
         eng.quality_lanes = lanes
         t0 = time.perf_counter()
         r = eng.transcribe(audio)
@@ -4670,7 +4818,7 @@ def phase_spec_golden(totals: dict, report: dict) -> None:
 # ------------------------------------------------------------------ MoE
 
 MOE_LAYERS = 32  # mixtral-8x7b: K13 runs gate, up and down in every layer
-MOE_IDENTITY_PROMPTS = 16
+MOE_IDENTITY_PROMPTS = 8  # a depth the script's time limit sets
 
 
 def _moved(tree, device):
@@ -4682,7 +4830,7 @@ def _moved(tree, device):
 
 def _moe_identity(totals: dict) -> dict:
     """The mixtral-test engine (4 experts, top-2) in fp32 on ONE weight set,
-    ff=8 behind the cached prefix, 16 prompts of 64 new tokens: the grouped
+    ff=8 behind the cached prefix, 8 prompts of 64 new tokens: the grouped
     dispatch on the card (K13) against the dense dispatch on the card (no
     K13), and against the grouped engine on the CPU (the plain versions).
     Token-identical, or parted only where the plain forward's top-2 margin
@@ -4780,7 +4928,7 @@ def phase_moe(totals: dict, report: dict, profile: bool = False) -> None:
     3 /parse requests, each a 200 with a grammar-valid intent, K13 launched
     exactly 3 x 32 times per forward (the prefix install, and each request's
     suffix prefill and decode forwards), the peak allocation under the card's
-    memory. Then the same parses on the dense dispatch (BRAIN_MOE unset, the
+    memory. Then the first of them on the dense dispatch (BRAIN_MOE unset, the
     same seed, so the same weights): K13 never launches; token agreement
     with the grouped parses is reported, not gated (bf16). Then
     BRAIN_PAGED=1 BRAIN_BATCH=8 grouped: an 8-session drain through K7 and
@@ -4790,11 +4938,12 @@ def phase_moe(totals: dict, report: dict, profile: bool = False) -> None:
 
     from tpu_voice_agent_torch.schemas import validate_parse_response
     from tpu_voice_agent_torch.services import brain
+    from tpu_voice_agent_torch.utils.hbm_budget import card_bytes
 
     _free_cuda()
     out = {"identity": _moe_identity(totals)}
     _free_cuda()
-    cap = torch.cuda.get_device_properties(0).total_memory
+    cap = card_bytes()
     per_forward = 3 * MOE_LAYERS
     for impl in ("grouped", "dense"):
         torch.cuda.reset_peak_memory_stats()
@@ -4813,7 +4962,9 @@ def phase_moe(totals: dict, report: dict, profile: bool = False) -> None:
                 f"{boot_counts['grouped_matmul']} times")
         rows = []
         with Counted(f"moe {impl}", totals) as c:
-            for text in UTTERANCES[:3]:
+            # the dense dispatch answers one parse (K13 never launches); the
+            # grouped one three
+            for text in UTTERANCES[:3 if impl == "grouped" else 1]:
                 t1 = time.perf_counter()
                 status, body, _ = app.parse(json.dumps({"text": text, "context": {}}).encode())
                 wall = (time.perf_counter() - t1) * 1e3
@@ -4874,9 +5025,171 @@ def phase_moe(totals: dict, report: dict, profile: bool = False) -> None:
             f"moe paged: {c.counts['grouped_matmul']} K13 launches, not whole forwards")
     row.update(boot_s=boot, peak_bytes=torch.cuda.max_memory_allocated())
     out["paged"] = row
-    del parser, eng
+    out["kvquant"] = _moe_kvquant(eng, _res, totals)
+    del parser, eng, _res
     _free_cuda()
+    out["kvquant_fp32"] = _moe_kvquant_fp32(totals)
     report["moe"] = out
+
+
+# bytes a (position, kv head) of the pool, values and scale, at head dim 128
+MOE_KV_BYTES = {None: 256, "int8": 130, "int4": 66}
+
+
+def _moe_health(eng, tier) -> dict:
+    """``/health`` of a brain around ``eng`` (HBM_LEDGER_S=0: this engine's
+    ledger): ``compile_sentinel`` and ``hbm`` present, the pool at
+    ``MOE_KV_BYTES`` a (position, kv head), ``hbm.plan_drift`` within
+    ``HBM_DRIFT_WARN``."""
+    from tpu_voice_agent_torch.services import brain
+
+    parser = brain.BatchedEngineParser(eng, max_new_tokens=BATCH_NEW_TOKENS)
+    try:
+        status, body, _ = brain.BrainApp(parser).health()
+    finally:
+        parser.close()
+    hbm, cfg = body.get("hbm", {}), eng.cfg
+    slots = 2 * cfg.n_layers * eng.allocator.n_blocks * eng.block_size * cfg.n_kv_heads
+    per = hbm.get("hbm.kv_pool_bytes", 0) / slots
+    drift, warn = hbm.get("hbm.plan_drift"), float(os.environ.get("HBM_DRIFT_WARN", "0.15"))
+    label = f"moe health {tier or 'bf16'}"
+    log(f"[{label}] /health {status}: kv_pool_bytes {hbm.get('hbm.kv_pool_bytes')} = {per:g} "
+        f"a (position, kv head), weights {hbm.get('hbm.weights_bytes')}, workspace "
+        f"{hbm.get('hbm.workspace_bytes')}, live {hbm.get('hbm.live_bytes')}, free "
+        f"{hbm.get('hbm.free_bytes')}, plan drift {drift}; compile sentinel "
+        f"{body.get('compile_sentinel')}")
+    fail_if(status != 200 or "compile_sentinel" not in body or per != MOE_KV_BYTES[tier]
+            or drift is None or abs(drift) > warn,
+            f"{label}: /health {status}, {per:g} bytes a (position, kv head) (want "
+            f"{MOE_KV_BYTES[tier]}), plan drift {drift} (warn {warn})")
+    return {"kv_pool_bytes": hbm["hbm.kv_pool_bytes"], "bytes_per_position_head": per,
+            "plan_drift": drift, "weights_bytes": hbm["hbm.weights_bytes"],
+            "workspace_bytes": hbm.get("hbm.workspace_bytes"),
+            "live_bytes": hbm.get("hbm.live_bytes"), "free_bytes": hbm.get("hbm.free_bytes")}
+
+
+def _moe_kvquant(base, bf16_res, totals: dict) -> dict:
+    """KV_QUANT at head dim 128 on the MoE brain: engines over the 8-slot
+    paged mixtral-8x7b engine's weight tensors (one weight set, a pool each:
+    the same slots, blocks and block count), int8 and int4 at ff 8 (K9 on
+    the chains) and int8 at ff 0 (K8), each an 8-session drain whose answers
+    are all ok and in the grammar; K6 and K7 never launch, K13 does. At ff 8
+    the sessions whose ids equal the bf16 drain's (the same weights) are
+    counted with each parting step, not gated. ``/health`` of a brain
+    around each engine (``_moe_health``): bf16, int8, int4 at 256, 130, 66
+    bytes a (position, kv head)."""
+    from tpu_voice_agent_torch.ops.kvquant import kv_block_bytes
+    from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+
+    cfg, ff8 = base.cfg, base.fast_forward
+    bf16_ids = [r.token_ids for r in bf16_res]
+    old = os.environ.get("HBM_LEDGER_S")
+    os.environ["HBM_LEDGER_S"] = "0"  # each /health exports its own engine's ledger
+    try:
+        out = {"health_bf16": _moe_health(base, None)}
+        for tier, ff, kernel in (("int8", ff8, "paged_block_attention_quant"),
+                                 ("int4", ff8, "paged_block_attention_quant"),
+                                 ("int8", 0, "paged_attention_quant")):
+            label = f"moe kvquant {tier} ff={ff}"
+            eng = PagedDecodeEngine(cfg=cfg, quant="int8", fast_forward=ff,
+                                    max_len=base.max_len, batch_slots=base.batch_slots,
+                                    prefill_buckets=base.prefill_buckets,
+                                    block_size=base.block_size,
+                                    pool_blocks=base.allocator.n_blocks, kv_quant=tier,
+                                    radix_enable=False, init_weights=False)
+            eng.load_params(base.params)
+            fail_if(eng.params["lm_head"] is not base.params["lm_head"]
+                    or eng.cfg.head_dim != 128 or eng.kv_quant != tier,
+                    f"{label}: not a head-dim-128 {tier} pool over the bf16 engine's weights")
+            row, res, c = _drain(eng, label, totals, sessions=8)
+            c.require(kernel, "grouped_matmul", "masked_argmax_advance")
+            for bf in ("paged_attention", "paged_block_attention"):
+                fail_if(c.counts.get(bf, 0) > 0, f"{label}: the bf16 kernel {bf} launched")
+            row.update(kv_bytes_per_block=eng.kv_bytes_per_block,
+                       kv_block_bytes=kv_block_bytes(cfg.n_layers, eng.block_size,
+                                                     cfg.n_kv_heads, cfg.head_dim, tier))
+            if ff == ff8:  # the bf16 drain ran at ff 8: fast-forward changes the stream
+                parts = [next((j for j, (x, y) in enumerate(zip(r.token_ids, ids)) if x != y),
+                              min(len(ids), len(r.token_ids)))
+                         for r, ids in zip(res, bf16_ids) if r.token_ids != ids]
+                row.update(same_as_bf16=len(res) - len(parts), parting_steps=parts)
+                log(f"[{label}] {row['same_as_bf16']} of {len(res)} sessions decode the bf16 "
+                    f"drain's ids (parting steps {parts}); {eng.kv_bytes_per_block} bytes a "
+                    "block")
+                row["health"] = _moe_health(eng, tier)
+            out[f"{tier}_ff{ff}"] = row
+            del eng, res
+            _free_cuda()
+    finally:
+        if old is None:
+            os.environ.pop("HBM_LEDGER_S", None)
+        else:
+            os.environ["HBM_LEDGER_S"] = old
+    return out
+
+
+MOE_TWIN_PROMPTS = 4
+MOE_TWIN_NEW_TOKENS = 48
+
+
+def _moe_kvquant_fp32(totals: dict) -> dict:
+    """The quantized drains' fp32-activation twin: mixtral-8x7b's attention
+    widths (dim 4096, 32/8 heads of 128, 8 experts, top-2), cut to 2 layers
+    and ffn 512 so that a CPU engine runs it too; fp32 weights from a seed,
+    one weight set, BRAIN_MOE=grouped, a 4-slot paged pool behind the cached
+    prefix, ff 8. Per tier (int8, int4) the card's engine (K9, K13) against
+    the same engine on the CPU (the plain versions), 4 prompts of 48 new
+    tokens: token-identical, or parted only where the plain forward's
+    top-2 margin is within one bf16 ulp (``_check_partings`` at 1)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_voice_agent_torch.grammar import build_intent_fsm
+    from tpu_voice_agent_torch.models.llama import PRESETS, init_params
+    from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(PRESETS["mixtral-8x7b"], n_layers=2, ffn_dim=512,
+                              moe_impl="grouped")
+    vocab = build_intent_fsm()[0].vocab_size
+    params = init_params(dataclasses.replace(cfg, vocab_size=vocab),
+                         torch.Generator().manual_seed(0), dtype=torch.float32, device="cpu")
+    card = _moved(params, "cuda")
+    prompts = [_batch_prompt(i) for i in range(MOE_TWIN_PROMPTS)]
+    kw = dict(cfg=cfg, max_len=1024, batch_slots=MOE_TWIN_PROMPTS, prefill_buckets=(1024,),
+              fast_forward=8, init_weights=False, radix_enable=False)
+    out = {"cut": "mixtral-8x7b at 2 of 32 layers, ffn 512 of 14336, fp32 weights",
+           "prompts": len(prompts)}
+    for tier in ("int8", "int4"):
+        label = f"moe kvquant fp32 {tier}"
+        ids = {}
+        for side, tree in (("card", card), ("cpu", params)):
+            eng = PagedDecodeEngine(kv_quant=tier, device=None if side == "card" else "cpu",
+                                    **kw)
+            eng.load_params(tree)
+            install_prompt_prefix(eng)
+            with Counted(f"{label} {side}", totals if side == "card" else {}) as c:
+                res = ContinuousBatcher(eng, chunk_steps=16,
+                                        max_new_tokens=MOE_TWIN_NEW_TOKENS).generate_many(prompts)
+            fail_if(any(r.error is not None for r in res), f"{label} {side}: a request failed")
+            ids[side] = [r.token_ids for r in res]
+            if side == "card":
+                c.require("paged_block_attention_quant", "grouped_matmul")
+                card_eng = eng
+            else:
+                fail_if(sum(c.counts.values()) > 0, f"{label}: the CPU engine launched a kernel")
+        prompt_ids = [card_eng.tokenizer.encode(p, bos=True) for p in prompts]
+        parted = _partings(card_eng, prompt_ids, ids["card"], ids["cpu"], label,
+                           "the card and the CPU")
+        _check_partings(parted, label, 1)
+        out[tier] = {"tokens": [len(t) for t in ids["card"]], "parted": parted}
+        log(f"[{label}] {len(prompts) - len(parted)} of {len(prompts)} prompts token-identical "
+            f"on the card and the CPU ({sum(out[tier]['tokens'])} tokens)")
+        del card_eng
+    return out
 
 
 # ------------------------------------------------------------ tenancy
@@ -5070,7 +5383,7 @@ def _tenancy_service(params, totals: dict) -> dict:
 
 # ------------------------------------------------------------------ handoff
 
-HANDOFF_SESSIONS = 8
+HANDOFF_SESSIONS = 4  # a depth the script's time limit sets
 HANDOFF_NEW_TOKENS = 32
 HANDOFF_TURNS = [("search for wireless headphones", {}),
                  ("open the second result", {"last_query": "wireless headphones"})]
@@ -5132,7 +5445,7 @@ def _admitting_step(eng, prompts: list, label: str, totals: dict):
 
 
 def _handoff_tier(params, tier: str, totals: dict, ulps: float, label: str) -> dict:
-    """8 sessions x 2 turns on a donor, each exported and POSTed to
+    """4 sessions x 2 turns on a donor, each exported and POSTed to
     ``/admin/handoff`` on a brain around the recipient, turn 3 batched on
     both; then the same recipient warm-restarted, the ``HANDOFF_KV=0`` blobs
     adopted, turn 3 again (the cold baseline)."""
@@ -5469,27 +5782,42 @@ def _gated_posts(parser, url: str, bodies: list, pool) -> list:
 def _watchdog(params, totals: dict) -> dict:
     """The stalled-step drill on a 32-slot brain over HTTP:
     ``stall_step@2`` (the step after the 8 parses were admitted, so the
-    stalled thread holds live rows), ``CHAOS_STALL_S=8``,
-    ``ENGINE_STALL_S=5`` (above a 32-slot admitting step); then the next
-    32 parses through the same brain, token for token a fresh engine's."""
+    stalled thread holds live rows), ``ENGINE_STALL_S`` above every healthy
+    step (5 s, or 3x the slowest step of the fresh engine's run of the same
+    32 prompts where that is more: a 32-slot admitting step is host-bound
+    and its wall varies by host), ``CHAOS_STALL_S`` 3 s past it; then the
+    next 32 parses through the same brain, token for token a fresh
+    engine's."""
     import concurrent.futures
 
     from tpu_voice_agent_torch.ops import _lib
     from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
     from tpu_voice_agent_torch.services import brain
     from tpu_voice_agent_torch.utils import chaos
+    from tpu_voice_agent_torch.utils.steplog import get_steplog
     from tpu_voice_agent_torch.utils.tracing import get_flight_recorder, get_metrics
 
     def restarts():
         return get_metrics().snapshot()["counters"].get("engine.restarts", 0.0)
 
+    def step_walls(seq0: int) -> list:
+        """The walls (s) of the batcher steps the step ledger recorded since
+        ``seq0``."""
+        return [st["wall_ms"] / 1e3 for st in get_steplog().steps() if st["seq"] >= seq0]
+
     eng = _warm_engine(params)
     prompts = [_batch_prompt(i) for i in range(BATCH_SLOTS)]
     fresh_eng = _warm_engine(params)
+    seq0 = get_steplog().dump()["recorded"]
     fresh = ContinuousBatcher(fresh_eng, chunk_steps=16,
                               max_new_tokens=WATCHDOG_NEW_TOKENS).generate_many(prompts)
+    fresh_walls = step_walls(seq0)
+    fail_if(not fresh_walls, "watchdog: the step ledger recorded none of the fresh run's steps")
     del fresh_eng
-    env = {"CHAOS_FAULTS": "stall_step@2", "CHAOS_STALL_S": "8", "ENGINE_STALL_S": "5"}
+    stall_s = max(5, math.ceil(3 * max(fresh_walls)))
+    chaos_s = stall_s + 3
+    env = {"CHAOS_FAULTS": "stall_step@2", "CHAOS_STALL_S": str(chaos_s),
+           "ENGINE_STALL_S": str(stall_s)}
     os.environ.update(env)
     chaos.configure("stall_step@2")
     get_flight_recorder().rearm()
@@ -5540,16 +5868,18 @@ def _watchdog(params, totals: dict) -> dict:
             chaos.reset()
             for k in env:
                 os.environ.pop(k, None)
-            old.join(30)  # the stalled thread wakes from its 8 s sleep and exits
+            old.join(chaos_s + 30)  # the stalled thread wakes from its sleep and exits
             fail_if(old.is_alive(), "watchdog: the stalled loop thread did not exit")
             # the next batch through the same brain, on the restarted loop
             with Counted("handoff watchdog next batch", totals) as c:
+                seq1 = get_steplog().dump()["recorded"]
                 t1 = time.perf_counter()
                 futs = _gated_posts(parser, url, [
                     {"text": f"search for item {i} and sort by price", "context": {}}
                     for i in range(BATCH_SLOTS)], pool)
                 statuses = [f.result()[0] for f in futs]
                 next_s = time.perf_counter() - t1
+                next_walls = step_walls(seq1)
             c.require("paged_block_attention", "masked_argmax_advance")
         _stop(srv, thread)
         restarted = parser.loop._thread is not old and parser.loop.healthy()
@@ -5560,7 +5890,10 @@ def _watchdog(params, totals: dict) -> dict:
         chaos.reset()
         for k in env:
             os.environ.pop(k, None)
-    fail_if(len(superseded) != 1, f"watchdog: {len(superseded)} supersedes")
+    fail_if(len(superseded) != 1,
+            f"watchdog: {len(superseded)} supersedes (watchdog {stall_s} s; the fresh run's "
+            f"steps {[round(w, 2) for w in fresh_walls]} s, the brain's since "
+            f"{[round(w, 2) for w in step_walls(seq0 + len(fresh_walls))]} s)")
     t_sup = superseded[0]
     live = [at for t, at in forwards if t is old]
     stray = [at for t, at, _ in spy.calls if t is old and at > t_sup]
@@ -5580,12 +5913,16 @@ def _watchdog(params, totals: dict) -> dict:
            "restarts": restarts() - r0, "forwards_before_stall": len(live),
            "launches_from_stalled_after": len(stray), "forwards_from_stalled_after":
            len(stray_fwd), "launches_after_restart": len(after), "next_batch_s": next_s,
-           "next_batch_statuses": sorted(set(statuses)), "next_batch_equal": equal}
+           "next_batch_statuses": sorted(set(statuses)), "next_batch_equal": equal,
+           "engine_stall_s": stall_s, "chaos_stall_s": chaos_s,
+           "fresh_max_step_s": max(fresh_walls), "next_batch_max_step_s": max(next_walls)}
     log(f"[handoff watchdog] 8 live parses failed with JAX's text {failed_s:.2f} s after they "
-        f"were sent (stall 8 s at step 2, watchdog 5 s); engine.restarts +{row['restarts']}; "
+        f"were sent (stall {chaos_s} s at step 2, watchdog {stall_s} s over a fresh run's "
+        f"slowest step of {max(fresh_walls):.2f} s); engine.restarts +{row['restarts']}; "
         f"the stalled thread ran {len(live)} forwards before the supersede and {len(stray)} "
         f"launches after it; the next {BATCH_SLOTS} over HTTP in {next_s:.2f} s, equal to a "
-        f"fresh engine's {equal}/{BATCH_SLOTS} (statuses {row['next_batch_statuses']})")
+        f"fresh engine's {equal}/{BATCH_SLOTS} (statuses {row['next_batch_statuses']}; "
+        f"slowest step {max(next_walls):.2f} s)")
     del eng
     _free_cuda()
     return row
@@ -6387,6 +6724,127 @@ def phase_fleet(params, totals: dict, report: dict) -> None:
     report["fleet"] = out
 
 
+# ------------------------------------------------------------ devobs
+
+DEVOBS_SLOTS = 8
+DEVOBS_WARM = "search for wireless headphones"  # its suffix fills the 32-token bucket
+# its suffix (61 tokens past the 879-token prefix) takes the 64-token bucket
+DEVOBS_COLD = ("search for wireless noise cancelling headphones under two hundred dollars "
+               "and sort them by customer rating")
+
+
+def phase_devobs(params, totals: dict, report: dict) -> None:
+    """Device observability on the batch cell's brain (tinyllama-1.1b int8,
+    ff 8, the cached prefix, 8 paged slots) on the service phase's weights:
+    the build phase's ``ops._lib.build`` event; with every site cold again
+    (``forget_signatures``), the warm-up parses' events; the fence armed,
+    then a repeated parse pays no post-fence event; a prompt whose suffix
+    takes the cold 64-token bucket pays exactly one, named, which shows in
+    ``/health``'s warning, in ``xla.compiles_post_fence`` and on its step in
+    the ledger. The ledger's plan against the engine's tensors and
+    ``torch.cuda.memory_stats``; the ``_qe`` audit of a decode step
+    (``utils.perfdiag``: count and MB of the int8 -> bf16 weight copies);
+    a ``capture_profile`` Chrome trace of one request."""
+    import torch
+
+    from tpu_voice_agent_torch.services import brain
+    from tpu_voice_agent_torch.utils import compilewatch, perfdiag
+    from tpu_voice_agent_torch.utils.hbmledger import hbm_report
+    from tpu_voice_agent_torch.utils.steplog import get_steplog
+    from tpu_voice_agent_torch.utils.tracing import get_metrics
+
+    out = {"build_event": report.get("build_event")}
+    log(f"[devobs] the build phase's event: {out['build_event']}")
+    w = compilewatch.get_compile_watcher()
+    w.reset()
+    compilewatch.forget_signatures()
+    eng = _paged_engine(params, 8, batch_slots=DEVOBS_SLOTS, radix_enable=False)
+    P = brain.install_prompt_prefix(eng)
+    parser = brain.BatchedEngineParser(eng, chunk_steps=16, max_new_tokens=BATCH_NEW_TOKENS)
+    app = brain.BrainApp(parser)
+
+    def parse(text: str) -> int:
+        status, body, _ = app.parse(json.dumps({"text": text, "context": {}}).encode())
+        fail_if(status not in (200, 422), f"devobs: /parse {text!r} answered {status} {body}")
+        return status
+
+    try:
+        with Counted("devobs", totals) as c:
+            warm = [parse(DEVOBS_WARM) for _ in range(2)]
+            out["warmup_events"] = [{k: e[k] for k in ("site", "ms", "shape")}
+                                    for e in w.events()]
+            log(f"[devobs] prefix {P} tokens; warm-up parses {warm}: {len(w.events())} events "
+                f"{out['warmup_events']}")
+            # the audit's B = 1 forward is cold too: before the fence
+            events = perfdiag.decode_step_profile(eng)
+            audit = perfdiag.audit_dequant(events)
+            every = perfdiag.audit_dequant(events, min_bytes=1)
+            out["audit"] = {"findings_8mb": len(audit["findings"]),
+                            "mb_8mb": sum(f[3] for f in audit["findings"]),
+                            "findings_all": len(every["findings"]),
+                            "mb_all": round(sum(f[3] for f in every["findings"]), 1),
+                            "scanned": audit["scanned_instructions"]}
+            cfg = eng.cfg
+            fail_if(out["audit"]["findings_all"] != 7 * cfg.n_layers + 1,
+                    f"devobs: the _qe audit found {out['audit']['findings_all']} int8 copies, "
+                    f"want one a quantized matmul ({7 * cfg.n_layers + 1})")
+            log(f"[devobs] _qe audit of one decode step: {out['audit']}")
+            w.arm_fence("devobs warm-up complete")
+            get_steplog().clear()
+            post0 = get_metrics().snapshot()["counters"].get("xla.compiles_post_fence", 0.0)
+            parse(DEVOBS_WARM)
+            fail_if(w.state()["post_fence_compiles"] != 0,
+                    f"devobs: a repeated parse paid post-fence events: {w.events(last=4)}")
+            parse(DEVOBS_COLD)
+        c.require("paged_block_attention", "masked_argmax_advance")
+        st = w.state()
+        post = [e for e in w.events() if e["post_fence"]]
+        steps = [e for s in get_steplog().steps() for e in s["events"] if e["post_fence"]]
+        status, health, _ = app.health()
+        cs = health.get("compile_sentinel", {})
+        counter = get_metrics().snapshot()["counters"].get("xla.compiles_post_fence", 0.0) - post0
+        out["post_fence"] = {"events": post, "in_steplog": len(steps), "counter": counter,
+                             "health_warning": cs.get("warning")}
+        log(f"[devobs] cold bucket: {len(post)} post-fence event(s) {post}; step ledger "
+            f"{len(steps)}, xla.compiles_post_fence +{counter:g}; /health {cs.get('warning')!r}")
+        fail_if(len(post) != 1 or "forward_paged" not in post[0]["site"]
+                or "int32[1,64]" not in post[0]["shape"] or len(steps) != 1 or counter != 1
+                or st["post_fence_compiles"] != 1 or "recompile(s) after the warmup fence"
+                not in (cs.get("warning") or ""),
+                f"devobs: the cold-bucket drill did not surface once everywhere: {out}")
+        # the ledger's plan against the engine's tensors and the allocator
+        rep = hbm_report(eng)
+        meas, plan = rep["measured"], rep["plan"]
+        stats = torch.cuda.memory_stats()
+        out["ledger"] = {"plan": plan, "measured": meas, "drift": rep["drift"],
+                         "allocated_bytes": stats["allocated_bytes.all.current"],
+                         "reserved_bytes": stats["reserved_bytes.all.current"],
+                         "health_hbm": health.get("hbm")}
+        log(f"[devobs] ledger: plan {plan}, measured {meas}, drift {rep['drift']}; allocator "
+            f"allocated {out['ledger']['allocated_bytes']} reserved "
+            f"{out['ledger']['reserved_bytes']}; /health hbm {health.get('hbm')}")
+        fail_if(meas["kv_pool_bytes"] != plan["kv_pool_bytes"]
+                or abs(rep["drift"]) > float(os.environ.get("HBM_DRIFT_WARN", "0.15"))
+                or meas["live_bytes"] < meas["weights_bytes"] + meas["kv_pool_bytes"]
+                or not health.get("hbm"),
+                f"devobs: the ledger does not reconcile: {out['ledger']}")
+    finally:
+        parser.close()
+    # one request under the profiler, the engine idle (its loop stopped)
+    out_dir = os.path.join(OUT_DIR, "devobs")
+    t0 = time.perf_counter()
+    path = perfdiag.capture_profile(eng, _batch_prompt(0), out_dir, max_new_tokens=4)
+    out["trace"] = {"path": os.path.relpath(path, ROOT), "bytes": os.path.getsize(path),
+                    "seconds": time.perf_counter() - t0}
+    with open(path) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    out["trace"]["events"] = n_events
+    log(f"[devobs] capture_profile: {out['trace']}")
+    fail_if(n_events == 0, "devobs: the Chrome trace holds no event")
+    w.reset()  # later phases start with a disarmed, empty sentinel
+    report["devobs"] = out
+
+
 STT_BATCH_SLOTS = 4
 # the work items, one tick each: (kind, utterance key, seconds of synth audio)
 STT_BATCH_ROUNDS = (
@@ -6682,7 +7140,7 @@ def _stt_replica_drill(eng, b1_refs: list, totals: dict, ulps: float) -> dict:
 
 
 def _stt_batch_service(totals: dict) -> dict:
-    """3 paced utterances (synth_utterance(2.0) + 1 s of silence each)
+    """2 paced utterances (synth_utterance(2.0) + 1 s of silence each)
     through the voice service at VOICE_STT=whisper:whisper-large-v3
     (SpeechEngine's defaults) behind the rule brain and a stub executor,
     ``STT_BATCH_ENABLE=1``, on 3 connections at once (each the same
@@ -6897,7 +7355,8 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,digest,kernels,service,parse,batch,"
                          "batch_dense,radix,"
-                         "kvquant,spec,quality,containment,tenancy,handoff,fleet,service_batched,"
+                         "kvquant,spec,quality,containment,tenancy,handoff,fleet,devobs,"
+                         "service_batched,"
                          "golden,"
                          "batch_golden,kvquant_golden,spec_golden,stt,stt_golden,voice,"
                          "voice_service,stt_batch,moe "
@@ -6913,7 +7372,7 @@ def main() -> int:
     args = ap.parse_args()
     phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
                "radix", "kvquant", "spec", "quality", "containment", "tenancy", "handoff",
-               "fleet", "service_batched",
+               "fleet", "devobs", "service_batched",
                "golden", "batch_golden",
                "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
                "stt_batch", "moe"]
@@ -6938,7 +7397,7 @@ def main() -> int:
     card = phase_card() if "card" in phases else None
     report["card"] = card
     if "build" in phases:
-        report["build_s"] = phase_build()
+        report["build_s"] = phase_build(report)
     t1 = time.perf_counter()
     _tok, fsm = build_intent_fsm()
     log(f"[grammar] intent FSM: {fsm.num_states} states, {fsm.num_classes} classes, "
@@ -6965,7 +7424,7 @@ def main() -> int:
                      ("kvquant", phase_kvquant), ("spec", phase_spec),
                      ("quality", phase_quality), ("containment", phase_containment),
                      ("tenancy", phase_tenancy), ("handoff", phase_handoff),
-                     ("fleet", phase_fleet)):
+                     ("fleet", phase_fleet), ("devobs", phase_devobs)):
         if name in phases:
             fail_if(eng is None, f"the {name} phase reuses the service's weights")
             kw = {"profile": args.profile} if name in ("batch", "kvquant", "spec") else {}

@@ -339,7 +339,7 @@ def test_paged_wrappers_count_launches_and_refuse_bad_operands(cuda):
 
 # the head dims the engines use, each with its own heads: test-tiny,
 # the distilled checkpoint (an int4 head row of 24 bytes) and tinyllama-1.1b
-QUANT_SHAPES = [(32, 4, 2), (48, 4, 2), (64, 32, 4)]
+QUANT_SHAPES = [(32, 4, 2), (48, 4, 2), (64, 32, 4), (128, 32, 8)]
 
 
 def _quant_pool(g, shape, tier):
@@ -758,7 +758,7 @@ def test_paged_block_split_matches_plain(cuda, T, group, bs):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bs", [16, 32, 64, 128])
 @pytest.mark.parametrize("tier", ["int8", "int4"])
-@pytest.mark.parametrize("hd", [32, 48, 64])
+@pytest.mark.parametrize("hd", [32, 48, 64, 128])
 def test_paged_block_quant_split_matches_plain(cuda, hd, tier, bs):
     """K9 with bf16 queries (the split body, the stored integers widened to
     bf16 and the scales folded after Q.K^T and before P.V) against its plain
@@ -787,7 +787,7 @@ def test_paged_block_quant_split_matches_plain(cuda, hd, tier, bs):
 
 # (hd, nq, nkv): test-tiny, the distilled checkpoint's widths, tinyllama-1.1b
 # (a group of 8: P's parts packed), a group of 16 (three P fragments) and
-# mixtral-8x7b (K6 only: the quantized kernels stop at hd 64)
+# mixtral-8x7b
 T1_SHAPES = [(32, 4, 2), (48, 4, 2), (64, 32, 4), (64, 32, 2), (128, 32, 8)]
 
 

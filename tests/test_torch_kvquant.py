@@ -372,12 +372,14 @@ def test_kv_quant_refuses_head_dims_the_card_kernels_lack(monkeypatch):
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     for tier in ("int8", "int4"):
-        with pytest.raises(ValueError, match=f"KV_QUANT={tier}.*128"):
-            paged.check_kv_quant_head_dim(tier, 128, cuda)  # llama3-8b's head dim
-        for hd in (32, 48, 64):
+        # 128: llama3-8b, llama3-70b and mixtral-8x7b, built since K8-K10 took hd 128
+        for hd in (32, 48, 64, 128):
             paged.check_kv_quant_head_dim(tier, hd, cuda)
-        paged.check_kv_quant_head_dim(tier, 128, cpu)  # the plain versions take any
-    paged.check_kv_quant_head_dim(None, 128, cuda)  # the bf16 pool reads K6 / K7
+        for hd in (16, 80):  # dims no quantized kernel was built for
+            with pytest.raises(ValueError, match=f"KV_QUANT={tier}.*got {hd}"):
+                paged.check_kv_quant_head_dim(tier, hd, cuda)
+            paged.check_kv_quant_head_dim(tier, hd, cpu)  # the plain versions take any
+    paged.check_kv_quant_head_dim(None, 80, cuda)  # the bf16 pool reads K6 / K7
 
     # the engine consults the check at boot, with its own head dim and device
     seen = []

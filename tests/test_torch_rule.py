@@ -25,7 +25,9 @@ from tpu_voice_agent.services.brain import build_app
 from tpu_voice_agent_torch.serve.engine import DecodeEngine
 from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
 from tpu_voice_agent_torch.services import brain
+from tpu_voice_agent_torch.utils.compilewatch import get_compile_watcher
 from tpu_voice_agent_torch.utils.steplog import get_steplog
+from tpu_voice_agent_torch.utils.tracing import get_metrics
 
 # every branch of the parser, in its order, and the ones that fall through
 UTTERANCES = [
@@ -127,12 +129,17 @@ def test_unset_backend_boots_the_rule_parser(monkeypatch, caplog):
                       for k in ("BRAIN_PAGED", "BRAIN_QUANT", "BRAIN_MOE")]
     app = brain.BrainApp(parser)
     get_steplog().clear()  # no step recorded: no last_step
+    status, body, headers = app.health()
+    # the compile sentinel and the HBM gauges are process-global, as in JAX:
+    # /health reports them as they stand
+    assert body.pop("compile_sentinel") == get_compile_watcher().state()
+    hbm = {k: v for k, v in get_metrics().gauges().items() if k.startswith("hbm.")}
+    assert body.pop("hbm", {}) == hbm
     # the pressure block is the router's shed signal (JAX's, for the same backend)
-    assert app.health() == (200, {"ok": True, "service": "brain", "slo": "ok",
-                                  "quality": {"slo": "ok"}, "inflight": 0,
-                                  "max_inflight": 32, "role": "both", "disagg": False,
-                                  "pressure": {"score": 0.0, "slo": "ok", "admission": 0.0}},
-                            {})
+    assert (status, body, headers) == (
+        200, {"ok": True, "service": "brain", "slo": "ok", "quality": {"slo": "ok"},
+              "inflight": 0, "max_inflight": 32, "role": "both", "disagg": False,
+              "pressure": {"score": 0.0, "slo": "ok", "admission": 0.0}}, {})
     status, body, _ = app.parse(b'{"text": "take a screenshot"}')
     assert status == 200 and body["intents"][0]["type"] == "screenshot"
     # distilled is served since the trained brain boots from the environment;

@@ -16,6 +16,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.compilewatch import watch_compiles
+
 
 @dataclass(frozen=True)
 class MelConfig:
@@ -89,6 +91,7 @@ def _tables(cfg: MelConfig, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in (cos_m, sin_m, mel_filterbank(cfg)))
 
 
+@watch_compiles("audio.log_mel_spectrogram")
 @torch.no_grad()
 def log_mel_spectrogram(audio: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
     """audio (n_samples,) float32 in [-1, 1] -> (n_frames, n_mels) float32 on

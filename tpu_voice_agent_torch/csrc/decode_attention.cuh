@@ -272,7 +272,11 @@ bool bad_shape(int B, int T, int S, int nq, int nkv, int bs, const int* table) {
          nq / nkv > 16 || bs <= 0 || table == nullptr;
 }
 
-// K6/K7 with fp32 queries: the pool's layer plane, always bf16.
+// K6/K7 with fp32 queries: the pool's layer plane, always bf16. A template
+// (as dispatch_quant_hd), so that only a source that calls it instantiates
+// its kernels: every paged source includes this header, and a plain
+// function's body would build them in each.
+template <int = 0>
 int dispatch(const void* q, const void* kc, const void* vc, const int* kv_len, const int* qpos,
              const int* table, int bs, void* o, int B, int T, int S, int nq, int nkv, int hd,
              float scale, void* stream) {
@@ -284,9 +288,11 @@ int dispatch(const void* q, const void* kc, const void* vc, const int* kv_len, c
   return (int)cudaErrorInvalidValue;
 }
 
-// K8/K9 with fp32 queries: a quantized pool of `bits` 8 (int8) or 4 (packed
-// int4) with its bf16 scale planes, built for the engines' head dims 32
-// (test-tiny), 48 (the distilled checkpoint) and 64 (tinyllama-1.1b).
+// K8/K9 with fp32 queries (paged_quant.cuh): a quantized pool of width TC,
+// QInt8 (int8) or QInt4 (packed int4), with its bf16 scale planes, checked by
+// the caller (bad_shape, the scale planes set), built for the head dims 32
+// (test-tiny), 48 (the distilled checkpoint), 64 (tinyllama-1.1b) and 128
+// (llama3-8b, llama3-70b, mixtral-8x7b).
 template <typename TC>
 int dispatch_quant_hd(const void* q, const void* kc, const void* vc, const void* ksc,
                       const void* vsc, const int* kv_len, const int* qpos, const int* table,
@@ -300,26 +306,11 @@ int dispatch_quant_hd(const void* q, const void* kc, const void* vc, const void*
     TVA_QUANT_HD(32)
     TVA_QUANT_HD(48)
     TVA_QUANT_HD(64)
+    TVA_QUANT_HD(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef TVA_QUANT_HD
-}
-
-int dispatch_quant(const void* q, const void* kc, const void* vc, const void* ksc,
-                   const void* vsc, const int* kv_len, const int* qpos, const int* table, int bs,
-                   void* o, int B, int T, int S, int nq, int nkv, int hd, float scale, int bits,
-                   void* stream) {
-  if (bad_shape(B, T, S, nq, nkv, bs, table) || ksc == nullptr || vsc == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bits == 8)
-    return dispatch_quant_hd<QInt8>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, o, B, T, S, nq,
-                                    nkv, hd, scale, st);
-  if (bits == 4)
-    return dispatch_quant_hd<QInt4>(q, kc, vc, ksc, vsc, kv_len, qpos, table, bs, o, B, T, S, nq,
-                                    nkv, hd, scale, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

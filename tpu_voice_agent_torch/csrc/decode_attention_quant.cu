@@ -25,7 +25,8 @@ int dispatch_hd(const void* q, const void* kc, const void* vc, const void* ksc, 
                 const int* kv_len, void* o, float* part, int* tickets, int B, int S, int nq,
                 int nkv, int hd, int chunk, int key_sets, float scale, cudaStream_t st) {
   // the engines' head dims: test-tiny 32, the distilled checkpoint 48,
-  // tinyllama-1.1b 64
+  // tinyllama-1.1b 64, the 8B-class models 128 (one warp set: key_sets is 1
+  // past KEY_SETS_MAX_HD)
 #define TVA_QUANT_HD(H)                                                                         \
   case H:                                                                                      \
     return launch_t1<H, TQ, TC>(q, kc, vc, ksc, vsc, kv_len, o, part, tickets, B, S, nq, nkv, \
@@ -34,6 +35,7 @@ int dispatch_hd(const void* q, const void* kc, const void* vc, const void* ksc, 
     TVA_QUANT_HD(32)
     TVA_QUANT_HD(48)
     TVA_QUANT_HD(64)
+    TVA_QUANT_HD(128)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -26,7 +26,16 @@
 // so the split-key body of decode_split.cuh spreads the keys across the
 // card; what is left is the latency of one split's few tiles and of the
 // two-level merge (a split of 32 keys at tinyllama's single row).
+//
+// fp32 queries (the distilled checkpoint, the fp32 twins) run the same body
+// from decode_block_attention_f32.cu, a source of its own so that the two
+// query types compile in parallel (nvcc compiles a source on one core).
 #include "decode_split.cuh"
+
+// the fp32-query bodies (decode_block_attention_f32.cu)
+int tva_decode_rows_f32(bool kvlen, const void* q, const void* kc, const void* vc,
+                        const int* qpos, void* o, float* part, int* tickets, int B, int T, int S,
+                        int nq, int nkv, int hd, int chunk, float scale, cudaStream_t st);
 
 namespace {
 
@@ -39,11 +48,9 @@ int dispatch(const void* q, const void* kc, const void* vc, const int* qpos, voi
   cudaStream_t st = (cudaStream_t)stream;
   float* pp = (float*)part;
   int* tk = (int*)tickets;
-  if (dtype == TVA_DTYPE_F32) {
-    TVA_DISPATCH_HD(hd, return launch_rows<HD, float, bf16, KVLEN>(
-                           q, kc, vc, nullptr, nullptr, qpos, o, pp, tk, B, T, S, nq, nkv, chunk,
-                           scale, st));
-  }
+  if (dtype == TVA_DTYPE_F32)
+    return tva_decode_rows_f32(KVLEN, q, kc, vc, qpos, o, pp, tk, B, T, S, nq, nkv, hd, chunk,
+                               scale, st);
   if (dtype != TVA_DTYPE_BF16) return (int)cudaErrorInvalidValue;
   TVA_DISPATCH_HD(hd, return launch_rows<HD, bf16, bf16, KVLEN>(q, kc, vc, nullptr, nullptr, qpos,
                                                                o, pp, tk, B, T, S, nq, nkv, chunk,

@@ -23,7 +23,7 @@
 //   scale on its score column after Q.K^T and on its probability column
 //   before P.V. What bounds it on an H100 is arithmetic, as K7's; the pool
 //   moves 66 (int8) or 34 (int4) bytes per (position, kv head) in place of
-//   bf16's 128.
+//   bf16's 128 at hd 64, and 130 or 66 in place of 256 at hd 128.
 // - K8 with bf16 queries (every fast-forward-0 step under KV_QUANT) runs the
 //   same body's T = 1 kernel, as K6 does: the key range split finer across
 //   the card, a split's tiles spread over four warps, each warp widening its
@@ -33,25 +33,37 @@
 //   which is exact, so they equal the plain versions' fp32 dequantization up
 //   to fp32 summation order; the int4 loader writes the low nibbles of a byte
 //   run to dims [0, hd/2) and the high nibbles to [hd/2, hd).
-#include "decode_attention.cuh"
-#include "paged_split.cuh"
+// The bodies at one pool width are paged_quant.cuh's `paged_quant<TC>`. This
+// source builds the int8 pool's and checks every call; the int4 pool's build
+// in paged_attention_quant_int4.cu, beside it (nvcc compiles a source on one
+// core, and the widths were the longest compile of the library).
+#include "paged_quant.cuh"
 
-// CALL(H, TC) for `bits` 8 (QInt8) or 4 (QInt4) and the quantized head dims
-// 32, 48, 64; any other value falls through.
-#define TVA_PAGED_QUANT_HD(CALL, TC) \
-  switch (hd) {                \
-    case 32:                   \
-      CALL(32, TC);            \
-    case 48:                   \
-      CALL(48, TC);            \
-    case 64:                   \
-      CALL(64, TC);            \
-    default:                   \
-      break;                   \
+// the int4 pool's bodies (paged_attention_quant_int4.cu)
+int tva_paged_quant_int4(const TvaPagedQuant& a);
+
+namespace {
+
+// The checks of a K8 / K9 call, then its body at the pool's width (`bits` 8
+// or 4). bf16 q: `chunk`, `part` and `tickets` as K6's / K7's; the scale
+// planes 4-byte aligned.
+int paged_quant_call(const TvaPagedQuant& a, int bits) {
+  if (a.max_blocks <= 0 || a.table == nullptr || a.ksc == nullptr || a.vsc == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (a.dtype == TVA_DTYPE_F32) {
+    if (bad_shape(a.B, a.T, a.max_blocks * a.bs, a.nq, a.nkv, a.bs, a.table))
+      return (int)cudaErrorInvalidValue;
+  } else if (a.dtype != TVA_DTYPE_BF16 ||
+             paged::bad_shape(a.B, a.T, a.max_blocks, a.bs, a.nq, a.nkv, a.chunk, a.table, a.part,
+                              a.tickets)) {
+    return (int)cudaErrorInvalidValue;
   }
-#define TVA_QUANT_SWITCH(CALL)                 \
-  if (bits == 8) TVA_PAGED_QUANT_HD(CALL, QInt8);    \
-  if (bits == 4) TVA_PAGED_QUANT_HD(CALL, QInt4);
+  if (bits == 8) return paged_quant<QInt8>(a);
+  if (bits == 4) return tva_paged_quant_int4(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // K8: q (B,nq,hd), the layer's pool planes (N*bs,nkv,hdp) int8 for k and v
 // and their scale planes (N*bs,nkv) bf16, block tables (B,max_blocks)
@@ -63,20 +75,9 @@ extern "C" int tva_paged_attention_quant(const void* q, const void* kc, const vo
                                          int B, int max_blocks, int bs, int nq, int nkv, int hd,
                                          int chunk, float scale, int bits, int dtype,
                                          void* stream) {
-  if (max_blocks <= 0 || table == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == TVA_DTYPE_F32)
-    return dispatch_quant(q, kc, vc, ksc, vsc, kv_len, nullptr, table, bs, o, B, 1,
-                          max_blocks * bs, nq, nkv, hd, scale, bits, stream);
-  if (dtype != TVA_DTYPE_BF16 || ksc == nullptr || vsc == nullptr ||
-      paged::bad_shape(B, 1, max_blocks, bs, nq, nkv, chunk, table, part, tickets))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define TVA_T1_QUANT(H, TC)                                                           \
-  return paged::launch_t1<H, TC>(q, kc, vc, ksc, vsc, kv_len, table, o, (float*)part, \
-                                 (int*)tickets, B, max_blocks, bs, nq, nkv, chunk, scale, st)
-  TVA_QUANT_SWITCH(TVA_T1_QUANT)
-#undef TVA_T1_QUANT
-  return (int)cudaErrorInvalidValue;
+  const TvaPagedQuant a{q, kc, vc, ksc, vsc, table, kv_len, nullptr, o, part, tickets, B, 1,
+                        max_blocks, bs, nq, nkv, hd, chunk, dtype, scale, (cudaStream_t)stream};
+  return paged_quant_call(a, bits);
 }
 
 // K9: q (B,T,nq,hd), the layer's pool and scale planes, block tables
@@ -89,18 +90,8 @@ extern "C" int tva_paged_block_attention_quant(const void* q, const void* kc, co
                                                int max_blocks, int bs, int nq, int nkv, int hd,
                                                int chunk, float scale, int bits, int dtype,
                                                void* stream) {
-  if (max_blocks <= 0 || table == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == TVA_DTYPE_F32)
-    return dispatch_quant(q, kc, vc, ksc, vsc, nullptr, q_positions, table, bs, o, B, T,
-                          max_blocks * bs, nq, nkv, hd, scale, bits, stream);
-  if (dtype != TVA_DTYPE_BF16 || ksc == nullptr || vsc == nullptr ||
-      paged::bad_shape(B, T, max_blocks, bs, nq, nkv, chunk, table, part, tickets))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define TVA_PAGED_QUANT(H, TC)                                                                  \
-  return paged::launch<H, TC>(q, kc, vc, ksc, vsc, q_positions, table, o, (float*)part,         \
-                              (int*)tickets, B, T, max_blocks, bs, nq, nkv, chunk, scale, st)
-  TVA_QUANT_SWITCH(TVA_PAGED_QUANT)
-#undef TVA_PAGED_QUANT
-  return (int)cudaErrorInvalidValue;
+  const TvaPagedQuant a{q, kc, vc, ksc, vsc, table, nullptr, q_positions, o, part, tickets, B,
+                        T, max_blocks, bs, nq, nkv, hd, chunk, dtype, scale,
+                        (cudaStream_t)stream};
+  return paged_quant_call(a, bits);
 }

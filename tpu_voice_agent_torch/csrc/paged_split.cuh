@@ -418,7 +418,9 @@ __device__ __forceinline__ void load_q(const bf16* q, bf16* Qs, int b, int T, in
 // At hd <= 64 the kernel is held to 128 registers (two 8-warp blocks, or
 // three of the (32, 9) step's 5 warps, an SM). Unbounded, ptxas gave it 181,
 // at which 8 warps fit an SM: one 5-warp block, and the slower step on the
-// card. hd 128 (mixtral-8x7b) keeps its registers.
+// card. hd 128 (mixtral-8x7b) keeps its registers: 255 with the quantized
+// tile too (K9 at hd 128, ptxas: no spills); its shared memory, at most ~102
+// KB with 8 warps and the widened tile, stays under the 227 KB opt-in.
 template <int HD, typename TC>
 __global__ void __launch_bounds__(MAX_WARPS * 32, HD <= 64 ? 2 : 1)
 paged_split_kernel(const bf16* __restrict__ q, const unsigned char* __restrict__ kc,
@@ -586,7 +588,8 @@ struct T1 {
 // takes the split's T1_TILE-key tiles w, w + KEY_SETS, ... PACK: group <= 8.
 // At hd <= 64 the kernel is held to 128 registers, room for four blocks an
 // SM; their shared memory (76 KB at hd 64) fits three. hd 128 keeps its
-// registers (229-247 a thread), which fit two. paged_t1_chunk
+// registers (229-247 a thread, the quantized tile's 230-247 too), which fit
+// two; the quantized block's ~107 KB of shared memory fits two. paged_t1_chunk
 // (ops/decode_attention.py) sizes its splits for those counts.
 template <int HD, typename TC, bool PACK>
 __global__ void __launch_bounds__(KEY_SETS * 32, HD <= 64 ? 4 : 1)

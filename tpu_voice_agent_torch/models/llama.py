@@ -41,6 +41,7 @@ from ..ops import (
     paged_block_attention_quant,
 )
 from ..ops.kvquant import dequantize_kv, kv_quant_bits, quantize_kv
+from ..utils.compilewatch import watch_compiles
 from .moe import moe_capacity, route_topk, route_topk_flat
 
 # ---------------------------------------------------------------- config
@@ -380,6 +381,7 @@ def _layer_out(p, x, attn, cfg: LlamaConfig):
 
 
 @torch.no_grad()
+@watch_compiles("llama.forward")
 def forward(
     params: dict,
     cfg: LlamaConfig,
@@ -435,6 +437,7 @@ def forward(
     return _qe(x, params["lm_head"]), kv_cache
 
 
+@watch_compiles("llama.forward_paged", static=("gather_blocks",))
 @torch.no_grad()
 def forward_paged(
     params: dict,

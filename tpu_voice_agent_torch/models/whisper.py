@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import decode_attention, flash_attention
+from ..utils.compilewatch import watch_compiles
 
 _NEG_INF = -1e30
 
@@ -222,6 +223,7 @@ def _mha(q, k, v, mask, nh: int, hd: int):
 # ---------------------------------------------------------------- encoder
 
 
+@watch_compiles("whisper.encoder_forward")
 @torch.no_grad()
 def encoder_forward(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
                     attn_impl: str = "kernels", pos_offset: int | None = None) -> torch.Tensor:
@@ -295,6 +297,7 @@ def pad_cross_kv(cross_kv: dict, total: int) -> dict:
             "v": torch.nn.functional.pad(cross_kv["v"], pad)}
 
 
+@watch_compiles("whisper.compute_cross_kv")
 @torch.no_grad()
 def compute_cross_kv(params: dict, cfg: WhisperConfig, enc_out: torch.Tensor) -> dict:
     """Per-layer cross-attention K/V of the encoder output, (L, B, T_enc,

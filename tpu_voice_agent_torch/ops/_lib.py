@@ -6,7 +6,9 @@ headers, seconds per build instead of minutes. Each source compiles in its own
 ``nvcc`` process, all started together, and one link step joins the objects.
 The library is keyed by a hash of the sources and flags and lands in
 ``cache_dir()`` (``_build/`` in the package unless ``TPU_VOICE_CACHE_DIR`` is
-set), so a checkout builds once at first use and never at import.
+set), so a checkout builds once at first use and never at import. A build
+that compiles is one compile-sentinel event (``utils.compilewatch``, site
+``ops._lib.build``).
 """
 
 from __future__ import annotations
@@ -19,22 +21,28 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from .. import PACKAGE_DIR, cache_dir
 
 CSRC = PACKAGE_DIR / "csrc"
+# one nvcc process a source, all started together: the two halves of K2 /
+# K3 / K12 (bf16 and fp32 queries) and of K8 / K9 (the int8 and int4 pools)
+# are sources of their own, the library's longest compiles otherwise
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "decode_block_attention.cu",
-           "paged_attention.cu", "grammar_mask.cu", "paged_attention_quant.cu",
+           "decode_block_attention_f32.cu", "paged_attention.cu", "grammar_mask.cu",
+           "paged_attention_quant.cu", "paged_attention_quant_int4.cu",
            "decode_attention_quant.cu", "grouped_matmul.cu")
 HEADERS = ("common.cuh", "kv_chunk.cuh", "split_merge.cuh", "decode_split.cuh",
-           "decode_attention.cuh", "paged_split.cuh", "mma.cuh")
+           "decode_attention.cuh", "paged_split.cuh", "paged_quant.cuh", "mma.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 48, 64, 128)
 # the quantized-cache kernels (K8-K10) are built for the engines' head dims:
-# test-tiny 32, the distilled checkpoint 48, tinyllama-1.1b 64
-QUANT_HEAD_DIMS = (32, 48, 64)
+# test-tiny 32, the distilled checkpoint 48, tinyllama-1.1b 64, and 128 for
+# the 8B-class models (llama3-8b, llama3-70b, mixtral-8x7b)
+QUANT_HEAD_DIMS = (32, 48, 64, 128)
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -85,10 +93,15 @@ def build(verbose: bool = False) -> Path:
             cmd = [nvcc(), *NVCC_FLAGS, *extra, "-c", str(CSRC / name), "-o", str(obj)]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        logs, failed = [], []
-        for name, _obj, p in procs:
+        def finish(p):  # read each process's output as it runs; its wall when done
             text, _ = p.communicate()
-            logs.append(f"== {name}\n{text}")
+            return text, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(finish, [p for _, _, p in procs]))
+        logs, failed = [], []
+        for (name, _obj, p), (text, wall) in zip(procs, done):
+            logs.append(f"== {name} ({wall:.1f} s)\n{text}")
             if p.returncode != 0:
                 failed.append(name)
         if failed:
@@ -104,6 +117,12 @@ def build(verbose: bool = False) -> Path:
         shutil.rmtree(tmp, ignore_errors=True)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False, path=str(lib),
                       log="\n".join(logs))
+    # the largest stall the port can take mid-serving: one compile-sentinel
+    # event with the build's wall
+    from ..utils.compilewatch import get_compile_watcher
+
+    get_compile_watcher().record("ops._lib.build", BUILD_INFO["seconds"] * 1e3,
+                                 f"nvcc {len(SOURCES)} sources")
     return lib
 
 

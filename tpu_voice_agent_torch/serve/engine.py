@@ -30,7 +30,10 @@ poison gate. With chaos off both are one test that fails.
 
 The JAX ``lax.while_loop`` is a Python loop here: its ``any(active)`` test
 reads one bool back from the device on every step. ``warm_restart`` (the
-serving loop's stall watchdog) rebuilds the KV cache and keeps the weights.
+serving loop's stall watchdog) rebuilds the KV cache, keeps the weights and
+re-arms the compile sentinel's fence. The entry points carry JAX's
+compile-sentinel sites (``engine.prefill_row``, ``_first_token``,
+``_decode_step``, ``chunk_decode_loop``; ``utils.compilewatch``).
 ``supersede`` comes first: from it until ``warm_restart``, every prefill,
 table claim and decode forward raises ``Superseded`` before it launches, so a
 step still running past the watchdog stops at its next launch.
@@ -58,6 +61,7 @@ from ..models.llama import (
 )
 from ..ops import masked_argmax_advance
 from ..utils.chaos import ChaosError, chaos_fire
+from ..utils.compilewatch import get_compile_watcher, watch_compiles
 from ..utils.quality import conf_summary, quality_lanes_enabled
 from ..utils.tracing import get_metrics
 
@@ -156,7 +160,8 @@ def _poison_gate(raw, state, state_next, active, poison, constrained: bool):
     return active & ~(nanp | deadp), torch.maximum(poison, code)
 
 
-_first_token = _mask_sample_advance  # the prefill's first pick is the same block
+# the prefill's first pick is the same block
+_first_token = watch_compiles("engine._first_token")(_mask_sample_advance)
 
 
 # margin of a forced decision (one legal token: the gap is +inf; the cap
@@ -231,6 +236,7 @@ def conf_host(conf) -> list[np.ndarray] | None:
     return [a[0], a[1], a[2], a[3].astype(np.int64), a[4].astype(np.int64)]
 
 
+@watch_compiles("engine.prefill_row")
 def prefill_row(params, cfg: LlamaConfig, cache: dict, tokens, positions, slot: int,
                 fresh: bool = True):
     """Admission prefill for ONE batch slot, written in place into that
@@ -240,6 +246,7 @@ def prefill_row(params, cfg: LlamaConfig, cache: dict, tokens, positions, slot: 
     return logits
 
 
+@watch_compiles("engine.prefill_row_with_prefix")
 def prefill_row_with_prefix(params, cfg: LlamaConfig, cache: dict, prefix_k, prefix_v,
                             tokens, positions, slot: int):
     """Admission prefill reusing the cached shared prefix: copy its KV
@@ -395,6 +402,11 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
     return (out[:, :cap], n, eos, cur, pos, state, active, nbytes, left, step, poison, conf)
 
 
+# the dense engine's chunk loop under JAX's site name (the paged engine's
+# is ``paged.paged_chunk_decode_loop``)
+chunk_decode_loop = watch_compiles("engine.chunk_decode_loop")(decode_loop)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -404,6 +416,9 @@ class DecodeEngine:
     """Grammar-constrained decode engine on one device: ``generate`` with
     one slot, or ``batch_slots`` dense cache lines behind the continuous
     batcher."""
+
+    # the decode loop under this layout's compile-sentinel site
+    _chunk_loop = staticmethod(chunk_decode_loop)
 
     def __init__(
         self,
@@ -618,6 +633,7 @@ class DecodeEngine:
         """Layout hook: admit a fresh full prompt into ``slot``."""
         return prefill_row(self.params, self.cfg, self.cache, tokens, positions, slot, fresh=True)
 
+    @watch_compiles("engine._decode_step")
     def _decode_step(self, tokens, positions, active):
         """Layout hook: one decode forward, k/v written in place (idle rows
         write slot 0 of their own line). Returns logits (B, T, V)."""
@@ -657,7 +673,7 @@ class DecodeEngine:
             tokens_left = tokens_left.clone()
             tokens_left[starved] = 0
         tables = self.tables_ff if self.tables_ff is not None else self.tables
-        (out, n, eos, cur, pos, fsm, active, nbytes, left, fwds, pois, conf) = decode_loop(
+        (out, n, eos, cur, pos, fsm, active, nbytes, left, fwds, pois, conf) = self._chunk_loop(
             self._decode_step, self.max_len, cur, pos, fsm, active, nbytes, tokens_left,
             tables, self.byte_len_table, generator, temperature, byte_budget,
             chunk_steps=chunk_steps, greedy=greedy, constrained=True,
@@ -705,14 +721,16 @@ class DecodeEngine:
         outside it and survives), no armed NaN drill, and the spec decoder's
         contexts dropped behind its generation fence. The caller (the serving
         loop's watchdog) fails the in-flight work and resets the batcher.
-        JAX also re-arms its recompilation sentinel here; the port compiles
-        no XLA programs, so it has no counterpart."""
+        The compile sentinel's fence is re-armed: the restart keeps every
+        warmed shape, so a cold call after it is as suspect as any other
+        after warm-up."""
         if self.cache is not None:
             self.cache = self._init_kv_cache()
         self._nan_inject = None
         if self.spec is not None:
             self.spec.reset()
         self._superseded = False
+        get_compile_watcher().arm_fence("warm_restart")
 
     def _admit_first_token(self, prompt: str, temperature: float, greedy: bool = True,
                            constrained: bool = True):
@@ -763,7 +781,7 @@ class DecodeEngine:
             tables = (self.tables_ff if (constrained and self.tables_ff is not None)
                       else self.tables)
             (buf, count, eos, _cur, _pos, _fsm, _act, _nb, _left, fwds, pois,
-             conf) = decode_loop(
+             conf) = self._chunk_loop(
                 self._decode_step, self.max_len, *state,
                 tables, self.byte_len_table, self._gen, temperature, byte_budget,
                 chunk_steps=max_new_tokens, greedy=greedy, constrained=constrained,

@@ -42,8 +42,10 @@ chain, ``gather_chain_kv`` copies blocks to the host in the stored format
 (bf16 values, or int8 / packed int4 bytes with their bf16 scale planes) and
 ``adopt_chain_kv`` installs such bytes verbatim into fresh blocks (no
 re-quantize). ``warm_restart`` (the serving loop's stall watchdog) throws
-away the slot and allocator bookkeeping and keeps the pool tensors, the
-static prefix's blocks and the weights. Left for later: meshes.
+away the slot and allocator bookkeeping, keeps the pool tensors, the
+static prefix's blocks and the weights, and re-arms the compile sentinel's
+fence. The pool's scatters and chunk loop carry JAX's ``paged.*``
+compile-sentinel sites. Left for later: meshes.
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ from ..ops.kvquant import (
     quantize_kv,
 )
 from ..utils.chaos import chaos_fire
+from ..utils.compilewatch import get_compile_watcher, watch_compiles
 from ..utils.tracing import get_metrics
-from .engine import DecodeEngine, _sync
+from .engine import DecodeEngine, _sync, decode_loop
 from .radix import RadixCache
 
 # the radix tree's node cap (one node per cached block): RADIX_MAX_NODES
@@ -207,6 +210,38 @@ def record_pool_gauges(alloc: BlockAllocator, engine=None) -> None:
         m.set_gauge("paged.kv_bytes_total", float(alloc.usable_blocks * bpb))
 
 
+@watch_compiles("paged._scatter_blocks")
+def _scatter_blocks(k_pool, v_pool, src_k, src_v, idx) -> None:
+    """(L, n, nkv, hd) rows into the bf16 pool's flat rows ``idx``, in place."""
+    L, N, bs = k_pool.shape[:3]
+    k_pool.view(L, N * bs, *k_pool.shape[3:])[:, idx] = src_k.to(k_pool.dtype)
+    v_pool.view(L, N * bs, *v_pool.shape[3:])[:, idx] = src_v.to(v_pool.dtype)
+
+
+@watch_compiles("paged._scatter_blocks_quant")
+def _scatter_blocks_quant(k_pool, v_pool, src_k, src_v, idx, kv_quant: str):
+    """Quantize (L, n, nkv, hd) rows on write into the quantized pool's flat
+    rows ``idx``, in place; returns their scales ((L, n, nkv) each)."""
+    L, N, bs = k_pool.shape[:3]
+    (qk, sk), (qv, sv) = quantize_kv(src_k, kv_quant), quantize_kv(src_v, kv_quant)
+    k_pool.view(L, N * bs, *k_pool.shape[3:])[:, idx] = qk
+    v_pool.view(L, N * bs, *v_pool.shape[3:])[:, idx] = qv
+    return sk, sv
+
+
+@watch_compiles("paged._scatter_scale_planes")
+def _scatter_scale_planes(k_scale, v_scale, sk, sv, idx) -> None:
+    """The scales of rows written by ``_scatter_blocks_quant`` at the same
+    flat indices of the scale planes, in place."""
+    L, N, bs = k_scale.shape[:3]
+    k_scale.view(L, N * bs, -1)[:, idx] = sk
+    v_scale.view(L, N * bs, -1)[:, idx] = sv
+
+
+# the paged chunk loop: the dense engine's decode loop under JAX's paged site
+paged_chunk_decode_loop = watch_compiles("paged.paged_chunk_decode_loop")(decode_loop)
+
+
 def check_kv_quant_head_dim(kv_quant: str | None, head_dim: int, device: torch.device) -> None:
     """Refuse at boot a quantized pool that the card's kernels cannot read:
     K8 / K9 are built for ``QUANT_HEAD_DIMS`` only (their plain versions on
@@ -284,6 +319,9 @@ class PagedDecodeEngine(DecodeEngine):
         if self._spec_cfg is not None:
             self._build_spec()
 
+    # the decode loop under the paged layout's compile-sentinel site
+    _chunk_loop = staticmethod(paged_chunk_decode_loop)
+
     def _init_kv_cache(self):
         return None  # the block pool, built in __init__, holds the KV
 
@@ -304,19 +342,12 @@ class PagedDecodeEngine(DecodeEngine):
         as they are, or under KV_QUANT quantized on write with their scales
         at the same flat indices (the prefix install and the per-slot tail
         go through here, so they store what a decode write would)."""
-        L, N, bs = self.k_pool.shape[:3]
         idx = torch.as_tensor(dst_idx, dtype=torch.long, device=self.device)
-        kflat = self.k_pool.view(L, N * bs, *self.k_pool.shape[3:])
-        vflat = self.v_pool.view(L, N * bs, *self.v_pool.shape[3:])
         if self.kv_quant is None:
-            kflat[:, idx] = src_k.to(self.k_pool.dtype)
-            vflat[:, idx] = src_v.to(self.v_pool.dtype)
+            _scatter_blocks(self.k_pool, self.v_pool, src_k, src_v, idx)
             return
-        (qk, sk), (qv, sv) = quantize_kv(src_k, self.kv_quant), quantize_kv(src_v, self.kv_quant)
-        kflat[:, idx] = qk
-        vflat[:, idx] = qv
-        self.k_scale.view(L, N * bs, -1)[:, idx] = sk
-        self.v_scale.view(L, N * bs, -1)[:, idx] = sv
+        sk, sv = _scatter_blocks_quant(self.k_pool, self.v_pool, src_k, src_v, idx, self.kv_quant)
+        _scatter_scale_planes(self.k_scale, self.v_scale, sk, sv, idx)
 
     def _forward(self, tokens, positions, tables, **kw):
         """``forward_paged`` on this engine's pool, scale planes and tier."""
@@ -768,8 +799,8 @@ class PagedDecodeEngine(DecodeEngine):
             # dispatching against the fresh tables
             self.spec.reset()
         self._superseded = False
-        # JAX re-arms its recompilation sentinel here; the port compiles no
-        # XLA programs, so there is nothing to re-arm
+        # a restart keeps every warmed shape: a cold call after it is suspect
+        get_compile_watcher().arm_fence("warm_restart")
 
     def generate(self, *a, **kw):
         raise ValueError("PagedDecodeEngine serves through the continuous batcher "

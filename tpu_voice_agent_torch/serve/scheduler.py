@@ -84,9 +84,10 @@ import torch
 
 from ..utils.chaos import chaos_fire
 from ..utils.costmodel import CostMeter, cost_enabled
+from ..utils.hbmledger import record_hbm_gauges
 from ..utils.quality import conf_summary
 from ..utils.steplog import get_steplog
-from ..utils.tracing import get_flight_recorder, get_metrics
+from ..utils.tracing import get_flight_recorder, get_metrics, log_event
 from .engine import GenerationResult, _first_token
 from .paged import PoolExhausted, record_pool_gauges
 from .radix import record_radix_gauges
@@ -980,6 +981,12 @@ class ContinuousBatcher:
             record_pool_gauges(eng.allocator, engine=eng)
         if getattr(eng, "radix", None) is not None:
             record_radix_gauges([eng.radix])
+        # the device-memory ledger, throttled to HBM_LEDGER_S inside: a
+        # drift is an alarm and a failed read is logged, never a step fault
+        try:
+            record_hbm_gauges(eng)
+        except Exception as e:  # noqa: BLE001
+            log_event("scheduler", "hbm_ledger_failed", error=repr(e)[:200])
         return chunk_s
 
     # ------------------------------------------------------------ drain

@@ -56,6 +56,7 @@ from ..grammar.fsm import DeviceFSM, fsm_advance, fsm_row
 from ..models.llama import (MAX_BLOCK_DECODE_T, PRESETS, forward, init_kv_cache, init_params,
                             unstack_layers)
 from ..ops import masked_argmax_block
+from ..utils.compilewatch import watch_compiles
 from ..utils.tracing import get_metrics
 from .engine import _conf_init, _conf_stats, chain_block, chain_byte_cap, prefill_row
 
@@ -230,6 +231,17 @@ def verify_step(engine, cur, pos, fsm_state, active, nbytes, tokens_left, draft_
                           dl, step_tok, blk_tok, engine.tables, engine.byte_len_table,
                           byte_budget, K, engine.eos_id, engine.pad_id, max_pos,
                           quality_lanes=quality_lanes)
+
+
+# one body, JAX's two compile-sentinel sites (its dense and paged jit twins)
+@watch_compiles("spec.spec_verify_step")
+def spec_verify_step(*args, **kwargs):
+    return verify_step(*args, **kwargs)
+
+
+@watch_compiles("spec.paged_spec_verify_step")
+def paged_spec_verify_step(*args, **kwargs):
+    return verify_step(*args, **kwargs)
 
 
 # ---------------------------------------------------------------- drafters
@@ -628,6 +640,8 @@ class SpecDecoder:
         dev = eng.device
         B, K = eng.batch_slots, self.K
         gen0 = self._gen
+        step = (paged_spec_verify_step if getattr(eng, "allocator", None) is not None
+                else spec_verify_step)
         # the chaos drill's one-shot mask rides the chunk's first verify step
         nan_inject = eng._take_nan_inject()
         head = torch.stack([cur, fsm, active.to(torch.int32)], dim=1).cpu().numpy()
@@ -661,7 +675,7 @@ class SpecDecoder:
                 tokens_left = tokens_left.clone()
                 tokens_left[starved] = 0
             (out, n, eosf, cur, pos, fsm, active, nbytes, tokens_left, a, dl,
-             pois, conf) = verify_step(eng, cur, pos, fsm, active, nbytes, tokens_left,
+             pois, conf) = step(eng, cur, pos, fsm, active, nbytes, tokens_left,
                                        torch.from_numpy(np.ascontiguousarray(dtoks)).to(dev),
                                        torch.from_numpy(dlen).to(dev), byte_budget, K,
                                        eng.max_len,  # the paged tables span max_len too

@@ -53,6 +53,7 @@ from ..models.whisper import (
     with_unstacked_layers,
 )
 from ..utils.chaos import chaos_fire
+from ..utils.compilewatch import watch_compiles
 from ..utils.costmodel import (
     cost_enabled,
     register_stt_engine,
@@ -64,6 +65,7 @@ from ..utils.tracing import get_metrics
 from .engine import _sync, resolve_device
 
 
+@watch_compiles("stt._stt_decode_loop")
 @torch.no_grad()
 def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dict,
                      enc_len: torch.Tensor, bos: torch.Tensor, max_new: int = 64,
@@ -175,6 +177,7 @@ class TranscribeResult:
     repetition: float | None = None
 
 
+@watch_compiles("stt._append_cross_kv")
 def _append_cross_kv(buf_k: torch.Tensor, buf_v: torch.Tensor, new_k: torch.Tensor,
                      new_v: torch.Tensor, offset: int, slot: int = 0) -> None:
     """Write one encoded block's cross-KV (L, 1, keep, nh, hd) into an

@@ -127,8 +127,11 @@ from ..schemas import (
     validate_parse_response,
 )
 from ..utils.chaos import chaos_fire, check_served_points
+from ..utils.compilewatch import get_compile_watcher
 from ..utils.costmodel import SessionCostLedger
+from ..utils.devinit import require_card_unless_cpu
 from ..utils.envcfg import load_env_cascade
+from ..utils.hbmledger import record_hbm_gauges
 from ..utils.quality import GoldenCanary, QualityMonitor
 from ..utils.steplog import get_steplog, steplog_response
 from ..utils.timeseries import TIMESERIES_ROUTE, service_ring, timeseries_response
@@ -138,6 +141,7 @@ from ..utils.tracing import (
     flightrecorder_response,
     get_flight_recorder,
     get_metrics,
+    log_event,
     metrics_response,
     new_trace_id,
     note_stage,
@@ -1397,9 +1401,23 @@ class BrainApp:
         if tenancy is not None:
             # the lanes' occupancy and ledgers (also in /debug/costs, as JAX)
             body["tenants"] = tenancy.snapshot()
+        # the compile sentinel (a cold call after the warmup fence is the
+        # shape-churn p99 cliff, surfaced as an alertable ``warning``), the
+        # last step ledger entry and the device-memory ledger's gauges, so
+        # one scrape answers where the last chunk's time went and whether
+        # memory still matches the plan
+        body["compile_sentinel"] = get_compile_watcher().state()
         last_step = get_steplog().last()
         if last_step is not None:
             body["last_step"] = last_step
+        if engine is not None:
+            try:
+                record_hbm_gauges(engine)  # throttled to HBM_LEDGER_S
+            except Exception as e:  # noqa: BLE001 - a failed read is no health fault
+                log_event("brain", "hbm_ledger_failed", error=repr(e)[:200])
+        hbm = {k: v for k, v in get_metrics().gauges().items() if k.startswith("hbm.")}
+        if hbm:
+            body["hbm"] = hbm
         body["pressure"] = self.pressure(body["slo"])
         if engine is not None:
             body.update(device=str(engine.device), kernels=engine.kernels,
@@ -1882,6 +1900,10 @@ def main() -> None:
     # the repo-root .env first: its knobs are served or refused like the
     # environment's
     load_env_cascade()
+    check_unserved_knobs()  # a refused knob fails the boot before any device
+    if os.environ.get("BRAIN_BACKEND", "rule").startswith(("engine", "distilled")):
+        # a model backend: the card's first touch under the watchdog
+        require_card_unless_cpu(os.environ.get("BRAIN_DEVICE") or None)
     port = int(os.environ.get("BRAIN_PORT", "8090"))
     app = BrainApp(make_parser_from_env(), tracer=Tracer("brain"))
     server = make_server(app, host="0.0.0.0", port=port)

@@ -1008,6 +1008,13 @@ def main() -> None:
     # the repo-root .env first: its knobs are served or refused like the
     # environment's
     load_env_cascade()
+    if os.environ.get("VOICE_STT", "null").startswith(("whisper:", "whisper-ckpt:")) \
+            or os.environ.get("VOICE_STT") == "whisper":
+        # a Whisper engine the service serves: the card's first touch under
+        # the watchdog (a refused one fails in the factory, before any device)
+        from ..utils.devinit import require_card_unless_cpu
+
+        require_card_unless_cpu(os.environ.get("VOICE_DEVICE") or None)
     port = int(os.environ.get("VOICE_PORT", "7072"))
     asyncio.run(_serve_forever(build_app(tracer=Tracer("voice")), "0.0.0.0", port))
 

@@ -17,10 +17,12 @@ decomposition, the stages in ``STAGES`` order:
               radix inserts, gauge exports
 
 plus batch occupancy, token and forward counts, and ``events``: the compile
-events of the step, which the port does not watch yet (ROADMAP.md Queue 1
-item 7), so always ``[]``, as JAX writes a step that caught none. The
-stages tile the wall by construction (each ``lap`` closes at the next one's
-start). Every timing is a ``perf_counter`` call: no device sync.
+sentinel's events recorded since the previous step (``utils.compilewatch``:
+a watched entry point's cold call, or the kernel library's build), drained
+once a step, so a stall lands on the step that paid it and counts in
+``engine.step.compile_stalls``. The stages tile the wall by construction
+(each ``lap`` closes at the next one's start). Every timing is a
+``perf_counter`` call: no device sync.
 
 Surfaces: the ``engine.step.*`` histograms and gauges, ``GET
 /debug/steplog`` on the brain (``steplog_response``), and the ``steplog``
@@ -127,12 +129,15 @@ class StepTimer:
     def finish(self, **meta) -> dict:
         # the wall closes at the LAST lap: this recorder's own overhead
         # after it is no step time, so the stages tile the wall
+        from .compilewatch import get_compile_watcher
+
         end = self._t_last if self.stages else time.perf_counter()
         rec = {
             "t_s": round(time.time(), 3),
             "wall_ms": round((end - self.t0) * 1e3, 3),
             "stages": {k: round(v, 3) for k, v in self.stages.items()},
-            "events": [],  # no compile watcher yet: a step that caught none
+            # the cold calls this step paid (drained once a step)
+            "events": get_compile_watcher().take_pending(),
         }
         rec.update({k: v for k, v in meta.items() if v is not None})
         self._log.record(rec)
