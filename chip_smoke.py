@@ -26,6 +26,28 @@ Phases, in order (any failure exits nonzero and prints no result line):
               held exactly over every state of the intent grammar and timed
               warm and cold (L2 flushed, new states each launch) at the
               path's rows, beside the launch floor.
+3b. hf_import - checkpoint import (BRAIN_MODEL, VOICE_STT=whisper-hf):
+              HF-layout directories written into a temporary directory
+              (deleted after) from seeded trees at published widths, BF16
+              shards by this script's own safetensors writer: TinyLlama-1.1B
+              (2 shards, a 32,000-piece SentencePiece-style tokenizer.json
+              with merges trained on the prompt corpus), whisper-large-v3
+              (byte-level, 51,866 ids with Whisper's control tokens) and the
+              mixtral-8x7b layout cut to 1 layer. Each load bit-equal to its
+              seeded tree (GB/s printed); the FSM build over the checkpoint
+              tokenizer timed; a BRAIN_MODEL BRAIN_QUANT=int8 brain answers
+              2 of the 5 utterances 200 with intents that parse (K1, K3), its
+              int8 tree equal to quantize_params of the seeded tree and its
+              tokens to an engine given the tokenizer and the tree (bf16)
+              and, in an fp32 twin, from_hf's to the tree's; a BRAIN_PAGED=1
+              BRAIN_BATCH=32 brain's 32-session drain, all in the grammar
+              (K7); the whisper-hf voice service's paced utterance (K1, K5),
+              its transcript tokens equal to an engine given the tree, no
+              control token emitted; the Mixtral directory under
+              BRAIN_MOE=grouped BRAIN_QUANT=int8 answering 200 (K13). At
+              V = 32,000 S·V is past the dense-mask limit: K4 / K11 must stay
+              at 0 (printed with S, V and the limit). The load rates, FSM
+              build, peak card memory and phase time are printed.
 4. service  - the port's brain service in-process on an ephemeral port with
               BRAIN_BACKEND=engine:tinyllama-1.1b BRAIN_QUANT=int8 (ff 8, the
               cached prompt prefix), answering /parse requests with bench.py's
@@ -92,7 +114,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               bf16 activations within 32 bf16 ulps of the top-2 margin, in
               a twin with fp32 activations within one); TTFT
               of 8 short requests behind one 1000-token prompt, chunking
-              off / 256 / 16 (a reading); the step ledger over 2 drains at
+              off / 256 / 16 (a reading); the step ledger over a drain at
               ff 8 and ff 0 (every step's stages tile its wall within 5%;
               the median stage split, admitting and decode-only steps); a
               brain over HTTP at max_inflight 2 (4 concurrent parses: 503 +
@@ -116,7 +138,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               ``/debug/costs`` reports MFU and MBU against the H100 entry.
 11e. handoff - the brain's warm state at tinyllama-1.1b int8 (32 slots, 513
               blocks of 128, radix on, the cached prefix): per pool tier
-              (bf16, int8, int4) 4 sessions play 2 turns on a donor engine,
+              (bf16, int8, int4) 2 sessions play 2 turns on a donor engine,
               each is exported and POSTed to ``/admin/handoff`` on a port
               brain around a recipient engine, and turn 3 runs batched on
               both: the recipient's tokens equal the donor's stay-home ones
@@ -148,7 +170,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               three port brains (BRAIN_BATCH=8 BRAIN_PAGED=1 RADIX_ENABLE=1,
               one weight set) on the card, each on its own port, behind the
               port's router on its own port (HANDOFF_ENABLE=1; the drill
-              drives every probe sweep). Affinity: 12 sessions x 2 turns,
+              drives every probe sweep). Affinity: 6 sessions x 2 turns,
               each on its rendezvous home, turn 2 cached past the prefix.
               Drain: ``POST /admin/drain`` on the member with the most
               sessions while 4 parses are in flight on it (all 200); its
@@ -212,7 +234,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               ff=8 parse colocated on the card, 3 utterances; K1, K3, K4 and
               K5 must launch. Then bench.py's --neural loop
               (``voicebench.run_neural_voice_bench``): the distilled parser
-              and whisper-tiny-heldout, 9 runs over five eval texts, p50 /
+              and whisper-tiny-heldout, 5 runs over five eval texts, p50 /
               p95 and each run's WER (K1, K2, K4, K5).
 18. voice_service - the port's voice WS service (``services/voice.py``)
               driven through its own client (``services/ws.py``): the
@@ -251,8 +273,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
               IncrementalState fed the same audio): equal tokens, or a
               parting within 32 bf16 ulps of the B = 1 decoder's top-2
               margin; on fp32 copies of the weights within one (K1, K5 at
-              B = 4 with ragged kv_len). Then the voice service's 2 paced
-              utterances behind the rule brain and a stub executor on the
+              B = 4 with ragged kv_len). Then the voice service's paced
+              utterance behind the rule brain and a stub executor on the
               batched plane on 3 connections at once (each the same
               audio: a one-connection run repeated it, so it went): the drain
               after the last frame, partials, coalesced and shed partials,
@@ -272,7 +294,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               the card against dense on the card and grouped on the CPU, 8
               prompts token-identical or parted at a near tie; then
               BRAIN_BACKEND=engine:mixtral-8x7b BRAIN_QUANT=int8 behind
-              BrainApp, BRAIN_MOE=grouped and then dense: 3 /parse (dense:
+              BrainApp, BRAIN_MOE=grouped and then dense: 2 /parse (dense:
               1), 200
               and grammar-valid, K13 exactly 3 x 32 launches a forward (0 on
               the dense dispatch), the peak allocation under the card's
@@ -288,8 +310,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
               parted at a near tie).
 21. the kernels JSON line, the card line, and the final JSON line.
 
-Every launch counter is set to 0 just before each of phases 4-20 (each of the
-voice_service phase's four runs) and read just after; a kernel's
+Every launch counter is set to 0 just before each of phases 3b-20 (each of the
+voice_service phase's four runs, and of the hf_import phase's brains, drain
+and voice run) and read just after; a kernel's
 ``launches`` is the sum over those runs (the kernel-alone comparisons of
 phase 3 are not counted). The port imports no JAX. Weights are random from a
 seed (phases 3-11g but 11e's drain, 16, 17, 18's first two runs, 18b, 20) or
@@ -2374,7 +2397,7 @@ def _to_float(tree):
 # transcribes timed per bucket, few for the script's time limit: the B = 1
 # transcribe is timed again by the voice loop and by stt_batch's 11-item
 # reference
-STT_WALL_RUNS = 3
+STT_WALL_RUNS = 2
 
 
 def phase_stt(totals: dict, report: dict):
@@ -2521,9 +2544,9 @@ def phase_stt_golden(totals: dict, report: dict) -> None:
 
 # utterances of the random-weight voice loop, fewer than bench.py's 9 for the
 # script's time limit: each is ~5 s of random large-v3 partials, and
-# voice_service then drives the same loop through the service (the neural
-# loop keeps 9 runs)
-VOICE_LOOP_RUNS = 3
+# voice_service then drives the same loop through the service
+VOICE_LOOP_RUNS = 2
+VOICE_NEURAL_RUNS = 5  # bench.py runs 9; a depth the script's time limit sets
 
 
 def phase_voice(stt_engine, totals: dict, report: dict) -> None:
@@ -2569,14 +2592,14 @@ def phase_voice(stt_engine, totals: dict, report: dict) -> None:
     try:
         nparser, nstt, name = voicebench.make_neural_engines()
         with Counted("voice_neural", totals) as c:
-            nres = voicebench.run_neural_voice_bench(nparser, nstt, runs=9)
+            nres = voicebench.run_neural_voice_bench(nparser, nstt, runs=VOICE_NEURAL_RUNS)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     c.require("flash_attention", "decode_attention_layer", "masked_argmax_advance",
               "decode_attention")
     fail_if(not all(math.isfinite(nres[k]) and nres[k] > 0 for k in ("p50_ms", "p95_ms")),
             f"voice neural: p50 {nres['p50_ms']} p95 {nres['p95_ms']}")
-    fail_if(len(nres["wer"]) != 9 or not all(0 <= w for w in nres["wer"]),
+    fail_if(len(nres["wer"]) != VOICE_NEURAL_RUNS or not all(0 <= w for w in nres["wer"]),
             f"voice neural: WER {nres['wer']}")
     log(f"[voice] neural ({name} + the distilled parser): voice->intent p50 "
         f"{nres['p50_ms']:.2f} ms, p95 {nres['p95_ms']:.2f} ms over {nres['runs']} runs; "
@@ -2596,10 +2619,10 @@ VOICE_EVENTS = {"transcript_partial", "transcript_final", "intent", "tts", "exec
 # synth_utterance(2.0) + 1 s of silence each. voicebench runs 9, but at
 # SpeechEngine's defaults (64 new tokens) random large-v3 weights decode every
 # partial to the budget and the service falls ~16 s behind an utterance (a
-# 9-utterance run drained 146.7 s after the last frame): 2, for the script's
-# time limit; stt_batch's service run drives them through the service on 3
+# 9-utterance run drained 146.7 s after the last frame): 1, for the script's
+# time limit; stt_batch's service run drives it through the service on 3
 # connections
-VOICE_AUDIO_UTTERANCES = 2
+VOICE_AUDIO_UTTERANCES = 1
 # voice_service's locked plane takes the same 2
 VOICE_LOCKED_UTTERANCES = 2
 # typed behind the distilled brain, whose intents are recorded
@@ -3845,7 +3868,7 @@ def _device_kernels(fn) -> int:
 
 def _chunk_lanes(eng, label: str) -> dict:
     """One batch chunk after 32 admissions, lanes on and off on the same
-    engine: its wall (median of 2, unprofiled, the two modes in turns) and
+    engine: its wall (one each, unprofiled, the two modes in turns) and
     the device kernels a 4-step chunk launches (profiled after its
     admissions; a short chunk keeps the profiler's trace small)."""
     import torch
@@ -3861,10 +3884,10 @@ def _chunk_lanes(eng, label: str) -> dict:
         b._admit_pending(b._active_h)
         torch.cuda.synchronize()
 
-    # the walls in turns (on, off, off, on, ...), so a drift of the host
-    # lands on both
+    # the walls in turns (on, off), one each: a depth the script's time
+    # limit sets
     walls = {True: [], False: []}
-    for lanes in (True, False, False, True):
+    for lanes in (True, False):
         _set_lanes(eng, lanes)
         admit()
         t0 = time.perf_counter()
@@ -4200,7 +4223,7 @@ def _ttft_behind_long(eng, totals: dict) -> dict:
     return out
 
 
-def _stage_split(eng, label: str, totals: dict, drains: int = 2) -> dict:
+def _stage_split(eng, label: str, totals: dict, drains: int = 1) -> dict:
     """``drains`` clean 32-request drains with the step ledger on: every
     step's stages must tile its wall within 5%. The median per-stage ms of
     the full-batch steps, apart for the steps that admitted (their prefill
@@ -4818,7 +4841,7 @@ def phase_spec_golden(totals: dict, report: dict) -> None:
 # ------------------------------------------------------------------ MoE
 
 MOE_LAYERS = 32  # mixtral-8x7b: K13 runs gate, up and down in every layer
-MOE_IDENTITY_PROMPTS = 8  # a depth the script's time limit sets
+MOE_IDENTITY_PROMPTS = 4  # a depth the script's time limit sets
 
 
 def _moved(tree, device):
@@ -4830,7 +4853,7 @@ def _moved(tree, device):
 
 def _moe_identity(totals: dict) -> dict:
     """The mixtral-test engine (4 experts, top-2) in fp32 on ONE weight set,
-    ff=8 behind the cached prefix, 8 prompts of 64 new tokens: the grouped
+    ff=8 behind the cached prefix, 4 prompts of 64 new tokens: the grouped
     dispatch on the card (K13) against the dense dispatch on the card (no
     K13), and against the grouped engine on the CPU (the plain versions).
     Token-identical, or parted only where the plain forward's top-2 margin
@@ -4925,7 +4948,7 @@ def phase_moe(totals: dict, report: dict, profile: bool = False) -> None:
     quantized layer by layer on the card (the bf16 tree, ~93 GB, never
     exists), ff 8 behind the cached prefix. First the fp32 identity check at
     mixtral-test (``_moe_identity``). Then BRAIN_MOE=grouped behind BrainApp:
-    3 /parse requests, each a 200 with a grammar-valid intent, K13 launched
+    2 /parse requests, each a 200 with a grammar-valid intent, K13 launched
     exactly 3 x 32 times per forward (the prefix install, and each request's
     suffix prefill and decode forwards), the peak allocation under the card's
     memory. Then the first of them on the dense dispatch (BRAIN_MOE unset, the
@@ -4964,7 +4987,7 @@ def phase_moe(totals: dict, report: dict, profile: bool = False) -> None:
         with Counted(f"moe {impl}", totals) as c:
             # the dense dispatch answers one parse (K13 never launches); the
             # grouped one three
-            for text in UTTERANCES[:3 if impl == "grouped" else 1]:
+            for text in UTTERANCES[:2 if impl == "grouped" else 1]:
                 t1 = time.perf_counter()
                 status, body, _ = app.parse(json.dumps({"text": text, "context": {}}).encode())
                 wall = (time.perf_counter() - t1) * 1e3
@@ -5128,7 +5151,7 @@ def _moe_kvquant(base, bf16_res, totals: dict) -> dict:
     return out
 
 
-MOE_TWIN_PROMPTS = 4
+MOE_TWIN_PROMPTS = 2  # a depth the script's time limit sets
 MOE_TWIN_NEW_TOKENS = 48
 
 
@@ -5383,7 +5406,7 @@ def _tenancy_service(params, totals: dict) -> dict:
 
 # ------------------------------------------------------------------ handoff
 
-HANDOFF_SESSIONS = 4  # a depth the script's time limit sets
+HANDOFF_SESSIONS = 2  # a depth the script's time limit sets
 HANDOFF_NEW_TOKENS = 32
 HANDOFF_TURNS = [("search for wireless headphones", {}),
                  ("open the second result", {"last_query": "wireless headphones"})]
@@ -5445,7 +5468,7 @@ def _admitting_step(eng, prompts: list, label: str, totals: dict):
 
 
 def _handoff_tier(params, tier: str, totals: dict, ulps: float, label: str) -> dict:
-    """4 sessions x 2 turns on a donor, each exported and POSTed to
+    """2 sessions x 2 turns on a donor, each exported and POSTed to
     ``/admin/handoff`` on a brain around the recipient, turn 3 batched on
     both; then the same recipient warm-restarted, the ``HANDOFF_KV=0`` blobs
     adopted, turn 3 again (the cold baseline)."""
@@ -6019,7 +6042,7 @@ FLEET_SLOTS = 8  # BRAIN_BATCH of each fleet brain
 # each fleet parse's budget: a random-weight answer ends at EOS in ~30
 # tokens, a few run past 32 and would answer 422, recording no turn
 FLEET_NEW_TOKENS = BATCH_NEW_TOKENS
-FLEET_SESSIONS = 12
+FLEET_SESSIONS = 6  # a depth the script's time limit sets
 FLEET_DEADLINE_MS = 120_000  # the x-deadline-ms every fleet parse carries
 FLEET_INFLIGHT = 4  # parses in flight on the member the drain drill drains
 FLEET_CRASH_PARSES = 8
@@ -6162,7 +6185,7 @@ def _default_slo_reading(b) -> dict:
 
 
 def _fleet_affinity(brains: list, router, totals: dict, pool) -> dict:
-    """12 sessions x 2 turns through the router, each turn's 12 at once:
+    """6 sessions x 2 turns through the router, each turn's 6 at once:
     every answer 200 on the session's rendezvous home, turn 2 reading
     cached tokens past the prefix."""
     from tpu_voice_agent_torch.services.replicaset import rendezvous_weight
@@ -7140,7 +7163,7 @@ def _stt_replica_drill(eng, b1_refs: list, totals: dict, ulps: float) -> dict:
 
 
 def _stt_batch_service(totals: dict) -> dict:
-    """2 paced utterances (synth_utterance(2.0) + 1 s of silence each)
+    """One paced utterance (synth_utterance(2.0) + 1 s of silence)
     through the voice service at VOICE_STT=whisper:whisper-large-v3
     (SpeechEngine's defaults) behind the rule brain and a stub executor,
     ``STT_BATCH_ENABLE=1``, on 3 connections at once (each the same
@@ -7254,6 +7277,651 @@ def phase_stt_batch(totals: dict, report: dict) -> None:
     report["stt_batch"] = out
 
 
+# ---------------------------------------------------------------- hf_import
+
+# published config.json widths (HF's TinyLlama/TinyLlama-1.1B-Chat-v1.0,
+# mistralai/Mixtral-8x7B-v0.1 and openai/whisper-large-v3)
+HF_TINYLLAMA = {"architectures": ["LlamaForCausalLM"], "vocab_size": 32000,
+                "hidden_size": 2048, "num_hidden_layers": 22, "num_attention_heads": 32,
+                "num_key_value_heads": 4, "intermediate_size": 5632,
+                "max_position_embeddings": 2048, "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
+                "tie_word_embeddings": False}
+HF_MIXTRAL_LAYERS = 1  # of 32: the cut the script's time limit sets
+HF_MIXTRAL = {"architectures": ["MixtralForCausalLM"], "vocab_size": 32000,
+              "hidden_size": 4096, "num_hidden_layers": HF_MIXTRAL_LAYERS,
+              "num_attention_heads": 32, "num_key_value_heads": 8, "intermediate_size": 14336,
+              "max_position_embeddings": 32768, "rope_theta": 1e6, "rms_norm_eps": 1e-5,
+              "num_local_experts": 8, "num_experts_per_tok": 2, "tie_word_embeddings": False}
+HF_WHISPER = {"architectures": ["WhisperForConditionalGeneration"], "vocab_size": 51866,
+              "d_model": 1280, "encoder_layers": 32, "decoder_layers": 32,
+              "encoder_attention_heads": 20, "decoder_attention_heads": 20,
+              "encoder_ffn_dim": 5120, "decoder_ffn_dim": 5120, "num_mel_bins": 128,
+              "max_source_positions": 1500, "max_target_positions": 448}
+# the seeded trees carry one structured component: a constant 100 on channel
+# 0 of every embedding row and +0.5 on that channel of the head's columns for
+# EOS and the pieces that open with '"', '{' or '}'. The residual stream
+# keeps the constant, so a random model prefers, wherever the grammar allows,
+# to open an object (so ``intents`` is not empty) and to close strings and
+# objects: it reaches EOS inside the parser's 512 tokens, and every /parse
+# can answer 200 with an intent that parses
+HF_BIAS_CHANNEL, HF_BIAS_HEAD = 100.0, 0.5
+SP = "▁"
+HF_DEVICE = "cuda"  # where the seeded trees are drawn and loaded
+HF_PARSES = 2  # of the 5 utterances: a depth the script's time limit sets
+
+
+def _sp_tokenizer_json(vocab_size: int = 32000, seed: int = 0) -> dict:
+    """A TinyLlama-style (SentencePiece BPE) tokenizer.json: ``<unk> <s>
+    </s>``, 256 ``<0xNN>`` byte pieces, the corpus's characters, merges
+    trained on the prompt corpus's ▁-words, then seeded filler pieces to
+    ``vocab_size``, with the Prepend / Replace normalizer."""
+    import random
+    from collections import Counter
+
+    from tpu_voice_agent_torch.services.prompts import corpus_for_tokenizer
+
+    words: Counter = Counter()
+    for text in corpus_for_tokenizer():
+        for w in (SP + text.replace(" ", SP)).split(SP):
+            if w:
+                words[tuple(SP + w)] += 1
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for w in words:
+        for ch in w:
+            vocab.setdefault(ch, len(vocab))
+    merges, work = [], dict(words)
+    while len(vocab) < vocab_size:
+        pairs: Counter = Counter()
+        for w, c in work.items():
+            for a, b in zip(w, w[1:]):
+                pairs[(a, b)] += c
+        if not pairs or pairs.most_common(1)[0][1] < 2:
+            break
+        (a, b), _ = pairs.most_common(1)[0]
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        new: dict = {}
+        for w, c in work.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            new[tuple(out)] = new.get(tuple(out), 0) + c
+        work = new
+    rng = random.Random(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    while len(vocab) < vocab_size:
+        piece = (SP if rng.random() < 0.6 else "") + "".join(
+            rng.choice(letters) for _ in range(rng.randint(2, 9)))
+        vocab.setdefault(piece, len(vocab))
+    return {"model": {"type": "BPE", "vocab": vocab, "byte_fallback": True,
+                      "merges": [f"{a} {b}" for a, b in merges]},
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Prepend", "prepend": SP},
+                {"type": "Replace", "pattern": {"String": " "}, "content": SP}]},
+            "added_tokens": [{"id": i, "content": c, "special": True}
+                             for i, c in enumerate(("<unk>", "<s>", "</s>"))]}
+
+
+def _whisper_tokenizer_json(seed: int = 1) -> dict:
+    """A whisper-large-v3-layout (byte-level BPE) tokenizer.json: 256 byte
+    symbols, merges trained on the prompt corpus, seeded filler to 50,257
+    ids, then Whisper's 1,609 control tokens (ids 50,257-51,865:
+    ``<|endoftext|>``, ``<|startoftranscript|>``, 100 languages,
+    translate / transcribe, startoflm / startofprev / nospeech,
+    ``<|notimestamps|>``, the 1,501 timestamps)."""
+    import random
+    from collections import Counter
+
+    from tpu_voice_agent_torch.grammar.hf_tokenizer import _PRETOK, _byte_to_unicode
+    from tpu_voice_agent_torch.services.prompts import corpus_for_tokenizer
+
+    b2u = _byte_to_unicode()
+    words: Counter = Counter()
+    for text in corpus_for_tokenizer():
+        for m in _PRETOK.finditer(text):
+            words[tuple(b2u[b] for b in m.group(0).encode())] += 1
+    vocab = {b2u[b]: b for b in range(256)}
+    merges, work = [], dict(words)
+    for _ in range(2000):
+        pairs: Counter = Counter()
+        for w, c in work.items():
+            for a, b in zip(w, w[1:]):
+                pairs[(a, b)] += c
+        if not pairs or pairs.most_common(1)[0][1] < 2:
+            break
+        (a, b), _ = pairs.most_common(1)[0]
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        new: dict = {}
+        for w, c in work.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            new[tuple(out)] = new.get(tuple(out), 0) + c
+        work = new
+    rng = random.Random(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    while len(vocab) < 50257:
+        piece = ("Ġ" if rng.random() < 0.6 else "") + "".join(
+            rng.choice(letters) for _ in range(rng.randint(2, 9)))
+        vocab.setdefault(piece, len(vocab))
+    specials = (["<|endoftext|>", "<|startoftranscript|>", "<|en|>"]
+                + [f"<|lang{i}|>" for i in range(99)]
+                + ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+                   "<|nospeech|>", "<|notimestamps|>"]
+                + [f"<|{0.02 * i:.2f}|>" for i in range(1501)])
+    return {"model": {"type": "BPE", "vocab": vocab,
+                      "merges": [f"{a} {b}" for a, b in merges]},
+            "pre_tokenizer": {"type": "ByteLevel"},
+            "added_tokens": [{"id": 50257 + i, "content": c, "special": True}
+                             for i, c in enumerate(specials)]}
+
+
+def _write_safetensors(path: str, tensors: dict) -> int:
+    """A safetensors file written here (not with the ``safetensors``
+    package): the 8-byte little-endian header length, the JSON header padded
+    with spaces to 8 bytes, then each tensor's bytes in header order.
+    Returns the data bytes."""
+    import torch
+
+    tags = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    header, off, cpu = {}, 0, {}
+    for name, t in tensors.items():
+        c = t.detach().to("cpu").contiguous()
+        cpu[name] = c
+        n = c.numel() * c.element_size()
+        header[name] = {"dtype": tags[c.dtype], "shape": list(c.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    header["__metadata__"] = {"format": "pt"}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for c in cpu.values():
+            f.write(c.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return off
+
+
+def _write_hf_dir(d: str, config: dict, tokenizer: dict, state: dict, shards: int) -> dict:
+    """config.json, tokenizer.json and ``state`` in ``shards`` files of
+    about equal bytes (``model-0000k-of-0000n.safetensors``). Returns the
+    write's bytes and seconds."""
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(tokenizer, f)
+    total = sum(t.numel() * t.element_size() for t in state.values())
+    parts: list[dict] = [{} for _ in range(shards)]
+    acc = 0
+    for name, t in state.items():
+        parts[min(shards - 1, acc * shards // max(total, 1))][name] = t
+        acc += t.numel() * t.element_size()
+    nbytes = sum(_write_safetensors(os.path.join(d, f"model-{k + 1:05d}-of-{shards:05d}"
+                                                    ".safetensors"), p)
+                 for k, p in enumerate(parts))
+    return {"bytes": nbytes, "write_s": time.perf_counter() - t0}
+
+
+def _hf_llama_state(tree: dict, cfg) -> dict:
+    """The port's stacked Llama / Mixtral tree -> HF names in (out, in)
+    layout (views on the card; the writer copies them out)."""
+    L, layers = cfg.n_layers, tree["layers"]
+    state = {"model.embed_tokens.weight": tree["embed"], "model.norm.weight": tree["final_norm"],
+             "lm_head.weight": tree["lm_head"].t()}
+    for i in range(L):
+        p = f"model.layers.{i}."
+        state[p + "input_layernorm.weight"] = layers["attn_norm"][i]
+        state[p + "post_attention_layernorm.weight"] = layers["mlp_norm"][i]
+        for ours, hf in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
+                         ("wo", "o_proj")):
+            state[p + f"self_attn.{hf}.weight"] = layers[ours][i].t()
+        if cfg.n_experts:
+            state[p + "block_sparse_moe.gate.weight"] = layers["router"][i].t()
+            for e in range(cfg.n_experts):
+                q = f"{p}block_sparse_moe.experts.{e}."
+                state[q + "w1.weight"] = layers["moe_gate"][i, e].t()
+                state[q + "w3.weight"] = layers["moe_up"][i, e].t()
+                state[q + "w2.weight"] = layers["moe_down"][i, e].t()
+        else:
+            for ours, hf in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                             ("w_down", "down_proj")):
+                state[p + f"mlp.{hf}.weight"] = layers[ours][i].t()
+    return state
+
+
+def _hf_whisper_state(tree: dict, cfg) -> dict:
+    """The port's Whisper tree -> HF names: linear (in, out) -> (out, in),
+    conv (k, in, out) -> (out, in, k), no k bias; ``proj_out`` written tied
+    (HF ships it; the import does not read it)."""
+    enc, dec = tree["encoder"], tree["decoder"]
+    state = {"model.encoder.conv1.weight": enc["conv1"]["w"].permute(2, 1, 0),
+             "model.encoder.conv1.bias": enc["conv1"]["b"],
+             "model.encoder.conv2.weight": enc["conv2"]["w"].permute(2, 1, 0),
+             "model.encoder.conv2.bias": enc["conv2"]["b"],
+             "model.encoder.layer_norm.weight": enc["ln_post"]["g"],
+             "model.encoder.layer_norm.bias": enc["ln_post"]["b"],
+             "model.decoder.embed_tokens.weight": dec["tok_emb"],
+             "model.decoder.embed_positions.weight": dec["pos_emb"],
+             "model.decoder.layer_norm.weight": dec["ln_final"]["g"],
+             "model.decoder.layer_norm.bias": dec["ln_final"]["b"],
+             "proj_out.weight": dec["tok_emb"]}
+
+    def attn(p, a, i):
+        for ours, hf in (("wq", "q"), ("wk", "k"), ("wv", "v"), ("wo", "out")):
+            state[f"{p}.{hf}_proj.weight"] = a[ours][i].t()
+        for ours, hf in (("bq", "q"), ("bv", "v"), ("bo", "out")):
+            state[f"{p}.{hf}_proj.bias"] = a[ours][i]
+
+    def rest(p, lay, i, lns):
+        for ours, hf in lns:
+            state[f"{p}.{hf}.weight"], state[f"{p}.{hf}.bias"] = lay[ours]["g"][i], lay[ours]["b"][i]
+        state[p + ".fc1.weight"], state[p + ".fc1.bias"] = lay["w1"][i].t(), lay["b1"][i]
+        state[p + ".fc2.weight"], state[p + ".fc2.bias"] = lay["w2"][i].t(), lay["b2"][i]
+
+    for i in range(cfg.enc_layers):
+        p, lay = f"model.encoder.layers.{i}", enc["layers"]
+        attn(p + ".self_attn", lay["attn"], i)
+        rest(p, lay, i, (("ln1", "self_attn_layer_norm"), ("ln2", "final_layer_norm")))
+    for i in range(cfg.dec_layers):
+        p, lay = f"model.decoder.layers.{i}", dec["layers"]
+        attn(p + ".self_attn", lay["self_attn"], i)
+        attn(p + ".encoder_attn", lay["cross_attn"], i)
+        rest(p, lay, i, (("ln1", "self_attn_layer_norm"), ("ln2", "encoder_attn_layer_norm"),
+                         ("ln3", "final_layer_norm")))
+    return state
+
+
+def _bias_tree(tree: dict, tok) -> None:
+    """The closing-piece preference (``HF_BIAS_*``), in place."""
+    closing = [tok.eos_id] + [i for i, p in enumerate(tok.byte_pieces())
+                              if p and p[:1] in (b'"', b"{", b"}")]
+    tree["embed"][:, 0] += HF_BIAS_CHANNEL
+    tree["lm_head"][0, closing] += HF_BIAS_HEAD
+
+
+def _flat_equal(a, b, path: str = "") -> list:
+    """Leaf paths where two trees differ (dtype, shape or any bit)."""
+    import torch
+
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [path or "<root>"]
+        return [p for k in a for p in _flat_equal(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, list):
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in _flat_equal(x, y, f"{path}[{i}]")]
+    ok = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return [] if ok else [path]
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _hf_env(**env) -> None:
+    for k in ("BRAIN_BACKEND", "BRAIN_MODEL", "BRAIN_QUANT", "BRAIN_MOE", "BRAIN_FF",
+              "BRAIN_PREFIX", "BRAIN_DEVICE", "BRAIN_BATCH", "BRAIN_PAGED", "BRAIN_POOL_BLOCKS",
+              "RADIX_ENABLE", "KV_QUANT", "SPEC_ENABLE", "VOICE_STT", "VOICE_DEVICE",
+              "STT_BATCH_ENABLE", "STT_REPLICAS", "CHAOS_FAULTS"):
+        os.environ.pop(k, None)
+    os.environ.update(env)
+
+
+def _hf_parses(parser, texts, label: str) -> list:
+    """POST each text to /parse on a BrainApp over ``parser``: every answer
+    must be 200 with a ParseResponse holding an intent. Returns the token
+    ids of each decode (single-slot parsers), or []."""
+    from tpu_voice_agent_torch.schemas import validate_parse_response
+    from tpu_voice_agent_torch.services import brain
+
+    server, thread, base = _serve_brain(brain.BrainApp(parser))
+    ids = []
+    try:
+        for text in texts:
+            t1 = time.perf_counter()
+            status, body = _post(base, {"text": text, "context": {}})
+            wall = (time.perf_counter() - t1) * 1e3
+            fail_if(status != 200 or validate_parse_response(body) != (body, None)
+                    or not body.get("intents"),
+                    f"{label}: /parse {text!r} answered {status} {str(body)[:300]}")
+            res = getattr(parser, "last_result", None)
+            if res is not None:
+                ids.append(list(res.token_ids))
+            log(f"[{label}] /parse {text!r}: 200 {[i['type'] for i in body['intents']]} "
+                f"({len(json.dumps(body))} JSON bytes) wall {wall:.1f} ms" + (f", {res.steps} tokens, {res.forwards} forwards, "
+                                         f"prompt {res.prompt_tokens} (cached "
+                                         f"{res.cached_tokens})" if res is not None else ""))
+    finally:
+        _stop(server, thread)
+    return ids
+
+
+def _no_dense_mask(eng, c: Counted, label: str) -> dict:
+    """At a checkpoint vocab the intent FSM has no dense mask (S·V past
+    ``device_tables``' 2^25 limit), so K4 / K11 are not launched and the
+    greedy picks take the compressed two-gather row in torch, as in JAX."""
+    S, V = eng.fsm.num_states, eng.cfg.vocab_size
+    k4 = c.counts.get("masked_argmax_advance", 0)
+    k11 = c.counts.get("masked_argmax", 0)
+    log(f"[{label}] K4 / K11 not on this path: S {S} x V {V} = {S * V:,} > 2^25 = "
+        f"{1 << 25:,}, so no dense mask (device_tables); masked_argmax_advance launches {k4}, "
+        f"masked_argmax {k11}; picks take the compressed table[state][col_id] row")
+    fail_if(eng.tables.dense_mask is not None or S * V <= 1 << 25,
+            f"{label}: a dense mask at a checkpoint vocab")
+    fail_if(k4 or k11, f"{label}: K4 / K11 launched without a dense mask")
+    return {"S": S, "V": V, "SV": S * V, "dense_limit": 1 << 25, "k4": k4, "k11": k11}
+
+
+def _hf_tinyllama(root: str, totals: dict, tok_json: dict) -> dict:
+    """(a) a TinyLlama-1.1B directory, (b) the BRAIN_MODEL int8 brain on it,
+    its tokens against engines given the tree directly (bf16 and an fp32
+    twin), (c) the BRAIN_PAGED=1 BRAIN_BATCH=32 brain's drain."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_voice_agent_torch.ckpt.hf_import import llama_config_from_hf, llama_from_hf_state
+    from tpu_voice_agent_torch.grammar.intent_grammar import build_fsm_for
+    from tpu_voice_agent_torch.models.llama import init_params, quantize_params
+    from tpu_voice_agent_torch.serve.engine import DecodeEngine, checkpoint_tokenizer
+    from tpu_voice_agent_torch.services import brain
+    from tpu_voice_agent_torch.services.prompts import render_prompt
+
+    out: dict = {}
+    d = os.path.join(root, "tinyllama-1.1b")
+    os.makedirs(d)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(tok_json, f)
+    t0 = time.perf_counter()
+    tok = checkpoint_tokenizer(d)
+    out["tokenizer_s"] = time.perf_counter() - t0
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(HF_TINYLLAMA, f)
+    cfg = llama_config_from_hf(d)
+    tree = init_params(cfg, torch.Generator(HF_DEVICE).manual_seed(20), device=HF_DEVICE)
+    _bias_tree(tree, tok)
+    out["write"] = _write_hf_dir(d, HF_TINYLLAMA, tok_json, _hf_llama_state(tree, cfg), 2)
+    log(f"[hf_import] tinyllama-1.1b: {tok.kind} tokenizer of {tok.vocab_size} ids "
+        f"(read in {out['tokenizer_s']:.2f} s), {out['write']['bytes'] / 1e9:.3f} GB of BF16 in 2 "
+        f"shards written in {out['write']['write_s']:.2f} s")
+    t0 = time.perf_counter()
+    fsm = build_fsm_for(tok, vocab_size=cfg.vocab_size)
+    out["fsm_build_s"] = time.perf_counter() - t0
+    log(f"[hf_import] intent FSM over the checkpoint tokenizer: {fsm.num_states} states, "
+        f"{fsm.num_classes} classes, V {fsm.vocab_size}, built in {out['fsm_build_s']:.2f} s "
+        "(host)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = llama_from_hf_state(d, cfg, device=HF_DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    nbytes = _tree_bytes(loaded)
+    out["load"] = {"bytes": nbytes, "s": load_s, "gb_per_s": nbytes / load_s / 1e9,
+                   "page_cache": "warm (just written)"}
+    bad = _flat_equal(loaded, tree)
+    log(f"[hf_import] bf16 load {nbytes / 1e9:.3f} GB in {load_s:.3f} s = "
+        f"{out['load']['gb_per_s']:.3f} GB/s (page cache warm); bit-equal to the seeded tree: "
+        f"{not bad}")
+    fail_if(bool(bad), f"hf_import: loaded tensors differ from the seeded tree: {bad[:5]}")
+    del loaded
+
+    # (b) the BRAIN_MODEL brain, int8 quantized per layer as read
+    _hf_env(BRAIN_MODEL=d, BRAIN_QUANT="int8")
+    with Counted("hf_import brain", totals) as c:
+        t0 = time.perf_counter()
+        parser = brain.make_parser_from_env()
+        out["brain_boot_s"] = time.perf_counter() - t0
+        eng = parser.engine
+        fail_if(eng.device.type != HF_DEVICE or eng.quant != "int8" or eng.fast_forward != 8
+                or not eng.prefix_ids or eng.tokenizer is not tok,
+                "hf_import: the BRAIN_MODEL brain is not int8 / ff 8 / cached prefix on the card")
+        ids = _hf_parses(parser, UTTERANCES[:HF_PARSES], "hf_import brain")
+    c.require("flash_attention", "decode_block_attention_layer")
+    out["brain"] = {"prefix_tokens": len(eng.prefix_ids), "launches": c.counts,
+                    "tokens": [len(x) for x in ids], "grammar": _no_dense_mask(eng, c,
+                                                                               "hf_import brain")}
+    bad = _flat_equal({**eng.params, "layers": _restack(eng.params["layers"])},
+                      quantize_params(tree))
+    fail_if(bool(bad), f"hf_import: the int8 tree quantized per layer differs from "
+                       f"quantize_params on the seeded tree: {bad[:5]}")
+    log(f"[hf_import] brain boot {out['brain_boot_s']:.2f} s (FSM cached on the tokenizer), "
+        f"prefix {len(eng.prefix_ids)} tokens; int8 tree == quantize_params(seeded tree)")
+
+    # the same tokens from an engine given the tokenizer and the tree directly
+    prompts = [render_prompt(t, {}) for t in UTTERANCES[:HF_PARSES]]
+    direct = DecodeEngine(cfg=cfg, tokenizer=tok, fsm=fsm, quant="int8", fast_forward=8,
+                          init_weights=False)
+    direct.load_params(tree)
+    brain.install_prompt_prefix(direct)
+    fail_if([direct.generate(p, max_new_tokens=512).token_ids for p in prompts] != ids, "hf_import: the BRAIN_MODEL brain's tokens differ from an engine "
+                        "given the same tokenizer and tree")
+    del direct, parser, eng
+    _free_cuda()
+    twin = {}
+    for label, make in (
+            ("from_hf", lambda: DecodeEngine.from_hf(d, dtype=torch.float32, fast_forward=8)),
+            ("direct", lambda: _f32_direct(cfg, tok, fsm, tree))):
+        e = make()
+        brain.install_prompt_prefix(e)
+        twin[label] = [e.generate(p, max_new_tokens=512).token_ids for p in prompts[:1]]
+        del e
+        _free_cuda()
+    fail_if(twin["from_hf"] != twin["direct"],
+            "hf_import: the fp32 twin's tokens differ between from_hf and the tree")
+    out["tokens_equal"] = {"bf16_int8": len(ids), "fp32_twin": len(twin["direct"])}
+    log(f"[hf_import] tokens equal to an engine given the tree: {len(ids)} bf16 int8 parses, "
+        f"{len(twin['direct'])} fp32 twin parses ({[len(x) for x in twin['direct']]} tokens)")
+
+    # (c) the paged brain on the same directory
+    _hf_env(BRAIN_MODEL=d, BRAIN_QUANT="int8", BRAIN_PAGED="1", BRAIN_BATCH=str(BATCH_SLOTS))
+    with Counted("hf_import paged boot", totals):
+        parser = brain.make_parser_from_env()
+    parser.close()  # its serving loop: the drain steps the engine itself
+    eng = parser.engine
+    fail_if(eng.batch_slots != BATCH_SLOTS or eng.device.type != HF_DEVICE or not eng.prefix_ids,
+            "hf_import: the paged brain is not 32 slots on the card behind the prefix")
+    row, _, c = _drain(eng, "hf_import paged drain", totals)
+    c.require("paged_block_attention")
+    _no_dense_mask(eng, c, "hf_import paged drain")
+    out["paged_drain"] = row
+    del parser, eng, tree
+    _hf_env()
+    _free_cuda()
+    return out
+
+
+def _restack(layers: list) -> dict:
+    """An engine's per-layer views -> the stacked layer dict."""
+    import torch
+
+    def stack(k, sub=None):
+        return torch.stack([lay[k] if sub is None else lay[k][sub] for lay in layers])
+
+    return {k: ({s: stack(k, s) for s in v} if isinstance(v, dict) else stack(k))
+            for k, v in layers[0].items()}
+
+
+def _f32_direct(cfg, tok, fsm, tree):
+    from tpu_voice_agent_torch.serve.engine import DecodeEngine
+
+    e = DecodeEngine(cfg=cfg, tokenizer=tok, fsm=fsm, fast_forward=8, init_weights=False)
+    e.load_params(_to_float(tree))
+    return e
+
+
+def _hf_whisper(root: str, totals: dict) -> dict:
+    """(d) a whisper-large-v3 directory behind VOICE_STT=whisper-hf:<dir>."""
+    import numpy as np
+    import torch
+
+    from tpu_voice_agent_torch import voicebench
+    from tpu_voice_agent_torch.ckpt.hf_import import whisper_config_from_hf, whisper_from_hf_state
+    from tpu_voice_agent_torch.models.whisper import init_params
+    from tpu_voice_agent_torch.serve.stt import SpeechEngine
+
+    out: dict = {}
+    d = os.path.join(root, "whisper-large-v3")
+    os.makedirs(d)
+    tok_json = _whisper_tokenizer_json()
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(HF_WHISPER, f)
+    cfg = whisper_config_from_hf(d)
+    tree = init_params(cfg, torch.Generator(HF_DEVICE).manual_seed(21), device=HF_DEVICE)
+    out["write"] = _write_hf_dir(d, HF_WHISPER, tok_json, _hf_whisper_state(tree, cfg), 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = whisper_from_hf_state(d, cfg, device=HF_DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    nbytes = _tree_bytes(loaded)
+    out["load"] = {"bytes": nbytes, "s": load_s, "gb_per_s": nbytes / load_s / 1e9,
+                   "page_cache": "warm (just written)"}
+    bad = _flat_equal(loaded, tree)
+    log(f"[hf_import] whisper-large-v3: {out['write']['bytes'] / 1e9:.3f} GB of BF16 written in "
+        f"{out['write']['write_s']:.2f} s; load {load_s:.3f} s = {out['load']['gb_per_s']:.3f} "
+        f"GB/s (page cache warm); bit-equal to the seeded tree: {not bad}")
+    fail_if(bool(bad), f"hf_import: whisper tensors differ from the seeded tree: {bad[:5]}")
+    del loaded
+
+    _hf_env(VOICE_STT=f"whisper-hf:{d}")
+    xsrv, xthread, exec_url, _ = _stub_executor()
+    from tpu_voice_agent_torch.services import brain
+
+    bsrv, bthread, brain_url = _serve_brain(brain.BrainApp(brain.RuleBasedParser()))
+    t0 = time.perf_counter()
+    vsrv, stt = _voice_boot(brain_url, exec_url)
+    out["voice_boot_s"] = time.perf_counter() - t0
+    tok = stt.tokenizer
+    fail_if(stt.cfg.n_mels != 128 or stt.cfg.vocab_size != 51866 or stt.suppress is None
+            or len(stt.bos_ids) != 4, "hf_import: the whisper-hf engine is not large-v3's")
+    audio = np.concatenate([voicebench.synth_utterance(2.0), np.zeros(16_000, np.float32)])
+    try:
+        with Counted("hf_import voice", totals) as c:
+            res = asyncio.run(_stream_paced(vsrv.url, _pcm_frames(audio)))
+    finally:
+        vsrv.__exit__(None, None, None)
+        _stop(bsrv, bthread)
+        _stop(xsrv, xthread)
+    c.require("flash_attention", "decode_attention")
+    events = res["events"]
+    _check_vocabulary(events, "hf_import voice")
+    _check_finals(events, "hf_import voice")
+    finals = [e["text"] for e in events if e["type"] == "transcript_final"]
+    fail_if(not finals or any("<|" in t for t in finals),
+            f"hf_import: voice finals {finals!r}")
+    direct = SpeechEngine(cfg=cfg, tokenizer=tok, bos_ids=stt.bos_ids, init_weights=False)
+    direct.load_params(tree)
+    a = stt.transcribe(audio).token_ids
+    b = direct.transcribe(audio).token_ids
+    special = tok.special_ids - {tok.eos_id}
+    fail_if(a != b, "hf_import: whisper-hf transcript tokens differ from an engine given the tree")
+    fail_if(bool(set(a) & special), f"hf_import: a suppressed id was emitted: {a}")
+    out["voice"] = {"finals": finals, "transcript_tokens": len(a), "launches": c.counts,
+                    "audio_s": res["audio_s"], "drained_s": res["drained_s"]}
+    log(f"[hf_import] voice whisper-hf: boot {out['voice_boot_s']:.2f} s, finals "
+        f"{[f[:40] for f in finals]}; transcript {len(a)} tokens equal to an engine given the "
+        f"tree, none of the {len(special)} suppressed ids")
+    del direct, stt, tree
+    _hf_env()
+    _free_cuda()
+    return out
+
+
+def _hf_mixtral(root: str, totals: dict, tok_json: dict) -> dict:
+    """(e) a mixtral-8x7b-layout directory cut to HF_MIXTRAL_LAYERS layers
+    under BRAIN_MOE=grouped BRAIN_QUANT=int8."""
+    import torch
+
+    from tpu_voice_agent_torch.ckpt.hf_import import llama_config_from_hf
+    from tpu_voice_agent_torch.models.llama import init_params
+    from tpu_voice_agent_torch.serve.engine import checkpoint_tokenizer
+    from tpu_voice_agent_torch.services import brain
+
+    out: dict = {}
+    d = os.path.join(root, "mixtral-8x7b")
+    os.makedirs(d)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(tok_json, f)
+    tok = checkpoint_tokenizer(d)  # tinyllama's object: its FSM is cached
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(HF_MIXTRAL, f)
+    cfg = llama_config_from_hf(d)
+    tree = init_params(cfg, torch.Generator(HF_DEVICE).manual_seed(22), device=HF_DEVICE)
+    _bias_tree(tree, tok)
+    out["write"] = _write_hf_dir(d, HF_MIXTRAL, tok_json, _hf_llama_state(tree, cfg), 4)
+    del tree
+    _free_cuda()
+    log(f"[hf_import] mixtral-8x7b layout, {HF_MIXTRAL_LAYERS} of 32 layers: "
+        f"{out['write']['bytes'] / 1e9:.3f} GB of BF16 in 4 shards written in "
+        f"{out['write']['write_s']:.2f} s")
+    _hf_env(BRAIN_MODEL=d, BRAIN_QUANT="int8", BRAIN_MOE="grouped")
+    with Counted("hf_import mixtral", totals) as c:
+        t0 = time.perf_counter()
+        parser = brain.make_parser_from_env()
+        out["boot_s"] = time.perf_counter() - t0
+        eng = parser.engine
+        fail_if(eng.cfg.n_experts != 8 or eng.cfg.moe_impl != "grouped" or eng.quant != "int8",
+                "hf_import: the mixtral brain is not grouped int8")
+        _hf_parses(parser, UTTERANCES[:2], "hf_import mixtral")
+    c.require("grouped_matmul", "flash_attention")
+    out["grammar"] = _no_dense_mask(eng, c, "hf_import mixtral")
+    out["launches"] = c.counts
+    log(f"[hf_import] mixtral boot {out['boot_s']:.2f} s (int8 per layer as read)")
+    del parser, eng
+    _hf_env()
+    _free_cuda()
+    return out
+
+
+def phase_hf_import(totals: dict, report: dict) -> None:
+    """Checkpoint import on the card: HF-layout directories written here from
+    seeded trees at published widths into a temporary directory (deleted
+    after), then BRAIN_MODEL and VOICE_STT=whisper-hf served from them."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="hf_import_")
+    out: dict = {}
+    tok_json = _sp_tokenizer_json()
+    try:
+        out["tinyllama"] = _hf_tinyllama(root, totals, tok_json)
+        shutil.rmtree(os.path.join(root, "tinyllama-1.1b"), ignore_errors=True)
+        out["whisper"] = _hf_whisper(root, totals)
+        shutil.rmtree(os.path.join(root, "whisper-large-v3"), ignore_errors=True)
+        out["mixtral"] = _hf_mixtral(root, totals, tok_json)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[hf_import] load {out['tinyllama']['load']['gb_per_s']:.3f} GB/s (tinyllama), "
+        f"{out['whisper']['load']['gb_per_s']:.3f} GB/s (whisper); FSM build "
+        f"{out['tinyllama']['fsm_build_s']:.2f} s; peak card memory {out['peak_gb']:.2f} GB; "
+        f"phase {out['phase_s']:.1f} s")
+    report["hf_import"] = out
+
+
 def _device_us(evt) -> float:
     """A profiler entry's own device time in us (the attribute's name
     changed across PyTorch versions)."""
@@ -7359,7 +8027,7 @@ def main() -> int:
                          "service_batched,"
                          "golden,"
                          "batch_golden,kvquant_golden,spec_golden,stt,stt_golden,voice,"
-                         "voice_service,stt_batch,moe "
+                         "voice_service,stt_batch,hf_import,moe "
                          "(default all)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile (torch.profiler) one bench parse at ff=8 and one at "
@@ -7375,7 +8043,7 @@ def main() -> int:
                "fleet", "devobs", "service_batched",
                "golden", "batch_golden",
                "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
-               "stt_batch", "moe"]
+               "stt_batch", "hf_import", "moe"]
               if args.phases == "all" else args.phases.split(","))
 
     import torch
@@ -7418,6 +8086,8 @@ def main() -> int:
         log(f"[{name}] phase {time.perf_counter() - t1:.1f} s")
         return out
 
+    if "hf_import" in phases:  # first: its brains then run before any other phase's threads
+        timed("hf_import", phase_hf_import, totals, report)
     eng = timed("service", phase_service, totals, report) if "service" in phases else None
     for name, fn in (("parse", phase_parse), ("batch", phase_batch),
                      ("batch_dense", phase_batch_dense), ("radix", phase_radix),

@@ -69,7 +69,7 @@ def test_the_default_root_is_the_checkout():
 
 @pytest.mark.parametrize("name,value", [
     ("TENANT_CLASSES", "premium:0"),  # a zero weight: malformed
-    ("BRAIN_MODEL", "/models/intent-8b"),  # item 8
+    ("BRAIN_MODEL", "/models/intent-8b"),  # no such checkpoint directory
     ("RADIX_SESSIONS", "lots"),
 ])
 def test_a_knob_only_in_the_dotenv_is_refused_at_brain_boot(tmp_path, monkeypatch, name, value):
@@ -118,5 +118,7 @@ def test_a_knob_only_in_the_dotenv_is_refused_at_voice_boot(tmp_path, monkeypatc
     (tmp_path / ".env").write_text("VOICE_STT=whisper-hf:x\n")
     _fresh(monkeypatch, "VOICE_STT")
     monkeypatch.setattr(envcfg, "REPO_ROOT", tmp_path)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 8"):
+    # whisper-hf is served since checkpoint import: a path that is no
+    # checkpoint directory is refused at boot, naming the knob and the path
+    with pytest.raises(ValueError, match="VOICE_STT='x': no such directory"):
         voice.main()

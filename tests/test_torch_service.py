@@ -152,7 +152,7 @@ def test_env_factory_reads_the_jax_service_names(monkeypatch):
     assert (eng.fast_forward, eng.quant, eng.prefix_ids) == (0, None, [])
 
 
-UNSERVED = ("BRAIN_MODEL", "RADIX_SESSIONS", "RADIX_MAX_NODES", "RADIX_PRESSURE_S",
+UNSERVED = ("RADIX_SESSIONS", "RADIX_MAX_NODES", "RADIX_PRESSURE_S",
             "TENANT_PREEMPT", "TENANT_CLASSES", "ENGINE_STALL_S", "COST_ENABLE", "COST_SESSIONS",
             "COST_PEAK_TFLOPS", "COST_PEAK_GBPS", "CHAOS_STALL_S", "HANDOFF_KV", "BRAIN_ROLE")
 # served since the containment slice
@@ -165,7 +165,7 @@ def _tiny_env(monkeypatch):
     monkeypatch.setenv("BRAIN_DEVICE", "cpu")
     monkeypatch.setenv("BRAIN_PREFIX", "0")
     for name in UNSERVED + SERVED_CONTAINMENT + ("BRAIN_MOE", "BRAIN_QUANT", "BRAIN_BATCH",
-                                                 "BRAIN_PAGED"):
+                                                 "BRAIN_PAGED", "BRAIN_MODEL"):
         monkeypatch.delenv(name, raising=False)
 
 
@@ -176,14 +176,18 @@ def _tiny_env(monkeypatch):
 def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
     """Each knob the JAX brain honours and the port does not serve raises at
     boot, before any engine is built, and names the knob and the ROADMAP
-    item that will serve it."""
+    item that will serve it. ``BRAIN_MODEL`` is served since checkpoint
+    import: a path that is no checkpoint directory is refused the same way,
+    naming the knob and the path."""
     _tiny_env(monkeypatch)
     monkeypatch.setenv(name, value)
     built = []
     monkeypatch.setattr(DecodeEngine, "__init__", lambda *a, **k: built.append(1))
     with pytest.raises(ValueError, match=name) as e:
         brain.make_parser_from_env()
-    assert "ROADMAP.md Queue 1 item" in str(e.value) and not built
+    want = (f"{value!r}: no such directory" if name == "BRAIN_MODEL"
+            else "ROADMAP.md Queue 1 item")
+    assert want in str(e.value) and not built
 
 
 @pytest.mark.parametrize("spec", ["stt_replica_hang:1", "stt_replica_kill:1"])
@@ -351,12 +355,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'services.ws', 'services.slo', 'services.resilience', 'utils',\n"
         "          'utils.tracing', 'utils.quality', 'utils.chaos', 'utils.steplog',\n"
         "          'evals.wer', 'evals.golden', 'distilled', 'utils.envcfg',\n"
-        "          'utils.costmodel', 'serve.tenancy', 'serve.stt_batch', 'serve.handoff'):\n"
+        "          'utils.costmodel', 'serve.tenancy', 'serve.stt_batch', 'serve.handoff',\n"
+        "          'ckpt.hf_import', 'grammar.hf_tokenizer'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
+        # checkpoint import reads safetensors and tokenizer.json itself
         "bad = [k for k in sys.modules if k in ('jax', 'jaxlib', 'tpu_voice_agent', 'aiohttp',\n"
-        "                                       'httpx', 'ml_dtypes')\n"
-        "       or k.startswith(('jax.', 'jaxlib.', 'tpu_voice_agent.', 'aiohttp.', 'httpx.'))]\n"
+        "                                       'httpx', 'ml_dtypes', 'safetensors',\n"
+        "                                       'tokenizers', 'transformers')\n"
+        "       or k.startswith(('jax.', 'jaxlib.', 'tpu_voice_agent.', 'aiohttp.', 'httpx.',\n"
+        "                        'safetensors.', 'tokenizers.', 'transformers.'))]\n"
         "print(len([k for k in sys.modules if k.startswith('tpu_voice_agent_torch')]), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -68,12 +68,15 @@ def parser_from_env(backend: str, device=None, spec=None):
     ``intent_engine_from`` (``spec`` passed through, as JAX passes
     ``SPEC_ENABLE``). A directory is served when its last component is
     ``intent-tiny-distilled``, whose weights the port carries; any other is
-    refused (checkpoint import, ROADMAP.md Queue 1 item 8)."""
+    refused: such a directory is an orbax tree, whose reader comes with the
+    training part of ROADMAP.md Queue 1 item 8 (an HF directory is served
+    by ``BRAIN_MODEL``)."""
     if ":" in backend:
         path = backend.split(":", 1)[1]
         if Path(path.rstrip("/")).name != INTENT_CKPT:
             raise ValueError(f"BRAIN_BACKEND={backend!r}: the port carries only {INTENT_CKPT} "
-                             "(checkpoint import is ROADMAP.md Queue 1 item 8)")
+                             "(the orbax reader comes with the training part of ROADMAP.md "
+                             "Queue 1 item 8; an HF checkpoint directory is BRAIN_MODEL's)")
     return intent_engine_from(*load_distilled(device=device), device=device, spec=spec)
 
 

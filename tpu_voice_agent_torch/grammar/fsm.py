@@ -91,20 +91,25 @@ class TokenFSM:
                 columns.append(vec)
             return idx
 
+        # byte-major next-state rows with a dead column at index S: a dead
+        # entry (-1) of a state vector indexes that column, so one gather
+        # per trie edge advances every start state (the JAX package's
+        # where / maximum / astype over the (S, 256) table computes the
+        # same vectors in the same order, 2.4x slower at V = 32,000)
+        next_by_byte = np.concatenate(
+            [np.ascontiguousarray(trans_b.T), np.full((256, 1), -1, dtype=trans_b.dtype)],
+            axis=1).astype(np.int32)
         stack: list[tuple[dict, np.ndarray]] = [(trie, identity)]
         while stack:
             node, vec = stack.pop()
-            alive = vec >= 0
             for key, child in node.items():
                 if key == -1:
                     c = intern(vec)
                     for tid in child:
                         col_id[tid] = c
                 else:
-                    nvec = np.where(alive, trans_b[np.maximum(vec, 0), key], -1).astype(
-                        np.int32
-                    )
-                    if (nvec >= 0).any():
+                    nvec = next_by_byte[key].take(vec)
+                    if nvec.max() >= 0:
                         stack.append((child, nvec))
 
         # EOS is allowed exactly on accepting states and keeps the state
@@ -133,6 +138,10 @@ class TokenFSM:
     def mask(self) -> np.ndarray:
         """Dense (S, V) bool view — O(S·V); tests and toy vocabs only."""
         return self.next_state >= 0
+
+    def allowed(self, state: int) -> np.ndarray:
+        """(V,) bool: the tokens legal in ``state``."""
+        return self.table[state][self.col_id] >= 0
 
     def step(self, state: int, token_id: int) -> int:
         return int(self.table[state, self.col_id[token_id]])

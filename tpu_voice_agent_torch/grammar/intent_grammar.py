@@ -154,3 +154,21 @@ def default_tokenizer() -> Tokenizer:
 def build_intent_fsm() -> tuple[Tokenizer, TokenFSM]:
     tok = default_tokenizer()
     return tok, TokenFSM(intent_dfa(), tok)
+
+
+def build_fsm_for(tokenizer, vocab_size: int | None = None) -> TokenFSM:
+    """The intent-grammar FSM over any tokenizer (an ``HFTokenizer`` for a
+    checkpoint). ``vocab_size`` may exceed the tokenizer's, to match a
+    checkpoint's padded embedding table: the padded ids are grammar-dead.
+
+    The multi-second build is cached ON the tokenizer object, keyed by the
+    vocab width, so the cache lives and dies with the tokenizer (an
+    ``id()``-keyed global could alias a recycled address to another
+    tokenizer's tables)."""
+    cache = tokenizer.__dict__.setdefault("_intent_fsm_cache", {})
+    key = int(vocab_size or tokenizer.vocab_size)
+    fsm = cache.get(key)
+    if fsm is None:
+        fsm = TokenFSM(intent_dfa(), tokenizer, vocab_size=vocab_size)
+        cache[key] = fsm
+    return fsm

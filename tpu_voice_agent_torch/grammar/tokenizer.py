@@ -11,8 +11,8 @@ identically regardless of segmentation, which is what constrained decoding
 needs.
 
 A copy of the JAX package's ``grammar/tokenizer.py`` (plain Python, so the
-port builds byte-identical vocabularies). The HF ``tokenizer.json`` loader is
-not ported yet.
+port builds byte-identical vocabularies). Checkpoint tokenizers (HF
+``tokenizer.json``) are ``grammar.hf_tokenizer``'s.
 """
 
 from __future__ import annotations
@@ -183,3 +183,12 @@ class Tokenizer:
     def load(cls, path: str | Path) -> "Tokenizer":
         obj = json.loads(Path(path).read_text())
         return cls([bytes.fromhex(h) for h in obj["pieces"]])
+
+    @classmethod
+    def from_hf_tokenizer_json(cls, path: str | Path):
+        """Checkpoint tokenizers live in grammar.hf_tokenizer (true BPE
+        merges, byte-level and sentencepiece families, the checkpoint's own
+        special ids); kept as a forwarding shim, as in the JAX package."""
+        from .hf_tokenizer import load_hf_tokenizer
+
+        return load_hf_tokenizer(path)

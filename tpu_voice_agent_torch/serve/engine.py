@@ -37,7 +37,11 @@ compile-sentinel sites (``engine.prefill_row``, ``_first_token``,
 ``supersede`` comes first: from it until ``warm_restart``, every prefill,
 table claim and decode forward raises ``Superseded`` before it launches, so a
 step still running past the watchdog stops at its next launch.
-Left out (still JAX-only): ``from_hf`` and meshes.
+``DecodeEngine.from_hf`` (and so ``PagedDecodeEngine.from_hf``) serves an HF
+checkpoint directory over its own tokenizer: the intent FSM is built at the
+config's vocab width, where S·V is past the dense-mask limit, so greedy
+constrained picks take the compressed two-gather row in torch, not K4, as in
+JAX. Left out (still JAX-only): meshes.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ import numpy as np
 import torch
 
 from ..grammar.fsm import DeviceFSM, fsm_advance, fsm_row
-from ..grammar.intent_grammar import build_intent_fsm
+from ..grammar.intent_grammar import build_fsm_for, build_intent_fsm
 from ..models.llama import (
     PRESETS,
     LlamaConfig,
@@ -84,6 +88,28 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch versions on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+_CKPT_TOKENIZERS: dict = {}
+
+
+def checkpoint_tokenizer(model_dir: str):
+    """The ``HFTokenizer`` of a checkpoint directory's ``tokenizer.json``,
+    one object per file content (SHA-256 of its bytes): engines built over
+    the same tokenizer share the object and so its multi-second FSM build
+    (``grammar.build_fsm_for`` caches on the object)."""
+    import hashlib
+    import os
+
+    from ..grammar.hf_tokenizer import load_hf_tokenizer
+
+    path = os.path.join(model_dir, "tokenizer.json")
+    with open(path, "rb") as f:
+        key = hashlib.sha256(f.read()).hexdigest()
+    tok = _CKPT_TOKENIZERS.get(key)
+    if tok is None:
+        tok = _CKPT_TOKENIZERS[key] = load_hf_tokenizer(path)
+    return tok
 
 
 def byte_len_table_for(tokenizer, vocab_size: int, device="cpu") -> torch.Tensor:
@@ -430,6 +456,8 @@ class DecodeEngine:
         prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048),
         kernels: str = "auto",  # "auto" | "kernels"
         quant: str | None = None,  # None | "int8" — weight-only quantization
+        tokenizer=None,  # a checkpoint tokenizer; None = the in-tree one
+        fsm=None,  # a prebuilt grammar.TokenFSM over ``tokenizer``
         init_weights: bool = True,  # False: the caller loads weights next
         fast_forward: int = 0,  # grammar fast-forward chain width (0 = off)
         device: str | torch.device | None = None,  # None = cuda, or raise
@@ -447,9 +475,32 @@ class DecodeEngine:
         if kernels not in ("auto", "kernels"):
             raise ValueError(f"unknown kernels {kernels!r}")
         self.kernels = "kernels"
-        self.tokenizer, self.fsm = build_intent_fsm()
-        vocab = self.tokenizer.vocab_size
-        self.cfg = replace(cfg or PRESETS[preset], vocab_size=vocab, max_seq_len=max_len)
+        base = cfg or PRESETS[preset]
+        prebuilt = None
+        if tokenizer is None:
+            # the in-tree tokenizer: its vocab is the model vocab
+            self.tokenizer, prebuilt = build_intent_fsm()
+            vocab = self.tokenizer.vocab_size
+        else:
+            # a checkpoint tokenizer: the model vocab comes from the config
+            # (embedding tables are often padded past the tokenizer) and the
+            # grammar FSM is built over that width, its padded ids dead
+            self.tokenizer = tokenizer
+            vocab = base.vocab_size if cfg is not None else tokenizer.vocab_size
+            if vocab < tokenizer.vocab_size:
+                raise ValueError(
+                    f"model vocab {vocab} < tokenizer vocab {tokenizer.vocab_size}")
+        if fsm is not None:
+            if fsm.vocab_size != vocab:
+                raise ValueError(f"custom fsm width {fsm.vocab_size} != model vocab {vocab} "
+                                 f"(build it with grammar.build_fsm_for(tokenizer, "
+                                 f"vocab_size={vocab}))")
+            self.fsm = fsm
+        elif prebuilt is not None and prebuilt.vocab_size == vocab:
+            self.fsm = prebuilt
+        else:
+            self.fsm = build_fsm_for(self.tokenizer, vocab_size=vocab)
+        self.cfg = replace(base, vocab_size=vocab, max_seq_len=max_len)
         self.eos_id = int(self.tokenizer.eos_id)
         self.pad_id = int(self.tokenizer.pad_id)
         self.max_len = max_len
@@ -517,6 +568,50 @@ class DecodeEngine:
         layers = params["layers"]
         self.params = {**params, "layers": (unstack_layers(layers)
                                             if isinstance(layers, dict) else layers)}
+
+    @classmethod
+    def from_hf(
+        cls,
+        model_dir: str,
+        max_len: int = 2048,
+        batch_slots: int = 1,
+        prefill_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048),
+        kernels: str = "auto",
+        quant: str | None = None,
+        dtype=torch.bfloat16,
+        fast_forward: int = 0,
+        moe_impl: str | None = None,  # "grouped": K13's dispatch on a Mixtral checkpoint
+        device: str | torch.device | None = None,
+        **engine_kw,  # subclass knobs (PagedDecodeEngine: pool_blocks, ...)
+    ) -> "DecodeEngine":
+        """Serve an HF checkpoint directory: ``config.json`` decides the
+        architecture, ``tokenizer.json`` supplies the BPE vocab the intent
+        FSM is built over, ``*.safetensors`` the weights (checked against the
+        config from the headers before anything is built, then read straight
+        onto the engine's device; under ``quant="int8"`` one layer at a time).
+        A classmethod, so ``PagedDecodeEngine.from_hf`` builds the paged
+        engine through the same loader."""
+        import os
+
+        from ..ckpt.hf_import import (
+            llama_config_from_hf,
+            llama_from_hf_state,
+            llama_hf_check,
+            safetensors_shapes,
+        )
+
+        cfg = replace(llama_config_from_hf(os.path.join(model_dir, "config.json")),
+                      max_seq_len=max_len)
+        if moe_impl is not None:
+            cfg = replace(cfg, moe_impl=moe_impl)
+        llama_hf_check(safetensors_shapes(model_dir), cfg)
+        eng = cls(cfg=cfg, max_len=max_len, batch_slots=batch_slots,
+                  prefill_buckets=prefill_buckets, kernels=kernels, quant=quant,
+                  tokenizer=checkpoint_tokenizer(model_dir), init_weights=False,
+                  fast_forward=fast_forward, device=device, **engine_kw)
+        eng.load_params(llama_from_hf_state(model_dir, cfg, dtype=dtype, device=eng.device,
+                                            quant=quant))
+        return eng
 
     def _bucket(self, n: int) -> int:
         for b in self.prefill_buckets:

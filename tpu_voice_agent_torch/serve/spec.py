@@ -31,7 +31,8 @@ Env contract (``spec_from_env``): ``SPEC_ENABLE=1`` turns it on, ``SPEC_K``
 sets K (default 4), ``SPEC_DRAFTER`` the chain (default ``fsm,prompt``),
 ``SPEC_TRACE_SINK=<path>`` appends one JSONL draft-trace record per cleanly
 released request (JAX's fields). Not ported, and refused at boot when set:
-``SPEC_DRAFT_MODEL`` (an orbax checkpoint).
+``SPEC_DRAFT_MODEL`` (an orbax checkpoint: its reader comes with the
+training part of checkpoint import).
 
 With the engine's quality lanes on, every verified decision (the accepted
 drafts and the bonus) folds its masked-logit confidence into per-row lanes
@@ -80,8 +81,9 @@ def spec_from_env() -> SpecConfig | None:
     if os.environ.get("SPEC_ENABLE", "").strip().lower() not in ("1", "true", "yes", "on"):
         return None
     if os.environ.get("SPEC_DRAFT_MODEL"):
-        raise ValueError("SPEC_DRAFT_MODEL is not ported yet (the PyTorch port has no orbax "
-                         "checkpoint reader: ROADMAP.md Queue 1 item 8); unset it")
+        raise ValueError("SPEC_DRAFT_MODEL is not ported yet (its checkpoints are orbax OCDBT "
+                         "trees, and the orbax reader comes with the training part of "
+                         "ROADMAP.md Queue 1 item 8); unset it")
     raw_k = os.environ.get("SPEC_K", "").strip()
     try:
         k = int(raw_k) if raw_k else 4

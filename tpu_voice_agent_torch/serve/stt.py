@@ -23,9 +23,10 @@ decode loop folds its analytic FLOPs into ``cost_totals`` (the voice
 service's ``/debug/costs``) and the ``cost.stt_*_flops`` counters. The
 decode loop also serves the batched plane (``serve.stt_batch``): a ``live``
 slot mask and a per-slot ``max_new_each`` budget; the replicated tier
-(``serve.stt_replicas``) runs several batchers over one engine. Left out
-(still JAX-only): ``from_hf`` and checkpoint tokenizers (so no suppressed
-specials: ROADMAP.md Queue 1 item 8).
+(``serve.stt_replicas``) runs several batchers over one engine.
+``SpeechEngine.from_hf`` serves an HF Whisper directory: its tokenizer, the
+``<|startoftranscript|>`` prompt, and every control token but EOS suppressed
+in both planes' decode loop.
 """
 
 from __future__ import annotations
@@ -71,8 +72,12 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
                      enc_len: torch.Tensor, bos: torch.Tensor, max_new: int = 64,
                      eos_id: int = 2, pad_id: int = 0, quality_lanes: bool = False,
                      live: torch.Tensor | None = None,
-                     max_new_each: torch.Tensor | None = None, fence=None):
-    """Greedy decode until EOS. ``bos`` (B, P) is the decoder prompt; every
+                     max_new_each: torch.Tensor | None = None, fence=None,
+                     suppress: torch.Tensor | None = None):
+    """Greedy decode until EOS. ``bos`` (B, P) is the decoder prompt
+    (``<|startoftranscript|><|lang|><|transcribe|><|notimestamps|>`` for a
+    checkpoint); ``suppress`` (V,) bool, when given, masks the ids every
+    pick must skip (a checkpoint's control tokens, EOS excepted). Every
     row stops on its own EOS, at ``max_text_len - 1``, or after its budget
     (``max_new``, or the row's entry of ``max_new_each`` (B,) int32), and
     the loop runs until all rows are done. The ONE loop of the B = 1 paths
@@ -93,6 +98,8 @@ def _stt_decode_loop(params, cfg: WhisperConfig, self_cache: dict, cross_kv: dic
     dev = bos.device
 
     def pick(lg):
+        if suppress is not None:
+            lg = torch.where(suppress[None, :], float("-inf"), lg)
         tok = torch.argmax(lg, dim=-1).to(torch.int32)
         if not quality_lanes:
             return tok, None
@@ -223,6 +230,8 @@ class SpeechEngine:
         kernels: str = "auto",  # "auto" | "kernels"
         init_weights: bool = True,  # False: the caller loads weights next
         device: str | torch.device | None = None,  # None = cuda, or raise
+        tokenizer=None,  # a checkpoint tokenizer; None = the in-tree one
+        bos_ids: tuple[int, ...] | None = None,  # the decoder prompt (sot sequence)
     ):
         self.device = resolve_device(device)
         self.quality_lanes = quality_lanes_enabled()  # read at each decode
@@ -230,11 +239,29 @@ class SpeechEngine:
         # CUDA kernels on cuda tensors and their plain versions on CPU ones
         if kernels not in ("auto", "kernels"):
             raise ValueError(f"unknown kernels {kernels!r}")
-        self.tokenizer = default_tokenizer()
-        self.cfg = replace(cfg or PRESETS[preset], vocab_size=self.tokenizer.vocab_size)
+        base = cfg or PRESETS[preset]
+        if tokenizer is None:
+            self.tokenizer = default_tokenizer()
+            vocab = self.tokenizer.vocab_size
+        else:
+            self.tokenizer = tokenizer
+            vocab = base.vocab_size if cfg is not None else tokenizer.vocab_size
+            if vocab < tokenizer.vocab_size:
+                raise ValueError(
+                    f"model vocab {vocab} < tokenizer vocab {tokenizer.vocab_size}")
+        self.cfg = replace(base, vocab_size=vocab)
         self.eos_id = int(self.tokenizer.eos_id)
         self.pad_id = int(self.tokenizer.pad_id)
-        self.bos_ids = (int(self.tokenizer.bos_id),)
+        self.bos_ids = tuple(bos_ids) if bos_ids else (int(self.tokenizer.bos_id),)
+        # greedy decode never emits a special (a Whisper vocabulary carries
+        # hundreds of <|...|> control tokens); EOS stays pickable
+        special = getattr(self.tokenizer, "special_ids", None)
+        self.suppress = None
+        if special:
+            sup = torch.zeros(vocab, dtype=torch.bool)
+            sup[sorted(special)] = True
+            sup[self.eos_id] = False
+            self.suppress = sup.to(self.device)
         # the mel front end feeds what the encoder expects (large-v3 uses
         # 128 bins, the rest of the family 80)
         self.mel_cfg = replace(mel_cfg, n_mels=self.cfg.n_mels)
@@ -260,6 +287,27 @@ class SpeechEngine:
         """Install weights (the stacked param tree on this engine's
         device); the layers are kept as per-layer views."""
         self.params = with_unstacked_layers(params)
+
+    @classmethod
+    def from_hf(cls, model_dir: str, language: str = "en", dtype=torch.bfloat16,
+                device: str | torch.device | None = None, **kw) -> "SpeechEngine":
+        """Serve an HF Whisper checkpoint directory (``config.json``,
+        ``tokenizer.json``, ``*.safetensors``). The decoder prompt is the
+        checkpoint's ``<|startoftranscript|><|lang|><|transcribe|>
+        <|notimestamps|>`` (the ids it has), and every control token but EOS
+        is suppressed in greedy decode."""
+        from ..ckpt.hf_import import whisper_config_from_hf, whisper_from_hf_state
+        from ..grammar.hf_tokenizer import load_hf_tokenizer
+
+        cfg = whisper_config_from_hf(model_dir)
+        tok = load_hf_tokenizer(model_dir)
+        bos = [tok.id_of(name) for name in ("<|startoftranscript|>", f"<|{language}|>",
+                                            "<|transcribe|>", "<|notimestamps|>")]
+        bos = tuple(t for t in bos if t is not None)
+        eng = cls(cfg=cfg, tokenizer=tok, bos_ids=bos or None, init_weights=False,
+                  device=device, **kw)
+        eng.load_params(whisper_from_hf_state(model_dir, cfg, dtype=dtype, device=eng.device))
+        return eng
 
     @property
     def _param_dtype(self):
@@ -374,7 +422,8 @@ class SpeechEngine:
         lens = torch.tensor([enc_len], dtype=torch.int32, device=self.device)
         out, n, _, conf = _stt_decode_loop(self.params, self.cfg, cache, cross_kv, lens, bos,
                                            max_new=self.max_new_tokens, eos_id=self.eos_id,
-                                           pad_id=self.pad_id, quality_lanes=self.quality_lanes)
+                                           pad_id=self.pad_id, quality_lanes=self.quality_lanes,
+                                           suppress=self.suppress)
         # one readback: the tokens, the count and the lanes (token ids and
         # counts are exact in float32)
         cols = [out[0].float(), n.float()] + ([c.float() for c in conf] if conf else [])

@@ -444,7 +444,8 @@ class STTBatcher:
         out, n, _, conf = _stt_decode_loop(eng.params, eng.cfg, cache, cross_kv, enc_len, bos,
                                            max_new=eng.max_new_tokens, eos_id=eng.eos_id,
                                            pad_id=eng.pad_id, quality_lanes=eng.quality_lanes,
-                                           live=live, fence=self._fence)
+                                           live=live, fence=self._fence,
+                                           suppress=eng.suppress)
         # one readback: tokens, counts and lanes (exact in float32)
         cols = [out.float(), n.float()[:, None]]
         if conf is not None:

@@ -1135,15 +1135,16 @@ PARSED_KNOBS = {"RADIX_SESSIONS": int, "RADIX_MAX_NODES": int, "RADIX_PRESSURE_S
 
 def check_unserved_knobs() -> None:
     """Refuse at boot what the JAX brain would honour and the port would
-    silently ignore: ``BRAIN_MODEL`` (no checkpoint import yet) and a
-    ``CHAOS_FAULTS`` that names an unknown point or arms one the port does
-    not serve. A malformed ``TENANT_CLASSES`` or a radix / cost / watchdog
-    knob that does not parse raises here too, naming the knob."""
+    silently ignore: a ``CHAOS_FAULTS`` that names an unknown point or arms
+    one the port does not serve. A ``BRAIN_MODEL`` that is no HF checkpoint
+    directory (``config.json``, ``tokenizer.json``, ``*.safetensors``), a
+    malformed ``TENANT_CLASSES`` or a radix / cost / watchdog knob that does
+    not parse raises here too, naming the knob."""
+    from ..ckpt.hf_import import check_hf_dir
     from ..serve.tenancy import parse_tenant_classes
 
     if os.environ.get("BRAIN_MODEL"):
-        raise ValueError("BRAIN_MODEL is not ported yet (the PyTorch port has no checkpoint "
-                         "import: ROADMAP.md Queue 1 item 8); unset it")
+        check_hf_dir(os.environ["BRAIN_MODEL"], "BRAIN_MODEL")
     for name, kind in PARSED_KNOBS.items():
         raw = os.environ.get(name, "").strip()
         if raw:
@@ -1162,7 +1163,10 @@ DISTILLED_IGNORED = ("BRAIN_FF", "BRAIN_BATCH", "BRAIN_PREFIX", "KV_QUANT", "RAD
 
 
 def make_parser_from_env():
-    """``BRAIN_BACKEND=rule`` (the default: ``RuleBasedParser``, no model, no
+    """``BRAIN_MODEL=<dir>`` (an HF checkpoint directory: ``DecodeEngine.from_hf``,
+    or ``PagedDecodeEngine.from_hf`` under ``BRAIN_PAGED=1``) overrides the
+    backend, as in JAX. Otherwise
+    ``BRAIN_BACKEND=rule`` (the default: ``RuleBasedParser``, no model, no
     device), ``distilled[:<dir>]`` (``distilled.parser_from_env``: the
     in-repo trained checkpoint, ``SPEC_ENABLE`` passed through) or
     ``engine[:preset]`` (preset default ``tinyllama-1.1b``) with
@@ -1188,6 +1192,25 @@ def make_parser_from_env():
     quant = os.environ.get("BRAIN_QUANT") or None
     moe = os.environ.get("BRAIN_MOE") == "grouped"
     spec = spec_from_env()  # None unless SPEC_ENABLE=1
+    ff = int(os.environ.get("BRAIN_FF", "8"))
+    model_dir = os.environ.get("BRAIN_MODEL")
+    if model_dir:
+        from ..serve.engine import DecodeEngine
+        from ..serve.paged import PagedDecodeEngine
+
+        moe_impl = "grouped" if moe else None
+        if paged:
+            # JAX's branch builds this engine without BRAIN_FF (ff 0) while
+            # its BRAIN_FF contract says the paged engine serves ff; the
+            # port passes BRAIN_FF, as its preset branch does (BRAIN_FF=0
+            # is JAX's engine)
+            pool = int(os.environ.get("BRAIN_POOL_BLOCKS", "0")) or None
+            return _wrap_batched(PagedDecodeEngine.from_hf(
+                model_dir, quant=quant, batch_slots=max(slots, 1), moe_impl=moe_impl,
+                pool_blocks=pool, fast_forward=ff, spec=spec, device=device))
+        return _wrap_engine(DecodeEngine.from_hf(model_dir, quant=quant, batch_slots=slots,
+                                                 fast_forward=ff, moe_impl=moe_impl, spec=spec,
+                                                 device=device))
     backend = os.environ.get("BRAIN_BACKEND", "rule")
     if backend == "rule":
         for name, val in (("BRAIN_PAGED", paged), ("BRAIN_QUANT", quant), ("BRAIN_MOE", moe),
@@ -1218,8 +1241,7 @@ def make_parser_from_env():
     if preset not in PRESETS:
         raise ValueError(f"BRAIN_BACKEND {backend!r}: unknown preset {preset!r}")
     cfg = replace(PRESETS[preset], moe_impl="grouped") if moe else None
-    kw = dict(preset=preset, cfg=cfg, quant=quant,
-              fast_forward=int(os.environ.get("BRAIN_FF", "8")), device=device, spec=spec)
+    kw = dict(preset=preset, cfg=cfg, quant=quant, fast_forward=ff, device=device, spec=spec)
     if paged:
         pool = int(os.environ.get("BRAIN_POOL_BLOCKS", "0")) or None
         return _wrap_batched(PagedDecodeEngine(batch_slots=max(slots, 1), pool_blocks=pool,

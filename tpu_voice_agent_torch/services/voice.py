@@ -168,6 +168,9 @@ def check_unserved_knobs() -> None:
 def stt_factory_from_env():
     """``VOICE_STT=null`` (default, no model), ``whisper[:preset]`` (random
     weights from seed 0, preset default ``whisper-tiny``) or
+    ``whisper-hf:<dir>`` (an HF Whisper checkpoint directory:
+    ``SpeechEngine.from_hf``, its own tokenizer and weights; a path that is
+    no such directory is refused here, naming it) or
     ``whisper-ckpt:<dir>`` (an in-repo trained checkpoint, named by the
     path's last component: ``whisper-tiny-overfit`` or
     ``whisper-tiny-heldout``, as ``checkpoints/whisper-tiny-heldout`` names it
@@ -179,9 +182,10 @@ def stt_factory_from_env():
     ``STTReplicaTier`` (``STT_REPLICA_PROBE_S``, ``STT_REPLICA_STALL_S``,
     ``STT_SHED_PRESSURE``); unset, each connection's ``LockedStreaming``
     decodes at B = 1 behind one lock (``STT_REPLICAS`` is then logged and
-    ignored, as in JAX). Refused at boot: ``whisper-hf:`` and any other
-    checkpoint (Queue 1 item 8). ``QUALITY_ENABLE`` (default on) is read by
-    the engine: its finals carry the confidence lanes."""
+    ignored, as in JAX). Refused at boot: any other ``whisper-ckpt:``
+    checkpoint (its orbax reader is Queue 1 item 8's training part).
+    ``QUALITY_ENABLE`` (default on) is read by the engine: its finals carry
+    the confidence lanes."""
     from ..serve.stt import NullSTT
 
     replicas = int(os.environ.get("STT_REPLICAS", "1") or "1")
@@ -196,19 +200,24 @@ def stt_factory_from_env():
     if not (spec == "whisper" or spec.startswith(("whisper:", "whisper-ckpt:",
                                                    "whisper-hf:"))):
         raise ValueError(f"unknown VOICE_STT {spec!r}")
-    if spec.startswith("whisper-hf:"):
-        _refuse("VOICE_STT", spec, 8, "checkpoint import (SpeechEngine.from_hf)")
     from ..audio.endpoint import EnergyEndpointer
     from ..serve.stt import SpeechEngine, StreamingSTT
 
     device = os.environ.get("VOICE_DEVICE") or None
-    if spec.startswith("whisper-ckpt:"):
+    if spec.startswith("whisper-hf:"):
+        from ..ckpt.hf_import import check_hf_dir
+
+        path = spec.split(":", 1)[1]
+        check_hf_dir(path, "VOICE_STT")
+        engine = SpeechEngine.from_hf(path, device=device)
+    elif spec.startswith("whisper-ckpt:"):
         from .. import whisper_ckpt
 
         path = spec.split(":", 1)[1]
         name = Path(path.rstrip("/")).name
         if name not in whisper_ckpt.CHECKPOINTS:
-            _refuse("VOICE_STT", spec, 8, f"checkpoint import (the port carries only "
+            _refuse("VOICE_STT", spec, 8, f"an orbax checkpoint reader, with the training "
+                                          f"part, (the port carries only "
                                           f"{', '.join(whisper_ckpt.CHECKPOINTS)})")
         cfg, params = whisper_ckpt.load_whisper(name, device=device)
         engine = whisper_ckpt.whisper_engine_from(cfg, params, device=device)

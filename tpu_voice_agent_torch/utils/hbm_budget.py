@@ -6,8 +6,8 @@ port's ``PRESETS``, so the byte counts equal the JAX module's. The capacity a
 breakdown is held against is a parameter: ``V5E_HBM_PER_CHIP`` (16 GiB, the
 JAX default, kept for parity) or ``card_bytes()`` on the card
 (``torch.cuda.get_device_properties(0).total_memory``, 80 GB on an H100).
-Its consumer, the pipeline-parallel engine, is not ported yet (ROADMAP.md
-Queue 1 item 8).
+Its consumer, the pipeline-parallel engine, is not ported yet (the
+parallelism part of ROADMAP.md Queue 1 item 8; checkpoint import is served).
 
 Accounting mirrors the pp×tp engine's placement:
 - staged layer matmuls: int8 {"q","s"} (1 byte + f32 per-out-channel
