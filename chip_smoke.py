@@ -25,7 +25,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
               int8 and int4, bf16 and fp32 queries. K4 and K11 are
               held exactly over every state of the intent grammar and timed
               warm and cold (L2 flushed, new states each launch) at the
-              path's rows, beside the launch floor.
+              path's rows, beside the launch floor. K1 with its log-sum-exp
+              (the ring's blocks) at the planner's largest bucket, causal
+              T = 8192, 32/4 heads of 64: bf16, bf16 with an fp32 output,
+              and fp32, output and lse; a shape of K1's row, "lse".
 3b. hf_import - checkpoint import (BRAIN_MODEL, VOICE_STT=whisper-hf):
               HF-layout directories written into a temporary directory
               (deleted after) from seeded trees at published widths, BF16
@@ -41,7 +44,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
               tokens to an engine given the tokenizer and the tree (bf16)
               and, in an fp32 twin, from_hf's to the tree's; a BRAIN_PAGED=1
               BRAIN_BATCH=32 brain's 32-session drain, all in the grammar
-              (K7); the whisper-hf voice service's paced utterance (K1, K5),
+              (at ff 0, as JAX builds it: K6); the whisper-hf voice
+              service's paced utterance (K1, K5),
               its transcript tokens equal to an engine given the tree, no
               control token emitted; the Mixtral directory under
               BRAIN_MOE=grouped BRAIN_QUANT=int8 answering 200 (K13). At
@@ -205,6 +209,27 @@ Phases, in order (any failure exits nonzero and prints no result line):
               ``torch.cuda.memory_stats``; the ``_qe`` dequant audit of a
               decode step (count, MB); a ``capture_profile`` Chrome trace
               (``chiprun_out/devobs/trace.json``).
+11h. planner - the long-session planner (``serve/planner.py``) at
+              tinyllama-1.1b on the weights the ``planner`` backend serves
+              (random bf16 from seed 0), sp 1 on the card: ``ring_attention`` at sp 4 over [cuda:0] x 4 (the
+              multi-block lse merge) against one K1 call, causal T = 8192;
+              ``llama_sp_prefill`` against the dense fresh-block forward on
+              the 2048 bucket (last logits within 32 bf16 ulps, an fp32-
+              activation twin within one; k/v); the cold-start prefill ms
+              per bucket (1024-8192); a cold start from the rendered prompt
+              (2048 bucket), plan, warm extend, plan, a re-anchor into 4096,
+              plan; a 6,000-token session in 8192; ``plan_many`` of 4
+              sessions against 4 sequential plans (equal, or parted at a near
+              tie) with every slot 0 intact; one 8-token plan under the
+              profiler (CUDA activity: the idle share); plans cut to 32
+              tokens. Every ring prefill
+              is 22 K1 launches (with lse). Then BRAIN_BACKEND=planner-distilled
+              over HTTP on the 6 golden dialogs with session ids, every
+              turn's tokens equal to ``data/planner_golden.json`` (fp32),
+              ``score_parser_dialogs`` printed; BRAIN_BACKEND=planner booting
+              and answering two turns of one session (200 or a 422
+              truncation); BRAIN_SP past the cards refused at boot, naming
+              it. K1, K2 and K4 must launch.
 11c. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
 12. golden  - the distilled intent checkpoint parses the golden utterances and
@@ -315,8 +340,10 @@ voice_service phase's four runs, and of the hf_import phase's brains, drain
 and voice run) and read just after; a kernel's
 ``launches`` is the sum over those runs (the kernel-alone comparisons of
 phase 3 are not counted). The port imports no JAX. Weights are random from a
-seed (phases 3-11g but 11e's drain, 16, 17, 18's first two runs, 18b, 20) or
-committed checkpoints (11e's drain, 12-15, 18's last two runs, 19). A JSON report also goes to ``chip_smoke.json`` in ``OUT_DIR``.
+seed (phases 3-11h but 11e's drain and 11h's planner-distilled, 16, 17, 18's
+first two runs, 18b, 20) or committed checkpoints (11e's drain, 11h's
+planner-distilled, 12-15, 18's last two runs, 19). A JSON report also goes to
+``chip_smoke.json`` in ``OUT_DIR``.
 """
 
 from __future__ import annotations
@@ -410,7 +437,14 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+_T_START = time.perf_counter()  # the script's clock, from its import
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's line (``[name] ...``) ends with the script's
+    clock, so a run shows where its time goes."""
+    if msg.startswith("["):
+        msg = f"{msg} @{time.perf_counter() - _T_START:.1f}s"
     print(msg, flush=True)
 
 
@@ -646,6 +680,8 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
         cuda_ms(lambda: F.scaled_dot_product_attention(qxh, kxh, vxh, is_causal=True)))
     del qxh, kxh, vxh
 
+    rows["flash_attention"]["lse"] = _k1_lse_shape(randn, dev)
+
     # K5: one large-v3 decoder step's cross-attention (S = kv_len = 500, the
     # 1000-frame bucket; S = 1500, kv_len 75, the incremental buffer after
     # three blocks) and self-attention (S = 448, kv_len 33: the prompt and
@@ -846,6 +882,88 @@ def phase_kernels(fsm, prefix_len: int) -> dict:
     rows.update(_grammar_kernel_rows(fsm, g))
     torch.cuda.synchronize()
     return rows
+
+
+# K1's log-sum-exp against the plain version's: both take the max of the
+# same fp32 scores (summed in another order: ~1e-6 relative) and the log of
+# a sum of up to 8192 exponentials (__expf within 2 ulp each), so an lse of
+# ~10 may move by ~1e-5; a row that missed a key moves it by ~1e-4 / key
+LSE_RTOL, LSE_ATOL = 1e-5, 2e-5
+LSE_TOL = f"{LSE_RTOL:g}*|ref|+{LSE_ATOL:g}"
+PLANNER_T = 8192  # the planner's largest context bucket at tinyllama-1.1b
+
+
+def _k1_lse_shape(randn, dev) -> dict:
+    """K1 with ``return_lse`` at the planner's cold start into its largest
+    bucket, a shape of K1's row: causal T = 8192, tinyllama's 32/4 heads of
+    64, bf16 (the bf16 output, and the fp32 output the ring merges) and
+    fp32; output and lse against the plain version's. Library: SDPA's flash
+    op, which returns the log-sum-exp too, on k/v expanded to 32 heads."""
+    import torch
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.ops import attention_reference
+
+    T, nq, nkv, hd = PLANNER_T, 32, 4, 64
+    q, k, v = randn(1, T, nq, hd), randn(1, T, nkv, hd), randn(1, T, nkv, hd)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    pairs, lse_pairs = [], []
+    for args, out_dtype in (((q, k, v), None), ((q, k, v), torch.float32),
+                            ((q32, k32, v32), None)):
+        out, lse = ops.flash_attention(*args, causal=True, return_lse=True, out_dtype=out_dtype)
+        ref, ref_lse = attention_reference(*args, causal=True, return_lse=True,
+                                           out_dtype=out_dtype)
+        fail_if(not torch.equal(out, ops.flash_attention(*args, causal=True,
+                                                         out_dtype=out_dtype)),
+                "flash_attention: the output with return_lse differs from the one without")
+        pairs.append((out, ref))
+        lse_pairs.append((lse, ref_lse))
+        del ref
+    out_abs, out_ratio = attn_err(pairs)
+    lse_abs = max(float((a - b).abs().max()) for a, b in lse_pairs)
+    lse_ratio = max(float(((a - b).abs() / (LSE_RTOL * b.abs() + LSE_ATOL)).max())
+                    for a, b in lse_pairs)
+    del pairs, lse_pairs
+    torch.cuda.synchronize()
+    log(f"[kernels]   flash_attention lse: max abs err {lse_abs:.3g} ({lse_ratio:.3g} of tol "
+        f"{LSE_TOL})")
+    pairs_n = T * (T + 1) / 2
+
+    def nbytes(esz: int, osz: int) -> float:  # q, k, v read; out and lse written
+        return esz * (T * nq * hd + 2 * T * nkv * hd) + osz * T * nq * hd + 4 * T * nq
+
+    qh = q.transpose(1, 2)
+    kh, vh = (x.transpose(1, 2).repeat_interleave(nq // nkv, 1) for x in (k, v))
+    tol = f"out {ATTN_TOL} (bf16), {F32_TOL} (fp32 out); lse {LSE_TOL}"
+    ratio = max(out_ratio, lse_ratio)
+    fail_if(not ratio <= 1.0, f"flash_attention with lse: error {ratio:.3g}x its tolerance "
+            f"{tol} (output max abs err {out_abs}, lse {lse_abs})")
+    row = _extra_shape(
+        "with the lse (B, T, nq) fp32, causal T = S = 8192, 32/4 heads of 64, bf16 "
+        "(the fp32 output and fp32 operands checked)",
+        cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True, return_lse=True), iters=5),
+        cuda_ms(lambda: attention_reference(q, k, v, causal=True, return_lse=True), iters=2,
+                warmup=1),
+        *bound(nbytes(2, 2), 4 * nq * hd * pairs_n),
+        cuda_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qh, kh, vh, 0.0, True), iters=5))
+    row.update(max_abs_err=out_abs, tol=tol, err_over_tol=ratio, lse_max_abs_err=lse_abs,
+               lse_err_over_tol=lse_ratio)
+    row["fp32_out"] = _extra_shape(
+        "bf16 operands, fp32 output (the ring's blocks)",
+        cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True, return_lse=True,
+                                            out_dtype=torch.float32), iters=5),
+        cuda_ms(lambda: attention_reference(q, k, v, causal=True, return_lse=True,
+                                            out_dtype=torch.float32), iters=2, warmup=1),
+        *bound(nbytes(2, 4), 4 * nq * hd * pairs_n), None)
+    row["fp32"] = _extra_shape(
+        "fp32 operands and output (the fp32-activation twins)",
+        cuda_ms(lambda: ops.flash_attention(q32, k32, v32, causal=True, return_lse=True),
+                iters=3),
+        cuda_ms(lambda: attention_reference(q32, k32, v32, causal=True, return_lse=True),
+                iters=2, warmup=1),
+        *bound(nbytes(4, 4), 4 * nq * hd * pairs_n, FP32_FLOPS), None)
+    return row
 
 
 # K4 / K11's whole-grammar sweep: rows a launch
@@ -1246,9 +1364,11 @@ def _k2_extra_operands(randn, dev, n: int) -> dict:
 
     S = 2048
 
-    def operands(label, B, nq, nkv, hd, kv_len, timed, qdtype=torch.bfloat16):
+    def operands(label, B, nq, nkv, hd, kv_len, timed, qdtype=torch.bfloat16,
+                 kvdtype=torch.bfloat16, S=S):
         return {"label": label, "q": randn(B, nq, hd, dtype=qdtype),
-                "k": randn(1, B, S, nkv, hd), "v": randn(1, B, S, nkv, hd),
+                "k": randn(1, B, S, nkv, hd, dtype=kvdtype),
+                "v": randn(1, B, S, nkv, hd, dtype=kvdtype),
                 "kv_len": torch.tensor(kv_len, dtype=torch.int32, device=dev), "timed": timed}
 
     lens = [0, 37, 300, 511, 700, n, 1500, 2048]
@@ -1258,6 +1378,11 @@ def _k2_extra_operands(randn, dev, n: int) -> dict:
         "batch": operands(f"the dense batcher's 8 rows, kv_len {lens}", 8, 32, 4, 64, lens, True),
         "fp32": operands("fp32 queries at the distilled widths, 2 rows, 4/2 heads of 48, "
                          "kv_len [0, 77]", 2, 4, 2, 48, [0, 77], False, torch.float32),
+        # the planner-distilled decode step: the planner keeps its cache in
+        # the activations' type, fp32 on the distilled checkpoint
+        "fp32kv": operands("planner-distilled's step: fp32 queries over an fp32 (1, 512, 2, 48) "
+                           "cache, 4/2 heads, kv_len 300", 1, 4, 2, 48, [300], True,
+                           torch.float32, torch.float32, 512),
     }
 
 
@@ -1279,7 +1404,7 @@ def _k2_extra_row(x: dict) -> dict:
     vh = v[0, :, :m].transpose(1, 2).repeat_interleave(nq // nkv, 1)
     amask = (torch.arange(m, device=q.device)[None, :] < kv_len[:, None])[:, None, None, :]
     qh = q[:, :, None]
-    kv_bytes = 2 * 2 * float(kv_len.sum()) * nkv * hd
+    kv_bytes = 2 * k.element_size() * float(kv_len.sum()) * nkv * hd
     return _extra_shape(
         x["label"],
         cuda_ms(lambda: ops.decode_attention_layer(q, k, v, kv_len, 0), iters=100),
@@ -1303,9 +1428,10 @@ def _k3_extra_operands(randn, dev, n: int) -> dict:
     def chain(front: int, T: int = 9, chain_len: int = 5):
         return [front + min(i, chain_len) for i in range(T)]
 
-    def operands(label, B, T, nq, nkv, hd, pos, qdtype=torch.bfloat16):
+    def operands(label, B, T, nq, nkv, hd, pos, qdtype=torch.bfloat16, kvdtype=torch.bfloat16):
         return {"label": label, "q": randn(B, T, nq, hd, dtype=qdtype),
-                "k": randn(1, B, S, nkv, hd), "v": randn(1, B, S, nkv, hd),
+                "k": randn(1, B, S, nkv, hd, dtype=kvdtype),
+                "v": randn(1, B, S, nkv, hd, dtype=kvdtype),
                 "pos": torch.tensor(pos, dtype=torch.int32, device=dev)}
 
     fronts = [0, 37, 300, 511, 700, n, 1500, 2030]
@@ -1319,6 +1445,9 @@ def _k3_extra_operands(randn, dev, n: int) -> dict:
         "fp32": operands("fp32 queries at the distilled widths, (2, 5), 4/2 heads of 48", 2, 5,
                          4, 2, 48, [[120, 121, 122, 123, 124], [299, 3, 150, 150, 77]],
                          torch.float32),
+        "fp32kv": operands("fp32 queries over an fp32 cache (a planner on fp32 weights at ff > 0), "
+                           "(1, 9), 4/2 heads of 48", 1, 9, 4, 2, 48, [chain(300)],
+                           torch.float32, torch.float32),
     }
 
 
@@ -1340,7 +1469,7 @@ def _k3_extra_row(x: dict) -> dict:
     vh = v[0, :, :m].transpose(1, 2).repeat_interleave(nq // nkv, 1).to(q.dtype)
     amask = (torch.arange(m, device=q.device)[None, None, :] <= pos[:, :, None])[:, None]
     qh = q.transpose(1, 2)
-    kv_bytes = 2 * 2 * float((pos.max(dim=1).values + 1).sum()) * nkv * hd
+    kv_bytes = 2 * k.element_size() * float((pos.max(dim=1).values + 1).sum()) * nkv * hd
     return _extra_shape(
         x["label"], cuda_ms(lambda: ops.decode_block_attention_layer(q, k, v, pos, 0), iters=100),
         cuda_ms(lambda: decode_block_attention_reference(q, k[0], v[0], pos)),
@@ -2623,8 +2752,9 @@ VOICE_EVENTS = {"transcript_partial", "transcript_final", "intent", "tts", "exec
 # time limit; stt_batch's service run drives it through the service on 3
 # connections
 VOICE_AUDIO_UTTERANCES = 1
-# voice_service's locked plane takes the same 2
-VOICE_LOCKED_UTTERANCES = 2
+# voice_service's locked plane: 1, for the script's time limit (each utterance
+# adds ~20 s of drain behind the paced audio)
+VOICE_LOCKED_UTTERANCES = 1
 # typed behind the distilled brain, whose intents are recorded
 # (intent_golden.json): one safe command, and one whose upload and click both
 # need confirmation
@@ -3853,14 +3983,15 @@ def _conf_fp64_err(rec: dict) -> dict:
 
 
 def _device_kernels(fn) -> int:
-    """Device kernels one call of ``fn`` launches (torch.profiler); 0 when
-    the profiler sees no device activity."""
+    """Device kernels one call of ``fn`` launches (torch.profiler, CUDA
+    activity only: the host ops' trace adds nothing to the count and cost
+    ~10-25 s a call); 0 when the profiler sees no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CPU)
@@ -6868,6 +6999,363 @@ def phase_devobs(params, totals: dict, report: dict) -> None:
     report["devobs"] = out
 
 
+PLANNER_BUCKETS = (1024, 2048, 4096, 8192)  # LongSessionPlanner's default context buckets
+PLANNER_NEW_TOKENS = 32  # of the served 256 a plan: a depth the script's time limit sets
+PLANNER_SP_MERGE = 4  # the ring's sp for the multi-block merge on one card
+
+
+def _planner_transcript(tokens_wanted: int, tok) -> str:
+    """A session transcript of about ``tokens_wanted`` tokens: the rendered
+    prompt, then turns and result lines as the planner keeps them."""
+    from tpu_voice_agent_torch.services.prompts import render_prompt
+
+    text, i = render_prompt(UTTERANCES[0], {}), 0
+    while len(tok.encode(text, bos=True)) < tokens_wanted:
+        text += (f"\n<|user|>\n{{\"text\":\"{UTTERANCES[i % len(UTTERANCES)]}\",\"context\":{{}}}}"
+                 f"\n<|assistant|>\nresult {i}: 24 items, page {i % 7}, sorted by price\n")
+        i += 1
+    return text
+
+
+def _planner_identity(planner, p, tokens, n: int, label: str, ulps: float) -> dict:
+    """``llama_sp_prefill`` at sp 1 against the dense fresh-block forward
+    (K1 over the block) on one bucket: the k/v cache, and the last logits
+    within ``ulps`` bf16 ulps of the top logit (the lm_head runs over one
+    row against the bucket's, another product shape)."""
+    import torch
+
+    from tpu_voice_agent_torch.models.llama import forward, init_kv_cache
+    from tpu_voice_agent_torch.parallel import llama_sp_prefill
+
+    S, dev = tokens.shape[1], tokens.device
+    logits, kv = llama_sp_prefill(p, planner.cfg, tokens, planner.mesh,
+                                  torch.tensor([n - 1], device=dev))
+    cache = init_kv_cache(planner.cfg, 1, S, dtype=kv["k"].dtype, device=dev)
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    ref = forward(p, planner.cfg, tokens, positions, cache, fresh_block=True)[0][:, n - 1]
+    d, top = float((logits - ref).abs().max()), float(ref.abs().max())
+    kv_abs, kv_ratio = attn_err([(kv["k"], cache["k"]), (kv["v"], cache["v"])])
+    out = {"logits_max_abs_diff": d, "top_logit": top, "ulps": d / (2.0 ** -8 * top),
+           "kv_max_abs_err": kv_abs, "kv_equal": all(torch.equal(kv[x], cache[x])
+                                                     for x in ("k", "v"))}
+    log(f"[planner] {label}: sp prefill vs dense forward over {S}: last logits "
+        f"{out['ulps']:.3f} bf16 ulps of the top logit apart (limit {ulps}), k/v equal "
+        f"{out['kv_equal']} (max abs err {kv_abs:.3g})")
+    fail_if(out["ulps"] > ulps, f"planner: {label}: the sp prefill's last logits part from the "
+            f"dense forward's by {out['ulps']:.3f} bf16 ulps")
+    fail_if(kv_ratio > 1.0, f"planner: {label}: the sp prefill's k/v is {kv_ratio:.3g}x the "
+            f"tolerance from the dense forward's")
+    return out
+
+
+def phase_planner(totals: dict, report: dict) -> None:
+    """The long-session planner on the card (tinyllama-1.1b on the weights
+    the ``planner`` backend serves: random bf16 from seed 0, sp 1): the ring's multi-block merge at sp 4 over
+    one card against one K1 call (T = 8192); ``llama_sp_prefill`` against
+    the dense fresh-block forward on the 2048 bucket (bf16, and an fp32-
+    activation twin at one ulp); cold-start prefill ms per context bucket;
+    a cold start (2048), plan, warm extend, plan, re-anchor (4096), plan; a
+    session in the 8192 bucket; ``plan_many`` of 4 sessions against 4
+    sequential plans with every slot 0 intact; one plan's idle share under
+    the profiler; the plans' tokens/s. Then BRAIN_BACKEND=planner-distilled over HTTP
+    on the 6 golden dialogs against ``data/planner_golden.json``, a
+    BRAIN_BACKEND=planner brain answering two turns of one session, and
+    BRAIN_SP past the cards refused at boot."""
+    import torch
+
+    from tpu_voice_agent_torch import ops
+    from tpu_voice_agent_torch.evals.golden import score_parser_dialogs
+    from tpu_voice_agent_torch.parallel import llama_sp_prefill, ring_attention, sp_mesh
+    from tpu_voice_agent_torch.serve.planner import LongSessionPlanner
+    from tpu_voice_agent_torch.services import brain
+    from tpu_voice_agent_torch.services.prompts import render_prompt
+
+    out: dict = {"section_s": {}}
+    t_sec = [time.perf_counter()]
+
+    def section(name: str) -> None:  # the wall of each part of the phase
+        now = time.perf_counter()
+        out["section_s"][name] = now - t_sec[0]
+        t_sec[0] = now
+
+    mesh = sp_mesh(1)
+    dev = mesh[0]
+
+    # the ring's merge path: sp 4 over one card against one K1 call
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(1, PLANNER_T, h, 64, generator=g, device=dev).to(torch.bfloat16)
+               for h in (32, 4, 4))
+    mesh4 = sp_mesh(PLANNER_SP_MERGE, [dev] * PLANNER_SP_MERGE)
+    r_abs, r_ratio = attn_err([(ring_attention(q, k, v, mesh4, causal=True),
+                                ops.flash_attention(q, k, v, causal=True))])
+    out["ring_sp4"] = {"max_abs_err": r_abs, "err_over_tol": r_ratio,
+                       "ms": cuda_ms(lambda: ring_attention(q, k, v, mesh4), iters=3),
+                       "one_k1_ms": cuda_ms(lambda: ops.flash_attention(q, k, v), iters=3)}
+    log(f"[planner] ring_attention at sp {PLANNER_SP_MERGE} over one card vs one K1 call, "
+        f"causal T = {PLANNER_T}: max abs err {r_abs:.3g} ({r_ratio:.3g} of tol {ATTN_TOL}); "
+        f"{out['ring_sp4']['ms']:.3f} ms vs {out['ring_sp4']['one_k1_ms']:.3f} ms")
+    fail_if(r_ratio > 1.0, f"planner: the sp-{PLANNER_SP_MERGE} ring merge is {r_ratio:.3g}x "
+            "its tolerance from one K1 call")
+    del q, k, v
+    section("ring merge")
+
+    planner = LongSessionPlanner(preset="tinyllama-1.1b", mesh=mesh)  # as the backend builds it
+    fail_if(planner.params["embed"].dtype != torch.bfloat16 or planner.device != dev,
+            f"planner: weights {planner.params['embed'].dtype} on {planner.device}")
+    tok, cfg = planner.tokenizer, planner.cfg
+    prompt = render_prompt(UTTERANCES[0], {})
+    ids = tok.encode(prompt, bos=True)
+    n = len(ids)
+
+    def bucket_tokens(S: int):
+        t = torch.full((1, S), planner.pad_id, dtype=torch.int32)
+        t[0, :n] = torch.tensor(ids, dtype=torch.int32)
+        return t.to(dev)
+
+    out["identity_bf16"] = _planner_identity(planner, planner.params, bucket_tokens(2048), n,
+                                             "bf16", BF16_PART_ULPS)
+    out["identity_fp32"] = _planner_identity(planner, _fp32_activations(planner.params),
+                                             bucket_tokens(2048), n, "fp32 activations", 1)
+    section("sp prefill identity")
+
+    plans: list = []
+
+    def plan(sess, label: str):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text, pids = planner.plan(sess, max_new_tokens=PLANNER_NEW_TOKENS)
+        s = time.perf_counter() - t0
+        fail_if(not pids or planner.fsm.walk(pids) < 0,
+                f"planner: {label}: the plan left the grammar ({len(pids)} tokens)")
+        plans.append({"label": label, "bucket": int(sess.cache["k"].shape[2]),
+                      "tokens": len(pids), "ms": s * 1e3})
+        log(f"[planner] {label}: plan of {len(pids)} tokens in {s * 1e3:.1f} ms at bucket "
+            f"{plans[-1]['bucket']}, position {sess.pos}")
+        return pids
+
+    with Counted("planner", totals) as c:
+        t0 = time.perf_counter()
+        out["prefill_ms"] = {}
+        for S in PLANNER_BUCKETS:
+            toks = bucket_tokens(S)
+            for _ in range(2):  # the second call is the one timed
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                llama_sp_prefill(planner.params, cfg, toks, mesh,
+                                 torch.tensor([n - 1], device=dev))
+                torch.cuda.synchronize()
+            out["prefill_ms"][S] = (time.perf_counter() - t1) * 1e3
+        log(f"[planner] cold-start prefill ms per bucket (sp 1): {out['prefill_ms']}")
+        section("prefill per bucket")
+
+        sess = planner.start(prompt)
+        fail_if((sess.anchors, int(sess.cache["k"].shape[2])) != (1, 2048),
+                f"planner: the cold start is in bucket {sess.cache['k'].shape[2]}, not 2048")
+        plan(sess, "cold start")
+        pos0 = sess.pos
+        user = json.dumps({"text": UTTERANCES[1], "context": {}}, separators=(",", ":"))
+        planner.extend(sess, f"\n<|user|>\n{user}\n<|assistant|>\n")
+        fail_if(sess.anchors != 1 or sess.pos <= pos0, "planner: the warm extend re-anchored")
+        plan(sess, "warm extend")
+        # past the extend buckets and the 2048 bucket's headroom: one ring
+        # prefill of the whole transcript into 4096
+        planner.extend(sess, _planner_transcript(2600, tok)[len(prompt):])
+        fail_if((sess.anchors, int(sess.cache["k"].shape[2])) != (2, 4096),
+                f"planner: the re-anchor went to bucket {sess.cache['k'].shape[2]} "
+                f"({sess.anchors} anchors), not 4096")
+        plan(sess, "re-anchored")
+        big = planner.start(_planner_transcript(6000, tok))
+        fail_if(int(big.cache["k"].shape[2]) != 8192,
+                f"planner: a {len(big.ids)}-token transcript is in bucket "
+                f"{big.cache['k'].shape[2]}, not 8192")
+        plan(big, f"{len(big.ids)}-token session")
+
+        section("sessions")
+        texts = [render_prompt(t, {}) for t in UTTERANCES[:4]]
+        batch = [planner.start(t) for t in texts]
+        alone = [planner.start(t) for t in texts]
+        prompt_ids = [list(s.ids) for s in batch]
+        slot0 = [(s.cache["k"][:, 0, 0].clone(), s.cache["v"][:, 0, 0].clone()) for s in batch]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = planner.plan_many(batch, max_new_tokens=PLANNER_NEW_TOKENS)
+        batch_ms = (time.perf_counter() - t1) * 1e3
+        seq = [plan(s, f"sequential {i}") for i, s in enumerate(alone)]
+        fail_if(any(not (torch.equal(s.cache["k"][:, 0, 0], k0)
+                         and torch.equal(s.cache["v"][:, 0, 0], v0))
+                    for s, (k0, v0) in zip(batch, slot0)),
+                "planner: plan_many changed a session's slot 0")
+        equal = sum(a == b for (_, a), b in zip(got, seq))
+        diverged = _partings(planner, prompt_ids, seq, [b for _, b in got], "planner",
+                             "plan_many and plan")
+        _check_partings(diverged, "planner", BF16_PART_ULPS)
+        out["plan_many"] = {"sessions": 4, "ms": batch_ms, "equal": equal,
+                            "partings": diverged,
+                            "tokens": [len(b) for _, b in got]}
+        log(f"[planner] plan_many of 4 sessions in {batch_ms:.1f} ms: {equal} / 4 equal to "
+            f"the sequential plans, every slot 0 intact")
+
+        section("plan_many")
+        holder = [planner.start(prompt) for _ in range(2)]
+        out["profile"] = _plan_idle_share(planner, holder)
+        out["wall_s"] = time.perf_counter() - t0
+        section("profiled plan")
+    # every ring prefill is one K1 launch with lse a layer (sp 1): the
+    # bucket timings and every anchor of every session
+    prefills = 2 * len(PLANNER_BUCKETS) + sum(s.anchors for s in [sess, big, *batch, *alone,
+                                                                    *holder])
+    c.require("flash_attention", "decode_attention_layer", "masked_argmax_advance")
+    layers = cfg.n_layers
+    fail_if(c.counts["flash_attention"] != layers * prefills,
+            f"planner: {c.counts['flash_attention']} K1 launches over "
+            f"{prefills} ring prefills of {layers} layers")
+    tokens = sum(p["tokens"] for p in plans)
+    out["plans"] = plans
+    out["plan_tok_per_s"] = tokens / (sum(p["ms"] for p in plans) / 1e3)
+    out["plan_idle_share"] = out["profile"]["idle_share"]
+    log(f"[planner] plan decode {out['plan_tok_per_s']:.1f} tok/s over {len(plans)} plans "
+        f"(idle share {out['plan_idle_share']})")
+    del planner, batch, alone, sess, big, holder
+
+    saved = {k: os.environ.get(k) for k in ("BRAIN_BACKEND", "BRAIN_DEVICE", "BRAIN_SP",
+                                            "BRAIN_QUANT", "BRAIN_FF", "BRAIN_BATCH")}
+    for k in saved:
+        os.environ.pop(k, None)
+    try:
+        out["distilled"] = _planner_distilled(dev, totals, score_parser_dialogs)
+        section("planner-distilled")
+        out["planner_backend"] = _planner_backend(totals)
+        section("planner backend")
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+        os.environ.update(BRAIN_BACKEND="planner:test-tiny", BRAIN_SP=str(cards + 1))
+        try:
+            brain.make_parser_from_env()
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        fail_if(refused is None or "BRAIN_SP" not in refused,
+                f"planner: BRAIN_SP past the cards booted (refusal: {refused})")
+        out["sp_refusal"] = refused
+        log(f"[planner] BRAIN_SP={os.environ['BRAIN_SP']} refused at boot: {refused}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"[planner] seconds by part: { {k: round(v, 2) for k, v in out['section_s'].items()} }")
+    report["planner"] = out
+
+
+PLANNER_PROFILE_TOKENS = 8  # a plan under the profiler: its trace's size sets the cost
+
+
+def _plan_idle_share(planner, sessions: list) -> dict:
+    """One plan's device idle share: 1 - the device time of its kernels
+    (``torch.profiler``, CUDA activity only: recording every host op of a
+    plan cost 45 s on the card) over the wall of the same plan on a twin
+    session, unprofiled. The top kernels by device time are printed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = len(planner.plan(sessions[0], max_new_tokens=PLANNER_PROFILE_TOKENS)[1])
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        planner.plan(sessions[1], max_new_tokens=PLANNER_PROFILE_TOKENS)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    busy_us = sum(_device_us(e) for e in kernels)
+    launched = sum(e.count for e in kernels)
+    top = [f"{_device_us(e):10.1f} us {e.count:6d}x  {e.key[:90]}"
+           for e in sorted(kernels, key=_device_us, reverse=True)[:6]]
+    res = {"tokens": n, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "idle_share": 1 - busy_us / wall_us, "kernels": launched, "top": top}
+    log(f"[planner] one plan of {n} tokens: wall {wall_us / 1e3:.2f} ms (unprofiled), device "
+        f"busy {busy_us / 1e3:.2f} ms, idle share {res['idle_share']:.3f}, {launched} kernels")
+    for ln in top:
+        log(f"[planner]   {ln}")
+    return res
+
+
+def _planner_distilled(dev, totals: dict, score_parser_dialogs) -> dict:
+    """BRAIN_BACKEND=planner-distilled on the card over HTTP, the 6 golden
+    dialogs with session ids: every turn's plan tokens equal to
+    ``data/planner_golden.json`` (fp32 checkpoint), and the dialogs' score."""
+    from tpu_voice_agent_torch import PACKAGE_DIR
+    from tpu_voice_agent_torch.services import brain
+
+    golden = json.loads((PACKAGE_DIR / "data" / "planner_golden.json").read_text())
+    os.environ["BRAIN_BACKEND"] = "planner-distilled"
+    with Counted("planner_distilled", totals) as c:
+        parser = brain.make_parser_from_env()
+        fail_if(parser.planner.device != dev, f"planner-distilled: on {parser.planner.device}")
+        plans: list = []
+        inner = parser._gather.plan
+
+        def recorded(sess, max_new):
+            res = inner(sess, max_new)
+            plans.append(list(res[1]))
+            return res
+
+        parser._gather.plan = recorded
+        server, thread, base = _serve_brain(brain.BrainApp(parser))
+
+        class _Http:
+            def parse(self, text, context, session_id=None):
+                status, body = _post(base, {"text": text, "context": context,
+                                            "session_id": session_id})
+                if status != 200:
+                    raise RuntimeError(f"/parse {text!r}: {status} {body}")
+                return body
+
+        try:
+            t0 = time.perf_counter()
+            score = score_parser_dialogs(_Http(), session=True)
+            wall = time.perf_counter() - t0
+        finally:
+            _stop(server, thread)
+    c.require("flash_attention", "decode_attention_layer", "masked_argmax_advance")
+    want = [t["token_ids"] for d in golden["dialogs"] for t in d]
+    equal = sum(a == b for a, b in zip(plans, want))
+    log(f"[planner] planner-distilled over HTTP: {len(plans)} turns in {wall:.2f} s, {equal} / "
+        f"{len(want)} equal to planner_golden.json; score_parser_dialogs {score}")
+    fail_if(plans != want, f"planner-distilled: {len(want) - equal} turns differ from "
+            "planner_golden.json")
+    return {"turns": len(plans), "equal": equal, "wall_s": wall, "score": score}
+
+
+def _planner_backend(totals: dict) -> dict:
+    """BRAIN_BACKEND=planner (tinyllama-1.1b, random bf16 weights) boots on
+    the card and answers two turns of one session over HTTP (a random
+    model may truncate: 422, which drops the session, is the legal
+    failure). Its plans are cut to PLANNER_NEW_TOKENS."""
+    from tpu_voice_agent_torch.services import brain
+
+    os.environ["BRAIN_BACKEND"] = "planner"
+    with Counted("planner_backend", totals) as c:
+        t0 = time.perf_counter()
+        parser = brain.make_parser_from_env()
+        boot = time.perf_counter() - t0
+        parser.max_new_tokens = PLANNER_NEW_TOKENS
+        server, thread, base = _serve_brain(brain.BrainApp(parser))
+        try:
+            answers = []
+            for text in UTTERANCES[:2]:
+                status, body = _post(base, {"text": text, "context": {}, "session_id": "p1"})
+                fail_if(status not in (200, 422), f"planner: /parse {text!r}: {status} {body}")
+                answers.append(status)
+        finally:
+            _stop(server, thread)
+    c.require("flash_attention", "decode_attention_layer", "masked_argmax_advance")
+    log(f"[planner] BRAIN_BACKEND=planner booted in {boot:.2f} s (sp {parser.planner.sp}, "
+        f"{parser.planner.cfg.n_layers} layers); two turns of one session: {answers}")
+    return {"boot_s": boot, "answers": answers}
+
+
 STT_BATCH_SLOTS = 4
 # the work items, one tick each: (kind, utterance key, seconds of synth audio)
 STT_BATCH_ROUNDS = (
@@ -6968,7 +7456,10 @@ def _stt_batch_items(eng, label: str, totals: dict, ulps: float) -> dict:
 
 
 STT_REPLICAS = 2  # the replica drill's tier: 2 batchers of STT_BATCH_SLOTS over one engine
-STT_REPLICA_HANG_S = "3"  # CHAOS_HANG_S of the hang drill
+# CHAOS_HANG_S of the hang drill: the worker must still sleep when the tier
+# restarts it, after the other replica's work is done (2.4 s on a slow host)
+# and the stall limit has passed
+STT_REPLICA_HANG_S = "6"
 STT_REPLICA_STALL_S = 0.5  # the hang drill's stalled-tick limit
 
 
@@ -7120,8 +7611,15 @@ def _stt_replica_drill(eng, b1_refs: list, totals: dict, ulps: float) -> dict:
             old_thread = old._thread
             t.sweep_once()  # the stalled verdict's baseline
             time.sleep(STT_REPLICA_STALL_S + 0.1)
-            t.sweep_once()
-            t.sweep_once()  # two stalled sweeps: ejected, warm-restarted
+            # two stalled sweeps eject and warm-restart the hung replica (one
+            # more when its stall clock, which runs from the tier's start,
+            # had not run out at the baseline); no sweep after the restart,
+            # which would judge the replica its finals fail over to by the
+            # idle reading of the sweep before
+            for _ in range(2):
+                t.sweep_once()
+                if restarts() - r0:
+                    break
             t_restart = time.monotonic()
             hung_results = [f.result(timeout=300) for f in futs]
             old_thread.join(timeout=float(STT_REPLICA_HANG_S) + 60)
@@ -7139,6 +7637,9 @@ def _stt_replica_drill(eng, b1_refs: list, totals: dict, ulps: float) -> dict:
         _lib._LIB = real_lib
         t.stop()
     from_hung = [(k, ts - t_restart) for th, ts, k in spy.calls if th is old_thread]
+    fail_if(any(dt < 0 for _, dt in from_hung),
+            f"stt replicas hang: the worker woke from its {STT_REPLICA_HANG_S} s hang before "
+            f"the restart and launched {from_hung[:4]} (s from the restart)")
     fail_if(from_hung, f"stt replicas hang: the hung worker launched {from_hung[:4]}")
     fail_if(restarts() - r0 != 1, f"stt replicas hang: {restarts() - r0} restarts")
     fail_if(fresh is old or fresh.pool["k"].data_ptr() == old.pool["k"].data_ptr(),
@@ -7307,7 +7808,7 @@ HF_WHISPER = {"architectures": ["WhisperForConditionalGeneration"], "vocab_size"
 HF_BIAS_CHANNEL, HF_BIAS_HEAD = 100.0, 0.5
 SP = "▁"
 HF_DEVICE = "cuda"  # where the seeded trees are drawn and loaded
-HF_PARSES = 2  # of the 5 utterances: a depth the script's time limit sets
+HF_PARSES = 1  # of the 5 utterances: a depth the script's time limit sets
 
 
 def _sp_tokenizer_json(vocab_size: int = 32000, seed: int = 0) -> dict:
@@ -7737,8 +8238,11 @@ def _hf_tinyllama(root: str, totals: dict, tok_json: dict) -> dict:
     eng = parser.engine
     fail_if(eng.batch_slots != BATCH_SLOTS or eng.device.type != HF_DEVICE or not eng.prefix_ids,
             "hf_import: the paged brain is not 32 slots on the card behind the prefix")
+    # JAX builds this engine at ff 0: every step a T = 1 forward through K6
+    fail_if(eng.fast_forward != 0, f"hf_import: the paged brain runs ff {eng.fast_forward}, "
+            "not JAX's 0")
     row, _, c = _drain(eng, "hf_import paged drain", totals)
-    c.require("paged_block_attention")
+    c.require("paged_attention")
     _no_dense_mask(eng, c, "hf_import paged drain")
     out["paged_drain"] = row
     del parser, eng, tree
@@ -8023,7 +8527,7 @@ def main() -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of card,build,digest,kernels,service,parse,batch,"
                          "batch_dense,radix,"
-                         "kvquant,spec,quality,containment,tenancy,handoff,fleet,devobs,"
+                         "kvquant,spec,quality,containment,tenancy,handoff,fleet,devobs,planner,"
                          "service_batched,"
                          "golden,"
                          "batch_golden,kvquant_golden,spec_golden,stt,stt_golden,voice,"
@@ -8040,7 +8544,7 @@ def main() -> int:
     args = ap.parse_args()
     phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
                "radix", "kvquant", "spec", "quality", "containment", "tenancy", "handoff",
-               "fleet", "devobs", "service_batched",
+               "fleet", "devobs", "planner", "service_batched",
                "golden", "batch_golden",
                "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
                "stt_batch", "hf_import", "moe"]
@@ -8099,6 +8603,8 @@ def main() -> int:
             fail_if(eng is None, f"the {name} phase reuses the service's weights")
             kw = {"profile": args.profile} if name in ("batch", "kvquant", "spec") else {}
             timed(name, fn, eng.params, totals, report, **kw)
+    if "planner" in phases:  # after devobs; the planner's own bf16 weights
+        timed("planner", phase_planner, totals, report)
     if args.profile and eng is not None:  # the parse profile reuses the service's weights
         phase_profile(eng.params, report)
     del eng

@@ -887,3 +887,65 @@ def test_quant_paged_t1_split_matches_plain(cuda, tier, hd, nq, nkv, bs, monkeyp
         q32, kp, vp, ks, vs, tables, kv_len, 1, bits=bits), **F32_TOL)
     (name, args), = spy.calls
     assert name == "tva_paged_attention_quant" and args[8:10] == (0, 0) and args[16] == 0
+
+
+@pytest.mark.gpu
+def test_ring_and_ulysses_across_every_card(cuda):
+    """The ring and Ulysses with one sequence shard per visible card,
+    against one K1 call on the first card: every block launches K1 on its
+    own shard's card (the causal ring's n(n + 1) / 2 blocks)."""
+    from tpu_voice_agent_torch.parallel import ring_attention, sp_mesh, ulysses_attention
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(1, 1024 * n, h, 64, generator=g, device=cuda).to(torch.bfloat16)
+               for h in (32, 8, 8))
+    mesh = sp_mesh(n)
+    assert mesh == [torch.device("cuda", i) for i in range(n)]
+    ref = ops.flash_attention(q, k, v, causal=True)
+    for fn, launches in ((ring_attention, n * (n + 1) // 2), (ulysses_attention, n)):
+        before = ops.flash_attention.launches
+        out = fn(q, k, v, mesh, causal=True)
+        assert ops.flash_attention.launches - before == launches
+        assert out.device == ref.device and out.dtype == ref.dtype
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_planner_backend_spans_every_card(cuda, monkeypatch):
+    """BRAIN_BACKEND=planner (tinyllama-1.1b) with BRAIN_SP at its default
+    takes every visible card: a session's cold start and warm turn through
+    the ring across the cards, and the sp-n prefill's last logits within 32
+    bf16 ulps of the top logit from the sp-1 prefill on the same weights."""
+    from tpu_voice_agent_torch.parallel import llama_sp_prefill, sp_mesh
+    from tpu_voice_agent_torch.services import brain
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    for knob in ("BRAIN_SP", "BRAIN_DEVICE"):
+        monkeypatch.delenv(knob, raising=False)
+    monkeypatch.setenv("BRAIN_BACKEND", "planner")
+    parser = brain.make_parser_from_env()
+    planner = parser.planner
+    assert planner.sp == n and planner.mesh == sp_mesh(n)
+    parser.max_new_tokens = 16
+    before = ops.flash_attention.launches
+    for text in ("open the pricing page", "now sort it by price"):
+        try:
+            assert isinstance(parser.parse(text, {}, session_id="s"), dict)
+        except brain.ParserError as e:  # random weights may truncate the plan
+            assert e.kind == "schema_validation_failed"
+    assert ops.flash_attention.launches - before >= planner.cfg.n_layers * n * (n + 1) // 2
+    ids = planner.tokenizer.encode("<|user|>\nopen the pricing page\n<|assistant|>\n", bos=True)
+    toks = torch.full((1, 1024), planner.pad_id, dtype=torch.int32)
+    toks[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    toks = toks.to(planner.device)
+    last = torch.tensor([len(ids) - 1], device=planner.device)
+    got, kv = llama_sp_prefill(planner.params, planner.cfg, toks, planner.mesh, last)
+    ref, _ = llama_sp_prefill(planner.params, planner.cfg, toks, [planner.device], last)
+    assert kv["k"].device == planner.device and kv["k"].shape[2] == 1024
+    top = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= 32 * 2.0 ** -8 * top

@@ -7,8 +7,9 @@ directory as the JAX package's ``from_hf``; in float32 their greedy tokens
 and transcripts must be identical. The checkpoint's vocab is the tokenizer's
 plus 8 padded ids, as real embedding tables are, so the intent FSM runs at
 the config's width with the padded ids dead. Then the services:
-``BRAIN_MODEL=<dir>`` boots the port's brain (dense, and paged with
-``BRAIN_FF=0``, the JAX branch's engine) and ``VOICE_STT=whisper-hf:<dir>``
+``BRAIN_MODEL=<dir>`` boots the port's brain (dense, and paged at ff 0, the
+JAX branch's engine, with ``BRAIN_FF`` unset or set and logged as ignored)
+and ``VOICE_STT=whisper-hf:<dir>``
 its voice STT, on the CPU, answering as the JAX services do.
 """
 
@@ -236,9 +237,15 @@ def _outcome(parse, text):
     return (resp if isinstance(resp, dict) else resp.model_dump(mode="json")), None
 
 
-@pytest.mark.parametrize("env", [{}, {"BRAIN_PAGED": "1", "BRAIN_BATCH": "2",
-                                      "BRAIN_POOL_BLOCKS": "40", "BRAIN_FF": "0"}])
-def test_brain_model_boots_and_answers_as_jax(monkeypatch, llama_dir, env):
+PAGED_ENV = {"BRAIN_PAGED": "1", "BRAIN_BATCH": "2", "BRAIN_POOL_BLOCKS": "40"}
+
+
+# the paged brain at the default env (no BRAIN_FF) and with BRAIN_FF=8 set:
+# both JAX's ff 0 engine, the knob logged as ignored
+@pytest.mark.parametrize("env", [{}, PAGED_ENV, {**PAGED_ENV, "BRAIN_FF": "8"}])
+def test_brain_model_boots_and_answers_as_jax(monkeypatch, caplog, llama_dir, env):
+    import logging
+
     from tpu_voice_agent.services import brain as jbrain
     from tpu_voice_agent_torch.services import brain
 
@@ -249,7 +256,10 @@ def test_brain_model_boots_and_answers_as_jax(monkeypatch, llama_dir, env):
     for cls, dt in ((JDense, jnp.float32), (DecodeEngine, torch.float32)):
         monkeypatch.setattr(cls, "from_hf", classmethod(
             lambda c, *a, _f=cls.from_hf.__func__, _dt=dt, **k: _f(c, *a, dtype=_dt, **k)))
-    tparser = brain.make_parser_from_env()
+    with caplog.at_level(logging.WARNING, logger="tpu_voice_agent_torch.brain"):
+        tparser = brain.make_parser_from_env()
+    ignored = "BRAIN_FF is ignored by the paged BRAIN_MODEL engine (ff 0, as in the JAX service)"
+    assert (ignored in [r.getMessage() for r in caplog.records]) == ("BRAIN_FF" in env)
     jparser = jbrain.make_parser_from_env()
     try:
         eng = tparser.engine

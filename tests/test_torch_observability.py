@@ -17,7 +17,7 @@ package's, on the CPU.
   ``scan_source``): no collision, every port name a JAX name of the same
   kind, every JAX name ported or listed in ``NOT_PORTED_METRICS`` with the
   Queue 1 item that brings it.
-- The refusals: other ``distilled:`` directories, ``planner-distilled``.
+- The refusals: other ``distilled:`` and ``planner-distilled:`` directories.
 - The golden-replay canary (``QUALITY_CANARY_S``): rounds on the served
   brain's thread, and ``GoldenCanary.run_once`` against JAX's.
 - The flight recorder against JAX's: buffering, freeze and re-arm, the
@@ -59,7 +59,6 @@ import metrics_lint  # noqa: E402
 # work still to do.
 NOT_PORTED_METRICS = {
     "quality.exec_success_rate": 9,  # record_exec, fed by the executor service
-    "planner.": 8,
     "executor.": 9,
 }
 
@@ -228,7 +227,9 @@ def test_brain_metrics_trace_and_health_bodies(distilled_brains):
 @pytest.mark.parametrize("backend,match", [
     ("distilled:/models/other-ckpt", "item 8"),
     ("distilled:checkpoints/whisper-tiny-heldout", "item 8"),
-    ("planner-distilled", "item 8"),
+    # served since the sp ring; a directory the port does not carry is not
+    pytest.param("planner-distilled:checkpoints/whisper-tiny-heldout", "item 8",
+                 id="planner-distilled-item 8"),
     ("pp:llama3-70b", "item 8"),
 ])
 def test_backends_refused_at_boot(monkeypatch, backend, match):
@@ -531,7 +532,12 @@ def test_every_jax_metric_is_ported_or_listed_with_its_item(catalogs):
                  "xla.compiles", "xla.compile_ms", "xla.compiles_post_fence",
                  "hbm.weights_bytes", "hbm.kv_pool_bytes", "hbm.workspace_bytes",
                  "hbm.free_bytes", "hbm.live_bytes", "hbm.plan_total_bytes",
-                 "hbm.plan_drift", "hbm.drift_events"):
+                 "hbm.plan_drift", "hbm.drift_events",
+                 # the long-session planner
+                 "planner.plans", "planner.batched_plans", "planner.plan",
+                 "planner.sessions_evicted", "planner.sessions_parked",
+                 "planner.sessions_park_failed", "planner.sessions_dropped",
+                 "planner.spec_commits", "planner.spec_rollbacks"):
         assert name in port_reg, name
 
 

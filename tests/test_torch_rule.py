@@ -142,8 +142,14 @@ def test_unset_backend_boots_the_rule_parser(monkeypatch, caplog):
               "pressure": {"score": 0.0, "slo": "ok", "admission": 0.0}}, {})
     status, body, _ = app.parse(b'{"text": "take a screenshot"}')
     assert status == 200 and body["intents"][0]["type"] == "screenshot"
-    # distilled is served since the trained brain boots from the environment;
-    # the planner backends are still refused
+    # distilled is served since the trained brain boots from the environment,
+    # and the planner backends since the sp ring: planner-distilled answers
+    # the same utterance within a session
     monkeypatch.setenv("BRAIN_BACKEND", "planner-distilled")
-    with pytest.raises(ValueError, match="not ported"):
-        brain.make_parser_from_env()
+    monkeypatch.setenv("BRAIN_DEVICE", "cpu")
+    planner = brain.make_parser_from_env()
+    assert isinstance(planner, brain.PlannerParser) and planner.planner.sp == 1
+    status, body, _ = brain.BrainApp(planner).parse(
+        b'{"text": "take a screenshot", "session_id": "s1"}')
+    assert status == 200 and body["intents"][0]["type"] == "screenshot"
+    assert planner.session_count() == 1

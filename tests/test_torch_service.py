@@ -25,6 +25,7 @@ import torch
 from tpu_voice_agent_torch import distilled
 from tpu_voice_agent_torch.serve.engine import DecodeEngine
 from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+from tpu_voice_agent_torch.serve.planner import LongSessionPlanner
 from tpu_voice_agent_torch.services import brain
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -165,28 +166,39 @@ def _tiny_env(monkeypatch):
     monkeypatch.setenv("BRAIN_DEVICE", "cpu")
     monkeypatch.setenv("BRAIN_PREFIX", "0")
     for name in UNSERVED + SERVED_CONTAINMENT + ("BRAIN_MOE", "BRAIN_QUANT", "BRAIN_BATCH",
-                                                 "BRAIN_PAGED", "BRAIN_MODEL"):
+                                                 "BRAIN_PAGED", "BRAIN_MODEL", "BRAIN_SP"):
         monkeypatch.delenv(name, raising=False)
 
 
-@pytest.mark.parametrize("name,value", [
-    ("BRAIN_MODEL", "/models/intent-8b"), ("BRAIN_BACKEND", "pp:test-tiny"),
-    ("BRAIN_BACKEND", "planner-distilled"), ("BRAIN_BACKEND", "planner"),
+@pytest.mark.parametrize("name,value,extra,want", [
+    pytest.param("BRAIN_MODEL", "/models/intent-8b", {}, "'/models/intent-8b': no such directory",
+                 id="BRAIN_MODEL-/models/intent-8b"),
+    pytest.param("BRAIN_BACKEND", "pp:test-tiny", {}, "ROADMAP.md Queue 1 item",
+                 id="BRAIN_BACKEND-pp:test-tiny"),
+    # the planner backends are served since the sp ring: what stays refused
+    # is a planner-distilled directory the port does not carry (8e) and an
+    # sp axis wider than the devices
+    pytest.param("BRAIN_BACKEND", "planner-distilled:/models/other-ckpt", {},
+                 "ROADMAP.md Queue 1 item 8", id="BRAIN_BACKEND-planner-distilled"),
+    pytest.param("BRAIN_SP", "2", {"BRAIN_BACKEND": "planner:test-tiny"},
+                 "sp=2 needs 2 devices, have 1", id="BRAIN_BACKEND-planner"),
 ])
-def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value):
+def test_env_factory_refuses_knobs_it_would_ignore(monkeypatch, name, value, extra, want):
     """Each knob the JAX brain honours and the port does not serve raises at
     boot, before any engine is built, and names the knob and the ROADMAP
     item that will serve it. ``BRAIN_MODEL`` is served since checkpoint
     import: a path that is no checkpoint directory is refused the same way,
-    naming the knob and the path."""
+    naming the knob and the path; so is a ``BRAIN_SP`` past the devices of
+    the brain's type (one under ``BRAIN_DEVICE=cpu``)."""
     _tiny_env(monkeypatch)
+    for k, v in extra.items():
+        monkeypatch.setenv(k, v)
     monkeypatch.setenv(name, value)
     built = []
     monkeypatch.setattr(DecodeEngine, "__init__", lambda *a, **k: built.append(1))
+    monkeypatch.setattr(LongSessionPlanner, "__init__", lambda *a, **k: built.append(1))
     with pytest.raises(ValueError, match=name) as e:
         brain.make_parser_from_env()
-    want = (f"{value!r}: no such directory" if name == "BRAIN_MODEL"
-            else "ROADMAP.md Queue 1 item")
     assert want in str(e.value) and not built
 
 
@@ -207,7 +219,8 @@ def test_env_factory_serves_the_stt_replica_chaos_points(monkeypatch, spec):
     ("RADIX_SESSIONS", "lots"), ("RADIX_MAX_NODES", "1e3"), ("RADIX_PRESSURE_S", "soon"),
     ("TENANT_CLASSES", "gold:4:0.5,free:1:0.1"), ("TENANT_CLASSES", "gold:0"),
     ("COST_SESSIONS", "many"), ("COST_PEAK_TFLOPS", "fast"), ("ENGINE_STALL_S", "thirty"),
-    ("CHAOS_STALL_S", "long"),
+    ("CHAOS_STALL_S", "long"), ("BRAIN_SP", "two"), ("BRAIN_PLANNER_HBM_MB", "2g"),
+    ("BRAIN_PLANNER_PARK_MB", "1.5"),
 ])
 def test_env_factory_refuses_malformed_values(monkeypatch, name, value):
     """A served knob whose value does not parse (the radix and cost knobs,
@@ -356,7 +369,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'utils.tracing', 'utils.quality', 'utils.chaos', 'utils.steplog',\n"
         "          'evals.wer', 'evals.golden', 'distilled', 'utils.envcfg',\n"
         "          'utils.costmodel', 'serve.tenancy', 'serve.stt_batch', 'serve.handoff',\n"
-        "          'ckpt.hf_import', 'grammar.hf_tokenizer'):\n"
+        "          'ckpt.hf_import', 'grammar.hf_tokenizer', 'parallel.ring',\n"
+        "          'parallel.longctx', 'serve.planner'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
         # checkpoint import reads safetensors and tokenizer.json itself
@@ -372,7 +386,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 47 and bad.strip() == "[]"
+    assert int(n) >= 51 and bad.strip() == "[]"
 
 
 # ---------------------------------------------------------------- batched

@@ -29,25 +29,38 @@
 //
 // fp32 queries (the distilled checkpoint, the fp32 twins) run the same body
 // from decode_block_attention_f32.cu, a source of its own so that the two
-// query types compile in parallel (nvcc compiles a source on one core).
+// query types compile in parallel (nvcc compiles a source on one core). An
+// fp32 cache (kv_dtype TVA_DTYPE_F32, fp32 queries only: the long-session
+// planner's cache on fp32 weights, which the ring prefill writes in the
+// activations' type, as JAX's does) runs it from
+// decode_block_attention_f32kv.cu: fp32 keys and values are loaded as they
+// are stored, 4 to a 16-byte load instead of 8.
 #include "decode_split.cuh"
 
-// the fp32-query bodies (decode_block_attention_f32.cu)
+// the fp32-query bodies over a bf16 (decode_block_attention_f32.cu) or an
+// fp32 cache (decode_block_attention_f32kv.cu)
 int tva_decode_rows_f32(bool kvlen, const void* q, const void* kc, const void* vc,
                         const int* qpos, void* o, float* part, int* tickets, int B, int T, int S,
                         int nq, int nkv, int hd, int chunk, float scale, cudaStream_t st);
+int tva_decode_rows_f32kv(bool kvlen, const void* q, const void* kc, const void* vc,
+                          const int* qpos, void* o, float* part, int* tickets, int B, int T,
+                          int S, int nq, int nkv, int hd, int chunk, float scale, cudaStream_t st);
 
 namespace {
 
 template <bool KVLEN>
 int dispatch(const void* q, const void* kc, const void* vc, const int* qpos, void* o, void* part,
              void* tickets, int B, int T, int S, int nq, int nkv, int hd, int chunk, float scale,
-             int dtype, void* stream) {
+             int dtype, int kv_dtype, void* stream) {
   if (bad_split(B, T, S, nq, nkv, chunk, part, tickets) || (KVLEN && T != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* pp = (float*)part;
   int* tk = (int*)tickets;
+  if (dtype == TVA_DTYPE_F32 && kv_dtype == TVA_DTYPE_F32)
+    return tva_decode_rows_f32kv(KVLEN, q, kc, vc, qpos, o, pp, tk, B, T, S, nq, nkv, hd, chunk,
+                                 scale, st);
+  if (kv_dtype != TVA_DTYPE_BF16) return (int)cudaErrorInvalidValue;
   if (dtype == TVA_DTYPE_F32)
     return tva_decode_rows_f32(KVLEN, q, kc, vc, qpos, o, pp, tk, B, T, S, nq, nkv, hd, chunk,
                                scale, st);
@@ -60,8 +73,9 @@ int dispatch(const void* q, const void* kc, const void* vc, const int* qpos, voi
 
 }  // namespace
 
-// K3: q (B,T,nq,hd) bf16 or fp32 (TVA_DTYPE_*), k/v plane (B,S,nkv,hd) bf16 of
-// the layer, q_positions (B,T) int32; o like q. `chunk`: keys a split
+// K3: q (B,T,nq,hd) bf16 or fp32 (TVA_DTYPE_*), k/v plane (B,S,nkv,hd) of the
+// layer, bf16 or (under fp32 queries) fp32 (kv_dtype), q_positions (B,T)
+// int32; o like q. `chunk`: keys a split
 // covers, a multiple of 32, at most 64 splits. `part`: fp32 scratch of
 // B * nkv * (splits + ceil(splits / 8)) * T * (nq / nkv) * (hd + 2) floats;
 // `tickets`: B * nkv * 9 int32 counters, all 0 (the launch leaves them 0).
@@ -69,28 +83,28 @@ extern "C" int tva_decode_block_attention_layer(const void* q, const void* kc, c
                                                 const int* q_positions, void* o, void* part,
                                                 void* tickets, int B, int T, int S, int nq,
                                                 int nkv, int hd, int chunk, float scale,
-                                                int dtype, void* stream) {
+                                                int dtype, int kv_dtype, void* stream) {
   return dispatch<false>(q, kc, vc, q_positions, o, part, tickets, B, T, S, nq, nkv, hd, chunk,
-                         scale, dtype, stream);
+                         scale, dtype, kv_dtype, stream);
 }
 
-// K12: the same over a flat k/v cache (B,S,nkv,hd) bf16.
+// K12: the same over a flat k/v cache (B,S,nkv,hd).
 extern "C" int tva_decode_block_attention(const void* q, const void* kc, const void* vc,
                                           const int* q_positions, void* o, void* part,
                                           void* tickets, int B, int T, int S, int nq, int nkv,
                                           int hd, int chunk, float scale, int dtype,
-                                          void* stream) {
+                                          int kv_dtype, void* stream) {
   return dispatch<false>(q, kc, vc, q_positions, o, part, tickets, B, T, S, nq, nkv, hd, chunk,
-                         scale, dtype, stream);
+                         scale, dtype, kv_dtype, stream);
 }
 
-// K2: q (B,nq,hd) bf16 or fp32, k/v plane (B,S,nkv,hd) bf16 of the layer,
-// kv_len (B,) int32 (query b sees keys [0, kv_len[b])); o like q. `chunk`,
-// `part` and `tickets` as K3's at T = 1.
+// K2: q (B,nq,hd) bf16 or fp32, k/v plane (B,S,nkv,hd) of the layer (kv_dtype
+// as K3's), kv_len (B,) int32 (query b sees keys [0, kv_len[b])); o like q.
+// `chunk`, `part` and `tickets` as K3's at T = 1.
 extern "C" int tva_decode_attention_layer(const void* q, const void* kc, const void* vc,
                                           const int* kv_len, void* o, void* part, void* tickets,
                                           int B, int S, int nq, int nkv, int hd, int chunk,
-                                          float scale, int dtype, void* stream) {
+                                          float scale, int dtype, int kv_dtype, void* stream) {
   return dispatch<true>(q, kc, vc, kv_len, o, part, tickets, B, 1, S, nq, nkv, hd, chunk, scale,
-                        dtype, stream);
+                        dtype, kv_dtype, stream);
 }

@@ -6,6 +6,10 @@
 // k/v (B,S,nkv,hd) in their native layouts, kv head = h / (nq/nkv), scores
 // in fp32, masked entries -1e30 (causal: key > query; any mode: key >=
 // kv_len), running (max, sum, acc) per query row, out = acc / (l or 1).
+// Optionally (``lse`` non-null) each row's log-sum-exp of its scaled scores,
+// m + log(l) in natural log, fp32 (B,T,nq); a row with no visible key
+// (l = 0) gets -inf. With ``o_f32`` the bf16 body writes its output in fp32
+// (the ring merges blocks by their lse and rounds once, at the end).
 //
 // What bounds it on an H100: at the 1024-token prefix prefill (32 q heads,
 // hd 64, causal) the work is ~4.3 GFLOP per layer against ~4 MB of q/k/v/o,
@@ -54,6 +58,7 @@
 // block per (64-query tile, q head, batch row). Its results are bit for bit
 // those the golden recordings and fp32 parting gates were taken with; TF32
 // tensor cores would not hold the fp32 tolerance.
+#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
@@ -69,7 +74,7 @@ constexpr int SUBS = 4;
 template <int HD, typename TI>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
-                       const TI* __restrict__ v, TI* __restrict__ o,
+                       const TI* __restrict__ v, TI* __restrict__ o, float* __restrict__ lse,
                        int T, int S, int nq, int nkv, int kv_len, int causal, float scale) {
   constexpr int QP = HD + 1;  // padded pitch (bank spread)
   constexpr int PP = BK + 1;
@@ -164,18 +169,21 @@ flash_attention_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
     TI* orow = o + ((size_t)(b * T + qpos) * nq + h) * HD;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) tva_st(orow + sub + SUBS * i, acc[i] * inv);
+    if (lse != nullptr && sub == 0)
+      lse[(size_t)(b * T + qpos) * nq + h] = l == 0.f ? -INFINITY : m + logf(l);
   }
 }
 
 template <int HD, typename TI>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int T, int S, int nq,
-           int nkv, int kv_len, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int T, int S,
+           int nq, int nkv, int kv_len, int causal, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
   cudaError_t err = tva_allow_smem(flash_attention_kernel<HD, TI>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + BQ - 1) / BQ, nq, B);
   flash_attention_kernel<HD, TI><<<grid, THREADS, smem, stream>>>(
-      (const TI*)q, (const TI*)k, (const TI*)v, (TI*)o, T, S, nq, nkv, kv_len, causal, scale);
+      (const TI*)q, (const TI*)k, (const TI*)v, (TI*)o, lse, T, S, nq, nkv, kv_len, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -200,8 +208,8 @@ struct Cfg {
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-             bf16* __restrict__ o, int T, int S, int nq, int nkv, int kv_len, int causal,
-             float scale) {
+             void* __restrict__ o, float* __restrict__ lse, int o_f32, int T, int S, int nq,
+             int nkv, int kv_len, int causal, float scale) {
   using C = Cfg<HD>;
   constexpr int P = C::P, ST = C::STAGES;
   constexpr int KSTEPS = HD / 16;  // k16 steps of Q.K^T
@@ -371,25 +379,40 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
     const int qrow = row_lo + hr * 8;
     if (qrow < T) {
       const float inv = 1.f / (l_r[hr] == 0.f ? 1.f : l_r[hr]);
-      bf16* orow = o + ((size_t)(b * T + qrow) * nq + h) * HD + 2 * t4;
+      const size_t off = ((size_t)(b * T + qrow) * nq + h) * HD + 2 * t4;
+      if (o_f32) {
+        float* orow = static_cast<float*>(o) + off;
 #pragma unroll
-      for (int i = 0; i < DT; ++i) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) =
-            __floats2bfloat162_rn(oacc[i][2 * hr] * inv, oacc[i][2 * hr + 1] * inv);
+        for (int i = 0; i < DT; ++i) {
+          *reinterpret_cast<float2*>(orow + i * 8) =
+              make_float2(oacc[i][2 * hr] * inv, oacc[i][2 * hr + 1] * inv);
+        }
+      } else {
+        bf16* orow = static_cast<bf16*>(o) + off;
+#pragma unroll
+        for (int i = 0; i < DT; ++i) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) =
+              __floats2bfloat162_rn(oacc[i][2 * hr] * inv, oacc[i][2 * hr + 1] * inv);
+        }
+      }
+      if (lse != nullptr && t4 == 0) {
+        lse[(size_t)(b * T + qrow) * nq + h] =
+            l_r[hr] == 0.f ? -INFINITY : m_r[hr] + logf(l_r[hr]);
       }
     }
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int T, int S, int nq,
-           int nkv, int kv_len, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int o_f32, int B,
+           int T, int S, int nq, int nkv, int kv_len, int causal, float scale,
+           cudaStream_t stream) {
   cudaError_t err = tva_allow_smem(flash_kernel<HD>, Cfg<HD>::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nq, (T + BQ - 1) / BQ, B);
   flash_kernel<HD><<<grid, THREADS, Cfg<HD>::SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, T, S, nq, nkv, kv_len, causal,
-      scale);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, o, lse, o_f32, T, S, nq, nkv, kv_len,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -397,19 +420,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T, i
 
 }  // namespace
 
-// q (B,T,nq,hd), k/v (B,S,nkv,hd), o like q; all of one dtype (TVA_DTYPE_*).
+// q (B,T,nq,hd), k/v (B,S,nkv,hd), o like q; all of one dtype (TVA_DTYPE_*), except that
+// o_f32 = 1 makes the bf16 path write o in fp32. lse: null, or fp32 (B,T,nq).
 // The bf16 path takes 16-byte-aligned operands (the wrapper checks).
-extern "C" int tva_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                   int T, int S, int nq, int nkv, int hd, int kv_len, int causal,
-                                   float scale, int dtype, void* stream) {
+extern "C" int tva_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int B, int T, int S, int nq, int nkv, int hd,
+                                   int kv_len, int causal, float scale, int dtype, int o_f32,
+                                   void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || nkv <= 0 || nq % nkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == TVA_DTYPE_F32) {
-    TVA_DISPATCH_HD(hd, return launch<HD, float>(q, k, v, o, B, T, S, nq, nkv, kv_len, causal,
-                                                 scale, st));
+    TVA_DISPATCH_HD(hd, return launch<HD, float>(q, k, v, o, lse, B, T, S, nq, nkv, kv_len,
+                                                 causal, scale, st));
   }
   if (dtype != TVA_DTYPE_BF16) return (int)cudaErrorInvalidValue;
-  TVA_DISPATCH_HD(hd, return tc::launch<HD>(q, k, v, o, B, T, S, nq, nkv, kv_len, causal, scale,
-                                            st));
+  TVA_DISPATCH_HD(hd, return tc::launch<HD>(q, k, v, o, lse, o_f32, B, T, S, nq, nkv, kv_len,
+                                            causal, scale, st));
   return (int)cudaErrorInvalidValue;
 }

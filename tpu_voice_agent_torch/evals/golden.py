@@ -4,8 +4,9 @@ Port of the parts of ``tpu_voice_agent/evals/golden.py`` that the KV_QUANT
 tier's accuracy gate and the golden-replay canary need: ``GoldenCase``,
 ``GOLDEN_INTENT_CASES`` (the held-out utterances with their expected intent
 types and argument facts), ``score_case``, ``intent_types`` and
-``kv_quant_differential``. The parser scoring (``score_parser``) and the
-multi-turn dialogs are not ported.
+``kv_quant_differential``; and the multi-turn dialogs, ``GOLDEN_DIALOGS``
+with ``score_parser_dialogs``, which the session-keyed planner backend is
+scored on. The single-turn parser scoring (``score_parser``) is not ported.
 """
 
 from __future__ import annotations
@@ -139,6 +140,86 @@ def score_case(case: GoldenCase, resp: Any) -> tuple[bool, float]:
     held = sum(1 for idx, path, want in case.facts
                if idx < len(intents) and _fact_holds(intents[idx], path, want))
     return type_match, held / len(case.facts)
+
+
+@dataclass(frozen=True)
+class GoldenDialog:
+    """A multi-turn case: earlier turns set up context (a search, a page),
+    the LAST turn is scored."""
+    turns: tuple[str, ...]
+    expected_types: tuple[str, ...]  # for the final turn's plan
+    facts: tuple[tuple[int, str, Any], ...] = ()
+
+
+GOLDEN_DIALOGS: list[GoldenDialog] = [
+    GoldenDialog(
+        ("search for ergonomic drafting stools", "open the second result"),
+        ("click",),
+        facts=((0, "args.index", 2),),
+    ),
+    GoldenDialog(
+        ("find noise cancelling earmuffs", "sort these by price from low to high"),
+        ("sort",),
+        facts=((0, "args.field", "price"), (0, "args.direction", "asc")),
+    ),
+    GoldenDialog(
+        ("search for portable projectors", "open the fourth link"),
+        ("click",),
+        facts=((0, "args.index", 4),),
+    ),
+    GoldenDialog(
+        ("search for suede messenger bags", "take a screenshot of this page"),
+        ("screenshot",),
+    ),
+    GoldenDialog(
+        ("find budget camcorders", "open the first result and scroll down"),
+        ("click", "scroll"),
+        facts=((0, "args.index", 1), (1, "args.direction", "down")),
+    ),
+    GoldenDialog(
+        ("search for copper tea kettles",
+         "sort by rating high to low",
+         "extract the table as csv"),
+        ("extract_table",),
+        facts=((0, "args.format", "csv"),),
+    ),
+]
+
+
+def score_parser_dialogs(parser, dialogs: list[GoldenDialog] | None = None,
+                         session: bool = False) -> dict:
+    """Run each dialog's turns in order and score the FINAL turn.
+
+    ``session=False`` threads context as the voice service does for a
+    stateless parser (each turn's ``context_updates`` merge into the next
+    turn's context); ``session=True`` passes a per-dialog ``session_id``
+    (``golden-dlg-<i>``) so a session-keyed parser carries its own
+    transcript. A dialog whose turn raises counts as an error."""
+    dialogs = dialogs if dialogs is not None else GOLDEN_DIALOGS
+    type_hits = 0
+    args_total = 0.0
+    errors = 0
+    for di, dlg in enumerate(dialogs):
+        ctx: dict = {}
+        resp = None
+        try:
+            for turn in dlg.turns:
+                if session:
+                    resp = parser.parse(turn, {}, session_id=f"golden-dlg-{di}")
+                else:
+                    resp = parser.parse(turn, dict(ctx))
+                    ctx.update((resp.get("context_updates") if isinstance(resp, dict)
+                                else getattr(resp, "context_updates", None)) or {})
+        except Exception:  # noqa: BLE001 - a failed dialog is scored as an error
+            errors += 1
+            continue
+        tm, ascore = score_case(GoldenCase(dlg.turns[-1], dlg.expected_types,
+                                           facts=dlg.facts), resp)
+        type_hits += int(tm)
+        args_total += ascore
+    n = len(dialogs)
+    return {"dialogs": n, "errors": errors,
+            "type_accuracy": type_hits / n, "args_score": args_total / n}
 
 
 # ------------------------------------------------------ quantized-KV tiers

@@ -27,11 +27,13 @@ from pathlib import Path
 from .. import PACKAGE_DIR, cache_dir
 
 CSRC = PACKAGE_DIR / "csrc"
-# one nvcc process a source, all started together: the two halves of K2 /
-# K3 / K12 (bf16 and fp32 queries) and of K8 / K9 (the int8 and int4 pools)
+# one nvcc process a source, all started together: the three parts of K2 /
+# K3 / K12 (bf16 queries, fp32 queries, fp32 queries over an fp32 cache) and
+# the two halves of K8 / K9 (the int8 and int4 pools)
 # are sources of their own, the library's longest compiles otherwise
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "decode_block_attention.cu",
-           "decode_block_attention_f32.cu", "paged_attention.cu", "grammar_mask.cu",
+           "decode_block_attention_f32.cu", "decode_block_attention_f32kv.cu",
+           "paged_attention.cu", "grammar_mask.cu",
            "paged_attention_quant.cu", "paged_attention_quant_int4.cu",
            "decode_attention_quant.cu", "grouped_matmul.cu")
 HEADERS = ("common.cuh", "kv_chunk.cuh", "split_merge.cuh", "decode_split.cuh",
@@ -129,20 +131,22 @@ def build(verbose: bool = False) -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        # q, k, v, o, B, T, S, nq, nkv, hd, kv_len, causal, scale, dtype, stream
-        "tva_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P],
+        # q, k, v, o, lse (or null), B, T, S, nq, nkv, hd, kv_len, causal, scale, dtype,
+        # o_f32, stream
+        "tva_flash_attention": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, P],
         # q, k cache, v cache, kv_len, o, partials, tickets, B, S, nq, nkv, hd, chunk,
         # key_sets, scale, dtype, stream
         "tva_decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
         # q, k plane, v plane, kv_len, o, partials, tickets, B, S, nq, nkv, hd, chunk, scale,
-        # dtype, stream
-        "tva_decode_attention_layer": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+        # dtype, kv_dtype, stream
+        "tva_decode_attention_layer": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P],
         # q, k plane, v plane, q_positions, o, partials, tickets, B, T, S, nq, nkv, hd, chunk,
-        # scale, dtype, stream
-        "tva_decode_block_attention_layer": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
+        # scale, dtype, kv_dtype, stream
+        "tva_decode_block_attention_layer": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
+                                             P],
         # q, flat k cache, flat v cache, q_positions, o, partials, tickets, B, T, S, nq, nkv,
-        # hd, chunk, scale, dtype, stream
-        "tva_decode_block_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
+        # hd, chunk, scale, dtype, kv_dtype, stream
+        "tva_decode_block_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, P],
         # q, k plane, v plane, table, kv_len, o, partials, tickets, B, max_blocks, bs, nq,
         # nkv, hd, chunk, scale, dtype, stream
         "tva_paged_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],

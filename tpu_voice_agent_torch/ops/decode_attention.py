@@ -15,7 +15,8 @@ Pallas tile size ``block_k`` and ``interpret`` dropped).
   S needs no padding to a tile multiple; a row with kv_len 0 gets zeros.
   K2's split body on the flat cache; at a group of at most 2 (Whisper's
   is 1) warp sets take key tiles side by side (``key_sets``).
-- K2 (T = 1) on the stacked ``(L, B, S, nkv, hd)`` bf16 cache: the same on
+- K2 (T = 1) on the stacked ``(L, B, S, nkv, hd)`` cache, bf16 (or fp32
+  under fp32 queries: the planner's cache on fp32 weights): the same on
   layer plane ``layer``, a Python int (``k_cache[layer]`` is a free
   contiguous view, so the kernel gets that plane's pointer). K3's split body
   at T = 1, reading ``kv_len`` itself: one launch a layer.
@@ -28,7 +29,7 @@ Pallas tile size ``block_k`` and ``interpret`` dropped).
   it the device's fp32 scratch (``_lib.scratch``, grown on demand) and
   ticket counters (``_lib.tickets``, which the kernel leaves at 0), so a
   call allocates nothing beyond its output.
-- K12 (T <= 16) on a flat ``(B, S, nkv, hd)`` bf16 cache: K3's function and
+- K12 (T <= 16) on a flat ``(B, S, nkv, hd)`` cache (K3's dtypes): K3's function and
   body on one cache, as the JAX package's ``decode_block_attention`` (which
   only its tests call; no engine here calls it either).
 - K10 (T = 1, a flat ``(B, S, nkv, hdp)`` int8 cache with ``(B, S, nkv)``
@@ -177,7 +178,7 @@ def _split_scratch(name, q, k_plane, v_plane, B, T, S, nq, nkv, hd):
 
 
 def _block_attention(name, entry, q, k_plane, v_plane, q_positions, S, nkv, scale):
-    """Launch K3 or K12 on one (B, S, nkv, hd) bf16 plane."""
+    """Launch K3 or K12 on one (B, S, nkv, hd) plane."""
     B, T, nq, hd = q.shape
     require_cuda(name, q_positions)
     require(1 <= T <= MAX_BLOCK_T, name, f"block of {T} queries (max {MAX_BLOCK_T})")
@@ -187,15 +188,19 @@ def _block_attention(name, entry, q, k_plane, v_plane, q_positions, S, nkv, scal
     out = torch.empty_like(q)
     err = entry(q.data_ptr(), k_plane.data_ptr(), v_plane.data_ptr(), q_positions.data_ptr(),
                 out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, T, S, nq, nkv, hd, chunk,
-                float(scale), dtype_code(name, q), stream_of(q))
+                float(scale), dtype_code(name, q), dtype_code(name, k_plane, "cache"),
+                stream_of(q))
     check(err, name)
     return out
 
 
 def _check_common(name, q, k_cache, v_cache, layer, nq, hd):
+    """K2 / K3 / K12's operands: a bf16 cache, or an fp32 one under fp32
+    queries (the planner's cache on fp32 weights)."""
     require_cuda(name, q, k_cache, v_cache)
-    require(k_cache.dtype == v_cache.dtype == torch.bfloat16, name,
-            "the cache must be bfloat16")
+    require(k_cache.dtype == v_cache.dtype and (
+        k_cache.dtype == torch.bfloat16 or k_cache.dtype == q.dtype == torch.float32), name,
+        "the cache must be bfloat16, or float32 under float32 queries")
     require(k_cache.dim() == 5 and k_cache.shape == v_cache.shape, name,
             f"cache must be (L, B, S, nkv, hd), got {tuple(k_cache.shape)}")
     L, B, S, nkv, khd = k_cache.shape
@@ -273,7 +278,7 @@ def decode_attention_layer(
     err = library().tva_decode_attention_layer(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         part.data_ptr(), counters.data_ptr(), B, S, nq, nkv, hd, chunk, float(scale),
-        dtype_code(name, q), stream_of(q))
+        dtype_code(name, q), dtype_code(name, kp, "cache"), stream_of(q))
     check(err, name)
     decode_attention_layer.launches += 1
     return out

@@ -1,6 +1,6 @@
 """Brain service: text + context -> validated intent plan.
 
-Port of the rule and engine paths of ``tpu_voice_agent/services/brain.py``.
+Port of ``tpu_voice_agent/services/brain.py`` but its pp / tp backend.
 ``POST /parse`` takes ``{text, session_id?, context, speculative?}`` and
 answers with the ParseResponse dict (every default field filled, as
 pydantic's ``model_dump()`` fills it); errors come back as
@@ -27,10 +27,10 @@ request's deadline into the scheduler (shed at dequeue, evicted between
 chunks), and a client that closes its socket mid-parse has its decode
 cancelled at the next chunk boundary (``brain.parses_cancelled``): the
 handler watches the socket while it waits. A session-aware parser (paged
-engine with ``RADIX_ENABLE=1``) receives ``session_id`` and
-``speculative``. ``GET /health`` reports the backend, its device, the SLO
-verdict, the ``quality`` block, the in-flight count and cap, the quarantine
-list and the last step-ledger entry. Every parse records a ``parse`` span
+engine with ``RADIX_ENABLE=1``, or the long-session ``PlannerParser``)
+receives ``session_id`` and ``speculative``. ``GET /health`` reports the
+backend, its device, the SLO verdict, the ``quality`` block, the in-flight
+count and cap, the quarantine list and the last step-ledger entry. Every parse records a ``parse`` span
 (``Tracer("brain")``) carrying the decode split and the intent confidence
 as stage notes, an SLO sample and a quality record; a response from an engine backend carries
 ``x-intent-margin`` beside the decode headers. ``GET /metrics`` (JSON, or
@@ -64,8 +64,10 @@ library's ``ThreadingHTTPServer``.
 
 Environment (the JAX service's names): ``BRAIN_BACKEND`` (``rule``, the
 default: ``RuleBasedParser``, no model and no device; ``distilled[:<dir>]``,
-the in-repo trained checkpoint; or ``engine[:preset]``, preset default
-``tinyllama-1.1b``), ``BRAIN_QUANT`` (``int8``), ``BRAIN_FF``
+the in-repo trained checkpoint; ``engine[:preset]``, preset default
+``tinyllama-1.1b``; or the long-session planner, ``planner[:preset]`` and
+``planner-distilled[:<dir>]``, with ``BRAIN_SP``, ``BRAIN_PLANNER_HBM_MB``
+and ``BRAIN_PLANNER_PARK_MB``), ``BRAIN_QUANT`` (``int8``), ``BRAIN_FF``
 (fast-forward width, default 8), ``BRAIN_PREFIX`` (``0`` skips the cached
 prompt prefix), ``BRAIN_PORT`` (default 8090), ``BRAIN_BATCH`` (slots,
 default 1), ``BRAIN_PAGED`` (``1``: the paged KV pool), ``BRAIN_POOL_BLOCKS``
@@ -1020,6 +1022,280 @@ class BatchedEngineParser:
         self.loop.stop()
 
 
+class _PlanGather:
+    """Batches concurrent plan decodes onto one ``plan_many`` dispatch
+    (JAX's ``_PlanGather``): one worker thread drains whatever is queued,
+    groups it by token budget (co-batching under min() would clip the
+    larger ask) and decodes each group in one batched loop. It is the only
+    caller of the planner's RNG-bearing decode path."""
+
+    def __init__(self, planner, max_batch: int = 8):
+        self.planner = planner
+        self.max_batch = max_batch
+        self._q: queue.Queue = queue.Queue()
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="planner-gather")
+        self._thread.start()
+
+    def plan(self, sess, max_new_tokens: int):
+        fut: Future = Future()
+        self._q.put((sess, max_new_tokens, fut))
+        return fut.result()
+
+    def healthy(self) -> bool:
+        return self._thread.is_alive()
+
+    def _loop(self) -> None:
+        plog = logging.getLogger("tpu_voice_agent_torch.planner")
+        while True:
+            batch = [self._q.get()]
+            while len(batch) < self.max_batch:
+                try:
+                    batch.append(self._q.get_nowait())
+                except queue.Empty:
+                    break
+            groups: dict[int, list] = {}
+            for b in batch:
+                groups.setdefault(b[1], []).append(b)
+            for max_new, group in groups.items():
+                try:
+                    outs = self.planner.plan_many([b[0] for b in group],
+                                                  max_new_tokens=max_new)
+                except Exception as e:  # noqa: BLE001 - every waiter gets the fault
+                    plog.exception("batched plan decode failed")
+                    for _, _, fut in group:
+                        fut.set_exception(e)
+                    continue
+                for (_, _, fut), out in zip(group, outs):
+                    fut.set_result(out)
+
+
+class PlannerParser:
+    """The long-session planner behind /parse (``BRAIN_BACKEND=planner[:preset]``
+    and ``planner-distilled[:<dir>]``), JAX's ``PlannerParser``: each
+    session keeps its FULL transcript as model context, new turns append
+    with a cached prefill of the new tokens, and a transcript that outgrows
+    its bucket re-anchors through the ring prefill.
+
+    Turns serialize per session (a per-session lock) while different
+    sessions run concurrently, their plan decodes batched by ``_PlanGather``.
+    Eviction is LRU by count (``max_sessions``) and by KV bytes
+    (``BRAIN_PLANNER_HBM_MB``, default 2048); an evicted session parks its
+    cache in host memory (``BRAIN_PLANNER_PARK_MB``, default 4096; 0 drops
+    instead) and resumes with one upload. A speculative turn is two-phase:
+    it runs and keeps an undo snapshot; the matching final (same text and
+    context) commits it with no decode, anything else rolls it back."""
+
+    wants_session = True  # BrainApp passes session_id and speculative through
+    concurrent_safe = True  # BrainApp skips the global serialization lock
+    supports_speculation = True
+    max_sessions = 32
+
+    def __init__(self, planner, max_new_tokens: int | None = None,
+                 hbm_budget_bytes: int | None = None, render=None):
+        self.planner = planner
+        # the session-start prompt: the few-shot prompt, or a distilled
+        # checkpoint's short one
+        self.render = render or render_prompt
+        # never past the planner's reserved headroom past the transcript
+        self.max_new_tokens = min(max_new_tokens or planner.max_new_tokens,
+                                  planner.max_new_tokens)
+        if hbm_budget_bytes is None:
+            hbm_budget_bytes = int(os.environ.get("BRAIN_PLANNER_HBM_MB", "2048")) * (1 << 20)
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self.park_budget_bytes = int(os.environ.get("BRAIN_PLANNER_PARK_MB", "4096")) * (1 << 20)
+        self._sessions: OrderedDict = OrderedDict()
+        self._parked: OrderedDict = OrderedDict()  # host memory
+        self._busy: set[str] = set()  # sessions mid-turn: never evicted
+        self._session_locks: dict[str, threading.Lock] = {}
+        self._registry = threading.Lock()  # guards the maps above
+        self._gather = _PlanGather(planner)
+
+    def _checkout(self, session_id: str | None):
+        """Claim a session for one turn, or (None, None) for a one-shot
+        parse: never a shared default key for anonymous requests."""
+        if not session_id:
+            return None, None
+        while True:
+            with self._registry:
+                lock = self._session_locks.setdefault(session_id, threading.Lock())
+            lock.acquire()
+            with self._registry:
+                # the prune may have replaced this id's lock between the
+                # setdefault and the acquire: retry on the current object
+                if self._session_locks.get(session_id) is lock:
+                    sess = self._sessions.pop(session_id, None)
+                    if sess is None:
+                        sess = self._parked.pop(session_id, None)
+                    self._busy.add(session_id)
+                    break
+            lock.release()
+        if sess is not None:
+            try:
+                self.planner.unpark(sess)  # a no-op for a live session
+            except Exception:  # noqa: BLE001 - a failed upload cold-starts the turn
+                logging.getLogger("tpu_voice_agent_torch.planner").warning(
+                    "unpark failed for session %s; cold-starting", session_id, exc_info=True)
+                sess = None
+        return sess, lock
+
+    def _checkin(self, session_id: str | None, lock, sess) -> None:
+        if lock is None:
+            return
+        # the per-session lock is released whatever park() raises: a leaked
+        # lock would deadlock every later turn of this session
+        try:
+            with self._registry:
+                self._busy.discard(session_id)
+                if sess is not None:
+                    self._sessions[session_id] = sess
+                victims = self._evict_locked()
+            # park outside the registry lock: a large cache's copy to host
+            # would stall every other session's checkout and /health
+            parked_now = []
+            for vid, vsess in victims:
+                try:
+                    self.planner.park(vsess)
+                except Exception:  # noqa: BLE001 - best effort: the victim cold-starts
+                    logging.getLogger("tpu_voice_agent_torch.planner").warning(
+                        "park failed for evicted session %s; dropping (will cold-start on "
+                        "its next turn)", vid, exc_info=True)
+                    get_metrics().inc("planner.sessions_park_failed")
+                    continue
+                get_metrics().inc("planner.sessions_parked")
+                parked_now.append((vid, vsess))
+            if parked_now:
+                with self._registry:
+                    for vid, vsess in parked_now:
+                        # a checkout cold-started this id while it parked:
+                        # the parked copy is stale
+                        if vid not in self._busy and vid not in self._sessions:
+                            self._parked[vid] = vsess
+                    self._drop_parked_overflow_locked()
+        finally:
+            lock.release()
+
+    def _evict_locked(self) -> list[tuple[str, object]]:
+        """LRU eviction by count and by total KV bytes, skipping sessions
+        mid-turn. Returns the victims to park (the caller copies them out
+        of the registry lock); one bigger than the whole park budget is
+        dropped at once."""
+
+        def total_bytes():
+            return sum(self.planner.session_bytes(s) for s in self._sessions.values())
+
+        victims: list[tuple[str, object]] = []
+        while len(self._sessions) > self.max_sessions or (
+                total_bytes() > self.hbm_budget_bytes and len(self._sessions) > 1):
+            victim = next((k for k in self._sessions if k not in self._busy), None)
+            if victim is None:
+                break  # everything live is mid-turn
+            sess = self._sessions.pop(victim)
+            pend = getattr(sess, "pending_spec", None)
+            if pend is not None:
+                # evicted mid-speculation: undo the provisional turn first
+                sess.pending_spec = None
+                if pend["snap"] is None:
+                    # the session exists only speculatively: drop it whole
+                    get_metrics().inc("planner.sessions_evicted")
+                    continue
+                self._restore(sess, pend["snap"])
+            get_metrics().inc("planner.sessions_evicted")
+            nbytes = self.planner.session_bytes(sess)
+            if 0 < nbytes <= self.park_budget_bytes or (
+                    self.park_budget_bytes > 0 and nbytes == 0):
+                victims.append((victim, sess))
+        # prune the locks of dead sessions (never a held one: a waiter must
+        # reuse the same object when it wakes)
+        pending = {vid for vid, _ in victims}
+        for k in list(self._session_locks):
+            if (k not in self._sessions and k not in self._parked and k not in self._busy
+                    and k not in pending and not self._session_locks[k].locked()):
+                del self._session_locks[k]
+        return victims
+
+    def _drop_parked_overflow_locked(self) -> None:
+        """The oldest parked sessions drop entirely past the host budget."""
+        while self._parked and sum(self.planner.parked_bytes(s)
+                                   for s in self._parked.values()) > self.park_budget_bytes:
+            self._parked.popitem(last=False)
+            get_metrics().inc("planner.sessions_dropped")
+
+    # Speculative turns: the snapshot is a host-side copy of the session's
+    # fields. The cache object it holds stays valid: extend writes in place
+    # only at slots past the snapshot's pos, which attention masks out, and
+    # a re-anchor or a batched plan gives the session a new cache object.
+
+    @staticmethod
+    def _snapshot(sess) -> tuple:
+        return (list(sess.ids), sess.cache, sess.pos, sess.last_logits, sess.anchors)
+
+    @staticmethod
+    def _restore(sess, snap) -> None:
+        sess.ids, sess.cache, sess.pos, sess.last_logits, sess.anchors = (
+            list(snap[0]), snap[1], snap[2], snap[3], snap[4])
+
+    def parse(self, text: str, context: dict, session_id: str | None = None,
+              speculative: bool = False) -> dict:
+        user = json.dumps({"text": text, "context": context}, separators=(",", ":"))
+        sess, lock = self._checkout(session_id)
+        keep = None
+        try:
+            pend = getattr(sess, "pending_spec", None) if sess is not None else None
+            if pend is not None:
+                sess.pending_spec = None
+                if not speculative and pend["user"] == user:
+                    # commit: the speculative turn is this turn (same text
+                    # and context); the session already carries it
+                    get_metrics().inc("planner.spec_commits")
+                    keep = sess
+                    return pend["resp"]
+                get_metrics().inc("planner.spec_rollbacks")
+                if pend["snap"] is None:
+                    sess = None  # the session existed only speculatively
+                else:
+                    self._restore(sess, pend["snap"])
+            snap = self._snapshot(sess) if (speculative and sess is not None) else None
+
+            def fail(kind: str, detail: str, cause=None):
+                # a failed speculative turn restores its snapshot and keeps
+                # the session; a failed real turn drops it (its transcript
+                # may end in half-JSON)
+                nonlocal keep
+                if speculative and snap is not None:
+                    self._restore(sess, snap)
+                    keep = sess
+                raise ParserError(kind, detail) from cause
+
+            try:
+                if sess is None:
+                    sess = self.planner.start(self.render(text, context))
+                else:
+                    self.planner.extend(sess, f"\n<|user|>\n{user}\n<|assistant|>\n")
+                out_text, _ = self._gather.plan(sess, self.max_new_tokens)
+            except ValueError as e:
+                fail("llm_error", str(e), e)
+            model, err = parse_response_from_json(out_text)
+            if model is None:
+                fail("schema_validation_failed", err or "invalid")  # truncated
+            if speculative and session_id is not None:
+                sess.pending_spec = {"user": user, "resp": model, "snap": snap}
+            keep = sess
+            return model
+        finally:
+            self._checkin(session_id, lock, keep)
+
+    def healthy(self) -> bool:
+        return self._gather.healthy()
+
+    def session_count(self) -> int:
+        with self._registry:
+            return len(self._sessions)
+
+    def session_hbm_bytes(self) -> int:
+        with self._registry:
+            return sum(self.planner.session_bytes(s) for s in self._sessions.values())
+
+
 class RuleBasedParser:
     """Deterministic heuristic parser: the service's default backend (no
     model, no device), and its test fake.
@@ -1130,7 +1406,8 @@ def _wrap_engine(engine):
 # port checks them at boot, whatever the backend.
 PARSED_KNOBS = {"RADIX_SESSIONS": int, "RADIX_MAX_NODES": int, "RADIX_PRESSURE_S": float,
                 "COST_SESSIONS": int, "COST_PEAK_TFLOPS": float, "COST_PEAK_GBPS": float,
-                "ENGINE_STALL_S": float, "CHAOS_STALL_S": float}
+                "ENGINE_STALL_S": float, "CHAOS_STALL_S": float, "BRAIN_SP": int,
+                "BRAIN_PLANNER_HBM_MB": int, "BRAIN_PLANNER_PARK_MB": int}
 
 
 def check_unserved_knobs() -> None:
@@ -1164,13 +1441,16 @@ DISTILLED_IGNORED = ("BRAIN_FF", "BRAIN_BATCH", "BRAIN_PREFIX", "KV_QUANT", "RAD
 
 def make_parser_from_env():
     """``BRAIN_MODEL=<dir>`` (an HF checkpoint directory: ``DecodeEngine.from_hf``,
-    or ``PagedDecodeEngine.from_hf`` under ``BRAIN_PAGED=1``) overrides the
-    backend, as in JAX. Otherwise
+    or ``PagedDecodeEngine.from_hf`` at ff 0 under ``BRAIN_PAGED=1``, a set
+    ``BRAIN_FF`` logged as ignored) overrides the backend, as in JAX.
+    Otherwise
     ``BRAIN_BACKEND=rule`` (the default: ``RuleBasedParser``, no model, no
     device), ``distilled[:<dir>]`` (``distilled.parser_from_env``: the
     in-repo trained checkpoint, ``SPEC_ENABLE`` passed through) or
     ``engine[:preset]`` (preset default ``tinyllama-1.1b``) with
-    ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``; ``BRAIN_BATCH`` slots
+    ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``, or
+    ``planner[:preset]`` / ``planner-distilled[:<dir>]``
+    (``planner_from_env``); ``BRAIN_BATCH`` slots
     behind the continuous batcher; ``BRAIN_PAGED=1`` the paged pool
     (``BRAIN_POOL_BLOCKS``), with ``RADIX_ENABLE=1`` session KV reuse and
     ``KV_QUANT=int8|int4`` the quantized pool (both read at engine
@@ -1200,14 +1480,14 @@ def make_parser_from_env():
 
         moe_impl = "grouped" if moe else None
         if paged:
-            # JAX's branch builds this engine without BRAIN_FF (ff 0) while
-            # its BRAIN_FF contract says the paged engine serves ff; the
-            # port passes BRAIN_FF, as its preset branch does (BRAIN_FF=0
-            # is JAX's engine)
+            # JAX builds this engine at ff 0, whatever BRAIN_FF says
+            if os.environ.get("BRAIN_FF", "").strip():
+                log.warning("BRAIN_FF is ignored by the paged BRAIN_MODEL engine (ff 0, as in "
+                            "the JAX service)")
             pool = int(os.environ.get("BRAIN_POOL_BLOCKS", "0")) or None
             return _wrap_batched(PagedDecodeEngine.from_hf(
                 model_dir, quant=quant, batch_slots=max(slots, 1), moe_impl=moe_impl,
-                pool_blocks=pool, fast_forward=ff, spec=spec, device=device))
+                pool_blocks=pool, spec=spec, device=device))
         return _wrap_engine(DecodeEngine.from_hf(model_dir, quant=quant, batch_slots=slots,
                                                  fast_forward=ff, moe_impl=moe_impl, spec=spec,
                                                  device=device))
@@ -1229,10 +1509,17 @@ def make_parser_from_env():
                 log.warning("%s is ignored by the distilled backend (as in the JAX service)",
                             name)
         return parser_from_env(backend, device=device, spec=spec)
+    if backend.startswith("planner"):
+        for name, val in (("BRAIN_PAGED", paged), ("BRAIN_QUANT", quant), ("BRAIN_MOE", moe),
+                          ("SPEC_ENABLE", spec)):
+            if val:  # JAX's own warnings
+                log.warning("%s is not supported by the %s backend; ignoring", name,
+                            backend.split(":", 1)[0])
+        return planner_from_env(backend, device)
     if not backend.startswith("engine"):
         raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported yet (the port serves rule, "
-                         "distilled and engine[:preset]; the planner, pp / tp / sp layouts "
-                         "and planner-distilled are ROADMAP.md Queue 1 item 8)")
+                         "distilled, engine[:preset], planner[:preset] and planner-distilled; "
+                         "the pp / tp layouts are ROADMAP.md Queue 1 item 8)")
     from ..models.llama import PRESETS
     from ..serve.engine import DecodeEngine
     from ..serve.paged import PagedDecodeEngine
@@ -1247,6 +1534,51 @@ def make_parser_from_env():
         return _wrap_batched(PagedDecodeEngine(batch_slots=max(slots, 1), pool_blocks=pool,
                                                **kw))
     return _wrap_engine(DecodeEngine(batch_slots=slots, **kw))
+
+
+def planner_from_env(backend: str, device=None) -> PlannerParser:
+    """``BRAIN_BACKEND=planner[:preset]`` (preset default ``tinyllama-1.1b``,
+    random weights) or ``planner-distilled[:<dir>]`` (the in-repo trained
+    checkpoint with its short prompt, buckets 512 / 1024 / 2048, ff off: JAX
+    measured every golden dialog truncating under ff 8). ``BRAIN_SP`` sizes
+    the sp mesh, by default every device of the brain's type (each visible
+    card; 1 under ``BRAIN_DEVICE=cpu``); more than there are raises naming
+    it. A ``planner-distilled:`` directory other than ``intent-tiny-distilled``
+    is refused, as ``distilled:`` is."""
+    import torch
+
+    from .. import distilled
+    from ..models.llama import PRESETS
+    from ..parallel.ring import sp_mesh
+    from ..serve.engine import resolve_device
+    from ..serve.planner import LongSessionPlanner
+
+    kind, _, arg = backend.partition(":")
+    if kind not in ("planner", "planner-distilled"):
+        raise ValueError(f"unknown BRAIN_BACKEND {backend!r}")
+    if kind == "planner-distilled" and arg and os.path.basename(
+            arg.rstrip("/")) != distilled.INTENT_CKPT:
+        raise ValueError(f"BRAIN_BACKEND={backend!r}: the port carries only "
+                         f"{distilled.INTENT_CKPT} (the orbax reader comes with the training "
+                         "part of ROADMAP.md Queue 1 item 8)")
+    preset = arg or "tinyllama-1.1b"
+    if kind == "planner" and preset not in PRESETS:
+        raise ValueError(f"BRAIN_BACKEND {backend!r}: unknown preset {preset!r}")
+    dev = resolve_device(device)
+    devices = ([dev] if dev.type == "cpu"
+               else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    sp = int(os.environ.get("BRAIN_SP", "0") or "0") or len(devices)
+    try:
+        mesh = sp_mesh(sp, devices)
+    except ValueError as e:
+        raise ValueError(f"BRAIN_SP={sp}: {e}") from e
+    if kind == "planner":
+        return PlannerParser(LongSessionPlanner(preset=preset, mesh=mesh))
+    cfg, params = distilled.load_distilled(device=mesh[0])
+    planner = LongSessionPlanner(cfg=cfg, mesh=mesh, ctx_buckets=(512, 1024, 2048),
+                                 init_weights=False)
+    planner.load_params(params)
+    return PlannerParser(planner, render=distilled.distilled_prompt)
 
 
 # ---------------------------------------------------------------- app
