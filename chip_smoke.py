@@ -42,7 +42,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
               2 of the 5 utterances 200 with intents that parse (K1, K3), its
               int8 tree equal to quantize_params of the seeded tree and its
               tokens to an engine given the tokenizer and the tree (bf16)
-              and, in an fp32 twin, from_hf's to the tree's; a BRAIN_PAGED=1
+              and, in an fp32 twin (HF_TWIN_NEW_TOKENS), from_hf's to the
+              tree's; a BRAIN_PAGED=1
               BRAIN_BATCH=32 brain's 32-session drain, all in the grammar
               (at ff 0, as JAX builds it: K6); the whisper-hf voice
               service's paced utterance (K1, K5),
@@ -230,6 +231,29 @@ Phases, in order (any failure exits nonzero and prints no result line):
               and answering two turns of one session (200 or a 422
               truncation); BRAIN_SP past the cards refused at boot, naming
               it. K1, K2 and K4 must launch.
+11i. parallel - the dp x tp mesh and the pp x tp pipeline
+              (``parallel/``, ``serve/pp_engine.py``) on meshes of four
+              devices that are all the one card ([cuda:0] x 4), at
+              tinyllama-1.1b's width int8 on the first 8 of the service
+              phase's 22 layers: each
+              sharded wrapper (K1, K2, K3, K5, K4, K11) against its plain
+              version, K1 / K2 / K3 also timed at a tp-2 shard's shape (the
+              ``tp2_shard`` shape of their rows); the dense engine on a
+              dp 2 x tp 2 mesh (4 slots, the vocab padded to 620, the
+              cached prefix: 8 x 2 K1 launches) serving the five typed
+              commands (32 new tokens) at ff 8 (K3: exactly 8 x 4 a
+              forward; K4 per dp shard) against the unmeshed engine, spec
+              k = 4 on the same mesh (K3, K11 per shard) against its ff 0
+              (K2: 8 x 4 a forward); ``PPDecodeEngine`` at pp 2 x tp 2
+              (int8, ff 0, the cached prefix) against the unmeshed ff 0
+              engine; bf16 streams equal or parted within 32 bf16 ulps of
+              the plain forward's top-2 margin, twins with fp32 activations
+              within one; parse walls, tok/s and one 4-step chunk's device
+              idle share at 2 x 2 against 1 x 1. Then BRAIN_BACKEND=pp
+              through the brain service at its one-card defaults (pp 1 x
+              tp 1, ff 0) answering /parse (200, or a 422 truncation) and
+              /health, and the refusals: BRAIN_PP=2 on one card, a paged
+              engine on a mesh.
 11c. service_batched - a second in-process brain with BRAIN_BATCH=8
               BRAIN_PAGED=1 RADIX_ENABLE=1 answering 8 concurrent /parse.
 12. golden  - the distilled intent checkpoint parses the golden utterances and
@@ -246,7 +270,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               self-draft, which must accept > 0.9 at > 2 tokens a forward.
 16. stt     - SpeechEngine("whisper-large-v3", frame_buckets=(300, 1000),
               max_new_tokens=32), bf16 random weights: per bucket the
-              transcribe p50 over 3 runs split into encode and decode ms,
+              transcribe wall of 1 run split into encode and decode ms,
               tokens and forwards; one incremental feed + decode; the first
               decoder step through K5 held against the same step through its
               plain version (fp32 copies of the weights). K1 and K5 must
@@ -259,7 +283,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               ff=8 parse colocated on the card, 3 utterances; K1, K3, K4 and
               K5 must launch. Then bench.py's --neural loop
               (``voicebench.run_neural_voice_bench``): the distilled parser
-              and whisper-tiny-heldout, 5 runs over five eval texts, p50 /
+              and whisper-tiny-heldout, 3 runs over five eval texts, p50 /
               p95 and each run's WER (K1, K2, K4, K5).
 18. voice_service - the port's voice WS service (``services/voice.py``)
               driven through its own client (``services/ws.py``): the
@@ -297,8 +321,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
               a final) each against the B = 1 path (transcribe, or an
               IncrementalState fed the same audio): equal tokens, or a
               parting within 32 bf16 ulps of the B = 1 decoder's top-2
-              margin; on fp32 copies of the weights within one (K1, K5 at
-              B = 4 with ragged kv_len). Then the voice service's paced
+              margin; on fp32 copies of the weights, round 2's 4 items,
+              within one (K1, K5 at B = 4 with ragged kv_len). Then the
+              voice service's paced
               utterance behind the rule brain and a stub executor on the
               batched plane on 3 connections at once (each the same
               audio: a one-connection run repeated it, so it went): the drain
@@ -316,7 +341,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
               package's recorded token ids, through K1 and K5.
 20. moe     - the MoE decoder, last (its engines take 46 GB each): the
               mixtral-test engine in fp32 on one weight set, grouped (K13) on
-              the card against dense on the card and grouped on the CPU, 8
+              the card against dense on the card and grouped on the CPU, 4
               prompts token-identical or parted at a near tie; then
               BRAIN_BACKEND=engine:mixtral-8x7b BRAIN_QUANT=int8 behind
               BrainApp, BRAIN_MOE=grouped and then dense: 2 /parse (dense:
@@ -2526,13 +2551,13 @@ def _to_float(tree):
 # transcribes timed per bucket, few for the script's time limit: the B = 1
 # transcribe is timed again by the voice loop and by stt_batch's 11-item
 # reference
-STT_WALL_RUNS = 2
+STT_WALL_RUNS = 1  # a depth the script's time limit sets
 
 
 def phase_stt(totals: dict, report: dict):
     """whisper-large-v3 as bench.py builds it (buckets 300 and 1000, 32 new
     tokens, random bf16 weights, the in-tree 619-token vocabulary) on the
-    card: per bucket the transcribe p50 over 5 runs, split into encode (to
+    card: per bucket the transcribe p50 over STT_WALL_RUNS runs, split into encode (to
     the encoder's completion) and decode ms, with tokens and forwards; one
     incremental feed + decode; the first decoder step through K5 held
     against the same step through K5's plain version (fp32 weights)."""
@@ -2674,8 +2699,8 @@ def phase_stt_golden(totals: dict, report: dict) -> None:
 # utterances of the random-weight voice loop, fewer than bench.py's 9 for the
 # script's time limit: each is ~5 s of random large-v3 partials, and
 # voice_service then drives the same loop through the service
-VOICE_LOOP_RUNS = 2
-VOICE_NEURAL_RUNS = 5  # bench.py runs 9; a depth the script's time limit sets
+VOICE_LOOP_RUNS = 1
+VOICE_NEURAL_RUNS = 3  # bench.py runs 9; a depth the script's time limit sets
 
 
 def phase_voice(stt_engine, totals: dict, report: dict) -> None:
@@ -3945,8 +3970,8 @@ def _record_conf(modules):
     saved = [(m, m._conf_stats) for m in modules]
 
     def wrap(real):
-        def recording(raw, state, tables, constrained):
-            out = real(raw, state, tables, constrained)
+        def recording(raw, state, tables, constrained, *rest):
+            out = real(raw, state, tables, constrained, *rest)
             if not rec:
                 rec.update(raw=raw.detach().clone(), state=state.clone(), tables=tables,
                            out=[o.clone() for o in out])
@@ -5117,7 +5142,7 @@ def phase_moe(totals: dict, report: dict, profile: bool = False) -> None:
         rows = []
         with Counted(f"moe {impl}", totals) as c:
             # the dense dispatch answers one parse (K13 never launches); the
-            # grouped one three
+            # grouped one two
             for text in UTTERANCES[:2 if impl == "grouped" else 1]:
                 t1 = time.perf_counter()
                 status, body, _ = app.parse(json.dumps({"text": text, "context": {}}).encode())
@@ -7356,6 +7381,359 @@ def _planner_backend(totals: dict) -> dict:
     return {"boot_s": boot, "answers": answers}
 
 
+PARALLEL_SLOTS = 4  # BRAIN_BATCH of the meshed engines: dp 2 x 2 rows
+PARALLEL_NEW_TOKENS = 32  # of the parse's 64: a depth the script's time limit sets
+# of tinyllama-1.1b's 22 (the service weights' first layers, pp 2 stages of
+# 4): a depth the script's time limit sets; every meshed forward launches
+# per layer per shard
+PARALLEL_LAYERS = 8
+PARALLEL_DEVICE = "cuda:0"  # the one card every mesh device is
+
+
+def _tp2_shard_rows(mesh, rows: dict) -> dict:
+    """Each sharded wrapper on the (2, 2) mesh of one card against its
+    plain version over the whole operands, at the meshed engine's shapes
+    (a tp-2 shard of tinyllama-1.1b: 16 q / 2 kv heads of 64; dp 2 of 4
+    rows); K1 / K2 / K3 also timed at one shard's shape beside their plain
+    versions and SDPA, kept as the ``tp2_shard`` shape of their rows. K4 /
+    K11 exactly equal."""
+    import torch
+
+    from tpu_voice_agent_torch import ops
+
+    dev = torch.device(PARALLEL_DEVICE)
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    nq, nkv, hd, S, B = 32, 4, 64, 2048, PARALLEL_SLOTS
+    T = 1024
+    q1, k1, v1 = randn(1, T, nq, hd), randn(1, T, nkv, hd), randn(1, T, nkv, hd)
+    q2, kc, vc = randn(B, nq, hd), randn(1, B, S, nkv, hd), randn(1, B, S, nkv, hd)
+    kv_len = torch.tensor([1, 880, 1500, 2048], dtype=torch.int32, device=dev)
+    front = [0, 880, 1200, 2030]
+    pos = torch.tensor([[f + min(i, 5) for i in range(9)] for f in front], dtype=torch.int32,
+                       device=dev)
+    q3 = randn(B, 9, nq, hd)
+    pairs = [
+        (ops.sharded_flash_attention(mesh, q1, k1, v1, causal=True).full(),
+         ops.attention_reference(q1, k1, v1, causal=True)),
+        (ops.sharded_decode_attention_layer(mesh, q2, kc, vc, kv_len, 0).full(),
+         ops.decode_attention_reference(q2, kc[0], vc[0], kv_len)),
+        (ops.sharded_decode_block_attention_layer(mesh, q3, kc, vc, pos, 0).full(),
+         ops.decode_block_attention_reference(q3, kc[0], vc[0], pos)),
+        (ops.sharded_decode_attention(mesh, q2, kc[0], vc[0], kv_len).full(),
+         ops.decode_attention_reference(q2, kc[0], vc[0], kv_len)),
+    ]
+    err, ratio = attn_err(pairs)
+    fail_if(not ratio <= 1.0, f"parallel: a sharded attention wrapper is {ratio:.3g}x its "
+            f"tolerance {ATTN_TOL} (max abs err {err})")
+    from tpu_voice_agent_torch.grammar import build_intent_fsm
+
+    _tok, fsm = build_intent_fsm()
+    t = fsm.device_tables(device=dev)
+    V = fsm.vocab_size + 1  # the tp-2 engine's padded width, the padded id dead
+    mask = torch.cat([t.dense_mask, torch.zeros((fsm.num_states, 1), dtype=torch.bool,
+                                                device=dev)], dim=1)
+    table = t.table
+    col = torch.cat([t.col_id, torch.zeros(1, dtype=t.col_id.dtype, device=dev)])
+    logits = randn(B, 5, V, dtype=torch.float32)
+    states = torch.randint(0, fsm.num_states, (B, 5), generator=g, device=dev,
+                           dtype=torch.int32)
+    tok, nxt = ops.sharded_masked_argmax_advance(mesh, logits[:, 0].contiguous(),
+                                                 states[:, 0].contiguous(), mask, table, col)
+    rt, rn = ops.masked_argmax_advance_reference(logits[:, 0], states[:, 0], mask, table, col)
+    blk = ops.sharded_masked_argmax_block(mesh, logits, states, mask).full()
+    fail_if(not (torch.equal(tok.full(), rt) and torch.equal(nxt.full(), rn)),
+            "parallel: sharded K4 differs from its plain version")
+    fail_if(not torch.equal(blk, ops.masked_argmax_reference(
+        logits.reshape(-1, V), states.reshape(-1), mask).reshape(B, 5)),
+        "parallel: sharded K11 differs from its plain version")
+    log(f"[parallel] sharded K1 / K2 / K3 / K5 against their plain versions: max abs err "
+        f"{err:.3g} ({ratio:.3g} of tol {ATTN_TOL}); K4 / K11 equal over {B} rows of {V}")
+    out = {"max_abs_err": err, "err_over_tol": ratio}
+    # one shard's shapes: 16 / 2 heads, B / dp = 2 rows
+    h, kh = nq // 2, nkv // 2
+    qs1, ks1, vs1 = (x[:, :, :n].contiguous() for x, n in ((q1, h), (k1, kh), (v1, kh)))
+    if "flash_attention" in rows:
+        import torch.nn.functional as F
+
+        qh, kk, vv = (qs1.transpose(1, 2), ks1.transpose(1, 2).repeat_interleave(8, 1),
+                      vs1.transpose(1, 2).repeat_interleave(8, 1))
+        rows["flash_attention"]["tp2_shard"] = _extra_shape(
+            "a tp-2 shard of the prefix prefill: causal T = S = 1024, 16/2 heads, hd 64, bf16",
+            cuda_ms(lambda: ops.flash_attention(qs1, ks1, vs1, causal=True)),
+            cuda_ms(lambda: ops.attention_reference(qs1, ks1, vs1, causal=True), iters=5),
+            *bound(2 * (2 * T * h * hd + 2 * T * kh * hd), 4 * h * hd * T * (T + 1) / 2),
+            cuda_ms(lambda: F.scaled_dot_product_attention(qh, kk, vv, is_causal=True)))
+    shard = {"q": q2[:2, :h].contiguous(), "k": kc[:, :2, :, :kh].contiguous(),
+             "v": vc[:, :2, :, :kh].contiguous(), "kv_len": kv_len[:2].contiguous(),
+             "label": "a tp-2 shard of the meshed step: 2 rows, 16/2 heads, kv_len [1, 880]"}
+    if "decode_attention_layer" in rows:
+        rows["decode_attention_layer"]["tp2_shard"] = _k2_extra_row(shard)
+    if "decode_block_attention_layer" in rows:
+        rows["decode_block_attention_layer"]["tp2_shard"] = _k3_extra_row(
+            {"q": q3[:2, :, :h].contiguous(), "k": shard["k"], "v": shard["v"],
+             "pos": pos[:2].contiguous(),
+             "label": "a tp-2 shard of the ff 8 chain: (2, 9), 16/2 heads, frontiers [0, 880]"})
+    return out
+
+
+def _mesh_drain(eng, prompts, label: str, totals: dict, *kernels) -> dict:
+    """The prompts through a ContinuousBatcher on ``eng`` (chunk 16,
+    PARALLEL_NEW_TOKENS), counted: every result ok and in the grammar, each
+    kernel in ``kernels`` launched. Returns the results, wall, tokens,
+    forwards and counts."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=PARALLEL_NEW_TOKENS)
+    with Counted(label, totals) as c:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = b.generate_many(prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    c.require(*kernels)
+    fail_if(any(r.error is not None for r in res), f"{label}: "
+            f"{[r.error for r in res if r.error][:3]}")
+    fail_if(min(eng.fsm.walk(r.token_ids) for r in res) < 0,
+            f"{label}: a token stream left the grammar")
+    tokens = sum(r.steps for r in res)
+    log(f"[{label}] {len(res)}/{len(res)} ok, {tokens} tokens in {wall:.3f} s "
+        f"({tokens / wall:.1f} tok/s), {b.forwards} forwards")
+    return {"res": res, "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "forwards": b.forwards, "counts": c.counts}
+
+
+def _parse_wall(eng, prompt) -> float:
+    """One request alone through the batcher (admission and decode), ms."""
+    import torch
+
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    b = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=PARALLEL_NEW_TOKENS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.generate_many([prompt])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _chunk_idle_share(eng, prompts) -> float:
+    """One 4-step decode chunk's device idle share after the prompts'
+    admission: 1 - the device time of its kernels (``torch.profiler``, CUDA
+    activity) over the same chunk's wall, both read inside the profile; the
+    chunk must start with a live row. The batcher is then dropped: a dense
+    or staged cache holds no slot state to release."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    # chunks of 4 steps: at ff 8 a 16-step chunk can finish every row
+    b = ContinuousBatcher(eng, chunk_steps=4, max_new_tokens=PARALLEL_NEW_TOKENS)
+    for p in prompts:
+        b.submit(p)
+    b.step()  # the admissions and the first chunk
+    torch.cuda.synchronize()
+    fail_if(not b._active_h.any(), "parallel: every row finished in the admitting chunk; "
+            "no decode chunk left to profile")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        b.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(_device_us(e) for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+    return 1 - busy / wall_us
+
+
+def phase_parallel(params, rows: dict, totals: dict, report: dict) -> None:
+    """The dp x tp mesh and the pp x tp pipeline (``parallel/``,
+    ``serve/pp_engine.py``) on the card, over meshes of four devices that
+    are all the one card ([cuda:0] x 4: every shard's blocks and launches
+    are real, the cards shared), at tinyllama-1.1b's width int8 on the
+    first PARALLEL_LAYERS of the service phase's layers: each sharded
+    wrapper against its plain version
+    (``_tp2_shard_rows``); the dense engine on a dp 2 x tp 2 mesh (4
+    slots, vocab padded to 620) behind the cached prefix (K1 per shard),
+    serving the five typed commands (32 new tokens) at ff 8 (K3 per
+    shard: exactly PARALLEL_LAYERS x 4 a forward; K4 per dp shard) against the
+    unmeshed engine, then spec
+    k = 4 on the same mesh (K3, K11 per shard) and ff 0 (K2 per shard)
+    against each other; a twin of the ff 8 comparison with fp32
+    activations; ``PPDecodeEngine`` at pp 2 x tp 2 (int8, ff 0, the cached
+    prefix) against the unmeshed ff 0 engine, and its fp32 twin. Streams
+    equal, or parted within ``BF16_PART_ULPS`` of the plain forward's
+    top-2 margin (one ulp in the fp32 twins: the tp sums reorder
+    additions). The parse wall, tok/s and one chunk's device idle share at
+    2 x 2 against 1 x 1. Then BRAIN_BACKEND=pp through the brain service at
+    its one-card defaults (pp 1, tp 1) answering /parse and /health, and
+    the refusals: a paged engine on a mesh, BRAIN_PP past the cards."""
+    import dataclasses
+
+    import torch
+
+    from tpu_voice_agent_torch.models.llama import PRESETS
+    from tpu_voice_agent_torch.parallel.mesh import make_mesh
+    from tpu_voice_agent_torch.parallel.pipeline import pp_tp_mesh
+    from tpu_voice_agent_torch.serve.engine import DecodeEngine, pad_vocab
+    from tpu_voice_agent_torch.serve.paged import PagedDecodeEngine
+    from tpu_voice_agent_torch.serve.pp_engine import PPDecodeEngine
+    from tpu_voice_agent_torch.serve.spec import SpecConfig
+    from tpu_voice_agent_torch.services import brain
+    from tpu_voice_agent_torch.services.brain import install_prompt_prefix
+    from tpu_voice_agent_torch.services.prompts import render_prompt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(PARALLEL_DEVICE)
+    mesh = make_mesh(2, 2, [dev] * 4)
+    out = {"wrappers": _tp2_shard_rows(mesh, rows)}
+    prompts = [render_prompt(text, {}) for text in UTTERANCES]  # the five typed commands
+    cfg = dataclasses.replace(PRESETS["tinyllama-1.1b"], n_layers=PARALLEL_LAYERS)
+    params = {**params, "layers": params["layers"][:PARALLEL_LAYERS]}  # the engine's per-layer list
+    kw = dict(cfg=cfg, quant="int8", max_len=2048, batch_slots=PARALLEL_SLOTS,
+              prefill_buckets=(1024,), init_weights=False)
+
+    def prefix(e, label):
+        with Counted(label, totals) as c:
+            P = install_prompt_prefix(e)
+        return P, c.counts
+
+    ids = None
+    for dtype, p in (("bf16", params), ("fp32", _fp32_activations(params))):
+        one = DecodeEngine(fast_forward=8, **kw)
+        one.load_params(p)
+        ids = [one.tokenizer.encode(pr, bos=True) for pr in prompts]
+        m8 = DecodeEngine(mesh=mesh, fast_forward=8, **kw)
+        m8.load_params(pad_vocab(p, m8.cfg.vocab_size))
+        P, c_pre = prefix(m8, f"parallel {dtype} 2x2 prefix")
+        fail_if(c_pre.get("flash_attention") != PARALLEL_LAYERS * 2,
+                f"parallel: the meshed prefix launched K1 {c_pre.get('flash_attention')} times, "
+                f"want {PARALLEL_LAYERS} layers x 2 tp shards of dp group 0")
+        prefix(one, f"parallel {dtype} 1x1 prefix")
+        r1 = _mesh_drain(one, prompts, f"parallel {dtype} 1x1 ff=8", totals,
+                         "decode_block_attention_layer", "masked_argmax_advance")
+        r4 = _mesh_drain(m8, prompts, f"parallel {dtype} 2x2 ff=8", totals,
+                         "decode_block_attention_layer", "masked_argmax_advance")
+        k3 = r4["counts"]["decode_block_attention_layer"]
+        fail_if(k3 != PARALLEL_LAYERS * 4 * r4["forwards"],
+                f"parallel: K3 launched {k3} times over {r4['forwards']} meshed forwards, want "
+                f"{PARALLEL_LAYERS} layers x 4 shards each")
+        ulps = 1 if dtype == "fp32" else BF16_PART_ULPS
+        label = f"parallel {dtype} ff=8"
+        diverged = _partings(one, ids, [r.token_ids for r in r1["res"]],
+                             [r.token_ids for r in r4["res"]], label, "2x2 and 1x1")
+        _check_partings(diverged, label, ulps)
+        row = {"prefix_tokens": P, "diverged": diverged,
+               "tokens_per_s": {"1x1": r1["tokens_per_s"], "2x2": r4["tokens_per_s"]},
+               "launches": r4["counts"]}
+        if dtype == "bf16":
+            row["parse_ms"] = {"1x1": _parse_wall(one, prompts[0]),
+                               "2x2": _parse_wall(m8, prompts[0])}
+            row["idle_share"] = {"1x1": _chunk_idle_share(one, prompts),
+                                 "2x2": _chunk_idle_share(m8, prompts)}
+            log(f"[parallel] parse wall {row['parse_ms']['1x1']:.1f} ms at 1x1, "
+                f"{row['parse_ms']['2x2']:.1f} ms at 2x2; tok/s {r1['tokens_per_s']:.1f} / "
+                f"{r4['tokens_per_s']:.1f}; a chunk's idle share "
+                f"{row['idle_share']['1x1']:.3f} / {row['idle_share']['2x2']:.3f}")
+            # spec k = 4 and ff 0 on the same mesh, over m8's placed weights
+            ms = DecodeEngine(mesh=mesh, fast_forward=0, spec=SpecConfig(k=SPEC_K), **kw)
+            ms.load_params(m8.params)
+            prefix(ms, "parallel 2x2 spec prefix")
+            rs = _mesh_drain(ms, prompts, "parallel 2x2 spec", totals,
+                             "decode_block_attention_layer", "masked_argmax")
+            m0 = DecodeEngine(mesh=mesh, fast_forward=0, **kw)
+            m0.load_params(m8.params)
+            prefix(m0, "parallel 2x2 ff=0 prefix")
+            r0 = _mesh_drain(m0, prompts, "parallel 2x2 ff=0", totals,
+                             "decode_attention_layer", "masked_argmax_advance")
+            k2 = r0["counts"]["decode_attention_layer"]
+            fail_if(k2 != PARALLEL_LAYERS * 4 * r0["forwards"],
+                    f"parallel: K2 launched {k2} times over {r0['forwards']} meshed forwards")
+            d = _partings(one, ids, [r.token_ids for r in r0["res"]],
+                          [r.token_ids for r in rs["res"]], "parallel 2x2 spec", "spec and ff=0")
+            _check_partings(d, "parallel 2x2 spec", BF16_PART_ULPS)
+            row.update(spec={"diverged": d, "launches": rs["counts"],
+                             "tokens_per_s": rs["tokens_per_s"]},
+                       ff0={"launches": r0["counts"], "tokens_per_s": r0["tokens_per_s"]})
+            del ms, m0
+        out[f"dense_{dtype}"] = row
+        # the pp x tp pipeline at ff 0 against the unmeshed ff 0 engine
+        one0 = DecodeEngine(fast_forward=0, **kw)
+        one0.load_params(one.params)
+        prefix(one0, f"parallel {dtype} 1x1 ff=0 prefix")
+        pp = PPDecodeEngine(mesh=pp_tp_mesh(2, 2, [dev] * 4), **kw)
+        pp.load_params(p)
+        prefix(pp, f"parallel {dtype} pp 2x2 prefix")
+        q1 = _mesh_drain(one0, prompts, f"parallel {dtype} 1x1 ff=0", totals,
+                         "decode_attention_layer")
+        qp = _mesh_drain(pp, prompts, f"parallel {dtype} pp 2x2 ff=0", totals,
+                         "masked_argmax_advance")
+        label = f"parallel {dtype} pp"
+        d = _partings(one0, ids, [r.token_ids for r in q1["res"]],
+                      [r.token_ids for r in qp["res"]], label, "pp 2x2 and 1x1")
+        _check_partings(d, label, ulps)
+        out[f"pp_{dtype}"] = {"diverged": d, "tokens_per_s": {"1x1": q1["tokens_per_s"],
+                                                              "pp2x2": qp["tokens_per_s"]},
+                              "launches": qp["counts"]}
+        if dtype == "bf16":
+            out["pp_bf16"]["parse_ms"] = {"1x1": _parse_wall(one0, prompts[0]),
+                                          "pp2x2": _parse_wall(pp, prompts[0])}
+            out["pp_bf16"]["idle_share"] = _chunk_idle_share(pp, prompts)
+            log(f"[parallel] pp 2x2 parse wall {out['pp_bf16']['parse_ms']['pp2x2']:.1f} ms "
+                f"(1x1 ff=0 {out['pp_bf16']['parse_ms']['1x1']:.1f} ms); tok/s "
+                f"{qp['tokens_per_s']:.1f} / {q1['tokens_per_s']:.1f}; a chunk's idle share "
+                f"{out['pp_bf16']['idle_share']:.3f}")
+        del one, one0, m8, pp, p
+        _free_cuda()
+    # the brain service's pp backend at its one-card defaults
+    _hf_env(BRAIN_BACKEND="pp")
+    for k in ("BRAIN_PP", "BRAIN_TP"):
+        os.environ.pop(k, None)
+    with Counted("parallel pp backend", totals) as c:
+        t0 = time.perf_counter()
+        parser = brain.make_parser_from_env()
+        boot = time.perf_counter() - t0
+        parser.batcher.max_new_tokens = PARALLEL_NEW_TOKENS
+        eng = parser.engine
+        fail_if((eng.pp, eng.tp, eng.fast_forward) != (1, 1, 0),
+                f"parallel: BRAIN_BACKEND=pp booted pp {eng.pp} x tp {eng.tp}, ff "
+                f"{eng.fast_forward} on one card")
+        server, thread, base = _serve_brain(brain.BrainApp(parser))
+        try:
+            status, body = _post(base, {"text": UTTERANCES[0], "context": {}})
+            fail_if(status not in (200, 422), f"parallel: pp /parse {status} {body}")
+            health = _health(base)
+            fail_if(not health.get("batch_slots"), f"parallel: pp /health {health}")
+        finally:
+            _stop(server, thread)
+            parser.close()
+    c.require("masked_argmax_advance")
+    log(f"[parallel] BRAIN_BACKEND=pp booted in {boot:.2f} s (pp 1 x tp 1 on one card, ff 0, "
+        f"prefix {len(eng.prefix_ids)} tokens); /parse {status}, /health ok")
+    out["pp_backend"] = {"boot_s": boot, "status": status}
+    del parser, eng
+    os.environ["BRAIN_PP"] = "2"
+    try:
+        brain.make_parser_from_env()
+        fail_if(True, "parallel: BRAIN_PP=2 on one card booted")
+    except ValueError as e:
+        fail_if("BRAIN_PP=2 x BRAIN_TP=1" not in str(e), f"parallel: {e}")
+    os.environ.pop("BRAIN_PP")
+    try:
+        PagedDecodeEngine(preset="tinyllama-1.1b", mesh=mesh, init_weights=False)
+        fail_if(True, "parallel: a paged engine on a mesh was built")
+    except ValueError as e:
+        fail_if("ROADMAP.md Queue 1 item 8" not in str(e), f"parallel: {e}")
+    _hf_env(BRAIN_BACKEND="engine:tinyllama-1.1b", BRAIN_QUANT="int8")
+    report["parallel"] = out
+
+
 STT_BATCH_SLOTS = 4
 # the work items, one tick each: (kind, utterance key, seconds of synth audio)
 STT_BATCH_ROUNDS = (
@@ -7363,6 +7741,9 @@ STT_BATCH_ROUNDS = (
     (("partial", 5, 1.6), ("partial", 6, 2.7), ("spec_final", 7, 3.3), ("final", 8, 0.8)),
     (("partial", 5, 3.1), ("partial", 6, 4.0), ("final", 9, 7.0)),
 )
+# the fp32 twin's: the round that holds every kind (a partial, a spec_final,
+# a final), a depth the script's time limit sets
+STT_BATCH_TWIN_ROUNDS = STT_BATCH_ROUNDS[1:2]
 
 
 def _whisper_top2(eng, cross_kv: dict, enc_len: int, tokens: list[int]) -> dict:
@@ -7386,8 +7767,9 @@ def _whisper_top2(eng, cross_kv: dict, enc_len: int, tokens: list[int]) -> dict:
     return {"top2": i, "margin": v[0] - v[1], "top_logit": v[0]}
 
 
-def _stt_batch_items(eng, label: str, totals: dict, ulps: float) -> dict:
-    """``STT_BATCH_ROUNDS`` through ``STTBatcher(slots=4)``, one tick a round,
+def _stt_batch_items(eng, label: str, totals: dict, ulps: float,
+                     rounds=STT_BATCH_ROUNDS) -> dict:
+    """``rounds`` through ``STTBatcher(slots=4)``, one tick a round,
     each item against the B = 1 path on the same audio (``transcribe`` for
     a final or spec_final, an ``IncrementalState`` fed the same buffers for
     a partial): equal tokens, or a parting where the B = 1 decoder's plain
@@ -7403,7 +7785,7 @@ def _stt_batch_items(eng, label: str, totals: dict, ulps: float) -> dict:
     items, diverged = 0, []
     b1_refs: list = []  # per round, per item: (kind, utt, B = 1 token ids, cross-KV, valid)
     b1_ms = tick_ms = 0.0
-    for rnd in STT_BATCH_ROUNDS:
+    for rnd in rounds:
         work = [(kind, utt, synth_utterance(sec)) for kind, utt, sec in rnd]
         refs = []
         for kind, utt, audio in work:
@@ -7448,7 +7830,7 @@ def _stt_batch_items(eng, label: str, totals: dict, ulps: float) -> dict:
                 f"({_ulps(d):.2f} bf16 ulps)")
     _check_partings(diverged, label, ulps)
     log(f"[{label}] {items - len(diverged)}/{items} items equal to B = 1 over "
-        f"{len(STT_BATCH_ROUNDS)} ticks; B = 1 {b1_ms:.1f} ms, batched ticks {tick_ms:.1f} ms")
+        f"{len(rounds)} ticks; B = 1 {b1_ms:.1f} ms, batched ticks {tick_ms:.1f} ms")
     return {"items": items, "equal": items - len(diverged),
             "partings_ulps": [round(_ulps(d), 3) for d in diverged],
             "b1_ms": b1_ms, "ticks_ms": tick_ms, "slots_after": batcher.slot_of,
@@ -7753,7 +8135,8 @@ def phase_stt_batch(totals: dict, report: dict) -> None:
     spec_final, partials over persistent pool slots) against the B = 1 path
     (``_stt_batch_items``; K5 at B = 4 with ragged kv_len), held to
     ``BF16_PART_ULPS`` in bf16 and to one ulp in a twin on fp32 copies of
-    the weights; then the voice service's paced audio on the batched plane
+    the weights (``STT_BATCH_TWIN_ROUNDS``); then the voice service's paced
+    audio on the batched plane
     (``_stt_batch_service``)."""
     import torch
 
@@ -7770,7 +8153,7 @@ def phase_stt_batch(totals: dict, report: dict) -> None:
     log(f"[stt_batch] replica drill {time.perf_counter() - t0:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
     eng.load_params(_to_float(eng.params))
-    out["fp32"] = _stt_batch_items(eng, "stt_batch fp32", totals, 1)
+    out["fp32"] = _stt_batch_items(eng, "stt_batch fp32", totals, 1, STT_BATCH_TWIN_ROUNDS)
     out["fp32"].pop("b1_refs")
     del eng
     _free_cuda()
@@ -7809,6 +8192,7 @@ HF_BIAS_CHANNEL, HF_BIAS_HEAD = 100.0, 0.5
 SP = "▁"
 HF_DEVICE = "cuda"  # where the seeded trees are drawn and loaded
 HF_PARSES = 1  # of the 5 utterances: a depth the script's time limit sets
+HF_TWIN_NEW_TOKENS = 64  # the fp32 twin's budget: a depth the script's time limit sets
 
 
 def _sp_tokenizer_json(vocab_size: int = 32000, seed: int = 0) -> dict:
@@ -8140,7 +8524,7 @@ def _hf_tinyllama(root: str, totals: dict, tok_json: dict) -> dict:
 
     from tpu_voice_agent_torch.ckpt.hf_import import llama_config_from_hf, llama_from_hf_state
     from tpu_voice_agent_torch.grammar.intent_grammar import build_fsm_for
-    from tpu_voice_agent_torch.models.llama import init_params, quantize_params
+    from tpu_voice_agent_torch.models.llama import init_params, quantize_params, stack_layers
     from tpu_voice_agent_torch.serve.engine import DecodeEngine, checkpoint_tokenizer
     from tpu_voice_agent_torch.services import brain
     from tpu_voice_agent_torch.services.prompts import render_prompt
@@ -8198,7 +8582,7 @@ def _hf_tinyllama(root: str, totals: dict, tok_json: dict) -> dict:
     out["brain"] = {"prefix_tokens": len(eng.prefix_ids), "launches": c.counts,
                     "tokens": [len(x) for x in ids], "grammar": _no_dense_mask(eng, c,
                                                                                "hf_import brain")}
-    bad = _flat_equal({**eng.params, "layers": _restack(eng.params["layers"])},
+    bad = _flat_equal({**eng.params, "layers": stack_layers(eng.params["layers"])},
                       quantize_params(tree))
     fail_if(bool(bad), f"hf_import: the int8 tree quantized per layer differs from "
                        f"quantize_params on the seeded tree: {bad[:5]}")
@@ -8221,7 +8605,8 @@ def _hf_tinyllama(root: str, totals: dict, tok_json: dict) -> dict:
             ("direct", lambda: _f32_direct(cfg, tok, fsm, tree))):
         e = make()
         brain.install_prompt_prefix(e)
-        twin[label] = [e.generate(p, max_new_tokens=512).token_ids for p in prompts[:1]]
+        twin[label] = [e.generate(p, max_new_tokens=HF_TWIN_NEW_TOKENS).token_ids
+                       for p in prompts[:1]]
         del e
         _free_cuda()
     fail_if(twin["from_hf"] != twin["direct"],
@@ -8249,17 +8634,6 @@ def _hf_tinyllama(root: str, totals: dict, tok_json: dict) -> dict:
     _hf_env()
     _free_cuda()
     return out
-
-
-def _restack(layers: list) -> dict:
-    """An engine's per-layer views -> the stacked layer dict."""
-    import torch
-
-    def stack(k, sub=None):
-        return torch.stack([lay[k] if sub is None else lay[k][sub] for lay in layers])
-
-    return {k: ({s: stack(k, s) for s in v} if isinstance(v, dict) else stack(k))
-            for k, v in layers[0].items()}
 
 
 def _f32_direct(cfg, tok, fsm, tree):
@@ -8528,6 +8902,7 @@ def main() -> int:
                     help="comma list of card,build,digest,kernels,service,parse,batch,"
                          "batch_dense,radix,"
                          "kvquant,spec,quality,containment,tenancy,handoff,fleet,devobs,planner,"
+                         "parallel,"
                          "service_batched,"
                          "golden,"
                          "batch_golden,kvquant_golden,spec_golden,stt,stt_golden,voice,"
@@ -8544,7 +8919,7 @@ def main() -> int:
     args = ap.parse_args()
     phases = (["card", "build", "digest", "kernels", "service", "parse", "batch", "batch_dense",
                "radix", "kvquant", "spec", "quality", "containment", "tenancy", "handoff",
-               "fleet", "devobs", "planner", "service_batched",
+               "fleet", "devobs", "planner", "parallel", "service_batched",
                "golden", "batch_golden",
                "kvquant_golden", "spec_golden", "stt", "stt_golden", "voice", "voice_service",
                "stt_batch", "hf_import", "moe"]
@@ -8605,6 +8980,9 @@ def main() -> int:
             timed(name, fn, eng.params, totals, report, **kw)
     if "planner" in phases:  # after devobs; the planner's own bf16 weights
         timed("planner", phase_planner, totals, report)
+    if "parallel" in phases:
+        fail_if(eng is None, "the parallel phase reuses the service's weights")
+        timed("parallel", phase_parallel, eng.params, rows, totals, report)
     if args.profile and eng is not None:  # the parse profile reuses the service's weights
         phase_profile(eng.params, report)
     del eng

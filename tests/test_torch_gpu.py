@@ -949,3 +949,113 @@ def test_planner_backend_spans_every_card(cuda, monkeypatch):
     assert kv["k"].device == planner.device and kv["k"].shape[2] == 1024
     top = float(ref.float().abs().max())
     assert float((got.float() - ref.float()).abs().max()) <= 32 * 2.0 ** -8 * top
+
+
+def _four_cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip("needs four cards")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def _mesh_tokens(make, params, prompts):
+    """Tokens of the prompts through a fresh engine from ``make`` (loaded
+    with ``params``, the vocab padded to its width) behind the continuous
+    batcher, and its K3 count."""
+    from tpu_voice_agent_torch.serve.engine import pad_vocab
+    from tpu_voice_agent_torch.serve.scheduler import ContinuousBatcher
+
+    eng = make()
+    eng.load_params(pad_vocab(params, eng.cfg.vocab_size))
+    before = ops.decode_block_attention_layer.launches
+    res = ContinuousBatcher(eng, chunk_steps=16, max_new_tokens=48).generate_many(prompts)
+    assert all(r.error is None and eng.fsm.walk(r.token_ids) >= 0 for r in res)
+    return eng, [r.token_ids for r in res], ops.decode_block_attention_layer.launches - before
+
+
+def _tinyllama_int8(cuda):
+    """tinyllama-1.1b int8 weights at the in-tree tokenizer's vocab, and
+    four prompts of the batch traffic."""
+    import dataclasses
+
+    from tpu_voice_agent_torch.grammar import build_intent_fsm
+    from tpu_voice_agent_torch.models.llama import PRESETS, init_params
+    from tpu_voice_agent_torch.services.prompts import render_prompt
+
+    tok, _ = build_intent_fsm()
+    cfg = dataclasses.replace(PRESETS["tinyllama-1.1b"], vocab_size=tok.vocab_size)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda,
+                         quant="int8")
+    prompts = [render_prompt(f"search for item {i} and sort by price", {}) for i in range(4)]
+    return params, prompts
+
+
+@pytest.mark.gpu
+def test_dp_tp_engine_across_every_card(cuda):
+    """The dense engine on a dp 2 x tp 2 mesh of four real cards against the
+    same mesh laid on one card ([cuda:0] x 4): every shard's blocks on its
+    own card, K3 launched 22 x 4 times a forward, and the same tokens (the
+    same launches in the same order, each on its shard's card)."""
+    from tpu_voice_agent_torch.parallel.mesh import make_mesh
+    from tpu_voice_agent_torch.serve.engine import DecodeEngine
+
+    cards = _four_cards(cuda)
+    params, prompts = _tinyllama_int8(cuda)
+    kw = dict(preset="tinyllama-1.1b", quant="int8", fast_forward=8, max_len=2048,
+              batch_slots=4, prefill_buckets=(1024,), init_weights=False)
+    one = [cards[0]] * 4
+    e1, t1, _ = _mesh_tokens(lambda: DecodeEngine(mesh=make_mesh(2, 2, one), **kw), params,
+                             prompts)
+    e4, t4, k3 = _mesh_tokens(lambda: DecodeEngine(mesh=make_mesh(2, 2, cards), **kw), params,
+                              prompts)
+    assert {c: t.device for c, t in e4.cache["k"].shards.items()} == {
+        (i, j): cards[2 * i + j] for i in range(2) for j in range(2)}
+    assert k3 > 0 and k3 % (22 * 4) == 0
+    assert t4 == t1
+
+
+@pytest.mark.gpu
+def test_pp_tp_engine_across_every_card(cuda):
+    """``PPDecodeEngine`` at pp 2 x tp 2 over four real cards against the
+    same pipeline on one card: each stage's blocks on its own cards, the
+    same tokens."""
+    from tpu_voice_agent_torch.parallel.pipeline import pp_tp_mesh
+    from tpu_voice_agent_torch.serve.pp_engine import PPDecodeEngine
+
+    cards = _four_cards(cuda)
+    params, prompts = _tinyllama_int8(cuda)
+    kw = dict(preset="tinyllama-1.1b", quant="int8", max_len=2048, batch_slots=4,
+              prefill_buckets=(1024,), init_weights=False)
+    _, t1, _ = _mesh_tokens(lambda: PPDecodeEngine(mesh=pp_tp_mesh(2, 2, [cards[0]] * 4), **kw),
+                            params, prompts)
+    e4, t4, _ = _mesh_tokens(lambda: PPDecodeEngine(mesh=pp_tp_mesh(2, 2, cards), **kw),
+                             params, prompts)
+    assert {c: t.device for c, t in e4.cache["k"].shards.items()} == {
+        (s, j): cards[2 * s + j] for s in range(2) for j in range(2)}
+    assert t4 == t1
+
+
+@pytest.mark.gpu
+def test_pp_backend_at_its_defaults_on_every_card(cuda, monkeypatch):
+    """BRAIN_BACKEND=pp with BRAIN_PP / BRAIN_TP unset takes pp 2 x tp 2 over
+    four cards (ff 0) and answers a parse (200, or the 422 truncation of
+    random weights)."""
+    from tpu_voice_agent_torch.services import brain
+
+    cards = _four_cards(cuda)
+    for knob in ("BRAIN_PP", "BRAIN_TP", "BRAIN_DEVICE", "BRAIN_FF", "BRAIN_QUANT",
+                 "SPEC_ENABLE", "BRAIN_BATCH"):
+        monkeypatch.delenv(knob, raising=False)
+    monkeypatch.setenv("BRAIN_BACKEND", "pp")
+    parser = brain.make_parser_from_env()
+    try:
+        eng = parser.engine
+        assert (eng.pp, eng.tp, eng.fast_forward) == (2, 2, 0)
+        assert list(eng.pmesh.devices.flat)[:4] == cards
+        parser.batcher.max_new_tokens = 32
+        try:
+            assert isinstance(parser.parse("go back", {}), dict)
+        except brain.ParserError as e:
+            assert e.kind == "schema_validation_failed"
+    finally:
+        parser.close()

@@ -224,17 +224,25 @@ def test_brain_metrics_trace_and_health_bodies(distilled_brains):
     assert set(gauges) == {"service", "local", "runtime"}
 
 
-@pytest.mark.parametrize("backend,match", [
-    ("distilled:/models/other-ckpt", "item 8"),
-    ("distilled:checkpoints/whisper-tiny-heldout", "item 8"),
+@pytest.mark.parametrize("backend,match,env", [
+    pytest.param("distilled:/models/other-ckpt", "item 8", {},
+                 id="distilled:/models/other-ckpt-item 8"),
+    pytest.param("distilled:checkpoints/whisper-tiny-heldout", "item 8", {},
+                 id="distilled:checkpoints/whisper-tiny-heldout-item 8"),
     # served since the sp ring; a directory the port does not carry is not
-    pytest.param("planner-distilled:checkpoints/whisper-tiny-heldout", "item 8",
+    pytest.param("planner-distilled:checkpoints/whisper-tiny-heldout", "item 8", {},
                  id="planner-distilled-item 8"),
-    ("pp:llama3-70b", "item 8"),
+    # served since the pp x tp engine; its layout across processes is not
+    pytest.param("pp:llama3-70b", "item 8", {"JAX_NUM_PROCESSES": "2"},
+                 id="pp:llama3-70b-item 8"),
 ])
-def test_backends_refused_at_boot(monkeypatch, backend, match):
+def test_backends_refused_at_boot(monkeypatch, backend, match, env):
     monkeypatch.setenv("BRAIN_BACKEND", backend)
     monkeypatch.setenv("BRAIN_DEVICE", "cpu")
+    for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match=match):
         brain.make_parser_from_env()
 

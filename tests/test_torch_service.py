@@ -166,15 +166,24 @@ def _tiny_env(monkeypatch):
     monkeypatch.setenv("BRAIN_DEVICE", "cpu")
     monkeypatch.setenv("BRAIN_PREFIX", "0")
     for name in UNSERVED + SERVED_CONTAINMENT + ("BRAIN_MOE", "BRAIN_QUANT", "BRAIN_BATCH",
-                                                 "BRAIN_PAGED", "BRAIN_MODEL", "BRAIN_SP"):
+                                                 "BRAIN_PAGED", "BRAIN_MODEL", "BRAIN_SP",
+                                                 "BRAIN_PP", "BRAIN_TP", "JAX_COORDINATOR_ADDRESS",
+                                                 "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
         monkeypatch.delenv(name, raising=False)
 
 
 @pytest.mark.parametrize("name,value,extra,want", [
     pytest.param("BRAIN_MODEL", "/models/intent-8b", {}, "'/models/intent-8b': no such directory",
                  id="BRAIN_MODEL-/models/intent-8b"),
-    pytest.param("BRAIN_BACKEND", "pp:test-tiny", {}, "ROADMAP.md Queue 1 item",
+    # the pp backend is served since the pp x tp engine: what stays refused
+    # is a mesh wider than the devices, and any multi-process setting
+    pytest.param("BRAIN_PP", "2", {"BRAIN_BACKEND": "pp:test-tiny"},
+                 "BRAIN_PP=2 x BRAIN_TP=1 needs 2 devices, have 1",
                  id="BRAIN_BACKEND-pp:test-tiny"),
+    pytest.param("JAX_NUM_PROCESSES", "2", {}, "ROADMAP.md Queue 1 item 8",
+                 id="JAX_NUM_PROCESSES"),
+    pytest.param("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1234", {"BRAIN_BACKEND": "rule"},
+                 "ROADMAP.md Queue 1 item 8", id="JAX_COORDINATOR_ADDRESS"),
     # the planner backends are served since the sp ring: what stays refused
     # is a planner-distilled directory the port does not carry (8e) and an
     # sp axis wider than the devices
@@ -220,7 +229,7 @@ def test_env_factory_serves_the_stt_replica_chaos_points(monkeypatch, spec):
     ("TENANT_CLASSES", "gold:4:0.5,free:1:0.1"), ("TENANT_CLASSES", "gold:0"),
     ("COST_SESSIONS", "many"), ("COST_PEAK_TFLOPS", "fast"), ("ENGINE_STALL_S", "thirty"),
     ("CHAOS_STALL_S", "long"), ("BRAIN_SP", "two"), ("BRAIN_PLANNER_HBM_MB", "2g"),
-    ("BRAIN_PLANNER_PARK_MB", "1.5"),
+    ("BRAIN_PLANNER_PARK_MB", "1.5"), ("BRAIN_PP", "two"), ("BRAIN_TP", "2.0"),
 ])
 def test_env_factory_refuses_malformed_values(monkeypatch, name, value):
     """A served knob whose value does not parse (the radix and cost knobs,
@@ -370,7 +379,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'evals.wer', 'evals.golden', 'distilled', 'utils.envcfg',\n"
         "          'utils.costmodel', 'serve.tenancy', 'serve.stt_batch', 'serve.handoff',\n"
         "          'ckpt.hf_import', 'grammar.hf_tokenizer', 'parallel.ring',\n"
-        "          'parallel.longctx', 'serve.planner'):\n"
+        "          'parallel.longctx', 'serve.planner', 'parallel.mesh',\n"
+        "          'parallel.pipeline', 'parallel.expert', 'parallel.multihost',\n"
+        "          'serve.pp_engine', 'ops.sharded'):\n"
         "    importlib.import_module('tpu_voice_agent_torch.' + m)\n"
         "import chip_smoke\n"
         # checkpoint import reads safetensors and tokenizer.json itself
@@ -386,7 +397,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 51 and bad.strip() == "[]"
+    assert int(n) >= 57 and bad.strip() == "[]"
 
 
 # ---------------------------------------------------------------- batched

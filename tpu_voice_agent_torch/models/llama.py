@@ -39,10 +39,14 @@ from ..ops import (
     paged_attention_quant,
     paged_block_attention,
     paged_block_attention_quant,
+    sharded_decode_attention_layer,
+    sharded_decode_block_attention_layer,
+    sharded_flash_attention,
 )
 from ..ops.kvquant import dequantize_kv, kv_quant_bits, quantize_kv
+from ..parallel.mesh import Sharded, local_tree, on_device
 from ..utils.compilewatch import watch_compiles
-from .moe import moe_capacity, route_topk, route_topk_flat
+from .moe import moe_capacity, route_expert_block, route_topk_flat
 
 # ---------------------------------------------------------------- config
 
@@ -185,6 +189,20 @@ def unstack_layers(layers: dict) -> list[dict]:
     return [{k: pick(v, i) for k, v in layers.items()} for i in range(L)]
 
 
+def stack_layers(layers) -> dict:
+    """The stacked (L, ...) layer dict of per-layer dicts (a copy); a
+    stacked dict passes through."""
+    if isinstance(layers, dict):
+        return layers
+
+    def stack(vals):
+        if isinstance(vals[0], dict):
+            return {k: stack([v[k] for v in vals]) for k in vals[0]}
+        return torch.stack(vals)
+
+    return {k: stack([layer[k] for layer in layers]) for k in layers[0]}
+
+
 # ---------------------------------------------------------------- quantization
 
 
@@ -268,14 +286,23 @@ def _attend(q, k_cache, v_cache, q_positions, kv_len_mask):
     return out.reshape(B, T, nq * hd).to(q.dtype)
 
 
+def _layer_proj(p, x, cfg: LlamaConfig):
+    """attn-norm -> the q / k / v projections, (B, T, heads * head_dim)
+    each (a tensor-parallel shard's own columns of them)."""
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    return tuple(_qe(h, p[n]).to(x.dtype) for n in ("wq", "wk", "wv"))
+
+
+def _rope_heads(q, k, v, head_dim: int, cos, sin):
+    """Projections -> (B, T, heads, head_dim), q and k rotated."""
+    B, T = q.shape[:2]
+    q, k, v = (t.reshape(B, T, -1, head_dim) for t in (q, k, v))
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
 def _layer_qkv(p, x, cfg: LlamaConfig, cos, sin):
     """attn-norm -> q/k/v projections -> head reshape -> RoPE."""
-    B, T = x.shape[:2]
-    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q = _qe(h, p["wq"]).to(x.dtype).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = _qe(h, p["wk"]).to(x.dtype).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = _qe(h, p["wv"]).to(x.dtype).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    return _rope_heads(*_layer_proj(p, x, cfg), cfg.head_dim, cos, sin)
 
 
 def grouped_layout(flat_e: torch.Tensor, n_experts: int):
@@ -345,8 +372,6 @@ def _moe_ffn(p, h, cfg: LlamaConfig):
     tokens of a bucketed prefill never crowd out real ones."""
     if cfg.moe_impl == "grouped":
         return _moe_ffn_grouped(p, h, cfg)
-    B, T, d = h.shape
-    x2 = h.reshape(B * T, d)
     cf = max(cfg.capacity_factor, cfg.n_experts / cfg.top_k)
     if cf != cfg.capacity_factor:
         warnings.warn(
@@ -355,13 +380,24 @@ def _moe_ffn(p, h, cfg: LlamaConfig):
             f"{cfg.n_experts}/{cfg.top_k} in the config to silence this",
             stacklevel=2,
         )
+    return _moe_ffn_shard(p, h, cfg, 0, cfg.n_experts)
+
+
+def _moe_ffn_shard(p, h, cfg: LlamaConfig, e0: int, n_local: int):
+    """The dense-dispatch MoE FFN over experts e0 .. e0 + n_local (all of
+    them for ``_moe_ffn``; one tp shard's block on a mesh whose tp axis
+    splits the experts, ``parallel.mesh.param_shardings``): the full
+    drop-free routing, that block of the dispatch and combine tensors, its
+    experts' SwiGLU; the shards' outputs sum to ``_moe_ffn``'s."""
+    B, T, d = h.shape
+    x2 = h.reshape(B * T, d)
+    cf = max(cfg.capacity_factor, cfg.n_experts / cfg.top_k)
     C = moe_capacity(B * T, cfg.n_experts, cfg.top_k, cf)
-    dispatch, combine = route_topk(p["router"], x2, cfg.n_experts, cfg.top_k, C)
-    xe = torch.einsum("tec,td->ecd", dispatch.to(h.dtype), x2)  # (E, C, d)
-    gate = _qe(xe, p["moe_gate"])
-    up = _qe(xe, p["moe_up"])
-    a = (F.silu(gate) * up).to(h.dtype)
-    down = _qe(a, p["moe_down"]).to(h.dtype)  # (E, C, d)
+    dispatch, combine = route_expert_block(p["router"], x2, cfg.n_experts, cfg.top_k, C,
+                                           e0, n_local)
+    xe = torch.einsum("tec,td->ecd", dispatch.to(h.dtype), x2)  # (n_local, C, d)
+    a = (F.silu(_qe(xe, p["moe_gate"])) * _qe(xe, p["moe_up"])).to(h.dtype)
+    down = _qe(a, p["moe_down"]).to(h.dtype)
     return torch.einsum("tec,ecd->td", combine.to(h.dtype), down).reshape(B, T, d)
 
 
@@ -390,9 +426,14 @@ def forward(
     kv_cache: dict,  # (L, B, S, nkv, hd), updated in place
     attn_impl: str = "kernels",  # "kernels" | "torch"
     fresh_block: bool = False,  # caller asserts this T>1 block starts a sequence at pos 0
+    rules=None,  # parallel.mesh.ShardingRules: the tensor-parallel forward on its mesh
 ) -> tuple[torch.Tensor, dict]:
     """Unified prefill/decode forward; returns logits (B, T, V) f32 and the
     cache dict (the same tensors, written in place).
+
+    With ``rules`` the params and the cache are ``parallel.mesh.Sharded``
+    trees laid out by ``param_shardings`` / ``kv_cache_shardings`` on
+    ``rules.mesh`` and ``_forward_mesh`` runs the tensor-parallel forward.
 
     Writes k/v for ``tokens`` into cache slots ``positions``, then attends.
     ``attn_impl="kernels"`` takes the branch split of llama.py:475-511:
@@ -403,6 +444,9 @@ def forward(
     cache attention ``_attend``. ``attn_impl="torch"`` takes ``_attend``
     everywhere. Each kernel wrapper runs its plain version on CPU tensors.
     """
+    if rules is not None:
+        return _forward_mesh(params, cfg, tokens, positions, kv_cache, rules,
+                             attn_impl == "kernels", fresh_block), kv_cache
     B, T = tokens.shape
     S = kv_cache["k"].shape[2]
     layers = params["layers"]
@@ -435,6 +479,165 @@ def forward(
         x = _layer_out(p, x, attn.reshape(B, T, -1), cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _qe(x, params["lm_head"]), kv_cache
+
+
+def tp_sum(parts: list) -> torch.Tensor:
+    """The all-reduce of a tensor-parallel group: its shards' partials summed
+    in shard order on the first shard's device, so every shard that takes a
+    copy holds the same bits."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p.to(acc.device)
+    return acc
+
+
+def _group_add(x: dict, part: dict, groups, dev: dict) -> dict:
+    """``x`` plus its tp group's partials summed in shard order (``tp_sum``),
+    on every shard of the group."""
+    out = {}
+    for g in groups:
+        total = tp_sum([part[c] for c in g])
+        for c in g:
+            out[c] = x[c] + total.to(dev[c]).to(x[c].dtype)
+    return out
+
+
+def tp_block(x: dict, p: dict, cfg: LlamaConfig, groups, dev: dict, rope: dict, cache: dict,
+             slots: dict, attend, gather_q: bool = False, moe_split: bool = False) -> dict:
+    """One Megatron decoder block over tensor-parallel shards, every
+    argument a dict keyed by shard: ``x`` the residual stream (each shard's
+    copy), ``p`` its layer weights, ``dev`` its device, ``rope`` its
+    (cos, sin), ``cache`` its (k, v) layer blocks, written in place at
+    ``slots`` (the (row, position) index pair); ``groups`` lists the tp
+    groups' shards in shard order. Each shard projects its heads' q / k / v
+    (with ``gather_q``, tp does not divide the heads: wq's column slices are
+    gathered over the group before RoPE, every shard attends over all the
+    heads and keeps its rows of wo's input) and writes its cache block;
+    ``attend(q, k, v)`` maps the (B, T, heads, hd) dicts to each shard's
+    attention. The row-parallel wo and w_down partials are summed over the
+    group (``_group_add``: the two all-reduces). The FFN is the SwiGLU
+    slice, or the MoE: with ``moe_split`` the shard's expert block (partials
+    summed), else the whole on every shard. Each shard's work runs with its
+    card current; at tp 1 this is ``_layer_qkv`` + ``_layer_out``."""
+    keys = [c for g in groups for c in g]
+    q, k, v = {}, {}, {}
+    for c in keys:
+        with on_device(dev[c]):
+            q[c], k[c], v[c] = _layer_proj(p[c], x[c], cfg)
+    if gather_q:
+        q = {c: torch.cat([q[s].to(dev[c]) for s in g], dim=-1) for g in groups for c in g}
+    for c in keys:
+        with on_device(dev[c]):
+            q[c], k[c], v[c] = _rope_heads(q[c], k[c], v[c], cfg.head_dim, *rope[c])
+            kc, vc = cache[c]
+            kc[slots[c]] = k[c].to(kc.dtype)
+            vc[slots[c]] = v[c].to(vc.dtype)
+    attn = attend(q, k, v)
+    part = {}
+    for g in groups:
+        for j, c in enumerate(g):
+            with on_device(dev[c]):
+                a = attn[c].reshape(*x[c].shape[:2], -1)
+                if gather_q:
+                    w = a.shape[-1] // len(g)
+                    a = a[..., j * w:(j + 1) * w]
+                part[c] = _qe(a, p[c]["wo"])
+    x = _group_add(x, part, groups, dev)
+    for g in groups:
+        for j, c in enumerate(g):
+            with on_device(dev[c]):
+                h = rms_norm(x[c], p[c]["mlp_norm"], cfg.norm_eps)
+                if cfg.n_experts > 0 and moe_split:
+                    n = cfg.n_experts // len(g)
+                    part[c] = _moe_ffn_shard(p[c], h, cfg, j * n, n).float()
+                elif cfg.n_experts > 0:
+                    part[c] = _moe_ffn(p[c], h, cfg)
+                else:
+                    act = (F.silu(_qe(h, p[c]["w_gate"])) * _qe(h, p[c]["w_up"]))
+                    part[c] = _qe(act.to(x[c].dtype), p[c]["w_down"])
+    if cfg.n_experts > 0 and not moe_split:  # replicated experts: the whole FFN
+        return {c: x[c] + part[c].to(x[c].dtype) for c in keys}
+    return _group_add(x, part, groups, dev)
+
+
+def _forward_mesh(params, cfg: LlamaConfig, tokens, positions, kv_cache, rules,
+                  kernels: bool, fresh_block: bool) -> torch.Tensor:
+    """The tensor-parallel forward on a (dp, tp) mesh (llama.py:418-530 under
+    ``rules``). Batch rows split over dp; each layer is ``tp_block`` over
+    the dp groups (all heads, q gathered over the shards, when tp does not
+    divide the kv heads: the cache is then replicated), attending through
+    the sharded kernel wrappers (one launch per shard); the vocab-split
+    logits are gathered onto ``tokens``' device. Nothing is copied out of
+    the cache."""
+    mesh = rules.mesh
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    B, T = tokens.shape
+    hd = cfg.head_dim
+    heads = tp == 1 or kc.spec[3] == "tp"
+    if heads != (cfg.n_kv_heads % tp == 0) or (dp > 1 and kc.spec[1] != "dp"):
+        raise ValueError(f"cache laid out as {kc.spec}; the meshed forward takes "
+                         "parallel.mesh.kv_cache_shardings' layout")
+    if kc.shape[1] != B:
+        raise ValueError(f"{B} token rows for a cache of {kc.shape[1]}")
+    Bl = B // dp
+    coords = mesh.coords()
+    dev = {c: mesh.device(c) for c in coords}
+    groups = [[(i, j) for j in range(tp)] for i in range(dp)]
+
+    def rows(t, c):
+        return t[c[0] * Bl:(c[0] + 1) * Bl].to(dev[c])
+
+    frontier = torch.amax(positions, dim=1)
+    kv_len = (frontier + 1).to(torch.int32)
+    pos = {c: rows(positions, c) for c in coords}
+    slots = {c: (torch.arange(Bl, device=dev[c])[:, None], pos[c].long()) for c in coords}
+    mask = {c: torch.arange(kc.shape[2], device=dev[c])[None, :] <= rows(frontier, c)[:, None]
+            for c in coords}
+    rope = {c: rope_tables(pos[c], hd, cfg.rope_theta) for c in coords}
+    x = {c: params["embed"].local(c)[rows(tokens, c).long()] for c in coords}
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        layers = unstack_layers(layers)
+    gate = layers[0].get("moe_gate")
+    gate = gate["q"] if isinstance(gate, dict) else gate
+    moe_split = gate is not None and tp > 1 and gate.spec[0] == "tp"  # experts over tp
+    qs = ("dp", None, "tp" if heads else None, None)
+
+    def attend(q, k, v, li):
+        if kernels and T == 1:
+            a = sharded_decode_attention_layer(
+                mesh, Sharded.from_locals(mesh, (qs[0], qs[2], None), {c: q[c][:, 0] for c in q}),
+                kc, vc, kv_len, li)
+        elif kernels and not fresh_block and T <= MAX_BLOCK_DECODE_T:
+            a = sharded_decode_block_attention_layer(mesh, Sharded.from_locals(mesh, qs, q),
+                                                     kc, vc, positions, li)
+        elif kernels and fresh_block:
+            a = sharded_flash_attention(mesh, Sharded.from_locals(mesh, qs, q),
+                                        Sharded.from_locals(mesh, qs, k),
+                                        Sharded.from_locals(mesh, qs, v), causal=True)
+        else:
+            out = {}
+            for c in coords:
+                with on_device(dev[c]):
+                    out[c] = _attend(q[c], kc.local(c)[li], vc.local(c)[li], pos[c], mask[c])
+            return out
+        return {c: a.local(c) for c in coords}
+
+    for li, lp in enumerate(layers):
+        x = tp_block(x, {c: local_tree(lp, c) for c in coords}, cfg, groups, dev, rope,
+                     {c: (kc.local(c)[li], vc.local(c)[li]) for c in coords}, slots,
+                     lambda q, k, v, li=li: attend(q, k, v, li),
+                     gather_q=not heads, moe_split=moe_split)
+    out = []
+    for g in groups:
+        parts = []
+        for c in g:
+            with on_device(dev[c]):
+                hf = rms_norm(x[c], params["final_norm"].local(c), cfg.norm_eps)
+                parts.append(_qe(hf, local_tree(params["lm_head"], c)).to(tokens.device))
+        out.append(torch.cat(parts, dim=-1))
+    return torch.cat(out, dim=0)
 
 
 @watch_compiles("llama.forward_paged", static=("gather_blocks",))

@@ -80,3 +80,13 @@ def route_topk(router_w: torch.Tensor, x: torch.Tensor, n_experts: int, top_k: i
     dispatch = slot * keep[..., None]
     combine = dispatch * kept_gate[..., None]
     return dispatch, combine
+
+
+def route_expert_block(router_w: torch.Tensor, x: torch.Tensor, n_experts: int, top_k: int,
+                       capacity: int, e0: int, n_local: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``route_topk``'s (dispatch, combine) restricted to experts e0 ..
+    e0 + n_local (T, n_local, C): the block an expert-parallel shard
+    multiplies. Every shard routes all the tokens, so the blocks' combines
+    sum to the whole's."""
+    dispatch, combine = route_topk(router_w, x, n_experts, top_k, capacity)
+    return dispatch[:, e0:e0 + n_local], combine[:, e0:e0 + n_local]

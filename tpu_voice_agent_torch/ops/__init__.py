@@ -16,6 +16,9 @@
 | K12 | ``decode_block_attention`` | ``decode_block_attention_reference`` | ``ops/decode_attention.py decode_block_attention`` |
 | K13 | ``grouped_matmul`` | ``grouped_matmul_reference`` | ``ops/grouped_matmul.py grouped_matmul`` |
 
+``ops.sharded`` runs K1, K2, K3, K5, K4 and K11 over a dp x tp mesh, one
+launch per shard (the ``sharded_*`` wrappers of the JAX package).
+
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``wrapper.launches``; ``launch_counts`` reads them all and
 ``reset_launch_counts`` sets them to 0.
@@ -49,6 +52,15 @@ from .paged_attention import (
     paged_block_attention_quant,
     paged_block_attention_quant_reference,
     paged_block_attention_reference,
+)
+from .sharded import (
+    sharded_decode_attention,
+    sharded_decode_attention_layer,
+    sharded_decode_block_attention_layer,
+    sharded_flash_attention,
+    sharded_masked_argmax,
+    sharded_masked_argmax_advance,
+    sharded_masked_argmax_block,
 )
 
 KERNELS = {
@@ -107,4 +119,11 @@ __all__ = [
     "paged_block_attention_quant_reference",
     "paged_block_attention_reference",
     "reset_launch_counts",
+    "sharded_decode_attention",
+    "sharded_decode_attention_layer",
+    "sharded_decode_block_attention_layer",
+    "sharded_flash_attention",
+    "sharded_masked_argmax",
+    "sharded_masked_argmax_advance",
+    "sharded_masked_argmax_block",
 ]

@@ -42,7 +42,8 @@ Each wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors, and only then. The plain versions gather each row's
 blocks into a contiguous cache and run the dense plain versions of K2 / K3
 (``decode_attention_reference``, ``decode_block_attention_reference``).
-Not ported: the ``sharded_*`` wrappers (on one card they are the kernel).
+Not ported yet: the ``sharded_*`` paged wrappers, which come with the
+paged engine on a mesh (ROADMAP.md Queue 1 item 8c, second part).
 """
 
 from __future__ import annotations

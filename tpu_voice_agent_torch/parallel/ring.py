@@ -30,11 +30,10 @@ plain versions run only on CPU tensors, as for every kernel wrapper.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from ..ops import flash_attention
+from .mesh import on_device as _on
 
 
 def sp_mesh(sp: int, devices: list | None = None) -> list[torch.device]:
@@ -47,11 +46,6 @@ def sp_mesh(sp: int, devices: list | None = None) -> list[torch.device]:
     if sp > len(devices):
         raise ValueError(f"sp={sp} needs {sp} devices, have {len(devices)}")
     return devices[:sp]
-
-
-def _on(dev: torch.device):
-    """Make ``dev`` the current CUDA device for a launch on its tensors."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def _shards(x: torch.Tensor, mesh: list[torch.device]) -> list[torch.Tensor]:

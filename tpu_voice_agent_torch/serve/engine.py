@@ -41,7 +41,18 @@ step still running past the watchdog stops at its next launch.
 checkpoint directory over its own tokenizer: the intent FSM is built at the
 config's vocab width, where S·V is past the dense-mask limit, so greedy
 constrained picks take the compressed two-gather row in torch, not K4, as in
-JAX. Left out (still JAX-only): meshes.
+JAX.
+
+``DecodeEngine(mesh=...)`` (and ``from_hf(mesh=...)``) serves on a dp x tp
+mesh (``parallel.mesh``): weights and the dense cache live as per-device
+blocks laid out by JAX's placement plans, each dp group holds B / dp cache
+lines, the forward is ``models.llama``'s tensor-parallel one with its
+kernels launched per shard (``ops.sharded``), and the grammar tail runs K4
+(K11 under speculation) per shard over tables replicated on every device.
+The model vocab is padded to a tp multiple before the FSM is built; the
+padded ids are grammar-dead and ``logit_mask`` keeps them unsampleable in
+unconstrained decoding too (as it does a checkpoint's own padded ids).
+``PPDecodeEngine`` (``serve.pp_engine``) is the pp x tp layout.
 """
 
 from __future__ import annotations
@@ -61,9 +72,20 @@ from ..models.llama import (
     init_kv_cache,
     init_params,
     quantize_params,
+    stack_layers,
     unstack_layers,
 )
-from ..ops import masked_argmax_advance
+from ..ops import masked_argmax_advance, sharded_masked_argmax_advance
+from ..parallel.mesh import (
+    Sharded,
+    default_rules,
+    kv_cache_shardings,
+    param_shardings,
+    place,
+    place_tree,
+    quantized_param_shardings,
+    tree_row,
+)
 from ..utils.chaos import ChaosError, chaos_fire
 from ..utils.compilewatch import get_compile_watcher, watch_compiles
 from ..utils.quality import conf_summary, quality_lanes_enabled
@@ -112,6 +134,23 @@ def checkpoint_tokenizer(model_dir: str):
     return tok
 
 
+def pad_vocab(params: dict, vocab_size: int) -> dict:
+    """A param tree with its embedding rows and lm_head columns padded with
+    zeros up to ``vocab_size`` (a mesh engine's tp multiple); an int8 head
+    pads q with 0 and s with 1, what quantizing a zero column gives. The
+    padded ids are grammar-dead and masked out of unconstrained sampling."""
+    import torch.nn.functional as F
+
+    pad = vocab_size - params["embed"].shape[0]
+    if pad <= 0:
+        return params
+    head = params["lm_head"]
+    return {**params, "embed": F.pad(params["embed"], (0, 0, 0, pad)),
+            "lm_head": ({"q": F.pad(head["q"], (0, pad)), "s": F.pad(head["s"], (0, pad),
+                                                                     value=1.0)}
+                        if isinstance(head, dict) else F.pad(head, (0, pad)))}
+
+
 def byte_len_table_for(tokenizer, vocab_size: int, device="cpu") -> torch.Tensor:
     """(V,) int32 bytes each token id contributes to decoded output — the
     table the byte-budget stop condition gathers from."""
@@ -147,15 +186,24 @@ class GenerationResult:
 
 
 def _mask_sample_advance(logits, fsm_state, tables: DeviceFSM, generator, temperature: float,
-                         greedy: bool, constrained: bool):
+                         greedy: bool, constrained: bool, mesh_tables=None, logit_mask=None):
     """The one sampling block: grammar-mask logits, pick a token, advance
     the FSM. Greedy constrained decoding with a dense mask is ONE kernel
-    (K4: mask + argmax + advance); otherwise the compressed two-gather row.
-    Sampling is Gumbel-max over ``torch.Generator`` noise (categorical
-    sampling that never faults on a fully masked row)."""
+    (K4: mask + argmax + advance; on a mesh, ``mesh_tables`` = (mesh, mask,
+    table, col_id) replicated, one K4 launch per shard over its rows);
+    otherwise the compressed two-gather row. ``logit_mask`` ((V,) bool, or
+    None) makes padded-vocab ids unsampleable. Sampling is Gumbel-max over
+    ``torch.Generator`` noise (categorical sampling that never faults on a
+    fully masked row)."""
     if constrained and greedy and tables.dense_mask is not None:
+        if mesh_tables is not None:
+            tok, nxt = sharded_masked_argmax_advance(mesh_tables[0], logits, fsm_state,
+                                                     *mesh_tables[1:])
+            return tok.full(logits.device), nxt.full(logits.device)
         return masked_argmax_advance(logits, fsm_state, tables.dense_mask, tables.table,
                                      tables.col_id)
+    if logit_mask is not None:
+        logits = torch.where(logit_mask[None, :], logits, float("-inf"))
     row = None
     if constrained:
         row = fsm_row(tables, fsm_state)  # (B, V) next states; -1 dead
@@ -195,7 +243,7 @@ _first_token = watch_compiles("engine._first_token")(_mask_sample_advance)
 QUALITY_MARGIN_CAP = 30.0
 
 
-def _conf_stats(raw, state, tables: DeviceFSM, constrained: bool):
+def _conf_stats(raw, state, tables: DeviceFSM, constrained: bool, logit_mask=None):
     """Masked-logit confidence of ONE sampling decision per row: the top1 -
     top2 margin of the masked logits, the entropy of the masked softmax, and
     the forced flag (the grammar leaves at most one legal token). The legal
@@ -203,6 +251,8 @@ def _conf_stats(raw, state, tables: DeviceFSM, constrained: bool):
     its masked logits), masked with -inf. Reads only: nothing feeds back
     into sampling."""
     lg = raw.float()
+    if logit_mask is not None:
+        lg = torch.where(logit_mask[None, :], lg, float("-inf"))
     if constrained:
         row = fsm_row(tables, torch.clamp(state, min=0))
         legal = (row >= 0) & (state >= 0)[:, None]
@@ -272,6 +322,14 @@ def prefill_row(params, cfg: LlamaConfig, cache: dict, tokens, positions, slot: 
     return logits
 
 
+@watch_compiles("engine.prefill_row")
+def _prefill_row_mesh(params, cfg: LlamaConfig, row: dict, tokens, positions, rules,
+                      fresh: bool):
+    """``prefill_row`` / ``prefill_row_with_prefix`` on a dp group: the
+    forward over the slot's line views, logits (1, T, V)."""
+    return forward(params, cfg, tokens, positions, row, fresh_block=fresh, rules=rules)[0]
+
+
 @watch_compiles("engine.prefill_row_with_prefix")
 def prefill_row_with_prefix(params, cfg: LlamaConfig, cache: dict, prefix_k, prefix_v,
                             tokens, positions, slot: int):
@@ -316,7 +374,8 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
                 tables: DeviceFSM, byte_len_table, generator, temperature: float,
                 byte_budget: int, chunk_steps: int = 32, greedy: bool = True,
                 constrained: bool = True, eos_id: int = 2, pad_id: int = 0,
-                quality_lanes: bool = False, nan_inject=None):
+                quality_lanes: bool = False, nan_inject=None, mesh_tables=None,
+                logit_mask=None):
     """THE decode loop, for every KV layout: advance every active row by up
     to ``chunk_steps`` steps on the device (engine.py:367-589, and its paged
     twin paged.py:287-492). ``forward_step(tokens, positions, active)``
@@ -330,6 +389,7 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
     dead FSM state) deactivates without committing its sample.
     ``nan_inject`` ((B,) bool on the device, or None) is the chaos drill:
     a flagged active row's logits become NaN before the poison gate.
+    ``mesh_tables`` / ``logit_mask``: ``_mask_sample_advance``'s.
 
     With ``quality_lanes`` every committed decision folds its confidence
     into per-row device lanes (``_conf_accumulate``); a fast-forward step
@@ -390,12 +450,12 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
             if nan_inject is not None:
                 raw = torch.where((nan_inject & active)[:, None], float("nan"), raw)
             nxt, state_next = _mask_sample_advance(raw, s_end, tables, generator, temperature,
-                                                   greedy, constrained)
+                                                   greedy, constrained, mesh_tables, logit_mask)
             ok, poison = _poison_gate(raw, s_end, state_next, active, poison, constrained)
             if quality_lanes:
                 # the decision at the chain's end, plus the emitted chain
                 # tokens counted as forced (masked by active, not ok)
-                mg, en, f1 = _conf_stats(raw, s_end, tables, constrained)
+                mg, en, f1 = _conf_stats(raw, s_end, tables, constrained, logit_mask)
                 conf = _conf_accumulate(conf, ok, mg, en, f1,
                                         forced_extra=torch.where(active, k, 0))
             pos = torch.where(ok, pos + 1 + k, pos)
@@ -413,10 +473,10 @@ def decode_loop(forward_step, max_pos: int, cur, pos, fsm_state, active, nbytes,
             if nan_inject is not None:
                 raw = torch.where((nan_inject & active)[:, None], float("nan"), raw)
             nxt, state_next = _mask_sample_advance(raw, state, tables, generator, temperature,
-                                                   greedy, constrained)
+                                                   greedy, constrained, mesh_tables, logit_mask)
             ok, poison = _poison_gate(raw, state, state_next, active, poison, constrained)
             if quality_lanes:
-                mg, en, f1 = _conf_stats(raw, state, tables, constrained)
+                mg, en, f1 = _conf_stats(raw, state, tables, constrained, logit_mask)
                 conf = _conf_accumulate(conf, ok, mg, en, f1)
             pos = torch.where(ok, pos + 1, pos)
         state = torch.where(ok, state_next, state)
@@ -439,9 +499,9 @@ def _sync(device: torch.device) -> None:
 
 
 class DecodeEngine:
-    """Grammar-constrained decode engine on one device: ``generate`` with
-    one slot, or ``batch_slots`` dense cache lines behind the continuous
-    batcher."""
+    """Grammar-constrained decode engine on one device or a dp x tp mesh:
+    ``generate`` with one slot, or ``batch_slots`` dense cache lines behind
+    the continuous batcher."""
 
     # the decode loop under this layout's compile-sentinel site
     _chunk_loop = staticmethod(chunk_decode_loop)
@@ -463,7 +523,14 @@ class DecodeEngine:
         device: str | torch.device | None = None,  # None = cuda, or raise
         spec=None,  # serve.spec.SpecConfig | None: speculative decoding
         quality_lanes: bool | None = None,  # None: QUALITY_ENABLE (default on)
+        mesh=None,  # parallel.mesh.Mesh with ("dp", "tp") axes (make_mesh)
     ):
+        self.mesh = mesh
+        if mesh is not None:
+            first = mesh.devices.flat[0]
+            if device is not None and torch.device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first device {first}")
+            device = first
         self.device = resolve_device(device)
         self.quality_lanes = (quality_lanes_enabled() if quality_lanes is None
                               else bool(quality_lanes))
@@ -490,11 +557,21 @@ class DecodeEngine:
             if vocab < tokenizer.vocab_size:
                 raise ValueError(
                     f"model vocab {vocab} < tokenizer vocab {tokenizer.vocab_size}")
+        if mesh is not None:
+            if base.moe_impl == "grouped":
+                raise ValueError(
+                    "moe_impl='grouped' is single-device; meshed MoE engines "
+                    "use dense dispatch (EP shards experts over tp)")
+            # lm_head splits the vocab over tp: pad it to a tp multiple
+            # before the (multi-second) FSM build, at the final width
+            tp = mesh.shape.get("tp", 1)
+            vocab = -(-vocab // tp) * tp
         if fsm is not None:
             if fsm.vocab_size != vocab:
-                raise ValueError(f"custom fsm width {fsm.vocab_size} != model vocab {vocab} "
-                                 f"(build it with grammar.build_fsm_for(tokenizer, "
-                                 f"vocab_size={vocab}))")
+                raise ValueError(
+                    f"custom fsm width {fsm.vocab_size} != model vocab {vocab} "
+                    f"(mesh engines pad the vocab to a tp multiple; build it "
+                    f"with grammar.build_fsm_for(tokenizer, vocab_size={vocab}))")
             self.fsm = fsm
         elif prebuilt is not None and prebuilt.vocab_size == vocab:
             self.fsm = prebuilt
@@ -510,6 +587,19 @@ class DecodeEngine:
             raise ValueError(f"unknown quant {quant!r}")
         self.quant = quant
         self.params = None
+        self.rules = None
+        if mesh is not None:
+            dp = mesh.shape.get("dp", 1)
+            if batch_slots % dp != 0:
+                raise ValueError(
+                    f"batch_slots ({batch_slots}) must be divisible by the mesh dp axis "
+                    f"({dp}); dp>1 shards the KV-cache batch dim. Use batch_slots=dp*k "
+                    "(batched decode is driven by serve.scheduler).")
+            self.rules = default_rules(mesh, self.cfg.n_kv_heads, self.cfg.n_heads)
+            # one dp group's (1, tp) sub-mesh and rules: a slot's admission
+            # runs on the group that holds its cache line
+            self._group_rules = [default_rules(mesh.row(g), self.cfg.n_kv_heads,
+                                               self.cfg.n_heads) for g in range(dp)]
         if init_weights:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             # int8 quantizes as it draws: a mixtral-8x7b tree fits the card
@@ -528,6 +618,19 @@ class DecodeEngine:
             self.tables_ff = None
         self.byte_len_table = byte_len_table_for(self.tokenizer, self.cfg.vocab_size,
                                                  self.device)
+        # ids past the tokenizer (mesh tp padding, a checkpoint's padded
+        # embedding table) decode to nothing: unsampleable even unconstrained
+        self.logit_mask = (torch.arange(self.cfg.vocab_size, device=self.device)
+                           < self.tokenizer.vocab_size
+                           if self.cfg.vocab_size > self.tokenizer.vocab_size else None)
+        # the grammar tail's tables on every mesh device, placed once
+        self.mesh_tables = None
+        if mesh is not None and self.tables.dense_mask is not None:
+            t = self.tables
+            self.mesh_tables = (mesh, place(t.dense_mask, mesh, (None, None)),
+                                place(t.table, mesh, (None, None)), place(t.col_id, mesh, (None,)))
+        # what every sampling call of this engine passes along
+        self.sample_kw = {"mesh_tables": self.mesh_tables, "logit_mask": self.logit_mask}
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         # shared-prefix cache: token ids + their precomputed KV (L,1,P,nkv,hd)
         self.prefix_ids: list[int] = []
@@ -557,17 +660,38 @@ class DecodeEngine:
 
     def _init_kv_cache(self):
         """Layout hook: one dense cache line per slot (the paged engine
-        holds a block pool instead)."""
+        holds a block pool instead); on a mesh, each device's
+        (L, B / dp, S, nkv / tp, hd) block."""
+        if self.mesh is not None:
+            c = self.cfg
+            shape = (c.n_layers, self.batch_slots, self.max_len, c.n_kv_heads, c.head_dim)
+            return {name: Sharded.zeros(self.mesh, shape, spec, torch.bfloat16)
+                    for name, spec in kv_cache_shardings(self.mesh, c.n_kv_heads).items()}
         return init_kv_cache(self.cfg, self.batch_slots, self.max_len, device=self.device)
 
     def load_params(self, params: dict) -> None:
         """Install weights (stacked-layer tree on this engine's device),
-        applying the engine's quantization to a raw tree."""
+        applying the engine's quantization to a raw tree. On a mesh the
+        (quantized) tree is laid out by JAX's placement plans (each leaf
+        quantized whole, then q and s placed); a tree already laid out on
+        this mesh, another engine's, is shared as it is."""
         if self.quant == "int8" and not isinstance(params.get("lm_head"), dict):
             params = quantize_params(params)
         layers = params["layers"]
+        if self.mesh is not None:
+            if not isinstance(params["embed"], Sharded):
+                c = self.cfg
+                plan = (quantized_param_shardings if self.quant == "int8" else param_shardings)(
+                    self.mesh, c.n_kv_heads, c.n_experts)
+                params = place_tree({**params, "layers": stack_layers(layers)}, self.mesh, plan)
+                layers = params["layers"]
+            elif params["embed"].mesh != self.mesh:
+                raise ValueError("the tree is laid out on another mesh")
         self.params = {**params, "layers": (unstack_layers(layers)
                                             if isinstance(layers, dict) else layers)}
+        if self.mesh is not None:
+            self._group_params = [tree_row(self.params, g)
+                                  for g in range(self.mesh.shape.get("dp", 1))]
 
     @classmethod
     def from_hf(
@@ -582,6 +706,7 @@ class DecodeEngine:
         fast_forward: int = 0,
         moe_impl: str | None = None,  # "grouped": K13's dispatch on a Mixtral checkpoint
         device: str | torch.device | None = None,
+        mesh=None,  # a dp x tp mesh: the vocab pads to a tp multiple
         **engine_kw,  # subclass knobs (PagedDecodeEngine: pool_blocks, ...)
     ) -> "DecodeEngine":
         """Serve an HF checkpoint directory: ``config.json`` decides the
@@ -590,7 +715,10 @@ class DecodeEngine:
         config from the headers before anything is built, then read straight
         onto the engine's device; under ``quant="int8"`` one layer at a time).
         A classmethod, so ``PagedDecodeEngine.from_hf`` builds the paged
-        engine through the same loader."""
+        engine through the same loader. On a mesh whose tp does not divide
+        the checkpoint's vocab the engine pads it, and the embedding rows and
+        lm_head columns are padded with zeros to match (int8: q 0, s 1, what
+        quantizing a zero column gives)."""
         import os
 
         from ..ckpt.hf_import import (
@@ -608,9 +736,9 @@ class DecodeEngine:
         eng = cls(cfg=cfg, max_len=max_len, batch_slots=batch_slots,
                   prefill_buckets=prefill_buckets, kernels=kernels, quant=quant,
                   tokenizer=checkpoint_tokenizer(model_dir), init_weights=False,
-                  fast_forward=fast_forward, device=device, **engine_kw)
-        eng.load_params(llama_from_hf_state(model_dir, cfg, dtype=dtype, device=eng.device,
-                                            quant=quant))
+                  fast_forward=fast_forward, device=device, mesh=mesh, **engine_kw)
+        params = llama_from_hf_state(model_dir, cfg, dtype=dtype, device=eng.device, quant=quant)
+        eng.load_params(pad_vocab(params, eng.cfg.vocab_size))
         return eng
 
     def _bucket(self, n: int) -> int:
@@ -659,7 +787,21 @@ class DecodeEngine:
 
     def _compute_prefix_kv(self, tokens, positions, P: int, bucket: int) -> dict:
         """Prefill the prefix (a fresh block: K1) into a scratch cache and
-        return its KV (L, 1, P, nkv, hd)."""
+        return its KV (L, 1, P, nkv, hd). On a mesh dp group 0 computes it
+        and every group gets a copy of its shards (``Sharded`` over the
+        mesh, the batch axis replicated)."""
+        if self.mesh is not None:
+            c, sub = self.cfg, self.mesh.row(0)
+            spec = kv_cache_shardings(self.mesh, c.n_kv_heads)["k"]
+            shape = (c.n_layers, 1, bucket, c.n_kv_heads, c.head_dim)
+            scratch = {n: Sharded.zeros(sub, shape, spec, torch.bfloat16) for n in ("k", "v")}
+            forward(self._group_params[0], c, tokens, positions, scratch, fresh_block=True,
+                    rules=self._group_rules[0])
+            rep_spec = (None, None, None) + spec[3:]
+            return {n: Sharded(self.mesh, rep_spec, (c.n_layers, 1, P) + shape[3:],
+                               {co: t.local((0, co[1]))[:, :, :P].clone().to(
+                                   self.mesh.device(co)) for co in self.mesh.coords()})
+                    for n, t in scratch.items()}
         scratch = init_kv_cache(self.cfg, 1, bucket, device=self.device)
         _, kv = forward(self.params, self.cfg, tokens, positions, scratch, fresh_block=True)
         return {"k": kv["k"][:, :, :P].clone(), "v": kv["v"][:, :, :P].clone()}
@@ -721,19 +863,41 @@ class DecodeEngine:
 
     def _prefill_suffix(self, tokens, positions, slot: int, P: int, bucket: int, n: int):
         """Layout hook: admit a prefix-cached suffix into ``slot``."""
+        if self.mesh is not None:
+            return self._prefill_mesh(tokens, positions, slot, fresh=False)
         return prefill_row_with_prefix(self.params, self.cfg, self.cache, self.prefix_kv["k"],
                                        self.prefix_kv["v"], tokens, positions, slot)
 
     def _prefill_full(self, tokens, positions, slot: int, bucket: int, n: int):
         """Layout hook: admit a fresh full prompt into ``slot``."""
+        if self.mesh is not None:
+            return self._prefill_mesh(tokens, positions, slot, fresh=True)
         return prefill_row(self.params, self.cfg, self.cache, tokens, positions, slot, fresh=True)
+
+    def _prefill_mesh(self, tokens, positions, slot: int, fresh: bool):
+        """A slot's admission on a mesh: its dp group's (1, tp) sub-mesh
+        runs the forward over views of the slot's line in each tp block
+        (the prefix KV copied in first, unless ``fresh``)."""
+        per = self.batch_slots // self.mesh.shape.get("dp", 1)
+        g, r = divmod(slot, per)
+        row = {}
+        for name, cache in self.cache.items():
+            grp = cache.row(g)
+            row[name] = Sharded(grp.mesh, grp.spec, (grp.shape[0], 1) + tuple(grp.shape[2:]),
+                                {c: t[:, r:r + 1] for c, t in grp.shards.items()})
+            if not fresh:
+                pre = self.prefix_kv[name].row(g)
+                for c, t in row[name].shards.items():
+                    t[:, :, :pre.shape[2]] = pre.local(c)
+        return _prefill_row_mesh(self._group_params[g], self.cfg, row, tokens, positions,
+                                 self._group_rules[g], fresh)
 
     @watch_compiles("engine._decode_step")
     def _decode_step(self, tokens, positions, active):
         """Layout hook: one decode forward, k/v written in place (idle rows
         write slot 0 of their own line). Returns logits (B, T, V)."""
         self._fence()
-        return forward(self.params, self.cfg, tokens, positions, self.cache)[0]
+        return forward(self.params, self.cfg, tokens, positions, self.cache, rules=self.rules)[0]
 
     def _claim(self, span: int, active=None) -> list[int]:
         """Layout hook before a dispatch: room for ``span`` more positions on
@@ -773,7 +937,7 @@ class DecodeEngine:
             tables, self.byte_len_table, generator, temperature, byte_budget,
             chunk_steps=chunk_steps, greedy=greedy, constrained=True,
             eos_id=self.eos_id, pad_id=self.pad_id, quality_lanes=self.quality_lanes,
-            nan_inject=self._take_nan_inject())
+            nan_inject=self._take_nan_inject(), **self.sample_kw)
         self._last_fwds, self._last_poison, self._last_conf = fwds, pois, conf
         return out, n, eos, cur, pos, fsm, active, nbytes, left
 
@@ -839,7 +1003,7 @@ class DecodeEngine:
         last_logits = self.prefill_slot(ids, 0)
         fsm_state = torch.full((1,), self.fsm.start, dtype=torch.int32, device=self.device)
         tok0, fsm0 = _first_token(last_logits, fsm_state, self.tables, self._gen, temperature,
-                                  greedy, constrained)
+                                  greedy, constrained, **self.sample_kw)
         _sync(self.device)
         return tok0, fsm0, len(ids), (time.perf_counter() - t0) * 1e3
 
@@ -881,7 +1045,7 @@ class DecodeEngine:
                 tables, self.byte_len_table, self._gen, temperature, byte_budget,
                 chunk_steps=max_new_tokens, greedy=greedy, constrained=constrained,
                 eos_id=self.eos_id, pad_id=self.pad_id, quality_lanes=self.quality_lanes,
-            )
+                **self.sample_kw)
         count_h = int(count[0])
         out_ids = [int(t) for t in buf[0, :count_h].tolist()]
         finished = bool(eos[0])

@@ -45,7 +45,8 @@ re-quantize). ``warm_restart`` (the serving loop's stall watchdog) throws
 away the slot and allocator bookkeeping, keeps the pool tensors, the
 static prefix's blocks and the weights, and re-arms the compile sentinel's
 fence. The pool's scatters and chunk loop carry JAX's ``paged.*``
-compile-sentinel sites. Left for later: meshes.
+compile-sentinel sites. A mesh is refused (ROADMAP.md Queue 1 item 8c,
+second part).
 """
 
 from __future__ import annotations
@@ -261,6 +262,10 @@ class PagedDecodeEngine(DecodeEngine):
 
     def __init__(self, *args, block_size: int = 128, pool_blocks: int | None = None,
                  radix_enable: bool | None = None, kv_quant: str | None = None, **kw):
+        if kw.get("mesh") is not None:
+            raise ValueError("PagedDecodeEngine on a mesh (the pool's blocks over dp, its "
+                             "heads over tp, the four sharded paged kernels) is ROADMAP.md "
+                             "Queue 1 item 8c, second part; serve a mesh with DecodeEngine")
         if kv_quant is None:
             kv_quant = os.environ.get("KV_QUANT") or None
         if kv_quant in ("", "off"):

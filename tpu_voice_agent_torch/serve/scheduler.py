@@ -473,7 +473,8 @@ class ContinuousBatcher:
         start = torch.full((1,), eng.fsm.start, dtype=torch.int32, device=eng.device)
         t_fm = time.perf_counter()
         tok0, fsm0 = _first_token(last_logits, start, eng.tables, self.generator,
-                                  self.temperature, self.greedy, True)
+                                  self.temperature, self.greedy, True,
+                                  **getattr(eng, "sample_kw", {}))
         # the host's dispatch of the one standalone mask -> pick tail (K4)
         get_metrics().set_gauge("engine.step.fused_mask_sample_ms",
                                 (time.perf_counter() - t_fm) * 1e3)

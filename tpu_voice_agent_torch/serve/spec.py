@@ -56,7 +56,7 @@ import torch
 from ..grammar.fsm import DeviceFSM, fsm_advance, fsm_row
 from ..models.llama import (MAX_BLOCK_DECODE_T, PRESETS, forward, init_kv_cache, init_params,
                             unstack_layers)
-from ..ops import masked_argmax_block
+from ..ops import masked_argmax_block, sharded_masked_argmax_block
 from ..utils.compilewatch import watch_compiles
 from ..utils.tracing import get_metrics
 from .engine import _conf_init, _conf_stats, chain_block, chain_byte_cap, prefill_row
@@ -120,7 +120,8 @@ def _draft_cap(draft_len, tokens_left, pos, max_pos, active):
 
 def _verify_commit(logits, cur, pos, fsm_state, active, nbytes, tokens_left, draft_toks, dl,
                    step_tok, blk_tok, tables: DeviceFSM, byte_len_table, byte_budget: int,
-                   K: int, eos_id: int, pad_id: int, max_pos: int, quality_lanes: bool = False):
+                   K: int, eos_id: int, pad_id: int, max_pos: int, quality_lanes: bool = False,
+                   mesh_tables=None):
     """The post-forward half of a verify step (spec.py:128-279): the FSM
     walk along each draft, every position's masked greedy pick, longest
     prefix acceptance plus the bonus token, the byte / token / cache caps,
@@ -129,7 +130,9 @@ def _verify_commit(logits, cur, pos, fsm_state, active, nbytes, tokens_left, dra
     row deactivates without committing anything. With ``quality_lanes`` each
     verified decision (positions 0..a of a row that commits) is scored at its
     own FSM state over the position's masked logits, all positions in one
-    batched ``_conf_stats``. Returns (out, n_step, eos, new_cur, new_pos,
+    batched ``_conf_stats``. On a mesh (``mesh_tables``, the engine's
+    replicated grammar tables) the block's picks run one K11 launch per
+    shard over its dp rows. Returns (out, n_step, eos, new_cur, new_pos,
     new_state, new_active, nbytes, left, a, dl, poison, conf): conf is the
     step's five lanes, or None with the lanes off."""
     dev = logits.device
@@ -147,7 +150,11 @@ def _verify_commit(logits, cur, pos, fsm_state, active, nbytes, tokens_left, dra
     if tables.dense_mask is not None:
         # one K11 launch for the whole block; a dead state's pick sits past
         # the first mismatch, so its clamped garbage never decides anything
-        g = masked_argmax_block(logits, states, tables.dense_mask)
+        if mesh_tables is not None:
+            g = sharded_masked_argmax_block(mesh_tables[0], logits, states,
+                                            mesh_tables[1]).full(dev)
+        else:
+            g = masked_argmax_block(logits, states, tables.dense_mask)
         g = torch.where(states >= 0, g, 0)
     else:
         gs = []
@@ -232,7 +239,8 @@ def verify_step(engine, cur, pos, fsm_state, active, nbytes, tokens_left, draft_
     return _verify_commit(logits, cur, pos, fsm_state, active, nbytes, tokens_left, draft_toks,
                           dl, step_tok, blk_tok, engine.tables, engine.byte_len_table,
                           byte_budget, K, engine.eos_id, engine.pad_id, max_pos,
-                          quality_lanes=quality_lanes)
+                          quality_lanes=quality_lanes,
+                          mesh_tables=getattr(engine, "mesh_tables", None))
 
 
 # one body, JAX's two compile-sentinel sites (its dense and paged jit twins)

@@ -1407,7 +1407,8 @@ def _wrap_engine(engine):
 PARSED_KNOBS = {"RADIX_SESSIONS": int, "RADIX_MAX_NODES": int, "RADIX_PRESSURE_S": float,
                 "COST_SESSIONS": int, "COST_PEAK_TFLOPS": float, "COST_PEAK_GBPS": float,
                 "ENGINE_STALL_S": float, "CHAOS_STALL_S": float, "BRAIN_SP": int,
-                "BRAIN_PLANNER_HBM_MB": int, "BRAIN_PLANNER_PARK_MB": int}
+                "BRAIN_PLANNER_HBM_MB": int, "BRAIN_PLANNER_PARK_MB": int, "BRAIN_PP": int,
+                "BRAIN_TP": int}
 
 
 def check_unserved_knobs() -> None:
@@ -1415,11 +1416,15 @@ def check_unserved_knobs() -> None:
     silently ignore: a ``CHAOS_FAULTS`` that names an unknown point or arms
     one the port does not serve. A ``BRAIN_MODEL`` that is no HF checkpoint
     directory (``config.json``, ``tokenizer.json``, ``*.safetensors``), a
-    malformed ``TENANT_CLASSES`` or a radix / cost / watchdog knob that does
-    not parse raises here too, naming the knob."""
+    malformed ``TENANT_CLASSES``, a radix / cost / watchdog / mesh knob that
+    does not parse, or a multi-process setting (``JAX_COORDINATOR_ADDRESS``
+    / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``: ``init_multihost``) raises
+    here too, naming the knob."""
     from ..ckpt.hf_import import check_hf_dir
+    from ..parallel.multihost import init_multihost
     from ..serve.tenancy import parse_tenant_classes
 
+    init_multihost()
     if os.environ.get("BRAIN_MODEL"):
         check_hf_dir(os.environ["BRAIN_MODEL"], "BRAIN_MODEL")
     for name, kind in PARSED_KNOBS.items():
@@ -1450,7 +1455,8 @@ def make_parser_from_env():
     ``engine[:preset]`` (preset default ``tinyllama-1.1b``) with
     ``BRAIN_QUANT`` / ``BRAIN_FF`` / ``BRAIN_PREFIX``, or
     ``planner[:preset]`` / ``planner-distilled[:<dir>]``
-    (``planner_from_env``); ``BRAIN_BATCH`` slots
+    (``planner_from_env``), or ``pp[:preset]`` (``pp_from_env``: the
+    pp x tp engine); ``BRAIN_BATCH`` slots
     behind the continuous batcher; ``BRAIN_PAGED=1`` the paged pool
     (``BRAIN_POOL_BLOCKS``), with ``RADIX_ENABLE=1`` session KV reuse and
     ``KV_QUANT=int8|int4`` the quantized pool (both read at engine
@@ -1516,10 +1522,15 @@ def make_parser_from_env():
                 log.warning("%s is not supported by the %s backend; ignoring", name,
                             backend.split(":", 1)[0])
         return planner_from_env(backend, device)
+    if backend == "pp" or backend.startswith("pp:"):
+        for name, val in (("BRAIN_PAGED", paged), ("BRAIN_MOE", moe)):
+            if val:  # JAX's own warnings
+                log.warning("%s is not supported by the pp backend; ignoring", name)
+        return pp_from_env(backend, device, slots, quant, spec)
     if not backend.startswith("engine"):
-        raise ValueError(f"BRAIN_BACKEND {backend!r} is not ported yet (the port serves rule, "
-                         "distilled, engine[:preset], planner[:preset] and planner-distilled; "
-                         "the pp / tp layouts are ROADMAP.md Queue 1 item 8)")
+        raise ValueError(f"unknown BRAIN_BACKEND {backend!r} (the port serves rule, "
+                         "distilled, engine[:preset], pp[:preset], planner[:preset] and "
+                         "planner-distilled)")
     from ..models.llama import PRESETS
     from ..serve.engine import DecodeEngine
     from ..serve.paged import PagedDecodeEngine
@@ -1536,6 +1547,45 @@ def make_parser_from_env():
     return _wrap_engine(DecodeEngine(batch_slots=slots, **kw))
 
 
+def brain_devices(device=None) -> list:
+    """The devices of the brain's type: every visible card, or the one CPU
+    under ``BRAIN_DEVICE=cpu`` (what ``BRAIN_SP`` / ``BRAIN_PP`` x
+    ``BRAIN_TP`` count against)."""
+    import torch
+
+    from ..serve.engine import resolve_device
+
+    dev = resolve_device(device)
+    return ([dev] if dev.type == "cpu"
+            else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+
+
+def pp_from_env(backend: str, device, slots: int, quant, spec) -> BatchedEngineParser:
+    """``BRAIN_BACKEND=pp[:preset]`` (preset default ``tinyllama-1.1b``,
+    random weights): ``PPDecodeEngine`` on a (``BRAIN_PP``, ``BRAIN_TP``)
+    mesh, by default pp = min(2, devices) and tp = devices // pp over the
+    devices of the brain's type; more than there are raises naming both
+    knobs. ``BRAIN_FF`` defaults to 0 here only, as JAX has it; a set
+    ``SPEC_ENABLE`` is refused by the engine."""
+    from ..models.llama import PRESETS
+    from ..parallel.pipeline import pp_tp_mesh
+    from ..serve.pp_engine import PPDecodeEngine
+
+    preset = backend.split(":", 1)[1] if ":" in backend else "tinyllama-1.1b"
+    if preset not in PRESETS:
+        raise ValueError(f"BRAIN_BACKEND {backend!r}: unknown preset {preset!r}")
+    devices = brain_devices(device)
+    ndev = len(devices)
+    pp = int(os.environ.get("BRAIN_PP", "0") or "0") or min(2, ndev)
+    tp = int(os.environ.get("BRAIN_TP", "0") or "0") or max(1, ndev // pp)
+    if pp * tp > ndev:
+        raise ValueError(f"BRAIN_PP={pp} x BRAIN_TP={tp} needs {pp * tp} devices, have {ndev}")
+    ff = int(os.environ.get("BRAIN_FF", "0"))
+    return _wrap_batched(PPDecodeEngine(preset=preset, mesh=pp_tp_mesh(pp, tp, devices),
+                                        batch_slots=slots, quant=quant, fast_forward=ff,
+                                        spec=spec))
+
+
 def planner_from_env(backend: str, device=None) -> PlannerParser:
     """``BRAIN_BACKEND=planner[:preset]`` (preset default ``tinyllama-1.1b``,
     random weights) or ``planner-distilled[:<dir>]`` (the in-repo trained
@@ -1545,12 +1595,9 @@ def planner_from_env(backend: str, device=None) -> PlannerParser:
     card; 1 under ``BRAIN_DEVICE=cpu``); more than there are raises naming
     it. A ``planner-distilled:`` directory other than ``intent-tiny-distilled``
     is refused, as ``distilled:`` is."""
-    import torch
-
     from .. import distilled
     from ..models.llama import PRESETS
     from ..parallel.ring import sp_mesh
-    from ..serve.engine import resolve_device
     from ..serve.planner import LongSessionPlanner
 
     kind, _, arg = backend.partition(":")
@@ -1564,9 +1611,7 @@ def planner_from_env(backend: str, device=None) -> PlannerParser:
     preset = arg or "tinyllama-1.1b"
     if kind == "planner" and preset not in PRESETS:
         raise ValueError(f"BRAIN_BACKEND {backend!r}: unknown preset {preset!r}")
-    dev = resolve_device(device)
-    devices = ([dev] if dev.type == "cpu"
-               else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    devices = brain_devices(device)
     sp = int(os.environ.get("BRAIN_SP", "0") or "0") or len(devices)
     try:
         mesh = sp_mesh(sp, devices)
@@ -2254,8 +2299,10 @@ def main() -> None:
     # the repo-root .env first: its knobs are served or refused like the
     # environment's
     load_env_cascade()
-    check_unserved_knobs()  # a refused knob fails the boot before any device
-    if os.environ.get("BRAIN_BACKEND", "rule").startswith(("engine", "distilled")):
+    # a refused knob fails the boot before any device; its first check is
+    # init_multihost, so a multi-process setting is refused first, as JAX joins first
+    check_unserved_knobs()
+    if os.environ.get("BRAIN_BACKEND", "rule").startswith(("engine", "distilled", "pp")):
         # a model backend: the card's first touch under the watchdog
         require_card_unless_cpu(os.environ.get("BRAIN_DEVICE") or None)
     port = int(os.environ.get("BRAIN_PORT", "8090"))

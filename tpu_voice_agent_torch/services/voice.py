@@ -1017,6 +1017,9 @@ def main() -> None:
     # the repo-root .env first: its knobs are served or refused like the
     # environment's
     load_env_cascade()
+    from ..parallel.multihost import init_multihost
+
+    init_multihost()  # a multi-process setting is refused first, as JAX joins first
     if os.environ.get("VOICE_STT", "null").startswith(("whisper:", "whisper-ckpt:")) \
             or os.environ.get("VOICE_STT") == "whisper":
         # a Whisper engine the service serves: the card's first touch under

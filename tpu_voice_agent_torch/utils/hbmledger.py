@@ -37,6 +37,7 @@ import time
 
 import torch
 
+from ..parallel.mesh import Sharded
 from .tracing import get_metrics
 
 
@@ -46,6 +47,8 @@ def _tree_bytes(tree) -> int:
         return 0
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
+    if isinstance(tree, Sharded):  # a mesh engine's per-device blocks
+        return tree.nbytes()
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
